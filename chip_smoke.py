@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``draco_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--steps N] [--out FILE]
+    python3 chip_smoke.py [--steps N] [--lm-steps N] [--profile] [--out FILE]
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
   1. build    every kernel of ``draco_tpu_torch/csrc`` with nvcc, in parallel
   2. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes (n=8, d=11,173,962 for the coded
-              products; L=1 and L=62 columns at n=8, s=1 for the locator,
-              with an attacked row, an absent row and a λ>0 case); times
-              the kernel, its plain version, its bound and, for the coded
-              products, one torch.matmul computing the same function
+              the main paths' shapes: the coded products at n=8,
+              d=11,173,962; the locator at L=1 and L=62 columns, n=8, s=1,
+              with an attacked row, an absent row, a λ>0 case and
+              NaN-poisoned columns; the flash forward, dq and dk/dv at
+              G=8·2·12 heads, T=512, Dh=64 and at a ragged T=520. Times
+              each kernel, its plain version, its bound and the one
+              PyTorch call that computes the same function, where there is
+              one (torch.matmul; scaled_dot_product_attention and its
+              autograd backward)
   3. legs     ResNet-18 on synthetic CIFAR-10 at full width, n=8 workers,
               batch 32, s=1, a rev_grad adversary every step: the cyclic
               ``simulate`` leg, the geometric-median leg and the cyclic
-              ``shared`` leg, each with the launch counts zeroed just before
-              it and read just after; every coded step must locate the
-              adversary (honest_located=6, located_errors=det_tp=det_adv=1)
-  4. check    the decode at the main path's size, and one small coded step,
-              on the card against the same on the CPU through the plain
-              versions
+              ``shared`` leg; then the TransformerLM of the LM benchmark at
+              full width (dim 768, 12 heads, 8 layers, vocab 8192, T=512,
+              batch 2, bfloat16 compute, flash attention, d=62,958,336):
+              ``lm_shared_flash``, ``lm_simulate_flash`` (24 lanes) and
+              ``lm_geomedian_flash``. Each leg runs through the entry points
+              a user calls (Trainer / build_sp_train_setup + TokenLoop) with
+              the launch counts zeroed just before it and read just after;
+              every coded step must locate the adversary (honest_located=6,
+              located_errors=det_tp=det_adv=1)
+  4. check    the ResNet decode at full size and one small ResNet step, on
+              the card against the CPU; one full-width LM step with
+              attn_impl=dense against flash on the card; one small coded LM
+              step on the card against the CPU
 
 ``--profile`` adds one torch.profiler step per leg (device time by kernel
 and the device's busy share); ``--out`` writes the whole record as JSON.
@@ -33,6 +44,7 @@ device it exits with status 1 before printing anything on stdout.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -40,13 +52,18 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from draco_tpu_torch import _build, attacks, ops
+from draco_tpu_torch import params as params_mod
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.coding import cyclic
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data.datasets import load_dataset
 from draco_tpu_torch.ops import coded, decode_kernels
+from draco_tpu_torch.ops import flash_attention as fa
+from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
+from draco_tpu_torch.parallel.token_loop import TokenLoop
 from draco_tpu_torch.runtime import resolve_device
 from draco_tpu_torch.training.trainer import Trainer
 
@@ -54,6 +71,19 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 N, S, D = 8, 1, 11_173_962  # ResNet-18's flat gradient at n=8, s=1
 SEED = 428
+CODED = ("complex_matmul", "complex_project", "complex_recombine",
+         "cyclic_locator")
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+# the LM benchmark's configuration (tools/tpu_lm_perf.py, variant
+# lm_cyclic_s1_shared_bf16_flash, at that tool's defaults)
+LM_FULL = dict(network="TransformerLM", dataset="synthetic-text",
+               batch_size=2, lr=0.01, momentum=0.9, num_workers=N,
+               worker_fail=S, err_mode="rev_grad", seq_len=512, vocab=8192,
+               model_dim=768, model_heads=12, model_layers=8,
+               compute_dtype="bfloat16", attn_impl="flash", eval_freq=0,
+               train_dir="", seed=SEED)
+LM_D = 62_958_336  # its flat gradient
+G_LM = N * 2 * 12  # flash heads per call on the shared leg: lanes·B·H
 
 
 class SmokeFailure(RuntimeError):
@@ -79,6 +109,22 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls captured in one CUDA
+    graph and replayed, so the host's cost of each call drops out (for a
+    kernel shorter than its wrapper's Python)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, 3, warmup=1) / reps
 
 
 def bound(nbytes: float, flops: float) -> tuple:
@@ -206,21 +252,36 @@ def locator_kernel(code, dev) -> list:
                                              cyclic.HEALTH_REL_TOL, lam=lam)
 
     # the discrete outputs must be equal; v and the residual are f32 solves
-    # of a well-conditioned 6×6 system: 1e-4 of max|v|, 1e-5 absolute
-    cases = [("L=1, attacked row 3", 1, (3,), (), 0.0),
-             ("L=62, attacked row 5", 62, (5,), (), 0.0),
-             ("L=1, attacked row 2, absent row 6", 1, (2,), (6,), 0.0),
-             ("L=62, λ=2^-6, attacked row 1", 62, (1,), (), 2.0 ** -6),
-             ("L=8, λ=2^-6, clean", 8, (), (), 2.0 ** -6)]
+    # of a well-conditioned 6×6 system: 1e-4 of max|v|, 1e-5 absolute, and
+    # NaN in the same places. The NaN cases poison a row of every column,
+    # or one row of one column of 62 (a worker that sent NaN)
+    cases = [("L=1, attacked row 3", 1, (3,), (), 0.0, None),
+             ("L=62, attacked row 5", 62, (5,), (), 0.0, None),
+             ("L=1, attacked row 2, absent row 6", 1, (2,), (6,), 0.0, None),
+             ("L=62, λ=2^-6, attacked row 1", 62, (1,), (), 2.0 ** -6, None),
+             ("L=8, λ=2^-6, clean", 8, (), (), 2.0 ** -6, None),
+             ("L=1, attacked row 1, NaN row 3", 1, (1,), (), 0.0, (None, 3)),
+             ("L=62, attacked row 5, NaN in column 7 row 2", 62, (5,), (),
+              0.0, (7, 2)),
+             ("L=62, λ=2^-6, NaN row 4", 62, (), (), 2.0 ** -6, (None, 4))]
     worst = 0.0
-    for label, L, attacked, absent, lam in cases:
+    for label, L, attacked, absent, lam, nan in cases:
         e_re, e_im, pres = locator_columns(code, L, attacked, absent, dev, g)
+        if nan is not None:
+            cols = slice(None) if nan[0] is None else nan[0]
+            e_re[cols, nan[1]] = float("nan")
         k = kernel(e_re, e_im, pres, lam)
         p = plain(e_re, e_im, pres, lam)
         for name, a, b in zip(("honest", "flagged", "loud"), k[2:5], p[2:5]):
             require(torch.equal(a, b), f"cyclic_locator [{label}]: {name} "
                     f"differs: kernel {a.int().tolist()} plain "
                     f"{b.int().tolist()}")
+        for name, a, b in (("v_re", k[0], p[0]), ("v_im", k[1], p[1]),
+                           ("residual", k[5], p[5])):
+            require(torch.equal(a.isnan(), b.isnan()),
+                    f"cyclic_locator [{label}]: {name} NaN in other places")
+        k = [torch.nan_to_num(x, nan=0.0) for x in k]
+        p = [torch.nan_to_num(x, nan=0.0) for x in p]
         v_scale = max(p[0].abs().max().item(), p[1].abs().max().item())
         v_err = max((k[0] - p[0]).abs().max().item(),
                     (k[1] - p[1]).abs().max().item())
@@ -229,6 +290,12 @@ def locator_kernel(code, dev) -> list:
                 f"cyclic_locator [{label}]: v err {v_err} > {1e-4 * v_scale}")
         require(r_err <= 1e-5, f"cyclic_locator [{label}]: residual err "
                 f"{r_err} > 1e-5")
+        if nan is not None:  # the reference's outcome, not a location
+            worst = max(worst, v_err)
+            print(f"kernel cyclic_locator [{label}]: discrete outputs equal "
+                  f"(honest {k[2][0].int().tolist()}), v err {v_err:.3e}",
+                  flush=True)
+            continue
         for row in attacked:
             require(not bool(k[2][:, row].any()) and bool(k[3][:, row].all()),
                     f"cyclic_locator [{label}]: attacked row {row} not "
@@ -242,22 +309,24 @@ def locator_kernel(code, dev) -> list:
 
     # timed at the main path's shape: one column (global decode)
     e_re, e_im, pres = locator_columns(code, 1, (3,), (), dev, g)
-    ms = time_ms(lambda: kernel(e_re, e_im, pres), 200)
+    ms = graph_ms(lambda: kernel(e_re, e_im, pres), 200)
+    launch_ms = time_ms(lambda: kernel(e_re, e_im, pres), 200)
     plain_ms = time_ms(lambda: plain(e_re, e_im, pres), 10)
     n, s, m = N, S, N - 2 * S
     nbytes = 4 * (2 * n + 2 * (2 * s * n + n * m + n * (s + 1)) + n
                   + 2 * n + 1) + 3 * n
     flops = locator_flops(n, s)
     b_ms, b_by = bound(nbytes, flops)
-    print(f"kernel cyclic_locator: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.3e} ({b_by}; the launch sets its time)",
-          flush=True)
+    print(f"kernel cyclic_locator: ms={ms:.4f} (device, CUDA graph) "
+          f"launch_ms={launch_ms:.4f} (back-to-back wrapper calls) "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.3e} ({b_by}; the serial "
+          f"chain and the launch set its time)", flush=True)
     return [{"name": "cyclic_locator", "route": "cuda",
              "source": "draco_tpu_torch/csrc/cyclic_locator.cu",
              "replaces": "draco_tpu/ops/decode_kernels.py:127", "ok": True,
              "max_abs_err": worst, "tol": "discrete equal; v 1e-4 rel",
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "library_ms": None}]
+             "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
 
 
 def locator_flops(n: int, s: int, sweeps: int = 12) -> int:
@@ -274,24 +343,135 @@ def locator_flops(n: int, s: int, sweeps: int = 12) -> int:
     return syndrome + jacobi + values + gauss + fit + rank
 
 
+def flash_kernels(dev) -> list:
+    """The flash forward, dq and dk/dv against their plain versions at the
+    LM path's shape (G = lanes·B·H = 192 heads of T=512, Dh=64, f32) and at
+    a ragged T=520, with and without an lse cotangent; timed at T=512."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    dh = 64
+    rows = {}
+    for t in (512, 520):
+        q, k, v, do = (torch.randn((G_LM, t, dh), generator=g, device=dev)
+                       for _ in range(4))
+        dl = torch.randn((G_LM, t), generator=g, device=dev)
+        o, lse = fa.flash_fwd(q, k, v)
+        po, plse = fa.flash_fwd_plain(q, k, v)
+        dcap = (do * o).sum(-1)
+        pairs = [("flash_fwd", o, po), ("flash_fwd", lse, plse)]
+        for dlse in (None, dl):
+            args = (q, k, v, do, lse, dcap, dlse)
+            pairs.append(("flash_dq", fa.flash_dq(*args),
+                          fa.flash_dq_plain(*args)))
+            for a, b in zip(fa.flash_dkv(*args), fa.flash_dkv_plain(*args)):
+                pairs.append(("flash_dkv", a, b))
+        torch.cuda.synchronize()
+        # float32 sums of up to T products in another order (the plain
+        # versions' full-f32 einsums): 1e-5 of each output's largest entry
+        for name, a, b in pairs:
+            err = (a - b).abs().max().item()
+            tol = 1e-5 * b.abs().max().item()
+            require(err <= tol, f"{name} T={t}: max_abs_err {err} > {tol}")
+            row = rows.setdefault(name, {"max_abs_err": 0.0, "tol": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["tol"] = max(row["tol"], tol)
+        print(f"kernel flash T={t}: " + ", ".join(
+            f"{n} err {r['max_abs_err']:.3e}" for n, r in rows.items()),
+            flush=True)
+        if t == 520:
+            break
+        args = (q, k, v, do, lse, dcap, None)
+        q4, k4, v4 = (x[None] for x in (q, k, v))  # (1, G, T, Dh)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 20)
+        ql, kl, vl = (x.clone().requires_grad_() for x in (q4, k4, v4))
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (ql, kl, vl), do[None], retain_graph=True), 20)
+        times = {
+            "flash_fwd": (time_ms(lambda: fa.flash_fwd(q, k, v), 20),
+                          time_ms(lambda: fa.flash_fwd_plain(q, k, v), 10),
+                          lib_fwd),
+            "flash_dq": (time_ms(lambda: fa.flash_dq(*args), 20),
+                         time_ms(lambda: fa.flash_dq_plain(*args), 10),
+                         lib_bwd),
+            "flash_dkv": (time_ms(lambda: fa.flash_dkv(*args), 20),
+                          time_ms(lambda: fa.flash_dkv_plain(*args), 10),
+                          lib_bwd),
+        }
+        del ql, kl, vl, out
+    # causal (q, k) pairs; products of Dh-long rows per pair: 2 in the
+    # forward (q·k, p·v), 3 in dq (q·k, do·v, ds·k), 4 in dk/dv (q·k, do·v,
+    # p·do, ds·q); each 2·Dh flops. Bytes: each input read once, each
+    # output written once.
+    t = 512
+    pairs = G_LM * t * (t + 1) / 2
+    mat, stat = 4 * G_LM * t * dh, 4 * G_LM * t
+    work = {"flash_fwd": (3 * mat + mat + stat, 2 * 2 * dh * pairs),
+            "flash_dq": (4 * mat + 2 * stat + mat, 3 * 2 * dh * pairs),
+            "flash_dkv": (4 * mat + 2 * stat + 2 * mat, 4 * 2 * dh * pairs)}
+    lines = {"flash_fwd": "draco_tpu/ops/flash_attention.py:174",
+             "flash_dq": "draco_tpu/ops/flash_attention.py:328",
+             "flash_dkv": "draco_tpu/ops/flash_attention.py:353"}
+    out = []
+    for name in FLASH:
+        ms, plain_ms, lib_ms = times[name]
+        b_ms, b_by = bound(*work[name])
+        print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
+              flush=True)
+        out.append({"name": name, "route": "cuda",
+                    "source": "draco_tpu_torch/csrc/flash_attention.cu",
+                    "replaces": lines[name], "ok": True, **rows[name],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms,
+                    "library_call": ("scaled_dot_product_attention"
+                                     if name == "flash_fwd" else
+                                     "its autograd backward (dq, dk, dv "
+                                     "together)")})
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 3: the training legs
 # --------------------------------------------------------------------------
 
 def leg(name: str, steps: int, expect: tuple, dev, profile: bool = False,
         **cfg_kw) -> dict:
+    """A ResNet-18 leg through the CNN Trainer."""
     cfg = TrainConfig(network="ResNet18", dataset="synthetic-cifar10",
                       num_workers=N, worker_fail=S, err_mode="rev_grad",
                       batch_size=32, lr=0.01, momentum=0.9,
                       max_steps=steps + 2, train_dir="", seed=SEED, **cfg_kw)
     tr = Trainer(cfg, device=dev, dataset=load_dataset("synthetic-cifar10"),
                  quiet=True)
-    require(tr.setup.decode_impl == "cuda",
-            f"{name}: the locator resolved to {tr.setup.decode_impl!r}")
-    first = tr.step()  # warm-up: cuDNN plans, first kernel loads
+    return drive(name, tr, tr.setup, cfg, steps, expect, dev, profile)
+
+
+def lm_leg(name: str, steps: int, expect: tuple, dev, profile: bool = False,
+           **cfg_kw) -> dict:
+    """A full-width TransformerLM leg through build_sp_train_setup and the
+    token loop, as ``python -m draco_tpu_torch.cli --network
+    TransformerLM`` runs it."""
+    cfg = TrainConfig(**dict(LM_FULL, max_steps=steps + 2, **cfg_kw))
+    setup = build_sp_train_setup(cfg, dev)
+    require(setup.dim == LM_D, f"{name}: d={setup.dim}, expected {LM_D}")
+    out = drive(name, TokenLoop(setup, cfg, quiet=True), setup, cfg, steps,
+                expect, dev, profile)
+    out["dim"] = setup.dim
+    return out
+
+
+def drive(name, runner, setup, cfg, steps, expect, dev, profile) -> dict:
+    """One warm-up step, then ``steps`` steps with the launch counts zeroed
+    just before them and read just after; every coded step must locate the
+    adversary."""
+    require(setup.decode_impl == "cuda",
+            f"{name}: the locator resolved to {setup.decode_impl!r}")
+    first = runner.step()  # warm-up: cuDNN/cuBLAS plans, kernel loads
     require(first["loss"] == first["loss"], f"{name}: warm-up loss is NaN")
+    torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
-    recs = [tr.step() for _ in range(steps)]
+    recs = [runner.step() for _ in range(steps)]
     counts = ops.launch_counts()
     for r in recs:
         require(math.isfinite(r["loss"]),
@@ -313,14 +493,15 @@ def leg(name: str, steps: int, expect: tuple, dev, profile: bool = False,
           f"(host clock, device synchronised); launches {counts}; "
           f"losses {['%.4f' % x for x in out['loss']]}", flush=True)
     if profile:
-        out["profile"] = prof = profile_step(tr)
+        out["profile"] = prof = profile_step(runner)
         print(f"leg {name} profile: wall {prof['wall_ms']:.2f} ms, device "
               f"busy {prof['device_busy_ms']:.2f} ms; top kernels "
               + "; ".join(f"{r['name'][:48]} {r['device_ms']:.2f} ms x"
-                          f"{r['calls']}" for r in prof["top"][:8]),
+                          f"{r['calls']}" for r in prof["top"][:8])
+              + f"; {prof['host_ops']} host ops, top by self time "
+              + "; ".join(f"{r['name'][:40]} {r['host_self_ms']:.1f} ms x"
+                          f"{r['calls']}" for r in prof["host_top"][:6]),
               flush=True)
-    del tr
-    torch.cuda.empty_cache()
     return out
 
 
@@ -391,6 +572,61 @@ def cross_device_check(dev) -> dict:
             "loss_cpu": rp["loss"]}
 
 
+def _lm_step(cfg, dev, init=None) -> tuple:
+    """One LM step through build_sp_train_setup and the token loop: its
+    record and the parameter update as one flat host vector."""
+    setup = build_sp_train_setup(cfg, dev, init=init)
+    before = params_mod.flatten(setup.state.params, setup.layout).cpu()
+    rec = TokenLoop(setup, cfg, quiet=True).step()
+    delta = params_mod.flatten(setup.state.params, setup.layout).cpu() - before
+    return rec, delta
+
+
+def _compare_lm(label, a, b, loss_rtol, update_rtol) -> dict:
+    (ra, da), (rb, db) = a, b
+    for k in ("honest_located", "located_errors", "det_tp", "det_adv"):
+        if k in ra:
+            require(ra[k] == rb[k], f"{label}: {k} {ra[k]} vs {rb[k]}")
+    loss_rel = abs(ra["loss"] - rb["loss"]) / abs(rb["loss"])
+    rel = ((da - db).norm() / db.norm()).item()
+    print(f"check {label}: loss {ra['loss']:.7f} vs {rb['loss']:.7f} (rel "
+          f"{loss_rel:.2e}, tol {loss_rtol:g}); update relative L2 err "
+          f"{rel:.3e} (tol {update_rtol:g})", flush=True)
+    require(loss_rel <= loss_rtol, f"{label}: loss rel err {loss_rel}")
+    require(rel <= update_rtol, f"{label}: update rel err {rel}")
+    return {"loss_a": ra["loss"], "loss_b": rb["loss"],
+            "loss_rel_err": loss_rel, "update_rel_l2_err": rel}
+
+
+def lm_checks(dev) -> dict:
+    """(a) One full-width LM step (shared redundancy, float32 compute, the
+    same init and tokens) with attn_impl=dense and with flash on the card:
+    the discrete decode equal, the losses to 1e-5 relative, the updates to
+    1e-3 in relative L2 norm — the two attentions are the same float32
+    function summed in another order, and the step has no ReLU kink to
+    amplify that (GELU is smooth).
+    (b) One small coded LM step (simulate, 24 lanes, flash, n=8, B=2,
+    T=32, dim 64, 2 layers) on the card against the CPU through the plain
+    versions, from the same host-drawn init: the same bounds."""
+    full = TrainConfig(**dict(LM_FULL, approach="cyclic", redundancy="shared",
+                              compute_dtype="float32", max_steps=1))
+    flash = _lm_step(full, dev)
+    torch.cuda.empty_cache()
+    dense = _lm_step(dataclasses.replace(full, attn_impl="dense"), dev)
+    torch.cuda.empty_cache()
+    out = {"dense_vs_flash": _compare_lm(
+        "LM step dense vs flash (full width, f32, shared)", flash, dense,
+        1e-5, 1e-3)}
+    small = TrainConfig(**dict(LM_FULL, approach="cyclic",
+                               redundancy="simulate", compute_dtype="float32",
+                               seq_len=32, vocab=64, model_dim=64,
+                               model_heads=4, model_layers=2, max_steps=1))
+    out["cuda_vs_cpu"] = _compare_lm(
+        "LM step cuda vs cpu (simulate, small)", _lm_step(small, dev),
+        _lm_step(small, "cpu"), 1e-5, 1e-3)
+    return out
+
+
 def profile_step(tr) -> dict:
     """One more step under torch.profiler: device time by kernel name (the
     top 15) and the device's busy time, beside the step's wall time under
@@ -418,13 +654,25 @@ def profile_step(tr) -> dict:
     top = sorted(events, key=dev_us, reverse=True)[:15]
     rows = [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3,
              "calls": e.count} for e in top]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top": rows}
+    # where the host's time goes: host-side events by self time (under the
+    # profiler, which inflates each one)
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    host_top = [{"name": e.key[:90], "host_self_ms": e.self_cpu_time_total
+                 / 1e3, "calls": e.count}
+                for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                                reverse=True)[:12]]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top": rows,
+            "host_top": host_top,
+            "host_ops": sum(e.count for e in host)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4,
-                    help="timed steps per leg, after one warm-up step")
+                    help="timed steps per ResNet leg, after one warm-up step")
+    ap.add_argument("--lm-steps", type=int, default=3,
+                    help="timed steps per LM leg, after one warm-up step")
     ap.add_argument("--out", type=str, default="",
                     help="also write the full record as JSON to this file")
     ap.add_argument("--profile", action="store_true",
@@ -450,25 +698,41 @@ def main(argv=None) -> int:
           f"{record['build_s']:.1f} s", flush=True)
 
     code = cyclic.build_cyclic_code(N, S)
-    kernels = coded_kernels(code, dev) + locator_kernel(code, dev)
+    kernels = (coded_kernels(code, dev) + locator_kernel(code, dev)
+               + flash_kernels(dev))
     torch.cuda.empty_cache()
 
-    legs = [leg("simulate", args.steps,
-                ("complex_project", "cyclic_locator", "complex_recombine"),
-                dev, args.profile, approach="cyclic", redundancy="simulate"),
-            leg("geomedian", args.steps, (), dev, args.profile,
-                approach="baseline", mode="geometric_median"),
-            leg("shared", args.steps, tuple(ops.KERNELS), dev, args.profile,
-                approach="cyclic", redundancy="shared")]
+    legs = []
+    for fn, name, steps, expect, kw in (
+            (leg, "simulate", args.steps, CODED[1:],
+             dict(approach="cyclic", redundancy="simulate")),
+            (leg, "geomedian", args.steps, (),
+             dict(approach="baseline", mode="geometric_median")),
+            (leg, "shared", args.steps, CODED,
+             dict(approach="cyclic", redundancy="shared")),
+            (lm_leg, "lm_shared_flash", args.lm_steps, CODED + FLASH,
+             dict(approach="cyclic", redundancy="shared")),
+            (lm_leg, "lm_simulate_flash", args.lm_steps, CODED[1:] + FLASH,
+             dict(approach="cyclic", redundancy="simulate")),
+            (lm_leg, "lm_geomedian_flash", args.lm_steps, FLASH,
+             dict(approach="baseline", mode="geometric_median"))):
+        legs.append(fn(name, steps, expect, dev, args.profile, **kw))
+        torch.cuda.empty_cache()
     record["legs"] = legs
     record["cross_device"] = cross_device_check(dev)
+    record["lm_checks"] = lm_checks(dev)
 
-    # launches per kernel: from the simulate leg (the main path), and from
-    # the shared leg for the encode, which only that leg runs
+    # launches per kernel: the coded kernels from the ResNet simulate leg
+    # (the first slice's main path) and the encode from the shared leg,
+    # which only that leg runs; the flash kernels from lm_shared_flash
+    by_name = {lg["leg"]: lg for lg in legs}
     for row in kernels:
-        src = legs[2] if row["name"] == "complex_matmul" else legs[0]
+        src = by_name[{"complex_matmul": "shared"}.get(
+            row["name"], "lm_shared_flash" if row["name"] in FLASH
+            else "simulate")]
         row["launches"] = src["launches"][row["name"]]
         row["launches_from_leg"] = src["leg"]
+        row["launches_per_step"] = row["launches"] / src["steps"]
     record["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

@@ -42,6 +42,11 @@ SIGNATURES = {
     "cyclic_locator": {
         "draco_cyclic_locator": [_P] * 15 + [_I] * 4 + [_F] * 8 + [_P],
     },
+    "flash_attention": {
+        "draco_flash_fwd": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
+        "draco_flash_dq": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+        "draco_flash_dkv": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    },
 }
 
 _LOADED: dict = {}

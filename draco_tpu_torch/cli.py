@@ -5,9 +5,16 @@
   python -m draco_tpu_torch.cli --approach cyclic --network ResNet18 \\
       --dataset synthetic-cifar10 --num-workers 8 --worker-fail 1 \\
       --batch-size 4 --max-steps 3 --device cpu
+  python -m draco_tpu_torch.cli --network TransformerLM \\
+      --dataset synthetic-text --approach cyclic --redundancy shared \\
+      --attn-impl flash --compute-dtype bfloat16 --num-workers 8 \\
+      --worker-fail 1 --batch-size 2 --seq-len 512 --model-dim 768 \\
+      --model-heads 12 --model-layers 8 --vocab 8192 --max-steps 5
 
 Runs on the card unless ``--device cpu`` is given. With ``--preset``, the
 flags given on the command line override the preset's fields.
+``network=TransformerLM`` runs the single-shard LM step and its token loop
+(``parallel/sp_step.py``), every other network the CNN trainer.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from draco_tpu_torch.config import TrainConfig
+from draco_tpu_torch.config import LM_NETWORK, TrainConfig
 
 # flag -> (type, TrainConfig field); every flag defaults to "not given"
 FLAGS = {
@@ -43,6 +50,14 @@ FLAGS = {
     "--log-every": (int, "log_every"),
     "--seed": (int, "seed"),
     "--geomedian-iters": (int, "geomedian_iters"),
+    "--seq-len": (int, "seq_len"),
+    "--vocab": (int, "vocab"),
+    "--model-dim": (int, "model_dim"),
+    "--model-heads": (int, "model_heads"),
+    "--model-layers": (int, "model_layers"),
+    "--attn-impl": (str, "attn_impl"),
+    "--compute-dtype": (str, "compute_dtype"),
+    "--eval-freq": (int, "eval_freq"),
 }
 
 
@@ -70,6 +85,10 @@ def config_from_args(args) -> TrainConfig:
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     cfg = config_from_args(args)
+    if cfg.network == LM_NETWORK:
+        from draco_tpu_torch.parallel.sp_step import train_sp
+
+        return train_sp(cfg, device=args.device)[1]
     from draco_tpu_torch.training.trainer import Trainer
 
     return Trainer(cfg, device=args.device).run()

@@ -73,14 +73,20 @@ def gauss_inv_c(a_re: torch.Tensor, a_im: torch.Tensor):
         mod = torch.where(rowix >= k, mod, torch.full_like(mod, -1.0))
         mx = mod.max(dim=1, keepdim=True).values
         r = torch.where(mod == mx, rowix, torch.full_like(rowix, float(m)))
-        r = r.min(dim=1).values.long()  # lowest-index argmax
+        # lowest-index argmax; r = m (no row) when a NaN modulus made the
+        # maximum NaN, and row k is then swapped with a zero row, as in
+        # the reference
+        r = r.min(dim=1).values.long()
+        none = (r == m)[:, None]
+        r_ix = torch.clamp_max(r, m - 1)
         for t in (a_re, a_im, inv_re, inv_im):
             row_k = t[:, k, :].clone()
-            row_r = t[bidx, r, :].clone()
+            row_r = torch.where(none, 0.0, t[bidx, r_ix, :])
             # the reference's arithmetic swap: row_k + (row_r − row_k)
             t[:, k, :] = row_k + (row_r - row_k)
-            t[bidx, r, :] = torch.where(
-                (r == k)[:, None], t[bidx, r, :], row_r + (row_k - row_r))
+            t[bidx, r_ix, :] = torch.where(
+                (r == k)[:, None] | none, t[bidx, r_ix, :],
+                row_r + (row_k - row_r))
         p_re, p_im = a_re[:, k, k], a_im[:, k, k]
         pm = torch.clamp_min(p_re * p_re + p_im * p_im, _TINY)
         ip_re = (p_re / pm)[:, None]

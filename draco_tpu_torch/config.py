@@ -15,7 +15,10 @@ from typing import Optional
 SEED = 428
 
 AGG_MODES = ("normal", "geometric_median")
-NETWORKS = ("ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152")
+CNN_NETWORKS = ("ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152")
+LM_NETWORK = "TransformerLM"
+NETWORKS = CNN_NETWORKS + (LM_NETWORK,)
+LM_DATASET = "synthetic-text"  # the LM trains on sp_step.synthetic_text
 ERR_MODES = ("rev_grad", "constant", "random")
 
 
@@ -41,10 +44,32 @@ class TrainConfig:
     redundancy: str = "simulate"  # simulate | shared
     decode_granularity: str = "global"
     decode_impl: str = "auto"  # auto | pallas: kernel on cuda, plain on cpu
+    # --- TransformerLM (network="TransformerLM"; single shard only) ---
+    seq_len: int = 256  # tokens per sequence
+    vocab: int = 256
+    model_dim: int = 128
+    model_heads: int = 4
+    model_layers: int = 2
+    # single-shard attention: "dense" materialises (T, T) scores per head;
+    # "flash" runs the blockwise kernels (ops/flash_attention.py)
+    attn_impl: str = "dense"
+    # forward/backward dtype of the LM's Dense layers (parameters, the
+    # attention math and the logits stay float32); the CNN runs float32
+    compute_dtype: str = "float32"
+    # held-out loss every eval_freq steps (the LM loop; 0 = never)
+    eval_freq: int = 50
     # --- options of the reference the port rejects for now ---
     wire_dtype: str = "f32"
     wire_segments: int = 1
     topology: str = "flat"
+    seq_shards: int = 1
+    tensor_shards: int = 1
+    pipeline_shards: int = 1
+    moe_experts: int = 0
+    remat: bool = False
+    scan_layers: bool = False
+    token_gen: str = "host"
+    steps_per_call: int = 1
     # --- run ---
     train_dir: str = "./train_out/"
     log_every: int = 10
@@ -111,4 +136,51 @@ class TrainConfig:
                 f"only built to tolerate worker_fail={self.worker_fail})")
         if self.batch_size < 1 or self.num_workers < 1:
             raise ValueError("batch_size and num_workers must be >= 1")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32|bfloat16, got "
+                             f"{self.compute_dtype}")
+        if self.steps_per_call != 1:
+            raise ValueError("steps_per_call > 1 is not ported yet (the port "
+                             "runs the eager one-step loops)")
+        if self.network == LM_NETWORK:
+            self._validate_lm()
+        elif self.compute_dtype != "float32":
+            raise ValueError("compute_dtype=bfloat16 is not ported yet for "
+                             "the CNN path (it computes in float32)")
         return self
+
+    def _validate_lm(self) -> None:
+        """The reference's TransformerLM checks (draco_tpu/config.py), and
+        every option of its other LM routes rejected as not ported yet."""
+        if self.dataset != LM_DATASET:
+            raise ValueError(f"network={LM_NETWORK} trains on the "
+                             f"{LM_DATASET!r} token stream, got dataset="
+                             f"{self.dataset!r}")
+        if self.model_dim % self.model_heads != 0:
+            raise ValueError(f"model_dim {self.model_dim} not divisible by "
+                             f"model_heads {self.model_heads}")
+        if (self.model_dim // self.model_heads) % 2 != 0:
+            raise ValueError(
+                "head dim must be even for the rotary embedding "
+                f"(model_dim/model_heads = "
+                f"{self.model_dim // self.model_heads})")
+        if self.attn_impl not in ("dense", "flash"):
+            raise ValueError(
+                f"attn_impl must be dense|flash, got {self.attn_impl}")
+        if self.seq_len < 2 or self.vocab < 1 or self.model_layers < 1:
+            raise ValueError("seq_len >= 2, vocab >= 1 and model_layers >= 1")
+        not_ported = {
+            "seq_shards": self.seq_shards != 1,
+            "tensor_shards": self.tensor_shards != 1,
+            "pipeline_shards": self.pipeline_shards != 1,
+            "moe_experts": self.moe_experts != 0,
+            "remat": self.remat,
+            "scan_layers": self.scan_layers,
+            "token_gen": self.token_gen != "host",
+        }
+        for field, bad in not_ported.items():
+            if bad:
+                raise ValueError(
+                    f"{field}={getattr(self, field)!r} is not ported yet (the "
+                    f"port runs the single-shard, unrolled LM with host "
+                    f"tokens)")

@@ -5,13 +5,16 @@
 and :func:`reset_launch_counts` zeroes.
 """
 
-from draco_tpu_torch.ops import coded, decode_kernels
+from draco_tpu_torch.ops import coded, decode_kernels, flash_attention
 
 KERNELS = {
     "complex_matmul": coded.complex_matmul,
     "complex_project": coded.complex_project,
     "complex_recombine": coded.complex_recombine,
     "cyclic_locator": decode_kernels.cyclic_locator,
+    "flash_fwd": flash_attention.flash_fwd,
+    "flash_dq": flash_attention.flash_dq,
+    "flash_dkv": flash_attention.flash_dkv,
 }
 
 

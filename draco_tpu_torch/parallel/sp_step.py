@@ -1,0 +1,184 @@
+"""The coded TransformerLM training step at one sequence shard
+(draco_tpu/parallel/sp_step.py at sp=1).
+
+Each logical worker's gradient of the masked next-token cross-entropy is a
+lane of ``torch.func.vmap(grad_and_value(...))`` on one device: n lanes
+(the baseline and ``shared``) or n·(2s+1) lanes (``simulate``: worker i
+computes its 2s+1 batch rows ``tokens[batch_ids[i]]``). The flat gradients
+(``params.flatten``, the reference's leaf order and layout) go through the
+shared tail of ``parallel/common.py``: inject, encode and decode, or
+aggregate, then SGD with momentum.
+
+The loss: position t predicts token t+1; the last position has no target
+and is masked, and the sum is divided by B·(T−1). (The reference's shard
+also predicts its successor shard's first token through one ppermute hop;
+at sp=1 that hop brings back the shard's own first token, masked.)
+
+The decode's random projection is drawn once on the host from the seed
+(``rng.random_projection_factors``; the reference draws it in-graph from
+the same seed with the jax PRNG, other numbers of the same distribution);
+``train_step(rand_factor=)`` takes an explicit one, as the tests need.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import functional_call, grad_and_value, vmap
+
+from draco_tpu_torch import attacks, optim
+from draco_tpu_torch import params as params_mod
+from draco_tpu_torch import rng as drng
+from draco_tpu_torch.coding import cyclic as cyclic_mod
+from draco_tpu_torch.config import LM_NETWORK, TrainConfig
+from draco_tpu_torch.models.transformer import TransformerLM, init_params
+from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
+from draco_tpu_torch.ops.flash_attention import attn_impl_fn
+from draco_tpu_torch.parallel.common import (
+    aggregate_flat_grads,
+    build_code_from_cfg,
+    decode_health_metrics,
+    finish_flat_step,
+    masked_loss_metric,
+    token_metric_names,
+)
+from draco_tpu_torch.runtime import resolve_device
+from draco_tpu_torch.training.step import TrainState
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class SPTrainSetup(NamedTuple):
+    model: TransformerLM
+    state: TrainState
+    # (state, tokens (n, B, T), adv_mask (n,), rand_factor=None, noise=None)
+    #   -> (state, metrics dict of 0-d tensors)
+    train_step: Any
+    eval_step: Any  # (params, tokens (n, B, T)) -> mean loss (0-d tensor)
+    code: Optional[cyclic_mod.CyclicCode]
+    layout: params_mod.Layout
+    dim: int
+    metric_names: tuple
+    device: torch.device
+    decode_impl: str  # which locator runs: "cuda" (the kernel) | "plain"
+
+
+def synthetic_text(seed: int, step: int, n: int, batch: int,
+                   seq_len: int, vocab: int):
+    """Deterministic learnable token stream: ramps t_{i+1} = t_i + stride
+    with
+    per-sequence stride ∈ {1, 2}. Same (seed, step) ⇒ same batch everywhere."""
+    r = np.random.RandomState((seed * 1_000_003 + step) % (2**31 - 1))
+    start = r.randint(0, vocab, size=(n, batch, 1))
+    stride = r.randint(1, 3, size=(n, batch, 1))
+    idx = np.arange(seq_len)[None, None, :]
+    return ((start + stride * idx) % vocab).astype(np.int32)
+
+
+def build_sp_train_setup(cfg: TrainConfig, device=None,
+                         init: Optional[dict] = None) -> SPTrainSetup:
+    """Model, state and the step for ``cfg`` on ``device`` (default cuda).
+
+    ``init``: optional parameters keyed by torch name (``params.from_jax``
+    of the reference's); otherwise they are drawn on the host from
+    ``cfg.seed``, so every device starts from the same weights."""
+    cfg.validate()
+    if cfg.network != LM_NETWORK:
+        raise ValueError(f"the LM step runs network={LM_NETWORK}, got "
+                         f"{cfg.network!r}")
+    dev = resolve_device(device)
+    n, T = cfg.num_workers, cfg.seq_len
+
+    model = TransformerLM(vocab=cfg.vocab, dim=cfg.model_dim,
+                          heads=cfg.model_heads, layers=cfg.model_layers,
+                          attn_fn=attn_impl_fn(cfg),
+                          dtype=COMPUTE_DTYPES[cfg.compute_dtype])
+    with torch.no_grad():
+        if init is None:
+            init_params(model, drng.generator(cfg.seed))
+        else:
+            for name, p in model.named_parameters():
+                p.copy_(init[name])
+    model.to(dev)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    layout = params_mod.layout(model)
+    dim = layout.dim
+    state = TrainState(params=params, stats={},
+                       opt=optim.SGD(cfg.lr, cfg.momentum))
+
+    # position t predicts t+1; the last position has no target
+    pos_valid = (torch.arange(T, device=dev) < T - 1).to(torch.float32)
+    denom = cfg.batch_size * (T - 1)
+
+    def objective(p, toks):
+        """toks (B, T) -> the masked mean next-token cross-entropy."""
+        logits = functional_call(model, (p,), (toks,))
+        targets = torch.cat([toks[:, 1:], toks[:, :1]], dim=1)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        return (nll * pos_valid).sum() / denom
+
+    lanes_fn = vmap(grad_and_value(objective), in_dims=(None, 0))
+
+    def lane_grads(p, toks):
+        """(lanes, B, T) -> flat grads (lanes, d), losses (lanes,)."""
+        g, loss = lanes_fn(p, toks)
+        return params_mod.flatten(g, layout, lead=1), loss
+
+    code = build_code_from_cfg(cfg)
+    decode_impl = resolve_decode_impl(cfg.decode_impl, dev)
+    simulate = cfg.approach == "cyclic" and cfg.redundancy == "simulate"
+    batch_ids = (torch.as_tensor(code.batch_ids, device=dev).long()
+                 if simulate else None)
+    # every participant derives the same projection; drawn once on the host
+    projection = (drng.random_projection_factors(cfg.seed, dim).to(dev)
+                  if code is not None else None)
+
+    def train_step(state, tokens, adv_mask, rand_factor=None, noise=None):
+        toks = torch.as_tensor(tokens, device=dev).long()
+        mask = torch.as_tensor(adv_mask, device=dev)
+        if simulate:
+            hat_s = code.hat_s
+            grads, losses = lane_grads(state.params,
+                                       toks[batch_ids].flatten(0, 1))
+            grads = grads.view(n, hat_s, dim)
+            losses = losses.view(n, hat_s).mean(dim=1)
+        else:
+            grads, losses = lane_grads(state.params, toks)
+        f = projection if rand_factor is None else torch.as_tensor(
+            rand_factor, device=dev)
+        gen = (attacks.random_generator(cfg.seed, state.step, device=dev)
+               if cfg.err_mode == "random" and noise is None else None)
+        agg, health = aggregate_flat_grads(grads, mask, cfg, code, f, noise,
+                                           gen)
+        del grads
+        finish_flat_step(state, agg, layout)
+        metrics = {"loss": masked_loss_metric(losses)}
+        metrics.update(decode_health_metrics(health, mask))
+        if health is not None:
+            # not a column of the reference's LM schema: for callers that
+            # check the honest set (n − 2s rows on every clean decode)
+            metrics["honest_located"] = health["honest"].sum()
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(p, tokens):
+        toks = torch.as_tensor(tokens, device=dev).long()
+        return vmap(objective, in_dims=(None, 0))(p, toks).mean()
+
+    return SPTrainSetup(model=model, state=state, train_step=train_step,
+                        eval_step=eval_step, code=code, layout=layout,
+                        dim=dim, metric_names=token_metric_names(cfg),
+                        device=dev, decode_impl=decode_impl)
+
+
+def train_sp(cfg: TrainConfig, device=None, steps: Optional[int] = None,
+             quiet: bool = False):
+    """The LM training loop on the synthetic token stream; returns the
+    final state and the last step's record."""
+    from draco_tpu_torch.parallel.token_loop import run_token_loop
+
+    return run_token_loop(build_sp_train_setup(cfg, device), cfg, steps,
+                          quiet)

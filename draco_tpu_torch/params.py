@@ -2,14 +2,19 @@
 layout and the port's.
 
 The reference flattens a gradient pytree with ``jax.tree.leaves`` — dict
-keys sorted at every level — with each leaf in its JAX layout: convolution
-kernels HWIO, dense kernels (in, out). The port's (n, d) codeword matrix
+keys sorted as strings at every level — with each leaf in its JAX layout:
+convolution kernels HWIO, dense kernels (in, out), embedding tables and
+norm scales as they are. The port's (n, d) codeword matrix
 and its random projection must match the reference coordinate for
 coordinate, so :func:`flatten` lays a gradient out in exactly that order and
 layout, and :func:`unflatten` inverts it. That costs one permuted copy of
 the gradient per step.
 
-ResNet-18 has 62 leaves and d = 11,173,962.
+A leaf's layout follows its role (``leaf_role``: the module that owns it),
+not its rank: an Embedding's (vocab, dim) table is 2-D and kept as it is.
+
+ResNet-18 has 62 leaves and d = 11,173,962; the TransformerLM of the LM
+benchmark (dim 768, 8 layers, vocab 8192) 66 leaves and d = 62,958,336.
 """
 
 from __future__ import annotations
@@ -22,40 +27,60 @@ import torch
 from torch import nn
 
 
-def flax_path(name: str) -> tuple:
-    """Torch parameter name -> the reference's pytree path:
-    ``BasicBlock_0.Conv_1.weight`` -> ``("BasicBlock_0", "Conv_1", "kernel")``;
-    a BatchNorm ``weight`` is Flax's ``scale``."""
-    parts = name.split(".")
-    leaf = parts[-1]
-    if leaf == "weight":
-        leaf = "scale" if parts[-2].startswith("BatchNorm") else "kernel"
-    return tuple(parts[:-1]) + (leaf,)
+# a leaf's layout change between the two packages, by role
+CONV, DENSE, SAME = "conv", "dense", "same"
+
+
+def leaf_role(module: nn.Module, leaf: str) -> tuple:
+    """(Flax leaf name, layout kind) of parameter ``leaf`` of ``module``:
+    a convolution weight is Flax's ``kernel`` (OIHW <-> HWIO), a Linear
+    weight its Dense ``kernel`` ((out, in) <-> (in, out)), a BatchNorm or
+    LayerNorm weight its ``scale`` and an Embedding weight its
+    ``embedding`` table (vocab, dim) in both, kept as it is."""
+    if leaf != "weight":
+        return leaf, SAME
+    if isinstance(module, nn.Conv2d):
+        return "kernel", CONV
+    if isinstance(module, nn.Linear):
+        return "kernel", DENSE
+    if isinstance(module, nn.Embedding):
+        return "embedding", SAME
+    return "scale", SAME  # the norms' weights
 
 
 def torch_name(path: Sequence[str]) -> str:
-    """Inverse of :func:`flax_path`."""
+    """Flax path -> torch parameter name: ``kernel``, ``scale`` and
+    ``embedding`` are torch's ``weight``."""
     *parent, leaf = path
-    if leaf in ("kernel", "scale"):
+    if leaf in ("kernel", "scale", "embedding"):
         leaf = "weight"
     return ".".join(list(parent) + [leaf])
 
 
-def _to_jax_layout(t: torch.Tensor, lead: int = 0) -> torch.Tensor:
-    """Trailing OIHW -> HWIO, trailing Linear (out, in) -> (in, out), after
-    ``lead`` leading batch dims."""
-    if t.dim() - lead == 4:
+def _to_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
+    """Trailing OIHW -> HWIO, trailing (out, in) -> (in, out); leading
+    batch dims kept."""
+    if kind == CONV:
         return t.movedim((-4, -3), (-1, -2))
-    if t.dim() - lead == 2:
+    if kind == DENSE:
+        return t.transpose(-1, -2)
+    return t
+
+
+def _from_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == CONV:
+        return t.movedim((-1, -2), (-4, -3))
+    if kind == DENSE:
         return t.transpose(-1, -2)
     return t
 
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
-    """Leaf order and shapes of a model's flat parameter vector."""
+    """Leaf order, layouts and shapes of a model's flat parameter vector."""
 
     names: tuple  # torch names in the reference's leaf order
+    kinds: tuple  # CONV | DENSE | SAME per leaf
     jax_shapes: tuple
     offsets: np.ndarray  # (L+1,) leaf boundaries in the flat vector
 
@@ -65,21 +90,30 @@ class Layout:
 
 
 def layout(model: nn.Module) -> Layout:
-    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    names = tuple(sorted(shapes, key=flax_path))
+    """The reference's leaf order: ``jax.tree.leaves`` sorts dict keys as
+    strings at every level (``block1`` < ``block10`` < ``block2``)."""
+    leaves = {}
+    for name, p in model.named_parameters():
+        parent, _, leaf = name.rpartition(".")
+        flax_leaf, kind = leaf_role(model.get_submodule(parent), leaf)
+        path = tuple(parent.split(".") if parent else ()) + (flax_leaf,)
+        leaves[name] = (path, kind, tuple(p.shape))
+    names = tuple(sorted(leaves, key=lambda n: leaves[n][0]))
+    kinds = tuple(leaves[n][1] for n in names)
     jax_shapes = tuple(
-        tuple(_to_jax_layout(torch.empty(shapes[n], device="meta")).shape)
-        for n in names)
+        tuple(_to_jax_layout(torch.empty(leaves[n][2], device="meta"),
+                             leaves[n][1]).shape) for n in names)
     sizes = [int(np.prod(s)) for s in jax_shapes]
-    return Layout(names, jax_shapes, np.cumsum([0] + sizes).astype(np.int64))
+    return Layout(names, kinds, jax_shapes,
+                  np.cumsum([0] + sizes).astype(np.int64))
 
 
 def flatten(tensors: dict, lay: Layout, lead: int = 0) -> torch.Tensor:
     """Dict of torch-layout tensors (each with ``lead`` leading batch dims)
     -> one (..., d) vector in the reference's order and layout."""
     parts = []
-    for name in lay.names:
-        t = _to_jax_layout(tensors[name], lead)
+    for name, kind in zip(lay.names, lay.kinds):
+        t = _to_jax_layout(tensors[name], kind)
         parts.append(t.reshape(t.shape[:lead] + (-1,)))
     return torch.cat(parts, dim=lead)
 
@@ -88,14 +122,10 @@ def unflatten(flat: torch.Tensor, lay: Layout) -> dict:
     """(d,) vector in the reference's layout -> dict of torch-layout
     tensors."""
     out = {}
-    for i, name in enumerate(lay.names):
+    for i, (name, kind) in enumerate(zip(lay.names, lay.kinds)):
         a, b = int(lay.offsets[i]), int(lay.offsets[i + 1])
         t = flat[a:b].reshape(lay.jax_shapes[i])
-        if t.dim() == 4:
-            t = t.movedim((-1, -2), (-4, -3))
-        elif t.dim() == 2:
-            t = t.transpose(-1, -2)
-        out[name] = t.contiguous()
+        out[name] = _from_jax_layout(t, kind).contiguous()
     return out
 
 
@@ -116,10 +146,8 @@ def from_jax(params_np: dict, batch_stats_np: dict = None, device="cpu"):
     params = {}
     for path, v in _walk(params_np):
         t = torch.from_numpy(np.array(v, np.float32))
-        if t.dim() == 4:  # HWIO -> OIHW
-            t = t.permute(3, 2, 0, 1)
-        elif t.dim() == 2:  # Dense (in, out) -> Linear (out, in)
-            t = t.t()
+        if path[-1] == "kernel":  # HWIO -> OIHW, Dense (in, out) -> (out, in)
+            t = _from_jax_layout(t, CONV if t.dim() == 4 else DENSE)
         params[torch_name(path)] = t.contiguous().to(device)
     stats = {}
     for path, v in _walk(batch_stats_np or {}):

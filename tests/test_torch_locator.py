@@ -209,6 +209,49 @@ def test_locator_core_vs_fused_and_xla(case):
         assert not out[2][:, bad].any()
 
 
+NAN_CASES = [(n, s, poison, lam) for n, s in ((8, 1), (16, 2))
+             for poison in ("nan_row", "inf_row", "nan_one_column")
+             for lam in (0.0, LAM)]
+
+
+@pytest.mark.parametrize("case", NAN_CASES,
+                         ids=lambda c: f"n{c[0]}-s{c[1]}-{c[2]}-lam{c[3]:g}")
+def test_locator_core_non_finite_columns(case):
+    """A non-finite projected column (a worker that sent NaN or ±inf
+    rows): every maximum of the locator propagates NaN, as the reference's
+    ``jnp.max`` / ``jnp.maximum`` do, so the honest, flagged and loud sets
+    equal the reference's fused lowering exactly, and the xla path's flag
+    and loud sets (its honest set comes from another selection rule).
+    Neither oracle is among the reference's known test failures (those
+    are its Pallas interpret path, ROADMAP Queue C)."""
+    n, s, poison, lam = case
+    jcode, tcode = jc.build_cyclic_code(n, s), tc.build_cyclic_code(n, s)
+    r_re, r_im, present, _ = scenario_rows(jcode, "attacked", 6 * 64, n + s)
+    e_re, e_im, _ = columns(r_re, r_im, 6, n)
+    if poison == "nan_row":
+        e_re[:, 3] = np.nan
+    elif poison == "inf_row":
+        e_re[:, 3], e_im[:, 3] = np.inf, -np.inf
+    else:  # one of the six columns poisoned, the others finite
+        e_re[2, 5] = np.nan
+    tol = jc.HEALTH_REL_TOL
+    fused, xla_fn = _reference_locators(n, s, lam)
+    args = (jnp.asarray(e_re), jnp.asarray(e_im), jnp.asarray(present))
+    ref = [np.asarray(a) for a in fused(*args)]
+    xla = xla_fn(*args)
+    t = tcode.tensors("cpu")
+    out = [a.numpy() for a in tc.locator_core(
+        T(e_re), T(e_im), t["c2h_re"], t["c2h_im"], t["c1_re"], t["c1_im"],
+        t["est_re"], t["est_im"], T(present.astype(np.float32)[None, :]), s,
+        tol, lam=lam)]
+    for i, name in ((2, "honest"), (3, "flagged"), (4, "loud")):
+        np.testing.assert_array_equal(out[i], ref[i], err_msg=name)
+    np.testing.assert_array_equal(out[3], np.asarray(xla[3]["flagged"]))
+    np.testing.assert_array_equal(out[4], np.asarray(xla[3]["loud"]))
+    assert (out[2].sum(axis=1) == n - 2 * s).all()
+    np.testing.assert_array_equal(np.isnan(out[5]), np.isnan(ref[5]))
+
+
 @pytest.mark.parametrize("n,s,scenario", [(8, 1, "attacked"),
                                           (8, 1, "absent"),
                                           (16, 2, "attacked"),

@@ -100,4 +100,5 @@ def test_launch_counters_reset():
     tops.reset_launch_counts()
     assert set(tops.launch_counts().values()) == {0}
     assert set(tops.KERNELS) == {"complex_matmul", "complex_project",
-                                 "complex_recombine", "cyclic_locator"}
+                                 "complex_recombine", "cyclic_locator",
+                                 "flash_fwd", "flash_dq", "flash_dkv"}
