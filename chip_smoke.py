@@ -11,28 +11,37 @@ prints no result line):
               the main paths' shapes: the coded products at n=8,
               d=11,173,962; the locator at L=1 and L=62 columns, n=8, s=1,
               with an attacked row, an absent row, a λ>0 case and
-              NaN-poisoned columns; the flash forward, dq and dk/dv at
-              G=8·2·12 heads, T=512, Dh=64 and at a ragged T=520. Times
-              each kernel, its plain version, its bound and the one
-              PyTorch call that computes the same function, where there is
-              one (torch.matmul; scaled_dot_product_attention and its
-              autograd backward)
+              NaN-poisoned columns; the narrow recombination (bf16, int8 at
+              block 256) and the approx decode (f32, bf16, int8; two absent
+              rows, one of them NaN) at n=8, d=11,173,962 and at a small
+              ragged d; the flash forward, dq and dk/dv at G=8·2·12 heads,
+              T=512, Dh=64 and at a ragged T=520. Times each kernel, its
+              plain version, its bound and the one PyTorch call that
+              computes the same function, where there is one (torch.matmul;
+              scaled_dot_product_attention and its autograd backward)
   3. legs     ResNet-18 on synthetic CIFAR-10 at full width, n=8 workers,
-              batch 32, s=1, a rev_grad adversary every step: the cyclic
-              ``simulate`` leg, the geometric-median leg and the cyclic
-              ``shared`` leg; then the TransformerLM of the LM benchmark at
-              full width (dim 768, 12 heads, 8 layers, vocab 8192, T=512,
-              batch 2, bfloat16 compute, flash attention, d=62,958,336):
-              ``lm_shared_flash``, ``lm_simulate_flash`` (24 lanes) and
-              ``lm_geomedian_flash``. Each leg runs through the entry points
-              a user calls (Trainer / build_sp_train_setup + TokenLoop) with
-              the launch counts zeroed just before it and read just after;
-              every coded step must locate the adversary (honest_located=6,
-              located_errors=det_tp=det_adv=1)
+              batch 32: the cyclic ``simulate`` leg, the geometric-median
+              leg and the cyclic ``shared`` leg (s=1, a rev_grad adversary
+              every step); the approx code at r=1.5 with 2 stragglers a
+              step (``approx``, and ``approx_int8`` on the int8 wire); the
+              shared cyclic leg on the bf16 and the int8 wire
+              (``shared_bf16``, ``shared_int8``); then the TransformerLM of
+              the LM benchmark at full width (dim 768, 12 heads, 8 layers,
+              vocab 8192, T=512, batch 2, bfloat16 compute, flash
+              attention, d=62,958,336): ``lm_shared_flash``,
+              ``lm_simulate_flash`` (24 lanes) and ``lm_geomedian_flash``.
+              Each leg runs through the entry points a user calls (Trainer /
+              build_sp_train_setup + TokenLoop) with the launch counts
+              zeroed just before it and read just after; every coded step
+              must locate the adversary (honest_located=6,
+              located_errors=det_tp=det_adv=1), every approx step hold its
+              certificate (residual ≤ bound + the wire's slack)
   4. check    the ResNet decode at full size and one small ResNet step, on
-              the card against the CPU; one full-width LM step with
-              attn_impl=dense against flash on the card; one small coded LM
-              step on the card against the CPU
+              the card against the CPU; the wire buffers of one real encode,
+              the narrow cyclic decode and the approx decode at full size
+              and one small approx step with stragglers, card against CPU;
+              one full-width LM step with attn_impl=dense against flash on
+              the card; one small coded LM step on the card against the CPU
 
 ``--profile`` adds one torch.profiler step per leg (device time by kernel
 and the device's busy share); ``--out`` writes the whole record as JSON.
@@ -57,9 +66,10 @@ import torch.nn.functional as F
 from draco_tpu_torch import _build, attacks, ops
 from draco_tpu_torch import params as params_mod
 from draco_tpu_torch import rng as drng
-from draco_tpu_torch.coding import cyclic
+from draco_tpu_torch.coding import approx, cyclic
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data.datasets import load_dataset
+from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.ops import coded, decode_kernels
 from draco_tpu_torch.ops import flash_attention as fa
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
@@ -73,7 +83,16 @@ N, S, D = 8, 1, 11_173_962  # ResNet-18's flat gradient at n=8, s=1
 SEED = 428
 CODED = ("complex_matmul", "complex_project", "complex_recombine",
          "cyclic_locator")
+NARROW = ("complex_matmul", "complex_project", "cyclic_locator",
+          "cyclic_narrow_recombine")  # a narrow shared cyclic leg
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+BLOCK = 256  # the int8 wire's scale block (cfg.shadow_block's default)
+# the approx legs: the preset approx-resnet18 (r=1.5 pairwise, 2 workers
+# dropped a step, no adversary) at n=8
+APPROX = dict(approach="approx", redundancy="shared", worker_fail=0,
+              code_redundancy=1.5, assignment_scheme="pairwise",
+              straggle_mode="drop", straggle_count=2)
+WIRE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
 # the LM benchmark's configuration (tools/tpu_lm_perf.py, variant
 # lm_cyclic_s1_shared_bf16_flash, at that tool's defaults)
 LM_FULL = dict(network="TransformerLM", dataset="synthetic-text",
@@ -343,6 +362,153 @@ def locator_flops(n: int, s: int, sweeps: int = 12) -> int:
     return syndrome + jacobi + values + gauss + fit + rank
 
 
+def narrow_kernels(code, dev) -> list:
+    """The narrow recombination (bf16; int8 at block 256) and the approx
+    decode (f32, bf16, int8) against their plain versions at n=8 and
+    d=11,173,962, and at a small ragged d. The approx decode's rows are the
+    partial sums of a real approx encode with rows 2 and 5 absent, row 2 a
+    NaN payload that must not reach the output. Tolerance: 1e-5 of the
+    largest column's Σ|coef|·|row| for the vectors (n-term f32 sums in
+    another order), 1e-5 relative for the two squared norms (d-term sums).
+    Timed at full size, beside the widened path each kernel replaces
+    (widen the buffers, then complex_recombine or the plain f32 decode)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    t = code.tensors(dev)
+    acode = approx.build_approx_code(N, 1.5)
+    absent = [2, 5]
+    present = torch.ones(N, dtype=torch.bool)
+    present[absent] = False
+    vn = (approx.decode_weights(acode, present)[0] / N).to(dev)
+    pres_f = present.float().to(dev)
+    rows = {"cyclic_narrow_recombine": {}, "approx_decode": {}}
+    nb = -(-D // BLOCK)
+    widen = numerics.widen_wire_rows
+
+    def note(name, mode, **kw):
+        rows[name].setdefault(mode, {"max_abs_err": 0.0, "tol": 0.0})
+        r = rows[name][mode]
+        for k in ("max_abs_err", "tol"):
+            if k in kw:
+                r[k] = max(r[k], kw.pop(k))
+        r.update(kw)
+
+    for d in (5003, D):
+        full = d == D
+        grads = torch.randn((N, d), generator=g, device=dev)
+        enc_re, enc_im = coded.complex_matmul(t["w_masked_re"],
+                                              t["w_masked_im"], grads)
+        v_re = torch.randn(N, generator=g, device=dev)
+        v_im = torch.randn(N, generator=g, device=dev)
+        for mode in ("bf16", "int8"):
+            wire = (mode, numerics.narrow_wire_rows(enc_re, mode, BLOCK),
+                    numerics.narrow_wire_rows(enc_im, mode, BLOCK), BLOCK)
+            k = decode_kernels.cyclic_narrow_recombine(v_re, v_im, wire)
+            p = decode_kernels.cyclic_narrow_recombine_plain(v_re, v_im, wire)
+            w_re, w_im = widen(wire[1], mode, BLOCK), widen(wire[2], mode,
+                                                            BLOCK)
+            scale = (v_re.abs() @ w_re.abs()
+                     + v_im.abs() @ w_im.abs()).max().item()
+            err = (k - p).abs().max().item()
+            require(err <= 1e-5 * scale, f"cyclic_narrow_recombine {mode} "
+                    f"d={d}: max_abs_err {err} > {1e-5 * scale}")
+            note("cyclic_narrow_recombine", mode, max_abs_err=err,
+                 tol=1e-5 * scale)
+            del w_re, w_im
+            if full:
+                scales = 2 * N * nb * 4 if mode == "int8" else 0
+                note("cyclic_narrow_recombine", mode,
+                     ms=time_ms(lambda: decode_kernels.cyclic_narrow_recombine(
+                         v_re, v_im, wire), 20),
+                     plain_ms=time_ms(
+                         lambda: decode_kernels.cyclic_narrow_recombine_plain(
+                             v_re, v_im, wire), 10),
+                     widened_ms=time_ms(lambda: coded.complex_recombine(
+                         v_re, v_im, widen(wire[1], mode, BLOCK),
+                         widen(wire[2], mode, BLOCK)), 10),
+                     work=(2 * N * D * WIRE_BYTES[mode] + scales + 2 * N * 4
+                           + D * 4,
+                           2 * 2 * N * D + (2 * N * D if scales else 0)))
+            del wire
+        del enc_re, enc_im
+
+        # the approx decode tail on the partial sums, rows 2 and 5 absent
+        prow = approx.encode_shared(acode, grads)
+        prow[absent] = 0.0
+        prow[absent[0]] = float("nan")
+        live = pres_f[:, None] > 0
+        for mode in ("f32", "bf16", "int8"):
+            wire = (None if mode == "f32" else
+                    (mode, numerics.narrow_wire_rows(prow, mode, BLOCK),
+                     BLOCK))
+            rows_in = prow if wire is None else None
+            k = decode_kernels.approx_decode(rows_in, grads, vn, pres_f, wire)
+            p = decode_kernels.approx_decode_plain(rows_in, grads, vn, pres_f,
+                                                   wire)
+            require(bool(torch.isfinite(k[0]).all()),
+                    f"approx_decode {mode} d={d}: the absent NaN row reached "
+                    f"the output")
+            wide = prow if wire is None else widen(wire[1], mode, BLOCK)
+            wide = torch.where(live, wide, torch.zeros_like(wide))
+            scale = (vn.abs() @ wide.abs()).max().item()
+            err = (k[0] - p[0]).abs().max().item()
+            rel = max(abs(a.item() - b.item()) / abs(b.item())
+                      for a, b in zip(k[1:], p[1:]))
+            require(err <= 1e-5 * scale and rel <= 1e-5,
+                    f"approx_decode {mode} d={d}: max_abs_err {err} (tol "
+                    f"{1e-5 * scale}), squared norms rel err {rel} (tol 1e-5)")
+            note("approx_decode", mode, max_abs_err=err, tol=1e-5 * scale)
+            rows["approx_decode"][mode]["norms_rel_err"] = max(
+                rel, rows["approx_decode"][mode].get("norms_rel_err", 0.0))
+            del wide
+            if full:
+                # only the present rows are read: count what this run needs
+                pr = N - len(absent)
+                scales = pr * nb * 4 if mode == "int8" else 0
+
+                def widened(wire=wire):
+                    rows_w = prow if wire is None else widen(wire[1], mode,
+                                                             BLOCK)
+                    return decode_kernels.approx_decode_plain(
+                        rows_w, grads, vn, pres_f)
+
+                note("approx_decode", mode,
+                     ms=time_ms(lambda: decode_kernels.approx_decode(
+                         rows_in, grads, vn, pres_f, wire), 20),
+                     plain_ms=time_ms(
+                         lambda: decode_kernels.approx_decode_plain(
+                             rows_in, grads, vn, pres_f, wire), 10),
+                     widened_ms=time_ms(widened, 10),
+                     work=(pr * D * WIRE_BYTES[mode] + scales + N * D * 4
+                           + D * 4 + 2 * N * 4,
+                           2 * pr * D + (pr * D if scales else 0)
+                           + 4 * N * D + 3 * D))
+            del wire
+        del grads, prow
+
+    # the kernels line carries the wire each leg's launches are read from:
+    # int8 for the narrow recombination (shared_int8), f32 for the approx
+    # decode (approx); the other wires ride along as "wires"
+    main = {"cyclic_narrow_recombine": "int8", "approx_decode": "f32"}
+    lines = {"cyclic_narrow_recombine": "draco_tpu/ops/decode_kernels.py:378",
+             "approx_decode": "draco_tpu/ops/decode_kernels.py:271"}
+    out = []
+    for name, by_mode in rows.items():
+        for mode, r in by_mode.items():
+            work = r.pop("work")
+            r["bound_ms"], r["bound_by"] = bound(*work)
+            print(f"kernel {name} [{mode}]: max_abs_err={r['max_abs_err']:.3e}"
+                  f" (tol {r['tol']:.3e}) ms={r['ms']:.4f} plain_ms="
+                  f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                  f"({r['bound_by']}) library_ms=null; the widened path it "
+                  f"replaces {r['widened_ms']:.4f} ms", flush=True)
+        out.append({"name": name, "route": "cuda",
+                    "source": "draco_tpu_torch/csrc/narrow_decode.cu",
+                    "replaces": lines[name], "ok": True, "wire": main[name],
+                    **by_mode[main[name]], "library_ms": None,
+                    "wires": by_mode})
+    return out
+
+
 def flash_kernels(dev) -> list:
     """The flash forward, dq and dk/dv against their plain versions at the
     LM path's shape (G = lanes·B·H = 192 heads of T=512, Dh=64, f32) and at
@@ -438,10 +604,11 @@ def flash_kernels(dev) -> list:
 def leg(name: str, steps: int, expect: tuple, dev, profile: bool = False,
         **cfg_kw) -> dict:
     """A ResNet-18 leg through the CNN Trainer."""
-    cfg = TrainConfig(network="ResNet18", dataset="synthetic-cifar10",
-                      num_workers=N, worker_fail=S, err_mode="rev_grad",
-                      batch_size=32, lr=0.01, momentum=0.9,
-                      max_steps=steps + 2, train_dir="", seed=SEED, **cfg_kw)
+    cfg = TrainConfig(**dict(
+        dict(network="ResNet18", dataset="synthetic-cifar10", num_workers=N,
+             worker_fail=S, err_mode="rev_grad", batch_size=32, lr=0.01,
+             momentum=0.9, max_steps=steps + 2, train_dir="", seed=SEED),
+        **cfg_kw))
     tr = Trainer(cfg, device=dev, dataset=load_dataset("synthetic-cifar10"),
                  quiet=True)
     return drive(name, tr, tr.setup, cfg, steps, expect, dev, profile)
@@ -463,8 +630,10 @@ def lm_leg(name: str, steps: int, expect: tuple, dev, profile: bool = False,
 
 def drive(name, runner, setup, cfg, steps, expect, dev, profile) -> dict:
     """One warm-up step, then ``steps`` steps with the launch counts zeroed
-    just before them and read just after; every coded step must locate the
-    adversary."""
+    just before them and read just after; every cyclic step must locate the
+    adversary, every approx step hold residual ≤ bound + the wire's slack
+    with its 2 stragglers absent. On a narrow cyclic wire the recombination
+    must read the narrow buffers: complex_recombine is never launched."""
     require(setup.decode_impl == "cuda",
             f"{name}: the locator resolved to {setup.decode_impl!r}")
     first = runner.step()  # warm-up: cuDNN/cuBLAS plans, kernel loads
@@ -481,11 +650,23 @@ def drive(name, runner, setup, cfg, steps, expect, dev, profile) -> dict:
                     and r["located_errors"] == 1 and r["det_tp"] == 1
                     and r["det_adv"] == 1,
                     f"{name} step {r['step']}: adversary not located: {r}")
+        if cfg.approach == "approx":
+            slack = numerics.wire_residual_slack(cfg.wire_dtype)
+            require(r["present"] == N - cfg.straggle_count
+                    and 0.0 < r["recovered_fraction"] <= 1.0
+                    and r["decode_residual"]
+                    <= r["decode_residual_bound"] + slack + 1e-4,
+                    f"{name} step {r['step']}: approx certificate: {r}")
     for k in expect:
         require(counts[k] > 0, f"{name}: kernel {k} was never launched "
                 f"({counts})")
+    if cfg.approach == "cyclic" and cfg.wire_dtype != "f32":
+        require(counts["complex_recombine"] == 0,
+                f"{name}: complex_recombine ran on the narrow wire "
+                f"({counts})")
     ms = [r["step_ms"] for r in recs]
     out = {"leg": name, "steps": steps, "ms_per_step": sum(ms) / len(ms),
+           "records": recs,
            "ms_steps": ms, "loss": [r["loss"] for r in recs],
            "launches": counts,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
@@ -542,22 +723,11 @@ def cross_device_check(dev) -> dict:
             f"decode err {dec_err} / {mean_err} > {1e-5 * scale}")
     del grads, enc, dec_c
 
-    ds = load_dataset("synthetic-cifar10", synthetic_train=256,
-                      synthetic_test=16)
     cfg = TrainConfig(network="ResNet18", dataset="synthetic-cifar10",
                       approach="cyclic", redundancy="shared", num_workers=N,
                       worker_fail=S, err_mode="rev_grad", batch_size=4,
                       max_steps=1, train_dir="", seed=SEED)
-    res = {}
-    for d in (dev, "cpu"):
-        tr = Trainer(cfg, device=d, dataset=ds, quiet=True)
-        before = {k: v.detach().cpu().clone()
-                  for k, v in tr.state.params.items()}
-        rec = tr.step()
-        delta = torch.cat([(tr.state.params[k].detach().cpu() - before[k])
-                           .reshape(-1) for k in before])
-        res[str(d)] = (rec, delta)
-    (rc, dc), (rp, dp) = res[str(dev)], res["cpu"]
+    (rc, dc), (rp, dp) = (_trainer_step(cfg, d) for d in (dev, "cpu"))
     for k in ("honest_located", "located_errors", "det_tp", "det_adv"):
         require(rc[k] == rp[k], f"cross-device: {k} cuda {rc[k]} cpu {rp[k]}")
     rel = ((dc - dp).norm() / dp.norm()).item()
@@ -570,6 +740,132 @@ def cross_device_check(dev) -> dict:
     return {"decode_max_abs_err": dec_err, "decode_vs_mean_err": mean_err,
             "update_rel_l2_err": rel, "loss_cuda": rc["loss"],
             "loss_cpu": rp["loss"]}
+
+
+def _trainer_step(cfg, dev) -> tuple:
+    """One small ResNet step through the Trainer on ``dev``: its record and
+    the parameter update as one flat host vector."""
+    ds = load_dataset("synthetic-cifar10", synthetic_train=256,
+                      synthetic_test=16)
+    tr = Trainer(cfg, device=dev, dataset=ds, quiet=True)
+    before = {k: v.detach().cpu().clone() for k, v in tr.state.params.items()}
+    rec = tr.step()
+    delta = torch.cat([(tr.state.params[k].detach().cpu() - before[k])
+                       .reshape(-1) for k in before])
+    return rec, delta
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a host copy of ``t`` (NaN payloads included)."""
+    t = t.cpu()
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def wire_checks(dev) -> dict:
+    """The narrow wire and the approx code on the card against the CPU.
+
+    (a) The bf16 and int8 buffers (block 256) of one real shared encode at
+    full size, quantized on the card and on the CPU from the same rows:
+    equal level for level and scale for scale (both round to nearest even
+    and divide by the same f32 scale); any difference is counted.
+    (b) The narrow cyclic decode at full size (row 4 reversed, each wire's
+    threshold and λ): equal honest sets, the attacked row out, and the
+    decoded mean card vs CPU within 1e-5 of the largest batch gradient.
+    (c) The approx decode at full size, rows 2 and 5 absent: v, bound and
+    recovered_fraction to 1e-6 (the same host solve), the decoded mean
+    within 1e-5 of the largest batch gradient, the residual to 1e-4
+    relative.
+    (d) One small approx step (n=8, B=4, 2 stragglers) through the
+    Trainer: the presence and recovered_fraction equal, the loss to 1e-4
+    relative and the update to 5e-2 in relative L2 norm (the ReLU-kink
+    argument of cross_device_check)."""
+    out = {}
+    code = cyclic.build_cyclic_code(N, S)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    grads = torch.randn((N, D), generator=g, device=dev)
+    scale = grads.abs().max().item()
+    t = code.tensors(dev)
+    enc = coded.complex_matmul(t["w_masked_re"], t["w_masked_im"], grads)
+    mask = torch.zeros(N, dtype=torch.bool, device=dev)
+    mask[4] = True
+    enc = attacks.inject_cyclic(*enc, mask, "rev_grad")
+    enc_cpu = tuple(x.cpu() for x in enc)
+    f = drng.random_projection_factors(SEED, D)
+    for mode in ("bf16", "int8"):
+        cfg = TrainConfig(approach="cyclic", num_workers=N, worker_fail=S,
+                          wire_dtype=mode, shadow_block=BLOCK)
+        wc = numerics.narrow_wire_pair(cfg, *enc)
+        wp = numerics.narrow_wire_pair(cfg, *enc_cpu)
+        diffs = sum(int((_bits(a[k]) != _bits(b[k])).sum())
+                    for a, b in ((wc[2][1], wp[2][1]), (wc[2][2], wp[2][2]))
+                    for k in a)
+        print(f"check {mode} wire buffers cuda vs cpu (n=8, d={D}): "
+              f"{diffs} elements differ", flush=True)
+        require(diffs == 0, f"{mode} wire: {diffs} elements differ between "
+                f"the card and the CPU")
+        rel_tol, lam = numerics.wire_decode_params(cfg)
+        dec_c, hon_c = cyclic.decode(code, wc[0], wc[1], f.to(dev),
+                                     rel_tol=rel_tol, lam=lam, wire=wc[2])
+        dec_p, hon_p = cyclic.decode(code, wp[0], wp[1], f, rel_tol=rel_tol,
+                                     lam=lam, wire=wp[2])
+        err = (dec_c.cpu() - dec_p).abs().max().item()
+        print(f"check {mode} cyclic decode cuda vs cpu: honest "
+              f"{hon_c.int().tolist()}, max_abs_err {err:.3e} (tol "
+              f"{1e-5 * scale:.3e})", flush=True)
+        require(torch.equal(hon_c.cpu(), hon_p) and not bool(hon_p[4]),
+                f"{mode} decode: honest cuda {hon_c.tolist()} cpu "
+                f"{hon_p.tolist()}")
+        require(err <= 1e-5 * scale, f"{mode} decode err {err}")
+        out[f"{mode}_wire"] = {"buffer_diffs": diffs, "decode_err": err}
+        del wc, wp, dec_c
+    del enc, enc_cpu
+
+    acode = approx.build_approx_code(N, 1.5)
+    present = torch.ones(N, dtype=torch.bool)
+    present[[2, 5]] = False
+    res = []
+    for gr in (grads, grads.cpu()):
+        rows = approx.encode_shared(acode, gr)
+        res.append(approx.decode(acode, rows, gr, present=present))
+    (dc, vc, hc), (dp, vp, hp) = res
+    dec_err = (dc.cpu() - dp).abs().max().item()
+    host_err = max((vc - vp).abs().max().item(),
+                   abs(hc["bound"].item() - hp["bound"].item()),
+                   abs(hc["recovered_fraction"].item()
+                       - hp["recovered_fraction"].item()))
+    r_rel = abs(hc["residual"].item() - hp["residual"].item()) / abs(
+        hp["residual"].item())
+    print(f"check approx decode cuda vs cpu (n=8, d={D}, rows 2 and 5 "
+          f"absent): max_abs_err {dec_err:.3e} (tol {1e-5 * scale:.3e}); v, "
+          f"bound, recovered_fraction err {host_err:.3e} (tol 1e-6); "
+          f"residual {hc['residual'].item():.6f} vs "
+          f"{hp['residual'].item():.6f} (bound {hp['bound'].item():.6f})",
+          flush=True)
+    require(dec_err <= 1e-5 * scale and host_err <= 1e-6 and r_rel <= 1e-4,
+            f"approx decode: err {dec_err}, host {host_err}, residual rel "
+            f"{r_rel}")
+    out["approx_decode"] = {"decode_err": dec_err, "host_err": host_err,
+                            "residual_rel_err": r_rel}
+    del grads, res, dc
+
+    cfg = TrainConfig(**dict(APPROX, network="ResNet18",
+                             dataset="synthetic-cifar10", num_workers=N,
+                             batch_size=4, max_steps=1, train_dir="",
+                             seed=SEED))
+    (rc, dc), (rp, dp) = (_trainer_step(cfg, d) for d in (dev, "cpu"))
+    for k in ("present", "recovered_fraction"):
+        require(rc[k] == rp[k], f"approx step: {k} cuda {rc[k]} cpu {rp[k]}")
+    rel = ((dc - dp).norm() / dp.norm()).item()
+    loss_rel = abs(rc["loss"] - rp["loss"]) / abs(rp["loss"])
+    print(f"check approx step cuda vs cpu (n=8 B=4, 2 stragglers): update "
+          f"relative L2 err {rel:.3e} (tol 5e-2); loss cuda "
+          f"{rc['loss']:.6f} cpu {rp['loss']:.6f} (rel {loss_rel:.2e}, tol "
+          f"1e-4)", flush=True)
+    require(loss_rel <= 1e-4 and rel <= 5e-2,
+            f"approx step: loss rel {loss_rel}, update rel {rel}")
+    out["approx_step"] = {"update_rel_l2_err": rel, "loss_rel_err": loss_rel}
+    return out
 
 
 def _lm_step(cfg, dev, init=None) -> tuple:
@@ -699,7 +995,7 @@ def main(argv=None) -> int:
 
     code = cyclic.build_cyclic_code(N, S)
     kernels = (coded_kernels(code, dev) + locator_kernel(code, dev)
-               + flash_kernels(dev))
+               + narrow_kernels(code, dev) + flash_kernels(dev))
     torch.cuda.empty_cache()
 
     legs = []
@@ -710,6 +1006,13 @@ def main(argv=None) -> int:
              dict(approach="baseline", mode="geometric_median")),
             (leg, "shared", args.steps, CODED,
              dict(approach="cyclic", redundancy="shared")),
+            (leg, "approx", args.steps, ("approx_decode",), APPROX),
+            (leg, "approx_int8", args.steps, ("approx_decode",),
+             dict(APPROX, wire_dtype="int8")),
+            (leg, "shared_bf16", args.steps, NARROW,
+             dict(approach="cyclic", redundancy="shared", wire_dtype="bf16")),
+            (leg, "shared_int8", args.steps, NARROW,
+             dict(approach="cyclic", redundancy="shared", wire_dtype="int8")),
             (lm_leg, "lm_shared_flash", args.lm_steps, CODED + FLASH,
              dict(approach="cyclic", redundancy="shared")),
             (lm_leg, "lm_simulate_flash", args.lm_steps, CODED[1:] + FLASH,
@@ -720,16 +1023,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     record["legs"] = legs
     record["cross_device"] = cross_device_check(dev)
+    record["wire_checks"] = wire_checks(dev)
     record["lm_checks"] = lm_checks(dev)
 
     # launches per kernel: the coded kernels from the ResNet simulate leg
     # (the first slice's main path) and the encode from the shared leg,
-    # which only that leg runs; the flash kernels from lm_shared_flash
+    # which only that leg runs; the narrow recombination from shared_int8,
+    # the approx decode from approx; the flash kernels from lm_shared_flash
     by_name = {lg["leg"]: lg for lg in legs}
+    source_leg = {"complex_matmul": "shared",
+                  "cyclic_narrow_recombine": "shared_int8",
+                  "approx_decode": "approx",
+                  **{k: "lm_shared_flash" for k in FLASH}}
     for row in kernels:
-        src = by_name[{"complex_matmul": "shared"}.get(
-            row["name"], "lm_shared_flash" if row["name"] in FLASH
-            else "simulate")]
+        src = by_name[source_leg.get(row["name"], "simulate")]
         row["launches"] = src["launches"][row["name"]]
         row["launches_from_leg"] = src["leg"]
         row["launches_per_step"] = row["launches"] / src["steps"]

@@ -42,6 +42,11 @@ SIGNATURES = {
     "cyclic_locator": {
         "draco_cyclic_locator": [_P] * 15 + [_I] * 4 + [_F] * 8 + [_P],
     },
+    "narrow_decode": {
+        "draco_narrow_recombine": [_P] * 7 + [_I, _LL, _I, _I, _LL, _P],
+        "draco_approx_decode_chunks": [_LL],
+        "draco_approx_decode": [_P] * 8 + [_I, _LL, _I, _I, _LL, _I, _F, _P],
+    },
     "flash_attention": {
         "draco_flash_fwd": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
         "draco_flash_dq": [_P] * 8 + [_I] * 3 + [_F, _I, _P],

@@ -5,6 +5,10 @@
   python -m draco_tpu_torch.cli --approach cyclic --network ResNet18 \\
       --dataset synthetic-cifar10 --num-workers 8 --worker-fail 1 \\
       --batch-size 4 --max-steps 3 --device cpu
+  python -m draco_tpu_torch.cli --preset approx-resnet18 --num-workers 8 \\
+      --max-steps 5
+  python -m draco_tpu_torch.cli --preset cyclic-resnet18 --num-workers 8 \\
+      --redundancy shared --wire-dtype int8 --max-steps 5
   python -m draco_tpu_torch.cli --network TransformerLM \\
       --dataset synthetic-text --approach cyclic --redundancy shared \\
       --attn-impl flash --compute-dtype bfloat16 --num-workers 8 \\
@@ -37,6 +41,11 @@ FLAGS = {
     "--approach": (str, "approach"),
     "--mode": (str, "mode"),
     "--worker-fail": (int, "worker_fail"),
+    "--code-redundancy": (float, "code_redundancy"),
+    "--straggler-alpha": (float, "straggler_alpha"),
+    "--assignment-scheme": (str, "assignment_scheme"),
+    "--straggle-mode": (str, "straggle_mode"),
+    "--straggle-count": (int, "straggle_count"),
     "--err-mode": (str, "err_mode"),
     "--adversarial": (float, "adversarial"),
     "--adversary-count": (int, "adversary_count"),
@@ -44,6 +53,8 @@ FLAGS = {
     "--decode-granularity": (str, "decode_granularity"),
     "--decode-impl": (str, "decode_impl"),
     "--wire-dtype": (str, "wire_dtype"),
+    "--shadow-block": (int, "shadow_block"),
+    "--shadow-round": (str, "shadow_round"),
     "--wire-segments": (int, "wire_segments"),
     "--topology": (str, "topology"),
     "--train-dir": (str, "train_dir"),
@@ -75,6 +86,10 @@ def parser() -> argparse.ArgumentParser:
 def config_from_args(args) -> TrainConfig:
     given = {field: getattr(args, field) for _, field in FLAGS.values()
              if getattr(args, field) is not None}
+    if given.get("approach") == "approx":
+        # approx has only the shared (compute-once) encode: an unset
+        # --redundancy resolves to it, an explicit simulate still fails
+        given.setdefault("redundancy", "shared")
     if args.preset:
         from draco_tpu_torch.presets import get_preset
 

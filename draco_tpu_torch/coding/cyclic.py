@@ -257,9 +257,16 @@ def locator_core(e_re, e_im, c2h_re, c2h_im, c1_re, c1_im, est_re, est_im,
 def decode(code: CyclicCode, r_re: torch.Tensor, r_im: torch.Tensor,
            rand_factor: torch.Tensor, present: Optional[torch.Tensor] = None,
            with_health: bool = False, rel_tol: float = HEALTH_REL_TOL,
-           lam: float = 0.0):
+           lam: float = 0.0, wire=None):
     """Recover the exact mean of the n batch gradients from (n, d) received
     rows with ≤ s corrupt: project -> locator -> recombine with v/n.
+
+    ``present`` (n,) bool: False rows never arrived (zero-filled by the
+    caller; erasures at known positions). ``wire``: the narrow wire
+    ``(mode, buf_re, buf_im, block)`` of ``obs.numerics.narrow_wire_pair``;
+    then ``r_re``/``r_im`` are its widened rows, which the projection and
+    the locator read, and the recombination reads the narrow buffers
+    (``cyclic_narrow_recombine``) instead of ``complex_recombine``.
 
     Returns (decoded (d,), honest (n,) bool) and, with ``with_health``, the
     health dict (``residual`` scalar, ``flagged`` and ``loud`` (n,) bool).
@@ -275,8 +282,12 @@ def decode(code: CyclicCode, r_re: torch.Tensor, r_im: torch.Tensor,
         decode_kernels.cyclic_locator(code, e_re[None, :], e_im[None, :],
                                       pres_f, rel_tol, lam=lam))
     # 6. recombine: Re(vᵀR) with the 1/n folded into v (the second pass)
-    decoded = ops_coded.complex_recombine(v_re[0] / n, v_im[0] / n,
-                                          r_re, r_im)
+    if decode_kernels.narrow_kernel_ok(wire):
+        decoded = decode_kernels.cyclic_narrow_recombine(v_re[0] / n,
+                                                         v_im[0] / n, wire)
+    else:
+        decoded = ops_coded.complex_recombine(v_re[0] / n, v_im[0] / n,
+                                              r_re, r_im)
     honest = honest_l[0]
     if with_health:
         return decoded, honest, {"residual": resid_l[0],

@@ -12,6 +12,9 @@ fused locator runs, op for op, so the port's plain locator
   topk_mask       top-m by pairwise rank, ties to the lower index
   select_matrix   the (m, n) 0/1 compaction matrix of a mask with m set lanes
   masked_median   rank-selection median over masked lanes (nanmedian)
+
+and, for the approx code's decode weights, ``truncated_lstsq`` at λ = 0:
+the reference's ``jnp.linalg.lstsq(a, b, rcond)``.
 """
 
 from __future__ import annotations
@@ -56,6 +59,20 @@ def jacobi_lstsq(a: torch.Tensor, b: torch.Tensor, rcond: float,
     coef = torch.where(keep, wtb / torch.clamp_min(sig2, _TINY),
                        torch.zeros_like(wtb))
     return (v * coef[:, None, :]).sum(2)
+
+
+def truncated_lstsq(a: torch.Tensor, b: torch.Tensor,
+                    rcond: float) -> torch.Tensor:
+    """min ‖A x − b‖ by SVD for a (m, k), b (m,) -> x (k,), as
+    ``jnp.linalg.lstsq(a, b, rcond)``: singular values σ > 0 with
+    σ ≥ rcond·σmax are inverted, the others dropped. On a rank-deficient
+    system (an approx cluster wholly absent) the rule decides the answer:
+    the minimal-norm solution over the kept directions."""
+    u, s, vt = torch.linalg.svd(a, full_matrices=False)
+    keep = (s > 0) & (s >= rcond * s[0])
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
+                        torch.zeros_like(s))
+    return vt.T @ (s_inv * (u.T @ b))
 
 
 def gauss_inv_c(a_re: torch.Tensor, a_im: torch.Tensor):

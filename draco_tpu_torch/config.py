@@ -9,11 +9,16 @@ value the port does not implement yet.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
+
+from draco_tpu_torch.coding.assignment import build_assignment
+from draco_tpu_torch.obs.numerics import WIRE_DTYPES, wire_rel_tol
 
 # Deterministic seed shared by every participant (reference: SEED_=428).
 SEED = 428
 
+APPROACHES = ("baseline", "cyclic", "approx")
 AGG_MODES = ("normal", "geometric_median")
 CNN_NETWORKS = ("ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152")
 LM_NETWORK = "TransformerLM"
@@ -35,12 +40,22 @@ class TrainConfig:
     max_steps: int = 10000
     # --- coded data parallelism ---
     num_workers: int = 8
-    approach: str = "baseline"  # baseline | cyclic
+    approach: str = "baseline"  # baseline | cyclic | approx
     mode: str = "normal"  # baseline aggregation: normal | geometric_median
     worker_fail: int = 0  # s
+    # --- approximate code (approach="approx") ---
+    code_redundancy: float = 1.5  # r in [1, n]: batches per worker
+    # the decode is dimensioned for up to ⌈straggler_alpha · n⌉ absent
+    # workers a step
+    straggler_alpha: float = 0.25
+    assignment_scheme: str = "pairwise"  # pairwise | clustered
     err_mode: str = "rev_grad"  # rev_grad | constant | random
     adversarial: float = -100.0
     adversary_count: Optional[int] = None  # None = worker_fail
+    # --- stragglers: "drop" = straggle_count workers a step never arrive
+    # (erasures at known positions; rng.straggler_schedule) ---
+    straggle_mode: str = "none"  # none | drop
+    straggle_count: int = 0
     redundancy: str = "simulate"  # simulate | shared
     decode_granularity: str = "global"
     decode_impl: str = "auto"  # auto | pallas: kernel on cuda, plain on cpu
@@ -58,8 +73,13 @@ class TrainConfig:
     compute_dtype: str = "float32"
     # held-out loss every eval_freq steps (the LM loop; 0 = never)
     eval_freq: int = 50
+    # --- the wire: what the coded rows cross it as (obs/numerics.py):
+    # f32, or bf16 / int8 with per-block scales over shadow_block elements,
+    # rounded to nearest ("stochastic" is not ported yet) ---
+    wire_dtype: str = "f32"  # f32 | bf16 | int8
+    shadow_block: int = 256
+    shadow_round: str = "nearest"
     # --- options of the reference the port rejects for now ---
-    wire_dtype: str = "f32"
     wire_segments: int = 1
     topology: str = "flat"
     seq_shards: int = 1
@@ -90,10 +110,10 @@ class TrainConfig:
                 else self.adversary_count)
 
     def validate(self) -> "TrainConfig":
-        if self.approach not in ("baseline", "cyclic"):
+        if self.approach not in APPROACHES:
             raise ValueError(
                 f"approach={self.approach!r} is not ported yet (the port "
-                f"runs baseline|cyclic)")
+                f"runs {'|'.join(APPROACHES)})")
         if self.approach == "baseline" and self.mode not in AGG_MODES:
             raise ValueError(
                 f"baseline mode={self.mode!r} is not ported yet (the port "
@@ -116,9 +136,6 @@ class TrainConfig:
             raise ValueError(
                 f"decode_impl={self.decode_impl!r} is not ported (auto|pallas:"
                 f" the kernels on cuda, their plain versions on cpu)")
-        if self.wire_dtype != "f32":
-            raise ValueError(
-                f"wire_dtype={self.wire_dtype!r} is not ported yet (f32 only)")
         if self.wire_segments != 1:
             raise ValueError("wire_segments > 1 is not ported yet")
         if self.topology != "flat":
@@ -142,12 +159,100 @@ class TrainConfig:
         if self.steps_per_call != 1:
             raise ValueError("steps_per_call > 1 is not ported yet (the port "
                              "runs the eager one-step loops)")
+        if self.approach == "approx":
+            self._validate_approx()
+        self._validate_stragglers()
+        self._validate_wire()
         if self.network == LM_NETWORK:
             self._validate_lm()
         elif self.compute_dtype != "float32":
             raise ValueError("compute_dtype=bfloat16 is not ported yet for "
                              "the CNN path (it computes in float32)")
         return self
+
+    def _validate_approx(self) -> None:
+        """The reference's approx checks (draco_tpu/config.py)."""
+        if self.num_adversaries > 0:
+            # the decode weights average whatever arrives: no locator, so
+            # one live Byzantine row poisons the decode undetectably
+            raise ValueError(
+                "approach=approx carries no Byzantine certificate: set "
+                "worker_fail=0 (or adversary_count=0) — use cyclic for live "
+                "adversaries")
+        if self.redundancy != "shared":
+            raise ValueError(
+                "approach=approx requires redundancy='shared' (the "
+                "assignment's fractional loads have no fixed-lane simulate "
+                "shape)")
+        if not 1.0 <= self.code_redundancy <= self.num_workers:
+            raise ValueError(
+                f"code_redundancy must lie in [1, num_workers], got "
+                f"{self.code_redundancy} at n={self.num_workers}")
+        if not 0.0 <= self.straggler_alpha < 1.0:
+            raise ValueError(f"straggler_alpha must lie in [0, 1), got "
+                             f"{self.straggler_alpha}")
+        # scheme name, clustered integrality and divisibility fail here,
+        # not mid-run
+        build_assignment(self.num_workers, self.code_redundancy,
+                         self.assignment_scheme)
+
+    def _validate_stragglers(self) -> None:
+        """The reference's straggler budgets. Erasures cost one redundancy
+        unit, unknown errors two: the cyclic decode covers t = 0 with
+        e ≤ 2s, or t + e ≤ s; the approx code is dimensioned for
+        e ≤ ⌈α·n⌉."""
+        if self.straggle_mode not in ("none", "drop"):
+            raise ValueError(f"unknown straggle_mode: {self.straggle_mode}")
+        e = self.straggle_count if self.straggle_mode == "drop" else 0
+        if e <= 0:
+            return
+        s, t, n = self.worker_fail, self.num_adversaries, self.num_workers
+        if self.approach == "baseline":
+            raise ValueError(
+                "stragglers on approach=baseline are not ported yet (the "
+                "robust rules over present rows)")
+        if self.approach == "cyclic" and not (
+                (t == 0 and e <= 2 * s) or t + e <= s):
+            raise ValueError(
+                f"cyclic straggler budget exceeded: need adversary_count + "
+                f"straggle_count <= s ({t}+{e} <= {s}), or adversary_count "
+                f"== 0 with straggle_count <= 2*s ({e} <= {2 * s})")
+        if self.approach == "approx" and e > math.ceil(
+                self.straggler_alpha * n):
+            raise ValueError(
+                f"approx straggler budget exceeded: straggle_count {e} > "
+                f"ceil(straggler_alpha * n) = "
+                f"{math.ceil(self.straggler_alpha * n)}")
+
+    def _validate_wire(self) -> None:
+        """The reference's wire checks; stochastic rounding is not ported
+        yet (its draws come from the JAX PRNG)."""
+        if self.wire_dtype not in WIRE_DTYPES:
+            raise ValueError(f"wire_dtype must be {'|'.join(WIRE_DTYPES)}, "
+                             f"got {self.wire_dtype!r}")
+        if self.wire_dtype != "f32":
+            if self.approach == "baseline":
+                raise ValueError(
+                    "wire_dtype != f32 requires a coded approach "
+                    f"(cyclic|approx), got {self.approach!r}")
+            if self.approach == "cyclic" and not wire_rel_tol(
+                    self.num_workers, self.worker_fail,
+                    self.wire_dtype) < 1.0:
+                raise ValueError(
+                    f"no usable narrow-wire flag threshold at (n="
+                    f"{self.num_workers}, s={self.worker_fail}, "
+                    f"{self.wire_dtype}) — route the narrow wire through "
+                    f"approach=approx")
+        if self.shadow_round == "stochastic":
+            raise ValueError(
+                "shadow_round='stochastic' is not ported yet (its draws come "
+                "from the JAX PRNG); the port rounds to nearest")
+        if self.shadow_round != "nearest":
+            raise ValueError(f"shadow_round must be nearest|stochastic, got "
+                             f"{self.shadow_round!r}")
+        if self.shadow_block < 1:
+            raise ValueError(
+                f"shadow_block must be >= 1, got {self.shadow_block}")
 
     def _validate_lm(self) -> None:
         """The reference's TransformerLM checks (draco_tpu/config.py), and
@@ -170,6 +275,10 @@ class TrainConfig:
         if self.seq_len < 2 or self.vocab < 1 or self.model_layers < 1:
             raise ValueError("seq_len >= 2, vocab >= 1 and model_layers >= 1")
         not_ported = {
+            "approach": self.approach == "approx",
+            "wire_dtype": self.wire_dtype != "f32",
+            "straggle_count": (self.straggle_mode == "drop"
+                               and self.straggle_count > 0),
             "seq_shards": self.seq_shards != 1,
             "tensor_shards": self.tensor_shards != 1,
             "pipeline_shards": self.pipeline_shards != 1,
@@ -181,6 +290,7 @@ class TrainConfig:
         for field, bad in not_ported.items():
             if bad:
                 raise ValueError(
-                    f"{field}={getattr(self, field)!r} is not ported yet (the "
-                    f"port runs the single-shard, unrolled LM with host "
-                    f"tokens)")
+                    f"{field}={getattr(self, field)!r} is not ported yet for "
+                    f"{LM_NETWORK} (the port runs the single-shard, unrolled "
+                    f"LM with host tokens, the cyclic or baseline code, every "
+                    f"row present and the f32 wire)")

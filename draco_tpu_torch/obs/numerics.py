@@ -1,0 +1,179 @@
+"""The real narrow wire (draco_tpu/obs/numerics.py, its wire part).
+
+``cfg.wire_dtype`` picks what the worker→aggregator wire carries: f32, or
+bf16 / int8 buffers that the decode widens back to f32. int8 rows carry
+symmetric per-block scales (absmax/127 over ``cfg.shadow_block`` elements
+of a row). Quantizing and widening are plain torch, as the reference does
+them outside Pallas; the decode kernels (``ops/decode_kernels``) read the
+narrow buffers and widen in registers.
+
+Rounding is to nearest (bf16: round half to even; int8: ``torch.round``,
+half to even like ``jnp.round``), so the buffers equal the reference's bit
+for bit (``tests/test_torch_wire.py``). The reference's stochastic
+rounding draws from the JAX PRNG and is not ported yet (``config.validate``
+rejects ``shadow_round="stochastic"``). The reference's numerics
+observatory, shadow decode and wire ledger are not ported either.
+
+The constants are the reference's, as its tools/wire_study.py derived them:
+the locator λ per dtype, the per-(n, s, dtype) cyclic flag thresholds and
+the residual slack of the approx certificate on a narrow wire.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# int8 quantization levels per sign (symmetric per-block scale absmax/127)
+INT8_LEVELS = 127.0
+# default per-block scale granularity along the last axis (cfg.shadow_block)
+DEFAULT_BLOCK = 256
+# the quiet NaN a bf16 wire carries (the reference's cast gives this one)
+BF16_NAN_BITS = 0x7FC0
+
+WIRE_DTYPES = ("f32", "bf16", "int8")
+
+# λ of the cyclic locator solve per wire dtype: the syndrome-significance
+# gate and the solve's noise-floor cutoff (coding/cyclic.locator_core);
+# λ = 0 on the f32 wire is the exact path
+WIRE_LOCATOR_LAMBDA = {"f32": 0.0, "bf16": 2.0 ** -8, "int8": 2.0 ** -6}
+
+# quantization-aware cyclic flag thresholds (relative amplitude, the role
+# of coding/cyclic.HEALTH_REL_TOL on the f32 wire), per (n, s, dtype)
+WIRE_REL_TOL_TABLE = {
+    (8, 1, "bf16"): 5e-2, (8, 1, "int8"): 1.5e-1,
+    (32, 3, "bf16"): 2e-1, (32, 3, "int8"): 2.8e-1,
+}
+
+# slack added to the approx certificate (residual ≤ bound) on a narrow
+# wire: the measured residual carries the quantization error, the bound
+# prices drops only
+WIRE_RESIDUAL_SLACK = {"f32": 0.0, "bf16": 2e-2, "int8": 1e-1}
+
+# per-dtype threshold band for shapes outside the table, at s ≤ 2
+SHADOW_REL_TOL = {"bf16": 5e-2, "int8": 1.5e-1}
+
+
+def wire_rel_tol(n: int, s: int, dtype: str) -> float:
+    """The cyclic flag threshold a narrow wire decodes with at (n, s): the
+    table's entry, else SHADOW_REL_TOL[dtype] for s ≤ 2, else ``inf`` (no
+    usable threshold is known; ``config.validate`` rejects the shape)."""
+    key = (int(n), int(s), dtype)
+    if key in WIRE_REL_TOL_TABLE:
+        return WIRE_REL_TOL_TABLE[key]
+    if int(s) <= 2:
+        return SHADOW_REL_TOL[dtype]
+    return float("inf")
+
+
+def wire_locator_lambda(dtype: str) -> float:
+    return WIRE_LOCATOR_LAMBDA[dtype]
+
+
+def wire_residual_slack(dtype: str) -> float:
+    return WIRE_RESIDUAL_SLACK.get(dtype, 0.0)
+
+
+def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
+    """(..., d) -> (..., ⌈d/block⌉, block), the ragged tail padded with 0."""
+    d = x.shape[-1]
+    nb = -(-d // block)
+    if nb * block != d:
+        x = F.pad(x, (0, nb * block - d))
+    return x.reshape(x.shape[:-1] + (nb, block))
+
+
+def _block_absmax(af: torch.Tensor, block: int) -> torch.Tensor:
+    """Per-block maximum of ``af`` (already the finite-masked |x|) along
+    the last axis, blocks padded with 0: (..., ⌈d/block⌉). The reference
+    broadcasts it back to (..., d); the port keeps one value per block."""
+    return _blocks(af, block).amax(dim=-1)
+
+
+def _int8_levels_and_scale(x: torch.Tensor, block: int):
+    """Symmetric per-block int8 quantization, round to nearest: f32 rows
+    (..., d) -> ``(q, scale)``, ``q`` the levels in [-127, 127] held in f32
+    and ``scale`` (..., ⌈d/block⌉) f32 = absmax/127 (1 for an all-zero
+    block). Non-finite inputs map to 0: an integer wire has no NaN."""
+    block = max(int(block), 1)
+    d = x.shape[-1]
+    xf = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    bmax = _block_absmax(xf.abs(), block)
+    # divided by a 0-d tensor, not a Python number: on the card torch
+    # multiplies by the reciprocal of a number, which can round otherwise
+    levels = torch.full((), INT8_LEVELS, device=x.device)
+    scale = torch.where(bmax > 0, bmax / levels, torch.ones_like(bmax))
+    y = (_blocks(xf, block) / scale[..., None]).flatten(-2)[..., :d]
+    return torch.round(y).clamp_(-INT8_LEVELS, INT8_LEVELS), scale
+
+
+def narrow_wire_rows(x: torch.Tensor, mode: str,
+                     block: int = DEFAULT_BLOCK) -> dict:
+    """Round (..., d) f32 wire rows into the narrow buffers that cross the
+    wire: bf16 ``{"q": bfloat16 (..., d)}``, or int8 ``{"q": int8 (..., d),
+    "scale": f32 (..., ⌈d/block⌉)}``."""
+    x = x.float()
+    if mode == "bf16":
+        # NaN passes through as the reference's one bit pattern: casts on
+        # the CPU and the card give NaNs of other signs and payloads
+        nan = torch.full((), BF16_NAN_BITS, dtype=torch.int16,
+                         device=x.device).view(torch.bfloat16)
+        return {"q": torch.where(torch.isnan(x), nan, x.to(torch.bfloat16))}
+    if mode != "int8":
+        raise ValueError(f"unknown wire dtype: {mode!r}")
+    q, scale = _int8_levels_and_scale(x, block)
+    return {"q": q.to(torch.int8).contiguous(), "scale": scale.contiguous()}
+
+
+def widen_wire_rows(buf: dict, mode: str,
+                    block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """Narrow buffers -> the f32 rows: the bf16 value, or level × its
+    block's scale (one f32 multiply, as the decode kernels do it)."""
+    q = buf["q"]
+    if mode == "bf16":
+        return q.float()
+    if mode != "int8":
+        raise ValueError(f"unknown wire dtype: {mode!r}")
+    block = max(int(block), 1)
+    wide = buf["scale"].repeat_interleave(block, dim=-1)[..., :q.shape[-1]]
+    return q.float() * wide
+
+
+def wire_decode_params(cfg):
+    """(rel_tol, lam) of the cyclic decode at ``cfg``'s wire dtype:
+    (None, 0.0) on the f32 wire, where the caller keeps HEALTH_REL_TOL and
+    the exact λ = 0 solve; else the table's threshold at (num_workers,
+    worker_fail) and the dtype's locator λ."""
+    if cfg.wire_dtype == "f32":
+        return None, 0.0
+    return (wire_rel_tol(cfg.num_workers, cfg.worker_fail, cfg.wire_dtype),
+            wire_locator_lambda(cfg.wire_dtype))
+
+
+def narrow_wire_pair(cfg, enc_re: torch.Tensor, enc_im: torch.Tensor):
+    """The narrow wire on a cyclic codeword pair: returns ``(enc_re, enc_im,
+    wire)`` with the pair widened back to f32 (the projection and the
+    locator read it) and ``wire = (mode, buf_re, buf_im, block)`` for the
+    narrow recombination; the pair unchanged and ``wire = None`` on the f32
+    wire."""
+    if cfg.wire_dtype == "f32":
+        return enc_re, enc_im, None
+    mode, block = cfg.wire_dtype, int(cfg.shadow_block)
+    buf_re = narrow_wire_rows(enc_re, mode, block)
+    buf_im = narrow_wire_rows(enc_im, mode, block)
+    return (widen_wire_rows(buf_re, mode, block),
+            widen_wire_rows(buf_im, mode, block),
+            (mode, buf_re, buf_im, block))
+
+
+def narrow_wire_single(cfg, rows: torch.Tensor):
+    """The narrow wire on one block of rows (the approx partial sums):
+    ``wire = (mode, buf, block)``, or None on the f32 wire. Unlike the
+    reference it returns no widened copy: the approx decode reads the
+    narrow buffers (the kernel widens in registers, its plain version in
+    its own body), so the widened (n, d) matrix is never written."""
+    if cfg.wire_dtype == "f32":
+        return None
+    block = int(cfg.shadow_block)
+    return (cfg.wire_dtype, narrow_wire_rows(rows, cfg.wire_dtype, block),
+            block)

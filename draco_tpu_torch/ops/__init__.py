@@ -12,6 +12,8 @@ KERNELS = {
     "complex_project": coded.complex_project,
     "complex_recombine": coded.complex_recombine,
     "cyclic_locator": decode_kernels.cyclic_locator,
+    "cyclic_narrow_recombine": decode_kernels.cyclic_narrow_recombine,
+    "approx_decode": decode_kernels.approx_decode,
     "flash_fwd": flash_attention.flash_fwd,
     "flash_dq": flash_attention.flash_dq,
     "flash_dkv": flash_attention.flash_dkv,

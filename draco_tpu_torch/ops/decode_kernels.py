@@ -1,22 +1,38 @@
-"""The fused cyclic error locator (draco_tpu/ops/decode_kernels.py).
+"""The fused decode kernels (draco_tpu/ops/decode_kernels.py).
 
 ``cyclic_locator`` runs decode steps 2–5 and the decode health on a stack
 of projected columns: syndrome → Hankel solve by one-sided Jacobi →
 locator on the DFT grid → top-(n−2s) honest mask → one complex
 Gauss–Jordan inverse giving the recombination vector and the codeword fit
-→ flagged / loud / residual. On a CUDA tensor it launches the kernel of
-``csrc/cyclic_locator.cu`` (one thread block per column); on a CPU tensor
-it runs the plain version, ``coding/cyclic.locator_core``. The wrapper
-counts its kernel launches in ``cyclic_locator.launches``.
+→ flagged / loud / residual. Kernel: ``csrc/cyclic_locator.cu`` (one
+thread block per column); plain version: ``coding/cyclic.locator_core``.
+
+``cyclic_narrow_recombine`` is the cyclic recombination Re(vᵀR) read from
+the narrow wire (bf16, or int8 levels with per-block scales), widened in
+registers. ``approx_decode`` is the approx code's decode tail in one pass
+over d: the absent rows zero-filled, Σ (v/n)·rows, the true mean of the
+batch gradients, and the two squared norms of the residual certificate.
+Kernels: ``csrc/narrow_decode.cu``; plain versions: ``*_plain`` here.
+
+Each wrapper launches its kernel on CUDA tensors and runs its plain
+version on CPU tensors; any other device raises. It counts its kernel
+launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from draco_tpu_torch import _build
+from draco_tpu_torch.obs import numerics
 
 MAX_N = 64  # the kernel's block width; rank counts are exact to 64 rows
+# wire element type -> the narrow_decode kernels' template switch
+WIRE_CODES = {"f32": 0, "bf16": 1, "int8": 2}
+WIRE_TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                     "int8": torch.int8}
 
 
 def resolve_decode_impl(value: str, device) -> str:
@@ -78,3 +94,157 @@ def cyclic_locator(code, e_re_l, e_im_l, pres_f, rel_tol: float,
 
 
 cyclic_locator.launches = 0
+
+
+# --------------------------------------------------------------------------
+# decodes that read the wire as it arrived (csrc/narrow_decode.cu)
+# --------------------------------------------------------------------------
+
+def narrow_kernel_ok(wire) -> bool:
+    """Whether the narrow-wire kernels take ``wire``: any bf16 wire, and an
+    int8 wire of any scale block ≥ 1. (The reference also needs the block
+    to divide its TILE_D, a tiling limit of the TPU the port's kernels do
+    not have, so on a narrow wire the port always takes them.)"""
+    return wire is not None and (wire[0] == "bf16" or int(wire[-1]) >= 1)
+
+
+def _on_cuda(*tensors) -> bool:
+    """True for CUDA inputs (contiguous, one device), False for CPU ones."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"decode kernels run on cuda or cpu tensors, got "
+                         f"{dev}")
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(
+                f"decode kernels take contiguous tensors on one device; got "
+                f"{tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
+    return True
+
+
+def _wire_operands(mode: str, buf: dict, block: int, n: int, d: int,
+                   what: str):
+    """The kernel's view of one narrow buffer: ``(q, scale or None, block,
+    nb)``, checked against (n, d)."""
+    q, scale = buf["q"], buf.get("scale")
+    if mode not in WIRE_CODES or q.dtype != WIRE_TORCH_DTYPES[mode] \
+            or q.shape != (n, d):
+        raise ValueError(f"{what}: a {mode} wire of {q.dtype} "
+                         f"{tuple(q.shape)}, expected ({n}, {d})")
+    if mode != "int8":
+        return q, None, 1, 0
+    nb = -(-d // block) if block >= 1 else -1
+    if block < 1 or scale is None or scale.dtype != torch.float32 \
+            or scale.shape != (n, nb):
+        raise ValueError(f"{what}: int8 scales "
+                         f"{None if scale is None else tuple(scale.shape)} "
+                         f"at block {block}, expected ({n}, {nb}) float32")
+    return q, scale, block, nb
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _f32_vectors(what: str, n: int, *vs) -> None:
+    for v in vs:
+        if v.dtype != torch.float32 or v.shape != (n,):
+            raise ValueError(f"{what}: a vector of {v.dtype} "
+                             f"{tuple(v.shape)}, expected ({n},) float32")
+
+
+def cyclic_narrow_recombine_plain(v_re, v_im, wire):
+    """Re[(vr + i·vi)ᵀ (R_re + i·R_im)] with R the widened wire buffers:
+    two sums, then their difference, as the reference's kernel body."""
+    mode, buf_re, buf_im, block = wire
+    return (v_re @ numerics.widen_wire_rows(buf_re, mode, block)
+            - v_im @ numerics.widen_wire_rows(buf_im, mode, block))
+
+
+def cyclic_narrow_recombine(v_re, v_im, wire):
+    """The cyclic recombination from the narrow wire ``(mode, buf_re,
+    buf_im, block)`` of ``obs.numerics.narrow_wire_pair``: v (n,) f32 ->
+    (d,) f32. The kernel reads the bf16 / int8 buffers once and widens in
+    registers, so the widened (n, d) pair is not read again."""
+    mode, buf_re, buf_im, block = wire
+    tensors = [v_re, v_im, buf_re["q"], buf_im["q"]] + [
+        b["scale"] for b in (buf_re, buf_im) if "scale" in b]
+    if not _on_cuda(*tensors):
+        return cyclic_narrow_recombine_plain(v_re, v_im, wire)
+    n, d = buf_re["q"].shape
+    if n > MAX_N:
+        raise ValueError(f"cyclic_narrow_recombine: n={n} > {MAX_N}")
+    _f32_vectors("cyclic_narrow_recombine", n, v_re, v_im)
+    q_re, s_re, blk, nb = _wire_operands(mode, buf_re, int(block), n, d,
+                                         "cyclic_narrow_recombine")
+    q_im, s_im, _, _ = _wire_operands(mode, buf_im, int(block), n, d,
+                                      "cyclic_narrow_recombine")
+    out = torch.empty((d,), dtype=torch.float32, device=q_re.device)
+    err = _build.library("narrow_decode").draco_narrow_recombine(
+        v_re.data_ptr(), v_im.data_ptr(), q_re.data_ptr(), q_im.data_ptr(),
+        _ptr(s_re), _ptr(s_im), out.data_ptr(), n, d, WIRE_CODES[mode], blk,
+        nb, torch.cuda.current_stream(q_re.device).cuda_stream)
+    _build.check(err, "cyclic_narrow_recombine")
+    cyclic_narrow_recombine.launches += 1
+    return out
+
+
+cyclic_narrow_recombine.launches = 0
+
+
+def approx_decode_plain(rows, batch_grads, v_over_n, pres_f, wire=None):
+    """The approx decode tail: rows of absent workers (``pres_f`` 0)
+    zero-filled by where-select (a NaN payload must not survive), decoded
+    Σ (v/n)_i·row_i, true mean Σ (1/n)·bg_i, and Σ(decoded − mean)², Σ bg².
+    With ``wire = (mode, buf, block)`` the rows are the widened buffers."""
+    if wire is not None:
+        rows = numerics.widen_wire_rows(wire[1], wire[0], wire[2])
+    n = batch_grads.shape[0]
+    rows = torch.where(pres_f[:, None] > 0, rows, torch.zeros_like(rows))
+    decoded = v_over_n @ rows
+    mean = torch.full((n,), 1.0 / n, dtype=torch.float32,
+                      device=batch_grads.device) @ batch_grads
+    return (decoded, ((decoded - mean) ** 2).sum(),
+            (batch_grads * batch_grads).sum())
+
+
+def approx_decode(rows, batch_grads, v_over_n, pres_f, wire=None):
+    """The approx decode tail in one pass over d (``approx_decode_plain``):
+    ``rows`` (n, d) f32, or None with ``wire = (mode, buf, block)`` of
+    ``obs.numerics.narrow_wire_single`` (the kernel reads the bf16 / int8
+    buffers and widens in registers); ``batch_grads`` (n, d) f32,
+    ``v_over_n`` and ``pres_f`` (n,) f32. Returns ``(decoded (d,),
+    Σ(decoded − mean)², Σ bg²)``, the last two 0-d."""
+    mode, buf, block = ("f32", {"q": rows}, 1) if wire is None else wire
+    tensors = [buf["q"], batch_grads, v_over_n, pres_f] + (
+        [buf["scale"]] if "scale" in buf else [])
+    if not _on_cuda(*tensors):
+        return approx_decode_plain(rows, batch_grads, v_over_n, pres_f, wire)
+    n, d = batch_grads.shape
+    if n > MAX_N or batch_grads.dtype != torch.float32:
+        raise ValueError(
+            f"approx_decode: batch gradients {batch_grads.dtype} "
+            f"{tuple(batch_grads.shape)} (float32, n <= {MAX_N})")
+    _f32_vectors("approx_decode", n, v_over_n, pres_f)
+    q, scale, blk, nb = _wire_operands(mode, buf, int(block), n, d,
+                                       "approx_decode")
+    lib = _build.library("narrow_decode")
+    chunks = lib.draco_approx_decode_chunks(d)
+    dev = q.device
+    decoded = torch.empty((d,), dtype=torch.float32, device=dev)
+    part = torch.empty((2, chunks), dtype=torch.float32, device=dev)
+    sums = torch.empty((2,), dtype=torch.float32, device=dev)
+    err = lib.draco_approx_decode(
+        q.data_ptr(), _ptr(scale), batch_grads.data_ptr(),
+        v_over_n.data_ptr(), pres_f.data_ptr(), decoded.data_ptr(),
+        part.data_ptr(), sums.data_ptr(), n, d, WIRE_CODES[mode], blk, nb,
+        chunks, 1.0 / n, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "approx_decode")
+    approx_decode.launches += 1
+    return decoded, sums[0], sums[1]
+
+
+approx_decode.launches = 0

@@ -1,11 +1,14 @@
-"""Shared tail of the flat-gradient LM step (draco_tpu/parallel/common.py):
+"""Shared tail of the flat-gradient steps (draco_tpu/parallel/common.py):
 attack injection -> coded decode or robust aggregation -> optimizer update,
-and the LM metric schema.
+and the metric schema both the CNN step and the LM step emit.
 
 The port's slice: the cyclic code (``simulate`` and ``shared``) with the
-global decode and the f32 wire, and the baseline ``mean`` /
-``geometric_median``, with every row present. The reference's packed
-forensics columns, numerics observatory and step guard are not ported yet.
+global decode, the approx code (flat, one segment), the f32 or the narrow
+bf16/int8 wire, stragglers as a presence mask, and the baseline ``mean`` /
+``geometric_median``. The LM route runs the cyclic and baseline codes with
+every row present on the f32 wire (``config.validate``). The reference's
+packed forensics columns, numerics observatory and step guard are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -15,25 +18,57 @@ from typing import Optional
 import torch
 
 from draco_tpu_torch import aggregation, attacks
+from draco_tpu_torch.coding import approx as approx_mod
 from draco_tpu_torch.coding import cyclic as cyclic_mod
+from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.runtime import upload
 
 # column order of the LM metric block; cyclic appends DECODE_HEALTH_NAMES
 TOKEN_METRIC_NAMES = ("loss",)
 
 # per-step decode-health columns of the cyclic code:
 #   decode_residual  self-consistency residual, ≈ 0 iff the decode is exact
-#   located_errors   rows the decode flagged as corrupt
-#   det_tp           flagged ∧ adversarial (true positives)
-#   det_adv          adversarial (the detectable ground truth)
+#   located_errors   present rows the decode flagged as corrupt
+#   det_tp           flagged ∧ adversarial ∧ present (true positives)
+#   det_adv          adversarial ∧ present (the detectable ground truth)
 DECODE_HEALTH_NAMES = ("decode_residual", "located_errors", "det_tp",
                        "det_adv")
 
+# per-step health columns of the approx code (coding/approx.py):
+#   decode_residual        measured relative decode error
+#   decode_residual_bound  the arrived support's bound ‖u − 1‖₂
+#   recovered_fraction     fraction of batches with a present worker
+APPROX_HEALTH_NAMES = ("decode_residual", "decode_residual_bound",
+                       "recovered_fraction")
 
-def build_code_from_cfg(cfg) -> Optional[cyclic_mod.CyclicCode]:
-    """The CyclicCode for approach="cyclic", None for the baseline."""
+
+def build_code_from_cfg(cfg):
+    """The CyclicCode for approach="cyclic", the ApproxCode for "approx",
+    None for the baseline."""
     if cfg.approach == "cyclic":
         return cyclic_mod.build_cyclic_code(cfg.num_workers, cfg.worker_fail)
+    if cfg.approach == "approx":
+        return approx_mod.build_approx_code(
+            cfg.num_workers, cfg.code_redundancy, cfg.assignment_scheme)
     return None
+
+
+def approx_aggregate(code, grads: torch.Tensor, present=None, cfg=None):
+    """The approx code's aggregation: encode the (n, d) batch gradients
+    into partial sums, zero-fill the absent rows by where-select, put them
+    on the wire (``cfg.wire_dtype``), decode. ``present``: the host's (n,)
+    mask or None. Returns ``(decoded mean (d,), health)``. No adversary
+    injection: the code carries no Byzantine certificate."""
+    rows = approx_mod.encode_shared(code, grads)
+    if present is not None:
+        pres = upload(approx_mod.presence(code, present), grads.device)
+        rows = torch.where(pres[:, None] > 0, rows, torch.zeros_like(rows))
+    wire = None if cfg is None else numerics.narrow_wire_single(cfg, rows)
+    if wire is not None:
+        rows = None  # the decode reads the narrow buffers
+    agg, _v, health = approx_mod.decode(code, rows, grads, present=present,
+                                        wire=wire)
+    return agg, health
 
 
 def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
@@ -65,9 +100,14 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
     return aggregation.aggregate(grads, cfg.mode, cfg.geomedian_iters), None
 
 
-def masked_loss_metric(losses: torch.Tensor) -> torch.Tensor:
-    """Mean loss over the workers (every row is present in this slice)."""
-    return losses.mean()
+def present_mean(values: torch.Tensor,
+                 present: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean of per-worker (n,) values over the present workers: a
+    straggler's loss was never observed."""
+    if present is None:
+        return values.mean()
+    w = present.to(values.dtype)
+    return (values * w).sum() / torch.clamp_min(w.sum(), 1.0)
 
 
 def finish_flat_step(state, agg: torch.Tensor, layout) -> None:
@@ -87,15 +127,25 @@ def token_metric_names(cfg) -> tuple:
     return names
 
 
-def decode_health_metrics(health, adv_mask: torch.Tensor) -> dict:
-    """The DECODE_HEALTH_NAMES columns from a decode-health dict and the
-    step's adversary mask ({} for the baseline, whose health is None)."""
+def decode_health_metrics(health, adv_mask: torch.Tensor,
+                          present: Optional[torch.Tensor] = None) -> dict:
+    """The health columns of a coded decode ({} for the baseline, whose
+    health is None): APPROX_HEALTH_NAMES for the approx code, else
+    DECODE_HEALTH_NAMES with the flag and adversary counts gated by
+    ``present`` — a straggling adversary's row never arrives, so it is
+    neither detectable nor ground truth."""
     if health is None:
         return {}
-    flagged = health["flagged"]
+    if "bound" in health:
+        return {"decode_residual": health["residual"],
+                "decode_residual_bound": health["bound"],
+                "recovered_fraction": health["recovered_fraction"]}
+    flagged, adv = health["flagged"], adv_mask
+    if present is not None:
+        flagged, adv = flagged & present, adv & present
     return {
         "decode_residual": health["residual"],
         "located_errors": flagged.sum(),
-        "det_tp": (flagged & adv_mask).sum(),
-        "det_adv": adv_mask.sum(),
+        "det_tp": (flagged & adv).sum(),
+        "det_adv": adv.sum(),
     }

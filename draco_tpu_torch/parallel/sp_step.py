@@ -41,7 +41,7 @@ from draco_tpu_torch.parallel.common import (
     build_code_from_cfg,
     decode_health_metrics,
     finish_flat_step,
-    masked_loss_metric,
+    present_mean,
     token_metric_names,
 )
 from draco_tpu_torch.runtime import resolve_device
@@ -155,7 +155,7 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
                                            gen)
         del grads
         finish_flat_step(state, agg, layout)
-        metrics = {"loss": masked_loss_metric(losses)}
+        metrics = {"loss": present_mean(losses)}
         metrics.update(decode_health_metrics(health, mask))
         if health is not None:
             # not a column of the reference's LM schema: for callers that

@@ -22,6 +22,16 @@ PRESETS: dict[str, TrainConfig] = {
         mode="geometric_median", num_workers=9, worker_fail=1,
         err_mode="rev_grad", batch_size=32, lr=0.01, momentum=0.9,
     ),
+    # the straggler scenario: the approximate code at r=1.5, dimensioned
+    # for up to ⌈0.25·n⌉ absent workers a step, 2 dropped each step, no
+    # live adversary
+    "approx-resnet18": TrainConfig(
+        network="ResNet18", dataset="Cifar10", approach="approx",
+        num_workers=9, worker_fail=0, redundancy="shared",
+        code_redundancy=1.5, straggler_alpha=0.25,
+        straggle_mode="drop", straggle_count=2, batch_size=32,
+        lr=0.01, momentum=0.9,
+    ),
 }
 
 

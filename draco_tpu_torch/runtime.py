@@ -24,6 +24,15 @@ def full_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A small host tensor on ``device``. To the card it goes from pinned
+    memory, asynchronously on the current stream: a copy from pageable
+    memory would wait for the device to finish its queued work."""
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """``None`` means ``cuda``. ``cuda`` without a card raises."""

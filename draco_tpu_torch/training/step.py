@@ -5,11 +5,16 @@ program; the port runs it eagerly on one device, with the worker axis a
 real tensor axis:
 
   per-lane value-and-grad   ``torch.func.vmap`` of ``grad_and_value`` over
-                            n lanes (baseline, shared) or n·(2s+1) lanes
-                            (simulate), each with its worker's BN stats
+                            n lanes (baseline, shared, approx) or n·(2s+1)
+                            lanes (simulate), each with its worker's BN
+                            stats
   attack                    masked injection (``attacks``)
-  encode                    ``coding.cyclic.encode`` / ``encode_shared``
-  decode                    project → locator → recombine (the kernels)
+  encode                    ``coding.cyclic.encode`` / ``encode_shared``,
+                            ``coding.approx.encode_shared``
+  stragglers                absent rows zero-filled (``present``)
+  wire                      f32, or bf16 / int8 buffers (``obs.numerics``)
+  decode                    cyclic: project → locator → recombine; approx:
+                            host weight solve → one-pass decode (kernels)
   update                    SGD with momentum on the decoded gradient
 
 Gradients are flattened in the reference's leaf order and layout
@@ -21,7 +26,8 @@ batch row k (per worker on the baseline), folded from (seed + 2, step, k),
 drawn on the host so every device sees the same draws; the random
 projection from (seed, 7919). ``train_step`` takes explicit ``aug_draws``,
 ``rand_factor`` and ``noise`` overrides so the tests can hand it the
-reference's own draws.
+reference's own draws, and the step's ``present`` mask (the host's (n,)
+bool, False = the worker's row never arrives; None = all arrive).
 """
 
 from __future__ import annotations
@@ -40,13 +46,19 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import augment as augment_mod
 from draco_tpu_torch.models import build_model
 from draco_tpu_torch.models.resnet import init_params, init_stats
+from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
-from draco_tpu_torch.runtime import resolve_device
+from draco_tpu_torch.parallel.common import (
+    APPROX_HEALTH_NAMES,
+    DECODE_HEALTH_NAMES,
+    approx_aggregate,
+    build_code_from_cfg,
+    decode_health_metrics,
+    present_mean,
+)
+from draco_tpu_torch.runtime import resolve_device, upload
 
 AUG_SALT = 2  # the reference's augmentation seed salt (seed + 2)
-
-DECODE_HEALTH_NAMES = ("decode_residual", "located_errors", "det_tp",
-                       "det_adv")
 
 
 @dataclasses.dataclass
@@ -60,10 +72,10 @@ class TrainState:
 class TrainSetup(NamedTuple):
     model: Any
     state: TrainState
-    # (state, x, y, adv_mask, aug_draws=None, rand_factor=None, noise=None)
-    #   -> (state, metrics dict of 0-d tensors)
+    # (state, x, y, adv_mask, aug_draws=None, rand_factor=None, noise=None,
+    #  present=None) -> (state, metrics dict of 0-d tensors)
     train_step: Any
-    code: Optional[cyclic_mod.CyclicCode]
+    code: Any  # CyclicCode | ApproxCode | None
     layout: params_mod.Layout
     dim: int
     metric_names: tuple
@@ -80,6 +92,8 @@ def metric_names(cfg: TrainConfig) -> tuple:
     names = ("loss", "prec1")
     if cfg.approach == "cyclic":
         names += ("honest_located",) + DECODE_HEALTH_NAMES
+    elif cfg.approach == "approx":
+        names += APPROX_HEALTH_NAMES
     return names
 
 
@@ -159,13 +173,26 @@ def build_train_setup(cfg: TrainConfig, device=None,
         state.stats = {k: v.detach() for k, v in new_stats.items()}
         state.step += 1
 
-    code = None
+    def present_on_device(present):
+        """The host's (n,) presence mask as a bool tensor on the device."""
+        if present is None:
+            return None
+        return upload(torch.as_tensor(present).cpu().bool(), dev)
+
+    def lane_metrics(losses, precs, pres):
+        return {"loss": present_mean(losses, pres),
+                "prec1": present_mean(precs, pres)}
+
+    code = build_code_from_cfg(cfg)
     decode_impl = resolve_decode_impl(cfg.decode_impl, dev)
     if cfg.approach == "baseline":
 
         def train_step(state, x, y, adv_mask, aug_draws=None,
-                       rand_factor=None, noise=None):
+                       rand_factor=None, noise=None, present=None):
             del rand_factor
+            if present is not None:
+                raise ValueError("stragglers on approach=baseline are not "
+                                 "ported yet")
             x, y = prep(state, x, y, n, aug_draws)
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
                                                     x, y)
@@ -175,11 +202,31 @@ def build_train_setup(cfg: TrainConfig, device=None,
                                          cfg.adversarial, noise, gen)
             agg = aggregation.aggregate(grads, cfg.mode, cfg.geomedian_iters)
             update(state, agg, new_stats)
-            return state, {"loss": losses.mean(), "prec1": precs.mean()}
+            return state, lane_metrics(losses, precs, None)
+
+    elif cfg.approach == "approx":
+        # partial sums of the one-copy batch gradients (redundancy="shared"
+        # is the only approx shape); stragglers are this code's whole fault
+        # model: no adversary injects (config.validate)
+
+        def train_step(state, x, y, adv_mask, aug_draws=None,
+                       rand_factor=None, noise=None, present=None):
+            del adv_mask, rand_factor, noise
+            x, y = prep(state, x, y, n, aug_draws)
+            grads, new_stats, losses, precs = lanes(state.params, state.stats,
+                                                    x, y)
+            agg, health = approx_aggregate(code, grads, present, cfg)
+            update(state, agg, new_stats)
+            metrics = lane_metrics(losses, precs, present_on_device(present))
+            metrics.update(decode_health_metrics(health, None))
+            return state, metrics
 
     else:  # cyclic
-        code = cyclic_mod.build_cyclic_code(n, cfg.worker_fail)
         hat_s = code.hat_s
+        # the narrow wire decodes with its quantization-aware flag
+        # threshold and locator λ; the f32 wire with HEALTH_REL_TOL, λ = 0
+        wire_tol, wire_lam = numerics.wire_decode_params(cfg)
+        rel_tol = cyclic_mod.HEALTH_REL_TOL if wire_tol is None else wire_tol
         batch_ids = torch.as_tensor(code.batch_ids, device=dev).long()
         # every participant derives the same projection; drawn once on the
         # host, like the augmentation draws
@@ -208,7 +255,7 @@ def build_train_setup(cfg: TrainConfig, device=None,
                     precs.view(n, hat_s).mean(1))
 
         def train_step(state, x, y, adv_mask, aug_draws=None,
-                       rand_factor=None, noise=None):
+                       rand_factor=None, noise=None, present=None):
             x, y = prep(state, x, y, n, aug_draws)
             enc_re, enc_im, new_stats, losses, precs = compute_encoded(
                 state, x, y)
@@ -217,21 +264,24 @@ def build_train_setup(cfg: TrainConfig, device=None,
             enc_re, enc_im = attacks.inject_cyclic(
                 enc_re, enc_im, mask, cfg.err_mode, cfg.adversarial, noise,
                 gen)
+            pres = present_on_device(present)
+            if pres is not None:
+                # a straggler's rows never arrive: zero-filled, erasures at
+                # known positions
+                pw = pres[:, None].to(enc_re.dtype)
+                enc_re, enc_im = enc_re * pw, enc_im * pw
+            enc_re, enc_im, wire = numerics.narrow_wire_pair(cfg, enc_re,
+                                                             enc_im)
             f = projection if rand_factor is None else torch.as_tensor(
                 rand_factor, device=dev)
             decoded, honest, health = cyclic_mod.decode(
-                code, enc_re, enc_im, f, with_health=True)
+                code, enc_re, enc_im, f, present=pres, with_health=True,
+                rel_tol=rel_tol, lam=wire_lam, wire=wire)
             update(state, decoded, new_stats)
-            flagged = health["flagged"]
-            return state, {
-                "loss": losses.mean(),
-                "prec1": precs.mean(),
-                "honest_located": honest.sum(),
-                "decode_residual": health["residual"],
-                "located_errors": flagged.sum(),
-                "det_tp": (flagged & mask).sum(),
-                "det_adv": mask.sum(),
-            }
+            metrics = lane_metrics(losses, precs, pres)
+            metrics["honest_located"] = honest.sum()
+            metrics.update(decode_health_metrics(health, mask, pres))
+            return state, metrics
 
     return TrainSetup(model=model, state=state, train_step=train_step,
                       code=code, layout=layout, dim=dim,

@@ -2,11 +2,13 @@
 call).
 
 Batches come from the reference's deterministic index streams
-(``indices_cyclic`` for the coded path, ``indices_baseline`` otherwise) for
+(``indices_cyclic`` for the coded paths, ``indices_baseline`` otherwise) for
 1-based step t at index t − 1; the adversary mask of step t is row t of the
-seeded schedule. Each step's metrics are synchronised to the host and every
-``log_every``-th (and the first) goes to ``<train_dir>/metrics.jsonl`` under
-the reference's column names.
+seeded schedule, and under ``straggle_mode="drop"`` the step's presence
+mask is the negation of row t of the straggler schedule (a ``present``
+column then counts the arrived rows). Each step's metrics are synchronised
+to the host and every ``log_every``-th (and the first) goes to
+``<train_dir>/metrics.jsonl`` under the reference's column names.
 """
 
 from __future__ import annotations
@@ -36,6 +38,11 @@ class Trainer:
         self.quiet = quiet
         self.adv_schedule = drng.adversary_schedule(
             cfg.seed, cfg.max_steps, cfg.num_workers, cfg.num_adversaries)
+        self.straggle_schedule = (
+            drng.straggler_schedule(cfg.seed, cfg.max_steps,
+                                    cfg.num_workers, cfg.straggle_count)
+            if cfg.straggle_mode == "drop" and cfg.straggle_count > 0
+            else None)
 
     def batch(self, step: int):
         """(n, B, H, W, C) images and (n, B) labels of 1-based ``step``."""
@@ -54,11 +61,15 @@ class Trainer:
             raise ValueError(f"step {step} is past max_steps="
                              f"{self.cfg.max_steps}")
         x, y = self.batch(step)
+        present = (None if self.straggle_schedule is None
+                   else ~self.straggle_schedule[step])
         t0 = time.perf_counter()
         self.state, metrics = self.setup.train_step(
-            self.state, x, y, self.adv_schedule[step])
+            self.state, x, y, self.adv_schedule[step], present=present)
         # .item() waits for the device: the step's work is all on one stream
         out = {k: float(metrics[k].item()) for k in self.setup.metric_names}
+        if present is not None:
+            out["present"] = float(present.sum())
         out["step_ms"] = (time.perf_counter() - t0) * 1e3
         return {"step": step, **out}
 

@@ -101,4 +101,5 @@ def test_launch_counters_reset():
     assert set(tops.launch_counts().values()) == {0}
     assert set(tops.KERNELS) == {"complex_matmul", "complex_project",
                                  "complex_recombine", "cyclic_locator",
+                                 "cyclic_narrow_recombine", "approx_decode",
                                  "flash_fwd", "flash_dq", "flash_dkv"}

@@ -328,7 +328,7 @@ def test_per_worker_batchnorm_stats(leg):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("override", [
-    {"wire_dtype": "bf16"}, {"wire_segments": 2}, {"topology": "tree"},
+    {"shadow_round": "stochastic"}, {"wire_segments": 2}, {"topology": "tree"},
     {"decode_granularity": "layer"}, {"decode_impl": "xla"},
     {"network": "LeNet"}, {"approach": "baseline", "mode": "krum"},
     {"err_mode": "alie"}, {"approach": "maj_vote"}, {"adversary_count": 2}],
@@ -344,13 +344,16 @@ def test_presets_match_the_reference():
     from draco_tpu import presets as jpresets
     from draco_tpu_torch import presets
 
-    for name in ("cyclic-resnet18", "geomedian-resnet18"):
+    for name in ("cyclic-resnet18", "geomedian-resnet18", "approx-resnet18"):
         port = presets.get_preset(name, num_workers=8)
         ref = jpresets.get_preset(name, num_workers=8)
         for field in ("network", "dataset", "approach", "mode",
                       "num_workers", "worker_fail", "err_mode", "batch_size",
                       "lr", "momentum", "redundancy", "decode_granularity",
-                      "decode_impl", "seed", "geomedian_iters"):
+                      "decode_impl", "seed", "geomedian_iters",
+                      "code_redundancy", "straggler_alpha",
+                      "assignment_scheme", "straggle_mode", "straggle_count",
+                      "wire_dtype", "shadow_block", "shadow_round"):
             assert getattr(port, field) == getattr(ref, field), field
 
 
