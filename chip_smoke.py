@@ -15,7 +15,10 @@ prints no result line):
               block 256) and the approx decode (f32, bf16, int8; two absent
               rows, one of them NaN) at n=8, d=11,173,962 and at a small
               ragged d; the flash forward, dq and dk/dv at G=8·2·12 heads,
-              T=512, Dh=64 and at a ragged T=520. Times each kernel, its
+              T=512, Dh=64 and at a ragged T=520; the audit's mis-tiled
+              copy at (16, 48) and spill control at n=1003, each bit for
+              bit (the over-launch control never launches). Times each
+              kernel, its
               plain version, its bound and the one PyTorch call that
               computes the same function, where there is one (torch.matmul;
               scaled_dot_product_attention and its autograd backward)
@@ -42,9 +45,24 @@ prints no result line):
               and one small approx step with stragglers, card against CPU;
               one full-width LM step with attn_impl=dense against flash on
               the card; one small coded LM step on the card against the CPU
+  5. audit    the kernel audit (draco_tpu_torch/analysis/kernel_audit.py)
+              right after the kernel phase: every kernel of csrc/ green on
+              resources, launch limits, coverage and compute-sanitizer, and
+              its three negative controls each tripping exactly its rule
+              (the mis-tiled copy, the counterpart of the TPU lowering
+              audit's ``bad``, leaves 576 outputs unwritten and still equals
+              its plain version bit for bit); after the checks, the program
+              lint of each leg (analysis/rules.py) at the width it ran, one
+              inspected step after a warm-up: dtypes, no synchronising
+              call, host-to-device bytes within the manifest, the state
+              updated in place, no collective, the step's memory within
+              budget; then the lint's seeded-defect controls, each
+              tripping exactly its rule
 
 ``--profile`` adds one torch.profiler step per leg (device time by kernel
-and the device's busy share); ``--out`` writes the whole record as JSON.
+and by the step's phases draco_comp / draco_encode / draco_decode /
+draco_update, and the device's busy share); ``--out`` writes the whole
+record as JSON.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device it exits with status 1 before printing anything on stdout.
@@ -66,11 +84,17 @@ import torch.nn.functional as F
 from draco_tpu_torch import _build, attacks, ops
 from draco_tpu_torch import params as params_mod
 from draco_tpu_torch import rng as drng
+from draco_tpu_torch.analysis import kernel_audit, program_lint, registry
+from draco_tpu_torch.analysis import rules
+from draco_tpu_torch.analysis import controls as lint_controls
+from draco_tpu_torch.analysis.registry import APPROX, LM_FULL
 from draco_tpu_torch.coding import approx, cyclic
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data.datasets import load_dataset
 from draco_tpu_torch.obs import numerics
-from draco_tpu_torch.ops import coded, decode_kernels
+from draco_tpu_torch.obs.trace_report import fold_device_phases
+from draco_tpu_torch.obs.tracer import PHASES
+from draco_tpu_torch.ops import coded, controls, decode_kernels
 from draco_tpu_torch.ops import flash_attention as fa
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.token_loop import TokenLoop
@@ -87,22 +111,19 @@ NARROW = ("complex_matmul", "complex_project", "cyclic_locator",
           "cyclic_narrow_recombine")  # a narrow shared cyclic leg
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 BLOCK = 256  # the int8 wire's scale block (cfg.shadow_block's default)
-# the approx legs: the preset approx-resnet18 (r=1.5 pairwise, 2 workers
-# dropped a step, no adversary) at n=8
-APPROX = dict(approach="approx", redundancy="shared", worker_fail=0,
-              code_redundancy=1.5, assignment_scheme="pairwise",
-              straggle_mode="drop", straggle_count=2)
 WIRE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
-# the LM benchmark's configuration (tools/tpu_lm_perf.py, variant
-# lm_cyclic_s1_shared_bf16_flash, at that tool's defaults)
-LM_FULL = dict(network="TransformerLM", dataset="synthetic-text",
-               batch_size=2, lr=0.01, momentum=0.9, num_workers=N,
-               worker_fail=S, err_mode="rev_grad", seq_len=512, vocab=8192,
-               model_dim=768, model_heads=12, model_layers=8,
-               compute_dtype="bfloat16", attn_impl="flash", eval_freq=0,
-               train_dir="", seed=SEED)
-LM_D = 62_958_336  # its flat gradient
+# the legs' configurations (the approx preset, the LM benchmark's
+# TransformerLM) live in draco_tpu_torch/analysis/registry.py, which the
+# program lint holds to their manifests
+LM_D = 62_958_336  # the LM's flat gradient
 G_LM = N * 2 * 12  # flash heads per call on the shared leg: lanes·B·H
+# the kernels each leg must launch
+EXPECT = {"simulate": CODED[1:], "geomedian": (), "shared": CODED,
+          "approx": ("approx_decode",), "approx_int8": ("approx_decode",),
+          "shared_bf16": NARROW, "shared_int8": NARROW,
+          "lm_shared_flash": CODED + FLASH,
+          "lm_simulate_flash": CODED[1:] + FLASH,
+          "lm_geomedian_flash": FLASH}
 
 
 class SmokeFailure(RuntimeError):
@@ -597,43 +618,151 @@ def flash_kernels(dev) -> list:
     return out
 
 
+def control_kernels(dev) -> list:
+    """The controls of csrc/controls.cu that launch, against their plain
+    versions. The mis-tiled copy (the counterpart of the TPU lowering
+    audit's ``bad``) at its shape (16, 48): NaN in the same 576 places and
+    the copied (16, 12) region bit for bit; its bound counts the 192
+    elements it must read and the 768 its output holds. The spill control
+    at the kernel audit's n=1003 (small integers, so its 64-term sums are
+    exact in f32): bit for bit; its bound counts x, idx and the output once
+    and 64 multiply-adds an element. The over-launch control never
+    launches (the kernel audit checks its CUDA error 9)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randn(controls.SHAPE, generator=g, device=dev)
+    k = controls.control_mistiled_copy(x)
+    p = controls.control_mistiled_copy_plain(x)
+    require(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+            "control_mistiled_copy: differs from its plain version")
+    nan = int(k.isnan().sum())
+    require(nan == 576, f"control_mistiled_copy: {nan} NaN, expected 576")
+    err = (torch.nan_to_num(k) - torch.nan_to_num(p)).abs().max().item()
+    rows, cols = controls.SHAPE
+    b_ms, b_by = bound(4 * (controls.GRID * controls.TILE[0]
+                            * controls.TILE[1] + rows * cols), 0)
+    ms = time_ms(lambda: controls.control_mistiled_copy(x), 50)
+    plain_ms = time_ms(lambda: controls.control_mistiled_copy_plain(x), 50)
+    print(f"kernel control_mistiled_copy: bitwise equal to plain, {nan} NaN "
+          f"left unwritten; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.3e} ({b_by}) library_ms=null", flush=True)
+    out = [{"name": "control_mistiled_copy", "route": "cuda",
+            "source": "draco_tpu_torch/csrc/controls.cu",
+            "replaces": "tools/tpu_attn_lowering_check.py:111",
+            "maps_to": "tools/tpu_attn_lowering_check.py:111",
+            "control": True, "ok": True, "max_abs_err": err,
+            "tol": "bitwise, NaN positions included", "unwritten": nan,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}]
+
+    n = 1003
+    xs = torch.randint(-8, 8, (n,), generator=g, device=dev).to(torch.float32)
+    idx = torch.randint(0, 1 << 20, (n,), generator=g,
+                        device=dev).to(torch.int32)
+    k = controls.control_spill(xs, idx)
+    p = controls.control_spill_plain(xs, idx)
+    require(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+            f"control_spill: differs from its plain version by "
+            f"{(k - p).abs().max().item()}")
+    live = controls.SPILL_LIVE
+    b_ms, b_by = bound(3 * 4 * n, 2 * live * n)
+    ms = time_ms(lambda: controls.control_spill(xs, idx), 50)
+    plain_ms = time_ms(lambda: controls.control_spill_plain(xs, idx), 50)
+    print(f"kernel control_spill: bitwise equal to plain at n={n}; "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.3e} "
+          f"({b_by}) library_ms=null", flush=True)
+    out.append({"name": "control_spill", "route": "cuda",
+                "source": "draco_tpu_torch/csrc/controls.cu",
+                "replaces": None, "maps_to": None, "control": True,
+                "ok": True, "max_abs_err": (k - p).abs().max().item(),
+                "tol": "bitwise", "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 5: the audit
+# --------------------------------------------------------------------------
+
+def audit_kernels() -> dict:
+    """The kernel audit of every csrc/ kernel and its three controls
+    (analysis/kernel_audit.py), report in draco_tpu_torch/_build/audit/."""
+    report = kernel_audit.run_audit("cuda")
+    for row in report["rows"]:
+        r = row["rules"]
+        funcs = r["resources"].get("functions", [])
+        main = set(row.get("main_path_functions") or
+                   (f["function"] for f in funcs))
+        res = "; ".join(
+            f"{f['function']} {f['registers']} regs, {f['local_bytes']} B "
+            f"local, {f['static_smem']}+{f['dynamic_smem']} B smem, "
+            f"{f['threads']} threads, {f['resident_blocks']} blocks/SM"
+            for f in funcs if f["function"] in main)
+        san = ", ".join(
+            f"{t} " + (f"{v.get('errors')} errors" if v.get("ran") else
+                       f"not run ({v.get('reason', '')})")
+            for t, v in r["sanitizer"].items() if isinstance(v, dict)
+            and t in ("memcheck", "racecheck"))
+        cov = r["coverage"]
+        print(f"audit kernel {row['name']}: "
+              f"{'ok' if row['ok'] else 'FAIL'} failed "
+              f"{row['failed_rules']}"
+              + (f" (expected {row['expected_fail']})" if row["control"]
+                 else "")
+              + f"; {res}; coverage unwritten {cov.get('unwritten')} guard "
+              f"{cov.get('guard_touched')}; sanitizer: {san}"
+              + (f"; launch error {r['launch_limits']['error_code']}"
+                 if "error_code" in r["launch_limits"] else ""), flush=True)
+    require(report["all_ok"], "the kernel audit failed: " + "; ".join(
+        f"{r['name']}: {r.get('error')}" for r in report["rows"]
+        if not r["ok"]))
+    return report
+
+
+def lint_controls_card(dev) -> list:
+    """The program lint's seeded-defect controls on the card (the
+    collective's on a gloo group on the CPU): each trips exactly its
+    rule."""
+    rows = []
+    try:
+        for c in program_lint.controls_for(dev):
+            row = program_lint.control_row(c, dev)
+            rows.append({"name": c.name, **row})
+            print(f"audit lint {c.name}: {'ok' if row['ok'] else 'FAIL'} "
+                  f"tripped {row['failed_rules']} (expected "
+                  f"{c.expected_fail})", flush=True)
+            require(row["ok"], f"{c.name}: {row.get('error')}")
+    finally:
+        lint_controls.release()
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phase 3: the training legs
 # --------------------------------------------------------------------------
 
-def leg(name: str, steps: int, expect: tuple, dev, profile: bool = False,
-        **cfg_kw) -> dict:
-    """A ResNet-18 leg through the CNN Trainer."""
-    cfg = TrainConfig(**dict(
-        dict(network="ResNet18", dataset="synthetic-cifar10", num_workers=N,
-             worker_fail=S, err_mode="rev_grad", batch_size=32, lr=0.01,
-             momentum=0.9, max_steps=steps + 2, train_dir="", seed=SEED),
-        **cfg_kw))
-    tr = Trainer(cfg, device=dev, dataset=load_dataset("synthetic-cifar10"),
-                 quiet=True)
-    return drive(name, tr, tr.setup, cfg, steps, expect, dev, profile)
-
-
-def lm_leg(name: str, steps: int, expect: tuple, dev, profile: bool = False,
-           **cfg_kw) -> dict:
-    """A full-width TransformerLM leg through build_sp_train_setup and the
-    token loop, as ``python -m draco_tpu_torch.cli --network
-    TransformerLM`` runs it."""
-    cfg = TrainConfig(**dict(LM_FULL, max_steps=steps + 2, **cfg_kw))
-    setup = build_sp_train_setup(cfg, dev)
-    require(setup.dim == LM_D, f"{name}: d={setup.dim}, expected {LM_D}")
-    out = drive(name, TokenLoop(setup, cfg, quiet=True), setup, cfg, steps,
-                expect, dev, profile)
-    out["dim"] = setup.dim
+def run_leg(lp, steps: int, dev, profile: bool = False) -> dict:
+    """One leg of the registry (analysis/registry.py) at full width, built
+    through the entry points a user calls: a ResNet-18 leg through the CNN
+    Trainer, an LM leg through build_sp_train_setup and the token loop, as
+    ``python -m draco_tpu_torch.cli`` runs them."""
+    program = lp.build(dev, full=True, max_steps=steps + 2)
+    if lp.route == "lm":
+        dim = program.runner.setup.dim
+        require(dim == LM_D, f"{lp.name}: d={dim}, expected {LM_D}")
+    out = drive(lp.name, program, steps, EXPECT[lp.name], dev, profile)
+    if lp.route == "lm":
+        out["dim"] = program.runner.setup.dim
     return out
 
 
-def drive(name, runner, setup, cfg, steps, expect, dev, profile) -> dict:
+def drive(name, program, steps, expect, dev, profile) -> dict:
     """One warm-up step, then ``steps`` steps with the launch counts zeroed
     just before them and read just after; every cyclic step must locate the
     adversary, every approx step hold residual ≤ bound + the wire's slack
     with its 2 stragglers absent. On a narrow cyclic wire the recombination
     must read the narrow buffers: complex_recombine is never launched."""
+    runner, cfg = program.runner, program.cfg
+    setup = runner.setup
     require(setup.decode_impl == "cuda",
             f"{name}: the locator resolved to {setup.decode_impl!r}")
     first = runner.step()  # warm-up: cuDNN/cuBLAS plans, kernel loads
@@ -683,7 +812,52 @@ def drive(name, runner, setup, cfg, steps, expect, dev, profile) -> dict:
               + "; ".join(f"{r['name'][:40]} {r['host_self_ms']:.1f} ms x"
                           f"{r['calls']}" for r in prof["host_top"][:6]),
               flush=True)
+        ph = prof["phases"]
+        print(f"leg {name} device time by phase (ms, busy "
+              f"{ph['busy_ms']:.2f}): " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in ph["phases_ms"].items()),
+              flush=True)
     return out
+
+
+def lint_legs(dev) -> list:
+    """The program lint (analysis/rules.py) of every leg at the width it
+    ran, each built anew through the registry: one warm-up step, then the
+    inspected step against the leg's manifest. It runs after every leg was
+    timed: the profiler the lint runs stays attached to the process and
+    slows each later kernel launch (a leg timed after a profiled step ran
+    up to 40 ms a step slower, PERF.md §6)."""
+    rows = []
+    for lp in registry.collect():
+        rows.append({"leg": lp.name,
+                     **lint_leg(lp.name, lp.build(dev, full=True))})
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lint_leg(name, program) -> dict:
+    """One leg's lint row (program_lint.lint_leg), printed."""
+    t0 = time.perf_counter()
+    row = program_lint.lint_leg(program)
+    row["seconds"] = time.perf_counter() - t0
+    r = row["rules"]
+    print(f"audit lint {name}: {'ok' if row['ok'] else 'FAIL'} "
+          f"{row['failed_rules'] or ''} dtypes {r['dtype']['dtypes']}, "
+          f"syncs {r['host_traffic']['syncs']}, h2d "
+          f"{r['constant_bloat']['h2d_bytes']} B in "
+          f"{r['constant_bloat']['h2d_copies']} copies (profiler "
+          f"{r['constant_bloat']['profiler']['bytes']}, dispatcher "
+          f"{r['constant_bloat']['dispatcher']['bytes']}; budget "
+          f"{r['constant_bloat']['budget']}), step peak "
+          f"{r['memory_budget']['step_peak_bytes'] / 2**30:.3f} GiB (budget "
+          f"{r['memory_budget']['budget'] / 2**30:.2f}), absolute peak "
+          f"{r['memory_budget']['peak_bytes'] / 2**30:.3f} GiB, "
+          f"{r['in_place']['state_tensors']} state tensors in place, "
+          f"{row['ops']} ops", flush=True)
+    require(row["ok"], f"{name}: the program lint failed "
+            f"{row['failed_rules']}: " + "; ".join(
+                r[k].get("error", "") for k in row["failed_rules"]))
+    return row
 
 
 def cross_device_check(dev) -> dict:
@@ -925,8 +1099,10 @@ def lm_checks(dev) -> dict:
 
 def profile_step(tr) -> dict:
     """One more step under torch.profiler: device time by kernel name (the
-    top 15) and the device's busy time, beside the step's wall time under
-    the profiler (which adds host overhead of its own)."""
+    top 15), by the step's phases (the device work launched inside each
+    draco_* range; the ranges are on while the profiler runs) and the
+    device's busy time, beside the step's wall time under the profiler
+    (which adds host overhead of its own)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -942,10 +1118,11 @@ def profile_step(tr) -> dict:
                        getattr(e, "self_cuda_time_total", 0.0))
 
     # device-side events only (kernels, copies, memsets): an aten op's
-    # device total repeats the time of the kernels it launched
+    # device total repeats the time of the kernels it launched, and so does
+    # the device-side span of a draco_* range
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and dev_us(e) > 0]
+              and dev_us(e) > 0 and e.key not in PHASES]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:15]
     rows = [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3,
@@ -960,7 +1137,9 @@ def profile_step(tr) -> dict:
                                 reverse=True)[:12]]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top": rows,
             "host_top": host_top,
-            "host_ops": sum(e.count for e in host)}
+            "host_ops": sum(e.count for e in host),
+            "phases": fold_device_phases(
+                rules.export_trace(prof)["traceEvents"])}
 
 
 def main(argv=None) -> int:
@@ -979,6 +1158,7 @@ def main(argv=None) -> int:
               "runs the port on a CUDA GPU", file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")  # also turns TF32 off (runtime.full_f32)
     card = card_line()
     record = {"card": card, "torch": torch.__version__,
@@ -995,36 +1175,29 @@ def main(argv=None) -> int:
 
     code = cyclic.build_cyclic_code(N, S)
     kernels = (coded_kernels(code, dev) + locator_kernel(code, dev)
-               + narrow_kernels(code, dev) + flash_kernels(dev))
+               + narrow_kernels(code, dev) + flash_kernels(dev)
+               + control_kernels(dev))
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    record["kernel_audit"] = audit_kernels()
+    record["kernel_audit_s"] = time.perf_counter() - t0
 
     legs = []
-    for fn, name, steps, expect, kw in (
-            (leg, "simulate", args.steps, CODED[1:],
-             dict(approach="cyclic", redundancy="simulate")),
-            (leg, "geomedian", args.steps, (),
-             dict(approach="baseline", mode="geometric_median")),
-            (leg, "shared", args.steps, CODED,
-             dict(approach="cyclic", redundancy="shared")),
-            (leg, "approx", args.steps, ("approx_decode",), APPROX),
-            (leg, "approx_int8", args.steps, ("approx_decode",),
-             dict(APPROX, wire_dtype="int8")),
-            (leg, "shared_bf16", args.steps, NARROW,
-             dict(approach="cyclic", redundancy="shared", wire_dtype="bf16")),
-            (leg, "shared_int8", args.steps, NARROW,
-             dict(approach="cyclic", redundancy="shared", wire_dtype="int8")),
-            (lm_leg, "lm_shared_flash", args.lm_steps, CODED + FLASH,
-             dict(approach="cyclic", redundancy="shared")),
-            (lm_leg, "lm_simulate_flash", args.lm_steps, CODED[1:] + FLASH,
-             dict(approach="cyclic", redundancy="simulate")),
-            (lm_leg, "lm_geomedian_flash", args.lm_steps, FLASH,
-             dict(approach="baseline", mode="geometric_median"))):
-        legs.append(fn(name, steps, expect, dev, args.profile, **kw))
+    for lp in registry.collect():
+        steps = args.lm_steps if lp.route == "lm" else args.steps
+        legs.append(run_leg(lp, steps, dev, args.profile))
         torch.cuda.empty_cache()
     record["legs"] = legs
     record["cross_device"] = cross_device_check(dev)
     record["wire_checks"] = wire_checks(dev)
     record["lm_checks"] = lm_checks(dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    record["lint"] = lint_legs(dev)
+    record["lint_legs_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["lint_controls"] = lint_controls_card(dev)
+    record["lint_controls_s"] = time.perf_counter() - t0
 
     # launches per kernel: the coded kernels from the ResNet simulate leg
     # (the first slice's main path) and the encode from the shared leg,
@@ -1035,12 +1208,27 @@ def main(argv=None) -> int:
                   "cyclic_narrow_recombine": "shared_int8",
                   "approx_decode": "approx",
                   **{k: "lm_shared_flash" for k in FLASH}}
+    # the controls run on no main path: their counts are read from every
+    # leg, and are 0 on each
     for row in kernels:
+        if row.get("control"):
+            ran = sum(lg["launches"][row["name"]] for lg in legs)
+            require(ran == 0, f"{row['name']} ran {ran} times on the main "
+                    f"paths")
+            row["launches"] = ran
+            row["launches_from_leg"] = "all ten"
+            row["launches_per_step"] = 0.0
+            continue
         src = by_name[source_leg.get(row["name"], "simulate")]
         row["launches"] = src["launches"][row["name"]]
         row["launches_from_leg"] = src["leg"]
         row["launches_per_step"] = row["launches"] / src["steps"]
     record["kernels"] = kernels
+    record["script_s"] = time.perf_counter() - t_start
+    print(f"done: every phase passed in {record['script_s']:.1f} s "
+          f"(kernel audit {record['kernel_audit_s']:.1f} s, the legs' lint "
+          f"{record['lint_legs_s']:.1f} s, the lint's controls "
+          f"{record['lint_controls_s']:.1f} s)", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)

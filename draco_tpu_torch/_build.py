@@ -10,6 +10,11 @@ missing and returns it loaded.
 
 Pointers and the stream go to the C functions as ``c_void_p`` and 64-bit
 lengths as ``c_longlong``: ctypes would otherwise pass them as 32-bit ints.
+
+Every library also exports the resource query of ``csrc/audit.cuh``
+(``AUDIT_SIGNATURES``), which the kernel audit reads
+(``analysis/kernel_audit.py``); a header's contents are part of the hash of
+every source.
 """
 
 from __future__ import annotations
@@ -52,6 +57,17 @@ SIGNATURES = {
         "draco_flash_dq": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
         "draco_flash_dkv": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
     },
+    "controls": {
+        "draco_control_mistiled_copy": [_P, _P, _I, _I, _P],
+        "draco_control_overlaunch": [_P, _LL, _P],
+        "draco_control_spill": [_P, _P, _P, _LL, _P],
+    },
+}
+# name -> (argtypes, restype) of the resource query every source exports
+AUDIT_SIGNATURES = {
+    "draco_audit_count": ([], ctypes.c_int),
+    "draco_audit_name": ([_I], ctypes.c_char_p),
+    "draco_audit_kernel": ([_I, _LL, _LL, _P], ctypes.c_int),
 }
 
 _LOADED: dict = {}
@@ -75,6 +91,8 @@ def lib_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` at its current contents
     lives."""
     h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -128,11 +146,23 @@ def library(name: str) -> ctypes.CDLL:
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        for fn, (argtypes, restype) in AUDIT_SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         _LOADED[name] = lib
     return lib
 
 
+class CudaError(RuntimeError):
+    """A C entry point returned a non-zero ``cudaError_t`` (``code``)."""
+
+    def __init__(self, what: str, code: int):
+        super().__init__(f"{what}: CUDA error {code}")
+        self.code = code
+
+
 def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    """Raise :class:`CudaError` if a C entry point returned a non-zero
+    ``cudaError_t``."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+        raise CudaError(what, err)

@@ -1,0 +1,848 @@
+"""The kernel audit of the port (tools/tpu_attn_lowering_check.py with
+tools/_lowering_common.run_rows).
+
+    python -m draco_tpu_torch.analysis.kernel_audit [--device cpu|cuda]
+        [--kernels NAME,...] [--out FILE]
+
+One row per kernel entry point of ``csrc/*.cu`` — the nine of the main
+paths and the three negative controls of ``csrc/controls.cu`` — each
+grouping the ``__global__`` functions it launches, held to the
+:class:`KernelSpec` below by four rules:
+
+  resources      from the libraries this run built (the resource query of
+                 ``csrc/audit.cuh``: cudaFuncGetAttributes and the
+                 launcher's own block and dynamic shared memory at the main
+                 path's shape): registers a thread at most the spec's,
+                 local (spill and stack) bytes at most the spec's (0 unless
+                 it says why), and at least one resident block a SM
+  launch_limits  every block within the card's threads, static plus dynamic
+                 shared memory within 48 KB — or the opt-in limit where the
+                 source raises it — at the largest configuration
+                 ``config.validate()`` accepts (n = 64 workers, s = 15, one
+                 decode column), and a real launch there
+  coverage       a small ragged shape with every output poisoned (a NaN of
+                 its own bit pattern; 0xA5 for one-byte outputs) and a
+                 guard band of 256 elements on both sides: every element is
+                 written and no guard element touched
+  sanitizer      a child process runs the coverage shapes under
+                 ``compute-sanitizer --tool memcheck``, and ``--tool
+                 racecheck`` for the kernels with shared memory; both must
+                 report 0 errors and the child must finish. An entry point
+                 fails when the tool names one of its functions in an
+                 error, or (errors naming none, or a child that died or
+                 timed out under the tool) when the child never reported
+                 it done. Only a tool that is absent or refuses the device
+                 ("Device not supported") makes the row record ``"ran":
+                 false``, with the path looked at and the tool's answer
+
+A real kernel's row is ok when no rule fails; a control's when exactly its
+rule does (the mis-tiled copy: coverage, 576 outputs unwritten and 0 guard
+elements touched, its output still equal to its plain version bit for bit;
+the over-launch: launch_limits, CUDA error 9 — cudaErrorInvalidConfiguration
+— through ``_build.check``; the spill: resources, local bytes > 0). On the
+CPU only coverage runs, on the plain versions (which write their whole
+result; the mis-tiled plain copy writes what its grid covers). The report
+is rewritten after every row (default
+``draco_tpu_torch/_build/audit/kernel_audit.json``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import json
+import math
+import os
+import re
+import shutil
+import subprocess
+import sys
+from typing import Callable, Optional
+
+import torch
+
+from draco_tpu_torch import _build
+from draco_tpu_torch.analysis.rows import run_rows
+
+AUDIT_DIR = _build.BUILD_DIR / "audit"
+DEFAULT_OUT = str(AUDIT_DIR / "kernel_audit.json")
+RULES = ("resources", "launch_limits", "coverage", "sanitizer")
+GUARD = 256  # guard elements on each side of every output
+POISON_F32 = 0x7FF0DEAD  # a NaN no kernel writes (they write 0x7FC00000)
+POISON_BYTE = 0xA5
+CUDA_HOME = "/usr/local/cuda/bin"
+# the largest configuration config.validate() accepts for a coded step
+MAX_N, MAX_S = 64, 15
+_OUT_LEN = 10  # csrc/audit.cuh's Out
+INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """One entry point: its ``__global__`` functions (the names of
+    ``csrc/audit.cuh``'s table), the TPU kernel it replaces, and its
+    manifest. ``shape`` / ``largest_shape`` are the (a, b) its dynamic
+    shared memory depends on at the main path and at the largest
+    configuration (``largest``, where it is also launched for real);
+    ``main`` the functions the main path runs (all, if empty)."""
+
+    name: str
+    source: str
+    functions: tuple
+    replaces: str
+    max_registers: int
+    local_bytes: Optional[dict] = None  # function -> allowed bytes (else 0)
+    local_reason: str = ""
+    shape: tuple = (0, 0)
+    largest: Optional[dict] = None  # {"n": 64, ...}: launched for real
+    largest_shape: tuple = (0, 0)
+    racecheck: bool = True
+    control: str = ""  # the one rule a control trips
+    main: tuple = ()
+
+
+# registers and local bytes: what nvcc 12.8 gives each function for sm_90a
+# (the audit's first run on an H100, PERF.md §6); more is a regression to
+# look at, and a row that allows local memory says why
+SPECS = (
+    KernelSpec("complex_matmul", "coded", ("complex_matmul_kernel",),
+               "draco_tpu/ops/coded.py:82", 56, shape=(8, 8),
+               largest={"m": MAX_N, "n": MAX_N},
+               largest_shape=(MAX_N, MAX_N)),
+    KernelSpec("complex_project", "coded",
+               ("project_partial_kernel", "project_final_kernel"),
+               "draco_tpu/ops/coded.py:152", 48),
+    KernelSpec("complex_recombine", "coded", ("complex_recombine_kernel",),
+               "draco_tpu/ops/coded.py:201", 32, shape=(8, 0),
+               largest={"n": MAX_N}, largest_shape=(MAX_N, 0)),
+    KernelSpec("cyclic_locator", "cyclic_locator", ("cyclic_locator_kernel",),
+               "draco_tpu/ops/decode_kernels.py:127", 71,
+               local_bytes={"cyclic_locator_kernel": 1024},
+               local_reason="the Jacobi solve's coef/sig2 arrays (2·64 "
+                            "floats each, indexed by the run-time 2s) on "
+                            "thread 0's serial chain",
+               shape=(8, 1), largest={"n": MAX_N, "s": MAX_S, "L": 1},
+               largest_shape=(MAX_N, MAX_S)),
+    KernelSpec("cyclic_narrow_recombine", "narrow_decode",
+               ("narrow_recombine_kernel<float>",
+                "narrow_recombine_kernel<__nv_bfloat16>",
+                "narrow_recombine_kernel<int8_t>"),
+               "draco_tpu/ops/decode_kernels.py:378", 32, shape=(8, 0),
+               largest={"n": MAX_N}, largest_shape=(MAX_N, 0),
+               main=("narrow_recombine_kernel<__nv_bfloat16>",
+                     "narrow_recombine_kernel<int8_t>")),
+    KernelSpec("approx_decode", "narrow_decode",
+               ("approx_decode_partial_kernel<float>",
+                "approx_decode_partial_kernel<__nv_bfloat16>",
+                "approx_decode_partial_kernel<int8_t>",
+                "approx_decode_final_kernel"),
+               "draco_tpu/ops/decode_kernels.py:271", 32, shape=(8, 0),
+               largest={"n": MAX_N}, largest_shape=(MAX_N, 0)),
+    KernelSpec("flash_fwd", "flash_attention",
+               tuple(f"flash_fwd_kernel<{d}>" for d in (16, 32, 64, 128)),
+               "draco_tpu/ops/flash_attention.py:174", 120,
+               local_bytes={"flash_fwd_kernel<32>": 8},
+               local_reason="ptxas keeps one 4-byte value of the <32> "
+                            "instance (Dh 17-32, not on the LM path) in an "
+                            "8-byte frame from the prologue to the epilogue: "
+                            "one store and one load a thread (ptxas -v: 4 "
+                            "bytes spill stores and loads)",
+               main=("flash_fwd_kernel<64>",)),
+    KernelSpec("flash_dq", "flash_attention",
+               tuple(f"flash_dq_kernel<{d}>" for d in (16, 32, 64, 128)),
+               "draco_tpu/ops/flash_attention.py:328", 123,
+               main=("flash_dq_kernel<64>",)),
+    KernelSpec("flash_dkv", "flash_attention",
+               tuple(f"flash_dkv_kernel<{d}>" for d in (16, 32, 64, 128)),
+               "draco_tpu/ops/flash_attention.py:353", 128,
+               main=("flash_dkv_kernel<64>",)),
+    KernelSpec("control_mistiled_copy", "controls",
+               ("control_mistiled_copy_kernel",),
+               "tools/tpu_attn_lowering_check.py:111", 8, racecheck=False,
+               control="coverage"),
+    KernelSpec("control_overlaunch", "controls",
+               ("control_overlaunch_kernel",), "", 8, racecheck=False,
+               control="launch_limits"),
+    KernelSpec("control_spill", "controls", ("control_spill_kernel",), "",
+               32, racecheck=False, control="resources"),
+)
+
+
+def spec(name: str) -> KernelSpec:
+    for s in SPECS:
+        if s.name == name:
+            return s
+    raise KeyError(f"no kernel {name!r}; audited: {[s.name for s in SPECS]}")
+
+
+# --------------------------------------------------------------------------
+# coverage: poisoned, guarded outputs
+# --------------------------------------------------------------------------
+
+def _guarded(shape, dtype, dev):
+    """(buffer, view): ``view`` of ``shape`` inside GUARD elements of
+    poison on each side."""
+    n = math.prod(shape)
+    if dtype == torch.float32:
+        buf = torch.full((n + 2 * GUARD,), POISON_F32, dtype=torch.int32,
+                         device=dev).view(torch.float32)
+    else:  # one-byte outputs: the locator's masks
+        buf = torch.full((n + 2 * GUARD,), POISON_BYTE, dtype=torch.uint8,
+                         device=dev)
+    return buf, buf[GUARD:GUARD + n].view(shape)
+
+
+def _verdict(buf, n: int) -> tuple:
+    """(unwritten, guard elements touched) of a guarded buffer."""
+    if buf.dtype == torch.float32:
+        bits, poison = buf.view(torch.int32), POISON_F32
+    else:
+        bits, poison = buf, POISON_BYTE
+    body = bits[GUARD:GUARD + n]
+    guards = torch.cat([bits[:GUARD], bits[GUARD + n:]])
+    return int((body == poison).sum()), int((guards != poison).sum())
+
+
+def _put(outs: dict, **values) -> None:
+    """The plain versions' results into the guarded outputs (CPU)."""
+    for k, v in values.items():
+        if tuple(v.shape) != tuple(outs[k].shape):
+            raise ValueError(f"{k}: the plain version gives "
+                             f"{tuple(v.shape)}, the kernel writes "
+                             f"{tuple(outs[k].shape)}")
+        outs[k].copy_(v)
+
+
+@dataclasses.dataclass
+class Case:
+    label: str
+    outputs: dict  # name -> (shape, dtype)
+    run: Callable  # (outs) -> None: launch (cuda) or plain (cpu)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _cases(name: str, dev) -> list:
+    """The coverage cases of one entry point on ``dev``: small, ragged
+    against the kernels' blocks."""
+    from draco_tpu_torch.coding import cyclic
+    from draco_tpu_torch.obs import numerics
+    from draco_tpu_torch.ops import coded, controls, decode_kernels
+    from draco_tpu_torch.ops import flash_attention as fa
+
+    cuda = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    f32 = torch.float32
+    cases = []
+    if name == "complex_matmul":
+        m, n, d = 9, 7, 1003  # two row groups, a ragged last block
+        w_re, w_im, gr = rnd(m, n), rnd(m, n), rnd(n, d)
+
+        def run(o):
+            if cuda:
+                coded.complex_matmul_launch(w_re, w_im, gr, o["out_re"],
+                                            o["out_im"])
+            else:
+                re, im = coded.complex_matmul_plain(w_re, w_im, gr)
+                _put(o, out_re=re, out_im=im)
+        cases.append(Case(f"m={m} n={n} d={d}",
+                          {"out_re": ((m, d), f32), "out_im": ((m, d), f32)},
+                          run))
+    elif name == "complex_project":
+        n, d = 9, 5003
+        r_re, r_im, f = rnd(n, d), rnd(n, d), rnd(d)
+        outs = {"e_re": ((n,), f32), "e_im": ((n,), f32)}
+        if cuda:
+            chunks = coded.project_chunks(d)
+            outs.update(part_re=((n, chunks), f32),
+                        part_im=((n, chunks), f32))
+
+        def run(o):
+            if cuda:
+                coded.complex_project_launch(r_re, r_im, f, o["part_re"],
+                                             o["part_im"], o["e_re"],
+                                             o["e_im"])
+            else:
+                re, im = coded.complex_project_plain(r_re, r_im, f)
+                _put(o, e_re=re, e_im=im)
+        cases.append(Case(f"n={n} d={d}", outs, run))
+    elif name == "complex_recombine":
+        n, d = 9, 1003
+        v_re, v_im, r_re, r_im = rnd(n), rnd(n), rnd(n, d), rnd(n, d)
+
+        def run(o):
+            if cuda:
+                coded.complex_recombine_launch(v_re, v_im, r_re, r_im,
+                                               o["out"])
+            else:
+                _put(o, out=coded.complex_recombine_plain(v_re, v_im, r_re,
+                                                          r_im))
+        cases.append(Case(f"n={n} d={d}", {"out": ((d,), f32)}, run))
+    elif name == "cyclic_locator":
+        code = cyclic.build_cyclic_code(8, 1)
+        L, n = 3, 8
+        e_re, e_im = rnd(L, n), rnd(L, n)
+        pres = torch.ones((1, n), device=dev)
+        pres[0, 6] = 0.0
+        b = torch.uint8
+
+        def run(o):
+            if cuda:
+                decode_kernels.cyclic_locator_launch(
+                    code, e_re, e_im, pres, cyclic.HEALTH_REL_TOL, 0.0,
+                    o["v_re"], o["v_im"], o["honest"], o["flagged"],
+                    o["loud"], o["resid"])
+            else:
+                t = code.tensors(dev)
+                r = cyclic.locator_core(
+                    e_re, e_im, t["c2h_re"], t["c2h_im"], t["c1_re"],
+                    t["c1_im"], t["est_re"], t["est_im"], pres, code.s)
+                _put(o, v_re=r[0], v_im=r[1], honest=r[2], flagged=r[3],
+                     loud=r[4], resid=r[5])
+        cases.append(Case(f"L={L} n={n} s=1, row 6 absent",
+                          {"v_re": ((L, n), f32), "v_im": ((L, n), f32),
+                           "honest": ((L, n), b), "flagged": ((L, n), b),
+                           "loud": ((L, n), b), "resid": ((L,), f32)}, run))
+    elif name == "cyclic_narrow_recombine":
+        n, d, block = 9, 1003, 64
+        v_re, v_im, re, im = rnd(n), rnd(n), rnd(n, d), rnd(n, d)
+        for mode in ("f32", "bf16", "int8"):
+            if mode == "f32":
+                bufs = ({"q": re}, {"q": im})
+            else:
+                bufs = (numerics.narrow_wire_rows(re, mode, block),
+                        numerics.narrow_wire_rows(im, mode, block))
+
+            def run(o, mode=mode, bufs=bufs):
+                if cuda:
+                    blk, nb = (block, -(-d // block)) if mode == "int8" \
+                        else (1, 0)
+                    decode_kernels.narrow_recombine_launch(
+                        v_re, v_im, mode, bufs[0]["q"], bufs[0].get("scale"),
+                        bufs[1]["q"], bufs[1].get("scale"), blk, nb,
+                        o["out"])
+                elif mode == "f32":
+                    _put(o, out=coded.complex_recombine_plain(v_re, v_im, re,
+                                                              im))
+                else:
+                    _put(o, out=decode_kernels.cyclic_narrow_recombine_plain(
+                        v_re, v_im, (mode, bufs[0], bufs[1], block)))
+            cases.append(Case(f"{mode} n={n} d={d} block {block}",
+                              {"out": ((d,), f32)}, run))
+    elif name == "approx_decode":
+        n, d, block = 9, 1003, 64
+        rows, bg = rnd(n, d), rnd(n, d)
+        rows[2] = float("nan")  # an absent row's payload never read
+        vn = rnd(n) / n
+        pres = torch.ones(n, device=dev)
+        pres[[2, 5]] = 0.0
+        for mode in ("f32", "bf16", "int8"):
+            buf = ({"q": rows} if mode == "f32"
+                   else numerics.narrow_wire_rows(rows, mode, block))
+            wire = None if mode == "f32" else (mode, buf, block)
+            outs = {"decoded": ((d,), f32), "sums": ((2,), f32)}
+            if cuda:
+                outs["part"] = ((2, decode_kernels.approx_decode_chunks(d)),
+                                f32)
+
+            def run(o, mode=mode, buf=buf, wire=wire):
+                if cuda:
+                    blk, nb = (block, -(-d // block)) if mode == "int8" \
+                        else (1, 0)
+                    decode_kernels.approx_decode_launch(
+                        mode, buf["q"], buf.get("scale"), blk, nb, bg, vn,
+                        pres, o["decoded"], o["part"], o["sums"])
+                else:
+                    dec, sd, sg = decode_kernels.approx_decode_plain(
+                        rows if wire is None else None, bg, vn, pres, wire)
+                    _put(o, decoded=dec, sums=torch.stack([sd, sg]))
+            cases.append(Case(f"{mode} n={n} d={d} rows 2, 5 absent", outs,
+                              run))
+    elif name.startswith("flash_"):
+        G, T = 2, 70  # ragged against the 64- and 32-row tiles
+        for dh in (16, 24, 64, 100):  # instances 16, 32, 64, 128
+            q, k, v, do = rnd(G, T, dh), rnd(G, T, dh), rnd(G, T, dh), \
+                rnd(G, T, dh)
+            o_p, lse = fa.flash_fwd_plain(q, k, v)
+            dcap = (do * o_p).sum(-1)
+            dlse = rnd(G, T)
+            if name == "flash_fwd":
+                outs = {"o": ((G, T, dh), f32), "lse": ((G, T), f32)}
+
+                def run(o, q=q, k=k, v=v):
+                    if cuda:
+                        fa.flash_fwd_launch(q, k, v, o["o"], o["lse"])
+                    else:
+                        ro, rl = fa.flash_fwd_plain(q, k, v)
+                        _put(o, o=ro, lse=rl)
+            elif name == "flash_dq":
+                outs = {"dq": ((G, T, dh), f32)}
+
+                def run(o, a=(q, k, v, do, lse, dcap, dlse)):
+                    if cuda:
+                        fa.flash_dq_launch(*a, o["dq"])
+                    else:
+                        _put(o, dq=fa.flash_dq_plain(*a))
+            else:
+                outs = {"dk": ((G, T, dh), f32), "dv": ((G, T, dh), f32)}
+
+                def run(o, a=(q, k, v, do, lse, dcap, dlse)):
+                    if cuda:
+                        fa.flash_dkv_launch(*a, o["dk"], o["dv"])
+                    else:
+                        dk, dv = fa.flash_dkv_plain(*a)
+                        _put(o, dk=dk, dv=dv)
+            cases.append(Case(f"G={G} T={T} Dh={dh}, dlse", outs, run))
+    elif name == "control_mistiled_copy":
+        x = rnd(*controls.SHAPE)
+
+        def run(o):
+            if cuda:
+                err = _build.library("controls").draco_control_mistiled_copy(
+                    x.data_ptr(), o["o"].data_ptr(), controls.SHAPE[0],
+                    controls.SHAPE[1], _stream())
+                _build.check(err, "control_mistiled_copy")
+            else:
+                controls.control_mistiled_copy_plain(x, out=o["o"])
+        cases.append(Case("(16, 48), tile (4, 12), grid 4",
+                          {"o": (controls.SHAPE, f32)}, run))
+    elif name == "control_spill":
+        n = 1003
+        x = torch.randint(-8, 8, (n,), generator=g, device=dev).to(f32)
+        idx = torch.randint(0, 1 << 20, (n,), generator=g,
+                            device=dev).to(torch.int32)
+
+        def run(o):
+            if cuda:
+                err = _build.library("controls").draco_control_spill(
+                    x.data_ptr(), idx.data_ptr(), o["o"].data_ptr(), n,
+                    _stream())
+                _build.check(err, "control_spill")
+            else:
+                _put(o, o=controls.control_spill_plain(x, idx))
+        cases.append(Case(f"n={n}", {"o": ((n,), f32)}, run))
+    return cases
+
+
+def rule_coverage(s: KernelSpec, dev) -> dict:
+    if s.name == "control_overlaunch":
+        return {"ok": True, "skipped": True,
+                "reason": "the launch is refused (launch_limits): it writes "
+                          "nothing"}
+    cases = []
+    unwritten = touched = 0
+    for case in _cases(s.name, dev):
+        bufs, outs = {}, {}
+        for k, (shape, dtype) in case.outputs.items():
+            bufs[k], outs[k] = _guarded(shape, dtype, dev)
+        case.run(outs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        per = {}
+        for k, buf in bufs.items():
+            u, t = _verdict(buf, math.prod(case.outputs[k][0]))
+            per[k] = {"elements": math.prod(case.outputs[k][0]),
+                      "unwritten": u, "guard_touched": t}
+            unwritten += u
+            touched += t
+        cases.append({"case": case.label, "outputs": per})
+    res = {"unwritten": unwritten, "guard_touched": touched, "cases": cases}
+    if unwritten or touched:
+        return {"ok": False, **res,
+                "error": f"{unwritten} output elements never written, "
+                         f"{touched} guard elements touched"}
+    return {"ok": True, **res}
+
+
+def mistiled_matches_plain(dev) -> dict:
+    """The mis-tiled control through its wrapper against its plain version,
+    bit for bit (NaN positions included)."""
+    from draco_tpu_torch.ops import controls
+
+    x = torch.randn(controls.SHAPE, generator=torch.Generator().manual_seed(5))
+    k = controls.control_mistiled_copy(x.to(dev)).cpu()
+    p = controls.control_mistiled_copy_plain(x)
+    return {"bitwise_equal": torch.equal(k.view(torch.int32),
+                                         p.view(torch.int32)),
+            "nan": int(k.isnan().sum()),
+            "copied_region_equal": torch.equal(k[:, :controls.TILE[1]],
+                                               x[:, :controls.TILE[1]])}
+
+
+# --------------------------------------------------------------------------
+# resources and launch limits: the libraries as built
+# --------------------------------------------------------------------------
+
+def device_limits(dev) -> dict:
+    """The card's launch limits (CUDA's device attributes, as torch reads
+    them); a block's threads are capped by each function's own
+    ``maxThreadsPerBlock`` from the query."""
+    p = torch.cuda.get_device_properties(dev)
+    return {"smem_block": p.shared_memory_per_block,
+            "smem_block_optin": p.shared_memory_per_block_optin,
+            "regs_sm": p.regs_per_multiprocessor,
+            "smem_sm": p.shared_memory_per_multiprocessor,
+            "sms": p.multi_processor_count}
+
+
+def query(source: str, a: int = 0, b: int = 0) -> dict:
+    """Every function of one library's audit table: name -> resources at
+    the launcher's (a, b)."""
+    lib = _build.library(source)
+    keys = ("registers", "local_bytes", "static_smem", "const_bytes",
+            "max_threads", "threads", "dynamic_smem", "opt_in",
+            "resident_blocks", "binary_version")
+    out = {}
+    for i in range(lib.draco_audit_count()):
+        vals = (ctypes.c_longlong * _OUT_LEN)()
+        _build.check(lib.draco_audit_kernel(i, a, b, vals),
+                     f"draco_audit_kernel {source}[{i}]")
+        out[lib.draco_audit_name(i).decode()] = dict(zip(keys, vals))
+    return out
+
+
+def rule_resources(s: KernelSpec, funcs: dict) -> dict:
+    rows, bad = [], []
+    for fn in s.functions:
+        r = funcs[fn]
+        rows.append({"function": fn, **r})
+        if r["registers"] > s.max_registers:
+            bad.append(f"{fn}: {r['registers']} registers > "
+                       f"{s.max_registers}")
+        allowed = (s.local_bytes or {}).get(fn, 0)
+        if r["local_bytes"] > allowed:
+            bad.append(f"{fn}: {r['local_bytes']} local bytes a thread > "
+                       f"{allowed}")
+        if r["threads"] <= r["max_threads"] and r["resident_blocks"] < 1:
+            bad.append(f"{fn}: no block fits on a SM")
+    res = {"functions": rows, "max_registers": s.max_registers,
+           "local_bytes_allowed": s.local_bytes or {}}
+    if s.local_reason:
+        res["local_reason"] = s.local_reason
+    if bad:
+        return {"ok": False, **res, "error": "; ".join(bad)}
+    return {"ok": True, **res}
+
+
+def _launch_largest(s: KernelSpec, dev) -> None:
+    """Launch ``s`` for real at its largest configuration (small d)."""
+    from draco_tpu_torch.coding import cyclic
+    from draco_tpu_torch.obs import numerics
+    from draco_tpu_torch.ops import coded, decode_kernels
+
+    n, d = MAX_N, 300
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    if s.name == "complex_matmul":
+        coded.complex_matmul_launch(rnd(n, n), rnd(n, n), rnd(n, d),
+                                    empty(n, d), empty(n, d))
+    elif s.name == "complex_recombine":
+        coded.complex_recombine_launch(rnd(n), rnd(n), rnd(n, d), rnd(n, d),
+                                       empty(d))
+    elif s.name == "cyclic_locator":
+        code = cyclic.build_cyclic_code(n, MAX_S)
+        b = torch.bool
+        decode_kernels.cyclic_locator_launch(
+            code, rnd(1, n), rnd(1, n), torch.ones((1, n), device=dev),
+            cyclic.HEALTH_REL_TOL, 0.0, empty(1, n), empty(1, n),
+            empty(1, n, dtype=b), empty(1, n, dtype=b), empty(1, n, dtype=b),
+            empty(1))
+    elif s.name == "cyclic_narrow_recombine":
+        q = [numerics.narrow_wire_rows(rnd(n, d), "int8", 64)
+             for _ in range(2)]
+        decode_kernels.narrow_recombine_launch(
+            rnd(n), rnd(n), "int8", q[0]["q"], q[0]["scale"], q[1]["q"],
+            q[1]["scale"], 64, -(-d // 64), empty(d))
+    elif s.name == "approx_decode":
+        chunks = decode_kernels.approx_decode_chunks(d)
+        decode_kernels.approx_decode_launch(
+            "f32", rnd(n, d), None, 1, 0, rnd(n, d), rnd(n),
+            torch.ones(n, device=dev), empty(d), empty(2, chunks), empty(2))
+    torch.cuda.synchronize(dev)
+
+
+def rule_launch_limits(s: KernelSpec, funcs_largest: dict, limits: dict,
+                       dev) -> dict:
+    from draco_tpu_torch.ops import controls
+
+    bad, rows = [], []
+    for fn in s.functions:
+        r = funcs_largest[fn]
+        cap = limits["smem_block_optin"] if r["opt_in"] else \
+            limits["smem_block"]
+        smem = r["static_smem"] + r["dynamic_smem"]
+        rows.append({"function": fn, "threads": r["threads"],
+                     "static_smem": r["static_smem"],
+                     "dynamic_smem_largest": r["dynamic_smem"],
+                     "smem_limit": cap})
+        if r["threads"] > r["max_threads"]:
+            bad.append(f"{fn}: {r['threads']} threads a block > "
+                       f"{r['max_threads']}")
+        if smem > cap:
+            bad.append(f"{fn}: {smem} shared bytes > {cap}")
+    res = {"functions": rows, "largest": s.largest}
+    if s.name == "control_overlaunch":
+        try:
+            controls.control_overlaunch(torch.empty(4096, device=dev))
+            bad.append("the over-launch was accepted")
+        except _build.CudaError as e:
+            res["error_code"] = e.code
+            bad.append(f"the launch was refused: CUDA error {e.code}")
+            if e.code != INVALID_CONFIGURATION:
+                res["wrong_error"] = (f"expected CUDA error "
+                                      f"{INVALID_CONFIGURATION} "
+                                      f"(cudaErrorInvalidConfiguration)")
+    elif s.largest:
+        try:
+            _launch_largest(s, dev)
+            res["launched_largest"] = True
+        except _build.CudaError as e:
+            bad.append(f"the launch at {s.largest} failed: CUDA error "
+                       f"{e.code}")
+    if bad:
+        return {"ok": False, **res, "error": "; ".join(bad)}
+    return {"ok": True, **res}
+
+
+# --------------------------------------------------------------------------
+# compute-sanitizer
+# --------------------------------------------------------------------------
+
+CHILD_DONE = "sanitizer child: done"
+CHILD_OK = "sanitizer child: ok "  # + the entry point, after its launches
+_REFUSED = re.compile(r"=+ Error: (Device not supported[^\n]*)")
+
+
+def _tool(name: str) -> tuple:
+    path = shutil.which(name) or os.path.join(CUDA_HOME, name)
+    return (path if os.path.exists(path) else None), path
+
+
+def _child(names) -> None:
+    """The coverage launches of ``names`` on the card (under the
+    sanitizer), each entry point reported once its launches have
+    finished."""
+    dev = torch.device("cuda")
+    for name in names:
+        for case in _cases(name, dev):
+            outs = {k: _guarded(shape, dtype, dev)[1]
+                    for k, (shape, dtype) in case.outputs.items()}
+            case.run(outs)
+            torch.cuda.synchronize(dev)
+        print(CHILD_OK + name, flush=True)
+    print(CHILD_DONE, flush=True)
+
+
+def parse_sanitizer(run, text: str, returncode, path: str,
+                    timed_out: bool = False) -> dict:
+    """One tool's verdict over the child's run of the entry points
+    ``run``, from its output ``text``. ``ran`` is false only when the tool
+    refused the device; otherwise ``failed`` lists the entry points whose
+    functions an error names (all of ``run`` when errors name none) and,
+    when the child died or timed out under the tool, those it never
+    reported done."""
+    refused = _REFUSED.search(text)
+    if refused:
+        return {"ran": False, "path": path, "kernels": run,
+                "returncode": returncode,
+                "reason": refused.group(1).strip()}
+    counts = [int(c) for c in re.findall(r"ERROR SUMMARY: (\d+) error",
+                                         text)]
+    counts += [int(c) for c in re.findall(
+        r"hazards? displayed \((\d+) errors?", text)]
+    errors = max(counts) if counts else None
+    finished = CHILD_DONE in text and errors is not None and not timed_out
+    res = {"ran": True, "path": path, "kernels": run, "errors": errors,
+           "completed": finished, "returncode": returncode}
+    hz = re.search(r"(\d+) hazards? displayed \((\d+) errors?, (\d+) "
+                   r"warnings?\)", text)
+    if hz:
+        res["hazards"] = int(hz.group(1))
+        res["warnings"] = int(hz.group(3))
+    failed = set()
+    if errors:
+        named = {n for n in run for fn in spec(n).functions
+                 if fn.split("<")[0] in text}
+        failed |= named or set(run)
+    if not finished:
+        done = set(re.findall(re.escape(CHILD_OK) + r"(\S+)", text))
+        failed |= {n for n in run if n not in done}
+        res["reason"] = ("timed out under the tool" if timed_out else
+                         "the child did not finish under the tool")
+    res["failed"] = [n for n in run if n in failed]
+    if failed:
+        res["head"] = "\n".join(line for line in text.splitlines()
+                                 if line.startswith("========="))[:3000]
+        res["tail"] = text[-600:]
+    return res
+
+
+def run_sanitizer(names, timeout: int = 300) -> dict:
+    """Each tool once over the coverage launches of ``names`` (racecheck
+    over those with shared memory): tool -> :func:`parse_sanitizer`'s
+    verdict."""
+    path, looked = _tool("compute-sanitizer")
+    if path is None:
+        return {t: {"ran": False, "looked_at": looked,
+                    "reason": "compute-sanitizer not found"}
+                for t in ("memcheck", "racecheck")}
+    out = {}
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    for tool in ("memcheck", "racecheck"):
+        run = [n for n in names if tool == "memcheck" or spec(n).racecheck]
+        cmd = [path, "--tool", tool, sys.executable, "-m",
+               "draco_tpu_torch.analysis.kernel_audit", "--sanitizer-child",
+               "--kernels", ",".join(run)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=timeout, env=env,
+                                  cwd=str(_build.PKG_DIR.parent))
+            out[tool] = parse_sanitizer(run, proc.stdout + proc.stderr,
+                                        proc.returncode, path)
+        except subprocess.TimeoutExpired as e:
+            text = "".join(x.decode(errors="replace")
+                           if isinstance(x, bytes) else (x or "")
+                           for x in (e.stdout, e.stderr))
+            out[tool] = parse_sanitizer(run, text, None, path,
+                                        timed_out=True)
+        if not out[tool]["ran"]:
+            # the device is refused to every tool: do not start the other
+            other = "racecheck" if tool == "memcheck" else "memcheck"
+            out.setdefault(other, {**out[tool], "kernels": [
+                n for n in names if other == "memcheck"
+                or spec(n).racecheck]})
+            break
+    return out
+
+
+def rule_sanitizer(s: KernelSpec, san: dict) -> dict:
+    if s.name == "control_overlaunch":
+        return {"ok": True, "skipped": True,
+                "reason": "the refused launch is launch_limits' finding"}
+    res, bad = {}, []
+    for tool, r in san.items():
+        if tool == "racecheck" and not s.racecheck:
+            res[tool] = {"ran": False, "reason": "no shared memory"}
+            continue
+        if not r.get("ran"):
+            res[tool] = {k: v for k, v in r.items() if k != "kernels"}
+            continue
+        hit = s.name in r["failed"]
+        res[tool] = {"ran": True, "errors": r["errors"] if hit else 0,
+                     "completed": r["completed"]}
+        if hit:
+            bad.append(f"{tool}: {r['errors']} errors" + (
+                "" if r["completed"] else f", {r['reason']}"))
+    if bad:
+        return {"ok": False, **res, "error": "; ".join(bad)}
+    return {"ok": True, **res}
+
+
+# --------------------------------------------------------------------------
+# the audit
+# --------------------------------------------------------------------------
+
+def audit_row(s: KernelSpec, dev, ctx: dict) -> dict:
+    rules = {}
+    if dev.type == "cuda":
+        funcs = query(s.source, *s.shape)
+        funcs_largest = query(s.source, *s.largest_shape)
+        rules["resources"] = rule_resources(s, funcs)
+        rules["launch_limits"] = rule_launch_limits(s, funcs_largest,
+                                                    ctx["limits"], dev)
+    else:
+        for r in ("resources", "launch_limits"):
+            rules[r] = {"ok": True, "skipped": True,
+                        "reason": "needs the card"}
+    rules["coverage"] = rule_coverage(s, dev)
+    rules["sanitizer"] = (rule_sanitizer(s, ctx["sanitizer"])
+                          if dev.type == "cuda" else
+                          {"ok": True, "skipped": True,
+                           "reason": "needs the card"})
+    failed = [r for r in RULES if not rules[r]["ok"]]
+    row = {"source": f"draco_tpu_torch/csrc/{s.source}.cu",
+           "replaces": s.replaces,
+           "control": bool(s.control), "failed_rules": failed,
+           "rules": rules}
+    if dev.type == "cuda":
+        row["library"] = str(_build.lib_path(s.source))
+    if s.main:
+        row["main_path_functions"] = list(s.main)
+    if s.control and dev.type != "cuda" and s.control != "coverage":
+        row["expected_fail"] = s.control
+        row["ok"] = True
+        row["skipped"] = f"its rule ({s.control}) runs on the card"
+    elif s.control:
+        row["expected_fail"] = s.control
+        row["ok"] = failed == [s.control]
+        if s.name == "control_mistiled_copy":
+            row["plain"] = mistiled_matches_plain(dev)
+            row["ok"] = row["ok"] and row["plain"]["bitwise_equal"]
+        if "wrong_error" in rules["launch_limits"]:
+            row["ok"] = False
+            row["wrong_error"] = rules["launch_limits"]["wrong_error"]
+    else:
+        row["ok"] = not failed
+    if not row["ok"]:
+        row["error"] = (f"failed {failed}" + (
+            f", expected exactly [{s.control}]" if s.control else "") + ": "
+            + "; ".join(rules[r].get("error", "") for r in failed)
+            + (f"; {row['wrong_error']}" if "wrong_error" in row else ""))
+    return row
+
+
+def run_audit(device=None, out: str = DEFAULT_OUT, names=None) -> dict:
+    from draco_tpu_torch.runtime import resolve_device
+
+    dev = resolve_device(device)
+    specs = [s for s in SPECS if names is None or s.name in names]
+    ctx, extra = {}, {"device": str(dev)}
+    if dev.type == "cuda":
+        _build.build_all()
+        ctx["limits"] = extra["device_limits"] = device_limits(dev)
+        extra["card"] = torch.cuda.get_device_name(dev)
+        ctx["sanitizer"] = extra["sanitizer"] = run_sanitizer(
+            [s.name for s in specs])
+    return run_rows(
+        out, "the port's kernels against their manifests: resources and "
+        "launch limits from the built libraries, coverage of poisoned and "
+        "guarded outputs, compute-sanitizer; control_* rows are seeded "
+        "defects whose ok means 'tripped exactly its rule'",
+        [(s.name, lambda s=s: audit_row(s, dev, ctx)) for s in specs],
+        extra=extra)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--kernels", default="",
+                    help="comma-separated entry points (default: all)")
+    ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--sanitizer-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    names = [n for n in args.kernels.split(",") if n] or None
+    if args.sanitizer_child:
+        _child(names or [s.name for s in SPECS])
+        return 0
+    report = run_audit(args.device, args.out, names)
+    print(json.dumps({"all_ok": report["all_ok"],
+                      "rows": len(report["rows"]), "out": args.out}))
+    return 0 if report["all_ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,252 @@
+"""The catalog of the port's training programs and their manifests
+(draco_tpu/analysis/registry.py).
+
+Every leg ``chip_smoke.py`` drives registers here as a :class:`LintProgram`:
+the configuration fields that make the leg, built through the entry points
+a user calls (``Trainer`` for ResNet-18, ``build_sp_train_setup`` and
+``TokenLoop`` for the TransformerLM) at a CI size on the CPU
+(``full=False``) or at the width the leg runs on the card (``full=True``).
+Its :class:`Manifest` is the reviewable statement of what one step does
+that no output-level test sees: the element types it computes in, the host
+synchronisations and host-to-device bytes it makes, the collectives it
+calls, that it updates its state in place, and its peak device memory.
+``analysis/rules.py`` holds each step to its manifest;
+``analysis/program_lint.py`` drives the catalog.
+
+The full-width configurations are the legs' own (PERF.md §4): ResNet-18 on
+synthetic CIFAR-10 at n=8 workers of batch 32, s=1, a rev_grad adversary
+every step (``bench.py``'s flagship cut to n=8); the approx code at r=1.5
+with 2 stragglers a step (preset ``approx-resnet18`` at n=8); the narrow
+wires at block 256; the LM benchmark's TransformerLM (dim 768, 12 heads, 8
+layers, vocab 8192, T=512, batch 2, bf16 compute, flash attention).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+SEED = 428
+N, S = 8, 1
+CNN_FULL = dict(network="ResNet18", dataset="synthetic-cifar10",
+                num_workers=N, worker_fail=S, err_mode="rev_grad",
+                batch_size=32, lr=0.01, momentum=0.9, train_dir="", seed=SEED)
+# CI size: the fewest workers a cyclic s=1 code takes, one sample each, a
+# few Weiszfeld passes (ResNet-18's d = 11,173,962 stays: no narrower CNN
+# is ported)
+CNN_CI = dict(num_workers=5, batch_size=1, geomedian_iters=4)
+# the approx legs: preset approx-resnet18 (r=1.5 pairwise, 2 workers dropped
+# a step, no adversary)
+APPROX = dict(approach="approx", redundancy="shared", worker_fail=0,
+              code_redundancy=1.5, assignment_scheme="pairwise",
+              straggle_mode="drop", straggle_count=2)
+# the LM benchmark's configuration (tools/tpu_lm_perf.py, variant
+# lm_cyclic_s1_shared_bf16_flash, at that tool's defaults)
+LM_FULL = dict(network="TransformerLM", dataset="synthetic-text",
+               batch_size=2, lr=0.01, momentum=0.9, num_workers=N,
+               worker_fail=S, err_mode="rev_grad", seq_len=512, vocab=8192,
+               model_dim=768, model_heads=12, model_layers=8,
+               compute_dtype="bfloat16", attn_impl="flash", eval_freq=0,
+               train_dir="", seed=SEED)
+LM_CI = dict(seq_len=32, vocab=64, model_dim=64, model_heads=4,
+             model_layers=2)
+
+DEFAULT_DTYPES = frozenset({torch.float32, torch.int64, torch.int32,
+                            torch.bool})
+# the bf16 wire writes NaN as its 0x7FC0 bits through an int16 view
+WIRE_DTYPES = {"f32": frozenset(),
+               "bf16": frozenset({torch.bfloat16, torch.int16}),
+               "int8": frozenset({torch.int8})}
+WIRE_TORCH = {"bf16": torch.bfloat16, "int8": torch.int8}
+# bf16 -> f32 promotion sites of the bf16 LM route: the explicit casts, and
+# LayerNorm's x − mean in float32 (Flax's normalisation of a bf16 input,
+# which the reference writes as convert_element_type then sub)
+BF16_PROMOTIONS = ("_to_copy", "sub")
+
+
+@dataclasses.dataclass(frozen=True)
+class Manifest:
+    """What one step of a program may do; ``rules.py`` checks each field.
+
+    ``allowed_dtypes``: every tensor an op of the step reads or writes has
+    one of these types (float64 and complex128 never pass).
+    ``bf16_promotions``: the ops allowed to take bfloat16 and give float32.
+    ``required_dtypes``: types that must appear (a narrow wire's payload).
+    ``host_syncs``: synchronising calls in one step (0: the step queues all
+    its work without waiting for the card).
+    ``uploads``: the host-to-device copies of one step, name -> bytes; the
+    step may move at most their sum (``h2d_bytes``).
+    ``collectives``: calls into ``torch.distributed`` by kind (missing
+    kinds 0); None skips the rule.
+    ``in_place``: parameters, momentum buffers and batch statistics keep
+    their storage across the step.
+    ``max_peak_bytes``: the memory one step allocates on the card above
+    what was live when it began; None skips the rule."""
+
+    allowed_dtypes: frozenset = DEFAULT_DTYPES
+    bf16_promotions: tuple = ("_to_copy",)
+    required_dtypes: frozenset = frozenset()
+    host_syncs: int = 0
+    uploads: dict = dataclasses.field(default_factory=dict)
+    collectives: Optional[dict] = dataclasses.field(default_factory=dict)
+    in_place: bool = True
+    max_peak_bytes: Optional[int] = None
+
+    @property
+    def h2d_bytes(self) -> int:
+        return sum(self.uploads.values())
+
+
+@dataclasses.dataclass
+class Program:
+    """A built program: ``step()`` runs one step through the user's entry
+    points without reading its metrics; ``state()`` names its state
+    tensors."""
+
+    name: str
+    manifest: Manifest
+    device: torch.device
+    step: Callable[[], object]
+    state: Callable[[], dict]
+    runner: object = None  # the Trainer / TokenLoop, for the legs
+    cfg: object = None
+
+
+def state_tensors(state) -> dict:
+    """A TrainState's tensors: parameters, momentum buffers, statistics."""
+    out = {f"params/{k}": v for k, v in state.params.items()}
+    out.update({f"momentum/{k}": v
+                for k, v in (state.opt.bufs or {}).items()})
+    out.update({f"stats/{k}": v for k, v in state.stats.items()})
+    return out
+
+
+def uploads(cfg) -> dict:
+    """The host-to-device copies of one step of ``cfg``, name -> bytes."""
+    n, b = cfg.num_workers, cfg.batch_size
+    if cfg.network == "TransformerLM":
+        return {"tokens (int32)": n * b * cfg.seq_len * 4, "adv_mask": n}
+    out = {"batch (f32 NHWC)": n * b * 32 * 32 * 3 * 4,
+           "labels (int32)": n * b * 4,
+           "aug_draws (3 int64)": 3 * n * b * 8}
+    if cfg.approach != "approx":
+        out["adv_mask"] = n
+    stragglers = cfg.straggle_mode == "drop" and cfg.straggle_count > 0
+    if stragglers:
+        out["present (bool)"] = n
+    if cfg.approach == "approx":
+        out["v/n and presence (f32)"] = 2 * n * 4
+        if stragglers:
+            out["presence (f32, the where-select)"] = n * 4
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class LintProgram:
+    """A registered leg: ``overrides`` on the route's full-width fields;
+    ``peak_gb`` its step's memory budget on the card at full width."""
+
+    name: str
+    route: str  # "cnn" | "lm"
+    overrides: dict
+    peak_gb: float
+
+    def config(self, full: bool = False, max_steps: int = 3):
+        from draco_tpu_torch.config import TrainConfig
+
+        base = CNN_FULL if self.route == "cnn" else LM_FULL
+        small = {} if full else (CNN_CI if self.route == "cnn" else LM_CI)
+        return TrainConfig(**{**base, **self.overrides, **small,
+                              "max_steps": max_steps}).validate()
+
+    def manifest(self, cfg, full: bool) -> Manifest:
+        dtypes = DEFAULT_DTYPES | WIRE_DTYPES[cfg.wire_dtype]
+        promos = ("_to_copy",)
+        if cfg.network == "TransformerLM" and cfg.compute_dtype == "bfloat16":
+            dtypes = dtypes | {torch.bfloat16}
+            promos = BF16_PROMOTIONS
+        return Manifest(
+            allowed_dtypes=dtypes, bf16_promotions=promos,
+            required_dtypes=(frozenset({WIRE_TORCH[cfg.wire_dtype]})
+                             if cfg.wire_dtype != "f32" else frozenset()),
+            uploads=uploads(cfg),
+            max_peak_bytes=int(self.peak_gb * 2 ** 30) if full else None)
+
+    def build(self, device=None, full: bool = False, max_steps: int = 3,
+              dataset=None) -> Program:
+        """The leg's runner on ``device`` (default cuda) and its step."""
+        from draco_tpu_torch.runtime import resolve_device
+
+        cfg = self.config(full, max_steps)
+        dev = resolve_device(device)
+        if self.route == "cnn":
+            from draco_tpu_torch.data.datasets import load_dataset
+            from draco_tpu_torch.training.trainer import Trainer
+
+            if dataset is None:
+                dataset = (load_dataset(cfg.dataset) if full else
+                           load_dataset(cfg.dataset, synthetic_train=256,
+                                        synthetic_test=16))
+            runner = Trainer(cfg, device=dev, dataset=dataset, quiet=True)
+            setup = runner.setup
+
+            def step():
+                x, y, adv, present = runner.inputs(runner.state.step)
+                runner.state, metrics = setup.train_step(
+                    runner.state, x, y, adv, present=present)
+                return metrics
+        else:
+            from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
+            from draco_tpu_torch.parallel.token_loop import TokenLoop
+
+            setup = build_sp_train_setup(cfg, dev)
+            runner = TokenLoop(setup, cfg, quiet=True)
+
+            def step():
+                toks, adv = runner.inputs(runner.state.step)
+                runner.state, metrics = setup.train_step(runner.state, toks,
+                                                         adv)
+                return metrics
+        return Program(self.name, self.manifest(cfg, full), dev, step,
+                       lambda: state_tensors(runner.state), runner, cfg)
+
+
+_CYCLIC_SHARED = dict(approach="cyclic", redundancy="shared")
+_BASELINE_GM = dict(approach="baseline", mode="geometric_median")
+
+# peak_gb: what one full-width step allocates on the card above its
+# starting memory, with headroom (measured by chip_smoke.py's audit phase,
+# PERF.md §6)
+PROGRAMS = (
+    LintProgram("simulate", "cnn",
+                dict(approach="cyclic", redundancy="simulate"), 13.0),
+    LintProgram("geomedian", "cnn", _BASELINE_GM, 4.5),
+    LintProgram("shared", "cnn", _CYCLIC_SHARED, 4.5),
+    LintProgram("approx", "cnn", APPROX, 4.5),
+    LintProgram("approx_int8", "cnn", dict(APPROX, wire_dtype="int8"), 4.5),
+    LintProgram("shared_bf16", "cnn", dict(_CYCLIC_SHARED, wire_dtype="bf16"),
+                4.5),
+    LintProgram("shared_int8", "cnn", dict(_CYCLIC_SHARED, wire_dtype="int8"),
+                4.5),
+    LintProgram("lm_shared_flash", "lm", _CYCLIC_SHARED, 14.5),
+    LintProgram("lm_simulate_flash", "lm",
+                dict(approach="cyclic", redundancy="simulate"), 25.5),
+    LintProgram("lm_geomedian_flash", "lm", _BASELINE_GM, 8.5),
+)
+
+
+def collect() -> "list[LintProgram]":
+    names = [p.name for p in PROGRAMS]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate lint program names: {names}")
+    return list(PROGRAMS)
+
+
+def get(name: str) -> LintProgram:
+    for p in PROGRAMS:
+        if p.name == name:
+            return p
+    raise KeyError(f"no lint program named {name!r}; registered: "
+                   f"{[p.name for p in PROGRAMS]}")

@@ -15,6 +15,8 @@
       --worker-fail 1 --batch-size 2 --seq-len 512 --model-dim 768 \\
       --model-heads 12 --model-layers 8 --vocab 8192 --max-steps 5
 
+``--trace-dir DIR`` writes the loop's host spans to ``DIR/trace.json``
+(``python -m draco_tpu_torch.obs.trace_report DIR`` folds them by phase).
 Runs on the card unless ``--device cpu`` is given. With ``--preset``, the
 flags given on the command line override the preset's fields.
 ``network=TransformerLM`` runs the single-shard LM step and its token loop
@@ -69,6 +71,7 @@ FLAGS = {
     "--attn-impl": (str, "attn_impl"),
     "--compute-dtype": (str, "compute_dtype"),
     "--eval-freq": (int, "eval_freq"),
+    "--trace-dir": (str, "trace_dir"),
 }
 
 

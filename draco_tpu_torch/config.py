@@ -25,6 +25,9 @@ LM_NETWORK = "TransformerLM"
 NETWORKS = CNN_NETWORKS + (LM_NETWORK,)
 LM_DATASET = "synthetic-text"  # the LM trains on sp_step.synthetic_text
 ERR_MODES = ("rev_grad", "constant", "random")
+# the coded kernels' block width (ops.decode_kernels.MAX_N): a coded step
+# of more workers could not launch them
+MAX_CODED_WORKERS = 64
 
 
 @dataclasses.dataclass
@@ -92,6 +95,9 @@ class TrainConfig:
     steps_per_call: int = 1
     # --- run ---
     train_dir: str = "./train_out/"
+    # host span trace of the loops' phases (obs/tracer.py) at
+    # trace_dir/trace.json; "" = off
+    trace_dir: str = ""
     log_every: int = 10
     seed: int = SEED
     geomedian_iters: int = 80
@@ -140,6 +146,12 @@ class TrainConfig:
             raise ValueError("wire_segments > 1 is not ported yet")
         if self.topology != "flat":
             raise ValueError(f"topology={self.topology!r} is not ported yet")
+        if self.approach != "baseline" and \
+                self.num_workers > MAX_CODED_WORKERS:
+            raise ValueError(
+                f"approach={self.approach!r} takes at most "
+                f"{MAX_CODED_WORKERS} workers (the coded kernels' block "
+                f"width), got num_workers={self.num_workers}")
         if self.approach == "cyclic" and self.num_workers <= 4 * self.worker_fail:
             raise ValueError(
                 f"cyclic code needs n > 4s (got n={self.num_workers}, "

@@ -28,11 +28,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "audit.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowGroup = 8;  // project: rows per block, accumulators per thread
 constexpr int kMaxBlocks = 132 * 8 * 4;  // grid-stride cap: 4 waves of 8 blocks/SM
+
+// dynamic shared bytes of the encode (the m×n pair of W) and of the
+// recombination (the n pair of v); the launchers and the audit share them
+inline size_t matmul_smem(long long m, long long n) {
+  return 2 * (size_t)m * n * sizeof(float);
+}
+inline size_t vector_smem(long long n, long long) {
+  return 2 * (size_t)n * sizeof(float);
+}
 
 inline int grid_for(long long d) {
   long long b = (d + kThreads - 1) / kThreads;
@@ -185,7 +196,20 @@ __global__ void complex_recombine_kernel(const float* __restrict__ v_re,
   }
 }
 
+const draco_audit::Entry kAudit[] = {
+    {"complex_matmul_kernel", (const void*)complex_matmul_kernel, kThreads,
+     matmul_smem, 0},
+    {"project_partial_kernel", (const void*)project_partial_kernel, kThreads,
+     nullptr, 0},
+    {"project_final_kernel", (const void*)project_final_kernel, kThreads,
+     nullptr, 0},
+    {"complex_recombine_kernel", (const void*)complex_recombine_kernel,
+     kThreads, vector_smem, 0},
+};
+
 }  // namespace
+
+DRACO_AUDIT_EXPORTS(kAudit)
 
 extern "C" {
 
@@ -193,7 +217,7 @@ int draco_complex_matmul(const float* w_re, const float* w_im, const float* g,
                          float* out_re, float* out_im, int m, int n,
                          long long d, void* stream) {
   if (d > 0) {
-    const size_t smem = 2 * (size_t)m * n * sizeof(float);
+    const size_t smem = matmul_smem(m, n);
     complex_matmul_kernel<<<grid_for(d), kThreads, smem, (cudaStream_t)stream>>>(
         w_re, w_im, g, out_re, out_im, m, n, d);
   }
@@ -227,7 +251,7 @@ int draco_complex_recombine(const float* v_re, const float* v_im,
                             const float* r_re, const float* r_im, float* out,
                             int n, long long d, void* stream) {
   if (d > 0) {
-    const size_t smem = 2 * (size_t)n * sizeof(float);
+    const size_t smem = vector_smem(n, 0);
     complex_recombine_kernel<<<grid_for(d), kThreads, smem,
                                (cudaStream_t)stream>>>(v_re, v_im, r_re, r_im,
                                                        out, n, d);

@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "audit.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -337,7 +339,38 @@ bool bad_shape(int G, int T, int dh) {
   return (long long)G * ((T + 31) / 32) > 2147483647LL;
 }
 
+// every instance the launchers can pick (Dh padded to 16, 32, 64, 128);
+// their tiles are static shared memory
+const draco_audit::Entry kAudit[] = {
+    {"flash_fwd_kernel<16>", (const void*)flash_fwd_kernel<16>,
+     Cfg<16>::THREADS, nullptr, 0},
+    {"flash_fwd_kernel<32>", (const void*)flash_fwd_kernel<32>,
+     Cfg<32>::THREADS, nullptr, 0},
+    {"flash_fwd_kernel<64>", (const void*)flash_fwd_kernel<64>,
+     Cfg<64>::THREADS, nullptr, 0},
+    {"flash_fwd_kernel<128>", (const void*)flash_fwd_kernel<128>,
+     Cfg<128>::THREADS, nullptr, 0},
+    {"flash_dq_kernel<16>", (const void*)flash_dq_kernel<16>,
+     Cfg<16>::THREADS, nullptr, 0},
+    {"flash_dq_kernel<32>", (const void*)flash_dq_kernel<32>,
+     Cfg<32>::THREADS, nullptr, 0},
+    {"flash_dq_kernel<64>", (const void*)flash_dq_kernel<64>,
+     Cfg<64>::THREADS, nullptr, 0},
+    {"flash_dq_kernel<128>", (const void*)flash_dq_kernel<128>,
+     Cfg<128>::THREADS, nullptr, 0},
+    {"flash_dkv_kernel<16>", (const void*)flash_dkv_kernel<16>,
+     Cfg<16>::THREADS, nullptr, 0},
+    {"flash_dkv_kernel<32>", (const void*)flash_dkv_kernel<32>,
+     Cfg<32>::THREADS, nullptr, 0},
+    {"flash_dkv_kernel<64>", (const void*)flash_dkv_kernel<64>,
+     Cfg<64>::THREADS, nullptr, 0},
+    {"flash_dkv_kernel<128>", (const void*)flash_dkv_kernel<128>,
+     Cfg<128>::THREADS, nullptr, 0},
+};
+
 }  // namespace
+
+DRACO_AUDIT_EXPORTS(kAudit)
 
 extern "C" {
 

@@ -40,6 +40,8 @@
 
 #include <type_traits>
 
+#include "audit.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -47,6 +49,12 @@ constexpr int kMaxBlocks = 132 * 8 * 4;  // grid-stride cap: 4 waves of 8 blocks
 constexpr int kDecodeChunks = 132 * 8;   // approx pass-1 blocks: one wave
 
 enum WireType { kF32 = 0, kBF16 = 1, kInt8 = 2 };
+
+// dynamic shared bytes of both kernels' n-vector pair; the launchers and
+// the audit share it
+inline size_t vector_smem(long long n, long long) {
+  return 2 * (size_t)n * sizeof(float);
+}
 
 inline int grid_for(long long d) {
   long long b = (d + kThreads - 1) / kThreads;
@@ -195,7 +203,7 @@ void launch_recombine(const float* v_re, const float* v_im, const void* q_re,
                       const void* q_im, const float* s_re, const float* s_im,
                       float* out, int n, long long d, int block, long long nb,
                       cudaStream_t st) {
-  const size_t smem = 2 * (size_t)n * sizeof(float);
+  const size_t smem = vector_smem(n, 0);
   narrow_recombine_kernel<T><<<grid_for(d), kThreads, smem, st>>>(
       v_re, v_im, (const T*)q_re, (const T*)q_im, s_re, s_im, out, n, d,
       block, nb);
@@ -206,13 +214,36 @@ void launch_approx(const void* q, const float* scale, const float* bg,
                    const float* vn, const float* pres, float* dec,
                    float* part, int n, long long d, int block, long long nb,
                    int chunks, float inv_n, cudaStream_t st) {
-  const size_t smem = 2 * (size_t)n * sizeof(float);
+  const size_t smem = vector_smem(n, 0);
   approx_decode_partial_kernel<T><<<chunks, kThreads, smem, st>>>(
       (const T*)q, scale, bg, vn, pres, dec, part, part + chunks, n, d, block,
       nb, inv_n);
 }
 
+const draco_audit::Entry kAudit[] = {
+    {"narrow_recombine_kernel<float>",
+     (const void*)narrow_recombine_kernel<float>, kThreads, vector_smem, 0},
+    {"narrow_recombine_kernel<__nv_bfloat16>",
+     (const void*)narrow_recombine_kernel<__nv_bfloat16>, kThreads,
+     vector_smem, 0},
+    {"narrow_recombine_kernel<int8_t>",
+     (const void*)narrow_recombine_kernel<int8_t>, kThreads, vector_smem, 0},
+    {"approx_decode_partial_kernel<float>",
+     (const void*)approx_decode_partial_kernel<float>, kThreads, vector_smem,
+     0},
+    {"approx_decode_partial_kernel<__nv_bfloat16>",
+     (const void*)approx_decode_partial_kernel<__nv_bfloat16>, kThreads,
+     vector_smem, 0},
+    {"approx_decode_partial_kernel<int8_t>",
+     (const void*)approx_decode_partial_kernel<int8_t>, kThreads,
+     vector_smem, 0},
+    {"approx_decode_final_kernel", (const void*)approx_decode_final_kernel,
+     kThreads, nullptr, 0},
+};
+
 }  // namespace
+
+DRACO_AUDIT_EXPORTS(kAudit)
 
 extern "C" {
 

@@ -1,11 +1,13 @@
 """The port's hand-written CUDA kernels behind their wrappers.
 
-``KERNELS`` names every wrapper; each counts its own launches in
-``<wrapper>.launches`` (a plain int), which :func:`launch_counts` reads
-and :func:`reset_launch_counts` zeroes.
+``KERNELS`` names every wrapper of the main paths, ``CONTROLS`` the kernel
+audit's negative controls (``ops/controls.py``, never on a main path); each
+counts its own launches in ``<wrapper>.launches`` (a plain int), which
+:func:`launch_counts` reads and :func:`reset_launch_counts` zeroes.
 """
 
-from draco_tpu_torch.ops import coded, decode_kernels, flash_attention
+from draco_tpu_torch.ops import coded, controls, decode_kernels
+from draco_tpu_torch.ops import flash_attention
 
 KERNELS = {
     "complex_matmul": coded.complex_matmul,
@@ -18,12 +20,17 @@ KERNELS = {
     "flash_dq": flash_attention.flash_dq,
     "flash_dkv": flash_attention.flash_dkv,
 }
+CONTROLS = {
+    "control_mistiled_copy": controls.control_mistiled_copy,
+    "control_overlaunch": controls.control_overlaunch,
+    "control_spill": controls.control_spill,
+}
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: fn.launches for name, fn in {**KERNELS, **CONTROLS}.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *CONTROLS.values()):
         fn.launches = 0

@@ -8,7 +8,9 @@
 Each wrapper launches its CUDA kernel (``csrc/coded.cu``) on a CUDA tensor
 and computes its plain version (``*_plain``, the reference's XLA
 formulation) on a CPU tensor; any other device raises. A wrapper counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches``. The launch itself (``*_launch``)
+writes into outputs the caller allocated, which lets the kernel audit
+(``analysis/kernel_audit.py``) hand it guarded buffers.
 """
 
 from __future__ import annotations
@@ -56,12 +58,18 @@ def complex_matmul(w_re, w_im, g):
                          f"{tuple(w_im.shape)}, G {tuple(g.shape)} (n, m <= 64)")
     out_re = torch.empty((m, d), dtype=torch.float32, device=g.device)
     out_im = torch.empty_like(out_re)
+    complex_matmul_launch(w_re, w_im, g, out_re, out_im)
+    complex_matmul.launches += 1
+    return out_re, out_im
+
+
+def complex_matmul_launch(w_re, w_im, g, out_re, out_im) -> None:
+    """The encode kernel into ``out_re``, ``out_im`` (m, d)."""
+    (m, n), d = w_re.shape, g.shape[1]
     err = _build.library("coded").draco_complex_matmul(
         w_re.data_ptr(), w_im.data_ptr(), g.data_ptr(), out_re.data_ptr(),
         out_im.data_ptr(), m, n, d, _stream())
     _build.check(err, "complex_matmul")
-    complex_matmul.launches += 1
-    return out_re, out_im
 
 
 complex_matmul.launches = 0
@@ -83,17 +91,30 @@ def complex_project(r_re, r_im, f):
     if r_im.shape != (n, d) or f.shape != (d,) or d < 1:
         raise ValueError(f"complex_project: R {tuple(r_re.shape)} / "
                          f"{tuple(r_im.shape)}, f {tuple(f.shape)}")
-    lib = _build.library("coded")
-    chunks = lib.draco_project_chunks(d)
+    chunks = project_chunks(d)
     part = torch.empty((2, n, chunks), dtype=torch.float32, device=f.device)
     e = torch.empty((2, n), dtype=torch.float32, device=f.device)
-    err = lib.draco_complex_project(
-        r_re.data_ptr(), r_im.data_ptr(), f.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), e[0].data_ptr(), e[1].data_ptr(), n, d, chunks,
-        _stream())
-    _build.check(err, "complex_project")
+    complex_project_launch(r_re, r_im, f, part[0], part[1], e[0], e[1])
     complex_project.launches += 1
     return e[0], e[1]
+
+
+def project_chunks(d: int) -> int:
+    """Pass-1 blocks of the projection at length d: its (n, chunks)
+    partials."""
+    return _build.library("coded").draco_project_chunks(d)
+
+
+def complex_project_launch(r_re, r_im, f, part_re, part_im, e_re,
+                           e_im) -> None:
+    """Both passes of the projection: the (n, chunks) partials, then
+    ``e_re``, ``e_im`` (n,)."""
+    n, d = r_re.shape
+    err = _build.library("coded").draco_complex_project(
+        r_re.data_ptr(), r_im.data_ptr(), f.data_ptr(), part_re.data_ptr(),
+        part_im.data_ptr(), e_re.data_ptr(), e_im.data_ptr(), n, d,
+        part_re.shape[1], _stream())
+    _build.check(err, "complex_project")
 
 
 complex_project.launches = 0
@@ -117,12 +138,18 @@ def complex_recombine(v_re, v_im, r_re, r_im):
                          f"{tuple(v_im.shape)}, R {tuple(r_re.shape)} / "
                          f"{tuple(r_im.shape)}")
     out = torch.empty((d,), dtype=torch.float32, device=r_re.device)
+    complex_recombine_launch(v_re, v_im, r_re, r_im, out)
+    complex_recombine.launches += 1
+    return out
+
+
+def complex_recombine_launch(v_re, v_im, r_re, r_im, out) -> None:
+    """The recombination kernel into ``out`` (d,)."""
+    n, d = r_re.shape
     err = _build.library("coded").draco_complex_recombine(
         v_re.data_ptr(), v_im.data_ptr(), r_re.data_ptr(), r_im.data_ptr(),
         out.data_ptr(), n, d, _stream())
     _build.check(err, "complex_recombine")
-    complex_recombine.launches += 1
-    return out
 
 
 complex_recombine.launches = 0

@@ -16,7 +16,9 @@ Kernels: ``csrc/narrow_decode.cu``; plain versions: ``*_plain`` here.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors; any other device raises. It counts its kernel
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches``. The launch itself (``*_launch``) writes
+into outputs the caller allocated (the kernel audit hands it guarded
+buffers).
 """
 
 from __future__ import annotations
@@ -63,7 +65,6 @@ def cyclic_locator(code, e_re_l, e_im_l, pres_f, rel_tol: float,
             e_re_l, e_im_l, t["c2h_re"], t["c2h_im"], t["c1_re"], t["c1_im"],
             t["est_re"], t["est_im"], pres_f, code.s, rel_tol, lam=lam)
     L, n = e_re_l.shape
-    s = code.s
     if n != code.n or n > MAX_N:
         raise ValueError(f"cyclic_locator: columns of {n} rows for a code of "
                          f"n={code.n} (the kernel takes n <= {MAX_N})")
@@ -78,19 +79,32 @@ def cyclic_locator(code, e_re_l, e_im_l, pres_f, rel_tol: float,
     v = torch.empty((2, L, n), dtype=torch.float32, device=dev)
     masks = torch.empty((3, L, n), dtype=torch.bool, device=dev)
     resid = torch.empty((L,), dtype=torch.float32, device=dev)
+    cyclic_locator_launch(code, e_re_l, e_im_l, pres_f, rel_tol, lam, v[0],
+                          v[1], masks[0], masks[1], masks[2], resid)
+    cyclic_locator.launches += 1
+    return v[0], v[1], masks[0], masks[1], masks[2], resid
+
+
+def cyclic_locator_launch(code, e_re_l, e_im_l, pres_f, rel_tol, lam, v_re,
+                          v_im, honest, flagged, loud, resid) -> None:
+    """The locator kernel into ``v_re``, ``v_im`` (L, n) f32, the one-byte
+    masks ``honest``, ``flagged``, ``loud`` (L, n) and ``resid`` (L,)."""
+    from draco_tpu_torch.coding import cyclic as cyclic_mod
+
+    dev = e_re_l.device
+    L, n = e_re_l.shape
+    t = code.tensors(dev)
     c = [t[k] for k in ("c2h_re", "c2h_im", "c1_re", "c1_im", "est_re",
                         "est_im")]
     err = _build.library("cyclic_locator").draco_cyclic_locator(
         e_re_l.data_ptr(), e_im_l.data_ptr(), *(x.data_ptr() for x in c),
-        pres_f.data_ptr(), v[0].data_ptr(), v[1].data_ptr(),
-        masks[0].data_ptr(), masks[1].data_ptr(), masks[2].data_ptr(),
-        resid.data_ptr(), L, n, s, cyclic_mod.linalg_mod.JACOBI_SWEEPS,
+        pres_f.data_ptr(), v_re.data_ptr(), v_im.data_ptr(),
+        honest.data_ptr(), flagged.data_ptr(), loud.data_ptr(),
+        resid.data_ptr(), L, n, code.s, cyclic_mod.linalg_mod.JACOBI_SWEEPS,
         cyclic_mod.LOCATOR_RCOND ** 2, lam, lam * lam, 2.0 * lam,
         1e-3 / n, rel_tol ** 2, cyclic_mod.LOUD_REL_TOL,
         cyclic_mod.SPREAD_PHI, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "cyclic_locator")
-    cyclic_locator.launches += 1
-    return v[0], v[1], masks[0], masks[1], masks[2], resid
 
 
 cyclic_locator.launches = 0
@@ -183,13 +197,22 @@ def cyclic_narrow_recombine(v_re, v_im, wire):
     q_im, s_im, _, _ = _wire_operands(mode, buf_im, int(block), n, d,
                                       "cyclic_narrow_recombine")
     out = torch.empty((d,), dtype=torch.float32, device=q_re.device)
-    err = _build.library("narrow_decode").draco_narrow_recombine(
-        v_re.data_ptr(), v_im.data_ptr(), q_re.data_ptr(), q_im.data_ptr(),
-        _ptr(s_re), _ptr(s_im), out.data_ptr(), n, d, WIRE_CODES[mode], blk,
-        nb, torch.cuda.current_stream(q_re.device).cuda_stream)
-    _build.check(err, "cyclic_narrow_recombine")
+    narrow_recombine_launch(v_re, v_im, mode, q_re, s_re, q_im, s_im, blk,
+                            nb, out)
     cyclic_narrow_recombine.launches += 1
     return out
+
+
+def narrow_recombine_launch(v_re, v_im, mode, q_re, s_re, q_im, s_im, block,
+                            nb, out) -> None:
+    """The narrow recombination kernel on checked wire operands (``mode``
+    f32, bf16 or int8; scales None but for int8) into ``out`` (d,)."""
+    n, d = q_re.shape
+    err = _build.library("narrow_decode").draco_narrow_recombine(
+        v_re.data_ptr(), v_im.data_ptr(), q_re.data_ptr(), q_im.data_ptr(),
+        _ptr(s_re), _ptr(s_im), out.data_ptr(), n, d, WIRE_CODES[mode],
+        block, nb, torch.cuda.current_stream(q_re.device).cuda_stream)
+    _build.check(err, "cyclic_narrow_recombine")
 
 
 cyclic_narrow_recombine.launches = 0
@@ -231,20 +254,36 @@ def approx_decode(rows, batch_grads, v_over_n, pres_f, wire=None):
     _f32_vectors("approx_decode", n, v_over_n, pres_f)
     q, scale, blk, nb = _wire_operands(mode, buf, int(block), n, d,
                                        "approx_decode")
-    lib = _build.library("narrow_decode")
-    chunks = lib.draco_approx_decode_chunks(d)
+    chunks = approx_decode_chunks(d)
     dev = q.device
     decoded = torch.empty((d,), dtype=torch.float32, device=dev)
     part = torch.empty((2, chunks), dtype=torch.float32, device=dev)
     sums = torch.empty((2,), dtype=torch.float32, device=dev)
-    err = lib.draco_approx_decode(
-        q.data_ptr(), _ptr(scale), batch_grads.data_ptr(),
-        v_over_n.data_ptr(), pres_f.data_ptr(), decoded.data_ptr(),
-        part.data_ptr(), sums.data_ptr(), n, d, WIRE_CODES[mode], blk, nb,
-        chunks, 1.0 / n, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "approx_decode")
+    approx_decode_launch(mode, q, scale, blk, nb, batch_grads, v_over_n,
+                         pres_f, decoded, part, sums)
     approx_decode.launches += 1
     return decoded, sums[0], sums[1]
+
+
+def approx_decode_chunks(d: int) -> int:
+    """Pass-1 blocks of the approx decode at length d: its (2, chunks)
+    partials."""
+    return _build.library("narrow_decode").draco_approx_decode_chunks(d)
+
+
+def approx_decode_launch(mode, q, scale, block, nb, batch_grads, v_over_n,
+                         pres_f, decoded, part, sums) -> None:
+    """Both passes of the approx decode on checked wire operands into
+    ``decoded`` (d,), the partials ``part`` (2, chunks) and ``sums``
+    (2,)."""
+    n, d = batch_grads.shape
+    err = _build.library("narrow_decode").draco_approx_decode(
+        q.data_ptr(), _ptr(scale), batch_grads.data_ptr(),
+        v_over_n.data_ptr(), pres_f.data_ptr(), decoded.data_ptr(),
+        part.data_ptr(), sums.data_ptr(), n, d, WIRE_CODES[mode], block, nb,
+        part.shape[1], 1.0 / n,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "approx_decode")
 
 
 approx_decode.launches = 0

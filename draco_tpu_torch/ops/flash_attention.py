@@ -95,13 +95,21 @@ def flash_fwd(q, k, v, causal: bool = True):
         return flash_fwd_plain(q, k, v, causal)
     o = torch.empty_like(q)
     lse = torch.empty((g, t), dtype=torch.float32, device=q.device)
+    flash_fwd_launch(q, k, v, o, lse, causal)
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_fwd_launch(q, k, v, o, lse, causal: bool = True) -> None:
+    """The forward kernel into ``o`` (G, T, Dh) and ``lse`` (G, T). (Each
+    ``*_launch`` writes into outputs the caller allocated: the kernel audit
+    hands them guarded buffers.)"""
+    g, t, dh = q.shape
     err = _build.library("flash_attention").draco_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), g, t, dh, 1.0 / math.sqrt(dh), int(causal),
         _stream())
     _build.check(err, "flash_fwd")
-    flash_fwd.launches += 1
-    return o, lse
 
 
 flash_fwd.launches = 0
@@ -153,13 +161,20 @@ def flash_dq(q, k, v, do, lse, dcap, dlse=None, causal: bool = True):
     if not cuda:
         return flash_dq_plain(q, k, v, do, lse, dcap, dlse, causal)
     dq = torch.empty_like(q)
+    flash_dq_launch(q, k, v, do, lse, dcap, dlse, dq, causal)
+    flash_dq.launches += 1
+    return dq
+
+
+def flash_dq_launch(q, k, v, do, lse, dcap, dlse, dq,
+                    causal: bool = True) -> None:
+    """The dq kernel into ``dq`` (G, T, Dh)."""
+    g, t, dh = q.shape
     err = _build.library("flash_attention").draco_flash_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dcap.data_ptr(), _ptr(dlse), dq.data_ptr(), g, t, dh,
         1.0 / math.sqrt(dh), int(causal), _stream())
     _build.check(err, "flash_dq")
-    flash_dq.launches += 1
-    return dq
 
 
 flash_dq.launches = 0
@@ -172,13 +187,20 @@ def flash_dkv(q, k, v, do, lse, dcap, dlse=None, causal: bool = True):
         return flash_dkv_plain(q, k, v, do, lse, dcap, dlse, causal)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    flash_dkv_launch(q, k, v, do, lse, dcap, dlse, dk, dv, causal)
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+def flash_dkv_launch(q, k, v, do, lse, dcap, dlse, dk, dv,
+                     causal: bool = True) -> None:
+    """The dk/dv kernel into ``dk``, ``dv`` (G, T, Dh)."""
+    g, t, dh = q.shape
     err = _build.library("flash_attention").draco_flash_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dcap.data_ptr(), _ptr(dlse), dk.data_ptr(),
         dv.data_ptr(), g, t, dh, 1.0 / math.sqrt(dh), int(causal), _stream())
     _build.check(err, "flash_dkv")
-    flash_dkv.launches += 1
-    return dk, dv
 
 
 flash_dkv.launches = 0

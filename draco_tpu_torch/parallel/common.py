@@ -21,6 +21,7 @@ from draco_tpu_torch import aggregation, attacks
 from draco_tpu_torch.coding import approx as approx_mod
 from draco_tpu_torch.coding import cyclic as cyclic_mod
 from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.obs.tracer import phase
 from draco_tpu_torch.runtime import upload
 
 # column order of the LM metric block; cyclic appends DECODE_HEALTH_NAMES
@@ -59,15 +60,18 @@ def approx_aggregate(code, grads: torch.Tensor, present=None, cfg=None):
     on the wire (``cfg.wire_dtype``), decode. ``present``: the host's (n,)
     mask or None. Returns ``(decoded mean (d,), health)``. No adversary
     injection: the code carries no Byzantine certificate."""
-    rows = approx_mod.encode_shared(code, grads)
-    if present is not None:
-        pres = upload(approx_mod.presence(code, present), grads.device)
-        rows = torch.where(pres[:, None] > 0, rows, torch.zeros_like(rows))
-    wire = None if cfg is None else numerics.narrow_wire_single(cfg, rows)
-    if wire is not None:
-        rows = None  # the decode reads the narrow buffers
-    agg, _v, health = approx_mod.decode(code, rows, grads, present=present,
-                                        wire=wire)
+    with phase("draco_encode"):
+        rows = approx_mod.encode_shared(code, grads)
+        if present is not None:
+            pres = upload(approx_mod.presence(code, present), grads.device)
+            rows = torch.where(pres[:, None] > 0, rows,
+                               torch.zeros_like(rows))
+        wire = None if cfg is None else numerics.narrow_wire_single(cfg, rows)
+        if wire is not None:
+            rows = None  # the decode reads the narrow buffers
+    with phase("draco_decode"):
+        agg, _v, health = approx_mod.decode(code, rows, grads,
+                                            present=present, wire=wire)
     return agg, health
 
 
@@ -84,20 +88,24 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
     aggregates them; ``health`` is None. ``noise`` / ``generator``: the
     ``random`` attack's draws (attacks.py)."""
     if cfg.approach == "cyclic":
-        if grads.dim() == 3:
-            enc_re, enc_im = cyclic_mod.encode(code, grads)
-        else:
-            enc_re, enc_im = cyclic_mod.encode_shared(code, grads)
-        enc_re, enc_im = attacks.inject_cyclic(
-            enc_re, enc_im, adv_mask, cfg.err_mode, cfg.adversarial, noise,
-            generator)
-        agg, honest, health = cyclic_mod.decode(code, enc_re, enc_im,
-                                                rand_factor, with_health=True)
+        with phase("draco_encode"):
+            if grads.dim() == 3:
+                enc_re, enc_im = cyclic_mod.encode(code, grads)
+            else:
+                enc_re, enc_im = cyclic_mod.encode_shared(code, grads)
+            enc_re, enc_im = attacks.inject_cyclic(
+                enc_re, enc_im, adv_mask, cfg.err_mode, cfg.adversarial,
+                noise, generator)
+        with phase("draco_decode"):
+            agg, honest, health = cyclic_mod.decode(
+                code, enc_re, enc_im, rand_factor, with_health=True)
         health["honest"] = honest
         return agg, health
     grads = attacks.inject_plain(grads, adv_mask, cfg.err_mode,
                                  cfg.adversarial, noise, generator)
-    return aggregation.aggregate(grads, cfg.mode, cfg.geomedian_iters), None
+    with phase("draco_decode"):
+        return (aggregation.aggregate(grads, cfg.mode, cfg.geomedian_iters),
+                None)
 
 
 def present_mean(values: torch.Tensor,
@@ -115,7 +123,8 @@ def finish_flat_step(state, agg: torch.Tensor, layout) -> None:
     the step counter (the reference's guard is not ported yet)."""
     from draco_tpu_torch import params as params_mod
 
-    state.opt.step(state.params, params_mod.unflatten(agg, layout))
+    with phase("draco_update"):
+        state.opt.step(state.params, params_mod.unflatten(agg, layout))
     state.step += 1
 
 

@@ -44,7 +44,8 @@ from draco_tpu_torch.parallel.common import (
     present_mean,
     token_metric_names,
 )
-from draco_tpu_torch.runtime import resolve_device
+from draco_tpu_torch.obs.tracer import phase
+from draco_tpu_torch.runtime import resolve_device, upload
 from draco_tpu_torch.training.step import TrainState
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -124,8 +125,9 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
 
     def lane_grads(p, toks):
         """(lanes, B, T) -> flat grads (lanes, d), losses (lanes,)."""
-        g, loss = lanes_fn(p, toks)
-        return params_mod.flatten(g, layout, lead=1), loss
+        with phase("draco_comp"):
+            g, loss = lanes_fn(p, toks)
+            return params_mod.flatten(g, layout, lead=1), loss
 
     code = build_code_from_cfg(cfg)
     decode_impl = resolve_decode_impl(cfg.decode_impl, dev)
@@ -137,8 +139,9 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
                   if code is not None else None)
 
     def train_step(state, tokens, adv_mask, rand_factor=None, noise=None):
-        toks = torch.as_tensor(tokens, device=dev).long()
-        mask = torch.as_tensor(adv_mask, device=dev)
+        # host inputs by pinned asynchronous copies: no synchronising call
+        toks = upload(torch.as_tensor(tokens), dev).long()
+        mask = upload(torch.as_tensor(adv_mask), dev)
         if simulate:
             hat_s = code.hat_s
             grads, losses = lane_grads(state.params,
@@ -165,7 +168,7 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
 
     @torch.no_grad()
     def eval_step(p, tokens):
-        toks = torch.as_tensor(tokens, device=dev).long()
+        toks = upload(torch.as_tensor(tokens), dev).long()
         return vmap(objective, in_dims=(None, 0))(p, toks).mean()
 
     return SPTrainSetup(model=model, state=state, train_step=train_step,

@@ -6,8 +6,10 @@ the seeded adversary schedule. Each step's metrics are synchronised to the
 host; the first, the last and every ``log_every``-th go to
 ``<train_dir>/metrics.jsonl`` under the reference's column names, and every
 ``eval_freq``-th step adds the held-out loss on ``synthetic_text(seed + 1,
-0, ...)`` as ``{"step", "split": "eval", "loss"}``. Checkpoints, the
-heartbeat and the host tracer are not ported yet.
+0, ...)`` as ``{"step", "split": "eval", "loss"}``. With ``cfg.trace_dir``
+set, the host phases of each step (gather, dispatch, sync, flush, eval)
+and the step's draco_* phases go to ``trace_dir/trace.json``
+(``obs/tracer.py``). Checkpoints and the heartbeat are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
+from draco_tpu_torch.obs.tracer import make_tracer
 
 
 class TokenLoop:
@@ -34,6 +37,12 @@ class TokenLoop:
             cfg.seed, cfg.max_steps, cfg.num_workers, cfg.num_adversaries)
         self.path = (os.path.join(cfg.train_dir, "metrics.jsonl")
                      if cfg.train_dir else None)
+        self.tracer = make_tracer(cfg.trace_dir)
+
+    def inputs(self, step: int) -> tuple:
+        """The host inputs of 1-based ``step``: ``(tokens, adv_mask)`` as
+        ``setup.train_step`` takes them."""
+        return self.text(self.cfg.seed, step), self.adv_schedule[step]
 
     def step(self) -> dict:
         """Run the next step; returns its metrics as floats, with the wall
@@ -42,12 +51,16 @@ class TokenLoop:
         if step > self.cfg.max_steps:
             raise ValueError(f"step {step} is past max_steps="
                              f"{self.cfg.max_steps}")
-        toks = self.text(self.cfg.seed, step)
+        tracer = self.tracer
+        with tracer.span("gather"):
+            toks, adv_mask = self.inputs(step)
         t0 = time.perf_counter()
-        self.state, metrics = self.setup.train_step(
-            self.state, toks, self.adv_schedule[step])
+        with tracer.span("dispatch"), tracer.activate():
+            self.state, metrics = self.setup.train_step(self.state, toks,
+                                                        adv_mask)
         # .item() waits for the device: the step's work is all on one stream
-        out = {k: float(v.item()) for k, v in metrics.items()}
+        with tracer.span("sync"):
+            out = {k: float(v.item()) for k, v in metrics.items()}
         out["step_ms"] = (time.perf_counter() - t0) * 1e3
         return {"step": step, **out}
 
@@ -56,13 +69,14 @@ class TokenLoop:
                                           self.text(self.cfg.seed + 1, 0)))
 
     def _write(self, record: dict) -> None:
-        if self.path:
-            with open(self.path, "a") as f:
-                f.write(json.dumps(record) + "\n")
-        if not self.quiet:
-            print(" ".join(f"{k}={v:.6g}" if isinstance(v, float)
-                           else f"{k}={v}" for k, v in record.items()),
-                  flush=True)
+        with self.tracer.span("flush"):
+            if self.path:
+                with open(self.path, "a") as f:
+                    f.write(json.dumps(record) + "\n")
+            if not self.quiet:
+                print(" ".join(f"{k}={v:.6g}" if isinstance(v, float)
+                               else f"{k}={v}" for k, v in record.items()),
+                      flush=True)
 
     def run(self, max_steps: Optional[int] = None) -> dict:
         """Steps up to ``max_steps`` (default cfg.max_steps); returns the
@@ -79,8 +93,10 @@ class TokenLoop:
             if step % cfg.log_every == 0 or step in (first, last_step):
                 self._write({k: last[k] for k in names})
             if cfg.eval_freq and step % cfg.eval_freq == 0:
-                self._write({"step": step, "split": "eval",
-                             "loss": self.eval_loss()})
+                with self.tracer.span("eval"):
+                    loss = self.eval_loss()
+                self._write({"step": step, "split": "eval", "loss": loss})
+        self.tracer.close()
         return last
 
 

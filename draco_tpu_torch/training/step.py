@@ -17,6 +17,17 @@ real tensor axis:
                             host weight solve → one-pass decode (kernels)
   update                    SGD with momentum on the decoded gradient
 
+The state carry is updated in place: parameters, momentum buffers and the
+BN statistics keep their storage across steps. The step's host inputs
+(batch, labels, augmentation draws, the adversary and presence masks)
+reach the card by pinned asynchronous copies (``runtime.upload``), so the
+step makes no synchronising call: the program lint
+(``analysis/``) holds it to both. Its phases run under
+``obs.tracer.phase`` (``draco_comp``, ``draco_encode``, ``draco_decode``,
+``draco_update``, the reference's ``jax.named_scope`` names), which mark
+host spans and profiler ranges when a tracer or the profiler is on and
+cost nothing otherwise.
+
 Gradients are flattened in the reference's leaf order and layout
 (``params.flatten``), so the (n, d) codeword matrix, the random projection
 and the decode agree with the reference coordinate for coordinate.
@@ -47,6 +58,7 @@ from draco_tpu_torch.data import augment as augment_mod
 from draco_tpu_torch.models import build_model
 from draco_tpu_torch.models.resnet import init_params, init_stats
 from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.obs.tracer import phase
 from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
 from draco_tpu_torch.parallel.common import (
     APPROX_HEALTH_NAMES,
@@ -150,15 +162,19 @@ def build_train_setup(cfg: TrainConfig, device=None,
     def lanes(p, st, x, y):
         """(lanes, B, ...) -> flat grads (lanes, d), new stats, losses,
         precs."""
-        g, (loss, (new_st, prec1)) = lanes_fn(p, st, x, y)
-        return params_mod.flatten(g, layout, lead=1), new_st, loss, prec1
+        with phase("draco_comp"):
+            g, (loss, (new_st, prec1)) = lanes_fn(p, st, x, y)
+            return params_mod.flatten(g, layout, lead=1), new_st, loss, prec1
 
     def prep(state, x, y, rows, draws):
-        x = torch.as_tensor(x, device=dev)
-        y = torch.as_tensor(y, device=dev).long()
+        x = upload(torch.as_tensor(x), dev)
+        y = upload(torch.as_tensor(y), dev).long()
         if use_aug:
             if draws is None:
                 draws = aug_draws(cfg, state.step, rows)
+            # the three draws in one copy
+            draws = upload(torch.stack([torch.as_tensor(t) for t in draws]),
+                           dev).unbind(0)
             x = augment_mod.augment(x, *draws)
         return x, y
 
@@ -168,9 +184,13 @@ def build_train_setup(cfg: TrainConfig, device=None,
             return attacks.random_generator(cfg.seed, state.step, device=dev)
         return None
 
+    @torch.no_grad()
     def update(state, flat_grad, new_stats):
-        state.opt.step(state.params, params_mod.unflatten(flat_grad, layout))
-        state.stats = {k: v.detach() for k, v in new_stats.items()}
+        with phase("draco_update"):
+            state.opt.step(state.params,
+                           params_mod.unflatten(flat_grad, layout))
+            for k, v in new_stats.items():
+                state.stats[k].copy_(v)
         state.step += 1
 
     def present_on_device(present):
@@ -197,10 +217,12 @@ def build_train_setup(cfg: TrainConfig, device=None,
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
                                                     x, y)
             gen = attack_generator(state, noise)
-            mask = torch.as_tensor(adv_mask, device=dev)
+            mask = upload(torch.as_tensor(adv_mask), dev)
             grads = attacks.inject_plain(grads, mask, cfg.err_mode,
                                          cfg.adversarial, noise, gen)
-            agg = aggregation.aggregate(grads, cfg.mode, cfg.geomedian_iters)
+            with phase("draco_decode"):
+                agg = aggregation.aggregate(grads, cfg.mode,
+                                            cfg.geomedian_iters)
             update(state, agg, new_stats)
             return state, lane_metrics(losses, precs, None)
 
@@ -237,7 +259,8 @@ def build_train_setup(cfg: TrainConfig, device=None,
                 # each batch row computed once, combined with the masked W
                 grads, new_stats, losses, precs = lanes(
                     state.params, state.stats, x, y)
-                enc_re, enc_im = cyclic_mod.encode_shared(code, grads)
+                with phase("draco_encode"):
+                    enc_re, enc_im = cyclic_mod.encode_shared(code, grads)
                 return enc_re, enc_im, new_stats, losses, precs
             # simulate: worker i computes its hat_s batch rows, with its
             # own BN stats on each of them
@@ -246,8 +269,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
             st = {k: v[:, None].expand(n, hat_s, v.shape[-1]).flatten(0, 1)
                   for k, v in state.stats.items()}
             grads, new_stats, losses, precs = lanes(state.params, st, xw, yw)
-            enc_re, enc_im = cyclic_mod.encode(code,
-                                               grads.view(n, hat_s, dim))
+            with phase("draco_encode"):
+                enc_re, enc_im = cyclic_mod.encode(code,
+                                                   grads.view(n, hat_s, dim))
             # fold the per-lane stats back to one set per worker
             new_stats = {k: v.view(n, hat_s, -1).mean(1)
                          for k, v in new_stats.items()}
@@ -260,23 +284,25 @@ def build_train_setup(cfg: TrainConfig, device=None,
             enc_re, enc_im, new_stats, losses, precs = compute_encoded(
                 state, x, y)
             gen = attack_generator(state, noise)
-            mask = torch.as_tensor(adv_mask, device=dev)
-            enc_re, enc_im = attacks.inject_cyclic(
-                enc_re, enc_im, mask, cfg.err_mode, cfg.adversarial, noise,
-                gen)
+            mask = upload(torch.as_tensor(adv_mask), dev)
             pres = present_on_device(present)
-            if pres is not None:
-                # a straggler's rows never arrive: zero-filled, erasures at
-                # known positions
-                pw = pres[:, None].to(enc_re.dtype)
-                enc_re, enc_im = enc_re * pw, enc_im * pw
-            enc_re, enc_im, wire = numerics.narrow_wire_pair(cfg, enc_re,
-                                                             enc_im)
+            with phase("draco_encode"):
+                enc_re, enc_im = attacks.inject_cyclic(
+                    enc_re, enc_im, mask, cfg.err_mode, cfg.adversarial,
+                    noise, gen)
+                if pres is not None:
+                    # a straggler's rows never arrive: zero-filled,
+                    # erasures at known positions
+                    pw = pres[:, None].to(enc_re.dtype)
+                    enc_re, enc_im = enc_re * pw, enc_im * pw
+                enc_re, enc_im, wire = numerics.narrow_wire_pair(
+                    cfg, enc_re, enc_im)
             f = projection if rand_factor is None else torch.as_tensor(
                 rand_factor, device=dev)
-            decoded, honest, health = cyclic_mod.decode(
-                code, enc_re, enc_im, f, present=pres, with_health=True,
-                rel_tol=rel_tol, lam=wire_lam, wire=wire)
+            with phase("draco_decode"):
+                decoded, honest, health = cyclic_mod.decode(
+                    code, enc_re, enc_im, f, present=pres, with_health=True,
+                    rel_tol=rel_tol, lam=wire_lam, wire=wire)
             update(state, decoded, new_stats)
             metrics = lane_metrics(losses, precs, pres)
             metrics["honest_located"] = honest.sum()

@@ -8,7 +8,10 @@ seeded schedule, and under ``straggle_mode="drop"`` the step's presence
 mask is the negation of row t of the straggler schedule (a ``present``
 column then counts the arrived rows). Each step's metrics are synchronised
 to the host and every ``log_every``-th (and the first) goes to
-``<train_dir>/metrics.jsonl`` under the reference's column names.
+``<train_dir>/metrics.jsonl`` under the reference's column names. With
+``cfg.trace_dir`` set, the host phases of each step (gather, dispatch,
+sync, flush) and the step's draco_* phases go to ``trace_dir/trace.json``
+(``obs/tracer.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching
 from draco_tpu_torch.data.datasets import Dataset, load_dataset
+from draco_tpu_torch.obs.tracer import make_tracer
 from draco_tpu_torch.runtime import resolve_device
 from draco_tpu_torch.training.step import build_train_setup
 
@@ -43,6 +47,7 @@ class Trainer:
                                     cfg.num_workers, cfg.straggle_count)
             if cfg.straggle_mode == "drop" and cfg.straggle_count > 0
             else None)
+        self.tracer = make_tracer(cfg.trace_dir)
 
     def batch(self, step: int):
         """(n, B, H, W, C) images and (n, B) labels of 1-based ``step``."""
@@ -53,6 +58,14 @@ class Trainer:
                    cfg.seed)
         return batching.gather(self.ds, idx, cfg.num_workers, cfg.batch_size)
 
+    def inputs(self, step: int) -> tuple:
+        """The host inputs of 1-based ``step``: ``(x, y, adv_mask,
+        present)`` as ``setup.train_step`` takes them."""
+        x, y = self.batch(step)
+        present = (None if self.straggle_schedule is None
+                   else ~self.straggle_schedule[step])
+        return x, y, self.adv_schedule[step], present
+
     def step(self) -> dict:
         """Run the next step; returns its metrics as floats, with the wall
         time of the step (host clock, device synchronised) as ``step_ms``."""
@@ -60,14 +73,17 @@ class Trainer:
         if step > self.cfg.max_steps:
             raise ValueError(f"step {step} is past max_steps="
                              f"{self.cfg.max_steps}")
-        x, y = self.batch(step)
-        present = (None if self.straggle_schedule is None
-                   else ~self.straggle_schedule[step])
+        tracer = self.tracer
+        with tracer.span("gather"):
+            x, y, adv_mask, present = self.inputs(step)
         t0 = time.perf_counter()
-        self.state, metrics = self.setup.train_step(
-            self.state, x, y, self.adv_schedule[step], present=present)
+        with tracer.span("dispatch"), tracer.activate():
+            self.state, metrics = self.setup.train_step(
+                self.state, x, y, adv_mask, present=present)
         # .item() waits for the device: the step's work is all on one stream
-        out = {k: float(metrics[k].item()) for k in self.setup.metric_names}
+        with tracer.span("sync"):
+            out = {k: float(metrics[k].item())
+                   for k in self.setup.metric_names}
         if present is not None:
             out["present"] = float(present.sum())
         out["step_ms"] = (time.perf_counter() - t0) * 1e3
@@ -87,11 +103,13 @@ class Trainer:
             last = self.step()
             step = last["step"]
             if step % cfg.log_every == 0 or step == 1:
-                if path:
-                    with open(path, "a") as f:
-                        f.write(json.dumps(last) + "\n")
-                if not self.quiet:
-                    print(" ".join(f"{k}={v:.6g}" if isinstance(v, float)
-                                   else f"{k}={v}" for k, v in last.items()),
-                          flush=True)
+                with self.tracer.span("flush"):
+                    if path:
+                        with open(path, "a") as f:
+                            f.write(json.dumps(last) + "\n")
+                    if not self.quiet:
+                        print(" ".join(f"{k}={v:.6g}" if isinstance(v, float)
+                                       else f"{k}={v}"
+                                       for k, v in last.items()), flush=True)
+        self.tracer.close()
         return last

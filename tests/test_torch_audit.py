@@ -1,0 +1,333 @@
+"""The port's static audit on the CPU (no card here).
+
+* The mis-tiled control's plain version against the same ``pallas_call``
+  geometry as the TPU lowering audit's negative control ``bad``
+  (tools/tpu_attn_lowering_check.py:107-121, local to its ``main()``, so
+  rebuilt here) run by JAX in interpret mode: 576 outputs left NaN, the
+  (16, 12) first column block equal to x, the two equal with NaN in the
+  same places.
+* The kernel audit's coverage rule (poisoned, guarded outputs) trips on
+  that control and passes on the plain versions of the nine main-path
+  kernels at ragged shapes.
+* The program lint at CI size: every registered leg green on the CPU
+  rules, every CPU control tripping exactly its rule, the honest miniature
+  green; the registry covers the ten legs ``chip_smoke.py`` drives.
+"""
+
+import json
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from draco_tpu_torch.analysis import controls as lint_controls
+from draco_tpu_torch.analysis import kernel_audit, program_lint, registry
+from draco_tpu_torch.analysis import rules
+from draco_tpu_torch.config import TrainConfig
+from draco_tpu_torch.ops import controls
+
+CPU = torch.device("cpu")
+MAIN_KERNELS = ("complex_matmul", "complex_project", "complex_recombine",
+                "cyclic_locator", "cyclic_narrow_recombine", "approx_decode",
+                "flash_fwd", "flash_dq", "flash_dkv")
+LEGS = ("simulate", "geomedian", "shared", "approx", "approx_int8",
+        "shared_bf16", "shared_int8", "lm_shared_flash", "lm_simulate_flash",
+        "lm_geomedian_flash")
+
+
+def _bad(x):
+    """The TPU lowering audit's mis-tiled pallas_call, in interpret mode."""
+    def kern(x_ref, o_ref):
+        o_ref[...] = x_ref[...]
+
+    return pl.pallas_call(
+        kern, grid=(4,),
+        in_specs=[pl.BlockSpec((4, 12), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((4, 12), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((16, 48), jnp.float32),
+        interpret=True)(x)
+
+
+def test_mistiled_plain_matches_the_pallas_geometry():
+    x = np.random.RandomState(0).normal(size=(16, 48)).astype(np.float32)
+    ref = np.asarray(_bad(jnp.asarray(x)))
+    port = controls.control_mistiled_copy(torch.from_numpy(x)).numpy()
+    assert np.isnan(ref).sum() == np.isnan(port).sum() == 576
+    np.testing.assert_array_equal(port, ref)  # NaN in the same places
+    np.testing.assert_array_equal(port[:, :12], x[:, :12])
+
+
+def test_controls_plain_versions():
+    rng = np.random.RandomState(1)
+    n = 70
+    x = torch.from_numpy(rng.randint(-8, 8, n).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, 1 << 20, n).astype(np.int32))
+    want = np.zeros(n, np.float32)
+    for i in range(n):
+        live = [x[(i + k) % n].item() * (k + 1) for k in range(64)]
+        want[i] = sum(live[idx[(i + k) % n].item() & 63] for k in range(64))
+    np.testing.assert_array_equal(controls.control_spill(x, idx).numpy(),
+                                  want)
+    out = controls.control_overlaunch(torch.zeros(5))
+    assert torch.equal(out, torch.ones(5))
+    with pytest.raises(ValueError):
+        controls.control_mistiled_copy(torch.zeros(16, 47))
+
+
+@pytest.mark.parametrize("name", MAIN_KERNELS)
+def test_coverage_passes_on_the_plain_versions(name):
+    res = kernel_audit.rule_coverage(kernel_audit.spec(name), CPU)
+    assert res["ok"], res
+    assert res["unwritten"] == res["guard_touched"] == 0
+    assert all(o["elements"] > 0 for c in res["cases"]
+               for o in c["outputs"].values())
+
+
+def test_coverage_trips_on_the_mistiled_control():
+    res = kernel_audit.rule_coverage(
+        kernel_audit.spec("control_mistiled_copy"), CPU)
+    assert not res["ok"]
+    assert res["unwritten"] == 576 and res["guard_touched"] == 0
+
+
+def test_coverage_counts_a_guard_write():
+    buf, view = kernel_audit._guarded((3, 4), torch.float32, CPU)
+    view.fill_(1.0)
+    assert kernel_audit._verdict(buf, 12) == (0, 0)
+    buf[kernel_audit.GUARD + 12] = 0.0  # one past the end
+    buf[kernel_audit.GUARD + 2] = float("nan")  # a written NaN counts
+    assert kernel_audit._verdict(buf, 12) == (0, 1)
+    buf, view = kernel_audit._guarded((5,), torch.uint8, CPU)
+    view[:4] = 1
+    assert kernel_audit._verdict(buf, 5) == (1, 0)
+
+
+def test_kernel_audit_report_on_the_cpu(tmp_path):
+    out = tmp_path / "kernel_audit.json"
+    report = kernel_audit.run_audit("cpu", str(out))
+    assert report["all_ok"]
+    rows = {r["name"]: r for r in json.loads(out.read_text())["rows"]}
+    assert list(rows) == [s.name for s in kernel_audit.SPECS]
+    assert len(rows) == 12
+    mis = rows["control_mistiled_copy"]
+    assert mis["failed_rules"] == ["coverage"]
+    assert mis["plain"]["bitwise_equal"]
+    assert mis["replaces"] == "tools/tpu_attn_lowering_check.py:111"
+
+
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                     r"\s+)?(\w+)\s*\(")
+_ENTRY = re.compile(r'\{"([^"]+)",\s*\(const void\*\)([\w<>:]+)')
+
+
+@pytest.mark.parametrize("source", sorted(
+    {s.source for s in kernel_audit.SPECS}))
+def test_audit_table_lists_every_global_function(source):
+    """Each source's resource-query table (the names the audit reads from
+    the built library) names every ``__global__`` function of the source,
+    each entry the function it points at, and the specs of that source
+    cover exactly the table."""
+    from draco_tpu_torch import _build
+
+    text = (_build.PKG_DIR / "csrc" / f"{source}.cu").read_text()
+    globals_ = set(_GLOBAL.findall(text))
+    entries = _ENTRY.findall(text)
+    assert globals_ and entries
+    assert all(name == fn for name, fn in entries), entries
+    table = [name for name, _ in entries]
+    assert {t.split("<")[0] for t in table} == globals_
+    specs = [f for s in kernel_audit.SPECS if s.source == source
+             for f in s.functions]
+    assert sorted(specs) == sorted(table)
+
+
+_REFUSED = """========= COMPUTE-SANITIZER
+========= Error: Device not supported. Please refer to the "Supported \
+Devices" section of the sanitizer documentation
+=========
+========= Program hit cudaErrorUnknown (error 999) due to "unknown error" on \
+CUDA API call to cudaMalloc.
+========= Target application returned an error
+========= ERROR SUMMARY: 3 errors
+""".replace("\\\n", "")
+_CLEAN = """========= COMPUTE-SANITIZER
+sanitizer child: ok complex_matmul
+sanitizer child: ok flash_fwd
+sanitizer child: ok control_spill
+sanitizer child: done
+========= ERROR SUMMARY: 0 errors
+"""
+_NAMED = """========= COMPUTE-SANITIZER
+sanitizer child: ok complex_matmul
+========= Invalid __global__ write of size 4 bytes
+=========     at flash_fwd_kernel<64>(const float *, const float *)+0x1a0
+=========     by thread (3,0,0) in block (1,0,0)
+sanitizer child: ok flash_fwd
+sanitizer child: ok control_spill
+sanitizer child: done
+========= ERROR SUMMARY: 1 error
+"""
+_CRASHED = """========= COMPUTE-SANITIZER
+sanitizer child: ok complex_matmul
+========= Invalid __global__ read of size 4 bytes
+=========     at 0x1a0 in an unnamed function
+========= Target application returned an error
+========= ERROR SUMMARY: 2 errors
+Traceback (most recent call last):
+torch.AcceleratorError: CUDA error: unspecified launch failure
+"""
+_DIED = """========= COMPUTE-SANITIZER
+sanitizer child: ok complex_matmul
+Segmentation fault
+"""
+_RACE = """========= COMPUTE-SANITIZER
+sanitizer child: ok complex_matmul
+========= Error: Race reported between Write access at flash_fwd_kernel<64>\
+(const float *)+0x2b0 and Read access at flash_fwd_kernel<64>(const float *)
+sanitizer child: ok flash_fwd
+sanitizer child: ok control_spill
+sanitizer child: done
+========= RACECHECK SUMMARY: 1 hazard displayed (1 error, 0 warnings)
+""".replace("\\\n", "")
+_RUN = ["complex_matmul", "flash_fwd", "control_spill"]
+
+
+@pytest.mark.parametrize("text,timed_out,ran,errors,failed,completed", [
+    (_REFUSED, False, False, None, None, False),
+    (_CLEAN, False, True, 0, [], True),
+    (_NAMED, False, True, 1, ["flash_fwd"], True),
+    (_CRASHED, False, True, 2, _RUN, False),
+    (_DIED, False, True, None, ["flash_fwd", "control_spill"], False),
+    (_RACE, False, True, 1, ["flash_fwd"], True),
+    (_CLEAN.replace("sanitizer child: done\n", "").rsplit("=", 1)[0]
+     .replace("sanitizer child: ok control_spill\n", ""), True, True,
+     None, ["control_spill"], False),
+], ids=["refused", "clean", "named", "crashed", "died", "race", "timeout"])
+def test_sanitizer_verdict(text, timed_out, ran, errors, failed, completed):
+    """Only a refused device records ``ran: false``; errors fail the entry
+    points they name (all, when they name none), a child that died or
+    timed out under the tool fails those it never reported done."""
+    v = kernel_audit.parse_sanitizer(_RUN, text, 1, "/cuda/compute-sanitizer",
+                                     timed_out=timed_out)
+    assert v["ran"] is ran
+    if not ran:
+        assert v["reason"].startswith("Device not supported")
+        return
+    assert v["errors"] == errors
+    assert v["failed"] == failed
+    assert v["completed"] is completed
+    for name in _RUN:
+        row = kernel_audit.rule_sanitizer(kernel_audit.spec(name),
+                                          {"memcheck": v})
+        assert row["ok"] is (name not in failed), (name, row)
+
+
+@pytest.mark.parametrize("code,tripped", [(9, True), (700, False)])
+def test_overlaunch_control_needs_error_9(monkeypatch, code, tripped):
+    """The over-launch control trips launch_limits with CUDA error 9
+    (cudaErrorInvalidConfiguration); any other error is not its finding."""
+    from draco_tpu_torch import _build
+
+    def refused(out):
+        raise _build.CudaError("control_overlaunch", code)
+
+    monkeypatch.setattr(controls, "control_overlaunch", refused)
+    s = kernel_audit.spec("control_overlaunch")
+    funcs = {"control_overlaunch_kernel": {
+        "threads": 1200, "max_threads": 1024, "static_smem": 0,
+        "dynamic_smem": 0, "opt_in": 0}}
+    res = kernel_audit.rule_launch_limits(
+        s, funcs, {"smem_block": 49152, "smem_block_optin": 232448}, CPU)
+    assert not res["ok"] and res["error_code"] == code
+    assert ("wrong_error" not in res) is tripped
+
+
+def test_every_source_has_a_spec():
+    from draco_tpu_torch import _build
+
+    assert {s.source for s in kernel_audit.SPECS} == set(_build.SIGNATURES)
+    assert {s.control for s in kernel_audit.SPECS} == {
+        "", "coverage", "launch_limits", "resources"}
+
+
+def test_the_largest_coded_config_validate_accepts():
+    """The launch-limit rule checks n = 64, s = 15: config.validate()
+    rejects a coded step of more workers (the kernels' block width)."""
+    base = dict(network="ResNet18", dataset="synthetic-cifar10",
+                approach="cyclic", redundancy="shared")
+    TrainConfig(**base, num_workers=kernel_audit.MAX_N,
+                worker_fail=kernel_audit.MAX_S).validate()
+    with pytest.raises(ValueError, match="n > 4s"):
+        TrainConfig(**base, num_workers=kernel_audit.MAX_N,
+                    worker_fail=kernel_audit.MAX_S + 1).validate()
+    with pytest.raises(ValueError, match="at most 64 workers"):
+        TrainConfig(**base, num_workers=kernel_audit.MAX_N + 1,
+                    worker_fail=1).validate()
+    TrainConfig(**dict(base, approach="baseline"), num_workers=65,
+                worker_fail=1).validate()
+
+
+def test_the_registry_covers_the_ten_legs():
+    import chip_smoke
+
+    assert tuple(p.name for p in registry.collect()) == LEGS
+    assert set(chip_smoke.EXPECT) == set(LEGS)
+    for p in registry.collect():
+        full, ci = p.config(full=True), p.config(full=False)
+        assert full.num_workers == 8
+        assert (full.network, full.approach, full.wire_dtype) == (
+            ci.network, ci.approach, ci.wire_dtype)
+        m = p.manifest(full, True)
+        assert m.host_syncs == 0 and m.in_place and m.collectives == {}
+        assert m.h2d_bytes == sum(registry.uploads(full).values()) > 0
+        assert m.max_peak_bytes > 0
+
+
+@pytest.fixture(scope="module")
+def lint_rows():
+    torch.manual_seed(0)
+    return {p.name: program_lint.lint_leg(p.build(CPU))
+            for p in registry.collect()}
+
+
+@pytest.mark.parametrize("leg", LEGS)
+def test_every_leg_green_on_the_cpu_rules(lint_rows, leg):
+    row = lint_rows[leg]
+    assert row["ok"], row
+    r = row["rules"]
+    assert r["host_traffic"]["syncs"] == 0
+    assert r["in_place"]["state_tensors"] > 0
+    assert r["constant_bloat"]["skipped"] and r["memory_budget"]["skipped"]
+    assert "float64" not in r["dtype"]["dtypes"]
+    if "int8" in leg:
+        assert "int8" in r["dtype"]["dtypes"]
+
+
+CPU_CONTROLS = [c for c in lint_controls.CONTROLS if not c.card_only]
+
+
+@pytest.mark.parametrize("control", CPU_CONTROLS, ids=lambda c: c.name)
+def test_control_trips_exactly_its_rule(control):
+    try:
+        row = program_lint.control_row(control, CPU)
+    finally:
+        lint_controls.release()
+    assert row["ok"], row
+    assert row["failed_rules"] == [control.expected_fail]
+
+
+def test_the_honest_miniature_is_green():
+    row, rec = rules.lint_program(lint_controls.honest_program(CPU))
+    assert row["ok"], row
+    assert rec["state"]["tensors"] == 3  # w, its momentum, the statistics
+
+
+def test_card_controls_are_listed_for_the_card_only():
+    assert {c.name for c in program_lint.controls_for("cpu")} == {
+        c.name for c in CPU_CONTROLS}
+    assert {c.expected_fail for c in lint_controls.CONTROLS
+            if c.card_only} == {"constant_bloat", "memory_budget"}

@@ -50,7 +50,16 @@ def test_every_submodule_imported(probe):
                                               "draco_tpu_torch.")}
     assert set(probe["modules"]) == expected
     for mod in ("draco_tpu_torch.ops.coded", "draco_tpu_torch.ops.decode_kernels",
-                "draco_tpu_torch.training.step", "draco_tpu_torch.cli"):
+                "draco_tpu_torch.training.step", "draco_tpu_torch.cli",
+                "draco_tpu_torch.ops.controls",
+                "draco_tpu_torch.analysis.kernel_audit",
+                "draco_tpu_torch.analysis.registry",
+                "draco_tpu_torch.analysis.rules",
+                "draco_tpu_torch.analysis.controls",
+                "draco_tpu_torch.analysis.program_lint",
+                "draco_tpu_torch.obs.tracer",
+                "draco_tpu_torch.obs.trace_report",
+                "draco_tpu_torch.obs.step_ab"):
         assert mod in expected
 
 

@@ -277,7 +277,8 @@ def leg(request, ds):
         })
         before = _resync(tstate, jstate)
         rec["steps"][-1]["jax_p"] = _flat_params(before, lay)
-        rec["steps"][-1]["jax_stats"] = {k: v.numpy()
+        # a copy: the next step updates the state's statistics in place
+        rec["steps"][-1]["jax_stats"] = {k: v.numpy().copy()
                                          for k, v in tstate.stats.items()}
     return request.param, rec
 
