@@ -15,13 +15,16 @@ prints no result line):
               block 256) and the approx decode (f32, bf16, int8; two absent
               rows, one of them NaN) at n=8, d=11,173,962 and at a small
               ragged d; the flash forward, dq and dk/dv at G=8·2·12 heads,
-              T=512, Dh=64 and at a ragged T=520; the audit's mis-tiled
-              copy at (16, 48) and spill control at n=1003, each bit for
-              bit (the over-launch control never launches). Times each
-              kernel, its
-              plain version, its bound and the one PyTorch call that
-              computes the same function, where there is one (torch.matmul;
-              scaled_dot_product_attention and its autograd backward)
+              T=512, Dh=64 and at a ragged T=520, and at G=8, T=520 at
+              every head width the kernels take; the flash backward bit for
+              bit across launches and places in G, and its TF32
+              tensor-core instructions (cuobjdump -sass); the audit's
+              mis-tiled copy at (16, 48) and spill control at n=1003, each
+              bit for bit (the over-launch control never launches). Times
+              each kernel, its plain version, its bound and the one PyTorch
+              call that computes the same function, where there is one
+              (torch.matmul; scaled_dot_product_attention and its autograd
+              backward, whose kernels the profiler names at the end)
   3. legs     ResNet-18 on synthetic CIFAR-10 at full width, n=8 workers,
               batch 32: the cyclic ``simulate`` leg, the geometric-median
               leg and the cyclic ``shared`` leg (s=1, a rev_grad adversary
@@ -74,6 +77,8 @@ import argparse
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -103,6 +108,9 @@ from draco_tpu_torch.training.trainer import Trainer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# split TF32: three TF32 tensor-core products (495 TFLOP/s dense) for each
+# float32 one, the flash backward's instructions
+TF32X3_FLOPS = 495e12 / 3
 N, S, D = 8, 1, 11_173_962  # ResNet-18's flat gradient at n=8, s=1
 SEED = 428
 CODED = ("complex_matmul", "complex_project", "complex_recombine",
@@ -167,9 +175,11 @@ def graph_ms(fn, reps: int) -> float:
     return time_ms(graph.replay, 3, warmup=1) / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over ``rate``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -530,67 +540,203 @@ def narrow_kernels(code, dev) -> list:
     return out
 
 
+def _flash_pairs(q, k, v, do, dl, causal=True) -> list:
+    """(name, kernel output, plain output) of the three flash kernels on one
+    input, the backward with the lse cotangent ``dl`` and without."""
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    po, plse = fa.flash_fwd_plain(q, k, v, causal)
+    dcap = (do * o).sum(-1)
+    pairs = [("flash_fwd", o, po), ("flash_fwd", lse, plse)]
+    for dlse in (None, dl):
+        args = (q, k, v, do, lse, dcap, dlse, causal)
+        pairs.append(("flash_dq", fa.flash_dq(*args),
+                      fa.flash_dq_plain(*args)))
+        for a, b in zip(fa.flash_dkv(*args), fa.flash_dkv_plain(*args)):
+            pairs.append(("flash_dkv", a, b))
+    torch.cuda.synchronize()
+    return pairs
+
+
+def _backward_outputs(q, k, v, do, lse, dcap) -> list:
+    return [fa.flash_dq(q, k, v, do, lse, dcap),
+            *fa.flash_dkv(q, k, v, do, lse, dcap)]
+
+
+def flash_determinism(q, k, v, do) -> dict:
+    """The backward kernels' outputs bit for bit: two launches on the same
+    inputs, and a G axis that holds each of its first G/2 heads twice (the
+    redundant lanes that vmap folds into G must agree exactly)."""
+    o, lse = fa.flash_fwd(q, k, v)
+    dcap = (do * o).sum(-1)
+    first = _backward_outputs(q, k, v, do, lse, dcap)
+    again = _backward_outputs(q, k, v, do, lse, dcap)
+    h = q.shape[0] // 2
+    twice = [torch.cat([x[:h], x[:h]]) for x in (q, k, v, do, lse, dcap)]
+    dup = _backward_outputs(*twice)
+    torch.cuda.synchronize()
+    out = {"repeat_equal": all(torch.equal(a, b)
+                               for a, b in zip(first, again)),
+           "positions_equal": all(torch.equal(x[:h], x[h:]) for x in dup)}
+    require(out["repeat_equal"], "flash backward: two launches on the same "
+            "inputs differ")
+    require(out["positions_equal"], "flash backward: one head at two places "
+            "of G gives different rows")
+    return out
+
+
+def tensor_core_instructions() -> dict:
+    """The TF32 tensor-core instructions (HMMA.*.TF32) of each backward
+    function of the built flash library, from ``cuobjdump -sass``, every one
+    of which must have some; and the instructions a HMMA in the span from a
+    function's first HMMA to its last (the unrolled tile body, whose other
+    instructions split operands, sum partials and take the softmax)."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass",
+                           str(_build.lib_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    body, example, fn = {}, "", None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?(flash_d(?:q|kv)_kernel)ILi(\d+)E",
+                      line)
+        if "Function :" in line:
+            fn = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if fn:
+                body[fn] = []
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            op = line.split("*/", 1)[1].strip()
+            body[fn].append("HMMA" in op and "TF32" in op)
+            if body[fn][-1] and not example:
+                example = op.split(";")[0].strip() + " ;"
+    counts, per_hmma = {}, {}
+    for f, is_mma in body.items():
+        counts[f] = sum(is_mma)
+        if counts[f]:
+            first = is_mma.index(True)
+            last = len(is_mma) - 1 - is_mma[::-1].index(True)
+            per_hmma[f] = (last - first + 1) / counts[f]
+    require(len(counts) == 8 and all(counts.values()),
+            f"flash backward: functions without TF32 HMMA: {counts}")
+    return {"hmma_tf32": counts, "span_instructions_per_hmma": per_hmma,
+            "example": example}
+
+
+def sdpa_backward_kernels(dev) -> list:
+    """The CUDA kernels PyTorch runs for scaled_dot_product_attention's
+    backward at the LM path's shape (f32, causal), by name and device ms,
+    from one profiled call. Run after the legs were timed: a process that
+    has run the profiler launches more slowly afterwards."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    q, k, v, do = (torch.randn((1, G_LM, 512, 64), generator=g, device=dev)
+                   for _ in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    torch.autograd.grad(out, (q, k, v), do, retain_graph=True)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+        torch.cuda.synchronize()
+    rows = [{"kernel": e.key, "device_ms": getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0)) / 1e3}
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r["device_ms"])
+    require(bool(rows), "the profiler saw no kernel of SDPA's backward")
+    print("library SDPA backward kernels: " + "; ".join(
+        f"{r['kernel'][:80]} {r['device_ms']:.4f} ms" for r in rows),
+        flush=True)
+    return rows
+
+
 def flash_kernels(dev) -> list:
     """The flash forward, dq and dk/dv against their plain versions at the
     LM path's shape (G = lanes·B·H = 192 heads of T=512, Dh=64, f32) and at
-    a ragged T=520, with and without an lse cotangent; timed at T=512."""
+    a ragged T=520, with and without an lse cotangent; at G=8, T=520 at
+    every head width the kernels take (Dh 16, 32, 64, 128, and 17 and 100,
+    which pad the head dim, 17 copying rows 4 bytes at a time), causal and,
+    at Dh 64, not; the backward's outputs bit for bit across two launches
+    and across places in G; its tensor-core instructions in the built
+    library. Timed at T=512; the backward's bound at the split-TF32 rate
+    its instructions run at, beside the bound at the CUDA cores' float32
+    rate."""
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     dh = 64
     rows = {}
+
+    def hold(label, pairs):
+        # float32 sums of up to T products in another order (the plain
+        # versions' full-f32 einsums; the backward's split-TF32 products
+        # keep ~2^-21 of each): 1e-5 of each output's largest entry
+        for name, a, b in pairs:
+            err = (a - b).abs().max().item()
+            tol = 1e-5 * b.abs().max().item()
+            require(err <= tol, f"{name} {label}: max_abs_err {err} > {tol}")
+            row = rows.setdefault(name, {"max_abs_err": 0.0, "tol": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["tol"] = max(row["tol"], tol)
+
     for t in (512, 520):
         q, k, v, do = (torch.randn((G_LM, t, dh), generator=g, device=dev)
                        for _ in range(4))
         dl = torch.randn((G_LM, t), generator=g, device=dev)
-        o, lse = fa.flash_fwd(q, k, v)
-        po, plse = fa.flash_fwd_plain(q, k, v)
-        dcap = (do * o).sum(-1)
-        pairs = [("flash_fwd", o, po), ("flash_fwd", lse, plse)]
-        for dlse in (None, dl):
-            args = (q, k, v, do, lse, dcap, dlse)
-            pairs.append(("flash_dq", fa.flash_dq(*args),
-                          fa.flash_dq_plain(*args)))
-            for a, b in zip(fa.flash_dkv(*args), fa.flash_dkv_plain(*args)):
-                pairs.append(("flash_dkv", a, b))
-        torch.cuda.synchronize()
-        # float32 sums of up to T products in another order (the plain
-        # versions' full-f32 einsums): 1e-5 of each output's largest entry
-        for name, a, b in pairs:
-            err = (a - b).abs().max().item()
-            tol = 1e-5 * b.abs().max().item()
-            require(err <= tol, f"{name} T={t}: max_abs_err {err} > {tol}")
-            row = rows.setdefault(name, {"max_abs_err": 0.0, "tol": 0.0})
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            row["tol"] = max(row["tol"], tol)
-        print(f"kernel flash T={t}: " + ", ".join(
+        hold(f"T={t}", _flash_pairs(q, k, v, do, dl))
+        print(f"kernel flash G={G_LM} T={t}: " + ", ".join(
             f"{n} err {r['max_abs_err']:.3e}" for n, r in rows.items()),
             flush=True)
-        if t == 520:
-            break
-        args = (q, k, v, do, lse, dcap, None)
-        q4, k4, v4 = (x[None] for x in (q, k, v))  # (1, G, T, Dh)
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), 20)
-        ql, kl, vl = (x.clone().requires_grad_() for x in (q4, k4, v4))
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
-            out, (ql, kl, vl), do[None], retain_graph=True), 20)
-        times = {
-            "flash_fwd": (time_ms(lambda: fa.flash_fwd(q, k, v), 20),
-                          time_ms(lambda: fa.flash_fwd_plain(q, k, v), 10),
-                          lib_fwd),
-            "flash_dq": (time_ms(lambda: fa.flash_dq(*args), 20),
-                         time_ms(lambda: fa.flash_dq_plain(*args), 10),
-                         lib_bwd),
-            "flash_dkv": (time_ms(lambda: fa.flash_dkv(*args), 20),
-                          time_ms(lambda: fa.flash_dkv_plain(*args), 10),
-                          lib_bwd),
-        }
-        del ql, kl, vl, out
+    for width, causal in ((16, True), (17, True), (32, True), (64, True),
+                          (64, False), (100, True), (128, True)):
+        q, k, v, do = (torch.randn((8, 520, width), generator=g, device=dev)
+                       for _ in range(4))
+        dl = torch.randn((8, 520), generator=g, device=dev)
+        pairs = _flash_pairs(q, k, v, do, dl, causal)
+        hold(f"G=8 T=520 Dh={width} causal={causal}", pairs)
+        ratio = [(a - b).abs().max().item() / (1e-5 * b.abs().max().item())
+                 for _, a, b in pairs]
+        print(f"kernel flash G=8 T=520 Dh={width} causal={causal}: worst "
+              f"err/tol forward {max(ratio[:2]):.3f}, backward "
+              f"{max(ratio[2:]):.3f}", flush=True)
+    t = 512
+    q, k, v, do = (torch.randn((G_LM, t, dh), generator=g, device=dev)
+                   for _ in range(4))
+    det = flash_determinism(q, k, v, do)
+    sass = tensor_core_instructions()
+    print(f"kernel flash backward: bit for bit across launches "
+          f"{det['repeat_equal']} and places in G {det['positions_equal']}; "
+          f"TF32 HMMA in the built library {sass['hmma_tf32']} (e.g. "
+          f"{sass['example']}); instructions a HMMA from the first to the "
+          f"last " + ", ".join(
+              f"{f} {r:.2f}" for f, r in
+              sass["span_instructions_per_hmma"].items()), flush=True)
+
+    o, lse = fa.flash_fwd(q, k, v)
+    dcap = (do * o).sum(-1)
+    args = (q, k, v, do, lse, dcap, None)
+    q4, k4, v4 = (x[None] for x in (q, k, v))  # (1, G, T, Dh)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 20)
+    ql, kl, vl = (x.clone().requires_grad_() for x in (q4, k4, v4))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (ql, kl, vl), do[None], retain_graph=True), 20)
+    times = {
+        "flash_fwd": (time_ms(lambda: fa.flash_fwd(q, k, v), 20),
+                      time_ms(lambda: fa.flash_fwd_plain(q, k, v), 10),
+                      lib_fwd),
+        "flash_dq": (time_ms(lambda: fa.flash_dq(*args), 20),
+                     time_ms(lambda: fa.flash_dq_plain(*args), 10),
+                     lib_bwd),
+        "flash_dkv": (time_ms(lambda: fa.flash_dkv(*args), 20),
+                      time_ms(lambda: fa.flash_dkv_plain(*args), 10),
+                      lib_bwd),
+    }
+    del ql, kl, vl, out
     # causal (q, k) pairs; products of Dh-long rows per pair: 2 in the
     # forward (q·k, p·v), 3 in dq (q·k, do·v, ds·k), 4 in dk/dv (q·k, do·v,
     # p·do, ds·q); each 2·Dh flops. Bytes: each input read once, each
     # output written once.
-    t = 512
     pairs = G_LM * t * (t + 1) / 2
     mat, stat = 4 * G_LM * t * dh, 4 * G_LM * t
     work = {"flash_fwd": (3 * mat + mat + stat, 2 * 2 * dh * pairs),
@@ -602,10 +748,30 @@ def flash_kernels(dev) -> list:
     out = []
     for name in FLASH:
         ms, plain_ms, lib_ms = times[name]
-        b_ms, b_by = bound(*work[name])
+        # the bound at both rates; bound_ms at the one its instructions
+        # run at: float32 FMA on the CUDA cores (the forward), split TF32
+        # on the tensor cores (the backward)
+        f32 = bound(*work[name])
+        tf32 = bound(*work[name], rate=TF32X3_FLOPS)
+        b_ms, b_by = f32 if name == "flash_fwd" else tf32
+        extra = {"bound_rate": ("float32, 67 TFLOP/s" if name == "flash_fwd"
+                                else "split TF32, 165 TFLOP/s"),
+                 "bound_ms_f32_cores": f32[0],
+                 "bound_ms_split_tf32": tf32[0]}
+        if name != "flash_fwd":
+            extra.update({
+                "tensor_core_instructions": {
+                    f: c for f, c in sass["hmma_tf32"].items()
+                    if f.startswith(name)},
+                "span_instructions_per_hmma": {
+                    f: r for f, r in
+                    sass["span_instructions_per_hmma"].items()
+                    if f.startswith(name)},
+                "sass_example": sass["example"], **det})
         print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
-              flush=True)
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by} at "
+              f"{extra['bound_rate']}; {f32[0]:.4f} at float32, "
+              f"{tf32[0]:.4f} at split TF32)", flush=True)
         out.append({"name": name, "route": "cuda",
                     "source": "draco_tpu_torch/csrc/flash_attention.cu",
                     "replaces": lines[name], "ok": True, **rows[name],
@@ -614,7 +780,7 @@ def flash_kernels(dev) -> list:
                     "library_call": ("scaled_dot_product_attention"
                                      if name == "flash_fwd" else
                                      "its autograd backward (dq, dk, dv "
-                                     "together)")})
+                                     "together)"), **extra})
     return out
 
 
@@ -1198,6 +1364,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["lint_controls"] = lint_controls_card(dev)
     record["lint_controls_s"] = time.perf_counter() - t0
+    # the kernels the flash rows' yardstick ran, named by the profiler
+    sdpa = sdpa_backward_kernels(dev)
+    for row in kernels:
+        if row["name"] in ("flash_dq", "flash_dkv"):
+            row["library_kernels"] = sdpa
+            row["library_call"] += ": " + sdpa[0]["kernel"].split("(")[0]
 
     # launches per kernel: the coded kernels from the ResNet simulate leg
     # (the first slice's main path) and the encode from the shared leg,

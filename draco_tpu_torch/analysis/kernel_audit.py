@@ -149,13 +149,22 @@ SPECS = (
                             "one store and one load a thread (ptxas -v: 4 "
                             "bytes spill stores and loads)",
                main=("flash_fwd_kernel<64>",)),
+    # the backward on the tensor cores: each thread holds its rows' float32
+    # totals, the scores of a pass and split operands in registers (the
+    # dk/dv instances up to the 255 a thread has); its tiles are dynamic
+    # shared memory, above 48 KB at Dh 64 and 128 (the launchers opt in)
     KernelSpec("flash_dq", "flash_attention",
                tuple(f"flash_dq_kernel<{d}>" for d in (16, 32, 64, 128)),
-               "draco_tpu/ops/flash_attention.py:328", 123,
+               "draco_tpu/ops/flash_attention.py:328", 205,
+               local_bytes={"flash_dq_kernel<128>": 8},
+               local_reason="ptxas keeps two 4-byte values of the <128> "
+                            "instance (Dh 65-128, not on the LM path) in an "
+                            "8-byte frame at 168 registers (ptxas -v: 8 "
+                            "bytes spill stores, 16 bytes spill loads)",
                main=("flash_dq_kernel<64>",)),
     KernelSpec("flash_dkv", "flash_attention",
                tuple(f"flash_dkv_kernel<{d}>" for d in (16, 32, 64, 128)),
-               "draco_tpu/ops/flash_attention.py:353", 128,
+               "draco_tpu/ops/flash_attention.py:353", 255,
                main=("flash_dkv_kernel<64>",)),
     KernelSpec("control_mistiled_copy", "controls",
                ("control_mistiled_copy_kernel",),

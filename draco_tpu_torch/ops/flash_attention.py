@@ -10,7 +10,11 @@ raises), and counts its launches in ``<wrapper>.launches``:
   * ``flash_dkv``  dk and dv, recomputing p from lse
 
 ``flash_dq`` and ``flash_dkv`` take the optional lse cotangent ``dlse``
-(``None`` on the LM path, where lse is not an output of the model).
+(``None`` on the LM path, where lse is not an output of the model). The
+forward computes in float32 on the CUDA cores; the two backward kernels run
+their products on the tensor cores in split TF32 (three TF32 products for
+each float32 one), float32 in and out, with no atomics, so a head's result
+does not depend on its place in G.
 
 The public functions follow the reference's (B, T, H, Dh) contract:
 :func:`flash_attention` (causal self-attention, o only) and
