@@ -16,9 +16,10 @@ prints no result line):
               rows, one of them NaN) at n=8, d=11,173,962 and at a small
               ragged d; the flash forward, dq and dk/dv at G=8·2·12 heads,
               T=512, Dh=64 and at a ragged T=520, and at G=8, T=520 at
-              every head width the kernels take; the flash backward bit for
-              bit across launches and places in G, and its TF32
-              tensor-core instructions (cuobjdump -sass); the audit's
+              every head width the kernels take; the three flash kernels
+              bit for bit across launches and places in G, and their TF32
+              tensor-core instructions (cuobjdump -sass); the projection
+              bit for bit across two launches; the audit's
               mis-tiled copy at (16, 48) and spill control at n=1003, each
               bit for bit (the over-launch control never launches). Times
               each kernel, its plain version, its bound and the one PyTorch
@@ -236,6 +237,10 @@ def coded_kernels(code, dev) -> list:
     # projection: an 11M-term reduction; two f32 summation orders agree
     # to 1e-5 of the sum of the terms' magnitudes
     k_re, k_im = coded.complex_project(r_re, r_im, f)
+    again = coded.complex_project(r_re, r_im, f)
+    require(torch.equal(k_re, again[0]) and torch.equal(k_im, again[1]),
+            "complex_project: two launches on the same inputs differ")
+    del again
     p_re, p_im = coded.complex_project_plain(r_re, r_im, f)
     scale = max((r_re.abs() @ f.abs()).max().item(),
                 (r_im.abs() @ f.abs()).max().item())
@@ -247,6 +252,8 @@ def coded_kernels(code, dev) -> list:
           time_ms(lambda: coded.complex_project_plain(r_re, r_im, f), 20),
           time_ms(lambda: torch.matmul(r_stack, f), 20),
           4 * (2 * N * D + D + 2 * N), 2 * 2 * N * D)
+    rows[-1].update(bitwise_repeat=True,
+                    chunks=coded.project_chunks(N, D))
 
     # recombination: 2n-term sums per column, tolerance 1e-5 of the
     # largest column's sum of magnitudes
@@ -563,20 +570,31 @@ def _backward_outputs(q, k, v, do, lse, dcap) -> list:
 
 
 def flash_determinism(q, k, v, do) -> dict:
-    """The backward kernels' outputs bit for bit: two launches on the same
-    inputs, and a G axis that holds each of its first G/2 heads twice (the
-    redundant lanes that vmap folds into G must agree exactly)."""
+    """The forward's (o, lse) and the backward's outputs bit for bit: two
+    launches on the same inputs, and a G axis that holds each of its first
+    G/2 heads twice (the redundant lanes that vmap folds into G must agree
+    exactly)."""
     o, lse = fa.flash_fwd(q, k, v)
     dcap = (do * o).sum(-1)
+    h = q.shape[0] // 2
+    fwd_again = fa.flash_fwd(q, k, v)
+    fwd_dup = fa.flash_fwd(*(torch.cat([x[:h], x[:h]]) for x in (q, k, v)))
     first = _backward_outputs(q, k, v, do, lse, dcap)
     again = _backward_outputs(q, k, v, do, lse, dcap)
-    h = q.shape[0] // 2
     twice = [torch.cat([x[:h], x[:h]]) for x in (q, k, v, do, lse, dcap)]
     dup = _backward_outputs(*twice)
     torch.cuda.synchronize()
-    out = {"repeat_equal": all(torch.equal(a, b)
+    out = {"forward_repeat_equal": all(
+               torch.equal(a, b) for a, b in zip((o, lse), fwd_again)),
+           "forward_positions_equal": all(
+               torch.equal(x[:h], x[h:]) for x in fwd_dup),
+           "repeat_equal": all(torch.equal(a, b)
                                for a, b in zip(first, again)),
            "positions_equal": all(torch.equal(x[:h], x[h:]) for x in dup)}
+    require(out["forward_repeat_equal"], "flash forward: two launches on "
+            "the same inputs differ")
+    require(out["forward_positions_equal"], "flash forward: one head at two "
+            "places of G gives different rows")
     require(out["repeat_equal"], "flash backward: two launches on the same "
             "inputs differ")
     require(out["positions_equal"], "flash backward: one head at two places "
@@ -585,11 +603,12 @@ def flash_determinism(q, k, v, do) -> dict:
 
 
 def tensor_core_instructions() -> dict:
-    """The TF32 tensor-core instructions (HMMA.*.TF32) of each backward
-    function of the built flash library, from ``cuobjdump -sass``, every one
-    of which must have some; and the instructions a HMMA in the span from a
-    function's first HMMA to its last (the unrolled tile body, whose other
-    instructions split operands, sum partials and take the softmax)."""
+    """The TF32 tensor-core instructions (HMMA.*.TF32) of each function of
+    the built flash library (forward, dq, dk/dv at the four head widths),
+    from ``cuobjdump -sass``, every one of which must have some; and the
+    instructions a HMMA in the span from a function's first HMMA to its
+    last (the unrolled tile body, whose other instructions split operands,
+    sum partials and take the softmax)."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([exe, "-sass",
                            str(_build.lib_path("flash_attention"))],
@@ -597,8 +616,8 @@ def tensor_core_instructions() -> dict:
                           check=True).stdout
     body, example, fn = {}, "", None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*?(flash_d(?:q|kv)_kernel)ILi(\d+)E",
-                      line)
+        m = re.search(
+            r"Function : \S*?(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", line)
         if "Function :" in line:
             fn = f"{m.group(1)}<{m.group(2)}>" if m else None
             if fn:
@@ -615,17 +634,36 @@ def tensor_core_instructions() -> dict:
             first = is_mma.index(True)
             last = len(is_mma) - 1 - is_mma[::-1].index(True)
             per_hmma[f] = (last - first + 1) / counts[f]
-    require(len(counts) == 8 and all(counts.values()),
-            f"flash backward: functions without TF32 HMMA: {counts}")
+    require(len(counts) == 12 and all(counts.values()),
+            f"flash: functions without TF32 HMMA: {counts}")
     return {"hmma_tf32": counts, "span_instructions_per_hmma": per_hmma,
             "example": example}
 
 
-def sdpa_backward_kernels(dev) -> list:
+SDPA_MARK = "chip_smoke sdpa: "
+
+
+def sdpa_kernels_child() -> dict:
+    """:func:`sdpa_kernels` in a process of its own, which has run no
+    profiler before: after ``--profile``'s profiled steps, a session in
+    this process saw no kernel of SDPA's forward at all (the backward's,
+    which autograd runs on another thread, it saw)."""
+    proc = subprocess.run([sys.executable, __file__, "--sdpa-kernels"],
+                          capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(SDPA_MARK)]
+    require(proc.returncode == 0 and bool(lines),
+            f"the SDPA profiling process failed ({proc.returncode}): "
+            f"{proc.stderr[-2000:]}")
+    print(proc.stdout.replace(lines[-1], "").strip(), flush=True)
+    return json.loads(lines[-1][len(SDPA_MARK):])
+
+
+def sdpa_kernels(dev, reps: int = 3) -> dict:
     """The CUDA kernels PyTorch runs for scaled_dot_product_attention's
-    backward at the LM path's shape (f32, causal), by name and device ms,
-    from one profiled call. Run after the legs were timed: a process that
-    has run the profiler launches more slowly afterwards."""
+    forward and for its backward at the LM path's shape (f32, causal), by
+    name, launches and mean device ms a launch, each from one profiled
+    session of ``reps`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -634,21 +672,31 @@ def sdpa_backward_kernels(dev) -> list:
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
     torch.autograd.grad(out, (q, k, v), do, retain_graph=True)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    calls = {"forward": lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True),
+             "backward": lambda: torch.autograd.grad(
+                 out, (q, k, v), do, retain_graph=True)}
+    found = {}
+    for which, call in calls.items():
         torch.cuda.synchronize()
-    rows = [{"kernel": e.key, "device_ms": getattr(
-                e, "self_device_time_total",
-                getattr(e, "self_cuda_time_total", 0.0)) / 1e3}
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda r: -r["device_ms"])
-    require(bool(rows), "the profiler saw no kernel of SDPA's backward")
-    print("library SDPA backward kernels: " + "; ".join(
-        f"{r['kernel'][:80]} {r['device_ms']:.4f} ms" for r in rows),
-        flush=True)
-    return rows
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        rows = [{"kernel": e.key, "launches": e.count,
+                 "device_ms": getattr(
+                     e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+                 / max(e.count, 1) / 1e3}
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        rows.sort(key=lambda r: -r["device_ms"] * r["launches"])
+        require(bool(rows), f"the profiler saw no kernel of SDPA's {which}")
+        print(f"library SDPA {which} kernels ({reps} calls): " + "; ".join(
+            f"{r['kernel'][:80]} {r['device_ms']:.4f} ms x{r['launches']}"
+            for r in rows), flush=True)
+        found[which] = rows
+    return found
 
 
 def flash_kernels(dev) -> list:
@@ -659,8 +707,8 @@ def flash_kernels(dev) -> list:
     which pad the head dim, 17 copying rows 4 bytes at a time), causal and,
     at Dh 64, not; the backward's outputs bit for bit across two launches
     and across places in G; its tensor-core instructions in the built
-    library. Timed at T=512; the backward's bound at the split-TF32 rate
-    its instructions run at, beside the bound at the CUDA cores' float32
+    library. Timed at T=512; each kernel's bound at the split-TF32 rate its
+    instructions run at, beside the bound at the CUDA cores' float32
     rate."""
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     dh = 64
@@ -668,7 +716,7 @@ def flash_kernels(dev) -> list:
 
     def hold(label, pairs):
         # float32 sums of up to T products in another order (the plain
-        # versions' full-f32 einsums; the backward's split-TF32 products
+        # versions' full-f32 einsums; the kernels' split-TF32 products
         # keep ~2^-21 of each): 1e-5 of each output's largest entry
         for name, a, b in pairs:
             err = (a - b).abs().max().item()
@@ -703,8 +751,10 @@ def flash_kernels(dev) -> list:
                    for _ in range(4))
     det = flash_determinism(q, k, v, do)
     sass = tensor_core_instructions()
-    print(f"kernel flash backward: bit for bit across launches "
-          f"{det['repeat_equal']} and places in G {det['positions_equal']}; "
+    print(f"kernel flash: forward bit for bit across launches "
+          f"{det['forward_repeat_equal']} and places in G "
+          f"{det['forward_positions_equal']}, backward "
+          f"{det['repeat_equal']} and {det['positions_equal']}; "
           f"TF32 HMMA in the built library {sass['hmma_tf32']} (e.g. "
           f"{sass['example']}); instructions a HMMA from the first to the "
           f"last " + ", ".join(
@@ -748,30 +798,25 @@ def flash_kernels(dev) -> list:
     out = []
     for name in FLASH:
         ms, plain_ms, lib_ms = times[name]
-        # the bound at both rates; bound_ms at the one its instructions
-        # run at: float32 FMA on the CUDA cores (the forward), split TF32
-        # on the tensor cores (the backward)
+        # the bound at both rates; bound_ms at the one the instructions
+        # run at: split TF32 on the tensor cores
         f32 = bound(*work[name])
-        tf32 = bound(*work[name], rate=TF32X3_FLOPS)
-        b_ms, b_by = f32 if name == "flash_fwd" else tf32
-        extra = {"bound_rate": ("float32, 67 TFLOP/s" if name == "flash_fwd"
-                                else "split TF32, 165 TFLOP/s"),
+        b_ms, b_by = bound(*work[name], rate=TF32X3_FLOPS)
+        extra = {"bound_rate": "split TF32, 165 TFLOP/s",
                  "bound_ms_f32_cores": f32[0],
-                 "bound_ms_split_tf32": tf32[0]}
-        if name != "flash_fwd":
-            extra.update({
-                "tensor_core_instructions": {
-                    f: c for f, c in sass["hmma_tf32"].items()
-                    if f.startswith(name)},
-                "span_instructions_per_hmma": {
-                    f: r for f, r in
-                    sass["span_instructions_per_hmma"].items()
-                    if f.startswith(name)},
-                "sass_example": sass["example"], **det})
+                 "bound_ms_split_tf32": b_ms,
+                 "tensor_core_instructions": {
+                     f: c for f, c in sass["hmma_tf32"].items()
+                     if f.startswith(name + "_kernel")},
+                 "span_instructions_per_hmma": {
+                     f: r for f, r in
+                     sass["span_instructions_per_hmma"].items()
+                     if f.startswith(name + "_kernel")},
+                 "sass_example": sass["example"], **det}
         print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by} at "
               f"{extra['bound_rate']}; {f32[0]:.4f} at float32, "
-              f"{tf32[0]:.4f} at split TF32)", flush=True)
+              f"{b_ms:.4f} at split TF32)", flush=True)
         out.append({"name": name, "route": "cuda",
                     "source": "draco_tpu_torch/csrc/flash_attention.cu",
                     "replaces": lines[name], "ok": True, **rows[name],
@@ -1318,6 +1363,8 @@ def main(argv=None) -> int:
                     help="also write the full record as JSON to this file")
     ap.add_argument("--profile", action="store_true",
                     help="profile one extra step of each leg (torch.profiler)")
+    ap.add_argument("--sdpa-kernels", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -1326,6 +1373,9 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")  # also turns TF32 off (runtime.full_f32)
+    if args.sdpa_kernels:
+        print(SDPA_MARK + json.dumps(sdpa_kernels(dev)), flush=True)
+        return 0
     card = card_line()
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda,
@@ -1364,12 +1414,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["lint_controls"] = lint_controls_card(dev)
     record["lint_controls_s"] = time.perf_counter() - t0
-    # the kernels the flash rows' yardstick ran, named by the profiler
-    sdpa = sdpa_backward_kernels(dev)
+    # the kernels the flash rows' yardsticks ran, named by the profiler
+    sdpa = sdpa_kernels_child()
     for row in kernels:
-        if row["name"] in ("flash_dq", "flash_dkv"):
-            row["library_kernels"] = sdpa
-            row["library_call"] += ": " + sdpa[0]["kernel"].split("(")[0]
+        if row["name"] in FLASH:
+            which = "forward" if row["name"] == "flash_fwd" else "backward"
+            row["library_kernels"] = sdpa[which]
+            row["library_call"] += (": " + sdpa[which][0]["kernel"]
+                                    .split("(")[0])
 
     # launches per kernel: the coded kernels from the ResNet simulate leg
     # (the first slice's main path) and the encode from the shared leg,

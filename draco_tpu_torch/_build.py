@@ -40,7 +40,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "coded": {
         "draco_complex_matmul": [_P, _P, _P, _P, _P, _I, _I, _LL, _P],
-        "draco_project_chunks": [_LL],
+        "draco_project_chunks": [_I, _LL],
         "draco_complex_project": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
         "draco_complex_recombine": [_P, _P, _P, _P, _P, _I, _LL, _P],
     },

@@ -110,9 +110,13 @@ SPECS = (
                "draco_tpu/ops/coded.py:82", 56, shape=(8, 8),
                largest={"m": MAX_N, "n": MAX_N},
                largest_shape=(MAX_N, MAX_N)),
+    # the projection's first pass reads float2 pairs (<2>, an even d) or
+    # floats (<1>), kUnroll column groups of 8 rows in flight a thread
     KernelSpec("complex_project", "coded",
-               ("project_partial_kernel", "project_final_kernel"),
-               "draco_tpu/ops/coded.py:152", 48),
+               ("project_partial_kernel<2>", "project_partial_kernel<1>",
+                "project_final_kernel"),
+               "draco_tpu/ops/coded.py:152", 120,
+               main=("project_partial_kernel<2>", "project_final_kernel")),
     KernelSpec("complex_recombine", "coded", ("complex_recombine_kernel",),
                "draco_tpu/ops/coded.py:201", 32, shape=(8, 0),
                largest={"n": MAX_N}, largest_shape=(MAX_N, 0)),
@@ -139,20 +143,15 @@ SPECS = (
                 "approx_decode_final_kernel"),
                "draco_tpu/ops/decode_kernels.py:271", 32, shape=(8, 0),
                largest={"n": MAX_N}, largest_shape=(MAX_N, 0)),
+    # the flash kernels on the tensor cores: each thread holds its rows'
+    # float32 totals, the scores of a pass and split operands in registers
+    # (the dk/dv instances up to the 255 a thread has); their tiles are
+    # dynamic shared memory, above 48 KB at Dh 64 and 128 (the launchers
+    # opt in)
     KernelSpec("flash_fwd", "flash_attention",
                tuple(f"flash_fwd_kernel<{d}>" for d in (16, 32, 64, 128)),
-               "draco_tpu/ops/flash_attention.py:174", 120,
-               local_bytes={"flash_fwd_kernel<32>": 8},
-               local_reason="ptxas keeps one 4-byte value of the <32> "
-                            "instance (Dh 17-32, not on the LM path) in an "
-                            "8-byte frame from the prologue to the epilogue: "
-                            "one store and one load a thread (ptxas -v: 4 "
-                            "bytes spill stores and loads)",
+               "draco_tpu/ops/flash_attention.py:174", 223,
                main=("flash_fwd_kernel<64>",)),
-    # the backward on the tensor cores: each thread holds its rows' float32
-    # totals, the scores of a pass and split operands in registers (the
-    # dk/dv instances up to the 255 a thread has); its tiles are dynamic
-    # shared memory, above 48 KB at Dh 64 and 128 (the launchers opt in)
     KernelSpec("flash_dq", "flash_attention",
                tuple(f"flash_dq_kernel<{d}>" for d in (16, 32, 64, 128)),
                "draco_tpu/ops/flash_attention.py:328", 205,
@@ -265,23 +264,24 @@ def _cases(name: str, dev) -> list:
                           {"out_re": ((m, d), f32), "out_im": ((m, d), f32)},
                           run))
     elif name == "complex_project":
-        n, d = 9, 5003
-        r_re, r_im, f = rnd(n, d), rnd(n, d), rnd(d)
-        outs = {"e_re": ((n,), f32), "e_im": ((n,), f32)}
-        if cuda:
-            chunks = coded.project_chunks(d)
-            outs.update(part_re=((n, chunks), f32),
-                        part_im=((n, chunks), f32))
-
-        def run(o):
+        n = 9  # two row groups; float2 pairs at the even d, floats at the odd
+        for d in (5002, 5003):
+            r_re, r_im, f = rnd(n, d), rnd(n, d), rnd(d)
+            outs = {"e_re": ((n,), f32), "e_im": ((n,), f32)}
             if cuda:
-                coded.complex_project_launch(r_re, r_im, f, o["part_re"],
-                                             o["part_im"], o["e_re"],
-                                             o["e_im"])
-            else:
-                re, im = coded.complex_project_plain(r_re, r_im, f)
-                _put(o, e_re=re, e_im=im)
-        cases.append(Case(f"n={n} d={d}", outs, run))
+                chunks = coded.project_chunks(n, d)
+                outs.update(part_re=((n, chunks), f32),
+                            part_im=((n, chunks), f32))
+
+            def run(o, r_re=r_re, r_im=r_im, f=f):
+                if cuda:
+                    coded.complex_project_launch(r_re, r_im, f, o["part_re"],
+                                                 o["part_im"], o["e_re"],
+                                                 o["e_im"])
+                else:
+                    re, im = coded.complex_project_plain(r_re, r_im, f)
+                    _put(o, e_re=re, e_im=im)
+            cases.append(Case(f"n={n} d={d}", outs, run))
     elif name == "complex_recombine":
         n, d = 9, 1003
         v_re, v_im, r_re, r_im = rnd(n), rnd(n), rnd(n, d), rnd(n, d)

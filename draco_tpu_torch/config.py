@@ -14,6 +14,7 @@ from typing import Optional
 
 from draco_tpu_torch.coding.assignment import build_assignment
 from draco_tpu_torch.obs.numerics import WIRE_DTYPES, wire_rel_tol
+from draco_tpu_torch.ops.flash_attention import MAX_DH
 
 # Deterministic seed shared by every participant (reference: SEED_=428).
 SEED = 428
@@ -284,6 +285,13 @@ class TrainConfig:
         if self.attn_impl not in ("dense", "flash"):
             raise ValueError(
                 f"attn_impl must be dense|flash, got {self.attn_impl}")
+        head_dim = self.model_dim // self.model_heads
+        if self.attn_impl == "flash" and head_dim > MAX_DH:
+            raise ValueError(
+                f"attn_impl='flash': the port's flash kernels take head dims "
+                f"up to {MAX_DH}, this model's is {head_dim} (model_dim "
+                f"{self.model_dim} / model_heads {self.model_heads}); "
+                f"attn_impl='dense' trains it")
         if self.seq_len < 2 or self.vocab < 1 or self.model_layers < 1:
             raise ValueError("seq_len >= 2, vocab >= 1 and model_layers >= 1")
         not_ported = {

@@ -21,9 +21,20 @@
 // rows in registers, so at n <= 8 every input element is read from device
 // memory exactly once. The TPU kernels' TILE_D tiling, 128-lane partials
 // and padding have no counterpart: a thread masks the ragged edge itself.
-// complex_project reduces over d in two deterministic passes (per-block
+//
+// complex_project reduces over d in two deterministic passes — per-block
 // partials into an (n, chunks) scratch, then one block per row sums them in
-// a fixed order) — no float atomics, so the result is the same run to run.
+// a fixed order — with no float atomics, so the result is the same run to
+// run. Its first pass is sized to one whole wave: chunks = the SMs × the
+// blocks a SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor, queried
+// once), so every block streams the same share of d and none waits for a
+// second, half-empty wave. At an even d (and 8-byte aligned rows) a thread
+// reads float2 pairs, kUnroll pairs of each row an iteration: at n = 8 that
+// is 2·17 eight-byte loads in flight a thread. d = 11,173,962 ≡ 2 (mod 4),
+// so every odd row starts only 8-byte aligned: float4 would need a peeled
+// head per row and f read at another alignment than the row. An odd d takes
+// the same kernel one float at a time. The loads stream (evict first), and
+// pass 2 is a programmatic dependent launch that overlaps pass 1's tail.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +45,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowGroup = 8;  // project: rows per block, accumulators per thread
+constexpr int kUnroll = 2;  // project: column groups a thread loads at once
 constexpr int kMaxBlocks = 132 * 8 * 4;  // grid-stride cap: 4 waves of 8 blocks/SM
 
 // dynamic shared bytes of the encode (the m×n pair of W) and of the
@@ -100,33 +112,85 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Pass 1 of (Rr + i·Ri) @ f: block (c, row group y) sums columns
-// j ≡ c·T + t (mod chunks·T) for up to kRowGroup rows, reading f once per
-// column for the whole group; writes part[row, c].
-__global__ void project_partial_kernel(const float* __restrict__ r_re,
-                                       const float* __restrict__ r_im,
-                                       const float* __restrict__ f,
-                                       float* __restrict__ part_re,
-                                       float* __restrict__ part_im,
-                                       int n, long long d, int chunks) {
+// W consecutive floats, each read once: a streaming load (__ldcs, evict
+// first), so the 715 MB stream does not keep lines in L2 that nothing reads
+// again
+template <int W>
+struct Cols;
+template <>
+struct Cols<1> {
+  float x;
+  __device__ __forceinline__ static Cols load(const float* p) {
+    return {__ldcs(p)};
+  }
+  __device__ __forceinline__ float dot(const Cols& f, float acc) const {
+    return fmaf(x, f.x, acc);
+  }
+};
+template <>
+struct Cols<2> {
+  float2 x;
+  __device__ __forceinline__ static Cols load(const float* p) {
+    return {__ldcs(reinterpret_cast<const float2*>(p))};
+  }
+  __device__ __forceinline__ float dot(const Cols& f, float acc) const {
+    return fmaf(x.y, f.x.y, fmaf(x.x, f.x.x, acc));
+  }
+};
+
+// Pass 1 of (Rr + i·Ri) @ f: block (c, row group y) sums, for up to
+// kRowGroup rows, the W-column groups j ≡ c·kThreads + t (mod
+// chunks·kThreads), kUnroll groups an iteration, reading f once per group
+// for the whole row group; writes part[row, c]. W divides d.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+project_partial_kernel(const float* __restrict__ r_re,
+                       const float* __restrict__ r_im,
+                       const float* __restrict__ f,
+                       float* __restrict__ part_re,
+                       float* __restrict__ part_im, int n, long long d,
+                       int chunks) {
+  using V = Cols<W>;
   const int i0 = blockIdx.y * kRowGroup;
   const int rows = min(kRowGroup, n - i0);
+  const long long groups = d / W;
+  const long long stride = (long long)chunks * kThreads;
+  const float* rr = r_re + (long long)i0 * d;
+  const float* ri = r_im + (long long)i0 * d;
   float ar[kRowGroup], ai[kRowGroup];
 #pragma unroll
   for (int k = 0; k < kRowGroup; ++k) { ar[k] = 0.f; ai[k] = 0.f; }
-  const long long stride = (long long)chunks * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += stride) {
-    const float fj = __ldg(f + j);
+  for (long long j0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+       j0 < groups; j0 += kUnroll * stride) {
+    // every load of the iteration first, then the sums
+    V fv[kUnroll], xr[kUnroll][kRowGroup], xi[kUnroll][kRowGroup];
 #pragma unroll
-    for (int k = 0; k < kRowGroup; ++k) {
-      if (k < rows) {
-        const long long o = (long long)(i0 + k) * d + j;
-        ar[k] = fmaf(__ldg(r_re + o), fj, ar[k]);
-        ai[k] = fmaf(__ldg(r_im + o), fj, ai[k]);
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = j0 + u * stride;
+      const bool ok = j < groups;
+      const long long c = W * j;
+      fv[u] = ok ? V::load(f + c) : V{};  // a group past d adds 0
+#pragma unroll
+      for (int k = 0; k < kRowGroup; ++k) {
+        if (k < rows) {
+          xr[u][k] = ok ? V::load(rr + k * d + c) : V{};
+          xi[u][k] = ok ? V::load(ri + k * d + c) : V{};
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int k = 0; k < kRowGroup; ++k) {
+        if (k < rows) {
+          ar[k] = xr[u][k].dot(fv[u], ar[k]);
+          ai[k] = xi[u][k].dot(fv[u], ai[k]);
+        }
       }
     }
   }
+  // pass 2 may start launching now; it waits for this grid's partials
+  cudaTriggerProgrammaticLaunchCompletion();
   __shared__ float red[2 * kRowGroup][kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -140,17 +204,21 @@ __global__ void project_partial_kernel(const float* __restrict__ r_re,
     const int k = threadIdx.x % rows;
     const bool im = threadIdx.x >= rows;
     float acc = 0.f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w)
+    for (int w = 0; w < kThreads / 32; ++w)
       acc += red[(im ? kRowGroup : 0) + k][w];
     (im ? part_im : part_re)[(long long)(i0 + k) * chunks + blockIdx.x] = acc;
   }
 }
 
-// Pass 2: one block per row sums its chunks partials in a fixed order.
+// Pass 2: one block per row sums its chunks partials in a fixed order. It
+// is launched as a programmatic dependent of pass 1, so its launch overlaps
+// pass 1's tail; it reads nothing before pass 1 has finished and its
+// writes are visible (cudaGridDependencySynchronize).
 __global__ void project_final_kernel(const float* __restrict__ part_re,
                                      const float* __restrict__ part_im,
                                      float* __restrict__ e_re,
                                      float* __restrict__ e_im, int chunks) {
+  cudaGridDependencySynchronize();
   const int i = blockIdx.x;
   float sr = 0.f, si = 0.f;
   for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
@@ -196,11 +264,20 @@ __global__ void complex_recombine_kernel(const float* __restrict__ v_re,
   }
 }
 
+// float2 pairs when every row and f start 8-byte aligned
+bool pairs_aligned(long long d, const float* a, const float* b,
+                   const float* c) {
+  const uintptr_t any = (uintptr_t)a | (uintptr_t)b | (uintptr_t)c;
+  return d % 2 == 0 && any % 8 == 0;
+}
+
 const draco_audit::Entry kAudit[] = {
     {"complex_matmul_kernel", (const void*)complex_matmul_kernel, kThreads,
      matmul_smem, 0},
-    {"project_partial_kernel", (const void*)project_partial_kernel, kThreads,
-     nullptr, 0},
+    {"project_partial_kernel<2>", (const void*)project_partial_kernel<2>,
+     kThreads, nullptr, 0},
+    {"project_partial_kernel<1>", (const void*)project_partial_kernel<1>,
+     kThreads, nullptr, 0},
     {"project_final_kernel", (const void*)project_final_kernel, kThreads,
      nullptr, 0},
     {"complex_recombine_kernel", (const void*)complex_recombine_kernel,
@@ -224,11 +301,32 @@ int draco_complex_matmul(const float* w_re, const float* w_im, const float* g,
   return (int)cudaGetLastError();
 }
 
-// Number of pass-1 chunks for a reduction of length d (the wrapper sizes
-// the (n, chunks) scratch with it).
-int draco_project_chunks(long long d) {
-  long long c = (d + 4095) / 4096;
-  if (c > 1024) c = 1024;
+// Blocks of pass 1 of a projection of n rows of length d: one whole wave of
+// project_partial_kernel (the fewer resident blocks of its two instances,
+// so either launch fits at once), split over the row groups, and no more
+// than d needs. The wrapper sizes the (n, chunks) scratch with it.
+int draco_project_chunks(int n, long long d) {
+  static int resident[64];  // per device, queried once
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) {
+    cudaGetLastError();
+    dev = 0;
+  }
+  if (resident[dev] == 0) {
+    int sms = 0, b2 = 0, b1 = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b2, project_partial_kernel<2>, kThreads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b1, project_partial_kernel<1>, kThreads, 0);
+    cudaGetLastError();
+    resident[dev] = sms * (b2 < b1 ? b2 : b1);
+    if (resident[dev] < 1) resident[dev] = 1;
+  }
+  const long long row_groups = (n + kRowGroup - 1) / kRowGroup;
+  long long c = resident[dev] / (row_groups < 1 ? 1 : row_groups);
+  const long long need = (d + kThreads - 1) / kThreads;  // one column a thread
+  if (c > need) c = need;
   return c < 1 ? 1 : (int)c;
 }
 
@@ -238,12 +336,27 @@ int draco_complex_project(const float* r_re, const float* r_im, const float* f,
                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid(chunks, (n + kRowGroup - 1) / kRowGroup);
-  project_partial_kernel<<<grid, kThreads, 0, st>>>(r_re, r_im, f, part_re,
-                                                    part_im, n, d, chunks);
+  if (pairs_aligned(d, r_re, r_im, f))
+    project_partial_kernel<2><<<grid, kThreads, 0, st>>>(
+        r_re, r_im, f, part_re, part_im, n, d, chunks);
+  else
+    project_partial_kernel<1><<<grid, kThreads, 0, st>>>(
+        r_re, r_im, f, part_re, part_im, n, d, chunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  project_final_kernel<<<n, kThreads, 0, st>>>(part_re, part_im, e_re, e_im,
-                                               chunks);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, project_final_kernel,
+                           (const float*)part_re, (const float*)part_im, e_re,
+                           e_im, chunks);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -28,42 +28,36 @@
 // (T, T) matrix in device memory: one thread block per (head, 64-row block)
 // streams the other side's tiles through shared memory.
 //
-// The forward computes in float32 FMA on the CUDA cores (67 TFLOP/s), in
-// 64-row tiles (32 at Dh 128): a head row is owned by TPR = DHP/16 adjacent
-// threads, each holding 16 of its (zero-padded to DHP) head-dim entries in
-// registers, as four float4 chunks interleaved by thread (chunk c of thread
-// h is float4 index c·TPR + h), so the TPR threads reading one shared-memory
-// row hit distinct banks. Dot products reduce over the TPR threads with xor
-// shuffles; it folds 16 keys at a time into m, l, acc.
-//
-// The backward runs every product on the tensor cores in split TF32, so its
+// All three run every product on the tensor cores in split TF32, so their
 // bound is the operations at 495/3 = 165 TFLOP/s. mma.sync m16n8k8 takes TF32
 // operands (10 mantissa bits, ~5e-4 relative), too coarse for the float32
-// results the callers hold it to; each operand x is split once, as its
+// results the callers hold them to; each operand x is split once, as its
 // fragment is loaded, into big = rna_tf32(x) and small = x − big, and
 // a·b ≈ a_small·b_big + a_big·b_small + a_big·b_big (big·big last) keeps
 // ~2^-21 relative, three mma a product. Each product is summed from zero
-// over at most 32 positions and then added to a float32 total: the tensor
-// core's own accumulation truncates (see add4). Not wgmma: its TF32 form
-// takes only K-major operands (the contraction axis contiguous in shared
-// memory), and three of the seven products (dS·K, Pᵀ·dO, dSᵀ·Q) contract
-// over the sequence axis of row-major tiles, which would take a transposed
-// copy of each tile first.
+// over at most 32 positions (or 16 head-dim entries) and then added to a
+// float32 total: the tensor core's own accumulation truncates (see add4).
+// Not wgmma: its TF32 form takes only K-major operands (the contraction
+// axis contiguous in shared memory), and four of the nine products (P·V,
+// dS·K, Pᵀ·dO, dSᵀ·Q) contract over the sequence axis of row-major tiles,
+// which would take a transposed copy of each tile first.
 //
 // Each block has 4 warps of 16 rows and streams the other side in 32-row
-// tiles: dq sweeps the key tiles of its 64 query rows (S = Q·Kᵀ, dP = dO·Vᵀ,
-// then dQ += dS·K), dk/dv the query tiles of its 64 key rows (Sᵀ = K·Qᵀ,
-// dPᵀ = V·dOᵀ, dV += Pᵀ·dO, dK += dSᵀ·Q). P and dS never leave registers:
-// the m16n8 accumulator becomes the next product's A operand by permuting
-// the contraction index within each 8-wide step (A column t ↔ position 2t,
-// column t+4 ↔ 2t+1), and the B operand is read from shared memory in the
-// same order. Tiles arrive by cp.async, double-buffered, in rows padded by 4
-// floats, so every fragment load is free of bank conflicts. A warp skips a
-// tile it needs nothing of and masks the rest, so the tile's code has no
-// branches. There are no atomics and no cross-block sums: a head's result
-// does not depend on its place in G or on launch order, so redundant lanes
-// folded into G agree bit for bit. Blocks with the most causal work run
-// first.
+// tiles: the forward and dq sweep the key tiles of their 64 query rows (the
+// forward S = Q·Kᵀ, then acc = acc·exp2(m_old − m_new) + P·V with the
+// online softmax in base 2; dq S = Q·Kᵀ, dP = dO·Vᵀ, then dQ += dS·K), dk/dv
+// the query tiles of its 64 key rows (Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO,
+// dK += dSᵀ·Q). P and dS never leave registers: the m16n8 accumulator
+// becomes the next product's A operand by permuting the contraction index
+// within each 8-wide step (A column t ↔ position 2t, column t+4 ↔ 2t+1), and
+// the B operand is read from shared memory in the same order. Tiles arrive
+// by cp.async, double-buffered, in rows padded by 4 floats, so every
+// fragment load is free of bank conflicts. A warp skips a tile it needs
+// nothing of and masks the rest, so the tile's code has no branches. There
+// are no atomics and no cross-block sums (the forward adds a row's four
+// lane shares of l once, in a fixed order): a head's result does not depend
+// on its place in G or on launch order, so redundant lanes folded into G
+// agree bit for bit. Blocks with the most causal work run first.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,194 +68,45 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kDpt = 16;  // head-dim entries per thread
-constexpr int kChunks = kDpt / 4;
-constexpr int kKeyChunk = 16;  // keys folded into the softmax at a time
-
-template <int DHP>
-struct Cfg {
-  static constexpr int TPR = DHP / kDpt;  // threads per head row
-  static constexpr int ROWS = DHP <= 64 ? 64 : 32;  // rows per block/tile
-  static constexpr int THREADS = ROWS * TPR;
-};
-
-template <int TPR>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// this thread's 16 entries of one row of a (T, dh) matrix, zero past dh
-template <int DHP>
-__device__ __forceinline__ void load_own(const float* row, int dh, bool valid,
-                                         int h, float* r) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (c * Cfg<DHP>::TPR + h) + e;
-      r[4 * c + e] = (valid && d < dh) ? row[d] : 0.f;
-    }
-  }
-}
-
-template <int DHP>
-__device__ __forceinline__ void store_own(float* row, int dh, int h,
-                                          const float* r, float mul) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (c * Cfg<DHP>::TPR + h) + e;
-      if (d < dh) row[d] = r[4 * c + e] * mul;
-    }
-  }
-}
-
-// rows [row0, row0 + ROWS) of a (T, dh) matrix into a zero-padded tile
-template <int DHP>
-__device__ __forceinline__ void load_tile(float (*tile)[DHP], const float* m,
-                                          int row0, int T, int dh) {
-  using C = Cfg<DHP>;
-  for (int e = threadIdx.x; e < C::ROWS * DHP; e += C::THREADS) {
-    const int r = e / DHP, d = e % DHP, gr = row0 + r;
-    tile[r][d] = (gr < T && d < dh) ? m[(long long)gr * dh + d] : 0.f;
-  }
-}
-
-template <int DHP>
-__device__ __forceinline__ float dot_own(const float* r, const float* trow,
-                                         int h) {
-  const float4* t4 = reinterpret_cast<const float4*>(trow);
-  float a = 0.f;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const float4 t = t4[c * Cfg<DHP>::TPR + h];
-    a += r[4 * c] * t.x + r[4 * c + 1] * t.y + r[4 * c + 2] * t.z +
-         r[4 * c + 3] * t.w;
-  }
-  return a;
-}
-
-template <int DHP>
-__device__ __forceinline__ void axpy_own(float* acc, float p,
-                                         const float* trow, int h) {
-  const float4* t4 = reinterpret_cast<const float4*>(trow);
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const float4 t = t4[c * Cfg<DHP>::TPR + h];
-    acc[4 * c] += p * t.x;
-    acc[4 * c + 1] += p * t.y;
-    acc[4 * c + 2] += p * t.z;
-    acc[4 * c + 3] += p * t.w;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward: one block per (g, query block); grid = nblk · G, heaviest first
-// ---------------------------------------------------------------------------
-
-template <int DHP>
-__global__ void __launch_bounds__(Cfg<DHP>::THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int G, int T, int dh, float scale,
-                 int causal) {
-  using C = Cfg<DHP>;
-  __shared__ __align__(16) float ks[C::ROWS][DHP];
-  __shared__ __align__(16) float vs[C::ROWS][DHP];
-  const int nblk = (T + C::ROWS - 1) / C::ROWS;
-  const int qb = nblk - 1 - (int)(blockIdx.x / G);
-  const long long g = blockIdx.x % G;
-  const int row = threadIdx.x / C::TPR, h = threadIdx.x % C::TPR;
-  const int qi = qb * C::ROWS + row;
-  const bool qvalid = qi < T;
-  const long long base = g * T * dh;
-  const int q_last = min(qb * C::ROWS + C::ROWS - 1, T - 1);
-
-  float qr[kDpt], acc[kDpt];
-  load_own<DHP>(q + base + (long long)qi * dh, dh, qvalid, h, qr);
-#pragma unroll
-  for (int d = 0; d < kDpt; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  const int ntiles = causal ? q_last / C::ROWS + 1 : nblk;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    __syncthreads();
-    load_tile<DHP>(ks, k + base, kt * C::ROWS, T, dh);
-    load_tile<DHP>(vs, v + base, kt * C::ROWS, T, dh);
-    __syncthreads();
-    for (int c0 = 0; c0 < C::ROWS; c0 += kKeyChunk) {
-      const int k0 = kt * C::ROWS + c0;
-      if (k0 >= T || (causal && k0 > q_last)) break;  // uniform in the block
-      float s[kKeyChunk];
-      float mx = kNegInf;
-#pragma unroll
-      for (int cc = 0; cc < kKeyChunk; ++cc) {
-        const float a = group_sum<C::TPR>(dot_own<DHP>(qr, ks[c0 + cc], h));
-        const int kp = k0 + cc;
-        const bool ok = kp < T && (!causal || qi >= kp);
-        s[cc] = ok ? a * scale : kNegInf;
-        mx = fmaxf(mx, s[cc]);
-      }
-      const float m_new = fmaxf(m, mx);
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < kDpt; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int cc = 0; cc < kKeyChunk; ++cc) {
-        const float p = expf(s[cc] - m_new);
-        l += p;
-        axpy_own<DHP>(acc, p, vs[c0 + cc], h);
-      }
-      m = m_new;
-    }
-  }
-  if (qvalid) {
-    const float lc = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int d = 0; d < kDpt; ++d) acc[d] = acc[d] / lc;
-    store_own<DHP>(o + base + (long long)qi * dh, dh, h, acc, 1.f);
-    if (h == 0) lse[g * T + qi] = m + logf(lc);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: split TF32 on the tensor cores (mma.sync m16n8k8)
-// ---------------------------------------------------------------------------
-
-constexpr int kBwdRows = 64;  // rows a block owns: 4 warps of 16
-constexpr int kBwdThreads = 128;
-constexpr int kBwdCols = 32;  // rows of a streamed tile
-constexpr int kStat = 3 * kBwdCols;  // lse, D, dlse of a streamed query tile
+constexpr int kRows = 64;  // rows a block owns: 4 warps of 16
+constexpr int kThreads = 128;
+constexpr int kCols = 32;  // rows of a streamed tile
+constexpr int kStat = 3 * kCols;  // lse, D, dlse of a streamed query tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DHP>
-struct Bwd {
+struct Tile {
   static constexpr int SD = DHP + 4;  // padded row stride of a shared tile
   static constexpr int KS = DHP / 8;  // 8-wide steps over the head dim
-  static constexpr int OWN = kBwdRows * SD;  // floats of the block's rows
-  static constexpr int STREAM = kBwdCols * SD;  // floats of a streamed tile
+  static constexpr int OWN = kRows * SD;  // floats of the block's rows
+  static constexpr int STREAM = kCols * SD;  // floats of a streamed tile
   // streamed rows a pass: at Dh 128, 16, to keep the totals in registers
-  static constexpr int NC = DHP <= 64 ? kBwdCols : 16;
+  static constexpr int NC = DHP <= 64 ? kCols : 16;
 };
 
-// dynamic shared memory of one block: dq holds Q, dO and two stages of
-// (K, V); dk/dv holds K, V, two stages of (Q, dO) and of the query rows'
-// (lse, D, dlse)
+// dynamic shared memory of one block: the forward holds Q and two stages of
+// (K, V); dq holds Q, dO and two stages of (K, V); dk/dv holds K, V, two
+// stages of (Q, dO) and of the query rows' (lse, D, dlse)
+template <int DHP>
+size_t fwd_smem(long long, long long) {
+  return sizeof(float) * (Tile<DHP>::OWN + 4 * Tile<DHP>::STREAM);
+}
+
 template <int DHP>
 size_t dq_smem(long long, long long) {
-  return sizeof(float) * (2 * Bwd<DHP>::OWN + 4 * Bwd<DHP>::STREAM);
+  return sizeof(float) * (2 * Tile<DHP>::OWN + 4 * Tile<DHP>::STREAM);
 }
 
 template <int DHP>
 size_t dkv_smem(long long, long long) {
   return sizeof(float) *
-         (2 * Bwd<DHP>::OWN + 4 * Bwd<DHP>::STREAM + 2 * kStat);
+         (2 * Tile<DHP>::OWN + 4 * Tile<DHP>::STREAM + 2 * kStat);
 }
+
+// ---------------------------------------------------------------------------
+// split TF32 on the tensor cores (mma.sync m16n8k8), for all three kernels
+// ---------------------------------------------------------------------------
 
 // a float split into two TF32 halves, x ≈ big + small
 struct Split2 {
@@ -394,16 +239,16 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 template <int DHP, int ROWS>
 __device__ __forceinline__ void tile_async(float* tile, const float* m,
                                            int row0, int T, int dh, int vec) {
-  constexpr int SD = Bwd<DHP>::SD;
+  constexpr int SD = Tile<DHP>::SD;
   if (vec) {
     constexpr int C4 = DHP / 4;
-    for (int e = threadIdx.x; e < ROWS * C4; e += kBwdThreads) {
+    for (int e = threadIdx.x; e < ROWS * C4; e += kThreads) {
       const int r = e / C4, d = 4 * (e % C4), row = row0 + r;
       const bool ok = row < T && d < dh;
       cp_async16(tile + r * SD + d, ok ? m + (long long)row * dh + d : m, ok);
     }
   } else {
-    for (int e = threadIdx.x; e < ROWS * DHP; e += kBwdThreads) {
+    for (int e = threadIdx.x; e < ROWS * DHP; e += kThreads) {
       const int r = e / DHP, d = e % DHP, row = row0 + r;
       const bool ok = row < T && d < dh;
       cp_async4(tile + r * SD + d, ok ? m + (long long)row * dh + d : m, ok);
@@ -419,10 +264,10 @@ __device__ __forceinline__ void dkv_stage(float* qs, float* st,
                                           const float* lse, const float* dcap,
                                           const float* dlse, long long off,
                                           int q0, int T, int dh, int vec) {
-  tile_async<DHP, kBwdCols>(qs, q, q0, T, dh, vec);
-  tile_async<DHP, kBwdCols>(qs + Bwd<DHP>::STREAM, dout, q0, T, dh, vec);
-  for (int e = threadIdx.x; e < kStat; e += kBwdThreads) {
-    const int which = e / kBwdCols, qi = q0 + e % kBwdCols;
+  tile_async<DHP, kCols>(qs, q, q0, T, dh, vec);
+  tile_async<DHP, kCols>(qs + Tile<DHP>::STREAM, dout, q0, T, dh, vec);
+  for (int e = threadIdx.x; e < kStat; e += kThreads) {
+    const int which = e / kCols, qi = q0 + e % kCols;
     const float* src = which == 0 ? lse : which == 1 ? dcap : dlse;
     const bool ok = qi < T && src != nullptr;
     cp_async4(st + e, ok ? src + off + qi : lse, ok);
@@ -459,40 +304,202 @@ __device__ __forceinline__ void scores(float (&s)[NT][4], float (&dp)[NT][4],
   }
 }
 
+// S = A·Bᵀ for the warp's 16 rows r0.. of the A tile and NT·8 rows c0.. of
+// the B tile, contracting the head dim; KP 8-wide steps are summed from zero
+// before each float32 add
+template <int SD, int KS, int NT, int KP>
+__device__ __forceinline__ void scores1(float (&s)[NT][4], const float* a,
+                                        const float* b, int r0, int c0,
+                                        int gr, int tq) {
+#pragma unroll
+  for (int kk = 0; kk < KS; kk += KP) {
+    Split4 x[KP];
+#pragma unroll
+    for (int j = 0; j < KP; ++j) x[j] = frag_a<SD>(a, r0, 8 * (kk + j), gr, tq);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float t[4] = {};
+#pragma unroll
+      for (int j = 0; j < KP; ++j)
+        mma3(t, x[j], frag_bt<SD>(b, c0 + 8 * nt, 8 * (kk + j), gr, tq));
+      add4(s[nt], t);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (g, 64 query rows), walking 32-key tiles
+// ---------------------------------------------------------------------------
+
+// The online softmax in base 2: a thread holds the scores of its rows
+// w_first + gr and + gr + 8 in the columns 2tq, 2tq+1 of each 8-key step,
+// so a row's maximum is taken over the four lanes tq of its group; m is that
+// running maximum of s·scale·log2(e), l this thread's own share of the row's
+// sum (the four shares are added once, at the end), acc the row's float32
+// total of P·V, rescaled by exp2(m_old − m_new) before each pass's partial.
+// The explicit minimum of one block a SM lets ptxas take more than 128
+// registers: without it ptxas stopped every instance at 128, and the <128>
+// one spilled (ptxas -v: 36 bytes of spill stores).
+template <int DHP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int G, int T, int dh, float scale,
+                 int causal, int vec) {
+  using C = Tile<DHP>;
+  constexpr int SD = C::SD, NC = C::NC, NT = NC / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;  // this block's query rows
+  float* kvs = qs + C::OWN;  // two stages of (K, V)
+  const int nblk = (T + kRows - 1) / kRows;
+  const int qb = nblk - 1 - (int)(blockIdx.x / G);  // heaviest first
+  const long long g = blockIdx.x % G;
+  const long long base = g * T * dh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tq = lane % 4;
+  const int r0 = 16 * warp;  // this warp's rows in the block's tile
+  const int w_first = qb * kRows + r0;  // its first query
+  const int w_last = min(w_first + 15, T - 1);  // its last valid query
+  const int q_last = min(qb * kRows + kRows - 1, T - 1);
+  const int ntiles = causal ? q_last / kCols + 1 : (T + kCols - 1) / kCols;
+
+  tile_async<DHP, kRows>(qs, q + base, qb * kRows, T, dh, vec);
+  tile_async<DHP, kCols>(kvs, k + base, 0, T, dh, vec);
+  tile_async<DHP, kCols>(kvs + C::STREAM, v + base, 0, T, dh, vec);
+  cp_async_commit();
+
+  const float scale_log2 = scale * kLog2e;
+  float acc[C::KS][4] = {};  // o of the warp's 16 rows, unnormalised
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int k0 = kt * kCols;
+    const float* ks = kvs + (kt & 1) * 2 * C::STREAM;
+    const float* vs = ks + C::STREAM;
+    if (kt + 1 < ntiles) {
+      float* nxt = kvs + ((kt + 1) & 1) * 2 * C::STREAM;
+      tile_async<DHP, kCols>(nxt, k + base, k0 + kCols, T, dh, vec);
+      tile_async<DHP, kCols>(nxt + C::STREAM, v + base, k0 + kCols, T, dh,
+                             vec);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    // a warp takes a pass if it needs any key in it (causal, and < T); the
+    // keys it does not need are masked, so the pass's code is free of
+    // branches. Every row's first pass holds key 0, so m is finite after it
+    const int kmax = (causal ? w_last : T - 1) - k0;
+#pragma unroll
+    for (int c0 = 0; c0 < kCols; c0 += NC) {
+      if (w_first >= T || c0 > kmax) continue;
+      float s[NT][4] = {};
+      scores1<SD, C::KS, NT, 2>(s, qs, ks, r0, c0, gr, tq);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int qi = w_first + gr + 8 * i;
+          const int kj = k0 + c0 + 8 * nt + 2 * tq + (e & 1);
+          const bool ok = kj < T && (!causal || qi >= kj);
+          s[nt][e] = ok ? s[nt][e] * scale_log2 : kNegInf;
+          mx[i] = fmaxf(mx[i], s[nt][e]);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+      // P = exp2(S·scale·log2(e) − m) in place of S (0 where masked)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = exp2f(s[nt][e] - m[e >> 1]);
+          l[e >> 1] += s[nt][e];
+        }
+      }
+      // acc = acc·corr + P·V, the pass's keys summed from zero
+      Split4 a[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) a[nt] = frag_acc(s[nt]);
+#pragma unroll
+      for (int nd = 0; nd < C::KS; ++nd) {
+        float t[4] = {};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma3(t, a[nt], frag_bp<SD>(vs, c0 + 8 * nt, 8 * nd, gr, tq));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[nd][e] = fmaf(acc[nd][e], corr[e >> 1], t[e]);
+      }
+    }
+    __syncthreads();  // before the next copy overwrites this stage
+  }
+
+  // each row's sum over its four lanes, in a fixed order; lse = m + log(l)
+  float lc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    lc[i] = fmaxf(l[i], 1e-30f);
+    const int qi = w_first + gr + 8 * i;
+    if (tq == 0 && qi < T) lse[g * T + qi] = m[i] * kLn2 + logf(lc[i]);
+  }
+#pragma unroll
+  for (int nd = 0; nd < C::KS; ++nd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = w_first + gr + 8 * (e >> 1);
+      const int d = 8 * nd + 2 * tq + (e & 1);
+      if (qi < T && d < dh)
+        o[base + (long long)qi * dh + d] = acc[nd][e] / lc[e >> 1];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // dq: one block per (g, 64 query rows), walking 32-key tiles
 // ---------------------------------------------------------------------------
 
 template <int DHP>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ dcap,
                 const float* __restrict__ dlse, float* __restrict__ dq,
                 int G, int T, int dh, float scale, int causal, int vec) {
-  using C = Bwd<DHP>;
+  using C = Tile<DHP>;
   constexpr int SD = C::SD, NC = C::NC, NT = NC / 8;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;  // this block's query rows
   float* os = qs + C::OWN;  // their output cotangents
   float* kvs = os + C::OWN;  // two stages of (K, V)
-  const int nblk = (T + kBwdRows - 1) / kBwdRows;
+  const int nblk = (T + kRows - 1) / kRows;
   const int qb = nblk - 1 - (int)(blockIdx.x / G);
   const long long g = blockIdx.x % G;
   const long long base = g * T * dh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gr = lane / 4, tq = lane % 4;
   const int r0 = 16 * warp;  // this warp's rows in the block's tile
-  const int w_first = qb * kBwdRows + r0;  // its first query
+  const int w_first = qb * kRows + r0;  // its first query
   const int w_last = min(w_first + 15, T - 1);  // its last valid query
-  const int q_last = min(qb * kBwdRows + kBwdRows - 1, T - 1);
+  const int q_last = min(qb * kRows + kRows - 1, T - 1);
   const int ntiles =
-      causal ? q_last / kBwdCols + 1 : (T + kBwdCols - 1) / kBwdCols;
+      causal ? q_last / kCols + 1 : (T + kCols - 1) / kCols;
 
-  tile_async<DHP, kBwdRows>(qs, q + base, qb * kBwdRows, T, dh, vec);
-  tile_async<DHP, kBwdRows>(os, dout + base, qb * kBwdRows, T, dh, vec);
-  tile_async<DHP, kBwdCols>(kvs, k + base, 0, T, dh, vec);
-  tile_async<DHP, kBwdCols>(kvs + C::STREAM, v + base, 0, T, dh, vec);
+  tile_async<DHP, kRows>(qs, q + base, qb * kRows, T, dh, vec);
+  tile_async<DHP, kRows>(os, dout + base, qb * kRows, T, dh, vec);
+  tile_async<DHP, kCols>(kvs, k + base, 0, T, dh, vec);
+  tile_async<DHP, kCols>(kvs + C::STREAM, v + base, 0, T, dh, vec);
   cp_async_commit();
 
   // the statistics of this thread's two rows, w_first + gr and + gr + 8
@@ -509,13 +516,13 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float acc[C::KS][4] = {};  // dq of the warp's 16 rows
 
   for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * kBwdCols;
+    const int k0 = kt * kCols;
     const float* ks = kvs + (kt & 1) * 2 * C::STREAM;
     const float* vs = ks + C::STREAM;
     if (kt + 1 < ntiles) {
       float* nxt = kvs + ((kt + 1) & 1) * 2 * C::STREAM;
-      tile_async<DHP, kBwdCols>(nxt, k + base, k0 + kBwdCols, T, dh, vec);
-      tile_async<DHP, kBwdCols>(nxt + C::STREAM, v + base, k0 + kBwdCols, T,
+      tile_async<DHP, kCols>(nxt, k + base, k0 + kCols, T, dh, vec);
+      tile_async<DHP, kCols>(nxt + C::STREAM, v + base, k0 + kCols, T,
                                 dh, vec);
     }
     cp_async_commit();
@@ -526,7 +533,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // branches
     const int kmax = (causal ? w_last : T - 1) - k0;
 #pragma unroll
-    for (int c0 = 0; c0 < kBwdCols; c0 += NC) {
+    for (int c0 = 0; c0 < kCols; c0 += NC) {
       if (w_first >= T || c0 > kmax) continue;
       float s[NT][4] = {}, dp[NT][4] = {};
       // two head-dim steps summed from zero (dk/dv has no registers for it)
@@ -577,14 +584,14 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int DHP>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ dcap,
                  const float* __restrict__ dlse, float* __restrict__ dk,
                  float* __restrict__ dv, int G, int T, int dh, float scale,
                  int causal, int vec) {
-  using C = Bwd<DHP>;
+  using C = Tile<DHP>;
   constexpr int SD = C::SD, NC = C::NC, NT = NC / 8;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;  // this block's key rows
@@ -597,29 +604,29 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gr = lane / 4, tq = lane % 4;
   const int r0 = 16 * warp;
-  const int w_first = kb * kBwdRows + r0;  // this warp's first key
+  const int w_first = kb * kRows + r0;  // this warp's first key
   // the query tiles at or after the block's first key, up to T
-  const int qt0 = causal ? kb * kBwdRows / kBwdCols : 0;
-  const int ntiles = (T + kBwdCols - 1) / kBwdCols - qt0;
+  const int qt0 = causal ? kb * kRows / kCols : 0;
+  const int ntiles = (T + kCols - 1) / kCols - qt0;
 
-  tile_async<DHP, kBwdRows>(ks, k + base, kb * kBwdRows, T, dh, vec);
-  tile_async<DHP, kBwdRows>(vs, v + base, kb * kBwdRows, T, dh, vec);
+  tile_async<DHP, kRows>(ks, k + base, kb * kRows, T, dh, vec);
+  tile_async<DHP, kRows>(vs, v + base, kb * kRows, T, dh, vec);
   dkv_stage<DHP>(qos, sts, q + base, dout + base, lse, dcap, dlse, g * T,
-                 qt0 * kBwdCols, T, dh, vec);
+                 qt0 * kCols, T, dh, vec);
   cp_async_commit();
 
   const float scale_log2 = scale * kLog2e;
   float dka[C::KS][4] = {}, dva[C::KS][4] = {};
 
   for (int i = 0; i < ntiles; ++i) {
-    const int q0 = (qt0 + i) * kBwdCols;
+    const int q0 = (qt0 + i) * kCols;
     const float* qs = qos + (i & 1) * 2 * C::STREAM;
     const float* os = qs + C::STREAM;
     const float* st = sts + (i & 1) * kStat;
     if (i + 1 < ntiles)
       dkv_stage<DHP>(qos + ((i + 1) & 1) * 2 * C::STREAM,
                      sts + ((i + 1) & 1) * kStat, q + base, dout + base, lse,
-                     dcap, dlse, g * T, q0 + kBwdCols, T, dh, vec);
+                     dcap, dlse, g * T, q0 + kCols, T, dh, vec);
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
@@ -627,9 +634,9 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // (causal) and below T; a pass takes all its columns if it needs any,
     // the others masked, so its code is free of branches
     const int cmin = causal ? max(0, w_first - q0) : 0;
-    const int cmax = min(kBwdCols - 1, T - 1 - q0);
+    const int cmax = min(kCols - 1, T - 1 - q0);
 #pragma unroll
-    for (int c0 = 0; c0 < kBwdCols; c0 += NC) {
+    for (int c0 = 0; c0 < kCols; c0 += NC) {
       if (w_first >= T || c0 > cmax || c0 + NC <= cmin) continue;
       float s[NT][4] = {}, dp[NT][4] = {};
       scores<SD, C::KS, NT, 1>(s, dp, ks, vs, qs, os, r0, c0, gr, tq);
@@ -645,8 +652,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float p =
               ok ? exp2f(fmaf(s[nt][e], scale_log2, -st[col] * kLog2e)) : 0.f;
           s[nt][e] = p;
-          dp[nt][e] = p * ((dp[nt][e] - st[kBwdCols + col]) +
-                           st[2 * kBwdCols + col]);
+          dp[nt][e] = p * ((dp[nt][e] - st[kCols + col]) +
+                           st[2 * kCols + col]);
         }
       }
       // dV += Pᵀ·dO, dK += dSᵀ·Q, the pass's queries summed from zero
@@ -695,19 +702,14 @@ int padded_dh(int dh) {
   return 0;
 }
 
-template <int DHP>
 unsigned grid_of(int G, int T) {
-  return (unsigned)(((T + Cfg<DHP>::ROWS - 1) / Cfg<DHP>::ROWS) * (long long)G);
-}
-
-unsigned bwd_grid(int G, int T) {
-  return (unsigned)(((T + kBwdRows - 1) / kBwdRows) * (long long)G);
+  return (unsigned)(((T + kRows - 1) / kRows) * (long long)G);
 }
 
 bool bad_shape(int G, int T, int dh) {
   if (G < 1 || T < 1 || padded_dh(dh) == 0) return true;
   // one block per (head, row block) in a one-dimensional grid
-  return (long long)G * ((T + 31) / 32) > 2147483647LL;
+  return (long long)G * ((T + kRows - 1) / kRows) > 2147483647LL;
 }
 
 // 16-byte copies of whole rows: dh % 4 == 0 and every matrix 16-byte aligned
@@ -718,35 +720,49 @@ int rows_vec4(int dh, const float* a, const float* b, const float* c,
   return dh % 4 == 0 && any % 16 == 0;
 }
 
-// every instance the launchers can pick (Dh padded to 16, 32, 64, 128); the
-// forward's tiles are static shared memory, the backward's dynamic, above
-// 48 KB at Dh 64 and 128 (the launchers raise the limit)
+// every instance the launchers can pick (Dh padded to 16, 32, 64, 128);
+// their tiles are dynamic shared memory, above 48 KB at Dh 64 and 128 (the
+// launchers raise the limit)
 const draco_audit::Entry kAudit[] = {
-    {"flash_fwd_kernel<16>", (const void*)flash_fwd_kernel<16>,
-     Cfg<16>::THREADS, nullptr, 0},
-    {"flash_fwd_kernel<32>", (const void*)flash_fwd_kernel<32>,
-     Cfg<32>::THREADS, nullptr, 0},
-    {"flash_fwd_kernel<64>", (const void*)flash_fwd_kernel<64>,
-     Cfg<64>::THREADS, nullptr, 0},
-    {"flash_fwd_kernel<128>", (const void*)flash_fwd_kernel<128>,
-     Cfg<128>::THREADS, nullptr, 0},
-    {"flash_dq_kernel<16>", (const void*)flash_dq_kernel<16>, kBwdThreads,
+    {"flash_fwd_kernel<16>", (const void*)flash_fwd_kernel<16>, kThreads,
+     fwd_smem<16>, 1},
+    {"flash_fwd_kernel<32>", (const void*)flash_fwd_kernel<32>, kThreads,
+     fwd_smem<32>, 1},
+    {"flash_fwd_kernel<64>", (const void*)flash_fwd_kernel<64>, kThreads,
+     fwd_smem<64>, 1},
+    {"flash_fwd_kernel<128>", (const void*)flash_fwd_kernel<128>, kThreads,
+     fwd_smem<128>, 1},
+    {"flash_dq_kernel<16>", (const void*)flash_dq_kernel<16>, kThreads,
      dq_smem<16>, 1},
-    {"flash_dq_kernel<32>", (const void*)flash_dq_kernel<32>, kBwdThreads,
+    {"flash_dq_kernel<32>", (const void*)flash_dq_kernel<32>, kThreads,
      dq_smem<32>, 1},
-    {"flash_dq_kernel<64>", (const void*)flash_dq_kernel<64>, kBwdThreads,
+    {"flash_dq_kernel<64>", (const void*)flash_dq_kernel<64>, kThreads,
      dq_smem<64>, 1},
-    {"flash_dq_kernel<128>", (const void*)flash_dq_kernel<128>, kBwdThreads,
+    {"flash_dq_kernel<128>", (const void*)flash_dq_kernel<128>, kThreads,
      dq_smem<128>, 1},
-    {"flash_dkv_kernel<16>", (const void*)flash_dkv_kernel<16>, kBwdThreads,
+    {"flash_dkv_kernel<16>", (const void*)flash_dkv_kernel<16>, kThreads,
      dkv_smem<16>, 1},
-    {"flash_dkv_kernel<32>", (const void*)flash_dkv_kernel<32>, kBwdThreads,
+    {"flash_dkv_kernel<32>", (const void*)flash_dkv_kernel<32>, kThreads,
      dkv_smem<32>, 1},
-    {"flash_dkv_kernel<64>", (const void*)flash_dkv_kernel<64>, kBwdThreads,
+    {"flash_dkv_kernel<64>", (const void*)flash_dkv_kernel<64>, kThreads,
      dkv_smem<64>, 1},
-    {"flash_dkv_kernel<128>", (const void*)flash_dkv_kernel<128>, kBwdThreads,
+    {"flash_dkv_kernel<128>", (const void*)flash_dkv_kernel<128>, kThreads,
      dkv_smem<128>, 1},
 };
+
+template <int DHP>
+cudaError_t launch_fwd(const float* q, const float* k, const float* v,
+                       float* o, float* lse, int G, int T, int dh,
+                       float scale, int causal, cudaStream_t st) {
+  const size_t smem = fwd_smem<DHP>(0, 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<DHP><<<grid_of(G, T), kThreads, smem, st>>>(
+      q, k, v, o, lse, G, T, dh, scale, causal, rows_vec4(dh, q, k, v, v));
+  return cudaGetLastError();
+}
 
 template <int DHP>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
@@ -758,7 +774,7 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
       flash_dq_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<DHP><<<bwd_grid(G, T), kBwdThreads, smem, st>>>(
+  flash_dq_kernel<DHP><<<grid_of(G, T), kThreads, smem, st>>>(
       q, k, v, dout, lse, dcap, dlse, dq, G, T, dh, scale, causal,
       rows_vec4(dh, q, k, v, dout));
   return cudaGetLastError();
@@ -774,7 +790,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
       flash_dkv_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<DHP><<<bwd_grid(G, T), kBwdThreads, smem, st>>>(
+  flash_dkv_kernel<DHP><<<grid_of(G, T), kThreads, smem, st>>>(
       q, k, v, dout, lse, dcap, dlse, dk, dv, G, T, dh, scale, causal,
       rows_vec4(dh, q, k, v, dout));
   return cudaGetLastError();
@@ -794,13 +810,11 @@ int draco_flash_fwd(const float* q, const float* k, const float* v, float* o,
   switch (padded_dh(dh)) {
 #define DRACO_FWD(D)                                                        \
   case D:                                                                   \
-    flash_fwd_kernel<D><<<grid_of<D>(G, T), Cfg<D>::THREADS, 0, st>>>(      \
-        q, k, v, o, lse, G, T, dh, scale, causal);                          \
-    break;
+    return (int)launch_fwd<D>(q, k, v, o, lse, G, T, dh, scale, causal, st);
     DRACO_FWD(16) DRACO_FWD(32) DRACO_FWD(64) DRACO_FWD(128)
 #undef DRACO_FWD
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 int draco_flash_dq(const float* q, const float* k, const float* v,

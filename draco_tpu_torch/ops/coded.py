@@ -91,7 +91,7 @@ def complex_project(r_re, r_im, f):
     if r_im.shape != (n, d) or f.shape != (d,) or d < 1:
         raise ValueError(f"complex_project: R {tuple(r_re.shape)} / "
                          f"{tuple(r_im.shape)}, f {tuple(f.shape)}")
-    chunks = project_chunks(d)
+    chunks = project_chunks(n, d)
     part = torch.empty((2, n, chunks), dtype=torch.float32, device=f.device)
     e = torch.empty((2, n), dtype=torch.float32, device=f.device)
     complex_project_launch(r_re, r_im, f, part[0], part[1], e[0], e[1])
@@ -99,10 +99,10 @@ def complex_project(r_re, r_im, f):
     return e[0], e[1]
 
 
-def project_chunks(d: int) -> int:
-    """Pass-1 blocks of the projection at length d: its (n, chunks)
-    partials."""
-    return _build.library("coded").draco_project_chunks(d)
+def project_chunks(n: int, d: int) -> int:
+    """Pass-1 blocks of the projection of n rows of length d (one whole
+    wave of the card): its (n, chunks) partials."""
+    return _build.library("coded").draco_project_chunks(n, d)
 
 
 def complex_project_launch(r_re, r_im, f, part_re, part_im, e_re,

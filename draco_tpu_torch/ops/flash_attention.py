@@ -10,11 +10,10 @@ raises), and counts its launches in ``<wrapper>.launches``:
   * ``flash_dkv``  dk and dv, recomputing p from lse
 
 ``flash_dq`` and ``flash_dkv`` take the optional lse cotangent ``dlse``
-(``None`` on the LM path, where lse is not an output of the model). The
-forward computes in float32 on the CUDA cores; the two backward kernels run
-their products on the tensor cores in split TF32 (three TF32 products for
-each float32 one), float32 in and out, with no atomics, so a head's result
-does not depend on its place in G.
+(``None`` on the LM path, where lse is not an output of the model). All
+three kernels run their products on the tensor cores in split TF32 (three
+TF32 products for each float32 one), float32 in and out, with no atomics,
+so a head's result does not depend on its place in G.
 
 The public functions follow the reference's (B, T, H, Dh) contract:
 :func:`flash_attention` (causal self-attention, o only) and
@@ -24,8 +23,10 @@ the dq and dk/dv kernels and whose ``vmap`` rule folds a vmapped axis into
 G, so ``torch.func.vmap(grad(...))`` over worker lanes launches each kernel
 once for all lanes. (A ``torch.library.custom_op`` with ``register_autograd``
 would not do: its generated autograd.Function has no ``setup_context``, and
-``torch.func.grad`` refuses it.) A shape the kernels cannot take (Dh > 128,
-a type other than float32) raises; there is no dense fallback.
+``torch.func.grad`` refuses it.) A shape the kernels cannot take (Dh >
+``MAX_DH`` = 128, a type other than float32) raises; there is no dense
+fallback, and ``config.validate()`` refuses ``attn_impl="flash"`` for a
+model whose head dim is past ``MAX_DH``.
 """
 
 from __future__ import annotations

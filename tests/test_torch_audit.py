@@ -271,6 +271,25 @@ def test_the_largest_coded_config_validate_accepts():
                 worker_fail=1).validate()
 
 
+def test_flash_past_the_kernels_head_dim_validate_rejects():
+    """The flash kernels take Dh <= MAX_DH (128): config.validate()
+    rejects attn_impl="flash" past it and accepts the dense attention
+    there (the port routes nothing to dense by itself)."""
+    from draco_tpu_torch.ops.flash_attention import MAX_DH
+
+    base = dict(network="TransformerLM", dataset="synthetic-text",
+                approach="cyclic", redundancy="shared", num_workers=8,
+                worker_fail=1, batch_size=2, seq_len=32, vocab=64,
+                model_layers=1)
+    TrainConfig(**base, attn_impl="flash", model_dim=2 * MAX_DH,
+                model_heads=2).validate()
+    with pytest.raises(ValueError, match=f"head dims up to {MAX_DH}"):
+        TrainConfig(**base, attn_impl="flash", model_dim=4 * MAX_DH,
+                    model_heads=2).validate()
+    TrainConfig(**base, attn_impl="dense", model_dim=4 * MAX_DH,
+                model_heads=2).validate()
+
+
 def test_the_registry_covers_the_ten_legs():
     import chip_smoke
 

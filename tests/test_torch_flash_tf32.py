@@ -1,6 +1,6 @@
-"""The split-TF32 arithmetic of the flash backward kernels, emulated on the
-CPU (``draco_tpu_torch/csrc/flash_attention.cu``: ``flash_dq_kernel``,
-``flash_dkv_kernel``).
+"""The split-TF32 arithmetic of the flash kernels, emulated on the CPU
+(``draco_tpu_torch/csrc/flash_attention.cu``: ``flash_fwd_kernel``,
+``flash_dq_kernel``, ``flash_dkv_kernel``).
 
 The kernels run every product on the tensor cores in TF32 (10 mantissa
 bits). Each float32 operand x is split as its fragment is loaded: big = x
@@ -13,9 +13,12 @@ in float32 (the inputs, P, dS) in float32, so it isolates the splitting.
 It is held to the tolerance ``chip_smoke.py`` holds the kernels to on the
 card, 1e-5 of each output's largest entry, against the plain versions in
 float64, at G=4, T=520 (ragged against the kernels' 64- and 32-row tiles),
-Dh=64, with and without the lse cotangent. One TF32 pass (a_big·b_big alone)
-misses that tolerance, which is why the kernels take three. Inputs are numpy
-draws from a seed.
+Dh=64, causal, the backward with and without the lse cotangent. The forward
+is emulated in the kernel's order: 32-key passes, each S summed from zero
+over 16 head-dim entries and added to a float32 total, the online softmax in
+base 2 in float32, each pass's P·V added to the rescaled float32 acc. One
+TF32 pass (a_big·b_big alone) misses that tolerance, which is why the
+kernels take three. Inputs are numpy draws from a seed.
 """
 
 import math
@@ -124,4 +127,67 @@ def test_one_tf32_pass_misses_the_tolerance(with_dlse):
     """The case for three passes: a_big·b_big alone misses the tolerance
     by more than an order of magnitude."""
     err = _errors(with_dlse, passes=1)
+    assert min(err.values()) > 1.0, err
+
+
+# --------------------------------------------------------------------------
+# the forward (flash_fwd_kernel): the same split, in the kernel's order
+# --------------------------------------------------------------------------
+
+KEYS = 32  # keys a pass of the kernel (Dh 64)
+DH_STEP = 16  # head-dim entries an S partial sums from zero
+
+
+def emulated_forward(q, k, v, passes: int):
+    """o, lse of the kernel's arithmetic (causal): 32-key passes, S summed
+    from zero over 16 head-dim entries and each partial added to a float32
+    total, the online softmax in base 2 in float32, each pass's P·V summed
+    from zero and added to the float32 acc after its rescaling."""
+    g, t, dh = q.shape
+    scale_log2 = (np.float32(1.0 / math.sqrt(dh))
+                  * np.float32(math.log2(math.e)))
+    pos = torch.arange(t)
+    m = torch.full((g, t), -1e30, dtype=torch.float32)
+    l = torch.zeros((g, t), dtype=torch.float32)
+    acc = torch.zeros((g, t, dh), dtype=torch.float32)
+    for k0 in range(0, t, KEYS):
+        kt, vt = k[:, k0:k0 + KEYS], v[:, k0:k0 + KEYS]
+        s = torch.zeros((g, t, kt.shape[1]), dtype=torch.float32)
+        for d0 in range(0, dh, DH_STEP):
+            s = s + tf32_einsum("gqd,gkd->gqk", q[..., d0:d0 + DH_STEP],
+                                kt[..., d0:d0 + DH_STEP], passes).float()
+        kpos = pos[k0:k0 + KEYS]
+        ok = pos[:, None] >= kpos[None, :]
+        s = torch.where(ok, s * scale_log2, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.max(-1).values)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + tf32_einsum("gqk,gkd->gqd", p, vt,
+                                                  passes).float()
+        m = m_new
+    lc = torch.clamp(l, min=1e-30)
+    return (acc / lc[..., None]).double(), \
+        (m * np.float32(math.log(2.0)) + torch.log(lc)).double()
+
+
+def _forward_errors(passes: int) -> dict:
+    """o's and lse's max |emulated − plain float64| / (TOL · max|plain|)."""
+    rng = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=(G, T, DH))
+                                .astype(np.float32)) for _ in range(3))
+    plain = fa.flash_fwd_plain(q.double(), k.double(), v.double())
+    emu = emulated_forward(q, k, v, passes)
+    return {name: ((e - p).abs().max() / (TOL * p.abs().max())).item()
+            for name, e, p in zip(("o", "lse"), emu, plain)}
+
+
+def test_forward_three_tf32_passes_meet_the_kernels_tolerance():
+    err = _forward_errors(passes=3)
+    assert max(err.values()) <= 1.0, err
+
+
+def test_forward_one_tf32_pass_misses_the_tolerance():
+    """o and lse both miss the tolerance with big·big alone."""
+    err = _forward_errors(passes=1)
     assert min(err.values()) > 1.0, err
