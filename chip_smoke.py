@@ -403,13 +403,18 @@ def locator_flops(n: int, s: int, sweeps: int = 12) -> int:
 def narrow_kernels(code, dev) -> list:
     """The narrow recombination (bf16; int8 at block 256) and the approx
     decode (f32, bf16, int8) against their plain versions at n=8 and
-    d=11,173,962, and at a small ragged d. The approx decode's rows are the
-    partial sums of a real approx encode with rows 2 and 5 absent, row 2 a
-    NaN payload that must not reach the output. Tolerance: 1e-5 of the
-    largest column's Σ|coef|·|row| for the vectors (n-term f32 sums in
-    another order), 1e-5 relative for the two squared norms (d-term sums).
-    Timed at full size, beside the widened path each kernel replaces
-    (widen the buffers, then complex_recombine or the plain f32 decode)."""
+    d=11,173,962, and at the small ragged d = 5002 (≡ 10 mod 16, as the
+    full d) and 5003; at the small d also int8 at block 24 (which the
+    recombination's 16-column strip does not divide) and block 1, and wire
+    buffers that start 3 (int8) / 2 (bf16) bytes into their storage. The
+    approx decode's rows are the partial sums of a real approx encode with
+    rows 2 and 5 absent, row 2 a NaN payload that must not reach the
+    output. Tolerance: 1e-5 of the largest column's Σ|coef|·|row| for the
+    vectors (n-term f32 sums in another order), 1e-5 relative for the two
+    squared norms (d-term sums). Each kernel's second launch on the same
+    inputs must give the same bits (out; decoded and both sums). Timed at
+    full size, beside the widened path each kernel replaces (widen the
+    buffers, then complex_recombine or the plain f32 decode)."""
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     t = code.tensors(dev)
     acode = approx.build_approx_code(N, 1.5)
@@ -423,34 +428,58 @@ def narrow_kernels(code, dev) -> list:
     widen = numerics.widen_wire_rows
 
     def note(name, mode, **kw):
-        rows[name].setdefault(mode, {"max_abs_err": 0.0, "tol": 0.0})
+        rows[name].setdefault(mode, {"max_abs_err": 0.0, "tol": 0.0,
+                                     "bitwise_repeat": True})
         r = rows[name][mode]
         for k in ("max_abs_err", "tol"):
             if k in kw:
                 r[k] = max(r[k], kw.pop(k))
+        if "bitwise_repeat" in kw:
+            r["bitwise_repeat"] &= kw.pop("bitwise_repeat")
         r.update(kw)
 
-    for d in (5003, D):
+    def same_bits(a, b) -> bool:
+        return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+    def wires(full):
+        """(label, mode, block, byte offset) of the narrow wires taken at
+        one length."""
+        out = [(mode, mode, BLOCK, 0) for mode in ("bf16", "int8")]
+        if not full:
+            out += [("int8@24", "int8", 24, 0), ("int8@1", "int8", 1, 0),
+                    ("int8@byte3", "int8", BLOCK, 3),
+                    ("bf16@byte2", "bf16", BLOCK, 2)]
+        return out
+
+    def buffer(x, mode, block, offset):
+        buf = numerics.narrow_wire_rows(x, mode, block)
+        return {**buf, "q": kernel_audit.offset_copy(buf["q"], offset)}
+
+    for d in (5002, 5003, D):
         full = d == D
         grads = torch.randn((N, d), generator=g, device=dev)
         enc_re, enc_im = coded.complex_matmul(t["w_masked_re"],
                                               t["w_masked_im"], grads)
         v_re = torch.randn(N, generator=g, device=dev)
         v_im = torch.randn(N, generator=g, device=dev)
-        for mode in ("bf16", "int8"):
-            wire = (mode, numerics.narrow_wire_rows(enc_re, mode, BLOCK),
-                    numerics.narrow_wire_rows(enc_im, mode, BLOCK), BLOCK)
+        for label, mode, block, offset in wires(full):
+            wire = (mode, buffer(enc_re, mode, block, offset),
+                    buffer(enc_im, mode, block, offset), block)
             k = decode_kernels.cyclic_narrow_recombine(v_re, v_im, wire)
+            k2 = decode_kernels.cyclic_narrow_recombine(v_re, v_im, wire)
             p = decode_kernels.cyclic_narrow_recombine_plain(v_re, v_im, wire)
-            w_re, w_im = widen(wire[1], mode, BLOCK), widen(wire[2], mode,
-                                                            BLOCK)
+            w_re, w_im = widen(wire[1], mode, block), widen(wire[2], mode,
+                                                            block)
             scale = (v_re.abs() @ w_re.abs()
                      + v_im.abs() @ w_im.abs()).max().item()
             err = (k - p).abs().max().item()
-            require(err <= 1e-5 * scale, f"cyclic_narrow_recombine {mode} "
+            require(err <= 1e-5 * scale, f"cyclic_narrow_recombine {label} "
                     f"d={d}: max_abs_err {err} > {1e-5 * scale}")
+            rep = same_bits([k], [k2])
+            require(rep, f"cyclic_narrow_recombine {label} d={d}: two "
+                    f"launches differ")
             note("cyclic_narrow_recombine", mode, max_abs_err=err,
-                 tol=1e-5 * scale)
+                 tol=1e-5 * scale, bitwise_repeat=rep)
             del w_re, w_im
             if full:
                 scales = 2 * N * nb * 4 if mode == "int8" else 0
@@ -474,27 +503,33 @@ def narrow_kernels(code, dev) -> list:
         prow[absent] = 0.0
         prow[absent[0]] = float("nan")
         live = pres_f[:, None] > 0
-        for mode in ("f32", "bf16", "int8"):
+        for label, mode, block, offset in [("f32", "f32", 1, 0)] + wires(
+                full):
             wire = (None if mode == "f32" else
-                    (mode, numerics.narrow_wire_rows(prow, mode, BLOCK),
-                     BLOCK))
+                    (mode, buffer(prow, mode, block, offset), block))
             rows_in = prow if wire is None else None
             k = decode_kernels.approx_decode(rows_in, grads, vn, pres_f, wire)
+            k2 = decode_kernels.approx_decode(rows_in, grads, vn, pres_f,
+                                              wire)
             p = decode_kernels.approx_decode_plain(rows_in, grads, vn, pres_f,
                                                    wire)
             require(bool(torch.isfinite(k[0]).all()),
-                    f"approx_decode {mode} d={d}: the absent NaN row reached "
-                    f"the output")
-            wide = prow if wire is None else widen(wire[1], mode, BLOCK)
+                    f"approx_decode {label} d={d}: the absent NaN row "
+                    f"reached the output")
+            wide = prow if wire is None else widen(wire[1], mode, block)
             wide = torch.where(live, wide, torch.zeros_like(wide))
             scale = (vn.abs() @ wide.abs()).max().item()
             err = (k[0] - p[0]).abs().max().item()
             rel = max(abs(a.item() - b.item()) / abs(b.item())
                       for a, b in zip(k[1:], p[1:]))
             require(err <= 1e-5 * scale and rel <= 1e-5,
-                    f"approx_decode {mode} d={d}: max_abs_err {err} (tol "
+                    f"approx_decode {label} d={d}: max_abs_err {err} (tol "
                     f"{1e-5 * scale}), squared norms rel err {rel} (tol 1e-5)")
-            note("approx_decode", mode, max_abs_err=err, tol=1e-5 * scale)
+            rep = same_bits(k, k2)
+            require(rep, f"approx_decode {label} d={d}: two launches differ "
+                    f"(decoded or the sums)")
+            note("approx_decode", mode, max_abs_err=err, tol=1e-5 * scale,
+                 bitwise_repeat=rep)
             rows["approx_decode"][mode]["norms_rel_err"] = max(
                 rel, rows["approx_decode"][mode].get("norms_rel_err", 0.0))
             del wide
@@ -503,7 +538,7 @@ def narrow_kernels(code, dev) -> list:
                 pr = N - len(absent)
                 scales = pr * nb * 4 if mode == "int8" else 0
 
-                def widened(wire=wire):
+                def widened(wire=wire, mode=mode):
                     rows_w = prow if wire is None else widen(wire[1], mode,
                                                              BLOCK)
                     return decode_kernels.approx_decode_plain(
@@ -534,11 +569,14 @@ def narrow_kernels(code, dev) -> list:
         for mode, r in by_mode.items():
             work = r.pop("work")
             r["bound_ms"], r["bound_by"] = bound(*work)
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
             print(f"kernel {name} [{mode}]: max_abs_err={r['max_abs_err']:.3e}"
                   f" (tol {r['tol']:.3e}) ms={r['ms']:.4f} plain_ms="
                   f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                  f"({r['bound_by']}) library_ms=null; the widened path it "
-                  f"replaces {r['widened_ms']:.4f} ms", flush=True)
+                  f"({r['bound_by']}, {100 * r['share_of_bound']:.1f}% of "
+                  f"bound) bitwise_repeat={r['bitwise_repeat']} "
+                  f"library_ms=null; the widened path it replaces "
+                  f"{r['widened_ms']:.4f} ms", flush=True)
         out.append({"name": name, "route": "cuda",
                     "source": "draco_tpu_torch/csrc/narrow_decode.cu",
                     "replaces": lines[name], "ok": True, "wire": main[name],

@@ -128,21 +128,31 @@ SPECS = (
                             "thread 0's serial chain",
                shape=(8, 1), largest={"n": MAX_N, "s": MAX_S, "L": 1},
                largest_shape=(MAX_N, MAX_S)),
+    # the narrow decode reads strips of 16-byte chunks (the approx decode:
+    # 4 columns), the loads of a row group in flight (the recombination: 4
+    # rows of each buffer at 2 blocks a SM, kInt8 127 registers; kInt8Any,
+    # an int8 block the strip does not divide, holds its 16 block indices
+    # at 1 block a SM; the approx decode: 8 rows)
     KernelSpec("cyclic_narrow_recombine", "narrow_decode",
-               ("narrow_recombine_kernel<float>",
-                "narrow_recombine_kernel<__nv_bfloat16>",
-                "narrow_recombine_kernel<int8_t>"),
-               "draco_tpu/ops/decode_kernels.py:378", 32, shape=(8, 0),
+               ("narrow_recombine_kernel<kF32>",
+                "narrow_recombine_kernel<kBF16>",
+                "narrow_recombine_kernel<kInt8>",
+                "narrow_recombine_kernel<kInt8Any>"),
+               "draco_tpu/ops/decode_kernels.py:378", 167, shape=(8, 0),
                largest={"n": MAX_N}, largest_shape=(MAX_N, 0),
-               main=("narrow_recombine_kernel<__nv_bfloat16>",
-                     "narrow_recombine_kernel<int8_t>")),
+               main=("narrow_recombine_kernel<kBF16>",
+                     "narrow_recombine_kernel<kInt8>")),
     KernelSpec("approx_decode", "narrow_decode",
-               ("approx_decode_partial_kernel<float>",
-                "approx_decode_partial_kernel<__nv_bfloat16>",
-                "approx_decode_partial_kernel<int8_t>",
+               ("approx_decode_partial_kernel<kF32>",
+                "approx_decode_partial_kernel<kBF16>",
+                "approx_decode_partial_kernel<kInt8>",
+                "approx_decode_partial_kernel<kInt8Any>",
                 "approx_decode_final_kernel"),
-               "draco_tpu/ops/decode_kernels.py:271", 32, shape=(8, 0),
-               largest={"n": MAX_N}, largest_shape=(MAX_N, 0)),
+               "draco_tpu/ops/decode_kernels.py:271", 124, shape=(8, 0),
+               largest={"n": MAX_N}, largest_shape=(MAX_N, 0),
+               main=("approx_decode_partial_kernel<kF32>",
+                     "approx_decode_partial_kernel<kInt8>",
+                     "approx_decode_final_kernel")),
     # the flash kernels on the tensor cores: each thread holds its rows'
     # float32 totals, the scores of a pass and split operands in registers
     # (the dk/dv instances up to the 255 a thread has); their tiles are
@@ -319,61 +329,8 @@ def _cases(name: str, dev) -> list:
                           {"v_re": ((L, n), f32), "v_im": ((L, n), f32),
                            "honest": ((L, n), b), "flagged": ((L, n), b),
                            "loud": ((L, n), b), "resid": ((L,), f32)}, run))
-    elif name == "cyclic_narrow_recombine":
-        n, d, block = 9, 1003, 64
-        v_re, v_im, re, im = rnd(n), rnd(n), rnd(n, d), rnd(n, d)
-        for mode in ("f32", "bf16", "int8"):
-            if mode == "f32":
-                bufs = ({"q": re}, {"q": im})
-            else:
-                bufs = (numerics.narrow_wire_rows(re, mode, block),
-                        numerics.narrow_wire_rows(im, mode, block))
-
-            def run(o, mode=mode, bufs=bufs):
-                if cuda:
-                    blk, nb = (block, -(-d // block)) if mode == "int8" \
-                        else (1, 0)
-                    decode_kernels.narrow_recombine_launch(
-                        v_re, v_im, mode, bufs[0]["q"], bufs[0].get("scale"),
-                        bufs[1]["q"], bufs[1].get("scale"), blk, nb,
-                        o["out"])
-                elif mode == "f32":
-                    _put(o, out=coded.complex_recombine_plain(v_re, v_im, re,
-                                                              im))
-                else:
-                    _put(o, out=decode_kernels.cyclic_narrow_recombine_plain(
-                        v_re, v_im, (mode, bufs[0], bufs[1], block)))
-            cases.append(Case(f"{mode} n={n} d={d} block {block}",
-                              {"out": ((d,), f32)}, run))
-    elif name == "approx_decode":
-        n, d, block = 9, 1003, 64
-        rows, bg = rnd(n, d), rnd(n, d)
-        rows[2] = float("nan")  # an absent row's payload never read
-        vn = rnd(n) / n
-        pres = torch.ones(n, device=dev)
-        pres[[2, 5]] = 0.0
-        for mode in ("f32", "bf16", "int8"):
-            buf = ({"q": rows} if mode == "f32"
-                   else numerics.narrow_wire_rows(rows, mode, block))
-            wire = None if mode == "f32" else (mode, buf, block)
-            outs = {"decoded": ((d,), f32), "sums": ((2,), f32)}
-            if cuda:
-                outs["part"] = ((2, decode_kernels.approx_decode_chunks(d)),
-                                f32)
-
-            def run(o, mode=mode, buf=buf, wire=wire):
-                if cuda:
-                    blk, nb = (block, -(-d // block)) if mode == "int8" \
-                        else (1, 0)
-                    decode_kernels.approx_decode_launch(
-                        mode, buf["q"], buf.get("scale"), blk, nb, bg, vn,
-                        pres, o["decoded"], o["part"], o["sums"])
-                else:
-                    dec, sd, sg = decode_kernels.approx_decode_plain(
-                        rows if wire is None else None, bg, vn, pres, wire)
-                    _put(o, decoded=dec, sums=torch.stack([sd, sg]))
-            cases.append(Case(f"{mode} n={n} d={d} rows 2, 5 absent", outs,
-                              run))
+    elif name in ("cyclic_narrow_recombine", "approx_decode"):
+        cases += _narrow_cases(name, dev, cuda, rnd)
     elif name.startswith("flash_"):
         G, T = 2, 70  # ragged against the 64- and 32-row tiles
         for dh in (16, 24, 64, 100):  # instances 16, 32, 64, 128
@@ -437,6 +394,95 @@ def _cases(name: str, dev) -> list:
             else:
                 _put(o, o=controls.control_spill_plain(x, idx))
         cases.append(Case(f"n={n}", {"o": ((n,), f32)}, run))
+    return cases
+
+
+# the narrow decode's coverage: n = 9 (two groups of 8 rows), d = 1003 and
+# 1002 (≡ 10 mod 16, as the main path's d), each wire at block 64, int8 at
+# a block the strip does not divide (24) and at block 1; and int8 / bf16
+# buffers that start off a 16-byte chunk (at byte 3 / 2 of their storage),
+# so the first strip takes the scalar loop
+NARROW_WIRES = (("f32", 64, 0), ("bf16", 64, 0), ("int8", 64, 0),
+                ("int8", 24, 0), ("int8", 1, 0), ("int8", 24, 3),
+                ("bf16", 64, 2))
+
+
+def offset_copy(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of ``t`` that starts ``offset`` bytes into its storage (a
+    multiple of its element size); ``t`` itself at 0."""
+    if not offset:
+        return t
+    size = t.element_size()
+    store = torch.empty(t.numel() + offset // size + 1, dtype=t.dtype,
+                        device=t.device)
+    out = store[offset // size:offset // size + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _narrow_cases(name: str, dev, cuda: bool, rnd) -> list:
+    from draco_tpu_torch.obs import numerics
+    from draco_tpu_torch.ops import coded, decode_kernels
+
+    f32 = torch.float32
+    n = 9
+    cases = []
+    for d in (1003, 1002):
+        a, b = rnd(n, d), rnd(n, d)
+        vr, vi = rnd(n), rnd(n)
+        pres = torch.ones(n, device=dev)
+        pres[[2, 5]] = 0.0
+        for mode, block, offset in NARROW_WIRES:
+            blk, nb = (block, -(-d // block)) if mode == "int8" else (1, 0)
+            where = f" at byte {offset}" if offset else ""
+            if name == "cyclic_narrow_recombine":
+                bufs = [{"q": x} if mode == "f32"
+                        else numerics.narrow_wire_rows(x, mode, block)
+                        for x in (a, b)]
+                for buf in bufs:
+                    buf["q"] = offset_copy(buf["q"], offset)
+
+                def run(o, mode=mode, bufs=bufs, block=block, blk=blk,
+                        nb=nb, vr=vr, vi=vi):
+                    if cuda:
+                        decode_kernels.narrow_recombine_launch(
+                            vr, vi, mode, bufs[0]["q"], bufs[0].get("scale"),
+                            bufs[1]["q"], bufs[1].get("scale"), blk, nb,
+                            o["out"])
+                    elif mode == "f32":
+                        _put(o, out=coded.complex_recombine_plain(
+                            vr, vi, bufs[0]["q"], bufs[1]["q"]))
+                    else:
+                        _put(o, out=decode_kernels
+                             .cyclic_narrow_recombine_plain(
+                                 vr, vi, (mode, bufs[0], bufs[1], block)))
+                cases.append(Case(f"{mode} n={n} d={d} block {block}{where}",
+                                  {"out": ((d,), f32)}, run))
+                continue
+            rows = a.clone()
+            rows[2] = float("nan")  # an absent row's payload never read
+            vn = vr / n
+            buf = ({"q": rows} if mode == "f32"
+                   else numerics.narrow_wire_rows(rows, mode, block))
+            buf["q"] = offset_copy(buf["q"], offset)
+            wire = None if mode == "f32" else (mode, buf, block)
+            outs = {"decoded": ((d,), f32), "sums": ((2,), f32)}
+            if cuda:
+                outs["part"] = ((2, decode_kernels.approx_decode_chunks(d)),
+                                f32)
+
+            def run(o, mode=mode, buf=buf, wire=wire, blk=blk, nb=nb, vn=vn,
+                    b=b, pres=pres):
+                if cuda:
+                    decode_kernels.approx_decode_launch(
+                        mode, buf["q"], buf.get("scale"), blk, nb, b, vn,
+                        pres, o["decoded"], o["part"], o["sums"])
+                else:
+                    dec, sd, sg = decode_kernels.approx_decode_plain(
+                        buf["q"] if wire is None else None, b, vn, pres, wire)
+                    _put(o, decoded=dec, sums=torch.stack([sd, sg]))
+            cases.append(Case(f"{mode} n={n} d={d} block {block}{where}, "
+                              f"rows 2, 5 absent", outs, run))
     return cases
 
 

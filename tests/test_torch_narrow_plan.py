@@ -1,0 +1,216 @@
+"""The read plan of the narrow-wire decode kernels, emulated on the CPU
+(``draco_tpu_torch/csrc/narrow_decode.cu``: ``wide_span``, ``join``,
+``strip_of``, ``blocks_of``, ``block_of``, ``widen_strip`` and the window
+loop of ``narrow_recombine_kernel`` / ``approx_decode_partial_kernel``).
+
+A numpy model of the kernels' index arithmetic, in their order: each lane
+of a warp loads the CB-byte aligned chunk that holds the start of its
+strip (when the strip is at most the span's end), takes lane+1's chunk by
+a shuffle, selects whole words by the row's misalignment a >> 2 in steps of
+CW/2 ... 1 words and funnel-shifts by (a & 3) bytes; 31 strips a window;
+the columns outside the wide span go to the scalar loop. Every byte of the
+buffer is labelled with its offset, so the model holds, for every row
+alignment 0–15 (the buffer's start mod 16), d ≡ 0…15 (mod 16) and the int8
+blocks 1, 24, 64 and 256:
+
+- every column of every row is summed exactly once (a wide strip or the
+  scalar loop);
+- no load leaves the allocation;
+- the bytes a strip sums are exactly its row's columns, in order: bytes of
+  a neighbouring row are shifted out;
+- the scale index of every column equals ``j // block`` (one scale a strip
+  where the strip divides the block, else counted up column by column).
+
+And the int8 and bf16 widening (a byte perm into 2^23 + 128, a shift) gives
+the exact f32 of every level. No GPU and no JAX; seconds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+STRIPS = 31  # kStrips: strips a warp computes a window
+BASE = 1 << 16  # a 4 KB-aligned address; the buffer starts BASE + offset
+N = 3  # rows: a first, a middle and a last one
+D0 = 160  # d = D0 + residue: 10 int8 strips a row, two windows at bf16
+
+
+def wide_span(base, n, d, sz, cb):
+    """``wide_span``: the strips [lo, hi) whose chunk and the chunk after
+    lie inside the buffer for every row."""
+    w = cb // sz
+    e = base + n * d * sz
+    last = (base + (n - 1) * d * sz) & ~(cb - 1)
+    lo = 1 if base & (cb - 1) else 0
+    end = (e - last) // cb - 1
+    hi = min(d // w, end)
+    return (lo, hi) if hi > lo else (0, 0)
+
+
+def meet(x, y):
+    lo, hi = max(x[0], y[0]), min(x[1], y[1])
+    return (lo, hi) if hi > lo else (0, 0)
+
+
+def lanes(span):
+    """(s, mine, feed) of every lane of every window, (windows·32,)."""
+    lo, hi = span
+    windows = -(-(hi - lo) // STRIPS)
+    win = np.repeat(np.arange(windows), 32)
+    lane = np.tile(np.arange(32), windows)
+    s = lo + win * STRIPS + lane
+    return s, (lane < STRIPS) & (s < hi), s <= hi
+
+
+def strips_read(base, n, d, sz, cb, span):
+    """The byte labels (offsets into the buffer, -2 for a chunk not loaded)
+    the kernel's join leaves for every row and lane: (n, lanes, cb), with
+    every load checked against the allocation."""
+    cw = cb // 4
+    e = base + n * d * sz
+    s, mine, feed = lanes(span)
+    out = []
+    for i in range(n):
+        p = base + i * d * sz
+        chunk, a = p & ~(cb - 1), p & (cb - 1)
+        addr = chunk + s * cb
+        lo = np.where(feed[:, None], addr[:, None] - base + np.arange(cb),
+                      -2)
+        loaded = addr[feed]
+        assert np.all(loaded >= base) and np.all(loaded + cb <= e), \
+            "a load leaves the allocation"
+        # __shfl_down_sync(…, 1): lane l takes lane l+1's chunk; lane 31
+        # keeps its own
+        hi = lo.reshape(-1, 32, cb)
+        hi = np.concatenate([hi[:, 1:], hi[:, 31:]], axis=1).reshape(-1, cb)
+        win = np.concatenate([lo, hi], axis=1).reshape(-1, 2 * cw, 4)
+        q, r = a >> 2, a & 3
+        b = cw // 2
+        while b >= 1:  # whole words, in place in increasing k, as join
+            if q & b:
+                win = np.concatenate([win[:, b:], win[:, 2 * cw - b:]],
+                                     axis=1)
+            b //= 2
+        pair = np.concatenate([win[:, :cw], win[:, 1:cw + 1]], axis=2)
+        out.append(pair[:, :, r:r + 4].reshape(-1, cb))  # __funnelshift_r
+    return np.stack(out), s, mine
+
+
+def check_plan(offset, d, sz, cb, others=()):
+    """The plan of a kernel reading a buffer of sz-byte elements in
+    cb-byte chunks beside ``others`` ((sz, cb) of buffers read in the same
+    strips, their own offsets 0): coverage, bounds, row bytes. Returns the
+    mine strips' first columns and the strip width."""
+    w = cb // sz
+    base = BASE + offset
+    span = wide_span(base, N, d, sz, cb)
+    for osz, ocb in others:
+        assert ocb // osz == w
+        span = meet(span, wide_span(BASE, N, d, osz, ocb))
+    got, s, mine = strips_read(base, N, d, sz, cb, span)
+    for osz, ocb in others:
+        strips_read(BASE, N, d, osz, ocb, span)  # bounds of the others
+    cols = s[mine]
+    for i in range(N):
+        want = ((i * d + cols[:, None] * w) * sz
+                + np.arange(cb)[None, :])
+        assert np.array_equal(got[i][mine], want), \
+            f"row {i}: a strip sums bytes that are not its columns"
+    lo, hi = span
+    c0, c1 = lo * w, hi * w
+    covered = np.concatenate([(cols[:, None] * w + np.arange(w)).ravel(),
+                              np.arange(c0), np.arange(c1, d)])
+    assert np.array_equal(np.sort(covered), np.arange(d)), \
+        "a column is summed twice or never"
+    return cols * w, w
+
+
+def scale_blocks(j0, w, block):
+    """The kernels' block index of each column of the strips at j0."""
+    if block % w == 0:  # one scale a strip: block_of(j0), 32-bit
+        return np.repeat((j0 % (1 << 32)) // block, w).reshape(-1, w)
+    b = j0 // block  # blocks_of: counted up from j0's
+    rem = j0 - b * block
+    out = np.empty((len(j0), w), dtype=np.int64)
+    for k in range(w):
+        out[:, k] = b
+        rem = rem + 1
+        wrap = rem == block
+        rem = np.where(wrap, 0, rem)
+        b = b + wrap
+    return out
+
+
+CASES = [(o, r) for o in range(16) for r in range(16)]
+BLOCKS = (1, 24, 64, 256)
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+def test_recombine_int8_plan(block):
+    """16-byte chunks of int8 levels (16 columns a strip), two buffers."""
+    for offset, res in CASES:
+        d = D0 + res
+        j0, w = check_plan(offset, d, 1, 16, others=((1, 16),))
+        blk = scale_blocks(j0, w, block)
+        assert np.array_equal(blk, (j0[:, None] + np.arange(w)) // block)
+        assert blk.max(initial=0) < -(-d // block)
+
+
+@pytest.mark.parametrize("sz", (2, 4), ids=("bf16", "f32"))
+def test_recombine_wide_plan(sz):
+    """16-byte chunks of bf16 (8 columns) and f32 (4 columns)."""
+    for offset, res in CASES:
+        # a buffer of 2- or 4-byte elements starts on its element size
+        check_plan(offset - offset % sz, D0 + res, sz, 16,
+                   others=((sz, 16),))
+
+
+@pytest.mark.parametrize("sz,block", [(1, b) for b in BLOCKS]
+                         + [(2, 256), (4, 256)],
+                         ids=[f"int8-{b}" for b in BLOCKS] + ["bf16", "f32"])
+def test_approx_plan(sz, block):
+    """4 columns a strip: 4·sz bytes of wire beside a 16-byte chunk of the
+    (n, d) f32 batch gradients."""
+    for offset, res in CASES:
+        d = D0 + res
+        j0, w = check_plan(offset - offset % sz, d, sz, 4 * sz,
+                           others=((4, 16),))
+        assert w == 4
+        if sz == 1:
+            blk = scale_blocks(j0, w, block)
+            assert np.array_equal(blk, (j0[:, None] + np.arange(w)) // block)
+
+
+def test_every_alignment_and_residue_is_taken():
+    """The cases cover every start mod 16 and d mod 16, and the rows of the
+    int8 buffers every alignment 0–15."""
+    aligns = {(BASE + o + i * (D0 + r)) % 16 for o, r in CASES
+              for i in range(N)}
+    assert aligns == set(range(16))
+    assert {(D0 + r) % 16 for _, r in CASES} == set(range(16))
+
+
+def test_a_buffer_shorter_than_a_strip_goes_to_the_scalar_loop():
+    for sz, cb in ((1, 16), (2, 16), (4, 16), (1, 4)):
+        for d in range(1, cb // sz):
+            assert wide_span(BASE + 3 * (sz == 1), 1, d, sz, cb) == (0, 0)
+            check_plan(3 if sz == 1 else 0, d, sz, cb)
+
+
+def test_int8_and_bf16_widening_is_exact():
+    """widen_strip: level + 128 in the low mantissa byte of 2^23, minus
+    2^23 + 128, is the level; a bf16 is its bits shifted into the high
+    half of a float."""
+    levels = np.arange(-128, 128, dtype=np.int8)
+    biased = levels.view(np.uint8).astype(np.uint32) ^ 0x80
+    got = (np.uint32(0x4B000000) | biased).view(np.float32) \
+        - np.float32(8388736.0)
+    assert got.dtype == np.float32
+    assert np.array_equal(got, levels.astype(np.float32))
+    bits = np.arange(0, 1 << 16, 97, dtype=np.uint32)
+    bf = torch.from_numpy(bits.astype(np.int32).astype(np.int16)).view(
+        torch.bfloat16).float().numpy()
+    wide = (bits << 16).view(np.float32)
+    finite = np.isfinite(bf)
+    assert np.array_equal(wide[finite], bf[finite])
+    assert np.array_equal(np.isnan(wide), np.isnan(bf))
