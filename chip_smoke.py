@@ -63,10 +63,38 @@ prints no result line):
               budget; then the lint's seeded-defect controls, each
               tripping exactly its rule
 
+  6. chunk    each leg also as the K-fused chunk (``steps_per_call`` K=4,
+              on the card one captured CUDA graph replayed K times,
+              ``training/chunk_graph.py``). Timing, on the leg's own
+              setup and at the settings a user runs: from one snapshot of
+              the state, K eager steps, then one chunk of the same K steps
+              through the loop's engine client (capture, then replays
+              only, both by CUDA events), then the loop a user runs
+              (``runner.run``: the engine, its prefetch thread and flush)
+              over 3 chunks, whose records' ``step_ms`` is the loop's
+              own; the discrete columns equal the eager run's, and every
+              kernel the leg needs is in the capture. Agreement, from one
+              snapshot: K eager steps twice, then the chunk twice and the
+              loop over the same K steps; the two eager runs must agree
+              bit for bit, and each chunk must give their losses, metric
+              columns and final state (parameters, momentum, BN
+              statistics) bit for bit. The LM legs are held on their own
+              setup; the ResNet legs on a fresh setup under deterministic
+              cuDNN (``cudnn.deterministic``), since cuDNN's default
+              backward is free to sum in another order each call. The
+              flagship ratio geomedian/simulate under the chunk. Each
+              kernel of the legs (the nine ported) captured in a graph
+              alone, its replay bit for bit its direct launch at the main
+              path's shapes. The lint (phase 5) also runs the chunked
+              programs of ``simulate`` and ``lm_shared_flash``: no
+              synchronising call inside a chunk, one device-to-host fetch
+              a flush, the staging copy's bytes, the graph's pool
+
 ``--profile`` adds one torch.profiler step per leg (device time by kernel
 and by the step's phases draco_comp / draco_encode / draco_decode /
-draco_update, and the device's busy share); ``--out`` writes the whole
-record as JSON.
+draco_update, and the device's busy share) and one profiled chunk of
+``lm_shared_flash`` (its busy share under the chunk); ``--out`` writes the
+whole record as JSON.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device it exits with status 1 before printing anything on stdout.
@@ -75,7 +103,9 @@ device it exits with status 1 before printing anything on stdout.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -105,6 +135,7 @@ from draco_tpu_torch.ops import flash_attention as fa
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.token_loop import TokenLoop
 from draco_tpu_torch.runtime import resolve_device
+from draco_tpu_torch.training.chunk_graph import StateSnapshot
 from draco_tpu_torch.training.trainer import Trainer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -133,6 +164,11 @@ EXPECT = {"simulate": CODED[1:], "geomedian": (), "shared": CODED,
           "lm_shared_flash": CODED + FLASH,
           "lm_simulate_flash": CODED[1:] + FLASH,
           "lm_geomedian_flash": FLASH}
+CHUNK_K = 4  # steps of the chunk phase's chunk (steps_per_call)
+LOOP_CHUNKS = 3  # chunks of the chunk phase's timed loop (runner.run)
+# the columns a chunk must give exactly as the eager loop does
+DISCRETE = ("honest_located", "located_errors", "det_tp", "det_adv",
+            "present", "decode_residual_bound", "recovered_fraction")
 
 
 class SmokeFailure(RuntimeError):
@@ -993,18 +1029,24 @@ def run_leg(lp, steps: int, dev, profile: bool = False) -> dict:
     """One leg of the registry (analysis/registry.py) at full width, built
     through the entry points a user calls: a ResNet-18 leg through the CNN
     Trainer, an LM leg through build_sp_train_setup and the token loop, as
-    ``python -m draco_tpu_torch.cli`` runs them."""
-    program = lp.build(dev, full=True, max_steps=steps + 2)
+    ``python -m draco_tpu_torch.cli`` runs them; its eager steps, then its
+    chunk (phase 6), then under ``profile`` one profiled step."""
+    program = lp.build(dev, full=True,
+                       max_steps=steps + 1 + LOOP_CHUNKS * CHUNK_K,
+                       steps_per_call=CHUNK_K)
     if lp.route == "lm":
         dim = program.runner.setup.dim
         require(dim == LM_D, f"{lp.name}: d={dim}, expected {LM_D}")
-    out = drive(lp.name, program, steps, EXPECT[lp.name], dev, profile)
+    out = drive(lp.name, program, steps, EXPECT[lp.name], dev)
+    out["chunk"] = chunk_leg(lp, program, dev, profile)
+    if profile:
+        profile_leg(out, program.runner)
     if lp.route == "lm":
         out["dim"] = program.runner.setup.dim
     return out
 
 
-def drive(name, program, steps, expect, dev, profile) -> dict:
+def drive(name, program, steps, expect, dev) -> dict:
     """One warm-up step, then ``steps`` steps with the launch counts zeroed
     just before them and read just after; every cyclic step must locate the
     adversary, every approx step hold residual ≤ bound + the wire's slack
@@ -1051,22 +1093,427 @@ def drive(name, program, steps, expect, dev, profile) -> dict:
     print(f"leg {name}: {out['ms_per_step']:.2f} ms/step over {steps} steps "
           f"(host clock, device synchronised); launches {counts}; "
           f"losses {['%.4f' % x for x in out['loss']]}", flush=True)
-    if profile:
-        out["profile"] = prof = profile_step(runner)
-        print(f"leg {name} profile: wall {prof['wall_ms']:.2f} ms, device "
-              f"busy {prof['device_busy_ms']:.2f} ms; top kernels "
-              + "; ".join(f"{r['name'][:48]} {r['device_ms']:.2f} ms x"
-                          f"{r['calls']}" for r in prof["top"][:8])
-              + f"; {prof['host_ops']} host ops, top by self time "
-              + "; ".join(f"{r['name'][:40]} {r['host_self_ms']:.1f} ms x"
-                          f"{r['calls']}" for r in prof["host_top"][:6]),
-              flush=True)
-        ph = prof["phases"]
-        print(f"leg {name} device time by phase (ms, busy "
-              f"{ph['busy_ms']:.2f}): " + ", ".join(
-                  f"{k} {v:.2f}" for k, v in ph["phases_ms"].items()),
+    return out
+
+
+def profile_leg(out, runner) -> None:
+    """One profiled eager step of the leg, printed."""
+    name = out["leg"]
+    out["profile"] = prof = profile_step(runner)
+    print(f"leg {name} profile: wall {prof['wall_ms']:.2f} ms, device "
+          f"busy {prof['device_busy_ms']:.2f} ms; top kernels "
+          + "; ".join(f"{r['name'][:48]} {r['device_ms']:.2f} ms x"
+                      f"{r['calls']}" for r in prof["top"][:8])
+          + f"; {prof['host_ops']} host ops, top by self time "
+          + "; ".join(f"{r['name'][:40]} {r['host_self_ms']:.1f} ms x"
+                      f"{r['calls']}" for r in prof["host_top"][:6]),
+          flush=True)
+    ph = prof["phases"]
+    print(f"leg {name} device time by phase (ms, busy "
+          f"{ph['busy_ms']:.2f}): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in ph["phases_ms"].items()),
+          flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 6: the chunk
+# --------------------------------------------------------------------------
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (NaN payloads and the sign of zero included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(as_int), b.view(as_int)
+    return torch.equal(a, b)
+
+
+def _state_copy(state) -> dict:
+    return {k: v.detach().clone() for k, v in state.tensors().items()}
+
+
+def _update_err(before: dict, a: dict, b: dict) -> float:
+    """‖Δa − Δb‖ / ‖Δb‖ over the parameters, Δ = final − ``before``."""
+    num = den = 0.0
+    for k, v in before.items():
+        if k.startswith("params/"):
+            da, db = a[k].double() - v.double(), b[k].double() - v.double()
+            num += float(((da - db) ** 2).sum())
+            den += float((db ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def _timed(fn) -> tuple:
+    """(fn's result, its device ms by CUDA events around it)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to its deterministic algorithms (no autotuning),
+    its other settings (TF32 off) left as they are."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+class _ChunkRuns:
+    """K steps of a program from one snapshot of its state, eagerly, as a
+    chunk through the loop's engine client, or through the loop a user
+    runs; each run leaves the state as the snapshot had it."""
+
+    def __init__(self, program):
+        self.name, self.runner, self.cfg = (program.name, program.runner,
+                                            program.cfg)
+        self.K, self.step0 = self.cfg.steps_per_call, self.runner.state.step
+        self.snap = StateSnapshot(self.runner.state.tensors())
+        client = self.runner.chunk_client(self.step0,
+                                          self.step0 + self.K - 1)
+        try:
+            self.chunk = client.assemble(0, [(self.step0, self.K)])
+        finally:
+            client.cleanup()
+        self.client, self.extras = client, client.extras(self.chunk)
+
+    def rewind(self):
+        self.snap.restore()
+        self.runner.state.step = self.step0
+
+    def _end(self, recs, ms, k):
+        final = _state_copy(self.runner.state)
+        self.rewind()
+        return recs, ms / k, final
+
+    def eager(self):
+        """(records, ms/step by CUDA events, final state)."""
+        recs, ms = _timed(lambda: [self.runner.step() for _ in range(self.K)])
+        return self._end(recs, ms, self.K)
+
+    def chunk_run(self):
+        """The chunk's (records, ms/step by CUDA events, final state)."""
+        (_, block), ms = _timed(
+            lambda: self.client.dispatch(self.runner.state, self.chunk))
+        recs = [{**dict(zip(self.client.block_names, row)),
+                 **{c: float(v[i]) for c, v in self.extras.items()}}
+                for i, row in enumerate(block.cpu().tolist())]
+        return self._end(recs, ms, self.K)
+
+    def loop(self, chunks: int):
+        """``runner.run`` over ``chunks`` chunks: (its last record, host
+        wall ms/step of the whole call, final state)."""
+        t0 = time.perf_counter()
+        last = self.runner.run(self.step0 + chunks * self.K - 1)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        require(last["step"] == self.step0 + chunks * self.K - 1,
+                f"chunk {self.name}: the loop ended at step {last['step']}")
+        return self._end(last, wall_ms, chunks * self.K)
+
+
+def _check_records(name, cfg, recs_a, recs) -> None:
+    """The discrete columns of a chunked run equal the eager run's, its
+    losses are finite and every cyclic step locates the adversary."""
+    for i, (ra, rc) in enumerate(zip(recs_a, recs)):
+        for c in DISCRETE:
+            if c in ra:
+                require(rc.get(c) == ra[c], f"chunk {name} step {i + 1} of "
+                        f"the chunk: {c} {rc.get(c)}, eager {ra[c]}")
+        require(math.isfinite(rc["loss"]), f"chunk {name}: loss {rc}")
+        if cfg.approach == "cyclic":
+            require(rc["honest_located"] == N - 2 * S
+                    and rc["located_errors"] == rc["det_tp"] == 1,
+                    f"chunk {name} step {i + 1} of the chunk: adversary not "
+                    f"located: {rc}")
+
+
+def _differs(fin_x: dict, fin_y: dict) -> dict:
+    """The state tensors that differ: name -> largest absolute gap."""
+    return {k: float((fin_x[k].double() - fin_y[k].double()).abs().max())
+            for k in fin_y if not _same_bits(fin_x[k], fin_y[k])}
+
+
+def _loop_records(recs_c, last) -> list:
+    """A K-step loop's records as far as they can be compared: its last
+    record (``runner.run`` returns that one) after the chunk's others."""
+    return recs_c[:-1] + [{k: last[k] for k in recs_c[-1]}]
+
+
+def hold_bitwise(name, cfg, eager_a, eager_b, runs) -> dict:
+    """Two eager runs (records, final state) of the same K steps must agree
+    bit for bit; then each of ``runs`` (what, records, final state) — the
+    chunk, the chunk again, the loop — must give the first one's records
+    (every block column) and final state (parameters, momentum,
+    statistics) bit for bit."""
+    (recs_a, fin_a), (recs_b, fin_b) = eager_a, eager_b
+    eager_gap = _differs(fin_b, fin_a)
+    losses_a = [r["loss"] for r in recs_a]
+    require(not eager_gap and [r["loss"] for r in recs_b] == losses_a,
+            f"chunk {name}: two eager runs of the same steps differ: losses "
+            f"{losses_a} vs {[r['loss'] for r in recs_b]}, state "
+            f"{dict(list(eager_gap.items())[:6])} ({len(eager_gap)} "
+            f"tensors)")
+    held = []
+    for what, recs, fin in runs:
+        _check_records(name, cfg, recs_a, recs)
+        cols = [c for c in recs[0] if c in recs_a[0]]
+        rows = [[r[c] for c in cols] for r in recs]
+        gap = _differs(fin, fin_a)
+        held.append({"run": what, "rows_bitwise":
+                     rows == [[r[c] for c in cols] for r in recs_a],
+                     "state_differs": gap})
+        require(held[-1]["rows_bitwise"] and not gap, f"chunk {name}: "
+                f"{what} against the eager run: rows {rows} vs eager "
+                f"{[[r[c] for c in cols] for r in recs_a]}, state "
+                f"{dict(list(gap.items())[:6])} ({len(gap)} tensors)")
+    return {"cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "state_tensors": len(fin_a), "held": held}
+
+
+def chunk_leg(lp, program, dev, profile: bool) -> dict:
+    """Phase 6 for one leg (module docstring). Timing on the leg's own
+    setup: K eager steps, the chunk (capture, then replays only) and the
+    loop over LOOP_CHUNKS chunks. Agreement (``hold_bitwise``): the LM
+    legs on that setup, from a second eager run and the timed chunks; the
+    ResNet legs on a fresh setup under deterministic cuDNN, its own two
+    eager runs, two chunks and the loop. Every eager run of a setup comes
+    before its capture: an eager step's peak beside the graph's pool does
+    not fit the card on ``lm_simulate_flash``. The default-setting chunk
+    of a ResNet leg is held to its eager run within the leg's card-vs-CPU
+    tolerance (loss 1e-4 relative, update 5e-2 relative L2,
+    cross_device_check). The state is left as the snapshot had it."""
+    name, cfg = lp.name, program.cfg
+    K, lm = cfg.steps_per_call, lp.route == "lm"
+    runs = _ChunkRuns(program)
+    recs_e, eager_ms, fin_e = runs.eager()
+    recs_b, _, fin_b = runs.eager() if lm else (None, None, None)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs_c, first_ms, fin_c = runs.chunk_run()  # warm-up, capture, replays
+    first_wall_s = time.perf_counter() - t0
+    captured = ops.launch_counts()
+    recs_c2, chunk_ms, fin_c2 = runs.chunk_run()
+    last, loop_wall_ms, _ = runs.loop(LOOP_CHUNKS)
+    loop_ms = last["step_ms"]
+    for k in EXPECT[name]:
+        require(captured[k] > 0, f"chunk {name}: kernel {k} is not in the "
+                f"captured step ({captured})")
+    loss_tol, upd_tol = (1e-5, 1e-3) if lm else (1e-4, 5e-2)
+    default_err = []
+    for recs, fin in ((recs_c, fin_c), (recs_c2, fin_c2)):
+        _check_records(name, cfg, recs_e, recs)
+        default_err.append({
+            "loss_rel_err": max(abs(c["loss"] - a["loss"]) / abs(a["loss"])
+                                for a, c in zip(recs_e, recs)),
+            "update_rel_l2_err": _update_err(runs.snap.saved, fin, fin_e)})
+        require(default_err[-1]["loss_rel_err"] <= loss_tol
+                and default_err[-1]["update_rel_l2_err"] <= upd_tol,
+                f"chunk {name}: {default_err[-1]} against the eager run "
+                f"(tol loss {loss_tol}, update {upd_tol})")
+    graph = runs.client.many.graph()
+    if lm:
+        last1, _, fin_l = runs.loop(1)
+        agreement = hold_bitwise(
+            name, cfg, (recs_e, fin_e), (recs_b, fin_b),
+            [("chunk", recs_c, fin_c), ("chunk again", recs_c2, fin_c2),
+             ("the loop", _loop_records(recs_c, last1), fin_l)])
+        det = ""
+    else:
+        with cudnn_deterministic():
+            fresh = lp.build(dev, full=True, max_steps=1 + K,
+                             steps_per_call=K, dataset=program.runner.ds)
+            fresh.runner.step()  # the momentum buffers exist from here
+            fr = _ChunkRuns(fresh)
+            (da, det_eager_ms, fa), (db, _, fb) = fr.eager(), fr.eager()
+            (dc, _, fc), (dc2, det_chunk_ms, fc2) = (fr.chunk_run(),
+                                                     fr.chunk_run())
+            dl, _, fl = fr.loop(1)
+            agreement = hold_bitwise(
+                name, cfg, (da, fa), (db, fb),
+                [("chunk", dc, fc), ("chunk again", dc2, fc2),
+                 ("the loop", _loop_records(dc, dl), fl)])
+        agreement.update(eager_ms_per_step=det_eager_ms,
+                         chunk_ms_per_step=det_chunk_ms)
+        det = (f", deterministic cuDNN: eager {det_eager_ms:.2f}, chunk "
+               f"{det_chunk_ms:.2f} ms/step")
+    out = {"k": K, "eager_ms_per_step": eager_ms,
+           "chunk_ms_per_step": chunk_ms, "loop_ms_per_step": loop_ms,
+           "loop_chunks": LOOP_CHUNKS, "loop_wall_ms_per_step": loop_wall_ms,
+           "first_chunk_ms_per_step": first_ms,
+           "first_chunk_wall_s": first_wall_s,
+           "default_settings_err": default_err, "agreement": agreement,
+           "captured_launches": captured,
+           "pool_bytes": graph.pool_bytes, "slot_waits": graph.slot_waits,
+           "records": recs_c}
+    print(f"chunk {name}: eager {eager_ms:.2f} ms/step, chunk {chunk_ms:.2f} "
+          f"ms/step (K={K}, CUDA events around the dispatch of an assembled "
+          f"chunk; the capturing chunk {first_ms:.2f} ms/step, "
+          f"{first_wall_s:.2f} s wall), the loop {loop_ms:.2f} ms/step (its "
+          f"records' step_ms over {LOOP_CHUNKS} chunks: assembly, prefetch, "
+          f"dispatch and flush; the whole call {loop_wall_ms:.2f} ms/step "
+          f"wall); default settings vs eager: worst loss rel "
+          f"{max(e['loss_rel_err'] for e in default_err):.2e} (tol "
+          f"{loss_tol:g}), update "
+          f"{max(e['update_rel_l2_err'] for e in default_err):.2e} (tol "
+          f"{upd_tol:g}); bit for bit (eager twice, chunk, chunk again, the "
+          f"loop; {agreement['state_tensors']} state tensors and every "
+          f"block column{det}): yes; pool {graph.pool_bytes / 2**30:.2f} "
+          f"GiB; captured {captured}", flush=True)
+    if profile and name == "lm_shared_flash":
+        out["profile"] = prof = profile_chunk(runs.client, runs.runner,
+                                              runs.chunk, runs.rewind)
+        print(f"chunk {name} profile: device busy {prof['device_busy_ms']:.2f}"
+              f" ms of {prof['wall_ms']:.2f} ms wall a chunk of {K} under the "
+              f"profiler ({100 * prof['busy_share']:.1f}% busy); "
+              f"{100 * prof['device_busy_ms'] / (K * chunk_ms):.1f}% of the "
+              f"unprofiled chunk's {K * chunk_ms:.2f} ms (CUDA events)",
               flush=True)
     return out
+
+
+def profile_chunk(client, runner, chunk, rewind) -> dict:
+    """One chunk (replays only) under torch.profiler: the device's busy
+    time (its kernels, copies and sets) against the chunk's wall time
+    inside the profiler, dispatch to synchronise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        client.dispatch(runner.state, chunk)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rewind()
+    busy_ms = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.key not in PHASES) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms}
+
+
+def chunk_summary(legs) -> dict:
+    """Eager, chunk and loop ms/step of every leg, and the flagship ratio
+    as bench.py computes its vs_baseline — the geometric-median step's ms
+    over the cyclic simulate step's, each timed as the dispatch of chunks
+    already assembled (bench.py's time_scanned_steps) — beside the same
+    ratio from the loop's own step_ms (assembly and flush included)."""
+    cols = ("eager_ms_per_step", "chunk_ms_per_step", "loop_ms_per_step")
+    by = {lg["leg"]: lg["chunk"] for lg in legs}
+    out = {name: {c: v[c] for c in cols} for name, v in by.items()}
+    ratio = {c: by["geomedian"][c] / by["simulate"][c] for c in cols}
+    print(f"chunk flagship: vs_baseline = geomedian / simulate = "
+          f"{ratio['chunk_ms_per_step']:.4f} under the chunk (the loop "
+          f"{ratio['loop_ms_per_step']:.4f}, eager "
+          f"{ratio['eager_ms_per_step']:.4f}); eager -> chunk / loop ms/step: "
+          + ", ".join(f"{n} {v['eager_ms_per_step']:.2f} -> "
+                      f"{v['chunk_ms_per_step']:.2f} / "
+                      f"{v['loop_ms_per_step']:.2f}"
+                      for n, v in out.items()), flush=True)
+    return {"legs": out, "vs_baseline": ratio["chunk_ms_per_step"],
+            "vs_baseline_loop": ratio["loop_ms_per_step"],
+            "vs_baseline_eager": ratio["eager_ms_per_step"]}
+
+
+def replay_bitwise(name: str, fn) -> None:
+    """``fn`` (a kernel wrapper's call on static inputs) launched directly,
+    then captured alone in a CUDA graph (after a warm-up call on a side
+    stream) and replayed: its outputs bit for bit."""
+    def outs():
+        r = fn()
+        return [r] if isinstance(r, torch.Tensor) else list(r)
+
+    direct = [t.clone() for t in outs()]
+    current = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        outs()
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = outs()
+    graph.replay()
+    torch.cuda.synchronize()
+    require(all(_same_bits(a, b) for a, b in zip(direct, captured)),
+            f"{name}: its replay from a CUDA graph differs from a direct "
+            f"launch")
+    del graph, captured
+
+
+def graph_replay_kernels(code, dev) -> list:
+    """Each kernel of the legs (rows 1–9 of the kernel table) captured in a
+    graph, its replay bit for bit its direct launch, at the main paths'
+    shapes: n=8, d=11,173,962 (the coded products, the narrow
+    recombination at int8 and bf16 block 256, the approx decode f32 and
+    int8 with rows 2 and 5 absent), the locator at one column, the flash
+    kernels at G=192, T=512, Dh=64."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    t = code.tensors(dev)
+    grads = torch.randn((N, D), generator=g, device=dev)
+    f = drng.random_projection_factors(SEED, D).to(dev)
+    v_re, v_im = torch.randn((2, N), generator=g, device=dev)
+    checked = []
+
+    def check(name, fn):
+        replay_bitwise(name, fn)
+        checked.append(name)
+
+    check("complex_matmul", lambda: coded.complex_matmul(
+        t["w_masked_re"], t["w_masked_im"], grads))
+    enc_re, enc_im = coded.complex_matmul(t["w_masked_re"],
+                                          t["w_masked_im"], grads)
+    check("complex_project", lambda: coded.complex_project(enc_re, enc_im, f))
+    check("complex_recombine", lambda: coded.complex_recombine(
+        v_re, v_im, enc_re, enc_im))
+    e_re, e_im, pres = locator_columns(code, 1, (3,), (), dev, g)
+    check("cyclic_locator", lambda: decode_kernels.cyclic_locator(
+        code, e_re, e_im, pres, cyclic.HEALTH_REL_TOL))
+    for mode in ("int8", "bf16"):
+        wire = (mode, numerics.narrow_wire_rows(enc_re, mode, BLOCK),
+                numerics.narrow_wire_rows(enc_im, mode, BLOCK), BLOCK)
+        check(f"cyclic_narrow_recombine [{mode}]",
+              lambda: decode_kernels.cyclic_narrow_recombine(v_re, v_im,
+                                                            wire))
+        del wire
+    del enc_re, enc_im
+    acode = approx.build_approx_code(N, 1.5)
+    present = torch.ones(N, dtype=torch.bool)
+    present[[2, 5]] = False
+    vn = (approx.decode_weights(acode, present)[0] / N).to(dev)
+    pres_f = present.float().to(dev)
+    prow = approx.encode_shared(acode, grads)
+    prow[[2, 5]] = 0.0
+    check("approx_decode [f32]", lambda: decode_kernels.approx_decode(
+        prow, grads, vn, pres_f))
+    wire = ("int8", numerics.narrow_wire_rows(prow, "int8", BLOCK), BLOCK)
+    check("approx_decode [int8]", lambda: decode_kernels.approx_decode(
+        None, grads, vn, pres_f, wire))
+    del grads, prow, wire
+    q, k, v, do = (torch.randn((G_LM, 512, 64), generator=g, device=dev)
+                   for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v)
+    dcap = (do * o).sum(-1)
+    check("flash_fwd", lambda: fa.flash_fwd(q, k, v))
+    check("flash_dq", lambda: fa.flash_dq(q, k, v, do, lse, dcap))
+    check("flash_dkv", lambda: fa.flash_dkv(q, k, v, do, lse, dcap))
+    print(f"graph replay: {len(checked)} kernel calls, each captured alone "
+          f"and replayed bit for bit its direct launch: {checked}",
+          flush=True)
+    return checked
 
 
 def lint_legs(dev) -> list:
@@ -1077,9 +1524,10 @@ def lint_legs(dev) -> list:
     slows each later kernel launch (a leg timed after a profiled step ran
     up to 40 ms a step slower, PERF.md §6)."""
     rows = []
-    for lp in registry.collect():
+    for lp in registry.collect() + registry.collect_chunks():
         rows.append({"leg": lp.name,
                      **lint_leg(lp.name, lp.build(dev, full=True))})
+        gc.collect()
         torch.cuda.empty_cache()
     return rows
 
@@ -1102,7 +1550,9 @@ def lint_leg(name, program) -> dict:
           f"{r['memory_budget']['budget'] / 2**30:.2f}), absolute peak "
           f"{r['memory_budget']['peak_bytes'] / 2**30:.3f} GiB, "
           f"{r['in_place']['state_tensors']} state tensors in place, "
-          f"{row['ops']} ops", flush=True)
+          f"{row['ops']} ops"
+          + (f"; flush {r['host_traffic']['flush']}"
+             if "flush" in r["host_traffic"] else ""), flush=True)
     require(row["ok"], f"{name}: the program lint failed "
             f"{row['failed_rules']}: " + "; ".join(
                 r[k].get("error", "") for k in row["failed_rules"]))
@@ -1436,12 +1886,17 @@ def main(argv=None) -> int:
     record["kernel_audit"] = audit_kernels()
     record["kernel_audit_s"] = time.perf_counter() - t0
 
+    record["graph_replay"] = graph_replay_kernels(code, dev)
+    torch.cuda.empty_cache()
+
     legs = []
     for lp in registry.collect():
         steps = args.lm_steps if lp.route == "lm" else args.steps
         legs.append(run_leg(lp, steps, dev, args.profile))
+        gc.collect()  # the leg's setups and their graphs' pools
         torch.cuda.empty_cache()
     record["legs"] = legs
+    record["chunk"] = chunk_summary(legs)
     record["cross_device"] = cross_device_check(dev)
     record["wire_checks"] = wire_checks(dev)
     record["lm_checks"] = lm_checks(dev)
@@ -1485,6 +1940,12 @@ def main(argv=None) -> int:
         row["launches"] = src["launches"][row["name"]]
         row["launches_from_leg"] = src["leg"]
         row["launches_per_step"] = row["launches"] / src["steps"]
+    for row in kernels:
+        if not row.get("control"):
+            row["graph_replay_bitwise"] = any(
+                c.split(" ")[0] == row["name"] for c in record["graph_replay"])
+            require(row["graph_replay_bitwise"], f"{row['name']}: no graph "
+                    f"replay check")
     record["kernels"] = kernels
     record["script_s"] = time.perf_counter() - t_start
     print(f"done: every phase passed in {record['script_s']:.1f} s "

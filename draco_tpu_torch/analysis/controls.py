@@ -26,7 +26,6 @@ from draco_tpu_torch.analysis.registry import (
     DEFAULT_DTYPES,
     Manifest,
     Program,
-    state_tensors,
 )
 
 N, D = 4, 64
@@ -71,7 +70,7 @@ def _mini(device, step_body, manifest=None, name="honest") -> Program:
 
     step()  # the first step makes the momentum buffers
     return Program(f"control_{name}", manifest, dev, step,
-                   lambda: state_tensors(box["state"]))
+                   lambda: box["state"].tensors())
 
 
 def honest_program(device=None) -> Program:

@@ -5,7 +5,9 @@
 
 Builds every registered leg (``analysis/registry.py``) through the entry
 points a user calls, runs one warm-up step and then one inspected step, and
-holds it to its manifest (``analysis/rules.py``). Then it runs the
+holds it to its manifest (``analysis/rules.py``); the same for the chunked
+programs, a chunk a step (the CPU loop on the CPU, the graph's replays on
+the card), with their flush. Then it runs the
 seeded-defect controls (``analysis/controls.py``); a control's row is ok
 when it trips exactly its rule. ``--fast`` builds the legs at CI size;
 without it they run at the width ``chip_smoke.py`` runs them. On the CPU
@@ -33,8 +35,9 @@ DEFAULT_OUT = str(_build.BUILD_DIR / "audit" / "program_lint.json")
 
 def lint_leg(program) -> dict:
     """One warm-up step through the loop (momentum buffers, plans, kernel
-    loads), then the inspected step: the report row."""
-    program.runner.step()
+    loads; a chunked program's first chunk, its capture on the card, and
+    flush), then the inspected step: the report row."""
+    (program.warm or program.runner.step)()
     row, _ = rules.lint_program(program)
     return row
 
@@ -61,7 +64,7 @@ def controls_for(device) -> list:
 
 
 def select(names: str) -> list:
-    programs = registry.collect()
+    programs = registry.collect() + registry.collect_chunks()
     if not names:
         return programs
     keep = set()

@@ -11,7 +11,10 @@ that no output-level test sees: the element types it computes in, the host
 synchronisations and host-to-device bytes it makes, the collectives it
 calls, that it updates its state in place, and its peak device memory.
 ``analysis/rules.py`` holds each step to its manifest;
-``analysis/program_lint.py`` drives the catalog.
+``analysis/program_lint.py`` drives the catalog. Two legs also register
+their chunked program (:class:`ChunkProgram`, ``steps_per_call`` K > 1):
+one inspected chunk of K steps through the loop's engine client — on the
+card the replays of the captured step — and its flush.
 
 The full-width configurations are the legs' own (PERF.md §4): ResNet-18 on
 synthetic CIFAR-10 at n=8 workers of batch 32, s=1, a rev_grad adversary
@@ -83,7 +86,10 @@ class Manifest:
     ``in_place``: parameters, momentum buffers and batch statistics keep
     their storage across the step.
     ``max_peak_bytes``: the memory one step allocates on the card above
-    what was live when it began; None skips the rule."""
+    what was live when it began, and a chunked program's graph pool; None
+    skips the rule.
+    ``flush_fetches``: a chunked program's device-to-host fetches in one
+    flush (1: every pending metrics block in one copy); None for a step."""
 
     allowed_dtypes: frozenset = DEFAULT_DTYPES
     bf16_promotions: tuple = ("_to_copy",)
@@ -93,6 +99,7 @@ class Manifest:
     collectives: Optional[dict] = dataclasses.field(default_factory=dict)
     in_place: bool = True
     max_peak_bytes: Optional[int] = None
+    flush_fetches: Optional[int] = None
 
     @property
     def h2d_bytes(self) -> int:
@@ -101,9 +108,12 @@ class Manifest:
 
 @dataclasses.dataclass
 class Program:
-    """A built program: ``step()`` runs one step through the user's entry
-    points without reading its metrics; ``state()`` names its state
-    tensors."""
+    """A built program: ``step()`` runs one step (a chunked program: one
+    chunk) through the user's entry points without reading its metrics;
+    ``state()`` names its state tensors. ``warm()`` runs what precedes the
+    inspected step (default: one eager step of ``runner``); ``flush()``, a
+    chunked program's, fetches and writes its pending metrics and returns
+    the fetches it made; ``pool_bytes()`` the memory its graph holds."""
 
     name: str
     manifest: Manifest
@@ -112,15 +122,9 @@ class Program:
     state: Callable[[], dict]
     runner: object = None  # the Trainer / TokenLoop, for the legs
     cfg: object = None
-
-
-def state_tensors(state) -> dict:
-    """A TrainState's tensors: parameters, momentum buffers, statistics."""
-    out = {f"params/{k}": v for k, v in state.params.items()}
-    out.update({f"momentum/{k}": v
-                for k, v in (state.opt.bufs or {}).items()})
-    out.update({f"stats/{k}": v for k, v in state.stats.items()})
-    return out
+    warm: Optional[Callable[[], object]] = None
+    flush: Optional[Callable[[], int]] = None
+    pool_bytes: Optional[Callable[[], int]] = None
 
 
 def uploads(cfg) -> dict:
@@ -138,8 +142,6 @@ def uploads(cfg) -> dict:
         out["present (bool)"] = n
     if cfg.approach == "approx":
         out["v/n and presence (f32)"] = 2 * n * 4
-        if stragglers:
-            out["presence (f32, the where-select)"] = n * 4
     return out
 
 
@@ -153,13 +155,13 @@ class LintProgram:
     overrides: dict
     peak_gb: float
 
-    def config(self, full: bool = False, max_steps: int = 3):
+    def config(self, full: bool = False, max_steps: int = 3, **fields):
         from draco_tpu_torch.config import TrainConfig
 
         base = CNN_FULL if self.route == "cnn" else LM_FULL
         small = {} if full else (CNN_CI if self.route == "cnn" else LM_CI)
         return TrainConfig(**{**base, **self.overrides, **small,
-                              "max_steps": max_steps}).validate()
+                              "max_steps": max_steps, **fields}).validate()
 
     def manifest(self, cfg, full: bool) -> Manifest:
         dtypes = DEFAULT_DTYPES | WIRE_DTYPES[cfg.wire_dtype]
@@ -174,13 +176,8 @@ class LintProgram:
             uploads=uploads(cfg),
             max_peak_bytes=int(self.peak_gb * 2 ** 30) if full else None)
 
-    def build(self, device=None, full: bool = False, max_steps: int = 3,
-              dataset=None) -> Program:
-        """The leg's runner on ``device`` (default cuda) and its step."""
-        from draco_tpu_torch.runtime import resolve_device
-
-        cfg = self.config(full, max_steps)
-        dev = resolve_device(device)
+    def runner(self, cfg, dev, full: bool, dataset=None):
+        """The leg's Trainer or TokenLoop at ``cfg`` on ``dev``."""
         if self.route == "cnn":
             from draco_tpu_torch.data.datasets import load_dataset
             from draco_tpu_torch.training.trainer import Trainer
@@ -189,28 +186,99 @@ class LintProgram:
                 dataset = (load_dataset(cfg.dataset) if full else
                            load_dataset(cfg.dataset, synthetic_train=256,
                                         synthetic_test=16))
-            runner = Trainer(cfg, device=dev, dataset=dataset, quiet=True)
-            setup = runner.setup
+            return Trainer(cfg, device=dev, dataset=dataset, quiet=True)
+        from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
+        from draco_tpu_torch.parallel.token_loop import TokenLoop
 
-            def step():
-                x, y, adv, present = runner.inputs(runner.state.step)
+        return TokenLoop(build_sp_train_setup(cfg, dev), cfg, quiet=True)
+
+    def build(self, device=None, full: bool = False, max_steps: int = 3,
+              dataset=None, **fields) -> Program:
+        """The leg's runner on ``device`` (default cuda) and its step;
+        ``fields`` override the configuration's (``steps_per_call``)."""
+        from draco_tpu_torch.runtime import resolve_device
+
+        cfg = self.config(full, max_steps, **fields)
+        dev = resolve_device(device)
+        runner = self.runner(cfg, dev, full, dataset)
+        setup = runner.setup
+
+        def step():
+            args = runner.inputs(runner.state.step)
+            if self.route == "cnn":
+                x, y, adv, present = args
                 runner.state, metrics = setup.train_step(
                     runner.state, x, y, adv, present=present)
-                return metrics
-        else:
-            from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
-            from draco_tpu_torch.parallel.token_loop import TokenLoop
-
-            setup = build_sp_train_setup(cfg, dev)
-            runner = TokenLoop(setup, cfg, quiet=True)
-
-            def step():
-                toks, adv = runner.inputs(runner.state.step)
-                runner.state, metrics = setup.train_step(runner.state, toks,
-                                                         adv)
-                return metrics
+            else:
+                runner.state, metrics = setup.train_step(runner.state, *args)
+            return metrics
         return Program(self.name, self.manifest(cfg, full), dev, step,
-                       lambda: state_tensors(runner.state), runner, cfg)
+                       lambda: runner.state.tensors(), runner, cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkProgram:
+    """A leg's chunked program: ``steps_per_call`` = K (2 at CI size) and
+    one chunk of K steps a ``step()``, through the loop's engine client
+    (``control/clients.py``) and ``train_many``. Its manifest: no
+    synchronising call inside a chunk, one device-to-host fetch a flush,
+    the H2D bytes of a chunk (its staging copy: K steps' uploads) and a
+    peak that includes the graph's private pool."""
+
+    name: str
+    leg: str  # the LintProgram it chunks
+    K: int = 4
+
+    def config(self, full: bool = False):
+        k = self.K if full else 2
+        return get(self.leg).config(full, max_steps=2 * k, steps_per_call=k)
+
+    def manifest(self, cfg, full: bool) -> Manifest:
+        k = cfg.steps_per_call
+        m = get(self.leg).manifest(cfg, full)
+        return dataclasses.replace(
+            m, uploads={f"{name} x{k}": b * k for name, b in m.uploads.items()},
+            flush_fetches=1)
+
+    def build(self, device=None, full: bool = False, dataset=None) -> Program:
+        from draco_tpu_torch.runtime import resolve_device
+        from draco_tpu_torch.utils.metrics import (
+            DeferredMetricWriter,
+            MetricWriter,
+        )
+
+        lp = get(self.leg)
+        cfg = self.config(full)
+        dev = resolve_device(device)
+        runner = lp.runner(cfg, dev, full, dataset)
+        client = runner.chunk_client(1, cfg.max_steps)
+        ranges = client.ranges
+        deferred = DeferredMetricWriter(MetricWriter("", quiet=True))
+        done = []
+
+        def step():
+            chunk = client.assemble(len(done), ranges)
+            runner.state, block = client.dispatch(runner.state, chunk)
+            deferred.defer(range(chunk.start, chunk.start + chunk.k),
+                           client.block_names, block, client.extras(chunk))
+            done.append(chunk.start)
+
+        def flush() -> int:
+            before = deferred.fetches
+            deferred.flush()
+            return deferred.fetches - before
+
+        def warm():
+            step()
+            flush()
+
+        def pool_bytes() -> int:
+            graph = client.many.graph()
+            return graph.pool_bytes if graph is not None else 0
+
+        return Program(self.name, self.manifest(cfg, full), dev, step,
+                       lambda: runner.state.tensors(), runner, cfg,
+                       warm=warm, flush=flush, pool_bytes=pool_bytes)
 
 
 _CYCLIC_SHARED = dict(approach="cyclic", redundancy="shared")
@@ -237,6 +305,15 @@ PROGRAMS = (
 )
 
 
+# the flagship's coded leg and the host-bound LM leg (PERF.md §5)
+CHUNKS = (ChunkProgram("chunk_simulate", "simulate"),
+          ChunkProgram("chunk_lm_shared_flash", "lm_shared_flash"))
+
+
+def collect_chunks() -> "list[ChunkProgram]":
+    return list(CHUNKS)
+
+
 def collect() -> "list[LintProgram]":
     names = [p.name for p in PROGRAMS]
     if len(set(names)) != len(names):
@@ -244,9 +321,9 @@ def collect() -> "list[LintProgram]":
     return list(PROGRAMS)
 
 
-def get(name: str) -> LintProgram:
-    for p in PROGRAMS:
+def get(name: str):
+    for p in PROGRAMS + CHUNKS:
         if p.name == name:
             return p
     raise KeyError(f"no lint program named {name!r}; registered: "
-                   f"{[p.name for p in PROGRAMS]}")
+                   f"{[p.name for p in PROGRAMS + CHUNKS]}")

@@ -17,7 +17,10 @@ rules read that record against the program's manifest:
   host_traffic    the step's synchronising calls equal the manifest's count
                   (on the card the sync-debug warnings; on the CPU the ops
                   that would synchronise on a card: a scalar read, nonzero,
-                  a boolean mask's selection, unique, equal)
+                  a boolean mask's selection, unique, equal); a chunked
+                  program's flush makes the manifest's device-to-host
+                  fetches (the flush's own count, and on the card the
+                  device-to-host copies the dispatcher saw)
   in_place        every state tensor keeps its storage (the counterpart of
                   the reference's donation rule)
   collectives     calls into torch.distributed by kind equal the manifest
@@ -26,9 +29,10 @@ rules read that record against the program's manifest:
                   host-to-device copies the dispatcher saw
   memory_budget   (card) the memory the step allocates above what was live
                   when it began (``max_memory_allocated`` after a reset,
-                  less ``memory_allocated`` at the start) at most the
-                  manifest's; the row also carries the absolute peak (the
-                  per-leg memory ledger)
+                  less ``memory_allocated`` at the start), with a chunked
+                  program's graph pool, at most the manifest's; the row
+                  also carries the absolute peak (the per-leg memory
+                  ledger)
 
 The sharding rules of the reference (sharding_contract, collective_axes,
 replication_leaks) wait for the port's sequence and tensor parallel routes.
@@ -77,7 +81,7 @@ class _Recorder(TorchDispatchMode):
         self.promotions = collections.Counter()
         self.syncs = collections.Counter()
         self.collectives = collections.Counter()
-        self.h2d_bytes = self.h2d_copies = 0
+        self.h2d_bytes = self.h2d_copies = self.d2h_copies = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -95,12 +99,14 @@ class _Recorder(TorchDispatchMode):
             self.dtypes[dt] += 1
         if torch.bfloat16 in in_dt and torch.float32 in out_dt:
             self.promotions[name] += 1
-        if name in ("_to_copy", "copy_") and ins and outs and (
-                outs[0].device.type == "cuda"
-                and ins[-1 if name == "copy_" else 0].device.type == "cpu"):
+        if name in ("_to_copy", "copy_") and ins and outs:
             src = ins[-1 if name == "copy_" else 0]
-            self.h2d_bytes += src.numel() * src.element_size()
-            self.h2d_copies += 1
+            way = (src.device.type, outs[0].device.type)
+            if way == ("cpu", "cuda"):
+                self.h2d_bytes += src.numel() * src.element_size()
+                self.h2d_copies += 1
+            elif way == ("cuda", "cpu"):
+                self.d2h_copies += 1
         if name in _SYNC_OPS or (
                 name in ("index", "index_put", "index_put_")
                 and any(a.dtype == torch.bool for a in ins[1:])):
@@ -189,6 +195,11 @@ def inspect_step(program) -> dict:
         out["sync_sites"] = sorted(rec.syncs)
     after = {k: v.untyped_storage().data_ptr()
              for k, v in program.state().items()}
+    if program.pool_bytes is not None and dev.type == "cuda":
+        out["pool_bytes"] = program.pool_bytes()
+        out["step_peak_bytes"] += out["pool_bytes"]
+    if program.flush is not None:
+        out["flush"] = inspect_flush(program)
     out["ops"] = rec.ops
     out["dtypes"] = rec.dtypes
     out["promotions"] = rec.promotions
@@ -199,6 +210,28 @@ def inspect_step(program) -> dict:
                                     if after.get(k) != before[k]),
                     "added": sorted(set(after) - set(before))}
     return out
+
+
+def inspect_flush(program) -> dict:
+    """A chunked program's flush under the recorder (and on the card the
+    sync-debug mode): its fetches, syncs and device-to-host copies."""
+    rec = _Recorder()
+    if program.device.type != "cuda":
+        with rec:
+            fetches = program.flush()
+        return {"fetches": fetches, "syncs": sum(rec.syncs.values()),
+                "d2h_copies": rec.d2h_copies}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with rec:
+                fetches = program.flush()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return {"fetches": fetches, "d2h_copies": rec.d2h_copies,
+            "syncs": sum("called a synchronizing" in str(w.message)
+                         for w in caught)}
 
 
 def _names(dtypes) -> list:
@@ -241,6 +274,16 @@ def rule_host_traffic(rec, m) -> dict:
                 "error": f"{rec['syncs']} synchronising calls in one step, "
                          f"the manifest says {m.host_syncs}: the host waits "
                          f"for the card inside the step"}
+    if m.flush_fetches is not None:
+        fl = rec.get("flush", {})
+        res["flush"] = fl
+        d2h = (fl.get("d2h_copies") if rec["device"].startswith("cuda")
+               else fl.get("fetches"))
+        if fl.get("fetches") != m.flush_fetches or d2h != m.flush_fetches:
+            return {"ok": False, **res,
+                    "error": f"the flush fetched {fl.get('fetches')} times "
+                             f"({d2h} device-to-host copies), the manifest "
+                             f"says {m.flush_fetches}"}
     return {"ok": True, **res}
 
 

@@ -15,8 +15,11 @@
       --worker-fail 1 --batch-size 2 --seq-len 512 --model-dim 768 \\
       --model-heads 12 --model-layers 8 --vocab 8192 --max-steps 5
 
-``--trace-dir DIR`` writes the loop's host spans to ``DIR/trace.json``
-(``python -m draco_tpu_torch.obs.trace_report DIR`` folds them by phase).
+``--steps-per-call K`` (K > 1) trains in chunks of K steps, on the card
+each chunk the replays of one captured CUDA graph
+(``training/chunk_graph.py``). ``--trace-dir DIR`` writes the loop's host
+spans to ``DIR/trace.json`` (``python -m draco_tpu_torch.obs.trace_report
+DIR`` folds them by phase).
 Runs on the card unless ``--device cpu`` is given. With ``--preset``, the
 flags given on the command line override the preset's fields.
 ``network=TransformerLM`` runs the single-shard LM step and its token loop
@@ -72,6 +75,7 @@ FLAGS = {
     "--compute-dtype": (str, "compute_dtype"),
     "--eval-freq": (int, "eval_freq"),
     "--trace-dir": (str, "trace_dir"),
+    "--steps-per-call": (int, "steps_per_call"),
 }
 
 

@@ -15,11 +15,14 @@ least squares v* = argmin ‖W_Sᵀ v − 1‖₂ (``decode_weights``) and retur
   recovered_fraction  fraction of batches computed by a present worker
 
 ``decode_weights`` is an O(n³) solve that depends only on the code and the
-host's presence mask, so it runs on the host in float32; the step uploads
-v/n with the mask (2n floats, one asynchronous copy) and the O(n·d) tail
-runs through ``ops.decode_kernels.approx_decode``: the kernel on the card,
-its plain version on the CPU. No Byzantine certificate: ``config.validate``
-rejects live adversaries under this code.
+host's presence mask, so it runs on the host in float32 (``host_solve``,
+which the chunked loops run for each step of a chunk at assembly); the
+step reads v/n with the presence as one (2, n) tensor (2n floats, one
+asynchronous copy, or a row of the chunk's staging buffer) and the O(n·d)
+tail runs through ``ops.decode_kernels.approx_decode``
+(``decode_device``): the kernel on the card, its plain version on the CPU.
+No Byzantine certificate: ``config.validate`` rejects live adversaries
+under this code.
 """
 
 from __future__ import annotations
@@ -105,6 +108,29 @@ def recovered_fraction(code: ApproxCode, present=None) -> torch.Tensor:
     return covered.to(torch.float32).mean()
 
 
+def host_solve(code: ApproxCode, present=None):
+    """The decode's host half for one arrival set: ``(v, vn_pres,
+    host)``. ``v`` (n,) the decode weights, ``vn_pres`` (2, n) f32 = [v/n,
+    presence] as the device half reads them, ``host`` the health columns
+    known on the host: ``bound`` and ``recovered_fraction`` (0-d)."""
+    v, _, bound = decode_weights(code, present)
+    vn_pres = torch.stack([v / code.n, presence(code, present)])
+    return v, vn_pres, {"bound": bound,
+                        "recovered_fraction": recovered_fraction(code,
+                                                                 present)}
+
+
+def decode_device(code: ApproxCode, rows: Optional[torch.Tensor],
+                  batch_grads: torch.Tensor, vn_pres: torch.Tensor,
+                  wire=None):
+    """The decode's device half: ``(decoded (d,), residual (0-d))`` from
+    ``vn_pres`` (2, n) on the step's device (:func:`host_solve`)."""
+    decoded, sq_diff, sq_g = decode_kernels.approx_decode(
+        rows, batch_grads, vn_pres[0], vn_pres[1], wire)
+    scale = torch.clamp_min(torch.sqrt(sq_g) / code.n, 1e-30)
+    return decoded, torch.sqrt(sq_diff) / scale
+
+
 def decode(code: ApproxCode, rows: Optional[torch.Tensor],
            batch_grads: torch.Tensor, present=None, wire=None):
     """Partial-recovery decode with its health: ``(decoded (d,), v (n,),
@@ -115,13 +141,7 @@ def decode(code: ApproxCode, rows: Optional[torch.Tensor],
     decode (a NaN payload must not survive). ``decoded`` is the mean
     gradient Σ v_i·row_i / n; ``health`` holds ``residual``, ``bound``
     and ``recovered_fraction`` as 0-d tensors (the last two on the host)."""
-    n = code.n
-    v, _, bound = decode_weights(code, present)
-    vn_pres = upload(torch.stack([v / n, presence(code, present)]),
-                     batch_grads.device)
-    decoded, sq_diff, sq_g = decode_kernels.approx_decode(
-        rows, batch_grads, vn_pres[0], vn_pres[1], wire)
-    scale = torch.clamp_min(torch.sqrt(sq_g) / n, 1e-30)
-    health = {"residual": torch.sqrt(sq_diff) / scale, "bound": bound,
-              "recovered_fraction": recovered_fraction(code, present)}
-    return decoded, v, health
+    v, vn_pres, host = host_solve(code, present)
+    decoded, residual = decode_device(
+        code, rows, batch_grads, upload(vn_pres, batch_grads.device), wire)
+    return decoded, v, {"residual": residual, **host}

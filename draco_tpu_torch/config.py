@@ -92,7 +92,9 @@ class TrainConfig:
     moe_experts: int = 0
     remat: bool = False
     scan_layers: bool = False
-    token_gen: str = "host"
+    token_gen: str = "host"  # "device" is not ported yet
+    # steps a dispatch: K > 1 runs the chunked loops (on the card, one
+    # captured CUDA graph replayed K times a chunk)
     steps_per_call: int = 1
     # --- run ---
     train_dir: str = "./train_out/"
@@ -169,9 +171,7 @@ class TrainConfig:
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32|bfloat16, got "
                              f"{self.compute_dtype}")
-        if self.steps_per_call != 1:
-            raise ValueError("steps_per_call > 1 is not ported yet (the port "
-                             "runs the eager one-step loops)")
+        self._validate_chunk()
         if self.approach == "approx":
             self._validate_approx()
         self._validate_stragglers()
@@ -182,6 +182,28 @@ class TrainConfig:
             raise ValueError("compute_dtype=bfloat16 is not ported yet for "
                              "the CNN path (it computes in float32)")
         return self
+
+    def _validate_chunk(self) -> None:
+        """The chunked loops (``steps_per_call`` K > 1: K steps a dispatch,
+        on the card replays of one captured CUDA graph) and the token
+        source."""
+        if self.steps_per_call < 1:
+            raise ValueError(
+                f"steps_per_call must be >= 1, got {self.steps_per_call}")
+        if self.steps_per_call > 1 and self.err_mode == "random":
+            raise ValueError(
+                "err_mode='random' with steps_per_call > 1 is not ported yet: "
+                "the random attack seeds a fresh host generator every step, "
+                "which a captured CUDA graph cannot replay (the reference "
+                "folds its key in-graph); run steps_per_call=1")
+        if self.token_gen not in ("host", "device"):
+            raise ValueError(
+                f"token_gen must be host|device, got {self.token_gen!r}")
+        if self.token_gen == "device":
+            raise ValueError(
+                "token_gen='device' is not ported yet: the port generates "
+                "the LM's tokens on the host (and the CNN Trainer reads "
+                "dataset batches, which no generator replaces)")
 
     def _validate_approx(self) -> None:
         """The reference's approx checks (draco_tpu/config.py)."""
@@ -305,7 +327,6 @@ class TrainConfig:
             "moe_experts": self.moe_experts != 0,
             "remat": self.remat,
             "scan_layers": self.scan_layers,
-            "token_gen": self.token_gen != "host",
         }
         for field, bad in not_ported.items():
             if bad:

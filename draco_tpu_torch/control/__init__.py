@@ -1,0 +1,2 @@
+"""The chunked host loop of the port (draco_tpu/control): the engine and
+its two clients."""

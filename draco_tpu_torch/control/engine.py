@@ -1,0 +1,88 @@
+"""The chunked host loop — ``ChunkedEngine`` (draco_tpu/control/engine.py),
+one implementation for the CNN Trainer and the LM token loop.
+
+Per chunk i of ``ranges`` (``batching.chunk_ranges``): dispatch it (the
+client's ``train_many``: on the card k replays of the captured step, which
+return at once), defer its (k, m) metrics block, then assemble chunk i+1
+on the host while the card runs chunk i. At a flush boundary — an
+``eval_freq`` multiple, the last chunk, or 4 blocks pending — the host
+fetches every pending block in one copy (the loop's one synchronisation)
+and writes the records; at an ``eval_freq`` boundary the client then runs
+its eval. A chunked record's ``step_ms`` is the flush window's wall time
+(host clock, from the window's first dispatch to its fetch) divided by its
+steps, as the reference's chunked ``t_comp`` is.
+
+Host spans (``obs/tracer.py``), the reference engine's names: ``gather``
+(the client's assembly) and ``dispatch`` once a chunk with ``chunk_start``
+and ``k``, ``sync`` (the fetch) and ``flush`` (the records) once a flush
+with ``at_step``. The step's draco_* phases run inside ``dispatch``: on
+the card only in the capture, on the CPU in every step.
+
+Client protocol (``control/clients.py``):
+
+  ranges                      the chunks of the client's steps
+  many                        the setup's chunk runner (its ``graph()``)
+  block_names                 the columns of the chunk's metrics block
+  keep                        the columns a written record keeps, or None
+  assemble(i, ranges)         chunk i on the host (a ``Chunk``)
+  dispatch(state, chunk)      -> (state, block)
+  extras(chunk)               host columns of the chunk's records, or {}
+  should_log(step)            the loop's metrics.jsonl cadence
+  boundary(end, state)        the eval at an eval_freq boundary
+  cleanup()                   always runs on exit (close the prefetcher)
+
+Not ported: the reference engine's heartbeat, compile watch, profiler
+window, graceful stop and checkpoint, and its autopilot hook.
+"""
+
+from __future__ import annotations
+
+import time
+
+from draco_tpu_torch.utils.metrics import DeferredMetricWriter
+
+MAX_PENDING = 4  # blocks deferred before a flush is forced
+
+
+class ChunkedEngine:
+    def __init__(self, client, *, eval_freq: int, tracer, writer):
+        self.client = client
+        self.eval_freq = eval_freq
+        self.tracer = tracer
+        self.deferred = DeferredMetricWriter(writer)
+
+    def run(self, state, ranges):
+        """Drive chunks over ``ranges``; returns (state, last record)."""
+        client, deferred, tracer = self.client, self.deferred, self.tracer
+        if not ranges:
+            return state, {}
+        try:
+            chunk = client.assemble(0, ranges)
+            window_t0, window_steps = time.perf_counter(), 0
+            for i, (start, k) in enumerate(ranges):
+                end = start + k - 1
+                with tracer.span("dispatch", chunk_start=start, k=k), \
+                        tracer.activate():
+                    state, block = client.dispatch(state, chunk)
+                deferred.defer(range(start, end + 1), client.block_names,
+                               block, client.extras(chunk))
+                window_steps += k
+                if i + 1 < len(ranges):  # overlap: assemble i+1 during i
+                    chunk = client.assemble(i + 1, ranges)
+                boundary = bool(self.eval_freq) and end % self.eval_freq == 0
+                if boundary or i + 1 == len(ranges) \
+                        or deferred.depth >= MAX_PENDING:
+                    with tracer.span("sync", at_step=end):
+                        deferred.fetch()
+                    step_ms = ((time.perf_counter() - window_t0) * 1e3
+                               / window_steps)
+                    with tracer.span("flush", at_step=end):
+                        deferred.flush(client.should_log,
+                                       {"step_ms": step_ms}, client.keep)
+                        tracer.flush()
+                    if boundary:
+                        client.boundary(end, state)
+                    window_t0, window_steps = time.perf_counter(), 0
+        finally:
+            client.cleanup()
+        return state, deferred.last

@@ -1,1 +1,2 @@
-"""Data pipeline of the port: datasets, batching, augmentation."""
+"""Data pipeline of the port: datasets, batching, augmentation, chunk
+prefetch."""

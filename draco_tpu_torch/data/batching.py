@@ -1,4 +1,5 @@
-"""Deterministic batch construction (draco_tpu/data/batching.py, copied).
+"""Deterministic batch construction (draco_tpu/data/batching.py, copied),
+and the chunked loops' step ranges.
 
   * baseline: each worker draws an independent shuffle.
   * cyclic: every worker addresses one deterministic *global* batch of n·B
@@ -65,3 +66,75 @@ def gather(ds: Dataset, idx: np.ndarray, num_workers: int, batch_size: int):
         x.reshape((num_workers, batch_size) + x.shape[1:]),
         y.reshape(num_workers, batch_size),
     )
+
+
+# ---- step ranges: the chunked loops' index path ----------------------------
+#
+# The chunked loops (``steps_per_call`` K > 1) feed K steps a dispatch, so
+# they want all K steps' indices at once. Each *_range function returns a
+# (k, n·B) block whose row i equals the per-step function at step0 + i bit
+# for bit; one permutation a (stream, epoch) instead of one a step.
+
+
+def _perm_rows(perm_for_epoch, epochs: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """Gather ``perm_for_epoch(e)[cols[i]]`` for each step row i (epochs[i]=e),
+    fetching each epoch's permutation once."""
+    out = np.empty(cols.shape, dtype=np.int64)
+    for e in np.unique(epochs):
+        rows = epochs == e
+        out[rows] = perm_for_epoch(int(e))[cols[rows]]
+    return out
+
+
+def _range_cols(offs: np.ndarray, width: int, n_samples: int) -> np.ndarray:
+    """(k, width) positions of each step's slice, wrap folded in: identical to
+    ``_perm_slice``'s take-then-wrap for every width <= n_samples."""
+    starts = (offs * width) % n_samples
+    return (starts[:, None] + np.arange(width)[None, :]) % n_samples
+
+
+def indices_baseline_range(n_samples: int, step0: int, k: int, num_workers: int,
+                           batch_size: int, seed: int) -> np.ndarray:
+    """(k, n·B) stacked flat indices; row i == indices_baseline(step0 + i)."""
+    bpe = max(n_samples // batch_size, 1)
+    steps = np.arange(step0, step0 + k)
+    epochs, offs = steps // bpe, steps % bpe
+    cols = _range_cols(offs, batch_size, n_samples)
+    out = np.empty((k, num_workers * batch_size), dtype=np.int64)
+    for w in range(num_workers):
+        out[:, w * batch_size : (w + 1) * batch_size] = _perm_rows(
+            lambda e, w=w: drng.epoch_permutation(seed + 31 * (w + 1), e, n_samples),
+            epochs, cols,
+        )
+    return out
+
+
+def indices_cyclic_range(n_samples: int, step0: int, k: int, num_workers: int,
+                         batch_size: int, seed: int) -> np.ndarray:
+    """(k, n·B) stacked flat indices; row i == indices_cyclic(step0 + i)."""
+    global_bs = num_workers * batch_size
+    bpe = max(n_samples // global_bs, 1)
+    steps = np.arange(step0, step0 + k)
+    epochs, offs = steps // bpe, steps % bpe
+    cols = _range_cols(offs, global_bs, n_samples)
+    return _perm_rows(
+        lambda e: drng.epoch_permutation(seed, e, n_samples), epochs, cols
+    )
+
+
+def chunk_ranges(start: int, last: int, steps_per_call: int,
+                 eval_freq: int) -> list:
+    """[(start, k), ...] covering 1-based steps [start, last]: chunks of up
+    to ``steps_per_call`` steps, snapped so every ``eval_freq`` multiple (and
+    the final step) ends a chunk. The one chunk-boundary rule of both
+    chunked loops (the CNN Trainer and the LM token loop)."""
+    K = max(steps_per_call, 1)
+    out = []
+    s = start
+    while s <= last:
+        e = min(s + K - 1, last)
+        if eval_freq:
+            e = min(e, ((s - 1) // eval_freq + 1) * eval_freq)
+        out.append((s, e - s + 1))
+        s = e + 1
+    return out

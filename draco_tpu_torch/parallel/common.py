@@ -22,7 +22,6 @@ from draco_tpu_torch.coding import approx as approx_mod
 from draco_tpu_torch.coding import cyclic as cyclic_mod
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.obs.tracer import phase
-from draco_tpu_torch.runtime import upload
 
 # column order of the LM metric block; cyclic appends DECODE_HEALTH_NAMES
 TOKEN_METRIC_NAMES = ("loss",)
@@ -54,25 +53,25 @@ def build_code_from_cfg(cfg):
     return None
 
 
-def approx_aggregate(code, grads: torch.Tensor, present=None, cfg=None):
-    """The approx code's aggregation: encode the (n, d) batch gradients
-    into partial sums, zero-fill the absent rows by where-select, put them
-    on the wire (``cfg.wire_dtype``), decode. ``present``: the host's (n,)
-    mask or None. Returns ``(decoded mean (d,), health)``. No adversary
-    injection: the code carries no Byzantine certificate."""
+def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
+                     masked: bool = False, cfg=None):
+    """The approx code's aggregation on the device: encode the (n, d) batch
+    gradients into partial sums, zero-fill the absent rows by where-select
+    (``masked``: the step has stragglers), put them on the wire
+    (``cfg.wire_dtype``), decode. ``vn_pres``: (2, n) [v/n, presence] on the
+    device, from the host solve (``coding.approx.host_solve``). Returns
+    ``(decoded mean (d,), residual (0-d))``. No adversary injection: the
+    code carries no Byzantine certificate."""
     with phase("draco_encode"):
         rows = approx_mod.encode_shared(code, grads)
-        if present is not None:
-            pres = upload(approx_mod.presence(code, present), grads.device)
-            rows = torch.where(pres[:, None] > 0, rows,
+        if masked:
+            rows = torch.where(vn_pres[1][:, None] > 0, rows,
                                torch.zeros_like(rows))
         wire = None if cfg is None else numerics.narrow_wire_single(cfg, rows)
         if wire is not None:
             rows = None  # the decode reads the narrow buffers
     with phase("draco_decode"):
-        agg, _v, health = approx_mod.decode(code, rows, grads,
-                                            present=present, wire=wire)
-    return agg, health
+        return approx_mod.decode_device(code, rows, grads, vn_pres, wire)
 
 
 def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
@@ -119,13 +118,13 @@ def present_mean(values: torch.Tensor,
 
 
 def finish_flat_step(state, agg: torch.Tensor, layout) -> None:
-    """The optimizer update on the aggregated flat gradient, in place, and
-    the step counter (the reference's guard is not ported yet)."""
+    """The optimizer update on the aggregated flat gradient, in place (the
+    reference's guard is not ported yet). The step counter is the caller's:
+    a captured step runs this once at capture."""
     from draco_tpu_torch import params as params_mod
 
     with phase("draco_update"):
         state.opt.step(state.params, params_mod.unflatten(agg, layout))
-    state.step += 1
 
 
 def token_metric_names(cfg) -> tuple:
@@ -138,17 +137,13 @@ def token_metric_names(cfg) -> tuple:
 
 def decode_health_metrics(health, adv_mask: torch.Tensor,
                           present: Optional[torch.Tensor] = None) -> dict:
-    """The health columns of a coded decode ({} for the baseline, whose
-    health is None): APPROX_HEALTH_NAMES for the approx code, else
-    DECODE_HEALTH_NAMES with the flag and adversary counts gated by
-    ``present`` — a straggling adversary's row never arrives, so it is
-    neither detectable nor ground truth."""
+    """The health columns of a cyclic decode ({} for the baseline, whose
+    health is None): DECODE_HEALTH_NAMES with the flag and adversary counts
+    gated by ``present`` — a straggling adversary's row never arrives, so
+    it is neither detectable nor ground truth. (The approx code's columns
+    come from ``approx_aggregate`` and the host solve.)"""
     if health is None:
         return {}
-    if "bound" in health:
-        return {"decode_residual": health["residual"],
-                "decode_residual_bound": health["bound"],
-                "recovered_fraction": health["recovered_fraction"]}
     flagged, adv = health["flagged"], adv_mask
     if present is not None:
         flagged, adv = flagged & present, adv & present

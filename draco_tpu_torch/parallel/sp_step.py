@@ -17,7 +17,14 @@ at sp=1 that hop brings back the shard's own first token, masked.)
 The decode's random projection is drawn once on the host from the seed
 (``rng.random_projection_factors``; the reference draws it in-graph from
 the same seed with the jax PRNG, other numbers of the same distribution);
-``train_step(rand_factor=)`` takes an explicit one, as the tests need.
+``build_sp_train_setup(rand_factor=)`` and ``train_step(rand_factor=)``
+take an explicit one, as the tests need.
+
+As in ``training/step.py``, ``step_body`` runs the step on its host inputs
+(tokens and the adversary mask) once they are on the device: the eager
+``train_step`` uploads them, ``train_token_many`` (the counterpart of
+the reference's ``train_token_many`` at sp=1) runs a chunk of k ≤ K steps
+from the chunk's staging buffers (``training/chunk_graph.py``).
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ from draco_tpu_torch.parallel.common import (
 )
 from draco_tpu_torch.obs.tracer import phase
 from draco_tpu_torch.runtime import resolve_device, upload
-from draco_tpu_torch.training.step import TrainState
+from draco_tpu_torch.training.chunk_graph import Chunk
+from draco_tpu_torch.training.step import TrainState, chunk_runner
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -64,6 +72,14 @@ class SPTrainSetup(NamedTuple):
     metric_names: tuple
     device: torch.device
     decode_impl: str  # which locator runs: "cuda" (the kernel) | "plain"
+    # (state, inputs on the device, rand_factor=None, noise=None) -> the
+    # metrics of block_names (0-d device tensors)
+    step_body: Any
+    # metric_names, and honest_located on the cyclic code
+    block_names: tuple
+    make_chunk: Any  # (start, tokens (k, n, B, T), masks (k, n)) -> Chunk
+    # (state, chunk) -> (state, (k, len(block_names)) metrics on the device)
+    train_token_many: Any
 
 
 def synthetic_text(seed: int, step: int, n: int, batch: int,
@@ -79,12 +95,15 @@ def synthetic_text(seed: int, step: int, n: int, batch: int,
 
 
 def build_sp_train_setup(cfg: TrainConfig, device=None,
-                         init: Optional[dict] = None) -> SPTrainSetup:
+                         init: Optional[dict] = None,
+                         rand_factor=None) -> SPTrainSetup:
     """Model, state and the step for ``cfg`` on ``device`` (default cuda).
 
     ``init``: optional parameters keyed by torch name (``params.from_jax``
     of the reference's); otherwise they are drawn on the host from
-    ``cfg.seed``, so every device starts from the same weights."""
+    ``cfg.seed``, so every device starts from the same weights.
+    ``rand_factor``: the decode's random projection (d,) for every step;
+    otherwise drawn from ``cfg.seed``."""
     cfg.validate()
     if cfg.network != LM_NETWORK:
         raise ValueError(f"the LM step runs network={LM_NETWORK}, got "
@@ -135,13 +154,22 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     batch_ids = (torch.as_tensor(code.batch_ids, device=dev).long()
                  if simulate else None)
     # every participant derives the same projection; drawn once on the host
-    projection = (drng.random_projection_factors(cfg.seed, dim).to(dev)
-                  if code is not None else None)
+    projection = None
+    if code is not None:
+        projection = (drng.random_projection_factors(cfg.seed, dim)
+                      if rand_factor is None
+                      else torch.as_tensor(rand_factor)).to(dev)
+    names = token_metric_names(cfg)
+    # not a column of the reference's LM schema: for callers that check the
+    # honest set (n − 2s rows on every clean decode)
+    block_names = names + (("honest_located",) if code is not None else ())
 
-    def train_step(state, tokens, adv_mask, rand_factor=None, noise=None):
-        # host inputs by pinned asynchronous copies: no synchronising call
-        toks = upload(torch.as_tensor(tokens), dev).long()
-        mask = upload(torch.as_tensor(adv_mask), dev)
+    def make_chunk(start, tokens, masks):
+        return Chunk(start, len(tokens), {"tokens": torch.as_tensor(tokens),
+                                          "adv": torch.as_tensor(masks)})
+
+    def step_body(state, inputs, rand_factor=None, noise=None):
+        toks, mask = inputs["tokens"].long(), inputs["adv"]
         if simulate:
             hat_s = code.hat_s
             grads, losses = lane_grads(state.params,
@@ -161,9 +189,17 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
         metrics = {"loss": present_mean(losses)}
         metrics.update(decode_health_metrics(health, mask))
         if health is not None:
-            # not a column of the reference's LM schema: for callers that
-            # check the honest set (n − 2s rows on every clean decode)
             metrics["honest_located"] = health["honest"].sum()
+        return metrics
+
+    def train_step(state, tokens, adv_mask, rand_factor=None, noise=None):
+        # host inputs by pinned asynchronous copies: no synchronising call
+        inputs = {"tokens": torch.as_tensor(tokens),
+                  "adv": torch.as_tensor(adv_mask)}
+        metrics = step_body(state, {k: upload(v, dev)
+                                    for k, v in inputs.items()},
+                            rand_factor, noise)
+        state.step += 1
         return state, metrics
 
     @torch.no_grad()
@@ -171,10 +207,15 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
         toks = upload(torch.as_tensor(tokens), dev).long()
         return vmap(objective, in_dims=(None, 0))(p, toks).mean()
 
+    train_token_many = chunk_runner(
+        f"train_token_many[{cfg.approach}/{cfg.redundancy}]", cfg, dev,
+        state, step_body, block_names)
     return SPTrainSetup(model=model, state=state, train_step=train_step,
                         eval_step=eval_step, code=code, layout=layout,
-                        dim=dim, metric_names=token_metric_names(cfg),
-                        device=dev, decode_impl=decode_impl)
+                        dim=dim, metric_names=names, device=dev,
+                        decode_impl=decode_impl, step_body=step_body, block_names=block_names,
+                        make_chunk=make_chunk,
+                        train_token_many=train_token_many)
 
 
 def train_sp(cfg: TrainConfig, device=None, steps: Optional[int] = None,

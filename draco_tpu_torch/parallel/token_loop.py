@@ -1,27 +1,38 @@
-"""The eager LM training loop (draco_tpu/parallel/token_loop.py, one step
-per call).
+"""The LM training loop (draco_tpu/parallel/token_loop.py): one step a
+call, or K-step chunks at ``steps_per_call`` K > 1.
 
 Step t (1-based) trains on ``synthetic_text(seed, t, ...)`` with row t of
-the seeded adversary schedule. Each step's metrics are synchronised to the
-host; the first, the last and every ``log_every``-th go to
-``<train_dir>/metrics.jsonl`` under the reference's column names, and every
-``eval_freq``-th step adds the held-out loss on ``synthetic_text(seed + 1,
-0, ...)`` as ``{"step", "split": "eval", "loss"}``. With ``cfg.trace_dir``
-set, the host phases of each step (gather, dispatch, sync, flush, eval)
-and the step's draco_* phases go to ``trace_dir/trace.json``
-(``obs/tracer.py``). Checkpoints and the heartbeat are not ported yet.
+the seeded adversary schedule. The first, the last and every
+``log_every``-th record go to ``<train_dir>/metrics.jsonl`` under the
+reference's column names, and every ``eval_freq``-th step adds the
+held-out loss on ``synthetic_text(seed + 1, 0, ...)`` as ``{"step",
+"split": "eval", "loss"}``.
+
+The eager loop (K = 1) synchronises each step's metrics to the host. The
+chunked loop (K > 1, ``_run_chunked``, the reference's
+``_run_chunked`` at sp=1) runs chunks of up to K steps
+(``batching.chunk_ranges``, snapped so every ``eval_freq`` multiple ends
+a chunk) through ``setup.train_token_many`` — on the card one captured
+CUDA graph replayed — driven by ``control.engine.ChunkedEngine``: the next
+chunk's tokens are generated on a worker thread (``data/prefetch.py``)
+while the card runs the current one, the metrics reach the host once a
+flush, and the eval runs at the ``eval_freq`` boundaries, after the
+flush; a chunked record's ``step_ms`` is its flush window's wall time over
+its steps. With ``cfg.trace_dir`` set, the host phases (gather, dispatch,
+sync, flush, eval) and the step's draco_* phases go to
+``trace_dir/trace.json`` (``obs/tracer.py``). Checkpoints and the
+heartbeat are not ported yet.
 """
 
 from __future__ import annotations
 
-import json
-import os
 import time
 from typing import Optional
 
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.obs.tracer import make_tracer
+from draco_tpu_torch.utils.metrics import MetricWriter
 
 
 class TokenLoop:
@@ -35,8 +46,7 @@ class TokenLoop:
             cfg.vocab)
         self.adv_schedule = drng.adversary_schedule(
             cfg.seed, cfg.max_steps, cfg.num_workers, cfg.num_adversaries)
-        self.path = (os.path.join(cfg.train_dir, "metrics.jsonl")
-                     if cfg.train_dir else None)
+        self.writer = MetricWriter(cfg.train_dir, quiet)
         self.tracer = make_tracer(cfg.trace_dir)
 
     def inputs(self, step: int) -> tuple:
@@ -45,8 +55,9 @@ class TokenLoop:
         return self.text(self.cfg.seed, step), self.adv_schedule[step]
 
     def step(self) -> dict:
-        """Run the next step; returns its metrics as floats, with the wall
-        time of the step (host clock, device synchronised) as ``step_ms``."""
+        """Run the next step eagerly; returns its metrics as floats, with
+        the wall time of the step (host clock, device synchronised) as
+        ``step_ms``."""
         step = self.state.step
         if step > self.cfg.max_steps:
             raise ValueError(f"step {step} is past max_steps="
@@ -68,36 +79,55 @@ class TokenLoop:
         return float(self.setup.eval_step(self.state.params,
                                           self.text(self.cfg.seed + 1, 0)))
 
-    def _write(self, record: dict) -> None:
+    def eval_at(self, step: int) -> None:
+        """The held-out loss after ``step``, as its eval record."""
+        with self.tracer.span("eval"):
+            loss = self.eval_loss()
         with self.tracer.span("flush"):
-            if self.path:
-                with open(self.path, "a") as f:
-                    f.write(json.dumps(record) + "\n")
-            if not self.quiet:
-                print(" ".join(f"{k}={v:.6g}" if isinstance(v, float)
-                               else f"{k}={v}" for k, v in record.items()),
-                      flush=True)
+            self.writer.write({"step": step, "split": "eval", "loss": loss})
+
+    def chunk_client(self, first: int, last: int):
+        """The engine's client for steps [first, last] over a fresh token
+        prefetcher."""
+        from draco_tpu_torch.control.clients import TokenChunkClient
+        from draco_tpu_torch.data import prefetch as pf
+
+        prefetch = pf.TokenChunkPrefetcher(
+            lambda step: self.text(self.cfg.seed, step),
+            timeout_s=pf.STALL_TIMEOUT_S, tracer=self.tracer)
+        return TokenChunkClient(self, prefetch, first, last)
+
+    def _run_chunked(self, last_step: int) -> dict:
+        from draco_tpu_torch.control.engine import ChunkedEngine
+
+        client = self.chunk_client(self.state.step, last_step)
+        engine = ChunkedEngine(client, eval_freq=self.cfg.eval_freq,
+                               tracer=self.tracer, writer=self.writer)
+        self.state, last = engine.run(self.state, client.ranges)
+        return last
 
     def run(self, max_steps: Optional[int] = None) -> dict:
-        """Steps up to ``max_steps`` (default cfg.max_steps); returns the
-        last step's record."""
+        """Steps up to ``max_steps`` (default cfg.max_steps), eagerly or in
+        chunks by ``cfg.steps_per_call``; returns the last step's
+        record."""
         cfg = self.cfg
         last_step = cfg.max_steps if max_steps is None else max_steps
-        if self.path:
-            os.makedirs(cfg.train_dir, exist_ok=True)
-        first, last = self.state.step, {}
-        names = ("step",) + self.setup.metric_names + ("step_ms",)
-        while self.state.step <= last_step:
-            last = self.step()
-            step = last["step"]
-            if step % cfg.log_every == 0 or step in (first, last_step):
-                self._write({k: last[k] for k in names})
-            if cfg.eval_freq and step % cfg.eval_freq == 0:
-                with self.tracer.span("eval"):
-                    loss = self.eval_loss()
-                self._write({"step": step, "split": "eval", "loss": loss})
-        self.tracer.close()
-        return last
+        try:
+            if cfg.steps_per_call > 1:
+                return self._run_chunked(last_step)
+            first, last = self.state.step, {}
+            names = ("step",) + self.setup.metric_names + ("step_ms",)
+            while self.state.step <= last_step:
+                last = self.step()
+                step = last["step"]
+                if step % cfg.log_every == 0 or step in (first, last_step):
+                    with self.tracer.span("flush"):
+                        self.writer.write({k: last[k] for k in names})
+                if cfg.eval_freq and step % cfg.eval_freq == 0:
+                    self.eval_at(step)
+            return last
+        finally:
+            self.tracer.close()
 
 
 def run_token_loop(setup, cfg: TrainConfig, steps: Optional[int] = None,

@@ -27,9 +27,19 @@ def full_f32() -> None:
 def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A small host tensor on ``device``. To the card it goes from pinned
     memory, asynchronously on the current stream: a copy from pageable
-    memory would wait for the device to finish its queued work."""
+    memory would wait for the device to finish its queued work.
+
+    Refused while a CUDA graph captures: the captured copy would read the
+    pinned temporary again on every replay, after it was freed. A captured
+    step reads its host inputs from device staging buffers instead
+    (``training/chunk_graph.py``)."""
     if device.type != "cuda":
         return t
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "runtime.upload inside a CUDA graph capture: a captured copy "
+            "would read a freed pinned temporary on replay; stage the input "
+            "in the chunk's device buffers")
     return t.pin_memory().to(device, non_blocking=True)
 
 

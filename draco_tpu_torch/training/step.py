@@ -18,11 +18,17 @@ real tensor axis:
   update                    SGD with momentum on the decoded gradient
 
 The state carry is updated in place: parameters, momentum buffers and the
-BN statistics keep their storage across steps. The step's host inputs
-(batch, labels, augmentation draws, the adversary and presence masks)
-reach the card by pinned asynchronous copies (``runtime.upload``), so the
-step makes no synchronising call: the program lint
-(``analysis/``) holds it to both. Its phases run under
+BN statistics keep their storage across steps. The step is split in two:
+its host inputs (batch, labels, augmentation draws, the adversary and
+presence masks; the approx decode's host solve), and ``step_body``, which
+runs the step on them once they are on the device. The eager
+``train_step`` sends them by pinned asynchronous copies
+(``runtime.upload``), so the step makes no synchronising call: the program
+lint (``analysis/``) holds it to both. ``train_many`` runs a chunk of k ≤
+K = ``steps_per_call`` steps from the chunk's device staging buffers
+(``training/chunk_graph.py``): on the card as replays of the step
+captured in a CUDA graph, on the CPU as k eager runs of the same body,
+bit for bit the k eager steps. The phases run under
 ``obs.tracer.phase`` (``draco_comp``, ``draco_encode``, ``draco_decode``,
 ``draco_update``, the reference's ``jax.named_scope`` names), which mark
 host spans and profiler ranges when a tracer or the profiler is on and
@@ -35,10 +41,12 @@ and the decode agree with the reference coordinate for coordinate.
 Randomness: augmentation draws come from a ``torch.Generator`` per global
 batch row k (per worker on the baseline), folded from (seed + 2, step, k),
 drawn on the host so every device sees the same draws; the random
-projection from (seed, 7919). ``train_step`` takes explicit ``aug_draws``,
-``rand_factor`` and ``noise`` overrides so the tests can hand it the
-reference's own draws, and the step's ``present`` mask (the host's (n,)
-bool, False = the worker's row never arrives; None = all arrive).
+projection from (seed, 7919), or ``build_train_setup(rand_factor=)``.
+``train_step`` takes explicit ``aug_draws``, ``rand_factor`` and ``noise``
+overrides so the tests can hand it the reference's own draws, and the
+step's ``present`` mask (the host's (n,) bool, False = the worker's row
+never arrives; None = all arrive); ``make_chunk`` takes the chunk's
+``draws``.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from torch.func import functional_call, grad_and_value, vmap
 from draco_tpu_torch import aggregation, attacks, optim
 from draco_tpu_torch import params as params_mod
 from draco_tpu_torch import rng as drng
+from draco_tpu_torch.coding import approx as approx_mod
 from draco_tpu_torch.coding import cyclic as cyclic_mod
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import augment as augment_mod
@@ -69,8 +78,11 @@ from draco_tpu_torch.parallel.common import (
     present_mean,
 )
 from draco_tpu_torch.runtime import resolve_device, upload
+from draco_tpu_torch.training.chunk_graph import Chunk, StepGraph
 
 AUG_SALT = 2  # the reference's augmentation seed salt (seed + 2)
+# the approx decode's columns that the host solve gives (coding/approx.py)
+APPROX_HOST_NAMES = ("decode_residual_bound", "recovered_fraction")
 
 
 @dataclasses.dataclass
@@ -79,6 +91,14 @@ class TrainState:
     stats: dict  # "<path>/mean" | "<path>/var" -> (n, features) per worker
     opt: optim.SGD
     step: int = 1  # the reference's STEP_START = 1
+
+    def tensors(self) -> dict:
+        """The state's tensors: parameters, momentum buffers, statistics."""
+        out = {f"params/{k}": v for k, v in self.params.items()}
+        out.update({f"momentum/{k}": v
+                    for k, v in (self.opt.bufs or {}).items()})
+        out.update({f"stats/{k}": v for k, v in self.stats.items()})
+        return out
 
 
 class TrainSetup(NamedTuple):
@@ -93,6 +113,14 @@ class TrainSetup(NamedTuple):
     metric_names: tuple
     device: torch.device
     decode_impl: str  # which locator runs: "cuda" (the kernel) | "plain"
+    # (state, inputs on the device, rand_factor=None, noise=None) -> the
+    # metrics of block_names (0-d device tensors); no host work, no upload
+    step_body: Any
+    block_names: tuple  # the metric columns the device computes
+    # (start, xs, ys, masks, presents=None, draws=None) -> Chunk
+    make_chunk: Any
+    # (state, chunk) -> (state, (k, len(block_names)) metrics on the device)
+    train_many: Any
 
 
 def _cross_entropy(logits, labels):
@@ -118,14 +146,48 @@ def aug_draws(cfg: TrainConfig, step: int, rows: int):
     return tuple(torch.stack(d) for d in zip(*draws))
 
 
+def metrics_row(metrics: dict, names: tuple) -> torch.Tensor:
+    """A step's metrics as one float32 row in ``names`` order."""
+    return torch.stack([metrics[k].to(torch.float32) for k in names])
+
+
+def chunk_runner(name: str, cfg: TrainConfig, dev, setup_state, body,
+                 block_names: tuple):
+    """``train_many`` of a setup: the first chunk makes the momentum
+    buffers (zeros) and the :class:`StepGraph` over ``body(state, inputs)
+    -> metrics``, bound to ``setup_state``; each chunk then runs through it
+    and advances the state's step counter."""
+    box = {}
+
+    def train_many(state, chunk: Chunk):
+        if state is not setup_state:
+            raise ValueError(f"{name}: the chunk runs on the setup's own "
+                             f"state, which its graph updates in place")
+        if "graph" not in box:
+            state.opt.zero_bufs(state.params)
+            box["graph"] = StepGraph(
+                name, dev, cfg.steps_per_call, block_names,
+                lambda inputs: metrics_row(body(state, inputs), block_names),
+                state.tensors)
+        block = box["graph"].run(chunk)
+        state.step += chunk.k
+        return state, block
+
+    train_many.graph = lambda: box.get("graph")
+    return train_many
+
+
 def build_train_setup(cfg: TrainConfig, device=None,
                       dataset_name: Optional[str] = None,
-                      init: Optional[tuple] = None) -> TrainSetup:
+                      init: Optional[tuple] = None,
+                      rand_factor=None) -> TrainSetup:
     """Model, state and the step for ``cfg`` on ``device`` (default cuda).
 
     ``init``: optional ``(params, stats)`` as ``params.from_jax`` returns
     them (stats with or without the leading worker axis); otherwise the
-    parameters are drawn from ``cfg.seed``."""
+    parameters are drawn from ``cfg.seed``. ``rand_factor``: the cyclic
+    decode's random projection (d,) for every step; otherwise drawn from
+    ``cfg.seed``."""
     cfg.validate()
     dev = resolve_device(device)
     n = cfg.num_workers
@@ -166,16 +228,58 @@ def build_train_setup(cfg: TrainConfig, device=None,
             g, (loss, (new_st, prec1)) = lanes_fn(p, st, x, y)
             return params_mod.flatten(g, layout, lead=1), new_st, loss, prec1
 
-    def prep(state, x, y, rows, draws):
-        x = upload(torch.as_tensor(x), dev)
-        y = upload(torch.as_tensor(y), dev).long()
+    code = build_code_from_cfg(cfg)
+    decode_impl = resolve_decode_impl(cfg.decode_impl, dev)
+    host_names = APPROX_HOST_NAMES if cfg.approach == "approx" else ()
+    names = metric_names(cfg)
+    block_names = tuple(k for k in names if k not in host_names)
+
+    def step_inputs(step, adv_mask, present, draws):
+        """The host inputs of one step other than its batch, and its host
+        columns."""
+        out, host = {}, {}
         if use_aug:
             if draws is None:
-                draws = aug_draws(cfg, state.step, rows)
-            # the three draws in one copy
-            draws = upload(torch.stack([torch.as_tensor(t) for t in draws]),
-                           dev).unbind(0)
-            x = augment_mod.augment(x, *draws)
+                draws = aug_draws(cfg, step, n)
+            # the three draws in one tensor
+            out["draws"] = torch.stack([torch.as_tensor(t) for t in draws])
+        if cfg.approach == "approx":
+            # no adversary injects: stragglers are this code's whole fault
+            # model (config.validate)
+            _, out["vn_pres"], solved = approx_mod.host_solve(code, present)
+            host = {"decode_residual_bound": solved["bound"],
+                    "recovered_fraction": solved["recovered_fraction"]}
+        else:
+            out["adv"] = torch.as_tensor(adv_mask)
+        if present is not None:
+            if cfg.approach == "baseline":
+                raise ValueError("stragglers on approach=baseline are not "
+                                 "ported yet")
+            out["present"] = torch.as_tensor(present).cpu().bool()
+        return out, host
+
+    def host_inputs(step, x, y, adv_mask, present=None, aug_draws=None):
+        out, host = step_inputs(step, adv_mask, present, aug_draws)
+        return {"x": torch.as_tensor(x), "y": torch.as_tensor(y), **out}, host
+
+    def make_chunk(start, xs, ys, masks, presents=None, draws=None):
+        k = len(xs)
+        per = [step_inputs(start + i, masks[i],
+                           None if presents is None else presents[i],
+                           None if draws is None else draws[i])
+               for i in range(k)]
+        return Chunk(start, k,
+                     {"x": torch.as_tensor(xs), "y": torch.as_tensor(ys),
+                      **{name: torch.stack([p[0][name] for p in per])
+                         for name in per[0][0]}},
+                     {name: [float(p[1][name]) for p in per]
+                      for name in host_names})
+
+    def batch(inputs):
+        """The step's (n, B, ...) images, augmented, and int64 labels."""
+        x, y = inputs["x"], inputs["y"].long()
+        if "draws" in inputs:
+            x = augment_mod.augment(x, *inputs["draws"].unbind(0))
         return x, y
 
     def attack_generator(state, noise):
@@ -191,57 +295,43 @@ def build_train_setup(cfg: TrainConfig, device=None,
                            params_mod.unflatten(flat_grad, layout))
             for k, v in new_stats.items():
                 state.stats[k].copy_(v)
-        state.step += 1
-
-    def present_on_device(present):
-        """The host's (n,) presence mask as a bool tensor on the device."""
-        if present is None:
-            return None
-        return upload(torch.as_tensor(present).cpu().bool(), dev)
 
     def lane_metrics(losses, precs, pres):
         return {"loss": present_mean(losses, pres),
                 "prec1": present_mean(precs, pres)}
 
-    code = build_code_from_cfg(cfg)
-    decode_impl = resolve_decode_impl(cfg.decode_impl, dev)
     if cfg.approach == "baseline":
 
-        def train_step(state, x, y, adv_mask, aug_draws=None,
-                       rand_factor=None, noise=None, present=None):
+        def step_body(state, inputs, rand_factor=None, noise=None):
             del rand_factor
-            if present is not None:
-                raise ValueError("stragglers on approach=baseline are not "
-                                 "ported yet")
-            x, y = prep(state, x, y, n, aug_draws)
+            x, y = batch(inputs)
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
                                                     x, y)
             gen = attack_generator(state, noise)
-            mask = upload(torch.as_tensor(adv_mask), dev)
-            grads = attacks.inject_plain(grads, mask, cfg.err_mode,
+            grads = attacks.inject_plain(grads, inputs["adv"], cfg.err_mode,
                                          cfg.adversarial, noise, gen)
             with phase("draco_decode"):
                 agg = aggregation.aggregate(grads, cfg.mode,
                                             cfg.geomedian_iters)
             update(state, agg, new_stats)
-            return state, lane_metrics(losses, precs, None)
+            return lane_metrics(losses, precs, None)
 
     elif cfg.approach == "approx":
         # partial sums of the one-copy batch gradients (redundancy="shared"
-        # is the only approx shape); stragglers are this code's whole fault
-        # model: no adversary injects (config.validate)
+        # is the only approx shape)
 
-        def train_step(state, x, y, adv_mask, aug_draws=None,
-                       rand_factor=None, noise=None, present=None):
-            del adv_mask, rand_factor, noise
-            x, y = prep(state, x, y, n, aug_draws)
+        def step_body(state, inputs, rand_factor=None, noise=None):
+            del rand_factor, noise
+            x, y = batch(inputs)
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
                                                     x, y)
-            agg, health = approx_aggregate(code, grads, present, cfg)
+            pres = inputs.get("present")
+            agg, residual = approx_aggregate(code, grads, inputs["vn_pres"],
+                                             pres is not None, cfg)
             update(state, agg, new_stats)
-            metrics = lane_metrics(losses, precs, present_on_device(present))
-            metrics.update(decode_health_metrics(health, None))
-            return state, metrics
+            metrics = lane_metrics(losses, precs, pres)
+            metrics["decode_residual"] = residual
+            return metrics
 
     else:  # cyclic
         hat_s = code.hat_s
@@ -252,7 +342,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
         batch_ids = torch.as_tensor(code.batch_ids, device=dev).long()
         # every participant derives the same projection; drawn once on the
         # host, like the augmentation draws
-        projection = drng.random_projection_factors(cfg.seed, dim).to(dev)
+        projection = (drng.random_projection_factors(cfg.seed, dim)
+                      if rand_factor is None
+                      else torch.as_tensor(rand_factor)).to(dev)
 
         def compute_encoded(state, x, y):
             if cfg.redundancy == "shared":
@@ -278,14 +370,12 @@ def build_train_setup(cfg: TrainConfig, device=None,
             return (enc_re, enc_im, new_stats, losses.view(n, hat_s).mean(1),
                     precs.view(n, hat_s).mean(1))
 
-        def train_step(state, x, y, adv_mask, aug_draws=None,
-                       rand_factor=None, noise=None, present=None):
-            x, y = prep(state, x, y, n, aug_draws)
+        def step_body(state, inputs, rand_factor=None, noise=None):
+            x, y = batch(inputs)
             enc_re, enc_im, new_stats, losses, precs = compute_encoded(
                 state, x, y)
             gen = attack_generator(state, noise)
-            mask = upload(torch.as_tensor(adv_mask), dev)
-            pres = present_on_device(present)
+            mask, pres = inputs["adv"], inputs.get("present")
             with phase("draco_encode"):
                 enc_re, enc_im = attacks.inject_cyclic(
                     enc_re, enc_im, mask, cfg.err_mode, cfg.adversarial,
@@ -307,9 +397,26 @@ def build_train_setup(cfg: TrainConfig, device=None,
             metrics = lane_metrics(losses, precs, pres)
             metrics["honest_located"] = honest.sum()
             metrics.update(decode_health_metrics(health, mask, pres))
-            return state, metrics
+            return metrics
 
+    def train_step(state, x, y, adv_mask, aug_draws=None, rand_factor=None,
+                   noise=None, present=None):
+        inputs, host = host_inputs(state.step, x, y, adv_mask, present,
+                                   aug_draws)
+        # host inputs by pinned asynchronous copies: no synchronising call
+        metrics = step_body(state, {k: upload(v, dev)
+                                    for k, v in inputs.items()},
+                            rand_factor, noise)
+        state.step += 1
+        metrics.update(host)
+        return state, metrics
+
+    train_many = chunk_runner(
+        f"train_many[{cfg.approach}/{cfg.redundancy}]", cfg, dev, state,
+        step_body, block_names)
     return TrainSetup(model=model, state=state, train_step=train_step,
-                      code=code, layout=layout, dim=dim,
-                      metric_names=metric_names(cfg), device=dev,
-                      decode_impl=decode_impl)
+                      code=code, layout=layout, dim=dim, metric_names=names,
+                      device=dev, decode_impl=decode_impl,
+                      step_body=step_body,
+                      block_names=block_names, make_chunk=make_chunk,
+                      train_many=train_many)

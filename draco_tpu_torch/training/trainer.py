@@ -1,23 +1,31 @@
-"""The eager training loop (draco_tpu/training/trainer.py, one step per
-call).
+"""The CNN training loop (draco_tpu/training/trainer.py): one step a call,
+or K-step chunks at ``steps_per_call`` K > 1.
 
 Batches come from the reference's deterministic index streams
 (``indices_cyclic`` for the coded paths, ``indices_baseline`` otherwise) for
 1-based step t at index t − 1; the adversary mask of step t is row t of the
 seeded schedule, and under ``straggle_mode="drop"`` the step's presence
 mask is the negation of row t of the straggler schedule (a ``present``
-column then counts the arrived rows). Each step's metrics are synchronised
-to the host and every ``log_every``-th (and the first) goes to
-``<train_dir>/metrics.jsonl`` under the reference's column names. With
-``cfg.trace_dir`` set, the host phases of each step (gather, dispatch,
-sync, flush) and the step's draco_* phases go to ``trace_dir/trace.json``
+column then counts the arrived rows). The first and every
+``log_every``-th record go to ``<train_dir>/metrics.jsonl`` under the
+reference's column names.
+
+The eager loop (K = 1) synchronises each step's metrics to the host; its
+``step_ms`` is the step's wall time. The chunked loop (K > 1,
+``_run_chunked``) runs chunks of up to K steps (``batching.chunk_ranges``,
+snapped to ``eval_freq``) through ``setup.train_many`` — on the card one
+captured CUDA graph replayed — driven by ``control.engine.ChunkedEngine``:
+the next chunk's batches are gathered on a worker thread
+(``data/prefetch.py``) and assembled while the card runs the current one,
+and the metrics reach the host once a flush; a chunked record's
+``step_ms`` is its flush window's wall time over its steps. With
+``cfg.trace_dir`` set, the host phases (gather, dispatch, sync, flush) and
+the step's draco_* phases go to ``trace_dir/trace.json``
 (``obs/tracer.py``).
 """
 
 from __future__ import annotations
 
-import json
-import os
 import time
 from typing import Optional
 
@@ -28,6 +36,7 @@ from draco_tpu_torch.data.datasets import Dataset, load_dataset
 from draco_tpu_torch.obs.tracer import make_tracer
 from draco_tpu_torch.runtime import resolve_device
 from draco_tpu_torch.training.step import build_train_setup
+from draco_tpu_torch.utils.metrics import MetricWriter
 
 
 class Trainer:
@@ -67,8 +76,9 @@ class Trainer:
         return x, y, self.adv_schedule[step], present
 
     def step(self) -> dict:
-        """Run the next step; returns its metrics as floats, with the wall
-        time of the step (host clock, device synchronised) as ``step_ms``."""
+        """Run the next step eagerly; returns its metrics as floats, with
+        the wall time of the step (host clock, device synchronised) as
+        ``step_ms``."""
         step = self.state.step
         if step > self.cfg.max_steps:
             raise ValueError(f"step {step} is past max_steps="
@@ -89,27 +99,54 @@ class Trainer:
         out["step_ms"] = (time.perf_counter() - t0) * 1e3
         return {"step": step, **out}
 
+    # ---- chunking ------------------------------------------------------
+    def chunk_indices(self, start: int, k: int):
+        """(k, n·B) flat sample indices of 1-based steps [start, start+k):
+        row i equals step start + i's indices bit for bit."""
+        cfg = self.cfg
+        pick = (batching.indices_baseline_range if cfg.approach == "baseline"
+                else batching.indices_cyclic_range)
+        return pick(len(self.ds), start - 1, k, cfg.num_workers,
+                    cfg.batch_size, cfg.seed)
+
+    def chunk_client(self, first: int, last: int):
+        """The engine's client for steps [first, last] over a fresh batch
+        prefetcher."""
+        from draco_tpu_torch.control.clients import TrainerChunkClient
+        from draco_tpu_torch.data import prefetch as pf
+
+        cfg = self.cfg
+        prefetch = pf.ChunkPrefetcher(
+            self.ds, self.chunk_indices, cfg.num_workers, cfg.batch_size,
+            timeout_s=pf.STALL_TIMEOUT_S, tracer=self.tracer)
+        return TrainerChunkClient(self, prefetch, first, last)
+
+    def _run_chunked(self, last_step: int, writer: MetricWriter) -> dict:
+        from draco_tpu_torch.control.engine import ChunkedEngine
+
+        client = self.chunk_client(self.state.step, last_step)
+        engine = ChunkedEngine(client, eval_freq=self.cfg.eval_freq,
+                               tracer=self.tracer, writer=writer)
+        self.state, last = engine.run(self.state, client.ranges)
+        return last
+
     def run(self, max_steps: Optional[int] = None) -> dict:
-        """Steps up to ``max_steps`` (default cfg.max_steps); returns the
-        last step's record."""
+        """Steps up to ``max_steps`` (default cfg.max_steps), eagerly or in
+        chunks by ``cfg.steps_per_call``; returns the last step's
+        record."""
         cfg = self.cfg
         last_step = cfg.max_steps if max_steps is None else max_steps
-        path = (os.path.join(cfg.train_dir, "metrics.jsonl")
-                if cfg.train_dir else None)
-        if path:
-            os.makedirs(cfg.train_dir, exist_ok=True)
-        last = {}
-        while self.state.step <= last_step:
-            last = self.step()
-            step = last["step"]
-            if step % cfg.log_every == 0 or step == 1:
-                with self.tracer.span("flush"):
-                    if path:
-                        with open(path, "a") as f:
-                            f.write(json.dumps(last) + "\n")
-                    if not self.quiet:
-                        print(" ".join(f"{k}={v:.6g}" if isinstance(v, float)
-                                       else f"{k}={v}"
-                                       for k, v in last.items()), flush=True)
-        self.tracer.close()
-        return last
+        writer = MetricWriter(cfg.train_dir, self.quiet)
+        try:
+            if cfg.steps_per_call > 1:
+                return self._run_chunked(last_step, writer)
+            last = {}
+            while self.state.step <= last_step:
+                last = self.step()
+                step = last["step"]
+                if step % cfg.log_every == 0 or step == 1:
+                    with self.tracer.span("flush"):
+                        writer.write(last)
+            return last
+        finally:
+            self.tracer.close()

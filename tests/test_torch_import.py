@@ -59,7 +59,12 @@ def test_every_submodule_imported(probe):
                 "draco_tpu_torch.analysis.program_lint",
                 "draco_tpu_torch.obs.tracer",
                 "draco_tpu_torch.obs.trace_report",
-                "draco_tpu_torch.obs.step_ab"):
+                "draco_tpu_torch.obs.step_ab",
+                "draco_tpu_torch.training.chunk_graph",
+                "draco_tpu_torch.control.engine",
+                "draco_tpu_torch.control.clients",
+                "draco_tpu_torch.data.prefetch",
+                "draco_tpu_torch.utils.metrics"):
         assert mod in expected
 
 

@@ -156,7 +156,12 @@ def test_eval_step(leg):
 @pytest.mark.parametrize("override", [
     {"seq_shards": 2}, {"tensor_shards": 2}, {"pipeline_shards": 2},
     {"moe_experts": 4}, {"remat": True}, {"scan_layers": True},
-    {"token_gen": "device"}, {"steps_per_call": 4}, {"attn_impl": "ring"},
+    {"token_gen": "device"},
+    # K > 1 runs now; the random attack's per-step generator under it does
+    # not
+    pytest.param({"steps_per_call": 4, "err_mode": "random"},
+                 id="steps_per_call=4"),
+    {"attn_impl": "ring"},
     {"model_heads": 5}, {"model_dim": 24, "model_heads": 8},
     {"dataset": "synthetic-cifar10"}, {"compute_dtype": "float16"},
     {"approach": "maj_vote"}],
