@@ -19,7 +19,11 @@ prints no result line):
               every head width the kernels take; the three flash kernels
               bit for bit across launches and places in G, and their TF32
               tensor-core instructions (cuobjdump -sass); the projection
-              bit for bit across two launches; the audit's
+              bit for bit across two launches; the vote's row
+              fingerprints bit for bit (both uint32 hashes) at n=9, f32
+              and bf16, d=11,173,962 and 5003, aligned and offset
+              buffers, public and drawn salts, two launches each, and
+              forged rows separated; the audit's
               mis-tiled copy at (16, 48) and spill control at n=1003, each
               bit for bit (the over-launch control never launches). Times
               each kernel, its plain version, its bound and the one PyTorch
@@ -32,7 +36,12 @@ prints no result line):
               every step); the approx code at r=1.5 with 2 stragglers a
               step (``approx``, and ``approx_int8`` on the int8 wire); the
               shared cyclic leg on the bf16 and the int8 wire
-              (``shared_bf16``, ``shared_int8``); then the TransformerLM of
+              (``shared_bf16``, ``shared_int8``); the repetition code of
+              preset rep-resnet18 (n=9, groups of 3) with a rev_grad
+              adversary (``majvote``: every step 8 of 9 rows agree, the
+              adversary's group flagged and the adversary out-voted), and
+              Krum (``krum``, n=8: every step's aggregate one of the
+              schedule's honest rows bit for bit); then the TransformerLM of
               the LM benchmark at full width (dim 768, 12 heads, 8 layers,
               vocab 8192, T=512, batch 2, bfloat16 compute, flash
               attention, d=62,958,336): ``lm_shared_flash``,
@@ -43,7 +52,10 @@ prints no result line):
               must locate the adversary (honest_located=6,
               located_errors=det_tp=det_adv=1), every approx step hold its
               certificate (residual ≤ bound + the wire's slack)
-  4. check    the ResNet decode at full size and one small ResNet step, on
+  4. check    majvote without its adversary for 8 steps (vote_agree 1.0:
+              the honest lanes of a group bit-identical) and the exact
+              vote equal to the fingerprint vote on one step's rows; the
+              ResNet decode at full size and one small ResNet step, on
               the card against the CPU; the wire buffers of one real encode,
               the narrow cyclic decode and the approx decode at full size
               and one small approx step with stragglers, card against CPU;
@@ -83,10 +95,11 @@ prints no result line):
               cuDNN (``cudnn.deterministic``), since cuDNN's default
               backward is free to sum in another order each call. The
               flagship ratio geomedian/simulate under the chunk. Each
-              kernel of the legs (the nine ported) captured in a graph
+              kernel of the legs (the ten ported) captured in a graph
               alone, its replay bit for bit its direct launch at the main
               path's shapes. The lint (phase 5) also runs the chunked
-              programs of ``simulate`` and ``lm_shared_flash``: no
+              programs of ``simulate``, ``lm_shared_flash`` and
+              ``majvote``: no
               synchronising call inside a chunk, one device-to-host fetch
               a flush, the staging copy's bytes, the graph's pool
 
@@ -124,17 +137,17 @@ from draco_tpu_torch.analysis import kernel_audit, program_lint, registry
 from draco_tpu_torch.analysis import rules
 from draco_tpu_torch.analysis import controls as lint_controls
 from draco_tpu_torch.analysis.registry import APPROX, LM_FULL
-from draco_tpu_torch.coding import approx, cyclic
+from draco_tpu_torch.coding import approx, cyclic, repetition
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data.datasets import load_dataset
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.obs.trace_report import fold_device_phases
 from draco_tpu_torch.obs.tracer import PHASES
-from draco_tpu_torch.ops import coded, controls, decode_kernels
+from draco_tpu_torch.ops import coded, controls, decode_kernels, vote
 from draco_tpu_torch.ops import flash_attention as fa
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.token_loop import TokenLoop
-from draco_tpu_torch.runtime import resolve_device
+from draco_tpu_torch.runtime import cudnn_deterministic, resolve_device
 from draco_tpu_torch.training.chunk_graph import StateSnapshot
 from draco_tpu_torch.training.trainer import Trainer
 
@@ -143,7 +156,15 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # split TF32: three TF32 tensor-core products (495 TFLOP/s dense) for each
 # float32 one, the flash backward's instructions
 TF32X3_FLOPS = 495e12 / 3
+# 32-bit integer operations a second: on each of the 132 SMs at the
+# 1,980 MHz boost clock, 128 a clock — the four schedulers issue one warp
+# instruction a clock each, and integer multiply-adds (the FMA pipe) and
+# shifts, logic and adds (the INT32 pipe, 64 lanes) can both run (the
+# arithmetic-instruction throughput table of the CUDA C++ documentation
+# for compute capability 9.0)
+INT32_OPS = 132 * 128 * 1.98e9
 N, S, D = 8, 1, 11_173_962  # ResNet-18's flat gradient at n=8, s=1
+VOTE_N = 9  # the majvote leg's workers (preset rep-resnet18)
 SEED = 428
 CODED = ("complex_matmul", "complex_project", "complex_recombine",
          "cyclic_locator")
@@ -161,6 +182,7 @@ G_LM = N * 2 * 12  # flash heads per call on the shared leg: lanes·B·H
 EXPECT = {"simulate": CODED[1:], "geomedian": (), "shared": CODED,
           "approx": ("approx_decode",), "approx_int8": ("approx_decode",),
           "shared_bf16": NARROW, "shared_int8": NARROW,
+          "majvote": ("row_fingerprints",), "krum": (),
           "lm_shared_flash": CODED + FLASH,
           "lm_simulate_flash": CODED[1:] + FLASH,
           "lm_geomedian_flash": FLASH}
@@ -168,7 +190,12 @@ CHUNK_K = 4  # steps of the chunk phase's chunk (steps_per_call)
 LOOP_CHUNKS = 3  # chunks of the chunk phase's timed loop (runner.run)
 # the columns a chunk must give exactly as the eager loop does
 DISCRETE = ("honest_located", "located_errors", "det_tp", "det_adv",
-            "present", "decode_residual_bound", "recovered_fraction")
+            "present", "decode_residual_bound", "recovered_fraction",
+            "vote_agree", "flagged_groups", "det_flagged")
+# the majvote leg's every step: 8 of its 9 rows agree with their group's
+# winner, the adversary's group flagged, the adversary out-voted
+VOTE_HELD = {"vote_agree": 8 / 9, "flagged_groups": 1, "det_flagged": 1,
+             "det_tp": 1, "det_adv": 1}
 
 
 class SmokeFailure(RuntimeError):
@@ -420,6 +447,121 @@ def locator_kernel(code, dev) -> list:
              "max_abs_err": worst, "tol": "discrete equal; v 1e-4 rel",
              "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
+
+
+def vote_kernels(dev) -> list:
+    """``row_fingerprints`` against its plain version (int64 masked to 32
+    bits), bit for bit in both hashes: f32 and bf16 rows at n=9,
+    d=11,173,962 (the majvote leg's) and at d=5003, each from a buffer
+    aligned to 16 bytes and from one that starts 4 (f32) / 2 (bf16) bytes
+    past it, under the public salts and under drawn ones, each launched
+    twice with the same bits. Rows that differ in one element, or in the
+    top bits of two positions, must get other fingerprints. Timed at the
+    leg's shape in f32: the kernel (CUDA graph of back-to-back calls), its
+    plain version and the bound: the larger of the rows' bytes over the
+    memory rate and its 32-bit integer operations (ops/vote.py) over the
+    card's INT32 rate."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    drawn = vote.salts_tensor(
+        torch.randint(0, 1 << 32, (2,), generator=torch.Generator()
+                      .manual_seed(SEED), dtype=torch.int64).tolist(), dev)
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (D, 5003):
+            for offset in (0, 4 if dtype == torch.float32 else 2):
+                flat = torch.randn(VOTE_N * d + 8, generator=g,
+                                   device=dev).to(dtype)
+                start = offset // flat.element_size()
+                rows = flat[start:start + VOTE_N * d].view(VOTE_N, d)
+                for salts in (vote.public_salts(dev), drawn):
+                    k1 = vote.row_fingerprints(rows, salts)
+                    k2 = vote.row_fingerprints(rows, salts)
+                    p = repetition._row_fingerprints(rows, salts)
+                    require(torch.equal(k1, p) and torch.equal(k1, k2),
+                            f"row_fingerprints {dtype} d={d} at byte "
+                            f"{offset}: kernel {k1.tolist()} / again "
+                            f"{k2.tolist()}, plain {p.tolist()}")
+                    checked += 1
+                del flat, rows
+    # forgeries: one element changed, the top bits of two positions flipped
+    rows = torch.randn((3, 5003), generator=g, device=dev)
+    rows[1] = rows[0]
+    rows[1, 4001] = torch.nextafter(rows[0, 4001], rows[0, 4001] + 1)
+    bits = rows[0].view(torch.int32).clone()
+    bits[[17, 2900]] ^= torch.tensor(-(1 << 31), dtype=torch.int32,
+                                     device=dev)
+    rows[2] = bits.view(torch.float32)
+    for salts in (vote.public_salts(dev), drawn):
+        fp = vote.row_fingerprints(rows, salts)
+        require(not torch.equal(fp[0], fp[1]) and
+                not torch.equal(fp[0], fp[2]),
+                f"row_fingerprints: a forged row collided: {fp.tolist()}")
+    del rows
+    rows = torch.randn((VOTE_N, D), generator=g, device=dev)
+    salts = vote.public_salts(dev)
+    ms = graph_ms(lambda: vote.row_fingerprints(rows, salts), 20)
+    launch_ms = time_ms(lambda: vote.row_fingerprints(rows, salts), 20)
+    plain_ms = time_ms(lambda: repetition._row_fingerprints(rows, salts), 3,
+                       warmup=1)
+    b_ms, b_by = bound(4 * VOTE_N * D + 8 + 8 * VOTE_N,
+                       vote.fingerprint_ops(VOTE_N, D), INT32_OPS)
+    # the compiled loop against the INT32 pipe alone (64 lanes a SM)
+    loops = vote_loop_instructions()
+    f32 = loops["row_fingerprints_kernel<4>"]
+    pipe_ms = (f32["int32_pipe_per_element"] * VOTE_N * D
+               / (INT32_OPS / 2) * 1e3)
+    print(f"kernel row_fingerprints: bit for bit its plain version in "
+          f"{checked} cases (f32/bf16, d={D}/5003, aligned and offset "
+          f"buffers, public and drawn salts, two launches each), forgeries "
+          f"separated; ms={ms:.4f} (CUDA graph) launch_ms={launch_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; bytes "
+          f"{4 * VOTE_N * D / HBM_BYTES_PER_S * 1e3:.4f} ms); the f32 loop "
+          f"{f32['instructions_per_element']:.2f} instructions an element, "
+          f"{f32['int32_pipe_per_element']:.2f} on the INT32 pipe: "
+          f"{pipe_ms:.4f} ms at 64 a clock a SM", flush=True)
+    return [{"name": "row_fingerprints", "route": "cuda",
+             "source": "draco_tpu_torch/csrc/vote.cu",
+             "replaces": "draco_tpu/coding/repetition.py:94", "ok": True,
+             "max_abs_err": 0.0, "tol": "bit for bit (uint32, both hashes)",
+             "cases": checked, "ms": ms, "launch_ms": launch_ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None, "sass_loop": loops,
+             "int32_pipe_ms": pipe_ms}]
+
+
+def vote_loop_instructions() -> dict:
+    """The instructions of each fingerprint instance's 16-byte-load loop in
+    the built library (``cuobjdump -sass``: from the loop's branch target
+    to its backward branch), a loaded element: all of them, and those of
+    the INT32 pipe (every integer instruction but the multiply-adds, IMAD,
+    which issue to the FMA pipe)."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(_build.lib_path("vote"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        m = re.search(r"row_fingerprints_kernelILi(\d)E", part)
+        if not m:
+            continue
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?P\w+\s+)?([A-Z0-9_.]+)"
+                         r"([^;]*);", part)
+        addr = [int(a, 16) for a, _, _, _ in ins]
+        wide = next(i for i, x in enumerate(ins) if x[2].startswith("LDG")
+                    and ".128" in x[2])
+        back = next(i for i in range(wide, len(ins)) if ins[i][2] == "BRA"
+                    and int(ins[i][3].split("0x")[-1], 16) < addr[wide])
+        top = addr.index(int(ins[back][3].split("0x")[-1], 16))
+        ops = [x[2].split(".")[0] for x in ins[top:back + 1]]
+        per = 16 // int(m.group(1))
+        skip = ("LDG", "BRA", "NOP")
+        total = sum(o not in skip for o in ops)
+        int_pipe = sum(o not in skip + ("IMAD",) for o in ops)
+        out[f"row_fingerprints_kernel<{m.group(1)}>"] = {
+            "elements": per, "instructions_per_element": total / per,
+            "int32_pipe_per_element": int_pipe / per}
+    require(len(out) == 2, f"row_fingerprints: loops found {sorted(out)}")
+    return out
 
 
 def locator_flops(n: int, s: int, sweeps: int = 12) -> int:
@@ -1059,12 +1201,32 @@ def drive(name, program, steps, expect, dev) -> dict:
     first = runner.step()  # warm-up: cuDNN/cuBLAS plans, kernel loads
     require(first["loss"] == first["loss"], f"{name}: warm-up loss is NaN")
     torch.cuda.reset_peak_memory_stats(dev)
+    watch = (krum_watch() if cfg.approach == "baseline"
+             and cfg.mode == "krum" else contextlib.nullcontext([]))
     ops.reset_launch_counts()
-    recs = [runner.step() for _ in range(steps)]
+    with watch as picks:
+        recs = [runner.step() for _ in range(steps)]
     counts = ops.launch_counts()
+    for r, pick in zip(recs, picks):
+        # Krum's aggregate is one of its rows bit for bit: an honest one
+        honest = ~runner.adv_schedule[r["step"]]
+        if runner.straggle_schedule is not None:
+            honest &= ~runner.straggle_schedule[r["step"]]
+        pick = pick.cpu().numpy()
+        require(bool((pick & honest).any()) and not bool((pick & ~honest)
+                                                         .any()),
+                f"{name} step {r['step']}: the aggregate equals rows "
+                f"{pick.nonzero()[0].tolist()}, honest rows "
+                f"{honest.nonzero()[0].tolist()}")
+    require(len(picks) == (steps if cfg.mode == "krum"
+                           and cfg.approach == "baseline" else 0),
+            f"{name}: krum ran {len(picks)} times in {steps} steps")
     for r in recs:
         require(math.isfinite(r["loss"]),
                 f"{name} step {r['step']}: loss {r['loss']}")
+        if cfg.approach == "maj_vote":
+            require(vote_held(r), f"{name} step {r['step']}: the vote did "
+                    f"not out-vote exactly the adversary: {r}")
         if cfg.approach == "cyclic":
             require(r["honest_located"] == N - 2 * S
                     and r["located_errors"] == 1 and r["det_tp"] == 1
@@ -1094,6 +1256,72 @@ def drive(name, program, steps, expect, dev) -> dict:
           f"(host clock, device synchronised); launches {counts}; "
           f"losses {['%.4f' % x for x in out['loss']]}", flush=True)
     return out
+
+
+@contextlib.contextmanager
+def krum_watch():
+    """Inside: each call of ``aggregation.krum`` appends, as an (n,) bool
+    device tensor, which of its input rows its result equals bit for
+    bit."""
+    from draco_tpu_torch import aggregation
+
+    picks, krum = [], aggregation.krum
+
+    def watched(grads, s, present=None):
+        out = krum(grads, s, present)
+        picks.append((grads.view(torch.int32)
+                      == out.view(torch.int32)[None]).all(1))
+        return out
+
+    aggregation.krum = watched
+    try:
+        yield picks
+    finally:
+        aggregation.krum = krum
+
+
+def vote_held(r: dict) -> bool:
+    """A majvote record out-votes exactly its one adversary (VOTE_HELD)."""
+    return all(abs(r[k] - v) < 1e-6 for k, v in VOTE_HELD.items())
+
+
+def vote_checks(dev, ds) -> dict:
+    """The majvote leg without its adversary, 8 steps at full width: every
+    honest lane of a group bit-identical (vote_agree 1.0, no group
+    flagged). Then one step of the leg (with its adversary) from two fresh
+    setups of one seed, ``vote_check="fingerprint"`` and ``"exact"``: the
+    same step's rows voted both ways give the same record and the same
+    parameters bit for bit."""
+    lp = registry.get("majvote")
+    clean = lp.build(dev, full=True, max_steps=9, dataset=ds, worker_fail=0)
+    recs = [clean.runner.step() for _ in range(8)]
+    for r in recs:
+        require(r["vote_agree"] == 1.0 and r["flagged_groups"] == 0
+                and r["det_flagged"] == 0,
+                f"majvote without an adversary, step {r['step']}: honest "
+                f"lanes differ: {r}")
+    del clean
+    runs = {}
+    for check in ("fingerprint", "exact"):
+        prog = lp.build(dev, full=True, max_steps=2, dataset=ds,
+                        vote_check=check)
+        rec = prog.runner.step()
+        runs[check] = (rec, {k: v.detach().clone()
+                             for k, v in prog.runner.state.params.items()})
+        del prog
+        gc.collect()
+    (rf, pf), (re_, pe) = runs["fingerprint"], runs["exact"]
+    same = all(_same_bits(pf[k], pe[k]) for k in pf)
+    require(vote_held(rf) and all(rf[k] == re_[k] for k in VOTE_HELD)
+            and same, f"majvote: the exact vote differs from the "
+            f"fingerprint vote: {rf} / {re_}, parameters equal: {same}")
+    print(f"check majvote: without an adversary vote_agree 1.0 and no group "
+          f"flagged on all 8 steps (honest lanes bit-identical); the exact "
+          f"vote equals the fingerprint vote on one step's rows (record and "
+          f"{len(pf)} parameter tensors bit for bit)", flush=True)
+    return {"clean_steps": len(recs),
+            "clean_vote_agree": [r["vote_agree"] for r in recs],
+            "exact_equals_fingerprint": same}
 
 
 def profile_leg(out, runner) -> None:
@@ -1155,19 +1383,6 @@ def _timed(fn) -> tuple:
     b.record()
     b.synchronize()
     return out, a.elapsed_time(b)
-
-
-@contextlib.contextmanager
-def cudnn_deterministic():
-    """cuDNN restricted to its deterministic algorithms (no autotuning),
-    its other settings (TF32 off) left as they are."""
-    cudnn = torch.backends.cudnn
-    saved = cudnn.deterministic, cudnn.benchmark
-    cudnn.deterministic, cudnn.benchmark = True, False
-    try:
-        yield
-    finally:
-        cudnn.deterministic, cudnn.benchmark = saved
 
 
 class _ChunkRuns:
@@ -1236,6 +1451,9 @@ def _check_records(name, cfg, recs_a, recs) -> None:
                     and rc["located_errors"] == rc["det_tp"] == 1,
                     f"chunk {name} step {i + 1} of the chunk: adversary not "
                     f"located: {rc}")
+        if cfg.approach == "maj_vote":
+            require(vote_held(rc), f"chunk {name} step {i + 1} of the chunk: "
+                    f"the vote did not out-vote exactly the adversary: {rc}")
 
 
 def _differs(fin_x: dict, fin_y: dict) -> dict:
@@ -1455,7 +1673,8 @@ def replay_bitwise(name: str, fn) -> None:
 
 
 def graph_replay_kernels(code, dev) -> list:
-    """Each kernel of the legs (rows 1–9 of the kernel table) captured in a
+    """Each kernel of the legs (rows 1–9 of the kernel table and the vote's
+    fingerprints) captured in a
     graph, its replay bit for bit its direct launch, at the main paths'
     shapes: n=8, d=11,173,962 (the coded products, the narrow
     recombination at int8 and bf16 block 256, the approx decode f32 and
@@ -1510,6 +1729,10 @@ def graph_replay_kernels(code, dev) -> list:
     check("flash_fwd", lambda: fa.flash_fwd(q, k, v))
     check("flash_dq", lambda: fa.flash_dq(q, k, v, do, lse, dcap))
     check("flash_dkv", lambda: fa.flash_dkv(q, k, v, do, lse, dcap))
+    del q, k, v, do, o, lse, dcap
+    rows = torch.randn((VOTE_N, D), generator=g, device=dev)
+    salts = vote.salts_tensor((0x2545F491, 0x9E3779B9), dev)
+    check("row_fingerprints", lambda: vote.row_fingerprints(rows, salts))
     print(f"graph replay: {len(checked)} kernel calls, each captured alone "
           f"and replayed bit for bit its direct launch: {checked}",
           flush=True)
@@ -1880,7 +2103,7 @@ def main(argv=None) -> int:
     code = cyclic.build_cyclic_code(N, S)
     kernels = (coded_kernels(code, dev) + locator_kernel(code, dev)
                + narrow_kernels(code, dev) + flash_kernels(dev)
-               + control_kernels(dev))
+               + vote_kernels(dev) + control_kernels(dev))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     record["kernel_audit"] = audit_kernels()
@@ -1897,6 +2120,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     record["legs"] = legs
     record["chunk"] = chunk_summary(legs)
+    record["vote_checks"] = vote_checks(dev, load_dataset(
+        registry.CNN_FULL["dataset"]))
+    gc.collect()
+    torch.cuda.empty_cache()
     record["cross_device"] = cross_device_check(dev)
     record["wire_checks"] = wire_checks(dev)
     record["lm_checks"] = lm_checks(dev)
@@ -1924,6 +2151,7 @@ def main(argv=None) -> int:
     source_leg = {"complex_matmul": "shared",
                   "cyclic_narrow_recombine": "shared_int8",
                   "approx_decode": "approx",
+                  "row_fingerprints": "majvote",
                   **{k: "lm_shared_flash" for k in FLASH}}
     # the controls run on no main path: their counts are read from every
     # leg, and are 0 on each
@@ -1933,7 +2161,7 @@ def main(argv=None) -> int:
             require(ran == 0, f"{row['name']} ran {ran} times on the main "
                     f"paths")
             row["launches"] = ran
-            row["launches_from_leg"] = "all ten"
+            row["launches_from_leg"] = "all twelve"
             row["launches_per_step"] = 0.0
             continue
         src = by_name[source_leg.get(row["name"], "simulate")]

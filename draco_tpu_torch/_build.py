@@ -57,6 +57,9 @@ SIGNATURES = {
         "draco_flash_dq": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
         "draco_flash_dkv": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
     },
+    "vote": {
+        "draco_row_fingerprints": [_P, _P, _P, _I, _LL, _I, _P],
+    },
     "controls": {
         "draco_control_mistiled_copy": [_P, _P, _I, _I, _P],
         "draco_control_overlaunch": [_P, _LL, _P],

@@ -4,7 +4,7 @@ tools/_lowering_common.run_rows).
     python -m draco_tpu_torch.analysis.kernel_audit [--device cpu|cuda]
         [--kernels NAME,...] [--out FILE]
 
-One row per kernel entry point of ``csrc/*.cu`` — the nine of the main
+One row per kernel entry point of ``csrc/*.cu`` — the ten of the main
 paths and the three negative controls of ``csrc/controls.cu`` — each
 grouping the ``__global__`` functions it launches, held to the
 :class:`KernelSpec` below by four rules:
@@ -175,6 +175,13 @@ SPECS = (
                tuple(f"flash_dkv_kernel<{d}>" for d in (16, 32, 64, 128)),
                "draco_tpu/ops/flash_attention.py:353", 255,
                main=("flash_dkv_kernel<64>",)),
+    # the vote's fingerprints: two 32-bit sums a thread, 16-byte loads of
+    # f32 (<4>) or bf16 (<2>) elements
+    KernelSpec("row_fingerprints", "vote",
+               ("row_fingerprints_kernel<4>", "row_fingerprints_kernel<2>"),
+               "draco_tpu/coding/repetition.py:94", 32,
+               largest={"n": MAX_N}, largest_shape=(MAX_N, 0),
+               main=("row_fingerprints_kernel<4>",)),
     KernelSpec("control_mistiled_copy", "controls",
                ("control_mistiled_copy_kernel",),
                "tools/tpu_attn_lowering_check.py:111", 8, racecheck=False,
@@ -202,9 +209,9 @@ def _guarded(shape, dtype, dev):
     """(buffer, view): ``view`` of ``shape`` inside GUARD elements of
     poison on each side."""
     n = math.prod(shape)
-    if dtype == torch.float32:
+    if dtype in (torch.float32, torch.int32):
         buf = torch.full((n + 2 * GUARD,), POISON_F32, dtype=torch.int32,
-                         device=dev).view(torch.float32)
+                         device=dev).view(dtype)
     else:  # one-byte outputs: the locator's masks
         buf = torch.full((n + 2 * GUARD,), POISON_BYTE, dtype=torch.uint8,
                          device=dev)
@@ -213,7 +220,7 @@ def _guarded(shape, dtype, dev):
 
 def _verdict(buf, n: int) -> tuple:
     """(unwritten, guard elements touched) of a guarded buffer."""
-    if buf.dtype == torch.float32:
+    if buf.dtype in (torch.float32, torch.int32):
         bits, poison = buf.view(torch.int32), POISON_F32
     else:
         bits, poison = buf, POISON_BYTE
@@ -331,6 +338,8 @@ def _cases(name: str, dev) -> list:
                            "loud": ((L, n), b), "resid": ((L,), f32)}, run))
     elif name in ("cyclic_narrow_recombine", "approx_decode"):
         cases += _narrow_cases(name, dev, cuda, rnd)
+    elif name == "row_fingerprints":
+        cases += _vote_cases(dev, cuda, rnd)
     elif name.startswith("flash_"):
         G, T = 2, 70  # ragged against the 64- and 32-row tiles
         for dh in (16, 24, 64, 100):  # instances 16, 32, 64, 128
@@ -486,6 +495,36 @@ def _narrow_cases(name: str, dev, cuda: bool, rnd) -> list:
     return cases
 
 
+# the fingerprints' coverage: n = 9 rows of d = 1003 and 1002, f32 and
+# bf16, and buffers that start 4 / 2 bytes into their storage, so every
+# row's head and tail take the scalar loop
+VOTE_CASES = (("f32", 0), ("bf16", 0), ("f32", 4), ("bf16", 2))
+
+
+def _vote_cases(dev, cuda: bool, rnd) -> list:
+    from draco_tpu_torch.ops import vote
+
+    n = 9
+    salts = vote.salts_tensor((0x1234567, 0x89ABCDEF), dev)
+    cases = []
+    for d in (1003, 1002):
+        for dtype, offset in VOTE_CASES:
+            rows = rnd(n, d).to({"f32": torch.float32,
+                                 "bf16": torch.bfloat16}[dtype])
+            rows = offset_copy(rows, offset)
+            where = f" at byte {offset}" if offset else ""
+
+            def run(o, rows=rows):
+                if cuda:
+                    vote.row_fingerprints_launch(rows, salts, o["out"])
+                else:
+                    _put(o, out=vote.as_int32_bits(
+                        vote.row_fingerprints(rows, salts)))
+            cases.append(Case(f"{dtype} n={n} d={d}{where}",
+                              {"out": ((n, 2), torch.int32)}, run))
+    return cases
+
+
 def rule_coverage(s: KernelSpec, dev) -> dict:
     if s.name == "control_overlaunch":
         return {"ok": True, "skipped": True,
@@ -621,6 +660,12 @@ def _launch_largest(s: KernelSpec, dev) -> None:
         decode_kernels.narrow_recombine_launch(
             rnd(n), rnd(n), "int8", q[0]["q"], q[0]["scale"], q[1]["q"],
             q[1]["scale"], 64, -(-d // 64), empty(d))
+    elif s.name == "row_fingerprints":
+        from draco_tpu_torch.ops import vote
+
+        vote.row_fingerprints_launch(
+            rnd(n, d), vote.public_salts(dev),
+            empty(n, 2, dtype=torch.int32))
     elif s.name == "approx_decode":
         chunks = decode_kernels.approx_decode_chunks(d)
         decode_kernels.approx_decode_launch(

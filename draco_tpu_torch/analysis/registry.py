@@ -11,7 +11,7 @@ that no output-level test sees: the element types it computes in, the host
 synchronisations and host-to-device bytes it makes, the collectives it
 calls, that it updates its state in place, and its peak device memory.
 ``analysis/rules.py`` holds each step to its manifest;
-``analysis/program_lint.py`` drives the catalog. Two legs also register
+``analysis/program_lint.py`` drives the catalog. Three legs also register
 their chunked program (:class:`ChunkProgram`, ``steps_per_call`` K > 1):
 one inspected chunk of K steps through the loop's engine client — on the
 card the replays of the captured step — and its flush.
@@ -20,8 +20,10 @@ The full-width configurations are the legs' own (PERF.md §4): ResNet-18 on
 synthetic CIFAR-10 at n=8 workers of batch 32, s=1, a rev_grad adversary
 every step (``bench.py``'s flagship cut to n=8); the approx code at r=1.5
 with 2 stragglers a step (preset ``approx-resnet18`` at n=8); the narrow
-wires at block 256; the LM benchmark's TransformerLM (dim 768, 12 heads, 8
-layers, vocab 8192, T=512, batch 2, bf16 compute, flash attention).
+wires at block 256; the repetition code of preset ``rep-resnet18`` (n=9,
+groups of 3) with the adversary, and Krum (preset ``krum-resnet18`` at
+n=8); the LM benchmark's TransformerLM (dim 768, 12 heads, 8 layers, vocab
+8192, T=512, batch 2, bf16 compute, flash attention).
 """
 
 from __future__ import annotations
@@ -55,6 +57,10 @@ LM_FULL = dict(network="TransformerLM", dataset="synthetic-text",
                train_dir="", seed=SEED)
 LM_CI = dict(seq_len=32, vocab=64, model_dim=64, model_heads=4,
              model_layers=2)
+# preset rep-resnet18 (n=9, groups of r=3, batch 32) with one rev_grad
+# adversary a step for the vote to outvote; one group at CI size
+MAJVOTE = dict(approach="maj_vote", num_workers=9, group_size=3)
+MAJVOTE_CI = dict(num_workers=3)
 
 DEFAULT_DTYPES = frozenset({torch.float32, torch.int64, torch.int32,
                             torch.bool})
@@ -132,11 +138,15 @@ def uploads(cfg) -> dict:
     n, b = cfg.num_workers, cfg.batch_size
     if cfg.network == "TransformerLM":
         return {"tokens (int32)": n * b * cfg.seq_len * 4, "adv_mask": n}
+    vote = cfg.approach == "maj_vote"
     out = {"batch (f32 NHWC)": n * b * 32 * 32 * 3 * 4,
            "labels (int32)": n * b * 4,
-           "aug_draws (3 int64)": 3 * n * b * 8}
+           # one row of draws a group on the vote, a worker otherwise
+           "aug_draws (3 int64)": 3 * (cfg.num_groups if vote else n) * b * 8}
     if cfg.approach != "approx":
         out["adv_mask"] = n
+    if vote:
+        out["salts (2 int32)"] = 8
     stragglers = cfg.straggle_mode == "drop" and cfg.straggle_count > 0
     if stragglers:
         out["present (bool)"] = n
@@ -148,18 +158,21 @@ def uploads(cfg) -> dict:
 @dataclasses.dataclass(frozen=True)
 class LintProgram:
     """A registered leg: ``overrides`` on the route's full-width fields;
-    ``peak_gb`` its step's memory budget on the card at full width."""
+    ``peak_gb`` its step's memory budget on the card at full width; ``ci``
+    overrides of the route's CI size."""
 
     name: str
     route: str  # "cnn" | "lm"
     overrides: dict
     peak_gb: float
+    ci: dict = dataclasses.field(default_factory=dict)
 
     def config(self, full: bool = False, max_steps: int = 3, **fields):
         from draco_tpu_torch.config import TrainConfig
 
         base = CNN_FULL if self.route == "cnn" else LM_FULL
-        small = {} if full else (CNN_CI if self.route == "cnn" else LM_CI)
+        small = {} if full else {
+            **(CNN_CI if self.route == "cnn" else LM_CI), **self.ci}
         return TrainConfig(**{**base, **self.overrides, **small,
                               "max_steps": max_steps, **fields}).validate()
 
@@ -298,6 +311,8 @@ PROGRAMS = (
                 4.5),
     LintProgram("shared_int8", "cnn", dict(_CYCLIC_SHARED, wire_dtype="int8"),
                 4.5),
+    LintProgram("majvote", "cnn", MAJVOTE, 6.0, ci=MAJVOTE_CI),
+    LintProgram("krum", "cnn", dict(approach="baseline", mode="krum"), 4.5),
     LintProgram("lm_shared_flash", "lm", _CYCLIC_SHARED, 14.5),
     LintProgram("lm_simulate_flash", "lm",
                 dict(approach="cyclic", redundancy="simulate"), 25.5),
@@ -305,9 +320,11 @@ PROGRAMS = (
 )
 
 
-# the flagship's coded leg and the host-bound LM leg (PERF.md §5)
+# the flagship's coded leg, the host-bound LM leg (PERF.md §5) and the
+# vote (its salts staged with the draws)
 CHUNKS = (ChunkProgram("chunk_simulate", "simulate"),
-          ChunkProgram("chunk_lm_shared_flash", "lm_shared_flash"))
+          ChunkProgram("chunk_lm_shared_flash", "lm_shared_flash"),
+          ChunkProgram("chunk_majvote", "majvote"))
 
 
 def collect_chunks() -> "list[ChunkProgram]":

@@ -1,7 +1,10 @@
 """Byzantine attack simulation (draco_tpu/attacks.py), ADVERSARY = CONST = -100.
 
-  * plain paths (baseline): rev_grad g -> -100·g; constant g -> -100·1;
-    random g -> -100·N(0, 1)
+  * plain paths (baseline, repetition): rev_grad g -> -100·g; constant
+    g -> -100·1; random g -> -100·N(0, 1); and two colluding attacks on
+    approximate robust rules: alie (mu - z·sigma of the honest rows, z the
+    evasion quantile of Baruch et al. 2019) and ipm (-0.5·mu, Xie et al.
+    2020), both scaled by |magnitude| / 100
   * cyclic path, additive on the honest encoded value: rev_grad
     g -> g + (-100·g); constant adds -100 to the real part only; random adds
     -100·noise to each part (independent draws)
@@ -13,6 +16,9 @@ numbers.
 
 from __future__ import annotations
 
+import math
+import statistics
+import warnings
 from typing import Optional
 
 import torch
@@ -22,6 +28,7 @@ CONST = -100.0
 # the random attack's generator salt (seed + _RANDOM_SALT), as in the
 # reference
 _RANDOM_SALT = 7
+_ALIE_INERT_WARNED = set()  # one warning per inert (n, n_mal) pair
 
 
 def random_generator(seed: int, step: int, device="cpu") -> torch.Generator:
@@ -69,11 +76,55 @@ def attack_cyclic(enc_re, enc_im, err_mode: str, magnitude: float = ADVERSARY,
     raise ValueError(f"unknown err_mode: {err_mode}")
 
 
+def _honest_stats(grads, mask):
+    """Mean and std over the honest rows only: what colluding adversaries
+    that observe their peers would estimate."""
+    w = (~mask).to(grads.dtype)[:, None]
+    cnt = torch.clamp_min(w.sum(), 1.0)
+    mu = (grads * w).sum(0) / cnt
+    var = ((grads - mu) ** 2 * w).sum(0) / cnt
+    return mu, torch.sqrt(var)
+
+
+def _alie_z(n: int, n_mal: int) -> float:
+    """ALIE's evasion quantile: the largest z at which the perturbed value
+    still looks like a non-outlier to a median-like rule over n workers
+    with n_mal colluders, z = Phi^-1((n - n_mal - s) / (n - n_mal)),
+    s = floor(n/2 + 1) - n_mal."""
+    s = math.floor(n / 2 + 1) - n_mal
+    p = max(min((n - n_mal - s) / max(n - n_mal, 1), 1.0 - 1e-6), 1e-6)
+    return statistics.NormalDist().inv_cdf(p)
+
+
 def inject_plain(grads, mask, err_mode: str, magnitude: float = ADVERSARY,
-                 noise=None, generator=None):
-    """grads: (n, d); mask: (n,) bool — True rows are Byzantine."""
+                 noise=None, generator=None, n_mal: int = 1):
+    """grads: (n, d); mask: (n,) bool — True rows are Byzantine.
+
+    ``alie`` / ``ipm``: every Byzantine row takes the same payload from the
+    honest rows' statistics; ``n_mal`` is the static colluder count
+    (cfg.num_adversaries). They scale with |magnitude| / 100 and ignore its
+    sign: they fix their own direction."""
+    mask = mask.to(grads.device)
+    if err_mode in ("alie", "ipm"):
+        n = grads.shape[0]
+        scale = abs(magnitude) / abs(ADVERSARY)
+        mu, sigma = _honest_stats(grads, mask)
+        if err_mode == "alie":
+            z = _alie_z(n, max(n_mal, 1))
+            if z <= 0 and (n, n_mal) not in _ALIE_INERT_WARNED:
+                _ALIE_INERT_WARNED.add((n, n_mal))
+                warnings.warn(
+                    f"alie is inert at n={n}, n_mal={n_mal}: the evasion "
+                    f"quantile z={z:.3f} <= 0, so the payload is (at most) "
+                    f"the honest mean — the attack needs more workers or "
+                    f"more colluders to have any z to hide behind",
+                    stacklevel=2)
+            bad = mu - scale * z * sigma
+        else:
+            bad = -0.5 * scale * mu
+        return torch.where(mask[:, None], bad[None, :], grads)
     bad = attack_plain(grads, err_mode, magnitude, noise, generator)
-    return torch.where(mask.to(grads.device)[:, None], bad, grads)
+    return torch.where(mask[:, None], bad, grads)
 
 
 def inject_cyclic(enc_re, enc_im, mask, err_mode: str,

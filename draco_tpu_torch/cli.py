@@ -9,12 +9,20 @@
       --max-steps 5
   python -m draco_tpu_torch.cli --preset cyclic-resnet18 --num-workers 8 \\
       --redundancy shared --wire-dtype int8 --max-steps 5
+  python -m draco_tpu_torch.cli --preset rep-resnet18 --worker-fail 1 \\
+      --max-steps 5                      # the repetition code's vote
+  python -m draco_tpu_torch.cli --preset krum-resnet18 --num-workers 8 \\
+      --straggle-mode drop --straggle-count 1 --max-steps 5
   python -m draco_tpu_torch.cli --network TransformerLM \\
       --dataset synthetic-text --approach cyclic --redundancy shared \\
       --attn-impl flash --compute-dtype bfloat16 --num-workers 8 \\
       --worker-fail 1 --batch-size 2 --seq-len 512 --model-dim 768 \\
       --model-heads 12 --model-layers 8 --vocab 8192 --max-steps 5
 
+``--mode`` takes the baseline's seven rules (normal, geometric_median,
+krum, coord_median, trimmed_mean, multi_krum, bulyan), ``--err-mode``
+rev_grad, constant, random, alie or ipm, ``--vote-check`` fingerprint or
+exact.
 ``--steps-per-call K`` (K > 1) trains in chunks of K steps, on the card
 each chunk the replays of one captured CUDA graph
 (``training/chunk_graph.py``). ``--trace-dir DIR`` writes the loop's host
@@ -45,6 +53,8 @@ FLAGS = {
     "--num-workers": (int, "num_workers"),
     "--approach": (str, "approach"),
     "--mode": (str, "mode"),
+    "--group-size": (int, "group_size"),
+    "--vote-check": (str, "vote_check"),
     "--worker-fail": (int, "worker_fail"),
     "--code-redundancy": (float, "code_redundancy"),
     "--straggler-alpha": (float, "straggler_alpha"),

@@ -4,6 +4,14 @@ the port runs.
 Field names and defaults are the reference's. ``validate()`` keeps the
 reference's checks on these fields and rejects, with a clear error, every
 value the port does not implement yet.
+
+The repetition code (``approach="maj_vote"``) votes on the bits of its
+group members' gradient rows: the lanes of a group must compute bit for
+bit the same gradient, which on the card holds only with cuDNN restricted
+to its deterministic algorithms (at its default settings every honest
+lane differs, PERF.md §6). The maj_vote step runs its lanes under
+``torch.backends.cudnn.deterministic`` (``training/step.py``), a property
+of the route, not a switch; it costs the chunked step about 5%.
 """
 
 from __future__ import annotations
@@ -19,13 +27,17 @@ from draco_tpu_torch.ops.flash_attention import MAX_DH
 # Deterministic seed shared by every participant (reference: SEED_=428).
 SEED = 428
 
-APPROACHES = ("baseline", "cyclic", "approx")
-AGG_MODES = ("normal", "geometric_median")
+APPROACHES = ("baseline", "maj_vote", "cyclic", "approx")
+# the baseline's aggregation rules (aggregation.py): the reference's three
+# (normal, geometric_median, krum) and its robust baselines beyond them
+AGG_MODES = ("normal", "geometric_median", "krum", "coord_median",
+             "trimmed_mean", "multi_krum", "bulyan")
+KRUM_MODES = ("krum", "multi_krum", "bulyan")
 CNN_NETWORKS = ("ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152")
 LM_NETWORK = "TransformerLM"
 NETWORKS = CNN_NETWORKS + (LM_NETWORK,)
 LM_DATASET = "synthetic-text"  # the LM trains on sp_step.synthetic_text
-ERR_MODES = ("rev_grad", "constant", "random")
+ERR_MODES = ("rev_grad", "constant", "random", "alie", "ipm")
 # the coded kernels' block width (ops.decode_kernels.MAX_N): a coded step
 # of more workers could not launch them
 MAX_CODED_WORKERS = 64
@@ -44,8 +56,14 @@ class TrainConfig:
     max_steps: int = 10000
     # --- coded data parallelism ---
     num_workers: int = 8
-    approach: str = "baseline"  # baseline | cyclic | approx
-    mode: str = "normal"  # baseline aggregation: normal | geometric_median
+    approach: str = "baseline"  # baseline | maj_vote | cyclic | approx
+    mode: str = "normal"  # baseline aggregation: one of AGG_MODES
+    # --- repetition code (approach="maj_vote") ---
+    group_size: int = 3  # r: members of a group compute the same batch
+    # the vote's row-equality check: "fingerprint" = two salted 32-bit
+    # hashes of each row's bits (one pass, the row_fingerprints kernel);
+    # "exact" = pairwise bit equality of the rows, O(r²·d)
+    vote_check: str = "fingerprint"
     worker_fail: int = 0  # s
     # --- approximate code (approach="approx") ---
     code_redundancy: float = 1.5  # r in [1, n]: batches per worker
@@ -53,7 +71,7 @@ class TrainConfig:
     # workers a step
     straggler_alpha: float = 0.25
     assignment_scheme: str = "pairwise"  # pairwise | clustered
-    err_mode: str = "rev_grad"  # rev_grad | constant | random
+    err_mode: str = "rev_grad"  # rev_grad | constant | random | alie | ipm
     adversarial: float = -100.0
     adversary_count: Optional[int] = None  # None = worker_fail
     # --- stragglers: "drop" = straggle_count workers a step never arrive
@@ -114,6 +132,10 @@ class TrainConfig:
         return 2 * self.worker_fail + 1
 
     @property
+    def num_groups(self) -> int:
+        return self.num_workers // self.group_size
+
+    @property
     def num_adversaries(self) -> int:
         return (self.worker_fail if self.adversary_count is None
                 else self.adversary_count)
@@ -125,8 +147,16 @@ class TrainConfig:
                 f"runs {'|'.join(APPROACHES)})")
         if self.approach == "baseline" and self.mode not in AGG_MODES:
             raise ValueError(
-                f"baseline mode={self.mode!r} is not ported yet (the port "
-                f"runs {'|'.join(AGG_MODES)})")
+                f"baseline supports mode in {'|'.join(AGG_MODES)}, got: "
+                f"{self.mode}")
+        if (self.mode in KRUM_MODES
+                and self.num_workers < self.worker_fail + 3):
+            raise ValueError(
+                f"{self.mode} requires num_workers >= worker_fail + 3")
+        if (self.mode in ("trimmed_mean", "bulyan")
+                and self.num_workers <= 2 * self.worker_fail):
+            raise ValueError(
+                f"{self.mode} requires num_workers > 2 * worker_fail")
         if self.network not in NETWORKS:
             raise ValueError(
                 f"network={self.network!r} is not ported yet (the port runs "
@@ -135,6 +165,15 @@ class TrainConfig:
             raise ValueError(
                 f"err_mode={self.err_mode!r} is not ported yet (the port "
                 f"runs {'|'.join(ERR_MODES)})")
+        if self.err_mode in ("alie", "ipm") and self.approach == "cyclic":
+            raise ValueError(
+                f"err_mode={self.err_mode} targets approximate robust "
+                f"aggregation (baseline modes / maj_vote); the cyclic path's "
+                f"attack surface is the encoded rows, where decode is exact "
+                f"and any per-row corruption is removed — use rev_grad/"
+                f"constant there (attacks.py)")
+        if self.approach == "maj_vote":
+            self._validate_vote()
         if self.redundancy not in ("simulate", "shared"):
             raise ValueError(f"unknown redundancy: {self.redundancy!r}")
         if self.decode_granularity != "global":
@@ -182,6 +221,32 @@ class TrainConfig:
             raise ValueError("compute_dtype=bfloat16 is not ported yet for "
                              "the CNN path (it computes in float32)")
         return self
+
+    def _validate_vote(self) -> None:
+        """The reference's maj_vote checks (draco_tpu/config.py), and the
+        options of the vote the port does not run yet."""
+        if self.vote_check not in ("fingerprint", "exact"):
+            raise ValueError(f"vote_check must be 'fingerprint' or 'exact', "
+                             f"got {self.vote_check!r}")
+        if self.group_size < 1:
+            raise ValueError(f"group_size must be >= 1, got "
+                             f"{self.group_size}")
+        if self.num_workers % self.group_size != 0:
+            raise ValueError(
+                "maj_vote requires num_workers divisible by group_size "
+                f"(got {self.num_workers} % {self.group_size})")
+        if self.worker_fail > 0 and \
+                self.group_size < 2 * self.worker_fail + 1:
+            # r = 2s+1: with fewer members all s adversaries can land in
+            # one group and break its majority
+            raise ValueError(
+                f"maj_vote with worker_fail={self.worker_fail} requires "
+                f"group_size >= {2 * self.worker_fail + 1} (r = 2s+1)")
+        if self.wire_dtype != "f32":
+            raise ValueError(
+                f"wire_dtype={self.wire_dtype!r} on approach=maj_vote is not "
+                f"ported yet (the reference's narrow_wire_single on the "
+                f"vote's rows); the port votes on the f32 rows")
 
     def _validate_chunk(self) -> None:
         """The chunked loops (``steps_per_call`` K > 1: K steps a dispatch,
@@ -242,10 +307,35 @@ class TrainConfig:
         if e <= 0:
             return
         s, t, n = self.worker_fail, self.num_adversaries, self.num_workers
+        if self.approach == "maj_vote":
+            if e >= self.group_size:
+                raise ValueError(
+                    f"straggle_count {e} >= group_size {self.group_size} can "
+                    "silence an entire repetition group")
+            # worst case all e stragglers and all t adversaries land in one
+            # group: the group_size - e present members need an honest
+            # majority
+            if t > 0 and self.group_size - e <= 2 * t:
+                raise ValueError(
+                    f"maj_vote joint budget exceeded: group_size - "
+                    f"straggle_count must exceed 2*adversaries "
+                    f"({self.group_size} - {e} <= {2 * t}); an unlucky "
+                    "group could be voted over by adversarial rows")
         if self.approach == "baseline":
-            raise ValueError(
-                "stragglers on approach=baseline are not ported yet (the "
-                "robust rules over present rows)")
+            if e >= n:
+                raise ValueError(
+                    "straggle_count must leave at least one worker")
+            if self.mode in KRUM_MODES and n - e < s + 3:
+                raise ValueError(
+                    f"{self.mode} needs num_workers - straggle_count >= "
+                    f"worker_fail + 3 ({n} - {e} < {s} + 3)")
+            if (self.mode in ("coord_median", "trimmed_mean", "bulyan")
+                    and n - e <= 2 * s):
+                # the median-based rules need an honest majority among the
+                # rows that arrive
+                raise ValueError(
+                    f"{self.mode} needs num_workers - straggle_count > "
+                    f"2 * worker_fail ({n} - {e} <= {2 * s})")
         if self.approach == "cyclic" and not (
                 (t == 0 and e <= 2 * s) or t + e <= s):
             raise ValueError(
@@ -316,6 +406,12 @@ class TrainConfig:
                 f"attn_impl='dense' trains it")
         if self.seq_len < 2 or self.vocab < 1 or self.model_layers < 1:
             raise ValueError("seq_len >= 2, vocab >= 1 and model_layers >= 1")
+        if self.approach == "maj_vote":
+            raise ValueError(
+                "approach=maj_vote is not supported for TransformerLM: the "
+                "vote's bitwise-equality contract is specified over "
+                "replicated CNN lanes (use baseline or cyclic; "
+                "draco_tpu/parallel/sp_step.py)")
         not_ported = {
             "approach": self.approach == "approx",
             "wire_dtype": self.wire_dtype != "f32",

@@ -2,6 +2,8 @@
 and the chunked loops' step ranges.
 
   * baseline: each worker draws an independent shuffle.
+  * maj_vote: the members of a repetition group share their group's
+    shuffle (``rng.group_seeds``), so they compute identical batches.
   * cyclic: every worker addresses one deterministic *global* batch of n·B
     consecutive post-shuffle samples per step and computes the ŝ=2s+1
     sub-batches its row of the support mask selects.
@@ -40,6 +42,19 @@ def indices_baseline(n_samples: int, step: int, num_workers: int, batch_size: in
     epoch, off = _epoch_and_offset(step, bpe)
     return np.concatenate([
         _perm_slice(drng.epoch_permutation(seed + 31 * (w + 1), epoch, n_samples),
+                    off, batch_size, n_samples)
+        for w in range(num_workers)
+    ])
+
+
+def indices_grouped(n_samples: int, step: int, num_workers: int, group_size: int,
+                    batch_size: int, seeds: np.ndarray) -> np.ndarray:
+    """(n·B,) flat indices where group members share the shuffle (identical
+    batches within a group). ``seeds`` from rng.group_seeds."""
+    bpe = max(n_samples // batch_size, 1)
+    epoch, off = _epoch_and_offset(step, bpe)
+    return np.concatenate([
+        _perm_slice(drng.epoch_permutation(int(seeds[w // group_size]), epoch, n_samples),
                     off, batch_size, n_samples)
         for w in range(num_workers)
     ])
@@ -104,6 +119,24 @@ def indices_baseline_range(n_samples: int, step0: int, k: int, num_workers: int,
     for w in range(num_workers):
         out[:, w * batch_size : (w + 1) * batch_size] = _perm_rows(
             lambda e, w=w: drng.epoch_permutation(seed + 31 * (w + 1), e, n_samples),
+            epochs, cols,
+        )
+    return out
+
+
+def indices_grouped_range(n_samples: int, step0: int, k: int, num_workers: int,
+                          group_size: int, batch_size: int,
+                          seeds: np.ndarray) -> np.ndarray:
+    """(k, n·B) stacked flat indices; row i == indices_grouped(step0 + i)."""
+    bpe = max(n_samples // batch_size, 1)
+    steps = np.arange(step0, step0 + k)
+    epochs, offs = steps // bpe, steps % bpe
+    cols = _range_cols(offs, batch_size, n_samples)
+    out = np.empty((k, num_workers * batch_size), dtype=np.int64)
+    for w in range(num_workers):
+        out[:, w * batch_size : (w + 1) * batch_size] = _perm_rows(
+            lambda e, w=w: drng.epoch_permutation(
+                int(seeds[w // group_size]), e, n_samples),
             epochs, cols,
         )
     return out

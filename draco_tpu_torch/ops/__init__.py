@@ -7,7 +7,7 @@ counts its own launches in ``<wrapper>.launches`` (a plain int), which
 """
 
 from draco_tpu_torch.ops import coded, controls, decode_kernels
-from draco_tpu_torch.ops import flash_attention
+from draco_tpu_torch.ops import flash_attention, vote
 
 KERNELS = {
     "complex_matmul": coded.complex_matmul,
@@ -19,6 +19,7 @@ KERNELS = {
     "flash_fwd": flash_attention.flash_fwd,
     "flash_dq": flash_attention.flash_dq,
     "flash_dkv": flash_attention.flash_dkv,
+    "row_fingerprints": vote.row_fingerprints,
 }
 CONTROLS = {
     "control_mistiled_copy": controls.control_mistiled_copy,

@@ -4,11 +4,12 @@ and the metric schema both the CNN step and the LM step emit.
 
 The port's slice: the cyclic code (``simulate`` and ``shared``) with the
 global decode, the approx code (flat, one segment), the f32 or the narrow
-bf16/int8 wire, stragglers as a presence mask, and the baseline ``mean`` /
-``geometric_median``. The LM route runs the cyclic and baseline codes with
-every row present on the f32 wire (``config.validate``). The reference's
-packed forensics columns, numerics observatory and step guard are not
-ported yet.
+bf16/int8 wire, stragglers as a presence mask, and the baseline's seven
+robust rules (``aggregation.py``). The LM route runs the cyclic and
+baseline codes with every row present on the f32 wire
+(``config.validate``); the repetition code is the CNN step's
+(``training/step.py``). The reference's packed forensics columns, numerics
+observatory and step guard are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from draco_tpu_torch import aggregation, attacks
 from draco_tpu_torch.coding import approx as approx_mod
 from draco_tpu_torch.coding import cyclic as cyclic_mod
+from draco_tpu_torch.coding import repetition
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.obs.tracer import phase
 
@@ -44,7 +46,10 @@ APPROX_HEALTH_NAMES = ("decode_residual", "decode_residual_bound",
 
 def build_code_from_cfg(cfg):
     """The CyclicCode for approach="cyclic", the ApproxCode for "approx",
-    None for the baseline."""
+    the RepetitionCode for "maj_vote", None for the baseline."""
+    if cfg.approach == "maj_vote":
+        return repetition.build_repetition_code(cfg.num_workers,
+                                                cfg.group_size)
     if cfg.approach == "cyclic":
         return cyclic_mod.build_cyclic_code(cfg.num_workers, cfg.worker_fail)
     if cfg.approach == "approx":
@@ -75,7 +80,8 @@ def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
 
 
 def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
-                         code, rand_factor, noise=None, generator=None):
+                         code, rand_factor, noise=None, generator=None,
+                         present: Optional[torch.Tensor] = None):
     """Per-worker flat gradients -> ``(aggregated (d,), health)``.
 
     cyclic: ``grads`` (n, hat_s, d) are the true redundant lanes
@@ -84,8 +90,9 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
     the encoded rows and the decode recovers the exact mean. ``health``:
     ``residual``, ``flagged``, ``loud`` and ``honest``. Otherwise the
     adversary injects on the raw rows and the configured robust rule
-    aggregates them; ``health`` is None. ``noise`` / ``generator``: the
-    ``random`` attack's draws (attacks.py)."""
+    aggregates them over the ``present`` rows; ``health`` is None.
+    ``noise`` / ``generator``: the ``random`` attack's draws
+    (attacks.py)."""
     if cfg.approach == "cyclic":
         with phase("draco_encode"):
             if grads.dim() == 3:
@@ -101,10 +108,11 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
         health["honest"] = honest
         return agg, health
     grads = attacks.inject_plain(grads, adv_mask, cfg.err_mode,
-                                 cfg.adversarial, noise, generator)
+                                 cfg.adversarial, noise, generator,
+                                 n_mal=cfg.num_adversaries)
     with phase("draco_decode"):
-        return (aggregation.aggregate(grads, cfg.mode, cfg.geomedian_iters),
-                None)
+        return (aggregation.aggregate(grads, cfg.mode, cfg.worker_fail,
+                                      cfg.geomedian_iters, present), None)
 
 
 def present_mean(values: torch.Tensor,

@@ -10,17 +10,28 @@ import dataclasses
 from draco_tpu_torch.config import TrainConfig
 
 PRESETS: dict[str, TrainConfig] = {
+    # ResNet-18/CIFAR-10, repetition code r=3, no adversary
+    "rep-resnet18": TrainConfig(
+        network="ResNet18", dataset="Cifar10", approach="maj_vote",
+        group_size=3, num_workers=9, worker_fail=0, batch_size=32,
+        lr=0.01, momentum=0.9,
+    ),
     # ResNet-18/CIFAR-10, cyclic code r=3 (s=1), reverse-gradient adversary
     "cyclic-resnet18": TrainConfig(
         network="ResNet18", dataset="Cifar10", approach="cyclic",
         num_workers=9, worker_fail=1, err_mode="rev_grad", batch_size=32,
         lr=0.01, momentum=0.9,
     ),
-    # the geometric-median baseline under the same adversary schedule
+    # the robust-aggregation baselines under the same adversary schedule
     "geomedian-resnet18": TrainConfig(
         network="ResNet18", dataset="Cifar10", approach="baseline",
         mode="geometric_median", num_workers=9, worker_fail=1,
         err_mode="rev_grad", batch_size=32, lr=0.01, momentum=0.9,
+    ),
+    "krum-resnet18": TrainConfig(
+        network="ResNet18", dataset="Cifar10", approach="baseline",
+        mode="krum", num_workers=9, worker_fail=1, err_mode="rev_grad",
+        batch_size=32, lr=0.01, momentum=0.9,
     ),
     # the straggler scenario: the approximate code at r=1.5, dimensioned
     # for up to ⌈0.25·n⌉ absent workers a step, 2 dropped each step, no

@@ -6,6 +6,7 @@ is no quiet fallback: asking for ``cuda`` on a machine without a card raises.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -22,6 +23,20 @@ def full_f32() -> None:
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to its deterministic algorithms (no autotuning),
+    its other settings (TF32 off) left as they are: inside, a convolution
+    gives the same bits from call to call and from lane to lane."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:

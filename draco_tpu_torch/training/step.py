@@ -5,17 +5,27 @@ program; the port runs it eagerly on one device, with the worker axis a
 real tensor axis:
 
   per-lane value-and-grad   ``torch.func.vmap`` of ``grad_and_value`` over
-                            n lanes (baseline, shared, approx) or n·(2s+1)
-                            lanes (simulate), each with its worker's BN
-                            stats
+                            n lanes (baseline, maj_vote, shared, approx) or
+                            n·(2s+1) lanes (simulate), each with its
+                            worker's BN stats
   attack                    masked injection (``attacks``)
   encode                    ``coding.cyclic.encode`` / ``encode_shared``,
                             ``coding.approx.encode_shared``
   stragglers                absent rows zero-filled (``present``)
   wire                      f32, or bf16 / int8 buffers (``obs.numerics``)
   decode                    cyclic: project → locator → recombine; approx:
-                            host weight solve → one-pass decode (kernels)
+                            host weight solve → one-pass decode (kernels);
+                            maj_vote: row fingerprints (kernel) → the vote
+                            a group; baseline: the robust rule
+                            (``aggregation``) over the present rows
   update                    SGD with momentum on the decoded gradient
+
+The repetition code's lanes run under ``torch.backends.cudnn
+.deterministic`` (``vote_lanes``): its vote needs the members of a group,
+which compute the same batch, to give bit-identical gradients. At cuDNN's
+default settings on an H100 they do not: every honest lane differed from
+its group's others in about half of ResNet-18's coordinates, every step
+(PERF.md §6).
 
 The state carry is updated in place: parameters, momentum buffers and the
 BN statistics keep their storage across steps. The step is split in two:
@@ -39,11 +49,14 @@ Gradients are flattened in the reference's leaf order and layout
 and the decode agree with the reference coordinate for coordinate.
 
 Randomness: augmentation draws come from a ``torch.Generator`` per global
-batch row k (per worker on the baseline), folded from (seed + 2, step, k),
-drawn on the host so every device sees the same draws; the random
+batch row k (per worker on the baseline, per group on maj_vote, repeated
+over the group's members), folded from (seed + 2, step, k), drawn on the
+host so every device sees the same draws; the vote's two fingerprint salts
+from (seed + 4, step), a host input of the step like the draws; the random
 projection from (seed, 7919), or ``build_train_setup(rand_factor=)``.
-``train_step`` takes explicit ``aug_draws``, ``rand_factor`` and ``noise``
-overrides so the tests can hand it the reference's own draws, and the
+``train_step`` takes explicit ``aug_draws``, ``rand_factor``, ``noise``
+and ``salts`` overrides so the tests can hand it the reference's own
+draws, and the
 step's ``present`` mask (the host's (n,) bool, False = the worker's row
 never arrives; None = all arrive); ``make_chunk`` takes the chunk's
 ``draws``.
@@ -51,6 +64,7 @@ never arrives; None = all arrive); ``make_chunk`` takes the chunk's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, NamedTuple, Optional
 
@@ -62,12 +76,14 @@ from draco_tpu_torch import params as params_mod
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.coding import approx as approx_mod
 from draco_tpu_torch.coding import cyclic as cyclic_mod
+from draco_tpu_torch.coding import repetition as rep_mod
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import augment as augment_mod
 from draco_tpu_torch.models import build_model
 from draco_tpu_torch.models.resnet import init_params, init_stats
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.obs.tracer import phase
+from draco_tpu_torch.ops import vote as vote_ops
 from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
 from draco_tpu_torch.parallel.common import (
     APPROX_HEALTH_NAMES,
@@ -77,10 +93,15 @@ from draco_tpu_torch.parallel.common import (
     decode_health_metrics,
     present_mean,
 )
-from draco_tpu_torch.runtime import resolve_device, upload
+from draco_tpu_torch.runtime import cudnn_deterministic, resolve_device, upload
 from draco_tpu_torch.training.chunk_graph import Chunk, StepGraph
 
 AUG_SALT = 2  # the reference's augmentation seed salt (seed + 2)
+VOTE_SALT = 4  # the vote's fingerprint salts (seed + 4)
+# the repetition code's per-step health columns (coding/repetition.py) and
+# its detection counts against the seeded schedules
+VOTE_NAMES = ("vote_agree", "flagged_groups", "det_flagged", "det_tp",
+              "det_adv")
 # the approx decode's columns that the host solve gives (coding/approx.py)
 APPROX_HOST_NAMES = ("decode_residual_bound", "recovered_fraction")
 
@@ -105,9 +126,9 @@ class TrainSetup(NamedTuple):
     model: Any
     state: TrainState
     # (state, x, y, adv_mask, aug_draws=None, rand_factor=None, noise=None,
-    #  present=None) -> (state, metrics dict of 0-d tensors)
+    #  present=None, salts=None) -> (state, metrics dict of 0-d tensors)
     train_step: Any
-    code: Any  # CyclicCode | ApproxCode | None
+    code: Any  # CyclicCode | ApproxCode | RepetitionCode | None
     layout: params_mod.Layout
     dim: int
     metric_names: tuple
@@ -130,7 +151,9 @@ def _cross_entropy(logits, labels):
 
 def metric_names(cfg: TrainConfig) -> tuple:
     names = ("loss", "prec1")
-    if cfg.approach == "cyclic":
+    if cfg.approach == "maj_vote":
+        names += VOTE_NAMES
+    elif cfg.approach == "cyclic":
         names += ("honest_located",) + DECODE_HEALTH_NAMES
     elif cfg.approach == "approx":
         names += APPROX_HEALTH_NAMES
@@ -144,6 +167,32 @@ def aug_draws(cfg: TrainConfig, step: int, rows: int):
                               drng.generator(cfg.seed + AUG_SALT, step, k))
              for k in range(rows)]
     return tuple(torch.stack(d) for d in zip(*draws))
+
+
+def vote_salts(cfg: TrainConfig, step: int) -> torch.Tensor:
+    """The vote's two fingerprint salts of ``step`` as a (2,) int32 tensor
+    of their uint32 bits, from the host generator of (seed + 4, step)."""
+    g = drng.generator(cfg.seed + VOTE_SALT, step)
+    draws = torch.randint(0, 1 << 32, (2,), generator=g, dtype=torch.int64)
+    return vote_ops.salts_tensor(draws.tolist())
+
+
+def detection_metrics(flagged, adv_mask, present=None) -> dict:
+    """Per-step detection counts against the seeded schedules: flagged,
+    flagged ∧ adversarial (true positives) and adversarial, each among the
+    present rows (a straggling adversary's row never arrives)."""
+    adv, flagged = adv_mask.bool(), flagged.bool()
+    if present is not None:
+        adv, flagged = adv & present, flagged & present
+    return {"det_flagged": flagged.sum(), "det_tp": (flagged & adv).sum(),
+            "det_adv": adv.sum()}
+
+
+def vote_lanes(device: torch.device):
+    """The maj_vote lanes' setting: deterministic cuDNN on the card (no
+    effect on the CPU), the vote's bitwise-equality contract."""
+    return (cudnn_deterministic() if device.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def metrics_row(metrics: dict, names: tuple) -> torch.Tensor:
@@ -234,15 +283,23 @@ def build_train_setup(cfg: TrainConfig, device=None,
     names = metric_names(cfg)
     block_names = tuple(k for k in names if k not in host_names)
 
-    def step_inputs(step, adv_mask, present, draws):
+    vote = cfg.approach == "maj_vote"
+    # the rows of augmentation draws a step: one a group on maj_vote (its
+    # members see the same pixels), else one a worker / batch row
+    draw_rows = cfg.num_groups if vote else n
+
+    def step_inputs(step, adv_mask, present, draws, salts=None):
         """The host inputs of one step other than its batch, and its host
         columns."""
         out, host = {}, {}
         if use_aug:
             if draws is None:
-                draws = aug_draws(cfg, step, n)
+                draws = aug_draws(cfg, step, draw_rows)
             # the three draws in one tensor
             out["draws"] = torch.stack([torch.as_tensor(t) for t in draws])
+        if vote:
+            out["salts"] = (vote_salts(cfg, step) if salts is None
+                            else torch.as_tensor(salts, dtype=torch.int32))
         if cfg.approach == "approx":
             # no adversary injects: stragglers are this code's whole fault
             # model (config.validate)
@@ -252,14 +309,12 @@ def build_train_setup(cfg: TrainConfig, device=None,
         else:
             out["adv"] = torch.as_tensor(adv_mask)
         if present is not None:
-            if cfg.approach == "baseline":
-                raise ValueError("stragglers on approach=baseline are not "
-                                 "ported yet")
             out["present"] = torch.as_tensor(present).cpu().bool()
         return out, host
 
-    def host_inputs(step, x, y, adv_mask, present=None, aug_draws=None):
-        out, host = step_inputs(step, adv_mask, present, aug_draws)
+    def host_inputs(step, x, y, adv_mask, present=None, aug_draws=None,
+                    salts=None):
+        out, host = step_inputs(step, adv_mask, present, aug_draws, salts)
         return {"x": torch.as_tensor(x), "y": torch.as_tensor(y), **out}, host
 
     def make_chunk(start, xs, ys, masks, presents=None, draws=None):
@@ -275,11 +330,18 @@ def build_train_setup(cfg: TrainConfig, device=None,
                      {name: [float(p[1][name]) for p in per]
                       for name in host_names})
 
+    # each lane's row of draws: its group's on maj_vote
+    lane_draws = (torch.arange(n, device=dev) // cfg.group_size if vote
+                  else None)
+
     def batch(inputs):
         """The step's (n, B, ...) images, augmented, and int64 labels."""
         x, y = inputs["x"], inputs["y"].long()
         if "draws" in inputs:
-            x = augment_mod.augment(x, *inputs["draws"].unbind(0))
+            draws = inputs["draws"]
+            if lane_draws is not None:
+                draws = draws.index_select(1, lane_draws)
+            x = augment_mod.augment(x, *draws.unbind(0))
         return x, y
 
     def attack_generator(state, noise):
@@ -308,13 +370,39 @@ def build_train_setup(cfg: TrainConfig, device=None,
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
                                                     x, y)
             gen = attack_generator(state, noise)
+            pres = inputs.get("present")
             grads = attacks.inject_plain(grads, inputs["adv"], cfg.err_mode,
-                                         cfg.adversarial, noise, gen)
+                                         cfg.adversarial, noise, gen,
+                                         n_mal=cfg.num_adversaries)
             with phase("draco_decode"):
-                agg = aggregation.aggregate(grads, cfg.mode,
-                                            cfg.geomedian_iters)
+                agg = aggregation.aggregate(grads, cfg.mode, cfg.worker_fail,
+                                            cfg.geomedian_iters, pres)
             update(state, agg, new_stats)
-            return lane_metrics(losses, precs, None)
+            return lane_metrics(losses, precs, pres)
+
+    elif vote:
+
+        def step_body(state, inputs, rand_factor=None, noise=None):
+            del rand_factor
+            x, y = batch(inputs)
+            with vote_lanes(dev):
+                grads, new_stats, losses, precs = lanes(
+                    state.params, state.stats, x, y)
+            gen = attack_generator(state, noise)
+            mask, pres = inputs["adv"], inputs.get("present")
+            grads = attacks.inject_plain(grads, mask, cfg.err_mode,
+                                         cfg.adversarial, noise, gen,
+                                         n_mal=cfg.num_adversaries)
+            with phase("draco_decode"):
+                voted, health = rep_mod.majority_vote(
+                    code, grads, pres, inputs["salts"], cfg.vote_check,
+                    with_health=True)
+            update(state, voted, new_stats)
+            metrics = lane_metrics(losses, precs, pres)
+            metrics["vote_agree"] = health["vote_agree"]
+            metrics["flagged_groups"] = health["flagged_groups"]
+            metrics.update(detection_metrics(health["flagged"], mask, pres))
+            return metrics
 
     elif cfg.approach == "approx":
         # partial sums of the one-copy batch gradients (redundancy="shared"
@@ -400,9 +488,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
             return metrics
 
     def train_step(state, x, y, adv_mask, aug_draws=None, rand_factor=None,
-                   noise=None, present=None):
+                   noise=None, present=None, salts=None):
         inputs, host = host_inputs(state.step, x, y, adv_mask, present,
-                                   aug_draws)
+                                   aug_draws, salts)
         # host inputs by pinned asynchronous copies: no synchronising call
         metrics = step_body(state, {k: upload(v, dev)
                                     for k, v in inputs.items()},

@@ -2,7 +2,8 @@
 or K-step chunks at ``steps_per_call`` K > 1.
 
 Batches come from the reference's deterministic index streams
-(``indices_cyclic`` for the coded paths, ``indices_baseline`` otherwise) for
+(``indices_cyclic`` for the cyclic and approx codes, ``indices_grouped``
+for the repetition code, ``indices_baseline`` for the baseline) for
 1-based step t at index t − 1; the adversary mask of step t is row t of the
 seeded schedule, and under ``straggle_mode="drop"`` the step's presence
 mask is the negation of row t of the straggler schedule (a ``present``
@@ -57,14 +58,22 @@ class Trainer:
             if cfg.straggle_mode == "drop" and cfg.straggle_count > 0
             else None)
         self.tracer = make_tracer(cfg.trace_dir)
+        self.group_seeds = drng.group_seeds(cfg.seed, max(cfg.num_groups, 1))
 
     def batch(self, step: int):
         """(n, B, H, W, C) images and (n, B) labels of 1-based ``step``."""
         cfg = self.cfg
-        pick = (batching.indices_baseline if cfg.approach == "baseline"
-                else batching.indices_cyclic)
-        idx = pick(len(self.ds), step - 1, cfg.num_workers, cfg.batch_size,
-                   cfg.seed)
+        n = len(self.ds)
+        if cfg.approach == "baseline":
+            idx = batching.indices_baseline(n, step - 1, cfg.num_workers,
+                                            cfg.batch_size, cfg.seed)
+        elif cfg.approach == "maj_vote":
+            idx = batching.indices_grouped(n, step - 1, cfg.num_workers,
+                                           cfg.group_size, cfg.batch_size,
+                                           self.group_seeds)
+        else:
+            idx = batching.indices_cyclic(n, step - 1, cfg.num_workers,
+                                          cfg.batch_size, cfg.seed)
         return batching.gather(self.ds, idx, cfg.num_workers, cfg.batch_size)
 
     def inputs(self, step: int) -> tuple:
@@ -104,10 +113,16 @@ class Trainer:
         """(k, n·B) flat sample indices of 1-based steps [start, start+k):
         row i equals step start + i's indices bit for bit."""
         cfg = self.cfg
-        pick = (batching.indices_baseline_range if cfg.approach == "baseline"
-                else batching.indices_cyclic_range)
-        return pick(len(self.ds), start - 1, k, cfg.num_workers,
-                    cfg.batch_size, cfg.seed)
+        n = len(self.ds)
+        if cfg.approach == "baseline":
+            return batching.indices_baseline_range(
+                n, start - 1, k, cfg.num_workers, cfg.batch_size, cfg.seed)
+        if cfg.approach == "maj_vote":
+            return batching.indices_grouped_range(
+                n, start - 1, k, cfg.num_workers, cfg.group_size,
+                cfg.batch_size, self.group_seeds)
+        return batching.indices_cyclic_range(
+            n, start - 1, k, cfg.num_workers, cfg.batch_size, cfg.seed)
 
     def chunk_client(self, first: int, last: int):
         """The engine's client for steps [first, last] over a fresh batch

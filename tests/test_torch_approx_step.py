@@ -159,14 +159,19 @@ def test_update(leg):
 APPROX = dict(COMMON, approach="approx", redundancy="shared", worker_fail=0,
               num_workers=8, straggle_mode="drop", straggle_count=2)
 CYCLIC = dict(COMMON, approach="cyclic", num_workers=8)
+KRUM = dict(COMMON, approach="baseline", mode="krum", num_workers=5)
+VOTE = dict(COMMON, approach="maj_vote", num_workers=9, group_size=3)
 LM = dict(network="TransformerLM", dataset="synthetic-text",
           approach="cyclic", num_workers=8, worker_fail=1)
 
 
 @pytest.mark.parametrize("base,override", [
-    (CYCLIC, {"approach": "maj_vote"}),
+    # the vote runs now; its narrow wire does not yet
+    (dict(CYCLIC, num_workers=9), {"approach": "maj_vote",
+                                   "wire_dtype": "bf16"}),
     (CYCLIC, {"shadow_round": "stochastic", "wire_dtype": "int8"}),
-    (dict(CYCLIC, approach="baseline", mode="geometric_median"),
+    # the CNN baseline takes stragglers now; the LM's does not yet
+    (dict(LM, approach="baseline", mode="krum"),
      {"straggle_mode": "drop", "straggle_count": 1}),
     (LM, {"wire_dtype": "bf16"}),
     (LM, {"straggle_mode": "drop", "straggle_count": 1,
@@ -199,11 +204,31 @@ def test_still_not_ported(base, override):
     (dict(CYCLIC, num_workers=32, worker_fail=4), {"wire_dtype": "int8"}),
     (dict(CYCLIC, approach="baseline"), {"wire_dtype": "bf16"}),
     (CYCLIC, {"shadow_block": 0}),
+    (KRUM, {"num_workers": 3}),  # n < s + 3
+    (KRUM, {"mode": "trimmed_mean", "num_workers": 2}),  # n <= 2s
+    (KRUM, {"mode": "bulyan", "worker_fail": 3}),  # n < s + 3
+    (KRUM, {"straggle_mode": "drop", "straggle_count": 2}),  # n - e < s + 3
+    (dict(KRUM, mode="coord_median"), {"straggle_mode": "drop",
+                                       "straggle_count": 3}),  # n - e <= 2s
+    (dict(KRUM, mode="normal"), {"straggle_mode": "drop",
+                                 "straggle_count": 5}),  # e >= n
+    (CYCLIC, {"err_mode": "alie"}),
+    (CYCLIC, {"err_mode": "ipm"}),
+    (VOTE, {"num_workers": 8}),  # n % r
+    (VOTE, {"worker_fail": 2}),  # r < 2s + 1
+    (VOTE, {"vote_check": "sha256"}),
+    (VOTE, {"straggle_mode": "drop", "straggle_count": 3}),  # e >= r
+    (dict(VOTE, group_size=5, num_workers=10, worker_fail=2),
+     {"straggle_mode": "drop", "straggle_count": 1}),  # r - e <= 2t
 ], ids=["approx_adversary", "approx_simulate", "r_below_1", "r_above_n",
         "alpha_1", "clustered_fractional_r", "unknown_scheme",
         "approx_budget", "unknown_straggle_mode", "cyclic_joint_budget",
         "cyclic_erasure_budget", "unknown_wire", "no_wire_threshold",
-        "baseline_wire", "block_0"])
+        "baseline_wire", "block_0", "krum_n", "trimmed_n", "bulyan_n",
+        "krum_straggler_budget", "median_straggler_budget",
+        "baseline_all_absent", "alie_on_cyclic", "ipm_on_cyclic",
+        "vote_groups", "vote_r_below_2s_plus_1", "vote_check",
+        "vote_silenced_group", "vote_joint_budget"])
 def test_reference_checks(base, override):
     """Each override is rejected by the port and by the reference."""
     TrainConfig(**base).validate()
@@ -222,6 +247,14 @@ def test_accepted_configurations():
                dict(CYCLIC, redundancy="shared", wire_dtype="int8",
                     shadow_block=96),
                dict(CYCLIC, adversary_count=0, straggle_mode="drop",
-                    straggle_count=2)):
+                    straggle_count=2),
+               VOTE, dict(VOTE, worker_fail=0), dict(VOTE, vote_check="exact"),
+               dict(VOTE, adversary_count=0, straggle_mode="drop",
+                    straggle_count=2),
+               dict(KRUM, straggle_mode="drop", straggle_count=1),
+               dict(KRUM, mode="bulyan", num_workers=7),
+               dict(KRUM, mode="trimmed_mean", err_mode="alie"),
+               dict(KRUM, mode="multi_krum", err_mode="ipm",
+                    straggle_mode="drop", straggle_count=1)):
         TrainConfig(**kw).validate()
         JaxConfig(**kw).validate()

@@ -11,7 +11,7 @@
   kernels at ragged shapes.
 * The program lint at CI size: every registered leg green on the CPU
   rules, every CPU control tripping exactly its rule, the honest miniature
-  green; the registry covers the ten legs ``chip_smoke.py`` drives.
+  green; the registry covers the twelve legs ``chip_smoke.py`` drives.
 """
 
 import json
@@ -33,10 +33,10 @@ from draco_tpu_torch.ops import controls
 CPU = torch.device("cpu")
 MAIN_KERNELS = ("complex_matmul", "complex_project", "complex_recombine",
                 "cyclic_locator", "cyclic_narrow_recombine", "approx_decode",
-                "flash_fwd", "flash_dq", "flash_dkv")
+                "flash_fwd", "flash_dq", "flash_dkv", "row_fingerprints")
 LEGS = ("simulate", "geomedian", "shared", "approx", "approx_int8",
-        "shared_bf16", "shared_int8", "lm_shared_flash", "lm_simulate_flash",
-        "lm_geomedian_flash")
+        "shared_bf16", "shared_int8", "majvote", "krum", "lm_shared_flash",
+        "lm_simulate_flash", "lm_geomedian_flash")
 
 
 def _bad(x):
@@ -112,7 +112,7 @@ def test_kernel_audit_report_on_the_cpu(tmp_path):
     assert report["all_ok"]
     rows = {r["name"]: r for r in json.loads(out.read_text())["rows"]}
     assert list(rows) == [s.name for s in kernel_audit.SPECS]
-    assert len(rows) == 12
+    assert len(rows) == 13
     mis = rows["control_mistiled_copy"]
     assert mis["failed_rules"] == ["coverage"]
     assert mis["plain"]["bitwise_equal"]
@@ -297,7 +297,8 @@ def test_the_registry_covers_the_ten_legs():
     assert set(chip_smoke.EXPECT) == set(LEGS)
     for p in registry.collect():
         full, ci = p.config(full=True), p.config(full=False)
-        assert full.num_workers == 8
+        # the repetition code's preset: 3 groups of 3
+        assert full.num_workers == (9 if p.name == "majvote" else 8)
         assert (full.network, full.approach, full.wire_dtype) == (
             ci.network, ci.approach, ci.wire_dtype)
         m = p.manifest(full, True)

@@ -371,9 +371,9 @@ def test_validate_rejects_with_its_reason(route, fields, reason):
 
 def test_the_registry_lists_the_chunked_programs():
     assert [c.name for c in registry.collect_chunks()] == [
-        "chunk_simulate", "chunk_lm_shared_flash"]
+        "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote"]
     assert {c.name for c in program_lint.select("chunk_")} == {
-        "chunk_simulate", "chunk_lm_shared_flash"}
+        "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote"}
     for c in registry.collect_chunks():
         cfg = c.config(full=True)
         m = c.manifest(cfg, True)
@@ -383,7 +383,8 @@ def test_the_registry_lists_the_chunked_programs():
         assert m.h2d_bytes == 4 * sum(step.values())
 
 
-@pytest.mark.parametrize("name", ["chunk_simulate", "chunk_lm_shared_flash"])
+@pytest.mark.parametrize("name", ["chunk_simulate", "chunk_lm_shared_flash",
+                                  "chunk_majvote"])
 def test_chunked_programs_green_on_the_cpu_rules(name):
     """One inspected chunk after a first chunk and its flush, on the CPU
     loop: no would-be sync in the chunk, one fetch in the flush, the state

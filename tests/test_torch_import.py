@@ -1,6 +1,8 @@
 """The PyTorch port imports neither JAX nor the JAX package: a fresh
 interpreter imports every module of ``draco_tpu_torch`` and
-``chip_smoke``'s imports, then looks at ``sys.modules``."""
+``chip_smoke``'s imports, then looks at ``sys.modules``. Also the
+configuration rejections of what the port does not run yet, each with
+its reason."""
 
 import json
 import os
@@ -64,7 +66,11 @@ def test_every_submodule_imported(probe):
                 "draco_tpu_torch.control.engine",
                 "draco_tpu_torch.control.clients",
                 "draco_tpu_torch.data.prefetch",
-                "draco_tpu_torch.utils.metrics"):
+                "draco_tpu_torch.utils.metrics",
+                "draco_tpu_torch.coding.repetition",
+                "draco_tpu_torch.ops.vote",
+                "draco_tpu_torch.aggregation",
+                "draco_tpu_torch.attacks"):
         assert mod in expected
 
 
@@ -82,3 +88,25 @@ def test_port_source_names_no_jax():
                 mod = s.split()[1].split(".")[0]
                 assert mod not in ("jax", "jaxlib", "flax", "optax",
                                    "draco_tpu"), f"{path}: {s}"
+
+
+VOTE = dict(network="ResNet18", dataset="synthetic-cifar10",
+            approach="maj_vote", num_workers=9, group_size=3, worker_fail=1)
+
+
+@pytest.mark.parametrize("override,reason", [
+    (dict(network="TransformerLM", dataset="synthetic-text"),
+     "not supported for TransformerLM"),
+    (dict(wire_dtype="bf16"), "on approach=maj_vote is not ported"),
+    (dict(wire_dtype="int8"), "on approach=maj_vote is not ported"),
+    (dict(straggle_mode="drop", straggle_count=1), "joint budget"),
+    (dict(worker_fail=0, straggle_mode="drop", straggle_count=3),
+     "silence an entire repetition group"),
+], ids=["vote_on_the_lm", "vote_bf16_wire", "vote_int8_wire",
+        "vote_joint_budget", "vote_group_silenced"])
+def test_config_rejects_with_its_reason(override, reason):
+    from draco_tpu_torch.config import TrainConfig
+
+    TrainConfig(**VOTE).validate()
+    with pytest.raises(ValueError, match=reason):
+        TrainConfig(**{**VOTE, **override}).validate()

@@ -102,4 +102,5 @@ def test_launch_counters_reset():
     assert set(tops.KERNELS) == {"complex_matmul", "complex_project",
                                  "complex_recombine", "cyclic_locator",
                                  "cyclic_narrow_recombine", "approx_decode",
-                                 "flash_fwd", "flash_dq", "flash_dkv"}
+                                 "flash_fwd", "flash_dq", "flash_dkv",
+                                 "row_fingerprints"}

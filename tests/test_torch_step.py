@@ -331,7 +331,11 @@ def test_per_worker_batchnorm_stats(leg):
 @pytest.mark.parametrize("override", [
     {"shadow_round": "stochastic"}, {"wire_segments": 2}, {"topology": "tree"},
     {"decode_granularity": "layer"}, {"decode_impl": "xla"},
-    {"network": "LeNet"}, {"approach": "baseline", "mode": "krum"},
+    {"network": "LeNet"},
+    # krum runs now; below its n >= s + 3 it is refused, as the reference
+    # refuses it
+    pytest.param({"approach": "baseline", "mode": "krum", "num_workers": 3},
+                 id="approach=baseline-mode=krum"),
     {"err_mode": "alie"}, {"approach": "maj_vote"}, {"adversary_count": 2}],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_config_rejects_what_is_not_ported(override):
@@ -345,10 +349,13 @@ def test_presets_match_the_reference():
     from draco_tpu import presets as jpresets
     from draco_tpu_torch import presets
 
-    for name in ("cyclic-resnet18", "geomedian-resnet18", "approx-resnet18"):
-        port = presets.get_preset(name, num_workers=8)
-        ref = jpresets.get_preset(name, num_workers=8)
-        for field in ("network", "dataset", "approach", "mode",
+    for name in ("cyclic-resnet18", "geomedian-resnet18", "approx-resnet18",
+                 "rep-resnet18", "krum-resnet18"):
+        n = 9 if name == "rep-resnet18" else 8
+        port = presets.get_preset(name, num_workers=n)
+        ref = jpresets.get_preset(name, num_workers=n)
+        for field in ("network", "dataset", "approach", "mode", "group_size",
+                      "vote_check",
                       "num_workers", "worker_fail", "err_mode", "batch_size",
                       "lr", "momentum", "redundancy", "decode_granularity",
                       "decode_impl", "seed", "geomedian_iters",
