@@ -25,7 +25,17 @@ prints no result line):
               buffers, public and drawn salts, two launches each, and
               forged rows separated; the audit's
               mis-tiled copy at (16, 48) and spill control at n=1003, each
-              bit for bit (the over-launch control never launches). Times
+              bit for bit (the over-launch control never launches). The
+              segment kernels (``segment_kernels``) at the segmented legs'
+              cuts — ResNet-18's 62 leaves, its int8 wire's 4 segments, the
+              LM's 69 segments of d=62,958,336 — and at d=5003 with tiny
+              and unaligned segments: each against its plain version, twice
+              bit for bit, the recombinations bit for bit the whole-d
+              kernels on each segment's contiguous copy or block-aligned
+              slice, the approx offset entry's decoded slices bit for bit
+              approx_decode on the contiguous slices, the projection at
+              S=1 against complex_project with equal locator outputs; the
+              locator at L=62 and 69 from a graph. Times
               each kernel, its plain version, its bound and the one PyTorch
               call that computes the same function, where there is one
               (torch.matmul; scaled_dot_product_attention and its autograd
@@ -45,14 +55,25 @@ prints no result line):
               the LM benchmark at full width (dim 768, 12 heads, 8 layers,
               vocab 8192, T=512, batch 2, bfloat16 compute, flash
               attention, d=62,958,336): ``lm_shared_flash``,
-              ``lm_simulate_flash`` (24 lanes) and ``lm_geomedian_flash``.
+              ``lm_simulate_flash`` (24 lanes) and ``lm_geomedian_flash``;
+              then the segmented wire and the per-layer decode, each
+              beside its S = 1 twin: ``shared_layer`` (62 locator columns),
+              ``shared_int8_seg4``, ``approx_int8_seg4`` and
+              ``lm_shared_flash_layer`` (69 segments). A segmented leg
+              launches no whole-d decode kernel, an earlier leg no segment
+              kernel.
               Each leg runs through the entry points a user calls (Trainer /
               build_sp_train_setup + TokenLoop) with the launch counts
               zeroed just before it and read just after; every coded step
-              must locate the adversary (honest_located=6,
+              must locate the adversary (honest_located=6, on a segmented
+              leg ≤ 6: the rows honest in every segment;
               located_errors=det_tp=det_adv=1), every approx step hold its
               certificate (residual ≤ bound + the wire's slack)
-  4. check    majvote without its adversary for 8 steps (vote_agree 1.0:
+  4. check    each segmented leg against its twin: the detection columns
+              equal on every eager and chunked step, and the first step's
+              decoded aggregate (fresh setups, deterministic cuDNN) within
+              rtol 2e-4, atol 1e-6 of the twin's;
+              majvote without its adversary for 8 steps (vote_agree 1.0:
               the honest lanes of a group bit-identical) and the exact
               vote equal to the fingerprint vote on one step's rows; the
               ResNet decode at full size and one small ResNet step, on
@@ -72,8 +93,10 @@ prints no result line):
               inspected step after a warm-up: dtypes, no synchronising
               call, host-to-device bytes within the manifest, the state
               updated in place, no collective, the step's memory within
-              budget; then the lint's seeded-defect controls, each
-              tripping exactly its rule
+              budget, a segmented leg's host-to-device bytes its twin's
+              (the segment plan lives on the card from setup); then the
+              lint's seeded-defect controls, each tripping exactly its
+              rule
 
   6. chunk    each leg also as the K-fused chunk (``steps_per_call`` K=4,
               on the card one captured CUDA graph replayed K times,
@@ -95,9 +118,9 @@ prints no result line):
               cuDNN (``cudnn.deterministic``), since cuDNN's default
               backward is free to sum in another order each call. The
               flagship ratio geomedian/simulate under the chunk. Each
-              kernel of the legs (the ten ported) captured in a graph
-              alone, its replay bit for bit its direct launch at the main
-              path's shapes. The lint (phase 5) also runs the chunked
+              kernel of the legs (the ten ported and the segment kernels)
+              captured in a graph alone, its replay bit for bit its direct
+              launch at the main path's shapes. The lint (phase 5) also runs the chunked
               programs of ``simulate``, ``lm_shared_flash`` and
               ``majvote``: no
               synchronising call inside a chunk, one device-to-host fetch
@@ -140,11 +163,14 @@ from draco_tpu_torch.analysis.registry import APPROX, LM_FULL
 from draco_tpu_torch.coding import approx, cyclic, repetition
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data.datasets import load_dataset
+from draco_tpu_torch.models import build_model
+from draco_tpu_torch.models.transformer import TransformerLM
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.obs.trace_report import fold_device_phases
 from draco_tpu_torch.obs.tracer import PHASES
 from draco_tpu_torch.ops import coded, controls, decode_kernels, vote
 from draco_tpu_torch.ops import flash_attention as fa
+from draco_tpu_torch.parallel.common import decode_bounds
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.token_loop import TokenLoop
 from draco_tpu_torch.runtime import cudnn_deterministic, resolve_device
@@ -178,6 +204,14 @@ WIRE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
 # program lint holds to their manifests
 LM_D = 62_958_336  # the LM's flat gradient
 G_LM = N * 2 * 12  # flash heads per call on the shared leg: lanes·B·H
+# the segmented decode's kernels (the layer decode, wire_segments > 1), and
+# the whole-d kernels they take the place of on a segmented leg
+SEGMENTED = ("complex_project_segments", "complex_recombine_segments",
+             "cyclic_narrow_recombine_segments", "approx_decode_segment")
+WHOLE = ("complex_project", "complex_recombine", "cyclic_narrow_recombine",
+         "approx_decode")
+SEG_CODED = ("complex_matmul", "complex_project_segments", "cyclic_locator",
+             "complex_recombine_segments")
 # the kernels each leg must launch
 EXPECT = {"simulate": CODED[1:], "geomedian": (), "shared": CODED,
           "approx": ("approx_decode",), "approx_int8": ("approx_decode",),
@@ -185,7 +219,21 @@ EXPECT = {"simulate": CODED[1:], "geomedian": (), "shared": CODED,
           "majvote": ("row_fingerprints",), "krum": (),
           "lm_shared_flash": CODED + FLASH,
           "lm_simulate_flash": CODED[1:] + FLASH,
-          "lm_geomedian_flash": FLASH}
+          "lm_geomedian_flash": FLASH,
+          "shared_layer": SEG_CODED,
+          "shared_int8_seg4": SEG_CODED[:3]
+          + ("cyclic_narrow_recombine_segments",),
+          "approx_int8_seg4": ("approx_decode_segment",),
+          "lm_shared_flash_layer": SEG_CODED + FLASH}
+# the columns a segmented leg must give on every step as its twin does (the
+# reference's, tests/test_segments.py DET_COLS). Not honest_located: each
+# segment's locator keeps n − 2s rows, the adversary and, at s = 1, one of
+# its two neighbours on the DFT circle excluded, and the neighbours tie up
+# to the tie-break's 1e-4 margin, so two segments can exclude different
+# neighbours and the folded honest set count fewer rows (the reference's
+# decode_segments does the same on the same rows, PERF.md §6)
+DETECT = ("located_errors", "det_tp", "det_adv", "present",
+          "decode_residual_bound", "recovered_fraction")
 CHUNK_K = 4  # steps of the chunk phase's chunk (steps_per_call)
 LOOP_CHUNKS = 3  # chunks of the chunk phase's timed loop (runner.run)
 # the columns a chunk must give exactly as the eager loop does
@@ -427,6 +475,14 @@ def locator_kernel(code, dev) -> list:
         print(f"kernel cyclic_locator [{label}]: discrete outputs equal, "
               f"v err {v_err:.3e}, residual err {r_err:.3e}", flush=True)
 
+    # the layer legs' column counts (ResNet-18's 62 leaves, the LM's 69
+    # segments), from a graph
+    at_l = {}
+    for L in (62, 69):
+        e_re, e_im, pres = locator_columns(code, L, (3,), (), dev, g)
+        at_l[str(L)] = graph_ms(lambda: kernel(e_re, e_im, pres), 50)
+    print(f"kernel cyclic_locator: L=62 {at_l['62']:.4f} ms, L=69 "
+          f"{at_l['69']:.4f} ms (device, CUDA graph)", flush=True)
     # timed at the main path's shape: one column (global decode)
     e_re, e_im, pres = locator_columns(code, 1, (3,), (), dev, g)
     ms = graph_ms(lambda: kernel(e_re, e_im, pres), 200)
@@ -446,6 +502,7 @@ def locator_kernel(code, dev) -> list:
              "replaces": "draco_tpu/ops/decode_kernels.py:127", "ok": True,
              "max_abs_err": worst, "tol": "discrete equal; v 1e-4 rel",
              "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+             "graph_ms_at_L": at_l,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
 
 
@@ -760,6 +817,376 @@ def narrow_kernels(code, dev) -> list:
                     "replaces": lines[name], "ok": True, "wire": main[name],
                     **by_mode[main[name]], "library_ms": None,
                     "wires": by_mode})
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 2b: the segment kernels (the segmented wire, the layer decode)
+# --------------------------------------------------------------------------
+
+def leg_bounds() -> dict:
+    """The decode cuts of the four segmented legs at full width, from their
+    registry configurations and the models' leaf offsets (meta tensors: no
+    weights): ResNet-18's 62 leaves, the int8 wire's and the approx code's
+    4 segments, the LM's 66 leaves refined by 4 segments into 69."""
+    with torch.device("meta"):
+        offsets = {"cnn": params_mod.layout(build_model(
+            "ResNet18", registry.CNN_FULL["dataset"])).offsets,
+            "lm": params_mod.layout(TransformerLM(
+                vocab=LM_FULL["vocab"], dim=LM_FULL["model_dim"],
+                heads=LM_FULL["model_heads"],
+                layers=LM_FULL["model_layers"])).offsets}
+    out = {}
+    for leg in registry.TWINS:
+        lp = registry.get(leg)
+        cfg, off = lp.config(True), offsets[lp.route]
+        dim = int(off[-1])
+        out[leg] = (numerics.cfg_segment_bounds(cfg, dim)
+                    if cfg.approach == "approx"
+                    else tuple(decode_bounds(cfg, dim, off)))
+    require(len(out["shared_layer"]) - 1 == 62
+            and len(out["shared_int8_seg4"]) - 1 == 4
+            and len(out["approx_int8_seg4"]) - 1 == 4
+            and len(out["lm_shared_flash_layer"]) - 1 == 69,
+            f"segmented legs' cuts: {[len(b) - 1 for b in out.values()]} "
+            f"segments, expected 62, 4, 4, 69")
+    return out
+
+
+# d = 5003 with segments of 1 and 9 columns, one tile and a column more,
+# cuts off every 16-byte chunk and every int8 block
+SMALL_CUTS = (0, 1, 10, 2059, 2060, 4100, 5003)
+
+
+def segment_kernels(code, dev, cuts) -> list:
+    """The three segment kernels and the approx decode's offset entry
+    against their plain versions (the per-segment torch products), at the
+    segmented legs' cuts and d (ResNet-18 at 62 leaves and at 4 int8
+    segments; the LM at 69 segments of d = 62,958,336) and at d = 5003 with
+    tiny and unaligned segments; each launched twice bit for bit. The
+    bitwise checks: the recombination against ``complex_recombine`` on
+    each segment's contiguous copy; the narrow recombination against
+    ``cyclic_narrow_recombine`` on each block-aligned slice of the wire
+    (every bf16 cut; the int8 wire's 4 segments); the offset entry's
+    decoded slice against ``approx_decode`` on the contiguous slice. The
+    projection groups its partial sums otherwise than ``complex_project``:
+    at S = 1 the two agree to 1e-5 of Σ|r|·|f| and the locator's discrete
+    outputs from either are equal. Tolerances as the unsegmented kernels':
+    1e-5 of each output's Σ|terms| (the squared norms 1e-5 relative).
+    Timed at the legs' shapes beside the unsegmented kernel at the same d
+    (the same bytes: its yardstick; no PyTorch call computes a segmented
+    product), and the locator at L = 62 and 69 from a graph."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    t = code.tensors(dev)
+    out = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def same_bits(a, b) -> bool:
+        return torch.equal(_bits(a), _bits(b))
+
+    def row(name, replaces, source, **kw):
+        b_ms, b_by = bound(*kw.pop("work"))
+        r = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "ok": True, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None, **kw}
+        r["share_of_bound"] = b_ms / r["ms"]
+        print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3e} (tol "
+              f"{r['tol']:.3e}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}"
+              f" bound_ms={b_ms:.4f} ({b_by}, {100 * r['share_of_bound']:.1f}"
+              f"% of bound) library_ms=null; the unsegmented kernel at the "
+              f"same d {r['unsegmented_ms']:.4f} ms; {r['checks']}",
+              flush=True)
+        out.append(r)
+        return r
+
+    # the projection and the recombination, f32 rows of a real encode with
+    # a reversed row
+    def encoded(d):
+        grads = randn(N, d)
+        er, ei = coded.complex_matmul(t["w_masked_re"], t["w_masked_im"],
+                                      grads)
+        mask = torch.zeros(N, dtype=torch.bool, device=dev)
+        mask[3] = True
+        return attacks.inject_cyclic(er, ei, mask, "rev_grad")
+
+    proj = {"max_abs_err": 0.0, "tol": 0.0, "checks": [], "lm": {}}
+    rec = {"max_abs_err": 0.0, "tol": 0.0, "checks": [], "lm": {}}
+    for label, bnds in (("resnet L=62", cuts["shared_layer"]),
+                        ("lm L=69", cuts["lm_shared_flash_layer"]),
+                        ("d=5003 tiny", SMALL_CUTS),
+                        ("resnet S=1", (0, D))):
+        d = bnds[-1]
+        r_re, r_im = encoded(d)
+        f = drng.random_projection_factors(SEED, d).to(dev)
+        plan = coded.segment_plan(bnds, dev)
+        S = plan.segments
+        k = coded.complex_project_segments(r_re, r_im, f, plan)
+        k2 = coded.complex_project_segments(r_re, r_im, f, plan)
+        require(same_bits(k[0], k2[0]) and same_bits(k[1], k2[1]),
+                f"complex_project_segments {label}: two launches differ")
+        p = coded.complex_project_segments_plain(r_re, r_im, f, plan)
+        scale = max(coded.complex_project_segments_plain(
+            r_re.abs(), r_im.abs(), f.abs(), plan)[i].max().item()
+            for i in (0, 1))
+        err = max((k[i] - p[i]).abs().max().item() for i in (0, 1))
+        require(err <= 1e-5 * scale, f"complex_project_segments {label}: "
+                f"max_abs_err {err} > {1e-5 * scale}")
+        proj["max_abs_err"] = max(proj["max_abs_err"], err)
+        proj["tol"] = max(proj["tol"], 1e-5 * scale)
+        proj["checks"].append(f"{label}: {S} segments, two launches bit "
+                              f"for bit")
+        if S == 1:
+            # the unsegmented projection groups its sums otherwise: the
+            # locator's discrete outputs from either must be equal
+            u = coded.complex_project(r_re, r_im, f)
+            uerr = max((k[i][0] - u[i]).abs().max().item() for i in (0, 1))
+            require(uerr <= 1e-5 * scale, f"complex_project_segments S=1 "
+                    f"against complex_project: {uerr} > {1e-5 * scale}")
+            pres = torch.ones((1, N), device=dev)
+            a = decode_kernels.cyclic_locator(code, k[0], k[1], pres,
+                                              cyclic.HEALTH_REL_TOL)
+            b = decode_kernels.cyclic_locator(code, u[0][None], u[1][None],
+                                              pres, cyclic.HEALTH_REL_TOL)
+            require(all(torch.equal(x, y) for x, y in zip(a[2:5], b[2:5]))
+                    and not bool(a[2][0, 3]),
+                    "complex_project_segments S=1: the locator's discrete "
+                    "outputs differ from the unsegmented projection's")
+            proj["checks"].append(f"S=1 against complex_project {uerr:.3e}"
+                                  f", locator discrete outputs equal")
+            proj["s1_err_vs_unsegmented"] = uerr
+        # the recombination, each segment its own v pair
+        v_re, v_im = randn(S, N), randn(S, N)
+        kr = coded.complex_recombine_segments(v_re, v_im, r_re, r_im, plan)
+        kr2 = coded.complex_recombine_segments(v_re, v_im, r_re, r_im, plan)
+        require(same_bits(kr, kr2), f"complex_recombine_segments {label}: "
+                f"two launches differ")
+        pr = coded.complex_recombine_segments_plain(v_re, v_im, r_re, r_im,
+                                                    plan)
+        rscale = coded.complex_recombine_segments_plain(
+            v_re.abs(), v_im.abs(), r_re.abs(), r_im.abs(), plan).abs().max()
+        rscale = rscale.item()
+        rerr = (kr - pr).abs().max().item()
+        require(rerr <= 1e-5 * rscale, f"complex_recombine_segments {label}"
+                f": max_abs_err {rerr} > {1e-5 * rscale}")
+        same = all(same_bits(kr[a:b], coded.complex_recombine(
+            v_re[j], v_im[j], r_re[:, a:b].contiguous(),
+            r_im[:, a:b].contiguous()))
+            for j, (a, b) in enumerate(zip(bnds[:-1], bnds[1:])))
+        require(same, f"complex_recombine_segments {label}: differs from "
+                f"complex_recombine on a segment's contiguous copy")
+        rec["max_abs_err"] = max(rec["max_abs_err"], rerr)
+        rec["tol"] = max(rec["tol"], 1e-5 * rscale)
+        rec["checks"].append(f"{label}: {S} segments bit for bit "
+                             f"complex_recombine on each contiguous copy, "
+                             f"two launches bit for bit")
+        if label in ("resnet L=62", "lm L=69"):
+            nb = 4 * (2 * N * d + d + 2 * S * N)
+            times = {
+                "ms": time_ms(lambda: coded.complex_project_segments(
+                    r_re, r_im, f, plan), 20),
+                "plain_ms": time_ms(
+                    lambda: coded.complex_project_segments_plain(
+                        r_re, r_im, f, plan), 5),
+                "unsegmented_ms": time_ms(lambda: coded.complex_project(
+                    r_re, r_im, f), 20),
+                "work": (nb, 2 * 2 * N * d), "segments": S, "d": d}
+            rtimes = {
+                "ms": time_ms(lambda: coded.complex_recombine_segments(
+                    v_re, v_im, r_re, r_im, plan), 20),
+                "plain_ms": time_ms(
+                    lambda: coded.complex_recombine_segments_plain(
+                        v_re, v_im, r_re, r_im, plan), 5),
+                "unsegmented_ms": time_ms(lambda: coded.complex_recombine(
+                    v_re[0], v_im[0], r_re, r_im), 20),
+                "work": (4 * (2 * N * d + 2 * S * N + d), 2 * 2 * N * d),
+                "segments": S, "d": d}
+            if label == "resnet L=62":
+                proj.update(times)
+                rec.update(rtimes)
+            else:
+                for x, tm in ((proj, times), (rec, rtimes)):
+                    bm, by = bound(*tm.pop("work"))
+                    x["lm"] = {**tm, "bound_ms": bm, "bound_by": by}
+                    print(f"kernel segments at the LM's d: {tm}, bound "
+                          f"{bm:.4f} ms", flush=True)
+        del r_re, r_im, f
+    row("complex_project_segments", "draco_tpu/ops/coded.py:152",
+        "draco_tpu_torch/csrc/coded.cu", **proj)
+    row("complex_recombine_segments", "draco_tpu/ops/coded.py:201",
+        "draco_tpu_torch/csrc/coded.cu", **rec)
+
+    # the narrow recombination over a plan, bf16 and int8 wires
+    nar = {"max_abs_err": 0.0, "tol": 0.0, "checks": [], "wires": {}}
+    cases = [("int8 4 segments", D, cuts["shared_int8_seg4"], "int8", BLOCK),
+             ("bf16 4 segments", D, cuts["shared_int8_seg4"], "bf16", BLOCK),
+             ("int8 L=62 (cuts inside blocks)", D, cuts["shared_layer"],
+              "int8", BLOCK)]
+    cases += [(f"{m}@{b} d=5003 tiny", 5003, SMALL_CUTS, m, b)
+              for m, b in (("bf16", BLOCK), ("int8", BLOCK), ("int8", 24),
+                           ("int8", 1))]
+    for label, d, bnds, mode, block in cases:
+        r_re, r_im = encoded(d)
+        wire = (mode, numerics.narrow_wire_rows(r_re, mode, block),
+                numerics.narrow_wire_rows(r_im, mode, block), block)
+        del r_re, r_im
+        plan = coded.segment_plan(bnds, dev)
+        S = plan.segments
+        v_re, v_im = randn(S, N), randn(S, N)
+        k = decode_kernels.cyclic_narrow_recombine_segments(v_re, v_im, wire,
+                                                            plan)
+        k2 = decode_kernels.cyclic_narrow_recombine_segments(v_re, v_im,
+                                                             wire, plan)
+        require(same_bits(k, k2), f"cyclic_narrow_recombine_segments "
+                f"{label}: two launches differ")
+        p = decode_kernels.cyclic_narrow_recombine_segments_plain(
+            v_re, v_im, wire, plan)
+        sc = decode_kernels.cyclic_narrow_recombine_segments_plain(
+            v_re.abs(), v_im.abs(),
+            (mode, {**wire[1], "q": wire[1]["q"].abs()},
+             {**wire[2], "q": wire[2]["q"].abs()}, block), plan)
+        scale = sc.abs().max().item()
+        err = (k - p).abs().max().item()
+        require(err <= 1e-5 * scale, f"cyclic_narrow_recombine_segments "
+                f"{label}: max_abs_err {err} > {1e-5 * scale}")
+        nar["max_abs_err"] = max(nar["max_abs_err"], err)
+        nar["tol"] = max(nar["tol"], 1e-5 * scale)
+        aligned = mode == "bf16" or all(c % block == 0 for c in bnds[:-1])
+        note = f"{label}: two launches bit for bit"
+        if aligned:
+            for j, (a, b) in enumerate(zip(bnds[:-1], bnds[1:])):
+                sl = decode_kernels.wire_slice_pair(wire, a, b)
+                sl = (mode, *({k_: v.contiguous() for k_, v in x.items()}
+                              for x in sl[1:3]), block)
+                ref = decode_kernels.cyclic_narrow_recombine(v_re[j],
+                                                             v_im[j], sl)
+                require(same_bits(k[a:b], ref),
+                        f"cyclic_narrow_recombine_segments {label}: segment"
+                        f" {j} differs from cyclic_narrow_recombine on its "
+                        f"block-aligned slice")
+            note += (", bit for bit cyclic_narrow_recombine on each "
+                     "block-aligned slice")
+        nar["checks"].append(note)
+        if d == D and S == 4:
+            scales = 2 * N * -(-D // BLOCK) * 4 if mode == "int8" else 0
+            nar["wires"][mode] = {
+                "ms": time_ms(
+                    lambda: decode_kernels.cyclic_narrow_recombine_segments(
+                        v_re, v_im, wire, plan), 20),
+                "plain_ms": time_ms(
+                    lambda: decode_kernels
+                    .cyclic_narrow_recombine_segments_plain(v_re, v_im, wire,
+                                                            plan), 5),
+                "unsegmented_ms": time_ms(
+                    lambda: decode_kernels.cyclic_narrow_recombine(
+                        v_re[0], v_im[0], wire), 20),
+                "work": (2 * N * D * WIRE_BYTES[mode] + scales
+                         + 2 * S * N * 4 + D * 4,
+                         2 * 2 * N * D + (2 * N * D if scales else 0))}
+            bm, by = bound(*nar["wires"][mode]["work"])
+            nar["wires"][mode].update(bound_ms=bm, bound_by=by)
+        del wire
+    main = nar["wires"].pop("int8")
+    row("cyclic_narrow_recombine_segments",
+        "draco_tpu/ops/decode_kernels.py:378",
+        "draco_tpu_torch/csrc/narrow_decode.cu", wire="int8", **main,
+        **nar)
+
+    # the approx decode's offset entry: rows 2 and 5 absent (row 2 NaN)
+    acode = approx.build_approx_code(N, 1.5)
+    present = torch.ones(N, dtype=torch.bool)
+    present[[2, 5]] = False
+    vn = (approx.decode_weights(acode, present)[0] / N).to(dev)
+    pres_f = present.float().to(dev)
+    apx = {"max_abs_err": 0.0, "tol": 0.0, "norms_rel_err": 0.0,
+           "checks": [], "wires": {}}
+    cases = [(f"{m} 4 segments", D, cuts["approx_int8_seg4"], m, b)
+             for m, b in (("int8", BLOCK), ("f32", 1), ("bf16", BLOCK))]
+    cases += [(f"{m}@{b} d=5003 tiny", 5003, SMALL_CUTS, m, b)
+              for m, b in (("f32", 1), ("bf16", BLOCK), ("int8", BLOCK),
+                           ("int8", 24))]
+    for label, d, bnds, mode, block in cases:
+        grads = randn(N, d)
+        prow = approx.encode_shared(acode, grads)
+        prow[[2, 5]] = 0.0
+        prow[2] = float("nan")
+        wire = None if mode == "f32" else (
+            mode, numerics.narrow_wire_rows(prow, mode, block), block)
+        rows_in = prow if wire is None else None
+
+        def run(rows_in=rows_in, grads=grads, wire=wire, bnds=bnds):
+            o = torch.empty((bnds[-1],), device=dev)
+            sums = [decode_kernels.approx_decode_segment(
+                rows_in, grads, vn, pres_f, a, b, wire, o)[1:]
+                for a, b in zip(bnds[:-1], bnds[1:])]
+            return o, torch.stack([torch.stack(s) for s in sums])
+
+        k, ks = run()
+        k2, ks2 = run()
+        require(same_bits(k, k2) and same_bits(ks, ks2), f"approx_decode_"
+                f"segment {label}: two launches differ (decoded or sums)")
+        require(bool(torch.isfinite(k).all()), f"approx_decode_segment "
+                f"{label}: the absent NaN row reached the output")
+        whole = decode_kernels.approx_decode(rows_in, grads, vn, pres_f,
+                                             wire)
+        wide = prow if wire is None else numerics.widen_wire_rows(
+            wire[1], mode, block)
+        wide = torch.where(pres_f[:, None] > 0, wide, torch.zeros_like(wide))
+        scale = (vn.abs() @ wide.abs()).max().item()
+        p = torch.cat([decode_kernels.approx_decode_plain(
+            wide[:, a:b], grads[:, a:b], vn, pres_f)[0]
+            for a, b in zip(bnds[:-1], bnds[1:])])
+        err = (k - p).abs().max().item()
+        folded = ks.sum(0)
+        rel = max(abs(folded[i].item() - whole[1 + i].item())
+                  / abs(whole[1 + i].item()) for i in (0, 1))
+        require(err <= 1e-5 * scale and rel <= 1e-5, f"approx_decode_segment"
+                f" {label}: max_abs_err {err} (tol {1e-5 * scale}), folded "
+                f"squared norms against the whole decode's rel {rel}")
+        apx["max_abs_err"] = max(apx["max_abs_err"], err)
+        apx["tol"] = max(apx["tol"], 1e-5 * scale)
+        apx["norms_rel_err"] = max(apx["norms_rel_err"], rel)
+        note = f"{label}: two launches bit for bit"
+        if mode != "int8" or all(c % block == 0 for c in bnds[:-1]):
+            for a, b in zip(bnds[:-1], bnds[1:]):
+                sl = (None if wire is None else
+                      decode_kernels.wire_slice_single(wire, a, b))
+                if sl is not None:
+                    sl = (mode, {k_: v.contiguous()
+                                 for k_, v in sl[1].items()}, block)
+                ref = decode_kernels.approx_decode(
+                    None if sl is not None else prow[:, a:b].contiguous(),
+                    grads[:, a:b].contiguous(), vn, pres_f, sl)
+                require(same_bits(k[a:b], ref[0]), f"approx_decode_segment "
+                        f"{label}: [{a}, {b}) differs from approx_decode on "
+                        f"the contiguous slice")
+            note += ", decoded bit for bit approx_decode on each slice"
+        apx["checks"].append(note)
+        if d == D:
+            # four wrapper calls outrun the card's 4 × 2 launches: the
+            # device time from a graph, the wrappers' back to back beside
+            pr = N - 2
+            scales = pr * -(-D // BLOCK) * 4 if mode == "int8" else 0
+            apx["wires"][mode] = {
+                "ms": graph_ms(run, 10),
+                "launch_ms": time_ms(run, 20),
+                "plain_ms": time_ms(lambda: [decode_kernels.approx_decode_plain(
+                    wide[:, a:b], grads[:, a:b], vn, pres_f)
+                    for a, b in zip(bnds[:-1], bnds[1:])], 5),
+                "unsegmented_ms": graph_ms(
+                    lambda: decode_kernels.approx_decode(
+                        rows_in, grads, vn, pres_f, wire), 10),
+                "work": (pr * D * WIRE_BYTES[mode] + scales + N * D * 4
+                         + D * 4 + 2 * N * 4,
+                         2 * pr * D + (pr * D if scales else 0) + 4 * N * D
+                         + 3 * D)}
+            bm, by = bound(*apx["wires"][mode]["work"])
+            apx["wires"][mode].update(bound_ms=bm, bound_by=by)
+        del grads, prow, wire, wide
+    main = apx["wires"].pop("int8")
+    row("approx_decode_segment", "draco_tpu/ops/decode_kernels.py:271",
+        "draco_tpu_torch/csrc/narrow_decode.cu", wire="int8", **main, **apx)
     return out
 
 
@@ -1228,9 +1655,7 @@ def drive(name, program, steps, expect, dev) -> dict:
             require(vote_held(r), f"{name} step {r['step']}: the vote did "
                     f"not out-vote exactly the adversary: {r}")
         if cfg.approach == "cyclic":
-            require(r["honest_located"] == N - 2 * S
-                    and r["located_errors"] == 1 and r["det_tp"] == 1
-                    and r["det_adv"] == 1,
+            require(located(name, r),
                     f"{name} step {r['step']}: adversary not located: {r}")
         if cfg.approach == "approx":
             slack = numerics.wire_residual_slack(cfg.wire_dtype)
@@ -1246,6 +1671,11 @@ def drive(name, program, steps, expect, dev) -> dict:
         require(counts["complex_recombine"] == 0,
                 f"{name}: complex_recombine ran on the narrow wire "
                 f"({counts})")
+    # a segmented leg runs the segment kernels only; one segment at global
+    # granularity never enters the segmented code
+    off = WHOLE if name in registry.TWINS else SEGMENTED
+    require(all(counts[k] == 0 for k in off),
+            f"{name}: launched {[k for k in off if counts[k]]} ({counts})")
     ms = [r["step_ms"] for r in recs]
     out = {"leg": name, "steps": steps, "ms_per_step": sum(ms) / len(ms),
            "records": recs,
@@ -1437,20 +1867,30 @@ class _ChunkRuns:
         return self._end(last, wall_ms, chunks * self.K)
 
 
+def located(name, r) -> bool:
+    """A cyclic record locates exactly its adversary: located_errors,
+    det_tp and det_adv 1, and n − 2s honest rows — on a segmented leg at
+    most n − 2s, the rows honest in every segment (``DETECT``)."""
+    honest = (r["honest_located"] <= N - 2 * S if name in registry.TWINS
+              else r["honest_located"] == N - 2 * S)
+    return (honest and r["located_errors"] == 1 and r["det_tp"] == 1
+            and r["det_adv"] == 1)
+
+
 def _check_records(name, cfg, recs_a, recs) -> None:
-    """The discrete columns of a chunked run equal the eager run's, its
-    losses are finite and every cyclic step locates the adversary."""
+    """The discrete columns of a chunked run equal the eager run's (on a
+    segmented leg but honest_located, ``DETECT``), its losses are finite
+    and every cyclic step locates the adversary."""
     for i, (ra, rc) in enumerate(zip(recs_a, recs)):
         for c in DISCRETE:
-            if c in ra:
+            if c in ra and not (c == "honest_located"
+                                and name in registry.TWINS):
                 require(rc.get(c) == ra[c], f"chunk {name} step {i + 1} of "
                         f"the chunk: {c} {rc.get(c)}, eager {ra[c]}")
         require(math.isfinite(rc["loss"]), f"chunk {name}: loss {rc}")
         if cfg.approach == "cyclic":
-            require(rc["honest_located"] == N - 2 * S
-                    and rc["located_errors"] == rc["det_tp"] == 1,
-                    f"chunk {name} step {i + 1} of the chunk: adversary not "
-                    f"located: {rc}")
+            require(located(name, rc), f"chunk {name} step {i + 1} of the "
+                    f"chunk: adversary not located: {rc}")
         if cfg.approach == "maj_vote":
             require(vote_held(rc), f"chunk {name} step {i + 1} of the chunk: "
                     f"the vote did not out-vote exactly the adversary: {rc}")
@@ -1646,6 +2086,77 @@ def chunk_summary(legs) -> dict:
             "vs_baseline_eager": ratio["eager_ms_per_step"]}
 
 
+def first_aggregate(lp, dev, ds) -> tuple:
+    """One step of a leg from a fresh setup (the ResNet legs under
+    deterministic cuDNN, so two setups give the same gradients): its
+    record and the aggregate the optimizer was handed, as one flat
+    vector."""
+    program = lp.build(dev, full=True, max_steps=2, dataset=ds)
+    opt = program.runner.state.opt
+    step, seen = opt.step, []
+
+    def watched(params, grads):
+        seen.append(torch.cat([g.reshape(-1) for g in grads.values()]))
+        return step(params, grads)
+
+    opt.step = watched
+    with (cudnn_deterministic() if lp.route == "cnn"
+          else contextlib.nullcontext()):
+        rec = program.runner.step()
+    return rec, seen[0].clone()
+
+
+def twin_checks(legs, dev, ds) -> dict:
+    """Each segmented leg against its S = 1 twin (registry.TWINS): on every
+    eager step and every step of the timed chunk, the detection columns
+    equal; and the first step's decoded aggregate, from a fresh setup of
+    each, within the CPU step tests' tolerance of the twin's in relative L2
+    norm: 1e-2 (test_torch_step), 5e-2 on the int8 wire
+    (test_torch_approx_step). A segment whose locator keeps another
+    neighbour of the adversary (``DETECT``) recombines other rows, which
+    carry other int8 rounding: the two decodes then differ at the wire's
+    quantization, not at f32 rounding; with the same honest sets they are
+    bit for bit (each column summed as the whole-d kernel sums it)."""
+    by = {lg["leg"]: lg for lg in legs}
+    out = {}
+    for leg, twin in registry.TWINS.items():
+        a, b = by[leg], by[twin]
+        for what, ra, rb in (("eager", a["records"], b["records"]),
+                             ("chunk", a["chunk"]["records"],
+                              b["chunk"]["records"])):
+            for x, y in zip(ra, rb):
+                cols = {c: (x[c], y[c]) for c in DETECT if c in y}
+                require(all(u == v for u, v in cols.values()),
+                        f"twin {leg} / {twin}, {what} step: detection "
+                        f"columns differ: {cols}")
+        lp, tp = registry.get(leg), registry.get(twin)
+        rec_a, agg_a = first_aggregate(lp, dev, ds)
+        rec_b, agg_b = first_aggregate(tp, dev, ds)
+        tol = 5e-2 if lp.config(True).wire_dtype == "int8" else 1e-2
+        rel = ((agg_a - agg_b).norm() / agg_b.norm()).item()
+        out[leg] = {"twin": twin, "rel_l2": rel, "tol": tol,
+                    "max_abs_gap": (agg_a - agg_b).abs().max().item(),
+                    "bitwise": _same_bits(agg_a, agg_b),
+                    "honest_located": (rec_a["honest_located"],
+                                       rec_b["honest_located"])
+                    if "honest_located" in rec_b else None}
+        require(rel <= tol and all(rec_a[c] == rec_b[c] for c in DETECT
+                                   if c in rec_b),
+                f"twin {leg} / {twin}: the first step's aggregate differs "
+                f"by {rel:.3e} relative L2 (tol {tol}) or its detection "
+                f"columns do: {rec_a} / {rec_b}")
+        print(f"twin {leg} / {twin}: detection columns equal on every "
+              f"eager and chunked step; first-step aggregate {rel:.3e} "
+              f"relative L2 (tol {tol}), max gap "
+              f"{out[leg]['max_abs_gap']:.3e}, bit for bit: "
+              f"{out[leg]['bitwise']}; honest_located (leg, twin) "
+              f"{out[leg]['honest_located']}", flush=True)
+        del agg_a, agg_b
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def replay_bitwise(name: str, fn) -> None:
     """``fn`` (a kernel wrapper's call on static inputs) launched directly,
     then captured alone in a CUDA graph (after a warm-up call on a side
@@ -1672,14 +2183,15 @@ def replay_bitwise(name: str, fn) -> None:
     del graph, captured
 
 
-def graph_replay_kernels(code, dev) -> list:
-    """Each kernel of the legs (rows 1–9 of the kernel table and the vote's
-    fingerprints) captured in a
+def graph_replay_kernels(code, dev, cuts) -> list:
+    """Each kernel of the legs (rows 1–9 of the kernel table, the vote's
+    fingerprints and the segment kernels) captured in a
     graph, its replay bit for bit its direct launch, at the main paths'
     shapes: n=8, d=11,173,962 (the coded products, the narrow
     recombination at int8 and bf16 block 256, the approx decode f32 and
-    int8 with rows 2 and 5 absent), the locator at one column, the flash
-    kernels at G=192, T=512, Dh=64."""
+    int8 with rows 2 and 5 absent; the segment kernels at the segmented
+    legs' cuts, their plans on the card before the capture), the locator
+    at one column, the flash kernels at G=192, T=512, Dh=64."""
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
     t = code.tensors(dev)
     grads = torch.randn((N, D), generator=g, device=dev)
@@ -1708,7 +2220,21 @@ def graph_replay_kernels(code, dev) -> list:
               lambda: decode_kernels.cyclic_narrow_recombine(v_re, v_im,
                                                             wire))
         del wire
-    del enc_re, enc_im
+    layer = coded.segment_plan(cuts["shared_layer"], dev)
+    seg4 = coded.segment_plan(cuts["shared_int8_seg4"], dev)
+    vs_re, vs_im = torch.randn((2, layer.segments, N), generator=g,
+                               device=dev)
+    check("complex_project_segments [L=62]",
+          lambda: coded.complex_project_segments(enc_re, enc_im, f, layer))
+    check("complex_recombine_segments [L=62]",
+          lambda: coded.complex_recombine_segments(vs_re, vs_im, enc_re,
+                                                   enc_im, layer))
+    wire = ("int8", numerics.narrow_wire_rows(enc_re, "int8", BLOCK),
+            numerics.narrow_wire_rows(enc_im, "int8", BLOCK), BLOCK)
+    check("cyclic_narrow_recombine_segments [int8, 4 segments]",
+          lambda: decode_kernels.cyclic_narrow_recombine_segments(
+              vs_re[:4].contiguous(), vs_im[:4].contiguous(), wire, seg4))
+    del enc_re, enc_im, wire
     acode = approx.build_approx_code(N, 1.5)
     present = torch.ones(N, dtype=torch.bool)
     present[[2, 5]] = False
@@ -1721,6 +2247,10 @@ def graph_replay_kernels(code, dev) -> list:
     wire = ("int8", numerics.narrow_wire_rows(prow, "int8", BLOCK), BLOCK)
     check("approx_decode [int8]", lambda: decode_kernels.approx_decode(
         None, grads, vn, pres_f, wire))
+    a, b = cuts["approx_int8_seg4"][1:3]
+    check("approx_decode_segment [int8, segment 2]",
+          lambda: decode_kernels.approx_decode_segment(
+              None, grads, vn, pres_f, a, b, wire))
     del grads, prow, wire
     q, k, v, do = (torch.randn((G_LM, 512, 64), generator=g, device=dev)
                    for _ in range(4))
@@ -1752,6 +2282,12 @@ def lint_legs(dev) -> list:
                      **lint_leg(lp.name, lp.build(dev, full=True))})
         gc.collect()
         torch.cuda.empty_cache()
+    # a segmented leg's plan lives on the card from its setup: a step moves
+    # the twin's host-to-device bytes
+    h2d = {r["leg"]: r["rules"]["constant_bloat"]["h2d_bytes"] for r in rows}
+    for leg, twin in registry.TWINS.items():
+        require(h2d[leg] == h2d[twin], f"audit lint {leg}: {h2d[leg]} H2D "
+                f"bytes a step, its twin {twin} {h2d[twin]}")
     return rows
 
 
@@ -2101,15 +2637,17 @@ def main(argv=None) -> int:
           f"{record['build_s']:.1f} s", flush=True)
 
     code = cyclic.build_cyclic_code(N, S)
+    cuts = leg_bounds()
     kernels = (coded_kernels(code, dev) + locator_kernel(code, dev)
-               + narrow_kernels(code, dev) + flash_kernels(dev)
-               + vote_kernels(dev) + control_kernels(dev))
+               + narrow_kernels(code, dev) + segment_kernels(code, dev, cuts)
+               + flash_kernels(dev) + vote_kernels(dev)
+               + control_kernels(dev))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     record["kernel_audit"] = audit_kernels()
     record["kernel_audit_s"] = time.perf_counter() - t0
 
-    record["graph_replay"] = graph_replay_kernels(code, dev)
+    record["graph_replay"] = graph_replay_kernels(code, dev, cuts)
     torch.cuda.empty_cache()
 
     legs = []
@@ -2120,8 +2658,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     record["legs"] = legs
     record["chunk"] = chunk_summary(legs)
-    record["vote_checks"] = vote_checks(dev, load_dataset(
-        registry.CNN_FULL["dataset"]))
+    ds = load_dataset(registry.CNN_FULL["dataset"])
+    record["twins"] = twin_checks(legs, dev, ds)
+    record["vote_checks"] = vote_checks(dev, ds)
     gc.collect()
     torch.cuda.empty_cache()
     record["cross_device"] = cross_device_check(dev)
@@ -2152,6 +2691,10 @@ def main(argv=None) -> int:
                   "cyclic_narrow_recombine": "shared_int8",
                   "approx_decode": "approx",
                   "row_fingerprints": "majvote",
+                  "complex_project_segments": "shared_layer",
+                  "complex_recombine_segments": "shared_layer",
+                  "cyclic_narrow_recombine_segments": "shared_int8_seg4",
+                  "approx_decode_segment": "approx_int8_seg4",
                   **{k: "lm_shared_flash" for k in FLASH}}
     # the controls run on no main path: their counts are read from every
     # leg, and are 0 on each
@@ -2161,7 +2704,7 @@ def main(argv=None) -> int:
             require(ran == 0, f"{row['name']} ran {ran} times on the main "
                     f"paths")
             row["launches"] = ran
-            row["launches_from_leg"] = "all twelve"
+            row["launches_from_leg"] = "all sixteen"
             row["launches_per_step"] = 0.0
             continue
         src = by_name[source_leg.get(row["name"], "simulate")]

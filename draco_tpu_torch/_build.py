@@ -43,6 +43,9 @@ SIGNATURES = {
         "draco_project_chunks": [_I, _LL],
         "draco_complex_project": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
         "draco_complex_recombine": [_P, _P, _P, _P, _P, _I, _LL, _P],
+        "draco_complex_project_segments": [_P] * 4 + [_I, _I] + [_P] * 4
+        + [_I, _LL, _P],
+        "draco_complex_recombine_segments": [_P] * 5 + [_I, _P, _I, _LL, _P],
     },
     "cyclic_locator": {
         "draco_cyclic_locator": [_P] * 15 + [_I] * 4 + [_F] * 8 + [_P],
@@ -50,7 +53,10 @@ SIGNATURES = {
     "narrow_decode": {
         "draco_narrow_recombine": [_P] * 7 + [_I, _LL, _I, _I, _LL, _P],
         "draco_approx_decode_chunks": [_LL],
-        "draco_approx_decode": [_P] * 8 + [_I, _LL, _I, _I, _LL, _I, _F, _P],
+        "draco_approx_decode": [_P] * 8 + [_I, _LL, _LL, _LL, _I, _I, _LL, _I,
+                                           _F, _P],
+        "draco_narrow_recombine_segments": [_P] * 7 + [_I, _P, _I, _LL, _I,
+                                                       _I, _LL, _P],
     },
     "flash_attention": {
         "draco_flash_fwd": [_P] * 5 + [_I] * 3 + [_F, _I, _P],

@@ -4,8 +4,8 @@ tools/_lowering_common.run_rows).
     python -m draco_tpu_torch.analysis.kernel_audit [--device cpu|cuda]
         [--kernels NAME,...] [--out FILE]
 
-One row per kernel entry point of ``csrc/*.cu`` — the ten of the main
-paths and the three negative controls of ``csrc/controls.cu`` — each
+One row per kernel entry point of ``csrc/*.cu`` — the thirteen of the
+main paths and the three negative controls of ``csrc/controls.cu`` — each
 grouping the ``__global__`` functions it launches, held to the
 :class:`KernelSpec` below by four rules:
 
@@ -132,7 +132,9 @@ SPECS = (
     # 4 columns), the loads of a row group in flight (the recombination: 4
     # rows of each buffer at 2 blocks a SM, kInt8 127 registers; kInt8Any,
     # an int8 block the strip does not divide, holds its 16 block indices
-    # at 1 block a SM; the approx decode: 8 rows)
+    # at 1 block a SM; the approx decode: 8 rows, and since its offset
+    # entry a row stride and a first column: kF32 128 registers, 2 blocks a
+    # SM)
     KernelSpec("cyclic_narrow_recombine", "narrow_decode",
                ("narrow_recombine_kernel<kF32>",
                 "narrow_recombine_kernel<kBF16>",
@@ -148,7 +150,7 @@ SPECS = (
                 "approx_decode_partial_kernel<kInt8>",
                 "approx_decode_partial_kernel<kInt8Any>",
                 "approx_decode_final_kernel"),
-               "draco_tpu/ops/decode_kernels.py:271", 124, shape=(8, 0),
+               "draco_tpu/ops/decode_kernels.py:271", 128, shape=(8, 0),
                largest={"n": MAX_N}, largest_shape=(MAX_N, 0),
                main=("approx_decode_partial_kernel<kF32>",
                      "approx_decode_partial_kernel<kInt8>",
@@ -182,6 +184,24 @@ SPECS = (
                "draco_tpu/coding/repetition.py:94", 32,
                largest={"n": MAX_N}, largest_shape=(MAX_N, 0),
                main=("row_fingerprints_kernel<4>",)),
+    # the segmented decode over a segment plan (one block a column tile):
+    # the projection's first pass holds 2 columns of 8 rows of each buffer
+    # in flight a thread (126 registers, 2 blocks a SM), the
+    # recombinations one column's sums
+    KernelSpec("complex_project_segments", "coded",
+               ("project_segments_partial_kernel",
+                "project_segments_final_kernel"),
+               "draco_tpu/ops/coded.py:152", 128),
+    KernelSpec("complex_recombine_segments", "coded",
+               ("recombine_segments_kernel",), "draco_tpu/ops/coded.py:201",
+               40, shape=(8, 0), largest={"n": MAX_N},
+               largest_shape=(MAX_N, 0)),
+    KernelSpec("cyclic_narrow_recombine_segments", "narrow_decode",
+               ("narrow_recombine_segments_kernel<kBF16>",
+                "narrow_recombine_segments_kernel<kInt8>"),
+               "draco_tpu/ops/decode_kernels.py:378", 40, shape=(8, 0),
+               largest={"n": MAX_N}, largest_shape=(MAX_N, 0),
+               main=("narrow_recombine_segments_kernel<kInt8>",)),
     KernelSpec("control_mistiled_copy", "controls",
                ("control_mistiled_copy_kernel",),
                "tools/tpu_attn_lowering_check.py:111", 8, racecheck=False,
@@ -338,6 +358,10 @@ def _cases(name: str, dev) -> list:
                            "loud": ((L, n), b), "resid": ((L,), f32)}, run))
     elif name in ("cyclic_narrow_recombine", "approx_decode"):
         cases += _narrow_cases(name, dev, cuda, rnd)
+        if name == "approx_decode":
+            cases += _approx_offset_cases(dev, cuda, rnd)
+    elif name.endswith("_segments"):
+        cases += _segment_cases(name, dev, cuda, rnd)
     elif name == "row_fingerprints":
         cases += _vote_cases(dev, cuda, rnd)
     elif name.startswith("flash_"):
@@ -492,6 +516,125 @@ def _narrow_cases(name: str, dev, cuda: bool, rnd) -> list:
                     _put(o, decoded=dec, sums=torch.stack([sd, sg]))
             cases.append(Case(f"{mode} n={n} d={d} block {block}{where}, "
                               f"rows 2, 5 absent", outs, run))
+    return cases
+
+
+# the approx decode's offset entry: views [a, b) of an (n, 1003) buffer
+# that start on and off a 4-column strip and a 16-byte chunk, the last one
+# ending the buffer, each wire, int8 at blocks 64 and 24, and a buffer
+# that starts 3 bytes into its storage
+APPROX_VIEWS = ((0, 10), (3, 700), (8, 1003), (517, 1003))
+OFFSET_WIRES = (("f32", 1, 0), ("bf16", 64, 0), ("int8", 64, 0),
+                ("int8", 24, 0), ("int8", 64, 3))
+
+
+def _approx_offset_cases(dev, cuda: bool, rnd) -> list:
+    from draco_tpu_torch.obs import numerics
+    from draco_tpu_torch.ops import decode_kernels
+
+    f32 = torch.float32
+    n, d = 9, 1003
+    rows, bg, vn = rnd(n, d), rnd(n, d), rnd(n) / n
+    rows[2] = float("nan")  # an absent row's payload never read
+    pres = torch.ones(n, device=dev)
+    pres[[2, 5]] = 0.0
+    cases = []
+    for mode, block, offset in OFFSET_WIRES:
+        buf = ({"q": rows} if mode == "f32"
+               else numerics.narrow_wire_rows(rows, mode, block))
+        buf["q"] = offset_copy(buf["q"], offset)
+        wire = None if mode == "f32" else (mode, buf, block)
+        blk, nb = (block, -(-d // block)) if mode == "int8" else (1, 0)
+        for a, b in APPROX_VIEWS:
+            outs = {"decoded": ((b - a,), f32), "sums": ((2,), f32)}
+            if cuda:
+                outs["part"] = ((2, decode_kernels.approx_decode_chunks(
+                    b - a)), f32)
+
+            def run(o, mode=mode, buf=buf, wire=wire, blk=blk, nb=nb, a=a,
+                    b=b):
+                if cuda:
+                    decode_kernels.approx_decode_launch(
+                        mode, buf["q"], buf.get("scale"), blk, nb, bg, vn,
+                        pres, o["decoded"], o["part"], o["sums"], a, b)
+                else:
+                    out = torch.empty(d, device=dev)
+                    dec, sd, sg = decode_kernels.approx_decode_segment(
+                        buf["q"] if wire is None else None, bg, vn, pres, a,
+                        b, wire, out)
+                    _put(o, decoded=dec, sums=torch.stack([sd, sg]))
+            where = f" at byte {offset}" if offset else ""
+            cases.append(Case(f"{mode} block {block}{where} n={n} view "
+                              f"[{a}, {b}) of d={d}, rows 2, 5 absent",
+                              outs, run))
+    return cases
+
+
+# the segment kernels' coverage: n = 9 (two row groups), d = 5003, cuts
+# with segments of 1 and 9 columns, a segment of one tile and one column
+# more, cuts off every 16-byte chunk and int8 block, and one segment
+SEGMENT_CUTS = ((0, 1, 10, 2059, 2060, 4100, 5003), (0, 5003))
+SEGMENT_WIRES = (("bf16", 256), ("int8", 256), ("int8", 24), ("int8", 1))
+
+
+def _segment_cases(name: str, dev, cuda: bool, rnd) -> list:
+    from draco_tpu_torch.obs import numerics
+    from draco_tpu_torch.ops import coded, decode_kernels
+
+    f32 = torch.float32
+    n, d = 9, 5003
+    r_re, r_im, f = rnd(n, d), rnd(n, d), rnd(d)
+    cases = []
+    for cuts in SEGMENT_CUTS:
+        plan = coded.segment_plan(cuts, dev)
+        S = plan.segments
+        v_re, v_im = rnd(S, n), rnd(S, n)
+        label = f"n={n} d={d}, {S} segments"
+        if name == "complex_project_segments":
+            outs = {"e_re": ((S, n), f32), "e_im": ((S, n), f32)}
+            if cuda:
+                outs.update(part_re=((n, plan.tiles), f32),
+                            part_im=((n, plan.tiles), f32))
+
+            def run(o, plan=plan):
+                if cuda:
+                    coded.complex_project_segments_launch(
+                        r_re, r_im, f, plan, o["part_re"], o["part_im"],
+                        o["e_re"], o["e_im"])
+                else:
+                    re, im = coded.complex_project_segments_plain(
+                        r_re, r_im, f, plan)
+                    _put(o, e_re=re, e_im=im)
+            cases.append(Case(label, outs, run))
+        elif name == "complex_recombine_segments":
+            def run(o, plan=plan, v_re=v_re, v_im=v_im):
+                if cuda:
+                    coded.complex_recombine_segments_launch(
+                        v_re, v_im, r_re, r_im, plan, o["out"])
+                else:
+                    _put(o, out=coded.complex_recombine_segments_plain(
+                        v_re, v_im, r_re, r_im, plan))
+            cases.append(Case(label, {"out": ((d,), f32)}, run))
+        else:
+            for mode, block in SEGMENT_WIRES:
+                wire = (mode, numerics.narrow_wire_rows(r_re, mode, block),
+                        numerics.narrow_wire_rows(r_im, mode, block), block)
+                blk, nb = (block, -(-d // block)) if mode == "int8" else \
+                    (1, 0)
+
+                def run(o, plan=plan, v_re=v_re, v_im=v_im, wire=wire,
+                        mode=mode, blk=blk, nb=nb):
+                    if cuda:
+                        decode_kernels.narrow_recombine_segments_launch(
+                            v_re, v_im, mode, wire[1]["q"],
+                            wire[1].get("scale"), wire[2]["q"],
+                            wire[2].get("scale"), blk, nb, plan, o["out"])
+                    else:
+                        _put(o, out=decode_kernels
+                             .cyclic_narrow_recombine_segments_plain(
+                                 v_re, v_im, wire, plan))
+                cases.append(Case(f"{mode} block {block} {label}",
+                                  {"out": ((d,), f32)}, run))
     return cases
 
 
@@ -660,6 +803,17 @@ def _launch_largest(s: KernelSpec, dev) -> None:
         decode_kernels.narrow_recombine_launch(
             rnd(n), rnd(n), "int8", q[0]["q"], q[0]["scale"], q[1]["q"],
             q[1]["scale"], 64, -(-d // 64), empty(d))
+    elif s.name == "complex_recombine_segments":
+        plan = coded.segment_plan((0, 7, d), dev)
+        coded.complex_recombine_segments_launch(
+            rnd(2, n), rnd(2, n), rnd(n, d), rnd(n, d), plan, empty(d))
+    elif s.name == "cyclic_narrow_recombine_segments":
+        plan = coded.segment_plan((0, 7, d), dev)
+        q = [numerics.narrow_wire_rows(rnd(n, d), "int8", 64)
+             for _ in range(2)]
+        decode_kernels.narrow_recombine_segments_launch(
+            rnd(2, n), rnd(2, n), "int8", q[0]["q"], q[0]["scale"],
+            q[1]["q"], q[1]["scale"], 64, -(-d // 64), plan, empty(d))
     elif s.name == "row_fingerprints":
         from draco_tpu_torch.ops import vote
 

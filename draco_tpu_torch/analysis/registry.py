@@ -23,7 +23,9 @@ with 2 stragglers a step (preset ``approx-resnet18`` at n=8); the narrow
 wires at block 256; the repetition code of preset ``rep-resnet18`` (n=9,
 groups of 3) with the adversary, and Krum (preset ``krum-resnet18`` at
 n=8); the LM benchmark's TransformerLM (dim 768, 12 heads, 8 layers, vocab
-8192, T=512, batch 2, bf16 compute, flash attention).
+8192, T=512, batch 2, bf16 compute, flash attention). Four legs run the
+segmented wire and the per-layer decode beside their S = 1 twins
+(``TWINS``).
 """
 
 from __future__ import annotations
@@ -317,7 +319,26 @@ PROGRAMS = (
     LintProgram("lm_simulate_flash", "lm",
                 dict(approach="cyclic", redundancy="simulate"), 25.5),
     LintProgram("lm_geomedian_flash", "lm", _BASELINE_GM, 8.5),
+    # the segmented wire and the per-layer decode, each beside its S = 1
+    # twin (TWINS): 62 ResNet-18 leaves; the int8 wire in 4 segments; the
+    # approx code's int8 wire in 4; the LM's 66 leaves refined by 4
+    # segments into 69
+    LintProgram("shared_layer", "cnn",
+                dict(_CYCLIC_SHARED, decode_granularity="layer"), 4.5),
+    LintProgram("shared_int8_seg4", "cnn",
+                dict(_CYCLIC_SHARED, wire_dtype="int8", wire_segments=4),
+                4.5),
+    LintProgram("approx_int8_seg4", "cnn",
+                dict(APPROX, wire_dtype="int8", wire_segments=4), 4.5),
+    LintProgram("lm_shared_flash_layer", "lm",
+                dict(_CYCLIC_SHARED, decode_granularity="layer",
+                     wire_segments=4), 14.5),
 )
+
+# each segmented leg's S = 1, global-granularity twin
+TWINS = {"shared_layer": "shared", "shared_int8_seg4": "shared_int8",
+         "approx_int8_seg4": "approx_int8",
+         "lm_shared_flash_layer": "lm_shared_flash"}
 
 
 # the flagship's coded leg, the host-bound LM leg (PERF.md §5) and the

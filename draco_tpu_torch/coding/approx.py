@@ -23,6 +23,13 @@ tail runs through ``ops.decode_kernels.approx_decode``
 (``decode_device``): the kernel on the card, its plain version on the CPU.
 No Byzantine certificate: ``config.validate`` rejects live adversaries
 under this code.
+
+The segmented wire (``decode_segments``): the weight solve depends on the
+presence alone, so it runs once and every segment [a, b) combines with the
+same v/n; each segment is one launch of the decode's offset entry on the
+whole buffers (``ops.decode_kernels.approx_decode_segment``), and the two
+squared norms are added across segments before the one square root, so
+the certificate stays one a step.
 """
 
 from __future__ import annotations
@@ -144,4 +151,35 @@ def decode(code: ApproxCode, rows: Optional[torch.Tensor],
     v, vn_pres, host = host_solve(code, present)
     decoded, residual = decode_device(
         code, rows, batch_grads, upload(vn_pres, batch_grads.device), wire)
+    return decoded, v, {"residual": residual, **host}
+
+
+def decode_segments_device(code: ApproxCode, rows: Optional[torch.Tensor],
+                           batch_grads: torch.Tensor, vn_pres: torch.Tensor,
+                           bounds, wire=None):
+    """The device half over column segments ``bounds`` (S + 1 cuts):
+    ``(decoded (d,), residual (0-d))``, each segment decoded in place into
+    one output with the same ``vn_pres``, both squared norms summed over
+    the segments before the square root."""
+    d = batch_grads.shape[1]
+    out = torch.empty((d,), dtype=torch.float32, device=batch_grads.device)
+    sq_diff = sq_g = None
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        _, sd, sg = decode_kernels.approx_decode_segment(
+            rows, batch_grads, vn_pres[0], vn_pres[1], a, b, wire, out)
+        sq_diff = sd if sq_diff is None else sq_diff + sd
+        sq_g = sg if sq_g is None else sq_g + sg
+    scale = torch.clamp_min(torch.sqrt(sq_g) / code.n, 1e-30)
+    return out, torch.sqrt(sq_diff) / scale
+
+
+def decode_segments(code: ApproxCode, rows: Optional[torch.Tensor],
+                    batch_grads: torch.Tensor, bounds, present=None,
+                    wire=None):
+    """:func:`decode` over the segmented wire's cuts ``bounds``: the same
+    contract, ``(decoded (d,), v (n,), health)``."""
+    v, vn_pres, host = host_solve(code, present)
+    decoded, residual = decode_segments_device(
+        code, rows, batch_grads, upload(vn_pres, batch_grads.device),
+        [int(c) for c in bounds], wire)
     return decoded, v, {"residual": residual, **host}

@@ -14,6 +14,14 @@ O(n·d) products run through ``ops.coded``; the per-column locator runs
 through ``ops.decode_kernels.cyclic_locator`` — on a CUDA tensor both are
 the hand-written kernels, on a CPU tensor their plain versions.
 :func:`locator_core` is the plain version of the locator kernel.
+
+:func:`decode_segments` decodes column segments independently — one
+projection column, locator and recombination vector a segment, every
+segment slicing the same (d,) projection factor — and folds their health
+to one verdict a step. :func:`decode_layers` is that decode on the leaf
+boundaries: the reference's per-layer decode (the original Draco PS loops
+over layers, one projection a layer). Both run one launch of each
+segmented kernel for all segments (``ops.coded.segment_plan``).
 """
 
 from __future__ import annotations
@@ -150,6 +158,16 @@ def encode_shared(code: CyclicCode, batch_grads: torch.Tensor):
     t = code.tensors(batch_grads.device)
     return ops_coded.complex_matmul(t["w_masked_re"], t["w_masked_im"],
                                     batch_grads)
+
+
+def encode_segment(code: CyclicCode, batch_grads: torch.Tensor, a: int,
+                   b: int):
+    """Columns [a, b) of :func:`encode_shared`: the encode is separable
+    over d, so a segment's codewords are the encode of its gradient
+    columns with the same weights."""
+    t = code.tensors(batch_grads.device)
+    return ops_coded.complex_matmul(t["w_masked_re"], t["w_masked_im"],
+                                    batch_grads[..., a:b].contiguous())
 
 
 # --------------------------------------------------------------------------
@@ -294,3 +312,71 @@ def decode(code: CyclicCode, r_re: torch.Tensor, r_im: torch.Tensor,
                                  "flagged": flagged_l[0],
                                  "loud": loud_l[0]}
     return decoded, honest
+
+
+def decode_segments(code: CyclicCode, r_re: torch.Tensor,
+                    r_im: torch.Tensor, rand_factor: torch.Tensor, bounds,
+                    present: Optional[torch.Tensor] = None,
+                    with_health: bool = False,
+                    rel_tol: float = HEALTH_REL_TOL, lam: float = 0.0,
+                    wire=None):
+    """The segmented decode: segment j = [bounds[j], bounds[j+1]) gets its
+    own projection column (the slice of the one ``rand_factor``), its own
+    locator solve and its own recombination vector. The wire corrupts
+    whole rows, so every segment of a corrupt row carries its error and
+    every segment's locator finds it; a straggler's zero-filled row is an
+    erasure in every segment under the same ``present``.
+
+    The projection is one ``complex_project_segments`` launch, the S
+    locator columns one ``cyclic_locator`` launch, the recombination one
+    launch over the narrow buffers (``cyclic_narrow_recombine_segments``,
+    any cut) where ``wire`` is a narrow wire, else over the widened rows
+    (``complex_recombine_segments``: the reference's per-segment
+    ``_recombine_layers_fused``), the 1/n folded into the (S, n) v pair.
+
+    Returns ``(decoded (d,), honest (S, n))`` — the caller folds honest
+    with ``all(dim=0)`` — and, with ``with_health``, the health folded
+    across segments: ``residual`` the worst segment's, ``flagged`` and
+    ``loud`` the union."""
+    from draco_tpu_torch.ops import decode_kernels
+
+    n = code.n
+    plan = ops_coded.segment_plan(bounds, r_re.device)
+    e_re, e_im = ops_coded.complex_project_segments(r_re, r_im, rand_factor,
+                                                    plan)
+    pres_f = (torch.ones((1, n), dtype=torch.float32, device=r_re.device)
+              if present is None else present.float().reshape(1, n))
+    v_re, v_im, honest_l, flagged_l, loud_l, resid_l = (
+        decode_kernels.cyclic_locator(code, e_re, e_im, pres_f, rel_tol,
+                                      lam=lam))
+    if decode_kernels.narrow_kernel_ok(wire):
+        decoded = decode_kernels.cyclic_narrow_recombine_segments(
+            v_re / n, v_im / n, wire, plan)
+    else:
+        decoded = ops_coded.complex_recombine_segments(v_re / n, v_im / n,
+                                                       r_re, r_im, plan)
+    if with_health:
+        return decoded, honest_l, {"residual": resid_l.max(),
+                                   "flagged": flagged_l.any(dim=0),
+                                   "loud": loud_l.any(dim=0)}
+    return decoded, honest_l
+
+
+def decode_layers(code: CyclicCode, r_re: torch.Tensor, r_im: torch.Tensor,
+                  rand_factor: torch.Tensor, offsets,
+                  present: Optional[torch.Tensor] = None,
+                  with_health: bool = False,
+                  rel_tol: float = HEALTH_REL_TOL, lam: float = 0.0,
+                  wire=None):
+    """The layer-granularity decode: :func:`decode_segments` on the leaf
+    boundaries ``offsets`` (L + 1), one locator a parameter tensor. It
+    also catches corruption confined to one layer's coordinates, which a
+    global projection sees only through that layer's share. As the
+    reference, it recombines the widened rows whatever the wire (``wire``
+    is taken for the signature and dropped). Returns ``(decoded, honest
+    (L, n)[, health])``."""
+    del wire
+    return decode_segments(code, r_re, r_im, rand_factor,
+                           [int(o) for o in offsets], present=present,
+                           with_health=with_health, rel_tol=rel_tol,
+                           lam=lam)

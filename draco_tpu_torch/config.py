@@ -79,6 +79,8 @@ class TrainConfig:
     straggle_mode: str = "none"  # none | drop
     straggle_count: int = 0
     redundancy: str = "simulate"  # simulate | shared
+    # "layer": the cyclic decode runs one locator a parameter tensor, as
+    # the reference's per-layer decode; the approx code decodes globally
     decode_granularity: str = "global"
     decode_impl: str = "auto"  # auto | pallas: kernel on cuda, plain on cpu
     # --- TransformerLM (network="TransformerLM"; single shard only) ---
@@ -101,8 +103,11 @@ class TrainConfig:
     wire_dtype: str = "f32"  # f32 | bf16 | int8
     shadow_block: int = 256
     shadow_round: str = "nearest"
-    # --- options of the reference the port rejects for now ---
+    # the segmented wire: S > 1 cuts d into S segments (obs/numerics
+    # .wire_segment_bounds), each decoded on its own and their verdicts
+    # folded to one a step (cyclic, approx); on maj_vote the wire only
     wire_segments: int = 1
+    # --- options of the reference the port rejects for now ---
     topology: str = "flat"
     seq_shards: int = 1
     tensor_shards: int = 1
@@ -176,16 +181,25 @@ class TrainConfig:
             self._validate_vote()
         if self.redundancy not in ("simulate", "shared"):
             raise ValueError(f"unknown redundancy: {self.redundancy!r}")
-        if self.decode_granularity != "global":
+        if self.decode_granularity not in ("global", "layer"):
             raise ValueError(
-                "decode_granularity='layer' is not ported yet (the port "
-                "decodes globally)")
+                f"decode_granularity must be global|layer, got "
+                f"{self.decode_granularity}")
         if self.decode_impl not in ("auto", "pallas"):
             raise ValueError(
                 f"decode_impl={self.decode_impl!r} is not ported (auto|pallas:"
                 f" the kernels on cuda, their plain versions on cpu)")
-        if self.wire_segments != 1:
-            raise ValueError("wire_segments > 1 is not ported yet")
+        if self.wire_segments < 1:
+            raise ValueError(
+                f"wire_segments must be >= 1, got {self.wire_segments}")
+        if self.wire_segments > 1 and self.approach not in (
+                "cyclic", "maj_vote", "approx"):
+            # the baseline ships raw rows, with no decode to segment; the
+            # vote is row-wise, not separable over d: on maj_vote the
+            # segments cut the wire only and the vote is unchanged
+            raise ValueError(
+                "wire_segments > 1 requires a coded approach "
+                f"(cyclic|maj_vote|approx), got {self.approach!r}")
         if self.topology != "flat":
             raise ValueError(f"topology={self.topology!r} is not ported yet")
         if self.approach != "baseline" and \

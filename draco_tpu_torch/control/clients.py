@@ -25,6 +25,7 @@ class _Client:
         self.ranges = chunk_ranges(first, last, cfg.steps_per_call,
                                    cfg.eval_freq)
         self.block_names = loop.setup.block_names
+        self.wire_segments = int(cfg.wire_segments)
 
     def dispatch(self, state, chunk):
         return self.many(state, chunk)

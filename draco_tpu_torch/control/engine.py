@@ -14,8 +14,8 @@ steps, as the reference's chunked ``t_comp`` is.
 
 Host spans (``obs/tracer.py``), the reference engine's names: ``gather``
 (the client's assembly) and ``dispatch`` once a chunk with ``chunk_start``
-and ``k``, ``sync`` (the fetch) and ``flush`` (the records) once a flush
-with ``at_step``. The step's draco_* phases run inside ``dispatch``: on
+and ``k`` (and ``segments`` on a segmented wire, S > 1), ``sync`` (the
+fetch) and ``flush`` (the records) once a flush with ``at_step``. The step's draco_* phases run inside ``dispatch``: on
 the card only in the capture, on the CPU in every step.
 
 Client protocol (``control/clients.py``):
@@ -23,6 +23,7 @@ Client protocol (``control/clients.py``):
   ranges                      the chunks of the client's steps
   many                        the setup's chunk runner (its ``graph()``)
   block_names                 the columns of the chunk's metrics block
+  wire_segments               the wire's segments (cfg.wire_segments)
   keep                        the columns a written record keeps, or None
   assemble(i, ranges)         chunk i on the host (a ``Chunk``)
   dispatch(state, chunk)      -> (state, block)
@@ -61,7 +62,12 @@ class ChunkedEngine:
             window_t0, window_steps = time.perf_counter(), 0
             for i, (start, k) in enumerate(ranges):
                 end = start + k - 1
-                with tracer.span("dispatch", chunk_start=start, k=k), \
+                # tagged with the segment count only when the wire is cut:
+                # an S = 1 trace stays as it was
+                span_kw = {"chunk_start": start, "k": k}
+                if client.wire_segments > 1:
+                    span_kw["segments"] = client.wire_segments
+                with tracer.span("dispatch", **span_kw), \
                         tracer.activate():
                     state, block = client.dispatch(state, chunk)
                 deferred.defer(range(start, end + 1), client.block_names,

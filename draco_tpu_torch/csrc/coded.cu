@@ -7,6 +7,11 @@
 //   complex_matmul     <- _matmul_kernel / _matmul_pallas    (coded.py:70, pallas_call :82)
 //   complex_project    <- _project_kernel / _project_pallas  (coded.py:128, pallas_call :152)
 //   complex_recombine  <- _recombine_kernel / _recombine_pallas (coded.py:188, pallas_call :201)
+// and, for the segmented decode (many column segments in one launch, where
+// the reference calls the two kernels once a segment on column slices,
+// draco_tpu/coding/cyclic.py decode_layers / decode_segments):
+//   complex_project_segments   <- _project_pallas on r[:, a:b] per segment
+//   complex_recombine_segments <- _recombine_pallas on r[:, a:b] per segment
 //
 // What bounds them on an H100: all three stream an (n, d) f32 operand once
 // with n <= 64 (n = 8 on the main path) and do 2n flops per column, far
@@ -21,6 +26,20 @@
 // rows in registers, so at n <= 8 every input element is read from device
 // memory exactly once. The TPU kernels' TILE_D tiling, 128-lane partials
 // and padding have no counterpart: a thread masks the ragged edge itself.
+//
+// The segment kernels take the whole (n, d) operands and a segment plan:
+// an int32 table, built on the host once per set of cuts and kept on the
+// card, of column tiles of at most ops/coded.py's SEGMENT_TILE columns,
+// none straddling a cut — plan[t] the tile's segment, plan[T + t] and
+// plan[2T + t] its columns [lo, hi), plan[3T + j] the first tile of
+// segment j (S + 1 entries). A block takes one tile, one thread a column, so a segment
+// slice is read in place at the row stride d with no copy, and a segment
+// of 10 columns costs one block, not a launch. Per column the
+// recombination does the same sum in the same order as
+// complex_recombine_kernel (bit for bit on a contiguous slice); the
+// projection writes one partial per (tile, row) and reduces each
+// segment's tiles in a fixed order (no atomics: the same bits launch to
+// launch, though grouped otherwise than complex_project's).
 //
 // complex_project reduces over d in two deterministic passes — per-block
 // partials into an (n, chunks) scratch, then one block per row sums them in
@@ -264,6 +283,141 @@ __global__ void complex_recombine_kernel(const float* __restrict__ v_re,
   }
 }
 
+// The segment plan's fields (the comment at the top)
+struct Tile {
+  int seg;
+  long long lo, hi;
+};
+
+__device__ __forceinline__ Tile tile_of(const int* __restrict__ plan,
+                                        int tiles, int t) {
+  return {__ldg(plan + t), (long long)__ldg(plan + tiles + t),
+          (long long)__ldg(plan + 2 * tiles + t)};
+}
+
+// Pass 1 of the segmented projection: block (tile t, row group y) sums
+// r[i, j]·f[j] over the tile's columns for up to kRowGroup rows, kUnroll
+// columns of each row in flight a thread; writes part[row, t].
+__global__ void __launch_bounds__(kThreads)
+project_segments_partial_kernel(const float* __restrict__ r_re,
+                                const float* __restrict__ r_im,
+                                const float* __restrict__ f,
+                                const int* __restrict__ plan, int tiles,
+                                float* __restrict__ part_re,
+                                float* __restrict__ part_im, int n,
+                                long long d) {
+  const int t = blockIdx.x;
+  const Tile tl = tile_of(plan, tiles, t);
+  const int i0 = blockIdx.y * kRowGroup;
+  const int rows = min(kRowGroup, n - i0);
+  const float* rr = r_re + (long long)i0 * d;
+  const float* ri = r_im + (long long)i0 * d;
+  float ar[kRowGroup], ai[kRowGroup];
+#pragma unroll
+  for (int k = 0; k < kRowGroup; ++k) { ar[k] = 0.f; ai[k] = 0.f; }
+  for (long long j0 = tl.lo + threadIdx.x; j0 < tl.hi;
+       j0 += kUnroll * kThreads) {
+    float fv[kUnroll], xr[kUnroll][kRowGroup], xi[kUnroll][kRowGroup];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = j0 + u * kThreads;
+      const bool ok = j < tl.hi;
+      fv[u] = ok ? __ldg(f + j) : 0.f;  // a column past the tile adds 0
+#pragma unroll
+      for (int k = 0; k < kRowGroup; ++k) {
+        xr[u][k] = ok && k < rows ? __ldg(rr + k * d + j) : 0.f;
+        xi[u][k] = ok && k < rows ? __ldg(ri + k * d + j) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int k = 0; k < kRowGroup; ++k) {
+        ar[k] = fmaf(xr[u][k], fv[u], ar[k]);
+        ai[k] = fmaf(xi[u][k], fv[u], ai[k]);
+      }
+    }
+  }
+  __shared__ float red[2 * kRowGroup][kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kRowGroup; ++k) {
+    const float sr = warp_sum(ar[k]);
+    const float si = warp_sum(ai[k]);
+    if (lane == 0) { red[k][warp] = sr; red[kRowGroup + k][warp] = si; }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * rows) {
+    const int k = threadIdx.x % rows;
+    const bool im = threadIdx.x >= rows;
+    float acc = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w)
+      acc += red[(im ? kRowGroup : 0) + k][w];
+    (im ? part_im : part_re)[(long long)(i0 + k) * tiles + t] = acc;
+  }
+}
+
+// Pass 2: block j sums segment j's tile partials of every row in a fixed
+// order (strided over the threads, then lanes, then warps) into
+// e[j, i] — the (S, n) stack of projected columns the locator reads.
+__global__ void __launch_bounds__(kThreads)
+project_segments_final_kernel(const float* __restrict__ part_re,
+                              const float* __restrict__ part_im,
+                              const int* __restrict__ plan, int tiles,
+                              float* __restrict__ e_re,
+                              float* __restrict__ e_im, int n) {
+  const int j = blockIdx.x;
+  const int t0 = __ldg(plan + 3 * tiles + j);
+  const int t1 = __ldg(plan + 3 * tiles + j + 1);
+  __shared__ float red[2][kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = 0; i < n; ++i) {
+    float sr = 0.f, si = 0.f;
+    for (int t = t0 + threadIdx.x; t < t1; t += kThreads) {
+      sr += part_re[(long long)i * tiles + t];
+      si += part_im[(long long)i * tiles + t];
+    }
+    sr = warp_sum(sr);
+    si = warp_sum(si);
+    if (lane == 0) { red[0][warp] = sr; red[1][warp] = si; }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float a = 0.f, b = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) { a += red[0][w]; b += red[1][w]; }
+      e_re[(long long)j * n + i] = a;
+      e_im[(long long)j * n + i] = b;
+    }
+    __syncthreads();
+  }
+}
+
+// Re[(vr + i·vi)ᵀ (Rr + i·Ri)] with the v pair of each column's segment:
+// v (S, n), R (n, d) -> out (d,) over the plan's columns. The tile's v
+// pair in shared memory; each column the sum of complex_recombine_kernel.
+__global__ void __launch_bounds__(kThreads)
+recombine_segments_kernel(const float* __restrict__ v_re,
+                          const float* __restrict__ v_im,
+                          const float* __restrict__ r_re,
+                          const float* __restrict__ r_im,
+                          const int* __restrict__ plan, int tiles,
+                          float* __restrict__ out, int n, long long d) {
+  extern __shared__ float sv[];  // [n] re, then [n] im
+  const Tile tl = tile_of(plan, tiles, blockIdx.x);
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    sv[t] = v_re[(long long)tl.seg * n + t];
+    sv[n + t] = v_im[(long long)tl.seg * n + t];
+  }
+  __syncthreads();
+  for (long long j = tl.lo + threadIdx.x; j < tl.hi; j += blockDim.x) {
+    float acc_r = 0.f, acc_i = 0.f;
+    for (int i = 0; i < n; ++i) {
+      acc_r = fmaf(sv[i], __ldg(r_re + (long long)i * d + j), acc_r);
+      acc_i = fmaf(sv[n + i], __ldg(r_im + (long long)i * d + j), acc_i);
+    }
+    out[j] = acc_r - acc_i;
+  }
+}
+
 // float2 pairs when every row and f start 8-byte aligned
 bool pairs_aligned(long long d, const float* a, const float* b,
                    const float* c) {
@@ -281,6 +435,12 @@ const draco_audit::Entry kAudit[] = {
     {"project_final_kernel", (const void*)project_final_kernel, kThreads,
      nullptr, 0},
     {"complex_recombine_kernel", (const void*)complex_recombine_kernel,
+     kThreads, vector_smem, 0},
+    {"project_segments_partial_kernel",
+     (const void*)project_segments_partial_kernel, kThreads, nullptr, 0},
+    {"project_segments_final_kernel",
+     (const void*)project_segments_final_kernel, kThreads, nullptr, 0},
+    {"recombine_segments_kernel", (const void*)recombine_segments_kernel,
      kThreads, vector_smem, 0},
 };
 
@@ -369,6 +529,38 @@ int draco_complex_recombine(const float* v_re, const float* v_im,
                                (cudaStream_t)stream>>>(v_re, v_im, r_re, r_im,
                                                        out, n, d);
   }
+  return (int)cudaGetLastError();
+}
+
+// The segmented projection over a plan of `tiles` tiles and `segments`
+// segments: part (2, n, tiles) scratch, e_re / e_im (segments, n).
+int draco_complex_project_segments(const float* r_re, const float* r_im,
+                                   const float* f, const int* plan,
+                                   int tiles, int segments, float* part_re,
+                                   float* part_im, float* e_re, float* e_im,
+                                   int n, long long d, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tiles < 1 || segments < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid(tiles, (n + kRowGroup - 1) / kRowGroup);
+  project_segments_partial_kernel<<<grid, kThreads, 0, st>>>(
+      r_re, r_im, f, plan, tiles, part_re, part_im, n, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  project_segments_final_kernel<<<segments, kThreads, 0, st>>>(
+      part_re, part_im, plan, tiles, e_re, e_im, n);
+  return (int)cudaGetLastError();
+}
+
+// The segmented recombination: v (segments, n), out (d,) over the plan's
+// columns.
+int draco_complex_recombine_segments(const float* v_re, const float* v_im,
+                                     const float* r_re, const float* r_im,
+                                     const int* plan, int tiles, float* out,
+                                     int n, long long d, void* stream) {
+  if (tiles < 1) return (int)cudaErrorInvalidValue;
+  recombine_segments_kernel<<<tiles, kThreads, vector_smem(n, 0),
+                              (cudaStream_t)stream>>>(v_re, v_im, r_re, r_im,
+                                                      plan, tiles, out, n, d);
   return (int)cudaGetLastError();
 }
 

@@ -10,6 +10,12 @@
 //                        with _dequant_tile (:174)
 //   approx_decode     <- _approx_decode_kernel{,_narrow} /
 //                        _approx_decode_pallas (pallas_call :271)
+//   narrow_recombine_segments <- _cyclic_recombine_pallas once a segment
+//                        on the [a, b) slices of the buffers
+//                        (cyclic_narrow_recombine_segment, :458)
+// and approx_decode's launch takes a column offset and a row stride: the
+// reference's approx_decode_segment (:465) on [a, b) of the (n, d)
+// buffers, read in place.
 //
 // What bounds them on an H100: both stream (n, d) operands once with
 // n <= 64 (n = 8 on the main path) and do a few flops per element, far
@@ -55,6 +61,22 @@
 // one-byte loads, held the old int8 kernel back; evict-first streaming
 // loads, a cp.async double buffer in shared memory and a contiguous range
 // of windows a warp were each slower than this.
+//
+// narrow_recombine_segments takes the whole buffers and the segment plan
+// of ops/coded.py (column tiles, none straddling a cut; the tile's v pair
+// in shared memory): one thread a column, each element widened and summed
+// as the wide strips and the scalar loop above do (level × scale, fmaf in
+// row order), so a column gives the bits of cyclic_narrow_recombine. The
+// scale index is the absolute column's, j / block: a cut inside a scale
+// block (a layer boundary) needs no special case.
+//
+// The approx decode's offset entry: the view of columns [col0, col0 + d)
+// of an (n, ld) buffer, base pointers advanced by col0 and rows ld apart;
+// the wide span keeps every load inside the whole buffer (rows 0..n-1 of
+// ld columns from base − col0), the scale index is the absolute column's,
+// and one scale a strip needs col0 as well as the block to be a multiple
+// of the strip's 4 columns. At col0 = 0, ld = d it is the whole-buffer
+// decode, unchanged.
 //
 // approx_decode skips the rows of absent workers (pres[i] == 0, the same
 // for every thread, so no divergence): an absent row is never loaded,
@@ -115,7 +137,8 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162floa
 __device__ __forceinline__ float widen(int8_t x) { return (float)x; }
 
 // Row i, column j of a wire buffer as f32: the element, times its block's
-// scale for int8 (the scalar loop's read).
+// scale for int8 (the scalar loop's read). wire_at_view: of a view whose
+// rows are ld apart and whose column j is col0 + j of the scales.
 template <typename T>
 __device__ __forceinline__ float wire_at(const T* __restrict__ q,
                                          const float* __restrict__ scale,
@@ -124,6 +147,20 @@ __device__ __forceinline__ float wire_at(const T* __restrict__ q,
   const float x = widen(q[(long long)i * d + j]);
   if constexpr (std::is_same<T, int8_t>::value) {
     return x * __ldg(scale + (long long)i * nb + j / block);
+  } else {
+    return x;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float wire_at_view(const T* __restrict__ q,
+                                              const float* __restrict__ scale,
+                                              int i, long long j,
+                                              long long ld, long long col0,
+                                              int block, long long nb) {
+  const float x = widen(q[(long long)i * ld + j]);
+  if constexpr (std::is_same<T, int8_t>::value) {
+    return x * __ldg(scale + (long long)i * nb + (col0 + j) / block);
   } else {
     return x;
   }
@@ -246,6 +283,26 @@ __device__ __forceinline__ Span wide_span(const void* base, int n,
   const uintptr_t last =
       (b + (uintptr_t)((long long)(n - 1) * d * sz)) & ~(uintptr_t)(cb - 1);
   const long long lo = (b & (uintptr_t)(cb - 1)) ? 1 : 0;
+  const long long end = (long long)((e - last) / (uintptr_t)cb) - 1;
+  const long long full = d / w;
+  const long long hi = full < end ? full : end;
+  return hi > lo ? Span{lo, hi} : Span{0, 0};
+}
+
+// wide_span of a view: n rows of d columns, ld apart, starting col0
+// columns into row 0 of an (n, ld) buffer; every load stays inside that
+// whole buffer. At col0 = 0, ld = d it is wide_span.
+__device__ __forceinline__ Span wide_span_view(const void* base, int n,
+                                               long long d, long long ld,
+                                               long long col0, int sz,
+                                               int cb) {
+  const long long w = cb / sz;
+  const uintptr_t b = (uintptr_t)base;
+  const uintptr_t start = b - (uintptr_t)(col0 * sz);
+  const uintptr_t e = start + (uintptr_t)((long long)n * ld * sz);
+  const uintptr_t last =
+      (b + (uintptr_t)((long long)(n - 1) * ld * sz)) & ~(uintptr_t)(cb - 1);
+  const long long lo = (b & ~(uintptr_t)(cb - 1)) < start ? 1 : 0;
   const long long end = (long long)((e - last) / (uintptr_t)cb) - 1;
   const long long full = d / w;
   const long long hi = full < end ? full : end;
@@ -418,6 +475,49 @@ narrow_recombine_kernel(const float* __restrict__ v_re,
   }
 }
 
+// The narrow recombination over a segment plan (the comment at the top):
+// v (S, n), the (n, d) buffers -> out over the plan's columns.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+narrow_recombine_segments_kernel(const float* __restrict__ v_re,
+                                 const float* __restrict__ v_im,
+                                 const void* __restrict__ q_re,
+                                 const void* __restrict__ q_im,
+                                 const float* __restrict__ s_re,
+                                 const float* __restrict__ s_im,
+                                 const int* __restrict__ plan, int tiles,
+                                 float* __restrict__ out, int n, long long d,
+                                 int block, long long nb) {
+  using T = typename Wire<R>::T;
+  extern __shared__ float sv[];  // [n] re, then [n] im
+  const int seg = __ldg(plan + blockIdx.x);
+  const long long lo = __ldg(plan + tiles + blockIdx.x);
+  const long long hi = __ldg(plan + 2 * tiles + blockIdx.x);
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    sv[t] = v_re[(long long)seg * n + t];
+    sv[n + t] = v_im[(long long)seg * n + t];
+  }
+  __syncthreads();
+  const T* qr = (const T*)q_re;
+  const T* qi = (const T*)q_im;
+  for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x) {
+    long long bj = 0;  // int8: the column's scale block, in 32 bits
+    if constexpr (R == kInt8) bj = block_of(j, block, d);
+    float acc_r = 0.f, acc_i = 0.f;
+    for (int i = 0; i < n; ++i) {
+      float x = widen(qr[(long long)i * d + j]);
+      float y = widen(qi[(long long)i * d + j]);
+      if constexpr (R == kInt8) {
+        x *= __ldg(s_re + (long long)i * nb + bj);
+        y *= __ldg(s_im + (long long)i * nb + bj);
+      }
+      acc_r = fmaf(sv[i], x, acc_r);
+      acc_i = fmaf(sv[n + i], y, acc_i);
+    }
+    out[j] = acc_r - acc_i;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   return v;
@@ -442,7 +542,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 //   mean[j] = Σ_i inv_n · bg[i, j]
 // writes dec and this block's partial sums of (dec − mean)² and bg². A
 // strip is 4 columns: one chunk of sizeof(wire) words of the wire and one
-// 16-byte chunk of bg a row.
+// 16-byte chunk of bg a row. q, bg and dec point at column col0 of rows
+// ld apart (the offset entry); the scales are the whole buffer's.
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 approx_decode_partial_kernel(const void* __restrict__ q,
@@ -453,7 +554,8 @@ approx_decode_partial_kernel(const void* __restrict__ q,
                              float* __restrict__ dec,
                              float* __restrict__ part_d,
                              float* __restrict__ part_g, int n, long long d,
-                             int block, long long nb, float inv_n) {
+                             long long ld, long long col0, int block,
+                             long long nb, float inv_n) {
   using T = typename Wire<R>::T;
   constexpr int CW = (int)sizeof(T), CB = 4 * CW, W = 4;
   constexpr bool kScaled = R == kInt8 || R == kInt8Any;
@@ -463,9 +565,9 @@ approx_decode_partial_kernel(const void* __restrict__ q,
     sh[n + t] = pres[t];
   }
   __syncthreads();
-  const long long rq = d * (long long)sizeof(T), rg = d * 4;
-  const Span sp = meet(wide_span(q, n, d, sizeof(T), CB),
-                       wide_span(bg, n, d, 4, 16));
+  const long long rq = ld * (long long)sizeof(T), rg = ld * 4;
+  const Span sp = meet(wide_span_view(q, n, d, ld, col0, sizeof(T), CB),
+                       wide_span_view(bg, n, d, ld, col0, 4, 16));
   const int lane = threadIdx.x & 31;
   const bool vec = ((uintptr_t)dec & 15) == 0;
   float sd = 0.f, sg = 0.f;
@@ -478,9 +580,10 @@ approx_decode_partial_kernel(const void* __restrict__ q,
     const long long j0 = s * W;
     long long blk1 = 0;
     int blk[kScaled ? W : 1];
-    if constexpr (R == kInt8) blk1 = mine ? block_of(j0, block, d) : 0;
+    if constexpr (R == kInt8)
+      blk1 = mine ? block_of(col0 + j0, block, col0 + d) : 0;
     if constexpr (R == kInt8Any) {
-      if (mine) blocks_of<W>(j0, block, blk);
+      if (mine) blocks_of<W>(col0 + j0, block, blk);
     }
     float acc[W], mean[W];
 #pragma unroll
@@ -558,8 +661,9 @@ approx_decode_partial_kernel(const void* __restrict__ q,
     float acc = 0.f, mean = 0.f;
     for (int i = 0; i < n; ++i) {
       if (sh[n + i] > 0.f)
-        acc = fmaf(sh[i], wire_at(qt, scale, i, j, d, block, nb), acc);
-      const float b = __ldg(bg + (long long)i * d + j);
+        acc = fmaf(sh[i], wire_at_view(qt, scale, i, j, ld, col0, block, nb),
+                   acc);
+      const float b = __ldg(bg + (long long)i * ld + j);
       mean = fmaf(inv_n, b, mean);
       sg = fmaf(b, b, sg);
     }
@@ -641,11 +745,25 @@ int launch_recombine(const float* v_re, const float* v_im, const void* q_re,
 template <int R>
 int launch_approx(const void* q, const float* scale, const float* bg,
                   const float* vn, const float* pres, float* dec, float* part,
-                  int n, long long d, int block, long long nb, int chunks,
-                  float inv_n, cudaStream_t st) {
+                  int n, long long d, long long ld, long long col0, int block,
+                  long long nb, int chunks, float inv_n, cudaStream_t st) {
   approx_decode_partial_kernel<R><<<chunks, kThreads, vector_smem(n, 0), st>>>(
-      q, scale, bg, vn, pres, dec, part, part + chunks, n, d, block, nb,
-      inv_n);
+      q, scale, bg, vn, pres, dec, part, part + chunks, n, d, ld, col0, block,
+      nb, inv_n);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch_recombine_segments(const float* v_re, const float* v_im,
+                              const void* q_re, const void* q_im,
+                              const float* s_re, const float* s_im,
+                              const int* plan, int tiles, float* out, int n,
+                              long long d, int block, long long nb,
+                              cudaStream_t st) {
+  narrow_recombine_segments_kernel<R><<<tiles, kThreads, vector_smem(n, 0),
+                                        st>>>(v_re, v_im, q_re, q_im, s_re,
+                                              s_im, plan, tiles, out, n, d,
+                                              block, nb);
   return (int)cudaGetLastError();
 }
 
@@ -673,6 +791,12 @@ const draco_audit::Entry kAudit[] = {
      vector_smem, 0},
     {"approx_decode_final_kernel", (const void*)approx_decode_final_kernel,
      kThreads, nullptr, 0},
+    {"narrow_recombine_segments_kernel<kBF16>",
+     (const void*)narrow_recombine_segments_kernel<kBF16>, kThreads,
+     vector_smem, 0},
+    {"narrow_recombine_segments_kernel<kInt8>",
+     (const void*)narrow_recombine_segments_kernel<kInt8>, kThreads,
+     vector_smem, 0},
 };
 
 }  // namespace
@@ -730,29 +854,34 @@ int draco_approx_decode_chunks(long long d) {
 }
 
 // sums: (2,) f32 <- [Σ(dec − mean)², Σ bg²]; part: (2, chunks) scratch.
+// q, bg and dec point at column col0 of the view's first row; rows are ld
+// apart (col0 = 0, ld = d: the whole buffer); scale is the whole (n, nb).
 int draco_approx_decode(const void* q, const float* scale, const float* bg,
                         const float* vn, const float* pres, float* dec,
                         float* part, float* sums, int n, long long d,
-                        int wire, int block, long long nb, int chunks,
-                        float inv_n, void* stream) {
+                        long long ld, long long col0, int wire, int block,
+                        long long nb, int chunks, float inv_n, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int err;
   switch (wire) {
     case kF32:
-      err = launch_approx<kF32>(q, scale, bg, vn, pres, dec, part, n, d,
-                                block, nb, chunks, inv_n, st);
+      err = launch_approx<kF32>(q, scale, bg, vn, pres, dec, part, n, d, ld,
+                                col0, block, nb, chunks, inv_n, st);
       break;
     case kBF16:
-      err = launch_approx<kBF16>(q, scale, bg, vn, pres, dec, part, n, d,
-                                 block, nb, chunks, inv_n, st);
+      err = launch_approx<kBF16>(q, scale, bg, vn, pres, dec, part, n, d, ld,
+                                 col0, block, nb, chunks, inv_n, st);
       break;
     case kInt8:
-      // a strip is 4 columns: one scale a row when 4 divides block
-      err = block % 4 == 0
+      // a strip is 4 columns: one scale a row when 4 divides the block and
+      // the view's first column
+      err = block % 4 == 0 && col0 % 4 == 0
                 ? launch_approx<kInt8>(q, scale, bg, vn, pres, dec, part, n,
-                                       d, block, nb, chunks, inv_n, st)
+                                       d, ld, col0, block, nb, chunks, inv_n,
+                                       st)
                 : launch_approx<kInt8Any>(q, scale, bg, vn, pres, dec, part,
-                                          n, d, block, nb, chunks, inv_n, st);
+                                          n, d, ld, col0, block, nb, chunks,
+                                          inv_n, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -761,6 +890,31 @@ int draco_approx_decode(const void* q, const float* scale, const float* bg,
   approx_decode_final_kernel<<<1, kThreads, 0, st>>>(part, part + chunks, sums,
                                                      chunks);
   return (int)cudaGetLastError();
+}
+
+// The narrow recombination over a segment plan of `tiles` tiles (ops/
+// coded.py): v (S, n) f32, wire 1 bf16 or 2 int8, out (d,) over the plan's
+// columns.
+int draco_narrow_recombine_segments(const float* v_re, const float* v_im,
+                                    const void* q_re, const void* q_im,
+                                    const float* s_re, const float* s_im,
+                                    const int* plan, int tiles, float* out,
+                                    int n, long long d, int wire, int block,
+                                    long long nb, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tiles < 1) return (int)cudaErrorInvalidValue;
+  switch (wire) {
+    case kBF16:
+      return launch_recombine_segments<kBF16>(v_re, v_im, q_re, q_im, s_re,
+                                              s_im, plan, tiles, out, n, d,
+                                              block, nb, st);
+    case kInt8:
+      return launch_recombine_segments<kInt8>(v_re, v_im, q_re, q_im, s_re,
+                                              s_im, plan, tiles, out, n, d,
+                                              block, nb, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -14,6 +14,12 @@ rounding draws from the JAX PRNG and is not ported yet (``config.validate``
 rejects ``shadow_round="stochastic"``). The reference's numerics
 observatory, shadow decode and wire ledger are not ported either.
 
+The segmented wire (``cfg.wire_segments`` S > 1) cuts the d axis at the
+reference's bounds (``wire_segment_bounds``): every interior cut a multiple
+of SEGMENT_QUANTUM, or of the int8 scale block where that does not divide
+it, so no scale block straddles a cut and the narrow buffers of the whole
+row are the segments' buffers.
+
 The constants are the reference's, as its tools/wire_study.py derived them:
 the locator λ per dtype, the per-(n, s, dtype) cyclic flag thresholds and
 the residual slack of the approx certificate on a narrow wire.
@@ -129,13 +135,23 @@ def widen_wire_rows(buf: dict, mode: str,
                     block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """Narrow buffers -> the f32 rows: the bf16 value, or level × its
     block's scale (one f32 multiply, as the decode kernels do it)."""
-    q = buf["q"]
+    return widen_wire_cols(buf, mode, block, 0, buf["q"].shape[-1])
+
+
+def widen_wire_cols(buf: dict, mode: str, block: int, a: int,
+                    b: int) -> torch.Tensor:
+    """Columns [a, b) of the widened rows (``widen_wire_rows``), the scale
+    of each column its absolute block's: any cut, ``a`` need not lie on a
+    block."""
+    q = buf["q"][..., a:b]
     if mode == "bf16":
         return q.float()
     if mode != "int8":
         raise ValueError(f"unknown wire dtype: {mode!r}")
     block = max(int(block), 1)
-    wide = buf["scale"].repeat_interleave(block, dim=-1)[..., :q.shape[-1]]
+    lo = a // block
+    wide = buf["scale"][..., lo:-(-b // block)].repeat_interleave(
+        block, dim=-1)[..., a - lo * block:b - lo * block]
     return q.float() * wide
 
 
@@ -177,3 +193,47 @@ def narrow_wire_single(cfg, rows: torch.Tensor):
     block = int(cfg.shadow_block)
     return (cfg.wire_dtype, narrow_wire_rows(rows, cfg.wire_dtype, block),
             block)
+
+
+# the segmented wire's cut quantum (the reference's ops/coded.TILE_D, kept
+# a literal there too): interior cuts land on multiples of it
+SEGMENT_QUANTUM = 4096
+
+
+def wire_segment_bounds(d: int, segments: int, block: int = 1) -> tuple:
+    """The segmented wire's cuts ``(0 = b_0 < b_1 < ... < b_S = d)``: the d
+    axis in at most ``segments`` pieces, every interior cut a multiple of
+    the quantum (SEGMENT_QUANTUM when ``block`` divides it, else ``block``
+    itself), so an int8 scale block never straddles a cut. A d of fewer
+    than ``segments`` quanta gives fewer (possibly one) segments, never a
+    sliver below the quantum. The reference's cuts, verbatim."""
+    d = int(d)
+    segments = max(int(segments), 1)
+    block = max(int(block), 1)
+    if d <= 0:
+        return (0, 0)
+    quantum = SEGMENT_QUANTUM if SEGMENT_QUANTUM % block == 0 else block
+    units = -(-d // quantum)  # whole quanta covering d
+    s_eff = max(min(segments, units), 1)
+    per, rem = divmod(units, s_eff)
+    bounds = [0]
+    for i in range(s_eff):
+        step = (per + (1 if i < rem else 0)) * quantum
+        bounds.append(min(bounds[-1] + step, d))
+    bounds[-1] = d
+    # clamping can only collapse trailing cuts onto d
+    out = [bounds[0]]
+    for b in bounds[1:]:
+        if b > out[-1]:
+            out.append(b)
+    return tuple(out)
+
+
+def cfg_segment_bounds(cfg, dim: int) -> tuple:
+    """The segment cuts ``cfg`` induces at flat-gradient size ``dim``: an
+    int8 wire aligns them to its scale block, f32 and bf16 to the quantum
+    alone."""
+    block = (int(getattr(cfg, "shadow_block", DEFAULT_BLOCK))
+             if getattr(cfg, "wire_dtype", "f32") == "int8" else 1)
+    return wire_segment_bounds(dim, getattr(cfg, "wire_segments", 1),
+                               block)

@@ -20,6 +20,12 @@ KERNELS = {
     "flash_dq": flash_attention.flash_dq,
     "flash_dkv": flash_attention.flash_dkv,
     "row_fingerprints": vote.row_fingerprints,
+    # the segmented wire's (the layer decode and wire_segments > 1)
+    "complex_project_segments": coded.complex_project_segments,
+    "complex_recombine_segments": coded.complex_recombine_segments,
+    "cyclic_narrow_recombine_segments":
+        decode_kernels.cyclic_narrow_recombine_segments,
+    "approx_decode_segment": decode_kernels.approx_decode_segment,
 }
 CONTROLS = {
     "control_mistiled_copy": controls.control_mistiled_copy,

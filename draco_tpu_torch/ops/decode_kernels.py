@@ -14,6 +14,15 @@ over d: the absent rows zero-filled, Σ (v/n)·rows, the true mean of the
 batch gradients, and the two squared norms of the residual certificate.
 Kernels: ``csrc/narrow_decode.cu``; plain versions: ``*_plain`` here.
 
+The segmented wire's entries: ``cyclic_narrow_recombine_segments`` (every
+segment of a ``ops.coded.SegmentPlan`` in one launch, each with its own v
+pair) and ``approx_decode_segment`` (the approx decode on columns [a, b) of
+the whole buffers, read in place: the kernel's offset entry). Both index
+int8 scales by the absolute column, so any cut works, a layer boundary
+inside a scale block included. The reference's views of a segment
+(``wire_slice_pair``, ``wire_slice_single``) slice a narrow buffer; they
+keep its rule that an int8 cut lie on a scale block.
+
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors; any other device raises. It counts its kernel
 launches in ``<wrapper>.launches``. The launch itself (``*_launch``) writes
@@ -29,6 +38,7 @@ import torch
 
 from draco_tpu_torch import _build
 from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.ops import coded
 
 MAX_N = 64  # the kernel's block width; rank counts are exact to 64 rows
 # wire element type -> the narrow_decode kernels' template switch
@@ -272,18 +282,178 @@ def approx_decode_chunks(d: int) -> int:
 
 
 def approx_decode_launch(mode, q, scale, block, nb, batch_grads, v_over_n,
-                         pres_f, decoded, part, sums) -> None:
+                         pres_f, decoded, part, sums, a: int = 0,
+                         b: Optional[int] = None) -> None:
     """Both passes of the approx decode on checked wire operands into
     ``decoded`` (d,), the partials ``part`` (2, chunks) and ``sums``
-    (2,)."""
-    n, d = batch_grads.shape
+    (2,). With ``a``, ``b``: on columns [a, b) of the (n, d) ``q`` and
+    ``batch_grads`` (the offset entry), ``decoded`` then (b − a,)."""
+    n, ld = batch_grads.shape
+    b = ld if b is None else b
     err = _build.library("narrow_decode").draco_approx_decode(
-        q.data_ptr(), _ptr(scale), batch_grads.data_ptr(),
-        v_over_n.data_ptr(), pres_f.data_ptr(), decoded.data_ptr(),
-        part.data_ptr(), sums.data_ptr(), n, d, WIRE_CODES[mode], block, nb,
+        q.data_ptr() + a * q.element_size(), _ptr(scale),
+        batch_grads.data_ptr() + 4 * a, v_over_n.data_ptr(),
+        pres_f.data_ptr(), decoded.data_ptr(), part.data_ptr(),
+        sums.data_ptr(), n, b - a, ld, a, WIRE_CODES[mode], block, nb,
         part.shape[1], 1.0 / n,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "approx_decode")
 
 
 approx_decode.launches = 0
+
+
+
+# --------------------------------------------------------------------------
+# the segmented wire: segment views and the segment entries
+# --------------------------------------------------------------------------
+
+def _slice_narrow_buf(buf: dict, a: int, b: int, block) -> dict:
+    """Columns [a, b) of one narrow buffer ``{"q"[, "scale"]}``: the int8
+    scale columns slice at block granularity, so an int8 cut must lie on a
+    scale block (the reference's rule; ``obs.numerics.wire_segment_bounds``
+    cuts there)."""
+    out = {"q": buf["q"][:, a:b]}
+    if "scale" in buf:
+        blk = max(int(block), 1)
+        if a % blk:
+            raise ValueError(
+                f"segment cut {a} not aligned to int8 scale block {blk}")
+        out["scale"] = buf["scale"][:, a // blk:-(-b // blk)]
+    return out
+
+
+def wire_slice_pair(wire, a: int, b: int):
+    """The [a, b) view of a ``narrow_wire_pair`` wire ``(mode, buf_re,
+    buf_im, block)``: the same tuple over sliced buffers."""
+    if wire is None:
+        return None
+    mode, buf_re, buf_im, block = wire
+    return (mode, _slice_narrow_buf(buf_re, a, b, block),
+            _slice_narrow_buf(buf_im, a, b, block), block)
+
+
+def wire_slice_single(wire, a: int, b: int):
+    """The [a, b) view of a ``narrow_wire_single`` wire ``(mode, buf,
+    block)``."""
+    if wire is None:
+        return None
+    mode, buf, block = wire
+    return (mode, _slice_narrow_buf(buf, a, b, block), block)
+
+
+def cyclic_narrow_recombine_segments_plain(v_re, v_im, wire, plan):
+    """One narrow recombination a segment into one (d,) output: columns
+    [a_j, b_j) widened (level × its absolute block's scale) and summed with
+    segment j's v pair."""
+    mode, buf_re, buf_im, block = wire
+    out = torch.zeros((buf_re["q"].shape[1],), dtype=torch.float32,
+                      device=buf_re["q"].device)
+    for j, (a, b) in enumerate(zip(plan.bounds[:-1], plan.bounds[1:])):
+        out[a:b] = (v_re[j] @ numerics.widen_wire_cols(buf_re, mode, block,
+                                                       a, b)
+                    - v_im[j] @ numerics.widen_wire_cols(buf_im, mode, block,
+                                                         a, b))
+    return out
+
+
+def cyclic_narrow_recombine_segments(v_re, v_im, wire, plan):
+    """The cyclic recombination from the narrow wire ``(mode, buf_re,
+    buf_im, block)`` over every segment of ``plan`` (``ops.coded
+    .segment_plan``): v (S, n) f32 -> (d,) f32, segment j's columns with
+    v[j]. One launch; the buffers are read in place at any cut."""
+    mode, buf_re, buf_im, block = wire
+    tensors = [v_re, v_im, buf_re["q"], buf_im["q"]] + [
+        b["scale"] for b in (buf_re, buf_im) if "scale" in b]
+    if not _on_cuda(*tensors):
+        return cyclic_narrow_recombine_segments_plain(v_re, v_im, wire, plan)
+    n, d = buf_re["q"].shape
+    what = "cyclic_narrow_recombine_segments"
+    if n > MAX_N or mode not in ("bf16", "int8"):
+        raise ValueError(f"{what}: n={n} (<= {MAX_N}), a {mode} wire "
+                         f"(bf16 or int8)")
+    for v in (v_re, v_im):
+        if v.dtype != torch.float32 or v.shape != (plan.segments, n):
+            raise ValueError(f"{what}: v of {v.dtype} {tuple(v.shape)}, "
+                             f"expected ({plan.segments}, {n}) float32")
+    coded.check_plan(plan, d, buf_re["q"].device, what)
+    q_re, s_re, blk, nb = _wire_operands(mode, buf_re, int(block), n, d, what)
+    q_im, s_im, _, _ = _wire_operands(mode, buf_im, int(block), n, d, what)
+    out = torch.empty((d,), dtype=torch.float32, device=q_re.device)
+    narrow_recombine_segments_launch(v_re, v_im, mode, q_re, s_re, q_im,
+                                     s_im, blk, nb, plan, out)
+    cyclic_narrow_recombine_segments.launches += 1
+    return out
+
+
+def narrow_recombine_segments_launch(v_re, v_im, mode, q_re, s_re, q_im,
+                                     s_im, block, nb, plan, out) -> None:
+    """The segmented narrow recombination kernel on checked operands into
+    ``out`` (d,)."""
+    n, d = q_re.shape
+    err = _build.library("narrow_decode").draco_narrow_recombine_segments(
+        v_re.data_ptr(), v_im.data_ptr(), q_re.data_ptr(), q_im.data_ptr(),
+        _ptr(s_re), _ptr(s_im), plan.table.data_ptr(), plan.tiles,
+        out.data_ptr(), n, d, WIRE_CODES[mode], block, nb,
+        torch.cuda.current_stream(q_re.device).cuda_stream)
+    _build.check(err, "cyclic_narrow_recombine_segments")
+
+
+cyclic_narrow_recombine_segments.launches = 0
+
+
+def cyclic_narrow_recombine_segment(v_re, v_im, wire, a: int, b: int):
+    """One segment's narrow recombination: the [a, b) slice of
+    ``cyclic_narrow_recombine`` with this segment's v pair (n,), as the
+    reference's entry — through the segmented kernel on a one-segment
+    plan."""
+    plan = coded.segment_plan((a, b), wire[1]["q"].device)
+    return cyclic_narrow_recombine_segments(v_re[None], v_im[None], wire,
+                                            plan)[a:b]
+
+
+def approx_decode_segment(rows, batch_grads, v_over_n, pres_f, a: int,
+                          b: int, wire=None, out=None):
+    """The approx decode on columns [a, b) (the reference's
+    ``approx_decode_segment``): ``rows`` / ``wire`` and ``batch_grads`` are
+    the whole (n, d) operands, read in place (the kernel's offset entry; no
+    copy). Writes the segment's decoded columns into ``out[a:b]`` (``out``
+    (d,), allocated when None) and returns ``(out[a:b], Σ(decoded −
+    mean)², Σ bg²)`` over the segment: the caller adds the sums across
+    segments before the residual's square root."""
+    mode, buf, block = ("f32", {"q": rows}, 1) if wire is None else wire
+    tensors = [buf["q"], batch_grads, v_over_n, pres_f] + (
+        [buf["scale"]] if "scale" in buf else [])
+    n, d = batch_grads.shape
+    if out is None:
+        out = torch.empty((d,), dtype=torch.float32,
+                          device=batch_grads.device)
+    if not 0 <= a < b <= d:
+        raise ValueError(f"approx_decode_segment: columns [{a}, {b}) of "
+                         f"d={d}")
+    if not _on_cuda(*tensors):
+        seg = (rows[:, a:b] if wire is None
+               else numerics.widen_wire_cols(buf, mode, block, a, b))
+        dec, sd, sg = approx_decode_plain(seg, batch_grads[:, a:b],
+                                          v_over_n, pres_f)
+        out[a:b] = dec
+        return out[a:b], sd, sg
+    if n > MAX_N or batch_grads.dtype != torch.float32 \
+            or out.shape != (d,) or not out.is_contiguous():
+        raise ValueError(
+            f"approx_decode_segment: batch gradients {batch_grads.dtype} "
+            f"{tuple(batch_grads.shape)} (float32, n <= {MAX_N}), out "
+            f"{tuple(out.shape)}")
+    _f32_vectors("approx_decode_segment", n, v_over_n, pres_f)
+    q, scale, blk, nb = _wire_operands(mode, buf, int(block), n, d,
+                                       "approx_decode_segment")
+    chunks = approx_decode_chunks(b - a)
+    part = torch.empty((2, chunks), dtype=torch.float32, device=q.device)
+    sums = torch.empty((2,), dtype=torch.float32, device=q.device)
+    approx_decode_launch(mode, q, scale, blk, nb, batch_grads, v_over_n,
+                         pres_f, out[a:b], part, sums, a, b)
+    approx_decode_segment.launches += 1
+    return out[a:b], sums[0], sums[1]
+
+
+approx_decode_segment.launches = 0

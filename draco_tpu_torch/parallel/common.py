@@ -3,13 +3,19 @@ attack injection -> coded decode or robust aggregation -> optimizer update,
 and the metric schema both the CNN step and the LM step emit.
 
 The port's slice: the cyclic code (``simulate`` and ``shared``) with the
-global decode, the approx code (flat, one segment), the f32 or the narrow
-bf16/int8 wire, stragglers as a presence mask, and the baseline's seven
-robust rules (``aggregation.py``). The LM route runs the cyclic and
-baseline codes with every row present on the f32 wire
-(``config.validate``); the repetition code is the CNN step's
-(``training/step.py``). The reference's packed forensics columns, numerics
-observatory and step guard are not ported yet.
+global or the layer-granularity decode, the approx code (flat), the f32 or
+the narrow bf16/int8 wire, whole or in segments (``wire_segments``),
+stragglers as a presence mask, and the baseline's seven robust rules
+(``aggregation.py``). The LM route runs the cyclic and baseline codes with
+every row present on the f32 wire (``config.validate``); the repetition
+code is the CNN step's (``training/step.py``). The reference's packed
+forensics columns, numerics observatory and step guard are not ported yet.
+
+The cyclic decode's dispatch, one for both steps (``decode_bounds`` and
+``cyclic_decode``): layer granularity — with segments the leaf boundaries
+refined by the segment cuts (``segment_decode_bounds``), else the leaf
+boundaries alone — then segments, then the global decode. With one
+segment and global granularity the step never enters the segmented code.
 """
 
 from __future__ import annotations
@@ -58,15 +64,71 @@ def build_code_from_cfg(cfg):
     return None
 
 
+def segment_decode_bounds(cfg, dim: int, leaf_offsets=None) -> list:
+    """The decode's partition on the segmented wire: the segment cuts
+    (``obs.numerics.cfg_segment_bounds``), refined by the leaf boundaries
+    when the decode runs at layer granularity, so every parameter tensor
+    keeps its own locator."""
+    bounds = list(numerics.cfg_segment_bounds(cfg, dim))
+    if leaf_offsets is not None:
+        cuts = sorted({int(o) for o in leaf_offsets}
+                      | {int(b) for b in bounds})
+        bounds = [c for c in cuts if 0 <= c <= dim]
+    return bounds
+
+
+def decode_bounds(cfg, dim: int, leaf_offsets=None) -> Optional[list]:
+    """The cuts of the cyclic decode at ``cfg``: layer granularity — the
+    leaf boundaries ``leaf_offsets``, refined by the segment cuts when
+    ``wire_segments > 1`` — then the segment cuts; None for the global
+    decode (one segment, global granularity)."""
+    segments = int(cfg.wire_segments)
+    if cfg.decode_granularity == "layer":
+        if leaf_offsets is None:
+            raise ValueError("decode_granularity='layer' needs the leaf "
+                             "offsets (params.Layout.offsets)")
+        if segments > 1:
+            return segment_decode_bounds(cfg, dim, leaf_offsets)
+        return [int(o) for o in leaf_offsets]
+    if segments > 1:
+        return list(numerics.cfg_segment_bounds(cfg, dim))
+    return None
+
+
+def cyclic_decode(cfg, code, enc_re, enc_im, rand_factor, bounds,
+                  present: Optional[torch.Tensor] = None,
+                  rel_tol: float = cyclic_mod.HEALTH_REL_TOL,
+                  lam: float = 0.0, wire=None):
+    """The cyclic decode ``cfg`` asks for over ``bounds``
+    (:func:`decode_bounds`): ``(decoded (d,), honest (n,), health)``, the
+    honest set and the health folded across segments. Layer granularity
+    with one segment recombines the widened rows (the reference's
+    ``decode_layers`` drops the narrow wire); with segments the narrow
+    buffers are read at any cut."""
+    if bounds is None:
+        return cyclic_mod.decode(code, enc_re, enc_im, rand_factor,
+                                 present=present, with_health=True,
+                                 rel_tol=rel_tol, lam=lam, wire=wire)
+    layers = (cfg.decode_granularity == "layer"
+              and int(cfg.wire_segments) == 1)
+    decoded, honest_l, health = cyclic_mod.decode_segments(
+        code, enc_re, enc_im, rand_factor, bounds, present=present,
+        with_health=True, rel_tol=rel_tol, lam=lam,
+        wire=None if layers else wire)
+    return decoded, honest_l.all(dim=0), health
+
+
 def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
                      masked: bool = False, cfg=None):
     """The approx code's aggregation on the device: encode the (n, d) batch
     gradients into partial sums, zero-fill the absent rows by where-select
     (``masked``: the step has stragglers), put them on the wire
-    (``cfg.wire_dtype``), decode. ``vn_pres``: (2, n) [v/n, presence] on the
-    device, from the host solve (``coding.approx.host_solve``). Returns
-    ``(decoded mean (d,), residual (0-d))``. No adversary injection: the
-    code carries no Byzantine certificate."""
+    (``cfg.wire_dtype``), decode — whole, or a segment at a time on the
+    segmented wire (``cfg.wire_segments > 1``). ``vn_pres``: (2, n) [v/n,
+    presence] on the device, from the host solve
+    (``coding.approx.host_solve``). Returns ``(decoded mean (d,), residual
+    (0-d))``. No adversary injection: the code carries no Byzantine
+    certificate."""
     with phase("draco_encode"):
         rows = approx_mod.encode_shared(code, grads)
         if masked:
@@ -76,22 +138,29 @@ def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
         if wire is not None:
             rows = None  # the decode reads the narrow buffers
     with phase("draco_decode"):
+        if cfg is not None and int(cfg.wire_segments) > 1:
+            return approx_mod.decode_segments_device(
+                code, rows, grads, vn_pres,
+                numerics.cfg_segment_bounds(cfg, grads.shape[1]), wire)
         return approx_mod.decode_device(code, rows, grads, vn_pres, wire)
 
 
 def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
                          code, rand_factor, noise=None, generator=None,
-                         present: Optional[torch.Tensor] = None):
+                         present: Optional[torch.Tensor] = None,
+                         leaf_offsets=None):
     """Per-worker flat gradients -> ``(aggregated (d,), health)``.
 
     cyclic: ``grads`` (n, hat_s, d) are the true redundant lanes
     (``simulate``: each worker encodes its own rows), (n, d) one copy per
     batch (``shared``: rows formed algebraically); the adversary injects on
-    the encoded rows and the decode recovers the exact mean. ``health``:
-    ``residual``, ``flagged``, ``loud`` and ``honest``. Otherwise the
-    adversary injects on the raw rows and the configured robust rule
-    aggregates them over the ``present`` rows; ``health`` is None.
-    ``noise`` / ``generator``: the ``random`` attack's draws
+    the encoded rows and the decode recovers the exact mean — globally, or
+    over the cuts of :func:`decode_bounds` (``leaf_offsets``: the leaf
+    boundaries, which layer granularity needs). ``health``: ``residual``,
+    ``flagged``, ``loud`` and ``honest``, folded across segments.
+    Otherwise the adversary injects on the raw rows and the configured
+    robust rule aggregates them over the ``present`` rows; ``health`` is
+    None. ``noise`` / ``generator``: the ``random`` attack's draws
     (attacks.py)."""
     if cfg.approach == "cyclic":
         with phase("draco_encode"):
@@ -102,9 +171,10 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
             enc_re, enc_im = attacks.inject_cyclic(
                 enc_re, enc_im, adv_mask, cfg.err_mode, cfg.adversarial,
                 noise, generator)
+        bounds = decode_bounds(cfg, enc_re.shape[1], leaf_offsets)
         with phase("draco_decode"):
-            agg, honest, health = cyclic_mod.decode(
-                code, enc_re, enc_im, rand_factor, with_health=True)
+            agg, honest, health = cyclic_decode(cfg, code, enc_re, enc_im,
+                                                rand_factor, bounds)
         health["honest"] = honest
         return agg, health
     grads = attacks.inject_plain(grads, adv_mask, cfg.err_mode,

@@ -14,6 +14,10 @@ and is masked, and the sum is divided by B·(T−1). (The reference's shard
 also predicts its successor shard's first token through one ppermute hop;
 at sp=1 that hop brings back the shard's own first token, masked.)
 
+The decode runs globally or, at ``decode_granularity="layer"`` and on the
+segmented wire (``wire_segments > 1``), over the leaf boundaries and the
+segment cuts (``parallel/common.decode_bounds``).
+
 The decode's random projection is drawn once on the host from the seed
 (``rng.random_projection_factors``; the reference draws it in-graph from
 the same seed with the jax PRNG, other numbers of the same distribution);
@@ -41,11 +45,13 @@ from draco_tpu_torch import rng as drng
 from draco_tpu_torch.coding import cyclic as cyclic_mod
 from draco_tpu_torch.config import LM_NETWORK, TrainConfig
 from draco_tpu_torch.models.transformer import TransformerLM, init_params
+from draco_tpu_torch.ops.coded import segment_plan
 from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
 from draco_tpu_torch.ops.flash_attention import attn_impl_fn
 from draco_tpu_torch.parallel.common import (
     aggregate_flat_grads,
     build_code_from_cfg,
+    decode_bounds,
     decode_health_metrics,
     finish_flat_step,
     present_mean,
@@ -159,6 +165,11 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
         projection = (drng.random_projection_factors(cfg.seed, dim)
                       if rand_factor is None
                       else torch.as_tensor(rand_factor)).to(dev)
+        # the segmented decode's plan goes to the card here, before any
+        # capture
+        bounds = decode_bounds(cfg, dim, layout.offsets)
+        if bounds is not None:
+            segment_plan(bounds, dev)
     names = token_metric_names(cfg)
     # not a column of the reference's LM schema: for callers that check the
     # honest set (n − 2s rows on every clean decode)
@@ -183,7 +194,7 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
         gen = (attacks.random_generator(cfg.seed, state.step, device=dev)
                if cfg.err_mode == "random" and noise is None else None)
         agg, health = aggregate_flat_grads(grads, mask, cfg, code, f, noise,
-                                           gen)
+                                           gen, leaf_offsets=layout.offsets)
         del grads
         finish_flat_step(state, agg, layout)
         metrics = {"loss": present_mean(losses)}

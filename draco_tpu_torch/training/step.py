@@ -13,8 +13,11 @@ real tensor axis:
                             ``coding.approx.encode_shared``
   stragglers                absent rows zero-filled (``present``)
   wire                      f32, or bf16 / int8 buffers (``obs.numerics``)
-  decode                    cyclic: project → locator → recombine; approx:
-                            host weight solve → one-pass decode (kernels);
+  decode                    cyclic: project → locator → recombine, over
+                            the whole d or column segments (the layer
+                            decode, ``wire_segments > 1``); approx:
+                            host weight solve → one-pass decode (kernels)
+                            a segment at a time;
                             maj_vote: row fingerprints (kernel) → the vote
                             a group; baseline: the robust rule
                             (``aggregation``) over the present rows
@@ -84,12 +87,15 @@ from draco_tpu_torch.models.resnet import init_params, init_stats
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.obs.tracer import phase
 from draco_tpu_torch.ops import vote as vote_ops
+from draco_tpu_torch.ops.coded import segment_plan
 from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
 from draco_tpu_torch.parallel.common import (
     APPROX_HEALTH_NAMES,
     DECODE_HEALTH_NAMES,
     approx_aggregate,
     build_code_from_cfg,
+    cyclic_decode,
+    decode_bounds,
     decode_health_metrics,
     present_mean,
 )
@@ -433,6 +439,11 @@ def build_train_setup(cfg: TrainConfig, device=None,
         projection = (drng.random_projection_factors(cfg.seed, dim)
                       if rand_factor is None
                       else torch.as_tensor(rand_factor)).to(dev)
+        # the cuts of the layer / segmented decode (None: the global
+        # decode); their plan goes to the card here, before any capture
+        bounds = decode_bounds(cfg, dim, layout.offsets)
+        if bounds is not None:
+            segment_plan(bounds, dev)
 
         def compute_encoded(state, x, y):
             if cfg.redundancy == "shared":
@@ -478,8 +489,8 @@ def build_train_setup(cfg: TrainConfig, device=None,
             f = projection if rand_factor is None else torch.as_tensor(
                 rand_factor, device=dev)
             with phase("draco_decode"):
-                decoded, honest, health = cyclic_mod.decode(
-                    code, enc_re, enc_im, f, present=pres, with_health=True,
+                decoded, honest, health = cyclic_decode(
+                    cfg, code, enc_re, enc_im, f, bounds, present=pres,
                     rel_tol=rel_tol, lam=wire_lam, wire=wire)
             update(state, decoded, new_stats)
             metrics = lane_metrics(losses, precs, pres)

@@ -7,11 +7,13 @@
   (16, 12) first column block equal to x, the two equal with NaN in the
   same places.
 * The kernel audit's coverage rule (poisoned, guarded outputs) trips on
-  that control and passes on the plain versions of the nine main-path
-  kernels at ragged shapes.
+  that control and passes on the plain versions of the thirteen main-path
+  kernels at ragged shapes (the segment kernels with tiny and unaligned
+  segments, the approx decode's offset entry on views off a strip).
 * The program lint at CI size: every registered leg green on the CPU
   rules, every CPU control tripping exactly its rule, the honest miniature
-  green; the registry covers the twelve legs ``chip_smoke.py`` drives.
+  green; the registry covers the sixteen legs ``chip_smoke.py`` drives,
+  each segmented leg beside its S = 1 twin.
 """
 
 import json
@@ -33,10 +35,13 @@ from draco_tpu_torch.ops import controls
 CPU = torch.device("cpu")
 MAIN_KERNELS = ("complex_matmul", "complex_project", "complex_recombine",
                 "cyclic_locator", "cyclic_narrow_recombine", "approx_decode",
-                "flash_fwd", "flash_dq", "flash_dkv", "row_fingerprints")
+                "flash_fwd", "flash_dq", "flash_dkv", "row_fingerprints",
+                "complex_project_segments", "complex_recombine_segments",
+                "cyclic_narrow_recombine_segments")
 LEGS = ("simulate", "geomedian", "shared", "approx", "approx_int8",
         "shared_bf16", "shared_int8", "majvote", "krum", "lm_shared_flash",
-        "lm_simulate_flash", "lm_geomedian_flash")
+        "lm_simulate_flash", "lm_geomedian_flash", "shared_layer",
+        "shared_int8_seg4", "approx_int8_seg4", "lm_shared_flash_layer")
 
 
 def _bad(x):
@@ -112,7 +117,7 @@ def test_kernel_audit_report_on_the_cpu(tmp_path):
     assert report["all_ok"]
     rows = {r["name"]: r for r in json.loads(out.read_text())["rows"]}
     assert list(rows) == [s.name for s in kernel_audit.SPECS]
-    assert len(rows) == 13
+    assert len(rows) == 16
     mis = rows["control_mistiled_copy"]
     assert mis["failed_rules"] == ["coverage"]
     assert mis["plain"]["bitwise_equal"]
@@ -295,6 +300,11 @@ def test_the_registry_covers_the_ten_legs():
 
     assert tuple(p.name for p in registry.collect()) == LEGS
     assert set(chip_smoke.EXPECT) == set(LEGS)
+    for leg, twin in registry.TWINS.items():
+        a, b = registry.get(leg).config(True), registry.get(twin).config(True)
+        assert (a.wire_segments > 1 or a.decode_granularity == "layer")
+        assert b.wire_segments == 1 and b.decode_granularity == "global"
+        assert registry.uploads(a) == registry.uploads(b)
     for p in registry.collect():
         full, ci = p.config(full=True), p.config(full=False)
         # the repetition code's preset: 3 groups of 3

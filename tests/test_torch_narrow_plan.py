@@ -22,7 +22,11 @@ blocks 1, 24, 64 and 256:
   where the strip divides the block, else counted up column by column).
 
 And the int8 and bf16 widening (a byte perm into 2^23 + 128, a shift) gives
-the exact f32 of every level. No GPU and no JAX; seconds.
+the exact f32 of every level. The approx decode's offset entry (a view of
+columns [col0, col0 + d) of an (n, ld) buffer, ``wide_span_view``) is held
+to the same four properties at every buffer alignment, first column 0–19
+and view width, its loads inside the whole buffer and its scale index the
+absolute column's. No GPU and no JAX; seconds.
 """
 
 import numpy as np
@@ -62,22 +66,39 @@ def lanes(span):
     return s, (lane < STRIPS) & (s < hi), s <= hi
 
 
-def strips_read(base, n, d, sz, cb, span):
+def wide_span_view(base, n, d, ld, col0, sz, cb):
+    """``wide_span_view``: a view of d columns from column col0 of n rows
+    ld apart, every load inside the whole (n, ld) buffer."""
+    w = cb // sz
+    start = base - col0 * sz
+    e = start + n * ld * sz
+    last = (base + (n - 1) * ld * sz) & ~(cb - 1)
+    lo = 1 if (base & ~(cb - 1)) < start else 0
+    end = (e - last) // cb - 1
+    hi = min(d // w, end)
+    return (lo, hi) if hi > lo else (0, 0)
+
+
+def strips_read(base, n, d, sz, cb, span, ld=None, col0=0):
     """The byte labels (offsets into the buffer, -2 for a chunk not loaded)
     the kernel's join leaves for every row and lane: (n, lanes, cb), with
-    every load checked against the allocation."""
+    every load checked against the allocation. ``ld``, ``col0``: a view of
+    an (n, ld) buffer from its column col0 (labels from the buffer's
+    start)."""
     cw = cb // 4
-    e = base + n * d * sz
+    ld = d if ld is None else ld
+    start = base - col0 * sz
+    e = start + n * ld * sz
     s, mine, feed = lanes(span)
     out = []
     for i in range(n):
-        p = base + i * d * sz
+        p = base + i * ld * sz
         chunk, a = p & ~(cb - 1), p & (cb - 1)
         addr = chunk + s * cb
-        lo = np.where(feed[:, None], addr[:, None] - base + np.arange(cb),
+        lo = np.where(feed[:, None], addr[:, None] - start + np.arange(cb),
                       -2)
         loaded = addr[feed]
-        assert np.all(loaded >= base) and np.all(loaded + cb <= e), \
+        assert np.all(loaded >= start) and np.all(loaded + cb <= e), \
             "a load leaves the allocation"
         # __shfl_down_sync(…, 1): lane l takes lane l+1's chunk; lane 31
         # keeps its own
@@ -125,9 +146,11 @@ def check_plan(offset, d, sz, cb, others=()):
     return cols * w, w
 
 
-def scale_blocks(j0, w, block):
-    """The kernels' block index of each column of the strips at j0."""
-    if block % w == 0:  # one scale a strip: block_of(j0), 32-bit
+def scale_blocks(j0, w, block, one=None):
+    """The kernels' block index of each column of the strips at j0 (one
+    scale a strip where ``one``, by default where the strip divides the
+    block)."""
+    if block % w == 0 if one is None else one:  # block_of(j0), 32-bit
         return np.repeat((j0 % (1 << 32)) // block, w).reshape(-1, w)
     b = j0 // block  # blocks_of: counted up from j0's
     rem = j0 - b * block
@@ -179,6 +202,56 @@ def test_approx_plan(sz, block):
         if sz == 1:
             blk = scale_blocks(j0, w, block)
             assert np.array_equal(blk, (j0[:, None] + np.arange(w)) // block)
+
+
+def check_view_plan(offset, ld, col0, d, sz, cb):
+    """The offset entry's plan: a view of d columns from column col0 of
+    an (N, ld) buffer of sz-byte elements read in cb-byte chunks, beside
+    the (N, ld) f32 batch gradients at the same columns (16-byte chunks):
+    coverage, bounds and row bytes as ``check_plan``. Returns the mine
+    strips' first columns (of the view) and the strip width."""
+    w = cb // sz
+    base = BASE + offset + col0 * sz
+    span = meet(wide_span_view(base, N, d, ld, col0, sz, cb),
+                wide_span_view(BASE + col0 * 4, N, d, ld, col0, 4, 16))
+    got, s, mine = strips_read(base, N, d, sz, cb, span, ld, col0)
+    strips_read(BASE + col0 * 4, N, d, 4, 16, span, ld, col0)
+    cols = s[mine]
+    for i in range(N):
+        want = ((i * ld + col0 + cols[:, None] * w) * sz
+                + np.arange(cb)[None, :])
+        assert np.array_equal(got[i][mine], want), \
+            f"row {i}: a strip sums bytes that are not its columns"
+    lo, hi = span
+    covered = np.concatenate([(cols[:, None] * w + np.arange(w)).ravel(),
+                              np.arange(lo * w), np.arange(hi * w, d)])
+    assert np.array_equal(np.sort(covered), np.arange(d)), \
+        "a column is summed twice or never"
+    return cols * w, w
+
+
+@pytest.mark.parametrize("sz,block", [(1, 64), (1, 24), (1, 1), (2, 256),
+                                      (4, 256)],
+                         ids=["int8-64", "int8-24", "int8-1", "bf16", "f32"])
+def test_approx_offset_plan(sz, block):
+    """The offset entry at every buffer alignment, first column 0–19 and
+    widths from below a strip to the rest of the row: at col0 = 0 and the
+    whole row it is the whole-buffer plan; the scale of every column is
+    its absolute column's block, one a strip only where the block and
+    col0 are multiples of the strip."""
+    ld = D0 + 37
+    for offset in range(0, 16, sz):
+        for col0 in range(20):
+            for d in (1, 3, 4, 5, 31, 77, ld - col0):
+                j0, w = check_view_plan(offset, ld, col0, d, sz, 4 * sz)
+                if sz == 1:
+                    one = block % w == 0 and col0 % w == 0
+                    blk = scale_blocks(col0 + j0, w, block, one)
+                    assert np.array_equal(
+                        blk, (col0 + j0[:, None] + np.arange(w)) // block)
+    for offset in range(0, 16, sz):
+        assert wide_span_view(BASE + offset, N, ld, ld, 0, sz, 4 * sz) == \
+            wide_span(BASE + offset, N, ld, sz, 4 * sz)
 
 
 def test_every_alignment_and_residue_is_taken():

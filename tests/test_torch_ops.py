@@ -103,4 +103,8 @@ def test_launch_counters_reset():
                                  "complex_recombine", "cyclic_locator",
                                  "cyclic_narrow_recombine", "approx_decode",
                                  "flash_fwd", "flash_dq", "flash_dkv",
-                                 "row_fingerprints"}
+                                 "row_fingerprints",
+                                 "complex_project_segments",
+                                 "complex_recombine_segments",
+                                 "cyclic_narrow_recombine_segments",
+                                 "approx_decode_segment"}

@@ -329,8 +329,15 @@ def test_per_worker_batchnorm_stats(leg):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("override", [
-    {"shadow_round": "stochastic"}, {"wire_segments": 2}, {"topology": "tree"},
-    {"decode_granularity": "layer"}, {"decode_impl": "xla"},
+    {"shadow_round": "stochastic"},
+    # the segmented wire and the layer decode run now; under the tree
+    # topology they do not yet
+    pytest.param({"wire_segments": 2, "topology": "tree"},
+                 id="wire_segments=2"),
+    {"topology": "tree"},
+    pytest.param({"decode_granularity": "layer", "topology": "tree"},
+                 id="decode_granularity=layer"),
+    {"decode_impl": "xla"},
     {"network": "LeNet"},
     # krum runs now; below its n >= s + 3 it is refused, as the reference
     # refuses it
