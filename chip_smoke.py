@@ -9,7 +9,9 @@ prints no result line):
   1. build    every kernel of ``draco_tpu_torch/csrc`` with nvcc, in parallel
   2. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes: the coded products at n=8,
-              d=11,173,962; the locator at L=1 and L=62 columns, n=8, s=1,
+              d=11,173,962, the encode also at the LM's d=62,958,336, bit
+              for bit across two launches; the locator at L=1 and L=62
+              columns, n=8, s=1,
               with an attacked row, an absent row, a λ>0 case and
               NaN-poisoned columns; the narrow recombination (bf16, int8 at
               block 256) and the approx decode (f32, bf16, int8; two absent
@@ -29,7 +31,8 @@ prints no result line):
               segment kernels (``segment_kernels``) at the segmented legs'
               cuts — ResNet-18's 62 leaves, its int8 wire's 4 segments, the
               LM's 69 segments of d=62,958,336 — and at d=5003 with tiny
-              and unaligned segments: each against its plain version, twice
+              and unaligned segments, several cuts inside one 16-column
+              strip among them: each against its plain version, twice
               bit for bit, the recombinations bit for bit the whole-d
               kernels on each segment's contiguous copy or block-aligned
               slice, the approx offset entry's decoded slices bit for bit
@@ -328,21 +331,52 @@ def coded_kernels(code, dev) -> list:
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib_ms})
 
-    # encode (shared leg): 8-term f32 sums in another order agree to a
-    # few ulps of the output's scale
+    # encode (the shared legs): 8-term f32 sums in another order agree to
+    # a few ulps of the output's scale; two launches bit for bit. At
+    # ResNet-18's d (float2 columns) and at the LM's (float4 columns)
     w_re, w_im = t["w_masked_re"], t["w_masked_im"]
-    k_re, k_im = coded.complex_matmul(w_re, w_im, grads)
-    p_re, p_im = coded.complex_matmul_plain(w_re, w_im, grads)
-    err = max((k_re - p_re).abs().max().item(),
-              (k_im - p_im).abs().max().item())
-    tol = 1e-5 * max(p_re.abs().max().item(), p_im.abs().max().item())
     w_stack = torch.cat([w_re, w_im])
+
+    def encode_check(grads):
+        k_re, k_im = coded.complex_matmul(w_re, w_im, grads)
+        again = coded.complex_matmul(w_re, w_im, grads)
+        require(torch.equal(_bits(k_re), _bits(again[0]))
+                and torch.equal(_bits(k_im), _bits(again[1])),
+                "complex_matmul: two launches on the same inputs differ")
+        del again
+        p_re, p_im = coded.complex_matmul_plain(w_re, w_im, grads)
+        err = max((k_re - p_re).abs().max().item(),
+                  (k_im - p_im).abs().max().item())
+        tol = 1e-5 * max(p_re.abs().max().item(), p_im.abs().max().item())
+        return err, tol
+
+    err, tol = encode_check(grads)
     entry("complex_matmul", "draco_tpu/ops/coded.py:82", err, tol,
           time_ms(lambda: coded.complex_matmul(w_re, w_im, grads), 20),
           time_ms(lambda: coded.complex_matmul_plain(w_re, w_im, grads), 20),
           time_ms(lambda: torch.matmul(w_stack, grads), 20),
           4 * (2 * N * N + N * D + 2 * N * D), 2 * 2 * N * N * D)
-    del k_re, k_im, p_re, p_im, grads
+    rows[-1]["bitwise_repeat"] = True
+    del grads
+    grads = torch.randn((N, LM_D), generator=g, device=dev)
+    err, tol = encode_check(grads)
+    require(err <= tol, f"complex_matmul at the LM's d: max_abs_err {err} "
+            f"> tol {tol}")
+    b_ms, b_by = bound(4 * (2 * N * N + N * LM_D + 2 * N * LM_D),
+                       2 * 2 * N * N * LM_D)
+    lm = {"d": LM_D, "max_abs_err": err, "tol": tol,
+          "ms": time_ms(lambda: coded.complex_matmul(w_re, w_im, grads), 10),
+          "plain_ms": time_ms(
+              lambda: coded.complex_matmul_plain(w_re, w_im, grads), 5),
+          "library_ms": time_ms(lambda: torch.matmul(w_stack, grads), 10),
+          "bound_ms": b_ms, "bound_by": b_by}
+    rows[-1]["lm"] = lm
+    print(f"kernel complex_matmul at the LM's d={LM_D}: max_abs_err={err:.3e}"
+          f" (tol {tol:.3e}) ms={lm['ms']:.4f} plain_ms={lm['plain_ms']:.4f}"
+          f" library_ms={lm['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})",
+          flush=True)
+    del grads
+    torch.cuda.empty_cache()
     r_re, r_im = torch.randn((2, N, D), generator=g, device=dev)
 
     # projection: an 11M-term reduction; two f32 summation orders agree
@@ -856,6 +890,9 @@ def leg_bounds() -> dict:
 # d = 5003 with segments of 1 and 9 columns, one tile and a column more,
 # cuts off every 16-byte chunk and every int8 block
 SMALL_CUTS = (0, 1, 10, 2059, 2060, 4100, 5003)
+# three cuts inside one 16-column strip and two inside the next but one:
+# the strip reads over a plan send those strips to their scalar loop
+STRIP_CUTS = (0, 5, 9, 12, 40, 41, 47, 5003)
 
 
 def segment_kernels(code, dev, cuts) -> list:
@@ -1026,6 +1063,8 @@ def segment_kernels(code, dev, cuts) -> list:
     cases += [(f"{m}@{b} d=5003 tiny", 5003, SMALL_CUTS, m, b)
               for m, b in (("bf16", BLOCK), ("int8", BLOCK), ("int8", 24),
                            ("int8", 1))]
+    cases += [(f"{m}@{b} d=5003 cuts in one strip", 5003, STRIP_CUTS, m, b)
+              for m, b in (("int8", BLOCK), ("bf16", BLOCK), ("int8", 24))]
     for label, d, bnds, mode, block in cases:
         r_re, r_im = encoded(d)
         wire = (mode, numerics.narrow_wire_rows(r_re, mode, block),
@@ -2229,12 +2268,15 @@ def graph_replay_kernels(code, dev, cuts) -> list:
     check("complex_recombine_segments [L=62]",
           lambda: coded.complex_recombine_segments(vs_re, vs_im, enc_re,
                                                    enc_im, layer))
-    wire = ("int8", numerics.narrow_wire_rows(enc_re, "int8", BLOCK),
-            numerics.narrow_wire_rows(enc_im, "int8", BLOCK), BLOCK)
-    check("cyclic_narrow_recombine_segments [int8, 4 segments]",
-          lambda: decode_kernels.cyclic_narrow_recombine_segments(
-              vs_re[:4].contiguous(), vs_im[:4].contiguous(), wire, seg4))
-    del enc_re, enc_im, wire
+    for mode in ("int8", "bf16"):
+        wire = (mode, numerics.narrow_wire_rows(enc_re, mode, BLOCK),
+                numerics.narrow_wire_rows(enc_im, mode, BLOCK), BLOCK)
+        check(f"cyclic_narrow_recombine_segments [{mode}, 4 segments]",
+              lambda: decode_kernels.cyclic_narrow_recombine_segments(
+                  vs_re[:4].contiguous(), vs_im[:4].contiguous(), wire,
+                  seg4))
+        del wire
+    del enc_re, enc_im
     acode = approx.build_approx_code(N, 1.5)
     present = torch.ones(N, dtype=torch.bool)
     present[[2, 5]] = False

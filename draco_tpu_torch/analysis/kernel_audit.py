@@ -106,10 +106,19 @@ class KernelSpec:
 # (the audit's first run on an H100, PERF.md §6); more is a regression to
 # look at, and a row that allows local memory says why
 SPECS = (
-    KernelSpec("complex_matmul", "coded", ("complex_matmul_kernel",),
-               "draco_tpu/ops/coded.py:82", 56, shape=(8, 8),
+    # the encode takes float4 (<4>, the LM's d, 128 registers) or
+    # single-float (<1>, 67) column groups, or float2 groups stored a
+    # 128-byte line at a time through shared memory (lines, ResNet-18's d ≡
+    # 2 mod 8, 92; 64 KB at the largest W, the launcher opts in), 8 rows of
+    # G in flight a thread and the sums of 8 output rows, at 2 blocks a SM
+    KernelSpec("complex_matmul", "coded",
+               ("complex_matmul_kernel<4>", "complex_matmul_lines_kernel",
+                "complex_matmul_kernel<1>"),
+               "draco_tpu/ops/coded.py:82", 128, shape=(8, 8),
                largest={"m": MAX_N, "n": MAX_N},
-               largest_shape=(MAX_N, MAX_N)),
+               largest_shape=(MAX_N, MAX_N),
+               main=("complex_matmul_kernel<4>",
+                     "complex_matmul_lines_kernel")),
     # the projection's first pass reads float2 pairs (<2>, an even d) or
     # floats (<1>), kUnroll column groups of 8 rows in flight a thread
     KernelSpec("complex_project", "coded",
@@ -184,10 +193,13 @@ SPECS = (
                "draco_tpu/coding/repetition.py:94", 32,
                largest={"n": MAX_N}, largest_shape=(MAX_N, 0),
                main=("row_fingerprints_kernel<4>",)),
-    # the segmented decode over a segment plan (one block a column tile):
-    # the projection's first pass holds 2 columns of 8 rows of each buffer
-    # in flight a thread (126 registers, 2 blocks a SM), the
-    # recombinations one column's sums
+    # the segmented decode over a segment plan: the projection's first
+    # pass (one block a column tile) holds 2 columns of 8 rows of each
+    # buffer in flight a thread (126 registers, 2 blocks a SM), the f32
+    # recombination one column's sums; the narrow one reads the strips of
+    # the whole-d kernel with each strip's v pair (kInt8 126 registers at 2
+    # blocks a SM, kBF16 116; kInt8Any, a block the strip does not divide,
+    # 186 at 1 block a SM)
     KernelSpec("complex_project_segments", "coded",
                ("project_segments_partial_kernel",
                 "project_segments_final_kernel"),
@@ -198,9 +210,10 @@ SPECS = (
                largest_shape=(MAX_N, 0)),
     KernelSpec("cyclic_narrow_recombine_segments", "narrow_decode",
                ("narrow_recombine_segments_kernel<kBF16>",
-                "narrow_recombine_segments_kernel<kInt8>"),
-               "draco_tpu/ops/decode_kernels.py:378", 40, shape=(8, 0),
-               largest={"n": MAX_N}, largest_shape=(MAX_N, 0),
+                "narrow_recombine_segments_kernel<kInt8>",
+                "narrow_recombine_segments_kernel<kInt8Any>"),
+               "draco_tpu/ops/decode_kernels.py:378", 186,
+               largest={"n": MAX_N},
                main=("narrow_recombine_segments_kernel<kInt8>",)),
     KernelSpec("control_mistiled_copy", "controls",
                ("control_mistiled_copy_kernel",),
@@ -287,19 +300,21 @@ def _cases(name: str, dev) -> list:
     f32 = torch.float32
     cases = []
     if name == "complex_matmul":
-        m, n, d = 9, 7, 1003  # two row groups, a ragged last block
-        w_re, w_im, gr = rnd(m, n), rnd(m, n), rnd(n, d)
+        for m, n, d, offset in ENCODE_CASES:
+            w_re, w_im = rnd(m, n), rnd(m, n)
+            gr = offset_copy(rnd(n, d), offset)
 
-        def run(o):
-            if cuda:
-                coded.complex_matmul_launch(w_re, w_im, gr, o["out_re"],
-                                            o["out_im"])
-            else:
-                re, im = coded.complex_matmul_plain(w_re, w_im, gr)
-                _put(o, out_re=re, out_im=im)
-        cases.append(Case(f"m={m} n={n} d={d}",
-                          {"out_re": ((m, d), f32), "out_im": ((m, d), f32)},
-                          run))
+            def run(o, w_re=w_re, w_im=w_im, gr=gr):
+                if cuda:
+                    coded.complex_matmul_launch(w_re, w_im, gr, o["out_re"],
+                                                o["out_im"])
+                else:
+                    re, im = coded.complex_matmul_plain(w_re, w_im, gr)
+                    _put(o, out_re=re, out_im=im)
+            where = f", G at byte {offset}" if offset else ""
+            cases.append(Case(f"m={m} n={n} d={d}{where}",
+                              {"out_re": ((m, d), f32),
+                               "out_im": ((m, d), f32)}, run))
     elif name == "complex_project":
         n = 9  # two row groups; float2 pairs at the even d, floats at the odd
         for d in (5002, 5003):
@@ -428,6 +443,16 @@ def _cases(name: str, dev) -> list:
                 _put(o, o=controls.control_spill_plain(x, idx))
         cases.append(Case(f"n={n}", {"o": ((n,), f32)}, run))
     return cases
+
+
+# the encode's coverage: two row groups of W (m = 9) and of G (n = 64), a
+# ragged last window; float4 columns (d = 1024: every row on a 128-byte
+# line), float2 stored a line at a time (d = 1002 ≡ 2 mod 8: row i starts
+# 40·i mod 128 bytes past a line; d = 1004; d = 1024 with G starting 8
+# bytes into its storage) and single floats (d = 1003); the guarded
+# outputs start 128-byte aligned at 256 elements past their poison
+ENCODE_CASES = ((9, 7, 1003, 0), (9, 7, 1002, 0), (9, 7, 1004, 0),
+                (9, 7, 1024, 0), (9, 7, 1024, 8), (5, 64, 1002, 0))
 
 
 # the narrow decode's coverage: n = 9 (two groups of 8 rows), d = 1003 and
@@ -572,9 +597,14 @@ def _approx_offset_cases(dev, cuda: bool, rnd) -> list:
 
 # the segment kernels' coverage: n = 9 (two row groups), d = 5003, cuts
 # with segments of 1 and 9 columns, a segment of one tile and one column
-# more, cuts off every 16-byte chunk and int8 block, and one segment
-SEGMENT_CUTS = ((0, 1, 10, 2059, 2060, 4100, 5003), (0, 5003))
-SEGMENT_WIRES = (("bf16", 256), ("int8", 256), ("int8", 24), ("int8", 1))
+# more, cuts off every 16-byte chunk and int8 block (two in one 16-column
+# strip at 2059, 2060; three at 5, 9, 12 and two at 41, 47), and one
+# segment; the narrow wires at blocks the strip divides and does not,
+# int8 and bf16 buffers starting 3 / 2 bytes into their storage
+SEGMENT_CUTS = ((0, 1, 10, 2059, 2060, 4100, 5003), (0, 5003),
+                (0, 5, 9, 12, 40, 41, 47, 5003))
+SEGMENT_WIRES = (("bf16", 256, 0), ("int8", 256, 0), ("int8", 24, 0),
+                 ("int8", 1, 0), ("int8", 256, 3), ("bf16", 64, 2))
 
 
 def _segment_cases(name: str, dev, cuda: bool, rnd) -> list:
@@ -616,9 +646,12 @@ def _segment_cases(name: str, dev, cuda: bool, rnd) -> list:
                         v_re, v_im, r_re, r_im, plan))
             cases.append(Case(label, {"out": ((d,), f32)}, run))
         else:
-            for mode, block in SEGMENT_WIRES:
-                wire = (mode, numerics.narrow_wire_rows(r_re, mode, block),
-                        numerics.narrow_wire_rows(r_im, mode, block), block)
+            for mode, block, offset in SEGMENT_WIRES:
+                bufs = [numerics.narrow_wire_rows(x, mode, block)
+                        for x in (r_re, r_im)]
+                for buf in bufs:
+                    buf["q"] = offset_copy(buf["q"], offset)
+                wire = (mode, *bufs, block)
                 blk, nb = (block, -(-d // block)) if mode == "int8" else \
                     (1, 0)
 
@@ -633,7 +666,8 @@ def _segment_cases(name: str, dev, cuda: bool, rnd) -> list:
                         _put(o, out=decode_kernels
                              .cyclic_narrow_recombine_segments_plain(
                                  v_re, v_im, wire, plan))
-                cases.append(Case(f"{mode} block {block} {label}",
+                where = f" at byte {offset}" if offset else ""
+                cases.append(Case(f"{mode} block {block}{where} {label}",
                                   {"out": ((d,), f32)}, run))
     return cases
 

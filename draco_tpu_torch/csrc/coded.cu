@@ -19,11 +19,11 @@
 // device-memory bytes (3.35 TB/s). At n = 8, d = 11,173,962: encode moves
 // 357.6 MB in + 715 MB out, project and recombine 715 MB in each.
 //
-// Design against that bound: one thread per column of d (grid-stride), so
-// a warp's loads and stores are 32 consecutive floats of one row —
-// coalesced 128-byte transactions; the small n×n (or n) coefficients live
-// in shared memory. Each thread keeps the sums of up to kRowGroup output
-// rows in registers, so at n <= 8 every input element is read from device
+// Design against that bound: one thread per column (or column group) of d
+// (grid-stride), so a warp's loads and stores are consecutive floats of one
+// row — coalesced transactions; the small n×n (or n) coefficients live in
+// shared memory. Each thread keeps the sums of up to kRowGroup output rows
+// in registers, so at n <= 8 every input element is read from device
 // memory exactly once. The TPU kernels' TILE_D tiling, 128-lane partials
 // and padding have no counterpart: a thread masks the ragged edge itself.
 //
@@ -54,6 +54,26 @@
 // head per row and f read at another alignment than the row. An odd d takes
 // the same kernel one float at a time. The loads stream (evict first), and
 // pass 2 is a programmatic dependent launch that overlaps pass 1's tail.
+//
+// The encode (redesigned for the card's memory system) moves twice as
+// many bytes out as in. A lane takes a group of V consecutive columns and
+// issues the loads of kK = 8 rows of G for them before any arithmetic (at
+// n = 8 a group's whole input), reading each row of W from shared memory
+// 16 bytes at a time (rows padded to kK); the grid is one whole wave (the
+// occupancy query, made once). Where every row of the three buffers
+// starts on a 128-byte line (d a multiple of 32: the LM's d = 62,958,336)
+// a group is a float4 and a warp takes windows of 32 groups, each lane
+// storing its own. At any other even d (ResNet-18's d = 11,173,962 ≡ 2
+// mod 8) a group is a float2 and a block stages its row group's sums in
+// shared memory and stores each output row from its own line boundary, 16
+// bytes a lane, so that no line is written in parts by two warps: the
+// card showed that the stores, not the loads, pay for rows off a line
+// (the comment at complex_matmul_lines_kernel); the row's head is its
+// first partial line, not a peeled loop. One float a lane at an odd d.
+// The stores are evict-first. Each output element is still fmaf over k =
+// 0 .. n-1 in row order from 0, so its bits are those of the
+// one-column-a-thread kernel it replaces. tests/test_torch_encode_plan.py
+// models the plan.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,14 +83,29 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowGroup = 8;  // project: rows per block, accumulators per thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowGroup = 8;  // rows per block (project) / per thread (encode)
 constexpr int kUnroll = 2;  // project: column groups a thread loads at once
+constexpr int kK = 8;  // encode: rows of G whose loads are in flight together
+constexpr int kLineGroups = 16;  // encode: float2 groups of a 128-byte line
 constexpr int kMaxBlocks = 132 * 8 * 4;  // grid-stride cap: 4 waves of 8 blocks/SM
+constexpr int kMaxN = 64;  // the most rows of W or G the wrappers take
 
-// dynamic shared bytes of the encode (the m×n pair of W) and of the
-// recombination (the n pair of v); the launchers and the audit share them
+// W's row length in the encode's shared memory: n padded to kK
+__host__ __device__ inline int padded(long long n) {
+  return (int)((n + kK - 1) / kK * kK);
+}
+
+// dynamic shared bytes of the encode (the m×n pair of W, rows padded to
+// kK; the line-stored encode also its staging of a row group's sums) and of
+// the recombination (the n pair of v); the launchers and the audit share
+// them
 inline size_t matmul_smem(long long m, long long n) {
-  return 2 * (size_t)m * n * sizeof(float);
+  return 2 * (size_t)m * padded(n) * sizeof(float);
+}
+inline size_t matmul_lines_smem(long long m, long long n) {
+  return matmul_smem(m, n) +
+         2 * (size_t)kRowGroup * kThreads * 2 * sizeof(float);
 }
 inline size_t vector_smem(long long n, long long) {
   return 2 * (size_t)n * sizeof(float);
@@ -82,46 +117,238 @@ inline int grid_for(long long d) {
   return b < 1 ? 1 : (int)b;
 }
 
-// (Wr + i·Wi) @ G for real G: W (m, n), G (n, d) -> out_re, out_im (m, d).
-__global__ void complex_matmul_kernel(const float* __restrict__ w_re,
-                                      const float* __restrict__ w_im,
-                                      const float* __restrict__ g,
-                                      float* __restrict__ out_re,
-                                      float* __restrict__ out_im,
-                                      int m, int n, long long d) {
-  extern __shared__ float sw[];  // [m*n] re, then [m*n] im
-  for (int t = threadIdx.x; t < m * n; t += blockDim.x) {
-    sw[t] = w_re[t];
-    sw[m * n + t] = w_im[t];
+// V consecutive floats of one row, V-float aligned, in one access: a load
+// through the read-only path, an evict-first store (st.global.cs)
+template <int V>
+__device__ __forceinline__ void load_cols(const float* p, float* x) {
+  if constexpr (V == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (V == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = __ldg(p);
   }
-  __syncthreads();
-  const float* swr = sw;
-  const float* swi = sw + m * n;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += stride) {
-    for (int i0 = 0; i0 < m; i0 += kRowGroup) {
-      const int rows = min(kRowGroup, m - i0);
-      float ar[kRowGroup], ai[kRowGroup];
+}
+
+template <int V>
+__device__ __forceinline__ void store_cols(float* p, const float* y) {
+  if constexpr (V == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(y[0], y[1], y[2], y[3]));
+  } else if constexpr (V == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(y[0], y[1]));
+  } else {
+    __stcs(p, y[0]);
+  }
+}
+
+// Rows k0 .. k0 + kK - 1 of G (those < n) at this lane's V columns gc
+// (live: they lie inside d), every load issued before any is used; 0 for
+// the others
+template <int V>
+__device__ __forceinline__ void load_rows(const float* __restrict__ gc,
+                                          long long d, int n, int k0,
+                                          bool live, float (&x)[kK][V]) {
 #pragma unroll
-      for (int r = 0; r < kRowGroup; ++r) { ar[r] = 0.f; ai[r] = 0.f; }
-      for (int k = 0; k < n; ++k) {
-        const float gv = __ldg(g + (long long)k * d + j);
+  for (int r = 0; r < kK; ++r) {
+    if (live && k0 + r < n) {
+      load_cols<V>(gc + (long long)(k0 + r) * d, x[r]);
+    } else {
 #pragma unroll
-        for (int r = 0; r < kRowGroup; ++r) {
-          if (r < rows) {
-            ar[r] = fmaf(swr[(i0 + r) * n + k], gv, ar[r]);
-            ai[r] = fmaf(swi[(i0 + r) * n + k], gv, ai[r]);
+      for (int v = 0; v < V; ++v) x[r][v] = 0.f;
+    }
+  }
+}
+
+// Adds rows k0 .. k0 + kK - 1 of G (x) into the sums of output rows i0 ..
+// i0 + kRowGroup - 1 (those < m), fmaf in row order. W's rows i0 + q,
+// columns k0 .. k0 + 7, are two 16-byte reads of each of its shared-memory
+// planes (rows padded to np).
+template <int V>
+__device__ __forceinline__ void fma_rows(const float4* __restrict__ sw4,
+                                         int np, int m, int n, int i0, int k0,
+                                         const float (&x)[kK][V],
+                                         float (&ar)[kRowGroup][V],
+                                         float (&ai)[kRowGroup][V]) {
+#pragma unroll
+  for (int q = 0; q < kRowGroup; ++q) {
+    if (i0 + q < m) {
+      const float4* pr = sw4 + ((i0 + q) * np + k0) / 4;
+      const float4* pi = sw4 + ((m + i0 + q) * np + k0) / 4;
+      const float4 a0 = pr[0], a1 = pr[1], b0 = pi[0], b1 = pi[1];
+      const float wr[kK] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float wi[kK] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int r = 0; r < kK; ++r) {
+        if (k0 + r < n) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            ar[q][v] = fmaf(wr[r], x[r][v], ar[q][v]);
+            ai[q][v] = fmaf(wi[r], x[r][v], ai[q][v]);
           }
         }
       }
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void zero_sums(float (&ar)[kRowGroup][V],
+                                          float (&ai)[kRowGroup][V]) {
 #pragma unroll
-      for (int r = 0; r < kRowGroup; ++r) {
-        if (r < rows) {
-          out_re[(long long)(i0 + r) * d + j] = ar[r];
-          out_im[(long long)(i0 + r) * d + j] = ai[r];
+  for (int q = 0; q < kRowGroup; ++q) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) { ar[q][v] = 0.f; ai[q][v] = 0.f; }
+  }
+}
+
+// W into shared memory: [m][np] re, then [m][np] im, a padding column 0
+__device__ __forceinline__ void load_w(const float* __restrict__ w_re,
+                                       const float* __restrict__ w_im,
+                                       float* sw, int m, int n, int np) {
+  for (int t = threadIdx.x; t < m * np; t += blockDim.x) {
+    const int i = t / np, k = t - i * np;
+    sw[t] = k < n ? w_re[i * n + k] : 0.f;
+    sw[m * np + t] = k < n ? w_im[i * n + k] : 0.f;
+  }
+  __syncthreads();
+}
+
+// (Wr + i·Wi) @ G for real G: W (m, n), G (n, d) -> out_re, out_im (m, d),
+// where every row starts on a 128-byte line (V = 4) or at an odd d (V =
+// 1). A lane takes the V columns [V·c, V·c + V) of column group c (V
+// divides d, every row V-float aligned), kRowGroup output rows at a time,
+// and stores them itself; a warp takes windows of 32 groups.
+template <int V>
+__global__ void __launch_bounds__(kThreads, 2)
+complex_matmul_kernel(const float* __restrict__ w_re,
+                      const float* __restrict__ w_im,
+                      const float* __restrict__ g,
+                      float* __restrict__ out_re,
+                      float* __restrict__ out_im, int m, int n, long long d) {
+  extern __shared__ float4 sw4[];  // W's two planes
+  const int np = padded(n);
+  load_w(w_re, w_im, reinterpret_cast<float*>(sw4), m, n, np);
+  const long long groups = d / V;
+  const long long windows = (groups + 31) / 32;
+  for (long long win = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       win < windows; win += (long long)gridDim.x * kWarps) {
+    const long long c = win * 32 + (threadIdx.x & 31);
+    const bool live = c < groups;
+    for (int i0 = 0; i0 < m; i0 += kRowGroup) {
+      float ar[kRowGroup][V], ai[kRowGroup][V];
+      zero_sums<V>(ar, ai);
+      for (int k0 = 0; k0 < n; k0 += kK) {
+        float x[kK][V];
+        load_rows<V>(g + c * V, d, n, k0, live, x);
+        fma_rows<V>(sw4, np, m, n, i0, k0, x, ar, ai);
+      }
+#pragma unroll
+      for (int q = 0; q < kRowGroup; ++q) {
+        if (live && i0 + q < m) {
+          const long long at = (long long)(i0 + q) * d + c * V;
+          store_cols<V>(out_re + at, ar[q]);
+          store_cols<V>(out_im + at, ai[q]);
         }
       }
+    }
+  }
+}
+
+// The float2 group of row p at which a 128-byte line starts (0 .. 15; p
+// 8-byte aligned)
+__device__ __forceinline__ int line_shift(const float* p) {
+  return (int)(((128u - ((uint32_t)(uintptr_t)p & 127u)) & 127u) >> 3);
+}
+
+// The encode at an even d whose rows start off a 128-byte line (ResNet-18's
+// d ≡ 2 mod 8: row i starts 40·i mod 128 bytes past one), float2 groups.
+// A line that two warps each write part of costs the card dearly
+// (obs/narrow_read_ab.py at d = 11,173,962: one lane a group, each storing
+// its own, 0.5267 ms; the same with the outputs' rows 256-byte aligned
+// 0.3987; with only G's aligned 0.5470), so each output row is stored
+// from its own line: a block's window computes the kThreads groups
+// [240w − 16, 240w + 240), one a thread, stages each row group's sums in
+// shared memory and stores, of output row p, the 240 groups (15 lines)
+// from 240w − 16 + e_p (e_p = line_shift): 16 bytes a lane, every line
+// written whole by one warp's store. The 16 groups a window shares with
+// the window before are loaded and summed twice (6.25% more reads, most
+// from L2); only a row's first and last lines stay partial. A window
+// issues the next one's first loads of G before it stages and stores, so
+// the block's reads stay in flight across its barriers.
+__global__ void __launch_bounds__(kThreads, 2)
+complex_matmul_lines_kernel(const float* __restrict__ w_re,
+                            const float* __restrict__ w_im,
+                            const float* __restrict__ g,
+                            float* __restrict__ out_re,
+                            float* __restrict__ out_im, int m, int n,
+                            long long d) {
+  constexpr int V = 2, kStored = kThreads - kLineGroups;
+  extern __shared__ float4 sw4[];  // W's two planes, then the staging
+  const int np = padded(n);
+  load_w(w_re, w_im, reinterpret_cast<float*>(sw4), m, n, np);
+  // [2 kRowGroup rows: re, im of each][kThreads groups] float2
+  float2* stage = reinterpret_cast<float2*>(sw4 + m * np / 2);
+  const long long groups = d / V;
+  const long long windows = (groups + kLineGroups + kStored - 1) / kStored;
+  // this thread's group of window w
+  auto group_of = [&](long long w) { return w * kStored - kLineGroups +
+                                            threadIdx.x; };
+  // rows 0 .. kK - 1 of G at the first window's group, loaded ahead: each
+  // window loads the next one's before its own stores, so the loads are
+  // in flight while the block stages and stores
+  float x[kK][V];
+  {
+    const long long c = group_of(blockIdx.x);
+    load_rows<V>(g + c * V, d, n, 0, c >= 0 && c < groups, x);
+  }
+  for (long long win = blockIdx.x; win < windows; win += gridDim.x) {
+    const long long c0 = win * kStored - kLineGroups;
+    const long long c = group_of(win);
+    const bool live = c >= 0 && c < groups;
+    for (int i0 = 0; i0 < m; i0 += kRowGroup) {
+      const int rows = min(kRowGroup, m - i0);
+      float ar[kRowGroup][V], ai[kRowGroup][V];
+      zero_sums<V>(ar, ai);
+      for (int k0 = 0; k0 < n; k0 += kK) {
+        if (i0 > 0 || k0 > 0) load_rows<V>(g + c * V, d, n, k0, live, x);
+        fma_rows<V>(sw4, np, m, n, i0, k0, x, ar, ai);
+      }
+      if (i0 + kRowGroup >= m) {  // the window's last sums: load ahead
+        const long long cn = group_of(win + gridDim.x);
+        load_rows<V>(g + cn * V, d, n, 0, cn >= 0 && cn < groups, x);
+      }
+#pragma unroll
+      for (int q = 0; q < kRowGroup; ++q) {
+        if (q < rows) {
+          stage[(2 * q) * kThreads + threadIdx.x] =
+              make_float2(ar[q][0], ar[q][1]);
+          stage[(2 * q + 1) * kThreads + threadIdx.x] =
+              make_float2(ai[q][0], ai[q][1]);
+        }
+      }
+      __syncthreads();
+      // row slot s (re, im of row i0 + s / 2), float4 h of its 120
+      for (int u = threadIdx.x; u < 2 * rows * (kStored / 2);
+           u += kThreads) {
+        const int slot = u / (kStored / 2), h = u - slot * (kStored / 2);
+        float* row = ((slot & 1) ? out_im : out_re) +
+                     (long long)(i0 + (slot >> 1)) * d;
+        const int e = line_shift(row) + 2 * h;  // staged index of the pair
+        const long long at = c0 + e;            // its first group
+        const float2 a = stage[slot * kThreads + e];
+        const float2 b = stage[slot * kThreads + e + 1];
+        const float y[4] = {a.x, a.y, b.x, b.y};
+        if (at >= 0 && at + 1 < groups) {
+          store_cols<4>(row + at * V, y);
+        } else {  // a row's first or last group
+          if (at >= 0 && at < groups) store_cols<2>(row + at * V, y);
+          if (at + 1 >= 0 && at + 1 < groups)
+            store_cols<2>(row + (at + 1) * V, y + 2);
+        }
+      }
+      __syncthreads();
     }
   }
 }
@@ -425,9 +652,69 @@ bool pairs_aligned(long long d, const float* a, const float* b,
   return d % 2 == 0 && any % 8 == 0;
 }
 
+// The blocks of one whole wave of a kernel (the SMs × the blocks a SM
+// holds at `smem` dynamic bytes), queried once per device into `cache`
+int wave(const void* fn, size_t smem, int* cache) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) {
+    cudaGetLastError();
+    dev = 0;
+  }
+  if (cache[dev] == 0) {
+    int sms = 0, blocks = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                  smem);
+    cudaGetLastError();
+    cache[dev] = sms * blocks < 1 ? 1 : sms * blocks;
+  }
+  return cache[dev];
+}
+
+// The encode at V columns a lane: one wave (at the largest W's shared
+// memory), and no more blocks than d's column groups need
+template <int V>
+int launch_matmul(const float* w_re, const float* w_im, const float* g,
+                  float* out_re, float* out_im, int m, int n, long long d,
+                  cudaStream_t st) {
+  static int cache[64];
+  const int blocks = wave((const void*)complex_matmul_kernel<V>,
+                          matmul_smem(kMaxN, kMaxN), cache);
+  const long long need = (d / V + kThreads - 1) / kThreads;
+  const int grid = need < blocks ? (int)need : blocks;
+  complex_matmul_kernel<V><<<grid, kThreads, matmul_smem(m, n), st>>>(
+      w_re, w_im, g, out_re, out_im, m, n, d);
+  return (int)cudaGetLastError();
+}
+
+// The line-stored encode (float2): one wave, its shared memory raised past
+// 48 KB for the largest W
+int launch_matmul_lines(const float* w_re, const float* w_im, const float* g,
+                        float* out_re, float* out_im, int m, int n,
+                        long long d, cudaStream_t st) {
+  static int cache[64];
+  const size_t most = matmul_lines_smem(kMaxN, kMaxN);
+  cudaError_t err = cudaFuncSetAttribute(
+      complex_matmul_lines_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = wave((const void*)complex_matmul_lines_kernel, most,
+                          cache);
+  const long long stored = kThreads - kLineGroups;
+  const long long need = (d / 2 + kLineGroups + stored - 1) / stored;
+  const int grid = need < blocks ? (int)need : blocks;
+  complex_matmul_lines_kernel<<<grid, kThreads, matmul_lines_smem(m, n),
+                                st>>>(w_re, w_im, g, out_re, out_im, m, n, d);
+  return (int)cudaGetLastError();
+}
+
 const draco_audit::Entry kAudit[] = {
-    {"complex_matmul_kernel", (const void*)complex_matmul_kernel, kThreads,
-     matmul_smem, 0},
+    {"complex_matmul_kernel<4>", (const void*)complex_matmul_kernel<4>,
+     kThreads, matmul_smem, 0},
+    {"complex_matmul_lines_kernel", (const void*)complex_matmul_lines_kernel,
+     kThreads, matmul_lines_smem, 1},
+    {"complex_matmul_kernel<1>", (const void*)complex_matmul_kernel<1>,
+     kThreads, matmul_smem, 0},
     {"project_partial_kernel<2>", (const void*)project_partial_kernel<2>,
      kThreads, nullptr, 0},
     {"project_partial_kernel<1>", (const void*)project_partial_kernel<1>,
@@ -450,15 +737,21 @@ DRACO_AUDIT_EXPORTS(kAudit)
 
 extern "C" {
 
+// float4 columns where every row of the three buffers starts on a 128-byte
+// line (d a multiple of 32, the buffers 128-byte aligned: the LM's d);
+// float2 columns stored a line at a time at any other even d with the
+// buffers 8-byte aligned (ResNet-18's d ≡ 2 mod 8); else single floats
 int draco_complex_matmul(const float* w_re, const float* w_im, const float* g,
                          float* out_re, float* out_im, int m, int n,
                          long long d, void* stream) {
-  if (d > 0) {
-    const size_t smem = matmul_smem(m, n);
-    complex_matmul_kernel<<<grid_for(d), kThreads, smem, (cudaStream_t)stream>>>(
-        w_re, w_im, g, out_re, out_im, m, n, d);
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d <= 0) return (int)cudaGetLastError();
+  const uintptr_t any = (uintptr_t)g | (uintptr_t)out_re | (uintptr_t)out_im;
+  if (d % 32 == 0 && any % 128 == 0)
+    return launch_matmul<4>(w_re, w_im, g, out_re, out_im, m, n, d, st);
+  if (d % 2 == 0 && any % 8 == 0)
+    return launch_matmul_lines(w_re, w_im, g, out_re, out_im, m, n, d, st);
+  return launch_matmul<1>(w_re, w_im, g, out_re, out_im, m, n, d, st);
 }
 
 // Blocks of pass 1 of a projection of n rows of length d: one whole wave of
@@ -466,25 +759,11 @@ int draco_complex_matmul(const float* w_re, const float* w_im, const float* g,
 // so either launch fits at once), split over the row groups, and no more
 // than d needs. The wrapper sizes the (n, chunks) scratch with it.
 int draco_project_chunks(int n, long long d) {
-  static int resident[64];  // per device, queried once
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) {
-    cudaGetLastError();
-    dev = 0;
-  }
-  if (resident[dev] == 0) {
-    int sms = 0, b2 = 0, b1 = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b2, project_partial_kernel<2>, kThreads, 0);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b1, project_partial_kernel<1>, kThreads, 0);
-    cudaGetLastError();
-    resident[dev] = sms * (b2 < b1 ? b2 : b1);
-    if (resident[dev] < 1) resident[dev] = 1;
-  }
+  static int cache[2][64];
+  const int b2 = wave((const void*)project_partial_kernel<2>, 0, cache[0]);
+  const int b1 = wave((const void*)project_partial_kernel<1>, 0, cache[1]);
   const long long row_groups = (n + kRowGroup - 1) / kRowGroup;
-  long long c = resident[dev] / (row_groups < 1 ? 1 : row_groups);
+  long long c = (b2 < b1 ? b2 : b1) / (row_groups < 1 ? 1 : row_groups);
   const long long need = (d + kThreads - 1) / kThreads;  // one column a thread
   if (c > need) c = need;
   return c < 1 ? 1 : (int)c;

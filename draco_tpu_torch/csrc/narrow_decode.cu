@@ -63,12 +63,27 @@
 // of windows a warp were each slower than this.
 //
 // narrow_recombine_segments takes the whole buffers and the segment plan
-// of ops/coded.py (column tiles, none straddling a cut; the tile's v pair
-// in shared memory): one thread a column, each element widened and summed
-// as the wide strips and the scalar loop above do (level × scale, fmaf in
-// row order), so a column gives the bits of cyclic_narrow_recombine. The
-// scale index is the absolute column's, j / block: a cut inside a scale
-// block (a layer boundary) needs no special case.
+// of ops/coded.py, and reads them in the strips above: the window loop of
+// narrow_recombine_kernel over the strips of the plan's columns [p0, p1),
+// each strip with the v pair of its own segment. Why the whole-buffer
+// window loop and not a block a plan tile: a tile (<= 2048 columns, cut at
+// any column) holds 128 int8 strips, 4.1 windows of 31, so a block of 8
+// warps on one tile would leave half of them idle and each block would
+// pay its start-up again; the window loop keeps every warp on full
+// windows, as the whole-d kernel does. A
+// lane finds its strip's segment by walking the cuts up from the one it
+// found for its previous window (a warp's windows go up in column, so the
+// walk costs each warp at most S steps in all), reading the cuts from the
+// plan's table through L1, and takes the segment's v pair with its row's
+// loads. A strip that a cut crosses (a cut strictly inside it) is not
+// summed wide: its columns go to the scalar loop, with the columns of
+// [p0, p1) outside the wide strips; there a column finds its segment by a
+// binary search over the cuts. Each element is widened and summed as the
+// whole-d kernel does (level × scale[i, j / block] with the absolute
+// column, fmaf in row order), so every column has the bits of
+// cyclic_narrow_recombine, and a cut inside a scale block (a layer
+// boundary) needs no special case. tests/test_torch_narrow_plan.py models
+// the plan.
 //
 // The approx decode's offset entry: the view of columns [col0, col0 + d)
 // of an (n, ld) buffer, base pointers advanced by col0 and rows ld apart;
@@ -475,10 +490,40 @@ narrow_recombine_kernel(const float* __restrict__ v_re,
   }
 }
 
+// The first column of segment seg + 1 of a segment plan of `segments`
+// segments over `tiles` tiles (ops/coded.py's table: [seg, lo, hi] of each
+// tile, then the first tile of each segment); the plan's end for the last
+// segment, its first column for seg = -1
+__device__ __forceinline__ long long cut_after(const int* __restrict__ plan,
+                                               int tiles, int segments,
+                                               int seg) {
+  return seg + 1 < segments
+             ? (long long)__ldg(plan + tiles + __ldg(plan + 3 * tiles + seg + 1))
+             : (long long)__ldg(plan + 3 * tiles - 1);
+}
+
+// The segment that holds column j of the plan's [p0, p1): the last one
+// whose first column is <= j
+__device__ __forceinline__ int segment_of(const int* __restrict__ plan,
+                                          int tiles, int segments,
+                                          long long j) {
+  int lo = 0, hi = segments - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (cut_after(plan, tiles, segments, mid - 1) <= j)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
 // The narrow recombination over a segment plan (the comment at the top):
-// v (S, n), the (n, d) buffers -> out over the plan's columns.
-template <int R>
-__global__ void __launch_bounds__(kThreads)
+// v (S, n), the (n, d) buffers -> out over the plan's columns. The window
+// loop, loads and sums of narrow_recombine_kernel, with v from the strip's
+// segment.
+template <int R, int CW = 4>
+__global__ void __launch_bounds__(kThreads, R == kInt8Any ? 1 : 2)
 narrow_recombine_segments_kernel(const float* __restrict__ v_re,
                                  const float* __restrict__ v_im,
                                  const void* __restrict__ q_re,
@@ -489,30 +534,137 @@ narrow_recombine_segments_kernel(const float* __restrict__ v_re,
                                  float* __restrict__ out, int n, long long d,
                                  int block, long long nb) {
   using T = typename Wire<R>::T;
-  extern __shared__ float sv[];  // [n] re, then [n] im
-  const int seg = __ldg(plan + blockIdx.x);
-  const long long lo = __ldg(plan + tiles + blockIdx.x);
-  const long long hi = __ldg(plan + 2 * tiles + blockIdx.x);
+  constexpr int CB = 4 * CW, W = CB / (int)sizeof(T);
+  __shared__ const char* row_chunk[2][MAX_N];
+  __shared__ uint32_t row_a[2][MAX_N];
+  const long long rb = d * (long long)sizeof(T);
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    sv[t] = v_re[(long long)seg * n + t];
-    sv[n + t] = v_im[(long long)seg * n + t];
+    const RowAt pr = row_at<CB>(q_re, rb, t), pi = row_at<CB>(q_im, rb, t);
+    row_chunk[0][t] = pr.chunk;
+    row_a[0][t] = pr.a;
+    row_chunk[1][t] = pi.chunk;
+    row_a[1][t] = pi.a;
   }
   __syncthreads();
+  const int segments = __ldg(plan + tiles - 1) + 1;
+  const long long p0 = __ldg(plan + tiles), p1 = __ldg(plan + 3 * tiles - 1);
+  // the whole strips of [p0, p1) that both buffers' wide spans hold
+  const Span sp = meet(meet(wide_span(q_re, n, d, sizeof(T), CB),
+                            wide_span(q_im, n, d, sizeof(T), CB)),
+                       Span{(p0 + W - 1) / W, p1 / W});
+  const int lane = threadIdx.x & 31;
+  const bool vec = ((uintptr_t)out & 15) == 0;
+  const long long windows = (sp.hi - sp.lo + kStrips - 1) / kStrips;
+  int seg = 0;  // this lane's segment, walked up window by window
+  for (long long win = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       win < windows; win += (long long)gridDim.x * kWarps) {
+    const long long s = sp.lo + win * kStrips + lane;
+    const long long j0 = s * W, off = s * CB;
+    bool mine = lane < kStrips && s < sp.hi;  // computes strip s
+    if (mine) {
+      long long next = cut_after(plan, tiles, segments, seg);
+      while (next <= j0) next = cut_after(plan, tiles, segments, ++seg);
+      mine = next >= j0 + W;  // no cut strictly inside the strip
+    }
+    const bool feed = s <= sp.hi;  // its chunk is the strip before's second
+    const float* vr = v_re + (long long)seg * n;
+    const float* vi = v_im + (long long)seg * n;
+    long long blk1 = 0;
+    int blk[R == kInt8Any ? W : 1];
+    if constexpr (R == kInt8) blk1 = mine ? block_of(j0, block, d) : 0;
+    if constexpr (R == kInt8Any) {
+      if (mine) blocks_of<W>(j0, block, blk);
+    }
+    float acc_r[W], acc_i[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) { acc_r[w] = 0.f; acc_i[w] = 0.f; }
+    for (int i0 = 0; i0 < n; i0 += kRecRows) {
+      Chunk<CW> cr[kRecRows], ci[kRecRows];
+      float fr[kRecRows], fi[kRecRows];  // kInt8: the row's scale
+      float ur[kRecRows], ui[kRecRows];  // the row's v pair
+      // every load of the group first
+#pragma unroll
+      for (int r = 0; r < kRecRows; ++r) {
+        const int i = i0 + r;
+        const bool live = i < n;
+        cr[r] = Chunk<CW>{};
+        ci[r] = Chunk<CW>{};
+        if (live && feed) {
+          cr[r] = load_chunk<CW>(row_chunk[0][i] + off);
+          ci[r] = load_chunk<CW>(row_chunk[1][i] + off);
+        }
+        ur[r] = live && mine ? __ldg(vr + i) : 0.f;
+        ui[r] = live && mine ? __ldg(vi + i) : 0.f;
+        if constexpr (R == kInt8) {
+          const long long at = (long long)i * nb + blk1;
+          fr[r] = live && mine ? __ldg(s_re + at) : 0.f;
+          fi[r] = live && mine ? __ldg(s_im + at) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRecRows; ++r) {
+        const int i = i0 + r;
+        const int ia = i < n ? i : 0;
+        float x[W], y[W];
+        widen_strip<T, CW>(strip_of<CW>(cr[r], row_a[0][ia]), x);
+        widen_strip<T, CW>(strip_of<CW>(ci[r], row_a[1][ia]), y);
+        if (i < n) {
+#pragma unroll
+          for (int w = 0; w < W; ++w) {
+            if constexpr (R == kInt8) {
+              x[w] *= fr[r];
+              y[w] *= fi[r];
+            } else if constexpr (R == kInt8Any) {
+              x[w] *= mine ? __ldg(s_re + (long long)i * nb + blk[w]) : 0.f;
+              y[w] *= mine ? __ldg(s_im + (long long)i * nb + blk[w]) : 0.f;
+            }
+            acc_r[w] = fmaf(ur[r], x[w], acc_r[w]);
+            acc_i[w] = fmaf(ui[r], y[w], acc_i[w]);
+          }
+        }
+      }
+    }
+    if (mine) {
+      float o[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) o[w] = acc_r[w] - acc_i[w];
+      store_strip<W>(out, j0, o, vec);
+    }
+  }
+  // one column a thread: the plan's columns outside the wide strips
+  // ([p0, c0) and [c1, p1)), then the strips a cut crosses, each taken
+  // once, by the first cut strictly inside it (interior cut k, 1 <= k < S,
+  // at column c: W columns of strip c / W)
+  const bool wide = sp.hi > sp.lo;
+  const long long c0 = wide ? sp.lo * W : p0, c1 = wide ? sp.hi * W : p0;
+  const long long head = c0 - p0, edge = head + (p1 - c1);
+  const long long items = edge + (long long)(segments - 1) * W;
   const T* qr = (const T*)q_re;
   const T* qi = (const T*)q_im;
-  for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x) {
-    long long bj = 0;  // int8: the column's scale block, in 32 bits
-    if constexpr (R == kInt8) bj = block_of(j, block, d);
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < items; t += (long long)gridDim.x * blockDim.x) {
+    long long j;
+    if (t < head) {
+      j = p0 + t;
+    } else if (t < edge) {
+      j = c1 + (t - head);
+    } else {
+      const int k = 1 + (int)((t - edge) / W);
+      const long long c = cut_after(plan, tiles, segments, k - 1);
+      const long long b = cut_after(plan, tiles, segments, k - 2);
+      const long long sc = c / W;
+      const bool crosses = c % W != 0 && sc >= sp.lo && sc < sp.hi;
+      const bool first = !(b % W != 0 && b / W == sc);
+      if (!(crosses && first)) continue;
+      j = sc * W + (t - edge) % W;
+    }
+    const int sg = segment_of(plan, tiles, segments, j);
     float acc_r = 0.f, acc_i = 0.f;
     for (int i = 0; i < n; ++i) {
-      float x = widen(qr[(long long)i * d + j]);
-      float y = widen(qi[(long long)i * d + j]);
-      if constexpr (R == kInt8) {
-        x *= __ldg(s_re + (long long)i * nb + bj);
-        y *= __ldg(s_im + (long long)i * nb + bj);
-      }
-      acc_r = fmaf(sv[i], x, acc_r);
-      acc_i = fmaf(sv[n + i], y, acc_i);
+      acc_r = fmaf(__ldg(v_re + (long long)sg * n + i),
+                   wire_at(qr, s_re, i, j, d, block, nb), acc_r);
+      acc_i = fmaf(__ldg(v_im + (long long)sg * n + i),
+                   wire_at(qi, s_im, i, j, d, block, nb), acc_i);
     }
     out[j] = acc_r - acc_i;
   }
@@ -760,10 +912,13 @@ int launch_recombine_segments(const float* v_re, const float* v_im,
                               const int* plan, int tiles, float* out, int n,
                               long long d, int block, long long nb,
                               cudaStream_t st) {
-  narrow_recombine_segments_kernel<R><<<tiles, kThreads, vector_smem(n, 0),
-                                        st>>>(v_re, v_im, q_re, q_im, s_re,
-                                              s_im, plan, tiles, out, n, d,
-                                              block, nb);
+  static int cache[64];
+  constexpr int W = 16 / (int)sizeof(typename Wire<R>::T);
+  const void* fn = (const void*)narrow_recombine_segments_kernel<R>;
+  narrow_recombine_segments_kernel<R>
+      <<<grid_for(wave(fn, kThreads, 0, cache), kWarps, d, W), kThreads, 0,
+         st>>>(v_re, v_im, q_re, q_im, s_re, s_im, plan, tiles, out, n, d,
+               block, nb);
   return (int)cudaGetLastError();
 }
 
@@ -792,11 +947,14 @@ const draco_audit::Entry kAudit[] = {
     {"approx_decode_final_kernel", (const void*)approx_decode_final_kernel,
      kThreads, nullptr, 0},
     {"narrow_recombine_segments_kernel<kBF16>",
-     (const void*)narrow_recombine_segments_kernel<kBF16>, kThreads,
-     vector_smem, 0},
+     (const void*)narrow_recombine_segments_kernel<kBF16>, kThreads, nullptr,
+     0},
     {"narrow_recombine_segments_kernel<kInt8>",
-     (const void*)narrow_recombine_segments_kernel<kInt8>, kThreads,
-     vector_smem, 0},
+     (const void*)narrow_recombine_segments_kernel<kInt8>, kThreads, nullptr,
+     0},
+    {"narrow_recombine_segments_kernel<kInt8Any>",
+     (const void*)narrow_recombine_segments_kernel<kInt8Any>, kThreads,
+     nullptr, 0},
 };
 
 }  // namespace
@@ -909,9 +1067,14 @@ int draco_narrow_recombine_segments(const float* v_re, const float* v_im,
                                               s_im, plan, tiles, out, n, d,
                                               block, nb, st);
     case kInt8:
-      return launch_recombine_segments<kInt8>(v_re, v_im, q_re, q_im, s_re,
-                                              s_im, plan, tiles, out, n, d,
-                                              block, nb, st);
+      // a strip is 16 int8 columns: one scale a row when 16 divides block
+      if (block % 16 == 0)
+        return launch_recombine_segments<kInt8>(v_re, v_im, q_re, q_im, s_re,
+                                                s_im, plan, tiles, out, n, d,
+                                                block, nb, st);
+      return launch_recombine_segments<kInt8Any>(v_re, v_im, q_re, q_im,
+                                                 s_re, s_im, plan, tiles, out,
+                                                 n, d, block, nb, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

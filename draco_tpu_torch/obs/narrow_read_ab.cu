@@ -15,6 +15,10 @@
 //         shuffle and funnel shift), but each element still takes its own
 //         scale load, a 64-bit j / block and an int8 conversion
 //         instruction
+//   old segments  the one-thread-a-column segmented recombination the
+//         strip one replaced: a block a plan tile, its v pair in shared
+//         memory, one wire element a load and each element its own scale
+//         load
 //
 // Every variant sums the same products in the same order, so each output
 // column has the same bits in all of them.
@@ -237,6 +241,48 @@ __global__ void old_approx_partial_kernel(
   }
 }
 
+// the old segmented recombination: block t takes plan tile t
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+old_segments_kernel(const float* __restrict__ v_re,
+                    const float* __restrict__ v_im,
+                    const void* __restrict__ q_re,
+                    const void* __restrict__ q_im,
+                    const float* __restrict__ s_re,
+                    const float* __restrict__ s_im,
+                    const int* __restrict__ plan, int tiles,
+                    float* __restrict__ out, int n, long long d, int block,
+                    long long nb) {
+  using T = typename Wire<R>::T;
+  extern __shared__ float sv[];  // [n] re, then [n] im
+  const int seg = __ldg(plan + blockIdx.x);
+  const long long lo = __ldg(plan + tiles + blockIdx.x);
+  const long long hi = __ldg(plan + 2 * tiles + blockIdx.x);
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    sv[t] = v_re[(long long)seg * n + t];
+    sv[n + t] = v_im[(long long)seg * n + t];
+  }
+  __syncthreads();
+  const T* qr = (const T*)q_re;
+  const T* qi = (const T*)q_im;
+  for (long long j = lo + threadIdx.x; j < hi; j += blockDim.x) {
+    long long bj = 0;  // int8: the column's scale block, in 32 bits
+    if constexpr (R == kInt8) bj = block_of(j, block, d);
+    float acc_r = 0.f, acc_i = 0.f;
+    for (int i = 0; i < n; ++i) {
+      float x = widen(qr[(long long)i * d + j]);
+      float y = widen(qi[(long long)i * d + j]);
+      if constexpr (R == kInt8) {
+        x *= __ldg(s_re + (long long)i * nb + bj);
+        y *= __ldg(s_im + (long long)i * nb + bj);
+      }
+      acc_r = fmaf(sv[i], x, acc_r);
+      acc_i = fmaf(sv[n + i], y, acc_i);
+    }
+    out[j] = acc_r - acc_i;
+  }
+}
+
 constexpr int kOldGridCap = 132 * 8 * 4;  // the old kernels' 4-wave cap
 constexpr int kOldChunks = 132 * 8;       // the old approx pass 1: one wave
 
@@ -289,6 +335,28 @@ int draco_ab_recombine_cw2(const float* v_re, const float* v_im,
   if (block % 8 != 0) return (int)cudaErrorInvalidValue;
   return launch_recombine<kInt8, 2>(v_re, v_im, q_re, q_im, s_re, s_im, out,
                                     n, d, block, nb, (cudaStream_t)stream);
+}
+
+// the old segmented recombination: wire 1 bf16, 2 int8 (any block)
+int draco_ab_segments_old(const float* v_re, const float* v_im,
+                          const void* q_re, const void* q_im,
+                          const float* s_re, const float* s_im,
+                          const int* plan, int tiles, float* out, int n,
+                          long long d, int wire, int block, long long nb,
+                          void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = vector_smem(n, 0);
+  if (wire == kBF16)
+    old_segments_kernel<kBF16><<<tiles, kThreads, smem, st>>>(
+        v_re, v_im, q_re, q_im, s_re, s_im, plan, tiles, out, n, d, block,
+        nb);
+  else if (wire == kInt8)
+    old_segments_kernel<kInt8><<<tiles, kThreads, smem, st>>>(
+        v_re, v_im, q_re, q_im, s_re, s_im, plan, tiles, out, n, d, block,
+        nb);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 int draco_ab_approx_old_chunks(long long d) { return old_grid(d, kOldChunks); }

@@ -26,7 +26,17 @@ the exact f32 of every level. The approx decode's offset entry (a view of
 columns [col0, col0 + d) of an (n, ld) buffer, ``wide_span_view``) is held
 to the same four properties at every buffer alignment, first column 0–19
 and view width, its loads inside the whole buffer and its scale index the
-absolute column's. No GPU and no JAX; seconds.
+absolute column's. The segmented recombination over a segment plan
+(``narrow_recombine_segments_kernel``: the window loop over the strips of
+the plan's columns, each lane walking the cuts up to its strip's segment,
+the strips a cut crosses and the columns outside the wide strips in the
+scalar loop, ``segment_of``'s binary search there) is held, at every
+buffer alignment, d mod 16, int8 blocks 1, 24, 64 and 256 and cuts at every
+alignment of a strip and of a scale block (segments of 1 and 9 columns,
+several cuts in one strip, plans that start and end inside the buffer), to
+every column of the plan summed exactly once with the v of its own
+segment, every load inside the allocation and every scale index
+``j // block``. No GPU and no JAX; seconds.
 """
 
 import numpy as np
@@ -287,3 +297,155 @@ def test_int8_and_bf16_widening_is_exact():
     finite = np.isfinite(bf)
     assert np.array_equal(wide[finite], bf[finite])
     assert np.array_equal(np.isnan(wide), np.isnan(bf))
+
+
+# --------------------------------------------------------------------------
+# the segmented recombination over a segment plan
+# --------------------------------------------------------------------------
+
+def segment_of(bounds, j):
+    """``segment_of``: the binary search over the cuts (cut_after(mid - 1)
+    is the first column of segment mid)."""
+    lo, hi = 0, len(bounds) - 2
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if bounds[mid] <= j:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def segments_plan(offset, d, sz, bounds, warps=3):
+    """The kernel's plan on an (N, d) buffer of sz-byte elements starting
+    BASE + offset beside one at BASE (16-byte chunks), over the cuts
+    ``bounds``, with ``warps`` warps striding over the windows. Returns
+    {column: (segment, wide strip's first column or None)}; raises on a
+    column summed twice, a load outside either buffer or a strip whose
+    bytes are not its row's."""
+    w = 16 // sz
+    base = BASE + offset
+    S = len(bounds) - 1
+    p0, p1 = bounds[0], bounds[-1]
+
+    def cut_after(seg):  # seg = -1: p0; the last segment: p1
+        return bounds[seg + 1]
+
+    span = meet(meet(wide_span(base, N, d, sz, 16),
+                     wide_span(BASE, N, d, sz, 16)),
+                (-(-p0 // w), p1 // w))
+    got, _, _ = strips_read(base, N, d, sz, 16, span)
+    strips_read(BASE, N, d, sz, 16, span)  # the other buffer's bounds
+    done = {}
+    lo, hi = span
+    windows = -(-(hi - lo) // STRIPS)
+    for warp in range(warps):
+        seg = [0] * 32
+        steps = [0] * 32
+        for win in range(warp, windows, warps):
+            for lane in range(STRIPS):
+                st = lo + win * STRIPS + lane
+                if st >= hi:
+                    continue
+                j0 = st * w
+                nxt = cut_after(seg[lane])
+                while nxt <= j0:
+                    seg[lane] += 1
+                    steps[lane] += 1
+                    nxt = cut_after(seg[lane])
+                if nxt < j0 + w:  # a cut strictly inside: the scalar loop
+                    continue
+                for i in range(N):
+                    want = (i * d + j0) * sz + np.arange(16)
+                    assert np.array_equal(got[i][win * 32 + lane], want), \
+                        f"row {i}: a strip sums bytes that are not its columns"
+                for j in range(j0, j0 + w):
+                    assert j not in done, f"column {j} summed twice"
+                    done[j] = (seg[lane], j0)
+        assert max(steps) <= S - 1  # the walk: each cut passed once
+    wide = hi > lo
+    c0, c1 = (lo * w, hi * w) if wide else (p0, p0)
+    head, edge = c0 - p0, c0 - p0 + p1 - c1
+    for t in range(edge + (S - 1) * w):
+        if t < head:
+            j = p0 + t
+        elif t < edge:
+            j = c1 + t - head
+        else:
+            k = 1 + (t - edge) // w
+            c, b = cut_after(k - 1), cut_after(k - 2)
+            sc = c // w
+            crosses = c % w != 0 and lo <= sc < hi
+            first = not (b % w != 0 and b // w == sc)
+            if not (crosses and first):
+                continue
+            j = sc * w + (t - edge) % w
+        assert j not in done, f"column {j} summed twice"
+        done[j] = (segment_of(bounds, j), None)
+    return done
+
+
+def segment_cuts(d):
+    """Plans over d columns: every cut residue mod 16, cuts on, before and
+    after scale blocks of 24, 64 and 256, segments of 1 and 9 columns,
+    several cuts in one strip, and plans that start or end inside the
+    buffer."""
+    every = tuple([0] + [67 * i for i in range(1, 16)] + [d])
+    return [every,
+            (0, 1, 10, 11, 20, d),
+            (0, 5, 9, 12, 40, 41, 47, d),
+            (0, 23, 24, 25, 63, 64, 65, 255, 256, 257, 512, 769, d),
+            (0, 256, 512, 768, d),
+            (3, 700),
+            (17, 18, 27, d - 5),
+            (0, d)]
+
+
+SEG_BLOCKS = (1, 24, 64, 256)
+
+
+@pytest.mark.parametrize("sz", (1, 2), ids=("int8", "bf16"))
+def test_segments_plan(sz):
+    """Every column of the plan summed exactly once, with its own
+    segment's v; the loads inside both buffers; the scale index of every
+    column j // block (one scale a strip where 16 divides the block, else
+    counted up column by column from the strip's first)."""
+    for offset in range(0, 16, sz):
+        for res in range(16):
+            d = 1008 + res
+            for bounds in segment_cuts(d):
+                done = segments_plan(offset, d, sz, bounds)
+                cols = np.arange(bounds[0], bounds[-1])
+                assert sorted(done) == list(cols), \
+                    "a column of the plan is summed never, or one outside it"
+                seg = np.searchsorted(bounds, cols, side="right") - 1
+                assert [done[j][0] for j in cols] == list(seg)
+                if sz != 1:
+                    continue
+                j0 = np.array(sorted({v[1] for v in done.values()
+                                      if v[1] is not None}), dtype=np.int64)
+                for block in SEG_BLOCKS:
+                    blk = scale_blocks(j0, 16, block)
+                    assert np.array_equal(
+                        blk, (j0[:, None] + np.arange(16)) // block)
+
+
+def test_segments_plan_walk_with_one_warp_and_many():
+    """The walk does not depend on how the windows are dealt to warps: one
+    warp takes every window, or every warp one."""
+    d = 5003
+    for bounds in ((0, 1, 10, 2059, 2060, 4100, d), (0, d)):
+        for warps in (1, 2, 64):
+            done = segments_plan(3, d, 1, bounds, warps)
+            assert sorted(done) == list(range(d))
+
+
+def test_segments_plan_tiny_and_outside_the_span():
+    """A plan narrower than a strip, and one over the first or last strip
+    of a buffer that does not start on a chunk, go to the scalar loop
+    alone."""
+    d = 203
+    for bounds in ((0, 3), (5, 9), (0, 1, 2, 3), (d - 7, d), (190, 200, d)):
+        for offset in (0, 3, 13):
+            done = segments_plan(offset, d, 1, bounds)
+            assert sorted(done) == list(range(bounds[0], bounds[-1]))
