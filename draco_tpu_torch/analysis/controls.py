@@ -53,7 +53,7 @@ def _mini(device, step_body, manifest=None, name="honest") -> Program:
     host_batch = torch.randn((N, D), generator=gen)
     state = TrainState(params={"w": torch.zeros(D, device=dev)},
                        stats={"s": torch.zeros((N, 2), device=dev)},
-                       opt=optim.SGD(0.01, 0.9))
+                       opt=optim.build_optimizer("sgd", 0.01, 0.9))
     box = {"state": state}
     if manifest is None:
         manifest = Manifest(uploads={"batch (f32)": N * D * 4},
@@ -68,7 +68,7 @@ def _mini(device, step_body, manifest=None, name="honest") -> Program:
         st.stats["s"].copy_(torch.stack([x.mean(1), x.var(1)], dim=1))
         st.step += 1
 
-    step()  # the first step makes the momentum buffers
+    step()  # the first step makes the optimizer's buffers and count
     return Program(f"control_{name}", manifest, dev, step,
                    lambda: box["state"].tensors())
 

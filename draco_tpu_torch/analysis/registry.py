@@ -25,7 +25,12 @@ groups of 3) with the adversary, and Krum (preset ``krum-resnet18`` at
 n=8); the LM benchmark's TransformerLM (dim 768, 12 heads, 8 layers, vocab
 8192, T=512, batch 2, bf16 compute, flash attention). Four legs run the
 segmented wire and the per-layer decode beside their S = 1 twins
-(``TWINS``).
+(``TWINS``). Five more run the other models, bf16 compute and the
+optimizers: preset ``cyclic-vgg11`` (VGG-11, n=9, s=2, a constant attack
+on two workers a step) under ``simulate`` and ``shared``; preset
+``single-lenet`` (LeNet on MNIST shapes, n=1, batch 128); the ResNet-18
+``shared`` leg at bfloat16 compute; and the LM's ``shared`` leg under
+AdamW with the cosine schedule and the clip.
 """
 
 from __future__ import annotations
@@ -41,8 +46,8 @@ CNN_FULL = dict(network="ResNet18", dataset="synthetic-cifar10",
                 num_workers=N, worker_fail=S, err_mode="rev_grad",
                 batch_size=32, lr=0.01, momentum=0.9, train_dir="", seed=SEED)
 # CI size: the fewest workers a cyclic s=1 code takes, one sample each, a
-# few Weiszfeld passes (ResNet-18's d = 11,173,962 stays: no narrower CNN
-# is ported)
+# few Weiszfeld passes (each leg keeps its network: ResNet-18's d =
+# 11,173,962 at CI size too)
 CNN_CI = dict(num_workers=5, batch_size=1, geomedian_iters=4)
 # the approx legs: preset approx-resnet18 (r=1.5 pairwise, 2 workers dropped
 # a step, no adversary)
@@ -63,6 +68,19 @@ LM_CI = dict(seq_len=32, vocab=64, model_dim=64, model_heads=4,
 # adversary a step for the vote to outvote; one group at CI size
 MAJVOTE = dict(approach="maj_vote", num_workers=9, group_size=3)
 MAJVOTE_CI = dict(num_workers=3)
+# preset cyclic-vgg11: VGG-11, the cyclic code at r=5 (n=9, s=2), a
+# constant attack on both adversaries a step (n > 4s keeps n=9 at CI size)
+VGG11 = dict(network="VGG11", num_workers=9, worker_fail=2,
+             err_mode="constant")
+VGG11_CI = dict(num_workers=9)
+# preset single-lenet: LeNet on MNIST shapes, one worker, the mean
+LENET = dict(network="LeNet", dataset="synthetic-mnist", approach="baseline",
+             mode="normal", num_workers=1, worker_fail=0, batch_size=128)
+LENET_CI = dict(num_workers=1, batch_size=4)
+# the LM's AdamW: an Adam-sized rate, the cosine schedule with a 2-step
+# warmup and the global-norm clip at 1
+ADAMW = dict(optimizer="adamw", lr=1e-3, lr_schedule="cosine",
+             warmup_steps=2, clip_norm=1.0)
 
 DEFAULT_DTYPES = frozenset({torch.float32, torch.int64, torch.int32,
                             torch.bool})
@@ -71,9 +89,11 @@ WIRE_DTYPES = {"f32": frozenset(),
                "bf16": frozenset({torch.bfloat16, torch.int16}),
                "int8": frozenset({torch.int8})}
 WIRE_TORCH = {"bf16": torch.bfloat16, "int8": torch.int8}
-# bf16 -> f32 promotion sites of the bf16 LM route: the explicit casts, and
-# LayerNorm's x − mean in float32 (Flax's normalisation of a bf16 input,
-# which the reference writes as convert_element_type then sub)
+# bf16 -> f32 promotion sites of the bf16 routes: the explicit casts (the
+# CNN's BatchNorm input and classifier input, the parameters' gradients
+# through their casts), and the LM LayerNorm's x − mean in float32 (Flax's
+# normalisation of a bf16 input, which the reference writes as
+# convert_element_type then sub)
 BF16_PROMOTIONS = ("_to_copy", "sub")
 
 
@@ -91,7 +111,7 @@ class Manifest:
     step may move at most their sum (``h2d_bytes``).
     ``collectives``: calls into ``torch.distributed`` by kind (missing
     kinds 0); None skips the rule.
-    ``in_place``: parameters, momentum buffers and batch statistics keep
+    ``in_place``: parameters, the optimizer's state and batch statistics keep
     their storage across the step.
     ``max_peak_bytes``: the memory one step allocates on the card above
     what was live when it began, and a chunked program's graph pool; None
@@ -136,15 +156,25 @@ class Program:
 
 
 def uploads(cfg) -> dict:
-    """The host-to-device copies of one step of ``cfg``, name -> bytes."""
+    """The host-to-device copies of one step of ``cfg``, name -> bytes: the
+    batch at the dataset's shape, the augmentation draws on CIFAR and the
+    dropout masks of a network with dropout, one row of each a group on
+    the vote and a worker otherwise."""
+    from draco_tpu_torch.models import dropout_features, input_shape
+
     n, b = cfg.num_workers, cfg.batch_size
     if cfg.network == "TransformerLM":
         return {"tokens (int32)": n * b * cfg.seq_len * 4, "adv_mask": n}
     vote = cfg.approach == "maj_vote"
-    out = {"batch (f32 NHWC)": n * b * 32 * 32 * 3 * 4,
-           "labels (int32)": n * b * 4,
-           # one row of draws a group on the vote, a worker otherwise
-           "aug_draws (3 int64)": 3 * (cfg.num_groups if vote else n) * b * 8}
+    rows = cfg.num_groups if vote else n
+    h, w, c = input_shape(cfg.dataset)
+    out = {"batch (f32 NHWC)": n * b * h * w * c * 4,
+           "labels (int32)": n * b * 4}
+    if "cifar" in cfg.dataset.lower():
+        out["aug_draws (3 int64)"] = 3 * rows * b * 8
+    drop = dropout_features(cfg.network)
+    if drop:
+        out["dropout masks (bool)"] = rows * len(drop) * b * drop[0]
     if cfg.approach != "approx":
         out["adv_mask"] = n
     if vote:
@@ -181,7 +211,7 @@ class LintProgram:
     def manifest(self, cfg, full: bool) -> Manifest:
         dtypes = DEFAULT_DTYPES | WIRE_DTYPES[cfg.wire_dtype]
         promos = ("_to_copy",)
-        if cfg.network == "TransformerLM" and cfg.compute_dtype == "bfloat16":
+        if cfg.compute_dtype == "bfloat16":
             dtypes = dtypes | {torch.bfloat16}
             promos = BF16_PROMOTIONS
         return Manifest(
@@ -333,6 +363,19 @@ PROGRAMS = (
     LintProgram("lm_shared_flash_layer", "lm",
                 dict(_CYCLIC_SHARED, decode_granularity="layer",
                      wire_segments=4), 14.5),
+    # the other models, bf16 compute, the optimizers: preset cyclic-vgg11
+    # (45 lanes under simulate), preset single-lenet, bf16 compute on the
+    # CNN, AdamW on the LM
+    LintProgram("vgg11_simulate", "cnn",
+                dict(VGG11, approach="cyclic", redundancy="simulate"), 8.0,
+                ci=VGG11_CI),
+    LintProgram("vgg11_shared", "cnn", dict(VGG11, **_CYCLIC_SHARED), 2.5,
+                ci=VGG11_CI),
+    LintProgram("lenet_single", "cnn", LENET, 1.0, ci=LENET_CI),
+    LintProgram("shared_c16", "cnn",
+                dict(_CYCLIC_SHARED, compute_dtype="bfloat16"), 4.5),
+    LintProgram("lm_shared_flash_adamw", "lm", dict(_CYCLIC_SHARED, **ADAMW),
+                14.5),
 )
 
 # each segmented leg's S = 1, global-granularity twin

@@ -13,12 +13,22 @@
       --max-steps 5                      # the repetition code's vote
   python -m draco_tpu_torch.cli --preset krum-resnet18 --num-workers 8 \\
       --straggle-mode drop --straggle-count 1 --max-steps 5
+  python -m draco_tpu_torch.cli --preset cyclic-vgg11 --max-steps 5
+  python -m draco_tpu_torch.cli --preset single-lenet --max-steps 5
+  python -m draco_tpu_torch.cli --preset cyclic-resnet18 --num-workers 8 \\
+      --compute-dtype bfloat16 --optimizer adamw --lr 0.001 \\
+      --lr-schedule cosine --warmup-steps 2 --clip-norm 1.0 --max-steps 5
   python -m draco_tpu_torch.cli --network TransformerLM \\
       --dataset synthetic-text --approach cyclic --redundancy shared \\
       --attn-impl flash --compute-dtype bfloat16 --num-workers 8 \\
       --worker-fail 1 --batch-size 2 --seq-len 512 --model-dim 768 \\
       --model-heads 12 --model-layers 8 --vocab 8192 --max-steps 5
 
+``--optimizer`` takes sgd, adam or adamw (``--weight-decay``: AdamW's
+decoupled decay), ``--lr-schedule`` constant or cosine (``--warmup-steps``
+ramps it), ``--clip-norm`` C > 0 clips the aggregated gradient to global
+norm C; ``--compute-dtype bfloat16`` runs the convolutions and Dense
+layers of any network in bf16.
 ``--mode`` takes the baseline's seven rules (normal, geometric_median,
 krum, coord_median, trimmed_mean, multi_krum, bulyan), ``--err-mode``
 rev_grad, constant, random, alie or ipm, ``--vote-check`` fingerprint or
@@ -47,8 +57,13 @@ FLAGS = {
     "--dataset": (str, "dataset"),
     "--data-dir": (str, "data_dir"),
     "--batch-size": (int, "batch_size"),
+    "--optimizer": (str, "optimizer"),
     "--lr": (float, "lr"),
     "--momentum": (float, "momentum"),
+    "--weight-decay": (float, "weight_decay"),
+    "--lr-schedule": (str, "lr_schedule"),
+    "--warmup-steps": (int, "warmup_steps"),
+    "--clip-norm": (float, "clip_norm"),
     "--max-steps": (int, "max_steps"),
     "--num-workers": (int, "num_workers"),
     "--approach": (str, "approach"),

@@ -23,6 +23,7 @@ from typing import Optional
 from draco_tpu_torch.coding.assignment import build_assignment
 from draco_tpu_torch.obs.numerics import WIRE_DTYPES, wire_rel_tol
 from draco_tpu_torch.ops.flash_attention import MAX_DH
+from draco_tpu_torch.optim import OPTIMIZERS, SCHEDULES
 
 # Deterministic seed shared by every participant (reference: SEED_=428).
 SEED = 428
@@ -33,7 +34,9 @@ APPROACHES = ("baseline", "maj_vote", "cyclic", "approx")
 AGG_MODES = ("normal", "geometric_median", "krum", "coord_median",
              "trimmed_mean", "multi_krum", "bulyan")
 KRUM_MODES = ("krum", "multi_krum", "bulyan")
-CNN_NETWORKS = ("ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152")
+CNN_NETWORKS = ("LeNet", "FC", "ResNet18", "ResNet34", "ResNet50",
+                "ResNet101", "ResNet152", "VGG11", "VGG11_bn", "VGG13",
+                "VGG13_bn", "VGG16", "VGG16_bn", "VGG19", "VGG19_bn")
 LM_NETWORK = "TransformerLM"
 NETWORKS = CNN_NETWORKS + (LM_NETWORK,)
 LM_DATASET = "synthetic-text"  # the LM trains on sp_step.synthetic_text
@@ -50,9 +53,14 @@ class TrainConfig:
     dataset: str = "MNIST"
     data_dir: str = "./data"
     batch_size: int = 128  # per-worker batch size
-    # --- optimization: SGD with momentum ---
+    # --- optimization (optim.py) ---
+    optimizer: str = "sgd"  # sgd | adam | adamw (decoupled decay)
     lr: float = 0.01
     momentum: float = 0.9
+    weight_decay: float = 0.01  # adamw's decoupled decay (unused by sgd/adam)
+    lr_schedule: str = "constant"  # constant | cosine (warmup + cosine to 10%)
+    warmup_steps: int = 0  # linear warmup length for lr_schedule=cosine
+    clip_norm: float = 0.0  # >0: global-norm clip of the aggregated gradient
     max_steps: int = 10000
     # --- coded data parallelism ---
     num_workers: int = 8
@@ -92,8 +100,9 @@ class TrainConfig:
     # single-shard attention: "dense" materialises (T, T) scores per head;
     # "flash" runs the blockwise kernels (ops/flash_attention.py)
     attn_impl: str = "dense"
-    # forward/backward dtype of the LM's Dense layers (parameters, the
-    # attention math and the logits stay float32); the CNN runs float32
+    # forward/backward dtype of the convolutions and Dense layers
+    # (parameters, BN statistics, the LM's attention math and the logits
+    # stay float32)
     compute_dtype: str = "float32"
     # held-out loss every eval_freq steps (the LM loop; 0 = never)
     eval_freq: int = 50
@@ -162,6 +171,7 @@ class TrainConfig:
                 and self.num_workers <= 2 * self.worker_fail):
             raise ValueError(
                 f"{self.mode} requires num_workers > 2 * worker_fail")
+        self._validate_optimizer()
         if self.network not in NETWORKS:
             raise ValueError(
                 f"network={self.network!r} is not ported yet (the port runs "
@@ -231,10 +241,23 @@ class TrainConfig:
         self._validate_wire()
         if self.network == LM_NETWORK:
             self._validate_lm()
-        elif self.compute_dtype != "float32":
-            raise ValueError("compute_dtype=bfloat16 is not ported yet for "
-                             "the CNN path (it computes in float32)")
         return self
+
+    def _validate_optimizer(self) -> None:
+        """The reference's optimizer checks (draco_tpu/config.py)."""
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer: {self.optimizer}")
+        if self.lr_schedule not in SCHEDULES:
+            raise ValueError(f"unknown lr_schedule: {self.lr_schedule}")
+        if self.warmup_steps < 0:
+            raise ValueError(
+                f"warmup_steps must be >= 0, got {self.warmup_steps}")
+        if self.clip_norm < 0:
+            raise ValueError(f"clip_norm must be >= 0, got {self.clip_norm}")
+        if self.warmup_steps > 0 and self.lr_schedule == "constant":
+            raise ValueError(
+                "warmup_steps > 0 has no effect with lr_schedule=constant — "
+                "set --lr-schedule cosine (or drop --warmup-steps)")
 
     def _validate_vote(self) -> None:
         """The reference's maj_vote checks (draco_tpu/config.py), and the

@@ -1,0 +1,154 @@
+"""The layers every CNN of the port is built from, with the reference's
+compute dtype (draco_tpu/models/*.py, ``dtype=``).
+
+``Conv`` and ``Dense`` cast their input, weight and bias to the model's
+compute dtype and compute in it, as Flax's ``nn.Conv`` / ``nn.Dense`` at
+``dtype=bfloat16`` do; the parameters stay float32, so their gradients
+reach the flat gradient as float32 through the cast. A compute dtype of
+None computes in the weights' own dtype (float32, or float64 in a test),
+and then every cast is a no-op. ``BatchNorm`` computes in at least
+float32 whatever its input (Flax's ``force_float32_reductions``: the
+statistics, x − mean, the scale and the bias) and returns its input's
+dtype. The classifier that makes the logits computes in its weights'
+dtype on an input cast to it (``classify``), as the reference's float32
+``Dense`` on ``x.astype(float32)``.
+
+BatchNorm is functional in its running statistics: ``forward(x, stats,
+new_stats)`` reads ``stats``, a flat dict keyed ``"<path>/mean"`` /
+``"<path>/var"``, and writes the updated ones into ``new_stats``. That
+lets ``torch.func.vmap`` carry one set of statistics per worker lane
+(they are never aggregated), and it gives the reference's semantics:
+Flax's ``momentum=0.9`` (torch's 0.1) and a running variance updated with
+the *biased* batch variance, where ``nn.BatchNorm2d`` would use the
+unbiased one.
+
+Dropout takes its keep-mask as an input (``dropout``): the training step
+draws the masks on the host per global batch row, so every lane that
+computes a batch drops the same units, and a captured step reads them from
+its staging buffers.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_MOMENTUM = 0.9  # Flax convention: new = m·old + (1-m)·batch
+BN_EPS = 1e-5
+DROPOUT_KEEP = 0.5  # the reference's nn.Dropout(0.5)
+
+
+class Conv(nn.Conv2d):
+    """NCHW convolution in ``compute_dtype`` (None: the weights')."""
+
+    def __init__(self, cin, cout, k, stride=1, padding=0, bias=True,
+                 compute_dtype=None):
+        super().__init__(cin, cout, k, stride=stride, padding=padding,
+                         bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
+                        self.padding)
+
+
+class Dense(nn.Linear):
+    """A Dense layer in ``compute_dtype`` (None: the weights')."""
+
+    def __init__(self, fin, fout, compute_dtype=None):
+        super().__init__(fin, fout)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class BatchNorm(nn.Module):
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))  # Flax "scale"
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.path = ""  # set by name_norms: its Flax path
+
+    def forward(self, x, stats: dict, new_stats: dict):
+        """Training-mode BN on NCHW ``x`` with batch statistics; writes the
+        updated running statistics into ``new_stats``."""
+        dt = x.dtype
+        x = x.to(torch.promote_types(dt, torch.float32))
+        dims = (0, 2, 3)
+        mean = x.mean(dim=dims)
+        # Flax's fast variance: E[x²] − E[x]², clipped at 0
+        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (x - mean[None, :, None, None]) * mul[None, :, None, None]
+        y = y + self.bias[None, :, None, None]
+        key = self.path
+        new_stats[key + "/mean"] = (BN_MOMENTUM * stats[key + "/mean"]
+                                    + (1.0 - BN_MOMENTUM) * mean.detach())
+        new_stats[key + "/var"] = (BN_MOMENTUM * stats[key + "/var"]
+                                   + (1.0 - BN_MOMENTUM) * var.detach())
+        return y.to(dt)
+
+
+def classify(dense: Dense, x):
+    """The logits: ``dense`` (compute dtype None) on ``x`` cast to its
+    weights' dtype."""
+    return dense(x.to(dense.weight.dtype))
+
+
+def to_compute(x, dtype):
+    """The model's input in its compute dtype (None: as it is)."""
+    return x if dtype is None else x.to(dtype)
+
+
+def dropout(x, keep):
+    """Flax's ``nn.Dropout(0.5)`` with its keep-mask given: kept units
+    scaled by 1/keep, the others 0."""
+    return torch.where(keep, x / DROPOUT_KEEP, torch.zeros_like(x))
+
+
+def name_norms(model: nn.Module) -> None:
+    """Give each BatchNorm its Flax path, the key of its statistics."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            mod.path = name.replace(".", "/")
+
+
+def nhwc_flatten(x):
+    """(B, C, H, W) -> (B, H·W·C): Flax's flatten of the NHWC map, which
+    the first Dense layer's kernel rows follow."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+def init_stats(model: nn.Module) -> dict:
+    """Fresh running statistics: mean 0, var 1 per BN feature ({} for a
+    model without BatchNorm)."""
+    stats = {}
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            f = mod.weight.shape[0]
+            stats[mod.path + "/mean"] = torch.zeros(f)
+            stats[mod.path + "/var"] = torch.ones(f)
+    return stats
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """Flax's default initialisers from a seeded generator: LeCun-normal
+    (truncated at ±2σ, variance 1/fan_in) kernels, zero biases, unit BN
+    scale. Same distributions as the reference, other numbers."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            w = mod.weight
+            fan_in = w[0].numel()
+            # std of the truncated normal on [-2, 2] is 0.87962566 of the
+            # untruncated one; Flax rescales so the variance is 1/fan_in
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()

@@ -1,43 +1,262 @@
-"""SGD with momentum, "aggregated gradient as argument" (draco_tpu/optim.py).
+"""Optimizers with the "aggregated gradient as argument" semantics
+(draco_tpu/optim.py).
 
-The update takes the decoded or aggregated gradient as an argument, in the
-torch formulation the reference pins:
+The update takes the decoded or aggregated gradient as an argument. The
+rules are torch's formulations, as the reference pins them:
 
-  first step: buf = g;  later: buf = μ·buf + g;  p ← p − lr·buf
+  SGD     buf ← μ·buf + (1−dampening)·g (first step: buf = g), d = buf
+          (nesterov: d = g + μ·buf)
+  Adam    m ← β1·m + (1−β1)·g;  v ← β2·v + (1−β2)·g²
+          d = √(1−β2ᵗ)/(1−β1ᵗ) · m/(√v + ε)   (ε outside the root)
+  AdamW   Adam's d on the raw gradient, plus λ·p (decay decoupled)
 
-Parameters and buffers are updated in place. :meth:`SGD.zero_bufs` makes
-the buffers before the first step (zeros: μ·0 + g = g, so the first step
-is the same, a −0 gradient entry aside, which it turns into +0), which a
-captured step needs: it cannot branch on whether they exist.
+and every rule runs at lr = 1: the schedule then scales its step, p ← p −
+lr(t)·d, which is the reference's ``chain(rule(1.0),
+scale_by_schedule(lr))``. So AdamW's decay is scaled by the schedule, and
+under a constant schedule (−1·d)·lr equals −(d·lr): SGD gives the bits of
+``p − lr·buf``. ``clip_norm`` > 0 scales the incoming gradient by
+min(1, c/‖g‖) over its global norm before the rule, with no state.
+
+The optimizer's state lives on the gradient's device and is updated in
+place: the rule's buffers and one int32 update count ``t`` (Adam's t − 1
+and the schedule's t, one tensor). The schedule and Adam's bias
+corrections are computed from that tensor on the device, never from a host
+number, so one captured step replays them (``training/chunk_graph.py``).
+:meth:`Optimizer.init` makes the state before the first step (zero
+buffers: μ·0 + g = g, so the first step is the reference's, a −0
+gradient entry aside, which it turns into +0); a step that finds none
+makes it then. With ``dampening`` ≠ 0 the first step's buffer is g by a
+select on the count, as in the reference.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Callable, Optional
+
 import torch
 
+SCHEDULES = ("constant", "cosine")
+OPTIMIZERS = ("sgd", "adam", "adamw")
 
-class SGD:
-    def __init__(self, lr: float, momentum: float = 0.0):
-        self.lr = lr
-        self.momentum = momentum
-        self.bufs = None  # dict of momentum buffers after the first step
+
+class Rule:
+    """An update rule at lr = 1: its buffers (name -> one zero tensor a
+    parameter) and :meth:`direction`, the d of p ← p − lr·d, which
+    updates the buffers in place."""
+
+    buffers: tuple = ()
+
+    def direction(self, grads: dict, bufs: dict, params: dict,
+                  count: torch.Tensor) -> dict:
+        raise NotImplementedError
+
+
+class SGDRule(Rule):
+    """torch.optim.SGD (the reference's ``sgd_modified``)."""
+
+    def __init__(self, momentum: float = 0.0, dampening: float = 0.0,
+                 weight_decay: float = 0.0, nesterov: bool = False):
+        self.momentum, self.dampening = momentum, dampening
+        self.weight_decay, self.nesterov = weight_decay, nesterov
+        self.buffers = ("momentum",) if momentum != 0.0 else ()
+
+    def direction(self, grads, bufs, params, count):
+        out = {}
+        for k, g in grads.items():
+            if self.weight_decay != 0.0:
+                g = g + self.weight_decay * params[k]
+            if self.momentum == 0.0:
+                out[k] = g
+                continue
+            buf = bufs["momentum"][k]
+            if self.dampening == 0.0:
+                buf.mul_(self.momentum).add_(g)
+            else:
+                later = self.momentum * buf + (1.0 - self.dampening) * g
+                buf.copy_(torch.where(count > 0, later, g))
+            out[k] = g + self.momentum * buf if self.nesterov else buf
+        return out
+
+
+class AdamRule(Rule):
+    """torch.optim.Adam (the reference's ``adam_modified``); with
+    ``decoupled`` > 0, AdamW's decay λ·p added to the direction
+    (``adamw_modified``)."""
+
+    buffers = ("exp_avg", "exp_avg_sq")
+
+    def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0, decoupled: float = 0.0):
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.decoupled = weight_decay, decoupled
+
+    def direction(self, grads, bufs, params, count):
+        t = (count + 1).to(torch.float32)
+        step_size = (torch.sqrt(1.0 - torch.pow(self.b2, t))
+                     / (1.0 - torch.pow(self.b1, t)))
+        out = {}
+        for k, g in grads.items():
+            if self.weight_decay != 0.0:
+                g = g + self.weight_decay * params[k]
+            m, v = bufs["exp_avg"][k], bufs["exp_avg_sq"][k]
+            m.mul_(self.b1).add_((1.0 - self.b1) * g)
+            v.mul_(self.b2).add_((1.0 - self.b2) * g * g)
+            d = step_size * m / (torch.sqrt(v) + self.eps)
+            if self.decoupled != 0.0:
+                d = d + self.decoupled * params[k]
+            out[k] = d
+        return out
+
+
+def sgd_modified(momentum: float = 0.0, dampening: float = 0.0,
+                 weight_decay: float = 0.0, nesterov: bool = False) -> Rule:
+    return SGDRule(momentum, dampening, weight_decay, nesterov)
+
+
+def adam_modified(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                  weight_decay: float = 0.0) -> Rule:
+    return AdamRule(b1, b2, eps, weight_decay)
+
+
+def adamw_modified(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                   weight_decay: float = 0.01) -> Rule:
+    return AdamRule(b1, b2, eps, decoupled=weight_decay)
+
+
+def lr_schedule(name: str, lr: float, warmup_steps: int = 0,
+                total_steps: int = 0) -> Callable:
+    """t (the 0-based update count, an int tensor) -> the learning rate.
+
+    "constant": lr, a host number. "cosine": a float32 tensor on t's
+    device, (t+1)/warmup · lr during the warmup (step 0 already moves,
+    step warmup−1 is at the peak), then a cosine decay to 10% of lr at
+    ``total_steps``."""
+    if name == "constant":
+        return lambda t: lr
+    if name == "cosine":
+        floor = 0.1 * lr
+        span = max(total_steps - warmup_steps, 1)
+
+        def sched(t):
+            t = torch.as_tensor(t).to(torch.float32)
+            warm = lr * (t + 1.0) / max(warmup_steps, 1)
+            frac = torch.clamp((t - warmup_steps) / span, 0.0, 1.0)
+            cos = floor + (lr - floor) * 0.5 * (1.0 + torch.cos(math.pi
+                                                                * frac))
+            return torch.where(t < warmup_steps, warm, cos)
+
+        return sched
+    raise ValueError(f"unknown lr schedule: {name}")
+
+
+class Optimizer:
+    """A rule, a schedule and the global-norm clip (module docstring)."""
+
+    def __init__(self, rule: Rule, schedule: Callable, clip_norm: float = 0.0):
+        self.rule, self.schedule, self.clip_norm = rule, schedule, clip_norm
+        self.count: Optional[torch.Tensor] = None
+        self.state: dict = {}  # buffer name -> {param name: tensor}
 
     @torch.no_grad()
-    def zero_bufs(self, params: dict) -> None:
-        """Zero momentum buffers, unless they exist or momentum is 0."""
-        if self.momentum != 0.0 and self.bufs is None:
-            self.bufs = {k: torch.zeros_like(p) for k, p in params.items()}
+    def init(self, params: dict) -> None:
+        """Zero buffers and the count on the parameters' device, unless
+        they exist."""
+        if self.count is not None:
+            return
+        dev = next(iter(params.values())).device
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        for name in self.rule.buffers:
+            self.state.setdefault(
+                name, {k: torch.zeros_like(p) for k, p in params.items()})
+
+    zero_bufs = init
+
+    @property
+    def bufs(self) -> Optional[dict]:
+        """SGD's momentum buffers (None without momentum)."""
+        return self.state.get("momentum")
+
+    @bufs.setter
+    def bufs(self, value: dict) -> None:
+        self.state["momentum"] = value
+
+    def tensors(self) -> dict:
+        """The state's tensors: every buffer and the count."""
+        out = {f"{name}/{k}": v for name, bufs in self.state.items()
+               for k, v in bufs.items()}
+        if self.count is not None:
+            out["opt/count"] = self.count
+        return out
+
+    def clip_scale(self, norm: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(self.clip_norm / torch.clamp_min(norm, 1e-16),
+                           max=1.0)
 
     @torch.no_grad()
     def step(self, params: dict, grads: dict) -> None:
-        if self.momentum != 0.0:
-            if self.bufs is None:
-                self.bufs = {k: g.clone() for k, g in grads.items()}
-            else:
-                for k, g in grads.items():
-                    self.bufs[k].mul_(self.momentum).add_(g)
-            d_p = self.bufs
-        else:
-            d_p = grads
+        """One update of ``params`` in place from ``grads`` (same keys)."""
+        self.init(params)
+        if self.clip_norm > 0.0:
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in grads.values()]))
+            scale = self.clip_scale(norm)
+            grads = {k: g * scale for k, g in grads.items()}
+        self._apply(params, grads)
+
+    @torch.no_grad()
+    def step_flat(self, params: dict, flat: torch.Tensor, layout) -> None:
+        """:meth:`step` on a flat (d,) gradient in the reference's layout;
+        the clip takes one norm of the flat vector."""
+        from draco_tpu_torch import params as params_mod
+
+        self.init(params)
+        if self.clip_norm > 0.0:
+            flat = flat * self.clip_scale(torch.linalg.vector_norm(flat))
+        self._apply(params, params_mod.unflatten(flat, layout))
+
+    def _apply(self, params: dict, grads: dict) -> None:
+        d = self.rule.direction(grads, self.state, params, self.count)
+        lr = self.schedule(self.count)
         for k, p in params.items():
-            p.sub_(self.lr * d_p[k])
+            p.sub_(d[k] * lr)
+        self.count.add_(1)
+
+
+def build_optimizer(name: str, lr: float, momentum: float = 0.0,
+                    weight_decay: float = 0.01, schedule: str = "constant",
+                    warmup_steps: int = 0, total_steps: int = 0,
+                    clip_norm: float = 0.0) -> Optimizer:
+    """The reference's ``build_optimizer``: the rule at lr = 1, scaled by
+    the schedule, behind the clip. ``weight_decay`` is AdamW's decoupled
+    decay (sgd and adam take none here)."""
+    if schedule != "constant" and total_steps <= 0:
+        raise ValueError(
+            f"schedule={schedule!r} needs total_steps > 0 (got "
+            f"{total_steps}); without it the decay span collapses and the "
+            f"whole run trains at the floor rate")
+    if name == "sgd":
+        rule = sgd_modified(momentum=momentum)
+    elif name == "adam":
+        rule = adam_modified()
+    elif name == "adamw":
+        rule = adamw_modified(weight_decay=weight_decay)
+    else:
+        raise ValueError(f"unknown optimizer: {name}")
+    return Optimizer(rule, lr_schedule(schedule, lr, warmup_steps,
+                                       total_steps), clip_norm)
+
+
+def build_optimizer_from_cfg(cfg) -> Optimizer:
+    """One mapping from TrainConfig to the optimizer, shared by the CNN
+    step and the LM step."""
+    return build_optimizer(
+        cfg.optimizer, cfg.lr, cfg.momentum,
+        weight_decay=cfg.weight_decay, schedule=cfg.lr_schedule,
+        warmup_steps=cfg.warmup_steps, total_steps=cfg.max_steps,
+        clip_norm=cfg.clip_norm)
+
+
+def SGD(lr: float, momentum: float = 0.0) -> Optimizer:
+    """SGD with momentum at a constant rate."""
+    return build_optimizer("sgd", lr, momentum)

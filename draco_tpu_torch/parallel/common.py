@@ -199,10 +199,8 @@ def finish_flat_step(state, agg: torch.Tensor, layout) -> None:
     """The optimizer update on the aggregated flat gradient, in place (the
     reference's guard is not ported yet). The step counter is the caller's:
     a captured step runs this once at capture."""
-    from draco_tpu_torch import params as params_mod
-
     with phase("draco_update"):
-        state.opt.step(state.params, params_mod.unflatten(agg, layout))
+        state.opt.step_flat(state.params, agg, layout)
 
 
 def token_metric_names(cfg) -> tuple:

@@ -7,7 +7,8 @@ lane of ``torch.func.vmap(grad_and_value(...))`` on one device: n lanes
 computes its 2s+1 batch rows ``tokens[batch_ids[i]]``). The flat gradients
 (``params.flatten``, the reference's leaf order and layout) go through the
 shared tail of ``parallel/common.py``: inject, encode and decode, or
-aggregate, then SGD with momentum.
+aggregate, then the configuration's optimizer
+(``optim.build_optimizer_from_cfg``).
 
 The loss: position t predicts token t+1; the last position has no target
 and is masked, and the sum is divided by B·(T−1). (The reference's shard
@@ -132,7 +133,8 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     layout = params_mod.layout(model)
     dim = layout.dim
     state = TrainState(params=params, stats={},
-                       opt=optim.SGD(cfg.lr, cfg.momentum))
+                       opt=optim.build_optimizer_from_cfg(cfg))
+    state.opt.init(params)
 
     # position t predicts t+1; the last position has no target
     pos_valid = (torch.arange(T, device=dev) < T - 1).to(torch.float32)

@@ -1,6 +1,9 @@
-"""The reference's named configurations the port runs (draco_tpu/presets.py).
+"""The reference's named configurations (draco_tpu/presets.py), every one
+of which the port runs.
 
   python -m draco_tpu_torch.cli --preset cyclic-resnet18 --num-workers 8
+  python -m draco_tpu_torch.cli --preset cyclic-vgg11 --max-steps 5
+  python -m draco_tpu_torch.cli --preset single-lenet --max-steps 5
 """
 
 from __future__ import annotations
@@ -10,6 +13,11 @@ import dataclasses
 from draco_tpu_torch.config import TrainConfig
 
 PRESETS: dict[str, TrainConfig] = {
+    # LeNet/MNIST single-machine vanilla SGD (no coding, no adversary)
+    "single-lenet": TrainConfig(
+        network="LeNet", dataset="MNIST", approach="baseline", mode="normal",
+        num_workers=1, worker_fail=0, batch_size=128, lr=0.01, momentum=0.9,
+    ),
     # ResNet-18/CIFAR-10, repetition code r=3, no adversary
     "rep-resnet18": TrainConfig(
         network="ResNet18", dataset="Cifar10", approach="maj_vote",
@@ -20,6 +28,13 @@ PRESETS: dict[str, TrainConfig] = {
     "cyclic-resnet18": TrainConfig(
         network="ResNet18", dataset="Cifar10", approach="cyclic",
         num_workers=9, worker_fail=1, err_mode="rev_grad", batch_size=32,
+        lr=0.01, momentum=0.9,
+    ),
+    # VGG-11/CIFAR-10, cyclic code r=5 (s=2), constant attack (the
+    # reference's "random" mode is a passthrough, model_ops/utils.py:20-21)
+    "cyclic-vgg11": TrainConfig(
+        network="VGG11", dataset="Cifar10", approach="cyclic",
+        num_workers=9, worker_fail=2, err_mode="constant", batch_size=32,
         lr=0.01, momentum=0.9,
     ),
     # the robust-aggregation baselines under the same adversary schedule

@@ -21,7 +21,11 @@ real tensor axis:
                             maj_vote: row fingerprints (kernel) → the vote
                             a group; baseline: the robust rule
                             (``aggregation``) over the present rows
-  update                    SGD with momentum on the decoded gradient
+  update                    the optimizer of the configuration
+                            (``optim.build_optimizer_from_cfg``: SGD,
+                            Adam or AdamW under a constant or cosine
+                            schedule, behind the global-norm clip) on the
+                            decoded flat gradient
 
 The repetition code's lanes run under ``torch.backends.cudnn
 .deterministic`` (``vote_lanes``): its vote needs the members of a group,
@@ -30,10 +34,11 @@ default settings on an H100 they do not: every honest lane differed from
 its group's others in about half of ResNet-18's coordinates, every step
 (PERF.md §6).
 
-The state carry is updated in place: parameters, momentum buffers and the
-BN statistics keep their storage across steps. The step is split in two:
-its host inputs (batch, labels, augmentation draws, the adversary and
-presence masks; the approx decode's host solve), and ``step_body``, which
+The state carry is updated in place: parameters, the optimizer's buffers
+and update count, and the BN statistics keep their storage across steps.
+The step is split in two: its host inputs (batch, labels, augmentation
+draws, dropout masks, the adversary and presence masks; the approx
+decode's host solve), and ``step_body``, which
 runs the step on them once they are on the device. The eager
 ``train_step`` sends them by pinned asynchronous copies
 (``runtime.upload``), so the step makes no synchronising call: the program
@@ -54,15 +59,24 @@ and the decode agree with the reference coordinate for coordinate.
 Randomness: augmentation draws come from a ``torch.Generator`` per global
 batch row k (per worker on the baseline, per group on maj_vote, repeated
 over the group's members), folded from (seed + 2, step, k), drawn on the
-host so every device sees the same draws; the vote's two fingerprint salts
+host so every device sees the same draws; a model with dropout (VGG) gets
+its keep-masks the same way from (seed + 3, step, k), so every lane that
+computes batch k (the 2s+1 copies under ``simulate``, a group's members
+on maj_vote) drops the same units and the decode stays exact; the vote's
+two fingerprint salts
 from (seed + 4, step), a host input of the step like the draws; the random
 projection from (seed, 7919), or ``build_train_setup(rand_factor=)``.
-``train_step`` takes explicit ``aug_draws``, ``rand_factor``, ``noise``
-and ``salts`` overrides so the tests can hand it the reference's own
-draws, and the
+``train_step`` takes explicit ``aug_draws``, ``dropout_masks``,
+``rand_factor``, ``noise`` and ``salts`` overrides so the tests can hand it
+the reference's own draws, and the
 step's ``present`` mask (the host's (n,) bool, False = the worker's row
 never arrives; None = all arrive); ``make_chunk`` takes the chunk's
-``draws``.
+``draws`` and ``masks``.
+
+The compute dtype (``cfg.compute_dtype``) is the reference's: the
+convolutions and Dense layers compute in it, parameters, BN statistics and
+the logits stay float32 (``models/layers.py``), and the flat gradient is
+float32.
 """
 
 from __future__ import annotations
@@ -83,7 +97,7 @@ from draco_tpu_torch.coding import repetition as rep_mod
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import augment as augment_mod
 from draco_tpu_torch.models import build_model
-from draco_tpu_torch.models.resnet import init_params, init_stats
+from draco_tpu_torch.models.layers import DROPOUT_KEEP, init_params, init_stats
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.obs.tracer import phase
 from draco_tpu_torch.ops import vote as vote_ops
@@ -103,6 +117,7 @@ from draco_tpu_torch.runtime import cudnn_deterministic, resolve_device, upload
 from draco_tpu_torch.training.chunk_graph import Chunk, StepGraph
 
 AUG_SALT = 2  # the reference's augmentation seed salt (seed + 2)
+DROPOUT_SALT = 3  # the reference's dropout seed salt (seed + 3)
 VOTE_SALT = 4  # the vote's fingerprint salts (seed + 4)
 # the repetition code's per-step health columns (coding/repetition.py) and
 # its detection counts against the seeded schedules
@@ -116,14 +131,14 @@ APPROX_HOST_NAMES = ("decode_residual_bound", "recovered_fraction")
 class TrainState:
     params: dict  # torch name -> tensor (torch layout); updated in place
     stats: dict  # "<path>/mean" | "<path>/var" -> (n, features) per worker
-    opt: optim.SGD
+    opt: optim.Optimizer
     step: int = 1  # the reference's STEP_START = 1
 
     def tensors(self) -> dict:
-        """The state's tensors: parameters, momentum buffers, statistics."""
+        """The state's tensors: parameters, the optimizer's buffers and
+        update count, statistics."""
         out = {f"params/{k}": v for k, v in self.params.items()}
-        out.update({f"momentum/{k}": v
-                    for k, v in (self.opt.bufs or {}).items()})
+        out.update(self.opt.tensors())
         out.update({f"stats/{k}": v for k, v in self.stats.items()})
         return out
 
@@ -132,7 +147,8 @@ class TrainSetup(NamedTuple):
     model: Any
     state: TrainState
     # (state, x, y, adv_mask, aug_draws=None, rand_factor=None, noise=None,
-    #  present=None, salts=None) -> (state, metrics dict of 0-d tensors)
+    #  present=None, salts=None, dropout_masks=None)
+    #   -> (state, metrics dict of 0-d tensors)
     train_step: Any
     code: Any  # CyclicCode | ApproxCode | RepetitionCode | None
     layout: params_mod.Layout
@@ -144,7 +160,8 @@ class TrainSetup(NamedTuple):
     # metrics of block_names (0-d device tensors); no host work, no upload
     step_body: Any
     block_names: tuple  # the metric columns the device computes
-    # (start, xs, ys, masks, presents=None, draws=None) -> Chunk
+    # (start, xs, ys, masks, presents=None, draws=None, dropout=None)
+    #   -> Chunk
     make_chunk: Any
     # (state, chunk) -> (state, (k, len(block_names)) metrics on the device)
     train_many: Any
@@ -173,6 +190,17 @@ def aug_draws(cfg: TrainConfig, step: int, rows: int):
                               drng.generator(cfg.seed + AUG_SALT, step, k))
              for k in range(rows)]
     return tuple(torch.stack(d) for d in zip(*draws))
+
+
+def dropout_masks(cfg: TrainConfig, step: int, rows: int,
+                  features: tuple) -> torch.Tensor:
+    """Per-row dropout keep-masks, (rows, len(features), B, width) bool,
+    from the host generator of (seed + 3, step, row)."""
+    shape = (len(features), cfg.batch_size, features[0])
+    return torch.stack([
+        torch.rand(shape, generator=drng.generator(
+            cfg.seed + DROPOUT_SALT, step, k)) < DROPOUT_KEEP
+        for k in range(rows)])
 
 
 def vote_salts(cfg: TrainConfig, step: int) -> torch.Tensor:
@@ -208,10 +236,10 @@ def metrics_row(metrics: dict, names: tuple) -> torch.Tensor:
 
 def chunk_runner(name: str, cfg: TrainConfig, dev, setup_state, body,
                  block_names: tuple):
-    """``train_many`` of a setup: the first chunk makes the momentum
-    buffers (zeros) and the :class:`StepGraph` over ``body(state, inputs)
-    -> metrics``, bound to ``setup_state``; each chunk then runs through it
-    and advances the state's step counter."""
+    """``train_many`` of a setup: the first chunk makes the optimizer's
+    state, if no step has, and the :class:`StepGraph` over ``body(state,
+    inputs) -> metrics``, bound to ``setup_state``; each chunk then runs
+    through it and advances the state's step counter."""
     box = {}
 
     def train_many(state, chunk: Chunk):
@@ -219,7 +247,7 @@ def chunk_runner(name: str, cfg: TrainConfig, dev, setup_state, body,
             raise ValueError(f"{name}: the chunk runs on the setup's own "
                              f"state, which its graph updates in place")
         if "graph" not in box:
-            state.opt.zero_bufs(state.params)
+            state.opt.init(state.params)
             box["graph"] = StepGraph(
                 name, dev, cfg.steps_per_call, block_names,
                 lambda inputs: metrics_row(body(state, inputs), block_names),
@@ -249,7 +277,7 @@ def build_train_setup(cfg: TrainConfig, device=None,
     dataset_name = dataset_name or cfg.dataset
     use_aug = "cifar" in dataset_name.lower()
 
-    model = build_model(cfg.network, dataset_name)
+    model = build_model(cfg.network, dataset_name, dtype=cfg.compute_dtype)
     if init is None:
         init_params(model, drng.generator(cfg.seed))
         stats0 = init_stats(model)
@@ -265,22 +293,26 @@ def build_train_setup(cfg: TrainConfig, device=None,
     layout = params_mod.layout(model)
     dim = layout.dim
     state = TrainState(params=params, stats=stats,
-                       opt=optim.SGD(cfg.lr, cfg.momentum))
+                       opt=optim.build_optimizer_from_cfg(cfg))
+    # the optimizer's buffers and count exist from the start: the state's
+    # tensors keep their storage from the first step on
+    state.opt.init(params)
+    drop = model.dropout_features  # () for a model without dropout
 
-    def loss_fn(p, st, x, y):
-        logits, new_st = functional_call(model, (p,), (x, st))
+    def loss_fn(p, st, x, y, keep):
+        logits, new_st = functional_call(model, (p,), (x, st, keep))
         loss = _cross_entropy(logits, y)
         prec1 = (logits.argmax(-1) == y).float().mean()
         return loss, (new_st, prec1)
 
     lanes_fn = vmap(grad_and_value(loss_fn, has_aux=True),
-                    in_dims=(None, 0, 0, 0))
+                    in_dims=(None, 0, 0, 0, 0 if drop else None))
 
-    def lanes(p, st, x, y):
+    def lanes(p, st, x, y, keep):
         """(lanes, B, ...) -> flat grads (lanes, d), new stats, losses,
-        precs."""
+        precs; ``keep``: each lane's dropout masks, or None."""
         with phase("draco_comp"):
-            g, (loss, (new_st, prec1)) = lanes_fn(p, st, x, y)
+            g, (loss, (new_st, prec1)) = lanes_fn(p, st, x, y, keep)
             return params_mod.flatten(g, layout, lead=1), new_st, loss, prec1
 
     code = build_code_from_cfg(cfg)
@@ -294,7 +326,7 @@ def build_train_setup(cfg: TrainConfig, device=None,
     # members see the same pixels), else one a worker / batch row
     draw_rows = cfg.num_groups if vote else n
 
-    def step_inputs(step, adv_mask, present, draws, salts=None):
+    def step_inputs(step, adv_mask, present, draws, salts=None, keep=None):
         """The host inputs of one step other than its batch, and its host
         columns."""
         out, host = {}, {}
@@ -303,6 +335,10 @@ def build_train_setup(cfg: TrainConfig, device=None,
                 draws = aug_draws(cfg, step, draw_rows)
             # the three draws in one tensor
             out["draws"] = torch.stack([torch.as_tensor(t) for t in draws])
+        if drop:
+            out["dropout"] = (dropout_masks(cfg, step, draw_rows, drop)
+                              if keep is None
+                              else torch.as_tensor(keep).bool())
         if vote:
             out["salts"] = (vote_salts(cfg, step) if salts is None
                             else torch.as_tensor(salts, dtype=torch.int32))
@@ -319,15 +355,18 @@ def build_train_setup(cfg: TrainConfig, device=None,
         return out, host
 
     def host_inputs(step, x, y, adv_mask, present=None, aug_draws=None,
-                    salts=None):
-        out, host = step_inputs(step, adv_mask, present, aug_draws, salts)
+                    salts=None, keep=None):
+        out, host = step_inputs(step, adv_mask, present, aug_draws, salts,
+                                keep)
         return {"x": torch.as_tensor(x), "y": torch.as_tensor(y), **out}, host
 
-    def make_chunk(start, xs, ys, masks, presents=None, draws=None):
+    def make_chunk(start, xs, ys, masks, presents=None, draws=None,
+                   dropout=None):
         k = len(xs)
         per = [step_inputs(start + i, masks[i],
                            None if presents is None else presents[i],
-                           None if draws is None else draws[i])
+                           None if draws is None else draws[i],
+                           keep=None if dropout is None else dropout[i])
                for i in range(k)]
         return Chunk(start, k,
                      {"x": torch.as_tensor(xs), "y": torch.as_tensor(ys),
@@ -336,19 +375,23 @@ def build_train_setup(cfg: TrainConfig, device=None,
                      {name: [float(p[1][name]) for p in per]
                       for name in host_names})
 
-    # each lane's row of draws: its group's on maj_vote
+    # each lane's row of draws and dropout masks: its group's on maj_vote
     lane_draws = (torch.arange(n, device=dev) // cfg.group_size if vote
                   else None)
 
     def batch(inputs):
-        """The step's (n, B, ...) images, augmented, and int64 labels."""
+        """The step's (n, B, ...) images, augmented, int64 labels and
+        each row's dropout masks (None without dropout)."""
         x, y = inputs["x"], inputs["y"].long()
+        keep = inputs.get("dropout")
         if "draws" in inputs:
             draws = inputs["draws"]
             if lane_draws is not None:
                 draws = draws.index_select(1, lane_draws)
             x = augment_mod.augment(x, *draws.unbind(0))
-        return x, y
+        if keep is not None and lane_draws is not None:
+            keep = keep.index_select(0, lane_draws)
+        return x, y, keep
 
     def attack_generator(state, noise):
         """The random attack's per-step generator, unless noise was given."""
@@ -359,8 +402,7 @@ def build_train_setup(cfg: TrainConfig, device=None,
     @torch.no_grad()
     def update(state, flat_grad, new_stats):
         with phase("draco_update"):
-            state.opt.step(state.params,
-                           params_mod.unflatten(flat_grad, layout))
+            state.opt.step_flat(state.params, flat_grad, layout)
             for k, v in new_stats.items():
                 state.stats[k].copy_(v)
 
@@ -372,9 +414,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
 
         def step_body(state, inputs, rand_factor=None, noise=None):
             del rand_factor
-            x, y = batch(inputs)
+            x, y, keep = batch(inputs)
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
-                                                    x, y)
+                                                    x, y, keep)
             gen = attack_generator(state, noise)
             pres = inputs.get("present")
             grads = attacks.inject_plain(grads, inputs["adv"], cfg.err_mode,
@@ -390,10 +432,10 @@ def build_train_setup(cfg: TrainConfig, device=None,
 
         def step_body(state, inputs, rand_factor=None, noise=None):
             del rand_factor
-            x, y = batch(inputs)
+            x, y, keep = batch(inputs)
             with vote_lanes(dev):
                 grads, new_stats, losses, precs = lanes(
-                    state.params, state.stats, x, y)
+                    state.params, state.stats, x, y, keep)
             gen = attack_generator(state, noise)
             mask, pres = inputs["adv"], inputs.get("present")
             grads = attacks.inject_plain(grads, mask, cfg.err_mode,
@@ -416,9 +458,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
 
         def step_body(state, inputs, rand_factor=None, noise=None):
             del rand_factor, noise
-            x, y = batch(inputs)
+            x, y, keep = batch(inputs)
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
-                                                    x, y)
+                                                    x, y, keep)
             pres = inputs.get("present")
             agg, residual = approx_aggregate(code, grads, inputs["vn_pres"],
                                              pres is not None, cfg)
@@ -445,11 +487,11 @@ def build_train_setup(cfg: TrainConfig, device=None,
         if bounds is not None:
             segment_plan(bounds, dev)
 
-        def compute_encoded(state, x, y):
+        def compute_encoded(state, x, y, keep):
             if cfg.redundancy == "shared":
                 # each batch row computed once, combined with the masked W
                 grads, new_stats, losses, precs = lanes(
-                    state.params, state.stats, x, y)
+                    state.params, state.stats, x, y, keep)
                 with phase("draco_encode"):
                     enc_re, enc_im = cyclic_mod.encode_shared(code, grads)
                 return enc_re, enc_im, new_stats, losses, precs
@@ -457,9 +499,11 @@ def build_train_setup(cfg: TrainConfig, device=None,
             # own BN stats on each of them
             xw = x[batch_ids].flatten(0, 1)
             yw = y[batch_ids].flatten(0, 1)
+            kw = None if keep is None else keep[batch_ids].flatten(0, 1)
             st = {k: v[:, None].expand(n, hat_s, v.shape[-1]).flatten(0, 1)
                   for k, v in state.stats.items()}
-            grads, new_stats, losses, precs = lanes(state.params, st, xw, yw)
+            grads, new_stats, losses, precs = lanes(state.params, st, xw, yw,
+                                                    kw)
             with phase("draco_encode"):
                 enc_re, enc_im = cyclic_mod.encode(code,
                                                    grads.view(n, hat_s, dim))
@@ -470,9 +514,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
                     precs.view(n, hat_s).mean(1))
 
         def step_body(state, inputs, rand_factor=None, noise=None):
-            x, y = batch(inputs)
+            x, y, keep = batch(inputs)
             enc_re, enc_im, new_stats, losses, precs = compute_encoded(
-                state, x, y)
+                state, x, y, keep)
             gen = attack_generator(state, noise)
             mask, pres = inputs["adv"], inputs.get("present")
             with phase("draco_encode"):
@@ -499,9 +543,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
             return metrics
 
     def train_step(state, x, y, adv_mask, aug_draws=None, rand_factor=None,
-                   noise=None, present=None, salts=None):
+                   noise=None, present=None, salts=None, dropout_masks=None):
         inputs, host = host_inputs(state.step, x, y, adv_mask, present,
-                                   aug_draws, salts)
+                                   aug_draws, salts, dropout_masks)
         # host inputs by pinned asynchronous copies: no synchronising call
         metrics = step_body(state, {k: upload(v, dev)
                                     for k, v in inputs.items()},

@@ -41,7 +41,13 @@ MAIN_KERNELS = ("complex_matmul", "complex_project", "complex_recombine",
 LEGS = ("simulate", "geomedian", "shared", "approx", "approx_int8",
         "shared_bf16", "shared_int8", "majvote", "krum", "lm_shared_flash",
         "lm_simulate_flash", "lm_geomedian_flash", "shared_layer",
-        "shared_int8_seg4", "approx_int8_seg4", "lm_shared_flash_layer")
+        "shared_int8_seg4", "approx_int8_seg4", "lm_shared_flash_layer",
+        "vgg11_simulate", "vgg11_shared", "lenet_single", "shared_c16",
+        "lm_shared_flash_adamw")
+# the legs' workers at full width: presets rep-resnet18 and cyclic-vgg11
+# (n=9), single-lenet (n=1), the others n=8
+FULL_N = {"majvote": 9, "vgg11_simulate": 9, "vgg11_shared": 9,
+          "lenet_single": 1}
 
 
 def _bad(x):
@@ -307,8 +313,7 @@ def test_the_registry_covers_the_ten_legs():
         assert registry.uploads(a) == registry.uploads(b)
     for p in registry.collect():
         full, ci = p.config(full=True), p.config(full=False)
-        # the repetition code's preset: 3 groups of 3
-        assert full.num_workers == (9 if p.name == "majvote" else 8)
+        assert full.num_workers == FULL_N.get(p.name, 8)
         assert (full.network, full.approach, full.wire_dtype) == (
             ci.network, ci.approach, ci.wire_dtype)
         m = p.manifest(full, True)
@@ -353,7 +358,8 @@ def test_control_trips_exactly_its_rule(control):
 def test_the_honest_miniature_is_green():
     row, rec = rules.lint_program(lint_controls.honest_program(CPU))
     assert row["ok"], row
-    assert rec["state"]["tensors"] == 3  # w, its momentum, the statistics
+    # w, its momentum, the optimizer's update count, the statistics
+    assert rec["state"]["tensors"] == 4
 
 
 def test_card_controls_are_listed_for_the_card_only():

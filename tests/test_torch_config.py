@@ -1,0 +1,116 @@
+"""The port's configuration against the reference's: the default
+configuration (LeNet on MNIST), the presets
+``single-lenet`` and ``cyclic-vgg11``, every network of the reference's
+zoo, bfloat16 compute on the CNN, and the optimizer fields (``optimizer``,
+``weight_decay``, ``lr_schedule``, ``warmup_steps``, ``clip_norm``) with
+the reference's names, defaults and checks. No JAX computation: seconds.
+"""
+
+import pytest
+
+from draco_tpu import optim as joptim
+from draco_tpu import presets as jpresets
+from draco_tpu.config import TrainConfig as JaxConfig
+from draco_tpu.models import _REGISTRY as JAX_MODELS
+from draco_tpu_torch import cli, presets
+from draco_tpu_torch.config import TrainConfig
+from draco_tpu_torch.models import NAMES, build_model
+
+OPT_FIELDS = ("optimizer", "lr", "momentum", "weight_decay", "lr_schedule",
+              "warmup_steps", "clip_norm")
+
+
+def test_the_default_configuration_validates():
+    """The reference's defaults: LeNet on MNIST, the baseline, SGD."""
+    cfg = TrainConfig().validate()
+    ref = JaxConfig().validate()
+    assert (cfg.network, cfg.dataset) == ("LeNet", "MNIST")
+    for f in OPT_FIELDS + ("network", "dataset", "approach", "compute_dtype"):
+        assert getattr(cfg, f) == getattr(ref, f), f
+
+
+@pytest.mark.parametrize("name", ["single-lenet", "cyclic-vgg11"])
+def test_new_presets_are_the_references(name):
+    port, ref = presets.get_preset(name), jpresets.get_preset(name)
+    for f in ("network", "dataset", "approach", "mode", "num_workers",
+              "worker_fail", "err_mode", "batch_size", "redundancy",
+              "adversary_count", "seed") + OPT_FIELDS:
+        assert getattr(port, f) == getattr(ref, f), f
+    assert port.num_adversaries == ref.num_adversaries
+
+
+def test_every_reference_network_is_built():
+    """The whole zoo: its names, and each CNN built at both datasets'
+    shapes and both compute dtypes."""
+    assert set(NAMES) == set(JAX_MODELS)
+    for name in NAMES:
+        TrainConfig(network=name, dataset="synthetic-cifar10",
+                    compute_dtype="bfloat16").validate()
+    for name in ("LeNet", "FC", "VGG13_bn"):
+        for ds in ("synthetic-mnist", "synthetic-cifar10"):
+            build_model(name, ds, dtype="bfloat16")
+
+
+# (fields, the reference's validate() raises)
+CASES = [
+    (dict(lr_schedule="linear"), True),
+    (dict(warmup_steps=-1), True),
+    (dict(clip_norm=-0.5), True),
+    (dict(warmup_steps=2), True),  # with the constant schedule
+    (dict(warmup_steps=2, lr_schedule="cosine"), False),
+    (dict(clip_norm=0.0), False),
+    (dict(clip_norm=1.0, optimizer="adamw", weight_decay=0.05), False),
+    (dict(optimizer="adam", lr_schedule="cosine"), False),
+    (dict(network="ResNet18", dataset="synthetic-cifar10",
+          compute_dtype="bfloat16"), False),
+    (dict(network="VGG11", dataset="synthetic-cifar10",
+          compute_dtype="bfloat16", approach="cyclic", num_workers=9,
+          worker_fail=2, err_mode="constant"), False),
+    (dict(compute_dtype="float16"), True),
+]
+
+
+@pytest.mark.parametrize("fields,raises", CASES,
+                         ids=lambda v: "-".join(f"{k}={x}" for k, x in
+                                                v.items())
+                         if isinstance(v, dict) else str(v))
+def test_checks_match_the_reference(fields, raises):
+    def outcome(cls):
+        try:
+            cls(**fields).validate()
+        except ValueError as e:
+            return str(e)
+        return None
+
+    port, ref = outcome(TrainConfig), outcome(JaxConfig)
+    assert (ref is not None) == raises
+    assert (port is not None) == raises, port
+    if raises and "compute_dtype" not in fields:
+        assert port == ref  # the reference's own message
+
+
+def test_an_unknown_optimizer():
+    """The reference accepts the name in validate() and refuses it when it
+    builds the optimizer; the port refuses it in validate(), with the same
+    message, before any data is loaded."""
+    with pytest.raises(ValueError, match="unknown optimizer: lamb"):
+        joptim.build_optimizer_from_cfg(JaxConfig(optimizer="lamb"))
+    with pytest.raises(ValueError, match="unknown optimizer: lamb"):
+        TrainConfig(optimizer="lamb").validate()
+
+
+def test_cli_flags():
+    args = cli.parser().parse_args([
+        "--preset", "cyclic-vgg11", "--optimizer", "adamw", "--lr", "0.001",
+        "--weight-decay", "0.05", "--lr-schedule", "cosine",
+        "--warmup-steps", "2", "--clip-norm", "1.0", "--compute-dtype",
+        "bfloat16"])
+    cfg = cli.config_from_args(args)
+    want = dict(network="VGG11", num_workers=9, worker_fail=2,
+                optimizer="adamw", lr=0.001, weight_decay=0.05,
+                lr_schedule="cosine", warmup_steps=2, clip_norm=1.0,
+                compute_dtype="bfloat16")
+    assert {k: getattr(cfg, k) for k in want} == want
+    cfg = cli.config_from_args(cli.parser().parse_args(
+        ["--preset", "single-lenet"]))
+    assert cfg == presets.get_preset("single-lenet")

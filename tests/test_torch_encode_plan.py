@@ -7,7 +7,8 @@ of G, and the shared-memory layout of W).
 A numpy model of the kernels' index arithmetic: a lane takes the V columns
 [V·c, V·c + V) of every row (V = 4 where d is a multiple of 32 and the
 three buffers start 128-byte aligned, 2 where d is even and they start
-8-byte aligned, else 1), kRowGroup = 8 output rows at a time, and loads
+8-byte aligned, else 1), kRowGroup = 8 output rows at a time (at m = 9 a
+group of 8 and a second, one-row group), and loads
 the rows of G kK = 8 at a time; W's rows are padded to a multiple of kK in
 shared memory and read 16 bytes at a time. At V = 4 and 1 a warp takes
 windows of 32 groups and a lane stores its own; at V = 2 a block's window
@@ -15,7 +16,7 @@ computes the 256 groups [240w − 16, 240w + 240), stages them, and stores,
 of each output row, the 240 groups from the row's own 128-byte line, two
 staged groups a lane (16 bytes). For every buffer alignment (the start of
 G and of both outputs, 0–120 bytes past a 128-byte line), d ≡ 0…15
-(mod 16) and m, n in {1, 5, 8, 64}:
+(mod 16) and m, n in {1, 5, 8, 9, 64}:
 
 - every element of both outputs is written exactly once, with the sums of
   the thread that computed its group;
@@ -156,7 +157,7 @@ def check_shared_w(m, n):
 OFFSETS = [(a, 0, 0) for a in (0, 4, 8, 32, 120)] \
     + [(0, a, 0) for a in (8, 64)] + [(0, 0, a) for a in (4, 96)] \
     + [(0, 8, 24)]
-SIZES = (1, 5, 8, 64)
+SIZES = (1, 5, 8, 9, 64)
 
 
 @pytest.mark.parametrize("m", SIZES)
@@ -190,3 +191,24 @@ def test_the_main_paths_widths():
     assert [line_shift(BASE + i * 11_173_962 * 4) for i in range(5)] == \
         [0, 11, 6, 1, 12]
     assert width(62_958_336, BASE, BASE + 512, BASE + 1024) == 4
+
+
+def test_the_vgg_legs_rows():
+    """VGG-11's d = 9,750,922 at m = n = 9 (preset cyclic-vgg11): float2
+    columns, and row i starts 40·i mod 128 bytes past a line, as
+    ResNet-18's rows do; the nine output rows are a group of 8 and a
+    second, one-row group, each stored a line at a time from the staging.
+    d mod 32 sets the rows' line shifts and d mod 480 where the last block
+    window ends ((d/2 + 16) mod 240), so the model at the small d ≡
+    9,750,922 (mod 480) runs the VGG legs' plan, at every buffer alignment
+    of OFFSETS."""
+    d = 9_750_922
+    assert width(d, BASE, BASE + 512, BASE + 1024) == 2
+    assert d * 4 % 128 == 40
+    small = d % 480 + 4 * 480
+    assert [line_shift(BASE + i * d * 4) for i in range(9)] == \
+        [line_shift(BASE + i * small * 4) for i in range(9)] == \
+        [0, 11, 6, 1, 12, 7, 2, 13, 8]
+    for offsets in OFFSETS:
+        v = check(9, 9, small, offsets)
+        assert v == (2 if all(o % 8 == 0 for o in offsets) else 1)

@@ -174,10 +174,14 @@ def test_lm_config_rejects_what_is_not_ported(override):
 
 
 def test_cnn_rejects_bfloat16():
+    """The CNN takes the reference's compute dtypes, bfloat16 among them
+    (its convolutions and Dense layers in bf16, models/layers.py), and
+    rejects any other, as the LM does."""
     cnn = dict(network="ResNet18", dataset="synthetic-cifar10")
     TrainConfig(**cnn).validate()
-    with pytest.raises(ValueError, match="bfloat16"):
-        TrainConfig(**cnn, compute_dtype="bfloat16").validate()
+    TrainConfig(**cnn, compute_dtype="bfloat16").validate()
+    with pytest.raises(ValueError, match="float32|bfloat16"):
+        TrainConfig(**cnn, compute_dtype="float16").validate()
 
 
 def test_cli_writes_the_reference_columns(tmp_path):

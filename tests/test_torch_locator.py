@@ -97,7 +97,7 @@ def test_masked_median():
 # --------------------------------------------------------------------------
 
 def test_code_construction_matches():
-    for n, s in ((8, 1), (16, 2)):
+    for n, s in ((8, 1), (9, 2), (16, 2)):
         jcode, tcode = jc.build_cyclic_code(n, s), tc.build_cyclic_code(n, s)
         for f in ("w_sel_re", "w_sel_im", "batch_ids", "c2h_re", "c2h_im",
                   "c1_re", "c1_im", "est_re", "est_im", "w_masked_re",
@@ -148,7 +148,9 @@ def columns(r_re, r_im, L, seed):
     return e_re, e_im, f
 
 
-CASES = [(n, s, sc, lam) for n, s in ((8, 1), (16, 2))
+# n=9, s=2: preset cyclic-vgg11's code (the VGG-11 legs)
+CODES = ((8, 1), (9, 2), (16, 2))
+CASES = [(n, s, sc, lam) for n, s in CODES
          for sc in ("clean", "attacked", "absent") for lam in (0.0, LAM)]
 
 
@@ -209,7 +211,7 @@ def test_locator_core_vs_fused_and_xla(case):
         assert not out[2][:, bad].any()
 
 
-NAN_CASES = [(n, s, poison, lam) for n, s in ((8, 1), (16, 2))
+NAN_CASES = [(n, s, poison, lam) for n, s in CODES
              for poison in ("nan_row", "inf_row", "nan_one_column")
              for lam in (0.0, LAM)]
 
@@ -254,6 +256,8 @@ def test_locator_core_non_finite_columns(case):
 
 @pytest.mark.parametrize("n,s,scenario", [(8, 1, "attacked"),
                                           (8, 1, "absent"),
+                                          (9, 2, "attacked"),
+                                          (9, 2, "absent"),
                                           (16, 2, "attacked"),
                                           (16, 2, "absent")])
 def test_decode_vs_fused(n, s, scenario):
