@@ -147,6 +147,27 @@ prints no result line):
               ``majvote``: no
               synchronising call inside a chunk, one device-to-host fetch
               a flush, the staging copy's bytes, the graph's pool
+  7. state    the run state (``state_phase``), ResNet legs under
+              deterministic cuDNN: preset cyclic-resnet18 with
+              ``shared``, n=8, K=4, 12 steps with the test-set eval
+              (2048 images at batch 1000, a ragged tail of 48) and a
+              checkpoint at 4, 8 and 12; resumed from 4 on its own setup,
+              whose graph already replayed (every state tensor keeps its
+              storage, no recapture); walked back past a byte flipped in
+              the newest checkpoint to 8, on a fresh setup; SIGTERM from a
+              timer thread mid-chunk (steps 5–8), which stops at 8 with a
+              checkpoint, then resumed from −1. Each final state
+              (parameters, momentum, BN statistics, count, step) bit for
+              bit the uninterrupted run's, and each capture launching the
+              uninterrupted run's kernels. The .dcg at zlib levels 0 and 1
+              (bytes, save and load ms) and the eval ms; the checkpoint-
+              polling evaluator (``python -m
+              draco_tpu_torch.training.evaluator --once``) against
+              ``Trainer.evaluate`` at 4, 8, 12. ``lm_shared_flash`` at full
+              width, K=4: 8 steps with a checkpoint at 4 and 8, then a
+              fresh setup resumed from 4 for 4 steps, the state at 8 bit
+              for bit. ``single_machine`` on preset single-lenet for 12
+              steps
 
 ``--profile`` adds one torch.profiler step per leg (device time by kernel
 and by the step's phases draco_comp / draco_encode / draco_decode /
@@ -166,16 +187,20 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import torch
 import torch.nn.functional as F
 
-from draco_tpu_torch import _build, attacks, ops
+from draco_tpu_torch import _build, attacks, ops, presets, single_machine
 from draco_tpu_torch import params as params_mod
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.analysis import kernel_audit, program_lint, registry
@@ -198,6 +223,7 @@ from draco_tpu_torch.parallel.token_loop import TokenLoop
 from draco_tpu_torch.runtime import cudnn_deterministic, resolve_device
 from draco_tpu_torch.training.chunk_graph import StateSnapshot
 from draco_tpu_torch.training.trainer import Trainer
+from draco_tpu_torch.utils import checkpoint as ckpt
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -2842,6 +2868,306 @@ def lm_checks(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 7: the run state
+# --------------------------------------------------------------------------
+
+STATE_STEPS, STATE_EVERY = 12, 4  # the ResNet legs: eval and save every 4
+LM_STATE_STEPS = 8
+
+
+def _records(d: str) -> list:
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        return [json.loads(x) for x in f]
+
+
+def _held(label: str, fin: dict, want: dict) -> None:
+    gap = _differs(fin, want)
+    require(not gap, f"state {label}: the final state is not the "
+            f"uninterrupted run's bit for bit: {dict(list(gap.items())[:6])} "
+            f"({len(gap)} of {len(want)} tensors differ)")
+
+
+def _launched(label: str, counts: dict, want: dict, names) -> dict:
+    """The wrappers' launches of a leg (the warm-up and the capture of its
+    chunk's step: replays run the captured kernels without a wrapper
+    call), each expected kernel among them, equal to the uninterrupted
+    leg's."""
+    got = {k: counts[k] for k in names}
+    require(all(v > 0 for v in got.values()), f"state {label}: a kernel "
+            f"of the path was not launched: {got}")
+    ref = {k: want[k] for k in names}
+    require(got == ref, f"state {label}: launches {got}, the "
+            f"uninterrupted leg's {ref}")
+    return got
+
+
+def _timed_run(runner, **kw) -> tuple:
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    last = runner.run(**kw)
+    return last, ops.launch_counts(), time.perf_counter() - t0
+
+
+def _save_load(tr, d: str, step: int, compress: bool) -> dict:
+    """Save the trainer's state at zlib level 1 or 0, then load it back in
+    place: host wall ms of each (the save's copies off the card included,
+    the load's onto it), and the file's bytes."""
+    lay = tr.setup.layout
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save(d, step, tr.state.arrays(lay), compress=compress)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tr.state.load(ckpt.load(d, step, tr.state.specs(lay)), lay)
+    torch.cuda.synchronize()
+    return {"level": int(compress), "save_ms": save_ms,
+            "load_ms": (time.perf_counter() - t0) * 1e3,
+            "bytes": os.path.getsize(path)}
+
+
+def _stop_mid_chunk(tr, start: int) -> None:
+    """Deliver SIGTERM through ``GracefulStop.deliver_signal`` from a
+    timer thread while the card runs the chunk that starts at ``start``
+    (its replays queued, the host waiting on the thread)."""
+    make = tr.chunk_client
+
+    def chunk_client(first, last):
+        client = make(first, last)
+        dispatch = client.dispatch
+
+        def wrapped(state, chunk):
+            out = dispatch(state, chunk)
+            if chunk.start == start:
+                timer = threading.Timer(0.005, tr._stop.deliver_signal,
+                                        (signal.SIGTERM,))
+                timer.start()
+                timer.join()
+            return out
+        client.dispatch = wrapped
+        return client
+    tr.chunk_client = chunk_client
+
+
+def state_resnet(dev, ds, root: str) -> dict:
+    """Preset cyclic-resnet18 at n=8, ``shared``, K=4, eval and checkpoint
+    every 4 of 12 steps, all under deterministic cuDNN: the uninterrupted
+    run; the resume from 4 on its own setup, whose graph already replayed;
+    the walk-back past a corrupt newest checkpoint on a fresh setup; a
+    SIGTERM mid-chunk and its resume from −1. Each final state bit for bit
+    the uninterrupted run's."""
+    cfg = presets.get_preset(
+        "cyclic-resnet18", redundancy="shared", num_workers=N,
+        steps_per_call=CHUNK_K, eval_freq=STATE_EVERY,
+        max_steps=STATE_STEPS, test_batch_size=1000, train_dir="")
+
+    def trainer(d, **fields):
+        return Trainer(dataclasses.replace(cfg, train_dir=d, **fields),
+                       device=dev, dataset=ds, quiet=True)
+
+    names = EXPECT["shared"]
+    out = {}
+    a_dir = os.path.join(root, "resnet")
+    with cudnn_deterministic():
+        tr = trainer(a_dir)
+        last, counts, wall = _timed_run(tr)
+        require(last["step"] == STATE_STEPS and located("shared", last, cfg),
+                f"state resnet: the last record {last}")
+        want = {k: counts[k] for k in names}
+        _launched("resnet", counts, want, names)
+        evals = [r for r in _records(a_dir) if "prec1_test" in r]
+        require([r["step"] for r in evals] == [4, 8, 12]
+                and all(0.0 <= r["prec1_test"] <= r["prec5_test"] <= 1.0
+                        for r in evals), f"state resnet: evals {evals}")
+        require(ckpt.available_steps(a_dir) == [4, 8, 12],
+                f"state resnet: checkpoints {ckpt.available_steps(a_dir)}")
+        final = _state_copy(tr.state)
+        out["uninterrupted"] = {"wall_s": wall, "evals": evals,
+                                "launches": want, "state_tensors": len(final)}
+
+        # resume from 4 on the same setup: its graph captured and replayed
+        graph = tr.setup.train_many.graph()
+        ptrs = {k: v.data_ptr() for k, v in tr.state.tensors().items()}
+        require(tr.restore(4) == 4 and tr.state.step == 5,
+                "state resume_4: restore")
+        require({k: v.data_ptr() for k, v in tr.state.tensors().items()}
+                == ptrs, "state resume_4: a restored tensor moved")
+        last4, counts4, wall4 = _timed_run(tr)
+        require(tr.setup.train_many.graph() is graph
+                and not any(counts4[k] for k in names),
+                f"state resume_4: recaptured, launches {counts4}")
+        _held("resume_4", _state_copy(tr.state), final)
+        out["resume_4_same_setup"] = {"wall_s": wall4, "graph_reused": True,
+                                      "launches": {k: counts4[k]
+                                                   for k in names}}
+
+        # sizes and times of the step-12 state; then the eval's
+        out["ckpt"] = [_save_load(tr, os.path.join(root, f"level{c}"),
+                                  STATE_STEPS, bool(c)) for c in (0, 1)]
+        _held("save and load", _state_copy(tr.state), final)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = tr.evaluate(STATE_STEPS)
+        out["eval_ms"] = (time.perf_counter() - t0) * 1e3
+        require(rec["prec1_test"] == evals[-1]["prec1_test"],
+                f"state eval: {rec} against the run's {evals[-1]}")
+
+        # walk-back: the newest checkpoint's byte flipped, a fresh setup
+        w_dir = os.path.join(root, "walkback")
+        shutil.copytree(a_dir, w_dir)
+        path = os.path.join(w_dir, f"model_step_{STATE_STEPS}.dcg")
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        trw = trainer(w_dir, checkpoint_step=-1)
+        require(trw.state.step == 9, f"state walkback: resumed at "
+                f"{trw.state.step}, not after step 8")
+        _, counts_w, wall_w = _timed_run(trw)
+        _held("walkback", _state_copy(trw.state), final)
+        out["walkback_to_8"] = {"wall_s": wall_w, "launches": _launched(
+            "walkback", counts_w, want, names)}
+        del trw
+
+        # SIGTERM mid-chunk (steps 5-8), then the resume from -1
+        s_dir = os.path.join(root, "stop")
+        trs = trainer(s_dir)
+        _stop_mid_chunk(trs, 5)
+        _, counts_s, wall_s = _timed_run(trs)
+        require(trs.stopped_step == 8
+                and ckpt.available_steps(s_dir) == [4, 8],
+                f"state stop: stopped at {trs.stopped_step}, checkpoints "
+                f"{ckpt.available_steps(s_dir)}")
+        _launched("stop", counts_s, want, names)
+        del trs
+        trr = trainer(s_dir, checkpoint_step=-1)
+        require(trr.state.step == 9, "state stop: resumed at "
+                f"{trr.state.step}")
+        _, counts_r, wall_r = _timed_run(trr)
+        _held("stop and resume", _state_copy(trr.state), final)
+        out["sigterm_at_8_resume"] = {
+            "wall_s": [wall_s, wall_r],
+            "launches": _launched("stop resume", counts_r, want, names)}
+        del trr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the evaluator process over the run's checkpoints, against
+    # Trainer.evaluate at the same (default) cuDNN settings
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "draco_tpu_torch.training.evaluator",
+         "--preset", "cyclic-resnet18", "--redundancy", "shared",
+         "--num-workers", str(N), "--train-dir", a_dir,
+         "--test-batch-size", "1000", "--once"],
+        capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"state evaluator: rc {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    got = {int(s): p for s, p in re.findall(
+        r"Cur Step:(\d+) Prec@1: ([0-9.]+)", proc.stdout)}
+    mine = {}
+    for step in (4, 8, STATE_STEPS):
+        tr.restore(step)
+        mine[step] = f"{tr.evaluate(step)['prec1_test']:.4f}"
+    require(got == mine, f"state evaluator: {got}, Trainer.evaluate {mine}")
+    out["evaluator"] = {"prec1": got, "wall_s": time.perf_counter() - t0}
+    del tr
+    return out
+
+
+def state_lm(dev, root: str) -> dict:
+    """``lm_shared_flash`` at full width, K=4: 8 steps with the held-out
+    loss and a checkpoint at 4 and 8; then, on a fresh setup, resumed from
+    4 for 4 more steps (``checkpoint_step``, the reference's LM
+    semantics): the state at 8 bit for bit. A held-out eval launches the
+    forward kernel outside the graph, once a layer: each run's launches
+    less its evals' are the capture's, equal in both."""
+    d = os.path.join(root, "lm")
+    cfg = registry.get("lm_shared_flash").config(
+        True, max_steps=LM_STATE_STEPS, steps_per_call=CHUNK_K,
+        eval_freq=STATE_EVERY, train_dir=d)
+    names = EXPECT["lm_shared_flash"]
+
+    def leg(c):
+        loop = TokenLoop(build_sp_train_setup(c, dev), c, quiet=True)
+        first = loop.state.step
+        last, counts, wall = _timed_run(
+            loop, max_steps=loop.state.step - 1 + LM_STATE_STEPS // 2
+            if c.checkpoint_step else None)
+        evals = (LM_STATE_STEPS - first + 1) // STATE_EVERY
+        ops.reset_launch_counts()
+        loop.eval_loss()
+        one = ops.launch_counts()
+        captured = {k: counts[k] - evals * one[k] for k in names}
+        return loop, last, captured, wall
+
+    loop, last, want, wall = leg(cfg)
+    _launched("lm", want, want, names)
+    require(ckpt.available_steps(d) == [4, 8] and last["step"] == 8,
+            f"state lm: checkpoints {ckpt.available_steps(d)}, last {last}")
+    final = _state_copy(loop.state)
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    rloop, rlast, got, wall_r = leg(dataclasses.replace(cfg,
+                                                        checkpoint_step=4))
+    require(rlast["step"] == 8 and rlast["loss"] == last["loss"],
+            f"state lm resume: {rlast} against {last}")
+    _held("lm resume", _state_copy(rloop.state), final)
+    out = {"wall_s": [wall, wall_r], "state_tensors": len(final),
+           "launches": _launched("lm resume", got, want, names),
+           "evals": [r for r in _records(d) if r.get("split") == "eval"],
+           "dcg_bytes": os.path.getsize(os.path.join(d, "model_step_8.dcg"))}
+    del rloop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def state_phase(dev, ds) -> dict:
+    """Phase 7 (module docstring)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_state_")
+    try:
+        out = {"resnet": state_resnet(dev, ds, root)}
+        out["lm"] = state_lm(dev, root)
+        d = os.path.join(root, "lenet")
+        t0 = time.perf_counter()
+        last = single_machine.main(["--preset", "single-lenet",
+                                    "--max-steps", "12", "--eval-freq", "4",
+                                    "--train-dir", d])
+        require(last["step"] == 12 and math.isfinite(last["loss"])
+                and ckpt.available_steps(d) == [4, 8, 12],
+                f"state single_machine: {last}, checkpoints "
+                f"{ckpt.available_steps(d)}")
+        out["single_machine"] = {
+            "last": last, "wall_s": time.perf_counter() - t0,
+            "evals": [r for r in _records(d) if "prec1_test" in r]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rn = out["resnet"]
+    lv = {c["level"]: c for c in rn["ckpt"]}
+    p1 = [round(r["prec1_test"], 4) for r in rn["uninterrupted"]["evals"]]
+    print(f"state: ResNet-18 shared n=8 K=4, 12 steps: eval at 4/8/12 "
+          f"prec1_test {p1}"
+          f" (2048 images at batch 1000, {rn['eval_ms']:.1f} ms an eval); "
+          f"resumed from 4 on the same setup (graph reused), walked back "
+          f"past a corrupt step 12 to 8, SIGTERM mid-chunk stopped at 8 and "
+          f"resumed from -1: each final state bit for bit "
+          f"({rn['uninterrupted']['state_tensors']} tensors), launches "
+          f"{rn['uninterrupted']['launches']} in each capture; .dcg level 0 "
+          f"{lv[0]['bytes']} B (save {lv[0]['save_ms']:.1f} ms, load "
+          f"{lv[0]['load_ms']:.1f} ms), level 1 {lv[1]['bytes']} B (save "
+          f"{lv[1]['save_ms']:.1f} ms, load {lv[1]['load_ms']:.1f} ms); the "
+          f"evaluator process's prec1 {rn['evaluator']['prec1']} = "
+          f"Trainer.evaluate's; LM full width K=4 resumed from 4: the state "
+          f"at 8 bit for bit ({out['lm']['state_tensors']} tensors, .dcg "
+          f"{out['lm']['dcg_bytes']} B, launches {out['lm']['launches']}); "
+          f"single_machine single-lenet 12 steps loss "
+          f"{out['single_machine']['last']['loss']:.4f}", flush=True)
+    return out
+
+
 def profile_step(tr) -> dict:
     """One more step under torch.profiler: device time by kernel name (the
     top 15), by the step's phases (the device work launched inside each
@@ -2964,6 +3290,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["lint_controls"] = lint_controls_card(dev)
     record["lint_controls_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["state"] = state_phase(dev, ds)
+    record["state_s"] = time.perf_counter() - t0
     # the kernels the flash rows' yardsticks ran, named by the profiler
     sdpa = sdpa_kernels_child()
     for row in kernels:

@@ -38,6 +38,15 @@ each chunk the replays of one captured CUDA graph
 (``training/chunk_graph.py``). ``--trace-dir DIR`` writes the loop's host
 spans to ``DIR/trace.json`` (``python -m draco_tpu_torch.obs.trace_report
 DIR`` folds them by phase).
+Every ``--eval-freq`` steps the CNN evaluates on the whole test split
+(``--test-batch-size``) and the LM its held-out loss; then, with a
+``--train-dir``, each checkpoints there (``model_step_k.dcg``, zlib level
+1 with ``--compress-ckpt``, else stored; ``--keep-checkpoints N`` keeps
+the newest N). ``--checkpoint-step k`` resumes from step k, ``-1`` from
+the newest loadable checkpoint (walking back past corrupt ones); SIGTERM
+or SIGINT stops at the next step or chunk end with a checkpoint.
+``--prefetch-timeout`` and ``--prefetch-restarts`` bound and supervise the
+chunked loops' prefetch worker.
 Runs on the card unless ``--device cpu`` is given. With ``--preset``, the
 flags given on the command line override the preset's fields.
 ``network=TransformerLM`` runs the single-shard LM step and its token loop
@@ -57,6 +66,7 @@ FLAGS = {
     "--dataset": (str, "dataset"),
     "--data-dir": (str, "data_dir"),
     "--batch-size": (int, "batch_size"),
+    "--test-batch-size": (int, "test_batch_size"),
     "--optimizer": (str, "optimizer"),
     "--lr": (float, "lr"),
     "--momentum": (float, "momentum"),
@@ -101,13 +111,22 @@ FLAGS = {
     "--eval-freq": (int, "eval_freq"),
     "--trace-dir": (str, "trace_dir"),
     "--steps-per-call": (int, "steps_per_call"),
+    "--checkpoint-step": (int, "checkpoint_step"),
+    "--compress-ckpt": (bool, "compress_ckpt"),  # a switch
+    "--keep-checkpoints": (int, "keep_checkpoints"),
+    "--prefetch-timeout": (float, "prefetch_timeout_s"),
+    "--prefetch-restarts": (int, "prefetch_restarts"),
 }
 
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="draco_tpu_torch trainer")
     for flag, (typ, field) in FLAGS.items():
-        p.add_argument(flag, type=typ, default=None, dest=field)
+        if typ is bool:
+            p.add_argument(flag, action="store_const", const=True,
+                           default=None, dest=field)
+        else:
+            p.add_argument(flag, type=typ, default=None, dest=field)
     p.add_argument("--preset", type=str, default="",
                    help="named configuration (draco_tpu_torch.presets)")
     p.add_argument("--device", type=str, default="cuda",

@@ -53,6 +53,7 @@ class TrainConfig:
     dataset: str = "MNIST"
     data_dir: str = "./data"
     batch_size: int = 128  # per-worker batch size
+    test_batch_size: int = 1000  # the test-set evaluation's batch
     # --- optimization (optim.py) ---
     optimizer: str = "sgd"  # sgd | adam | adamw (decoupled decay)
     lr: float = 0.01
@@ -104,7 +105,8 @@ class TrainConfig:
     # (parameters, BN statistics, the LM's attention math and the logits
     # stay float32)
     compute_dtype: str = "float32"
-    # held-out loss every eval_freq steps (the LM loop; 0 = never)
+    # every eval_freq steps (0 = never): the CNN's test-set accuracy or the
+    # LM's held-out loss, then a checkpoint into train_dir
     eval_freq: int = 50
     # --- the wire: what the coded rows cross it as (obs/numerics.py):
     # f32, or bf16 / int8 with per-block scales over shadow_block elements,
@@ -130,6 +132,23 @@ class TrainConfig:
     steps_per_call: int = 1
     # --- run ---
     train_dir: str = "./train_out/"
+    # resume from this step's checkpoint if > 0; -1 resumes from the newest
+    # loadable one in train_dir (corrupt ones are walked past,
+    # resilience/supervisor.restore_with_walkback)
+    checkpoint_step: int = 0
+    # zlib level 1 for the .dcg checkpoints (the reference's compressed
+    # checkpoint); False writes the same container stored (level 0), where
+    # the reference writes an Orbax directory (utils/checkpoint.py)
+    compress_ckpt: bool = False
+    # after each save keep only the newest N checkpoints (0 = all); N >= 2
+    # leaves the walk-back an older one past a torn newest
+    keep_checkpoints: int = 0
+    # bound on a chunked loop's wait for its prefetch worker (0 = wait
+    # forever): a dead or hung worker raises PrefetchStallError
+    prefetch_timeout_s: float = 300.0
+    # a prefetcher that fails or stalls is rebuilt, with a backoff, up to
+    # this many times a request before the error propagates (0 = off)
+    prefetch_restarts: int = 2
     # host span trace of the loops' phases (obs/tracer.py) at
     # trace_dir/trace.json; "" = off
     trace_dir: str = ""
@@ -235,6 +254,7 @@ class TrainConfig:
             raise ValueError(f"compute_dtype must be float32|bfloat16, got "
                              f"{self.compute_dtype}")
         self._validate_chunk()
+        self._validate_run_state()
         if self.approach == "approx":
             self._validate_approx()
         self._validate_stragglers()
@@ -258,6 +278,25 @@ class TrainConfig:
             raise ValueError(
                 "warmup_steps > 0 has no effect with lr_schedule=constant — "
                 "set --lr-schedule cosine (or drop --warmup-steps)")
+
+    def _validate_run_state(self) -> None:
+        """The reference's checks of the prefetch, checkpoint and resume
+        fields (draco_tpu/config.py)."""
+        if self.prefetch_timeout_s < 0:
+            raise ValueError(
+                f"prefetch_timeout_s must be >= 0, got "
+                f"{self.prefetch_timeout_s}")
+        if self.prefetch_restarts < 0:
+            raise ValueError(
+                f"prefetch_restarts must be >= 0, got "
+                f"{self.prefetch_restarts}")
+        if self.keep_checkpoints < 0:
+            raise ValueError(
+                f"keep_checkpoints must be >= 0, got {self.keep_checkpoints}")
+        if self.checkpoint_step < -1:
+            raise ValueError(
+                "checkpoint_step must be >= -1 (-1 resumes from the newest "
+                f"loadable checkpoint), got {self.checkpoint_step}")
 
     def _validate_vote(self) -> None:
         """The reference's maj_vote checks (draco_tpu/config.py), and the

@@ -7,7 +7,10 @@ surface) are not ported.
 Both clients are made by their loop's ``chunk_client(first, last)`` and
 expose the same names: ``ranges``, the chunks of steps [first, last]
 (``batching.chunk_ranges``, snapped to ``eval_freq``), and ``many``, the
-setup's chunk runner (``train_many`` or ``train_token_many``).
+setup's chunk runner (``train_many`` or ``train_token_many``). At an
+``eval_freq`` boundary each runs its loop's ``boundary`` (the eval, then
+the checkpoint, ``training/run_state.py``), and a stop snaps its loop's
+checkpoint (``snap_stop``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ class _Client:
     def dispatch(self, state, chunk):
         return self.many(state, chunk)
 
+    def boundary(self, end, state):
+        self.loop.boundary(end)
+
+    def snap_stop(self, end, already_saved):
+        self.loop.stop_after(end, already_saved)
+
     def cleanup(self):
         self.prefetch.close()
 
@@ -42,7 +51,8 @@ class TrainerChunkClient(_Client):
 
     def __init__(self, tr, prefetch, first: int, last: int):
         super().__init__(tr, prefetch, tr.setup.train_many, first, last)
-        self.tr, self.setup = tr, tr.setup
+        self.tr = self.loop = tr
+        self.setup = tr.setup
 
     def assemble(self, i, ranges):
         start, k = ranges[i]
@@ -65,14 +75,11 @@ class TrainerChunkClient(_Client):
     def should_log(self, step):
         return step % self.tr.cfg.log_every == 0 or step == 1
 
-    def boundary(self, end, state):
-        pass  # the port's CNN loop has no eval yet
-
 
 class TokenChunkClient(_Client):
     """The LM token loop (parallel/token_loop.py): a chunk is the stacked
     tokens and adversary masks of k steps; an ``eval_freq`` boundary runs
-    the held-out loss."""
+    the held-out loss, then the checkpoint."""
 
     def __init__(self, loop, prefetch, first: int, last: int):
         super().__init__(loop, prefetch, loop.setup.train_token_many, first,
@@ -94,6 +101,3 @@ class TokenChunkClient(_Client):
     def should_log(self, step):
         return (step % self.loop.cfg.log_every == 0
                 or step in (self.first, self.last))
-
-    def boundary(self, end, state):
-        self.loop.eval_at(end)

@@ -8,9 +8,16 @@ on the host while the card runs chunk i. At a flush boundary — an
 ``eval_freq`` multiple, the last chunk, or 4 blocks pending — the host
 fetches every pending block in one copy (the loop's one synchronisation)
 and writes the records; at an ``eval_freq`` boundary the client then runs
-its eval. A chunked record's ``step_ms`` is the flush window's wall time
-(host clock, from the window's first dispatch to its fetch) divided by its
-steps, as the reference's chunked ``t_comp`` is.
+its eval and checkpoint, which read the state after that fetch, on the
+stream the chunk replayed on. After every chunk the engine asks whether a
+stop was requested (``stop``, the loop's ``GracefulStop``): if so it
+fetches and writes what is pending and the client snaps the loop's
+checkpoint at the chunk's end. Each dispatch runs shielded: a second
+signal's error waits until the chunk's replays are all queued, so the
+state the loop then saves is a whole chunk's. A chunked record's
+``step_ms`` is the flush window's wall time (host clock, from the
+window's first dispatch to its fetch) divided by its steps, as the
+reference's chunked ``t_comp`` is.
 
 Host spans (``obs/tracer.py``), the reference engine's names: ``gather``
 (the client's assembly) and ``dispatch`` once a chunk with ``chunk_start``
@@ -29,37 +36,56 @@ Client protocol (``control/clients.py``):
   dispatch(state, chunk)      -> (state, block)
   extras(chunk)               host columns of the chunk's records, or {}
   should_log(step)            the loop's metrics.jsonl cadence
-  boundary(end, state)        the eval at an eval_freq boundary
+  boundary(end, state)        the eval and checkpoint at an eval_freq
+                              boundary
+  snap_stop(end, saved)       the stop's checkpoint at ``end`` (unless the
+                              boundary just saved it)
   cleanup()                   always runs on exit (close the prefetcher)
 
 Not ported: the reference engine's heartbeat, compile watch, profiler
-window, graceful stop and checkpoint, and its autopilot hook.
+window and its autopilot hook.
 """
 
 from __future__ import annotations
 
 import time
 
+from draco_tpu_torch.resilience.supervisor import shielded, stop_requested
 from draco_tpu_torch.utils.metrics import DeferredMetricWriter
 
 MAX_PENDING = 4  # blocks deferred before a flush is forced
 
 
 class ChunkedEngine:
-    def __init__(self, client, *, eval_freq: int, tracer, writer):
+    def __init__(self, client, *, eval_freq: int, tracer, writer,
+                 stop=None):
         self.client = client
         self.eval_freq = eval_freq
         self.tracer = tracer
         self.deferred = DeferredMetricWriter(writer)
+        self.stop = stop  # the loop's GracefulStop, or None
 
     def run(self, state, ranges):
         """Drive chunks over ``ranges``; returns (state, last record)."""
         client, deferred, tracer = self.client, self.deferred, self.tracer
         if not ranges:
             return state, {}
+        window_t0, window_steps = time.perf_counter(), 0
+
+        def drain(end):
+            """Every pending block in one fetch, then its records."""
+            with tracer.span("sync", at_step=end):
+                deferred.fetch()
+            step_ms = ((time.perf_counter() - window_t0) * 1e3
+                       / max(window_steps, 1))
+            with tracer.span("flush", at_step=end):
+                deferred.flush(client.should_log, {"step_ms": step_ms},
+                               client.keep)
+                tracer.flush()
+
         try:
             chunk = client.assemble(0, ranges)
-            window_t0, window_steps = time.perf_counter(), 0
+            window_t0 = time.perf_counter()
             for i, (start, k) in enumerate(ranges):
                 end = start + k - 1
                 # tagged with the segment count only when the wire is cut:
@@ -68,7 +94,7 @@ class ChunkedEngine:
                 if client.wire_segments > 1:
                     span_kw["segments"] = client.wire_segments
                 with tracer.span("dispatch", **span_kw), \
-                        tracer.activate():
+                        tracer.activate(), shielded(self.stop):
                     state, block = client.dispatch(state, chunk)
                 deferred.defer(range(start, end + 1), client.block_names,
                                block, client.extras(chunk))
@@ -78,17 +104,16 @@ class ChunkedEngine:
                 boundary = bool(self.eval_freq) and end % self.eval_freq == 0
                 if boundary or i + 1 == len(ranges) \
                         or deferred.depth >= MAX_PENDING:
-                    with tracer.span("sync", at_step=end):
-                        deferred.fetch()
-                    step_ms = ((time.perf_counter() - window_t0) * 1e3
-                               / window_steps)
-                    with tracer.span("flush", at_step=end):
-                        deferred.flush(client.should_log,
-                                       {"step_ms": step_ms}, client.keep)
-                        tracer.flush()
+                    drain(end)
                     if boundary:
                         client.boundary(end, state)
                     window_t0, window_steps = time.perf_counter(), 0
+                if stop_requested(self.stop, None, end):
+                    # a chunk's end is a legal stop point mid-window: the
+                    # pending records first, then the checkpoint
+                    drain(end)
+                    client.snap_stop(end, boundary)
+                    break
         finally:
             client.cleanup()
         return state, deferred.last

@@ -12,12 +12,15 @@ thread, so the host builds chunk i+1 while the card runs chunk i:
   ``TokenChunkPrefetcher``  the LM loop's (k, n, B, T) tokens, generated
                             step by step (``sp_step.synthetic_text``)
 
-Every wait on the worker is bounded by ``timeout_s`` (0 = unbounded; both
-chunked loops pass ``STALL_TIMEOUT_S``, the reference's default
-``prefetch_timeout_s``): a dead or hung worker raises
-:class:`PrefetchStallError` instead of wedging the loop; an exception in the worker propagates as itself. The reference's
-restart supervision (``SupervisedPrefetcher``) and its native row-gather
-pool are not ported: the gather here is numpy on the worker thread.
+Every wait on the worker is bounded by ``timeout_s`` (0 = unbounded; the
+chunked loops pass ``cfg.prefetch_timeout_s``): a dead or hung worker
+raises :class:`PrefetchStallError` instead of wedging the loop; an
+exception in the worker propagates as itself. With ``cfg.prefetch_restarts``
+> 0 the loops wrap their prefetcher in ``resilience/supervisor.py``'s
+``SupervisedPrefetcher``, which rebuilds a failed one (``abandon`` drops it
+without joining its worker) and retries the request. The reference's native
+row-gather pool is not ported: the gather here is numpy on the worker
+thread.
 """
 
 from __future__ import annotations
@@ -28,8 +31,6 @@ from typing import Callable, Optional
 import numpy as np
 
 from draco_tpu_torch.obs.tracer import NULL_TRACER
-
-STALL_TIMEOUT_S = 300.0  # the chunked loops' bound on a prefetch wait
 
 
 class PrefetchStallError(RuntimeError):
@@ -97,6 +98,12 @@ class _ChunkPrefetcher:
             self._inflight = (nxt, self._pool.submit(self._timed_assemble,
                                                      nxt))
         return out
+
+    def abandon(self) -> None:
+        """Drop the in-flight request and the worker without waiting for
+        it (the supervisor's restart path: the worker may be hung)."""
+        self._inflight = None
+        self._pool.shutdown(wait=False, cancel_futures=True)
 
     def close(self) -> None:
         if not self._stalled and self._inflight is not None:

@@ -24,7 +24,7 @@ class FC_NN(nn.Module):
         self.Dense_1 = Dense(800, 500, compute_dtype=dtype)
         self.Dense_2 = Dense(500, num_classes)
 
-    def forward(self, x, stats: dict, dropout=None):
+    def forward(self, x, stats: dict, dropout=None, train: bool = True):
         """x: (B, H, W, C) NHWC, flattened as it lies -> (probabilities,
         {})."""
         x = to_compute(x.reshape(x.shape[0], -1), self.dtype)

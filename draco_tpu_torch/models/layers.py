@@ -20,7 +20,10 @@ lets ``torch.func.vmap`` carry one set of statistics per worker lane
 (they are never aggregated), and it gives the reference's semantics:
 Flax's ``momentum=0.9`` (torch's 0.1) and a running variance updated with
 the *biased* batch variance, where ``nn.BatchNorm2d`` would use the
-unbiased one.
+unbiased one. Given ``new_stats=None`` it evaluates: it normalises with
+the running statistics (Flax's ``use_running_average``) and updates none.
+Every model's ``forward(..., train=False)`` runs that way, and without
+dropout.
 
 Dropout takes its keep-mask as an input (``dropout``): the training step
 draws the masks on the host per global batch row, so every lane that
@@ -74,19 +77,25 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.path = ""  # set by name_norms: its Flax path
 
-    def forward(self, x, stats: dict, new_stats: dict):
+    def forward(self, x, stats: dict, new_stats):
         """Training-mode BN on NCHW ``x`` with batch statistics; writes the
-        updated running statistics into ``new_stats``."""
+        updated running statistics into ``new_stats``. ``new_stats=None``:
+        evaluation, with the running statistics of ``stats``."""
         dt = x.dtype
         x = x.to(torch.promote_types(dt, torch.float32))
-        dims = (0, 2, 3)
-        mean = x.mean(dim=dims)
-        # Flax's fast variance: E[x²] − E[x]², clipped at 0
-        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        key = self.path
+        if new_stats is None:
+            mean, var = stats[key + "/mean"], stats[key + "/var"]
+        else:
+            dims = (0, 2, 3)
+            mean = x.mean(dim=dims)
+            # Flax's fast variance: E[x²] − E[x]², clipped at 0
+            var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         y = (x - mean[None, :, None, None]) * mul[None, :, None, None]
         y = y + self.bias[None, :, None, None]
-        key = self.path
+        if new_stats is None:
+            return y.to(dt)
         new_stats[key + "/mean"] = (BN_MOMENTUM * stats[key + "/mean"]
                                     + (1.0 - BN_MOMENTUM) * mean.detach())
         new_stats[key + "/var"] = (BN_MOMENTUM * stats[key + "/var"]

@@ -34,7 +34,7 @@ class LeNet(nn.Module):
         self.Dense_0 = Dense(side * side * 50, 500, compute_dtype=dtype)
         self.Dense_1 = Dense(500, num_classes)
 
-    def forward(self, x, stats: dict, dropout=None):
+    def forward(self, x, stats: dict, dropout=None, train: bool = True):
         """x: (B, H, W, C) NHWC -> (logits, {}): no BatchNorm."""
         x = to_compute(x, self.dtype).permute(0, 3, 1, 2)
         x = F.relu(F.max_pool2d(self.Conv_0(x), 2, 2))

@@ -108,15 +108,17 @@ class ResNet(nn.Module):
         self.Dense_0 = Dense(in_planes, num_classes)
         name_norms(self)
 
-    def forward(self, x, stats: dict, dropout=None):
-        """x: (B, H, W, C) NHWC -> (logits (B, classes), new_stats)."""
-        new_stats = {}
+    def forward(self, x, stats: dict, dropout=None, train: bool = True):
+        """x: (B, H, W, C) NHWC -> (logits (B, classes), new_stats);
+        ``train=False``: BatchNorm on the running statistics, and no new
+        ones."""
+        new_stats = {} if train else None
         x = to_compute(x, self.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.BatchNorm_0(self.Conv_0(x), stats, new_stats))
         for name in self.block_names:
             x = getattr(self, name)(x, stats, new_stats)
         x = F.avg_pool2d(x, 4, 4)
-        return classify(self.Dense_0, nhwc_flatten(x)), new_stats
+        return classify(self.Dense_0, nhwc_flatten(x)), new_stats or {}
 
 
 def ResNet18(num_classes: int = 10, in_channels: int = 3,

@@ -65,10 +65,11 @@ class VGG(nn.Module):
         self.Dense_2 = Dense(512, num_classes)
         name_norms(self)
 
-    def forward(self, x, stats: dict, dropout_masks):
+    def forward(self, x, stats: dict, dropout_masks, train: bool = True):
         """x: (B, H, W, C) NHWC, ``dropout_masks`` (2, B, 512) bool keep
-        masks -> (logits, new_stats)."""
-        new_stats = {}
+        masks -> (logits, new_stats); ``train=False``: no dropout (masks
+        unread), BatchNorm on the running statistics."""
+        new_stats = {} if train else None
         x = to_compute(x, self.dtype).permute(0, 3, 1, 2)
         for op in self.plan:
             if op[0] == "pool":
@@ -78,11 +79,14 @@ class VGG(nn.Module):
             if self.batch_norm:
                 x = getattr(self, f"BatchNorm_{op[1]}")(x, stats, new_stats)
             x = F.relu(x)
-        x = dropout(nhwc_flatten(x), dropout_masks[0])
+        x = nhwc_flatten(x)
+        if train:
+            x = dropout(x, dropout_masks[0])
         x = F.relu(self.Dense_0(x))
-        x = dropout(x, dropout_masks[1])
+        if train:
+            x = dropout(x, dropout_masks[1])
         x = F.relu(self.Dense_1(x))
-        return classify(self.Dense_2, x), new_stats
+        return classify(self.Dense_2, x), new_stats or {}
 
 
 def _vgg(cfg: str, bn: bool):

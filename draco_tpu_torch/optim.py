@@ -27,6 +27,13 @@ buffers: μ·0 + g = g, so the first step is the reference's, a −0
 gradient entry aside, which it turns into +0); a step that finds none
 makes it then. With ``dampening`` ≠ 0 the first step's buffer is g by a
 select on the count, as in the reference.
+
+:meth:`Optimizer.jax_leaves` lists the state as the leaves of the
+reference's ``chain(rule, scale_by_schedule)`` state: the rule's (SGD's
+momentum buffers, zeros at momentum 0, and its ``initialized`` flag, the
+count > 0 with momentum and False without; Adam's count, ``exp_avg`` and
+``exp_avg_sq``), then the schedule's int32 count. Both of the reference's
+counts are the port's one count.
 """
 
 from __future__ import annotations
@@ -34,7 +41,10 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+
+from draco_tpu_torch import params as params_mod
 
 SCHEDULES = ("constant", "cosine")
 OPTIMIZERS = ("sgd", "adam", "adamw")
@@ -49,6 +59,10 @@ class Rule:
 
     def direction(self, grads: dict, bufs: dict, params: dict,
                   count: torch.Tensor) -> dict:
+        raise NotImplementedError
+
+    def jax_leaves(self, bufs: dict, count: torch.Tensor, lay) -> list:
+        """The leaves of the reference's state of this rule."""
         raise NotImplementedError
 
 
@@ -77,6 +91,17 @@ class SGDRule(Rule):
                 buf.copy_(torch.where(count > 0, later, g))
             out[k] = g + self.momentum * buf if self.nesterov else buf
         return out
+
+    def jax_leaves(self, bufs, count, lay):
+        # SGDState(momentum_buf, initialized): the reference keeps (zero)
+        # buffers at momentum 0 too, and its flag stays False there
+        momentum = self.momentum != 0.0
+        flag = params_mod.StateLeaf(
+            (), np.dtype(bool),
+            lambda: np.asarray(momentum and count.item() > 0),
+            lambda a: None)
+        return ((params_mod.tensor_leaves(bufs["momentum"], lay) if momentum
+                 else params_mod.zero_leaves(lay)) + [flag])
 
 
 class AdamRule(Rule):
@@ -107,6 +132,12 @@ class AdamRule(Rule):
                 d = d + self.decoupled * params[k]
             out[k] = d
         return out
+
+    def jax_leaves(self, bufs, count, lay):
+        # AdamState(count, exp_avg, exp_avg_sq)
+        return ([params_mod.scalar_leaf(count)]
+                + params_mod.tensor_leaves(bufs["exp_avg"], lay)
+                + params_mod.tensor_leaves(bufs["exp_avg_sq"], lay))
 
 
 def sgd_modified(momentum: float = 0.0, dampening: float = 0.0,
@@ -189,6 +220,12 @@ class Optimizer:
             out["opt/count"] = self.count
         return out
 
+    def jax_leaves(self, lay) -> list:
+        """The state as the leaves of the reference's optimizer state
+        (module docstring), read and written in place."""
+        return (self.rule.jax_leaves(self.state, self.count, lay)
+                + [params_mod.scalar_leaf(self.count)])
+
     def clip_scale(self, norm: torch.Tensor) -> torch.Tensor:
         return torch.clamp(self.clip_norm / torch.clamp_min(norm, 1e-16),
                            max=1.0)
@@ -208,8 +245,6 @@ class Optimizer:
     def step_flat(self, params: dict, flat: torch.Tensor, layout) -> None:
         """:meth:`step` on a flat (d,) gradient in the reference's layout;
         the clip takes one norm of the flat vector."""
-        from draco_tpu_torch import params as params_mod
-
         self.init(params)
         if self.clip_norm > 0.0:
             flat = flat * self.clip_scale(torch.linalg.vector_norm(flat))

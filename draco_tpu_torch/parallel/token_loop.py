@@ -6,7 +6,14 @@ the seeded adversary schedule. The first, the last and every
 ``log_every``-th record go to ``<train_dir>/metrics.jsonl`` under the
 reference's column names, and every ``eval_freq``-th step adds the
 held-out loss on ``synthetic_text(seed + 1, 0, ...)`` as ``{"step",
-"split": "eval", "loss"}``.
+"split": "eval", "loss"}``, then, with a ``train_dir``, a checkpoint
+(``model_step_k.dcg``); with ``eval_freq`` 0 the last step's state is
+saved instead, as the reference does. ``cfg.checkpoint_step`` resumes
+(k, or −1 for the newest loadable checkpoint, through the walk-back), and
+the LM then runs ``steps`` more steps from the resumed one, the
+reference's LM semantics (the CNN Trainer runs to ``max_steps``). SIGTERM
+stops at the next step or chunk end with a checkpoint
+(``training/run_state.py``).
 
 The eager loop (K = 1) synchronises each step's metrics to the host. The
 chunked loop (K > 1, ``_run_chunked``, the reference's
@@ -20,8 +27,8 @@ flush, and the eval runs at the ``eval_freq`` boundaries, after the
 flush; a chunked record's ``step_ms`` is its flush window's wall time over
 its steps. With ``cfg.trace_dir`` set, the host phases (gather, dispatch,
 sync, flush, eval) and the step's draco_* phases go to
-``trace_dir/trace.json`` (``obs/tracer.py``). Checkpoints and the
-heartbeat are not ported yet.
+``trace_dir/trace.json`` (``obs/tracer.py``). The heartbeat
+(``status.json``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,10 +39,12 @@ from typing import Optional
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.obs.tracer import make_tracer
+from draco_tpu_torch.resilience.supervisor import shielded
+from draco_tpu_torch.training.run_state import LoopRunState
 from draco_tpu_torch.utils.metrics import MetricWriter
 
 
-class TokenLoop:
+class TokenLoop(LoopRunState):
     def __init__(self, setup, cfg: TrainConfig, quiet: bool = False):
         from draco_tpu_torch.parallel.sp_step import synthetic_text
 
@@ -44,10 +53,21 @@ class TokenLoop:
         self.text = lambda seed, step: synthetic_text(
             seed, step, cfg.num_workers, cfg.batch_size, cfg.seq_len,
             cfg.vocab)
-        self.adv_schedule = drng.adversary_schedule(
-            cfg.seed, cfg.max_steps, cfg.num_workers, cfg.num_adversaries)
+        self._sched_steps = -1
+        self._ensure_schedule(cfg.max_steps)
         self.writer = MetricWriter(cfg.train_dir, quiet)
         self.tracer = make_tracer(cfg.trace_dir)
+        if cfg.checkpoint_step:
+            self.restore(cfg.checkpoint_step)
+
+    def _ensure_schedule(self, n_steps: int) -> None:
+        """The adversary table through step ``n_steps`` (a resumed run goes
+        past ``max_steps``; the rows already used stay as they were)."""
+        if n_steps > self._sched_steps:
+            cfg = self.cfg
+            self.adv_schedule = drng.adversary_schedule(
+                cfg.seed, n_steps, cfg.num_workers, cfg.num_adversaries)
+            self._sched_steps = n_steps
 
     def inputs(self, step: int) -> tuple:
         """The host inputs of 1-based ``step``: ``(tokens, adv_mask)`` as
@@ -59,9 +79,9 @@ class TokenLoop:
         the wall time of the step (host clock, device synchronised) as
         ``step_ms``."""
         step = self.state.step
-        if step > self.cfg.max_steps:
-            raise ValueError(f"step {step} is past max_steps="
-                             f"{self.cfg.max_steps}")
+        if step > self._sched_steps:
+            raise ValueError(f"step {step} is past the schedule's "
+                             f"{self._sched_steps} steps (max_steps)")
         tracer = self.tracer
         with tracer.span("gather"):
             toks, adv_mask = self.inputs(step)
@@ -79,7 +99,7 @@ class TokenLoop:
         return float(self.setup.eval_step(self.state.params,
                                           self.text(self.cfg.seed + 1, 0)))
 
-    def eval_at(self, step: int) -> None:
+    def evaluate(self, step: int) -> None:
         """The held-out loss after ``step``, as its eval record."""
         with self.tracer.span("eval"):
             loss = self.eval_loss()
@@ -87,14 +107,15 @@ class TokenLoop:
             self.writer.write({"step": step, "split": "eval", "loss": loss})
 
     def chunk_client(self, first: int, last: int):
-        """The engine's client for steps [first, last] over a fresh token
-        prefetcher."""
+        """The engine's client for steps [first, last] over a fresh,
+        supervised token prefetcher."""
         from draco_tpu_torch.control.clients import TokenChunkClient
         from draco_tpu_torch.data import prefetch as pf
 
-        prefetch = pf.TokenChunkPrefetcher(
+        self._ensure_schedule(last)
+        prefetch = self.supervised(lambda: pf.TokenChunkPrefetcher(
             lambda step: self.text(self.cfg.seed, step),
-            timeout_s=pf.STALL_TIMEOUT_S, tracer=self.tracer)
+            timeout_s=self.cfg.prefetch_timeout_s, tracer=self.tracer))
         return TokenChunkClient(self, prefetch, first, last)
 
     def _run_chunked(self, last_step: int) -> dict:
@@ -102,37 +123,52 @@ class TokenLoop:
 
         client = self.chunk_client(self.state.step, last_step)
         engine = ChunkedEngine(client, eval_freq=self.cfg.eval_freq,
-                               tracer=self.tracer, writer=self.writer)
+                               tracer=self.tracer, writer=self.writer,
+                               stop=self._stop)
         self.state, last = engine.run(self.state, client.ranges)
+        return last
+
+    def _run_eager(self, last_step: int) -> dict:
+        cfg = self.cfg
+        first, last = self.state.step, {}
+        names = ("step",) + self.setup.metric_names + ("step_ms",)
+        while self.state.step <= last_step:
+            with shielded(self._stop):
+                last = self.step()
+            step = last["step"]
+            if step % cfg.log_every == 0 or step in (first, last_step):
+                with self.tracer.span("flush"):
+                    self.writer.write({k: last[k] for k in names})
+            boundary = bool(cfg.eval_freq) and step % cfg.eval_freq == 0
+            if boundary:
+                self.boundary(step)
+            if self.stop_after(step, already_saved=boundary):
+                break
         return last
 
     def run(self, max_steps: Optional[int] = None) -> dict:
         """Steps up to ``max_steps`` (default cfg.max_steps), eagerly or in
-        chunks by ``cfg.steps_per_call``; returns the last step's
-        record."""
+        chunks by ``cfg.steps_per_call``, from the state's next step;
+        returns the last step's record ({} after an escalated stop)."""
         cfg = self.cfg
         last_step = cfg.max_steps if max_steps is None else max_steps
-        try:
-            if cfg.steps_per_call > 1:
-                return self._run_chunked(last_step)
-            first, last = self.state.step, {}
-            names = ("step",) + self.setup.metric_names + ("step_ms",)
-            while self.state.step <= last_step:
-                last = self.step()
-                step = last["step"]
-                if step % cfg.log_every == 0 or step in (first, last_step):
-                    with self.tracer.span("flush"):
-                        self.writer.write({k: last[k] for k in names})
-                if cfg.eval_freq and step % cfg.eval_freq == 0:
-                    self.eval_at(step)
+        self._ensure_schedule(last_step)
+
+        def body():
+            last = (self._run_chunked(last_step) if cfg.steps_per_call > 1
+                    else self._run_eager(last_step))
+            if not cfg.eval_freq and self.stopped_step is None:
+                # no boundary saved anything: save the last state
+                self.checkpoint(last_step)
             return last
-        finally:
-            self.tracer.close()
+
+        return self.guarded(body)
 
 
 def run_token_loop(setup, cfg: TrainConfig, steps: Optional[int] = None,
                    quiet: bool = False):
-    """Train ``steps or cfg.max_steps`` steps; returns (state, the last
+    """Train ``steps or cfg.max_steps`` steps from the state's next step
+    (after ``cfg.checkpoint_step``'s resume); returns (state, the last
     step's record)."""
     loop = TokenLoop(setup, cfg, quiet)
     last = loop.run(loop.state.step - 1 + (steps or cfg.max_steps))

@@ -13,6 +13,11 @@ the gradient per step.
 A leaf's layout follows its role (``leaf_role``: the module that owns it),
 not its rank: an Embedding's (vocab, dim) table is 2-D and kept as it is.
 
+A checkpoint holds the state as the reference's ``jax.tree.leaves``:
+:class:`StateLeaf` is one such leaf, read from the port's live tensor and
+written back into it in place (``TrainState.leaves``,
+``training/step.py``).
+
 ResNet-18 has 62 leaves and d = 11,173,962; the TransformerLM of the LM
 benchmark (dim 768, 8 layers, vocab 8192) 66 leaves and d = 62,958,336.
 """
@@ -20,7 +25,7 @@ benchmark (dim 768, 8 layers, vocab 8192) 66 leaves and d = 62,958,336.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -154,3 +159,74 @@ def from_jax(params_np: dict, batch_stats_np: dict = None, device="cpu"):
         stats["/".join(path)] = torch.from_numpy(
             np.array(v, np.float32)).to(device)
     return params, stats
+
+
+@dataclasses.dataclass(frozen=True)
+class StateLeaf:
+    """One leaf of the reference's ``TrainState``: its shape and dtype
+    there; ``read()`` gives it as a numpy array (a copy off the device),
+    ``write(array)`` copies an array of that shape into the port's live
+    tensor in place, or ignores a leaf the port derives from others."""
+
+    shape: tuple
+    dtype: np.dtype
+    read: Callable[[], np.ndarray]
+    write: Callable[[np.ndarray], None]
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` that no later update of ``t`` reaches (on the
+    CPU ``.cpu()`` would share the storage)."""
+    return np.array(t.cpu().numpy(), copy=True)
+
+
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    return torch.empty((), dtype=t.dtype).numpy().dtype
+
+
+def tensor_leaves(tensors: dict, lay: Layout) -> list:
+    """A leaf a parameter of ``tensors`` (keyed by torch name, each shaped
+    as its parameter): the reference's leaf order and layout."""
+    out = []
+    for name, kind, shape in zip(lay.names, lay.kinds, lay.jax_shapes):
+        t = tensors[name]
+
+        def read(t=t, kind=kind):
+            return _host_copy(_to_jax_layout(t.detach(), kind))
+
+        def write(a, t=t, kind=kind):
+            t.copy_(_from_jax_layout(torch.from_numpy(a), kind))
+
+        out.append(StateLeaf(tuple(shape), _np_dtype(t), read, write))
+    return out
+
+
+def zero_leaves(lay: Layout) -> list:
+    """Float32 zeros shaped as the parameters: a buffer the reference
+    keeps and never updates (SGD's momentum at momentum 0)."""
+    return [StateLeaf(tuple(s), np.dtype(np.float32),
+                      lambda s=s: np.zeros(s, np.float32), lambda a: None)
+            for s in lay.jax_shapes]
+
+
+def scalar_leaf(t: torch.Tensor) -> StateLeaf:
+    """A 0-d tensor (a count) as a 0-d leaf of its dtype."""
+    dt = _np_dtype(t)
+    return StateLeaf((), dt, lambda: np.asarray(t.item(), dt),
+                     lambda a: t.fill_(a.item()))
+
+
+def stats_leaves(stats: dict) -> list:
+    """BatchNorm statistics keyed ``"<path>/mean"``, in the reference's
+    order (its nested dict's keys sorted at every level), each with its
+    leading worker axis."""
+    out = []
+    for key in sorted(stats, key=lambda k: tuple(k.split("/"))):
+        t = stats[key]
+
+        def write(a, t=t):
+            t.copy_(torch.from_numpy(a))
+
+        out.append(StateLeaf(tuple(t.shape), _np_dtype(t),
+                             lambda t=t: _host_copy(t.detach()), write))
+    return out

@@ -1,0 +1,121 @@
+"""What the CNN ``Trainer`` and the LM ``TokenLoop`` share of a run's
+state (draco_tpu/training/trainer.py and parallel/token_loop.py): the
+checkpoint at an ``eval_freq`` boundary, the resume, and the graceful
+stop.
+
+  checkpoint(step)   the state as ``model_step_{step}.dcg`` in
+                     ``cfg.train_dir`` (nothing without one), read after
+                     the work queued on the current stream, which a
+                     captured chunk replays on: no copy races a replay
+  restore(step)      the checkpoint at ``step`` (the newest with −1)
+                     through the walk-back, written into the live state in
+                     place (``TrainState.load``); −1 on a train_dir with
+                     no checkpoint starts fresh
+  guarded(body)      runs ``body`` inside ``GracefulStop``: a first
+                     SIGTERM / SIGINT stops the loop at its next step or
+                     chunk end (``stop_after``), with a checkpoint there
+                     unless the boundary just saved one; a second one
+                     checkpoints the newest dispatched state and ends the
+                     run. ``stopped_step`` is where the run stopped (None
+                     when it ran to its end).
+
+The loop provides ``cfg``, ``setup`` (its ``layout``), ``state``,
+``tracer``, ``writer`` and ``evaluate(step)``, and dispatches its steps
+and chunks inside ``supervisor.shielded(self._stop)``: a second signal's
+escalation waits until the state is a whole step's.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+from draco_tpu_torch.resilience.supervisor import (
+    GracefulStop,
+    ImmediateStopError,
+    SupervisedPrefetcher,
+    restore_with_walkback,
+    stop_requested,
+)
+from draco_tpu_torch.utils import checkpoint as ckpt
+
+
+class LoopRunState:
+    _stop: Optional[GracefulStop] = None
+    stopped_step: Optional[int] = None
+
+    def checkpoint(self, step: int) -> Optional[str]:
+        """Save the state as step ``step``'s checkpoint; the path, or None
+        without a train_dir."""
+        cfg = self.cfg
+        if not cfg.train_dir:
+            return None
+        with self.tracer.span("ckpt", at_step=step):
+            return ckpt.save(cfg.train_dir, step,
+                             self.state.arrays(self.setup.layout),
+                             compress=cfg.compress_ckpt,
+                             keep=cfg.keep_checkpoints)
+
+    def restore(self, step: int) -> Optional[int]:
+        """Resume from ``step`` (−1: the newest loadable checkpoint); the
+        step loaded, or None on a fresh start."""
+        lay = self.setup.layout
+        try:
+            arrays, loaded, _ = restore_with_walkback(
+                self.cfg.train_dir, step, self.state.specs(lay))
+        except FileNotFoundError:
+            if step != -1:
+                raise
+            # -1 is the restart controller's "whatever is there": a job
+            # that died before its first checkpoint starts fresh
+            print(f"checkpoint_step=-1: no checkpoints in "
+                  f"{self.cfg.train_dir!r}; starting fresh", flush=True)
+            return None
+        self.state.load(arrays, lay)
+        return loaded
+
+    def boundary(self, step: int) -> None:
+        """The ``eval_freq`` boundary: evaluate, then checkpoint."""
+        self.evaluate(step)
+        self.checkpoint(step)
+
+    def supervised(self, factory: Callable):
+        """The chunked loop's prefetcher: ``factory()``, rebuilt on failure
+        up to ``cfg.prefetch_restarts`` times a request."""
+        if self.cfg.prefetch_restarts <= 0:
+            return factory()
+        return SupervisedPrefetcher(factory,
+                                    restarts=self.cfg.prefetch_restarts,
+                                    tracer=self.tracer)
+
+    def stop_after(self, step: int, already_saved: bool) -> bool:
+        """True when a stop was asked for: the run then ends after
+        ``step``, with a checkpoint there (unless ``already_saved``)."""
+        if not stop_requested(self._stop, None, step):
+            return False
+        if not already_saved:
+            self.checkpoint(step)
+        self.stopped_step = step
+        self._stop.stopped_step = step
+        return True
+
+    def guarded(self, body: Callable[[], dict]) -> dict:
+        """``body()`` (the loop's steps) inside ``GracefulStop``; returns
+        its last record, or {} after an escalated stop."""
+        self.stopped_step = None
+        first = self.state.step
+        try:
+            with GracefulStop() as stop:
+                self._stop = stop
+                return body()
+        except ImmediateStopError as e:
+            # the newest dispatched state is whole (dispatches are
+            # shielded); reading it waits for its queued work
+            step = self.state.step - 1
+            if step >= first:
+                self.checkpoint(step)
+                self.stopped_step = step
+            print(f"{e}: stopped after step {step}", flush=True)
+            return {}
+        finally:
+            self._stop = None
+            self.tracer.close()

@@ -52,6 +52,13 @@ bit for bit the k eager steps. The phases run under
 host spans and profiler ranges when a tracer or the profiler is on and
 cost nothing otherwise.
 
+``eval_step`` is the reference's: correct@1 and correct@5 counts over a
+test batch's valid rows, with worker 0's running statistics and no
+dropout (``training/evaluator.py`` pads and masks the ragged last batch).
+``TrainState.leaves`` lists the state as the reference's ``TrainState``
+leaves, which a checkpoint holds, and ``TrainState.load`` writes such
+leaves back in place.
+
 Gradients are flattened in the reference's leaf order and layout
 (``params.flatten``), so the (n, d) codeword matrix, the random projection
 and the decode agree with the reference coordinate for coordinate.
@@ -85,6 +92,7 @@ import contextlib
 import dataclasses
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.func import functional_call, grad_and_value, vmap
 
@@ -132,7 +140,7 @@ class TrainState:
     params: dict  # torch name -> tensor (torch layout); updated in place
     stats: dict  # "<path>/mean" | "<path>/var" -> (n, features) per worker
     opt: optim.Optimizer
-    step: int = 1  # the reference's STEP_START = 1
+    step: int = 1  # the reference's STEP_START = 1: the next step to run
 
     def tensors(self) -> dict:
         """The state's tensors: parameters, the optimizer's buffers and
@@ -141,6 +149,51 @@ class TrainState:
         out.update(self.opt.tensors())
         out.update({f"stats/{k}": v for k, v in self.stats.items()})
         return out
+
+    # ---- the reference's leaves (checkpoints) ---------------------------
+    def leaves(self, lay: params_mod.Layout) -> list:
+        """The state as ``jax.tree.leaves`` of the reference's
+        ``TrainState(params, opt_state, batch_stats, step)``: the
+        parameters (sorted paths, JAX layouts), the optimizer's state
+        (``Optimizer.jax_leaves``), the statistics with their leading
+        worker axis, and the int32 step (the next step to run), each a
+        ``params.StateLeaf``."""
+        step = params_mod.StateLeaf(
+            (), np.dtype(np.int32), lambda: np.asarray(self.step, np.int32),
+            lambda a: setattr(self, "step", int(a.item())))
+        return (params_mod.tensor_leaves(self.params, lay)
+                + self.opt.jax_leaves(lay)
+                + params_mod.stats_leaves(self.stats) + [step])
+
+    def specs(self, lay: params_mod.Layout) -> list:
+        """Each leaf's shape and dtype (what ``utils/checkpoint.load``
+        checks), read off no tensor."""
+        from draco_tpu_torch.utils.checkpoint import LeafSpec
+
+        return [LeafSpec(x.shape, x.dtype) for x in self.leaves(lay)]
+
+    def arrays(self, lay: params_mod.Layout) -> list:
+        """The leaves as numpy arrays (copies off the device; the copies
+        queue behind the work on the current stream)."""
+        return [x.read() for x in self.leaves(lay)]
+
+    @torch.no_grad()
+    def load(self, arrays, lay: params_mod.Layout) -> None:
+        """Write the reference-ordered ``arrays`` into the state in place:
+        every tensor keeps its storage, so a captured graph
+        (``training/chunk_graph.py``) goes on updating the restored
+        state. Raises ValueError on a structural mismatch, before any
+        write."""
+        leaves = self.leaves(lay)
+        if len(arrays) != len(leaves):
+            raise ValueError(f"{len(arrays)} arrays for a state of "
+                             f"{len(leaves)} leaves")
+        for i, (x, a) in enumerate(zip(leaves, arrays)):
+            if tuple(a.shape) != tuple(x.shape) or a.dtype != x.dtype:
+                raise ValueError(f"leaf {i}: {a.shape}/{a.dtype}, the state "
+                                 f"has {x.shape}/{x.dtype}")
+        for x, a in zip(leaves, arrays):
+            x.write(a)
 
 
 class TrainSetup(NamedTuple):
@@ -165,6 +218,9 @@ class TrainSetup(NamedTuple):
     make_chunk: Any
     # (state, chunk) -> (state, (k, len(block_names)) metrics on the device)
     train_many: Any
+    # (state, x (B, H, W, C), y (B,), valid (B,) bool) -> the correct@1 and
+    # correct@5 counts over the valid rows (0-d tensors)
+    eval_step: Any
 
 
 def _cross_entropy(logits, labels):
@@ -554,6 +610,18 @@ def build_train_setup(cfg: TrainConfig, device=None,
         metrics.update(host)
         return state, metrics
 
+    @torch.inference_mode()
+    def eval_step(state, x, y, valid):
+        """The reference's ``eval_step``: worker 0's running statistics,
+        no dropout, the training compute dtype."""
+        from draco_tpu_torch.training.evaluator import correct_counts
+
+        stats0 = {k: v[0] for k, v in state.stats.items()}
+        return correct_counts(
+            model, state.params, stats0,
+            *(upload(torch.as_tensor(np.asarray(t)), dev)
+              for t in (x, y, valid)))
+
     train_many = chunk_runner(
         f"train_many[{cfg.approach}/{cfg.redundancy}]", cfg, dev, state,
         step_body, block_names)
@@ -562,4 +630,4 @@ def build_train_setup(cfg: TrainConfig, device=None,
                       device=dev, decode_impl=decode_impl,
                       step_body=step_body,
                       block_names=block_names, make_chunk=make_chunk,
-                      train_many=train_many)
+                      train_many=train_many, eval_step=eval_step)

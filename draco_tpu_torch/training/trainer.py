@@ -11,17 +11,30 @@ column then counts the arrived rows). The first and every
 ``log_every``-th record go to ``<train_dir>/metrics.jsonl`` under the
 reference's column names.
 
+At every ``eval_freq`` boundary the loop evaluates the whole test split
+(``evaluate``: ``{"step", "prec1_test", "prec5_test"}``, sample-weighted,
+``training/evaluator.py``) and then, with a ``train_dir``, checkpoints
+the state there (``model_step_k.dcg``, ``utils/checkpoint.py``), as the
+reference does. ``cfg.checkpoint_step`` resumes: k from step k's
+checkpoint, −1 from the newest loadable one (``restore``, walking back
+past corrupt ones); the loop then runs on to ``max_steps``, and a later
+``run(max_steps=)`` continues from where the last stopped. ``run`` sits
+inside ``GracefulStop`` (``training/run_state.py``): SIGTERM stops at the
+next step or chunk end with a checkpoint there, a second signal
+checkpoints the newest state at once.
+
 The eager loop (K = 1) synchronises each step's metrics to the host; its
 ``step_ms`` is the step's wall time. The chunked loop (K > 1,
 ``_run_chunked``) runs chunks of up to K steps (``batching.chunk_ranges``,
 snapped to ``eval_freq``) through ``setup.train_many`` — on the card one
 captured CUDA graph replayed — driven by ``control.engine.ChunkedEngine``:
 the next chunk's batches are gathered on a worker thread
-(``data/prefetch.py``) and assembled while the card runs the current one,
-and the metrics reach the host once a flush; a chunked record's
+(``data/prefetch.py``, supervised: ``cfg.prefetch_restarts``,
+``cfg.prefetch_timeout_s``) and assembled while the card runs the current
+one, and the metrics reach the host once a flush; a chunked record's
 ``step_ms`` is its flush window's wall time over its steps. With
-``cfg.trace_dir`` set, the host phases (gather, dispatch, sync, flush) and
-the step's draco_* phases go to ``trace_dir/trace.json``
+``cfg.trace_dir`` set, the host phases (gather, dispatch, sync, flush,
+eval, ckpt) and the step's draco_* phases go to ``trace_dir/trace.json``
 (``obs/tracer.py``).
 """
 
@@ -35,12 +48,15 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching
 from draco_tpu_torch.data.datasets import Dataset, load_dataset
 from draco_tpu_torch.obs.tracer import make_tracer
+from draco_tpu_torch.resilience.supervisor import shielded
 from draco_tpu_torch.runtime import resolve_device
+from draco_tpu_torch.training.evaluator import masked_full_split_eval
+from draco_tpu_torch.training.run_state import LoopRunState
 from draco_tpu_torch.training.step import build_train_setup
 from draco_tpu_torch.utils.metrics import MetricWriter
 
 
-class Trainer:
+class Trainer(LoopRunState):
     def __init__(self, cfg: TrainConfig, device=None,
                  dataset: Optional[Dataset] = None, quiet: bool = False):
         self.cfg = cfg.validate()
@@ -50,15 +66,30 @@ class Trainer:
         self.setup = build_train_setup(cfg, device, dataset_name=self.ds.name)
         self.state = self.setup.state
         self.quiet = quiet
-        self.adv_schedule = drng.adversary_schedule(
-            cfg.seed, cfg.max_steps, cfg.num_workers, cfg.num_adversaries)
-        self.straggle_schedule = (
-            drng.straggler_schedule(cfg.seed, cfg.max_steps,
-                                    cfg.num_workers, cfg.straggle_count)
-            if cfg.straggle_mode == "drop" and cfg.straggle_count > 0
-            else None)
+        self.writer = MetricWriter(cfg.train_dir, quiet)
         self.tracer = make_tracer(cfg.trace_dir)
         self.group_seeds = drng.group_seeds(cfg.seed, max(cfg.num_groups, 1))
+        self._sched_steps = -1
+        self._ensure_schedules(cfg.max_steps)
+        self._prefetch = None  # the running chunk client's prefetcher
+        if cfg.checkpoint_step:
+            self.restore(cfg.checkpoint_step)
+
+    def _ensure_schedules(self, n_steps: int) -> None:
+        """The adversary and straggler tables through step ``n_steps``
+        (regenerated longer for a ``run(max_steps=)`` past them; each row
+        takes a fixed draw, so the rows already used stay as they were)."""
+        if n_steps <= self._sched_steps:
+            return
+        cfg = self.cfg
+        self.adv_schedule = drng.adversary_schedule(
+            cfg.seed, n_steps, cfg.num_workers, cfg.num_adversaries)
+        self.straggle_schedule = (
+            drng.straggler_schedule(cfg.seed, n_steps, cfg.num_workers,
+                                    cfg.straggle_count)
+            if cfg.straggle_mode == "drop" and cfg.straggle_count > 0
+            else None)
+        self._sched_steps = n_steps
 
     def batch(self, step: int):
         """(n, B, H, W, C) images and (n, B) labels of 1-based ``step``."""
@@ -89,9 +120,9 @@ class Trainer:
         the wall time of the step (host clock, device synchronised) as
         ``step_ms``."""
         step = self.state.step
-        if step > self.cfg.max_steps:
-            raise ValueError(f"step {step} is past max_steps="
-                             f"{self.cfg.max_steps}")
+        if step > self._sched_steps:
+            raise ValueError(f"step {step} is past the schedules' "
+                             f"{self._sched_steps} steps (max_steps)")
         tracer = self.tracer
         with tracer.span("gather"):
             x, y, adv_mask, present = self.inputs(step)
@@ -107,6 +138,21 @@ class Trainer:
             out["present"] = float(present.sum())
         out["step_ms"] = (time.perf_counter() - t0) * 1e3
         return {"step": step, **out}
+
+    # ---- eval ----------------------------------------------------------
+    def evaluate(self, step: int, batch_size: Optional[int] = None) -> dict:
+        """Accuracy on the whole test split at ``batch_size`` (default
+        ``cfg.test_batch_size``; the ragged last batch padded and masked),
+        written as ``{"step", "prec1_test", "prec5_test"}``."""
+        with self.tracer.span("eval", at_step=step):
+            p1, p5 = masked_full_split_eval(
+                lambda x, y, valid: self.setup.eval_step(self.state, x, y,
+                                                         valid),
+                self.ds.test_x, self.ds.test_y,
+                batch_size or self.cfg.test_batch_size)
+        rec = {"step": step, "prec1_test": p1, "prec5_test": p5}
+        self.writer.write(rec)
+        return rec
 
     # ---- chunking ------------------------------------------------------
     def chunk_indices(self, start: int, k: int):
@@ -125,43 +171,57 @@ class Trainer:
             n, start - 1, k, cfg.num_workers, cfg.batch_size, cfg.seed)
 
     def chunk_client(self, first: int, last: int):
-        """The engine's client for steps [first, last] over a fresh batch
-        prefetcher."""
+        """The engine's client for steps [first, last] over a fresh,
+        supervised batch prefetcher."""
         from draco_tpu_torch.control.clients import TrainerChunkClient
         from draco_tpu_torch.data import prefetch as pf
 
         cfg = self.cfg
-        prefetch = pf.ChunkPrefetcher(
+        self._ensure_schedules(last)
+        self._prefetch = self.supervised(lambda: pf.ChunkPrefetcher(
             self.ds, self.chunk_indices, cfg.num_workers, cfg.batch_size,
-            timeout_s=pf.STALL_TIMEOUT_S, tracer=self.tracer)
-        return TrainerChunkClient(self, prefetch, first, last)
+            timeout_s=cfg.prefetch_timeout_s, tracer=self.tracer))
+        return TrainerChunkClient(self, self._prefetch, first, last)
 
-    def _run_chunked(self, last_step: int, writer: MetricWriter) -> dict:
+    def _run_chunked(self, last_step: int) -> dict:
         from draco_tpu_torch.control.engine import ChunkedEngine
 
         client = self.chunk_client(self.state.step, last_step)
         engine = ChunkedEngine(client, eval_freq=self.cfg.eval_freq,
-                               tracer=self.tracer, writer=writer)
+                               tracer=self.tracer, writer=self.writer,
+                               stop=self._stop)
         self.state, last = engine.run(self.state, client.ranges)
+        return last
+
+    def _run_eager(self, last_step: int) -> dict:
+        cfg, last = self.cfg, {}
+        while self.state.step <= last_step:
+            with shielded(self._stop):
+                last = self.step()
+            step = last["step"]
+            if step % cfg.log_every == 0 or step == 1:
+                with self.tracer.span("flush"):
+                    self.writer.write(last)
+            boundary = bool(cfg.eval_freq) and step % cfg.eval_freq == 0
+            if boundary:
+                self.boundary(step)
+            if self.stop_after(step, already_saved=boundary):
+                break
         return last
 
     def run(self, max_steps: Optional[int] = None) -> dict:
         """Steps up to ``max_steps`` (default cfg.max_steps), eagerly or in
-        chunks by ``cfg.steps_per_call``; returns the last step's
-        record."""
-        cfg = self.cfg
-        last_step = cfg.max_steps if max_steps is None else max_steps
-        writer = MetricWriter(cfg.train_dir, self.quiet)
-        try:
-            if cfg.steps_per_call > 1:
-                return self._run_chunked(last_step, writer)
-            last = {}
-            while self.state.step <= last_step:
-                last = self.step()
-                step = last["step"]
-                if step % cfg.log_every == 0 or step == 1:
-                    with self.tracer.span("flush"):
-                        writer.write(last)
-            return last
-        finally:
-            self.tracer.close()
+        chunks by ``cfg.steps_per_call``, from the state's next step;
+        returns the last step's record ({} after an escalated stop)."""
+        last_step = self.cfg.max_steps if max_steps is None else max_steps
+        self._ensure_schedules(last_step)
+        if self.cfg.steps_per_call > 1:
+            return self.guarded(lambda: self._run_chunked(last_step))
+        return self.guarded(lambda: self._run_eager(last_step))
+
+    def close(self) -> None:
+        """Close a prefetcher a run left open, and the tracer."""
+        if self._prefetch is not None:
+            self._prefetch.close()
+            self._prefetch = None
+        self.tracer.close()

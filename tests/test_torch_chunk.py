@@ -316,16 +316,16 @@ def test_prefetch_stall_and_worker_errors():
 
 
 @pytest.mark.parametrize("route", ["cnn", "lm"])
-def test_the_chunked_loops_bound_their_prefetch_wait(route, monkeypatch):
-    """Each loop's prefetcher waits STALL_TIMEOUT_S at most: a hung source
-    stops the run with PrefetchStallError, not a hang."""
-    from draco_tpu_torch.data import prefetch
+def test_the_chunked_loops_bound_their_prefetch_wait(route):
+    """Each loop's prefetcher waits cfg.prefetch_timeout_s at most: a hung
+    source stops the run with PrefetchStallError, not a hang, once the
+    supervisor's restarts (cfg.prefetch_restarts) are spent."""
     from draco_tpu_torch.training.trainer import Trainer
 
-    monkeypatch.setattr(prefetch, "STALL_TIMEOUT_S", 0.2)
     release = threading.Event()
     lp = registry.get("shared" if route == "cnn" else "lm_shared_flash")
-    cfg = lp.config(False, max_steps=4, steps_per_call=2)
+    cfg = lp.config(False, max_steps=4, steps_per_call=2,
+                    prefetch_timeout_s=0.2)
     if route == "cnn":
         ds = datasets.load_dataset("synthetic-cifar10", synthetic_train=64,
                                    synthetic_test=8)

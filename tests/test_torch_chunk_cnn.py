@@ -7,6 +7,7 @@ chunked metrics.jsonl against its eager one. ``train_many`` runs the
 chunks (1, 3) and (4, 1) against four eager steps."""
 
 import json
+import os
 
 import pytest
 import torch
@@ -52,7 +53,8 @@ def test_trainer_chunked_writes_the_eager_rows(ds, tmp_path):
     """The approx leg at K=3, eval_freq=4, max_steps=7 (chunks (1,3) (4,1)
     (5,3)): the same metrics.jsonl rows, key order included (the host
     columns and the presence count among them), as K=1, apart from
-    step_ms."""
+    step_ms; the test-set eval record follows step 4 in both, and both
+    checkpoint step 4."""
     rows = {}
     for K in (1, 3):
         d = tmp_path / f"k{K}"
@@ -64,8 +66,11 @@ def test_trainer_chunked_writes_the_eager_rows(ds, tmp_path):
                  for x in (d / "metrics.jsonl").read_text().splitlines()]
         rows[K] = [{k: v for k, v in r.items() if k != "step_ms"}
                    for r in lines + [last]]
-        assert all("step_ms" in r for r in lines)
+        assert all(("step_ms" in r) != ("prec1_test" in r) for r in lines)
+        assert sorted(os.listdir(d)) == ["metrics.jsonl", "model_step_4.dcg",
+                                         "model_step_4.dcg.sha256"]
     assert [list(r) for r in rows[3]] == [list(r) for r in rows[1]]
     assert rows[3] == rows[1]
-    assert [r["step"] for r in rows[1]] == [1, 2, 4, 6, 7]
+    assert [r["step"] for r in rows[1]] == [1, 2, 4, 4, 6, 7]
+    assert list(rows[1][3]) == ["step", "prec1_test", "prec5_test"]
     assert rows[1][0]["present"] == 3.0

@@ -2,8 +2,11 @@
 configuration (LeNet on MNIST), the presets
 ``single-lenet`` and ``cyclic-vgg11``, every network of the reference's
 zoo, bfloat16 compute on the CNN, and the optimizer fields (``optimizer``,
-``weight_decay``, ``lr_schedule``, ``warmup_steps``, ``clip_norm``) with
-the reference's names, defaults and checks. No JAX computation: seconds.
+``weight_decay``, ``lr_schedule``, ``warmup_steps``, ``clip_norm``) and
+the run-state fields (``test_batch_size``, ``checkpoint_step``,
+``compress_ckpt``, ``keep_checkpoints``, ``prefetch_restarts``,
+``prefetch_timeout_s``) with the reference's names, defaults, checks and
+flags. No JAX computation: seconds.
 """
 
 import pytest
@@ -18,6 +21,8 @@ from draco_tpu_torch.models import NAMES, build_model
 
 OPT_FIELDS = ("optimizer", "lr", "momentum", "weight_decay", "lr_schedule",
               "warmup_steps", "clip_norm")
+RUN_FIELDS = ("test_batch_size", "checkpoint_step", "compress_ckpt",
+              "keep_checkpoints", "prefetch_restarts", "prefetch_timeout_s")
 
 
 def test_the_default_configuration_validates():
@@ -25,7 +30,8 @@ def test_the_default_configuration_validates():
     cfg = TrainConfig().validate()
     ref = JaxConfig().validate()
     assert (cfg.network, cfg.dataset) == ("LeNet", "MNIST")
-    for f in OPT_FIELDS + ("network", "dataset", "approach", "compute_dtype"):
+    for f in OPT_FIELDS + RUN_FIELDS + ("network", "dataset", "approach",
+                                        "compute_dtype"):
         assert getattr(cfg, f) == getattr(ref, f), f
 
 
@@ -67,6 +73,13 @@ CASES = [
           compute_dtype="bfloat16", approach="cyclic", num_workers=9,
           worker_fail=2, err_mode="constant"), False),
     (dict(compute_dtype="float16"), True),
+    (dict(checkpoint_step=-1), False),
+    (dict(checkpoint_step=-2), True),
+    (dict(keep_checkpoints=-1), True),
+    (dict(keep_checkpoints=2), False),
+    (dict(prefetch_restarts=-1), True),
+    (dict(prefetch_timeout_s=-0.5), True),
+    (dict(prefetch_timeout_s=0.0, prefetch_restarts=0), False),
 ]
 
 
@@ -114,3 +127,41 @@ def test_cli_flags():
     cfg = cli.config_from_args(cli.parser().parse_args(
         ["--preset", "single-lenet"]))
     assert cfg == presets.get_preset("single-lenet")
+
+
+def test_run_state_flags():
+    """The reference's flag names for the run-state fields; a preset takes
+    ``--checkpoint-step`` as the reference's CLI passes it."""
+    args = cli.parser().parse_args([
+        "--preset", "cyclic-resnet18", "--checkpoint-step", "-1",
+        "--compress-ckpt", "--keep-checkpoints", "2", "--test-batch-size",
+        "500", "--prefetch-timeout", "30", "--prefetch-restarts", "0"])
+    cfg = cli.config_from_args(args)
+    want = dict(network="ResNet18", checkpoint_step=-1, compress_ckpt=True,
+                keep_checkpoints=2, test_batch_size=500,
+                prefetch_timeout_s=30.0, prefetch_restarts=0)
+    assert {k: getattr(cfg, k) for k in want} == want
+    cfg = cli.config_from_args(cli.parser().parse_args([]))
+    for f in RUN_FIELDS:
+        assert getattr(cfg, f) == getattr(JaxConfig(), f), f
+    from draco_tpu.cli import add_fit_args
+    import argparse
+
+    ref = add_fit_args(argparse.ArgumentParser())
+    ref_flags = {s for a in ref._actions for s in a.option_strings}
+    new = {"--test-batch-size", "--checkpoint-step", "--compress-ckpt",
+           "--keep-checkpoints", "--prefetch-timeout", "--prefetch-restarts"}
+    assert new <= set(cli.FLAGS) and new <= ref_flags
+    assert ref.parse_args(["--prefetch-timeout", "30"]).prefetch_timeout_s \
+        == 30.0
+
+
+def test_the_port_config_fields_are_the_references():
+    """Every field of the port's configuration is one of the reference's,
+    under the same name (the run-state fields among them)."""
+    import dataclasses
+
+    assert set(RUN_FIELDS) <= {f.name for f in
+                               dataclasses.fields(TrainConfig)}
+    assert {f.name for f in dataclasses.fields(TrainConfig)} <= {
+        f.name for f in dataclasses.fields(JaxConfig)}
