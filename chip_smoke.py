@@ -6,7 +6,9 @@
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
-  1. build    every kernel of ``draco_tpu_torch/csrc`` with nvcc, in parallel
+  1. build    every kernel of ``draco_tpu_torch/csrc`` with nvcc, in
+              parallel, and beside them the old one-block-a-column locator
+              (``obs/locator_ab.cu``), the yardstick of the wide codes
   2. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes: the coded products at n=8,
               d=11,173,962 and at the VGG-11 legs' n=9, d=9,750,922, the
@@ -15,7 +17,11 @@ prints no result line):
               n=8, s=1, with an attacked row, an absent row, a λ>0 case
               and NaN-poisoned columns, and at n=9, s=2 with two attacked
               rows, an attacked row beside an absent one, a λ>0 clean
-              column and a NaN row; the narrow recombination (bf16, int8 at
+              column and a NaN row; at the wide codes n=32, s=3 and s=5
+              (attacked rows, an absent row, λ>0, a NaN row) and n=40,
+              s=3 (two rows a lane) beside the old one-block-a-column kernel
+              (``obs/locator_ab``), held to the plain version at least as
+              well as it; the narrow recombination (bf16, int8 at
               block 256) and the approx decode (f32, bf16, int8; two absent
               rows, one of them NaN) at n=8, d=11,173,962 and at a small
               ragged d; the flash forward, dq and dk/dv at G=8·2·12 heads,
@@ -212,7 +218,7 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data.datasets import load_dataset
 from draco_tpu_torch.models import build_model
 from draco_tpu_torch.models.transformer import TransformerLM
-from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.obs import locator_ab, numerics
 from draco_tpu_torch.obs.trace_report import fold_device_phases
 from draco_tpu_torch.obs.tracer import PHASES
 from draco_tpu_torch.ops import coded, controls, decode_kernels, vote
@@ -242,6 +248,8 @@ VOTE_N = 9  # the majvote leg's workers (preset rep-resnet18)
 # the VGG-11 legs (preset cyclic-vgg11): n=9, s=2, VGG-11's flat gradient
 VGG_N, VGG_S, VGG_D = 9, 2, 9_750_922
 SEED = 428
+# the locator's wide codes (n, s), held beside the old kernel
+WIDE_CODES = ((32, 3), (32, 5), (40, 3))
 CODED = ("complex_matmul", "complex_project", "complex_recombine",
          "cyclic_locator")
 NARROW = ("complex_matmul", "complex_project", "cyclic_locator",
@@ -569,7 +577,7 @@ def locator_pair(code, dev) -> tuple:
     return plain, kernel
 
 
-def locator_cases(code, dev, g, cases) -> float:
+def locator_cases(code, dev, g, cases, old_lib=None) -> float:
     """Each case (label, L, attacked, absent, λ, NaN) through the kernel
     and its plain version: the discrete outputs (honest, flagged, loud)
     equal; v within 1e-4 of max|v| and the residual within 1e-5 (f32 solves
@@ -578,8 +586,18 @@ def locator_cases(code, dev, g, cases) -> float:
     NaN in the same places; on a case without NaN each attacked row
     located and each absent row unused. The NaN cases poison a row of
     every column, or one row of one column (a worker that sent NaN).
+
+    With ``old_lib`` (the wide codes, n >= 32, whose m×m honest inverse
+    amplifies f32 noise ~4e4×, so a flag can sit at the noise floor for any
+    kernel): the old one-block-a-column kernel (``obs/locator_ab``) runs on
+    the same columns, and the kernel is held to the plain version at least
+    as well as it is. The honest set equals the plain version's (the data
+    decide it), and flagged and loud wherever the old kernel equals the
+    plain version; v within the larger of 1e-4 of max|v| and twice the old
+    kernel's v error, the residual within the larger of 1e-5 and twice its.
     Returns the largest v error."""
     plain, kernel = locator_pair(code, dev)
+    instance = decode_kernels.locator_instance(code.n, code.s)
     worst = 0.0
     for label, L, attacked, absent, lam, nan in cases:
         label = f"n={code.n}, s={code.s}, {label}"
@@ -589,13 +607,19 @@ def locator_cases(code, dev, g, cases) -> float:
             e_re[cols, nan[1]] = float("nan")
         k = kernel(e_re, e_im, pres, lam)
         p = plain(e_re, e_im, pres, lam)
-        for name, a, b in zip(("honest", "flagged", "loud"), k[2:5], p[2:5]):
-            require(torch.equal(a, b), f"cyclic_locator [{label}]: {name} "
-                    f"differs: kernel {a.int().tolist()} plain "
-                    f"{b.int().tolist()}")
-        for name, a, b in (("v_re", k[0], p[0]), ("v_im", k[1], p[1]),
-                           ("residual", k[5], p[5])):
-            require(torch.equal(a.isnan(), b.isnan()),
+        o = (None if old_lib is None else locator_ab.old_locator(
+            old_lib, code, e_re, e_im, pres, cyclic.HEALTH_REL_TOL, lam))
+        for i, name in zip((2, 3, 4), ("honest", "flagged", "loud")):
+            a, b = k[i], p[i]
+            held = (torch.ones_like(a) if o is None or name == "honest"
+                    else o[i] == b)
+            require(torch.equal(a[held], b[held]), f"cyclic_locator "
+                    f"[{label}]: {name} differs: kernel {a.int().tolist()} "
+                    f"plain {b.int().tolist()}"
+                    + ("" if o is None
+                       else f" old kernel {o[i].int().tolist()}"))
+        for name, i in (("v_re", 0), ("v_im", 1), ("residual", 5)):
+            require(torch.equal(k[i].isnan(), p[i].isnan()),
                     f"cyclic_locator [{label}]: {name} NaN in other places")
         k = [torch.nan_to_num(x, nan=0.0) for x in k]
         p = [torch.nan_to_num(x, nan=0.0) for x in p]
@@ -603,25 +627,51 @@ def locator_cases(code, dev, g, cases) -> float:
         v_err = max((k[0] - p[0]).abs().max().item(),
                     (k[1] - p[1]).abs().max().item())
         r_err = (k[5] - p[5]).abs().max().item()
-        require(v_err <= 1e-4 * v_scale,
-                f"cyclic_locator [{label}]: v err {v_err} > {1e-4 * v_scale}")
-        require(r_err <= 1e-5, f"cyclic_locator [{label}]: residual err "
-                f"{r_err} > 1e-5")
+        v_tol, r_tol, against = 1e-4 * v_scale, 1e-5, ""
+        if o is not None:
+            o = [torch.nan_to_num(x, nan=0.0) for x in o]
+            o_v = max((o[0] - p[0]).abs().max().item(),
+                      (o[1] - p[1]).abs().max().item())
+            o_r = (o[5] - p[5]).abs().max().item()
+            v_tol, r_tol = max(v_tol, 2 * o_v), max(r_tol, 2 * o_r)
+            o_same = all(torch.equal(o[i], p[i]) for i in (2, 3, 4))
+            against = (f" (the old kernel: v err {o_v:.3e}, residual err "
+                       f"{o_r:.3e}, discrete "
+                       f"{'equal' if o_same else 'differs'})")
+        require(v_err <= v_tol,
+                f"cyclic_locator [{label}]: v err {v_err} > {v_tol}")
+        require(r_err <= r_tol, f"cyclic_locator [{label}]: residual err "
+                f"{r_err} > {r_tol}")
         worst = max(worst, v_err)
         if nan is not None:  # the reference's outcome, not a location
-            print(f"kernel cyclic_locator [{label}]: discrete outputs equal "
-                  f"(honest {k[2][0].int().tolist()}), v err {v_err:.3e}",
-                  flush=True)
+            print(f"kernel cyclic_locator [{label}] ({instance}): discrete "
+                  f"outputs held (honest {k[2][0].int().tolist()}), v err "
+                  f"{v_err:.3e}{against}", flush=True)
             continue
+        # the columns whose attacked rows the plain version locates (all of
+        # them, but on the wide codes' λ path, where the reference's gate
+        # can miss a column: those are counted, not held)
+        cols = torch.ones(L, dtype=torch.bool, device=dev)
         for row in attacked:
-            require(not bool(k[2][:, row].any()) and bool(k[3][:, row].all()),
+            cols &= ~p[2][:, row].bool() & p[3][:, row].bool()
+        missed = L - int(cols.sum())
+        require(missed == 0 or (o is not None and lam > 0),
+                f"cyclic_locator [{label}]: the plain version leaves an "
+                f"attacked row unlocated in {missed} of {L} columns")
+        for row in attacked:
+            require(not bool(k[2][cols, row].any())
+                    and bool(k[3][cols, row].all()),
                     f"cyclic_locator [{label}]: attacked row {row} not "
                     f"located")
         for row in absent:
             require(not bool(k[2][:, row].any()),
                     f"cyclic_locator [{label}]: absent row {row} used")
-        print(f"kernel cyclic_locator [{label}]: discrete outputs equal, "
-              f"v err {v_err:.3e}, residual err {r_err:.3e}", flush=True)
+        print(f"kernel cyclic_locator [{label}] ({instance}): discrete "
+              f"outputs held, v err {v_err:.3e}, residual err {r_err:.3e}"
+              f"{against}"
+              + (f"; the plain version (the reference's λ gate) leaves an "
+                 f"attacked row unlocated in {missed} of {L} columns"
+                 if missed else ""), flush=True)
     return worst
 
 
@@ -634,33 +684,58 @@ def locator_timing(code, dev, g) -> dict:
     nbytes = 4 * (2 * n + 2 * (2 * s * n + n * m + n * (s + 1)) + n
                   + 2 * n + 1) + 3 * n
     b_ms, b_by = bound(nbytes, locator_flops(n, s))
-    return {"ms": graph_ms(lambda: kernel(e_re, e_im, pres), 200),
+    return {"n": n, "s": s,
+            "instance": decode_kernels.locator_instance(n, s),
+            "ms": graph_ms(lambda: kernel(e_re, e_im, pres), 200),
             "launch_ms": time_ms(lambda: kernel(e_re, e_im, pres), 200),
             "plain_ms": time_ms(lambda: plain(e_re, e_im, pres), 10),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def locator_kernel(code, dev, code9) -> list:
+LAM = 2.0 ** -6  # the narrow wires' λ (the signal-scale path)
+
+
+def locator_kernel(code, dev, code9, old_lib) -> list:
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst = locator_cases(code, dev, g, [
         ("L=1, attacked row 3", 1, (3,), (), 0.0, None),
         ("L=62, attacked row 5", 62, (5,), (), 0.0, None),
         ("L=1, attacked row 2, absent row 6", 1, (2,), (6,), 0.0, None),
-        ("L=62, λ=2^-6, attacked row 1", 62, (1,), (), 2.0 ** -6, None),
-        ("L=8, λ=2^-6, clean", 8, (), (), 2.0 ** -6, None),
+        ("L=62, λ=2^-6, attacked row 1", 62, (1,), (), LAM, None),
+        ("L=8, λ=2^-6, clean", 8, (), (), LAM, None),
         ("L=1, attacked row 1, NaN row 3", 1, (1,), (), 0.0, (None, 3)),
         ("L=62, attacked row 5, NaN in column 7 row 2", 62, (5,), (), 0.0,
          (7, 2)),
-        ("L=62, λ=2^-6, NaN row 4", 62, (), (), 2.0 ** -6, (None, 4))])
+        ("L=62, λ=2^-6, NaN row 4", 62, (), (), LAM, (None, 4))])
     # the VGG-11 legs' code: two attacked rows; one attacked row beside an
     # absent one (t + e <= s); λ > 0 on a clean column; a NaN row
     worst9 = locator_cases(code9, dev, g, [
         ("L=1, attacked rows 2 and 6", 1, (2, 6), (), 0.0, None),
         ("L=22, attacked rows 0 and 8", 22, (0, 8), (), 0.0, None),
         ("L=1, attacked row 4, absent row 7", 1, (4,), (7,), 0.0, None),
-        ("L=8, λ=2^-6, clean", 8, (), (), 2.0 ** -6, None),
+        ("L=8, λ=2^-6, clean", 8, (), (), LAM, None),
         ("L=1, attacked rows 1 and 5, NaN row 3", 1, (1, 5), (), 0.0,
          (None, 3))])
+    # the wide codes, held beside the old kernel: the reference's int8
+    # study code n=32, s=3 and its construction ceiling n=32, s=5 (the
+    # shared-tile solve), and n=40, s=3 (two rows a lane)
+    wide = {}
+    for n, s in WIDE_CODES:
+        c = cyclic.build_cyclic_code(n, s)
+        rows = tuple(range(1, 1 + 5 * s, 5))  # s attacked rows
+        if n > 32:  # rows past lane 31 attacked and absent
+            cases = [("L=5, attacked rows 6 and 33, absent row 37", 5,
+                      (6, 33), (37,), 0.0, None)]
+        else:
+            cases = [
+                (f"L=1, attacked rows {rows}", 1, rows, (), 0.0, None),
+                (f"L=4, attacked rows {rows[:-1]}, absent row {n - 3}", 4,
+                 rows[:-1], (n - 3,), 0.0, None),
+                (f"L=8, λ=2^-6, attacked rows {rows}", 8, rows, (), LAM,
+                 None),
+                (f"L=1, attacked rows {rows[:-1]}, NaN row {n - 5}", 1,
+                 rows[:-1], (), 0.0, (None, n - 5))]
+        wide[(n, s)] = locator_cases(c, dev, g, cases, old_lib)
     # the layer legs' column counts (ResNet-18's 62 leaves, the LM's 69
     # segments), from a graph
     _, kernel = locator_pair(code, dev)
@@ -670,14 +745,19 @@ def locator_kernel(code, dev, code9) -> list:
         at_l[str(L)] = graph_ms(lambda: kernel(e_re, e_im, pres), 50)
     print(f"kernel cyclic_locator: L=62 {at_l['62']:.4f} ms, L=69 "
           f"{at_l['69']:.4f} ms (device, CUDA graph)", flush=True)
-    # timed at the main path's shape: one column (global decode)
+    # timed at the main path's shape, one column (global decode), and at
+    # the wide codes n=32, s=3 and s=5
     t8, t9 = locator_timing(code, dev, g), locator_timing(code9, dev, g)
-    for (n, s), t in (((code.n, code.s), t8), ((code9.n, code9.s), t9)):
-        print(f"kernel cyclic_locator at n={n}, s={s}: ms={t['ms']:.4f} "
-              f"(device, CUDA graph) launch_ms={t['launch_ms']:.4f} "
-              f"(back-to-back wrapper calls) plain_ms={t['plain_ms']:.4f} "
-              f"bound_ms={t['bound_ms']:.3e} ({t['bound_by']}; the serial "
-              f"chain and the launch set its time)", flush=True)
+    tw = {f"n{n}_s{s}": locator_timing(cyclic.build_cyclic_code(n, s), dev,
+                                       g)
+          for n, s in WIDE_CODES if n == 32}
+    for t in (t8, t9, *tw.values()):
+        print(f"kernel cyclic_locator at n={t['n']}, s={t['s']} "
+              f"({t['instance']}): ms={t['ms']:.4f} (device, CUDA graph) "
+              f"launch_ms={t['launch_ms']:.4f} (back-to-back wrapper calls) "
+              f"plain_ms={t['plain_ms']:.4f} bound_ms={t['bound_ms']:.3e} "
+              f"({t['bound_by']}; the dependency chain and the launch set "
+              f"its time)", flush=True)
     return [{"name": "cyclic_locator", "route": "cuda",
              "source": "draco_tpu_torch/csrc/cyclic_locator.cu",
              "replaces": "draco_tpu/ops/decode_kernels.py:127", "ok": True,
@@ -685,9 +765,12 @@ def locator_kernel(code, dev, code9) -> list:
              "ms": t8["ms"], "launch_ms": t8["launch_ms"],
              "plain_ms": t8["plain_ms"], "graph_ms_at_L": at_l,
              "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
-             "library_ms": None,
-             "n9_s2": {"n": code9.n, "s": code9.s, "max_abs_err": worst9,
-                       **t9}}]
+             "library_ms": None, "instance": t8["instance"],
+             "n9_s2": {"max_abs_err": worst9, **t9},
+             **{k: {"max_abs_err": wide[(t["n"], t["s"])], **t}
+                for k, t in tw.items()},
+             "n40_s3": {"n": 40, "s": 3, "max_abs_err": wide[(40, 3)],
+                        "instance": decode_kernels.locator_instance(40, 3)}}]
 
 
 def vote_kernels(dev) -> list:
@@ -3244,7 +3327,9 @@ def main(argv=None) -> int:
           flush=True)
 
     t0 = time.perf_counter()
+    old_locator_job = locator_ab.start_build()  # the old locator, beside
     built = _build.build_all()
+    old_locator_lib = locator_ab.finish_build(old_locator_job)
     record["build_s"] = time.perf_counter() - t0
     print(f"build: nvcc {built or 'nothing (up to date)'} in "
           f"{record['build_s']:.1f} s", flush=True)
@@ -3253,7 +3338,7 @@ def main(argv=None) -> int:
     code9 = cyclic.build_cyclic_code(VGG_N, VGG_S)
     cuts = leg_bounds()
     kernels = (coded_kernels(code, dev, code9)
-               + locator_kernel(code, dev, code9)
+               + locator_kernel(code, dev, code9, old_locator_lib)
                + narrow_kernels(code, dev) + segment_kernels(code, dev, cuts)
                + flash_kernels(dev) + vote_kernels(dev)
                + control_kernels(dev))

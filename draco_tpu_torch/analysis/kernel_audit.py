@@ -129,14 +129,21 @@ SPECS = (
     KernelSpec("complex_recombine", "coded", ("complex_recombine_kernel",),
                "draco_tpu/ops/coded.py:201", 32, shape=(8, 0),
                largest={"n": MAX_N}, largest_shape=(MAX_N, 0)),
-    KernelSpec("cyclic_locator", "cyclic_locator", ("cyclic_locator_kernel",),
-               "draco_tpu/ops/decode_kernels.py:127", 71,
-               local_bytes={"cyclic_locator_kernel": 1024},
-               local_reason="the Jacobi solve's coef/sig2 arrays (2·64 "
-                            "floats each, indexed by the run-time 2s) on "
-                            "thread 0's serial chain",
+    # the locator: one warp a column, one row a lane (two, n > 32), the
+    # Hankel solve's rows in registers at s = 1, 2 (<kRow1M2> 64 registers,
+    # <kRow1M4> 72) or in a per-warp shared tile (<kRow1> 80, <kRow2> 96);
+    # no run-time-indexed array and no slow-path call, so no local memory
+    # (ops/decode_kernels.LOCATOR_ROUTES picks the instance)
+    KernelSpec("cyclic_locator", "cyclic_locator",
+               ("cyclic_locator_kernel<kRow1M2>",
+                "cyclic_locator_kernel<kRow1M4>",
+                "cyclic_locator_kernel<kRow1>",
+                "cyclic_locator_kernel<kRow2>"),
+               "draco_tpu/ops/decode_kernels.py:127", 96,
                shape=(8, 1), largest={"n": MAX_N, "s": MAX_S, "L": 1},
-               largest_shape=(MAX_N, MAX_S)),
+               largest_shape=(MAX_N, MAX_S),
+               main=("cyclic_locator_kernel<kRow1M2>",
+                     "cyclic_locator_kernel<kRow1M4>")),
     # the narrow decode reads strips of 16-byte chunks (the approx decode:
     # 4 columns), the loads of a row group in flight (the recombination: 4
     # rows of each buffer at 2 blocks a SM, kInt8 127 registers; kInt8Any,
@@ -286,9 +293,8 @@ def _stream() -> int:
 def _cases(name: str, dev) -> list:
     """The coverage cases of one entry point on ``dev``: small, ragged
     against the kernels' blocks."""
-    from draco_tpu_torch.coding import cyclic
     from draco_tpu_torch.obs import numerics
-    from draco_tpu_torch.ops import coded, controls, decode_kernels
+    from draco_tpu_torch.ops import coded, controls
     from draco_tpu_torch.ops import flash_attention as fa
 
     cuda = dev.type == "cuda"
@@ -347,30 +353,8 @@ def _cases(name: str, dev) -> list:
                                                           r_im))
         cases.append(Case(f"n={n} d={d}", {"out": ((d,), f32)}, run))
     elif name == "cyclic_locator":
-        code = cyclic.build_cyclic_code(8, 1)
-        L, n = 3, 8
-        e_re, e_im = rnd(L, n), rnd(L, n)
-        pres = torch.ones((1, n), device=dev)
-        pres[0, 6] = 0.0
-        b = torch.uint8
-
-        def run(o):
-            if cuda:
-                decode_kernels.cyclic_locator_launch(
-                    code, e_re, e_im, pres, cyclic.HEALTH_REL_TOL, 0.0,
-                    o["v_re"], o["v_im"], o["honest"], o["flagged"],
-                    o["loud"], o["resid"])
-            else:
-                t = code.tensors(dev)
-                r = cyclic.locator_core(
-                    e_re, e_im, t["c2h_re"], t["c2h_im"], t["c1_re"],
-                    t["c1_im"], t["est_re"], t["est_im"], pres, code.s)
-                _put(o, v_re=r[0], v_im=r[1], honest=r[2], flagged=r[3],
-                     loud=r[4], resid=r[5])
-        cases.append(Case(f"L={L} n={n} s=1, row 6 absent",
-                          {"v_re": ((L, n), f32), "v_im": ((L, n), f32),
-                           "honest": ((L, n), b), "flagged": ((L, n), b),
-                           "loud": ((L, n), b), "resid": ((L,), f32)}, run))
+        for n, s, L in LOCATOR_CASES:
+            cases.append(_locator_case(n, s, L, dev, cuda, rnd))
     elif name in ("cyclic_narrow_recombine", "approx_decode"):
         cases += _narrow_cases(name, dev, cuda, rnd)
         if name == "approx_decode":
@@ -443,6 +427,43 @@ def _cases(name: str, dev) -> list:
                 _put(o, o=controls.control_spill_plain(x, idx))
         cases.append(Case(f"n={n}", {"o": ((n,), f32)}, run))
     return cases
+
+
+# the locator's coverage, one case an instance (ops/decode_kernels
+# .LOCATOR_ROUTES): (n, s, L) with L ragged against the block's columns
+# (4 warps; 2 at n > 32); the two-rows-a-lane instance at n = 40
+LOCATOR_CASES = ((8, 1, 3), (9, 2, 5), (32, 3, 5), (40, 3, 3))
+
+
+def _locator_case(n: int, s: int, L: int, dev, cuda: bool, rnd) -> Case:
+    """The locator at (n, s) on L random columns with row 6 absent."""
+    from draco_tpu_torch.coding import cyclic
+    from draco_tpu_torch.ops import decode_kernels
+
+    code = cyclic.build_cyclic_code(n, s)
+    e_re, e_im = rnd(L, n), rnd(L, n)
+    pres = torch.ones((1, n), device=dev)
+    pres[0, 6] = 0.0
+    f32, b = torch.float32, torch.uint8
+
+    def run(o):
+        if cuda:
+            decode_kernels.cyclic_locator_launch(
+                code, e_re, e_im, pres, cyclic.HEALTH_REL_TOL, 0.0,
+                o["v_re"], o["v_im"], o["honest"], o["flagged"], o["loud"],
+                o["resid"])
+        else:
+            t = code.tensors(dev)
+            r = cyclic.locator_core(
+                e_re, e_im, t["c2h_re"], t["c2h_im"], t["c1_re"],
+                t["c1_im"], t["est_re"], t["est_im"], pres, code.s)
+            _put(o, v_re=r[0], v_im=r[1], honest=r[2], flagged=r[3],
+                 loud=r[4], resid=r[5])
+    return Case(f"L={L} n={n} s={s} ({decode_kernels.locator_instance(n, s)}"
+                f"), row 6 absent",
+                {"v_re": ((L, n), f32), "v_im": ((L, n), f32),
+                 "honest": ((L, n), b), "flagged": ((L, n), b),
+                 "loud": ((L, n), b), "resid": ((L,), f32)}, run)
 
 
 # the encode's coverage: two row groups of W (m = 9) and of G (n = 64), a

@@ -5,7 +5,8 @@ of projected columns: syndrome → Hankel solve by one-sided Jacobi →
 locator on the DFT grid → top-(n−2s) honest mask → one complex
 Gauss–Jordan inverse giving the recombination vector and the codeword fit
 → flagged / loud / residual. Kernel: ``csrc/cyclic_locator.cu`` (one
-thread block per column); plain version: ``coding/cyclic.locator_core``.
+warp a column, the chain spread over its lanes); plain version:
+``coding/cyclic.locator_core``.
 
 ``cyclic_narrow_recombine`` is the cyclic recombination Re(vᵀR) read from
 the narrow wire (bf16, or int8 levels with per-block scales), widened in
@@ -40,7 +41,7 @@ from draco_tpu_torch import _build
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.ops import coded
 
-MAX_N = 64  # the kernel's block width; rank counts are exact to 64 rows
+MAX_N = 64  # the locator's two rows a lane; rank counts are exact to 64 rows
 # wire element type -> the narrow_decode kernels' template switch
 WIRE_CODES = {"f32": 0, "bf16": 1, "int8": 2}
 WIRE_TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
@@ -66,11 +67,11 @@ def cyclic_locator(code, e_re_l, e_im_l, pres_f, rel_tol: float,
     loud, residual)`` of :func:`~draco_tpu_torch.coding.cyclic.locator_core`:
     the first five (L, n), ``residual`` (L,). ``pres_f``: (1, n) f32
     presence shared by every column."""
-    from draco_tpu_torch.coding import cyclic as cyclic_mod
-
     dev = e_re_l.device
-    t = code.tensors(dev)
     if resolve_decode_impl("auto", dev) == "plain":
+        from draco_tpu_torch.coding import cyclic as cyclic_mod
+
+        t = code.tensors(dev)
         return cyclic_mod.locator_core(
             e_re_l, e_im_l, t["c2h_re"], t["c2h_im"], t["c1_re"], t["c1_im"],
             t["est_re"], t["est_im"], pres_f, code.s, rel_tol, lam=lam)
@@ -78,42 +79,79 @@ def cyclic_locator(code, e_re_l, e_im_l, pres_f, rel_tol: float,
     if n != code.n or n > MAX_N:
         raise ValueError(f"cyclic_locator: columns of {n} rows for a code of "
                          f"n={code.n} (the kernel takes n <= {MAX_N})")
-    ins = (e_re_l, e_im_l, pres_f)
-    for x in ins:
+    for x in (e_re_l, e_im_l, pres_f):
         if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("cyclic_locator takes contiguous float32 tensors "
                              f"on one device; got {x.dtype} on {x.device}")
     if e_im_l.shape != (L, n) or pres_f.shape != (1, n):
         raise ValueError(f"cyclic_locator: e {tuple(e_re_l.shape)} / "
                          f"{tuple(e_im_l.shape)}, pres {tuple(pres_f.shape)}")
-    v = torch.empty((2, L, n), dtype=torch.float32, device=dev)
-    masks = torch.empty((3, L, n), dtype=torch.bool, device=dev)
+    v_re, v_im = torch.empty((2, L, n), dtype=torch.float32,
+                             device=dev).unbind(0)
+    honest, flagged, loud = torch.empty((3, L, n), dtype=torch.bool,
+                                        device=dev).unbind(0)
     resid = torch.empty((L,), dtype=torch.float32, device=dev)
-    cyclic_locator_launch(code, e_re_l, e_im_l, pres_f, rel_tol, lam, v[0],
-                          v[1], masks[0], masks[1], masks[2], resid)
+    cyclic_locator_launch(code, e_re_l, e_im_l, pres_f, rel_tol, lam, v_re,
+                          v_im, honest, flagged, loud, resid)
     cyclic_locator.launches += 1
-    return v[0], v[1], masks[0], masks[1], masks[2], resid
+    return v_re, v_im, honest, flagged, loud, resid
+
+
+# the locator kernel's dispatch table, ``kRoutes`` of csrc/cyclic_locator.cu
+# (a CPU test holds the two equal): (n_lo, n_hi, s_lo, s_hi, instance) —
+# one or two rows a lane (n <= 32, n <= 64), the Hankel solve in registers
+# at s = 1 and s = 2, else in a shared tile
+LOCATOR_ROUTES = (
+    (1, 32, 0, 0, "kRow1"),
+    (1, 32, 1, 1, "kRow1M2"),
+    (1, 32, 2, 2, "kRow1M4"),
+    (1, 32, 3, 15, "kRow1"),
+    (33, 64, 0, 15, "kRow2"),
+)
+
+
+def locator_instance(n: int, s: int) -> str:
+    """The ``__global__`` instance the locator launches at (n, s)."""
+    for n_lo, n_hi, s_lo, s_hi, v in LOCATOR_ROUTES:
+        if n_lo <= n <= n_hi and s_lo <= s <= s_hi:
+            return f"cyclic_locator_kernel<{v}>"
+    raise ValueError(f"cyclic_locator: no kernel instance for n={n}, s={s}")
+
+
+def _locator_context(code, dev) -> tuple:
+    """``(fn, constants, sweeps, rcond², loud tolerance, φ)`` of one code on
+    one CUDA device: the launcher and the arguments that do not change from
+    call to call (the pointers of the code's six constants, which live as
+    long as the code), cached on the code beside its tensors."""
+    cache = code.__dict__.setdefault("_locator_ctx", {})
+    ctx = cache.get(dev)
+    if ctx is None:
+        from draco_tpu_torch.coding import cyclic as cyclic_mod
+
+        t = code.tensors(dev)
+        ctx = (_build.library("cyclic_locator").draco_cyclic_locator,
+               tuple(t[k].data_ptr() for k in ("c2h_re", "c2h_im", "c1_re",
+                                               "c1_im", "est_re", "est_im")),
+               cyclic_mod.linalg_mod.JACOBI_SWEEPS,
+               cyclic_mod.LOCATOR_RCOND ** 2, cyclic_mod.LOUD_REL_TOL,
+               cyclic_mod.SPREAD_PHI)
+        cache[dev] = ctx
+    return ctx
 
 
 def cyclic_locator_launch(code, e_re_l, e_im_l, pres_f, rel_tol, lam, v_re,
                           v_im, honest, flagged, loud, resid) -> None:
     """The locator kernel into ``v_re``, ``v_im`` (L, n) f32, the one-byte
     masks ``honest``, ``flagged``, ``loud`` (L, n) and ``resid`` (L,)."""
-    from draco_tpu_torch.coding import cyclic as cyclic_mod
-
     dev = e_re_l.device
     L, n = e_re_l.shape
-    t = code.tensors(dev)
-    c = [t[k] for k in ("c2h_re", "c2h_im", "c1_re", "c1_im", "est_re",
-                        "est_im")]
-    err = _build.library("cyclic_locator").draco_cyclic_locator(
-        e_re_l.data_ptr(), e_im_l.data_ptr(), *(x.data_ptr() for x in c),
-        pres_f.data_ptr(), v_re.data_ptr(), v_im.data_ptr(),
-        honest.data_ptr(), flagged.data_ptr(), loud.data_ptr(),
-        resid.data_ptr(), L, n, code.s, cyclic_mod.linalg_mod.JACOBI_SWEEPS,
-        cyclic_mod.LOCATOR_RCOND ** 2, lam, lam * lam, 2.0 * lam,
-        1e-3 / n, rel_tol ** 2, cyclic_mod.LOUD_REL_TOL,
-        cyclic_mod.SPREAD_PHI, torch.cuda.current_stream(dev).cuda_stream)
+    fn, consts, sweeps, rcond2, loud_tol, phi = _locator_context(code, dev)
+    err = fn(e_re_l.data_ptr(), e_im_l.data_ptr(), *consts,
+             pres_f.data_ptr(), v_re.data_ptr(), v_im.data_ptr(),
+             honest.data_ptr(), flagged.data_ptr(), loud.data_ptr(),
+             resid.data_ptr(), L, n, code.s, sweeps, rcond2, lam, lam * lam,
+             2.0 * lam, 1e-3 / n, rel_tol ** 2, loud_tol, phi,
+             torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, "cyclic_locator")
 
 

@@ -282,6 +282,49 @@ def test_the_largest_coded_config_validate_accepts():
                 worker_fail=1).validate()
 
 
+_ROUTE = re.compile(r"\{(\d+),\s*(\d+),\s*(\d+),\s*(\d+),\s*(k\w+)\}")
+
+
+def test_locator_dispatch_covers_every_cyclic_config():
+    """The locator's dispatch table (``kRoutes`` of csrc/cyclic_locator.cu)
+    is ``ops/decode_kernels.LOCATOR_ROUTES``, and every (n, s) that
+    config.validate() admits for the cyclic code (n <= 64, n > 4s) matches
+    exactly one row, whose instance the audit table and the spec list;
+    every instance serves some (n, s)."""
+    from draco_tpu_torch import _build
+    from draco_tpu_torch.ops import decode_kernels as dk
+
+    text = (_build.PKG_DIR / "csrc" / "cyclic_locator.cu").read_text()
+    table = text[text.index("kRoutes[] = {"):]
+    table = table[:table.index("};")]
+    rows = tuple((int(a), int(b), int(c), int(d), v)
+                 for a, b, c, d, v in _ROUTE.findall(table))
+    assert rows == dk.LOCATOR_ROUTES
+    functions = kernel_audit.spec("cyclic_locator").functions
+    used = set()
+    admitted = 0
+    for n in range(1, 70):
+        for s in range(0, 20):
+            try:
+                TrainConfig(approach="cyclic", num_workers=n,
+                            worker_fail=s).validate()
+            except ValueError:
+                continue
+            assert n <= 64 and n > 4 * s
+            hits = [r for r in rows if r[0] <= n <= r[1] and r[2] <= s <= r[3]]
+            assert len(hits) == 1, (n, s, hits)
+            name = dk.locator_instance(n, s)
+            assert name in functions and f'"{name}"' in text
+            used.add(name)
+            admitted += 1
+    assert admitted == 544 and used == set(functions)
+    assert dk.locator_instance(8, 1) == "cyclic_locator_kernel<kRow1M2>"
+    assert dk.locator_instance(9, 2) == "cyclic_locator_kernel<kRow1M4>"
+    assert dk.locator_instance(40, 3) == "cyclic_locator_kernel<kRow2>"
+    with pytest.raises(ValueError):
+        dk.locator_instance(65, 1)
+
+
 def test_flash_past_the_kernels_head_dim_validate_rejects():
     """The flash kernels take Dh <= MAX_DH (128): config.validate()
     rejects attn_impl="flash" past it and accepts the dense attention
