@@ -46,7 +46,17 @@ prints no result line):
               slice, the approx offset entry's decoded slices bit for bit
               approx_decode on the contiguous slices, the projection at
               S=1 against complex_project with equal locator outputs; the
-              locator at L=62 and 69 from a graph. Times
+              locator at L=62 and 69 from a graph. The device draws
+              (``draw_kernels``, csrc/draws.cu, the reference's threefry
+              stream): random_inject's cyclic pair at vgg11_random's 2 of 9
+              rows (d=9,750,922) and the LM leg's 1 of 8 (d=62,958,336),
+              its plain form at ResNet-18's d, its normals within
+              3e-5·max(1, |z|) of the plain version's and no other row
+              written; round_draw's int8 pair and bf16 draw at ResNet-18's
+              d and the wires rounded with them, synthetic_text's tokens
+              at the LM's shape, each bit for bit; each twice bit for bit
+              and from a graph replayed at two staged steps, each replay
+              its step's draws. Times
               each kernel, its plain version, its bound and the one PyTorch
               call that computes the same function, where there is one
               (torch.matmul; scaled_dot_product_attention and its autograd
@@ -82,7 +92,17 @@ prints no result line):
               batch 128, 12 steps: its loss must fall); ``shared_c16``
               (``shared`` at bfloat16 compute); ``lm_shared_flash_adamw``
               (AdamW, the cosine schedule with a 2-step warmup, the clip
-              at 1).
+              at 1). Then the device draws' legs: ``vgg11_random``
+              (preset cyclic-vgg11's simulate leg with the random attack:
+              every step its 2 adversaries located, 5 honest rows),
+              ``shared_int8_sr`` (shared_int8 under stochastic rounding),
+              ``majvote_bf16_sr`` (the vote on a stochastically rounded
+              bf16 wire: every step 8 of 9 rows agree and each group's
+              honest rows are bit for bit equal on the wire),
+              ``majvote_random`` (the vote's rows under the random attack,
+              an eager step and a chunk: every step 8 of 9 rows agree) and
+              ``lm_shared_flash_devgen`` (device tokens and the random
+              attack); no other leg launches a draw kernel.
               Each leg runs through the entry points a user calls (Trainer /
               build_sp_train_setup + TokenLoop) with the launch counts
               zeroed just before it and read just after; every coded step
@@ -95,6 +115,8 @@ prints no result line):
               equal on every eager and chunked step, and the first step's
               decoded aggregate (fresh setups, deterministic cuDNN) within
               rtol 2e-4, atol 1e-6 of the twin's;
+              shared_int8_sr against shared_int8: the detection columns
+              equal on every eager and chunked step;
               majvote without its adversary for 8 steps (vote_agree 1.0:
               the honest lanes of a group bit-identical) and the exact
               vote equal to the fingerprint vote on one step's rows;
@@ -122,9 +144,10 @@ prints no result line):
               call, host-to-device bytes within the manifest, the state
               updated in place, no collective, the step's memory within
               budget, a segmented leg's host-to-device bytes its twin's
-              (the segment plan lives on the card from setup); then the
-              lint's seeded-defect controls, each tripping exactly its
-              rule
+              (the segment plan lives on the card from setup), the device
+              tokens' chunk's host-to-device bytes exactly its manifest's:
+              K int32 step numbers and K masks; then the lint's
+              seeded-defect controls, each tripping exactly its rule
 
   6. chunk    each leg also as the K-fused chunk (``steps_per_call`` K=4,
               on the card one captured CUDA graph replayed K times,
@@ -149,8 +172,8 @@ prints no result line):
               kernel of the legs (the ten ported and the segment kernels)
               captured in a graph alone, its replay bit for bit its direct
               launch at the main path's shapes. The lint (phase 5) also runs the chunked
-              programs of ``simulate``, ``lm_shared_flash`` and
-              ``majvote``: no
+              programs of ``simulate``, ``lm_shared_flash``, ``majvote``
+              and ``lm_shared_flash_devgen``: no
               synchronising call inside a chunk, one device-to-host fetch
               a flush, the staging copy's bytes, the graph's pool
   7. state    the run state (``state_phase``), ResNet legs under
@@ -221,7 +244,7 @@ from draco_tpu_torch.models.transformer import TransformerLM
 from draco_tpu_torch.obs import locator_ab, numerics
 from draco_tpu_torch.obs.trace_report import fold_device_phases
 from draco_tpu_torch.obs.tracer import PHASES
-from draco_tpu_torch.ops import coded, controls, decode_kernels, vote
+from draco_tpu_torch.ops import coded, controls, decode_kernels, draws, vote
 from draco_tpu_torch.ops import flash_attention as fa
 from draco_tpu_torch.parallel.common import decode_bounds
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
@@ -243,6 +266,7 @@ TF32X3_FLOPS = 495e12 / 3
 # arithmetic-instruction throughput table of the CUDA C++ documentation
 # for compute capability 9.0)
 INT32_OPS = 132 * 128 * 1.98e9
+ADVERSARY_MAG = attacks.ADVERSARY  # the random attack's magnitude
 N, S, D = 8, 1, 11_173_962  # ResNet-18's flat gradient at n=8, s=1
 VOTE_N = 9  # the majvote leg's workers (preset rep-resnet18)
 # the VGG-11 legs (preset cyclic-vgg11): n=9, s=2, VGG-11's flat gradient
@@ -285,7 +309,16 @@ EXPECT = {"simulate": CODED[1:], "geomedian": (), "shared": CODED,
           "lm_shared_flash_layer": SEG_CODED + FLASH,
           "vgg11_simulate": CODED[1:], "vgg11_shared": CODED,
           "lenet_single": (), "shared_c16": CODED,
-          "lm_shared_flash_adamw": CODED + FLASH}
+          "lm_shared_flash_adamw": CODED + FLASH,
+          "vgg11_random": CODED[1:] + ("random_inject",),
+          "shared_int8_sr": NARROW + ("round_draw",),
+          "majvote_bf16_sr": ("row_fingerprints", "round_draw"),
+          "majvote_random": ("row_fingerprints", "random_inject"),
+          "lm_shared_flash_devgen": CODED + FLASH + ("random_inject",
+                                                     "synthetic_text")}
+# the draw kernels no leg but these may launch: no earlier leg draws on
+# the device
+DRAWS = ("random_inject", "round_draw", "synthetic_text")
 # the columns a segmented leg must give on every step as its twin does (the
 # reference's, tests/test_segments.py DET_COLS). Not honest_located: each
 # segment's locator keeps n − 2s rows, the adversary and, at s = 1, one of
@@ -851,6 +884,222 @@ def vote_kernels(dev) -> list:
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": None, "sass_loop": loops,
              "int32_pipe_ms": pipe_ms}]
+
+
+# the device draws (csrc/draws.cu) at the legs' shapes: the random attack's
+# cyclic pair on vgg11_random's 2 of 9 rows at VGG-11's d and on
+# lm_shared_flash_devgen's 1 of 8 at the LM's d, its plain form on
+# majvote_random's 1 of 9 at ResNet-18's d; stochastic rounding's draws at
+# ResNet-18's d (shared_int8_sr's int8 pair, majvote_bf16_sr's bf16 rows);
+# the tokens of the LM leg (n=8, B=2, T=512, vocab 8192)
+DRAW_STEP = 7
+NORMAL_TOL = 3e-5  # relative to max(1, |z|): the CPU tests' tolerance
+INJECT_CASES = (("pair, vgg11_random", VGG_N, VGG_D, (1, 6), True),
+                ("pair, lm_shared_flash_devgen", N, LM_D, (3,), True),
+                ("plain form, majvote_random", VOTE_N, D, (5,), False))
+LM_TEXT = (N, 2, 512, 8192)
+
+
+def replay_steps(name: str, fn, step: torch.Tensor, s1: int, s2: int):
+    """``fn()`` (a draw entry point reading the device ``step``) launched
+    directly twice at step ``s1`` and once at ``s2``, then captured once in
+    a CUDA graph and replayed with the staged step set to ``s1`` and to
+    ``s2``: the two launches bit for bit, each replay bit for bit the
+    direct launch at its step, and the two steps' draws different."""
+    def outs():
+        r = fn()
+        return [r] if isinstance(r, torch.Tensor) else list(r)
+
+    step.fill_(s1)
+    d1 = [t.clone() for t in outs()]
+    again = [t.clone() for t in outs()]
+    require(all(_same_bits(a, b) for a, b in zip(d1, again)),
+            f"{name}: two launches on the same inputs differ")
+    step.fill_(s2)
+    d2 = [t.clone() for t in outs()]
+    current = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        outs()
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = outs()
+    got = []
+    for s in (s1, s2):
+        step.fill_(s)
+        graph.replay()
+        got.append([t.clone() for t in captured])
+    torch.cuda.synchronize()
+    require(all(_same_bits(a, b) for a, b in zip(d1, got[0]))
+            and all(_same_bits(a, b) for a, b in zip(d2, got[1])),
+            f"{name}: a graph replay differs from the direct launch at its "
+            f"staged step")
+    require(not all(_same_bits(a, b) for a, b in zip(got[0], got[1])),
+            f"{name}: the replays at steps {s1} and {s2} drew the same "
+            f"numbers")
+    del graph, captured
+
+
+def draw_kernels(dev) -> tuple:
+    """The three draw entry points against their plain versions (the torch
+    stream of ``rng.py``, run on the card on the same inputs): the random
+    attack's normals within NORMAL_TOL·max(1, |z|) of the plain version's
+    (from zero rows, so the output is magnitude·z) and every other row
+    untouched, the rounding draws and the tokens bit for bit, and the
+    wires quantized with the kernel's draws bit for bit those quantized
+    with the plain version's; each bit for bit across two launches and
+    between a graph replay and a direct launch, at two staged steps whose
+    draws differ. Timed at vgg11_random's pair, shared_int8_sr's int8 pair
+    and the LM's tokens: the kernel from a CUDA graph, its plain version,
+    and the bound, the larger of the bytes over the memory rate and the
+    32-bit integer operations (ops/draws.py) over the card's INT32 rate.
+    Returns (kernel rows, the graph-replay notes)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    step = torch.tensor(DRAW_STEP, dtype=torch.int32, device=dev)
+    seed = SEED + draws.RANDOM_SALT
+    replays, rows = [], []
+
+    def mask_of(n, hit):
+        m = torch.zeros(n, dtype=torch.bool, device=dev)
+        m[list(hit)] = True
+        return m
+
+    # ---- random_inject ----
+    inject_err, checks = 0.0, []
+    for label, n, d, hit, pair in INJECT_CASES:
+        mask = mask_of(n, hit)
+        parts = 2 if pair else 1
+        k = [torch.zeros((n, d), device=dev) for _ in range(parts)]
+        draws.random_inject(k[0], mask, step, seed, ADVERSARY_MAG,
+                            k[1] if pair else None)
+        p = [torch.zeros((n, d), device=dev) for _ in range(parts)]
+        draws.random_inject_plain(p[0], mask, step, seed, ADVERSARY_MAG,
+                                  p[1] if pair else None)
+        idle = ~mask
+        for a, b in zip(k, p):
+            za, zb = a[mask] / ADVERSARY_MAG, b[mask] / ADVERSARY_MAG
+            err = ((za - zb).abs() / zb.abs().clamp_min(1.0)).max().item()
+            inject_err = max(inject_err, err)
+            require(err <= NORMAL_TOL and not a[idle].any()
+                    and not b[idle].any(),
+                    f"random_inject {label}: normals {err:.3e} off the "
+                    f"plain version's (tol {NORMAL_TOL}·max(1, |z|)), or a "
+                    f"row outside the mask written")
+        checks.append(f"{label}: n={n} d={d} rows {list(hit)}")
+        del k, p
+        torch.cuda.empty_cache()
+        base = torch.randn((n, d), generator=g, device=dev)
+        bufs = [torch.empty_like(base) for _ in range(parts)]
+
+        def inject(mask=mask, pair=pair, base=base, bufs=bufs):
+            for b in bufs:
+                b.copy_(base)
+            draws.random_inject(bufs[0], mask, step, seed, ADVERSARY_MAG,
+                                bufs[1] if pair else None)
+            return bufs
+        replay_steps(f"random_inject {label}", inject, step, DRAW_STEP,
+                     DRAW_STEP + 1)
+        replays.append(f"random_inject ({label}, steps {DRAW_STEP} and "
+                       f"{DRAW_STEP + 1})")
+        del base, bufs
+        torch.cuda.empty_cache()
+    step.fill_(DRAW_STEP)
+    label, n, d, hit, _ = INJECT_CASES[0]
+    mask = mask_of(n, hit)
+    re_, im_ = (torch.randn((n, d), generator=g, device=dev)
+                for _ in range(2))
+    ms = graph_ms(lambda: draws.random_inject(re_, mask, step, seed,
+                                              ADVERSARY_MAG, im_), 20)
+    plain_ms = time_ms(lambda: draws.random_inject_plain(
+        re_, mask, step, seed, ADVERSARY_MAG, im_), 3, warmup=1)
+    t = len(hit)
+    b_ms, b_by = bound(2 * 2 * 4 * t * d + n + 4,
+                       draws.draw_ops(2 * t * d), INT32_OPS)
+    del re_, im_
+    rows.append({"name": "random_inject", "route": "cuda",
+                 "source": "draco_tpu_torch/csrc/draws.cu",
+                 "replaces": "draco_tpu/attacks.py:40", "ok": True,
+                 "max_abs_err": inject_err,
+                 "tol": f"{NORMAL_TOL}·max(1, |z|) on the normals",
+                 "cases": checks, "timed_at": f"{label}: n={n} d={d}, "
+                 f"{t} rows, real and imaginary", "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None})
+    print(f"kernel random_inject: normals within {inject_err:.3e}·max(1, "
+          f"|z|) of the plain version's (tol {NORMAL_TOL}) in "
+          f"{'; '.join(checks)}; two launches and graph replays at two "
+          f"steps bit for bit; ms={ms:.4f} (CUDA graph, {label}) "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
+          flush=True)
+
+    # ---- round_draw ----
+    wseed = SEED + draws.WIRE_SALT
+    for mode, parts, n in (("int8", 2, N), ("bf16", 1, VOTE_N)):
+        k = draws.round_draw(step, wseed, D, mode, parts)
+        p = draws.round_draw_plain(step, wseed, D, mode, parts, dev)
+        require(_same_bits(k, p), f"round_draw {mode}: the kernel's draws "
+                f"differ from the plain version's")
+        x = torch.randn((n, D), generator=g, device=dev)
+        qk = numerics.narrow_wire_rows(x, mode, BLOCK, k[0])
+        qp = numerics.narrow_wire_rows(x, mode, BLOCK, p[0])
+        require(all(_same_bits(qk[c], qp[c]) for c in qk),
+                f"round_draw {mode}: the wire rounded with the kernel's "
+                f"draw differs from the plain version's")
+        del x, qk, qp, k, p
+        replay_steps(f"round_draw {mode}", lambda mode=mode, parts=parts:
+                     draws.round_draw(step, wseed, D, mode, parts), step,
+                     DRAW_STEP, DRAW_STEP + 1)
+        replays.append(f"round_draw ({mode}, {parts} part(s), d={D}, steps "
+                       f"{DRAW_STEP} and {DRAW_STEP + 1})")
+    step.fill_(DRAW_STEP)
+    ms = graph_ms(lambda: draws.round_draw(step, wseed, D, "int8", 2), 20)
+    plain_ms = time_ms(lambda: draws.round_draw_plain(
+        step, wseed, D, "int8", 2, dev), 3, warmup=1)
+    b_ms, b_by = bound(2 * 4 * D + 4, draws.draw_ops(2 * D), INT32_OPS)
+    rows.append({"name": "round_draw", "route": "cuda",
+                 "source": "draco_tpu_torch/csrc/draws.cu",
+                 "replaces": "draco_tpu/obs/numerics.py:494", "ok": True,
+                 "max_abs_err": 0.0, "tol": "bit for bit (the draws and "
+                 "the rounded wires)", "timed_at": f"int8, 2 parts, d={D} "
+                 f"(shared_int8_sr)", "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    print(f"kernel round_draw: bit for bit its plain version (int8 pair at "
+          f"n={N}, bf16 at n={VOTE_N}, d={D}) and the wires rounded with "
+          f"it; two launches and graph replays at two steps bit for bit; "
+          f"ms={ms:.4f} (CUDA graph) plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+
+    # ---- synthetic_text ----
+    n, b, t, vocab = LM_TEXT
+    k = draws.synthetic_text(step, SEED, n, b, t, vocab)
+    p = draws.synthetic_text_plain(step, SEED, n, b, t, vocab, dev)
+    require(torch.equal(k, p), "synthetic_text: the kernel's tokens differ "
+            "from the plain version's")
+    replay_steps("synthetic_text", lambda: draws.synthetic_text(
+        step, SEED, n, b, t, vocab), step, DRAW_STEP, DRAW_STEP + 1)
+    replays.append(f"synthetic_text (n={n} B={b} T={t}, steps {DRAW_STEP} "
+                   f"and {DRAW_STEP + 1})")
+    step.fill_(DRAW_STEP)
+    ms = graph_ms(lambda: draws.synthetic_text(step, SEED, n, b, t, vocab),
+                  20)
+    plain_ms = time_ms(lambda: draws.synthetic_text_plain(
+        step, SEED, n, b, t, vocab, dev), 3, warmup=1)
+    b_ms, b_by = bound(4 * n * b * t + 4, draws.text_ops(n * b), INT32_OPS)
+    rows.append({"name": "synthetic_text", "route": "cuda",
+                 "source": "draco_tpu_torch/csrc/draws.cu",
+                 "replaces": "draco_tpu/parallel/sp_step.py:83", "ok": True,
+                 "max_abs_err": 0.0, "tol": "bit for bit (int32 tokens)",
+                 "timed_at": f"n={n} B={b} T={t} vocab={vocab}", "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None})
+    print(f"kernel synthetic_text: bit for bit its plain version at n={n} "
+          f"B={b} T={t}; two launches and graph replays at two steps bit "
+          f"for bit; ms={ms:.4f} (CUDA graph) plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    torch.cuda.empty_cache()
+    return rows, replays
 
 
 def vote_loop_instructions() -> dict:
@@ -1904,10 +2153,26 @@ def drive(name, program, steps, expect, dev) -> dict:
              and cfg.mode == "krum" else contextlib.nullcontext([]))
     mean_watch = (decode_watch(runner.state.opt) if name in MEAN_HELD
                   else contextlib.nullcontext([]))
+    narrow_vote = cfg.approach == "maj_vote" and cfg.wire_dtype != "f32"
+    rows_watch = (vote_rows_watch(cfg.group_size) if narrow_vote
+                  else contextlib.nullcontext([]))
     ops.reset_launch_counts()
-    with watch as picks, mean_watch as mean_errs:
+    with watch as picks, mean_watch as mean_errs, rows_watch as equal_rows:
         recs = [runner.step() for _ in range(steps)]
     counts = ops.launch_counts()
+    require(len(equal_rows) == (steps if narrow_vote else 0),
+            f"{name}: the vote watch saw {len(equal_rows)} of {steps} steps")
+    for r, eq in zip(recs, equal_rows):
+        # each group's honest members quantized bit for bit alike: one
+        # rounding draw shared by the rows
+        adv = runner.adv_schedule[r["step"]]
+        eq = eq.cpu()
+        for gi in range(eq.shape[0]):
+            honest = [i for i in range(cfg.group_size)
+                      if not adv[gi * cfg.group_size + i]]
+            require(all(bool(eq[gi, a, b]) for a in honest for b in honest),
+                    f"{name} step {r['step']}: group {gi}'s honest rows "
+                    f"{honest} differ on the wire")
     mean_errs = [float(e) for e in mean_errs]
     require(len(mean_errs) == (steps if name in MEAN_HELD else 0),
             f"{name}: the decode watch saw {len(mean_errs)} of {steps} steps")
@@ -1951,6 +2216,8 @@ def drive(name, program, steps, expect, dev) -> dict:
     # a segmented leg runs the segment kernels only; one segment at global
     # granularity never enters the segmented code
     off = WHOLE if name in registry.TWINS else SEGMENTED
+    # a leg draws on the device only for the options that draw
+    off += tuple(k for k in DRAWS if k not in expect)
     require(all(counts[k] == 0 for k in off),
             f"{name}: launched {[k for k in off if counts[k]]} ({counts})")
     if name in FALLING:
@@ -1977,6 +2244,27 @@ def drive(name, program, steps, expect, dev) -> dict:
           f"(host clock, device synchronised); launches {counts}; "
           f"losses {['%.4f' % x for x in out['loss']]}", flush=True)
     return out
+
+
+@contextlib.contextmanager
+def vote_rows_watch(group: int):
+    """Inside: each call of the vote appends, as a (groups, r, r) bool
+    device tensor, which of each group's rows (the widened wire rows the
+    vote reads) are bit for bit equal."""
+    seen, vote_fn = [], repetition.majority_vote
+
+    def watched(code, grads, *args, **kw):
+        bits = grads.view(torch.int32).view(-1, group, grads.shape[1])
+        seen.append(torch.stack([torch.stack([torch.stack([
+            (bits[gi, a] == bits[gi, b]).all() for b in range(group)])
+            for a in range(group)]) for gi in range(bits.shape[0])]))
+        return vote_fn(code, grads, *args, **kw)
+
+    repetition.majority_vote = watched
+    try:
+        yield seen
+    finally:
+        repetition.majority_vote = vote_fn
 
 
 @contextlib.contextmanager
@@ -2550,6 +2838,31 @@ def twin_checks(legs, dev, ds) -> dict:
     return out
 
 
+def sr_twin_checks(legs) -> dict:
+    """Each stochastically rounded leg against its nearest-rounding twin
+    (registry.SR_TWINS): the detection columns equal on every eager step
+    and every step of the timed chunk (the rounding moves no
+    accusation)."""
+    by = {lg["leg"]: lg for lg in legs}
+    out = {}
+    for leg, twin in registry.SR_TWINS.items():
+        a, b = by[leg], by[twin]
+        steps = 0
+        for what, ra, rb in (("eager", a["records"], b["records"]),
+                             ("chunk", a["chunk"]["records"],
+                              b["chunk"]["records"])):
+            for x, y in zip(ra, rb):
+                cols = {c: (x[c], y[c]) for c in DETECT if c in y}
+                require(all(u == v for u, v in cols.values()),
+                        f"stochastic twin {leg} / {twin}, {what} step: "
+                        f"detection columns differ: {cols}")
+                steps += 1
+        out[leg] = {"twin": twin, "steps": steps}
+        print(f"stochastic twin {leg} / {twin}: detection columns equal on "
+              f"{steps} eager and chunked steps", flush=True)
+    return out
+
+
 def replay_bitwise(name: str, fn) -> None:
     """``fn`` (a kernel wrapper's call on static inputs) launched directly,
     then captured alone in a CUDA graph (after a warm-up call on a side
@@ -2674,10 +2987,26 @@ def lint_legs(dev) -> list:
     up to 40 ms a step slower, PERF.md §6)."""
     rows = []
     for lp in registry.collect() + registry.collect_chunks():
-        rows.append({"leg": lp.name,
-                     **lint_leg(lp.name, lp.build(dev, full=True))})
+        program = lp.build(dev, full=True)
+        rows.append({"leg": lp.name, "manifest_h2d_bytes":
+                     program.manifest.h2d_bytes,
+                     **lint_leg(lp.name, program)})
+        del program
         gc.collect()
         torch.cuda.empty_cache()
+    # the device tokens' chunk stages K step numbers and the masks, nothing
+    # else: its measured bytes are its manifest's
+    devgen = next(r for r in rows if r["leg"] == "chunk_lm_shared_flash_devgen")
+    k = registry.get("chunk_lm_shared_flash_devgen").K
+    want = k * (4 + N)
+    got = devgen["rules"]["constant_bloat"]["h2d_bytes"]
+    require(got == devgen["manifest_h2d_bytes"] == want,
+            f"audit lint chunk_lm_shared_flash_devgen: {got} H2D bytes a "
+            f"chunk, manifest {devgen['manifest_h2d_bytes']}, expected "
+            f"{want} ({k} step numbers and {k} masks of {N})")
+    print(f"audit lint chunk_lm_shared_flash_devgen: {got} H2D bytes a "
+          f"chunk = {k} int32 step numbers + {k} masks of {N} bytes, no "
+          f"tokens", flush=True)
     # a segmented leg's plan lives on the card from its setup: a step moves
     # the twin's host-to-device bytes
     h2d = {r["leg"]: r["rules"]["constant_bloat"]["h2d_bytes"] for r in rows}
@@ -3337,17 +3666,19 @@ def main(argv=None) -> int:
     code = cyclic.build_cyclic_code(N, S)
     code9 = cyclic.build_cyclic_code(VGG_N, VGG_S)
     cuts = leg_bounds()
+    draw_rows, draw_replays = draw_kernels(dev)
     kernels = (coded_kernels(code, dev, code9)
                + locator_kernel(code, dev, code9, old_locator_lib)
                + narrow_kernels(code, dev) + segment_kernels(code, dev, cuts)
-               + flash_kernels(dev) + vote_kernels(dev)
+               + flash_kernels(dev) + vote_kernels(dev) + draw_rows
                + control_kernels(dev))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     record["kernel_audit"] = audit_kernels()
     record["kernel_audit_s"] = time.perf_counter() - t0
 
-    record["graph_replay"] = graph_replay_kernels(code, dev, cuts)
+    record["graph_replay"] = (graph_replay_kernels(code, dev, cuts)
+                              + draw_replays)
     torch.cuda.empty_cache()
 
     legs = []
@@ -3361,6 +3692,7 @@ def main(argv=None) -> int:
     record["chunk"] = chunk_summary(legs)
     ds = load_dataset(registry.CNN_FULL["dataset"])
     record["twins"] = twin_checks(legs, dev, ds)
+    record["sr_twins"] = sr_twin_checks(legs)
     record["vote_checks"] = vote_checks(dev, ds)
     record["bf16_simulate"] = bf16_simulate_check(dev, ds)
     gc.collect()
@@ -3400,6 +3732,9 @@ def main(argv=None) -> int:
                   "complex_recombine_segments": "shared_layer",
                   "cyclic_narrow_recombine_segments": "shared_int8_seg4",
                   "approx_decode_segment": "approx_int8_seg4",
+                  "random_inject": "vgg11_random",
+                  "round_draw": "shared_int8_sr",
+                  "synthetic_text": "lm_shared_flash_devgen",
                   **{k: "lm_shared_flash" for k in FLASH}}
     # the controls run on no main path: their counts are read from every
     # leg, and are 0 on each

@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 EXTRA_FLAGS = {"cyclic_locator": ("--fmad=false",)}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
 SIGNATURES = {
     "coded": {
         "draco_complex_matmul": [_P, _P, _P, _P, _P, _I, _I, _LL, _P],
@@ -65,6 +66,11 @@ SIGNATURES = {
     },
     "vote": {
         "draco_row_fingerprints": [_P, _P, _P, _I, _LL, _I, _P],
+    },
+    "draws": {
+        "draco_random_inject": [_P, _P, _P, _P, _U, _F, _I, _LL, _P],
+        "draco_round_draw": [_P, _P, _U, _I, _LL, _I, _P],
+        "draco_synthetic_text": [_P, _P, _U, _I, _I, _I, _P],
     },
     "controls": {
         "draco_control_mistiled_copy": [_P, _P, _I, _I, _P],

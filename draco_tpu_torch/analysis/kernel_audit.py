@@ -4,7 +4,7 @@ tools/_lowering_common.run_rows).
     python -m draco_tpu_torch.analysis.kernel_audit [--device cpu|cuda]
         [--kernels NAME,...] [--out FILE]
 
-One row per kernel entry point of ``csrc/*.cu`` — the thirteen of the
+One row per kernel entry point of ``csrc/*.cu`` — the sixteen of the
 main paths and the three negative controls of ``csrc/controls.cu`` — each
 grouping the ``__global__`` functions it launches, held to the
 :class:`KernelSpec` below by four rules:
@@ -222,6 +222,19 @@ SPECS = (
                "draco_tpu/ops/decode_kernels.py:378", 186,
                largest={"n": MAX_N},
                main=("narrow_recombine_segments_kernel<kInt8>",)),
+    # the device draws (csrc/draws.cu): one threefry a draw, the normal's
+    # erfinv beside it, the key chain in registers (31 and 29 registers,
+    # 22 and 21, 26)
+    KernelSpec("random_inject", "draws",
+               ("random_inject_kernel<true>", "random_inject_kernel<false>"),
+               "draco_tpu/attacks.py:40", 32, largest={"n": MAX_N},
+               largest_shape=(MAX_N, 0),
+               main=("random_inject_kernel<true>",)),
+    KernelSpec("round_draw", "draws",
+               ("round_draw_kernel<false>", "round_draw_kernel<true>"),
+               "draco_tpu/obs/numerics.py:494", 24),
+    KernelSpec("synthetic_text", "draws", ("synthetic_text_kernel",),
+               "draco_tpu/parallel/sp_step.py:83", 32),
     KernelSpec("control_mistiled_copy", "controls",
                ("control_mistiled_copy_kernel",),
                "tools/tpu_attn_lowering_check.py:111", 8, racecheck=False,
@@ -361,6 +374,8 @@ def _cases(name: str, dev) -> list:
             cases += _approx_offset_cases(dev, cuda, rnd)
     elif name.endswith("_segments"):
         cases += _segment_cases(name, dev, cuda, rnd)
+    elif name in ("random_inject", "round_draw", "synthetic_text"):
+        cases += _draw_cases(name, dev, cuda, rnd)
     elif name == "row_fingerprints":
         cases += _vote_cases(dev, cuda, rnd)
     elif name.startswith("flash_"):
@@ -723,6 +738,66 @@ def _vote_cases(dev, cuda: bool, rnd) -> list:
     return cases
 
 
+# the draws' coverage: random_inject on every row of n = 9, d = 1003 (the
+# plain form over poison; the pair, which adds in place, over zeros, every
+# element still 0 after it poisoned again: a draw is never 0, since the
+# uniform it maps onto (lo, 1) never lands on 0), round_draw at d = 1003
+# and 1002, one and two parts, synthetic_text at n·B = 6 sequences of
+# T = 37
+def _draw_cases(name: str, dev, cuda: bool, rnd) -> list:
+    from draco_tpu_torch.ops import draws
+
+    step = torch.tensor(5, dtype=torch.int32, device=dev)
+    cases, f32 = [], torch.float32
+    if name == "random_inject":
+        n, d = 9, 1003
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        for pair in (True, False):
+            def run(o, pair=pair):
+                im = o["im"] if pair else None
+                if pair:
+                    o["re"].zero_()
+                    im.zero_()
+                if cuda:
+                    draws.random_inject_launch(o["re"], mask, step, 435,
+                                               -100.0, im)
+                else:
+                    draws.random_inject_plain(o["re"], mask, step, 435,
+                                              -100.0, im)
+                for t in (o["re"], im) if pair else ():
+                    bits = t.view(torch.int32)
+                    bits.copy_(torch.where(t == 0, torch.full_like(
+                        bits, POISON_F32), bits))
+            outs = {"re": ((n, d), f32)}
+            if pair:
+                outs["im"] = ((n, d), f32)
+            cases.append(Case(f"{'pair' if pair else 'plain'} n={n} d={d}",
+                              outs, run))
+    elif name == "round_draw":
+        for d in (1003, 1002):
+            for parts, mode in ((1, "bf16"), (2, "int8")):
+                def run(o, d=d, parts=parts, mode=mode):
+                    if cuda:
+                        draws.round_draw_launch(step, 445, mode, o["out"])
+                    else:
+                        r = draws.round_draw_plain(step, 445, d, mode, parts)
+                        _put(o, out=r.view(torch.int32))
+                cases.append(Case(f"{mode} parts={parts} d={d}",
+                                  {"out": ((parts, d), torch.int32)}, run))
+    else:
+        n, b, t, vocab = 3, 2, 37, 8192
+
+        def run(o):
+            if cuda:
+                draws.synthetic_text_launch(step, 428, vocab, o["out"])
+            else:
+                _put(o, out=draws.synthetic_text_plain(step, 428, n, b, t,
+                                                       vocab))
+        cases.append(Case(f"n={n} B={b} T={t}",
+                          {"out": ((n, b, t), torch.int32)}, run))
+    return cases
+
+
 def rule_coverage(s: KernelSpec, dev) -> dict:
     if s.name == "control_overlaunch":
         return {"ok": True, "skipped": True,
@@ -875,6 +950,13 @@ def _launch_largest(s: KernelSpec, dev) -> None:
         vote.row_fingerprints_launch(
             rnd(n, d), vote.public_salts(dev),
             empty(n, 2, dtype=torch.int32))
+    elif s.name == "random_inject":
+        from draco_tpu_torch.ops import draws
+
+        draws.random_inject_launch(
+            rnd(n, d), torch.ones(n, dtype=torch.bool, device=dev),
+            torch.ones((), dtype=torch.int32, device=dev), 435, -100.0,
+            rnd(n, d))
     elif s.name == "approx_decode":
         chunks = decode_kernels.approx_decode_chunks(d)
         decode_kernels.approx_decode_launch(

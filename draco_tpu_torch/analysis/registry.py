@@ -30,7 +30,16 @@ optimizers: preset ``cyclic-vgg11`` (VGG-11, n=9, s=2, a constant attack
 on two workers a step) under ``simulate`` and ``shared``; preset
 ``single-lenet`` (LeNet on MNIST shapes, n=1, batch 128); the ResNet-18
 ``shared`` leg at bfloat16 compute; and the LM's ``shared`` leg under
-AdamW with the cosine schedule and the clip.
+AdamW with the cosine schedule and the clip. Four run the device draws
+(the reference's threefry stream, ``ops/draws.py``): ``vgg11_random``
+(preset cyclic-vgg11's simulate leg with the random attack, BASELINE
+config 4's random adversary), ``shared_int8_sr`` (``shared_int8`` under
+stochastic rounding, beside it as its twin, ``SR_TWINS``),
+``majvote_bf16_sr`` (the vote on a stochastically rounded bf16 wire),
+``majvote_random`` (the vote's gradient rows under the random attack, the
+plain form of ``random_inject``) and ``lm_shared_flash_devgen`` (the LM
+with device tokens and the random attack: a chunk stages K step numbers
+and the masks, no tokens).
 """
 
 from __future__ import annotations
@@ -164,7 +173,10 @@ def uploads(cfg) -> dict:
 
     n, b = cfg.num_workers, cfg.batch_size
     if cfg.network == "TransformerLM":
-        return {"tokens (int32)": n * b * cfg.seq_len * 4, "adv_mask": n}
+        out = {"adv_mask": n, "step (int32)": 4}
+        if cfg.token_gen != "device":
+            out["tokens (int32)"] = n * b * cfg.seq_len * 4
+        return out
     vote = cfg.approach == "maj_vote"
     rows = cfg.num_groups if vote else n
     h, w, c = input_shape(cfg.dataset)
@@ -177,6 +189,7 @@ def uploads(cfg) -> dict:
         out["dropout masks (bool)"] = rows * len(drop) * b * drop[0]
     if cfg.approach != "approx":
         out["adv_mask"] = n
+    out["step (int32)"] = 4  # the device draws' step
     if vote:
         out["salts (2 int32)"] = 8
     stragglers = cfg.straggle_mode == "drop" and cfg.straggle_count > 0
@@ -376,19 +389,44 @@ PROGRAMS = (
                 dict(_CYCLIC_SHARED, compute_dtype="bfloat16"), 4.5),
     LintProgram("lm_shared_flash_adamw", "lm", dict(_CYCLIC_SHARED, **ADAMW),
                 14.5),
+    # the device draws: the random attack on preset cyclic-vgg11's 45
+    # simulate lanes; stochastic rounding on the int8 cyclic wire and the
+    # vote's bf16 wire (one draw a step shared by the rows); the random
+    # attack on the vote's gradient rows; the LM's device tokens with the
+    # random attack
+    LintProgram("vgg11_random", "cnn",
+                dict(VGG11, approach="cyclic", redundancy="simulate",
+                     err_mode="random"), 8.0, ci=VGG11_CI),
+    LintProgram("shared_int8_sr", "cnn",
+                dict(_CYCLIC_SHARED, wire_dtype="int8",
+                     shadow_round="stochastic"), 4.5),
+    LintProgram("majvote_bf16_sr", "cnn",
+                dict(MAJVOTE, wire_dtype="bf16", shadow_round="stochastic"),
+                9.0, ci=MAJVOTE_CI),
+    LintProgram("majvote_random", "cnn", dict(MAJVOTE, err_mode="random"),
+                6.0, ci=MAJVOTE_CI),
+    LintProgram("lm_shared_flash_devgen", "lm",
+                dict(_CYCLIC_SHARED, token_gen="device", err_mode="random"),
+                14.5),
 )
 
 # each segmented leg's S = 1, global-granularity twin
 TWINS = {"shared_layer": "shared", "shared_int8_seg4": "shared_int8",
          "approx_int8_seg4": "approx_int8",
          "lm_shared_flash_layer": "lm_shared_flash"}
+# each stochastically rounded leg's nearest-rounding twin: the same
+# detection columns every step
+SR_TWINS = {"shared_int8_sr": "shared_int8"}
 
 
-# the flagship's coded leg, the host-bound LM leg (PERF.md §5) and the
-# vote (its salts staged with the draws)
+# the flagship's coded leg, the host-bound LM leg (PERF.md §5), the vote
+# (its salts staged with the draws) and the LM with device tokens (a
+# chunk's staging: K step numbers and the masks)
 CHUNKS = (ChunkProgram("chunk_simulate", "simulate"),
           ChunkProgram("chunk_lm_shared_flash", "lm_shared_flash"),
-          ChunkProgram("chunk_majvote", "majvote"))
+          ChunkProgram("chunk_majvote", "majvote"),
+          ChunkProgram("chunk_lm_shared_flash_devgen",
+                       "lm_shared_flash_devgen"))
 
 
 def collect_chunks() -> "list[ChunkProgram]":

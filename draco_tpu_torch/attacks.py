@@ -9,9 +9,12 @@
     g -> g + (-100·g); constant adds -100 to the real part only; random adds
     -100·noise to each part (independent draws)
 
-``random`` draws its noise from an explicit ``torch.Generator`` — or takes
-the noise itself (``noise=``), so a test can hand both packages the same
-numbers.
+``random`` draws the reference's own numbers: ``normal(random_key(seed,
+step))`` over the (n, d) rows (the cyclic pair: the key's split, one half
+a part), on the card by the ``random_inject`` kernel (``ops/draws.py``),
+which reads the step from the device and draws the attacked rows only, in
+place on the rows given. A test can hand both packages explicit numbers
+instead (``noise=``).
 """
 
 from __future__ import annotations
@@ -23,46 +26,42 @@ from typing import Optional
 
 import torch
 
+from draco_tpu_torch.ops import draws
+
 ADVERSARY = -100.0
 CONST = -100.0
-# the random attack's generator salt (seed + _RANDOM_SALT), as in the
-# reference
-_RANDOM_SALT = 7
+# the random attack's key salt (seed + _RANDOM_SALT), as in the reference
+_RANDOM_SALT = draws.RANDOM_SALT
 _ALIE_INERT_WARNED = set()  # one warning per inert (n, n_mal) pair
 
 
-def random_generator(seed: int, step: int, device="cpu") -> torch.Generator:
-    """The random attack's per-step generator, folded from (seed, step)."""
-    from draco_tpu_torch import rng as drng
+def random_key(seed: int, step) -> tuple:
+    """The random attack's per-step key, ``fold_in(key(seed + 7), step)``;
+    ``step`` an int or a device tensor."""
+    return draws.step_key(seed + _RANDOM_SALT, step)
 
-    return drng.generator(seed + _RANDOM_SALT, step, device=device)
 
-
-def _noise(like: torch.Tensor, generator: Optional[torch.Generator]):
-    if generator is None:
-        raise ValueError(
-            "err_mode='random' needs its noise or a generator (attacks."
-            "random_generator(seed, step)); a keyless call has no stream")
-    return torch.randn(like.shape, generator=generator, device=like.device,
-                       dtype=like.dtype)
+_KEYLESS = ("err_mode='random' needs its noise or the step and the seed (the "
+            "key is random_key(seed, step)); a keyless call has no stream")
 
 
 def attack_plain(grads, err_mode: str, magnitude: float = ADVERSARY,
-                 noise=None, generator=None):
-    """Adversarial transform of raw per-worker gradients, shape (n, d)."""
+                 noise=None):
+    """Adversarial transform of raw per-worker gradients, shape (n, d).
+    ``random`` here takes its ``noise``; ``inject_plain`` draws it."""
     if err_mode == "rev_grad":
         return magnitude * grads
     if err_mode == "constant":
         return torch.full_like(grads, magnitude)
     if err_mode == "random":
         if noise is None:
-            noise = _noise(grads, generator)
+            raise ValueError(_KEYLESS)
         return magnitude * noise
     raise ValueError(f"unknown err_mode: {err_mode}")
 
 
 def attack_cyclic(enc_re, enc_im, err_mode: str, magnitude: float = ADVERSARY,
-                  noise=None, generator=None):
+                  noise=None):
     """Adversarial transform of encoded rows, real/imag parts, (n, d).
     ``noise`` for ``random`` is the pair (noise_re, noise_im)."""
     if err_mode == "rev_grad":
@@ -71,7 +70,7 @@ def attack_cyclic(enc_re, enc_im, err_mode: str, magnitude: float = ADVERSARY,
         return enc_re + magnitude, enc_im
     if err_mode == "random":
         if noise is None:
-            noise = (_noise(enc_re, generator), _noise(enc_im, generator))
+            raise ValueError(_KEYLESS)
         return enc_re + magnitude * noise[0], enc_im + magnitude * noise[1]
     raise ValueError(f"unknown err_mode: {err_mode}")
 
@@ -97,8 +96,13 @@ def _alie_z(n: int, n_mal: int) -> float:
 
 
 def inject_plain(grads, mask, err_mode: str, magnitude: float = ADVERSARY,
-                 noise=None, generator=None, n_mal: int = 1):
+                 noise=None, step=None, seed: Optional[int] = None,
+                 n_mal: int = 1):
     """grads: (n, d); mask: (n,) bool — True rows are Byzantine.
+
+    ``random`` without ``noise`` writes the draws of ``random_key(seed,
+    step)`` into the Byzantine rows of ``grads`` in place (the kernel on the
+    card; ``step`` an int32 device tensor there) and returns ``grads``.
 
     ``alie`` / ``ipm``: every Byzantine row takes the same payload from the
     honest rows' statistics; ``n_mal`` is the static colluder count
@@ -123,13 +127,30 @@ def inject_plain(grads, mask, err_mode: str, magnitude: float = ADVERSARY,
         else:
             bad = -0.5 * scale * mu
         return torch.where(mask[:, None], bad[None, :], grads)
-    bad = attack_plain(grads, err_mode, magnitude, noise, generator)
+    if err_mode == "random" and noise is None:
+        if step is None or seed is None:
+            raise ValueError(_KEYLESS)
+        draws.random_inject(grads, mask, step, seed + _RANDOM_SALT, magnitude,
+                            max_rows=n_mal)
+        return grads
+    bad = attack_plain(grads, err_mode, magnitude, noise)
     return torch.where(mask[:, None], bad, grads)
 
 
 def inject_cyclic(enc_re, enc_im, mask, err_mode: str,
-                  magnitude: float = ADVERSARY, noise=None, generator=None):
-    bad_re, bad_im = attack_cyclic(enc_re, enc_im, err_mode, magnitude,
-                                   noise, generator)
-    m = mask.to(enc_re.device)[:, None]
+                  magnitude: float = ADVERSARY, noise=None, step=None,
+                  seed: Optional[int] = None, n_mal: Optional[int] = None):
+    """The attack on the Byzantine rows of a cyclic codeword pair. ``random``
+    without ``noise`` adds the draws of ``split(random_key(seed, step))``
+    to both parts in place and returns them; ``n_mal``: at most this many
+    rows are Byzantine (None: any)."""
+    m = mask.to(enc_re.device)
+    if err_mode == "random" and noise is None:
+        if step is None or seed is None:
+            raise ValueError(_KEYLESS)
+        draws.random_inject(enc_re, m, step, seed + _RANDOM_SALT, magnitude,
+                            imag=enc_im, max_rows=n_mal)
+        return enc_re, enc_im
+    bad_re, bad_im = attack_cyclic(enc_re, enc_im, err_mode, magnitude, noise)
+    m = m[:, None]
     return torch.where(m, bad_re, enc_re), torch.where(m, bad_im, enc_im)

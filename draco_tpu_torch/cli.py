@@ -31,8 +31,12 @@ norm C; ``--compute-dtype bfloat16`` runs the convolutions and Dense
 layers of any network in bf16.
 ``--mode`` takes the baseline's seven rules (normal, geometric_median,
 krum, coord_median, trimmed_mean, multi_krum, bulyan), ``--err-mode``
-rev_grad, constant, random, alie or ipm, ``--vote-check`` fingerprint or
-exact.
+rev_grad, constant, random, alie or ipm (random draws the reference's
+own numbers on the device, eagerly or in chunks), ``--vote-check``
+fingerprint or exact. ``--shadow-round stochastic`` rounds a narrow wire
+(``--wire-dtype bf16|int8``, on cyclic, approx and maj_vote) with the
+reference's shared per-step draw; ``--token-gen device`` makes the LM's
+tokens on the device from the step (no token upload).
 ``--steps-per-call K`` (K > 1) trains in chunks of K steps, on the card
 each chunk the replays of one captured CUDA graph
 (``training/chunk_graph.py``). ``--trace-dir DIR`` writes the loop's host
@@ -111,6 +115,7 @@ FLAGS = {
     "--eval-freq": (int, "eval_freq"),
     "--trace-dir": (str, "trace_dir"),
     "--steps-per-call": (int, "steps_per_call"),
+    "--token-gen": (str, "token_gen"),
     "--checkpoint-step": (int, "checkpoint_step"),
     "--compress-ckpt": (bool, "compress_ckpt"),  # a switch
     "--keep-checkpoints": (int, "keep_checkpoints"),

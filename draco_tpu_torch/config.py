@@ -110,7 +110,8 @@ class TrainConfig:
     eval_freq: int = 50
     # --- the wire: what the coded rows cross it as (obs/numerics.py):
     # f32, or bf16 / int8 with per-block scales over shadow_block elements,
-    # rounded to nearest ("stochastic" is not ported yet) ---
+    # rounded to nearest or "stochastic" (one draw a step shared by every
+    # row, the reference's stream) ---
     wire_dtype: str = "f32"  # f32 | bf16 | int8
     shadow_block: int = 256
     shadow_round: str = "nearest"
@@ -126,7 +127,9 @@ class TrainConfig:
     moe_experts: int = 0
     remat: bool = False
     scan_layers: bool = False
-    token_gen: str = "host"  # "device" is not ported yet
+    # the LM's tokens: "host" (synthetic_text, uploaded) or "device" (made
+    # on the card from the staged step, the reference's in-graph stream)
+    token_gen: str = "host"
     # steps a dispatch: K > 1 runs the chunked loops (on the card, one
     # captured CUDA graph replayed K times a chunk)
     steps_per_call: int = 1
@@ -299,8 +302,7 @@ class TrainConfig:
                 f"loadable checkpoint), got {self.checkpoint_step}")
 
     def _validate_vote(self) -> None:
-        """The reference's maj_vote checks (draco_tpu/config.py), and the
-        options of the vote the port does not run yet."""
+        """The reference's maj_vote checks (draco_tpu/config.py)."""
         if self.vote_check not in ("fingerprint", "exact"):
             raise ValueError(f"vote_check must be 'fingerprint' or 'exact', "
                              f"got {self.vote_check!r}")
@@ -318,33 +320,25 @@ class TrainConfig:
             raise ValueError(
                 f"maj_vote with worker_fail={self.worker_fail} requires "
                 f"group_size >= {2 * self.worker_fail + 1} (r = 2s+1)")
-        if self.wire_dtype != "f32":
-            raise ValueError(
-                f"wire_dtype={self.wire_dtype!r} on approach=maj_vote is not "
-                f"ported yet (the reference's narrow_wire_single on the "
-                f"vote's rows); the port votes on the f32 rows")
 
     def _validate_chunk(self) -> None:
         """The chunked loops (``steps_per_call`` K > 1: K steps a dispatch,
         on the card replays of one captured CUDA graph) and the token
-        source."""
+        source. Every draw a step makes on the device (the random attack,
+        stochastic rounding, the device tokens) reads the staged step, so
+        each option runs in chunks as it runs eagerly."""
         if self.steps_per_call < 1:
             raise ValueError(
                 f"steps_per_call must be >= 1, got {self.steps_per_call}")
-        if self.steps_per_call > 1 and self.err_mode == "random":
-            raise ValueError(
-                "err_mode='random' with steps_per_call > 1 is not ported yet: "
-                "the random attack seeds a fresh host generator every step, "
-                "which a captured CUDA graph cannot replay (the reference "
-                "folds its key in-graph); run steps_per_call=1")
         if self.token_gen not in ("host", "device"):
             raise ValueError(
                 f"token_gen must be host|device, got {self.token_gen!r}")
-        if self.token_gen == "device":
+        if self.token_gen == "device" and self.network != LM_NETWORK:
+            # the CNN Trainer trains on dataset rows, not a generated token
+            # stream: there is nothing for the device generator to replace
             raise ValueError(
-                "token_gen='device' is not ported yet: the port generates "
-                "the LM's tokens on the host (and the CNN Trainer reads "
-                "dataset batches, which no generator replaces)")
+                "token_gen='device' applies to the TransformerLM token "
+                "routes only (the CNN Trainer reads dataset batches)")
 
     def _validate_approx(self) -> None:
         """The reference's approx checks (draco_tpu/config.py)."""
@@ -426,16 +420,15 @@ class TrainConfig:
                 f"{math.ceil(self.straggler_alpha * n)}")
 
     def _validate_wire(self) -> None:
-        """The reference's wire checks; stochastic rounding is not ported
-        yet (its draws come from the JAX PRNG)."""
+        """The reference's wire checks."""
         if self.wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"wire_dtype must be {'|'.join(WIRE_DTYPES)}, "
                              f"got {self.wire_dtype!r}")
         if self.wire_dtype != "f32":
-            if self.approach == "baseline":
+            if self.approach not in ("cyclic", "maj_vote", "approx"):
                 raise ValueError(
                     "wire_dtype != f32 requires a coded approach "
-                    f"(cyclic|approx), got {self.approach!r}")
+                    f"(cyclic|maj_vote|approx), got {self.approach!r}")
             if self.approach == "cyclic" and not wire_rel_tol(
                     self.num_workers, self.worker_fail,
                     self.wire_dtype) < 1.0:
@@ -444,11 +437,7 @@ class TrainConfig:
                     f"{self.num_workers}, s={self.worker_fail}, "
                     f"{self.wire_dtype}) — route the narrow wire through "
                     f"approach=approx")
-        if self.shadow_round == "stochastic":
-            raise ValueError(
-                "shadow_round='stochastic' is not ported yet (its draws come "
-                "from the JAX PRNG); the port rounds to nearest")
-        if self.shadow_round != "nearest":
+        if self.shadow_round not in ("nearest", "stochastic"):
             raise ValueError(f"shadow_round must be nearest|stochastic, got "
                              f"{self.shadow_round!r}")
         if self.shadow_block < 1:
@@ -505,5 +494,5 @@ class TrainConfig:
                 raise ValueError(
                     f"{field}={getattr(self, field)!r} is not ported yet for "
                     f"{LM_NETWORK} (the port runs the single-shard, unrolled "
-                    f"LM with host tokens, the cyclic or baseline code, every "
-                    f"row present and the f32 wire)")
+                    f"LM with host or device tokens, the cyclic or baseline "
+                    f"code, every row present and the f32 wire)")

@@ -40,7 +40,8 @@ class _Client:
         self.loop.stop_after(end, already_saved)
 
     def cleanup(self):
-        self.prefetch.close()
+        if self.prefetch is not None:
+            self.prefetch.close()
 
 
 class TrainerChunkClient(_Client):
@@ -78,8 +79,10 @@ class TrainerChunkClient(_Client):
 
 class TokenChunkClient(_Client):
     """The LM token loop (parallel/token_loop.py): a chunk is the stacked
-    tokens and adversary masks of k steps; an ``eval_freq`` boundary runs
-    the held-out loss, then the checkpoint."""
+    tokens (none when the device makes them, ``token_gen="device"``: then
+    no prefetcher either), the adversary masks and the step numbers of k
+    steps; an ``eval_freq`` boundary runs the held-out loss, then the
+    checkpoint."""
 
     def __init__(self, loop, prefetch, first: int, last: int):
         super().__init__(loop, prefetch, loop.setup.train_token_many, first,
@@ -90,7 +93,7 @@ class TokenChunkClient(_Client):
     def assemble(self, i, ranges):
         start, k = ranges[i]
         with self.loop.tracer.span("gather", chunk_start=start, k=k):
-            toks = self.prefetch.get(
+            toks = None if self.prefetch is None else self.prefetch.get(
                 ranges[i], ranges[i + 1] if i + 1 < len(ranges) else None)
             return self.setup.make_chunk(
                 start, toks, self.loop.adv_schedule[start:start + k])

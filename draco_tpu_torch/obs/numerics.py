@@ -8,11 +8,18 @@ them outside Pallas; the decode kernels (``ops/decode_kernels``) read the
 narrow buffers and widen in registers.
 
 Rounding is to nearest (bf16: round half to even; int8: ``torch.round``,
-half to even like ``jnp.round``), so the buffers equal the reference's bit
-for bit (``tests/test_torch_wire.py``). The reference's stochastic
-rounding draws from the JAX PRNG and is not ported yet (``config.validate``
-rejects ``shadow_round="stochastic"``). The reference's numerics
-observatory, shadow decode and wire ledger are not ported either.
+half to even like ``jnp.round``), or stochastic (``cfg.shadow_round``, the
+wire's rounding mode as in the reference): one (d,) draw shared by every
+row of the step, so rows equal bit for bit quantize bit for bit alike (the
+vote's soundness condition). bf16 adds the draw's low 16 bits to the f32
+bits and truncates; int8 takes ``floor(x/scale + u)``. The draws are the
+reference's own (``wire_step_key``: ``fold_in(key(seed + 17), step)``, the
+imaginary part ``fold_in`` of it with 1), made on the card by the
+``round_draw`` kernel (``ops/draws.py``) from the step on the device. Both
+modes give the reference's buffers bit for bit (``tests/test_torch_wire.py``,
+``tests/test_torch_draws.py``). The reference's numerics observatory,
+shadow decode and wire ledger are not ported; of its shadow quantizer only
+the key function (``shadow_step_key``) is.
 
 The segmented wire (``cfg.wire_segments`` S > 1) cuts the d axis at the
 reference's bounds (``wire_segment_bounds``): every interior cut a multiple
@@ -29,6 +36,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from draco_tpu_torch.ops import draws
 
 # int8 quantization levels per sign (symmetric per-block scale absmax/127)
 INT8_LEVELS = 127.0
@@ -96,11 +105,43 @@ def _block_absmax(af: torch.Tensor, block: int) -> torch.Tensor:
     return _blocks(af, block).amax(dim=-1)
 
 
-def _int8_levels_and_scale(x: torch.Tensor, block: int):
-    """Symmetric per-block int8 quantization, round to nearest: f32 rows
-    (..., d) -> ``(q, scale)``, ``q`` the levels in [-127, 127] held in f32
-    and ``scale`` (..., ⌈d/block⌉) f32 = absmax/127 (1 for an all-zero
-    block). Non-finite inputs map to 0: an integer wire has no NaN."""
+def _round_step_key(cfg, step, offset: int):
+    """The stochastic-rounding key of ``step`` at salt ``offset``, or None
+    under nearest rounding: ``fold_in(key(seed + offset), step)``."""
+    if getattr(cfg, "shadow_round", "nearest") != "stochastic":
+        return None
+    return draws.step_key(cfg.seed + offset, 0 if step is None else step)
+
+
+def shadow_step_key(cfg, step=None):
+    """The shadow quantizer's stochastic-rounding key (seed + 11)."""
+    return _round_step_key(cfg, step, draws.SHADOW_SALT)
+
+
+def wire_step_key(cfg, step=None):
+    """The real wire's stochastic-rounding key (seed + 17); ``round_draw``
+    computes it in the kernel."""
+    return _round_step_key(cfg, step, draws.WIRE_SALT)
+
+
+def _bf16_stochastic(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Stochastic bf16 rounding of f32 ``x`` (..., d) with the (d,) draw
+    ``r`` (the low 16 bits of ``bits``): ``(bits(x) + r) & 0xFFFF0000``,
+    the high half as the bf16, a NaN as its sign and the reference's
+    0x7FC0. In int32: the add wraps as the uint32 add does, and the
+    arithmetic shift leaves the high half sign-extended, in int16's range."""
+    hi = (x.contiguous().view(torch.int32) + r.to(torch.int32)) >> 16
+    nan = ((hi & 0x7F80) == 0x7F80) & ((hi & 0x7F) != 0)
+    hi = torch.where(nan, (hi & -0x8000) | BF16_NAN_BITS, hi)
+    return hi.to(torch.int16).view(torch.bfloat16)
+
+
+def _int8_levels_and_scale(x: torch.Tensor, block: int, u=None):
+    """Symmetric per-block int8 quantization: f32 rows (..., d) ->
+    ``(q, scale)``, ``q`` the levels in [-127, 127] held in f32 and
+    ``scale`` (..., ⌈d/block⌉) f32 = absmax/127 (1 for an all-zero block).
+    Round to nearest, or ``floor(x/scale + u)`` with the (d,) uniform draw
+    ``u``. Non-finite inputs map to 0: an integer wire has no NaN."""
     block = max(int(block), 1)
     d = x.shape[-1]
     xf = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
@@ -110,16 +151,20 @@ def _int8_levels_and_scale(x: torch.Tensor, block: int):
     levels = torch.full((), INT8_LEVELS, device=x.device)
     scale = torch.where(bmax > 0, bmax / levels, torch.ones_like(bmax))
     y = (_blocks(xf, block) / scale[..., None]).flatten(-2)[..., :d]
-    return torch.round(y).clamp_(-INT8_LEVELS, INT8_LEVELS), scale
+    q = torch.round(y) if u is None else torch.floor(y + u)
+    return q.clamp_(-INT8_LEVELS, INT8_LEVELS), scale
 
 
 def narrow_wire_rows(x: torch.Tensor, mode: str,
-                     block: int = DEFAULT_BLOCK) -> dict:
+                     block: int = DEFAULT_BLOCK, draw=None) -> dict:
     """Round (..., d) f32 wire rows into the narrow buffers that cross the
     wire: bf16 ``{"q": bfloat16 (..., d)}``, or int8 ``{"q": int8 (..., d),
-    "scale": f32 (..., ⌈d/block⌉)}``."""
+    "scale": f32 (..., ⌈d/block⌉)}``. ``draw``: the (d,) stochastic-rounding
+    draw of the mode (``draws.round_draw``), None to round to nearest."""
     x = x.float()
     if mode == "bf16":
+        if draw is not None:
+            return {"q": _bf16_stochastic(x, draw)}
         # NaN passes through as the reference's one bit pattern: casts on
         # the CPU and the card give NaNs of other signs and payloads
         nan = torch.full((), BF16_NAN_BITS, dtype=torch.int16,
@@ -127,8 +172,21 @@ def narrow_wire_rows(x: torch.Tensor, mode: str,
         return {"q": torch.where(torch.isnan(x), nan, x.to(torch.bfloat16))}
     if mode != "int8":
         raise ValueError(f"unknown wire dtype: {mode!r}")
-    q, scale = _int8_levels_and_scale(x, block)
+    q, scale = _int8_levels_and_scale(x, block, draw)
     return {"q": q.to(torch.int8).contiguous(), "scale": scale.contiguous()}
+
+
+def wire_draws(cfg, step, d: int, parts: int):
+    """The step's stochastic-rounding draws, (parts, d), or None under
+    nearest rounding. ``step``: the step's int32 tensor on the rows'
+    device."""
+    if getattr(cfg, "shadow_round", "nearest") != "stochastic":
+        return None
+    if step is None:
+        raise ValueError("shadow_round='stochastic' needs the step: its "
+                         "draws are fold_in(key(seed + 17), step)")
+    return draws.round_draw(step, cfg.seed + draws.WIRE_SALT, d,
+                            cfg.wire_dtype, parts)
 
 
 def widen_wire_rows(buf: dict, mode: str,
@@ -166,32 +224,38 @@ def wire_decode_params(cfg):
             wire_locator_lambda(cfg.wire_dtype))
 
 
-def narrow_wire_pair(cfg, enc_re: torch.Tensor, enc_im: torch.Tensor):
+def narrow_wire_pair(cfg, enc_re: torch.Tensor, enc_im: torch.Tensor,
+                     step=None):
     """The narrow wire on a cyclic codeword pair: returns ``(enc_re, enc_im,
     wire)`` with the pair widened back to f32 (the projection and the
     locator read it) and ``wire = (mode, buf_re, buf_im, block)`` for the
     narrow recombination; the pair unchanged and ``wire = None`` on the f32
-    wire."""
+    wire. ``step``: the step's device tensor, for stochastic rounding (the
+    imaginary part draws from ``fold_in(key, 1)``)."""
     if cfg.wire_dtype == "f32":
         return enc_re, enc_im, None
     mode, block = cfg.wire_dtype, int(cfg.shadow_block)
-    buf_re = narrow_wire_rows(enc_re, mode, block)
-    buf_im = narrow_wire_rows(enc_im, mode, block)
+    r = wire_draws(cfg, step, enc_re.shape[-1], 2)
+    buf_re = narrow_wire_rows(enc_re, mode, block, None if r is None else r[0])
+    buf_im = narrow_wire_rows(enc_im, mode, block, None if r is None else r[1])
     return (widen_wire_rows(buf_re, mode, block),
             widen_wire_rows(buf_im, mode, block),
             (mode, buf_re, buf_im, block))
 
 
-def narrow_wire_single(cfg, rows: torch.Tensor):
-    """The narrow wire on one block of rows (the approx partial sums):
-    ``wire = (mode, buf, block)``, or None on the f32 wire. Unlike the
-    reference it returns no widened copy: the approx decode reads the
-    narrow buffers (the kernel widens in registers, its plain version in
-    its own body), so the widened (n, d) matrix is never written."""
+def narrow_wire_single(cfg, rows: torch.Tensor, step=None):
+    """The narrow wire on one block of rows (the approx partial sums, the
+    vote's gradient rows): ``wire = (mode, buf, block)``, or None on the
+    f32 wire. Unlike the reference it returns no widened copy: the approx
+    decode reads the narrow buffers (the kernel widens in registers, its
+    plain version in its own body), so the widened (n, d) matrix is never
+    written; the vote widens them itself (``widen_wire_rows``)."""
     if cfg.wire_dtype == "f32":
         return None
     block = int(cfg.shadow_block)
-    return (cfg.wire_dtype, narrow_wire_rows(rows, cfg.wire_dtype, block),
+    r = wire_draws(cfg, step, rows.shape[-1], 1)
+    return (cfg.wire_dtype, narrow_wire_rows(rows, cfg.wire_dtype, block,
+                                             None if r is None else r[0]),
             block)
 
 

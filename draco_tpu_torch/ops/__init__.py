@@ -6,7 +6,7 @@ counts its own launches in ``<wrapper>.launches`` (a plain int), which
 :func:`launch_counts` reads and :func:`reset_launch_counts` zeroes.
 """
 
-from draco_tpu_torch.ops import coded, controls, decode_kernels
+from draco_tpu_torch.ops import coded, controls, decode_kernels, draws
 from draco_tpu_torch.ops import flash_attention, vote
 
 KERNELS = {
@@ -26,6 +26,11 @@ KERNELS = {
     "cyclic_narrow_recombine_segments":
         decode_kernels.cyclic_narrow_recombine_segments,
     "approx_decode_segment": decode_kernels.approx_decode_segment,
+    # the reference's threefry stream on the card: the random attack,
+    # stochastic rounding's draws, the LM's device tokens
+    "random_inject": draws.random_inject,
+    "round_draw": draws.round_draw,
+    "synthetic_text": draws.synthetic_text,
 }
 CONTROLS = {
     "control_mistiled_copy": controls.control_mistiled_copy,

@@ -119,14 +119,15 @@ def cyclic_decode(cfg, code, enc_re, enc_im, rand_factor, bounds,
 
 
 def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
-                     masked: bool = False, cfg=None):
+                     masked: bool = False, cfg=None, step=None):
     """The approx code's aggregation on the device: encode the (n, d) batch
     gradients into partial sums, zero-fill the absent rows by where-select
     (``masked``: the step has stragglers), put them on the wire
     (``cfg.wire_dtype``), decode — whole, or a segment at a time on the
     segmented wire (``cfg.wire_segments > 1``). ``vn_pres``: (2, n) [v/n,
     presence] on the device, from the host solve
-    (``coding.approx.host_solve``). Returns ``(decoded mean (d,), residual
+    (``coding.approx.host_solve``); ``step``: the step's device tensor
+    (stochastic rounding's draws). Returns ``(decoded mean (d,), residual
     (0-d))``. No adversary injection: the code carries no Byzantine
     certificate."""
     with phase("draco_encode"):
@@ -134,7 +135,8 @@ def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
         if masked:
             rows = torch.where(vn_pres[1][:, None] > 0, rows,
                                torch.zeros_like(rows))
-        wire = None if cfg is None else numerics.narrow_wire_single(cfg, rows)
+        wire = (None if cfg is None
+                else numerics.narrow_wire_single(cfg, rows, step))
         if wire is not None:
             rows = None  # the decode reads the narrow buffers
     with phase("draco_decode"):
@@ -146,7 +148,7 @@ def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
 
 
 def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
-                         code, rand_factor, noise=None, generator=None,
+                         code, rand_factor, noise=None, step=None,
                          present: Optional[torch.Tensor] = None,
                          leaf_offsets=None):
     """Per-worker flat gradients -> ``(aggregated (d,), health)``.
@@ -160,8 +162,9 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
     ``flagged``, ``loud`` and ``honest``, folded across segments.
     Otherwise the adversary injects on the raw rows and the configured
     robust rule aggregates them over the ``present`` rows; ``health`` is
-    None. ``noise`` / ``generator``: the ``random`` attack's draws
-    (attacks.py)."""
+    None. ``noise``: the ``random`` attack's explicit draws, else they are
+    drawn on the device from ``step`` (the step's int32 tensor;
+    attacks.py)."""
     if cfg.approach == "cyclic":
         with phase("draco_encode"):
             if grads.dim() == 3:
@@ -170,7 +173,7 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
                 enc_re, enc_im = cyclic_mod.encode_shared(code, grads)
             enc_re, enc_im = attacks.inject_cyclic(
                 enc_re, enc_im, adv_mask, cfg.err_mode, cfg.adversarial,
-                noise, generator)
+                noise, step, cfg.seed, cfg.num_adversaries)
         bounds = decode_bounds(cfg, enc_re.shape[1], leaf_offsets)
         with phase("draco_decode"):
             agg, honest, health = cyclic_decode(cfg, code, enc_re, enc_im,
@@ -178,7 +181,7 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
         health["honest"] = honest
         return agg, health
     grads = attacks.inject_plain(grads, adv_mask, cfg.err_mode,
-                                 cfg.adversarial, noise, generator,
+                                 cfg.adversarial, noise, step, cfg.seed,
                                  n_mal=cfg.num_adversaries)
     with phase("draco_decode"):
         return (aggregation.aggregate(grads, cfg.mode, cfg.worker_fail,

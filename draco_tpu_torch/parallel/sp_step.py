@@ -26,10 +26,16 @@ the same seed with the jax PRNG, other numbers of the same distribution);
 take an explicit one, as the tests need.
 
 As in ``training/step.py``, ``step_body`` runs the step on its host inputs
-(tokens and the adversary mask) once they are on the device: the eager
-``train_step`` uploads them, ``train_token_many`` (the counterpart of
-the reference's ``train_token_many`` at sp=1) runs a chunk of k ≤ K steps
-from the chunk's staging buffers (``training/chunk_graph.py``).
+(tokens, the adversary mask and the int32 step number) once they are on
+the device: the eager ``train_step`` uploads them, ``train_token_many``
+(the counterpart of the reference's ``train_token_many`` at sp=1) runs a
+chunk of k ≤ K steps from the chunk's staging buffers
+(``training/chunk_graph.py``). With ``cfg.token_gen="device"`` the host
+sends no tokens: the step makes its batch on the device from the staged
+step (``synthetic_text_in_graph``, the reference's stream, by the
+``synthetic_text`` kernel of ``ops/draws.py``), so a chunk stages K step
+numbers and the masks. The random attack draws on the device from the same
+staged step.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import numpy as np
 import torch
 from torch.func import functional_call, grad_and_value, vmap
 
-from draco_tpu_torch import attacks, optim
+from draco_tpu_torch import optim
 from draco_tpu_torch import params as params_mod
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.coding import cyclic as cyclic_mod
@@ -59,6 +65,7 @@ from draco_tpu_torch.parallel.common import (
     token_metric_names,
 )
 from draco_tpu_torch.obs.tracer import phase
+from draco_tpu_torch.ops import draws
 from draco_tpu_torch.runtime import resolve_device, upload
 from draco_tpu_torch.training.chunk_graph import Chunk
 from draco_tpu_torch.training.step import TrainState, chunk_runner
@@ -69,8 +76,8 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class SPTrainSetup(NamedTuple):
     model: TransformerLM
     state: TrainState
-    # (state, tokens (n, B, T), adv_mask (n,), rand_factor=None, noise=None)
-    #   -> (state, metrics dict of 0-d tensors)
+    # (state, tokens (n, B, T) or None (token_gen="device"), adv_mask (n,),
+    #  rand_factor=None, noise=None) -> (state, metrics dict of 0-d tensors)
     train_step: Any
     eval_step: Any  # (params, tokens (n, B, T)) -> mean loss (0-d tensor)
     code: Optional[cyclic_mod.CyclicCode]
@@ -84,7 +91,9 @@ class SPTrainSetup(NamedTuple):
     step_body: Any
     # metric_names, and honest_located on the cyclic code
     block_names: tuple
-    make_chunk: Any  # (start, tokens (k, n, B, T), masks (k, n)) -> Chunk
+    # (start, tokens (k, n, B, T) or None (token_gen="device"), masks
+    #  (k, n)) -> Chunk
+    make_chunk: Any
     # (state, chunk) -> (state, (k, len(block_names)) metrics on the device)
     train_token_many: Any
 
@@ -99,6 +108,26 @@ def synthetic_text(seed: int, step: int, n: int, batch: int,
     stride = r.randint(1, 3, size=(n, batch, 1))
     idx = np.arange(seq_len)[None, None, :]
     return ((start + stride * idx) % vocab).astype(np.int32)
+
+
+def synthetic_text_in_graph(seed: int, step, n: int, batch: int,
+                            seq_len: int, vocab: int) -> torch.Tensor:
+    """The reference's device counterpart of :func:`synthetic_text`
+    (cfg.token_gen == "device"): the same ramps from its threefry stream,
+    ``fold_in(key(seed), step)`` split into the starts' and the strides'
+    keys, made on ``step``'s device (the ``synthetic_text`` kernel on the
+    card). ``step``: the step's int32 tensor of one element."""
+    return draws.synthetic_text(step, seed, n, batch, seq_len, vocab)
+
+
+def token_fn_from_cfg(cfg: TrainConfig):
+    """``step -> (n, B, T)`` int32 tokens for cfg.token_gen == "device",
+    None for the host stream."""
+    if cfg.token_gen != "device":
+        return None
+    return lambda step: synthetic_text_in_graph(
+        cfg.seed, step, cfg.num_workers, cfg.batch_size, cfg.seq_len,
+        cfg.vocab)
 
 
 def build_sp_train_setup(cfg: TrainConfig, device=None,
@@ -177,12 +206,27 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     # honest set (n − 2s rows on every clean decode)
     block_names = names + (("honest_located",) if code is not None else ())
 
+    token_fn = token_fn_from_cfg(cfg)
+
+    def step_inputs(step, tokens, masks):
+        """A step's (or a chunk's, with leading k axes) host inputs: the
+        tokens unless the device makes them, the masks, the step."""
+        out = {"adv": torch.as_tensor(masks),
+               "step": torch.as_tensor(step, dtype=torch.int32)}
+        if token_fn is None:
+            out["tokens"] = torch.as_tensor(tokens)
+        return out
+
     def make_chunk(start, tokens, masks):
-        return Chunk(start, len(tokens), {"tokens": torch.as_tensor(tokens),
-                                          "adv": torch.as_tensor(masks)})
+        k = len(masks)
+        return Chunk(start, k, step_inputs(np.arange(start, start + k),
+                                           tokens, masks))
 
     def step_body(state, inputs, rand_factor=None, noise=None):
-        toks, mask = inputs["tokens"].long(), inputs["adv"]
+        step = inputs["step"]
+        toks = (inputs["tokens"] if token_fn is None
+                else token_fn(step)).long()
+        mask = inputs["adv"]
         if simulate:
             hat_s = code.hat_s
             grads, losses = lane_grads(state.params,
@@ -193,10 +237,8 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
             grads, losses = lane_grads(state.params, toks)
         f = projection if rand_factor is None else torch.as_tensor(
             rand_factor, device=dev)
-        gen = (attacks.random_generator(cfg.seed, state.step, device=dev)
-               if cfg.err_mode == "random" and noise is None else None)
         agg, health = aggregate_flat_grads(grads, mask, cfg, code, f, noise,
-                                           gen, leaf_offsets=layout.offsets)
+                                           step, leaf_offsets=layout.offsets)
         del grads
         finish_flat_step(state, agg, layout)
         metrics = {"loss": present_mean(losses)}
@@ -207,8 +249,7 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
 
     def train_step(state, tokens, adv_mask, rand_factor=None, noise=None):
         # host inputs by pinned asynchronous copies: no synchronising call
-        inputs = {"tokens": torch.as_tensor(tokens),
-                  "adv": torch.as_tensor(adv_mask)}
+        inputs = step_inputs(state.step, tokens, adv_mask)
         metrics = step_body(state, {k: upload(v, dev)
                                     for k, v in inputs.items()},
                             rand_factor, noise)

@@ -25,7 +25,14 @@ chunk's tokens are generated on a worker thread (``data/prefetch.py``)
 while the card runs the current one, the metrics reach the host once a
 flush, and the eval runs at the ``eval_freq`` boundaries, after the
 flush; a chunked record's ``step_ms`` is its flush window's wall time over
-its steps. With ``cfg.trace_dir`` set, the host phases (gather, dispatch,
+its steps. With ``cfg.token_gen="device"`` the step makes its tokens on
+the device from the staged step number (``sp_step
+.synthetic_text_in_graph``): the eager step uploads no tokens, and a chunk
+stages its K step numbers and masks with no token block and no prefetch
+thread. (The reference runs its chunked loop even at K = 1 in that
+mode; the port's eager step gives the same tokens and state.) The
+held-out loss reads the host stream in both modes, as the reference's
+does. With ``cfg.trace_dir`` set, the host phases (gather, dispatch,
 sync, flush, eval) and the step's draco_* phases go to
 ``trace_dir/trace.json`` (``obs/tracer.py``). The heartbeat
 (``status.json``) is not ported yet.
@@ -69,10 +76,16 @@ class TokenLoop(LoopRunState):
                 cfg.seed, n_steps, cfg.num_workers, cfg.num_adversaries)
             self._sched_steps = n_steps
 
+    @property
+    def device_tokens(self) -> bool:
+        return self.cfg.token_gen == "device"
+
     def inputs(self, step: int) -> tuple:
         """The host inputs of 1-based ``step``: ``(tokens, adv_mask)`` as
-        ``setup.train_step`` takes them."""
-        return self.text(self.cfg.seed, step), self.adv_schedule[step]
+        ``setup.train_step`` takes them; no tokens (None) when the device
+        makes them."""
+        toks = None if self.device_tokens else self.text(self.cfg.seed, step)
+        return toks, self.adv_schedule[step]
 
     def step(self) -> dict:
         """Run the next step eagerly; returns its metrics as floats, with
@@ -108,14 +121,16 @@ class TokenLoop(LoopRunState):
 
     def chunk_client(self, first: int, last: int):
         """The engine's client for steps [first, last] over a fresh,
-        supervised token prefetcher."""
+        supervised token prefetcher (none when the device makes the
+        tokens)."""
         from draco_tpu_torch.control.clients import TokenChunkClient
         from draco_tpu_torch.data import prefetch as pf
 
         self._ensure_schedule(last)
-        prefetch = self.supervised(lambda: pf.TokenChunkPrefetcher(
-            lambda step: self.text(self.cfg.seed, step),
-            timeout_s=self.cfg.prefetch_timeout_s, tracer=self.tracer))
+        prefetch = None if self.device_tokens else self.supervised(
+            lambda: pf.TokenChunkPrefetcher(
+                lambda step: self.text(self.cfg.seed, step),
+                timeout_s=self.cfg.prefetch_timeout_s, tracer=self.tracer))
         return TokenChunkClient(self, prefetch, first, last)
 
     def _run_chunked(self, last_step: int) -> dict:

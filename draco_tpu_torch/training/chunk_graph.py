@@ -7,8 +7,10 @@ A :class:`StepGraph` holds, on the step's device,
 
   staging   one (K, ...) buffer per per-step host input (the batch, labels,
             augmentation draws, adversary and presence masks, the approx
-            decode's v/n and presence, the vote's two fingerprint salts),
-            filled once per chunk
+            decode's v/n and presence, the vote's two fingerprint salts,
+            the (K,) int32 step numbers), filled once per chunk; row
+            ``cursor`` of the steps is the step whose draws the replay
+            makes on the device (``ops/draws.py``)
   cursor    an int64 0-d tensor: the step of the chunk being run
   block     the (K, m) float32 metrics block, row ``cursor`` per step
 
@@ -52,8 +54,10 @@ class Chunk:
 
     ``tensors``: input name -> (k, ...) host tensor, staged on the device.
     Every per-step host value the step reads is staged here, drawn at
-    assembly (the augmentation draws, the vote's salts): the captured step
-    never seeds a host generator.
+    assembly (the augmentation draws, the vote's salts) or made on the
+    device from the staged step number (the random attack, stochastic
+    rounding, the LM's device tokens): the captured step never seeds a
+    host generator.
     ``host``: column name -> k host values, known at assembly (the approx
     decode's bound and recovered fraction, the presence count): they go
     into the records at the flush, not through the device."""

@@ -37,8 +37,8 @@ its group's others in about half of ResNet-18's coordinates, every step
 The state carry is updated in place: parameters, the optimizer's buffers
 and update count, and the BN statistics keep their storage across steps.
 The step is split in two: its host inputs (batch, labels, augmentation
-draws, dropout masks, the adversary and presence masks; the approx
-decode's host solve), and ``step_body``, which
+draws, dropout masks, the adversary and presence masks, the int32 step
+number; the approx decode's host solve), and ``step_body``, which
 runs the step on them once they are on the device. The eager
 ``train_step`` sends them by pinned asynchronous copies
 (``runtime.upload``), so the step makes no synchronising call: the program
@@ -72,7 +72,11 @@ computes batch k (the 2s+1 copies under ``simulate``, a group's members
 on maj_vote) drops the same units and the decode stays exact; the vote's
 two fingerprint salts
 from (seed + 4, step), a host input of the step like the draws; the random
-projection from (seed, 7919), or ``build_train_setup(rand_factor=)``.
+projection from (seed, 7919), or ``build_train_setup(rand_factor=)``. The
+random attack and stochastic rounding draw the reference's own numbers on
+the device (``ops/draws.py``) from the staged step: ``step_body`` reads the
+step from its inputs, never from ``state.step``, so a captured step replays
+each step's own draws.
 ``train_step`` takes explicit ``aug_draws``, ``dropout_masks``,
 ``rand_factor``, ``noise`` and ``salts`` overrides so the tests can hand it
 the reference's own draws, and the
@@ -384,8 +388,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
 
     def step_inputs(step, adv_mask, present, draws, salts=None, keep=None):
         """The host inputs of one step other than its batch, and its host
-        columns."""
-        out, host = {}, {}
+        columns. The step number is staged beside the masks: the device
+        draws (the random attack, stochastic rounding) read it there."""
+        out, host = {"step": torch.tensor(step, dtype=torch.int32)}, {}
         if use_aug:
             if draws is None:
                 draws = aug_draws(cfg, step, draw_rows)
@@ -449,12 +454,6 @@ def build_train_setup(cfg: TrainConfig, device=None,
             keep = keep.index_select(0, lane_draws)
         return x, y, keep
 
-    def attack_generator(state, noise):
-        """The random attack's per-step generator, unless noise was given."""
-        if cfg.err_mode == "random" and noise is None:
-            return attacks.random_generator(cfg.seed, state.step, device=dev)
-        return None
-
     @torch.no_grad()
     def update(state, flat_grad, new_stats):
         with phase("draco_update"):
@@ -473,10 +472,10 @@ def build_train_setup(cfg: TrainConfig, device=None,
             x, y, keep = batch(inputs)
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
                                                     x, y, keep)
-            gen = attack_generator(state, noise)
             pres = inputs.get("present")
             grads = attacks.inject_plain(grads, inputs["adv"], cfg.err_mode,
-                                         cfg.adversarial, noise, gen,
+                                         cfg.adversarial, noise,
+                                         inputs["step"], cfg.seed,
                                          n_mal=cfg.num_adversaries)
             with phase("draco_decode"):
                 agg = aggregation.aggregate(grads, cfg.mode, cfg.worker_fail,
@@ -492,11 +491,17 @@ def build_train_setup(cfg: TrainConfig, device=None,
             with vote_lanes(dev):
                 grads, new_stats, losses, precs = lanes(
                     state.params, state.stats, x, y, keep)
-            gen = attack_generator(state, noise)
             mask, pres = inputs["adv"], inputs.get("present")
             grads = attacks.inject_plain(grads, mask, cfg.err_mode,
-                                         cfg.adversarial, noise, gen,
+                                         cfg.adversarial, noise,
+                                         inputs["step"], cfg.seed,
                                          n_mal=cfg.num_adversaries)
+            # the narrow wire: this family's wire is the gradient rows; the
+            # vote reads them widened (one draw shared by every row keeps a
+            # group's equal rows equal under stochastic rounding)
+            wire = numerics.narrow_wire_single(cfg, grads, inputs["step"])
+            if wire is not None:
+                grads = numerics.widen_wire_rows(wire[1], wire[0], wire[2])
             with phase("draco_decode"):
                 voted, health = rep_mod.majority_vote(
                     code, grads, pres, inputs["salts"], cfg.vote_check,
@@ -519,7 +524,8 @@ def build_train_setup(cfg: TrainConfig, device=None,
                                                     x, y, keep)
             pres = inputs.get("present")
             agg, residual = approx_aggregate(code, grads, inputs["vn_pres"],
-                                             pres is not None, cfg)
+                                             pres is not None, cfg,
+                                             inputs["step"])
             update(state, agg, new_stats)
             metrics = lane_metrics(losses, precs, pres)
             metrics["decode_residual"] = residual
@@ -573,19 +579,18 @@ def build_train_setup(cfg: TrainConfig, device=None,
             x, y, keep = batch(inputs)
             enc_re, enc_im, new_stats, losses, precs = compute_encoded(
                 state, x, y, keep)
-            gen = attack_generator(state, noise)
             mask, pres = inputs["adv"], inputs.get("present")
             with phase("draco_encode"):
                 enc_re, enc_im = attacks.inject_cyclic(
                     enc_re, enc_im, mask, cfg.err_mode, cfg.adversarial,
-                    noise, gen)
+                    noise, inputs["step"], cfg.seed, cfg.num_adversaries)
                 if pres is not None:
                     # a straggler's rows never arrive: zero-filled,
                     # erasures at known positions
                     pw = pres[:, None].to(enc_re.dtype)
                     enc_re, enc_im = enc_re * pw, enc_im * pw
                 enc_re, enc_im, wire = numerics.narrow_wire_pair(
-                    cfg, enc_re, enc_im)
+                    cfg, enc_re, enc_im, inputs["step"])
             f = projection if rand_factor is None else torch.as_tensor(
                 rand_factor, device=dev)
             with phase("draco_decode"):

@@ -7,12 +7,12 @@
   (16, 12) first column block equal to x, the two equal with NaN in the
   same places.
 * The kernel audit's coverage rule (poisoned, guarded outputs) trips on
-  that control and passes on the plain versions of the thirteen main-path
+  that control and passes on the plain versions of the sixteen main-path
   kernels at ragged shapes (the segment kernels with tiny and unaligned
   segments, the approx decode's offset entry on views off a strip).
 * The program lint at CI size: every registered leg green on the CPU
   rules, every CPU control tripping exactly its rule, the honest miniature
-  green; the registry covers the sixteen legs ``chip_smoke.py`` drives,
+  green; the registry covers the twenty-five legs ``chip_smoke.py`` drives,
   each segmented leg beside its S = 1 twin.
 """
 
@@ -37,17 +37,20 @@ MAIN_KERNELS = ("complex_matmul", "complex_project", "complex_recombine",
                 "cyclic_locator", "cyclic_narrow_recombine", "approx_decode",
                 "flash_fwd", "flash_dq", "flash_dkv", "row_fingerprints",
                 "complex_project_segments", "complex_recombine_segments",
-                "cyclic_narrow_recombine_segments")
+                "cyclic_narrow_recombine_segments", "random_inject",
+                "round_draw", "synthetic_text")
 LEGS = ("simulate", "geomedian", "shared", "approx", "approx_int8",
         "shared_bf16", "shared_int8", "majvote", "krum", "lm_shared_flash",
         "lm_simulate_flash", "lm_geomedian_flash", "shared_layer",
         "shared_int8_seg4", "approx_int8_seg4", "lm_shared_flash_layer",
         "vgg11_simulate", "vgg11_shared", "lenet_single", "shared_c16",
-        "lm_shared_flash_adamw")
+        "lm_shared_flash_adamw", "vgg11_random", "shared_int8_sr",
+        "majvote_bf16_sr", "majvote_random", "lm_shared_flash_devgen")
 # the legs' workers at full width: presets rep-resnet18 and cyclic-vgg11
 # (n=9), single-lenet (n=1), the others n=8
 FULL_N = {"majvote": 9, "vgg11_simulate": 9, "vgg11_shared": 9,
-          "lenet_single": 1}
+          "lenet_single": 1, "vgg11_random": 9, "majvote_bf16_sr": 9,
+          "majvote_random": 9}
 
 
 def _bad(x):
@@ -123,7 +126,7 @@ def test_kernel_audit_report_on_the_cpu(tmp_path):
     assert report["all_ok"]
     rows = {r["name"]: r for r in json.loads(out.read_text())["rows"]}
     assert list(rows) == [s.name for s in kernel_audit.SPECS]
-    assert len(rows) == 16
+    assert len(rows) == 19
     mis = rows["control_mistiled_copy"]
     assert mis["failed_rules"] == ["coverage"]
     assert mis["plain"]["bitwise_equal"]

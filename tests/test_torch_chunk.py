@@ -119,8 +119,9 @@ def lm_build(kw):
 
 def lm_chunk(loop, rng_):
     start, k = rng_
+    toks = [loop.inputs(s)[0] for s in range(start, start + k)]
     return loop.setup.make_chunk(
-        start, np.stack([loop.inputs(s)[0] for s in range(start, start + k)]),
+        start, None if toks[0] is None else np.stack(toks),
         loop.adv_schedule[start:start + k])
 
 
@@ -353,9 +354,14 @@ def test_validate_accepts_every_leg_at_k4():
             assert lp.config(full, steps_per_call=4).steps_per_call == 4
 
 
+# reason None: the option validates at K = 4 and a K = 2 chunk of it runs
+# (the random attack and the LM's device tokens draw on the device from the
+# staged step); a route the option does not apply to keeps the reference's
+# refusal
 @pytest.mark.parametrize("fields,reason", [
-    (dict(err_mode="random"), "random"),
-    (dict(token_gen="device"), "token_gen='device' is not ported"),
+    (dict(err_mode="random"), {"cnn": None, "lm": None}),
+    (dict(token_gen="device"),
+     {"cnn": "TransformerLM token routes only", "lm": None}),
     (dict(token_gen="disk"), "host|device"),
     (dict(steps_per_call=0), ">= 1"),
 ], ids=["random", "token_gen_device", "token_gen_unknown", "k0"])
@@ -363,17 +369,33 @@ def test_validate_accepts_every_leg_at_k4():
 def test_validate_rejects_with_its_reason(route, fields, reason):
     lp = registry.get("shared" if route == "cnn" else "lm_shared_flash")
     lp.config(False, steps_per_call=4).validate()
-    with pytest.raises(ValueError, match=reason):
-        lp.config(False, **{"steps_per_call": 4, **fields})
-    if "err_mode" in fields:  # the random attack at K = 1 still runs
-        lp.config(False, steps_per_call=1, **fields)
+    if isinstance(reason, dict):
+        reason = reason[route]
+    if reason is not None:
+        with pytest.raises(ValueError, match=reason):
+            lp.config(False, **{"steps_per_call": 4, **fields})
+        return
+    assert lp.config(False, steps_per_call=4, **fields).validate()
+    cfg = lp.config(False, max_steps=2, steps_per_call=2, **fields)
+    runner = lp.runner(cfg, torch.device("cpu"), False)
+    client = runner.chunk_client(1, 2)
+    chunk = client.assemble(0, client.ranges)
+    _, block = client.dispatch(runner.state, chunk)
+    client.cleanup()
+    assert chunk.tensors["step"].tolist() == [1, 2]
+    if route == "lm":
+        assert ("tokens" in chunk.tensors) == (fields.get("token_gen")
+                                               != "device")
+    assert block.shape[0] == 2 and torch.isfinite(block).all()
 
 
 def test_the_registry_lists_the_chunked_programs():
     assert [c.name for c in registry.collect_chunks()] == [
-        "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote"]
+        "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote",
+        "chunk_lm_shared_flash_devgen"]
     assert {c.name for c in program_lint.select("chunk_")} == {
-        "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote"}
+        "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote",
+        "chunk_lm_shared_flash_devgen"}
     for c in registry.collect_chunks():
         cfg = c.config(full=True)
         m = c.manifest(cfg, True)
@@ -384,7 +406,8 @@ def test_the_registry_lists_the_chunked_programs():
 
 
 @pytest.mark.parametrize("name", ["chunk_simulate", "chunk_lm_shared_flash",
-                                  "chunk_majvote"])
+                                  "chunk_majvote",
+                                  "chunk_lm_shared_flash_devgen"])
 def test_chunked_programs_green_on_the_cpu_rules(name):
     """One inspected chunk after a first chunk and its flush, on the CPU
     loop: no would-be sync in the chunk, one fetch in the flush, the state

@@ -94,19 +94,38 @@ VOTE = dict(network="ResNet18", dataset="synthetic-cifar10",
             approach="maj_vote", num_workers=9, group_size=3, worker_fail=1)
 
 
+# reason None: the vote's narrow wire, which validates now, and whose rows
+# (stochastically rounded, one draw shared by the rows) the vote runs on
 @pytest.mark.parametrize("override,reason", [
     (dict(network="TransformerLM", dataset="synthetic-text"),
      "not supported for TransformerLM"),
-    (dict(wire_dtype="bf16"), "on approach=maj_vote is not ported"),
-    (dict(wire_dtype="int8"), "on approach=maj_vote is not ported"),
+    (dict(wire_dtype="bf16", shadow_round="stochastic"), None),
+    (dict(wire_dtype="int8", shadow_round="stochastic"), None),
     (dict(straggle_mode="drop", straggle_count=1), "joint budget"),
     (dict(worker_fail=0, straggle_mode="drop", straggle_count=3),
      "silence an entire repetition group"),
 ], ids=["vote_on_the_lm", "vote_bf16_wire", "vote_int8_wire",
         "vote_joint_budget", "vote_group_silenced"])
 def test_config_rejects_with_its_reason(override, reason):
+    import torch
+
+    from draco_tpu_torch.coding import repetition
     from draco_tpu_torch.config import TrainConfig
+    from draco_tpu_torch.obs import numerics
 
     TrainConfig(**VOTE).validate()
-    with pytest.raises(ValueError, match=reason):
-        TrainConfig(**{**VOTE, **override}).validate()
+    if reason is not None:
+        with pytest.raises(ValueError, match=reason):
+            TrainConfig(**{**VOTE, **override}).validate()
+        return
+    cfg = TrainConfig(**{**VOTE, **override}).validate()
+    g = torch.Generator().manual_seed(0)
+    rows = torch.randn(3, 777, generator=g).repeat_interleave(3, dim=0)
+    rows[4] *= -100.0  # one adversary in group 1
+    mode, buf, block = numerics.narrow_wire_single(
+        cfg, rows, torch.tensor(3, dtype=torch.int32))
+    wide = numerics.widen_wire_rows(buf, mode, block)
+    voted, health = repetition.majority_vote(
+        repetition.build_repetition_code(9, 3), wide, with_health=True)
+    assert float(health["vote_agree"]) == pytest.approx(8 / 9)
+    assert torch.equal(voted, wide[[0, 3, 6]].mean(0))

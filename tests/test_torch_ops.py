@@ -107,4 +107,5 @@ def test_launch_counters_reset():
                                  "complex_project_segments",
                                  "complex_recombine_segments",
                                  "cyclic_narrow_recombine_segments",
-                                 "approx_decode_segment"}
+                                 "approx_decode_segment", "random_inject",
+                                 "round_draw", "synthetic_text"}

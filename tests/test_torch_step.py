@@ -142,13 +142,20 @@ def test_attacks_exact(mode):
 
 
 def test_random_attack_needs_noise_or_generator():
-    with pytest.raises(ValueError, match="generator"):
+    """A keyless random attack raises; with the step and the seed (the
+    generator is the reference's key, random_key(seed, step)) it draws the
+    Byzantine rows alone, the reference's numbers."""
+    with pytest.raises(ValueError, match="the step and the seed"):
         attacks.inject_plain(torch.zeros(2, 3), torch.ones(2, dtype=bool),
                              "random")
-    g = attacks.random_generator(SEED, 1)
     out = attacks.inject_plain(torch.zeros(2, 3), torch.tensor([True, False]),
-                               "random", generator=g)
+                               "random", step=torch.tensor(1, dtype=torch.int32),
+                               seed=SEED)
     assert out[0].abs().sum() > 0 and out[1].abs().sum() == 0
+    ref = np.asarray(jattacks.inject_plain(
+        jnp.zeros((2, 3)), jnp.asarray([True, False]), "random", step=1,
+        seed=SEED))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=3e-5, atol=0)
 
 
 def test_sgd_momentum_matches():
@@ -328,6 +335,11 @@ def test_per_worker_batchnorm_stats(leg):
 # configuration and device rules
 # --------------------------------------------------------------------------
 
+# shadow_round="stochastic" runs now: its case validates (PORTED) and the
+# others are still refused
+PORTED = ("shadow_round=stochastic",)
+
+
 @pytest.mark.parametrize("override", [
     {"shadow_round": "stochastic"},
     # the segmented wire and the layer decode run now; under the tree
@@ -347,9 +359,12 @@ def test_per_worker_batchnorm_stats(leg):
                  id="approach=baseline-mode=krum"),
     {"err_mode": "alie"}, {"approach": "maj_vote"}, {"adversary_count": 2}],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
-def test_config_rejects_what_is_not_ported(override):
+def test_config_rejects_what_is_not_ported(request, override):
     base = dict(COMMON, approach="cyclic", num_workers=8)
     TrainConfig(**base).validate()
+    if request.node.callspec.id in PORTED:
+        assert TrainConfig(**dict(base, **override)).validate()
+        return
     with pytest.raises(ValueError):
         TrainConfig(**dict(base, **override)).validate()
 
