@@ -54,9 +54,17 @@ prints no result line):
               3e-5·max(1, |z|) of the plain version's and no other row
               written; round_draw's int8 pair and bf16 draw at ResNet-18's
               d and the wires rounded with them, synthetic_text's tokens
-              at the LM's shape, each bit for bit; each twice bit for bit
+              at the LM's shape, each bit for bit; the training step's
+              draws (``step_draw_kernels``): augment_draws at the ResNet
+              legs' n=8 and 16, the vote's 9 lanes in groups of 3 and
+              VGG-11's 9, dropout_keep at VGG-11's 9 × 2 × 32 × 512,
+              vote_salts, each bit for bit, and the step's draws a step
+              from a graph as kernels and as plain versions (a chunk's
+              cost); each twice bit for bit
               and from a graph replayed at two staged steps, each replay
-              its step's draws. Times
+              its step's draws. The locator with a presence row a column
+              (the tree's groups, L=2 at n=8, s=1): each column bit for
+              bit the kernel on that column alone. Times
               each kernel, its plain version, its bound and the one PyTorch
               call that computes the same function, where there is one
               (torch.matmul; scaled_dot_product_attention and its autograd
@@ -102,7 +110,16 @@ prints no result line):
               ``majvote_random`` (the vote's rows under the random attack,
               an eager step and a chunk: every step 8 of 9 rows agree) and
               ``lm_shared_flash_devgen`` (device tokens and the random
-              attack); no other leg launches a draw kernel.
+              attack); every CIFAR leg draws its augmentation on the card
+              (``augment_draws``), the VGG legs their dropout masks, the
+              vote legs their salts; no other leg launches a draw kernel.
+              Then the tree topology: ``shared_tree_g8`` and
+              ``shared_int8_tree_g8`` (ResNet-18 ``shared`` at n=16 in two
+              groups of 8, s_g = 1, a rev_grad adversary every step, the
+              f32 and the int8 wire: every step it is located, 12 honest
+              rows), ``approx_tree_g3`` (preset approx-resnet18 at n=9 in
+              three groups of 3) and ``lm_shared_flash_tree_g4`` (the LM
+              at n=8 in two groups of 4).
               Each leg runs through the entry points a user calls (Trainer /
               build_sp_train_setup + TokenLoop) with the launch counts
               zeroed just before it and read just after; every coded step
@@ -116,7 +133,14 @@ prints no result line):
               decoded aggregate (fresh setups, deterministic cuDNN) within
               rtol 2e-4, atol 1e-6 of the twin's;
               shared_int8_sr against shared_int8: the detection columns
-              equal on every eager and chunked step;
+              equal on every eager and chunked step; tree against flat
+              (``tree_vs_flat``): one step's (16, d) ResNet-18 batch
+              gradients encoded flat (n=16, s=1) and as the tree, a
+              rev_grad adversary on row 11, then row 9 dropped, decoded
+              both ways: the flagged rows equal, the straggler never
+              accused, both aggregates within 1e-5 relative L2 of the true
+              mean; the tree's encode timed as one block-diagonal launch
+              against a launch a group;
               majvote without its adversary for 8 steps (vote_agree 1.0:
               the honest lanes of a group bit-identical) and the exact
               vote equal to the fingerprint vote on one step's rows;
@@ -236,7 +260,7 @@ from draco_tpu_torch.analysis import kernel_audit, program_lint, registry
 from draco_tpu_torch.analysis import rules
 from draco_tpu_torch.analysis import controls as lint_controls
 from draco_tpu_torch.analysis.registry import APPROX, LM_FULL
-from draco_tpu_torch.coding import approx, cyclic, repetition
+from draco_tpu_torch.coding import approx, cyclic, repetition, topology
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data.datasets import load_dataset
 from draco_tpu_torch.models import build_model
@@ -246,10 +270,12 @@ from draco_tpu_torch.obs.trace_report import fold_device_phases
 from draco_tpu_torch.obs.tracer import PHASES
 from draco_tpu_torch.ops import coded, controls, decode_kernels, draws, vote
 from draco_tpu_torch.ops import flash_attention as fa
+from draco_tpu_torch.parallel import common as common_mod
 from draco_tpu_torch.parallel.common import decode_bounds
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.token_loop import TokenLoop
 from draco_tpu_torch.runtime import cudnn_deterministic, resolve_device
+from draco_tpu_torch.training import step as step_mod
 from draco_tpu_torch.training.chunk_graph import StateSnapshot
 from draco_tpu_torch.training.trainer import Trainer
 from draco_tpu_torch.utils import checkpoint as ckpt
@@ -294,31 +320,45 @@ WHOLE = ("complex_project", "complex_recombine", "cyclic_narrow_recombine",
          "approx_decode")
 SEG_CODED = ("complex_matmul", "complex_project_segments", "cyclic_locator",
              "complex_recombine_segments")
+# the training step's draws on the card: every CIFAR leg's augmentation,
+# VGG's dropout masks, the vote's salts
+AUG = ("augment_draws",)
+VGG_DRAWS = AUG + ("dropout_keep",)
+VOTE_DRAWS = AUG + ("vote_salts",)
 # the kernels each leg must launch
-EXPECT = {"simulate": CODED[1:], "geomedian": (), "shared": CODED,
-          "approx": ("approx_decode",), "approx_int8": ("approx_decode",),
-          "shared_bf16": NARROW, "shared_int8": NARROW,
-          "majvote": ("row_fingerprints",), "krum": (),
+EXPECT = {"simulate": CODED[1:] + AUG, "geomedian": AUG,
+          "shared": CODED + AUG,
+          "approx": ("approx_decode",) + AUG,
+          "approx_int8": ("approx_decode",) + AUG,
+          "shared_bf16": NARROW + AUG, "shared_int8": NARROW + AUG,
+          "majvote": ("row_fingerprints",) + VOTE_DRAWS, "krum": AUG,
           "lm_shared_flash": CODED + FLASH,
           "lm_simulate_flash": CODED[1:] + FLASH,
           "lm_geomedian_flash": FLASH,
-          "shared_layer": SEG_CODED,
+          "shared_layer": SEG_CODED + AUG,
           "shared_int8_seg4": SEG_CODED[:3]
-          + ("cyclic_narrow_recombine_segments",),
-          "approx_int8_seg4": ("approx_decode_segment",),
+          + ("cyclic_narrow_recombine_segments",) + AUG,
+          "approx_int8_seg4": ("approx_decode_segment",) + AUG,
           "lm_shared_flash_layer": SEG_CODED + FLASH,
-          "vgg11_simulate": CODED[1:], "vgg11_shared": CODED,
-          "lenet_single": (), "shared_c16": CODED,
+          "vgg11_simulate": CODED[1:] + VGG_DRAWS,
+          "vgg11_shared": CODED + VGG_DRAWS,
+          "lenet_single": (), "shared_c16": CODED + AUG,
           "lm_shared_flash_adamw": CODED + FLASH,
-          "vgg11_random": CODED[1:] + ("random_inject",),
-          "shared_int8_sr": NARROW + ("round_draw",),
-          "majvote_bf16_sr": ("row_fingerprints", "round_draw"),
-          "majvote_random": ("row_fingerprints", "random_inject"),
+          "vgg11_random": CODED[1:] + ("random_inject",) + VGG_DRAWS,
+          "shared_int8_sr": NARROW + ("round_draw",) + AUG,
+          "majvote_bf16_sr": ("row_fingerprints", "round_draw") + VOTE_DRAWS,
+          "majvote_random": ("row_fingerprints", "random_inject")
+          + VOTE_DRAWS,
           "lm_shared_flash_devgen": CODED + FLASH + ("random_inject",
-                                                     "synthetic_text")}
-# the draw kernels no leg but these may launch: no earlier leg draws on
-# the device
-DRAWS = ("random_inject", "round_draw", "synthetic_text")
+                                                     "synthetic_text"),
+          "shared_tree_g8": CODED + AUG,
+          "shared_int8_tree_g8": NARROW + AUG,
+          "approx_tree_g3": ("approx_decode",) + AUG,
+          "lm_shared_flash_tree_g4": CODED + FLASH}
+# the draw kernels a leg launches only where it draws: no other leg
+# launches them
+DRAWS = ("random_inject", "round_draw", "synthetic_text", "augment_draws",
+         "dropout_keep", "vote_salts")
 # the columns a segmented leg must give on every step as its twin does (the
 # reference's, tests/test_segments.py DET_COLS). Not honest_located: each
 # segment's locator keeps n − 2s rows, the adversary and, at s = 1, one of
@@ -441,7 +481,7 @@ def product_rows(code, dev, d, g, reps: int = 20) -> dict:
     del grads
     torch.cuda.empty_cache()
     r_re, r_im = torch.randn((2, n, d), generator=g, device=dev)
-    f = drng.random_projection_factors(SEED, d).to(dev)
+    f = drng.projection_factors(SEED, d, dev)
 
     # projection: a d-term reduction; two f32 summation orders agree to
     # 1e-5 of the sum of the terms' magnitudes
@@ -726,6 +766,79 @@ def locator_timing(code, dev, g) -> dict:
 
 
 LAM = 2.0 ** -6  # the narrow wires' λ (the signal-scale path)
+# the tree topology's locator (shared_tree_g8: a group of 8, s_g = 1): two
+# groups' columns, each column with its own group's presence; per column
+# (attacked rows, absent rows)
+TREE_LOCATOR_CASES = (
+    ("an attacked row in group 0, an absent one in group 1",
+     (((3,), ()), ((), (6,)))),
+    ("two absent rows in each group, at other places",
+     (((), (1, 4)), ((), (2, 7)))),
+    ("an attacked row in group 0, two absent rows in group 1",
+     (((0,), ()), ((), (3, 5)))))
+
+
+def group_columns(code, per_column, dev, g):
+    """(L, n) projected columns, one a group, each from its own encode with
+    its own attacked and absent rows (``per_column``: (attacked, absent)
+    a column), and the (L, n) presence a row a column."""
+    cols = [locator_columns(code, 1, att, ab, dev, g)
+            for att, ab in per_column]
+    return tuple(torch.cat([c[i] for c in cols]).contiguous()
+                 for i in range(3))
+
+
+def tree_locator(code, dev, g) -> dict:
+    """The locator with a presence row a column (the tree's groups, L=2 at
+    n=8, s=1) against its plain version: discrete outputs equal, v within
+    1e-4 of max|v|, the residual within 1e-5; each column bit for bit the
+    kernel on that column alone with its presence as the shared (1, n)
+    row; each column's attacked rows located and absent rows unused.
+    Timed from a graph at L=2."""
+    plain, kernel = locator_pair(code, dev)
+    worst = 0.0
+    for label, per_column in TREE_LOCATOR_CASES:
+        e_re, e_im, pres = group_columns(code, per_column, dev, g)
+        k = kernel(e_re, e_im, pres)
+        p = plain(e_re, e_im, pres)
+        for i, name in zip((2, 3, 4), ("honest", "flagged", "loud")):
+            require(torch.equal(k[i], p[i]), f"cyclic_locator per-column "
+                    f"[{label}]: {name} kernel {k[i].int().tolist()} plain "
+                    f"{p[i].int().tolist()}")
+        v_scale = max(p[0].abs().max().item(), p[1].abs().max().item())
+        v_err = max((k[0] - p[0]).abs().max().item(),
+                    (k[1] - p[1]).abs().max().item())
+        r_err = (k[5] - p[5]).abs().max().item()
+        require(v_err <= 1e-4 * v_scale and r_err <= 1e-5,
+                f"cyclic_locator per-column [{label}]: v err {v_err}, "
+                f"residual err {r_err}")
+        worst = max(worst, v_err)
+        for c, (att, ab) in enumerate(per_column):
+            one = kernel(e_re[c:c + 1].contiguous(),
+                         e_im[c:c + 1].contiguous(),
+                         pres[c:c + 1].contiguous())
+            require(all(_same_bits(a[c], b[0]) for a, b in zip(k, one)),
+                    f"cyclic_locator per-column [{label}]: column {c} "
+                    f"differs from the kernel on that column alone")
+            for row in att:
+                require(bool(k[3][c, row]) and not bool(k[2][c, row]),
+                        f"cyclic_locator per-column [{label}]: column {c} "
+                        f"did not locate row {row}")
+            for row in ab:
+                require(not bool(k[2][c, row]),
+                        f"cyclic_locator per-column [{label}]: column {c} "
+                        f"used absent row {row}")
+        print(f"kernel cyclic_locator per-column presence [{label}]: "
+              f"discrete outputs held, each column the kernel alone bit "
+              f"for bit, v err {v_err:.3e}", flush=True)
+    e_re, e_im, pres = group_columns(code, TREE_LOCATOR_CASES[0][1], dev, g)
+    ms = graph_ms(lambda: kernel(e_re, e_im, pres), 200)
+    plain_ms = time_ms(lambda: plain(e_re, e_im, pres), 10)
+    print(f"kernel cyclic_locator at L=2, n=8 with a presence row a column: "
+          f"ms={ms:.4f} (device, CUDA graph) plain_ms={plain_ms:.4f}",
+          flush=True)
+    return {"L": 2, "n": code.n, "s": code.s, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain_ms}
 
 
 def locator_kernel(code, dev, code9, old_lib) -> list:
@@ -778,6 +891,7 @@ def locator_kernel(code, dev, code9, old_lib) -> list:
         at_l[str(L)] = graph_ms(lambda: kernel(e_re, e_im, pres), 50)
     print(f"kernel cyclic_locator: L=62 {at_l['62']:.4f} ms, L=69 "
           f"{at_l['69']:.4f} ms (device, CUDA graph)", flush=True)
+    per_column = tree_locator(code, dev, g)
     # timed at the main path's shape, one column (global decode), and at
     # the wide codes n=32, s=3 and s=5
     t8, t9 = locator_timing(code, dev, g), locator_timing(code9, dev, g)
@@ -800,6 +914,7 @@ def locator_kernel(code, dev, code9, old_lib) -> list:
              "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
              "library_ms": None, "instance": t8["instance"],
              "n9_s2": {"max_abs_err": worst9, **t9},
+             "per_column_presence": per_column,
              **{k: {"max_abs_err": wide[(t["n"], t["s"])], **t}
                 for k, t in tw.items()},
              "n40_s3": {"n": 40, "s": 3, "max_abs_err": wide[(40, 3)],
@@ -1098,7 +1213,121 @@ def draw_kernels(dev) -> tuple:
           f"B={b} T={t}; two launches and graph replays at two steps bit "
           f"for bit; ms={ms:.4f} (CUDA graph) plain_ms={plain_ms:.4f} "
           f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    step_rows, step_replays = step_draw_kernels(dev, step)
     torch.cuda.empty_cache()
+    return rows + step_rows, replays + step_replays
+
+
+# the training step's draws at the legs' shapes: (rows, div, B) of the
+# augmentation (shared and the ResNet legs at n=8, the tree legs at n=16,
+# the vote's 9 lanes in groups of 3, the VGG-11 legs' 9), (rows, layers,
+# B, width) of VGG-11's dropout
+AUG_CASES = ((N, 1, 32), (16, 1, 32), (VOTE_N, 3, 32), (VGG_N, 1, 32))
+DROPOUT_CASE = (VGG_N, 2, 32, 512)
+
+
+def step_draw_kernels(dev, step) -> tuple:
+    """The training step's draws (``augment_draws``, ``dropout_keep``,
+    ``vote_salts``) against their plain versions run on the card, bit for
+    bit at the legs' shapes, twice and from a graph replayed at two staged
+    steps. Timed: each kernel from a graph, its plain version called
+    directly, and the step's draws as a chunk would pay them — the
+    kernels' and the plain versions' captured in one graph each — for
+    ``shared`` (the augmentation at n=8) and ``vgg11_simulate`` (n=9, and
+    the dropout masks)."""
+    rows, replays = [], []
+    aseed = SEED + draws.AUG_SALT
+    dseed = SEED + draws.DROPOUT_SALT
+    vseed = SEED + draws.VOTE_SALT
+    step.fill_(DRAW_STEP)
+    for r, div, b in AUG_CASES:
+        k = draws.augment_draws(step, aseed, r, b, div)
+        p = draws.augment_draws_plain(step, aseed, r, b, div, dev)
+        require(torch.equal(k, p), f"augment_draws rows={r} div={div}: the "
+                f"kernel's draws differ from the plain version's")
+    replay_steps("augment_draws", lambda: draws.augment_draws(
+        step, aseed, N, 32), step, DRAW_STEP, DRAW_STEP + 1)
+    replays.append(f"augment_draws (n={N} B=32, steps {DRAW_STEP} and "
+                   f"{DRAW_STEP + 1})")
+    r, count, b, w = DROPOUT_CASE
+    step.fill_(DRAW_STEP)
+    k = draws.dropout_keep(step, dseed, r, count, b, w)
+    p = draws.dropout_keep_plain(step, dseed, r, count, b, w, 1, dev)
+    require(torch.equal(k, p), "dropout_keep: the kernel's masks differ "
+            "from the plain version's")
+    replay_steps("dropout_keep", lambda: draws.dropout_keep(
+        step, dseed, r, count, b, w), step, DRAW_STEP, DRAW_STEP + 1)
+    replays.append(f"dropout_keep ({r} rows x {count} x {b} x {w}, steps "
+                   f"{DRAW_STEP} and {DRAW_STEP + 1})")
+    step.fill_(DRAW_STEP)
+    require(torch.equal(draws.vote_salts(step, vseed),
+                        draws.vote_salts_plain(step, vseed, dev)),
+            "vote_salts: the kernel's salts differ from the plain version's")
+    replay_steps("vote_salts", lambda: draws.vote_salts(step, vseed), step,
+                 DRAW_STEP, DRAW_STEP + 1)
+    replays.append(f"vote_salts (steps {DRAW_STEP} and {DRAW_STEP + 1})")
+    step.fill_(DRAW_STEP)
+
+    # a chunk's draws a step, kernels and plain versions each in a graph
+    def shared_k():
+        draws.augment_draws(step, aseed, N, 32)
+
+    def shared_p():
+        draws.augment_draws_plain(step, aseed, N, 32, 1, dev)
+
+    def vgg_k():
+        draws.augment_draws(step, aseed, VGG_N, 32)
+        draws.dropout_keep(step, dseed, *DROPOUT_CASE)
+
+    def vgg_p():
+        draws.augment_draws_plain(step, aseed, VGG_N, 32, 1, dev)
+        draws.dropout_keep_plain(step, dseed, *DROPOUT_CASE, 1, dev)
+
+    chunk_cost = {"shared": {"kernels_ms": graph_ms(shared_k, 20),
+                             "plain_ms": graph_ms(shared_p, 5)},
+                  "vgg11_simulate": {"kernels_ms": graph_ms(vgg_k, 20),
+                                     "plain_ms": graph_ms(vgg_p, 5)}}
+    print(f"the step's draws a step from a graph (a chunk's cost): shared "
+          f"kernels {chunk_cost['shared']['kernels_ms']:.4f} ms, plain "
+          f"{chunk_cost['shared']['plain_ms']:.4f}; vgg11_simulate kernels "
+          f"{chunk_cost['vgg11_simulate']['kernels_ms']:.4f}, plain "
+          f"{chunk_cost['vgg11_simulate']['plain_ms']:.4f}", flush=True)
+    samples = N * 32
+    cases = (
+        ("augment_draws", "draco_tpu/data/augment.py:18",
+         lambda: draws.augment_draws(step, aseed, N, 32),
+         lambda: draws.augment_draws_plain(step, aseed, N, 32, 1, dev),
+         bound(3 * 4 * samples + 4, draws.sample_ops(N, 32), INT32_OPS),
+         f"n={N} B=32 (shared); also n=16, the vote's 9 in groups of 3 "
+         f"and VGG-11's 9"),
+        ("dropout_keep", "draco_tpu/models/vgg.py:52",
+         lambda: draws.dropout_keep(step, dseed, *DROPOUT_CASE),
+         lambda: draws.dropout_keep_plain(step, dseed, *DROPOUT_CASE, 1,
+                                          dev),
+         bound(math.prod(DROPOUT_CASE) + 4,
+               draws.draw_ops(math.prod(DROPOUT_CASE)), INT32_OPS),
+         f"{DROPOUT_CASE[0]} rows x {DROPOUT_CASE[1]} layers x "
+         f"{DROPOUT_CASE[2]} x {DROPOUT_CASE[3]} (VGG-11)"),
+        ("vote_salts", "draco_tpu/coding/repetition.py:115",
+         lambda: draws.vote_salts(step, vseed),
+         lambda: draws.vote_salts_plain(step, vseed, dev),
+         bound(8 + 4, draws.draw_ops(2 + 1), INT32_OPS), "(2,)"))
+    for name, replaces, kfn, pfn, (b_ms, b_by), at in cases:
+        ms = graph_ms(kfn, 20)
+        plain_ms = time_ms(pfn, 5, warmup=1)
+        row = {"name": name, "route": "cuda",
+               "source": "draco_tpu_torch/csrc/draws.cu",
+               "replaces": replaces, "ok": True, "max_abs_err": 0.0,
+               "tol": "bit for bit", "timed_at": at, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        if name == "augment_draws":
+            row["chunk_cost_per_step"] = chunk_cost
+        rows.append(row)
+        print(f"kernel {name}: bit for bit its plain version ({at}); two "
+              f"launches and graph replays at two steps bit for bit; "
+              f"ms={ms:.4f} (CUDA graph) plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.3e} ({b_by})", flush=True)
     return rows, replays
 
 
@@ -1438,7 +1667,7 @@ def segment_kernels(code, dev, cuts) -> list:
                         ("resnet S=1", (0, D))):
         d = bnds[-1]
         r_re, r_im = encoded(d)
-        f = drng.random_projection_factors(SEED, d).to(dev)
+        f = drng.projection_factors(SEED, d, dev)
         plan = coded.segment_plan(bnds, dev)
         S = plan.segments
         k = coded.complex_project_segments(r_re, r_im, f, plan)
@@ -2201,7 +2430,7 @@ def drive(name, program, steps, expect, dev) -> dict:
                     f"{name} step {r['step']}: adversaries not located: {r}")
         if cfg.approach == "approx":
             slack = numerics.wire_residual_slack(cfg.wire_dtype)
-            require(r["present"] == N - cfg.straggle_count
+            require(r["present"] == cfg.num_workers - cfg.straggle_count
                     and 0.0 < r["recovered_fraction"] <= 1.0
                     and r["decode_residual"]
                     <= r["decode_residual_bound"] + slack + 1e-4,
@@ -2551,7 +2780,10 @@ def located(name, r, cfg) -> bool:
     det_tp and det_adv the leg's adversary count, and n − 2s honest rows —
     on a segmented leg at most n − 2s, the rows honest in every segment
     (``DETECT``)."""
-    m = cfg.num_workers - 2 * cfg.worker_fail
+    s = cfg.worker_fail
+    if cfg.topology == "tree":  # each group's n − 2s_g
+        s = cfg.tree_group_fail * (cfg.num_workers // cfg.tree_fanout)
+    m = cfg.num_workers - 2 * s
     honest = (r["honest_located"] <= m if name in registry.TWINS
               else r["honest_located"] == m)
     return honest and (r["located_errors"] == r["det_tp"] == r["det_adv"]
@@ -2787,6 +3019,115 @@ def first_aggregate(lp, dev, ds) -> tuple:
     return rec, seen[0].clone()
 
 
+# the tree-vs-flat phase: the adversary's row and the straggler's
+TREE_ADVERSARY, TREE_STRAGGLER = 11, 9
+TREE_MEAN_RTOL = 1e-5
+
+
+def tree_vs_flat(dev, ds) -> dict:
+    """One step's (16, d) ResNet-18 batch gradients (the first step of
+    ``shared_tree_g8``, captured at its encode) encoded flat (n=16, s=1)
+    and as the tree (two groups of 8, s_g = 1), then, in one case, the
+    rev_grad adversary on row TREE_ADVERSARY, in another row
+    TREE_STRAGGLER dropped as a straggler (zero-filled, absent); each
+    decoded both ways. The flagged rows equal, the adversary flagged, the
+    straggler never, both aggregates within TREE_MEAN_RTOL relative L2 of
+    the true mean. Timed: the tree's encode as one launch of the
+    block-diagonal matrix against a launch a group, and each decode."""
+    lp = registry.get("shared_tree_g8")
+    cfg = lp.config(True, max_steps=2)
+    runner = lp.runner(cfg, dev, True, ds)
+    seen, real = [], step_mod.encode_shared
+
+    def watched(code, grads):
+        seen.append(grads.detach().clone())
+        return real(code, grads)
+
+    step_mod.encode_shared = watched
+    try:
+        runner.step()
+    finally:
+        step_mod.encode_shared = real
+    require(len(seen) == 1, f"tree_vs_flat: the encode ran {len(seen)} times")
+    grads = seen[0]
+    n, d = grads.shape
+    tcode = runner.setup.code
+    del runner
+    require(topology.is_tree(tcode) and (tcode.groups, tcode.fanout,
+                                         tcode.s) == (2, 8, 1),
+            f"tree_vs_flat: the leg's code is {tcode}")
+    flat = cyclic.build_cyclic_code(n, 1)
+    true_mean = grads.mean(dim=0)
+    f = drng.projection_factors(SEED, d, dev)
+    out = {"n": n, "d": d}
+    for case, adv, absent in (("adversary", (TREE_ADVERSARY,), ()),
+                              ("straggler", (), (TREE_STRAGGLER,))):
+        flagged = {}
+        for topo_name, code in (("flat", flat), ("tree", tcode)):
+            enc_re, enc_im = common_mod.encode_shared(code, grads)
+            mask = torch.zeros(n, dtype=torch.bool, device=dev)
+            mask[list(adv)] = True
+            enc_re, enc_im = attacks.inject_cyclic(enc_re, enc_im, mask,
+                                                   "rev_grad")
+            present = None
+            if absent:
+                present = torch.ones(n, dtype=torch.bool, device=dev)
+                present[list(absent)] = False
+                pw = present[:, None].to(torch.float32)
+                enc_re, enc_im = enc_re * pw, enc_im * pw
+            dec, honest, health = common_mod.cyclic_decode(
+                cfg, code, enc_re, enc_im, f, None, present=present)
+            err = ((dec - true_mean).norm() / true_mean.norm()).item()
+            fl = health["flagged"]
+            if present is not None:
+                fl = fl & present
+            flagged[topo_name] = fl.cpu()
+            ms = time_ms(lambda: common_mod.cyclic_decode(
+                cfg, code, enc_re, enc_im, f, None, present=present), 5)
+            out[f"{case}_{topo_name}"] = {
+                "flagged": fl.nonzero().flatten().tolist(),
+                "honest": int(honest.sum()), "rel_l2": err,
+                "decode_ms": ms}
+            require(err <= TREE_MEAN_RTOL, f"tree_vs_flat {case} "
+                    f"{topo_name}: the aggregate is {err:.3e} (relative L2) "
+                    f"off the true mean (tol {TREE_MEAN_RTOL:g})")
+            for row in absent:
+                require(not bool(fl[row]), f"tree_vs_flat {case} "
+                        f"{topo_name}: the straggler {row} accused")
+            require(fl.nonzero().flatten().tolist() == list(adv),
+                    f"tree_vs_flat {case} {topo_name}: flagged "
+                    f"{fl.nonzero().flatten().tolist()}, adversary {adv}")
+            del enc_re, enc_im
+        require(torch.equal(flagged["flat"], flagged["tree"]),
+                f"tree_vs_flat {case}: flagged flat "
+                f"{flagged['flat'].tolist()} tree {flagged['tree'].tolist()}")
+        print(f"tree vs flat [{case}]: flagged equal "
+              f"{out[case + '_tree']['flagged']}, relative L2 to the true "
+              f"mean flat {out[case + '_flat']['rel_l2']:.3e} tree "
+              f"{out[case + '_tree']['rel_l2']:.3e}; decode ms flat "
+              f"{out[case + '_flat']['decode_ms']:.4f} tree "
+              f"{out[case + '_tree']['decode_ms']:.4f}", flush=True)
+    t = tcode.group_code.tensors(dev)
+    blocks = [torch.block_diag(*[t[k]] * tcode.groups)
+              for k in ("w_masked_re", "w_masked_im")]
+    out["encode_ms"] = {
+        "block_diagonal": time_ms(lambda: coded.complex_matmul(*blocks,
+                                                               grads), 10),
+        "a_launch_a_group": time_ms(lambda: topology.encode_tree(tcode,
+                                                                 grads), 10)}
+    enc = topology.encode_tree(tcode, grads)
+    ref = coded.complex_matmul(*blocks, grads)
+    out["encode_block_diagonal_max_abs_diff"] = max(
+        (a - b).abs().max().item() for a, b in zip(enc, ref))
+    del enc, ref
+    print(f"tree encode at n={n}, d={d}: a launch a group (the port's) "
+          f"{out['encode_ms']['a_launch_a_group']:.4f} ms, one launch of the "
+          f"block-diagonal matrix {out['encode_ms']['block_diagonal']:.4f} "
+          f"ms; the two differ by at most "
+          f"{out['encode_block_diagonal_max_abs_diff']:.3e}", flush=True)
+    return out
+
+
 def twin_checks(legs, dev, ds) -> dict:
     """Each segmented leg against its S = 1 twin (registry.TWINS): on every
     eager step and every step of the timed chunk, the detection columns
@@ -2901,7 +3242,7 @@ def graph_replay_kernels(code, dev, cuts) -> list:
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
     t = code.tensors(dev)
     grads = torch.randn((N, D), generator=g, device=dev)
-    f = drng.random_projection_factors(SEED, D).to(dev)
+    f = drng.projection_factors(SEED, D, dev)
     v_re, v_im = torch.randn((2, N), generator=g, device=dev)
     checked = []
 
@@ -2919,6 +3260,11 @@ def graph_replay_kernels(code, dev, cuts) -> list:
     e_re, e_im, pres = locator_columns(code, 1, (3,), (), dev, g)
     check("cyclic_locator", lambda: decode_kernels.cyclic_locator(
         code, e_re, e_im, pres, cyclic.HEALTH_REL_TOL))
+    # the tree's form: two groups' columns, each with its own presence
+    e_re, e_im, pres = group_columns(code, TREE_LOCATOR_CASES[0][1], dev, g)
+    check("cyclic_locator [per-column presence, L=2]",
+          lambda: decode_kernels.cyclic_locator(code, e_re, e_im, pres,
+                                                cyclic.HEALTH_REL_TOL))
     for mode in ("int8", "bf16"):
         wire = (mode, numerics.narrow_wire_rows(enc_re, mode, BLOCK),
                 numerics.narrow_wire_rows(enc_im, mode, BLOCK), BLOCK)
@@ -3065,7 +3411,7 @@ def cross_device_check(dev) -> dict:
     mask = torch.zeros(N, dtype=torch.bool, device=dev)
     mask[4] = True
     enc = attacks.inject_cyclic(*enc, mask, "rev_grad")
-    f = drng.random_projection_factors(SEED, D)
+    f = drng.projection_factors(SEED, D)
     dec_c, hon_c = cyclic.decode(code, *enc, f.to(dev))
     dec_p, hon_p = cyclic.decode(code, enc[0].cpu(), enc[1].cpu(), f)
     require(torch.equal(hon_c.cpu(), hon_p) and not bool(hon_p[4]),
@@ -3148,7 +3494,7 @@ def wire_checks(dev) -> dict:
     mask[4] = True
     enc = attacks.inject_cyclic(*enc, mask, "rev_grad")
     enc_cpu = tuple(x.cpu() for x in enc)
-    f = drng.random_projection_factors(SEED, D)
+    f = drng.projection_factors(SEED, D)
     for mode in ("bf16", "int8"):
         cfg = TrainConfig(approach="cyclic", num_workers=N, worker_fail=S,
                           wire_dtype=mode, shadow_block=BLOCK)
@@ -3692,6 +4038,9 @@ def main(argv=None) -> int:
     record["chunk"] = chunk_summary(legs)
     ds = load_dataset(registry.CNN_FULL["dataset"])
     record["twins"] = twin_checks(legs, dev, ds)
+    record["tree_vs_flat"] = tree_vs_flat(dev, ds)
+    gc.collect()
+    torch.cuda.empty_cache()
     record["sr_twins"] = sr_twin_checks(legs)
     record["vote_checks"] = vote_checks(dev, ds)
     record["bf16_simulate"] = bf16_simulate_check(dev, ds)
@@ -3735,6 +4084,9 @@ def main(argv=None) -> int:
                   "random_inject": "vgg11_random",
                   "round_draw": "shared_int8_sr",
                   "synthetic_text": "lm_shared_flash_devgen",
+                  "augment_draws": "shared",
+                  "dropout_keep": "vgg11_simulate",
+                  "vote_salts": "majvote",
                   **{k: "lm_shared_flash" for k in FLASH}}
     # the controls run on no main path: their counts are read from every
     # leg, and are 0 on each

@@ -49,7 +49,7 @@ SIGNATURES = {
         "draco_complex_recombine_segments": [_P] * 5 + [_I, _P, _I, _LL, _P],
     },
     "cyclic_locator": {
-        "draco_cyclic_locator": [_P] * 15 + [_I] * 4 + [_F] * 8 + [_P],
+        "draco_cyclic_locator": [_P] * 15 + [_I] * 5 + [_F] * 8 + [_P],
     },
     "narrow_decode": {
         "draco_narrow_recombine": [_P] * 7 + [_I, _LL, _I, _I, _LL, _P],
@@ -71,6 +71,9 @@ SIGNATURES = {
         "draco_random_inject": [_P, _P, _P, _P, _U, _F, _I, _LL, _P],
         "draco_round_draw": [_P, _P, _U, _I, _LL, _I, _P],
         "draco_synthetic_text": [_P, _P, _U, _I, _I, _I, _P],
+        "draco_augment_draws": [_P, _P, _U, _I, _I, _I, _I, _P],
+        "draco_dropout_keep": [_P, _P, _U, _I, _I, _I, _U, _U, _LL, _F, _P],
+        "draco_vote_salts": [_P, _P, _U, _P],
     },
     "controls": {
         "draco_control_mistiled_copy": [_P, _P, _I, _I, _P],

@@ -235,6 +235,14 @@ SPECS = (
                "draco_tpu/obs/numerics.py:494", 24),
     KernelSpec("synthetic_text", "draws", ("synthetic_text_kernel",),
                "draco_tpu/parallel/sp_step.py:83", 32),
+    # the training step's draws: a sample's key chain (15 threefry calls)
+    # or a row-layer's in registers
+    KernelSpec("augment_draws", "draws", ("augment_draws_kernel",),
+               "draco_tpu/data/augment.py:18", 40),
+    KernelSpec("dropout_keep", "draws", ("dropout_keep_kernel",),
+               "draco_tpu/models/vgg.py:52", 32),
+    KernelSpec("vote_salts", "draws", ("vote_salts_kernel",),
+               "draco_tpu/coding/repetition.py:115", 32),
     KernelSpec("control_mistiled_copy", "controls",
                ("control_mistiled_copy_kernel",),
                "tools/tpu_attn_lowering_check.py:111", 8, racecheck=False,
@@ -366,15 +374,16 @@ def _cases(name: str, dev) -> list:
                                                           r_im))
         cases.append(Case(f"n={n} d={d}", {"out": ((d,), f32)}, run))
     elif name == "cyclic_locator":
-        for n, s, L in LOCATOR_CASES:
-            cases.append(_locator_case(n, s, L, dev, cuda, rnd))
+        for n, s, L, per_column in LOCATOR_CASES:
+            cases.append(_locator_case(n, s, L, dev, cuda, rnd, per_column))
     elif name in ("cyclic_narrow_recombine", "approx_decode"):
         cases += _narrow_cases(name, dev, cuda, rnd)
         if name == "approx_decode":
             cases += _approx_offset_cases(dev, cuda, rnd)
     elif name.endswith("_segments"):
         cases += _segment_cases(name, dev, cuda, rnd)
-    elif name in ("random_inject", "round_draw", "synthetic_text"):
+    elif name in ("random_inject", "round_draw", "synthetic_text",
+                  "augment_draws", "dropout_keep", "vote_salts"):
         cases += _draw_cases(name, dev, cuda, rnd)
     elif name == "row_fingerprints":
         cases += _vote_cases(dev, cuda, rnd)
@@ -447,18 +456,25 @@ def _cases(name: str, dev) -> list:
 # the locator's coverage, one case an instance (ops/decode_kernels
 # .LOCATOR_ROUTES): (n, s, L) with L ragged against the block's columns
 # (4 warps; 2 at n > 32); the two-rows-a-lane instance at n = 40
-LOCATOR_CASES = ((8, 1, 3), (9, 2, 5), (32, 3, 5), (40, 3, 3))
+# (n, s, L, presence a row a column): the last, the tree topology's groups
+LOCATOR_CASES = ((8, 1, 3, False), (9, 2, 5, False), (32, 3, 5, False),
+                 (40, 3, 3, False), (8, 1, 3, True))
 
 
-def _locator_case(n: int, s: int, L: int, dev, cuda: bool, rnd) -> Case:
-    """The locator at (n, s) on L random columns with row 6 absent."""
+def _locator_case(n: int, s: int, L: int, dev, cuda: bool, rnd,
+                  per_column: bool = False) -> Case:
+    """The locator at (n, s) on L random columns with row 6 absent; with
+    ``per_column`` a presence row a column, column c's absent row c."""
     from draco_tpu_torch.coding import cyclic
     from draco_tpu_torch.ops import decode_kernels
 
     code = cyclic.build_cyclic_code(n, s)
     e_re, e_im = rnd(L, n), rnd(L, n)
-    pres = torch.ones((1, n), device=dev)
-    pres[0, 6] = 0.0
+    pres = torch.ones((L if per_column else 1, n), device=dev)
+    if per_column:
+        pres[torch.arange(L), torch.arange(L)] = 0.0
+    else:
+        pres[0, 6] = 0.0
     f32, b = torch.float32, torch.uint8
 
     def run(o):
@@ -474,8 +490,10 @@ def _locator_case(n: int, s: int, L: int, dev, cuda: bool, rnd) -> Case:
                 t["c1_im"], t["est_re"], t["est_im"], pres, code.s)
             _put(o, v_re=r[0], v_im=r[1], honest=r[2], flagged=r[3],
                  loud=r[4], resid=r[5])
+    absent = ("column c's row c absent (a presence row a column)"
+              if per_column else "row 6 absent")
     return Case(f"L={L} n={n} s={s} ({decode_kernels.locator_instance(n, s)}"
-                f"), row 6 absent",
+                f"), {absent}",
                 {"v_re": ((L, n), f32), "v_im": ((L, n), f32),
                  "honest": ((L, n), b), "flagged": ((L, n), b),
                  "loud": ((L, n), b), "resid": ((L,), f32)}, run)
@@ -743,7 +761,9 @@ def _vote_cases(dev, cuda: bool, rnd) -> list:
 # element still 0 after it poisoned again: a draw is never 0, since the
 # uniform it maps onto (lo, 1) never lands on 0), round_draw at d = 1003
 # and 1002, one and two parts, synthetic_text at n·B = 6 sequences of
-# T = 37
+# T = 37; augment_draws at 5 rows of 3 samples and 6 rows in groups of 3;
+# dropout_keep at 3 rows of 2 layers of (2, 37) units and one layer at 4
+# rows in groups of 2; vote_salts
 def _draw_cases(name: str, dev, cuda: bool, rnd) -> list:
     from draco_tpu_torch.ops import draws
 
@@ -784,6 +804,34 @@ def _draw_cases(name: str, dev, cuda: bool, rnd) -> list:
                         _put(o, out=r.view(torch.int32))
                 cases.append(Case(f"{mode} parts={parts} d={d}",
                                   {"out": ((parts, d), torch.int32)}, run))
+    elif name == "augment_draws":
+        for rows, div, b in ((5, 1, 3), (6, 3, 3)):
+            def run(o, rows=rows, div=div, b=b):
+                if cuda:
+                    draws.augment_draws_launch(step, 430, div, o["out"])
+                else:
+                    _put(o, out=draws.augment_draws_plain(step, 430, rows, b,
+                                                          div))
+            cases.append(Case(f"rows={rows} div={div} B={b}",
+                              {"out": ((3, rows, b), torch.int32)}, run))
+    elif name == "dropout_keep":
+        for rows, count, div in ((3, 2, 1), (4, 1, 2)):
+            def run(o, rows=rows, count=count, div=div):
+                if cuda:
+                    draws.dropout_keep_launch(step, 431, div, o["out"])
+                else:
+                    _put(o, out=draws.dropout_keep_plain(
+                        step, 431, rows, count, 2, 37, div).to(torch.uint8))
+            cases.append(Case(f"rows={rows} layers={count} div={div} 2x37",
+                              {"out": ((rows, count, 2, 37), torch.uint8)},
+                              run))
+    elif name == "vote_salts":
+        def run(o):
+            if cuda:
+                draws.vote_salts_launch(step, 432, o["out"])
+            else:
+                _put(o, out=draws.vote_salts_plain(step, 432))
+        cases.append(Case("(2,)", {"out": ((2,), torch.int32)}, run))
     else:
         n, b, t, vocab = 3, 2, 37, 8192
 

@@ -39,7 +39,13 @@ stochastic rounding, beside it as its twin, ``SR_TWINS``),
 ``majvote_random`` (the vote's gradient rows under the random attack, the
 plain form of ``random_inject``) and ``lm_shared_flash_devgen`` (the LM
 with device tokens and the random attack: a chunk stages K step numbers
-and the masks, no tokens).
+and the masks, no tokens). Four run the tree topology
+(``coding/topology.py``): ``shared_tree_g8`` and ``shared_int8_tree_g8``
+(ResNet-18 ``shared`` at n=16 in two groups of 8, s_g = 1, the adversary
+every step; the f32 and the int8 wire), ``approx_tree_g3`` (preset
+approx-resnet18 at n=9 in three groups of 3) and
+``lm_shared_flash_tree_g4`` (the LM at n=8 in two groups of 4, s_g = 0, no
+adversary).
 """
 
 from __future__ import annotations
@@ -86,6 +92,20 @@ VGG11_CI = dict(num_workers=9)
 LENET = dict(network="LeNet", dataset="synthetic-mnist", approach="baseline",
              mode="normal", num_workers=1, worker_fail=0, batch_size=128)
 LENET_CI = dict(num_workers=1, batch_size=4)
+# the tree topology (coding/topology.py): ResNet-18 shared at n=16 in two
+# groups of 8 (s_g = 1) with the rev_grad adversary; at CI size n=10 in two
+# groups of 5 (the smallest group that keeps s_g = 1)
+TREE16 = dict(approach="cyclic", redundancy="shared", num_workers=16,
+              topology="tree", tree_fanout=8)
+TREE_CI = dict(num_workers=10, tree_fanout=5)
+# preset approx-resnet18 at n=9 in three groups of 3 (n=9 admits no g=4);
+# two groups of 3 at CI size
+APPROX_TREE = dict(APPROX, num_workers=9, topology="tree", tree_fanout=3)
+APPROX_TREE_CI = dict(num_workers=6)
+# the LM in two groups of 4: s_g = 0, no adversary (the reference's LM tree
+# configuration, tests/test_tree.py)
+LM_TREE = dict(approach="cyclic", redundancy="shared", worker_fail=0,
+               adversary_count=0, topology="tree", tree_fanout=4)
 # the LM's AdamW: an Adam-sized rate, the cosine schedule with a 2-step
 # warmup and the global-norm clip at 1
 ADAMW = dict(optimizer="adamw", lr=1e-3, lr_schedule="cosine",
@@ -166,10 +186,11 @@ class Program:
 
 def uploads(cfg) -> dict:
     """The host-to-device copies of one step of ``cfg``, name -> bytes: the
-    batch at the dataset's shape, the augmentation draws on CIFAR and the
-    dropout masks of a network with dropout, one row of each a group on
-    the vote and a worker otherwise."""
-    from draco_tpu_torch.models import dropout_features, input_shape
+    batch at the dataset's shape and its labels, the masks and the step
+    number, which every draw of the step reads on the device
+    (augmentation, dropout, the vote's salts, the random attack, stochastic
+    rounding, the LM's device tokens)."""
+    from draco_tpu_torch.models import input_shape
 
     n, b = cfg.num_workers, cfg.batch_size
     if cfg.network == "TransformerLM":
@@ -177,21 +198,12 @@ def uploads(cfg) -> dict:
         if cfg.token_gen != "device":
             out["tokens (int32)"] = n * b * cfg.seq_len * 4
         return out
-    vote = cfg.approach == "maj_vote"
-    rows = cfg.num_groups if vote else n
     h, w, c = input_shape(cfg.dataset)
     out = {"batch (f32 NHWC)": n * b * h * w * c * 4,
            "labels (int32)": n * b * 4}
-    if "cifar" in cfg.dataset.lower():
-        out["aug_draws (3 int64)"] = 3 * rows * b * 8
-    drop = dropout_features(cfg.network)
-    if drop:
-        out["dropout masks (bool)"] = rows * len(drop) * b * drop[0]
     if cfg.approach != "approx":
         out["adv_mask"] = n
     out["step (int32)"] = 4  # the device draws' step
-    if vote:
-        out["salts (2 int32)"] = 8
     stragglers = cfg.straggle_mode == "drop" and cfg.straggle_count > 0
     if stragglers:
         out["present (bool)"] = n
@@ -408,6 +420,14 @@ PROGRAMS = (
     LintProgram("lm_shared_flash_devgen", "lm",
                 dict(_CYCLIC_SHARED, token_gen="device", err_mode="random"),
                 14.5),
+    # the tree topology: one locator launch over the groups' columns, each
+    # with its group's presence; the f32 and the int8 wire; the approx
+    # code's groups; the LM's groups
+    LintProgram("shared_tree_g8", "cnn", TREE16, 9.0, ci=TREE_CI),
+    LintProgram("shared_int8_tree_g8", "cnn", dict(TREE16, wire_dtype="int8"),
+                9.0, ci=TREE_CI),
+    LintProgram("approx_tree_g3", "cnn", APPROX_TREE, 5.0, ci=APPROX_TREE_CI),
+    LintProgram("lm_shared_flash_tree_g4", "lm", LM_TREE, 14.5),
 )
 
 # each segmented leg's S = 1, global-granularity twin

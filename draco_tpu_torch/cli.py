@@ -101,6 +101,8 @@ FLAGS = {
     "--shadow-round": (str, "shadow_round"),
     "--wire-segments": (int, "wire_segments"),
     "--topology": (str, "topology"),
+    "--tree-fanout": (int, "tree_fanout"),
+    "--tree-levels": (int, "tree_levels"),
     "--train-dir": (str, "train_dir"),
     "--log-every": (int, "log_every"),
     "--seed": (int, "seed"),

@@ -19,10 +19,11 @@ predict, no salt-oblivious forgery is known; an adversary who knows the
 salts can forge one, and ``exact`` has no collision surface at all.
 
 The salts are an explicit (2,) int32 input (``ops.vote.salts_tensor``):
-the training step draws them on the host from ``rng.generator(seed + 4,
-step)``; None takes the reference's public constants. The plain version
-here computes in int64 masked to 32 bits after every step (PyTorch has no
-uint32 shift, add or sum).
+the training step draws the reference's, ``bits(fold(key(seed + 4),
+step), (2,))``, on the device from the staged step
+(``ops/draws.vote_salts``); None takes the reference's public constants.
+The plain version here computes in int64 masked to 32 bits after every
+step (PyTorch has no uint32 shift, add or sum).
 """
 
 from __future__ import annotations

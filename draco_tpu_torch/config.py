@@ -21,6 +21,8 @@ import math
 from typing import Optional
 
 from draco_tpu_torch.coding.assignment import build_assignment
+from draco_tpu_torch.coding.topology import (TOPOLOGIES, group_worker_fail,
+                                             tree_plan)
 from draco_tpu_torch.obs.numerics import WIRE_DTYPES, wire_rel_tol
 from draco_tpu_torch.ops.flash_attention import MAX_DH
 from draco_tpu_torch.optim import OPTIMIZERS, SCHEDULES
@@ -119,8 +121,18 @@ class TrainConfig:
     # .wire_segment_bounds), each decoded on its own and their verdicts
     # folded to one a step (cyclic, approx); on maj_vote the wire only
     wire_segments: int = 1
+    # --- the tree topology (coding/topology.py): topology="tree" splits
+    # the workers into n / tree_fanout leaf groups of fan-in g, each
+    # running one small code (cyclic at s_g = min(worker_fail, (g - 1) //
+    # 4), approx at code_redundancy), their decoded partials combined
+    # level by level; cyclic/approx, shared redundancy, global decode
+    # granularity; composes with wire_dtype and wire_segments ---
+    topology: str = "flat"  # flat | tree
+    tree_fanout: int = 4  # leaf-group size g (must divide num_workers)
+    # total tree levels including the leaf level; 0 = auto
+    # (1 + ceil(log_g(n/g)), coding/topology.auto_levels)
+    tree_levels: int = 0
     # --- options of the reference the port rejects for now ---
-    topology: str = "flat"
     seq_shards: int = 1
     tensor_shards: int = 1
     pipeline_shards: int = 1
@@ -170,6 +182,12 @@ class TrainConfig:
     @property
     def num_groups(self) -> int:
         return self.num_workers // self.group_size
+
+    @property
+    def tree_group_fail(self) -> int:
+        """The tree's per-group cyclic budget s_g = min(worker_fail,
+        (tree_fanout - 1) // 4)."""
+        return group_worker_fail(self.tree_fanout, self.worker_fail)
 
     @property
     def num_adversaries(self) -> int:
@@ -232,15 +250,15 @@ class TrainConfig:
             raise ValueError(
                 "wire_segments > 1 requires a coded approach "
                 f"(cyclic|maj_vote|approx), got {self.approach!r}")
-        if self.topology != "flat":
-            raise ValueError(f"topology={self.topology!r} is not ported yet")
+        self._validate_topology()
         if self.approach != "baseline" and \
                 self.num_workers > MAX_CODED_WORKERS:
             raise ValueError(
                 f"approach={self.approach!r} takes at most "
                 f"{MAX_CODED_WORKERS} workers (the coded kernels' block "
                 f"width), got num_workers={self.num_workers}")
-        if self.approach == "cyclic" and self.num_workers <= 4 * self.worker_fail:
+        if (self.approach == "cyclic" and self.topology == "flat"
+                and self.num_workers <= 4 * self.worker_fail):
             raise ValueError(
                 f"cyclic code needs n > 4s (got n={self.num_workers}, "
                 f"s={self.worker_fail})")
@@ -281,6 +299,42 @@ class TrainConfig:
             raise ValueError(
                 "warmup_steps > 0 has no effect with lr_schedule=constant — "
                 "set --lr-schedule cosine (or drop --warmup-steps)")
+
+    def _validate_topology(self) -> None:
+        """The reference's tree checks (draco_tpu/config.py)."""
+        if self.topology not in TOPOLOGIES:
+            raise ValueError(f"topology must be one of "
+                             f"{'|'.join(TOPOLOGIES)}, got {self.topology!r}")
+        if self.topology != "tree":
+            return
+        if self.approach not in ("cyclic", "approx"):
+            raise ValueError(
+                "topology='tree' supports the algebraic code families "
+                f"(cyclic|approx), got approach={self.approach!r} — "
+                "maj_vote's repetition groups are already a one-level tree "
+                "of constant fan-in 2s+1")
+        if self.redundancy != "shared":
+            raise ValueError(
+                "topology='tree' requires redundancy='shared': each leaf "
+                "group's code mixes its own batch rows in place (the "
+                "simulate lanes have no per-group shape)")
+        if self.decode_granularity != "global":
+            raise ValueError(
+                "topology='tree' requires decode_granularity='global' — the "
+                "tree already partitions the locator per group (compose "
+                "with --wire-segments instead)")
+        # divisibility, the group count, the levels' feasibility
+        tree_plan(self.num_workers, self.tree_fanout, self.tree_levels)
+        if self.approach == "cyclic":
+            s_g = self.tree_group_fail
+            if self.num_adversaries > s_g:
+                # worst case every adversary lands in one leaf group
+                raise ValueError(
+                    f"tree per-group budget exceeded: adversary_count="
+                    f"{self.num_adversaries} > s_g={s_g} (= min(worker_fail, "
+                    f"(tree_fanout-1)//4) — raise tree_fanout past "
+                    f"{4 * self.num_adversaries} or reduce the adversary "
+                    f"load)")
 
     def _validate_run_state(self) -> None:
         """The reference's checks of the prefetch, checkpoint and resume
@@ -377,6 +431,11 @@ class TrainConfig:
         if e <= 0:
             return
         s, t, n = self.worker_fail, self.num_adversaries, self.num_workers
+        tree = self.topology == "tree"
+        if tree:
+            # the per-group budget: every straggler and adversary may land
+            # in one leaf group
+            s = self.tree_group_fail
         if self.approach == "maj_vote":
             if e >= self.group_size:
                 raise ValueError(
@@ -409,7 +468,8 @@ class TrainConfig:
         if self.approach == "cyclic" and not (
                 (t == 0 and e <= 2 * s) or t + e <= s):
             raise ValueError(
-                f"cyclic straggler budget exceeded: need adversary_count + "
+                f"cyclic {'per-group (tree) ' if tree else ''}straggler "
+                f"budget exceeded: need adversary_count + "
                 f"straggle_count <= s ({t}+{e} <= {s}), or adversary_count "
                 f"== 0 with straggle_count <= 2*s ({e} <= {2 * s})")
         if self.approach == "approx" and e > math.ceil(
@@ -429,14 +489,17 @@ class TrainConfig:
                 raise ValueError(
                     "wire_dtype != f32 requires a coded approach "
                     f"(cyclic|maj_vote|approx), got {self.approach!r}")
+            # the tree decodes a group at a time: the threshold at the
+            # group shape (fan-in, s_g)
+            wn, ws = ((self.tree_fanout, self.tree_group_fail)
+                      if self.topology == "tree"
+                      else (self.num_workers, self.worker_fail))
             if self.approach == "cyclic" and not wire_rel_tol(
-                    self.num_workers, self.worker_fail,
-                    self.wire_dtype) < 1.0:
+                    wn, ws, self.wire_dtype) < 1.0:
                 raise ValueError(
-                    f"no usable narrow-wire flag threshold at (n="
-                    f"{self.num_workers}, s={self.worker_fail}, "
-                    f"{self.wire_dtype}) — route the narrow wire through "
-                    f"approach=approx")
+                    f"no usable narrow-wire flag threshold at (n={wn}, "
+                    f"s={ws}, {self.wire_dtype}) — route the narrow wire "
+                    f"through approach=approx")
         if self.shadow_round not in ("nearest", "stochastic"):
             raise ValueError(f"shadow_round must be nearest|stochastic, got "
                              f"{self.shadow_round!r}")

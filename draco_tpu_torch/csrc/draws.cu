@@ -30,7 +30,7 @@
 // step's numbers. The key chain is recomputed by every thread: three
 // threefry calls against thousands a thread in the loop.
 //
-// Three entry points:
+// Six entry points:
 //   random_inject   the random attack on the rows whose device mask is set:
 //                   the cyclic pair (kr, ki = split(key)) adds magnitude ·
 //                   normal to both parts in place, the plain form writes
@@ -43,6 +43,15 @@
 //   synthetic_text  the device token stream: start ∈ [0, vocab) and
 //                   stride ∈ [1, 3) a sequence (counter: the sequence's
 //                   index), tokens (start + stride · t) % vocab, int32
+//   augment_draws   the training step's augmentation draws: sample b of
+//                   row r draws top, left = randint(0, 9) and flip =
+//                   uniform < 0.5 from the three keys of split(split(
+//                   fold_in(key, r / div), batch)[b], 3), int32
+//   dropout_keep    the keep-masks of a model's nn.Dropout layers: unit j
+//                   of layer m of row r is uniform < keep at counter j of
+//                   fold_in(fold_in(key, r / div), h_m), h_m the uint32
+//                   of Flax's static fold of ("Dropout_m", 1), one byte
+//   vote_salts      the vote's two fingerprint salts: bits(key, (2,))
 //
 // What bounds it on an H100: integer operations. A draw is one threefry
 // (20 rounds of an add, a funnel shift and a xor, 5 key injections of
@@ -230,6 +239,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// out: (3, rows, batch) int32, one thread a sample: top and left in
+// [0, 2·pad], the flip bit
+__global__ void __launch_bounds__(kThreads)
+    augment_draws_kernel(int* __restrict__ out, const int* __restrict__ step,
+                         uint32_t seed, int rows, int div, int batch,
+                         int span) {
+  const long long total = (long long)rows * batch;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int r = (int)(i / batch), b = (int)(i - (long long)r * batch);
+  const Key key = fold_in(fold_in(Key{0u, seed}, (uint32_t)__ldg(step)),
+                          (uint32_t)(r / div));
+  const Key ks = fold_in(key, (uint32_t)b);  // split(key, batch)[b]
+  out[i] = randint_at(fold_in(ks, 0u), 0ull, 0, span);
+  out[total + i] = randint_at(fold_in(ks, 1u), 0ull, 0, span);
+  out[2 * total + i] = uniform_of(bits_at(fold_in(ks, 2u), 0ull)) < 0.5f;
+}
+
+// out: (rows · count, units) bytes, one grid row a (row, layer): 1 where
+// the unit is kept
+__global__ void __launch_bounds__(kThreads)
+    dropout_keep_kernel(unsigned char* __restrict__ out,
+                        const int* __restrict__ step, uint32_t seed, int div,
+                        int count, uint32_t h0, uint32_t h1, long long units,
+                        float keep) {
+  const int rm = blockIdx.y;
+  const int r = rm / count, m = rm - r * count;
+  const Key key = fold_in(fold_in(fold_in(Key{0u, seed},
+                                          (uint32_t)__ldg(step)),
+                                  (uint32_t)(r / div)),
+                          m == 0 ? h0 : h1);
+  unsigned char* o = out + (unsigned long long)rm * units;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       j < units; j += stride)
+    o[j] = uniform_of(bits_at(key, (unsigned long long)j)) < keep;
+}
+
+// out: the two salts' bits, int32
+__global__ void __launch_bounds__(32)
+    vote_salts_kernel(int* __restrict__ out, const int* __restrict__ step,
+                      uint32_t seed) {
+  const Key key = fold_in(Key{0u, seed}, (uint32_t)__ldg(step));
+  if (threadIdx.x < 2) out[threadIdx.x] = (int)bits_at(key, threadIdx.x);
+}
+
 // out: rows sequences of T int32 tokens, one block a sequence
 __global__ void __launch_bounds__(kTextThreads)
     synthetic_text_kernel(int* __restrict__ out, const int* __restrict__ step,
@@ -261,6 +316,11 @@ const draco_audit::Entry kAudit[] = {
      nullptr, 0},
     {"synthetic_text_kernel", (const void*)synthetic_text_kernel, kTextThreads,
      nullptr, 0},
+    {"augment_draws_kernel", (const void*)augment_draws_kernel, kThreads,
+     nullptr, 0},
+    {"dropout_keep_kernel", (const void*)dropout_keep_kernel, kThreads,
+     nullptr, 0},
+    {"vote_salts_kernel", (const void*)vote_salts_kernel, 32, nullptr, 0},
 };
 
 }  // namespace
@@ -313,6 +373,43 @@ int draco_synthetic_text(void* out, const void* step, unsigned seed, int rows,
   if (rows < 1 || T < 1) return (int)cudaGetLastError();
   synthetic_text_kernel<<<rows, kTextThreads, 0, st>>>(
       (int*)out, (const int*)step, seed, T, vocab);
+  return (int)cudaGetLastError();
+}
+
+// out: (3, rows, batch) int32; a row's key folds r / div (div: the
+// vote's group size, else 1); span: 2·pad + 1
+int draco_augment_draws(void* out, const void* step, unsigned seed, int rows,
+                        int div, int batch, int span, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (div < 1 || span < 1) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)rows * batch;
+  if (total < 1) return (int)cudaGetLastError();
+  augment_draws_kernel<<<(unsigned)((total + kThreads - 1) / kThreads),
+                         kThreads, 0, st>>>((int*)out, (const int*)step, seed,
+                                            rows, div, batch, span);
+  return (int)cudaGetLastError();
+}
+
+// out: (rows, count, units) bytes, count 1 or 2 with the layers' hashes
+// h0, h1
+int draco_dropout_keep(void* out, const void* step, unsigned seed, int rows,
+                       int div, int count, unsigned h0, unsigned h1,
+                       long long units, float keep, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (div < 1 || count < 1 || count > 2) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || units < 1) return (int)cudaGetLastError();
+  dim3 grid(tiles_for(units), rows * count);
+  dropout_keep_kernel<<<grid, kThreads, 0, st>>>(
+      (unsigned char*)out, (const int*)step, seed, div, count, h0, h1, units,
+      keep);
+  return (int)cudaGetLastError();
+}
+
+// out: (2,) int32
+int draco_vote_salts(void* out, const void* step, unsigned seed,
+                     void* stream) {
+  vote_salts_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (int*)out, (const int*)step, seed);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,8 @@
 reflect-pad 4, random 32×32 crop, random horizontal flip.
 
 The reference draws (top, left, flip) per sample from a JAX key inside the
-step. Here the draws are explicit tensors, so a test can hand the port the
-reference's own draws; :func:`draw` makes them from a ``torch.Generator``.
+step; the port draws the same numbers on the device
+(``ops/draws.augment_draws``) and :func:`augment` applies them.
 """
 
 from __future__ import annotations
@@ -11,15 +11,6 @@ from __future__ import annotations
 import torch
 
 PAD = 4
-
-
-def draw(shape, generator: torch.Generator, pad: int = PAD):
-    """Per-sample draws for a batch of leading ``shape``: (top, left) in
-    [0, 2·pad] and a flip flag, each int64 of ``shape``."""
-    top = torch.randint(0, 2 * pad + 1, shape, generator=generator)
-    left = torch.randint(0, 2 * pad + 1, shape, generator=generator)
-    flip = torch.randint(0, 2, shape, generator=generator)
-    return top, left, flip
 
 
 def _reflect(i: torch.Tensor, size: int) -> torch.Tensor:

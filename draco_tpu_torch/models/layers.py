@@ -26,13 +26,14 @@ Every model's ``forward(..., train=False)`` runs that way, and without
 dropout.
 
 Dropout takes its keep-mask as an input (``dropout``): the training step
-draws the masks on the host per global batch row, so every lane that
-computes a batch drops the same units, and a captured step reads them from
-its staging buffers.
+draws the masks on the device per global batch row from the reference's
+key chain (``ops/draws.dropout_keep``), so every lane that computes a
+batch drops the same units, the reference's units.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -146,18 +147,35 @@ def init_stats(model: nn.Module) -> dict:
 
 
 @torch.no_grad()
-def init_params(model: nn.Module, generator: torch.Generator) -> None:
-    """Flax's default initialisers from a seeded generator: LeCun-normal
-    (truncated at ±2σ, variance 1/fan_in) kernels, zero biases, unit BN
-    scale. Same distributions as the reference, other numbers."""
-    for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
-            w = mod.weight
-            fan_in = w[0].numel()
-            # std of the truncated normal on [-2, 2] is 0.87962566 of the
-            # untruncated one; Flax rescales so the variance is 1/fan_in
-            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
-            if getattr(mod, "bias", None) is not None:
-                mod.bias.zero_()
+def init_params(model: nn.Module, seed: int) -> None:
+    """The reference's ``model.init`` with ``{"params": key(seed)}``, leaf
+    for leaf, on the parameters' device: each kernel (a convolution's or a
+    Dense layer's) Flax's LeCun normal (truncated at ±2, variance 1/fan_in,
+    fan_in read in the JAX layout), each ``Embed`` table its normal of
+    variance 1/dim, each drawn from its module's key (``rng.param_key`` of
+    the module path, which is the Flax path) in the JAX layout and carried
+    to the port's; zero biases, unit norm scales."""
+    from draco_tpu_torch import params as params_mod
+    from draco_tpu_torch import rng
+
+    for path, mod in model.named_modules():
+        weight = getattr(mod, "weight", None)
+        if isinstance(weight, torch.Tensor):
+            if isinstance(mod, (nn.Conv2d, nn.Linear, nn.Embedding)):
+                # the layout map of params.leaf_role: OIHW <-> HWIO,
+                # (out, in) <-> (in, out), an embedding table as it is
+                _, kind = params_mod.leaf_role(mod, "weight")
+                jshape = params_mod.to_jax_layout(
+                    torch.empty(weight.shape, device="meta"), kind).shape
+                embed = isinstance(mod, nn.Embedding)
+                fan_in = jshape[-1] if embed else int(
+                    np.prod(jshape[:-1], dtype=np.int64))
+                leaf = rng.init_leaf(seed, path.split("."), jshape,
+                                     "embed" if embed else "lecun", fan_in,
+                                     weight.device)
+                weight.copy_(params_mod.from_jax_layout(leaf, kind))
+            else:
+                weight.fill_(1.0)  # a norm's scale
+        bias = getattr(mod, "bias", None)
+        if isinstance(bias, torch.Tensor):
+            bias.zero_()

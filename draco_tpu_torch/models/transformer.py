@@ -23,13 +23,14 @@ out as Flax's (in, out).
 from __future__ import annotations
 
 import functools
-import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from draco_tpu_torch.models.layers import init_params  # noqa: F401
 
 LN_EPS = 1e-6  # Flax nn.LayerNorm's default (torch's is 1e-5)
 
@@ -149,30 +150,3 @@ class TransformerLM(nn.Module):
         x = self.final_ln(x)
         # weight-tied logits in float32
         return x.to(torch.float32) @ self.embed.weight.t()
-
-
-@torch.no_grad()
-def init_params(model: TransformerLM, generator: torch.Generator) -> None:
-    """Flax's default initialisers from a seeded generator: LeCun-normal
-    Dense kernels (truncated at ±2σ, variance 1/fan_in), zero biases, unit
-    LayerNorm scales, and the ``Embed`` default (an untruncated normal of
-    variance 1/dim). Same distributions as the reference, other numbers.
-    Draws on the generator's device, in module order."""
-    for mod in model.modules():
-        if isinstance(mod, Dense):
-            _lecun(mod.weight, mod.weight.shape[1], generator)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, LayerNorm):
-            mod.weight.fill_(1.0)
-        elif isinstance(mod, nn.Embedding):
-            mod.weight.normal_(0.0, math.sqrt(1.0 / mod.weight.shape[1]),
-                               generator=generator)
-
-
-def _lecun(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    # std of the truncated normal on [-2, 2] is 0.87962566 of the
-    # untruncated one; Flax rescales so the variance is 1/fan_in
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)

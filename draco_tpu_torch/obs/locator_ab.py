@@ -168,7 +168,7 @@ def phase_cycles(lib, code, e_re, e_im, pres, rel_tol) -> tuple:
             *(t[k].data_ptr() for k in ("c2h_re", "c2h_im", "c1_re",
                                         "c1_im", "est_re", "est_im")),
             pres.data_ptr(), *(o.data_ptr() for o in outs), L, n, code.s,
-            cyclic.linalg_mod.JACOBI_SWEEPS, cyclic.LOCATOR_RCOND ** 2, 0.0,
+            0, cyclic.linalg_mod.JACOBI_SWEEPS, cyclic.LOCATOR_RCOND ** 2, 0.0,
             0.0, 0.0, 1e-3 / n, rel_tol ** 2, cyclic.LOUD_REL_TOL,
             cyclic.SPREAD_PHI,
             torch.cuda.current_stream(e_re.device).cuda_stream)
@@ -228,7 +228,8 @@ def _old_launch(code, e_re_l, e_im_l, pres_f, rel_tol, lam, v_re, v_im,
         e_re_l.data_ptr(), e_im_l.data_ptr(), *(x.data_ptr() for x in c),
         pres_f.data_ptr(), v_re.data_ptr(), v_im.data_ptr(),
         honest.data_ptr(), flagged.data_ptr(), loud.data_ptr(),
-        resid.data_ptr(), L, n, code.s, cyclic_mod.linalg_mod.JACOBI_SWEEPS,
+        resid.data_ptr(), L, n, code.s, 0,
+        cyclic_mod.linalg_mod.JACOBI_SWEEPS,
         cyclic_mod.LOCATOR_RCOND ** 2, lam, lam * lam, 2.0 * lam,
         1e-3 / n, rel_tol ** 2, cyclic_mod.LOUD_REL_TOL,
         cyclic_mod.SPREAD_PHI, torch.cuda.current_stream(dev).cuda_stream)

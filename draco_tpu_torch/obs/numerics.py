@@ -213,14 +213,17 @@ def widen_wire_cols(buf: dict, mode: str, block: int, a: int,
     return q.float() * wide
 
 
-def wire_decode_params(cfg):
+def wire_decode_params(cfg, n=None, s=None):
     """(rel_tol, lam) of the cyclic decode at ``cfg``'s wire dtype:
     (None, 0.0) on the f32 wire, where the caller keeps HEALTH_REL_TOL and
     the exact λ = 0 solve; else the table's threshold at (num_workers,
-    worker_fail) and the dtype's locator λ."""
+    worker_fail) — or at (``n``, ``s``), the tree's group shape (fan-in,
+    s_g) — and the dtype's locator λ."""
     if cfg.wire_dtype == "f32":
         return None, 0.0
-    return (wire_rel_tol(cfg.num_workers, cfg.worker_fail, cfg.wire_dtype),
+    n = cfg.num_workers if n is None else n
+    s = cfg.worker_fail if s is None else s
+    return (wire_rel_tol(n, s, cfg.wire_dtype),
             wire_locator_lambda(cfg.wire_dtype))
 
 

@@ -3,7 +3,7 @@ processes: an A/B of a change against its parent on one card.
 
     python -m draco_tpu_torch.obs.step_ab --trees PARENT CHANGE
         [--pairs 10] [--legs shared,approx,shared_bf16,lm_shared_flash]
-        [--steps 10] [--out FILE] [--device cpu --ci]
+        [--steps 10] [--chunk K] [--out FILE] [--device cpu --ci]
 
 Each round runs one process per tree, the order alternating (A B, then
 B A, ...) so that slow drift of the host falls on both alike. A process
@@ -12,7 +12,12 @@ width through the entry points a user calls (``Trainer``, or
 ``build_sp_train_setup`` and ``TokenLoop``) with the configurations of
 ``analysis/registry.py``, takes two warm-up steps and times ``--steps``
 calls of ``step()`` on the host clock (each ends in the metric reads,
-which wait for the card). No profiler runs in these processes.
+which wait for the card). With ``--chunk K`` it runs the chunked loop
+instead (``steps_per_call`` K: on the card a captured step replayed K
+times): two warm-up chunks (the first captures), then ``--steps`` chunks,
+each assembled and dispatched through the loop's engine client and timed
+to its block's fetch, reported a step (chunk ms / K). No profiler runs in
+these processes.
 ``--device cpu --ci`` runs the legs at the registry's CI size on the CPU,
 to check the script itself.
 
@@ -79,9 +84,28 @@ def _count_spans(tr, runner, trace_dir: str) -> dict:
             "loop_spans": sum(n not in tr.PHASES for n in names)}
 
 
-def child(tree: str, legs: list, steps: int, device: str) -> dict:
+def _chunk_ms(runner, chunks: int) -> list:
+    """ms a step of ``chunks`` timed chunks after WARMUP chunks, through
+    the runner's engine client, each timed to its block's fetch."""
+    client = runner.chunk_client(1, runner.cfg.max_steps)
+    ms = []
+    try:
+        for i in range(WARMUP + chunks):
+            t0 = time.perf_counter()
+            chunk = client.assemble(i, client.ranges)
+            runner.state, block = client.dispatch(runner.state, chunk)
+            block.cpu()
+            if i >= WARMUP:
+                ms.append((time.perf_counter() - t0) * 1e3 / chunk.k)
+    finally:
+        client.cleanup()
+    return ms
+
+
+def child(tree: str, legs: list, steps: int, device: str,
+          chunk: int = 0) -> dict:
     """Time ``legs`` ([name, route, config fields]) with the package of
-    ``tree`` on ``device``."""
+    ``tree`` on ``device``: eager steps, or chunks of ``chunk`` steps."""
     sys.path[0] = os.path.abspath(tree)  # not this file's directory
     import torch
 
@@ -96,7 +120,12 @@ def child(tree: str, legs: list, steps: int, device: str) -> dict:
     out = {"tree": tree, "legs": {}, "spans": {}}
     dataset = None
     for name, route, fields in legs:
-        cfg = TrainConfig(**fields, max_steps=WARMUP + steps + 1).validate()
+        if chunk:
+            cfg = TrainConfig(**fields, max_steps=(WARMUP + steps) * chunk,
+                              steps_per_call=chunk).validate()
+        else:
+            cfg = TrainConfig(**fields,
+                              max_steps=WARMUP + steps + 1).validate()
         if route == "cnn":
             from draco_tpu_torch.data.datasets import load_dataset
             from draco_tpu_torch.training.trainer import Trainer
@@ -112,6 +141,12 @@ def child(tree: str, legs: list, steps: int, device: str) -> dict:
 
             runner = TokenLoop(build_sp_train_setup(cfg, dev), cfg,
                                quiet=True)
+        if chunk:
+            out["legs"][name] = _chunk_ms(runner, steps)
+            del runner
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            continue
         for _ in range(WARMUP):
             runner.step()
         ms = []
@@ -132,11 +167,12 @@ def child(tree: str, legs: list, steps: int, device: str) -> dict:
     return out
 
 
-def _run_child(tree: str, legs: list, steps: int, device: str) -> dict:
+def _run_child(tree: str, legs: list, steps: int, device: str,
+               chunk: int = 0) -> dict:
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--child", tree,
          "--spec", json.dumps(legs), "--steps", str(steps), "--device",
-         device],
+         device, "--chunk", str(chunk)],
         cwd=tree, capture_output=True, text=True, timeout=900)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(MARK)]
     if proc.returncode or not lines:
@@ -186,6 +222,8 @@ def main(argv=None) -> int:
                     help="timed steps a leg and process, after 2 warm-ups")
     ap.add_argument("--out", default="")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="time chunks of K steps (0: eager steps)")
     ap.add_argument("--ci", action="store_true",
                     help="the registry's CI size (a check on the CPU)")
     ap.add_argument("--child", default="", help=argparse.SUPPRESS)
@@ -193,7 +231,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.child:
         print(MARK + json.dumps(child(args.child, json.loads(args.spec),
-                                      args.steps, args.device)), flush=True)
+                                      args.steps, args.device, args.chunk)),
+              flush=True)
         return 0
     if not args.trees:
         ap.error("--trees A B is required")
@@ -204,7 +243,8 @@ def main(argv=None) -> int:
     for i in range(args.pairs):
         for t in (trees if i % 2 == 0 else trees[::-1]):
             t0 = time.perf_counter()
-            runs.append(_run_child(t, legs, args.steps, args.device))
+            runs.append(_run_child(t, legs, args.steps, args.device,
+                                   args.chunk))
             ms = {n: statistics.fmean(runs[-1]["legs"][n]) for n in names}
             print(f"round {i + 1} {os.path.basename(t)}: "
                   + ", ".join(f"{n} {v:.2f}" for n, v in ms.items())
@@ -235,7 +275,8 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"trees": trees, "legs": names, "steps": args.steps,
-                       "runs": runs, "table": table}, f, indent=1)
+                       "chunk": args.chunk, "runs": runs, "table": table},
+                      f, indent=1)
     return 0
 
 

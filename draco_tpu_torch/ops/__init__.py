@@ -31,6 +31,10 @@ KERNELS = {
     "random_inject": draws.random_inject,
     "round_draw": draws.round_draw,
     "synthetic_text": draws.synthetic_text,
+    # the training step's draws: augmentation, dropout, the vote's salts
+    "augment_draws": draws.augment_draws,
+    "dropout_keep": draws.dropout_keep,
+    "vote_salts": draws.vote_salts,
 }
 CONTROLS = {
     "control_mistiled_copy": controls.control_mistiled_copy,

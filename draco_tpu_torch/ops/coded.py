@@ -64,20 +64,35 @@ def _stream() -> int:
 # encode
 # --------------------------------------------------------------------------
 
-def complex_matmul_plain(w_re, w_im, g):
-    return w_re @ g, w_im @ g
+def complex_matmul_plain(w_re, w_im, g, out=None):
+    if out is None:
+        return w_re @ g, w_im @ g
+    torch.matmul(w_re, g, out=out[0])
+    torch.matmul(w_im, g, out=out[1])
+    return out
 
 
-def complex_matmul(w_re, w_im, g):
-    """(Wr + i·Wi) @ G for real G: W (m, n), G (n, d) -> (re, im), (m, d)."""
-    if not _on_cuda(g, w_re, w_im):
-        return complex_matmul_plain(w_re, w_im, g)
+def complex_matmul(w_re, w_im, g, out=None):
+    """(Wr + i·Wi) @ G for real G: W (m, n), G (n, d) -> (re, im), (m, d).
+    ``out``: an (re, im) pair of contiguous (m, d) tensors to write into
+    (the tree's encode writes each group's rows in place)."""
+    if not _on_cuda(g, w_re, w_im, *(out or ())):
+        return complex_matmul_plain(w_re, w_im, g, out)
     (m, n), d = w_re.shape, g.shape[1]
     if w_im.shape != (m, n) or g.shape[0] != n or n > 64 or m > 64:
         raise ValueError(f"complex_matmul: W {tuple(w_re.shape)} / "
                          f"{tuple(w_im.shape)}, G {tuple(g.shape)} (n, m <= 64)")
-    out_re = torch.empty((m, d), dtype=torch.float32, device=g.device)
-    out_im = torch.empty_like(out_re)
+    if out is None:
+        out_re = torch.empty((m, d), dtype=torch.float32, device=g.device)
+        out_im = torch.empty_like(out_re)
+    else:
+        out_re, out_im = out
+        if out_re.shape != (m, d) or out_im.shape != (m, d) \
+                or out_re.dtype != torch.float32 \
+                or out_im.dtype != torch.float32:
+            raise ValueError(f"complex_matmul: out {tuple(out_re.shape)} / "
+                             f"{tuple(out_im.shape)}, expected ({m}, {d}) "
+                             f"float32")
     complex_matmul_launch(w_re, w_im, g, out_re, out_im)
     complex_matmul.launches += 1
     return out_re, out_im

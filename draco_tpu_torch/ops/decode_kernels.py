@@ -65,8 +65,9 @@ def cyclic_locator(code, e_re_l, e_im_l, pres_f, rel_tol: float,
                    lam: float = 0.0):
     """(L, n) projected-column stack -> ``(v_re, v_im, honest, flagged,
     loud, residual)`` of :func:`~draco_tpu_torch.coding.cyclic.locator_core`:
-    the first five (L, n), ``residual`` (L,). ``pres_f``: (1, n) f32
-    presence shared by every column."""
+    the first five (L, n), ``residual`` (L,). ``pres_f``: f32 presence,
+    (1, n) shared by every column or (L, n) a row a column (the tree
+    topology's groups: each column its own group's arrivals)."""
     dev = e_re_l.device
     if resolve_decode_impl("auto", dev) == "plain":
         from draco_tpu_torch.coding import cyclic as cyclic_mod
@@ -83,7 +84,7 @@ def cyclic_locator(code, e_re_l, e_im_l, pres_f, rel_tol: float,
         if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("cyclic_locator takes contiguous float32 tensors "
                              f"on one device; got {x.dtype} on {x.device}")
-    if e_im_l.shape != (L, n) or pres_f.shape != (1, n):
+    if e_im_l.shape != (L, n) or pres_f.shape not in ((1, n), (L, n)):
         raise ValueError(f"cyclic_locator: e {tuple(e_re_l.shape)} / "
                          f"{tuple(e_im_l.shape)}, pres {tuple(pres_f.shape)}")
     v_re, v_im = torch.empty((2, L, n), dtype=torch.float32,
@@ -149,7 +150,9 @@ def cyclic_locator_launch(code, e_re_l, e_im_l, pres_f, rel_tol, lam, v_re,
     err = fn(e_re_l.data_ptr(), e_im_l.data_ptr(), *consts,
              pres_f.data_ptr(), v_re.data_ptr(), v_im.data_ptr(),
              honest.data_ptr(), flagged.data_ptr(), loud.data_ptr(),
-             resid.data_ptr(), L, n, code.s, sweeps, rcond2, lam, lam * lam,
+             resid.data_ptr(), L, n, code.s,
+             # the presence's row stride: 0 shared, n a row a column
+             0 if pres_f.shape[0] == 1 else n, sweeps, rcond2, lam, lam * lam,
              2.0 * lam, 1e-3 / n, rel_tol ** 2, loud_tol, phi,
              torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, "cyclic_locator")

@@ -3,12 +3,14 @@ attack injection -> coded decode or robust aggregation -> optimizer update,
 and the metric schema both the CNN step and the LM step emit.
 
 The port's slice: the cyclic code (``simulate`` and ``shared``) with the
-global or the layer-granularity decode, the approx code (flat), the f32 or
-the narrow bf16/int8 wire, whole or in segments (``wire_segments``),
-stragglers as a presence mask, and the baseline's seven robust rules
-(``aggregation.py``). The LM route runs the cyclic and baseline codes with
-every row present on the f32 wire (``config.validate``); the repetition
-code is the CNN step's (``training/step.py``). The reference's packed
+global or the layer-granularity decode, the approx code, each flat or on
+the tree topology (``topology="tree"``, ``coding/topology.py``: shared
+redundancy, global granularity), the f32 or the narrow bf16/int8 wire,
+whole or in segments (``wire_segments``), stragglers as a presence mask,
+and the baseline's seven robust rules (``aggregation.py``). The LM route
+runs the cyclic code (flat or tree) and the baseline codes with every row
+present on the f32 wire (``config.validate``); the repetition code is the
+CNN step's (``training/step.py``). The reference's packed
 forensics columns, numerics observatory and step guard are not ported yet.
 
 The cyclic decode's dispatch, one for both steps (``decode_bounds`` and
@@ -28,6 +30,7 @@ from draco_tpu_torch import aggregation, attacks
 from draco_tpu_torch.coding import approx as approx_mod
 from draco_tpu_torch.coding import cyclic as cyclic_mod
 from draco_tpu_torch.coding import repetition
+from draco_tpu_torch.coding import topology
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.obs.tracer import phase
 
@@ -51,8 +54,11 @@ APPROX_HEALTH_NAMES = ("decode_residual", "decode_residual_bound",
 
 
 def build_code_from_cfg(cfg):
-    """The CyclicCode for approach="cyclic", the ApproxCode for "approx",
+    """The CyclicCode for approach="cyclic", the ApproxCode for "approx" —
+    under ``topology="tree"`` the TreeCode of the one small group code —
     the RepetitionCode for "maj_vote", None for the baseline."""
+    if cfg.approach in ("cyclic", "approx") and cfg.topology == "tree":
+        return topology.build_tree_code(cfg)
     if cfg.approach == "maj_vote":
         return repetition.build_repetition_code(cfg.num_workers,
                                                 cfg.group_size)
@@ -62,6 +68,32 @@ def build_code_from_cfg(cfg):
         return approx_mod.build_approx_code(
             cfg.num_workers, cfg.code_redundancy, cfg.assignment_scheme)
     return None
+
+
+def encode_shared(code, batch_grads: torch.Tensor):
+    """The cyclic ``shared`` encode of the (n, d) batch gradients: the flat
+    code's masked W, or the tree's block-diagonal one."""
+    if topology.is_tree(code):
+        return topology.encode_tree(code, batch_grads)
+    return cyclic_mod.encode_shared(code, batch_grads)
+
+
+def host_solve(code, present=None):
+    """The approx decode's host half (``coding.approx.host_solve``), the
+    tree's group by group (``coding.topology.host_solve``)."""
+    if topology.is_tree(code):
+        return topology.host_solve(code, present)
+    return approx_mod.host_solve(code, present)
+
+
+def cyclic_wire_params(cfg, code):
+    """(rel_tol, lam) of the cyclic decode on ``cfg``'s wire: the flat
+    code's at (n, s); the tree's at its group shape (fan-in, s_g), the shape
+    each group decodes at (the reference's)."""
+    tol, lam = (numerics.wire_decode_params(cfg, code.fanout, code.s)
+                if topology.is_tree(code)
+                else numerics.wire_decode_params(cfg))
+    return (cyclic_mod.HEALTH_REL_TOL if tol is None else tol), lam
 
 
 def segment_decode_bounds(cfg, dim: int, leaf_offsets=None) -> list:
@@ -104,7 +136,12 @@ def cyclic_decode(cfg, code, enc_re, enc_im, rand_factor, bounds,
     honest set and the health folded across segments. Layer granularity
     with one segment recombines the widened rows (the reference's
     ``decode_layers`` drops the narrow wire); with segments the narrow
-    buffers are read at any cut."""
+    buffers are read at any cut. A tree code decodes group by group at
+    once (``coding.topology.decode_tree_cyclic``, global granularity)."""
+    if topology.is_tree(code):
+        return topology.decode_tree_cyclic(code, enc_re, enc_im, rand_factor,
+                                           present, rel_tol, lam, wire,
+                                           bounds)
     if bounds is None:
         return cyclic_mod.decode(code, enc_re, enc_im, rand_factor,
                                  present=present, with_health=True,
@@ -131,7 +168,8 @@ def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
     (0-d))``. No adversary injection: the code carries no Byzantine
     certificate."""
     with phase("draco_encode"):
-        rows = approx_mod.encode_shared(code, grads)
+        rows = (topology.encode_tree(code, grads) if topology.is_tree(code)
+                else approx_mod.encode_shared(code, grads))
         if masked:
             rows = torch.where(vn_pres[1][:, None] > 0, rows,
                                torch.zeros_like(rows))
@@ -170,14 +208,16 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
             if grads.dim() == 3:
                 enc_re, enc_im = cyclic_mod.encode(code, grads)
             else:
-                enc_re, enc_im = cyclic_mod.encode_shared(code, grads)
+                enc_re, enc_im = encode_shared(code, grads)
             enc_re, enc_im = attacks.inject_cyclic(
                 enc_re, enc_im, adv_mask, cfg.err_mode, cfg.adversarial,
                 noise, step, cfg.seed, cfg.num_adversaries)
         bounds = decode_bounds(cfg, enc_re.shape[1], leaf_offsets)
+        rel_tol, lam = cyclic_wire_params(cfg, code)
         with phase("draco_decode"):
             agg, honest, health = cyclic_decode(cfg, code, enc_re, enc_im,
-                                                rand_factor, bounds)
+                                                rand_factor, bounds,
+                                                rel_tol=rel_tol, lam=lam)
         health["honest"] = honest
         return agg, health
     grads = attacks.inject_plain(grads, adv_mask, cfg.err_mode,

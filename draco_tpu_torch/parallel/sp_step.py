@@ -19,11 +19,10 @@ The decode runs globally or, at ``decode_granularity="layer"`` and on the
 segmented wire (``wire_segments > 1``), over the leaf boundaries and the
 segment cuts (``parallel/common.decode_bounds``).
 
-The decode's random projection is drawn once on the host from the seed
-(``rng.random_projection_factors``; the reference draws it in-graph from
-the same seed with the jax PRNG, other numbers of the same distribution);
-``build_sp_train_setup(rand_factor=)`` and ``train_step(rand_factor=)``
-take an explicit one, as the tests need.
+The initial parameters are the reference's ``model.init`` under
+``key(seed)`` (``models.layers.init_params``, drawn on the device leaf by
+leaf), and the decode's random projection its in-graph vector
+(``rng.projection_factors``), drawn once at setup on the device.
 
 As in ``training/step.py``, ``step_body`` runs the step on its host inputs
 (tokens, the adversary mask and the int32 step number) once they are on
@@ -48,10 +47,10 @@ from torch.func import functional_call, grad_and_value, vmap
 
 from draco_tpu_torch import optim
 from draco_tpu_torch import params as params_mod
-from draco_tpu_torch import rng as drng
-from draco_tpu_torch.coding import cyclic as cyclic_mod
+from draco_tpu_torch import rng as rng_mod
 from draco_tpu_torch.config import LM_NETWORK, TrainConfig
-from draco_tpu_torch.models.transformer import TransformerLM, init_params
+from draco_tpu_torch.models.layers import init_params
+from draco_tpu_torch.models.transformer import TransformerLM
 from draco_tpu_torch.ops.coded import segment_plan
 from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
 from draco_tpu_torch.ops.flash_attention import attn_impl_fn
@@ -77,16 +76,16 @@ class SPTrainSetup(NamedTuple):
     model: TransformerLM
     state: TrainState
     # (state, tokens (n, B, T) or None (token_gen="device"), adv_mask (n,),
-    #  rand_factor=None, noise=None) -> (state, metrics dict of 0-d tensors)
+    #  noise=None) -> (state, metrics dict of 0-d tensors)
     train_step: Any
     eval_step: Any  # (params, tokens (n, B, T)) -> mean loss (0-d tensor)
-    code: Optional[cyclic_mod.CyclicCode]
+    code: Any  # CyclicCode | TreeCode (topology="tree") | None
     layout: params_mod.Layout
     dim: int
     metric_names: tuple
     device: torch.device
     decode_impl: str  # which locator runs: "cuda" (the kernel) | "plain"
-    # (state, inputs on the device, rand_factor=None, noise=None) -> the
+    # (state, inputs on the device, noise=None) -> the
     # metrics of block_names (0-d device tensors)
     step_body: Any
     # metric_names, and honest_located on the cyclic code
@@ -131,15 +130,12 @@ def token_fn_from_cfg(cfg: TrainConfig):
 
 
 def build_sp_train_setup(cfg: TrainConfig, device=None,
-                         init: Optional[dict] = None,
-                         rand_factor=None) -> SPTrainSetup:
+                         init: Optional[dict] = None) -> SPTrainSetup:
     """Model, state and the step for ``cfg`` on ``device`` (default cuda).
 
     ``init``: optional parameters keyed by torch name (``params.from_jax``
-    of the reference's); otherwise they are drawn on the host from
-    ``cfg.seed``, so every device starts from the same weights.
-    ``rand_factor``: the decode's random projection (d,) for every step;
-    otherwise drawn from ``cfg.seed``."""
+    of the reference's); otherwise the reference's ``model.init`` at
+    ``cfg.seed``, drawn on the device."""
     cfg.validate()
     if cfg.network != LM_NETWORK:
         raise ValueError(f"the LM step runs network={LM_NETWORK}, got "
@@ -150,14 +146,13 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     model = TransformerLM(vocab=cfg.vocab, dim=cfg.model_dim,
                           heads=cfg.model_heads, layers=cfg.model_layers,
                           attn_fn=attn_impl_fn(cfg),
-                          dtype=COMPUTE_DTYPES[cfg.compute_dtype])
+                          dtype=COMPUTE_DTYPES[cfg.compute_dtype]).to(dev)
     with torch.no_grad():
         if init is None:
-            init_params(model, drng.generator(cfg.seed))
+            init_params(model, cfg.seed)
         else:
             for name, p in model.named_parameters():
                 p.copy_(init[name])
-    model.to(dev)
     params = {k: p.detach() for k, p in model.named_parameters()}
     layout = params_mod.layout(model)
     dim = layout.dim
@@ -190,12 +185,11 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     simulate = cfg.approach == "cyclic" and cfg.redundancy == "simulate"
     batch_ids = (torch.as_tensor(code.batch_ids, device=dev).long()
                  if simulate else None)
-    # every participant derives the same projection; drawn once on the host
+    # the reference's projection, the same vector every step: drawn once,
+    # on the device
     projection = None
     if code is not None:
-        projection = (drng.random_projection_factors(cfg.seed, dim)
-                      if rand_factor is None
-                      else torch.as_tensor(rand_factor)).to(dev)
+        projection = rng_mod.projection_factors(cfg.seed, dim, dev)
         # the segmented decode's plan goes to the card here, before any
         # capture
         bounds = decode_bounds(cfg, dim, layout.offsets)
@@ -222,7 +216,7 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
         return Chunk(start, k, step_inputs(np.arange(start, start + k),
                                            tokens, masks))
 
-    def step_body(state, inputs, rand_factor=None, noise=None):
+    def step_body(state, inputs, noise=None):
         step = inputs["step"]
         toks = (inputs["tokens"] if token_fn is None
                 else token_fn(step)).long()
@@ -235,10 +229,9 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
             losses = losses.view(n, hat_s).mean(dim=1)
         else:
             grads, losses = lane_grads(state.params, toks)
-        f = projection if rand_factor is None else torch.as_tensor(
-            rand_factor, device=dev)
-        agg, health = aggregate_flat_grads(grads, mask, cfg, code, f, noise,
-                                           step, leaf_offsets=layout.offsets)
+        agg, health = aggregate_flat_grads(grads, mask, cfg, code, projection,
+                                           noise, step,
+                                           leaf_offsets=layout.offsets)
         del grads
         finish_flat_step(state, agg, layout)
         metrics = {"loss": present_mean(losses)}
@@ -247,12 +240,11 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
             metrics["honest_located"] = health["honest"].sum()
         return metrics
 
-    def train_step(state, tokens, adv_mask, rand_factor=None, noise=None):
+    def train_step(state, tokens, adv_mask, noise=None):
         # host inputs by pinned asynchronous copies: no synchronising call
         inputs = step_inputs(state.step, tokens, adv_mask)
         metrics = step_body(state, {k: upload(v, dev)
-                                    for k, v in inputs.items()},
-                            rand_factor, noise)
+                                    for k, v in inputs.items()}, noise)
         state.step += 1
         return state, metrics
 

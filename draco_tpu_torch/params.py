@@ -62,7 +62,7 @@ def torch_name(path: Sequence[str]) -> str:
     return ".".join(list(parent) + [leaf])
 
 
-def _to_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
+def to_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
     """Trailing OIHW -> HWIO, trailing (out, in) -> (in, out); leading
     batch dims kept."""
     if kind == CONV:
@@ -72,7 +72,7 @@ def _to_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
     return t
 
 
-def _from_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
+def from_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == CONV:
         return t.movedim((-1, -2), (-4, -3))
     if kind == DENSE:
@@ -106,7 +106,7 @@ def layout(model: nn.Module) -> Layout:
     names = tuple(sorted(leaves, key=lambda n: leaves[n][0]))
     kinds = tuple(leaves[n][1] for n in names)
     jax_shapes = tuple(
-        tuple(_to_jax_layout(torch.empty(leaves[n][2], device="meta"),
+        tuple(to_jax_layout(torch.empty(leaves[n][2], device="meta"),
                              leaves[n][1]).shape) for n in names)
     sizes = [int(np.prod(s)) for s in jax_shapes]
     return Layout(names, kinds, jax_shapes,
@@ -118,7 +118,7 @@ def flatten(tensors: dict, lay: Layout, lead: int = 0) -> torch.Tensor:
     -> one (..., d) vector in the reference's order and layout."""
     parts = []
     for name, kind in zip(lay.names, lay.kinds):
-        t = _to_jax_layout(tensors[name], kind)
+        t = to_jax_layout(tensors[name], kind)
         parts.append(t.reshape(t.shape[:lead] + (-1,)))
     return torch.cat(parts, dim=lead)
 
@@ -130,7 +130,7 @@ def unflatten(flat: torch.Tensor, lay: Layout) -> dict:
     for i, (name, kind) in enumerate(zip(lay.names, lay.kinds)):
         a, b = int(lay.offsets[i]), int(lay.offsets[i + 1])
         t = flat[a:b].reshape(lay.jax_shapes[i])
-        out[name] = _from_jax_layout(t, kind).contiguous()
+        out[name] = from_jax_layout(t, kind).contiguous()
     return out
 
 
@@ -152,7 +152,7 @@ def from_jax(params_np: dict, batch_stats_np: dict = None, device="cpu"):
     for path, v in _walk(params_np):
         t = torch.from_numpy(np.array(v, np.float32))
         if path[-1] == "kernel":  # HWIO -> OIHW, Dense (in, out) -> (out, in)
-            t = _from_jax_layout(t, CONV if t.dim() == 4 else DENSE)
+            t = from_jax_layout(t, CONV if t.dim() == 4 else DENSE)
         params[torch_name(path)] = t.contiguous().to(device)
     stats = {}
     for path, v in _walk(batch_stats_np or {}):
@@ -192,10 +192,10 @@ def tensor_leaves(tensors: dict, lay: Layout) -> list:
         t = tensors[name]
 
         def read(t=t, kind=kind):
-            return _host_copy(_to_jax_layout(t.detach(), kind))
+            return _host_copy(to_jax_layout(t.detach(), kind))
 
         def write(a, t=t, kind=kind):
-            t.copy_(_from_jax_layout(torch.from_numpy(a), kind))
+            t.copy_(from_jax_layout(torch.from_numpy(a), kind))
 
         out.append(StateLeaf(tuple(shape), _np_dtype(t), read, write))
     return out

@@ -16,14 +16,16 @@ torch has little uint32 arithmetic: every value is int64 masked to 32 bits.
 The kernels of ``csrc/draws.cu`` (``ops/draws.py``) compute the same stream;
 these functions are their plain versions' core.
 
-The draws the port makes that the reference makes in-graph too and that
-are not on this stream yet (augmentation at seed + 2, dropout at seed + 3,
-the vote's salts at seed + 4, the decode projection, the initial
-parameters) come from explicit ``torch.Generator`` s seeded from the
-experiment seed: the same distributions, other numbers.
+Every draw of the reference's training step is on this stream: the
+initial parameters (:func:`init_leaf`, Flax's per-parameter keys by
+:func:`fold_in_static`), the decode's random projection
+(:func:`projection_factors`), and in the step the augmentation, dropout
+and vote-salt draws (``ops/draws.py``), each folded from the staged step.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -46,6 +48,20 @@ ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
                 -0.00367342844, 0.00573950773, -0.0076224613,
                 0.00943887047, 1.00167406, 2.83297682)
+# truncated_normal(key, -2, 2) in float32: the uniform between XLA's f32
+# erf(∓2/√2) (their difference as f32 rounds it), the result clamped to
+# the open interval (nextafter(-2, ∞), nextafter(2, -∞))
+TN_A = float(np.float32(-0.9544997))
+TN_SPAN = float(np.float32(0.9544997) - np.float32(-0.9544997))
+TN_HI = float(np.nextafter(np.float32(2.0), np.float32(0.0)))
+# the standard deviation of a standard normal truncated to (-2, 2), which
+# Flax's variance_scaling divides out
+TN_STD = np.float32(0.87962566103423978)
+# the decode projection's salt: fold_in(key(seed), 7919)
+PROJECTION_SALT = 7919
+# elements a pass of a large draw (an initial leaf, the projection): its
+# int64 temporaries stay near 100 MB on the card
+PIECE = 1 << 22
 
 
 def adversary_schedule(seed: int, max_steps: int, num_workers: int, num_fail: int) -> np.ndarray:
@@ -87,37 +103,6 @@ def epoch_permutation(seed: int, epoch: int, n: int) -> np.ndarray:
     return rng.permutation(n)
 
 
-def fold(seed: int, *data: int) -> int:
-    """Fold a sequence of ints (step ids, row ids) into one 63-bit seed for
-    a ``torch.Generator`` — the counterpart of the reference's
-    ``jax.random.fold_in`` chain (a splitmix64 step per item)."""
-    mask = (1 << 64) - 1
-    x = seed & mask
-    for d in data:
-        x = (x ^ ((int(d) + 0x9E3779B97F4A7C15) & mask)) & mask
-        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & mask
-        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & mask
-        x ^= x >> 31
-    return x & ((1 << 63) - 1)
-
-
-def generator(seed: int, *data: int, device="cpu") -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded from (seed, *data)."""
-    g = torch.Generator(device=device)
-    g.manual_seed(fold(seed, *data))
-    return g
-
-
-def random_projection_factors(seed: int, dim: int) -> torch.Tensor:
-    """The decode-side random projection vector: normal with loc=1,
-    deterministic in ``seed`` (reference:
-    ``random_projection_factors_in_graph``, the same distribution from a
-    different generator), drawn on the host so every device gets the same
-    vector. Decode is exact for any draw."""
-    g = generator(seed, 7919)
-    return 1.0 + torch.randn(dim, generator=g, dtype=torch.float32)
-
-
 # --------------------------------------------------------------------------
 # the reference's counter-based stream (jax.random, threefry2x32)
 # --------------------------------------------------------------------------
@@ -127,6 +112,15 @@ def _u32(v):
     if isinstance(v, torch.Tensor):
         return v.to(torch.int64) & M32
     return int(v) & M32
+
+
+def _u32_on(v, dev) -> torch.Tensor:
+    """An int or a tensor as a uint32 value in an int64 tensor on ``dev``:
+    an int by a fill on the device, not a host copy, so a CUDA graph can
+    capture the plain stream."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.int64) & M32
+    return torch.full((), int(v) & M32, dtype=torch.int64, device=dev)
 
 
 # elements a pass of the plain stream works on: its int64 temporaries stay
@@ -142,8 +136,8 @@ def threefry2x32(k0, k1, x0, x1):
     # in place on fresh int64 tensors: the counters' passes dominate
     dev = next((v.device for v in (x0, x1, *ks)
                 if isinstance(v, torch.Tensor)), torch.device("cpu"))
-    x0 = torch.as_tensor((_u32(x0) + ks[0]) & M32, device=dev)
-    x1 = torch.as_tensor((_u32(x1) + ks[1]) & M32, device=dev)
+    x0 = (_u32_on(x0, dev) + ks[0]) & M32
+    x1 = (_u32_on(x1, dev) + ks[1]) & M32
     x0, x1 = torch.broadcast_tensors(x0, x1)
     x0, x1 = x0.clone(), x1.clone()
     tmp = torch.empty_like(x1)
@@ -261,3 +255,84 @@ def randint(k: tuple, shape, lo: int, hi: int, device=None) -> torch.Tensor:
     high, low = bits(k1, shape, 0, device), bits(k2, shape, 0, device)
     off = (((high % span) * mult + low % span) & M32) % span
     return int(lo) + off
+
+
+def draw_flat(from_bits, k: tuple, numel: int, device=None) -> torch.Tensor:
+    """``from_bits`` of the key's flat stream of ``numel`` float32 elements
+    (counters 0 .. numel - 1), drawn PIECE elements at a time."""
+    dev = _device_of(k, device)
+    out = torch.empty((int(numel),), dtype=torch.float32, device=dev)
+    for a in range(0, int(numel), PIECE):
+        b = min(int(numel), a + PIECE)
+        out[a:b] = from_bits(bits(k, b - a, offset=a, device=dev))
+    return out
+
+
+def truncated_normal_from_bits(b: torch.Tensor) -> torch.Tensor:
+    """uint32 draws -> ``jax.random.truncated_normal(key, -2, 2)``: the
+    uniform mapped onto (erf(-√2), erf(√2)), then √2·erfinv, clamped to the
+    open interval, in float32. XLA fuses the uniform's affine map into one
+    fused multiply-add: here in float64, rounded once."""
+    def one(c):
+        u = (uniform_from_bits(c).double() * TN_SPAN + TN_A).float()
+        u = torch.clamp_min(u, TN_A)
+        return torch.clamp(SQRT2 * erfinv(u), -TN_HI, TN_HI)
+    return _chunked(one, b, torch.float32)
+
+
+def fold_in_static(k: tuple, *data) -> tuple:
+    """Flax's ``_fold_in_static``: the SHA-1 of the strings and ints of
+    ``data`` (a module path and the rng counter), its first 4 bytes read
+    big-endian, folded into ``k``."""
+    if not data:
+        return k
+    return fold_in(k, static_hash(*data))
+
+
+def static_hash(*data) -> int:
+    """The uint32 that :func:`fold_in_static` folds in for ``data``: Flax
+    0.12.3 hashes the items with no separator byte between them."""
+    m = hashlib.sha1()
+    for x in data:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        else:
+            x = int(x)
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+    return int.from_bytes(m.digest()[:4], byteorder="big")
+
+
+def param_key(seed: int, path) -> tuple:
+    """The key Flax's ``model.init({"params": key(seed)})`` draws the first
+    parameter of the module at ``path`` (its kernel or embedding table)
+    with: the module's scope folds its path and the rng counter, 1."""
+    return fold_in_static(key(seed), *path, 1)
+
+
+def init_leaf(seed: int, path, shape, kind: str, fan_in: int,
+              device=None) -> torch.Tensor:
+    """One initial parameter of the reference's ``model.init`` in its JAX
+    layout ``shape``, float32: ``kind`` "lecun" is Flax's default kernel
+    initialiser (variance_scaling(1, "fan_in", "truncated_normal"): the
+    truncated normal times √(1/fan_in) / TN_STD), "embed" the ``Embed``
+    default (an untruncated normal of variance 1/fan_in)."""
+    numel = int(np.prod(shape, dtype=np.int64))
+    k = param_key(seed, path)
+    sd = np.sqrt(np.float32(1.0 / fan_in))
+    if kind == "lecun":
+        z = draw_flat(truncated_normal_from_bits, k, numel, device)
+        sd = sd / TN_STD
+    elif kind == "embed":
+        z = draw_flat(normal_from_bits, k, numel, device)
+    else:
+        raise ValueError(f"unknown initialiser {kind!r}")
+    return (z * float(np.float32(sd))).view(tuple(shape))
+
+
+def projection_factors(seed: int, dim: int, device="cpu") -> torch.Tensor:
+    """The decode's random projection, the reference's
+    ``random_projection_factors_in_graph``: ``1 + normal(fold_in(key(seed),
+    7919), (dim,))`` in float32 on ``device``, drawn in pieces. The same
+    vector at every step: drawn once a setup."""
+    return draw_flat(normal_from_bits, fold_in(key(seed), PROJECTION_SALT),
+                     dim, torch.device(device)) + 1.0

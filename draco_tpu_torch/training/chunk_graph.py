@@ -53,11 +53,11 @@ class Chunk:
     """One chunk of steps [start, start + k), assembled on the host.
 
     ``tensors``: input name -> (k, ...) host tensor, staged on the device.
-    Every per-step host value the step reads is staged here, drawn at
-    assembly (the augmentation draws, the vote's salts) or made on the
-    device from the staged step number (the random attack, stochastic
-    rounding, the LM's device tokens): the captured step never seeds a
-    host generator.
+    Every per-step host value the step reads is staged here; every draw
+    is made on the device from the staged step number (augmentation,
+    dropout, the vote's salts, the random attack, stochastic rounding, the
+    LM's device tokens): the captured step never seeds a host
+    generator.
     ``host``: column name -> k host values, known at assembly (the approx
     decode's bound and recovered fraction, the presence count): they go
     into the records at the flush, not through the device."""

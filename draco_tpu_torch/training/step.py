@@ -36,9 +36,9 @@ its group's others in about half of ResNet-18's coordinates, every step
 
 The state carry is updated in place: parameters, the optimizer's buffers
 and update count, and the BN statistics keep their storage across steps.
-The step is split in two: its host inputs (batch, labels, augmentation
-draws, dropout masks, the adversary and presence masks, the int32 step
-number; the approx decode's host solve), and ``step_body``, which
+The step is split in two: its host inputs (batch, labels, the adversary
+and presence masks, the int32 step number; the approx decode's host
+solve), and ``step_body``, which
 runs the step on them once they are on the device. The eager
 ``train_step`` sends them by pinned asynchronous copies
 (``runtime.upload``), so the step makes no synchronising call: the program
@@ -63,26 +63,24 @@ Gradients are flattened in the reference's leaf order and layout
 (``params.flatten``), so the (n, d) codeword matrix, the random projection
 and the decode agree with the reference coordinate for coordinate.
 
-Randomness: augmentation draws come from a ``torch.Generator`` per global
-batch row k (per worker on the baseline, per group on maj_vote, repeated
-over the group's members), folded from (seed + 2, step, k), drawn on the
-host so every device sees the same draws; a model with dropout (VGG) gets
-its keep-masks the same way from (seed + 3, step, k), so every lane that
-computes batch k (the 2s+1 copies under ``simulate``, a group's members
-on maj_vote) drops the same units and the decode stays exact; the vote's
-two fingerprint salts
-from (seed + 4, step), a host input of the step like the draws; the random
-projection from (seed, 7919), or ``build_train_setup(rand_factor=)``. The
-random attack and stochastic rounding draw the reference's own numbers on
-the device (``ops/draws.py``) from the staged step: ``step_body`` reads the
-step from its inputs, never from ``state.step``, so a captured step replays
-each step's own draws.
-``train_step`` takes explicit ``aug_draws``, ``dropout_masks``,
-``rand_factor``, ``noise`` and ``salts`` overrides so the tests can hand it
-the reference's own draws, and the
-step's ``present`` mask (the host's (n,) bool, False = the worker's row
-never arrives; None = all arrive); ``make_chunk`` takes the chunk's
-``draws`` and ``masks``.
+Randomness: every draw is the reference's, on its key chain
+(``rng.py``, ``ops/draws.py``). The initial parameters are Flax's
+``model.init`` under ``key(seed)`` (``models.layers.init_params``); the
+decode's random projection is ``1 + normal(fold_in(key(seed), 7919))``,
+drawn once at setup on the device (the reference redraws the same vector
+in every step). In the step, on the device from the staged step: the
+augmentation draws of global batch row k (worker k on the baseline, the
+group of k on maj_vote) under fold(key(seed + 2), step, k); a model's
+dropout keep-masks under fold(key(seed + 3), step, k), so every lane that
+computes batch k (the 2s+1 copies under ``simulate``, a group's members on
+maj_vote) drops the same units and the decode stays exact; the vote's two
+fingerprint salts under fold(key(seed + 4), step); the random attack and
+stochastic rounding. ``step_body`` reads the step from its inputs, never
+from ``state.step``, so a captured step replays each step's own draws.
+``train_step`` takes the random attack's explicit ``noise`` (tests) and
+the step's ``present`` mask (the host's (n,) bool, False = the worker's
+row never arrives; None = all arrive); ``make_chunk`` takes the chunk's
+masks.
 
 The compute dtype (``cfg.compute_dtype``) is the reference's: the
 convolutions and Dense layers compute in it, parameters, BN statistics and
@@ -102,17 +100,16 @@ from torch.func import functional_call, grad_and_value, vmap
 
 from draco_tpu_torch import aggregation, attacks, optim
 from draco_tpu_torch import params as params_mod
-from draco_tpu_torch import rng as drng
-from draco_tpu_torch.coding import approx as approx_mod
+from draco_tpu_torch import rng as rng_mod
 from draco_tpu_torch.coding import cyclic as cyclic_mod
 from draco_tpu_torch.coding import repetition as rep_mod
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import augment as augment_mod
 from draco_tpu_torch.models import build_model
-from draco_tpu_torch.models.layers import DROPOUT_KEEP, init_params, init_stats
+from draco_tpu_torch.models.layers import init_params, init_stats
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.obs.tracer import phase
-from draco_tpu_torch.ops import vote as vote_ops
+from draco_tpu_torch.ops import draws as draws_ops
 from draco_tpu_torch.ops.coded import segment_plan
 from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
 from draco_tpu_torch.parallel.common import (
@@ -121,16 +118,16 @@ from draco_tpu_torch.parallel.common import (
     approx_aggregate,
     build_code_from_cfg,
     cyclic_decode,
+    cyclic_wire_params,
     decode_bounds,
     decode_health_metrics,
+    encode_shared,
+    host_solve,
     present_mean,
 )
 from draco_tpu_torch.runtime import cudnn_deterministic, resolve_device, upload
 from draco_tpu_torch.training.chunk_graph import Chunk, StepGraph
 
-AUG_SALT = 2  # the reference's augmentation seed salt (seed + 2)
-DROPOUT_SALT = 3  # the reference's dropout seed salt (seed + 3)
-VOTE_SALT = 4  # the vote's fingerprint salts (seed + 4)
 # the repetition code's per-step health columns (coding/repetition.py) and
 # its detection counts against the seeded schedules
 VOTE_NAMES = ("vote_agree", "flagged_groups", "det_flagged", "det_tp",
@@ -203,8 +200,7 @@ class TrainState:
 class TrainSetup(NamedTuple):
     model: Any
     state: TrainState
-    # (state, x, y, adv_mask, aug_draws=None, rand_factor=None, noise=None,
-    #  present=None, salts=None, dropout_masks=None)
+    # (state, x, y, adv_mask, noise=None, present=None)
     #   -> (state, metrics dict of 0-d tensors)
     train_step: Any
     code: Any  # CyclicCode | ApproxCode | RepetitionCode | None
@@ -213,12 +209,11 @@ class TrainSetup(NamedTuple):
     metric_names: tuple
     device: torch.device
     decode_impl: str  # which locator runs: "cuda" (the kernel) | "plain"
-    # (state, inputs on the device, rand_factor=None, noise=None) -> the
+    # (state, inputs on the device, noise=None) -> the
     # metrics of block_names (0-d device tensors); no host work, no upload
     step_body: Any
     block_names: tuple  # the metric columns the device computes
-    # (start, xs, ys, masks, presents=None, draws=None, dropout=None)
-    #   -> Chunk
+    # (start, xs, ys, masks, presents=None) -> Chunk
     make_chunk: Any
     # (state, chunk) -> (state, (k, len(block_names)) metrics on the device)
     train_many: Any
@@ -241,34 +236,6 @@ def metric_names(cfg: TrainConfig) -> tuple:
     elif cfg.approach == "approx":
         names += APPROX_HEALTH_NAMES
     return names
-
-
-def aug_draws(cfg: TrainConfig, step: int, rows: int):
-    """Per-row augmentation draws (top, left, flip), each (rows, B) int64,
-    from the host generator of (seed + 2, step, row)."""
-    draws = [augment_mod.draw((cfg.batch_size,),
-                              drng.generator(cfg.seed + AUG_SALT, step, k))
-             for k in range(rows)]
-    return tuple(torch.stack(d) for d in zip(*draws))
-
-
-def dropout_masks(cfg: TrainConfig, step: int, rows: int,
-                  features: tuple) -> torch.Tensor:
-    """Per-row dropout keep-masks, (rows, len(features), B, width) bool,
-    from the host generator of (seed + 3, step, row)."""
-    shape = (len(features), cfg.batch_size, features[0])
-    return torch.stack([
-        torch.rand(shape, generator=drng.generator(
-            cfg.seed + DROPOUT_SALT, step, k)) < DROPOUT_KEEP
-        for k in range(rows)])
-
-
-def vote_salts(cfg: TrainConfig, step: int) -> torch.Tensor:
-    """The vote's two fingerprint salts of ``step`` as a (2,) int32 tensor
-    of their uint32 bits, from the host generator of (seed + 4, step)."""
-    g = drng.generator(cfg.seed + VOTE_SALT, step)
-    draws = torch.randint(0, 1 << 32, (2,), generator=g, dtype=torch.int64)
-    return vote_ops.salts_tensor(draws.tolist())
 
 
 def detection_metrics(flagged, adv_mask, present=None) -> dict:
@@ -322,31 +289,29 @@ def chunk_runner(name: str, cfg: TrainConfig, dev, setup_state, body,
 
 def build_train_setup(cfg: TrainConfig, device=None,
                       dataset_name: Optional[str] = None,
-                      init: Optional[tuple] = None,
-                      rand_factor=None) -> TrainSetup:
+                      init: Optional[tuple] = None) -> TrainSetup:
     """Model, state and the step for ``cfg`` on ``device`` (default cuda).
 
     ``init``: optional ``(params, stats)`` as ``params.from_jax`` returns
     them (stats with or without the leading worker axis); otherwise the
-    parameters are drawn from ``cfg.seed``. ``rand_factor``: the cyclic
-    decode's random projection (d,) for every step; otherwise drawn from
-    ``cfg.seed``."""
+    parameters are the reference's ``model.init`` at ``cfg.seed``, drawn
+    on the device."""
     cfg.validate()
     dev = resolve_device(device)
     n = cfg.num_workers
     dataset_name = dataset_name or cfg.dataset
     use_aug = "cifar" in dataset_name.lower()
 
-    model = build_model(cfg.network, dataset_name, dtype=cfg.compute_dtype)
+    model = build_model(cfg.network, dataset_name,
+                        dtype=cfg.compute_dtype).to(dev)
     if init is None:
-        init_params(model, drng.generator(cfg.seed))
+        init_params(model, cfg.seed)
         stats0 = init_stats(model)
     else:
         p0, stats0 = init
         with torch.no_grad():
             for name, p in model.named_parameters():
                 p.copy_(p0[name])
-    model.to(dev)
     params = {k: p.detach() for k, p in model.named_parameters()}
     stats = {k: (v if v.dim() == 2 else v.expand(n, -1)).to(dev).clone()
              for k, v in stats0.items()}
@@ -382,31 +347,21 @@ def build_train_setup(cfg: TrainConfig, device=None,
     block_names = tuple(k for k in names if k not in host_names)
 
     vote = cfg.approach == "maj_vote"
-    # the rows of augmentation draws a step: one a group on maj_vote (its
-    # members see the same pixels), else one a worker / batch row
-    draw_rows = cfg.num_groups if vote else n
+    # a lane's key row of the step's draws: its group on maj_vote (the
+    # members see the same pixels and drop the same units), else its own
+    # batch row
+    key_div = cfg.group_size if vote else 1
 
-    def step_inputs(step, adv_mask, present, draws, salts=None, keep=None):
+    def step_inputs(step, adv_mask, present):
         """The host inputs of one step other than its batch, and its host
         columns. The step number is staged beside the masks: the device
-        draws (the random attack, stochastic rounding) read it there."""
+        draws (augmentation, dropout, the vote's salts, the random attack,
+        stochastic rounding) read it there."""
         out, host = {"step": torch.tensor(step, dtype=torch.int32)}, {}
-        if use_aug:
-            if draws is None:
-                draws = aug_draws(cfg, step, draw_rows)
-            # the three draws in one tensor
-            out["draws"] = torch.stack([torch.as_tensor(t) for t in draws])
-        if drop:
-            out["dropout"] = (dropout_masks(cfg, step, draw_rows, drop)
-                              if keep is None
-                              else torch.as_tensor(keep).bool())
-        if vote:
-            out["salts"] = (vote_salts(cfg, step) if salts is None
-                            else torch.as_tensor(salts, dtype=torch.int32))
         if cfg.approach == "approx":
             # no adversary injects: stragglers are this code's whole fault
             # model (config.validate)
-            _, out["vn_pres"], solved = approx_mod.host_solve(code, present)
+            _, out["vn_pres"], solved = host_solve(code, present)
             host = {"decode_residual_bound": solved["bound"],
                     "recovered_fraction": solved["recovered_fraction"]}
         else:
@@ -415,19 +370,14 @@ def build_train_setup(cfg: TrainConfig, device=None,
             out["present"] = torch.as_tensor(present).cpu().bool()
         return out, host
 
-    def host_inputs(step, x, y, adv_mask, present=None, aug_draws=None,
-                    salts=None, keep=None):
-        out, host = step_inputs(step, adv_mask, present, aug_draws, salts,
-                                keep)
+    def host_inputs(step, x, y, adv_mask, present=None):
+        out, host = step_inputs(step, adv_mask, present)
         return {"x": torch.as_tensor(x), "y": torch.as_tensor(y), **out}, host
 
-    def make_chunk(start, xs, ys, masks, presents=None, draws=None,
-                   dropout=None):
+    def make_chunk(start, xs, ys, masks, presents=None):
         k = len(xs)
         per = [step_inputs(start + i, masks[i],
-                           None if presents is None else presents[i],
-                           None if draws is None else draws[i],
-                           keep=None if dropout is None else dropout[i])
+                           None if presents is None else presents[i])
                for i in range(k)]
         return Chunk(start, k,
                      {"x": torch.as_tensor(xs), "y": torch.as_tensor(ys),
@@ -436,22 +386,19 @@ def build_train_setup(cfg: TrainConfig, device=None,
                      {name: [float(p[1][name]) for p in per]
                       for name in host_names})
 
-    # each lane's row of draws and dropout masks: its group's on maj_vote
-    lane_draws = (torch.arange(n, device=dev) // cfg.group_size if vote
-                  else None)
-
     def batch(inputs):
         """The step's (n, B, ...) images, augmented, int64 labels and
-        each row's dropout masks (None without dropout)."""
-        x, y = inputs["x"], inputs["y"].long()
-        keep = inputs.get("dropout")
-        if "draws" in inputs:
-            draws = inputs["draws"]
-            if lane_draws is not None:
-                draws = draws.index_select(1, lane_draws)
-            x = augment_mod.augment(x, *draws.unbind(0))
-        if keep is not None and lane_draws is not None:
-            keep = keep.index_select(0, lane_draws)
+        each lane's dropout masks (None without dropout), drawn on the
+        device from the staged step."""
+        x, y, step = inputs["x"], inputs["y"].long(), inputs["step"]
+        b = x.shape[1]
+        if use_aug:
+            d = draws_ops.augment_draws(step, cfg.seed + draws_ops.AUG_SALT,
+                                        n, b, key_div)
+            x = augment_mod.augment(x, *d.unbind(0))
+        keep = (draws_ops.dropout_keep(
+            step, cfg.seed + draws_ops.DROPOUT_SALT, n, len(drop), b,
+            drop[0], key_div) if drop else None)
         return x, y, keep
 
     @torch.no_grad()
@@ -467,8 +414,7 @@ def build_train_setup(cfg: TrainConfig, device=None,
 
     if cfg.approach == "baseline":
 
-        def step_body(state, inputs, rand_factor=None, noise=None):
-            del rand_factor
+        def step_body(state, inputs, noise=None):
             x, y, keep = batch(inputs)
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
                                                     x, y, keep)
@@ -485,8 +431,7 @@ def build_train_setup(cfg: TrainConfig, device=None,
 
     elif vote:
 
-        def step_body(state, inputs, rand_factor=None, noise=None):
-            del rand_factor
+        def step_body(state, inputs, noise=None):
             x, y, keep = batch(inputs)
             with vote_lanes(dev):
                 grads, new_stats, losses, precs = lanes(
@@ -502,9 +447,11 @@ def build_train_setup(cfg: TrainConfig, device=None,
             wire = numerics.narrow_wire_single(cfg, grads, inputs["step"])
             if wire is not None:
                 grads = numerics.widen_wire_rows(wire[1], wire[0], wire[2])
+            salts = draws_ops.vote_salts(inputs["step"],
+                                         cfg.seed + draws_ops.VOTE_SALT)
             with phase("draco_decode"):
                 voted, health = rep_mod.majority_vote(
-                    code, grads, pres, inputs["salts"], cfg.vote_check,
+                    code, grads, pres, salts, cfg.vote_check,
                     with_health=True)
             update(state, voted, new_stats)
             metrics = lane_metrics(losses, precs, pres)
@@ -517,8 +464,8 @@ def build_train_setup(cfg: TrainConfig, device=None,
         # partial sums of the one-copy batch gradients (redundancy="shared"
         # is the only approx shape)
 
-        def step_body(state, inputs, rand_factor=None, noise=None):
-            del rand_factor, noise
+        def step_body(state, inputs, noise=None):
+            del noise
             x, y, keep = batch(inputs)
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
                                                     x, y, keep)
@@ -532,17 +479,16 @@ def build_train_setup(cfg: TrainConfig, device=None,
             return metrics
 
     else:  # cyclic
-        hat_s = code.hat_s
         # the narrow wire decodes with its quantization-aware flag
-        # threshold and locator λ; the f32 wire with HEALTH_REL_TOL, λ = 0
-        wire_tol, wire_lam = numerics.wire_decode_params(cfg)
-        rel_tol = cyclic_mod.HEALTH_REL_TOL if wire_tol is None else wire_tol
-        batch_ids = torch.as_tensor(code.batch_ids, device=dev).long()
-        # every participant derives the same projection; drawn once on the
-        # host, like the augmentation draws
-        projection = (drng.random_projection_factors(cfg.seed, dim)
-                      if rand_factor is None
-                      else torch.as_tensor(rand_factor)).to(dev)
+        # threshold and locator λ (the tree's at its group shape); the f32
+        # wire with HEALTH_REL_TOL, λ = 0
+        rel_tol, wire_lam = cyclic_wire_params(cfg, code)
+        if cfg.redundancy == "simulate":  # never a tree (config.validate)
+            hat_s = code.hat_s
+            batch_ids = torch.as_tensor(code.batch_ids, device=dev).long()
+        # the reference's projection, the same vector every step: drawn
+        # once, on the device
+        projection = rng_mod.projection_factors(cfg.seed, dim, dev)
         # the cuts of the layer / segmented decode (None: the global
         # decode); their plan goes to the card here, before any capture
         bounds = decode_bounds(cfg, dim, layout.offsets)
@@ -555,7 +501,7 @@ def build_train_setup(cfg: TrainConfig, device=None,
                 grads, new_stats, losses, precs = lanes(
                     state.params, state.stats, x, y, keep)
                 with phase("draco_encode"):
-                    enc_re, enc_im = cyclic_mod.encode_shared(code, grads)
+                    enc_re, enc_im = encode_shared(code, grads)
                 return enc_re, enc_im, new_stats, losses, precs
             # simulate: worker i computes its hat_s batch rows, with its
             # own BN stats on each of them
@@ -575,7 +521,7 @@ def build_train_setup(cfg: TrainConfig, device=None,
             return (enc_re, enc_im, new_stats, losses.view(n, hat_s).mean(1),
                     precs.view(n, hat_s).mean(1))
 
-        def step_body(state, inputs, rand_factor=None, noise=None):
+        def step_body(state, inputs, noise=None):
             x, y, keep = batch(inputs)
             enc_re, enc_im, new_stats, losses, precs = compute_encoded(
                 state, x, y, keep)
@@ -591,11 +537,10 @@ def build_train_setup(cfg: TrainConfig, device=None,
                     enc_re, enc_im = enc_re * pw, enc_im * pw
                 enc_re, enc_im, wire = numerics.narrow_wire_pair(
                     cfg, enc_re, enc_im, inputs["step"])
-            f = projection if rand_factor is None else torch.as_tensor(
-                rand_factor, device=dev)
             with phase("draco_decode"):
                 decoded, honest, health = cyclic_decode(
-                    cfg, code, enc_re, enc_im, f, bounds, present=pres,
+                    cfg, code, enc_re, enc_im, projection, bounds,
+                    present=pres,
                     rel_tol=rel_tol, lam=wire_lam, wire=wire)
             update(state, decoded, new_stats)
             metrics = lane_metrics(losses, precs, pres)
@@ -603,14 +548,11 @@ def build_train_setup(cfg: TrainConfig, device=None,
             metrics.update(decode_health_metrics(health, mask, pres))
             return metrics
 
-    def train_step(state, x, y, adv_mask, aug_draws=None, rand_factor=None,
-                   noise=None, present=None, salts=None, dropout_masks=None):
-        inputs, host = host_inputs(state.step, x, y, adv_mask, present,
-                                   aug_draws, salts, dropout_masks)
+    def train_step(state, x, y, adv_mask, noise=None, present=None):
+        inputs, host = host_inputs(state.step, x, y, adv_mask, present)
         # host inputs by pinned asynchronous copies: no synchronising call
         metrics = step_body(state, {k: upload(v, dev)
-                                    for k, v in inputs.items()},
-                            rand_factor, noise)
+                                    for k, v in inputs.items()}, noise)
         state.step += 1
         metrics.update(host)
         return state, metrics

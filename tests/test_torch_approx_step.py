@@ -1,6 +1,7 @@
 """The port's training step on the paths this slice adds, against the JAX
 package's, in the harness of ``test_torch_step.py``: the same weights
-(``params.from_jax``), batches, augmentation draws and projection, batch 2
+(``params.from_jax``) and batches, the port drawing the reference's
+augmentation draws and projection itself, batch 2
 per worker, one step each of
 
   * ``approx``: the approx code at r=1.5 (pairwise, shared), n=8, two
@@ -40,7 +41,6 @@ import numpy as np
 import pytest
 import torch
 
-from draco_tpu import rng as jrng
 from draco_tpu.config import TrainConfig as JaxConfig
 from draco_tpu.runtime import make_mesh
 from draco_tpu.training.step import build_train_setup as jax_setup
@@ -51,7 +51,7 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching, datasets
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.training.step import build_train_setup
-from test_torch_step import COMMON, SEED, _flat_params, _resync, jax_aug_draws
+from test_torch_step import COMMON, SEED, _flat_params, _resync
 
 torch.set_num_threads(1)
 
@@ -94,16 +94,13 @@ def leg(request, ds):
     if cfg.straggle_mode == "drop":
         present = ~rng.straggler_schedule(SEED, kw["max_steps"], n,
                                           cfg.straggle_count)[step]
-    rf = np.array(jrng.random_projection_factors_in_graph(SEED, tset.dim))
     x, y = batching.gather(
         ds, batching.indices_cyclic(len(ds), step - 1, n, b, SEED), n, b)
     jargs = (jnp.asarray(x), jnp.asarray(y), jnp.asarray(adv))
     if present is not None:
         jargs += (jnp.asarray(present),)
     jstate, jm = jset.train_step(jset.state, *jargs)
-    tstate, tm = tset.train_step(tset.state, x, y, adv,
-                                 aug_draws=jax_aug_draws(SEED, step, n, b),
-                                 rand_factor=rf, present=present)
+    tstate, tm = tset.train_step(tset.state, x, y, adv, present=present)
     rec = {"cfg": cfg, "names": tset.metric_names, "present": present,
            "jax": {k: float(v) for k, v in jm.items()
                    if k in tset.metric_names},
@@ -167,8 +164,10 @@ LM = dict(network="TransformerLM", dataset="synthetic-text",
 
 # the vote's narrow wire and stochastic rounding run now: those two cases
 # (PORTED) validate and put a wire through the stochastic rounding; the
-# others are still refused
+# approx tree (TREE_PORTED) validates and builds its groups; the others are
+# still refused
 PORTED = ("maj_vote", "stochastic_round")
+TREE_PORTED = ("approx_tree",)
 
 
 @pytest.mark.parametrize("base,override", [
@@ -182,13 +181,21 @@ PORTED = ("maj_vote", "stochastic_round")
     (LM, {"straggle_mode": "drop", "straggle_count": 1,
           "adversary_count": 0}),
     (dict(LM, worker_fail=0), {"approach": "approx", "redundancy": "shared"}),
-    # the segmented wire runs now; under the tree topology it does not yet
+    # the tree runs now, on shared redundancy only: the simulate lanes
+    # have no group shape (the reference's refusal)
     (CYCLIC, {"wire_segments": 2, "topology": "tree"}),
     (APPROX, {"topology": "tree"}),
 ], ids=["maj_vote", "stochastic_round", "baseline_stragglers", "lm_wire",
         "lm_stragglers", "lm_approx", "wire_segments", "approx_tree"])
 def test_still_not_ported(request, base, override):
     TrainConfig(**base).validate()
+    if request.node.callspec.id in TREE_PORTED:
+        from draco_tpu_torch.parallel.common import build_code_from_cfg
+
+        code = build_code_from_cfg(TrainConfig(**dict(base, **override))
+                                   .validate())
+        assert (code.family, code.groups, code.fanout) == ("approx", 2, 4)
+        return
     if request.node.callspec.id not in PORTED:
         with pytest.raises(ValueError):
             TrainConfig(**dict(base, **override)).validate()

@@ -38,19 +38,24 @@ MAIN_KERNELS = ("complex_matmul", "complex_project", "complex_recombine",
                 "flash_fwd", "flash_dq", "flash_dkv", "row_fingerprints",
                 "complex_project_segments", "complex_recombine_segments",
                 "cyclic_narrow_recombine_segments", "random_inject",
-                "round_draw", "synthetic_text")
+                "round_draw", "synthetic_text", "augment_draws",
+                "dropout_keep", "vote_salts")
 LEGS = ("simulate", "geomedian", "shared", "approx", "approx_int8",
         "shared_bf16", "shared_int8", "majvote", "krum", "lm_shared_flash",
         "lm_simulate_flash", "lm_geomedian_flash", "shared_layer",
         "shared_int8_seg4", "approx_int8_seg4", "lm_shared_flash_layer",
         "vgg11_simulate", "vgg11_shared", "lenet_single", "shared_c16",
         "lm_shared_flash_adamw", "vgg11_random", "shared_int8_sr",
-        "majvote_bf16_sr", "majvote_random", "lm_shared_flash_devgen")
+        "majvote_bf16_sr", "majvote_random", "lm_shared_flash_devgen",
+        "shared_tree_g8", "shared_int8_tree_g8", "approx_tree_g3",
+        "lm_shared_flash_tree_g4")
 # the legs' workers at full width: presets rep-resnet18 and cyclic-vgg11
-# (n=9), single-lenet (n=1), the others n=8
+# (n=9), single-lenet (n=1), the ResNet tree legs (n=16), the approx tree
+# (n=9), the others n=8
 FULL_N = {"majvote": 9, "vgg11_simulate": 9, "vgg11_shared": 9,
           "lenet_single": 1, "vgg11_random": 9, "majvote_bf16_sr": 9,
-          "majvote_random": 9}
+          "majvote_random": 9, "shared_tree_g8": 16,
+          "shared_int8_tree_g8": 16, "approx_tree_g3": 9}
 
 
 def _bad(x):
@@ -126,7 +131,7 @@ def test_kernel_audit_report_on_the_cpu(tmp_path):
     assert report["all_ok"]
     rows = {r["name"]: r for r in json.loads(out.read_text())["rows"]}
     assert list(rows) == [s.name for s in kernel_audit.SPECS]
-    assert len(rows) == 19
+    assert len(rows) == 22
     mis = rows["control_mistiled_copy"]
     assert mis["failed_rules"] == ["coverage"]
     assert mis["plain"]["bitwise_equal"]

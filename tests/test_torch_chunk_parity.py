@@ -7,9 +7,9 @@
 * A chunked port run against the reference's **eager** loop on the same
   inputs (the reference's own chunked token loop fails its tests,
   ROADMAP Queue C, so it is no oracle): the same weights
-  (``params.from_jax``), batches or tokens, adversary schedule, the
-  reference's in-graph projection (``rand_factor``) and, for the ResNet,
-  its augmentation draws (``make_chunk(draws=)``). The port runs the steps
+  (``params.from_jax``), batches or tokens and adversary schedule; the
+  port draws the reference's in-graph projection and, for the ResNet, its
+  augmentation draws itself, from the seed. The port runs the steps
   as one chunk (its CPU loop), the reference step by step; nothing is
   re-synchronised between the steps.
 
@@ -35,7 +35,6 @@ import numpy as np
 import pytest
 import torch
 
-from draco_tpu import rng as jrng
 from draco_tpu.config import TrainConfig as JaxConfig
 from draco_tpu.data import batching as jbatching
 from draco_tpu.parallel.mesh import make_mesh_2d
@@ -49,7 +48,6 @@ from draco_tpu_torch.data import batching, datasets
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.sp_step import synthetic_text
 from draco_tpu_torch.training.step import build_train_setup
-from test_torch_step import jax_aug_draws
 
 torch.set_num_threads(1)
 
@@ -134,9 +132,8 @@ def test_lm_chunk_against_the_reference_eager_loop():
     jset = jax_lm_setup(JaxConfig(eval_freq=0, log_every=1000, **kw),
                         make_mesh_2d(1, 1))
     init, _ = params_mod.from_jax(jax.device_get(jset.state.params))
-    rf = np.array(jrng.random_projection_factors_in_graph(SEED, jset.dim))
     tset = build_sp_train_setup(TrainConfig(steps_per_call=3, **kw),
-                                device="cpu", init=init, rand_factor=rf)
+                                device="cpu", init=init)
     adv = rng.adversary_schedule(SEED, 3, 8, 1)
     toks = np.stack([synthetic_text(SEED, s, 8, 2, 16, 32)
                      for s in (1, 2, 3)])
@@ -167,10 +164,8 @@ def test_resnet_chunk_against_the_reference_eager_loop():
                                decode_impl="pallas", **kw), make_mesh(n))
     init = params_mod.from_jax(jax.device_get(jset.state.params),
                                jax.device_get(jset.state.batch_stats))
-    rf = np.array(jrng.random_projection_factors_in_graph(SEED, jset.dim))
     tset = build_train_setup(TrainConfig(steps_per_call=2, **kw),
-                             device="cpu", dataset_name=ds.name, init=init,
-                             rand_factor=rf)
+                             device="cpu", dataset_name=ds.name, init=init)
     adv = rng.adversary_schedule(SEED, 3, n, 1)
     idx = batching.indices_cyclic_range(len(ds), 0, 2, n, b, SEED)
     batches = [batching.gather(ds, idx[i], n, b) for i in range(2)]
@@ -182,7 +177,7 @@ def test_resnet_chunk_against_the_reference_eager_loop():
         ref_rows.append({k: float(jm[k]) for k in tset.metric_names})
     chunk = tset.make_chunk(
         1, np.stack([x for x, _ in batches]), np.stack([y for _, y in batches]),
-        adv[1:3], draws=[jax_aug_draws(SEED, s, n, b) for s in (1, 2)])
+        adv[1:3])
     _, block = tset.train_many(tset.state, chunk)
     rows = _rows(block, tset.block_names)
     for r, ref in zip(rows, ref_rows):

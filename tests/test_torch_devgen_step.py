@@ -29,7 +29,6 @@ import numpy as np
 import pytest
 import torch
 
-from draco_tpu import rng as jrng
 from draco_tpu.config import TrainConfig as JaxConfig
 from draco_tpu.parallel.mesh import make_mesh_2d
 from draco_tpu.parallel.sp_step import build_sp_train_setup as jax_setup
@@ -56,7 +55,6 @@ def test_lm_device_tokens_against_the_references_chunked_loop():
     init, _ = params_mod.from_jax(jax.device_get(jset.state.params))
     tset = build_sp_train_setup(TrainConfig(**DEVGEN), device="cpu",
                                 init=init)
-    rf = np.array(jrng.random_projection_factors_in_graph(SEED, tset.dim))
     adv = rng.adversary_schedule(SEED, DEVGEN["max_steps"], 8, 1)
     steps = np.arange(1, 3, dtype=np.int32)
     jstate, jblock = jset.train_token_many(
@@ -66,7 +64,7 @@ def test_lm_device_tokens_against_the_references_chunked_loop():
     tstate = tset.state
     for i, step in enumerate(steps):
         assert tstate.step == step
-        tstate, m = tset.train_step(tstate, None, adv[step], rand_factor=rf)
+        tstate, m = tset.train_step(tstate, None, adv[step])
         ref = jblock[i]
         assert float(m["loss"]) == pytest.approx(ref[col["loss"]], rel=1e-4)
         for k in ("located_errors", "det_tp", "det_adv"):

@@ -7,7 +7,7 @@ multi-device mesh computes some workers' gradients wrongly, ROADMAP Queue
 C). The port runs on the CPU through the kernels' plain versions, from the
 reference's initial parameters (``params.from_jax``), on the same
 ``synthetic_text`` tokens and adversary schedule, with the reference's
-in-graph random projection handed in as ``rand_factor``. Two steps per
+in-graph random projection, which the port draws itself. Two steps per
 leg, the port starting each from the reference's parameters and momentum:
 cyclic ``shared`` and ``simulate`` (n=8, s=1, a rev_grad adversary each
 step) and the geometric-median baseline.
@@ -27,7 +27,6 @@ import pytest
 import torch
 
 from draco_tpu import optim as joptim
-from draco_tpu import rng as jrng
 from draco_tpu.config import TrainConfig as JaxConfig
 from draco_tpu.obs.forensics import mask_metric_names
 from draco_tpu.parallel.mesh import make_mesh_2d
@@ -89,7 +88,6 @@ def leg(request):
     lay = tset.layout
     assert tset.dim == jset.dim
     adv = rng.adversary_schedule(SEED, kw["max_steps"], 8, 1)
-    rf = np.array(jrng.random_projection_factors_in_graph(SEED, tset.dim))
     rec = {"steps": [], "names": tset.metric_names, "jax_names":
            jset.metric_names}
     before = init
@@ -97,7 +95,7 @@ def leg(request):
         toks = synthetic_text(SEED, step, 8, 2, 32, 64)
         jstate, jm = jset.train_step(jstate, jnp.asarray(toks),
                                      jnp.asarray(adv[step]))
-        tstate, tm = tset.train_step(tstate, toks, adv[step], rand_factor=rf)
+        tstate, tm = tset.train_step(tstate, toks, adv[step])
         st = {"jax": {k: float(jm[k]) for k in tset.metric_names},
               "port": {k: float(v) for k, v in tm.items()},
               "before": _flat(before, lay),

@@ -39,14 +39,13 @@ from draco_tpu_torch import params as params_mod
 from draco_tpu_torch import rng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching, datasets
-from draco_tpu_torch.ops import vote
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.sp_step import synthetic_text
 from draco_tpu_torch.training.step import build_train_setup
 from test_torch_chunk import assert_chunk_equals_eager
 from test_torch_chunk_cnn import cnn_build, cnn_chunk
 from test_torch_lm_step import LM
-from test_torch_step import COMMON, SEED, _flat_params, _resync, jax_aug_draws
+from test_torch_step import COMMON, SEED, _flat_params, _resync
 
 torch.set_num_threads(1)
 
@@ -64,14 +63,6 @@ VOTE_COLUMNS = ("vote_agree", "flagged_groups", "det_flagged", "det_tp",
 def ds():
     return datasets.load_dataset("synthetic-cifar10", synthetic_train=256,
                                  synthetic_test=8)
-
-
-def jax_vote_salts(seed, step):
-    """The reference step's fingerprint salts: bits of fold(key(seed + 4),
-    step) (training/step.py, coding/repetition.py)."""
-    key = jrng.fold(jax.random.key(seed + 4), jnp.int32(step))
-    return vote.salts_tensor(np.asarray(jax.random.bits(key, (2,),
-                                                        jnp.uint32)))
 
 
 def test_grouped_indices_bit_for_bit():
@@ -104,7 +95,7 @@ def leg(request, ds):
                              init=init)
     adv = rng.adversary_schedule(SEED, kw["max_steps"], n,
                                  cfg.num_adversaries)[step]
-    present, salts = None, None
+    present = None
     if cfg.straggle_mode == "drop":
         present = ~rng.straggler_schedule(SEED, kw["max_steps"], n,
                                           cfg.straggle_count)[step]
@@ -112,18 +103,14 @@ def leg(request, ds):
         idx = batching.indices_grouped(
             len(ds), step - 1, n, cfg.group_size, b,
             rng.group_seeds(SEED, cfg.num_groups))
-        draws = jax_aug_draws(SEED, step, cfg.num_groups, b)
-        salts = jax_vote_salts(SEED, step)
     else:
         idx = batching.indices_baseline(len(ds), step - 1, n, b, SEED)
-        draws = jax_aug_draws(SEED, step, n, b)
     x, y = batching.gather(ds, idx, n, b)
     jargs = (jnp.asarray(x), jnp.asarray(y), jnp.asarray(adv))
     if present is not None:
         jargs += (jnp.asarray(present),)
     jstate, jm = jset.train_step(jset.state, *jargs)
-    tstate, tm = tset.train_step(tset.state, x, y, adv, aug_draws=draws,
-                                 present=present, salts=salts)
+    tstate, tm = tset.train_step(tset.state, x, y, adv, present=present)
     rec = {"cfg": cfg, "names": tset.metric_names, "adv": adv,
            "present": present,
            "jax": {k: float(v) for k, v in jm.items()

@@ -108,4 +108,6 @@ def test_launch_counters_reset():
                                  "complex_recombine_segments",
                                  "cyclic_narrow_recombine_segments",
                                  "approx_decode_segment", "random_inject",
-                                 "round_draw", "synthetic_text"}
+                                 "round_draw", "synthetic_text",
+                                 "augment_draws", "dropout_keep",
+                                 "vote_salts"}

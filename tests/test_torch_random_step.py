@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from draco_tpu import rng as jrng
 from draco_tpu.config import TrainConfig as JaxConfig
 from draco_tpu.runtime import make_mesh
 from draco_tpu.training.step import build_train_setup as jax_setup
@@ -31,7 +30,7 @@ from draco_tpu_torch import rng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching, datasets
 from draco_tpu_torch.training.step import build_train_setup
-from test_torch_step import COMMON, SEED, _flat_params, _resync, jax_aug_draws
+from test_torch_step import COMMON, SEED, _flat_params, _resync
 
 torch.set_num_threads(1)
 
@@ -61,15 +60,12 @@ def leg(request, ds):
     tset = build_train_setup(TrainConfig(**kw), device="cpu",
                              dataset_name=ds.name, init=init)
     adv = rng.adversary_schedule(SEED, kw["max_steps"], n, 1)[step]
-    rf = np.array(jrng.random_projection_factors_in_graph(SEED, tset.dim))
     pick = (batching.indices_baseline if kw["approach"] == "baseline"
             else batching.indices_cyclic)
     x, y = batching.gather(ds, pick(len(ds), step - 1, n, b, SEED), n, b)
     jstate, jm = jset.train_step(jset.state, jnp.asarray(x), jnp.asarray(y),
                                  jnp.asarray(adv))
-    tstate, tm = tset.train_step(tset.state, x, y, adv,
-                                 aug_draws=jax_aug_draws(SEED, step, n, b),
-                                 rand_factor=rf)
+    tstate, tm = tset.train_step(tset.state, x, y, adv)
     lay = tset.layout
     rec = {"n": n, "names": tset.metric_names,
            "jax": {k: float(v) for k, v in jm.items()

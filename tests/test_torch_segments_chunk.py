@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from draco_tpu import rng as jrng
 from draco_tpu.config import TrainConfig as JaxConfig
 from draco_tpu.parallel.mesh import make_mesh_2d
 from draco_tpu.parallel.sp_step import build_sp_train_setup as jax_setup
@@ -63,11 +62,10 @@ def test_lm_layer_segments_step_matches_the_reference():
     lay = tset.layout
     assert tset.dim == jset.dim
     adv = rng.adversary_schedule(SEED, LM["max_steps"], 8, 1)
-    rf = np.array(jrng.random_projection_factors_in_graph(SEED, tset.dim))
     toks = synthetic_text(SEED, 1, 8, 2, 32, 64)
     jstate, jm = jset.train_step(jset.state, jnp.asarray(toks),
                                  jnp.asarray(adv[1]))
-    tstate, tm = tset.train_step(tset.state, toks, adv[1], rand_factor=rf)
+    tstate, tm = tset.train_step(tset.state, toks, adv[1])
     port = {k: float(v) for k, v in tm.items()}
     ref = {k: float(jm[k]) for k in tset.metric_names}
     assert port["loss"] == pytest.approx(ref["loss"], rel=1e-4)

@@ -27,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 
-from draco_tpu import rng as jrng
 from draco_tpu.config import TrainConfig as JaxConfig
 from draco_tpu.runtime import make_mesh
 from draco_tpu.training.step import build_train_setup as jax_setup
@@ -38,7 +37,7 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching, datasets
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.training.step import build_train_setup
-from test_torch_step import COMMON, SEED, _flat_params, _resync, jax_aug_draws
+from test_torch_step import COMMON, SEED, _flat_params, _resync
 
 torch.set_num_threads(1)
 
@@ -87,16 +86,13 @@ def step_both(name, ds) -> dict:
     if cfg.straggle_mode == "drop":
         present = ~rng.straggler_schedule(SEED, kw["max_steps"], n,
                                           cfg.straggle_count)[step]
-    rf = np.array(jrng.random_projection_factors_in_graph(SEED, tset.dim))
     x, y = batching.gather(
         ds, batching.indices_cyclic(len(ds), step - 1, n, b, SEED), n, b)
     jargs = (jnp.asarray(x), jnp.asarray(y), jnp.asarray(adv))
     if present is not None:
         jargs += (jnp.asarray(present),)
     jstate, jm = jset.train_step(jset.state, *jargs)
-    tstate, tm = tset.train_step(tset.state, x, y, adv,
-                                 aug_draws=jax_aug_draws(SEED, step, n, b),
-                                 rand_factor=rf, present=present)
+    tstate, tm = tset.train_step(tset.state, x, y, adv, present=present)
     rec = {"cfg": cfg, "names": tset.metric_names, "present": present,
            "jax": {k: float(v) for k, v in jm.items()
                    if k in tset.metric_names},

@@ -34,8 +34,8 @@ from draco_tpu_torch import rng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching, datasets
 from draco_tpu_torch.training.step import build_train_setup
-from test_torch_majvote_step import VOTE_COLUMNS, jax_vote_salts
-from test_torch_step import COMMON, SEED, _flat_params, _resync, jax_aug_draws
+from test_torch_majvote_step import VOTE_COLUMNS
+from test_torch_step import COMMON, SEED, _flat_params, _resync
 
 torch.set_num_threads(1)
 
@@ -71,9 +71,7 @@ def leg(request, ds):
     x, y = batching.gather(ds, idx, n, b)
     jstate, jm = jset.train_step(jset.state, jnp.asarray(x), jnp.asarray(y),
                                  jnp.asarray(adv))
-    tstate, tm = tset.train_step(
-        tset.state, x, y, adv, aug_draws=jax_aug_draws(SEED, step, 1, b),
-        salts=jax_vote_salts(SEED, step))
+    tstate, tm = tset.train_step(tset.state, x, y, adv)
     lay = tset.layout
     rec = {"names": tset.metric_names,
            "jax": {k: float(v) for k, v in jm.items()

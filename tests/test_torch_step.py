@@ -261,7 +261,6 @@ def leg(request, ds):
     tstate = tset.state
     lay = tset.layout
     adv = rng.adversary_schedule(SEED, kw["max_steps"], n, 1)
-    rf = np.array(jrng.random_projection_factors_in_graph(SEED, tset.dim))
     pick = (batching.indices_baseline if kw["approach"] == "baseline"
             else batching.indices_cyclic)
     rec = {"steps": [], "n": n, "names": tset.metric_names}
@@ -270,9 +269,7 @@ def leg(request, ds):
         x, y = batching.gather(ds, pick(len(ds), step - 1, n, b, SEED), n, b)
         jstate, jm = jset.train_step(jstate, jnp.asarray(x), jnp.asarray(y),
                                      jnp.asarray(adv[step]))
-        tstate, tm = tset.train_step(tstate, x, y, adv[step],
-                                     aug_draws=jax_aug_draws(SEED, step, n, b),
-                                     rand_factor=rf)
+        tstate, tm = tset.train_step(tstate, x, y, adv[step])
         rec["steps"].append({
             "jax": {k: float(v) for k, v in jm.items()
                     if k in tset.metric_names},

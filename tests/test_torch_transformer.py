@@ -147,11 +147,12 @@ def test_unflatten_inverts_flatten(deep):
 
 
 def test_init_follows_flax_distributions():
-    """Same distributions as Flax's initialisers (other numbers): LeCun
-    normal kernels truncated at 2σ, the untruncated Embed normal, unit
-    scales, zero biases."""
+    """Flax's initialisers' distributions (the numbers themselves are the
+    reference's, test_torch_stream_draws.py): LeCun normal kernels
+    truncated at 2σ, the untruncated Embed normal, unit scales, zero
+    biases."""
     tm = TransformerLM(vocab=512, dim=256, heads=4, layers=1)
-    init_params(tm, torch.Generator().manual_seed(0))
+    init_params(tm, 0)
     emb = tm.embed.weight.detach()
     qkv = tm.block0.qkv.weight.detach()
     assert abs(emb.std().item() * 16 - 1) < 0.02

@@ -15,19 +15,20 @@ This file runs ``vgg_shared`` and the chunk; ``test_torch_vgg_simulate_step
 minute on one core).
 
 Both packages start from the same weights (``params.from_jax``) and take
-the same batches, the reference's own augmentation draws and random
-projection, and the reference's own dropout masks: for batch row k of
-step t, the masks its ``nn.Dropout`` draws under the key the step folds
-for (seed + 3, t, k), recorded by the method interceptor of
-``test_torch_models_cnn.py``. Two steps a leg, the port starting each
-from the reference's state (parameters, momentum).
+the same batches; the port draws the reference's own augmentation draws,
+random projection and dropout masks itself. The masks are held bit for
+bit to the reference's: for batch row k of step t, the masks its
+``nn.Dropout`` draws under the key the step folds for (seed + 3, t, k),
+drawn by a method interceptor as ``nn.Dropout.__call__`` draws them. Two
+steps a leg, the port starting each from the reference's state
+(parameters, momentum).
 
 Tolerances, as ``test_torch_step.py``'s: the discrete decode columns
 equal; loss rtol 1e-4; the parameter update (−lr × the decoded gradient,
 with momentum on step 2) within 1e-2 relative L2 (a unit within rounding
 of a ReLU kink lands on either side in the two frameworks at batch 2).
-A K=2 chunk of ``vgg_shared`` (its dropout masks staged like the draws)
-is held bit for bit to its two eager steps.
+A K=2 chunk of ``vgg_shared`` (its dropout masks drawn on the device from
+the staged step) is held bit for bit to its two eager steps.
 """
 
 import jax
@@ -36,8 +37,7 @@ import numpy as np
 import pytest
 import torch
 from flax import linen as nn
-from test_torch_models_cnn import dropout_interceptor
-from test_torch_step import _flat_params, _resync, jax_aug_draws
+from test_torch_step import _flat_params, _resync
 
 from draco_tpu import rng as jrng
 from draco_tpu.config import TrainConfig as JaxConfig
@@ -48,6 +48,7 @@ from draco_tpu_torch import params as params_mod
 from draco_tpu_torch import rng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching, datasets
+from draco_tpu_torch.ops import draws
 from draco_tpu_torch.training.step import build_train_setup
 
 torch.set_num_threads(1)
@@ -81,20 +82,40 @@ def data():
 
 def jax_dropout_masks(network, step, rows):
     """(rows, 2, B, 512) bool: the masks the reference's VGG draws for
-    batch row k of ``step`` (its key folded from (seed + 3, step, k))."""
+    batch row k of ``step`` (its key folded from (seed + 3, step, k)).
+    The masks depend on the key and the shapes alone: the model runs on
+    zero weights, jitted, and XLA keeps only the draws."""
     jm = jax_build_model(network)
     x = jnp.zeros((B, 32, 32, 3), jnp.float32)
-    variables = jm.init({"params": jax.random.key(0),
-                         "dropout": jax.random.key(1)}, x, train=True)
-    out = []
-    for k in range(rows):
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.key(0), "dropout": jax.random.key(1)}, x,
+        train=True))
+    variables = jax.tree.map(lambda a: jnp.zeros(a.shape, a.dtype), shapes)
+
+    @jax.jit
+    def masks_of(k):
         masks = []
-        key = jrng.fold(jax.random.key(SEED + 3), jnp.int32(step),
-                        jnp.int32(k))
-        with nn.intercept_methods(dropout_interceptor(record=masks)):
-            jm.apply(variables, x, train=True, rngs={"dropout": key})
-        out.append(np.stack(masks))
-    return torch.from_numpy(np.stack(out))
+
+        def icpt(next_fun, args, kwargs, context):
+            # in place of nn.Dropout.__call__: its draw, recorded traced
+            # (test_torch_models_cnn.dropout_interceptor's)
+            mod = context.module
+            if not isinstance(mod, nn.Dropout) or context.method_name != \
+                    "__call__":
+                return next_fun(*args, **kwargs)
+            keep = jax.random.bernoulli(mod.make_rng(mod.rng_collection),
+                                        p=1.0 - mod.rate, shape=args[0].shape)
+            masks.append(keep)
+            return jax.lax.select(keep, args[0] / (1.0 - mod.rate),
+                                  jnp.zeros_like(args[0]))
+
+        with nn.intercept_methods(icpt):
+            jm.apply(variables, x, train=True, rngs={"dropout": jrng.fold(
+                jax.random.key(SEED + 3), jnp.int32(step), k)})
+        return jnp.stack(masks)
+
+    return torch.from_numpy(np.stack([np.asarray(masks_of(jnp.int32(k)))
+                                      for k in range(rows)]))
 
 
 @pytest.fixture(scope="module", params=["vgg_shared"])
@@ -122,8 +143,6 @@ def run_leg(name, data):
     assert tset.dim == jset.dim
     adv = rng.adversary_schedule(SEED, kw["max_steps"], n,
                                  cfg.num_adversaries)
-    rf = (np.array(jrng.random_projection_factors_in_graph(SEED, tset.dim))
-          if cfg.approach == "cyclic" else None)
     pick = (batching.indices_baseline if cfg.approach == "baseline"
             else batching.indices_cyclic)
     vgg = kw["network"].startswith("VGG")
@@ -134,12 +153,14 @@ def run_leg(name, data):
                                B)
         jstate, jm = jset.train_step(jstate, jnp.asarray(x), jnp.asarray(y),
                                      jnp.asarray(adv[step]))
-        tstate, tm = tset.train_step(
-            tstate, x, y, adv[step],
-            aug_draws=(jax_aug_draws(SEED, step, n, B) if vgg else None),
-            rand_factor=rf,
-            dropout_masks=(jax_dropout_masks(kw["network"], step, n)
-                           if vgg else None))
+        tstate, tm = tset.train_step(tstate, x, y, adv[step])
+        if vgg:
+            # the masks the port's step drew are the reference's
+            keep = draws.dropout_keep(
+                torch.tensor(step, dtype=torch.int32),
+                SEED + draws.DROPOUT_SALT, n, 2, B, 512)
+            assert torch.equal(keep, jax_dropout_masks(kw["network"], step,
+                                                       n))
         rec["steps"].append({
             "jax": {k: float(v) for k, v in jm.items()
                     if k in tset.metric_names},
@@ -178,9 +199,9 @@ def test_updates_and_params(leg):
 
 
 def test_vgg_chunk_is_its_eager_steps(data):
-    """K=2: the chunk stages each step's dropout masks (drawn on the host
-    from (seed + 3, step, row)) beside the draws and gives the two eager
-    steps' metrics and state bit for bit."""
+    """K=2: the chunk stages the step numbers and no masks (each step
+    draws its dropout masks on the device from (seed + 3, step, row)) and
+    gives the two eager steps' metrics and state bit for bit."""
     kw = dict(COMMON, **LEGS["vgg_shared"], steps_per_call=2)
     ds = data["synthetic-cifar10"]
     cfg = TrainConfig(**kw)
@@ -195,7 +216,8 @@ def test_vgg_chunk_is_its_eager_steps(data):
         state, m = a.train_step(state, xs[i], ys[i], adv[1 + i])
         recs.append([float(m[k]) for k in a.block_names])
     chunk = b.make_chunk(1, np.stack(xs), np.stack(ys), adv[1:3])
-    assert chunk.tensors["dropout"].shape == (2, n, 2, B, 512)
+    assert "dropout" not in chunk.tensors
+    assert chunk.tensors["step"].tolist() == [1, 2]
     _, block = b.train_many(b.state, chunk)
     assert block.tolist() == recs
     sa, sb = a.state.tensors(), b.state.tensors()
