@@ -64,7 +64,17 @@ prints no result line):
               and from a graph replayed at two staged steps, each replay
               its step's draws. The locator with a presence row a column
               (the tree's groups, L=2 at n=8, s=1): each column bit for
-              bit the kernel on that column alone. Times
+              bit the kernel on that column alone. The observatory's
+              kernels (``numerics_kernels``, csrc/numerics.cu):
+              ``stage_stats`` on inputs with subnormals, NaN, ±Inf,
+              bfloat16's largest and larger and values at and under the
+              exponent edges, at ``shared``'s grad, wire-pair and
+              aggregate stages, ``simulate``'s (8, 3, d) grad stage and
+              small ragged shapes at blocks 1, 7, 256, 5000 and past d:
+              every count column bit for bit its plain version, rms within
+              1e-5 of it and 1e-6 of an f64 sum; ``nonfinite_rows`` bool
+              for bool on NaN and Inf rows, (8, 3, d) lanes and an
+              unaligned buffer; each twice and from a graph replay. Times
               each kernel, its plain version, its bound and the one PyTorch
               call that computes the same function, where there is one
               (torch.matmul; scaled_dot_product_attention and its autograd
@@ -119,7 +129,17 @@ prints no result line):
               f32 and the int8 wire: every step it is located, 12 honest
               rows), ``approx_tree_g3`` (preset approx-resnet18 at n=9 in
               three groups of 3) and ``lm_shared_flash_tree_g4`` (the LM
-              at n=8 in two groups of 4).
+              at n=8 in two groups of 4). Then the wire observatory
+              (``numerics_watch=on`` and a shadow decode):
+              ``simulate_watch_bf16``, ``approx_watch_int8_sr`` (the int8
+              shadow rounded stochastically), ``majvote_shadow_int8`` and
+              ``lm_shared_flash_watch``: every step's shadow finite, its
+              flags the f32 flags, its aggregate within the dtype's band.
+              On every coded leg each step's ``wmask_adv0`` is the
+              schedule's row, ``wmask_present0`` the presence row and
+              ``wmask_accused0`` the located adversaries; every coded leg
+              launches ``nonfinite_rows``, only a watched one
+              ``stage_stats``.
               Each leg runs through the entry points a user calls (Trainer /
               build_sp_train_setup + TokenLoop) with the launch counts
               zeroed just before it and read just after; every coded step
@@ -133,7 +153,10 @@ prints no result line):
               decoded aggregate (fresh setups, deterministic cuDNN) within
               rtol 2e-4, atol 1e-6 of the twin's;
               shared_int8_sr against shared_int8: the detection columns
-              equal on every eager and chunked step; tree against flat
+              equal on every eager and chunked step; each watch leg
+              against its leg without the watch (``watch_twin_checks``):
+              one step from fresh setups, the aggregate handed to the
+              optimizer bit for bit and every shared column equal; tree against flat
               (``tree_vs_flat``): one step's (16, d) ResNet-18 batch
               gradients encoded flat (n=16, s=1) and as the tree, a
               rev_grad adversary on row 11, then row 9 dropped, decoded
@@ -196,10 +219,11 @@ prints no result line):
               kernel of the legs (the ten ported and the segment kernels)
               captured in a graph alone, its replay bit for bit its direct
               launch at the main path's shapes. The lint (phase 5) also runs the chunked
-              programs of ``simulate``, ``lm_shared_flash``, ``majvote``
-              and ``lm_shared_flash_devgen``: no
+              programs of ``simulate``, ``lm_shared_flash``, ``majvote``,
+              ``lm_shared_flash_devgen`` and ``lm_shared_flash_watch``: no
               synchronising call inside a chunk, one device-to-host fetch
-              a flush, the staging copy's bytes, the graph's pool
+              a flush (the run heartbeat folding its records), the staging
+              copy's bytes, the graph's pool
   7. state    the run state (``state_phase``), ResNet legs under
               deterministic cuDNN: preset cyclic-resnet18 with
               ``shared``, n=8, K=4, 12 steps with the test-set eval
@@ -216,7 +240,12 @@ prints no result line):
               (bytes, save and load ms) and the eval ms; the checkpoint-
               polling evaluator (``python -m
               draco_tpu_torch.training.evaluator --once``) against
-              ``Trainer.evaluate`` at 4, 8, 12. ``lm_shared_flash`` at full
+              ``Trainer.evaluate`` at 4, 8, 12. The uninterrupted run's
+              status.json passes the schema check at schema 5 with its
+              forensics (the adversary accused on every step) and wire
+              blocks and ends ``done``; the SIGTERM run's ends
+              ``preempted`` with ``resumable_step`` 8.
+              ``lm_shared_flash`` at full
               width, K=4: 8 steps with a checkpoint at 4 and 8, then a
               fresh setup resumed from 4 for 4 steps, the state at 8 bit
               for bit. ``single_machine`` on preset single-lenet for 12
@@ -265,11 +294,12 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data.datasets import load_dataset
 from draco_tpu_torch.models import build_model
 from draco_tpu_torch.models.transformer import TransformerLM
-from draco_tpu_torch.obs import locator_ab, numerics
+from draco_tpu_torch.obs import heartbeat, locator_ab, numerics
 from draco_tpu_torch.obs.trace_report import fold_device_phases
 from draco_tpu_torch.obs.tracer import PHASES
 from draco_tpu_torch.ops import coded, controls, decode_kernels, draws, vote
 from draco_tpu_torch.ops import flash_attention as fa
+from draco_tpu_torch.ops import numerics as ops_numerics
 from draco_tpu_torch.parallel import common as common_mod
 from draco_tpu_torch.parallel.common import decode_bounds
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
@@ -279,6 +309,7 @@ from draco_tpu_torch.training import step as step_mod
 from draco_tpu_torch.training.chunk_graph import StateSnapshot
 from draco_tpu_torch.training.trainer import Trainer
 from draco_tpu_torch.utils import checkpoint as ckpt
+from draco_tpu_torch.utils.metrics import host_rows
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -325,6 +356,9 @@ SEG_CODED = ("complex_matmul", "complex_project_segments", "cyclic_locator",
 AUG = ("augment_draws",)
 VGG_DRAWS = AUG + ("dropout_keep",)
 VOTE_DRAWS = AUG + ("vote_salts",)
+# the observatory's kernels: the statistics of a watched leg's stages and
+# the ingest check, which every coded leg runs (``drive``)
+WATCHED = ("stage_stats", "nonfinite_rows")
 # the kernels each leg must launch
 EXPECT = {"simulate": CODED[1:] + AUG, "geomedian": AUG,
           "shared": CODED + AUG,
@@ -354,7 +388,15 @@ EXPECT = {"simulate": CODED[1:] + AUG, "geomedian": AUG,
           "shared_tree_g8": CODED + AUG,
           "shared_int8_tree_g8": NARROW + AUG,
           "approx_tree_g3": ("approx_decode",) + AUG,
-          "lm_shared_flash_tree_g4": CODED + FLASH}
+          "lm_shared_flash_tree_g4": CODED + FLASH,
+          # the observatory: the statistics kernel, and the shadow's
+          # second decode through the leg's own decode kernels
+          "simulate_watch_bf16": CODED[1:] + AUG + WATCHED,
+          "approx_watch_int8_sr": ("approx_decode", "round_draw") + AUG
+          + WATCHED,
+          "majvote_shadow_int8": ("row_fingerprints",) + VOTE_DRAWS
+          + WATCHED,
+          "lm_shared_flash_watch": CODED + FLASH + WATCHED}
 # the draw kernels a leg launches only where it draws: no other leg
 # launches them
 DRAWS = ("random_inject", "round_draw", "synthetic_text", "augment_draws",
@@ -384,7 +426,9 @@ LOOP_CHUNKS = 3  # chunks of the chunk phase's timed loop (runner.run)
 # the columns a chunk must give exactly as the eager loop does
 DISCRETE = ("honest_located", "located_errors", "det_tp", "det_adv",
             "present", "decode_residual_bound", "recovered_fraction",
-            "vote_agree", "flagged_groups", "det_flagged")
+            "vote_agree", "flagged_groups", "det_flagged", "wmask_accused0",
+            "wmask_present0", "wmask_adv0", "shadow_det_flagged",
+            "shadow_det_tp")
 # the majvote leg's every step: 8 of its 9 rows agree with their group's
 # winner, the adversary's group flagged, the adversary out-voted
 VOTE_HELD = {"vote_agree": 8 / 9, "flagged_groups": 1, "det_flagged": 1,
@@ -1328,6 +1372,212 @@ def step_draw_kernels(dev, step) -> tuple:
               f"launches and graph replays at two steps bit for bit; "
               f"ms={ms:.4f} (CUDA graph) plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.3e} ({b_by})", flush=True)
+    return rows, replays
+
+
+# --------------------------------------------------------------------------
+# the numerics observatory's kernels (csrc/numerics.cu)
+# --------------------------------------------------------------------------
+
+# the statistics' columns that must equal the plain version's bit for bit:
+# all but rms, whose Σ x² the kernel sums in f64 and the plain version in
+# torch's f32 reduction
+STAT_EXACT = tuple(i for i, k in enumerate(ops_numerics.STAT_NAMES)
+                   if k != "rms")
+RMS_RTOL = 1e-5  # the kernel's rms against the plain version's
+RMS_F64_RTOL = 1e-6  # the kernel's rms against an f64 sum of the squares
+
+
+def planted(shape, g, dev, huge: bool = True) -> torch.Tensor:
+    """Normal values scaled over 2^-140 .. 2^20 with the edge cases planted
+    in every row: zeros, subnormals above and below 2^-133, values at and
+    just under the exponent edges, bfloat16's largest and larger
+    (``huge``: their squares overflow f32, so Σ x² and rms are inf), ±Inf
+    and NaN (one row kept finite)."""
+    x = torch.randn(shape, generator=g, device=dev)
+    e = torch.randint(-140, 21, shape, generator=g, device=dev)
+    x = torch.ldexp(x, e.to(torch.float32))
+    rows = x.view(-1, shape[-1])
+    d = shape[-1]
+    picks = [0.0, 2.0 ** -140, -(2.0 ** -134), 2.0 ** -130, 2.0 ** -126]
+    if huge:
+        picks += [3.3895313892515355e38, 3.4e38, -3.4e38]
+    for k in (-32, -16, -8, 0, 8):
+        picks += [2.0 ** k, math.nextafter(2.0 ** k, 0.0),
+                  -math.nextafter(2.0 ** k, 0.0)]
+    for r in range(rows.shape[0]):
+        at = (r * 7919 + torch.arange(len(picks) + 2, device=dev) * 104729) % d
+        rows[r, at[:len(picks)]] = torch.tensor(picks, device=dev)
+        if r % 3 == 1:
+            rows[r, at[-2]] = float("nan")
+        if r % 3 == 2:
+            rows[r, at[-1]] = float("inf") if r % 2 else float("-inf")
+    return x
+
+
+def stats_f64(parts) -> float:
+    """The rms of the finite elements of ``parts``, the squares summed in
+    f64."""
+    s = n = 0.0
+    for p in parts:
+        f = p[torch.isfinite(p)].double()
+        s += float((f * f).sum())
+        n += f.numel()
+    return math.sqrt(s / max(n, 1.0))
+
+
+def numerics_kernels(dev) -> tuple:
+    """``stage_stats`` and ``nonfinite_rows`` against their plain versions
+    on the card. stage_stats on planted inputs (``planted``: subnormals,
+    NaN, ±Inf, bfloat16's largest and larger, values at and under the
+    exponent edges) at the shapes of the legs' stages — ``shared``'s grad
+    (8, d), its wire pair and its aggregate (d,), ``simulate``'s grad
+    (8, 3, d), ResNet-18's d — at block 256, and small ragged ones at
+    blocks 1, 7, 256, 5000 (a whole CTA a block) and past d: every count
+    column bit for bit, rms within 1e-5 of the plain version's and 1e-6 of
+    an f64 sum; each twice and from a graph replay bit for bit.
+    nonfinite_rows on clean rows, a NaN row, an Inf row, rows of
+    ``simulate``'s (8, 3, d) lanes and a buffer off a 16-byte boundary,
+    bool for bool. Times (CUDA graph) the shared leg's three stage calls
+    against their byte bound, and nonfinite_rows at ``shared``'s (8, d),
+    ``simulate``'s (8, 3, d) and the LM's (8, 62,958,336)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    cases = 0
+    worst_rms = worst_f64 = 0.0
+
+    def hold(label, parts, block):
+        nonlocal cases, worst_rms, worst_f64
+        k1 = ops_numerics.stage_stats(parts, block)
+        k2 = ops_numerics.stage_stats(parts, block)
+        p = ops_numerics.stage_stats_plain(parts, block)
+        idx = list(STAT_EXACT)
+        require(_same_bits(k1, k2), f"stage_stats {label}: two launches "
+                f"differ: {k1.tolist()} / {k2.tolist()}")
+        require(_same_bits(k1[idx], p[idx]),
+                f"stage_stats {label}: kernel {k1.tolist()}, plain "
+                f"{p.tolist()}")
+        if math.isinf(float(p[1])):
+            # a square past f32's range: Σ x² is inf in f32, as the
+            # reference sums it
+            require(math.isinf(float(k1[1])), f"stage_stats {label}: rms "
+                    f"{float(k1[1])!r}, plain inf")
+            cases += 1
+            return
+        rel = abs(float(k1[1]) - float(p[1])) / max(float(p[1]), 1e-30)
+        rel64 = (abs(float(k1[1]) - stats_f64(parts))
+                 / max(stats_f64(parts), 1e-30))
+        require(rel <= RMS_RTOL and rel64 <= RMS_F64_RTOL,
+                f"stage_stats {label}: rms {float(k1[1])!r}, plain "
+                f"{float(p[1])!r} ({rel:.2e}), f64 {stats_f64(parts)!r} "
+                f"({rel64:.2e})")
+        worst_rms, worst_f64 = max(worst_rms, rel), max(worst_f64, rel64)
+        cases += 1
+
+    grad = planted((N, D), g, dev, huge=False)
+    hold("shared grad (8, d)", [grad], BLOCK)
+    wre, wim = planted((N, D), g, dev, huge=False), planted((N, D), g, dev)
+    hold("shared wire pair", [wre, wim], BLOCK)
+    hold("shared wire re", [wre], BLOCK)
+    agg = planted((D,), g, dev, huge=False)
+    hold("aggregate (d,)", [agg], BLOCK)
+    sim = planted((N, 3, D), g, dev, huge=False)
+    hold("simulate grad (8, 3, d)", [sim], BLOCK)
+    for shape in ((3, 1003), (5, 4100), (2, 2, 777)):
+        for block in (1, 7, 256, 5000, 1 << 20):
+            for huge in (False, True):
+                parts = [planted(shape, g, dev, huge)]
+                hold(f"{shape} block {block}", parts, block)
+                parts.append(planted(shape, g, dev, huge))
+                hold(f"{shape} x2 block {block}", parts, block)
+    replays = []
+    replay_bitwise("stage_stats", lambda: ops_numerics.stage_stats(
+        [wre, wim], BLOCK))
+    replays.append("stage_stats [shared wire pair]")
+    # timed at the shared leg's three stages
+    stages = ([grad], [wre, wim], [agg])
+    ms = sum(graph_ms(lambda s=s: ops_numerics.stage_stats(s, BLOCK), 10)
+             for s in stages)
+    plain_ms = sum(time_ms(lambda s=s: ops_numerics.stage_stats_plain(
+        s, BLOCK), 2, warmup=1) for s in stages)
+    nbytes = sum(ops_numerics.stage_bytes(s) for s in stages)
+    b_ms, b_by = bound(nbytes, ops_numerics.OPS_PER_ELEMENT * nbytes / 4,
+                       INT32_OPS)
+    sim_bytes = ops_numerics.stage_bytes([sim])
+    sim_ms = graph_ms(lambda: ops_numerics.stage_stats([sim], BLOCK), 10)
+    print(f"kernel stage_stats: {cases} cases, every count column bit for "
+          f"bit its plain version, rms within {worst_rms:.2e} of the "
+          f"plain's and {worst_f64:.2e} of an f64 sum; two launches and a "
+          f"graph replay bit for bit; shared's three stages ms={ms:.4f} "
+          f"(CUDA graph) plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by}, {nbytes / 1e9:.4f} GB); simulate's grad stage "
+          f"{sim_ms:.4f} ms ({sim_bytes / 1e9:.4f} GB, bound "
+          f"{sim_bytes / HBM_BYTES_PER_S * 1e3:.4f})", flush=True)
+    rows = [{"name": "stage_stats", "route": "cuda",
+             "source": "draco_tpu_torch/csrc/numerics.cu",
+             "replaces": "draco_tpu/obs/numerics.py:446", "ok": True,
+             "max_abs_err": 0.0, "rms_rel_err": worst_rms,
+             "rms_rel_err_f64": worst_f64,
+             "tol": f"counts bit for bit; rms rtol {RMS_RTOL:g} (plain), "
+                    f"{RMS_F64_RTOL:g} (f64)",
+             "cases": cases, "timed_at": "shared's grad, wire and agg "
+             "stages (n=8, d=11,173,962, block 256)", "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None, "simulate_grad_ms": sim_ms,
+             "simulate_grad_bound_ms": sim_bytes / HBM_BYTES_PER_S * 1e3}]
+    del grad, wre, wim, agg
+    # nonfinite_rows
+    checked = 0
+    for shape in ((N, D), (N, 3, D), (9, 5003), (4, 1)):
+        x = torch.randn(shape, generator=g, device=dev)
+        flat = x.view(shape[0], -1)
+        L = flat.shape[1]
+        if shape[0] > 2:
+            flat[1, L - 1] = float("nan")
+            flat[2, L // 2] = float("-inf")
+        for offset in (0, 1):
+            buf = torch.empty(x.numel() + 1, device=dev)
+            buf[offset:offset + x.numel()] = x.flatten()
+            y = buf[offset:offset + x.numel()].view(shape)
+            k = ops_numerics.nonfinite_rows(y)
+            p = ops_numerics.nonfinite_rows_plain(y)
+            require(torch.equal(k, p) and torch.equal(
+                k, ops_numerics.nonfinite_rows(y)),
+                f"nonfinite_rows {shape} at element {offset}: kernel "
+                f"{k.tolist()}, plain {p.tolist()}")
+            checked += 1
+        del x, flat, buf, y
+    sim = torch.randn((N, 3, D), generator=g, device=dev)
+    replay_bitwise("nonfinite_rows", lambda: ops_numerics.nonfinite_rows(
+        sim))
+    replays.append("nonfinite_rows [simulate (8, 3, d)]")
+    timed = {}
+    for label, shape in (("shared", (N, D)), ("simulate", (N, 3, D)),
+                         ("lm_shared_flash", (N, LM_D))):
+        x = sim if label == "simulate" else torch.randn(
+            shape, generator=g, device=dev)
+        nb = 4 * x.numel() + shape[0]
+        timed[label] = {
+            "ms": graph_ms(lambda: ops_numerics.nonfinite_rows(x), 10),
+            "plain_ms": time_ms(lambda: ops_numerics.nonfinite_rows_plain(
+                x), 3, warmup=1),
+            "bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+        del x
+    del sim
+    t = timed["simulate"]
+    print(f"kernel nonfinite_rows: bool for bool its plain version in "
+          f"{checked} cases (NaN and Inf rows, (8, 3, d) lanes, a buffer "
+          f"off 16 bytes), a graph replay bit for bit; "
+          + "; ".join(f"{k} ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+                      f"bound_ms={v['bound_ms']:.4f}"
+                      for k, v in timed.items()), flush=True)
+    rows.append({"name": "nonfinite_rows", "route": "cuda",
+                 "source": "draco_tpu_torch/csrc/numerics.cu",
+                 "replaces": "draco_tpu/obs/forensics.py:161", "ok": True,
+                 "max_abs_err": 0.0, "tol": "bool for bool",
+                 "cases": checked, "timed_at": "simulate's (8, 3, d)",
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                 "library_ms": None, "by_leg": timed})
     return rows, replays
 
 
@@ -2422,6 +2672,12 @@ def drive(name, program, steps, expect, dev) -> dict:
     for r in recs:
         require(math.isfinite(r["loss"]),
                 f"{name} step {r['step']}: loss {r['loss']}")
+        if cfg.approach != "baseline":
+            require(masks_held(r, runner, cfg),
+                    f"{name} step {r['step']}: forensics masks: {r}")
+        if cfg.shadow_wire != "off":
+            require(shadow_held(r, cfg),
+                    f"{name} step {r['step']}: the shadow decode: {r}")
         if cfg.approach == "maj_vote":
             require(vote_held(r), f"{name} step {r['step']}: the vote did "
                     f"not out-vote exactly the adversary: {r}")
@@ -2438,6 +2694,12 @@ def drive(name, program, steps, expect, dev) -> dict:
     for k in expect:
         require(counts[k] > 0, f"{name}: kernel {k} was never launched "
                 f"({counts})")
+    # every coded step runs the ingest check; only a watched leg the
+    # statistics
+    coded_leg = cfg.approach != "baseline"
+    require((counts["nonfinite_rows"] > 0) == coded_leg
+            and (counts["stage_stats"] > 0) == (cfg.numerics_watch == "on"),
+            f"{name}: observatory kernels {counts}")
     if cfg.approach == "cyclic" and cfg.wire_dtype != "f32":
         require(counts["complex_recombine"] == 0,
                 f"{name}: complex_recombine ran on the narrow wire "
@@ -2759,9 +3021,10 @@ class _ChunkRuns:
         """The chunk's (records, ms/step by CUDA events, final state)."""
         (_, block), ms = _timed(
             lambda: self.client.dispatch(self.runner.state, self.chunk))
-        recs = [{**dict(zip(self.client.block_names, row)),
+        names = self.client.block_names
+        recs = [{**dict(zip(names, row)),
                  **{c: float(v[i]) for c, v in self.extras.items()}}
-                for i, row in enumerate(block.cpu().tolist())]
+                for i, row in enumerate(host_rows(block, names))]
         return self._end(recs, ms, self.K)
 
     def loop(self, chunks: int):
@@ -2773,6 +3036,38 @@ class _ChunkRuns:
         require(last["step"] == self.step0 + chunks * self.K - 1,
                 f"chunk {self.name}: the loop ended at step {last['step']}")
         return self._end(last, wall_ms, chunks * self.K)
+
+
+def mask_word(mask) -> int:
+    """A (n ≤ 32,) bool row as its packed word (bit i: worker i)."""
+    return sum(1 << i for i, b in enumerate(mask) if b)
+
+
+def masks_held(r: dict, runner, cfg) -> bool:
+    """A coded record's forensics words: ``wmask_adv0`` the schedule's row
+    (none on the approx code), ``wmask_present0`` the presence row, the
+    accused word a subset of the present one holding every adversary the
+    step located (cyclic: det_tp of det_adv; the vote out-votes its
+    adversary) and nothing else on these clean legs."""
+    n, step = cfg.num_workers, r["step"]
+    adv = ([False] * n if cfg.approach == "approx"
+           else [bool(b) for b in runner.adv_schedule[step]])
+    stragglers = getattr(runner, "straggle_schedule", None)  # CNN only
+    present = ([True] * n if stragglers is None
+               else [not b for b in stragglers[step]])
+    adv_w, pres_w = mask_word(adv), mask_word(present)
+    located_w = mask_word([a and p for a, p in zip(adv, present)])
+    return (r["wmask_adv0"] == adv_w and r["wmask_present0"] == pres_w
+            and r["wmask_accused0"] == located_w)
+
+
+def shadow_held(r: dict, cfg) -> bool:
+    """A shadow decode beside the f32 one: finite (no sentinel), its flags
+    the f32 flags and its aggregate within the dtype's calibration band
+    (5e-2 relative L2 on bf16, 1.5e-1 on int8, numerics.SHADOW_REL_TOL)."""
+    tol = numerics.SHADOW_REL_TOL[cfg.shadow_wire]
+    return (0.0 <= r["shadow_err"] <= tol and r["shadow_residual"] >= 0.0
+            and r["shadow_flag_agree"] == 1.0)
 
 
 def located(name, r, cfg) -> bool:
@@ -3173,6 +3468,32 @@ def twin_checks(legs, dev, ds) -> dict:
               f"{out[leg]['max_abs_gap']:.3e}, bit for bit: "
               f"{out[leg]['bitwise']}; honest_located (leg, twin) "
               f"{out[leg]['honest_located']}", flush=True)
+        del agg_a, agg_b
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def watch_twin_checks(dev, ds) -> dict:
+    """Each watch leg against its leg without the observatory
+    (registry.WATCH_TWINS), one step of each from a fresh setup (the ResNet
+    legs under deterministic cuDNN): the aggregate the optimizer is handed
+    bit for bit the twin's — the f32 decode alone feeds the update — and
+    every column the twin has equal."""
+    out = {}
+    for leg, twin in registry.WATCH_TWINS.items():
+        rec_a, agg_a = first_aggregate(registry.get(leg), dev, ds)
+        rec_b, agg_b = first_aggregate(registry.get(twin), dev, ds)
+        cols = [c for c in rec_b if c not in ("step", "step_ms")]
+        same = _same_bits(agg_a, agg_b)
+        require(same and all(rec_a[c] == rec_b[c] for c in cols),
+                f"watch {leg} / {twin}: the update differs (aggregate bit "
+                f"for bit: {same}) or a shared column does: {rec_a} / "
+                f"{rec_b}")
+        out[leg] = {"twin": twin, "aggregate_bitwise": same,
+                    "columns_equal": len(cols)}
+        print(f"watch {leg} / {twin}: the first step's aggregate bit for "
+              f"bit the twin's, {len(cols)} shared columns equal", flush=True)
         del agg_a, agg_b
         gc.collect()
         torch.cuda.empty_cache()
@@ -3707,6 +4028,28 @@ def _stop_mid_chunk(tr, start: int) -> None:
     tr.chunk_client = chunk_client
 
 
+def status_held(label: str, train_dir: str, state: str, cfg) -> dict:
+    """The run's status.json: schema 5 under the reference's check
+    (``check_status_schema``), the terminal ``state``, the forensics block
+    with the adversary accused on every observed step and the wire block
+    of the run's wire ledger."""
+    with open(os.path.join(train_dir, "status.json")) as f:
+        status = json.load(f)
+    heartbeat.check_status_schema(status, tool="chip_smoke")
+    fx, wire = status.get("forensics", {}), status.get("wire", {})
+    require(status.get("schema") == heartbeat.STATUS_SCHEMA
+            and status.get("state") == state and status.get("run_id")
+            and fx.get("num_workers") == cfg.num_workers
+            and fx.get("accused_total") == fx.get("steps") > 0
+            and wire.get("family") == cfg.approach
+            and wire.get("num_workers") == cfg.num_workers,
+            f"state {label}: status.json {status}")
+    print(f"state {label}: status.json schema {status['schema']}, "
+          f"{status['state']}, forensics {fx}, wire "
+          f"{wire.get('physical_bytes_per_step')} bytes a step", flush=True)
+    return status
+
+
 def state_resnet(dev, ds, root: str) -> dict:
     """Preset cyclic-resnet18 at n=8, ``shared``, K=4, eval and checkpoint
     every 4 of 12 steps, all under deterministic cuDNN: the uninterrupted
@@ -3740,8 +4083,10 @@ def state_resnet(dev, ds, root: str) -> dict:
         require(ckpt.available_steps(a_dir) == [4, 8, 12],
                 f"state resnet: checkpoints {ckpt.available_steps(a_dir)}")
         final = _state_copy(tr.state)
+        status = status_held("uninterrupted", a_dir, "done", cfg)
         out["uninterrupted"] = {"wall_s": wall, "evals": evals,
-                                "launches": want, "state_tensors": len(final)}
+                                "launches": want, "state_tensors": len(final),
+                                "status": status}
 
         # resume from 4 on the same setup: its graph captured and replayed
         graph = tr.setup.train_many.graph()
@@ -3798,6 +4143,9 @@ def state_resnet(dev, ds, root: str) -> dict:
                 f"state stop: stopped at {trs.stopped_step}, checkpoints "
                 f"{ckpt.available_steps(s_dir)}")
         _launched("stop", counts_s, want, names)
+        stopped = status_held("stop", s_dir, "preempted", cfg)
+        require(stopped.get("resumable_step") == 8,
+                f"state stop: status.json {stopped}")
         del trs
         trr = trainer(s_dir, checkpoint_step=-1)
         require(trr.state.step == 9, "state stop: resumed at "
@@ -4013,18 +4361,20 @@ def main(argv=None) -> int:
     code9 = cyclic.build_cyclic_code(VGG_N, VGG_S)
     cuts = leg_bounds()
     draw_rows, draw_replays = draw_kernels(dev)
+    numerics_rows, numerics_replays = numerics_kernels(dev)
+    torch.cuda.empty_cache()
     kernels = (coded_kernels(code, dev, code9)
                + locator_kernel(code, dev, code9, old_locator_lib)
                + narrow_kernels(code, dev) + segment_kernels(code, dev, cuts)
                + flash_kernels(dev) + vote_kernels(dev) + draw_rows
-               + control_kernels(dev))
+               + numerics_rows + control_kernels(dev))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     record["kernel_audit"] = audit_kernels()
     record["kernel_audit_s"] = time.perf_counter() - t0
 
     record["graph_replay"] = (graph_replay_kernels(code, dev, cuts)
-                              + draw_replays)
+                              + draw_replays + numerics_replays)
     torch.cuda.empty_cache()
 
     legs = []
@@ -4042,6 +4392,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     record["sr_twins"] = sr_twin_checks(legs)
+    record["watch_twins"] = watch_twin_checks(dev, ds)
     record["vote_checks"] = vote_checks(dev, ds)
     record["bf16_simulate"] = bf16_simulate_check(dev, ds)
     gc.collect()
@@ -4087,6 +4438,7 @@ def main(argv=None) -> int:
                   "augment_draws": "shared",
                   "dropout_keep": "vgg11_simulate",
                   "vote_salts": "majvote",
+                  "stage_stats": "simulate_watch_bf16",
                   **{k: "lm_shared_flash" for k in FLASH}}
     # the controls run on no main path: their counts are read from every
     # leg, and are 0 on each

@@ -32,6 +32,8 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# no --use_fast_math and no -ftz=true, here or below: csrc/numerics.cu
+# counts float32 subnormals, which flushing to zero would hide
 # the locator is a chain of small dot products whose rounding the plain
 # version sets; keep nvcc from contracting a*b + c into one FMA there
 EXTRA_FLAGS = {"cyclic_locator": ("--fmad=false",)}
@@ -74,6 +76,11 @@ SIGNATURES = {
         "draco_augment_draws": [_P, _P, _U, _I, _I, _I, _I, _P],
         "draco_dropout_keep": [_P, _P, _U, _I, _I, _I, _U, _U, _LL, _F, _P],
         "draco_vote_salts": [_P, _P, _U, _P],
+    },
+    "numerics": {
+        "draco_stage_grid": [_LL, _LL, _LL],
+        "draco_stage_stats": [_P, _P, _LL, _LL, _LL, _P, _P, _F, _P],
+        "draco_nonfinite_rows": [_P, _P, _I, _LL, _P],
     },
     "controls": {
         "draco_control_mistiled_copy": [_P, _P, _I, _I, _P],

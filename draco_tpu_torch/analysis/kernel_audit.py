@@ -4,7 +4,7 @@ tools/_lowering_common.run_rows).
     python -m draco_tpu_torch.analysis.kernel_audit [--device cpu|cuda]
         [--kernels NAME,...] [--out FILE]
 
-One row per kernel entry point of ``csrc/*.cu`` — the sixteen of the
+One row per kernel entry point of ``csrc/*.cu`` — the twenty-one of the
 main paths and the three negative controls of ``csrc/controls.cu`` — each
 grouping the ``__global__`` functions it launches, held to the
 :class:`KernelSpec` below by four rules:
@@ -243,6 +243,17 @@ SPECS = (
                "draco_tpu/models/vgg.py:52", 32),
     KernelSpec("vote_salts", "draws", ("vote_salts_kernel",),
                "draco_tpu/coding/repetition.py:115", 32),
+    # the observatory (csrc/numerics.cu): the statistics' ten counters, Σ x²
+    # in f64 and 8 loaded values a lane in registers (64 registers, 4
+    # blocks a SM); the ingest check's exponent test of 16-byte chunks (20)
+    KernelSpec("stage_stats", "numerics",
+               ("stage_stats_kernel<32>", "stage_stats_kernel<256>",
+                "stage_finish_kernel"),
+               "draco_tpu/obs/numerics.py:446", 64,
+               main=("stage_stats_kernel<32>", "stage_finish_kernel")),
+    KernelSpec("nonfinite_rows", "numerics", ("nonfinite_rows_kernel",),
+               "draco_tpu/obs/forensics.py:161", 32, largest={"n": MAX_N},
+               largest_shape=(MAX_N, 0)),
     KernelSpec("control_mistiled_copy", "controls",
                ("control_mistiled_copy_kernel",),
                "tools/tpu_attn_lowering_check.py:111", 8, racecheck=False,
@@ -387,6 +398,8 @@ def _cases(name: str, dev) -> list:
         cases += _draw_cases(name, dev, cuda, rnd)
     elif name == "row_fingerprints":
         cases += _vote_cases(dev, cuda, rnd)
+    elif name in ("stage_stats", "nonfinite_rows"):
+        cases += _numerics_cases(name, dev, cuda, rnd)
     elif name.startswith("flash_"):
         G, T = 2, 70  # ragged against the 64- and 32-row tiles
         for dh in (16, 24, 64, 100):  # instances 16, 32, 64, 128
@@ -756,6 +769,39 @@ def _vote_cases(dev, cuda: bool, rnd) -> list:
     return cases
 
 
+# the observatory's coverage: stage_stats's 12 columns over one and two
+# parts of (3, 1003) at blocks 7 and 5000 (a warp and a CTA a block);
+# nonfinite_rows at n = 9 rows of 1003 and 1002 (a NaN in row 4)
+def _numerics_cases(name: str, dev, cuda: bool, rnd) -> list:
+    from draco_tpu_torch.ops import numerics as ops_numerics
+
+    cases = []
+    if name == "stage_stats":
+        for parts, block in ((1, 7), (2, 7), (1, 5000), (2, 5000)):
+            xs = [rnd(3, 1003) for _ in range(parts)]
+
+            def run(o, xs=xs, block=block):
+                if cuda:
+                    ops_numerics.stage_stats_launch(xs, block, o["out"])
+                else:
+                    _put(o, out=ops_numerics.stage_stats_plain(xs, block))
+            cases.append(Case(f"parts={parts} (3, 1003) block={block}",
+                              {"out": ((12,), torch.float32)}, run))
+        return cases
+    for d in (1003, 1002):
+        x = rnd(9, d)
+        x[4, d // 2] = float("nan")
+
+        def run(o, x=x):
+            if cuda:
+                ops_numerics.nonfinite_rows_launch(x, o["out"])
+            else:
+                _put(o, out=ops_numerics.nonfinite_rows_plain(x)
+                     .to(torch.uint8))
+        cases.append(Case(f"n=9 d={d}", {"out": ((9,), torch.uint8)}, run))
+    return cases
+
+
 # the draws' coverage: random_inject on every row of n = 9, d = 1003 (the
 # plain form over poison; the pair, which adds in place, over zeros, every
 # element still 0 after it poisoned again: a draw is never 0, since the
@@ -1005,6 +1051,11 @@ def _launch_largest(s: KernelSpec, dev) -> None:
             rnd(n, d), torch.ones(n, dtype=torch.bool, device=dev),
             torch.ones((), dtype=torch.int32, device=dev), 435, -100.0,
             rnd(n, d))
+    elif s.name == "nonfinite_rows":
+        from draco_tpu_torch.ops import numerics as ops_numerics
+
+        ops_numerics.nonfinite_rows_launch(rnd(n, d),
+                                           empty(n, dtype=torch.bool))
     elif s.name == "approx_decode":
         chunks = decode_kernels.approx_decode_chunks(d)
         decode_kernels.approx_decode_launch(

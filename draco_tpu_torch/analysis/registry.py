@@ -45,7 +45,14 @@ and the masks, no tokens). Four run the tree topology
 every step; the f32 and the int8 wire), ``approx_tree_g3`` (preset
 approx-resnet18 at n=9 in three groups of 3) and
 ``lm_shared_flash_tree_g4`` (the LM at n=8 in two groups of 4, s_g = 0, no
-adversary).
+adversary). Four run the wire observatory (``obs/numerics.py``: the
+numerics columns from the ``stage_stats`` kernel and a shadow-quantized
+second decode): ``simulate_watch_bf16`` (the flagship with the bf16
+shadow), ``approx_watch_int8_sr`` (preset approx-resnet18 with the int8
+shadow, stochastically rounded), ``majvote_shadow_int8`` (preset
+rep-resnet18 with the int8 shadow) and ``lm_shared_flash_watch`` (the LM's
+``shared`` leg with the bf16 shadow). Every coded leg runs the ingest check
+(``nonfinite_rows``) and packs its forensics masks.
 """
 
 from __future__ import annotations
@@ -106,6 +113,8 @@ APPROX_TREE_CI = dict(num_workers=6)
 # configuration, tests/test_tree.py)
 LM_TREE = dict(approach="cyclic", redundancy="shared", worker_fail=0,
                adversary_count=0, topology="tree", tree_fanout=4)
+# the numerics observatory on (the shadow's dtype is each leg's own)
+WATCH = dict(numerics_watch="on")
 # the LM's AdamW: an Adam-sized rate, the cosine schedule with a 2-step
 # warmup and the global-norm clip at 1
 ADAMW = dict(optimizer="adamw", lr=1e-3, lr_schedule="cosine",
@@ -234,7 +243,12 @@ class LintProgram:
                               "max_steps": max_steps, **fields}).validate()
 
     def manifest(self, cfg, full: bool) -> Manifest:
+        # a bf16 shadow rounds through the bf16 wire's core: its buffers
+        # appear, though nothing crosses a wire narrow (an int8 shadow keeps
+        # its levels in f32)
         dtypes = DEFAULT_DTYPES | WIRE_DTYPES[cfg.wire_dtype]
+        if cfg.shadow_wire == "bf16":
+            dtypes = dtypes | WIRE_DTYPES["bf16"]
         promos = ("_to_copy",)
         if cfg.compute_dtype == "bfloat16":
             dtypes = dtypes | {torch.bfloat16}
@@ -293,7 +307,9 @@ class ChunkProgram:
     (``control/clients.py``) and ``train_many``. Its manifest: no
     synchronising call inside a chunk, one device-to-host fetch a flush,
     the H2D bytes of a chunk (its staging copy: K steps' uploads) and a
-    peak that includes the graph's private pool."""
+    peak that includes the graph's private pool. The flush runs as the
+    loops run it: the run heartbeat (``obs/heartbeat.py``, on a temporary
+    train_dir) observes its records and beats, within the one fetch."""
 
     name: str
     leg: str  # the LintProgram it chunks
@@ -311,6 +327,9 @@ class ChunkProgram:
             flush_fetches=1)
 
     def build(self, device=None, full: bool = False, dataset=None) -> Program:
+        import tempfile
+
+        from draco_tpu_torch.obs.heartbeat import RunHeartbeat
         from draco_tpu_torch.runtime import resolve_device
         from draco_tpu_torch.utils.metrics import (
             DeferredMetricWriter,
@@ -323,7 +342,10 @@ class ChunkProgram:
         runner = lp.runner(cfg, dev, full, dataset)
         client = runner.chunk_client(1, cfg.max_steps)
         ranges = client.ranges
-        deferred = DeferredMetricWriter(MetricWriter("", quiet=True))
+        status_dir = tempfile.TemporaryDirectory(prefix="draco_lint_")
+        hb = RunHeartbeat(status_dir.name, num_workers=cfg.num_workers)
+        deferred = DeferredMetricWriter(MetricWriter("", quiet=True),
+                                        observer=hb.observe)
         done = []
 
         def step():
@@ -333,9 +355,12 @@ class ChunkProgram:
                            client.block_names, block, client.extras(chunk))
             done.append(chunk.start)
 
-        def flush() -> int:
+        def flush(status_dir=status_dir) -> int:
+            # (the default keeps the heartbeat's directory while the
+            # program lives)
             before = deferred.fetches
-            deferred.flush()
+            last = deferred.flush()
+            hb.beat(last["step"], cfg.max_steps, extra=client.beat_extras())
             return deferred.fetches - before
 
         def warm():
@@ -428,6 +453,20 @@ PROGRAMS = (
                 9.0, ci=TREE_CI),
     LintProgram("approx_tree_g3", "cnn", APPROX_TREE, 5.0, ci=APPROX_TREE_CI),
     LintProgram("lm_shared_flash_tree_g4", "lm", LM_TREE, 14.5),
+    # the wire observatory: the numerics columns and a shadow decode on
+    # the flagship (bf16), the approx code (int8, stochastic), the vote
+    # (int8) and the LM (bf16)
+    LintProgram("simulate_watch_bf16", "cnn",
+                dict(approach="cyclic", redundancy="simulate", **WATCH,
+                     shadow_wire="bf16"), 16.0),
+    LintProgram("approx_watch_int8_sr", "cnn",
+                dict(APPROX, **WATCH, shadow_wire="int8",
+                     shadow_round="stochastic"), 6.5),
+    LintProgram("majvote_shadow_int8", "cnn",
+                dict(MAJVOTE, **WATCH, shadow_wire="int8"), 8.5,
+                ci=MAJVOTE_CI),
+    LintProgram("lm_shared_flash_watch", "lm",
+                dict(_CYCLIC_SHARED, **WATCH, shadow_wire="bf16"), 24.0),
 )
 
 # each segmented leg's S = 1, global-granularity twin
@@ -437,16 +476,25 @@ TWINS = {"shared_layer": "shared", "shared_int8_seg4": "shared_int8",
 # each stochastically rounded leg's nearest-rounding twin: the same
 # detection columns every step
 SR_TWINS = {"shared_int8_sr": "shared_int8"}
+# each watch leg's leg without the observatory: the same update bit for bit
+WATCH_TWINS = {"simulate_watch_bf16": "simulate",
+               "approx_watch_int8_sr": "approx",
+               "majvote_shadow_int8": "majvote",
+               "lm_shared_flash_watch": "lm_shared_flash"}
 
 
 # the flagship's coded leg, the host-bound LM leg (PERF.md §5), the vote
-# (its salts staged with the draws) and the LM with device tokens (a
-# chunk's staging: K step numbers and the masks)
+# (its salts staged with the draws), the LM with device tokens (a
+# chunk's staging: K step numbers and the masks) and the LM with the
+# observatory (36 + 5 more columns a row, the heartbeat's fold at the
+# flush)
 CHUNKS = (ChunkProgram("chunk_simulate", "simulate"),
           ChunkProgram("chunk_lm_shared_flash", "lm_shared_flash"),
           ChunkProgram("chunk_majvote", "majvote"),
           ChunkProgram("chunk_lm_shared_flash_devgen",
-                       "lm_shared_flash_devgen"))
+                       "lm_shared_flash_devgen"),
+          ChunkProgram("chunk_lm_shared_flash_watch",
+                       "lm_shared_flash_watch"))
 
 
 def collect_chunks() -> "list[ChunkProgram]":

@@ -99,6 +99,9 @@ FLAGS = {
     "--wire-dtype": (str, "wire_dtype"),
     "--shadow-block": (int, "shadow_block"),
     "--shadow-round": (str, "shadow_round"),
+    "--numerics-watch": (str, "numerics_watch"),
+    "--shadow-wire": (str, "shadow_wire"),
+    "--job-name": (str, "job_name"),
     "--wire-segments": (int, "wire_segments"),
     "--topology": (str, "topology"),
     "--tree-fanout": (int, "tree_fanout"),

@@ -23,7 +23,8 @@ from typing import Optional
 from draco_tpu_torch.coding.assignment import build_assignment
 from draco_tpu_torch.coding.topology import (TOPOLOGIES, group_worker_fail,
                                              tree_plan)
-from draco_tpu_torch.obs.numerics import WIRE_DTYPES, wire_rel_tol
+from draco_tpu_torch.obs.numerics import (SHADOW_WIRES, WIRE_DTYPES,
+                                          wire_rel_tol)
 from draco_tpu_torch.ops.flash_attention import MAX_DH
 from draco_tpu_torch.optim import OPTIMIZERS, SCHEDULES
 
@@ -121,6 +122,13 @@ class TrainConfig:
     # .wire_segment_bounds), each decoded on its own and their verdicts
     # folded to one a step (cyclic, approx); on maj_vote the wire only
     wire_segments: int = 1
+    # --- the numerics observatory (obs/numerics.py): "on" adds each
+    # step's dynamic-range columns of the gradients, the wire and the
+    # decoded aggregate; shadow_wire rounds the f32 codewords to bf16 /
+    # int8 (at shadow_block, shadow_round) and decodes them a second time
+    # beside the f32 decode, which alone updates; coded approaches only ---
+    numerics_watch: str = "off"  # off | on
+    shadow_wire: str = "off"  # off | bf16 | int8
     # --- the tree topology (coding/topology.py): topology="tree" splits
     # the workers into n / tree_fanout leaf groups of fan-in g, each
     # running one small code (cyclic at s_g = min(worker_fail, (g - 1) //
@@ -147,6 +155,8 @@ class TrainConfig:
     steps_per_call: int = 1
     # --- run ---
     train_dir: str = "./train_out/"
+    # a label status.json carries (obs/heartbeat.py); "" leaves it out
+    job_name: str = ""
     # resume from this step's checkpoint if > 0; -1 resumes from the newest
     # loadable one in train_dir (corrupt ones are walked past,
     # resilience/supervisor.restore_with_walkback)
@@ -506,6 +516,32 @@ class TrainConfig:
         if self.shadow_block < 1:
             raise ValueError(
                 f"shadow_block must be >= 1, got {self.shadow_block}")
+        self._validate_watch()
+
+    def _validate_watch(self) -> None:
+        """The reference's observatory checks (draco_tpu/config.py)."""
+        if self.numerics_watch not in ("off", "on"):
+            raise ValueError(f"numerics_watch must be off|on, got "
+                             f"{self.numerics_watch!r}")
+        if self.shadow_wire not in SHADOW_WIRES:
+            raise ValueError(f"shadow_wire must be {'|'.join(SHADOW_WIRES)}"
+                             f", got {self.shadow_wire!r}")
+        if self.wire_dtype != "f32" and self.shadow_wire != "off":
+            raise ValueError(
+                "wire_dtype and shadow_wire are mutually exclusive: the "
+                "shadow measures a candidate dtype against the f32 wire, "
+                "which a narrow wire no longer ships (set shadow_wire=off, "
+                "or keep wire_dtype=f32 while calibrating)")
+        if self.topology == "tree" and self.shadow_wire != "off":
+            raise ValueError(
+                "topology='tree' composes with the narrow wire "
+                "(--wire-dtype) but not the shadow decode (--shadow-wire "
+                "measures the flat locator; run it at topology='flat')")
+        if ((self.numerics_watch == "on" or self.shadow_wire != "off")
+                and self.approach not in ("cyclic", "maj_vote", "approx")):
+            raise ValueError(
+                "numerics_watch/shadow_wire require a coded approach "
+                f"(cyclic|maj_vote|approx), got {self.approach!r}")
 
     def _validate_lm(self) -> None:
         """The reference's TransformerLM checks (draco_tpu/config.py), and

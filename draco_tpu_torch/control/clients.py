@@ -29,6 +29,19 @@ class _Client:
                                    cfg.eval_freq)
         self.block_names = loop.setup.block_names
         self.wire_segments = int(cfg.wire_segments)
+        # a record leads with the step and the step's schema
+        self.order = ("step",) + loop.setup.metric_names
+
+    def beat_extras(self) -> dict:
+        """The heartbeat's prefetch fields: the requests in flight and the
+        prefetcher's rebuilds."""
+        if self.prefetch is None:
+            return {}
+        out = {"prefetch_depth": self.prefetch.depth}
+        stats = getattr(self.prefetch, "stats", None)
+        if stats is not None:
+            out.update(stats())
+        return out
 
     def dispatch(self, state, chunk):
         return self.many(state, chunk)

@@ -19,6 +19,12 @@ state the loop then saves is a whole chunk's. A chunked record's
 window's first dispatch to its fetch) divided by its steps, as the
 reference's chunked ``t_comp`` is.
 
+The run heartbeat (``obs/heartbeat.py``, the loop's ``heartbeat``)
+observes every record a flush makes — the records the flush materialises
+anyway, as the deferred writer's observer — and beats once a flush,
+after the records are written: no fetch and no synchronisation of its
+own.
+
 Host spans (``obs/tracer.py``), the reference engine's names: ``gather``
 (the client's assembly) and ``dispatch`` once a chunk with ``chunk_start``
 and ``k`` (and ``segments`` on a segmented wire, S > 1), ``sync`` (the
@@ -32,18 +38,20 @@ Client protocol (``control/clients.py``):
   block_names                 the columns of the chunk's metrics block
   wire_segments               the wire's segments (cfg.wire_segments)
   keep                        the columns a written record keeps, or None
+  order                       the columns that lead a record, or None
   assemble(i, ranges)         chunk i on the host (a ``Chunk``)
   dispatch(state, chunk)      -> (state, block)
   extras(chunk)               host columns of the chunk's records, or {}
   should_log(step)            the loop's metrics.jsonl cadence
+  beat_extras()               the heartbeat's extra fields (prefetch)
   boundary(end, state)        the eval and checkpoint at an eval_freq
                               boundary
   snap_stop(end, saved)       the stop's checkpoint at ``end`` (unless the
                               boundary just saved it)
   cleanup()                   always runs on exit (close the prefetcher)
 
-Not ported: the reference engine's heartbeat, compile watch, profiler
-window and its autopilot hook.
+Not ported: the reference engine's compile watch, profiler window and
+its autopilot hook.
 """
 
 from __future__ import annotations
@@ -58,11 +66,14 @@ MAX_PENDING = 4  # blocks deferred before a flush is forced
 
 class ChunkedEngine:
     def __init__(self, client, *, eval_freq: int, tracer, writer,
-                 stop=None):
+                 heartbeat, total_end: int, stop=None):
         self.client = client
         self.eval_freq = eval_freq
         self.tracer = tracer
-        self.deferred = DeferredMetricWriter(writer)
+        self.heartbeat = heartbeat  # the loop's RunHeartbeat
+        self.total_end = total_end  # the run's last step (the ETA's)
+        self.deferred = DeferredMetricWriter(writer,
+                                             observer=heartbeat.observe)
         self.stop = stop  # the loop's GracefulStop, or None
 
     def run(self, state, ranges):
@@ -80,7 +91,9 @@ class ChunkedEngine:
                        / max(window_steps, 1))
             with tracer.span("flush", at_step=end):
                 deferred.flush(client.should_log, {"step_ms": step_ms},
-                               client.keep)
+                               client.keep, client.order)
+                self.heartbeat.beat(end, self.total_end,
+                                    extra=client.beat_extras())
                 tracer.flush()
 
         try:

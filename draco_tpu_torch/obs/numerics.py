@@ -17,9 +17,26 @@ reference's own (``wire_step_key``: ``fold_in(key(seed + 17), step)``, the
 imaginary part ``fold_in`` of it with 1), made on the card by the
 ``round_draw`` kernel (``ops/draws.py``) from the step on the device. Both
 modes give the reference's buffers bit for bit (``tests/test_torch_wire.py``,
-``tests/test_torch_draws.py``). The reference's numerics observatory,
-shadow decode and wire ledger are not ported; of its shadow quantizer only
-the key function (``shadow_step_key``) is.
+``tests/test_torch_draws.py``).
+
+The reference's observatory, all riding the step's metric row:
+
+* the numerics columns (``cfg.numerics_watch="on"``): twelve statistics
+  (``STAT_NAMES``) of three stages — the pre-encode gradients (``grad``),
+  the codewords on the wire (``wire``) and the decoded aggregate
+  (``agg``) — from the ``stage_stats`` kernel (``ops/numerics.py``),
+  finished on the device: absmax and rms over the finite elements, the
+  bf16 underflow / overflow, int8 underflow, non-finite and exponent-bin
+  fractions of all elements;
+* the shadow-quantized wire (``cfg.shadow_wire`` bf16 | int8): the f32
+  codewords rounded by the real wire's cores (``quantize_rows``, at
+  ``shadow_block`` and ``shadow_round``; stochastic rounding draws at seed
+  + 11) and decoded a second time beside the f32 decode, which alone
+  updates the parameters; the ``SHADOW_NAMES`` columns compare the two
+  (``cyclic_shadow``, ``majvote_shadow``, ``approx_shadow``), a
+  non-finite comparison at ``SHADOW_SENTINEL``;
+* the wire ledger (``wire_ledger``): a step's logical and physical wire
+  bytes from the shapes, status.json's ``wire`` block.
 
 The segmented wire (``cfg.wire_segments`` S > 1) cuts the d axis at the
 reference's bounds (``wire_segment_bounds``): every interior cut a multiple
@@ -38,6 +55,13 @@ import torch
 import torch.nn.functional as F
 
 from draco_tpu_torch.ops import draws
+# the statistics' names and the exponent histogram's bin edges in
+# floor(log2 |x|): (-inf,-32) [-32,-16) [-16,-8) [-8,0) [0,8) [8,inf)
+from draco_tpu_torch.ops.numerics import (  # noqa: F401
+    EXP_EDGES,
+    NUM_EXP_BINS,
+    STAT_NAMES,
+)
 
 # int8 quantization levels per sign (symmetric per-block scale absmax/127)
 INT8_LEVELS = 127.0
@@ -65,8 +89,21 @@ WIRE_REL_TOL_TABLE = {
 # prices drops only
 WIRE_RESIDUAL_SLACK = {"f32": 0.0, "bf16": 2e-2, "int8": 1e-1}
 
-# per-dtype threshold band for shapes outside the table, at s ≤ 2
+# per-dtype threshold band for shapes outside the table, at s ≤ 2; also
+# the shadow decode's flag threshold
 SHADOW_REL_TOL = {"bf16": 5e-2, "int8": 1.5e-1}
+
+# smallest positive bfloat16 subnormal: a smaller f32 flushes to zero on a
+# bf16 wire; largest finite bfloat16 (0x7F7F): a larger f32 rounds to inf
+BF16_TINY = 2.0 ** -133
+BF16_MAX = 3.3895313892515355e38
+NUMERICS_STAGES = ("grad", "wire", "agg")
+NUMERICS_PREFIX = "nx_"
+SHADOW_NAMES = ("shadow_err", "shadow_residual", "shadow_flag_agree",
+                "shadow_det_flagged", "shadow_det_tp")
+# a fault-poisoned shadow comparison's value (every real one is >= 0)
+SHADOW_SENTINEL = -1.0
+SHADOW_WIRES = ("off", "bf16", "int8")
 
 
 def wire_rel_tol(n: int, s: int, dtype: str) -> float:
@@ -304,3 +341,238 @@ def cfg_segment_bounds(cfg, dim: int) -> tuple:
              if getattr(cfg, "wire_dtype", "f32") == "int8" else 1)
     return wire_segment_bounds(dim, getattr(cfg, "wire_segments", 1),
                                block)
+
+
+# --------------------------------------------------------------------------
+# the observatory's schema
+# --------------------------------------------------------------------------
+
+
+def watch_enabled(cfg) -> bool:
+    """True when the step computes any observatory column."""
+    return cfg.numerics_watch == "on" or cfg.shadow_wire != "off"
+
+
+def numerics_metric_names() -> tuple:
+    """The numerics columns: 3 stages × STAT_NAMES."""
+    return tuple(f"{NUMERICS_PREFIX}{stage}_{stat}"
+                 for stage in NUMERICS_STAGES for stat in STAT_NAMES)
+
+
+def watch_metric_names(cfg) -> tuple:
+    """The observatory's columns of ``cfg``'s metric schema."""
+    names = ()
+    if cfg.numerics_watch == "on":
+        names += numerics_metric_names()
+    if cfg.shadow_wire != "off":
+        names += SHADOW_NAMES
+    return names
+
+
+# --------------------------------------------------------------------------
+# the wire ledger
+# --------------------------------------------------------------------------
+
+
+def wire_rows(approach: str) -> int:
+    """Rows a worker ships a gradient element: the cyclic code's re + im
+    pair, one row otherwise."""
+    return 2 if approach == "cyclic" else 1
+
+
+def _segment_bytes(bounds: tuple, rows: int, dtype: str,
+                   block: int) -> list:
+    """A worker's wire bytes of each segment [a, b) at ``dtype``."""
+    out = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        w = rows * (b - a)
+        if dtype == "f32":
+            out.append(4 * w)
+        elif dtype == "bf16":
+            out.append(2 * w)
+        else:  # int8: a byte an element and an f32 scale a block
+            out.append(w + 4 * rows * (-(-(b - a) // block)))
+    return out
+
+
+def wire_ledger(cfg, dim: int) -> dict:
+    """A step's worker -> aggregator wire bytes at flat-gradient size
+    ``dim``: every dtype's, the wire's own (``physical_*``), a segment's,
+    and the tree's per-level ingest (the reference's dict)."""
+    n = int(cfg.num_workers)
+    rows = wire_rows(cfg.approach)
+    words = rows * int(dim)
+    block = max(int(getattr(cfg, "shadow_block", DEFAULT_BLOCK)), 1)
+    blocks = rows * ((int(dim) + block - 1) // block)
+    per_worker = {"f32": 4 * words, "bf16": 2 * words,
+                  "int8": words + 4 * blocks}
+    wire_dtype = getattr(cfg, "wire_dtype", "f32")
+    bounds = cfg_segment_bounds(cfg, dim)
+    seg_worker = _segment_bytes(bounds, rows, wire_dtype, block)
+    ledger = {
+        "family": cfg.approach,
+        "dim": int(dim),
+        "num_workers": n,
+        "wire_words_per_worker": words,
+        "bytes_per_worker": per_worker,
+        "bytes_per_step": {k: v * n for k, v in per_worker.items()},
+        "wire_dtype": wire_dtype,
+        "physical_bytes_per_worker": per_worker[wire_dtype],
+        "physical_bytes_per_step": per_worker[wire_dtype] * n,
+        "shadow_wire": cfg.shadow_wire,
+        "shadow_block": block,
+        "segments": {
+            "count": len(bounds) - 1,
+            "bounds": list(bounds),
+            "physical_bytes_per_worker": seg_worker,
+            "physical_bytes_per_step": [v * n for v in seg_worker],
+        },
+    }
+    if getattr(cfg, "topology", "flat") == "tree":
+        from draco_tpu_torch.coding.topology import tree_ledger_block
+
+        ledger["tree"] = tree_ledger_block(
+            n, int(cfg.tree_fanout), int(getattr(cfg, "tree_levels", 0)),
+            int(dim), per_worker[wire_dtype])
+    return ledger
+
+
+# --------------------------------------------------------------------------
+# the numerics columns
+# --------------------------------------------------------------------------
+
+
+def stage_columns(stage: str, parts, block: int = DEFAULT_BLOCK) -> dict:
+    """The ``nx_{stage}_*`` columns over ``parts`` (the cyclic wire is its
+    re, im pair), 0-d float32 on the parts' device (``stage_stats``)."""
+    from draco_tpu_torch.ops import numerics as numerics_ops
+
+    cols = numerics_ops.stage_stats(
+        [p.float().contiguous() for p in parts], block)
+    return {f"{NUMERICS_PREFIX}{stage}_{name}": cols[i]
+            for i, name in enumerate(STAT_NAMES)}
+
+
+def numerics_columns(cfg, grad_parts, wire_parts, agg) -> dict:
+    """The three stages' columns (``numerics_metric_names`` order)."""
+    block = max(int(cfg.shadow_block), 1)
+    cols = stage_columns("grad", list(grad_parts), block)
+    cols.update(stage_columns("wire", list(wire_parts), block))
+    cols.update(stage_columns("agg", [agg], block))
+    return cols
+
+
+# --------------------------------------------------------------------------
+# the shadow-quantized wire
+# --------------------------------------------------------------------------
+
+
+def shadow_draws(cfg, step, d: int, parts: int):
+    """The shadow's stochastic-rounding draws (parts, d) at seed + 11, or
+    None under nearest rounding."""
+    if cfg.shadow_round != "stochastic":
+        return None
+    return draws.round_draw(step, cfg.seed + draws.SHADOW_SALT, d,
+                            cfg.shadow_wire, parts)
+
+
+def quantize_rows(x: torch.Tensor, mode: str, block: int = DEFAULT_BLOCK,
+                  draw=None) -> torch.Tensor:
+    """Wire rows rounded to ``mode`` and widened back: the f32 rows the
+    shadow decode reads, through the real wire's cores
+    (``narrow_wire_rows`` for bf16; ``_int8_levels_and_scale`` for int8,
+    its levels kept in f32 as the reference keeps them, so a level of −0
+    gives −0; ``widen_wire_rows``)."""
+    block = max(int(block), 1)
+    if mode == "int8":
+        q, scale = _int8_levels_and_scale(x.float(), block, draw)
+        return widen_wire_rows({"q": q, "scale": scale}, mode, block)
+    return widen_wire_rows(narrow_wire_rows(x, mode, block, draw), mode,
+                           block)
+
+
+def _finite_or(v: torch.Tensor,
+               sentinel: float = SHADOW_SENTINEL) -> torch.Tensor:
+    v = v.to(torch.float32)
+    return torch.where(torch.isfinite(v), v, torch.full_like(v, sentinel))
+
+
+def shadow_columns(agg, shadow_agg, shadow_residual, flags, shadow_flags,
+                   adv_mask, present=None) -> dict:
+    """The SHADOW_NAMES columns of one step's f32 and shadow decodes; the
+    shadow flag set scored among the present rows."""
+    n = flags.shape[0]
+    pres = (torch.ones((n,), dtype=torch.bool, device=flags.device)
+            if present is None else present.to(torch.bool))
+    f = flags.to(torch.bool) & pres
+    sf = shadow_flags.to(torch.bool) & pres
+    adv = adv_mask.to(torch.bool)
+    agg, shadow_agg = agg.float(), shadow_agg.float()
+    err = torch.sqrt(((shadow_agg - agg) ** 2).sum()) / torch.clamp_min(
+        torch.sqrt((agg ** 2).sum()), 1e-30)
+    agree = ((f == sf) & pres).to(torch.float32).sum() / torch.clamp_min(
+        pres.to(torch.float32).sum(), 1.0)
+    return {
+        "shadow_err": _finite_or(err),
+        "shadow_residual": _finite_or(shadow_residual),
+        "shadow_flag_agree": _finite_or(agree),
+        "shadow_det_flagged": sf.to(torch.int32).sum(),
+        "shadow_det_tp": (sf & adv & pres).to(torch.int32).sum(),
+    }
+
+
+def cyclic_shadow(cfg, code, enc_re, enc_im, agg, flags, rand_factor,
+                  leaf_offsets, present, adv_mask, step=None) -> dict:
+    """The cyclic shadow: both halves rounded (the imaginary half's draw
+    from ``fold_in(key, 1)``), decoded at SHADOW_REL_TOL at the f32
+    decode's granularity (global, or a locator a leaf)."""
+    from draco_tpu_torch.coding import cyclic as cyclic_mod
+
+    mode, block = cfg.shadow_wire, int(cfg.shadow_block)
+    r = shadow_draws(cfg, step, enc_re.shape[-1], 2)
+    q_re = quantize_rows(enc_re, mode, block, None if r is None else r[0])
+    q_im = quantize_rows(enc_im, mode, block, None if r is None else r[1])
+    rel_tol = SHADOW_REL_TOL[mode]
+    if cfg.decode_granularity == "layer":
+        sagg, _, sh = cyclic_mod.decode_layers(
+            code, q_re, q_im, rand_factor, leaf_offsets, present=present,
+            with_health=True, rel_tol=rel_tol)
+    else:
+        sagg, _, sh = cyclic_mod.decode(
+            code, q_re, q_im, rand_factor, present=present,
+            with_health=True, rel_tol=rel_tol)
+    return shadow_columns(agg, sagg, sh["residual"], flags, sh["flagged"],
+                          adv_mask, present)
+
+
+def majvote_shadow(cfg, rep_code, grads, voted, flags, salts, present,
+                   adv_mask, step=None) -> dict:
+    """The vote's shadow: the gradient rows (this family's wire) rounded
+    with one draw for every row, voted again with the step's salts; the
+    residual is 1 − the shadow's vote agreement."""
+    from draco_tpu_torch.coding import repetition as rep_mod
+
+    r = shadow_draws(cfg, step, grads.shape[-1], 1)
+    qg = quantize_rows(grads, cfg.shadow_wire, cfg.shadow_block,
+                       None if r is None else r[0])
+    voted_s, sh = rep_mod.majority_vote(rep_code, qg, present, salts,
+                                        cfg.vote_check, with_health=True)
+    return shadow_columns(voted, voted_s, 1.0 - sh["vote_agree"], flags,
+                          sh["flagged"], adv_mask, present)
+
+
+def approx_shadow(cfg, code, rows, grads, decoded, vn_pres, present,
+                  adv_mask, step=None) -> dict:
+    """The approx code's shadow: the partial-sum rows rounded and decoded
+    with the step's weights (``vn_pres``); the flags are the non-finite
+    wire rows (this code has no located set), the residual the shadow
+    decode's relative error."""
+    from draco_tpu_torch.coding import approx as approx_mod
+    from draco_tpu_torch.ops.numerics import nonfinite_rows
+
+    r = shadow_draws(cfg, step, rows.shape[-1], 1)
+    q = quantize_rows(rows, cfg.shadow_wire, cfg.shadow_block,
+                      None if r is None else r[0])
+    dec_s, residual = approx_mod.decode_device(code, q, grads, vn_pres)
+    return shadow_columns(decoded, dec_s, residual, nonfinite_rows(rows),
+                          nonfinite_rows(q), adv_mask, present)

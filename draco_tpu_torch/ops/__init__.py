@@ -7,7 +7,7 @@ counts its own launches in ``<wrapper>.launches`` (a plain int), which
 """
 
 from draco_tpu_torch.ops import coded, controls, decode_kernels, draws
-from draco_tpu_torch.ops import flash_attention, vote
+from draco_tpu_torch.ops import flash_attention, numerics, vote
 
 KERNELS = {
     "complex_matmul": coded.complex_matmul,
@@ -35,6 +35,10 @@ KERNELS = {
     "augment_draws": draws.augment_draws,
     "dropout_keep": draws.dropout_keep,
     "vote_salts": draws.vote_salts,
+    # the wire observability's: the numerics observatory's statistics and
+    # the ingest check of every coded step
+    "stage_stats": numerics.stage_stats,
+    "nonfinite_rows": numerics.nonfinite_rows,
 }
 CONTROLS = {
     "control_mistiled_copy": controls.control_mistiled_copy,

@@ -10,8 +10,17 @@ whole or in segments (``wire_segments``), stragglers as a presence mask,
 and the baseline's seven robust rules (``aggregation.py``). The LM route
 runs the cyclic code (flat or tree) and the baseline codes with every row
 present on the f32 wire (``config.validate``); the repetition code is the
-CNN step's (``training/step.py``). The reference's packed
-forensics columns, numerics observatory and step guard are not ported yet.
+CNN step's (``training/step.py``). The reference's step guard is not
+ported yet.
+
+The metric schema (``metric_family_names``, the one assembly of the CNN
+step's ``metric_names`` and the LM's ``token_metric_names``): after a
+route's base columns, its code's health columns, the packed forensics
+masks (``obs/forensics.py``: the accused set — the code's flags ∪ its
+loud rows ∪ the non-finite ingest rows, present-gated — the present set
+and the adversary schedule), then the numerics observatory's columns
+(``numerics_watch``, ``shadow_wire``; ``obs/numerics.py``). The baseline
+emits none of them.
 
 The cyclic decode's dispatch, one for both steps (``decode_bounds`` and
 ``cyclic_decode``): layer granularity — with segments the leaf boundaries
@@ -31,10 +40,11 @@ from draco_tpu_torch.coding import approx as approx_mod
 from draco_tpu_torch.coding import cyclic as cyclic_mod
 from draco_tpu_torch.coding import repetition
 from draco_tpu_torch.coding import topology
-from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.obs import forensics, numerics
 from draco_tpu_torch.obs.tracer import phase
 
-# column order of the LM metric block; cyclic appends DECODE_HEALTH_NAMES
+# the LM's base columns; the optional families follow
+# (metric_family_names)
 TOKEN_METRIC_NAMES = ("loss",)
 
 # per-step decode-health columns of the cyclic code:
@@ -51,6 +61,11 @@ DECODE_HEALTH_NAMES = ("decode_residual", "located_errors", "det_tp",
 #   recovered_fraction     fraction of batches with a present worker
 APPROX_HEALTH_NAMES = ("decode_residual", "decode_residual_bound",
                        "recovered_fraction")
+
+# the repetition code's per-step health columns (coding/repetition.py)
+# and its detection counts against the seeded schedules
+VOTE_NAMES = ("vote_agree", "flagged_groups", "det_flagged", "det_tp",
+              "det_adv")
 
 
 def build_code_from_cfg(cfg):
@@ -156,17 +171,22 @@ def cyclic_decode(cfg, code, enc_re, enc_im, rand_factor, bounds,
 
 
 def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
-                     masked: bool = False, cfg=None, step=None):
-    """The approx code's aggregation on the device: encode the (n, d) batch
-    gradients into partial sums, zero-fill the absent rows by where-select
-    (``masked``: the step has stragglers), put them on the wire
-    (``cfg.wire_dtype``), decode — whole, or a segment at a time on the
-    segmented wire (``cfg.wire_segments > 1``). ``vn_pres``: (2, n) [v/n,
-    presence] on the device, from the host solve
+                     masked: bool = False, cfg=None, step=None,
+                     present: Optional[torch.Tensor] = None,
+                     adv_mask: Optional[torch.Tensor] = None):
+    """The approx code's aggregation on the device: the ingest check of the
+    (n, d) batch gradients, their encode into partial sums, the absent
+    rows zero-filled by where-select (``masked``: the step has
+    stragglers), the wire (``cfg.wire_dtype``), the decode — whole, or a
+    segment at a time on the segmented wire (``cfg.wire_segments > 1``).
+    ``vn_pres``: (2, n) [v/n, presence] on the device, from the host solve
     (``coding.approx.host_solve``); ``step``: the step's device tensor
-    (stochastic rounding's draws). Returns ``(decoded mean (d,), residual
-    (0-d))``. No adversary injection: the code carries no Byzantine
-    certificate."""
+    (stochastic rounding's draws); ``present``, ``adv_mask``: the step's
+    masks on the device, for the forensics columns and the shadow.
+    Returns ``(decoded mean (d,), health)``: ``residual`` (0-d),
+    ``bad_rows`` (n,) and, with the observatory on, ``watch``. No
+    adversary injection: the code carries no Byzantine certificate."""
+    bad_rows = forensics.nonfinite_rows(grads)
     with phase("draco_encode"):
         rows = (topology.encode_tree(code, grads) if topology.is_tree(code)
                 else approx_mod.encode_shared(code, grads))
@@ -179,10 +199,27 @@ def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
             rows = None  # the decode reads the narrow buffers
     with phase("draco_decode"):
         if cfg is not None and int(cfg.wire_segments) > 1:
-            return approx_mod.decode_segments_device(
+            agg, residual = approx_mod.decode_segments_device(
                 code, rows, grads, vn_pres,
                 numerics.cfg_segment_bounds(cfg, grads.shape[1]), wire)
-        return approx_mod.decode_device(code, rows, grads, vn_pres, wire)
+        else:
+            agg, residual = approx_mod.decode_device(code, rows, grads,
+                                                     vn_pres, wire)
+    health = {"residual": residual, "bad_rows": bad_rows}
+    if cfg is not None and numerics.watch_enabled(cfg):
+        watch = {}
+        if cfg.numerics_watch == "on":
+            on_wire = (rows if wire is None
+                       else numerics.widen_wire_rows(wire[1], wire[0],
+                                                     wire[2]))
+            watch.update(numerics.numerics_columns(cfg, [grads], [on_wire],
+                                                   agg))
+        if cfg.shadow_wire != "off":
+            watch.update(numerics.approx_shadow(
+                cfg, code, rows, grads, agg, vn_pres, present, adv_mask,
+                step))
+        health["watch"] = watch
+    return agg, health
 
 
 def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
@@ -204,6 +241,9 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
     drawn on the device from ``step`` (the step's int32 tensor;
     attacks.py)."""
     if cfg.approach == "cyclic":
+        # the ingest check before the encode, which smears a NaN over
+        # every codeword: row k is still worker k here
+        bad_rows = forensics.nonfinite_rows(grads)
         with phase("draco_encode"):
             if grads.dim() == 3:
                 enc_re, enc_im = cyclic_mod.encode(code, grads)
@@ -219,6 +259,18 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
                                                 rand_factor, bounds,
                                                 rel_tol=rel_tol, lam=lam)
         health["honest"] = honest
+        health["bad_rows"] = bad_rows
+        if numerics.watch_enabled(cfg):
+            # the f32 decode above alone feeds the update
+            watch = {}
+            if cfg.numerics_watch == "on":
+                watch.update(numerics.numerics_columns(
+                    cfg, [grads], [enc_re, enc_im], agg))
+            if cfg.shadow_wire != "off":
+                watch.update(numerics.cyclic_shadow(
+                    cfg, code, enc_re, enc_im, agg, health["flagged"],
+                    rand_factor, leaf_offsets, present, adv_mask, step))
+            health["watch"] = watch
         return agg, health
     grads = attacks.inject_plain(grads, adv_mask, cfg.err_mode,
                                  cfg.adversarial, noise, step, cfg.seed,
@@ -246,29 +298,72 @@ def finish_flat_step(state, agg: torch.Tensor, layout) -> None:
         state.opt.step_flat(state.params, agg, layout)
 
 
-def token_metric_names(cfg) -> tuple:
-    """Column order of the LM metric record at ``cfg``."""
-    names = TOKEN_METRIC_NAMES
+def metric_family_names(cfg) -> tuple:
+    """The optional column families a route appends after its base
+    columns, for the CNN step and the LM alike: the code's health columns
+    and the packed forensics masks, then the observatory's columns. The
+    baseline contributes none."""
+    names = ()
     if cfg.approach == "cyclic":
         names += DECODE_HEALTH_NAMES
-    return names
+    elif cfg.approach == "approx":
+        names += APPROX_HEALTH_NAMES
+    elif cfg.approach == "maj_vote":
+        names += VOTE_NAMES
+    if cfg.approach != "baseline":
+        names += forensics.mask_metric_names(cfg.num_workers)
+    return names + numerics.watch_metric_names(cfg)
+
+
+def token_metric_names(cfg) -> tuple:
+    """Column order of the LM metric record at ``cfg``."""
+    return TOKEN_METRIC_NAMES + metric_family_names(cfg)
+
+
+def accusation_mask(health: dict,
+                    present: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The step's accusation set: the code's flags ∪ its loud rows ∪ the
+    non-finite ingest rows, those of them the health carries (the approx
+    code has no flags: its only signal is the ingest check), gated by
+    ``present``."""
+    accused = None
+    for key in ("flagged", "loud", "bad_rows"):
+        if key in health:
+            m = health[key].to(torch.bool)
+            accused = m if accused is None else accused | m
+    if accused is None:
+        raise ValueError("health dict carries no per-worker accusation "
+                         "signal (flagged/loud/bad_rows)")
+    if present is not None:
+        accused = accused & present
+    return accused
 
 
 def decode_health_metrics(health, adv_mask: torch.Tensor,
                           present: Optional[torch.Tensor] = None) -> dict:
-    """The health columns of a cyclic decode ({} for the baseline, whose
-    health is None): DECODE_HEALTH_NAMES with the flag and adversary counts
-    gated by ``present`` — a straggling adversary's row never arrives, so
-    it is neither detectable nor ground truth. (The approx code's columns
-    come from ``approx_aggregate`` and the host solve.)"""
+    """The health columns of a coded decode ({} for the baseline, whose
+    health is None), the packed forensics masks and the observatory's
+    columns (``health["watch"]``). The cyclic code's flag and adversary
+    counts are gated by ``present`` — a straggling adversary's row never
+    arrives, so it is neither detectable nor ground truth; the approx
+    code's health (no ``flagged``) gives its residual (its bound and
+    recovered fraction come from the host solve)."""
     if health is None:
         return {}
-    flagged, adv = health["flagged"], adv_mask
-    if present is not None:
-        flagged, adv = flagged & present, adv & present
-    return {
-        "decode_residual": health["residual"],
-        "located_errors": flagged.sum(),
-        "det_tp": (flagged & adv).sum(),
-        "det_adv": adv.sum(),
-    }
+    watch = health.pop("watch", {})
+    if "flagged" in health:
+        flagged, adv = health["flagged"], adv_mask
+        if present is not None:
+            flagged, adv = flagged & present, adv & present
+        out = {
+            "decode_residual": health["residual"],
+            "located_errors": flagged.sum(),
+            "det_tp": (flagged & adv).sum(),
+            "det_adv": adv.sum(),
+        }
+    else:
+        out = {"decode_residual": health["residual"]}
+    out.update(forensics.pack_mask_columns(
+        accusation_mask(health, present), present, adv_mask))
+    out.update(watch)
+    return out

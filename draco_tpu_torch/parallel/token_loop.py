@@ -34,8 +34,13 @@ mode; the port's eager step gives the same tokens and state.) The
 held-out loss reads the host stream in both modes, as the reference's
 does. With ``cfg.trace_dir`` set, the host phases (gather, dispatch,
 sync, flush, eval) and the step's draco_* phases go to
-``trace_dir/trace.json`` (``obs/tracer.py``). The heartbeat
-(``status.json``) is not ported yet.
+``trace_dir/trace.json`` (``obs/tracer.py``). With a ``train_dir`` the
+run heartbeat (``obs/heartbeat.py``) keeps ``status.json``: it observes
+the records the loop writes (the eager loop's logged steps, as the
+reference's; every record of a chunked flush), beats at each flush, at
+an ``eval_freq`` boundary and at the last step, carries the run's wire
+ledger and ends ``done``, ``preempted`` or ``crashed``. Mask columns come
+to the host as their exact integer words (``obs/forensics.record_value``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ from typing import Optional
 
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
+from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.obs.forensics import record_value
+from draco_tpu_torch.obs.heartbeat import RunHeartbeat
 from draco_tpu_torch.obs.tracer import make_tracer
 from draco_tpu_torch.resilience.supervisor import shielded
 from draco_tpu_torch.training.run_state import LoopRunState
@@ -64,6 +72,10 @@ class TokenLoop(LoopRunState):
         self._ensure_schedule(cfg.max_steps)
         self.writer = MetricWriter(cfg.train_dir, quiet)
         self.tracer = make_tracer(cfg.trace_dir)
+        self.heartbeat = RunHeartbeat(cfg.train_dir or None,
+                                      num_workers=cfg.num_workers,
+                                      job_name=cfg.job_name or None)
+        self.heartbeat.set_wire(numerics.wire_ledger(cfg, setup.dim))
         if cfg.checkpoint_step:
             self.restore(cfg.checkpoint_step)
 
@@ -104,7 +116,7 @@ class TokenLoop(LoopRunState):
                                                         adv_mask)
         # .item() waits for the device: the step's work is all on one stream
         with tracer.span("sync"):
-            out = {k: float(v.item()) for k, v in metrics.items()}
+            out = {k: record_value(k, v) for k, v in metrics.items()}
         out["step_ms"] = (time.perf_counter() - t0) * 1e3
         return {"step": step, **out}
 
@@ -139,7 +151,8 @@ class TokenLoop(LoopRunState):
         client = self.chunk_client(self.state.step, last_step)
         engine = ChunkedEngine(client, eval_freq=self.cfg.eval_freq,
                                tracer=self.tracer, writer=self.writer,
-                               stop=self._stop)
+                               stop=self._stop, heartbeat=self.heartbeat,
+                               total_end=last_step)
         self.state, last = engine.run(self.state, client.ranges)
         return last
 
@@ -152,9 +165,13 @@ class TokenLoop(LoopRunState):
                 last = self.step()
             step = last["step"]
             if step % cfg.log_every == 0 or step in (first, last_step):
+                rec = {k: last[k] for k in names}
+                self.heartbeat.observe(rec)
                 with self.tracer.span("flush"):
-                    self.writer.write({k: last[k] for k in names})
+                    self.writer.write(rec)
             boundary = bool(cfg.eval_freq) and step % cfg.eval_freq == 0
+            if boundary or step == last_step:
+                self.heartbeat.beat(step, last_step)
             if boundary:
                 self.boundary(step)
             if self.stop_after(step, already_saved=boundary):

@@ -17,10 +17,15 @@ stop.
                      unless the boundary just saved one; a second one
                      checkpoints the newest dispatched state and ends the
                      run. ``stopped_step`` is where the run stopped (None
-                     when it ran to its end).
+                     when it ran to its end). The run's status.json then
+                     ends ``done``, ``preempted`` (with ``resumable_step``
+                     when a checkpoint was saved) or, on any other
+                     exception, ``crashed`` with its cause, before the
+                     exception propagates.
 
 The loop provides ``cfg``, ``setup`` (its ``layout``), ``state``,
-``tracer``, ``writer`` and ``evaluate(step)``, and dispatches its steps
+``tracer``, ``writer``, ``heartbeat`` (``obs/heartbeat.RunHeartbeat``)
+and ``evaluate(step)``, and dispatches its steps
 and chunks inside ``supervisor.shielded(self._stop)``: a second signal's
 escalation waits until the state is a whole step's.
 """
@@ -103,19 +108,33 @@ class LoopRunState:
         its last record, or {} after an escalated stop."""
         self.stopped_step = None
         first = self.state.step
+        hb = self.heartbeat
         try:
             with GracefulStop() as stop:
                 self._stop = stop
-                return body()
+                last = body()
         except ImmediateStopError as e:
             # the newest dispatched state is whole (dispatches are
             # shielded); reading it waits for its queued work
             step = self.state.step - 1
+            saved = None
             if step >= first:
-                self.checkpoint(step)
+                saved = self.checkpoint(step)
                 self.stopped_step = step
             print(f"{e}: stopped after step {step}", flush=True)
+            hb.terminal("preempted", cause=str(e),
+                        resumable_step=step if saved else None)
             return {}
+        except BaseException as e:
+            hb.terminal("crashed", cause=f"{type(e).__name__}: {e}")
+            raise
         finally:
             self._stop = None
             self.tracer.close()
+        if self.stopped_step is not None:
+            hb.terminal("preempted", cause=f"graceful stop on {stop.signame}",
+                        resumable_step=(self.stopped_step
+                                        if self.cfg.train_dir else None))
+        else:
+            hb.terminal("done")
+        return last

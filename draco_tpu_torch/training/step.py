@@ -21,6 +21,14 @@ real tensor axis:
                             maj_vote: row fingerprints (kernel) → the vote
                             a group; baseline: the robust rule
                             (``aggregation``) over the present rows
+  observe                   the ingest check of the raw gradients
+                            (``nonfinite_rows``) and the packed forensics
+                            masks on every coded step; under
+                            ``numerics_watch`` / ``shadow_wire`` the
+                            statistics of the gradients, the wire and the
+                            aggregate and a shadow decode of the rounded
+                            wire (``obs/numerics.py``) — before the
+                            update, which the f32 decode alone feeds
   update                    the optimizer of the configuration
                             (``optim.build_optimizer_from_cfg``: SGD,
                             Adam or AdamW under a constant or cosine
@@ -107,14 +115,12 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import augment as augment_mod
 from draco_tpu_torch.models import build_model
 from draco_tpu_torch.models.layers import init_params, init_stats
-from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.obs import forensics, numerics
 from draco_tpu_torch.obs.tracer import phase
 from draco_tpu_torch.ops import draws as draws_ops
 from draco_tpu_torch.ops.coded import segment_plan
 from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
 from draco_tpu_torch.parallel.common import (
-    APPROX_HEALTH_NAMES,
-    DECODE_HEALTH_NAMES,
     approx_aggregate,
     build_code_from_cfg,
     cyclic_decode,
@@ -123,15 +129,12 @@ from draco_tpu_torch.parallel.common import (
     decode_health_metrics,
     encode_shared,
     host_solve,
+    metric_family_names,
     present_mean,
 )
 from draco_tpu_torch.runtime import cudnn_deterministic, resolve_device, upload
 from draco_tpu_torch.training.chunk_graph import Chunk, StepGraph
 
-# the repetition code's per-step health columns (coding/repetition.py) and
-# its detection counts against the seeded schedules
-VOTE_NAMES = ("vote_agree", "flagged_groups", "det_flagged", "det_tp",
-              "det_adv")
 # the approx decode's columns that the host solve gives (coding/approx.py)
 APPROX_HOST_NAMES = ("decode_residual_bound", "recovered_fraction")
 
@@ -228,14 +231,12 @@ def _cross_entropy(logits, labels):
 
 
 def metric_names(cfg: TrainConfig) -> tuple:
+    """The CNN step's columns: its base columns, then the optional
+    families of ``parallel.common.metric_family_names``."""
     names = ("loss", "prec1")
-    if cfg.approach == "maj_vote":
-        names += VOTE_NAMES
-    elif cfg.approach == "cyclic":
-        names += ("honest_located",) + DECODE_HEALTH_NAMES
-    elif cfg.approach == "approx":
-        names += APPROX_HEALTH_NAMES
-    return names
+    if cfg.approach == "cyclic":
+        names += ("honest_located",)
+    return names + metric_family_names(cfg)
 
 
 def detection_metrics(flagged, adv_mask, present=None) -> dict:
@@ -444,20 +445,33 @@ def build_train_setup(cfg: TrainConfig, device=None,
             # the narrow wire: this family's wire is the gradient rows; the
             # vote reads them widened (one draw shared by every row keeps a
             # group's equal rows equal under stochastic rounding)
+            rows = grads
             wire = numerics.narrow_wire_single(cfg, grads, inputs["step"])
             if wire is not None:
-                grads = numerics.widen_wire_rows(wire[1], wire[0], wire[2])
+                rows = numerics.widen_wire_rows(wire[1], wire[0], wire[2])
             salts = draws_ops.vote_salts(inputs["step"],
                                          cfg.seed + draws_ops.VOTE_SALT)
             with phase("draco_decode"):
                 voted, health = rep_mod.majority_vote(
-                    code, grads, pres, salts, cfg.vote_check,
+                    code, rows, pres, salts, cfg.vote_check,
                     with_health=True)
-            update(state, voted, new_stats)
             metrics = lane_metrics(losses, precs, pres)
             metrics["vote_agree"] = health["vote_agree"]
             metrics["flagged_groups"] = health["flagged_groups"]
             metrics.update(detection_metrics(health["flagged"], mask, pres))
+            # the accused set: the out-voted rows ∪ the non-finite ingest
+            # rows
+            metrics.update(forensics.pack_mask_columns(
+                health["flagged"] | forensics.nonfinite_rows(grads), pres,
+                mask))
+            if cfg.numerics_watch == "on":
+                metrics.update(numerics.numerics_columns(cfg, [grads],
+                                                         [rows], voted))
+            if cfg.shadow_wire != "off":
+                metrics.update(numerics.majvote_shadow(
+                    cfg, code, grads, voted, health["flagged"], salts, pres,
+                    mask, inputs["step"]))
+            update(state, voted, new_stats)
             return metrics
 
     elif cfg.approach == "approx":
@@ -470,12 +484,14 @@ def build_train_setup(cfg: TrainConfig, device=None,
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
                                                     x, y, keep)
             pres = inputs.get("present")
-            agg, residual = approx_aggregate(code, grads, inputs["vn_pres"],
-                                             pres is not None, cfg,
-                                             inputs["step"])
+            # no adversary: the schedule's row is all False
+            mask = torch.zeros((n,), dtype=torch.bool, device=dev)
+            agg, health = approx_aggregate(code, grads, inputs["vn_pres"],
+                                           pres is not None, cfg,
+                                           inputs["step"], pres, mask)
             update(state, agg, new_stats)
             metrics = lane_metrics(losses, precs, pres)
-            metrics["decode_residual"] = residual
+            metrics.update(decode_health_metrics(health, mask, pres))
             return metrics
 
     else:  # cyclic
@@ -495,14 +511,24 @@ def build_train_setup(cfg: TrainConfig, device=None,
         if bounds is not None:
             segment_plan(bounds, dev)
 
+        def ingest(grads):
+            """The ingest check and the grad stage's columns, before the
+            encode smears a row over every codeword."""
+            grad_watch = (numerics.stage_columns("grad", [grads],
+                                                 cfg.shadow_block)
+                          if cfg.numerics_watch == "on" else {})
+            return forensics.nonfinite_rows(grads), grad_watch
+
         def compute_encoded(state, x, y, keep):
             if cfg.redundancy == "shared":
                 # each batch row computed once, combined with the masked W
                 grads, new_stats, losses, precs = lanes(
                     state.params, state.stats, x, y, keep)
+                bad_rows, grad_watch = ingest(grads)
                 with phase("draco_encode"):
                     enc_re, enc_im = encode_shared(code, grads)
-                return enc_re, enc_im, new_stats, losses, precs
+                return (enc_re, enc_im, new_stats, losses, precs, bad_rows,
+                        grad_watch)
             # simulate: worker i computes its hat_s batch rows, with its
             # own BN stats on each of them
             xw = x[batch_ids].flatten(0, 1)
@@ -512,19 +538,21 @@ def build_train_setup(cfg: TrainConfig, device=None,
                   for k, v in state.stats.items()}
             grads, new_stats, losses, precs = lanes(state.params, st, xw, yw,
                                                     kw)
+            grads = grads.view(n, hat_s, dim)
+            # a non-finite value in any of worker i's lanes accuses worker i
+            bad_rows, grad_watch = ingest(grads)
             with phase("draco_encode"):
-                enc_re, enc_im = cyclic_mod.encode(code,
-                                                   grads.view(n, hat_s, dim))
+                enc_re, enc_im = cyclic_mod.encode(code, grads)
             # fold the per-lane stats back to one set per worker
             new_stats = {k: v.view(n, hat_s, -1).mean(1)
                          for k, v in new_stats.items()}
             return (enc_re, enc_im, new_stats, losses.view(n, hat_s).mean(1),
-                    precs.view(n, hat_s).mean(1))
+                    precs.view(n, hat_s).mean(1), bad_rows, grad_watch)
 
         def step_body(state, inputs, noise=None):
             x, y, keep = batch(inputs)
-            enc_re, enc_im, new_stats, losses, precs = compute_encoded(
-                state, x, y, keep)
+            (enc_re, enc_im, new_stats, losses, precs, bad_rows,
+             grad_watch) = compute_encoded(state, x, y, keep)
             mask, pres = inputs["adv"], inputs.get("present")
             with phase("draco_encode"):
                 enc_re, enc_im = attacks.inject_cyclic(
@@ -542,10 +570,26 @@ def build_train_setup(cfg: TrainConfig, device=None,
                     cfg, code, enc_re, enc_im, projection, bounds,
                     present=pres,
                     rel_tol=rel_tol, lam=wire_lam, wire=wire)
-            update(state, decoded, new_stats)
             metrics = lane_metrics(losses, precs, pres)
             metrics["honest_located"] = honest.sum()
+            health["bad_rows"] = bad_rows
+            if numerics.watch_enabled(cfg):
+                # the observatory beside the f32 decode, which alone
+                # feeds the update
+                watch = dict(grad_watch)
+                if cfg.numerics_watch == "on":
+                    watch.update(numerics.stage_columns(
+                        "wire", [enc_re, enc_im], cfg.shadow_block))
+                    watch.update(numerics.stage_columns(
+                        "agg", [decoded], cfg.shadow_block))
+                if cfg.shadow_wire != "off":
+                    watch.update(numerics.cyclic_shadow(
+                        cfg, code, enc_re, enc_im, decoded,
+                        health["flagged"], projection, layout.offsets, pres,
+                        mask, inputs["step"]))
+                health["watch"] = watch
             metrics.update(decode_health_metrics(health, mask, pres))
+            update(state, decoded, new_stats)
             return metrics
 
     def train_step(state, x, y, adv_mask, noise=None, present=None):
@@ -555,7 +599,8 @@ def build_train_setup(cfg: TrainConfig, device=None,
                                     for k, v in inputs.items()}, noise)
         state.step += 1
         metrics.update(host)
-        return state, metrics
+        # the host columns take their places in the schema's order
+        return state, {k: metrics[k] for k in names}
 
     @torch.inference_mode()
     def eval_step(state, x, y, valid):

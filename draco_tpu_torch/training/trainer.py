@@ -36,6 +36,15 @@ one, and the metrics reach the host once a flush; a chunked record's
 ``cfg.trace_dir`` set, the host phases (gather, dispatch, sync, flush,
 eval, ckpt) and the step's draco_* phases go to ``trace_dir/trace.json``
 (``obs/tracer.py``).
+
+With a ``train_dir`` the run heartbeat (``obs/heartbeat.py``) keeps
+``train_dir/status.json``: it observes every record the loop
+materialises (each eager step's; each record of a chunked flush), beats
+at each flush (the chunked loop's) or at an ``eval_freq`` boundary and
+the last step (the eager loop's), carries the run's wire ledger, and ends
+``done``, ``preempted`` or ``crashed`` (``training/run_state.py``). Mask
+columns come to the host as their exact integer words
+(``obs/forensics.record_value``).
 """
 
 from __future__ import annotations
@@ -47,6 +56,9 @@ from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching
 from draco_tpu_torch.data.datasets import Dataset, load_dataset
+from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.obs.forensics import record_value
+from draco_tpu_torch.obs.heartbeat import RunHeartbeat
 from draco_tpu_torch.obs.tracer import make_tracer
 from draco_tpu_torch.resilience.supervisor import shielded
 from draco_tpu_torch.runtime import resolve_device
@@ -68,6 +80,10 @@ class Trainer(LoopRunState):
         self.quiet = quiet
         self.writer = MetricWriter(cfg.train_dir, quiet)
         self.tracer = make_tracer(cfg.trace_dir)
+        self.heartbeat = RunHeartbeat(cfg.train_dir or None,
+                                      num_workers=cfg.num_workers,
+                                      job_name=cfg.job_name or None)
+        self.heartbeat.set_wire(numerics.wire_ledger(cfg, self.setup.dim))
         self.group_seeds = drng.group_seeds(cfg.seed, max(cfg.num_groups, 1))
         self._sched_steps = -1
         self._ensure_schedules(cfg.max_steps)
@@ -132,7 +148,7 @@ class Trainer(LoopRunState):
                 self.state, x, y, adv_mask, present=present)
         # .item() waits for the device: the step's work is all on one stream
         with tracer.span("sync"):
-            out = {k: float(metrics[k].item())
+            out = {k: record_value(k, metrics[k])
                    for k in self.setup.metric_names}
         if present is not None:
             out["present"] = float(present.sum())
@@ -189,7 +205,8 @@ class Trainer(LoopRunState):
         client = self.chunk_client(self.state.step, last_step)
         engine = ChunkedEngine(client, eval_freq=self.cfg.eval_freq,
                                tracer=self.tracer, writer=self.writer,
-                               stop=self._stop)
+                               stop=self._stop, heartbeat=self.heartbeat,
+                               total_end=last_step)
         self.state, last = engine.run(self.state, client.ranges)
         return last
 
@@ -199,10 +216,13 @@ class Trainer(LoopRunState):
             with shielded(self._stop):
                 last = self.step()
             step = last["step"]
+            self.heartbeat.observe(last)
             if step % cfg.log_every == 0 or step == 1:
                 with self.tracer.span("flush"):
                     self.writer.write(last)
             boundary = bool(cfg.eval_freq) and step % cfg.eval_freq == 0
+            if boundary or step == last_step:
+                self.heartbeat.beat(step, last_step)
             if boundary:
                 self.boundary(step)
             if self.stop_after(step, already_saved=boundary):

@@ -7,6 +7,11 @@ prints each as one ``key=value`` line, as both eager loops write them.
 :meth:`DeferredMetricWriter.fetch` brings every queued block to the host
 in one device-to-host copy (the flush boundary's one synchronisation) and
 :meth:`DeferredMetricWriter.flush` turns the rows into per-step records.
+
+The packed forensics columns (``obs/forensics.py``) are 32-bit words in
+float32 clothing: the rows go to the host as float32 and those columns are
+read as the int32 view of their bits (:func:`host_rows`), never through a
+float, which would quiet a word that is a signalling NaN.
 """
 
 from __future__ import annotations
@@ -16,6 +21,22 @@ import os
 from typing import Optional
 
 import torch
+
+from draco_tpu_torch.obs.forensics import is_mask_column
+
+
+def host_rows(block: torch.Tensor, names) -> list:
+    """A (k, m) metrics block as k host rows in ``names`` order: floats,
+    the mask columns (``obs/forensics.py``) as the exact integer words of
+    their float32 bits, read through an int32 view."""
+    host = block.to(device="cpu", dtype=torch.float32)
+    rows = host.tolist()
+    for j, name in enumerate(names):
+        if is_mask_column(name):
+            words = host[:, j].contiguous().view(torch.int32).tolist()
+            for row, w in zip(rows, words):
+                row[j] = w & 0xFFFFFFFF
+    return rows
 
 
 def format_record(record: dict) -> str:
@@ -50,10 +71,12 @@ class DeferredMetricWriter:
     ``names[j]`` of ``steps[i]`` (a tensor on any device, not read yet);
     ``extras`` maps a column to its k host values (columns the host knows
     at assembly). A record is ``{"step", *names, *extras, *common}`` in that
-    order."""
+    order. ``observer``: called with every record a flush makes, logged
+    or not (the run heartbeat's ``observe``)."""
 
-    def __init__(self, writer: MetricWriter):
+    def __init__(self, writer: MetricWriter, observer=None):
         self._writer = writer
+        self._observer = observer
         self._pending: list = []  # (steps, names, block, extras)
         self._host: Optional[list] = None  # fetched rows of the pending
         self.fetches = 0  # device-to-host fetches made
@@ -75,14 +98,22 @@ class DeferredMetricWriter:
         if not self._pending or self._host is not None:
             return
         blocks = [b for _, _, b, _ in self._pending]
-        self._host = torch.cat(blocks).to("cpu").tolist()
+        host = torch.cat(blocks).to("cpu")  # the flush's one fetch
         self.fetches += 1
+        rows, at = [], 0
+        for steps, names, _, _ in self._pending:
+            rows += host_rows(host[at:at + len(steps)], names)
+            at += len(steps)
+        self._host = rows
 
     def flush(self, should_log=None, common: Optional[dict] = None,
-              keep: Optional[tuple] = None) -> dict:
+              keep: Optional[tuple] = None,
+              order: Optional[tuple] = None) -> dict:
         """Records of every pending step (fetching first if needed); writes
         those where ``should_log(step)`` (default all), with only the
-        ``keep`` columns when given. Returns the newest record."""
+        ``keep`` columns when given. ``order``: the columns that lead each
+        record, in that order (the step's schema, where host columns sit
+        among the device ones). Returns the newest record."""
         self.fetch()
         rows = iter(self._host or ())
         out = []
@@ -91,6 +122,10 @@ class DeferredMetricWriter:
                 rec = {"step": step, **dict(zip(names, next(rows)))}
                 rec.update({k: float(v[i]) for k, v in extras.items()})
                 rec.update(common or {})
+                if order is not None:
+                    rec = {**{k: rec[k] for k in order if k in rec}, **rec}
+                if self._observer is not None:
+                    self._observer(rec)
                 self.last = rec
                 if should_log is None or should_log(step):
                     out.append(rec if keep is None

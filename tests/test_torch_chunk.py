@@ -34,6 +34,7 @@ from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.sp_step import synthetic_text
 from draco_tpu_torch.parallel.token_loop import TokenLoop
 from draco_tpu_torch.training.chunk_graph import Chunk, StepGraph, warm_up
+from draco_tpu_torch.utils.metrics import host_rows
 
 torch.set_num_threads(1)
 
@@ -87,7 +88,8 @@ def run_chunks(build, chunk_of, ranges) -> tuple:
         chunk = chunk_of(runner, rng_)
         _, block = many(setup.state, chunk)
         assert block.shape == (chunk.k, len(setup.block_names))
-        for i, vals in enumerate(block.tolist()):
+        # the host's rows as a flush makes them: mask columns as words
+        for i, vals in enumerate(host_rows(block, setup.block_names)):
             row = dict(zip(setup.block_names, vals))
             row.update({k: v[i] for k, v in chunk.host.items()})
             rows.append(row)
@@ -174,7 +176,9 @@ def test_cli_steps_per_call_on_the_cpu(tmp_path):
     rows = _jsonl(tmp_path / "metrics.jsonl")
     assert [r["step"] for r in rows] == [1, 2, 3, 4, 5]
     assert tuple(rows[0]) == ("step", "loss", "decode_residual",
-                              "located_errors", "det_tp", "det_adv")
+                              "located_errors", "det_tp", "det_adv",
+                              "wmask_accused0", "wmask_present0",
+                              "wmask_adv0")
 
 
 # --------------------------------------------------------------------------
@@ -392,10 +396,10 @@ def test_validate_rejects_with_its_reason(route, fields, reason):
 def test_the_registry_lists_the_chunked_programs():
     assert [c.name for c in registry.collect_chunks()] == [
         "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote",
-        "chunk_lm_shared_flash_devgen"]
+        "chunk_lm_shared_flash_devgen", "chunk_lm_shared_flash_watch"]
     assert {c.name for c in program_lint.select("chunk_")} == {
         "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote",
-        "chunk_lm_shared_flash_devgen"}
+        "chunk_lm_shared_flash_devgen", "chunk_lm_shared_flash_watch"}
     for c in registry.collect_chunks():
         cfg = c.config(full=True)
         m = c.manifest(cfg, True)
@@ -407,7 +411,8 @@ def test_the_registry_lists_the_chunked_programs():
 
 @pytest.mark.parametrize("name", ["chunk_simulate", "chunk_lm_shared_flash",
                                   "chunk_majvote",
-                                  "chunk_lm_shared_flash_devgen"])
+                                  "chunk_lm_shared_flash_devgen",
+                                  "chunk_lm_shared_flash_watch"])
 def test_chunked_programs_green_on_the_cpu_rules(name):
     """One inspected chunk after a first chunk and its flush, on the CPU
     loop: no would-be sync in the chunk, one fetch in the flush, the state

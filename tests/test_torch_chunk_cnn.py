@@ -67,8 +67,10 @@ def test_trainer_chunked_writes_the_eager_rows(ds, tmp_path):
         rows[K] = [{k: v for k, v in r.items() if k != "step_ms"}
                    for r in lines + [last]]
         assert all(("step_ms" in r) != ("prec1_test" in r) for r in lines)
+        # and the run's status.json (obs/heartbeat.py)
         assert sorted(os.listdir(d)) == ["metrics.jsonl", "model_step_4.dcg",
-                                         "model_step_4.dcg.sha256"]
+                                         "model_step_4.dcg.sha256",
+                                         "status.json"]
     assert [list(r) for r in rows[3]] == [list(r) for r in rows[1]]
     assert rows[3] == rows[1]
     assert [r["step"] for r in rows[1]] == [1, 2, 4, 4, 6, 7]

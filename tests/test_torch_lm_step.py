@@ -118,9 +118,13 @@ def leg(request):
 
 def test_metric_columns_and_decode(leg):
     name, rec = leg
-    # the reference's columns, less its packed forensics masks (not ported)
-    masks = mask_metric_names(8) if name != "geomedian" else ()
-    assert rec["names"] + masks == rec["jax_names"]
+    # the reference's columns, its packed forensics masks among them, in
+    # its order; the masks bit for bit its words
+    assert rec["names"] == rec["jax_names"]
+    if name != "geomedian":
+        for st in rec["steps"]:
+            for k in mask_metric_names(8):
+                assert st["port"][k] == st["jax"][k], k
     for st in rec["steps"]:
         assert st["port"]["loss"] == pytest.approx(st["jax"]["loss"],
                                                    rel=1e-4)
@@ -218,7 +222,8 @@ def test_cli_writes_the_reference_columns(tmp_path):
     assert [r["step"] for r in train] == [1, 2]
     assert tuple(train[0]) == ("step", "loss", "decode_residual",
                                "located_errors", "det_tp", "det_adv",
-                               "step_ms")
+                               "wmask_accused0", "wmask_present0",
+                               "wmask_adv0", "step_ms")
     assert [r for r in recs if r.get("split") == "eval"][0]["step"] == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -31,6 +31,7 @@ import torch
 from draco_tpu import rng as jrng
 from draco_tpu.config import TrainConfig as JaxConfig
 from draco_tpu.data import batching as jbatching
+from draco_tpu.obs.forensics import mask_metric_names
 from draco_tpu.parallel.mesh import make_mesh_2d
 from draco_tpu.parallel.sp_step import build_sp_train_setup as jax_lm_setup
 from draco_tpu.runtime import make_mesh
@@ -130,8 +131,11 @@ def test_metric_columns(leg):
     assert port["loss"] == pytest.approx(ref["loss"], rel=1e-4)
     assert port["prec1"] == pytest.approx(ref["prec1"], abs=1e-6)
     if name == "majvote":
-        assert rec["names"] == ("loss", "prec1") + VOTE_COLUMNS
-        for k in VOTE_COLUMNS:
+        # the vote's columns, then the packed forensics masks (the
+        # out-voted rows accused), bit for bit the reference's words
+        masks = mask_metric_names(rec["cfg"].num_workers)
+        assert rec["names"] == ("loss", "prec1") + VOTE_COLUMNS + masks
+        for k in VOTE_COLUMNS + masks:
             assert port[k] == ref[k], k
         # the two honest lanes agree bit for bit, the adversary is flagged
         assert port["vote_agree"] == pytest.approx(2 / 3)

@@ -110,4 +110,5 @@ def test_launch_counters_reset():
                                  "approx_decode_segment", "random_inject",
                                  "round_draw", "synthetic_text",
                                  "augment_draws", "dropout_keep",
-                                 "vote_salts"}
+                                 "vote_salts", "stage_stats",
+                                 "nonfinite_rows"}

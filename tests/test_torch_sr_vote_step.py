@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from draco_tpu.config import TrainConfig as JaxConfig
+from draco_tpu.obs.forensics import mask_metric_names
 from draco_tpu.runtime import make_mesh
 from draco_tpu.training.step import build_train_setup as jax_setup
 from draco_tpu_torch import params as params_mod
@@ -86,9 +87,10 @@ def leg(request, ds):
 def test_vote_columns(leg):
     _, rec = leg
     port, ref = rec["port"], rec["jax"]
-    assert rec["names"] == ("loss", "prec1") + VOTE_COLUMNS
+    masks = mask_metric_names(VOTE["num_workers"])
+    assert rec["names"] == ("loss", "prec1") + VOTE_COLUMNS + masks
     assert port["loss"] == pytest.approx(ref["loss"], rel=1e-4)
-    for k in VOTE_COLUMNS:
+    for k in VOTE_COLUMNS + masks:
         assert port[k] == ref[k], k
     # the honest rows agree bit for bit on the wire, the adversary is
     # out-voted

@@ -228,8 +228,8 @@ def test_approx_tree_against_the_reference():
             grads))
     # the step's own decode: the host solve, then the device aggregation
     v, vn_pres, h = common.host_solve(pt, T(present))
-    dec, h["residual"] = common.approx_aggregate(pt, T(grads), vn_pres,
-                                                 masked=True)
+    dec, ah = common.approx_aggregate(pt, T(grads), vn_pres, masked=True)
+    h["residual"] = ah["residual"]
     np.testing.assert_allclose(dec.numpy(), np.asarray(jdec), rtol=2e-4,
                                atol=1e-6 * np.abs(np.asarray(jdec)).max())
     np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-5,
