@@ -74,7 +74,15 @@ prints no result line):
               every count column bit for bit its plain version, rms within
               1e-5 of it and 1e-6 of an f64 sum; ``nonfinite_rows`` bool
               for bool on NaN and Inf rows, (8, 3, d) lanes and an
-              unaligned buffer; each twice and from a graph replay. Times
+              unaligned buffer; each twice and from a graph replay. The
+              decode chain on non-finite rows (``nan_chain_kernels``):
+              complex_project, cyclic_locator and complex_recombine at
+              n=8, d=11,173,962 on codewords with a NaN row, an Inf row
+              and every row NaN (an honest worker's NaN gradient through
+              the shared encode), each kernel against its plain version
+              on the same inputs: the masks equal, the residual NaN where
+              the plain version's is, NaN and Inf where the plain
+              version's are. Times
               each kernel, its plain version, its bound and the one PyTorch
               call that computes the same function, where there is one
               (torch.matmul; scaled_dot_product_attention and its autograd
@@ -245,11 +253,43 @@ prints no result line):
               forensics (the adversary accused on every step) and wire
               blocks and ends ``done``; the SIGTERM run's ends
               ``preempted`` with ``resumable_step`` 8.
-              ``lm_shared_flash`` at full
+              The host faults (``host_fault_run``): ``shared``, K=4, 8
+              steps, eval and save every 3, ``fault_spec=
+              "prefetch_crash@2,sigterm@5"``: the crash retried by the
+              supervised prefetcher, the run stopped at 6 (status.json
+              ``preempted``, ``resumable_step`` 6), resumed from −1 to 8,
+              the state bit for bit an uninterrupted run's with the crash
+              alone. ``lm_shared_flash`` at full
               width, K=4: 8 steps with a checkpoint at 4 and 8, then a
               fresh setup resumed from 4 for 4 steps, the state at 8 bit
               for bit. ``single_machine`` on preset single-lenet for 12
               steps
+  8. guard    the resilience legs (``guard_phase``, registry
+              ``GUARD_PROGRAMS``; it runs before the lint of phase 5,
+              whose profiler would slow its timings), each beside the leg
+              it guards: ``simulate_guard_nan`` (the flagship,
+              ``step_guard=on``, ``fault_spec="nan_grad@2"`` on the seeded
+              victim, ``incident_watch=on``), ``shared_int8_over_budget``
+              (``over_budget@3`` on the int8 wire), ``approx_guard_watch``
+              (preset approx-resnet18, ``straggle@2:w3:d2``, the incident
+              watch) and ``lm_shared_flash_adamw_guard`` (``inf_grad@2:w5``
+              under AdamW, the cosine schedule and the clip). The ResNet
+              legs under deterministic cuDNN: K=4 eager steps, a skipped
+              step's parameters, optimizer buffers, update count and BN
+              statistics bit for bit the step before's, the others
+              trusted (the approx leg's trips the certificate rule
+              computed on the host from its own columns, worker 3 absent
+              on steps 2–3); step 1 bit for bit the twin's step 1; the
+              chunk twice bit for bit the eager run; each chunk timed
+              beside its twin's and the twin's with the guard alone (no
+              fault plan); the loop over two chunks into a
+              train_dir: status.json through the schema check with its
+              guard block, incidents.jsonl with a guard episode naming
+              the victim, the live incidents block equal to an offline
+              fold of metrics.jsonl. The lint (phase 5) also holds each
+              guarded leg and ``chunk_simulate_guard_nan`` to its twin:
+              no more syncs or fetches, the twin's H2D bytes (the approx
+              certificate's staged bound, 4 bytes, aside)
 
 ``--profile`` adds one torch.profiler step per leg (device time by kernel
 and by the step's phases draco_comp / draco_encode / draco_decode /
@@ -279,6 +319,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -883,6 +924,89 @@ def tree_locator(code, dev, g) -> dict:
           flush=True)
     return {"L": 2, "n": code.n, "s": code.s, "max_abs_err": worst,
             "ms": ms, "plain_ms": plain_ms}
+
+
+# the NaN columns of the decode chain (``nan_chain_kernels``): one encoded
+# row poisoned by a NaN, one by an Inf, and every row NaN (an honest
+# worker's NaN gradient through the shared encode, the simulate_guard_nan
+# leg's step 2)
+NAN_CASES = (("a NaN row", float("nan"), (3,)),
+             ("an Inf row", float("inf"), (5,)),
+             ("every row NaN", float("nan"), tuple(range(N))))
+
+
+def _nan_equal(a: torch.Tensor, b: torch.Tensor, rtol: float) -> bool:
+    """The same non-finite entries (NaN where NaN, ±Inf where ±Inf) and the
+    finite ones within ``rtol`` of the largest."""
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return False
+    fin = torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), fin) or not torch.equal(
+            a[torch.isinf(b)], b[torch.isinf(b)]):
+        return False
+    if not bool(fin.any()):
+        return True
+    scale = float(b[fin].abs().max()) or 1.0
+    return float((a[fin] - b[fin]).abs().max()) <= rtol * scale
+
+
+def nan_chain_kernels(code, dev) -> dict:
+    """``complex_project`` → ``cyclic_locator`` → ``complex_recombine`` on
+    codewords at ResNet-18's n=8, d=11,173,962 with non-finite rows
+    (``NAN_CASES``), each kernel against its plain version on the same
+    inputs: the projected column and the recombination NaN and Inf where
+    the plain version's are (finite entries within 1e-5 of the largest),
+    the locator's honest, flagged and loud masks equal and its residual
+    NaN where the plain version's is. Every launch returns: no hang, no
+    trap."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    t = code.tensors(dev)
+    grads = torch.randn((N, D), generator=g, device=dev)
+    enc_re, enc_im = coded.complex_matmul_plain(t["w_masked_re"],
+                                                t["w_masked_im"], grads)
+    del grads
+    f = 1.0 + torch.randn(D, generator=g, device=dev)
+    plain_loc, kernel_loc = locator_pair(code, dev)
+    pres = torch.ones((1, N), device=dev)
+    out = {}
+    for label, val, rows in NAN_CASES:
+        r_re, r_im = enc_re.clone(), enc_im.clone()
+        r_re[list(rows), 4099] = val
+        r_im[list(rows), D - 7] = val
+        e_k = coded.complex_project(r_re, r_im, f)
+        e_p = coded.complex_project_plain(r_re, r_im, f)
+        require(all(_nan_equal(a, b, 1e-5) for a, b in zip(e_k, e_p)),
+                f"nan chain {label}: complex_project {e_k} vs plain {e_p}")
+        cols = (e_p[0][None].contiguous(), e_p[1][None].contiguous())
+        lk, lp = kernel_loc(*cols, pres), plain_loc(*cols, pres)
+        masks = ("honest", "flagged", "loud")
+        for name, a, b in zip(masks, lk[2:5], lp[2:5]):
+            require(torch.equal(a, b), f"nan chain {label}: locator {name} "
+                    f"{a.tolist()} vs plain {b.tolist()}")
+        rk, rp = float(lk[5][0]), float(lp[5][0])
+        require(math.isnan(rk) == math.isnan(rp)
+                and (math.isnan(rp) or abs(rk - rp) <= 1e-5),
+                f"nan chain {label}: residual {rk} vs plain {rp}")
+        v_re, v_im = lk[0][0] / N, lk[1][0] / N
+        dk = coded.complex_recombine(v_re, v_im, r_re, r_im)
+        dp = coded.complex_recombine_plain(v_re, v_im, r_re, r_im)
+        require(_nan_equal(dk, dp, 1e-5), f"nan chain {label}: "
+                f"complex_recombine against its plain version")
+        torch.cuda.synchronize()
+        out[label] = {"residual": rk, "plain_residual": rp,
+                      "flagged": lk[3][0].tolist(), "loud": lk[4][0].tolist(),
+                      "honest": lk[2][0].tolist(),
+                      "decoded_nan": int(torch.isnan(dk).sum()),
+                      "decoded_inf": int(torch.isinf(dk).sum())}
+        print(f"kernel nan chain ({label}, rows {list(rows)}): project, "
+              f"locator and recombine as their plain versions; residual "
+              f"{rk} (plain {rp}), flagged {out[label]['flagged']}, loud "
+              f"{out[label]['loud']}, decoded NaN {out[label]['decoded_nan']}"
+              f" Inf {out[label]['decoded_inf']} of {D}", flush=True)
+        del r_re, r_im, dk, dp
+    del enc_re, enc_im
+    torch.cuda.empty_cache()
+    return out
 
 
 def locator_kernel(code, dev, code9, old_lib) -> list:
@@ -2792,11 +2916,11 @@ def decode_watch(opt):
         means.append(grads.mean(0))
         return enc(code, grads)
 
-    def watched_step(params, flat, layout):
+    def watched_step(params, flat, layout, ok=None):
         mean = means.pop()
         errs.append(torch.linalg.vector_norm(flat - mean)
                     / torch.linalg.vector_norm(mean))
-        return step_flat(params, flat, layout)
+        return step_flat(params, flat, layout, ok)
 
     cyclic.encode_shared, opt.step_flat = watched_encode, watched_step
     try:
@@ -3303,9 +3427,9 @@ def first_aggregate(lp, dev, ds) -> tuple:
     opt = program.runner.state.opt
     step, seen = opt.step_flat, []
 
-    def watched(params, flat, layout):
+    def watched(params, flat, layout, ok=None):
         seen.append(flat)
-        return step(params, flat, layout)
+        return step(params, flat, layout, ok)
 
     opt.step_flat = watched
     with (cudnn_deterministic() if lp.route == "cnn"
@@ -3653,7 +3777,8 @@ def lint_legs(dev) -> list:
     slows each later kernel launch (a leg timed after a profiled step ran
     up to 40 ms a step slower, PERF.md §6)."""
     rows = []
-    for lp in registry.collect() + registry.collect_chunks():
+    for lp in (registry.collect() + registry.collect_chunks()
+               + registry.collect_guard()):
         program = lp.build(dev, full=True)
         rows.append({"leg": lp.name, "manifest_h2d_bytes":
                      program.manifest.h2d_bytes,
@@ -3680,6 +3805,18 @@ def lint_legs(dev) -> list:
     for leg, twin in registry.TWINS.items():
         require(h2d[leg] == h2d[twin], f"audit lint {leg}: {h2d[leg]} H2D "
                 f"bytes a step, its twin {twin} {h2d[twin]}")
+    # a guarded leg: no more syncs or fetches than its twin, its twin's
+    # bytes (the fault plan's tensors went to the card at setup), the
+    # approx certificate's staged bound (4 bytes a step) aside
+    by = {r["leg"]: r for r in rows}
+    pairs = dict(registry.GUARD_TWINS, chunk_simulate_guard_nan="chunk_simulate")
+    for leg, twin in pairs.items():
+        extra = (4 if registry.get(leg).config(True).approach == "approx"
+                 else 0)
+        bad = rules.twin_failures(by[leg], by[twin], extra)
+        require(not bad, f"audit lint {leg} against {twin}: {bad}")
+        print(f"audit lint {leg}: syncs, fetches and {h2d[leg]} H2D bytes "
+              f"as its twin {twin}'s ({h2d[twin]} + {extra})", flush=True)
     return rows
 
 
@@ -4050,6 +4187,286 @@ def status_held(label: str, train_dir: str, state: str, cfg) -> dict:
     return status
 
 
+# the resilience legs' steps: K eager, then the loop over two chunks
+GUARD_STEPS = 2 * CHUNK_K
+# each guard leg's skipped steps (the certificate decides the approx leg's)
+GUARD_SKIPS = {"simulate_guard_nan": (2,), "shared_int8_over_budget": (3,),
+               "approx_guard_watch": (),
+               "lm_shared_flash_adamw_guard": (2,)}
+GUARD_COLS = ("guard_trips", "skipped_steps")
+
+
+def _same_value(a, b) -> bool:
+    """Two record values equal, NaN equal to NaN."""
+    if isinstance(a, float) and isinstance(b, float) and a != a:
+        return b != b
+    return a == b
+
+
+def _guard_rows_held(label, eager, recs) -> None:
+    for i, (a, b) in enumerate(zip(eager, recs)):
+        cols = [c for c in b if c in a and c not in ("step", "step_ms")]
+        bad = [c for c in cols if not _same_value(a[c], b[c])]
+        require(not bad, f"guard {label} step {i + 1}: {bad} differ from the "
+                f"eager run: {[(a[c], b[c]) for c in bad]}")
+
+
+def _certificate_trips(r: dict, cfg) -> int:
+    """The approx guard's trips on the host from a record's own columns:
+    residual > bound + tol in float32, as the step compares them."""
+    tol = np.float32(cfg.guard_residual_tol
+                     + numerics.wire_residual_slack(cfg.wire_dtype))
+    res = np.float32(r["decode_residual"])
+    return int(not res <= np.float32(r["decode_residual_bound"]) + tol)
+
+
+def _incidents_held(label, d, cfg) -> dict:
+    """status.json through the schema check with its guard and incidents
+    blocks; the live incidents block equal to an offline fold of the run's
+    metrics.jsonl (``obs/replay.py``) at the run's own thresholds."""
+    from draco_tpu_torch.obs import incidents, replay
+
+    with open(os.path.join(d, "status.json")) as f:
+        status = json.load(f)
+    heartbeat.check_status_schema(status, tool="chip_smoke")
+    require(status.get("state") == "done" and "guard" in status,
+            f"guard {label}: status.json {status}")
+    live = status.get("incidents")
+    out = {"guard": status["guard"], "incidents": live}
+    if cfg.incident_watch != "on":
+        return out
+    eng = incidents.IncidentEngine(num_workers=cfg.num_workers,
+                                   thresholds=live["thresholds"])
+    for r in replay.train_records(os.path.join(d, "metrics.jsonl")):
+        eng.observe(r)
+    require(eng.status_block() == live, f"guard {label}: the offline fold "
+            f"{eng.status_block()} is not the live block {live}")
+    out["events"] = list(replay.iter_jsonl(os.path.join(d,
+                                                        "incidents.jsonl")))
+    return out
+
+
+def guard_leg(lp, dev, ds, root) -> dict:
+    """One resilience leg (``registry.GUARD_PROGRAMS``) at full width, the
+    ResNet legs under deterministic cuDNN: K eager steps from a snapshot
+    with the launch counts zeroed before them, each step's guard columns
+    and state held to the leg's fault (a skipped step leaves parameters,
+    optimizer buffers, update count and BN statistics bit for bit as the
+    step before); step 1 bit for bit its twin's step 1 (the same leg
+    without the guard and the plan, ``registry.GUARD_TWINS``); the K=4
+    chunk twice, each bit for bit the eager run, records and state; each
+    leg's chunk timed beside its twin's; then the loop a user runs over
+    two chunks into a train_dir: its records' guard columns, status.json
+    (schema, ``guard`` and ``incidents`` blocks) and, with the incident
+    watch, incidents.jsonl and the offline replay."""
+    name, twin = lp.name, registry.GUARD_TWINS[lp.name]
+    d = os.path.join(root, name)
+    cnn = lp.route == "cnn"
+    ctx = cudnn_deterministic() if cnn else contextlib.nullcontext()
+    with ctx:
+        program = lp.build(dev, full=True, max_steps=GUARD_STEPS,
+                           steps_per_call=CHUNK_K,
+                           dataset=ds if cnn else None, train_dir=d,
+                           log_every=1)
+        runner, cfg = program.runner, program.cfg
+        require(runner.setup.decode_impl == "cuda",
+                f"guard {name}: the locator resolved to "
+                f"{runner.setup.decode_impl!r}")
+        runs = _ChunkRuns(program)
+        ops.reset_launch_counts()
+        recs, states = [], []
+        for _ in range(CHUNK_K):
+            recs.append(runner.step())
+            states.append(_state_copy(runner.state))
+        counts = ops.launch_counts()
+        runs.rewind()
+        for k in EXPECT[twin] + ("nonfinite_rows",):
+            require(counts[k] > 0, f"guard {name}: kernel {k} was never "
+                    f"launched ({counts})")
+        skips = GUARD_SKIPS[name]
+        for r, fin in zip(recs, states):
+            s = r["step"]
+            if cfg.approach == "approx":
+                want = _certificate_trips(r, cfg)
+                require(r["guard_trips"] == want
+                        and r["skipped_steps"] == float(want > 0),
+                        f"guard {name} step {s}: {r}, the certificate "
+                        f"gives {want} trips")
+                # worker 3 absent on steps 2-3 (the plan), the seeded
+                # stragglers beside it
+                drop = runner.straggle_schedule[s]
+                require(s not in (2, 3) or bool(drop[3]),
+                        f"guard {name} step {s}: straggle row {drop}")
+                require(r["wmask_present0"] == mask_word(~drop),
+                        f"guard {name} step {s}: present word "
+                        f"{r['wmask_present0']}, schedule row {drop}")
+            elif s in skips:
+                require(r["skipped_steps"] == 1.0 and r["guard_trips"] >= 1,
+                        f"guard {name} step {s}: not skipped: {r}")
+            else:
+                require(r["skipped_steps"] == 0.0 and r["guard_trips"] == 0,
+                        f"guard {name} step {s}: tripped: {r}")
+            require(math.isfinite(r["loss"]) and all(
+                bool(torch.isfinite(v).all()) for k, v in fin.items()
+                if k.startswith("params/")),
+                f"guard {name} step {s}: non-finite loss or parameters")
+            if r["skipped_steps"] == 1.0 and s > 1:
+                gap = _differs(fin, states[s - 2])
+                require(not gap, f"guard {name} step {s}: the skipped step "
+                        f"moved {dict(list(gap.items())[:6])}")
+        if name == "simulate_guard_nan":
+            victim = runner.fault_plan.events[0].worker
+            require((int(recs[1]["wmask_accused0"]) >> victim) & 1,
+                    f"guard {name}: the victim {victim} is not accused at "
+                    f"step 2: {recs[1]}")
+        if name == "lm_shared_flash_adamw_guard":
+            count = int(states[-1]["opt/count"])
+            require(count == CHUNK_K - len(skips), f"guard {name}: the "
+                    f"update count is {count} after {CHUNK_K} steps")
+        # the chunk twice, each bit for bit the eager run
+        timed = []
+        for again in (False, True):
+            recs_c, ms, fin_c = runs.chunk_run()
+            _guard_rows_held(name, recs, recs_c)
+            gap = _differs(fin_c, states[-1])
+            require(not gap, f"guard {name}: the chunk's state differs from "
+                    f"the eager run's: {dict(list(gap.items())[:6])}")
+            timed.append(ms)
+        # the twin: its step 1 is the guarded step 1, its chunk timed
+        tp = registry.get(twin).build(dev, full=True, max_steps=GUARD_STEPS,
+                                      steps_per_call=CHUNK_K,
+                                      dataset=ds if cnn else None)
+        truns = _ChunkRuns(tp)
+        tp.runner.step()
+        gap = _differs(_state_copy(tp.runner.state), states[0])
+        require(not gap, f"guard {name}: step 1 differs from {twin}'s step "
+                f"1: {dict(list(gap.items())[:6])}")
+        truns.rewind()
+        twin_ms = [truns.chunk_run()[1] for _ in range(2)]
+        del tp, truns
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the guard alone: the twin with step_guard=on and no fault plan
+        gp = registry.get(twin).build(dev, full=True, max_steps=GUARD_STEPS,
+                                      steps_per_call=CHUNK_K,
+                                      dataset=ds if cnn else None,
+                                      step_guard="on")
+        gruns = _ChunkRuns(gp)
+        guard_only_ms = [gruns.chunk_run()[1] for _ in range(2)]
+        del gp, gruns
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the loop a user runs, from step 1 into the train_dir
+        last = runner.run()
+    require(last["step"] == GUARD_STEPS, f"guard {name}: the loop ended at "
+            f"{last}")
+    loop_recs = [r for r in _records(d) if "loss" in r]
+    require([r["step"] for r in loop_recs] == list(range(1, GUARD_STEPS + 1)),
+            f"guard {name}: the loop wrote steps "
+            f"{[r['step'] for r in loop_recs]}")
+    _guard_rows_held(name, recs, loop_recs[:CHUNK_K])
+    for r in loop_recs[CHUNK_K:]:
+        require(r["skipped_steps"] == 0.0 and math.isfinite(r["loss"]),
+                f"guard {name} step {r['step']}: {r}")
+    held = _incidents_held(name, d, cfg)
+    skipped = sum(r["skipped_steps"] for r in loop_recs)
+    require(held["guard"]["skipped_steps"] == skipped,
+            f"guard {name}: status.json guard {held['guard']}, the records "
+            f"skip {skipped}")
+    if name == "simulate_guard_nan":
+        onsets = [e for e in held["events"] if e["event"] == "onset"
+                  and e["type"] == "guard"]
+        require(onsets and victim in (onsets[0]["workers"] or ()),
+                f"guard {name}: incidents.jsonl {held['events']}, victim "
+                f"{victim}")
+    out = {"leg": name, "twin": twin, "records": recs,
+           "loop_records": loop_recs, "launches": counts,
+           "chunk_ms_per_step": timed[1], "twin_chunk_ms_per_step": twin_ms[1],
+           "guard_only_chunk_ms_per_step": guard_only_ms[1],
+           "guard_cost_ms_per_step": guard_only_ms[1] - twin_ms[1],
+           "cudnn_deterministic": cnn, **held}
+    print(f"guard {name}: steps 1-{CHUNK_K} guard columns "
+          f"{[(r['guard_trips'], r['skipped_steps']) for r in recs]}, the "
+          f"skipped steps' state bit for bit the step before's, step 1 bit "
+          f"for bit {twin}'s, the K={CHUNK_K} chunk twice bit for bit the "
+          f"eager run; chunk {timed[1]:.3f} ms/step against {twin}'s "
+          f"{twin_ms[1]:.3f} and the guard alone's {guard_only_ms[1]:.3f} "
+          f"(CUDA events, "
+          f"{'deterministic cuDNN' if cnn else 'default settings'}); the "
+          f"loop over {GUARD_STEPS} steps: status.json guard {held['guard']}"
+          f", incidents {held['incidents']}", flush=True)
+    del program, runner, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def guard_phase(dev, ds) -> dict:
+    """Phase 8: the resilience legs (``guard_leg``); the lint (phase 5,
+    ``lint_legs``) holds each to its twin."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_guard_")
+    try:
+        return {lp.name: guard_leg(lp, dev, ds, root)
+                for lp in registry.GUARD_PROGRAMS}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def host_fault_run(dev, ds, root: str) -> dict:
+    """Preset cyclic-resnet18 at ``shared``, K=4, 8 steps, eval and save
+    every 3, under deterministic cuDNN: ``prefetch_crash@2,sigterm@5``
+    (the crash retried by the supervised prefetcher; the sigterm due at
+    the chunk that ends at 6, where the run stops with its checkpoint and
+    status.json ends ``preempted`` with ``resumable_step`` 6), then the
+    resume from −1 to step 8 with the crash alone: the final state bit for
+    bit an uninterrupted run's with ``prefetch_crash@2``."""
+    cfg = presets.get_preset(
+        "cyclic-resnet18", redundancy="shared", num_workers=N,
+        steps_per_call=CHUNK_K, eval_freq=3, max_steps=8,
+        test_batch_size=1000, train_dir="", log_every=1)
+
+    def trainer(d, **fields):
+        return Trainer(dataclasses.replace(cfg, train_dir=d, **fields),
+                       device=dev, dataset=ds, quiet=True)
+
+    a_dir, b_dir = (os.path.join(root, "faults_" + x) for x in "ab")
+    gc.collect()  # the earlier runs' setups and their graphs
+    torch.cuda.empty_cache()
+    with cudnn_deterministic():
+        tr = trainer(a_dir, fault_spec="prefetch_crash@2")
+        last = tr.run()
+        want = _state_copy(tr.state)
+        require(last["step"] == 8, f"host faults: the uninterrupted run "
+                f"ended at {last}")
+        del tr
+        tr = trainer(b_dir, fault_spec="prefetch_crash@2,sigterm@5")
+        tr.run()
+        stopped = tr.stopped_step
+        del tr
+        with open(os.path.join(b_dir, "status.json")) as f:
+            status = json.load(f)
+        heartbeat.check_status_schema(status, tool="chip_smoke")
+        require(stopped == 6 and status.get("state") == "preempted"
+                and status.get("resumable_step") == 6
+                and status.get("prefetch_restarts", 0) >= 1,
+                f"host faults: stopped at {stopped}, status.json {status}")
+        tr = trainer(b_dir, fault_spec="prefetch_crash@2", checkpoint_step=-1)
+        require(tr.state.step == 7, f"host faults: resumed at "
+                f"{tr.state.step}")
+        last = tr.run()
+        _held("host faults (resumed)", _state_copy(tr.state), want)
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"state host faults: prefetch_crash@2 retried and masked "
+          f"(prefetch_restarts {status['prefetch_restarts']}), sigterm@5 "
+          f"stopped the run at 6 (status.json preempted, resumable_step 6), "
+          f"resumed from -1 to 8: the state bit for bit the uninterrupted "
+          f"run's ({len(want)} tensors)", flush=True)
+    return {"stopped_step": stopped, "status": status, "last": last,
+            "state_tensors": len(want)}
+
+
 def state_resnet(dev, ds, root: str) -> dict:
     """Preset cyclic-resnet18 at n=8, ``shared``, K=4, eval and checkpoint
     every 4 of 12 steps, all under deterministic cuDNN: the uninterrupted
@@ -4236,6 +4653,7 @@ def state_phase(dev, ds) -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_state_")
     try:
         out = {"resnet": state_resnet(dev, ds, root)}
+        out["host_faults"] = host_fault_run(dev, ds, root)
         out["lm"] = state_lm(dev, root)
         d = os.path.join(root, "lenet")
         t0 = time.perf_counter()
@@ -4368,6 +4786,7 @@ def main(argv=None) -> int:
                + narrow_kernels(code, dev) + segment_kernels(code, dev, cuts)
                + flash_kernels(dev) + vote_kernels(dev) + draw_rows
                + numerics_rows + control_kernels(dev))
+    record["nan_chain"] = nan_chain_kernels(code, dev)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     record["kernel_audit"] = audit_kernels()
@@ -4401,6 +4820,9 @@ def main(argv=None) -> int:
     record["wire_checks"] = wire_checks(dev)
     record["lm_checks"] = lm_checks(dev)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    record["guard"] = guard_phase(dev, ds)
+    record["guard_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     record["lint"] = lint_legs(dev)
     record["lint_legs_s"] = time.perf_counter() - t0

@@ -64,7 +64,8 @@ def controls_for(device) -> list:
 
 
 def select(names: str) -> list:
-    programs = registry.collect() + registry.collect_chunks()
+    programs = (registry.collect() + registry.collect_chunks()
+                + registry.collect_guard())
     if not names:
         return programs
     keep = set()

@@ -53,6 +53,17 @@ shadow, stochastically rounded), ``majvote_shadow_int8`` (preset
 rep-resnet18 with the int8 shadow) and ``lm_shared_flash_watch`` (the LM's
 ``shared`` leg with the bf16 shadow). Every coded leg runs the ingest check
 (``nonfinite_rows``) and packs its forensics masks.
+
+The resilience legs (``GUARD_PROGRAMS``, ``chip_smoke.py``'s guard phase,
+each beside the leg it guards, ``GUARD_TWINS``) run the step guard and a
+seeded fault plan: ``simulate_guard_nan`` (the flagship, a NaN gradient
+from a drawn worker at step 2), ``shared_int8_over_budget`` (the int8
+``shared`` wire, step 3's adversaries past the budget),
+``approx_guard_watch`` (preset approx-resnet18, worker 3 absent on steps
+2–3) and ``lm_shared_flash_adamw_guard`` (the AdamW LM, an Inf gradient
+from worker 5 at step 2). The plan's in-step events go to the card once at
+setup: a guarded step moves its twin's host-to-device bytes, the approx
+code's plus the staged bound its certificate reads (4 bytes).
 """
 
 from __future__ import annotations
@@ -218,6 +229,8 @@ def uploads(cfg) -> dict:
         out["present (bool)"] = n
     if cfg.approach == "approx":
         out["v/n and presence (f32)"] = 2 * n * 4
+        if cfg.step_guard == "on":
+            out["the certificate's bound (f32)"] = 4
     return out
 
 
@@ -309,7 +322,8 @@ class ChunkProgram:
     the H2D bytes of a chunk (its staging copy: K steps' uploads) and a
     peak that includes the graph's private pool. The flush runs as the
     loops run it: the run heartbeat (``obs/heartbeat.py``, on a temporary
-    train_dir) observes its records and beats, within the one fetch."""
+    train_dir) observes its records and beats, within the one fetch, and
+    under ``incident_watch="on"`` its incident engine folds them too."""
 
     name: str
     leg: str  # the LintProgram it chunks
@@ -330,6 +344,7 @@ class ChunkProgram:
         import tempfile
 
         from draco_tpu_torch.obs.heartbeat import RunHeartbeat
+        from draco_tpu_torch.obs.incidents import make_engine
         from draco_tpu_torch.runtime import resolve_device
         from draco_tpu_torch.utils.metrics import (
             DeferredMetricWriter,
@@ -343,7 +358,9 @@ class ChunkProgram:
         client = runner.chunk_client(1, cfg.max_steps)
         ranges = client.ranges
         status_dir = tempfile.TemporaryDirectory(prefix="draco_lint_")
-        hb = RunHeartbeat(status_dir.name, num_workers=cfg.num_workers)
+        hb = RunHeartbeat(status_dir.name, num_workers=cfg.num_workers,
+                          incidents=make_engine(dataclasses.replace(
+                              cfg, train_dir=status_dir.name)))
         deferred = DeferredMetricWriter(MetricWriter("", quiet=True),
                                         observer=hb.observe)
         done = []
@@ -497,8 +514,45 @@ CHUNKS = (ChunkProgram("chunk_simulate", "simulate"),
                        "lm_shared_flash_watch"))
 
 
+# the resilience legs: the step guard and a seeded fault plan, each beside
+# the leg it guards (GUARD_TWINS)
+GUARD = dict(step_guard="on")
+GUARD_PROGRAMS = (
+    LintProgram("simulate_guard_nan", "cnn",
+                dict(approach="cyclic", redundancy="simulate", **GUARD,
+                     fault_spec="nan_grad@2", incident_watch="on"), 13.0),
+    LintProgram("shared_int8_over_budget", "cnn",
+                dict(_CYCLIC_SHARED, wire_dtype="int8", **GUARD,
+                     fault_spec="over_budget@3"), 4.5),
+    LintProgram("approx_guard_watch", "cnn",
+                dict(APPROX, **GUARD, incident_watch="on",
+                     fault_spec="straggle@2:w3:d2"), 4.5),
+    # the gated update's and the Inf row's (8, d) temporaries: 15.02 GiB
+    # measured against the twin's 13.14 (PERF.md §6)
+    LintProgram("lm_shared_flash_adamw_guard", "lm",
+                dict(_CYCLIC_SHARED, **ADAMW, **GUARD,
+                     fault_spec="inf_grad@2:w5"), 16.5),
+)
+GUARD_TWINS = {"simulate_guard_nan": "simulate",
+               "shared_int8_over_budget": "shared_int8",
+               "approx_guard_watch": "approx",
+               "lm_shared_flash_adamw_guard": "lm_shared_flash_adamw"}
+# the guarded flagship's chunk, beside chunk_simulate: the same syncs,
+# fetches and staging bytes; the guarded approx code's, whose flush the
+# incident engine folds too
+GUARD_CHUNKS = (ChunkProgram("chunk_simulate_guard_nan",
+                             "simulate_guard_nan"),
+                ChunkProgram("chunk_approx_guard_watch",
+                             "approx_guard_watch"))
+
+
 def collect_chunks() -> "list[ChunkProgram]":
     return list(CHUNKS)
+
+
+def collect_guard() -> list:
+    """The resilience legs and their chunk."""
+    return list(GUARD_PROGRAMS + GUARD_CHUNKS)
 
 
 def collect() -> "list[LintProgram]":
@@ -509,8 +563,9 @@ def collect() -> "list[LintProgram]":
 
 
 def get(name: str):
-    for p in PROGRAMS + CHUNKS:
+    every = PROGRAMS + CHUNKS + GUARD_PROGRAMS + GUARD_CHUNKS
+    for p in every:
         if p.name == name:
             return p
     raise KeyError(f"no lint program named {name!r}; registered: "
-                   f"{[p.name for p in PROGRAMS + CHUNKS]}")
+                   f"{[p.name for p in every]}")

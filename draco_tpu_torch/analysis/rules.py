@@ -368,6 +368,28 @@ def lint_record(rec, manifest) -> dict:
             "device": rec["device"], "ops": rec["ops"]}
 
 
+def twin_failures(row: dict, twin: dict, extra_h2d: int = 0) -> list:
+    """What a guarded leg's lint row does beyond its twin's (the same leg
+    without the guard and the fault plan): more synchronising calls, more
+    device-to-host fetches a flush, or other host-to-device bytes than the
+    twin's plus ``extra_h2d`` (the approx certificate's staged bound; the
+    plan's own tensors go to the card at setup). [] when none."""
+    out = []
+    a, b = row["rules"], twin["rules"]
+    if a["host_traffic"]["syncs"] > b["host_traffic"]["syncs"]:
+        out.append(f"syncs {a['host_traffic']['syncs']} > the twin's "
+                   f"{b['host_traffic']['syncs']}")
+    fa = a["host_traffic"].get("flush", {}).get("fetches")
+    fb = b["host_traffic"].get("flush", {}).get("fetches")
+    if fa is not None and fb is not None and fa > fb:
+        out.append(f"flush fetches {fa} > the twin's {fb}")
+    ha = a["constant_bloat"].get("h2d_bytes")
+    hb = b["constant_bloat"].get("h2d_bytes")
+    if ha is not None and hb is not None and ha != hb + extra_h2d:
+        out.append(f"h2d bytes {ha} != the twin's {hb} + {extra_h2d}")
+    return out
+
+
 def lint_program(program) -> "tuple[dict, dict]":
     """One inspected step of a built program: (row, record)."""
     rec = inspect_step(program)

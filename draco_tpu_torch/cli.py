@@ -51,6 +51,15 @@ the newest loadable checkpoint (walking back past corrupt ones); SIGTERM
 or SIGINT stops at the next step or chunk end with a checkpoint.
 ``--prefetch-timeout`` and ``--prefetch-restarts`` bound and supervise the
 chunked loops' prefetch worker.
+``--step-guard on`` skips an untrusted step's update (``--guard-residual-tol``
+is the loud residual), ``--fault-spec "nan_grad@2,sigterm@5"`` runs the
+seeded fault plan (``resilience/faults.py``), ``--incident-watch on``
+writes ``incidents.jsonl`` and the status.json incidents block
+(``--incident-thresholds "trust.floor=0.4"``):
+
+  python -m draco_tpu_torch.cli --preset cyclic-resnet18 --num-workers 8 \\
+      --step-guard on --fault-spec nan_grad@2 --incident-watch on \\
+      --max-steps 5 --train-dir train_out/guard
 Runs on the card unless ``--device cpu`` is given. With ``--preset``, the
 flags given on the command line override the preset's fields.
 ``network=TransformerLM`` runs the single-shard LM step and its token loop
@@ -126,6 +135,11 @@ FLAGS = {
     "--keep-checkpoints": (int, "keep_checkpoints"),
     "--prefetch-timeout": (float, "prefetch_timeout_s"),
     "--prefetch-restarts": (int, "prefetch_restarts"),
+    "--step-guard": (str, "step_guard"),
+    "--guard-residual-tol": (float, "guard_residual_tol"),
+    "--fault-spec": (str, "fault_spec"),
+    "--incident-watch": (str, "incident_watch"),
+    "--incident-thresholds": (str, "incident_thresholds"),
 }
 
 

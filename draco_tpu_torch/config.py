@@ -177,6 +177,24 @@ class TrainConfig:
     # host span trace of the loops' phases (obs/tracer.py) at
     # trace_dir/trace.json; "" = off
     trace_dir: str = ""
+    # --- resilience (resilience/faults.py, resilience/guards.py) ---
+    # "on": the step guard skips an untrusted step's update by a select
+    # (a non-finite aggregate, a loud decode residual, located rows past
+    # the budget), the step counter still advancing, and appends the
+    # guard_trips / skipped_steps columns; "off" keeps the unguarded update
+    step_guard: str = "off"
+    # decode_residual above this is loud (clean decodes sit at f32 solve
+    # noise, ~1e-6 relative), widened by the narrow wire's slack
+    guard_residual_tol: float = 1e-3
+    # the seeded fault plan: comma-separated "kind@step[-end][:w<worker>]
+    # [:d<dwell>][:every<k>]" events (resilience/faults.py); "" = none
+    fault_spec: str = ""
+    # "on": the incident engine (obs/incidents.py) folds the records and
+    # beats into episodes, train_dir/incidents.jsonl and status.json's
+    # incidents block (host only); needs a train_dir to write them
+    incident_watch: str = "off"
+    # "<detector>.<key>=<float>,..." overrides of the detectors' thresholds
+    incident_thresholds: str = ""
     log_every: int = 10
     seed: int = SEED
     geomedian_iters: int = 80
@@ -286,6 +304,7 @@ class TrainConfig:
                              f"{self.compute_dtype}")
         self._validate_chunk()
         self._validate_run_state()
+        self._validate_resilience()
         if self.approach == "approx":
             self._validate_approx()
         self._validate_stragglers()
@@ -364,6 +383,41 @@ class TrainConfig:
             raise ValueError(
                 "checkpoint_step must be >= -1 (-1 resumes from the newest "
                 f"loadable checkpoint), got {self.checkpoint_step}")
+
+    def _validate_resilience(self) -> None:
+        """The reference's checks of the guard, the fault plan and the
+        incident watch (draco_tpu/config.py)."""
+        if self.incident_watch not in ("off", "on"):
+            raise ValueError(
+                f"incident_watch must be off|on, got {self.incident_watch!r}")
+        if self.incident_thresholds:
+            from draco_tpu_torch.obs.incidents import parse_thresholds
+
+            parse_thresholds(self.incident_thresholds)
+        if self.step_guard not in ("off", "on"):
+            raise ValueError(
+                f"step_guard must be off|on, got {self.step_guard!r}")
+        if self.guard_residual_tol <= 0:
+            raise ValueError(f"guard_residual_tol must be > 0, got "
+                             f"{self.guard_residual_tol}")
+        if not self.fault_spec:
+            return
+        from draco_tpu_torch.resilience.faults import FaultPlan
+
+        plan = FaultPlan.parse(self.fault_spec, self.seed, self.num_workers)
+        if self.approach == "approx" and plan.of_kind("over_budget",
+                                                      "adversary"):
+            # both kinds mark schedule rows as live adversaries, which the
+            # approx code never injects
+            raise ValueError(
+                "fault kinds over_budget/adversary are not expressible "
+                "under approach=approx (the family injects no "
+                "adversaries); use straggle/nan_grad/host kinds, or "
+                "cyclic/maj_vote for Byzantine-budget faults")
+        if self.network == LM_NETWORK and plan.of_kind("straggle"):
+            raise ValueError(
+                f"fault kind straggle is not ported yet for {LM_NETWORK} "
+                f"(the port's LM runs every row present)")
 
     def _validate_vote(self) -> None:
         """The reference's maj_vote checks (draco_tpu/config.py)."""

@@ -50,6 +50,9 @@ Client protocol (``control/clients.py``):
                               boundary just saved it)
   cleanup()                   always runs on exit (close the prefetcher)
 
+The stop poll delivers the fault plan's due ``sigterm`` events first
+(``injector``, the loop's ``resilience/faults.HostFaultInjector``).
+
 Not ported: the reference engine's compile watch, profiler window and
 its autopilot hook.
 """
@@ -66,7 +69,7 @@ MAX_PENDING = 4  # blocks deferred before a flush is forced
 
 class ChunkedEngine:
     def __init__(self, client, *, eval_freq: int, tracer, writer,
-                 heartbeat, total_end: int, stop=None):
+                 heartbeat, total_end: int, stop=None, injector=None):
         self.client = client
         self.eval_freq = eval_freq
         self.tracer = tracer
@@ -75,6 +78,7 @@ class ChunkedEngine:
         self.deferred = DeferredMetricWriter(writer,
                                              observer=heartbeat.observe)
         self.stop = stop  # the loop's GracefulStop, or None
+        self.injector = injector  # the fault plan's host events, or None
 
     def run(self, state, ranges):
         """Drive chunks over ``ranges``; returns (state, last record)."""
@@ -121,7 +125,7 @@ class ChunkedEngine:
                     if boundary:
                         client.boundary(end, state)
                     window_t0, window_steps = time.perf_counter(), 0
-                if stop_requested(self.stop, None, end):
+                if stop_requested(self.stop, self.injector, end):
                     # a chunk's end is a legal stop point mid-window: the
                     # pending records first, then the checkpoint
                     drain(end)

@@ -11,7 +11,12 @@ top suspects, trust, episodes); the ``wire`` block (the run's
 ``obs/numerics.wire_ledger``, stamped once); on observatory runs the
 ``numerics`` block (the newest range statistics, the worst danger
 fractions and shadow errors, the lowest shadow flag agreement and the
-steps whose shadow comparison was poisoned); the run's ``run_id`` (kept
+steps whose shadow comparison was poisoned); the ``guard`` block (the
+step guard's ``trips`` and ``skipped_steps`` summed over the records,
+written once a record carried the guard's columns); the ``incidents``
+block (``obs/incidents.IncidentEngine.status_block``: open episodes,
+totals by type, the last onset) when the loop hands the heartbeat an
+engine (``incident_watch="on"``); the run's ``run_id`` (kept
 across a resume: re-read from the directory's status.json) and its
 ``job_name``; ``updated_at``.
 
@@ -21,11 +26,14 @@ anyway — the chunked loops' flushes (``utils/metrics
 heartbeat adds no device fetch and no synchronisation. :meth:`beat`
 writes the file; :meth:`terminal` ends its life as ``done``,
 ``preempted`` (with ``resumable_step`` when a checkpoint was snapped) or
-``crashed`` (with a one-line ``cause``).
+``crashed`` (with a one-line ``cause``). The engine observes every
+record the heartbeat observes and every beat (with the beat's extras, the
+prefetcher's depth and restarts); the terminal write carries the final
+incidents block too and closes the engine's stream.
 
-The reference's ``device`` (profiler window), ``incidents`` and
-``control`` (autopilot) blocks are not ported: the port never writes
-them, which the schema allows (:func:`check_status_schema`).
+The reference's ``device`` (profiler window) and ``control`` (autopilot)
+blocks are not ported: the port never writes them, which the schema
+allows (:func:`check_status_schema`).
 """
 
 from __future__ import annotations
@@ -104,7 +112,7 @@ class RunHeartbeat:
 
     def __init__(self, train_dir: Optional[str],
                  num_workers: Optional[int] = None,
-                 job_name: Optional[str] = None):
+                 job_name: Optional[str] = None, incidents=None):
         self.path = (os.path.join(train_dir, "status.json") if train_dir
                      else None)
         if self.path:
@@ -116,6 +124,9 @@ class RunHeartbeat:
         self._tp = 0.0
         self._adv = 0.0
         self._flagged = 0.0
+        self._guard_trips = 0.0
+        self._skipped_steps = 0.0
+        self._guard_seen = False  # a record carried the guard's columns
         self._last: dict = {}
         self._nx: dict = {}
         self._wire: Optional[dict] = None
@@ -124,6 +135,8 @@ class RunHeartbeat:
         self._last_payload: dict = {}
         self.ledger = (AccusationLedger(num_workers)
                        if (self.path and num_workers) else None)
+        # the incident engine (obs/incidents.py), or None
+        self.incidents = incidents if self.path else None
 
     def _load_or_mint_run_id(self) -> str:
         """The directory's run_id (a resume keeps it), else a new one; a
@@ -157,6 +170,10 @@ class RunHeartbeat:
         elif "decode_residual_bound" in record:
             # the approx code: no detection columns, its certificate
             self._last_health_rec = record
+        if "guard_trips" in record:
+            self._guard_trips += float(record["guard_trips"])
+            self._skipped_steps += float(record.get("skipped_steps", 0.0))
+            self._guard_seen = True
         for k in _NX_LAST:
             if k in record:
                 self._nx[k] = float(record[k])
@@ -180,8 +197,16 @@ class RunHeartbeat:
                     continue
                 key = f"{k}_min"
                 self._nx[key] = min(self._nx.get(key, float("inf")), v)
+        # the engine first: it unpacks the record's masks once, and the
+        # ledger reuses them
+        if self.incidents is not None:
+            self.incidents.observe(record)
         if self.ledger is not None:
-            self.ledger.observe(record)
+            masks = (self.incidents.current_masks
+                     if self.incidents is not None
+                     and self.incidents.num_workers == self.ledger.n
+                     else None)
+            self.ledger.observe(record, masks=masks)
         self._last = record
 
     def set_wire(self, ledger: Optional[dict]) -> None:
@@ -235,12 +260,19 @@ class RunHeartbeat:
         health = self.decode_health()
         if health is not None:
             payload["decode_health"] = health
+        if self._guard_seen:
+            payload["guard"] = {"trips": self._guard_trips,
+                                "skipped_steps": self._skipped_steps}
         if self.ledger is not None and self.ledger.active:
             payload["forensics"] = self.ledger.summary()
         if self._wire is not None:
             payload["wire"] = self._wire
         if self._nx:
             payload["numerics"] = dict(self._nx)
+        if self.incidents is not None:
+            # the beat is the engine's beat observation
+            self.incidents.observe_beat(step, extra)
+            payload["incidents"] = self.incidents.status_block()
         if extra:
             payload.update(extra)
         self._write(payload)
@@ -261,6 +293,11 @@ class RunHeartbeat:
         if self.job_name:
             payload["job_name"] = self.job_name
         payload["updated_at"] = time.time()
+        if self.incidents is not None:
+            # an incident opened after the last beat (the crash step, a
+            # guard trip at the stop) rides the run's last word
+            payload["incidents"] = self.incidents.status_block()
+            self.incidents.finalize()
         if cause is not None:
             payload["cause"] = str(cause)[:500]
         if resumable_step is not None:

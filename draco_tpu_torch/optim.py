@@ -50,6 +50,16 @@ SCHEDULES = ("constant", "cosine")
 OPTIMIZERS = ("sgd", "adam", "adamw")
 
 
+def gated(dst: torch.Tensor, new: torch.Tensor, ok) -> None:
+    """``dst`` ← ``new`` where the 0-d bool ``ok`` holds, else ``dst`` as
+    it was: a select, exact both ways (a multiplicative gate is not: NaN·0
+    is NaN). ``ok`` None: a plain copy."""
+    if ok is None:
+        dst.copy_(new)
+    else:
+        torch.where(ok, new, dst, out=dst)
+
+
 class Rule:
     """An update rule at lr = 1: its buffers (name -> one zero tensor a
     parameter) and :meth:`direction`, the d of p ← p − lr·d, which
@@ -58,7 +68,9 @@ class Rule:
     buffers: tuple = ()
 
     def direction(self, grads: dict, bufs: dict, params: dict,
-                  count: torch.Tensor) -> dict:
+                  count: torch.Tensor, ok=None) -> dict:
+        """``ok``: the step guard's 0-d bool gate, or None; with a gate
+        each buffer write keeps the old value where ``ok`` is False."""
         raise NotImplementedError
 
     def jax_leaves(self, bufs: dict, count: torch.Tensor, lay) -> list:
@@ -75,7 +87,7 @@ class SGDRule(Rule):
         self.weight_decay, self.nesterov = weight_decay, nesterov
         self.buffers = ("momentum",) if momentum != 0.0 else ()
 
-    def direction(self, grads, bufs, params, count):
+    def direction(self, grads, bufs, params, count, ok=None):
         out = {}
         for k, g in grads.items():
             if self.weight_decay != 0.0:
@@ -85,10 +97,13 @@ class SGDRule(Rule):
                 continue
             buf = bufs["momentum"][k]
             if self.dampening == 0.0:
-                buf.mul_(self.momentum).add_(g)
+                if ok is None:
+                    buf.mul_(self.momentum).add_(g)
+                else:
+                    gated(buf, buf * self.momentum + g, ok)
             else:
                 later = self.momentum * buf + (1.0 - self.dampening) * g
-                buf.copy_(torch.where(count > 0, later, g))
+                gated(buf, torch.where(count > 0, later, g), ok)
             out[k] = g + self.momentum * buf if self.nesterov else buf
         return out
 
@@ -116,7 +131,7 @@ class AdamRule(Rule):
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.decoupled = weight_decay, decoupled
 
-    def direction(self, grads, bufs, params, count):
+    def direction(self, grads, bufs, params, count, ok=None):
         t = (count + 1).to(torch.float32)
         step_size = (torch.sqrt(1.0 - torch.pow(self.b2, t))
                      / (1.0 - torch.pow(self.b1, t)))
@@ -125,8 +140,12 @@ class AdamRule(Rule):
             if self.weight_decay != 0.0:
                 g = g + self.weight_decay * params[k]
             m, v = bufs["exp_avg"][k], bufs["exp_avg_sq"][k]
-            m.mul_(self.b1).add_((1.0 - self.b1) * g)
-            v.mul_(self.b2).add_((1.0 - self.b2) * g * g)
+            if ok is None:
+                m.mul_(self.b1).add_((1.0 - self.b1) * g)
+                v.mul_(self.b2).add_((1.0 - self.b2) * g * g)
+            else:
+                gated(m, m * self.b1 + (1.0 - self.b1) * g, ok)
+                gated(v, v * self.b2 + (1.0 - self.b2) * g * g, ok)
             d = step_size * m / (torch.sqrt(v) + self.eps)
             if self.decoupled != 0.0:
                 d = d + self.decoupled * params[k]
@@ -242,20 +261,32 @@ class Optimizer:
         self._apply(params, grads)
 
     @torch.no_grad()
-    def step_flat(self, params: dict, flat: torch.Tensor, layout) -> None:
+    def step_flat(self, params: dict, flat: torch.Tensor, layout,
+                  ok: Optional[torch.Tensor] = None) -> None:
         """:meth:`step` on a flat (d,) gradient in the reference's layout;
-        the clip takes one norm of the flat vector."""
+        the clip takes one norm of the flat vector. ``ok``: the step
+        guard's 0-d bool gate (``resilience/guards.py``): where it is
+        False the parameters, the rule's buffers and the update count stay
+        bit for bit as they were; where True the update is the ungated one
+        bit for bit. None: the ungated update."""
         self.init(params)
         if self.clip_norm > 0.0:
             flat = flat * self.clip_scale(torch.linalg.vector_norm(flat))
-        self._apply(params, params_mod.unflatten(flat, layout))
+        self._apply(params, params_mod.unflatten(flat, layout), ok)
 
-    def _apply(self, params: dict, grads: dict) -> None:
-        d = self.rule.direction(grads, self.state, params, self.count)
+    def _apply(self, params: dict, grads: dict, ok=None) -> None:
+        if ok is None:
+            d = self.rule.direction(grads, self.state, params, self.count)
+            lr = self.schedule(self.count)
+            for k, p in params.items():
+                p.sub_(d[k] * lr)
+            self.count.add_(1)
+            return
+        d = self.rule.direction(grads, self.state, params, self.count, ok)
         lr = self.schedule(self.count)
         for k, p in params.items():
-            p.sub_(d[k] * lr)
-        self.count.add_(1)
+            gated(p, p - d[k] * lr, ok)
+        self.count.add_(ok.to(torch.int32))
 
 
 def build_optimizer(name: str, lr: float, momentum: float = 0.0,

@@ -10,8 +10,10 @@ whole or in segments (``wire_segments``), stragglers as a presence mask,
 and the baseline's seven robust rules (``aggregation.py``). The LM route
 runs the cyclic code (flat or tree) and the baseline codes with every row
 present on the f32 wire (``config.validate``); the repetition code is the
-CNN step's (``training/step.py``). The reference's step guard is not
-ported yet.
+CNN step's (``training/step.py``). Both steps run the seeded fault plan's
+in-step events on the per-worker gradients (``resilience/faults.py``)
+before anything reads them, and end in the step guard
+(``resilience/guards.py``): the update gated by the step's verdict.
 
 The metric schema (``metric_family_names``, the one assembly of the CNN
 step's ``metric_names`` and the LM's ``token_metric_names``): after a
@@ -19,8 +21,9 @@ route's base columns, its code's health columns, the packed forensics
 masks (``obs/forensics.py``: the accused set — the code's flags ∪ its
 loud rows ∪ the non-finite ingest rows, present-gated — the present set
 and the adversary schedule), then the numerics observatory's columns
-(``numerics_watch``, ``shadow_wire``; ``obs/numerics.py``). The baseline
-emits none of them.
+(``numerics_watch``, ``shadow_wire``; ``obs/numerics.py``), and last the
+step guard's ``guard_trips, skipped_steps`` (``step_guard="on"``). The
+baseline emits none of them but the guard's.
 
 The cyclic decode's dispatch, one for both steps (``decode_bounds`` and
 ``cyclic_decode``): layer granularity — with segments the leaf boundaries
@@ -42,6 +45,7 @@ from draco_tpu_torch.coding import repetition
 from draco_tpu_torch.coding import topology
 from draco_tpu_torch.obs import forensics, numerics
 from draco_tpu_torch.obs.tracer import phase
+from draco_tpu_torch.resilience import faults, guards
 
 # the LM's base columns; the optional families follow
 # (metric_family_names)
@@ -225,7 +229,7 @@ def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
 def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
                          code, rand_factor, noise=None, step=None,
                          present: Optional[torch.Tensor] = None,
-                         leaf_offsets=None):
+                         leaf_offsets=None, plan=None):
     """Per-worker flat gradients -> ``(aggregated (d,), health)``.
 
     cyclic: ``grads`` (n, hat_s, d) are the true redundant lanes
@@ -239,7 +243,10 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
     robust rule aggregates them over the ``present`` rows; ``health`` is
     None. ``noise``: the ``random`` attack's explicit draws, else they are
     drawn on the device from ``step`` (the step's int32 tensor;
-    attacks.py)."""
+    attacks.py). ``plan``: the fault plan's in-step events on the device
+    (``resilience/faults.plan_tensors``), applied to ``grads`` first; None
+    adds nothing."""
+    grads = faults.corrupt_grads(grads, plan, step)
     if cfg.approach == "cyclic":
         # the ingest check before the encode, which smears a NaN over
         # every codeword: row k is still worker k here
@@ -290,19 +297,25 @@ def present_mean(values: torch.Tensor,
     return (values * w).sum() / torch.clamp_min(w.sum(), 1.0)
 
 
-def finish_flat_step(state, agg: torch.Tensor, layout) -> None:
-    """The optimizer update on the aggregated flat gradient, in place (the
-    reference's guard is not ported yet). The step counter is the caller's:
+def finish_flat_step(cfg, state, agg: torch.Tensor, health, layout,
+                     present: Optional[torch.Tensor] = None) -> dict:
+    """The step guard's verdict on the aggregate and the health
+    (``resilience/guards.py``; the reference's guarded tail), then the
+    optimizer update on the aggregated flat gradient, in place and gated
+    by it. Returns the guard's columns ({} with the guard off, and the
+    update is then the unguarded one). The step counter is the caller's:
     a captured step runs this once at capture."""
+    ok, cols = guards.guard_update(cfg, agg, health, present)
     with phase("draco_update"):
-        state.opt.step_flat(state.params, agg, layout)
+        state.opt.step_flat(state.params, agg, layout, ok)
+    return cols
 
 
 def metric_family_names(cfg) -> tuple:
     """The optional column families a route appends after its base
     columns, for the CNN step and the LM alike: the code's health columns
-    and the packed forensics masks, then the observatory's columns. The
-    baseline contributes none."""
+    and the packed forensics masks, then the observatory's columns, then
+    the step guard's. The baseline contributes only the guard's."""
     names = ()
     if cfg.approach == "cyclic":
         names += DECODE_HEALTH_NAMES
@@ -312,7 +325,10 @@ def metric_family_names(cfg) -> tuple:
         names += VOTE_NAMES
     if cfg.approach != "baseline":
         names += forensics.mask_metric_names(cfg.num_workers)
-    return names + numerics.watch_metric_names(cfg)
+    names += numerics.watch_metric_names(cfg)
+    if cfg.step_guard == "on":
+        names += guards.GUARD_METRIC_NAMES
+    return names
 
 
 def token_metric_names(cfg) -> tuple:

@@ -29,7 +29,10 @@ As in ``training/step.py``, ``step_body`` runs the step on its host inputs
 the device: the eager ``train_step`` uploads them, ``train_token_many``
 (the counterpart of the reference's ``train_token_many`` at sp=1) runs a
 chunk of k ≤ K steps from the chunk's staging buffers
-(``training/chunk_graph.py``). With ``cfg.token_gen="device"`` the host
+(``training/chunk_graph.py``). The fault plan's in-step events
+(``resilience/faults.py``) corrupt the lanes' gradients on the device from
+the staged step, and the step guard gates the update
+(``parallel/common.finish_flat_step``). With ``cfg.token_gen="device"`` the host
 sends no tokens: the step makes its batch on the device from the staged
 step (``synthetic_text_in_graph``, the reference's stream, by the
 ``synthetic_text`` kernel of ``ops/draws.py``), so a chunk stages K step
@@ -65,6 +68,7 @@ from draco_tpu_torch.parallel.common import (
 )
 from draco_tpu_torch.obs.tracer import phase
 from draco_tpu_torch.ops import draws
+from draco_tpu_torch.resilience import faults
 from draco_tpu_torch.runtime import resolve_device, upload
 from draco_tpu_torch.training.chunk_graph import Chunk
 from draco_tpu_torch.training.step import TrainState, chunk_runner
@@ -195,6 +199,8 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
         bounds = decode_bounds(cfg, dim, layout.offsets)
         if bounds is not None:
             segment_plan(bounds, dev)
+    # the fault plan's in-step events, on the card from setup (None: none)
+    plan = faults.plan_tensors(faults.plan_from_cfg(cfg), dev)
     names = token_metric_names(cfg)
     # not a column of the reference's LM schema: for callers that check the
     # honest set (n − 2s rows on every clean decode)
@@ -231,11 +237,13 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
             grads, losses = lane_grads(state.params, toks)
         agg, health = aggregate_flat_grads(grads, mask, cfg, code, projection,
                                            noise, step,
-                                           leaf_offsets=layout.offsets)
+                                           leaf_offsets=layout.offsets,
+                                           plan=plan)
         del grads
-        finish_flat_step(state, agg, layout)
+        guard_cols = finish_flat_step(cfg, state, agg, health, layout)
         metrics = {"loss": present_mean(losses)}
         metrics.update(decode_health_metrics(health, mask))
+        metrics.update(guard_cols)
         if health is not None:
             metrics["honest_located"] = health["honest"].sum()
         return metrics

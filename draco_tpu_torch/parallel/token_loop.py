@@ -41,6 +41,13 @@ reference's; every record of a chunked flush), beats at each flush, at
 an ``eval_freq`` boundary and at the last step, carries the run's wire
 ledger and ends ``done``, ``preempted`` or ``crashed``. Mask columns come
 to the host as their exact integer words (``obs/forensics.record_value``).
+With ``incident_watch="on"`` the heartbeat feeds the incident engine
+(``obs/incidents.make_engine``: ``incidents.jsonl``, the status.json
+incidents block). The seeded fault plan (``resilience/faults.py``): its
+over_budget and adversary events overlay the adversary schedule (each
+time it is made, past ``max_steps`` on a resume too), its host events
+wrap the host token function (retried by the supervised prefetcher, or
+the eager loop's supervised direct source) and come with the stop polls.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from typing import Optional
 
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
-from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.obs import incidents, numerics
 from draco_tpu_torch.obs.forensics import record_value
 from draco_tpu_torch.obs.heartbeat import RunHeartbeat
 from draco_tpu_torch.obs.tracer import make_tracer
@@ -68,14 +75,17 @@ class TokenLoop(LoopRunState):
         self.text = lambda seed, step: synthetic_text(
             seed, step, cfg.num_workers, cfg.batch_size, cfg.seq_len,
             cfg.vocab)
+        self.init_resilience()
         self._sched_steps = -1
         self._ensure_schedule(cfg.max_steps)
         self.writer = MetricWriter(cfg.train_dir, quiet)
         self.tracer = make_tracer(cfg.trace_dir)
         self.heartbeat = RunHeartbeat(cfg.train_dir or None,
                                       num_workers=cfg.num_workers,
-                                      job_name=cfg.job_name or None)
+                                      job_name=cfg.job_name or None,
+                                      incidents=incidents.make_engine(cfg))
         self.heartbeat.set_wire(numerics.wire_ledger(cfg, setup.dim))
+        self._eager_tokens = self.eager_source(self.train_tokens)
         if cfg.checkpoint_step:
             self.restore(cfg.checkpoint_step)
 
@@ -84,9 +94,14 @@ class TokenLoop(LoopRunState):
         past ``max_steps``; the rows already used stay as they were)."""
         if n_steps > self._sched_steps:
             cfg = self.cfg
-            self.adv_schedule = drng.adversary_schedule(
-                cfg.seed, n_steps, cfg.num_workers, cfg.num_adversaries)
+            self.adv_schedule = self.overlay_adversaries(
+                drng.adversary_schedule(cfg.seed, n_steps, cfg.num_workers,
+                                        cfg.num_adversaries))
             self._sched_steps = n_steps
+
+    def train_tokens(self, step: int):
+        """The host tokens of training step ``step``."""
+        return self.text(self.cfg.seed, step)
 
     @property
     def device_tokens(self) -> bool:
@@ -96,7 +111,7 @@ class TokenLoop(LoopRunState):
         """The host inputs of 1-based ``step``: ``(tokens, adv_mask)`` as
         ``setup.train_step`` takes them; no tokens (None) when the device
         makes them."""
-        toks = None if self.device_tokens else self.text(self.cfg.seed, step)
+        toks = None if self.device_tokens else self._eager_tokens(step)
         return toks, self.adv_schedule[step]
 
     def step(self) -> dict:
@@ -141,7 +156,7 @@ class TokenLoop(LoopRunState):
         self._ensure_schedule(last)
         prefetch = None if self.device_tokens else self.supervised(
             lambda: pf.TokenChunkPrefetcher(
-                lambda step: self.text(self.cfg.seed, step),
+                self.injector.wrap_step_fn(self.train_tokens),
                 timeout_s=self.cfg.prefetch_timeout_s, tracer=self.tracer))
         return TokenChunkClient(self, prefetch, first, last)
 
@@ -152,7 +167,7 @@ class TokenLoop(LoopRunState):
         engine = ChunkedEngine(client, eval_freq=self.cfg.eval_freq,
                                tracer=self.tracer, writer=self.writer,
                                stop=self._stop, heartbeat=self.heartbeat,
-                               total_end=last_step)
+                               total_end=last_step, injector=self.injector)
         self.state, last = engine.run(self.state, client.ranges)
         return last
 

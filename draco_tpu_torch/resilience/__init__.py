@@ -1,2 +1,4 @@
-"""The host half of the resilience layer (draco_tpu/resilience): prefetch
-supervision, the checkpoint walk-back and the graceful stop."""
+"""The resilience layer (draco_tpu/resilience): the seeded fault plan
+(``faults``), the step guard (``guards``), and the host half — prefetch
+supervision, the checkpoint walk-back and the graceful stop
+(``supervisor``)."""

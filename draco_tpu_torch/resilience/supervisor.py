@@ -27,8 +27,12 @@ counter. The loops dispatch inside :meth:`GracefulStop.shield`, which
 holds a second signal's error until the dispatch has returned: the newest
 dispatched state is then always a whole step's.
 
-The reference's fault plan (``resilience/faults.py``) is not ported: the
-``injector`` argument of :func:`stop_requested` takes None.
+The fault plan's host events (``resilience/faults.HostFaultInjector``)
+come in here: :func:`stop_requested` delivers every due ``sigterm`` event
+through the real handler, and a ``prefetch_crash`` raised by a data
+function that the injector wraps is retried by the
+:class:`SupervisedPrefetcher` around it — the chunked loops' prefetchers,
+and the eager loops' :class:`DirectSource` when a plan has host events.
 """
 
 from __future__ import annotations
@@ -103,6 +107,24 @@ class SupervisedPrefetcher:
                 self._p.close()
             except Exception:
                 pass
+
+
+class DirectSource:
+    """A synchronous data function with a prefetcher's surface (``get``,
+    ``depth``, ``close``): what an eager loop reads its steps through when
+    the fault plan's injector wraps it, so a :class:`SupervisedPrefetcher`
+    retries an injected crash."""
+
+    depth = 0
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+
+    def get(self, *args):
+        return self._fn(*args)
+
+    def close(self) -> None:
+        pass
 
 
 # ---- checkpoint walk-back --------------------------------------------------

@@ -42,6 +42,7 @@ to k eager steps.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Callable, Optional
 
 import torch
@@ -226,6 +227,12 @@ class StepGraph:
         torch.cuda.synchronize(self.device)
         torch.cuda.reset_peak_memory_stats(self.device)
         base = torch.cuda.memory_allocated(self.device)
+        # no garbage collection inside the capture: a pass there could
+        # destroy an earlier setup's graph or events, whose CUDA calls
+        # invalidate the capture (torch.cuda.graph collects before it
+        # begins)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph):
                 with watch:
@@ -234,5 +241,8 @@ class StepGraph:
             raise RuntimeError(
                 f"{self.name}: CUDA graph capture of the step failed after "
                 f"{watch.last or 'no operator'}: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         self.pool_bytes = torch.cuda.max_memory_allocated(self.device) - base
         self.graph = graph

@@ -23,6 +23,13 @@ stop.
                      exception, ``crashed`` with its cause, before the
                      exception propagates.
 
+``init_resilience()`` sets up what both loops share of the fault plan
+(``resilience/faults.py``): the parsed plan, its host injector (whose
+``sigterm`` events the stop polls deliver) and the overlays of the
+adversary schedule; ``eager_source(fn)`` the eager loop's data function
+wrapped by the injector and supervised (a ``prefetch_crash`` is retried),
+``fn`` itself without host events.
+
 The loop provides ``cfg``, ``setup`` (its ``layout``), ``state``,
 ``tracer``, ``writer``, ``heartbeat`` (``obs/heartbeat.RunHeartbeat``)
 and ``evaluate(step)``, and dispatches its steps
@@ -34,7 +41,9 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+from draco_tpu_torch.resilience import faults
 from draco_tpu_torch.resilience.supervisor import (
+    DirectSource,
     GracefulStop,
     ImmediateStopError,
     SupervisedPrefetcher,
@@ -47,6 +56,32 @@ from draco_tpu_torch.utils import checkpoint as ckpt
 class LoopRunState:
     _stop: Optional[GracefulStop] = None
     stopped_step: Optional[int] = None
+    fault_plan: Optional[faults.FaultPlan] = None
+    injector = faults.NULL_INJECTOR
+
+    def init_resilience(self) -> None:
+        """The fault plan of ``cfg.fault_spec`` (None without one) and its
+        host injector."""
+        self.fault_plan = faults.plan_from_cfg(self.cfg)
+        self.injector = faults.HostFaultInjector(self.fault_plan)
+
+    def overlay_adversaries(self, adv):
+        """The seeded adversary table with the plan's over_budget and
+        adversary events on it (a copy; ``adv`` itself without them)."""
+        return faults.apply_adversary(
+            faults.apply_over_budget(adv, self.fault_plan,
+                                     self.cfg.worker_fail),
+            self.fault_plan)
+
+    def eager_source(self, fn: Callable):
+        """``step -> data`` for the eager loop: ``fn`` wrapped by the
+        injector behind a supervised direct source when the plan has host
+        events, else ``fn``."""
+        if not self.injector.active:
+            return fn
+        source = self.supervised(
+            lambda: DirectSource(self.injector.wrap_step_fn(fn)))
+        return source.get
 
     def checkpoint(self, step: int) -> Optional[str]:
         """Save the state as step ``step``'s checkpoint; the path, or None
@@ -95,7 +130,7 @@ class LoopRunState:
     def stop_after(self, step: int, already_saved: bool) -> bool:
         """True when a stop was asked for: the run then ends after
         ``step``, with a checkpoint there (unless ``already_saved``)."""
-        if not stop_requested(self._stop, None, step):
+        if not stop_requested(self._stop, self.injector, step):
             return False
         if not already_saved:
             self.checkpoint(step)

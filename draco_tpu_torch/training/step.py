@@ -8,6 +8,10 @@ real tensor axis:
                             n lanes (baseline, maj_vote, shared, approx) or
                             n·(2s+1) lanes (simulate), each with its
                             worker's BN stats
+  faults                    the seeded fault plan's in-step events
+                            (``resilience/faults.py``: NaN / Inf rows, the
+                            drift) on the lanes' gradients, from the staged
+                            step
   attack                    masked injection (``attacks``)
   encode                    ``coding.cyclic.encode`` / ``encode_shared``,
                             ``coding.approx.encode_shared``
@@ -33,7 +37,11 @@ real tensor axis:
                             (``optim.build_optimizer_from_cfg``: SGD,
                             Adam or AdamW under a constant or cosine
                             schedule, behind the global-norm clip) on the
-                            decoded flat gradient
+                            decoded flat gradient; with ``step_guard="on"``
+                            gated by the step's verdict
+                            (``resilience/guards.py``): an untrusted step
+                            keeps the parameters, the optimizer's state and
+                            the BN statistics bit for bit
 
 The repetition code's lanes run under ``torch.backends.cudnn
 .deterministic`` (``vote_lanes``): its vote needs the members of a group,
@@ -120,6 +128,7 @@ from draco_tpu_torch.obs.tracer import phase
 from draco_tpu_torch.ops import draws as draws_ops
 from draco_tpu_torch.ops.coded import segment_plan
 from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
+from draco_tpu_torch.optim import gated
 from draco_tpu_torch.parallel.common import (
     approx_aggregate,
     build_code_from_cfg,
@@ -132,6 +141,7 @@ from draco_tpu_torch.parallel.common import (
     metric_family_names,
     present_mean,
 )
+from draco_tpu_torch.resilience import faults, guards
 from draco_tpu_torch.runtime import cudnn_deterministic, resolve_device, upload
 from draco_tpu_torch.training.chunk_graph import Chunk, StepGraph
 
@@ -348,6 +358,11 @@ def build_train_setup(cfg: TrainConfig, device=None,
     block_names = tuple(k for k in names if k not in host_names)
 
     vote = cfg.approach == "maj_vote"
+    # the fault plan's in-step events, on the card from setup (None: none)
+    plan = faults.plan_tensors(faults.plan_from_cfg(cfg), dev)
+    # the guard's approx certificate reads the host solve's bound, staged
+    # beside v/n
+    stage_bound = cfg.approach == "approx" and cfg.step_guard == "on"
     # a lane's key row of the step's draws: its group on maj_vote (the
     # members see the same pixels and drop the same units), else its own
     # batch row
@@ -365,6 +380,8 @@ def build_train_setup(cfg: TrainConfig, device=None,
             _, out["vn_pres"], solved = host_solve(code, present)
             host = {"decode_residual_bound": solved["bound"],
                     "recovered_fraction": solved["recovered_fraction"]}
+            if stage_bound:
+                out["bound"] = solved["bound"].to(torch.float32).reshape(())
         else:
             out["adv"] = torch.as_tensor(adv_mask)
         if present is not None:
@@ -384,7 +401,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
                      {"x": torch.as_tensor(xs), "y": torch.as_tensor(ys),
                       **{name: torch.stack([p[0][name] for p in per])
                          for name in per[0][0]}},
-                     {name: [float(p[1][name]) for p in per]
+                     # the host columns read off their host tensors
+                     # without an op (no would-be sync in the lint)
+                     {name: [float(p[1][name].tolist()) for p in per]
                       for name in host_names})
 
     def batch(inputs):
@@ -403,11 +422,15 @@ def build_train_setup(cfg: TrainConfig, device=None,
         return x, y, keep
 
     @torch.no_grad()
-    def update(state, flat_grad, new_stats):
+    def update(state, flat_grad, new_stats, health=None, pres=None):
+        """The guard's verdict, then the update gated by it (the BN
+        statistics selected too); returns the guard's columns."""
+        ok, cols = guards.guard_update(cfg, flat_grad, health, pres)
         with phase("draco_update"):
-            state.opt.step_flat(state.params, flat_grad, layout)
+            state.opt.step_flat(state.params, flat_grad, layout, ok)
             for k, v in new_stats.items():
-                state.stats[k].copy_(v)
+                gated(state.stats[k], v, ok)
+        return cols
 
     def lane_metrics(losses, precs, pres):
         return {"loss": present_mean(losses, pres),
@@ -420,6 +443,7 @@ def build_train_setup(cfg: TrainConfig, device=None,
             grads, new_stats, losses, precs = lanes(state.params, state.stats,
                                                     x, y, keep)
             pres = inputs.get("present")
+            grads = faults.corrupt_grads(grads, plan, inputs["step"])
             grads = attacks.inject_plain(grads, inputs["adv"], cfg.err_mode,
                                          cfg.adversarial, noise,
                                          inputs["step"], cfg.seed,
@@ -427,8 +451,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
             with phase("draco_decode"):
                 agg = aggregation.aggregate(grads, cfg.mode, cfg.worker_fail,
                                             cfg.geomedian_iters, pres)
-            update(state, agg, new_stats)
-            return lane_metrics(losses, precs, pres)
+            # no certificate on the robust rules: the finite check alone
+            cols = update(state, agg, new_stats)
+            return {**lane_metrics(losses, precs, pres), **cols}
 
     elif vote:
 
@@ -438,6 +463,7 @@ def build_train_setup(cfg: TrainConfig, device=None,
                 grads, new_stats, losses, precs = lanes(
                     state.params, state.stats, x, y, keep)
             mask, pres = inputs["adv"], inputs.get("present")
+            grads = faults.corrupt_grads(grads, plan, inputs["step"])
             grads = attacks.inject_plain(grads, mask, cfg.err_mode,
                                          cfg.adversarial, noise,
                                          inputs["step"], cfg.seed,
@@ -471,7 +497,9 @@ def build_train_setup(cfg: TrainConfig, device=None,
                 metrics.update(numerics.majvote_shadow(
                     cfg, code, grads, voted, health["flagged"], salts, pres,
                     mask, inputs["step"]))
-            update(state, voted, new_stats)
+            # the finite vote and the out-voted rows
+            metrics.update(update(state, voted, new_stats,
+                                  {"flagged": health["flagged"]}, pres))
             return metrics
 
     elif cfg.approach == "approx":
@@ -486,12 +514,18 @@ def build_train_setup(cfg: TrainConfig, device=None,
             pres = inputs.get("present")
             # no adversary: the schedule's row is all False
             mask = torch.zeros((n,), dtype=torch.bool, device=dev)
+            grads = faults.corrupt_grads(grads, plan, inputs["step"])
             agg, health = approx_aggregate(code, grads, inputs["vn_pres"],
                                            pres is not None, cfg,
                                            inputs["step"], pres, mask)
-            update(state, agg, new_stats)
+            # the finite decode and the residual within its bound
+            cols = update(state, agg, new_stats,
+                          {"residual": health["residual"],
+                           "bound": inputs["bound"]} if stage_bound else None,
+                          pres)
             metrics = lane_metrics(losses, precs, pres)
             metrics.update(decode_health_metrics(health, mask, pres))
+            metrics.update(cols)
             return metrics
 
     else:  # cyclic
@@ -519,11 +553,12 @@ def build_train_setup(cfg: TrainConfig, device=None,
                           if cfg.numerics_watch == "on" else {})
             return forensics.nonfinite_rows(grads), grad_watch
 
-        def compute_encoded(state, x, y, keep):
+        def compute_encoded(state, x, y, keep, step):
             if cfg.redundancy == "shared":
                 # each batch row computed once, combined with the masked W
                 grads, new_stats, losses, precs = lanes(
                     state.params, state.stats, x, y, keep)
+                grads = faults.corrupt_grads(grads, plan, step)
                 bad_rows, grad_watch = ingest(grads)
                 with phase("draco_encode"):
                     enc_re, enc_im = encode_shared(code, grads)
@@ -538,7 +573,8 @@ def build_train_setup(cfg: TrainConfig, device=None,
                   for k, v in state.stats.items()}
             grads, new_stats, losses, precs = lanes(state.params, st, xw, yw,
                                                     kw)
-            grads = grads.view(n, hat_s, dim)
+            grads = faults.corrupt_grads(grads.view(n, hat_s, dim), plan,
+                                         step)
             # a non-finite value in any of worker i's lanes accuses worker i
             bad_rows, grad_watch = ingest(grads)
             with phase("draco_encode"):
@@ -552,7 +588,8 @@ def build_train_setup(cfg: TrainConfig, device=None,
         def step_body(state, inputs, noise=None):
             x, y, keep = batch(inputs)
             (enc_re, enc_im, new_stats, losses, precs, bad_rows,
-             grad_watch) = compute_encoded(state, x, y, keep)
+             grad_watch) = compute_encoded(state, x, y, keep,
+                                           inputs["step"])
             mask, pres = inputs["adv"], inputs.get("present")
             with phase("draco_encode"):
                 enc_re, enc_im = attacks.inject_cyclic(
@@ -589,7 +626,8 @@ def build_train_setup(cfg: TrainConfig, device=None,
                         mask, inputs["step"]))
                 health["watch"] = watch
             metrics.update(decode_health_metrics(health, mask, pres))
-            update(state, decoded, new_stats)
+            # the finite decode, the residual and the located rows
+            metrics.update(update(state, decoded, new_stats, health, pres))
             return metrics
 
     def train_step(state, x, y, adv_mask, noise=None, present=None):

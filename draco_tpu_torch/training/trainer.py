@@ -44,7 +44,18 @@ at each flush (the chunked loop's) or at an ``eval_freq`` boundary and
 the last step (the eager loop's), carries the run's wire ledger, and ends
 ``done``, ``preempted`` or ``crashed`` (``training/run_state.py``). Mask
 columns come to the host as their exact integer words
-(``obs/forensics.record_value``).
+(``obs/forensics.record_value``). With ``incident_watch="on"`` the
+heartbeat feeds the incident engine (``obs/incidents.make_engine``), which
+writes ``train_dir/incidents.jsonl`` and the status.json incidents block.
+
+The seeded fault plan (``cfg.fault_spec``, ``resilience/faults.py``): its
+over_budget and adversary events overlay the adversary schedule, its
+straggle events the straggler schedule (a fresh all-present one when the
+configuration drops none), each time the schedules are made, past
+``max_steps`` too; its host events wrap the loaders' data functions
+(``prefetch_crash`` / ``prefetch_hang``, retried by the supervised
+prefetcher) and come with the stop polls (``sigterm``); its in-step events
+run inside the step (``training/step.py``).
 """
 
 from __future__ import annotations
@@ -56,10 +67,11 @@ from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching
 from draco_tpu_torch.data.datasets import Dataset, load_dataset
-from draco_tpu_torch.obs import numerics
+from draco_tpu_torch.obs import incidents, numerics
 from draco_tpu_torch.obs.forensics import record_value
 from draco_tpu_torch.obs.heartbeat import RunHeartbeat
 from draco_tpu_torch.obs.tracer import make_tracer
+from draco_tpu_torch.resilience import faults
 from draco_tpu_torch.resilience.supervisor import shielded
 from draco_tpu_torch.runtime import resolve_device
 from draco_tpu_torch.training.evaluator import masked_full_split_eval
@@ -82,8 +94,11 @@ class Trainer(LoopRunState):
         self.tracer = make_tracer(cfg.trace_dir)
         self.heartbeat = RunHeartbeat(cfg.train_dir or None,
                                       num_workers=cfg.num_workers,
-                                      job_name=cfg.job_name or None)
+                                      job_name=cfg.job_name or None,
+                                      incidents=incidents.make_engine(cfg))
         self.heartbeat.set_wire(numerics.wire_ledger(cfg, self.setup.dim))
+        self.init_resilience()
+        self._eager_batch = self.eager_source(self.batch)
         self.group_seeds = drng.group_seeds(cfg.seed, max(cfg.num_groups, 1))
         self._sched_steps = -1
         self._ensure_schedules(cfg.max_steps)
@@ -98,13 +113,13 @@ class Trainer(LoopRunState):
         if n_steps <= self._sched_steps:
             return
         cfg = self.cfg
-        self.adv_schedule = drng.adversary_schedule(
-            cfg.seed, n_steps, cfg.num_workers, cfg.num_adversaries)
-        self.straggle_schedule = (
+        self.adv_schedule = self.overlay_adversaries(drng.adversary_schedule(
+            cfg.seed, n_steps, cfg.num_workers, cfg.num_adversaries))
+        self.straggle_schedule = faults.apply_straggle(
             drng.straggler_schedule(cfg.seed, n_steps, cfg.num_workers,
                                     cfg.straggle_count)
             if cfg.straggle_mode == "drop" and cfg.straggle_count > 0
-            else None)
+            else None, self.fault_plan, cfg.num_workers, n_steps)
         self._sched_steps = n_steps
 
     def batch(self, step: int):
@@ -126,7 +141,7 @@ class Trainer(LoopRunState):
     def inputs(self, step: int) -> tuple:
         """The host inputs of 1-based ``step``: ``(x, y, adv_mask,
         present)`` as ``setup.train_step`` takes them."""
-        x, y = self.batch(step)
+        x, y = self._eager_batch(step)
         present = (None if self.straggle_schedule is None
                    else ~self.straggle_schedule[step])
         return x, y, self.adv_schedule[step], present
@@ -194,8 +209,9 @@ class Trainer(LoopRunState):
 
         cfg = self.cfg
         self._ensure_schedules(last)
+        indices = self.injector.wrap_range_fn(self.chunk_indices)
         self._prefetch = self.supervised(lambda: pf.ChunkPrefetcher(
-            self.ds, self.chunk_indices, cfg.num_workers, cfg.batch_size,
+            self.ds, indices, cfg.num_workers, cfg.batch_size,
             timeout_s=cfg.prefetch_timeout_s, tracer=self.tracer))
         return TrainerChunkClient(self, self._prefetch, first, last)
 
@@ -206,7 +222,7 @@ class Trainer(LoopRunState):
         engine = ChunkedEngine(client, eval_freq=self.cfg.eval_freq,
                                tracer=self.tracer, writer=self.writer,
                                stop=self._stop, heartbeat=self.heartbeat,
-                               total_end=last_step)
+                               total_end=last_step, injector=self.injector)
         self.state, last = engine.run(self.state, client.ranges)
         return last
 

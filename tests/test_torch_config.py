@@ -5,7 +5,9 @@ zoo, bfloat16 compute on the CNN, and the optimizer fields (``optimizer``,
 ``weight_decay``, ``lr_schedule``, ``warmup_steps``, ``clip_norm``) and
 the run-state fields (``test_batch_size``, ``checkpoint_step``,
 ``compress_ckpt``, ``keep_checkpoints``, ``prefetch_restarts``,
-``prefetch_timeout_s``) with the reference's names, defaults, checks and
+``prefetch_timeout_s``) and the resilience fields (``step_guard``,
+``guard_residual_tol``, ``fault_spec``, ``incident_watch``,
+``incident_thresholds``) with the reference's names, defaults, checks and
 flags. No JAX computation: seconds.
 """
 
@@ -165,3 +167,62 @@ def test_the_port_config_fields_are_the_references():
                                dataclasses.fields(TrainConfig)}
     assert {f.name for f in dataclasses.fields(TrainConfig)} <= {
         f.name for f in dataclasses.fields(JaxConfig)}
+
+
+RESILIENCE_FIELDS = ("step_guard", "guard_residual_tol", "fault_spec",
+                     "incident_watch", "incident_thresholds")
+_CODED = dict(approach="cyclic", num_workers=8, worker_fail=1)
+_APPROX = dict(approach="approx", redundancy="shared", num_workers=8,
+               worker_fail=0)
+RESILIENCE_CASES = [
+    (dict(step_guard="maybe"), True),
+    (dict(step_guard="on", **_CODED), False),
+    (dict(guard_residual_tol=0.0), True),
+    (dict(guard_residual_tol=-1e-3), True),
+    (dict(guard_residual_tol=5e-3, step_guard="on"), False),
+    (dict(fault_spec="bogus@1"), True),
+    (dict(fault_spec="nan_grad@0"), True),
+    (dict(fault_spec="nan_grad@2:w9", **_CODED), True),
+    (dict(fault_spec="nan_grad@2,sigterm@5,straggle@3-6:w2:d1", **_CODED),
+     False),
+    (dict(fault_spec="over_budget@3", **_APPROX), True),
+    (dict(fault_spec="adversary@5:w2", **_APPROX), True),
+    (dict(fault_spec="straggle@2:w3:d2,nan_grad@4", **_APPROX), False),
+    (dict(incident_watch="maybe"), True),
+    (dict(incident_watch="on"), False),
+    (dict(incident_thresholds="bogus.x=1"), True),
+    (dict(incident_thresholds="trust.bogus=1"), True),
+    (dict(incident_thresholds="trust.floor=0.4,guard.off_count=2"), False),
+]
+
+
+@pytest.mark.parametrize("fields,raises", RESILIENCE_CASES,
+                         ids=lambda v: "-".join(f"{k}={x}" for k, x in
+                                                v.items())
+                         if isinstance(v, dict) else str(v))
+def test_resilience_checks_match_the_reference(fields, raises):
+    test_checks_match_the_reference(fields, raises)
+
+
+def test_resilience_fields_and_flags():
+    """The five fields with the reference's defaults and flags; a straggle
+    event on the LM, which the port runs with every row present, is
+    refused as not ported."""
+    port, ref = TrainConfig(), JaxConfig()
+    for f in RESILIENCE_FIELDS:
+        assert getattr(port, f) == getattr(ref, f), f
+    from draco_tpu.cli import add_fit_args
+    import argparse
+
+    ref_p = add_fit_args(argparse.ArgumentParser())
+    flags = ["--step-guard", "on", "--guard-residual-tol", "0.002",
+             "--fault-spec", "nan_grad@2", "--incident-watch", "on",
+             "--incident-thresholds", "trust.floor=0.4"]
+    cfg = cli.config_from_args(cli.parser().parse_args(flags))
+    theirs = ref_p.parse_args(flags)
+    for f in RESILIENCE_FIELDS:
+        assert getattr(cfg, f) == getattr(theirs, f), f
+    lm = dict(network="TransformerLM", dataset="synthetic-text", **_CODED)
+    TrainConfig(fault_spec="inf_grad@2:w5,over_budget@3", **lm).validate()
+    with pytest.raises(ValueError, match="straggle is not ported"):
+        TrainConfig(fault_spec="straggle@2:w1", **lm).validate()
