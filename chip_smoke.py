@@ -290,6 +290,40 @@ prints no result line):
               guarded leg and ``chunk_simulate_guard_nan`` to its twin:
               no more syncs or fetches, the twin's H2D bytes (the approx
               certificate's staged bound, 4 bytes, aside)
+  9. autopilot the autopilot on the chunked CNN loop
+              (``autopilot_phase``; it runs after phase 8, before the
+              lint's profiler), at preset cyclic-resnet18's shapes
+              (``shared``, n=8, batch 32, K=4, ``step_guard=on``,
+              ``incident_watch=on``), through the Trainer a user runs,
+              the launch counts zeroed just before each run and read just
+              after: the reference's lifecycle (its policy and thresholds,
+              ``fault_spec="adversary@3-8:w2,straggle@13-20:w5"``, 32
+              steps, eval every 4): the remediations in one of the
+              reference's two orders, each with its trigger, dial_down's
+              executable ``compiled`` and dial_up's ``reused``; one capture
+              a regime and none on the return, each regime's setup on the
+              Trainer's model and state, the state bit for bit across the
+              mid-run capture (what the new graph's first replay reads is
+              what the old graph left); 0 guard trips; worker 2's present
+              bit 0 from the quarantine's effective step + K to the
+              readmit's effective step + K - 1; the run ending in cyclic_r3
+              with 2 swaps; the cyclic kernels and approx_decode launched.
+              The segment rung (``straggle@5-12:w5``, 20 steps):
+              cyclic_r3 -> cyclic_r3_seg2 -> cyclic_r3 with the segmented
+              kernels launched. Printed: each regime's chunk ms/step (CUDA
+              events) beside the ``shared`` and ``approx`` chunks of phase
+              6, each swap's wall (a new regime's setup build, re-made
+              chunk and capture; a cached one's switch and re-made chunk),
+              ``act``'s host ms a boundary, each graph's pool and the
+              peak memory. Then ``SegmentPipeline`` over the int8 wire's
+              codeword pair at d = 11,173,962, S = 2 and 4, pipelined and
+              serial: pinned host segments put on a copy stream of their
+              own, the decode (cyclic_narrow_recombine) waiting on the
+              copy's event on the compute stream; the segments' results
+              bit for bit the whole-d launch, each rail's wall, its
+              device overlap (decode time under a copy, from events on
+              both streams: > 0 on the pipelined rail) and the host
+              overlap the reference measures (0 on the serial rail)
 
 ``--profile`` adds one torch.profiler step per leg (device time by kernel
 and by the step's phases draco_comp / draco_encode / draco_decode /
@@ -3778,7 +3812,7 @@ def lint_legs(dev) -> list:
     up to 40 ms a step slower, PERF.md §6)."""
     rows = []
     for lp in (registry.collect() + registry.collect_chunks()
-               + registry.collect_guard()):
+               + registry.collect_guard() + registry.collect_autopilot()):
         program = lp.build(dev, full=True)
         rows.append({"leg": lp.name, "manifest_h2d_bytes":
                      program.manifest.h2d_bytes,
@@ -3817,6 +3851,17 @@ def lint_legs(dev) -> list:
         require(not bad, f"audit lint {leg} against {twin}: {bad}")
         print(f"audit lint {leg}: syncs, fetches and {h2d[leg]} H2D bytes "
               f"as its twin {twin}'s ({h2d[twin]} + {extra})", flush=True)
+    # the autopilot's chunk: chunk_simulate's syncs and fetches (the
+    # autopilot decides inside the flush's one fetch), its bytes plus the
+    # all-present schedule's K·n
+    for ap_chunk in registry.collect_autopilot():
+        leg, twin = ap_chunk.name, "chunk_simulate"
+        extra = ap_chunk.K * N
+        bad = rules.twin_failures(by[leg], by[twin], extra)
+        require(not bad, f"audit lint {leg} against {twin}: {bad}")
+        print(f"audit lint {leg}: syncs, fetches and {h2d[leg]} H2D bytes "
+              f"as {twin}'s ({h2d[twin]} + {extra}: the presence rows)",
+              flush=True)
     return rows
 
 
@@ -4692,6 +4737,481 @@ def state_phase(dev, ds) -> dict:
     return out
 
 
+# ---- phase 9: the autopilot -------------------------------------------------
+# the reference's compressed policy and detector threshold
+# (tests/test_autopilot.py), its lifecycle's fault plan, and the segment
+# rung's (tests/test_segments.py)
+AP_POLICY = ("dial_down_boundaries=1,clean_boundaries=1,"
+             "dial_up_boundaries=2,readmit_boundaries=2,"
+             "segments_up_boundaries=99")
+AP_THRESHOLDS = "straggle.streak=2"
+AP_LIFECYCLE = dict(max_steps=32, autopilot_policy=AP_POLICY,
+                    fault_spec="adversary@3-8:w2,straggle@13-20:w5")
+AP_SEGMENTS = dict(max_steps=20, fault_spec="straggle@5-12:w5",
+                   autopilot_policy=(
+                       "segments_up_boundaries=1,segments_max=2,"
+                       "segments_down_boundaries=1,dial_down_boundaries=99,"
+                       "clean_boundaries=99"))
+AP_ORDERS = (["quarantine", "readmit", "dial_down", "dial_up"],
+             ["quarantine", "dial_down", "readmit", "dial_up"])
+AP_KERNELS = {"cyclic_r3": ("complex_matmul", "complex_project",
+                            "cyclic_locator", "complex_recombine"),
+              "approx_r1.5": ("approx_decode",),
+              "cyclic_r3_seg2": ("complex_project_segments",
+                                 "complex_recombine_segments")}
+PIPE_SEGMENTS = (2, 4)
+PIPE_REPS = 7  # timed runs of each rail, in turns
+
+
+@contextlib.contextmanager
+def autopilot_watch(tr):
+    """Instruments one autopilot run (class-level wraps, undone on exit):
+    each dispatch's chunk by CUDA events with its regime label, each
+    capture's wall with the shared state held bit for bit across it (a
+    regime captured mid-run: the state its first replay reads is the
+    state the previous graph left), each ``act``'s host wall and each
+    setup build and chunk re-make."""
+    from draco_tpu_torch.control.clients import TrainerChunkClient
+    from draco_tpu_torch.training.chunk_graph import StepGraph
+
+    log = {"chunks": [], "captures": [], "acts": [], "builds": [],
+           "remakes": [], "peaks": []}
+    orig = {"dispatch": TrainerChunkClient.dispatch,
+            "build": TrainerChunkClient.build_setup,
+            "remake": TrainerChunkClient.remake,
+            "capture": StepGraph._capture}
+
+    def dispatch(self, state, chunk):
+        before = len(log["captures"])
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig["dispatch"](self, state, chunk)
+        b.record()
+        log["chunks"].append({"label": self.label, "start": chunk.start,
+                              "k": chunk.k, "events": (a, b),
+                              "captured": len(log["captures"]) > before})
+        return out
+
+    def capture(self):
+        # the capture resets the peak counters (its pool's measure): keep
+        # the run's peaks so far
+        log["peaks"].append((torch.cuda.max_memory_allocated(),
+                             torch.cuda.max_memory_reserved()))
+        held = bool(log["captures"])  # a regime captured mid-run
+        snap = _state_copy(tr.state) if held else None
+        t0 = time.perf_counter()
+        orig["capture"](self)
+        wall = time.perf_counter() - t0
+        if held:
+            gap = _differs(_state_copy(tr.state), snap)
+            require(not gap, f"autopilot {self.name}: the capture moved the "
+                    f"shared state: {dict(list(gap.items())[:6])}")
+        log["captures"].append({"graph": id(self), "name": self.name,
+                                "wall_s": wall,
+                                "state_held": held,
+                                "pool_bytes": self.pool_bytes})
+
+    def timed(key, fn):
+        def wrapped(self, *a):
+            t0 = time.perf_counter()
+            out = fn(self, *a)
+            log[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    TrainerChunkClient.dispatch = dispatch
+    TrainerChunkClient.build_setup = timed("builds", orig["build"])
+    TrainerChunkClient.remake = timed("remakes", orig["remake"])
+    StepGraph._capture = capture
+    pilot = tr._make_autopilot()
+    act = pilot.act
+
+    def timed_act(step, engine):
+        swaps = pilot.swaps
+        t0 = time.perf_counter()
+        act(step, engine)
+        log["acts"].append({"step": step,
+                            "ms": (time.perf_counter() - t0) * 1e3,
+                            "swapped": pilot.swaps > swaps})
+    pilot.act = timed_act
+    try:
+        yield log
+    finally:
+        TrainerChunkClient.dispatch = orig["dispatch"]
+        TrainerChunkClient.build_setup = orig["build"]
+        TrainerChunkClient.remake = orig["remake"]
+        StepGraph._capture = orig["capture"]
+        del pilot.act
+
+
+def autopilot_run(label, fields, dev, ds, root) -> tuple:
+    """One autopilot run of preset cyclic-resnet18's shapes (``shared``,
+    n=8, K=4, step_guard and incident_watch on) through the Trainer a user
+    runs, with the launch counts zeroed just before it and read just
+    after; returns (trainer, train_dir, watch log, counts, remediations,
+    records, status)."""
+    from draco_tpu_torch.obs import replay
+
+    d = os.path.join(root, label)
+    cfg = TrainConfig(**{
+        **registry.CNN_FULL, "approach": "cyclic", "redundancy": "shared",
+        "adversary_count": 0, "steps_per_call": CHUNK_K, "eval_freq": 4,
+        "log_every": 1, "test_batch_size": 1000, "step_guard": "on",
+        "incident_watch": "on", "autopilot": "on",
+        "incident_thresholds": AP_THRESHOLDS, "train_dir": d, **fields})
+    tr = Trainer(cfg, device=dev, dataset=ds, quiet=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with autopilot_watch(tr) as log:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        last = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    log["wall_s"] = wall
+    # the graphs' private pools stay reserved, not allocated
+    peaks = log["peaks"] + [(torch.cuda.max_memory_allocated(dev),
+                             torch.cuda.max_memory_reserved(dev))]
+    log["peak_gb"] = max(a for a, _ in peaks) / 1e9
+    log["peak_reserved_gb"] = max(r for _, r in peaks) / 1e9
+    require(last["step"] == cfg.max_steps and math.isfinite(last["loss"]),
+            f"autopilot {label}: the run ended at {last}")
+    rems = [e for e in replay.iter_jsonl(os.path.join(d, "incidents.jsonl"))
+            if e.get("event") == "remediation"]
+    recs = replay.train_records(os.path.join(d, "metrics.jsonl"))
+    require([r["step"] for r in recs] == list(range(1, cfg.max_steps + 1)),
+            f"autopilot {label}: records {[r['step'] for r in recs]}")
+    require(all(r["guard_trips"] == 0.0 for r in recs),
+            f"autopilot {label}: guard trips "
+            f"{[(r['step'], r['guard_trips']) for r in recs]}")
+    for e in rems:
+        require(e.get("trigger") and e["trigger"].get("type")
+                and e["trigger"].get("onset_step") is not None,
+                f"autopilot {label}: a remediation without its trigger: {e}")
+    with open(os.path.join(d, "status.json")) as f:
+        status = json.load(f)
+    heartbeat.check_status_schema(status, tool="chip_smoke")
+    require(status.get("state") == "done" and "control" in status,
+            f"autopilot {label}: status.json {status}")
+    return tr, d, log, counts, rems, recs, status
+
+
+def regime_summary(label, tr, log, counts) -> dict:
+    """Per regime: one capture (none on a return), its graph's pool, its
+    chunks' ms/step by CUDA events (the capturing chunk aside), and the
+    kernels its path launched."""
+    pilot = tr._autopilot
+    caps = [c["graph"] for c in log["captures"]]
+    out = {}
+    for regime, setup in pilot._setups.items():
+        graph = setup.train_many.graph()
+        require(graph is not None and graph.captures == 1
+                and caps.count(id(graph)) == 1,
+                f"autopilot {label} {regime.tag}: captures "
+                f"{None if graph is None else graph.captures}, the run's "
+                f"{[c['name'] for c in log['captures']]}")
+        require(setup.state is tr.state and setup.model is tr.setup.model,
+                f"autopilot {label} {regime.tag}: a second state")
+        tag = regime.tag
+        label = ("train_many" if regime == pilot.base
+                 else f"train_many@{tag}")
+        mine = [c for c in log["chunks"] if c["label"] == label]
+        steady = [c for c in mine if not c["captured"]]
+        ms = [c["events"][0].elapsed_time(c["events"][1]) / c["k"]
+              for c in steady]
+        for k in AP_KERNELS.get(tag, ()):
+            require(counts[k] > 0, f"autopilot {label}: {tag}'s kernel {k} "
+                    f"was never launched ({counts})")
+        out[tag] = {"captures": graph.captures,
+                    "pool_bytes": graph.pool_bytes,
+                    "chunks": len(mine), "steady_chunks": len(steady),
+                    "chunk_ms_per_step": ms,
+                    "mean_ms_per_step": sum(ms) / len(ms) if ms else None}
+    require(len(caps) == len(pilot._setups),
+            f"autopilot {label}: {len(caps)} captures for "
+            f"{len(pilot._setups)} regimes")
+    return out
+
+
+def swap_walls(log, rems) -> list:
+    """Each swap's wall: a new regime's setup build, its chunk's re-make
+    and its capture; a cached one's pointer switch (inside act) and the
+    re-make."""
+    swaps = [e for e in rems if e.get("regime")]
+    acts = [a for a in log["acts"] if a["swapped"]]
+    new = [c for c in log["captures"] if c["state_held"]]
+    builds, out = list(log["builds"]), []
+    require(len(acts) == len(swaps) == len(log["remakes"]),
+            f"autopilot: {len(swaps)} swaps, {len(acts)} swapping acts, "
+            f"{len(log['remakes'])} re-made chunks")
+    for e, a, remake in zip(swaps, acts, log["remakes"]):
+        row = {"action": e["action"], "to": e["regime"]["tag"],
+               "executable": e["evidence"]["executable"],
+               "act_ms": a["ms"], "remake_ms": remake}
+        if e["evidence"]["executable"] == "compiled":
+            row["build_ms"] = builds.pop(0)
+            row["capture_s"] = new.pop(0)["wall_s"]
+        out.append(row)
+    return out
+
+
+def lifecycle_checks(tr, log, rems, recs, status) -> None:
+    actions = [e["action"] for e in rems]
+    require(actions in AP_ORDERS, f"autopilot lifecycle: remediations "
+            f"{actions}, the reference's orders {AP_ORDERS}")
+    by = {e["action"]: e for e in rems}
+    require(by["quarantine"]["worker"] == 2
+            and by["quarantine"]["trigger"]["type"] == "trust"
+            and by["dial_down"]["regime"]["tag"] == "approx_r1.5"
+            and by["dial_down"]["evidence"]["executable"] == "compiled"
+            and by["dial_up"]["regime"]["tag"] == "cyclic_r3"
+            and by["dial_up"]["evidence"]["executable"] == "reused",
+            f"autopilot lifecycle: {rems}")
+    # each schedule write reaches the wire one assembled chunk later
+    out = range(by["quarantine"]["effective_step"] + CHUNK_K,
+                by["readmit"]["effective_step"] + CHUNK_K)
+    for r in recs:
+        word = int(r["wmask_present0"])
+        require(bool(word >> 2 & 1) == (r["step"] not in out),
+                f"autopilot lifecycle step {r['step']}: present word "
+                f"{word:#x}, worker 2 out at steps {list(out)}")
+    c = status["control"]
+    require(c["regime"]["tag"] == "cyclic_r3" == c["base_regime"]
+            and c["swaps"] == 2 and c["quarantined"] == []
+            and c["remediations"] == 4
+            and c["last"]["action"] == "dial_up",
+            f"autopilot lifecycle: control block {c}")
+    require(int(tr.state.opt.count) == 32, f"autopilot lifecycle: update "
+            f"count {int(tr.state.opt.count)} after 32 trusted steps")
+
+
+def pipeline_rails(dev) -> dict:
+    """SegmentPipeline over the int8 wire's codeword pair at d = 11,173,962
+    (ResNet-18's, n=8, block 256), S = 2 and 4, pipelined and serial: each
+    segment a pinned host copy of its columns, put on a copy stream of its
+    own with an event; the decode makes the compute stream wait on that
+    event and launches cyclic_narrow_recombine on the segment; the drain
+    synchronizes the decode's event. The segments' results concatenated
+    bit for bit the whole-d launch; each rail's wall, the reference's host
+    overlap and the device overlap from events on both streams."""
+    from draco_tpu_torch.control.engine import SegmentPipeline
+    from draco_tpu_torch.obs.tracer import NULL_TRACER
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    er = torch.randn((N, D), generator=g, device=dev)
+    ei = torch.randn((N, D), generator=g, device=dev)
+    mode, buf_re, buf_im, block = "int8", *(
+        numerics.narrow_wire_rows(x, "int8", BLOCK) for x in (er, ei)), BLOCK
+    del er, ei
+    v_re = torch.randn((N,), generator=g, device=dev)
+    v_im = torch.randn((N,), generator=g, device=dev)
+    wire = (mode, buf_re, buf_im, block)
+    whole = decode_kernels.cyclic_narrow_recombine(v_re, v_im, wire)
+    nbytes = sum(t.numel() * t.element_size() for b in (buf_re, buf_im)
+                 for t in b.values())
+    whole_ms = time_ms(lambda: decode_kernels.cyclic_narrow_recombine(
+        v_re, v_im, wire), reps=20)
+    compute = torch.cuda.current_stream(dev)
+    copy = torch.cuda.Stream(dev)
+    require(copy != compute, "pipeline: the copy stream is the compute "
+            "stream")
+    out = {"d": D, "n": N, "block": BLOCK, "pair_bytes": nbytes,
+           "whole_decode_ms": whole_ms, "rails": []}
+    for S in PIPE_SEGMENTS:
+        cuts = numerics.wire_segment_bounds(D, S, BLOCK)
+        segs = [decode_kernels.wire_slice_pair(wire, a, b)
+                for a, b in zip(cuts[:-1], cuts[1:])]
+        host = [{side: {k: t.to("cpu").contiguous().pin_memory()
+                        for k, t in buf.items()}
+                 for side, buf in zip(("re", "im"), seg[1:3])}
+                for seg in segs]
+        require(all(t.is_pinned() for h in host for side in h.values()
+                    for t in side.values()), "pipeline: a pageable segment")
+        devbuf = [{side: {k: torch.empty_like(t, device=dev)
+                          for k, t in buf.items()}
+                   for side, buf in h.items()} for h in host]
+        events = {}
+
+        def put(j, h, events=events, devbuf=devbuf):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(copy):
+                a.record(copy)
+                for side in ("re", "im"):
+                    for k, t in h[side].items():
+                        devbuf[j][side][k].copy_(t, non_blocking=True)
+                b.record(copy)
+            events.setdefault(j, {})["copy"] = (a, b)
+            return devbuf[j], b
+
+        def decode(j, dev_seg, events=events):
+            bufs, ready = dev_seg
+            compute.wait_event(ready)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record(compute)
+            res = decode_kernels.cyclic_narrow_recombine(
+                v_re, v_im, (mode, bufs["re"], bufs["im"], block))
+            b.record(compute)
+            events.setdefault(j, {})["decode"] = (a, b)
+            return res, b
+
+        def drain(res):
+            res[1].synchronize()
+
+        def rail(pipelined):
+            """One run: (wall ms, results, device spans from the origin,
+            the pipeline)."""
+            events.clear()
+            torch.cuda.synchronize()
+            origin = torch.cuda.Event(enable_timing=True)
+            origin.record(compute)
+            pipe = SegmentPipeline(NULL_TRACER, put, decode, drain,
+                                   pipelined=pipelined)
+            t0 = time.perf_counter()
+            results = pipe.run(host)
+            wall = (time.perf_counter() - t0) * 1e3
+            got = torch.cat([r[0] for r in results])
+            require(torch.equal(_bits(got), _bits(whole)),
+                    f"pipeline S={S} pipelined={pipelined}: the segments' "
+                    f"results are not the whole-d launch bit for bit")
+            span = {j: {k: (origin.elapsed_time(a), origin.elapsed_time(b))
+                        for k, (a, b) in ev.items()}
+                    for j, ev in events.items()}
+            return wall, span, pipe
+
+        walls = {True: [], False: []}
+        last = {}
+        for rep in range(PIPE_REPS + 1):  # the first pair warms up
+            for pipelined in ((True, False) if rep % 2 else (False, True)):
+                wall, span, pipe = rail(pipelined)
+                if rep:
+                    walls[pipelined].append(wall)
+                last[pipelined] = (span, pipe)
+        for pipelined in (True, False):
+            span, pipe = last[pipelined]
+            copy_ms = sum(s["copy"][1] - s["copy"][0] for s in span.values())
+            dec_ms = sum(s["decode"][1] - s["decode"][0]
+                         for s in span.values())
+            hidden = sum(max(min(span[j]["decode"][1], span[i]["copy"][1])
+                             - max(span[j]["decode"][0], span[i]["copy"][0]),
+                             0.0)
+                         for j in span for i in span if i != j)
+            over, inflight = pipe.overlap_us()
+            if pipelined:
+                require(hidden > 0.0, f"pipeline S={S}: no decode ran under "
+                        f"a copy (device spans {span})")
+            else:
+                require(over == 0.0, f"pipeline S={S} serial: host overlap "
+                        f"{over} µs")
+            w = sorted(walls[pipelined])
+            row = {"segments": S, "pipelined": pipelined, "wall_ms": w,
+                   "wall_ms_median": w[len(w) // 2],
+                   "copy_ms": copy_ms, "decode_ms": dec_ms,
+                   "device_overlap_ms": hidden,
+                   "decode_hidden_fraction": (hidden / dec_ms if dec_ms
+                                              else 0.0),
+                   "host_overlap_us": over, "host_inflight_us": inflight,
+                   "host_overlap_fraction": over / inflight if inflight
+                   else 0.0}
+            out["rails"].append(row)
+            print(f"autopilot pipeline S={S} "
+                  f"{'pipelined' if pipelined else 'serial'}: wall median "
+                  f"{row['wall_ms_median']:.3f} ms of {len(w)} runs "
+                  f"({w[0]:.3f}-{w[-1]:.3f}, the rails in turns); the last "
+                  f"run's copies {copy_ms:.3f} ms and decodes {dec_ms:.4f} "
+                  f"ms on the card, decode time under a copy {hidden:.4f} "
+                  f"ms = {100 * row['decode_hidden_fraction']:.1f}%, the "
+                  f"host's overlap {over:.1f} of {inflight:.1f} µs in "
+                  f"flight; every run's segments bit for bit the whole-d "
+                  f"decode", flush=True)
+        del host, devbuf
+    print(f"autopilot pipeline: the int8 pair {nbytes} bytes at d={D}, the "
+          f"whole-d decode {whole_ms:.4f} ms", flush=True)
+    return out
+
+
+def autopilot_phase(dev, ds, legs) -> dict:
+    """Phase 9 (module docstring): the lifecycle, the segment rung and the
+    SegmentPipeline's rails; timings beside the shared and approx legs'
+    chunks (phase 6) of the same call."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_autopilot_")
+    twins = {lg["leg"]: lg["chunk"]["chunk_ms_per_step"] for lg in legs
+             if lg["leg"] in ("shared", "approx")}
+    out = {"twin_chunk_ms_per_step": twins}
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr, _, log, counts, rems, recs, status = autopilot_run(
+            "lifecycle", AP_LIFECYCLE, dev, ds, root)
+        lifecycle_checks(tr, log, rems, recs, status)
+        regimes = regime_summary("lifecycle", tr, log, counts)
+        walls = swap_walls(log, rems)
+        acts = [a["ms"] for a in log["acts"]]
+        out["lifecycle"] = {
+            "remediations": rems, "control": status["control"],
+            "regimes": regimes, "swaps": walls, "act_ms": acts,
+            "captures": log["captures"], "launches": counts,
+            "wall_s": log["wall_s"], "peak_gb": log["peak_gb"],
+            "peak_reserved_gb": log["peak_reserved_gb"]}
+        for tag, r in regimes.items():
+            print(f"autopilot lifecycle {tag}: {r['steady_chunks']} steady "
+                  f"chunks at {r['mean_ms_per_step']:.3f} ms/step (CUDA "
+                  f"events; the shared twin {twins.get('shared', 0):.3f}, "
+                  f"the approx twin {twins.get('approx', 0):.3f}); one "
+                  f"capture, graph pool {r['pool_bytes'] / 2**30:.3f} GiB",
+                  flush=True)
+        for w in walls:
+            print(f"autopilot lifecycle swap {w['action']} -> {w['to']} "
+                  f"({w['executable']}): act {w['act_ms']:.3f} ms"
+                  + (f" (the setup built in {w['build_ms']:.1f} ms), "
+                     f"capture {w['capture_s'] * 1e3:.1f} ms"
+                     if "build_ms" in w else "")
+                  + f", chunk re-made in {w['remake_ms']:.3f} ms", flush=True)
+        print(f"autopilot lifecycle: {[e['action'] for e in rems]}, "
+              f"{len(acts)} boundaries, act {sum(acts) / len(acts):.3f} ms "
+              f"a boundary (max {max(acts):.3f}), peak "
+              f"{log['peak_gb']:.2f} GB allocated, "
+              f"{log['peak_reserved_gb']:.2f} GB reserved, 0 guard trips, "
+              f"worker 2's present bit out for one chunk after the lag, the "
+              f"state held bit for bit across the mid-run capture, control "
+              f"{status['control']['regime']['tag']} swaps "
+              f"{status['control']['swaps']}", flush=True)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr, _, log, counts, rems, recs, status = autopilot_run(
+            "segments", AP_SEGMENTS, dev, ds, root)
+        require([e["action"] for e in rems] == ["segments_up",
+                                                 "segments_down"]
+                and [e["regime"]["tag"] for e in rems]
+                == ["cyclic_r3_seg2", "cyclic_r3"]
+                and rems[0]["evidence"]["executable"] == "compiled"
+                and status["control"]["swaps"] == 2
+                and status["wire"]["segments"]["count"] == 1,
+                f"autopilot segments: {rems}, {status.get('control')}")
+        regimes = regime_summary("segments", tr, log, counts)
+        out["segments"] = {"remediations": rems, "regimes": regimes,
+                           "swaps": swap_walls(log, rems),
+                           "act_ms": [a["ms"] for a in log["acts"]],
+                           "launches": counts, "peak_gb": log["peak_gb"],
+                           "peak_reserved_gb": log["peak_reserved_gb"]}
+        for tag, r in regimes.items():
+            print(f"autopilot segments {tag}: {r['steady_chunks']} steady "
+                  f"chunks at {r['mean_ms_per_step']:.3f} ms/step, graph "
+                  f"pool {r['pool_bytes'] / 2**30:.3f} GiB", flush=True)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["pipeline"] = pipeline_rails(dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_step(tr) -> dict:
     """One more step under torch.profiler: device time by kernel name (the
     top 15), by the step's phases (the device work launched inside each
@@ -4796,6 +5316,7 @@ def main(argv=None) -> int:
                               + draw_replays + numerics_replays)
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
     legs = []
     for lp in registry.collect():
         steps = LEG_STEPS.get(lp.name, args.lm_steps if lp.route == "lm"
@@ -4804,6 +5325,8 @@ def main(argv=None) -> int:
         gc.collect()  # the leg's setups and their graphs' pools
         torch.cuda.empty_cache()
     record["legs"] = legs
+    record["legs_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     record["chunk"] = chunk_summary(legs)
     ds = load_dataset(registry.CNN_FULL["dataset"])
     record["twins"] = twin_checks(legs, dev, ds)
@@ -4819,10 +5342,15 @@ def main(argv=None) -> int:
     record["cross_device"] = cross_device_check(dev)
     record["wire_checks"] = wire_checks(dev)
     record["lm_checks"] = lm_checks(dev)
+    record["checks_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     record["guard"] = guard_phase(dev, ds)
     record["guard_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["autopilot"] = autopilot_phase(dev, ds, legs)
+    record["autopilot_s"] = time.perf_counter() - t0
+    print(f"autopilot phase: {record['autopilot_s']:.1f} s", flush=True)
     t0 = time.perf_counter()
     record["lint"] = lint_legs(dev)
     record["lint_legs_s"] = time.perf_counter() - t0
@@ -4886,9 +5414,14 @@ def main(argv=None) -> int:
     record["kernels"] = kernels
     record["script_s"] = time.perf_counter() - t_start
     print(f"done: every phase passed in {record['script_s']:.1f} s "
-          f"(kernel audit {record['kernel_audit_s']:.1f} s, the legs' lint "
+          f"(build {record['build_s']:.1f} s, kernel audit "
+          f"{record['kernel_audit_s']:.1f} s, the legs "
+          f"{record['legs_s']:.1f} s, the checks {record['checks_s']:.1f} s,"
+          f" guard {record['guard_s']:.1f} s, autopilot "
+          f"{record['autopilot_s']:.1f} s, the legs' lint "
           f"{record['lint_legs_s']:.1f} s, the lint's controls "
-          f"{record['lint_controls_s']:.1f} s)", flush=True)
+          f"{record['lint_controls_s']:.1f} s, state "
+          f"{record['state_s']:.1f} s)", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)

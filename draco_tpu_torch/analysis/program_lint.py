@@ -65,7 +65,7 @@ def controls_for(device) -> list:
 
 def select(names: str) -> list:
     programs = (registry.collect() + registry.collect_chunks()
-                + registry.collect_guard())
+                + registry.collect_guard() + registry.collect_autopilot())
     if not names:
         return programs
     keep = set()

@@ -64,6 +64,12 @@ from a drawn worker at step 2), ``shared_int8_over_budget`` (the int8
 from worker 5 at step 2). The plan's in-step events go to the card once at
 setup: a guarded step moves its twin's host-to-device bytes, the approx
 code's plus the staged bound its certificate reads (4 bytes).
+
+The autopilot's chunk (``AUTOPILOT_CHUNKS``: ``chunk_shared_autopilot``,
+the cyclic ``shared`` leg with the incident watch and the autopilot on)
+is held beside ``chunk_simulate``: no synchronising call inside a chunk
+and one fetch a flush with the autopilot's decisions inside it, its
+staging the twin's plus the all-present schedule's K·n bytes.
 """
 
 from __future__ import annotations
@@ -224,7 +230,9 @@ def uploads(cfg) -> dict:
     if cfg.approach != "approx":
         out["adv_mask"] = n
     out["step (int32)"] = 4  # the device draws' step
-    stragglers = cfg.straggle_mode == "drop" and cfg.straggle_count > 0
+    # the autopilot quarantines through an all-present schedule
+    stragglers = (cfg.straggle_mode == "drop" and cfg.straggle_count > 0
+                  or cfg.autopilot == "on")
     if stragglers:
         out["present (bool)"] = n
     if cfg.approach == "approx":
@@ -340,11 +348,23 @@ class ChunkProgram:
             m, uploads={f"{name} x{k}": b * k for name, b in m.uploads.items()},
             flush_fetches=1)
 
+    def _config_in(self, full: bool, train_dir: str):
+        return self.config(full)
+
+    def _observers(self, runner, cfg, client, train_dir: str) -> tuple:
+        """The flush's heartbeat (its own, on ``train_dir``) and what runs
+        after its beat (nothing)."""
+        from draco_tpu_torch.obs.heartbeat import RunHeartbeat
+        from draco_tpu_torch.obs.incidents import make_engine
+
+        hb = RunHeartbeat(train_dir, num_workers=cfg.num_workers,
+                          incidents=make_engine(dataclasses.replace(
+                              cfg, train_dir=train_dir)))
+        return hb, lambda step: None
+
     def build(self, device=None, full: bool = False, dataset=None) -> Program:
         import tempfile
 
-        from draco_tpu_torch.obs.heartbeat import RunHeartbeat
-        from draco_tpu_torch.obs.incidents import make_engine
         from draco_tpu_torch.runtime import resolve_device
         from draco_tpu_torch.utils.metrics import (
             DeferredMetricWriter,
@@ -352,15 +372,14 @@ class ChunkProgram:
         )
 
         lp = get(self.leg)
-        cfg = self.config(full)
+        status_dir = tempfile.TemporaryDirectory(prefix="draco_lint_")
+        cfg = self._config_in(full, status_dir.name)
         dev = resolve_device(device)
         runner = lp.runner(cfg, dev, full, dataset)
         client = runner.chunk_client(1, cfg.max_steps)
         ranges = client.ranges
-        status_dir = tempfile.TemporaryDirectory(prefix="draco_lint_")
-        hb = RunHeartbeat(status_dir.name, num_workers=cfg.num_workers,
-                          incidents=make_engine(dataclasses.replace(
-                              cfg, train_dir=status_dir.name)))
+        hb, after_beat = self._observers(runner, cfg, client,
+                                         status_dir.name)
         deferred = DeferredMetricWriter(MetricWriter("", quiet=True),
                                         observer=hb.observe)
         done = []
@@ -378,6 +397,7 @@ class ChunkProgram:
             before = deferred.fetches
             last = deferred.flush()
             hb.beat(last["step"], cfg.max_steps, extra=client.beat_extras())
+            after_beat(last["step"])
             return deferred.fetches - before
 
         def warm():
@@ -546,8 +566,46 @@ GUARD_CHUNKS = (ChunkProgram("chunk_simulate_guard_nan",
                              "approx_guard_watch"))
 
 
+@dataclasses.dataclass(frozen=True)
+class AutopilotChunkProgram(ChunkProgram):
+    """A leg's chunked program with the incident watch and the autopilot
+    on (``control/autopilot.py``): the Trainer's own heartbeat and
+    incident engine fold the flush's records, then the autopilot decides
+    on them, within the flush's one fetch. Its chunk stages the
+    all-present schedule the autopilot quarantines through (K·n bytes
+    beyond its leg's)."""
+
+    def config(self, full: bool = False, train_dir: str = "autopilot_lint"):
+        # validate() wants the train_dir the run writes into; ``build``
+        # gives a temporary one
+        return dataclasses.replace(
+            super().config(full), incident_watch="on", autopilot="on",
+            train_dir=train_dir).validate()
+
+    def _config_in(self, full: bool, train_dir: str):
+        return self.config(full, train_dir)
+
+    def _observers(self, runner, cfg, client, train_dir: str) -> tuple:
+        from types import SimpleNamespace
+
+        pilot = runner._make_autopilot()
+        pilot.attach(client)
+        engine = SimpleNamespace(client=client)
+        return runner.heartbeat, lambda step: pilot.act(step, engine)
+
+
+# the autopilot on the cyclic shared leg, beside chunk_simulate (the same
+# family's chunk): no sync inside a chunk, one fetch a flush with the
+# autopilot's decisions in it
+AUTOPILOT_CHUNKS = (AutopilotChunkProgram("chunk_shared_autopilot", "shared"),)
+
+
 def collect_chunks() -> "list[ChunkProgram]":
     return list(CHUNKS)
+
+
+def collect_autopilot() -> "list[ChunkProgram]":
+    return list(AUTOPILOT_CHUNKS)
 
 
 def collect_guard() -> list:
@@ -563,7 +621,8 @@ def collect() -> "list[LintProgram]":
 
 
 def get(name: str):
-    every = PROGRAMS + CHUNKS + GUARD_PROGRAMS + GUARD_CHUNKS
+    every = (PROGRAMS + CHUNKS + GUARD_PROGRAMS + GUARD_CHUNKS
+             + AUTOPILOT_CHUNKS)
     for p in every:
         if p.name == name:
             return p

@@ -60,6 +60,13 @@ writes ``incidents.jsonl`` and the status.json incidents block
   python -m draco_tpu_torch.cli --preset cyclic-resnet18 --num-workers 8 \\
       --step-guard on --fault-spec nan_grad@2 --incident-watch on \\
       --max-steps 5 --train-dir train_out/guard
+
+``--autopilot on`` (with ``--incident-watch on``, a ``--train-dir`` and
+``--steps-per-call`` > 1; ``--autopilot-policy "r_low=1.2,..."``
+overrides its policy) remediates from the incident stream at every flush
+(``control/autopilot.py``): quarantine, readmit and regime swaps, each a
+``remediation`` line in ``incidents.jsonl`` and the status.json control
+block.
 Runs on the card unless ``--device cpu`` is given. With ``--preset``, the
 flags given on the command line override the preset's fields.
 ``network=TransformerLM`` runs the single-shard LM step and its token loop
@@ -140,6 +147,8 @@ FLAGS = {
     "--fault-spec": (str, "fault_spec"),
     "--incident-watch": (str, "incident_watch"),
     "--incident-thresholds": (str, "incident_thresholds"),
+    "--autopilot": (str, "autopilot"),
+    "--autopilot-policy": (str, "autopilot_policy"),
 }
 
 

@@ -3,7 +3,10 @@ the port runs.
 
 Field names and defaults are the reference's. ``validate()`` keeps the
 reference's checks on these fields and rejects, with a clear error, every
-value the port does not implement yet.
+value the port does not implement yet. Five reference fields have no port
+field yet: ``sp_attn``, ``pp_microbatches`` and ``expert_shards`` (the
+LM's sharded routes) and ``compile_guard`` and ``compile_warmup`` (the
+reference's compile ledger).
 
 The repetition code (``approach="maj_vote"``) votes on the bits of its
 group members' gradient rows: the lanes of a group must compute bit for
@@ -195,6 +198,17 @@ class TrainConfig:
     incident_watch: str = "off"
     # "<detector>.<key>=<float>,..." overrides of the detectors' thresholds
     incident_thresholds: str = ""
+    # "on": the autopilot (control/autopilot.py) reads the incident stream
+    # at every flush of the chunked loop and remediates: quarantine a
+    # trust-collapsed worker through the presence schedule, dial the wire
+    # (dtype, segments, tree fanout) and the code family (cyclic <-> approx)
+    # by swapping between captured step graphs that share one state, drop
+    # the shadow dtype; each decision a remediation line in incidents.jsonl
+    # and status.json's control block. Needs incident_watch="on", a
+    # train_dir, steps_per_call > 1 and a cyclic or approx code
+    autopilot: str = "off"
+    # "<key>=<float>,..." overrides of control/autopilot.DEFAULT_POLICY
+    autopilot_policy: str = ""
     log_every: int = 10
     seed: int = SEED
     geomedian_iters: int = 80
@@ -394,6 +408,7 @@ class TrainConfig:
             from draco_tpu_torch.obs.incidents import parse_thresholds
 
             parse_thresholds(self.incident_thresholds)
+        self._validate_autopilot()
         if self.step_guard not in ("off", "on"):
             raise ValueError(
                 f"step_guard must be off|on, got {self.step_guard!r}")
@@ -418,6 +433,51 @@ class TrainConfig:
             raise ValueError(
                 f"fault kind straggle is not ported yet for {LM_NETWORK} "
                 f"(the port's LM runs every row present)")
+
+    def _validate_autopilot(self) -> None:
+        """The reference's autopilot checks, in its order and with its
+        messages (draco_tpu/config.py), then the port's refusal of the
+        LM."""
+        if self.autopilot not in ("off", "on"):
+            raise ValueError(
+                f"autopilot must be off|on, got {self.autopilot!r}")
+        if self.autopilot == "on":
+            if self.incident_watch != "on":
+                raise ValueError(
+                    "autopilot='on' requires incident_watch='on' — the "
+                    "incident stream IS the sensing layer the policy "
+                    "engine actuates on (control/autopilot.py)")
+            if not self.train_dir:
+                raise ValueError(
+                    "autopilot='on' needs a train_dir (the incident "
+                    "stream and the control status block live there)")
+            if self.steps_per_call <= 1 and not (
+                    self.network == LM_NETWORK
+                    and self.token_gen == "device"):
+                raise ValueError(
+                    "autopilot='on' requires the chunked regime "
+                    "(steps_per_call > 1): chunk boundaries are the "
+                    "actuation points — remediations apply between "
+                    "dispatched chunks, never inside one")
+            if self.approach not in ("cyclic", "approx"):
+                raise ValueError(
+                    "autopilot='on' supports the algebraic code families "
+                    f"(cyclic|approx), got approach={self.approach!r} — "
+                    "the redundancy dial swaps between exactly those two")
+            if self.network == LM_NETWORK:
+                # quarantine writes the presence schedule and dial_down
+                # swaps to the approx code: the port's LM has neither yet
+                raise ValueError(
+                    f"autopilot='on' is not ported yet for {LM_NETWORK}: "
+                    "the port's LM runs every row present and no approx "
+                    "code, so quarantine has no presence schedule to write "
+                    "and dial_down no family to swap to (it follows the "
+                    "LM's approx code, stragglers and narrow wire, ROADMAP "
+                    "Queue A item 9.1)")
+        if self.autopilot_policy:
+            from draco_tpu_torch.control.autopilot import parse_policy
+
+            parse_policy(self.autopilot_policy)
 
     def _validate_vote(self) -> None:
         """The reference's maj_vote checks (draco_tpu/config.py)."""

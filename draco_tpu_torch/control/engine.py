@@ -53,8 +53,23 @@ Client protocol (``control/clients.py``):
 The stop poll delivers the fault plan's due ``sigterm`` events first
 (``injector``, the loop's ``resilience/faults.HostFaultInjector``).
 
-Not ported: the reference engine's compile watch, profiler window and
-its autopilot hook.
+The autopilot hook (``autopilot``, ``control/autopilot.py``, or None):
+the engine calls ``autopilot.attach(client)`` when it is built (a later
+``run()`` resumes the regime the last one ended in) and
+``autopilot.act(end, engine)`` after each flush's beat, before the
+boundary's eval and checkpoint, when the heartbeat and its incident engine
+have folded every record up to ``end``. ``act`` reads only what the flush
+materialised: it adds no fetch and no synchronisation. When it swapped the
+client's setup, the chunk already assembled for the next dispatch is
+re-made by the new setup (``client.remake``) from its host pieces. The
+engine exposes the newest dispatched ``state`` and its ``last_end``.
+
+``SegmentPipeline`` is the reference's decode-on-arrival loop over a
+segmented wire: a measurement harness of the host-to-device seam a
+segment crosses, not a part of the training step, which decodes its
+segments inside the step.
+
+Not ported: the reference engine's compile watch and profiler window.
 """
 
 from __future__ import annotations
@@ -69,7 +84,8 @@ MAX_PENDING = 4  # blocks deferred before a flush is forced
 
 class ChunkedEngine:
     def __init__(self, client, *, eval_freq: int, tracer, writer,
-                 heartbeat, total_end: int, stop=None, injector=None):
+                 heartbeat, total_end: int, stop=None, injector=None,
+                 autopilot=None):
         self.client = client
         self.eval_freq = eval_freq
         self.tracer = tracer
@@ -79,6 +95,11 @@ class ChunkedEngine:
                                              observer=heartbeat.observe)
         self.stop = stop  # the loop's GracefulStop, or None
         self.injector = injector  # the fault plan's host events, or None
+        self.autopilot = autopilot
+        if autopilot is not None:
+            autopilot.attach(client)
+        self.state = None  # the newest dispatched state
+        self.last_end = None  # and the step its chunk ended at
 
     def run(self, state, ranges):
         """Drive chunks over ``ranges``; returns (state, last record)."""
@@ -113,15 +134,22 @@ class ChunkedEngine:
                 with tracer.span("dispatch", **span_kw), \
                         tracer.activate(), shielded(self.stop):
                     state, block = client.dispatch(state, chunk)
+                self.state, self.last_end = state, end
                 deferred.defer(range(start, end + 1), client.block_names,
                                block, client.extras(chunk))
                 window_steps += k
-                if i + 1 < len(ranges):  # overlap: assemble i+1 during i
+                pending = i + 1 < len(ranges)
+                if pending:  # overlap: assemble i+1 during i
                     chunk = client.assemble(i + 1, ranges)
                 boundary = bool(self.eval_freq) and end % self.eval_freq == 0
                 if boundary or i + 1 == len(ranges) \
                         or deferred.depth >= MAX_PENDING:
                     drain(end)
+                    if self.autopilot is not None:
+                        setup = client.setup
+                        self.autopilot.act(end, self)
+                        if pending and client.setup is not setup:
+                            chunk = client.remake(chunk)
                     if boundary:
                         client.boundary(end, state)
                     window_t0, window_steps = time.perf_counter(), 0
@@ -134,3 +162,101 @@ class ChunkedEngine:
         finally:
             client.cleanup()
         return state, deferred.last
+
+
+class SegmentPipeline:
+    """Decode-on-arrival over a segmented wire
+    (draco_tpu/control/engine.py): the host-to-device transfer of each
+    segment's narrow codewords and its decode, pipelined or serial.
+
+    Hooks:
+
+      put(j, host_segment) -> device buffer   the segment's transfer
+      decode(j, device buffer) -> result      the decode's launch; must not
+                                              wait for the card
+      drain(result) -> None                   waits until that decode ended
+
+    ``pipelined``: each turn launches segment j's decode, then puts segment
+    j + 1 while that decode runs, then drains j, so the transfer hides
+    under the decode. The serial rail (``pipelined=False``) drains before
+    the next transfer: no overlap. On the card the hooks decide whether
+    the overlap is real: a pageable source or a copy on the compute stream
+    serialises it (``chip_smoke.py`` puts pinned segments on a copy stream
+    and makes the decode wait on the copy's event).
+
+    Each hook call runs in a tracer span (``segment_xfer``,
+    ``segment_decode``, ``segment_drain``, tagged ``segment=j``) and is
+    recorded in ``events`` with its host wall stamps; ``overlap_us``
+    folds them."""
+
+    def __init__(self, tracer, put, decode, drain=None, *,
+                 pipelined: bool = True):
+        self.tracer = tracer
+        self.put = put
+        self.decode = decode
+        self.drain = drain
+        self.pipelined = pipelined
+        self.events = []  # [{name, segment, t0_s, t1_s}] host wall stamps
+
+    def _timed(self, name, j, fn):
+        t0 = time.perf_counter()
+        with self.tracer.span(name, segment=j):
+            out = fn()
+        self.events.append({"name": name, "segment": j,
+                            "t0_s": t0, "t1_s": time.perf_counter()})
+        return out
+
+    def run(self, host_segments):
+        """Every segment through the hooks; the decodes' results (drained
+        when there is a ``drain`` hook)."""
+        n = len(host_segments)
+        results = []
+        if n == 0:
+            return results
+        dev = self._timed("segment_xfer", 0,
+                          lambda: self.put(0, host_segments[0]))
+        for j in range(n):
+            out = self._timed("segment_decode", j,
+                              lambda j=j, dev=dev: self.decode(j, dev))
+            if self.pipelined:
+                # the next transfer under this decode, then its drain
+                if j + 1 < n:
+                    dev = self._timed(
+                        "segment_xfer", j + 1,
+                        lambda j=j: self.put(j + 1, host_segments[j + 1]))
+                if self.drain is not None:
+                    self._timed("segment_drain", j,
+                                lambda out=out: self.drain(out))
+            else:
+                # the serial rail: drain first, so nothing overlaps
+                if self.drain is not None:
+                    self._timed("segment_drain", j,
+                                lambda out=out: self.drain(out))
+                if j + 1 < n:
+                    dev = self._timed(
+                        "segment_xfer", j + 1,
+                        lambda j=j: self.put(j + 1, host_segments[j + 1]))
+            results.append(out)
+        return results
+
+    def overlap_us(self):
+        """(overlapped transfer µs, decode in-flight µs): a turn's in-flight
+        window runs from the end of decode j's launch to the end of its
+        drain; the part of transfer j + 1 inside it was hidden. The serial
+        rail's overlap is 0 by construction."""
+        by_seg = {}
+        for ev in self.events:
+            by_seg.setdefault(ev["segment"], {})[ev["name"]] = ev
+        total_inflight = 0.0
+        overlapped = 0.0
+        for j, evs in sorted(by_seg.items()):
+            dec, drn = evs.get("segment_decode"), evs.get("segment_drain")
+            if dec is None or drn is None:
+                continue
+            lo, hi = dec["t1_s"], drn["t1_s"]
+            total_inflight += max(hi - lo, 0.0)
+            nxt = by_seg.get(j + 1, {}).get("segment_xfer")
+            if nxt is not None:
+                overlapped += max(min(nxt["t1_s"], hi)
+                                  - max(nxt["t0_s"], lo), 0.0)
+        return overlapped * 1e6, total_inflight * 1e6

@@ -31,9 +31,13 @@ record the heartbeat observes and every beat (with the beat's extras, the
 prefetcher's depth and restarts); the terminal write carries the final
 incidents block too and closes the engine's stream.
 
-The reference's ``device`` (profiler window) and ``control`` (autopilot)
-blocks are not ported: the port never writes them, which the schema
-allows (:func:`check_status_schema`).
+With the autopilot on (``control/autopilot.py``), :meth:`set_control`
+stamps its ``control`` block (the regime, the swaps, the quarantined
+workers, the last remediation) at every decision pass; the block rides
+every later beat and the terminal write, so the run's last word names the
+regime it ended in. The reference's ``device`` block (the profiler
+window) is not ported: the port never writes it, which the schema allows
+(:func:`check_status_schema`).
 """
 
 from __future__ import annotations
@@ -130,6 +134,7 @@ class RunHeartbeat:
         self._last: dict = {}
         self._nx: dict = {}
         self._wire: Optional[dict] = None
+        self._control: Optional[dict] = None  # the autopilot's block
         # the newest record that carried health columns
         self._last_health_rec: dict = {}
         self._last_payload: dict = {}
@@ -216,6 +221,13 @@ class RunHeartbeat:
             return
         self._wire = dict(ledger)
 
+    def set_control(self, block: Optional[dict]) -> None:
+        """Stamp the autopilot's ``control`` block
+        (``Autopilot.status_block``); None is a no-op."""
+        if self.path is None or block is None:
+            return
+        self._control = dict(block)
+
     def decode_health(self) -> Optional[dict]:
         """Detection precision / recall over the records (1.0 on an empty
         denominator) and the newest health values."""
@@ -269,6 +281,8 @@ class RunHeartbeat:
             payload["wire"] = self._wire
         if self._nx:
             payload["numerics"] = dict(self._nx)
+        if self._control is not None:
+            payload["control"] = self._control
         if self.incidents is not None:
             # the beat is the engine's beat observation
             self.incidents.observe_beat(step, extra)
@@ -293,6 +307,10 @@ class RunHeartbeat:
         if self.job_name:
             payload["job_name"] = self.job_name
         payload["updated_at"] = time.time()
+        if self._control is not None:
+            # the regime the run ended in, a remediation after the last
+            # beat included
+            payload["control"] = self._control
         if self.incidents is not None:
             # an incident opened after the last beat (the crash step, a
             # guard trip at the stop) rides the run's last word

@@ -37,8 +37,10 @@ The compile-storm detector reads a ``steady_recompiles`` beat extra, which
 the port's loops do not emit yet (the reference's compile ledger is not
 ported): it stays silent, as every detector does for a column family its
 route does not emit. ``quarantined`` and :meth:`IncidentEngine.remediation`
-are the actuation surface of the reference's autopilot, which the port
-does not have yet: nothing calls them.
+are the autopilot's (``control/autopilot.py``): it adds the workers it
+quarantines to ``quarantined``, whose absence the straggle detector then
+reads as policy, and writes each decision to the stream as a
+``remediation`` line.
 
 Host only: the standard library and the port's forensics.
 """

@@ -89,6 +89,11 @@ WIRE_REL_TOL_TABLE = {
 # prices drops only
 WIRE_RESIDUAL_SLACK = {"f32": 0.0, "bf16": 2e-2, "int8": 1e-1}
 
+# the autopilot's wire dial (control/autopilot.py): wire_widen moves the
+# wire one step f32-ward, wire_narrow one step back toward the configured
+# dtype (``narrow_toward``)
+WIRE_WIDEN = {"int8": "bf16", "bf16": "f32", "f32": "f32"}
+
 # per-dtype threshold band for shapes outside the table, at s ≤ 2; also
 # the shadow decode's flag threshold
 SHADOW_REL_TOL = {"bf16": 5e-2, "int8": 1.5e-1}
@@ -124,6 +129,14 @@ def wire_locator_lambda(dtype: str) -> float:
 
 def wire_residual_slack(dtype: str) -> float:
     return WIRE_RESIDUAL_SLACK.get(dtype, 0.0)
+
+
+def narrow_toward(current: str, target: str) -> str:
+    """One step from ``current`` along f32 -> bf16 -> int8 toward
+    ``target``, never past it; ``current`` when it is not wider."""
+    order = ("f32", "bf16", "int8")
+    ci, ti = order.index(current), order.index(target)
+    return order[min(ci + 1, ti)] if ci < ti else current
 
 
 def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:

@@ -34,6 +34,23 @@ source of a copy still queued; the copy itself is queued on the step's
 stream, behind chunk i's replays. A failed capture or replay raises with
 the failing operation named; nothing falls back to the eager loop.
 
+Several setups may share one state: the autopilot's regimes
+(``control/autopilot.py``, ``training/step.build_train_setup(live=)``)
+each hold their own StepGraph over the same parameter, momentum,
+statistics and count tensors. A regime's graph is captured at its first
+chunk, mid-run: its warm-up restores the shared state in place, so the
+new graph's first replay reads the state the previous graph left, bit for
+bit; a return to a regime replays the graph it captured then
+(``captures`` stays 1). The capture keeps ``torch.cuda.graph``'s default
+``capture_error_mode`` ("global": a CUDA call from another thread that is
+illegal during a capture fails it) while the chunked loop's prefetch
+thread runs. That thread makes no CUDA call: it gathers numpy arrays from
+the dataset and writes host tracer spans (``data/prefetch.py``); every
+pinned-buffer fill, copy to the card and event of a chunk is made on the
+main thread, at dispatch (``_load``), before the capture begins. Python's
+garbage collection, which could free another graph's CUDA objects from
+any thread, is off for the whole process during the capture.
+
 On the CPU the same cursor-indexed step runs k times from a Python loop:
 no graph, the chunk's plain version, which the CPU tests hold bit for bit
 to k eager steps.
@@ -61,12 +78,17 @@ class Chunk:
     generator.
     ``host``: column name -> k host values, known at assembly (the approx
     decode's bound and recovered fraction, the presence count): they go
-    into the records at the flush, not through the device."""
+    into the records at the flush, not through the device.
+    ``pieces``: the host arguments the chunk was made from (``make_chunk``'s
+    start, batches, labels, adversary and presence rows as read at
+    assembly), from which another setup re-makes it after a regime swap
+    (``control/clients.py``)."""
 
     start: int
     k: int
     tensors: dict
     host: dict = dataclasses.field(default_factory=dict)
+    pieces: tuple = ()
 
 
 class StateSnapshot:
@@ -125,6 +147,7 @@ class StepGraph:
         self.stage: Optional[dict] = None
         self.graph = None
         self.pool_bytes = 0  # what the capture allocated in its pool
+        self.captures = 0  # captures of the step (at most one a graph)
         self.slot_waits = 0  # chunk loads that found their slot still busy
         self._slots: list = []
         self._events: list = []
@@ -246,3 +269,4 @@ class StepGraph:
                 gc.enable()
         self.pool_bytes = torch.cuda.max_memory_allocated(self.device) - base
         self.graph = graph
+        self.captures += 1

@@ -52,6 +52,9 @@ its group's others in about half of ResNet-18's coordinates, every step
 
 The state carry is updated in place: parameters, the optimizer's buffers
 and update count, and the BN statistics keep their storage across steps.
+A setup built with ``live=`` (an autopilot regime, ``control/autopilot.py``)
+takes a running setup's model and state as they are, so several setups'
+steps and chunk graphs update one state.
 The step is split in two: its host inputs (batch, labels, the adversary
 and presence masks, the int32 step number; the approx decode's host
 solve), and ``step_body``, which
@@ -285,6 +288,8 @@ def chunk_runner(name: str, cfg: TrainConfig, dev, setup_state, body,
             raise ValueError(f"{name}: the chunk runs on the setup's own "
                              f"state, which its graph updates in place")
         if "graph" not in box:
+            # a no-op once the buffers exist: a regime's setup built
+            # mid-run (``live=``) keeps the momentum and the count
             state.opt.init(state.params)
             box["graph"] = StepGraph(
                 name, dev, cfg.steps_per_call, block_names,
@@ -300,39 +305,57 @@ def chunk_runner(name: str, cfg: TrainConfig, dev, setup_state, body,
 
 def build_train_setup(cfg: TrainConfig, device=None,
                       dataset_name: Optional[str] = None,
-                      init: Optional[tuple] = None) -> TrainSetup:
+                      init: Optional[tuple] = None,
+                      live: Optional["TrainSetup"] = None) -> TrainSetup:
     """Model, state and the step for ``cfg`` on ``device`` (default cuda).
 
     ``init``: optional ``(params, stats)`` as ``params.from_jax`` returns
     them (stats with or without the leading worker axis); otherwise the
     parameters are the reference's ``model.init`` at ``cfg.seed``, drawn
-    on the device."""
+    on the device.
+
+    ``live``: a running setup whose model and ``TrainState`` this one
+    takes as they are (an autopilot regime, ``control/autopilot.py``): its
+    step, and its chunk's graph, read and update the same parameter,
+    momentum, statistics and count tensors, so switching between the two
+    copies no weights. ``cfg`` must keep the live setup's network and
+    worker count."""
     cfg.validate()
     dev = resolve_device(device)
     n = cfg.num_workers
     dataset_name = dataset_name or cfg.dataset
     use_aug = "cifar" in dataset_name.lower()
 
-    model = build_model(cfg.network, dataset_name,
-                        dtype=cfg.compute_dtype).to(dev)
-    if init is None:
-        init_params(model, cfg.seed)
-        stats0 = init_stats(model)
+    if live is not None:
+        if init is not None:
+            raise ValueError("build_train_setup: init and live exclude each "
+                             "other (a live setup's state is the state)")
+        if live.device != dev:
+            raise ValueError(f"build_train_setup: the live setup runs on "
+                             f"{live.device}, not {dev}")
+        model, state = live.model, live.state
+        params, layout = state.params, live.layout
     else:
-        p0, stats0 = init
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(p0[name])
-    params = {k: p.detach() for k, p in model.named_parameters()}
-    stats = {k: (v if v.dim() == 2 else v.expand(n, -1)).to(dev).clone()
-             for k, v in stats0.items()}
-    layout = params_mod.layout(model)
+        model = build_model(cfg.network, dataset_name,
+                            dtype=cfg.compute_dtype).to(dev)
+        if init is None:
+            init_params(model, cfg.seed)
+            stats0 = init_stats(model)
+        else:
+            p0, stats0 = init
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(p0[name])
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        stats = {k: (v if v.dim() == 2 else v.expand(n, -1)).to(dev).clone()
+                 for k, v in stats0.items()}
+        layout = params_mod.layout(model)
+        state = TrainState(params=params, stats=stats,
+                           opt=optim.build_optimizer_from_cfg(cfg))
+        # the optimizer's buffers and count exist from the start: the
+        # state's tensors keep their storage from the first step on
+        state.opt.init(params)
     dim = layout.dim
-    state = TrainState(params=params, stats=stats,
-                       opt=optim.build_optimizer_from_cfg(cfg))
-    # the optimizer's buffers and count exist from the start: the state's
-    # tensors keep their storage from the first step on
-    state.opt.init(params)
     drop = model.dropout_features  # () for a model without dropout
 
     def loss_fn(p, st, x, y, keep):
@@ -404,7 +427,8 @@ def build_train_setup(cfg: TrainConfig, device=None,
                      # the host columns read off their host tensors
                      # without an op (no would-be sync in the lint)
                      {name: [float(p[1][name].tolist()) for p in per]
-                      for name in host_names})
+                      for name in host_names},
+                     (start, xs, ys, masks, presents))
 
     def batch(inputs):
         """The step's (n, B, ...) images, augmented, int64 labels and

@@ -56,12 +56,23 @@ configuration drops none), each time the schedules are made, past
 (``prefetch_crash`` / ``prefetch_hang``, retried by the supervised
 prefetcher) and come with the stop polls (``sigterm``); its in-step events
 run inside the step (``training/step.py``).
+
+With ``cfg.autopilot="on"`` (``control/autopilot.py``; the chunked loop
+only) the Trainer makes an all-present straggler schedule when the
+configuration drops none, up front: the autopilot quarantines a worker by
+writing that schedule, and a graph captured without a ``present`` staging
+buffer could never gain one. The autopilot is built once
+(``_make_autopilot``) and kept across ``run()`` calls, with its regime,
+its cached regime setups and its quarantines; a regenerated schedule gets
+the active quarantines stamped on again (``reapply_quarantines``).
 """
 
 from __future__ import annotations
 
 import time
 from typing import Optional
+
+import numpy as np
 
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
@@ -101,6 +112,7 @@ class Trainer(LoopRunState):
         self._eager_batch = self.eager_source(self.batch)
         self.group_seeds = drng.group_seeds(cfg.seed, max(cfg.num_groups, 1))
         self._sched_steps = -1
+        self._autopilot = None  # control/autopilot.Autopilot, when on
         self._ensure_schedules(cfg.max_steps)
         self._prefetch = None  # the running chunk client's prefetcher
         if cfg.checkpoint_step:
@@ -120,6 +132,14 @@ class Trainer(LoopRunState):
                                     cfg.straggle_count)
             if cfg.straggle_mode == "drop" and cfg.straggle_count > 0
             else None, self.fault_plan, cfg.num_workers, n_steps)
+        if cfg.autopilot == "on":
+            if self.straggle_schedule is None:
+                # the autopilot's quarantine writes this table
+                self.straggle_schedule = np.zeros(
+                    (n_steps + 1, cfg.num_workers), dtype=bool)
+            if self._autopilot is not None:
+                # a new table must not readmit a worker still held out
+                self._autopilot.reapply_quarantines(self.straggle_schedule)
         self._sched_steps = n_steps
 
     def batch(self, step: int):
@@ -222,9 +242,20 @@ class Trainer(LoopRunState):
         engine = ChunkedEngine(client, eval_freq=self.cfg.eval_freq,
                                tracer=self.tracer, writer=self.writer,
                                stop=self._stop, heartbeat=self.heartbeat,
-                               total_end=last_step, injector=self.injector)
+                               total_end=last_step, injector=self.injector,
+                               autopilot=self._make_autopilot())
         self.state, last = engine.run(self.state, client.ranges)
         return last
+
+    def _make_autopilot(self):
+        """The run's autopilot (None unless ``cfg.autopilot="on"``), built
+        once: its regime and quarantines outlive a ``run()``."""
+        if self._autopilot is None and self.cfg.autopilot == "on":
+            from draco_tpu_torch.control.autopilot import make_autopilot
+
+            self._autopilot = make_autopilot(self.cfg, self.heartbeat,
+                                             dim=self.setup.dim)
+        return self._autopilot
 
     def _run_eager(self, last_step: int) -> dict:
         cfg, last = self.cfg, {}

@@ -397,11 +397,13 @@ def test_the_registry_lists_the_chunked_programs():
     assert [c.name for c in registry.collect_chunks()] == [
         "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote",
         "chunk_lm_shared_flash_devgen", "chunk_lm_shared_flash_watch"]
-    # the resilience legs' chunks are selected beside them
+    # the resilience legs' and the autopilot's chunks are selected beside
+    # them
     assert {c.name for c in program_lint.select("chunk_")} == {
         "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote",
         "chunk_lm_shared_flash_devgen", "chunk_lm_shared_flash_watch",
-        "chunk_simulate_guard_nan", "chunk_approx_guard_watch"}
+        "chunk_simulate_guard_nan", "chunk_approx_guard_watch",
+        "chunk_shared_autopilot"}
     for c in registry.collect_chunks():
         cfg = c.config(full=True)
         m = c.manifest(cfg, True)
