@@ -75,6 +75,14 @@ prints no result line):
               1e-5 of it and 1e-6 of an f64 sum; ``nonfinite_rows`` bool
               for bool on NaN and Inf rows, (8, 3, d) lanes and an
               unaligned buffer; each twice and from a graph replay. The
+              LM legs' decode kernels at the LM's d = 62,958,336
+              (``lm_width_kernels``): approx_decode f32 / bf16 / int8 on
+              six present rows (two absent, one of them NaN),
+              cyclic_narrow_recombine on the int8 pair, round_draw's int8
+              pair and single draw, each against its plain version and its
+              bound, twice bit for bit and from a graph replay bit for
+              bit, beside the plain quantization the LM's narrow wires run
+              (ms and the memory above its inputs). The
               decode chain on non-finite rows (``nan_chain_kernels``):
               complex_project, cyclic_locator and complex_recombine at
               n=8, d=11,173,962 on codewords with a NaN row, an Inf row
@@ -147,7 +155,18 @@ prints no result line):
               schedule's row, ``wmask_present0`` the presence row and
               ``wmask_accused0`` the located adversaries; every coded leg
               launches ``nonfinite_rows``, only a watched one
-              ``stage_stats``.
+              ``stage_stats``. Then the LM's approx code, narrow wire and
+              stragglers, each beside its yardstick
+              (``registry.LM_CODE_TWINS``): ``lm_approx_flash`` (preset
+              approx-resnet18's code on the LM, 2 workers dropped a step:
+              ``approx_decode`` over six present rows of d = 62,958,336),
+              ``lm_approx_int8_sr_flash`` (its int8 wire rounded
+              stochastically: ``round_draw``, the int8 ``approx_decode``),
+              ``lm_shared_int8_flash`` (the narrow pair, the λ locator,
+              ``cyclic_narrow_recombine``) and ``lm_shared_flash_drop2``
+              (no adversary, two erasures a step, the locator given the
+              presence row); a chunk's host assembly timed (on the approx
+              code K host solves).
               Each leg runs through the entry points a user calls (Trainer /
               build_sp_train_setup + TokenLoop) with the launch counts
               zeroed just before it and read just after; every coded step
@@ -228,10 +247,13 @@ prints no result line):
               captured in a graph alone, its replay bit for bit its direct
               launch at the main path's shapes. The lint (phase 5) also runs the chunked
               programs of ``simulate``, ``lm_shared_flash``, ``majvote``,
-              ``lm_shared_flash_devgen`` and ``lm_shared_flash_watch``: no
+              ``lm_shared_flash_devgen``, ``lm_shared_flash_watch`` and
+              ``lm_approx_flash``: no
               synchronising call inside a chunk, one device-to-host fetch
               a flush (the run heartbeat folding its records), the staging
-              copy's bytes, the graph's pool
+              copy's bytes (the approx chunk's ``chunk_lm_shared_flash``'s
+              plus v/n and the presence, 2·n·4 bytes a step), the graph's
+              pool
   7. state    the run state (``state_phase``), ResNet legs under
               deterministic cuDNN: preset cyclic-resnet18 with
               ``shared``, n=8, K=4, 12 steps with the test-set eval
@@ -290,7 +312,7 @@ prints no result line):
               guarded leg and ``chunk_simulate_guard_nan`` to its twin:
               no more syncs or fetches, the twin's H2D bytes (the approx
               certificate's staged bound, 4 bytes, aside)
-  9. autopilot the autopilot on the chunked CNN loop
+  9. autopilot the autopilot on the chunked CNN loop, then the LM's
               (``autopilot_phase``; it runs after phase 8, before the
               lint's profiler), at preset cyclic-resnet18's shapes
               (``shared``, n=8, batch 32, K=4, ``step_guard=on``,
@@ -323,7 +345,16 @@ prints no result line):
               bit for bit the whole-d launch, each rail's wall, its
               device overlap (decode time under a copy, from events on
               both streams: > 0 on the pipelined rail) and the host
-              overlap the reference measures (0 on the serial rail)
+              overlap the reference measures (0 on the serial rail).
+              The LM's lifecycle (``lm_lifecycle``) at LM_FULL through
+              build_sp_train_setup and the TokenLoop: the CNN lifecycle's
+              policy, thresholds, fault plan and checks, the flash kernels
+              launched, each regime's chunk beside ``lm_shared_flash`` /
+              ``lm_approx_flash`` of phase 6, each regime's graph pool and
+              the run's peak allocated and reserved memory; then the
+              reference's LM dial (``straggle@3-10:w5``, 24 steps) at K=1
+              with device tokens, in chunks of one step: dial_down
+              (compiled) and dial_up (reused), one capture a regime
 
 ``--profile`` adds one torch.profiler step per leg (device time by kernel
 and by the step's phases draco_comp / draco_encode / draco_decode /
@@ -471,7 +502,13 @@ EXPECT = {"simulate": CODED[1:] + AUG, "geomedian": AUG,
           + WATCHED,
           "majvote_shadow_int8": ("row_fingerprints",) + VOTE_DRAWS
           + WATCHED,
-          "lm_shared_flash_watch": CODED + FLASH + WATCHED}
+          "lm_shared_flash_watch": CODED + FLASH + WATCHED,
+          # the LM's approx code, narrow wire and stragglers
+          "lm_approx_flash": ("approx_decode",) + FLASH,
+          "lm_approx_int8_sr_flash": ("approx_decode", "round_draw")
+          + FLASH,
+          "lm_shared_int8_flash": NARROW + FLASH,
+          "lm_shared_flash_drop2": CODED + FLASH}
 # the draw kernels a leg launches only where it draws: no other leg
 # launches them
 DRAWS = ("random_inject", "round_draw", "synthetic_text", "augment_draws",
@@ -1973,6 +2010,175 @@ def narrow_kernels(code, dev) -> list:
     return out
 
 
+def lm_width_kernels(code, dev) -> dict:
+    """The LM legs' decode kernels at the LM's d = 62,958,336, n=8: the
+    approx decode (f32, bf16, int8 at block 256) on the partial sums of a
+    real approx encode with rows 2 and 5 absent (row 2 a NaN payload), the
+    narrow recombination on the int8 codeword pair, and round_draw's int8
+    pair. Each against its plain version at ``narrow_kernels``' tolerances
+    (round_draw bit for bit), twice bit for bit, its replay from a CUDA
+    graph bit for bit its direct launch, timed beside its plain version and
+    its bound. Beside them the plain quantization the LM's narrow wires
+    run in draco_encode (``numerics.narrow_wire_pair`` /
+    ``narrow_wire_single``, not fused into a kernel): its ms and the
+    memory it allocates above its inputs. Returns {kernel: {wire: row}}."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    d = LM_D
+    nb = -(-d // BLOCK)
+    out = {"approx_decode": {}, "cyclic_narrow_recombine": {},
+           "round_draw": {}, "quantize": {}}
+    grads = torch.randn((N, d), generator=g, device=dev)
+
+    def held(name, k, k2, p, scale, rel_tol=1e-5):
+        err = (k[0] - p[0]).abs().max().item()
+        rel = max([abs(a.item() - b.item()) / abs(b.item())
+                   for a, b in zip(k[1:], p[1:])] or [0.0])
+        require(err <= 1e-5 * scale and rel <= rel_tol,
+                f"{name} at the LM's d: max_abs_err {err} (tol "
+                f"{1e-5 * scale}), squared norms rel err {rel}")
+        require(all(_same_bits(a, b) for a, b in zip(k, k2)),
+                f"{name} at the LM's d: two launches differ")
+        return {"max_abs_err": err, "tol": 1e-5 * scale,
+                "norms_rel_err": rel, "bitwise_repeat": True,
+                "graph_replay_bitwise": True}
+
+    def quantize_cost(label, fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kept = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        held_b = torch.cuda.memory_allocated(dev) - base
+        del kept
+        out["quantize"][label] = {"ms": time_ms(fn, 5, warmup=1),
+                                  "peak_bytes_above_inputs": peak,
+                                  "output_bytes": held_b}
+
+    # the approx decode on six present rows
+    acode = approx.build_approx_code(N, 1.5)
+    absent = [2, 5]
+    present = torch.ones(N, dtype=torch.bool)
+    present[absent] = False
+    vn = (approx.decode_weights(acode, present)[0] / N).to(dev)
+    pres_f = present.float().to(dev)
+    prow = approx.encode_shared(acode, grads)
+    prow[absent] = 0.0
+    prow[absent[0]] = float("nan")
+    live = pres_f[:, None] > 0
+    pr = N - len(absent)
+    step = torch.tensor(DRAW_STEP, dtype=torch.int32, device=dev)
+    sr = TrainConfig(**{**LM_FULL, **APPROX, "wire_dtype": "int8",
+                        "shadow_round": "stochastic"})
+    quantize_cost("approx int8 stochastic (8, d)",
+                  lambda: numerics.narrow_wire_single(sr, prow, step))
+    for mode in ("f32", "bf16", "int8"):
+        wire = (None if mode == "f32" else
+                (mode, numerics.narrow_wire_rows(prow, mode, BLOCK), BLOCK))
+        rows_in = prow if wire is None else None
+
+        def launch(rows_in=rows_in, wire=wire):
+            return decode_kernels.approx_decode(rows_in, grads, vn, pres_f,
+                                                wire)
+
+        k, k2 = launch(), launch()
+        p = decode_kernels.approx_decode_plain(rows_in, grads, vn, pres_f,
+                                               wire)
+        require(bool(torch.isfinite(k[0]).all()), f"approx_decode {mode} at "
+                f"the LM's d: the absent NaN row reached the output")
+        wide = prow if wire is None else numerics.widen_wire_rows(
+            wire[1], mode, BLOCK)
+        wide = torch.where(live, wide, torch.zeros_like(wide))
+        scale = (vn.abs() @ wide.abs()).max().item()
+        del wide
+        row = held(f"approx_decode {mode}", k, k2, p, scale)
+        del k, k2, p
+        replay_bitwise(f"approx_decode [{mode}, d={d}]", launch)
+        scales = pr * nb * 4 if mode == "int8" else 0
+        row.update(ms=time_ms(launch, 20),
+                   plain_ms=time_ms(lambda: decode_kernels.approx_decode_plain(
+                       rows_in, grads, vn, pres_f, wire), 5))
+        row["bound_ms"], row["bound_by"] = bound(
+            pr * d * WIRE_BYTES[mode] + scales + N * d * 4 + d * 4 + 2 * N * 4,
+            2 * pr * d + (pr * d if scales else 0) + 4 * N * d + 3 * d)
+        row["bytes_per_coordinate"] = (pr * WIRE_BYTES[mode] + N * 4 + 4)
+        out["approx_decode"][mode] = row
+        del wire
+    del prow
+
+    # the narrow recombination on the int8 pair of a real encode
+    t = code.tensors(dev)
+    enc_re, enc_im = coded.complex_matmul(t["w_masked_re"], t["w_masked_im"],
+                                          grads)
+    cyc = TrainConfig(**{**LM_FULL, "approach": "cyclic",
+                         "redundancy": "shared", "wire_dtype": "int8"})
+    quantize_cost("cyclic int8 pair (2, 8, d)",
+                  lambda: numerics.narrow_wire_pair(cyc, enc_re, enc_im))
+    quantize_cost("cyclic bf16 pair (2, 8, d)", lambda: numerics.narrow_wire_pair(
+        dataclasses.replace(cyc, wire_dtype="bf16"), enc_re, enc_im))
+    v_re, v_im = torch.randn((2, N), generator=g, device=dev)
+    wire = ("int8", numerics.narrow_wire_rows(enc_re, "int8", BLOCK),
+            numerics.narrow_wire_rows(enc_im, "int8", BLOCK), BLOCK)
+    del enc_re, enc_im
+
+    def recombine():
+        return decode_kernels.cyclic_narrow_recombine(v_re, v_im, wire)
+
+    k, k2 = recombine(), recombine()
+    p = decode_kernels.cyclic_narrow_recombine_plain(v_re, v_im, wire)
+    scale = (v_re.abs() @ numerics.widen_wire_rows(wire[1], "int8",
+                                                   BLOCK).abs()
+             + v_im.abs() @ numerics.widen_wire_rows(wire[2], "int8",
+                                                     BLOCK).abs()
+             ).max().item()
+    row = held("cyclic_narrow_recombine int8", [k], [k2], [p], scale)
+    del k, k2, p
+    replay_bitwise(f"cyclic_narrow_recombine [int8, d={d}]", recombine)
+    scales = 2 * N * nb * 4
+    row.update(ms=time_ms(recombine, 20),
+               plain_ms=time_ms(lambda: decode_kernels
+                                .cyclic_narrow_recombine_plain(v_re, v_im,
+                                                               wire), 5))
+    row["bound_ms"], row["bound_by"] = bound(
+        2 * N * d + scales + 2 * N * 4 + d * 4, 2 * 2 * N * d + 2 * N * d)
+    row["bytes_per_coordinate"] = 2 * N + 4
+    out["cyclic_narrow_recombine"]["int8"] = row
+    del wire, grads
+
+    # round_draw's int8 pair (lm_approx_int8_sr_flash draws one part)
+    wseed = SEED + draws.WIRE_SALT
+    for parts in (2, 1):
+        k = draws.round_draw(step, wseed, d, "int8", parts)
+        require(_same_bits(k, draws.round_draw_plain(step, wseed, d, "int8",
+                                                     parts, dev)),
+                f"round_draw int8 x{parts} at the LM's d: the kernel's "
+                f"draws differ from the plain version's")
+        del k
+        replay_steps(f"round_draw int8 x{parts} at the LM's d",
+                     lambda parts=parts: draws.round_draw(step, wseed, d,
+                                                          "int8", parts),
+                     step, DRAW_STEP, DRAW_STEP + 1)
+        step.fill_(DRAW_STEP)
+        r = {"max_abs_err": 0.0, "bitwise_repeat": True,
+             "graph_replay_bitwise": True,
+             "ms": graph_ms(lambda parts=parts: draws.round_draw(
+                 step, wseed, d, "int8", parts), 10),
+             "plain_ms": time_ms(lambda parts=parts: draws.round_draw_plain(
+                 step, wseed, d, "int8", parts, dev), 1, warmup=1)}
+        r["bound_ms"], r["bound_by"] = bound(parts * 4 * d + 4,
+                                             draws.draw_ops(parts * d),
+                                             INT32_OPS)
+        out["round_draw"][f"int8 x{parts}"] = r
+    torch.cuda.empty_cache()
+    for name, rows in out.items():
+        for wire_name, r in rows.items():
+            print(f"kernel {name} [{wire_name}] at the LM's d={d}: "
+                  + ", ".join(f"{k}={v:.4g}" if isinstance(v, float)
+                              else f"{k}={v}" for k, v in r.items()),
+                  flush=True)
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 2b: the segment kernels (the segmented wire, the layer decode)
 # --------------------------------------------------------------------------
@@ -2847,7 +3053,7 @@ def drive(name, program, steps, expect, dev) -> dict:
             require(r["present"] == cfg.num_workers - cfg.straggle_count
                     and 0.0 < r["recovered_fraction"] <= 1.0
                     and r["decode_residual"]
-                    <= r["decode_residual_bound"] + slack + 1e-4,
+                    <= r["decode_residual_bound"] + slack + 1e-5,
                     f"{name} step {r['step']}: approx certificate: {r}")
     for k in expect:
         require(counts[k] > 0, f"{name}: kernel {k} was never launched "
@@ -3371,8 +3577,16 @@ def chunk_leg(lp, program, dev, profile: bool) -> dict:
                          chunk_ms_per_step=det_chunk_ms)
         det = (f", deterministic cuDNN: eager {det_eager_ms:.2f}, chunk "
                f"{det_chunk_ms:.2f} ms/step")
+    # the host's assembly of one chunk from its pieces (on the approx code
+    # K host solves of the decode weights), before its dispatch
+    make_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        runs.client.remake(runs.chunk)
+        make_ms.append((time.perf_counter() - t0) * 1e3)
     out = {"k": K, "eager_ms_per_step": eager_ms,
            "chunk_ms_per_step": chunk_ms, "loop_ms_per_step": loop_ms,
+           "make_chunk_ms": sorted(make_ms)[len(make_ms) // 2],
            "loop_chunks": LOOP_CHUNKS, "loop_wall_ms_per_step": loop_wall_ms,
            "first_chunk_ms_per_step": first_ms,
            "first_chunk_wall_s": first_wall_s,
@@ -3393,7 +3607,8 @@ def chunk_leg(lp, program, dev, profile: bool) -> dict:
           f"{upd_tol:g}); bit for bit (eager twice, chunk, chunk again, the "
           f"loop; {agreement['state_tensors']} state tensors and every "
           f"block column{det}): yes; pool {graph.pool_bytes / 2**30:.2f} "
-          f"GiB; captured {captured}", flush=True)
+          f"GiB; a chunk made on the host in {out['make_chunk_ms']:.3f} ms "
+          f"(median of 5); captured {captured}", flush=True)
     if profile and name == "lm_shared_flash":
         out["profile"] = prof = profile_chunk(runs.client, runs.runner,
                                               runs.chunk, runs.rewind)
@@ -3450,6 +3665,38 @@ def chunk_summary(legs) -> dict:
     return {"legs": out, "vs_baseline": ratio["chunk_ms_per_step"],
             "vs_baseline_loop": ratio["loop_ms_per_step"],
             "vs_baseline_eager": ratio["eager_ms_per_step"]}
+
+
+def lm_code_twins(legs) -> dict:
+    """Each LM code leg (``registry.LM_CODE_TWINS``) beside its yardstick
+    of this call: eager, chunk and loop ms/step, the eager steps' peak
+    memory, the graph's pool and the host's chunk assembly."""
+    by = {lg["leg"]: lg for lg in legs}
+    out = {}
+    for leg, twin in registry.LM_CODE_TWINS.items():
+        row = {}
+        for name in (leg, twin):
+            lg = by[name]
+            c = lg["chunk"]
+            row[name] = {"eager_ms_per_step": c["eager_ms_per_step"],
+                         "chunk_ms_per_step": c["chunk_ms_per_step"],
+                         "loop_ms_per_step": c["loop_ms_per_step"],
+                         "peak_mem_gb": lg["peak_mem_gb"],
+                         "pool_bytes": c["pool_bytes"],
+                         "make_chunk_ms": c["make_chunk_ms"]}
+        out[leg] = {"twin": twin, **row}
+        a, b = row[leg], row[twin]
+        print(f"lm code leg {leg} beside {twin}: eager "
+              f"{a['eager_ms_per_step']:.2f} / {b['eager_ms_per_step']:.2f}, "
+              f"chunk {a['chunk_ms_per_step']:.2f} / "
+              f"{b['chunk_ms_per_step']:.2f}, loop "
+              f"{a['loop_ms_per_step']:.2f} / {b['loop_ms_per_step']:.2f} "
+              f"ms/step; eager peak {a['peak_mem_gb']:.2f} / "
+              f"{b['peak_mem_gb']:.2f} GB; pool "
+              f"{a['pool_bytes'] / 2**30:.2f} / {b['pool_bytes'] / 2**30:.2f}"
+              f" GiB; chunk made on the host in {a['make_chunk_ms']:.3f} / "
+              f"{b['make_chunk_ms']:.3f} ms", flush=True)
+    return out
 
 
 def first_aggregate(lp, dev, ds) -> tuple:
@@ -3851,6 +4098,16 @@ def lint_legs(dev) -> list:
         require(not bad, f"audit lint {leg} against {twin}: {bad}")
         print(f"audit lint {leg}: syncs, fetches and {h2d[leg]} H2D bytes "
               f"as its twin {twin}'s ({h2d[twin]} + {extra})", flush=True)
+    # the LM's approx chunk: chunk_lm_shared_flash's syncs and fetches, its
+    # bytes with the presence row for the adversary mask (n bytes each)
+    # and the host solve's v/n and presence, 2·n·4 bytes a step, beside
+    leg, twin = "chunk_lm_approx_flash", "chunk_lm_shared_flash"
+    extra = registry.get(leg).K * 2 * N * 4
+    bad = rules.twin_failures(by[leg], by[twin], extra)
+    require(not bad, f"audit lint {leg} against {twin}: {bad}")
+    print(f"audit lint {leg}: syncs, fetches and {h2d[leg]} H2D bytes as "
+          f"{twin}'s ({h2d[twin]} + {extra}: v/n and the presence)",
+          flush=True)
     # the autopilot's chunk: chunk_simulate's syncs and fetches (the
     # autopilot decides inside the flush's one fetch), its bytes plus the
     # all-present schedule's K·n
@@ -4752,6 +5009,14 @@ AP_SEGMENTS = dict(max_steps=20, fault_spec="straggle@5-12:w5",
                        "segments_up_boundaries=1,segments_max=2,"
                        "segments_down_boundaries=1,dial_down_boundaries=99,"
                        "clean_boundaries=99"))
+# the reference's LM dial (tests/test_autopilot.py test_autopilot_dial_lm_sp)
+# at K=1 with device tokens
+# at K=1 with device tokens; without eval boundaries the engine flushes
+# every 4 one-step chunks, the reference's boundaries at eval_freq=4,
+# without a checkpoint at each (a 0.5 GB LM state)
+AP_DIAL_K1 = dict(max_steps=24, autopilot_policy=AP_POLICY,
+                  fault_spec="straggle@3-10:w5", steps_per_call=1,
+                  token_gen="device", eval_freq=0)
 AP_ORDERS = (["quarantine", "readmit", "dial_down", "dial_up"],
              ["quarantine", "dial_down", "readmit", "dial_up"])
 AP_KERNELS = {"cyclic_r3": ("complex_matmul", "complex_project",
@@ -4764,21 +5029,23 @@ PIPE_REPS = 7  # timed runs of each rail, in turns
 
 
 @contextlib.contextmanager
-def autopilot_watch(tr):
-    """Instruments one autopilot run (class-level wraps, undone on exit):
-    each dispatch's chunk by CUDA events with its regime label, each
-    capture's wall with the shared state held bit for bit across it (a
-    regime captured mid-run: the state its first replay reads is the
-    state the previous graph left), each ``act``'s host wall and each
-    setup build and chunk re-make."""
-    from draco_tpu_torch.control.clients import TrainerChunkClient
+def autopilot_watch(tr, client_cls):
+    """Instruments one autopilot run of the loop ``tr`` (a Trainer or a
+    TokenLoop) whose engine client is a ``client_cls`` (class-level wraps,
+    undone on exit): each dispatch's chunk by CUDA events with its regime
+    label, each capture's wall with the shared state held bit for bit
+    across it (a regime captured mid-run: the state its first replay reads
+    is the state the previous graph left), each ``act``'s host wall and
+    each setup build and chunk re-make."""
     from draco_tpu_torch.training.chunk_graph import StepGraph
 
     log = {"chunks": [], "captures": [], "acts": [], "builds": [],
            "remakes": [], "peaks": []}
-    orig = {"dispatch": TrainerChunkClient.dispatch,
-            "build": TrainerChunkClient.build_setup,
-            "remake": TrainerChunkClient.remake,
+    wrapped = ("dispatch", "build_setup", "remake")
+    own = {k: client_cls.__dict__.get(k) for k in wrapped}
+    orig = {"dispatch": client_cls.dispatch,
+            "build": client_cls.build_setup,
+            "remake": client_cls.remake,
             "capture": StepGraph._capture}
 
     def dispatch(self, state, chunk):
@@ -4820,9 +5087,9 @@ def autopilot_watch(tr):
             return out
         return wrapped
 
-    TrainerChunkClient.dispatch = dispatch
-    TrainerChunkClient.build_setup = timed("builds", orig["build"])
-    TrainerChunkClient.remake = timed("remakes", orig["remake"])
+    client_cls.dispatch = dispatch
+    client_cls.build_setup = timed("builds", orig["build"])
+    client_cls.remake = timed("remakes", orig["remake"])
     StepGraph._capture = capture
     pilot = tr._make_autopilot()
     act = pilot.act
@@ -4838,9 +5105,11 @@ def autopilot_watch(tr):
     try:
         yield log
     finally:
-        TrainerChunkClient.dispatch = orig["dispatch"]
-        TrainerChunkClient.build_setup = orig["build"]
-        TrainerChunkClient.remake = orig["remake"]
+        for k in wrapped:  # the class's own methods back, or the base's
+            if own[k] is None:
+                delattr(client_cls, k)
+            else:
+                setattr(client_cls, k, own[k])
         StepGraph._capture = orig["capture"]
         del pilot.act
 
@@ -4851,7 +5120,7 @@ def autopilot_run(label, fields, dev, ds, root) -> tuple:
     runs, with the launch counts zeroed just before it and read just
     after; returns (trainer, train_dir, watch log, counts, remediations,
     records, status)."""
-    from draco_tpu_torch.obs import replay
+    from draco_tpu_torch.control.clients import TrainerChunkClient
 
     d = os.path.join(root, label)
     cfg = TrainConfig(**{
@@ -4861,8 +5130,35 @@ def autopilot_run(label, fields, dev, ds, root) -> tuple:
         "incident_watch": "on", "autopilot": "on",
         "incident_thresholds": AP_THRESHOLDS, "train_dir": d, **fields})
     tr = Trainer(cfg, device=dev, dataset=ds, quiet=True)
+    return autopilot_drive(label, tr, TrainerChunkClient, cfg, d, dev)
+
+
+def lm_autopilot_run(label, fields, dev, root) -> tuple:
+    """The lifecycle on the LM at ``LM_FULL`` (``shared``, s=1, no
+    declared adversary, K=4, step_guard and incident_watch on) through
+    build_sp_train_setup and the TokenLoop a user runs; returns what
+    ``autopilot_run`` does."""
+    from draco_tpu_torch.control.clients import TokenChunkClient
+
+    d = os.path.join(root, label)
+    cfg = TrainConfig(**{
+        **LM_FULL, "approach": "cyclic", "redundancy": "shared",
+        "adversary_count": 0, "steps_per_call": CHUNK_K, "eval_freq": 4,
+        "log_every": 1, "keep_checkpoints": 1, "step_guard": "on",
+        "incident_watch": "on", "autopilot": "on",
+        "incident_thresholds": AP_THRESHOLDS, "train_dir": d, **fields})
+    tr = TokenLoop(build_sp_train_setup(cfg, dev), cfg, quiet=True)
+    return autopilot_drive(label, tr, TokenChunkClient, cfg, d, dev)
+
+
+def autopilot_drive(label, tr, client_cls, cfg, d, dev) -> tuple:
+    """``tr.run()`` under ``autopilot_watch``, the launch counts zeroed just
+    before it and read just after, then its records, remediations and
+    status.json checked."""
+    from draco_tpu_torch.obs import replay
+
     torch.cuda.reset_peak_memory_stats(dev)
-    with autopilot_watch(tr) as log:
+    with autopilot_watch(tr, client_cls) as log:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         last = tr.run()
@@ -4903,9 +5199,11 @@ def regime_summary(label, tr, log, counts) -> dict:
     kernels its path launched."""
     pilot = tr._autopilot
     caps = [c["graph"] for c in log["captures"]]
+    lm = isinstance(tr, TokenLoop)
+    base = "train_token_many" if lm else "train_many"
     out = {}
     for regime, setup in pilot._setups.items():
-        graph = setup.train_many.graph()
+        graph = (setup.train_token_many if lm else setup.train_many).graph()
         require(graph is not None and graph.captures == 1
                 and caps.count(id(graph)) == 1,
                 f"autopilot {label} {regime.tag}: captures "
@@ -4914,8 +5212,7 @@ def regime_summary(label, tr, log, counts) -> dict:
         require(setup.state is tr.state and setup.model is tr.setup.model,
                 f"autopilot {label} {regime.tag}: a second state")
         tag = regime.tag
-        label = ("train_many" if regime == pilot.base
-                 else f"train_many@{tag}")
+        label = base if regime == pilot.base else f"{base}@{tag}"
         mine = [c for c in log["chunks"] if c["label"] == label]
         steady = [c for c in mine if not c["captured"]]
         ms = [c["events"][0].elapsed_time(c["events"][1]) / c["k"]
@@ -5137,48 +5434,20 @@ def autopilot_phase(dev, ds, legs) -> dict:
     SegmentPipeline's rails; timings beside the shared and approx legs'
     chunks (phase 6) of the same call."""
     root = tempfile.mkdtemp(prefix="chip_smoke_autopilot_")
-    twins = {lg["leg"]: lg["chunk"]["chunk_ms_per_step"] for lg in legs
-             if lg["leg"] in ("shared", "approx")}
-    out = {"twin_chunk_ms_per_step": twins}
+    twins = {lg["leg"]: lg["chunk"]["chunk_ms_per_step"] for lg in legs}
+    out = {}
     try:
         gc.collect()
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         tr, _, log, counts, rems, recs, status = autopilot_run(
             "lifecycle", AP_LIFECYCLE, dev, ds, root)
-        lifecycle_checks(tr, log, rems, recs, status)
-        regimes = regime_summary("lifecycle", tr, log, counts)
-        walls = swap_walls(log, rems)
-        acts = [a["ms"] for a in log["acts"]]
-        out["lifecycle"] = {
-            "remediations": rems, "control": status["control"],
-            "regimes": regimes, "swaps": walls, "act_ms": acts,
-            "captures": log["captures"], "launches": counts,
-            "wall_s": log["wall_s"], "peak_gb": log["peak_gb"],
-            "peak_reserved_gb": log["peak_reserved_gb"]}
-        for tag, r in regimes.items():
-            print(f"autopilot lifecycle {tag}: {r['steady_chunks']} steady "
-                  f"chunks at {r['mean_ms_per_step']:.3f} ms/step (CUDA "
-                  f"events; the shared twin {twins.get('shared', 0):.3f}, "
-                  f"the approx twin {twins.get('approx', 0):.3f}); one "
-                  f"capture, graph pool {r['pool_bytes'] / 2**30:.3f} GiB",
-                  flush=True)
-        for w in walls:
-            print(f"autopilot lifecycle swap {w['action']} -> {w['to']} "
-                  f"({w['executable']}): act {w['act_ms']:.3f} ms"
-                  + (f" (the setup built in {w['build_ms']:.1f} ms), "
-                     f"capture {w['capture_s'] * 1e3:.1f} ms"
-                     if "build_ms" in w else "")
-                  + f", chunk re-made in {w['remake_ms']:.3f} ms", flush=True)
-        print(f"autopilot lifecycle: {[e['action'] for e in rems]}, "
-              f"{len(acts)} boundaries, act {sum(acts) / len(acts):.3f} ms "
-              f"a boundary (max {max(acts):.3f}), peak "
-              f"{log['peak_gb']:.2f} GB allocated, "
-              f"{log['peak_reserved_gb']:.2f} GB reserved, 0 guard trips, "
-              f"worker 2's present bit out for one chunk after the lag, the "
-              f"state held bit for bit across the mid-run capture, control "
-              f"{status['control']['regime']['tag']} swaps "
-              f"{status['control']['swaps']}", flush=True)
+        out["lifecycle"] = lifecycle_report(
+            "lifecycle", tr, log, counts, rems, recs, status,
+            {"cyclic_r3": "shared", "approx_r1.5": "approx"}, twins)
         del tr
+        out["lifecycle_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         gc.collect()
         torch.cuda.empty_cache()
         tr, _, log, counts, rems, recs, status = autopilot_run(
@@ -5204,11 +5473,107 @@ def autopilot_phase(dev, ds, legs) -> dict:
         del tr
         gc.collect()
         torch.cuda.empty_cache()
+        out["segments_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["lm_lifecycle"] = lm_lifecycle(dev, root, legs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["lm_lifecycle_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         out["pipeline"] = pipeline_rails(dev)
+        out["pipeline_s"] = time.perf_counter() - t0
+        print(f"autopilot phase: lifecycle {out['lifecycle_s']:.1f} s, "
+              f"segment rung {out['segments_s']:.1f} s, the LM's "
+              f"{out['lm_lifecycle_s']:.1f} s, pipeline "
+              f"{out['pipeline_s']:.1f} s", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def lifecycle_report(label, tr, log, counts, rems, recs, status, twin_of,
+                     twins) -> dict:
+    """``lifecycle_checks`` and ``regime_summary`` of one lifecycle run,
+    then printed: each regime's chunk ms/step beside its twin's chunk in
+    phase 6 of this call (``twin_of``: regime tag -> leg, ``twins``: leg ->
+    ms/step), its graph pool, each swap's wall and the run's act ms and
+    peak allocated and reserved memory."""
+    lifecycle_checks(tr, log, rems, recs, status)
+    regimes = regime_summary(label, tr, log, counts)
+    walls = swap_walls(log, rems)
+    acts = [a["ms"] for a in log["acts"]]
+    for tag, r in regimes.items():
+        twin = twin_of.get(tag)
+        print(f"autopilot {label} {tag}: {r['steady_chunks']} steady chunks "
+              f"at {r['mean_ms_per_step']:.3f} ms/step (CUDA events; its "
+              f"twin {twin} {twins.get(twin, 0):.3f} in phase 6); one "
+              f"capture, graph pool {r['pool_bytes'] / 2**30:.3f} GiB "
+              f"({r['pool_bytes']} B)", flush=True)
+    for w in walls:
+        print(f"autopilot {label} swap {w['action']} -> {w['to']} "
+              f"({w['executable']}): act {w['act_ms']:.3f} ms"
+              + (f" (the setup built in {w['build_ms']:.1f} ms), capture "
+                 f"{w['capture_s'] * 1e3:.1f} ms" if "build_ms" in w else "")
+              + f", chunk re-made in {w['remake_ms']:.3f} ms", flush=True)
+    print(f"autopilot {label}: {[e['action'] for e in rems]}, {len(acts)} "
+          f"boundaries, act {sum(acts) / len(acts):.3f} ms a boundary (max "
+          f"{max(acts):.3f}), peak {log['peak_gb']:.2f} GB allocated, "
+          f"{log['peak_reserved_gb']:.2f} GB reserved, wall "
+          f"{log['wall_s']:.1f} s for {len(recs)} steps, 0 guard trips, "
+          f"worker 2's present bit out for one chunk after the lag, the "
+          f"state held bit for bit across the mid-run capture, control "
+          f"{status['control']['regime']['tag']} swaps "
+          f"{status['control']['swaps']}", flush=True)
+    return {"remediations": rems, "control": status["control"],
+            "regimes": regimes, "swaps": walls, "act_ms": acts,
+            "captures": log["captures"], "launches": counts,
+            "wall_s": log["wall_s"], "peak_gb": log["peak_gb"],
+            "peak_reserved_gb": log["peak_reserved_gb"],
+            "twin_chunk_ms_per_step": {t: twins.get(t)
+                                       for t in twin_of.values()}}
+
+
+def lm_lifecycle(dev, root, legs) -> dict:
+    """The CNN lifecycle's policy, thresholds, fault plan and checks on the
+    LM at ``LM_FULL`` through the TokenLoop, the flash kernels launched
+    (``lifecycle_report``: each regime beside ``lm_shared_flash`` /
+    ``lm_approx_flash`` of phase 6); then the reference's LM dial at K=1
+    with device tokens."""
+    twins = {lg["leg"]: lg["chunk"]["chunk_ms_per_step"] for lg in legs}
+    tr, _, log, counts, rems, recs, status = lm_autopilot_run(
+        "lm_lifecycle", AP_LIFECYCLE, dev, root)
+    for k in FLASH:
+        require(counts[k] > 0, f"autopilot lm_lifecycle: {k} was never "
+                f"launched ({counts})")
+    out = lifecycle_report("lm_lifecycle", tr, log, counts, rems, recs,
+                           status, {"cyclic_r3": "lm_shared_flash",
+                                    "approx_r1.5": "lm_approx_flash"}, twins)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K=1 with device tokens, which validate() admits under the autopilot:
+    # the loop runs chunks of one step, each regime's step captured alone
+    tr, _, log, counts, rems, recs, status = lm_autopilot_run(
+        "lm_dial_k1", AP_DIAL_K1, dev, root)
+    require([e["action"] for e in rems] == ["dial_down", "dial_up"]
+            and rems[0]["regime"]["tag"] == "approx_r1.5"
+            and [e["evidence"]["executable"] for e in rems]
+            == ["compiled", "reused"]
+            and status["control"]["regime"]["tag"] == "cyclic_r3"
+            and status["control"]["swaps"] == 2,
+            f"autopilot lm_dial_k1: {rems}, {status.get('control')}")
+    regimes = regime_summary("lm_dial_k1", tr, log, counts)
+    out["dial_k1"] = {"remediations": rems, "regimes": regimes,
+                      "swaps": swap_walls(log, rems),
+                      "wall_s": log["wall_s"], "peak_gb": log["peak_gb"],
+                      "peak_reserved_gb": log["peak_reserved_gb"]}
+    for tag, r in regimes.items():
+        print(f"autopilot lm_dial_k1 {tag}: {r['steady_chunks']} steady "
+              f"chunks of one step at {r['mean_ms_per_step']:.3f} ms/step, "
+              f"graph pool {r['pool_bytes'] / 2**30:.3f} GiB", flush=True)
+    del tr
     return out
 
 
@@ -5308,6 +5673,11 @@ def main(argv=None) -> int:
                + numerics_rows + control_kernels(dev))
     record["nan_chain"] = nan_chain_kernels(code, dev)
     torch.cuda.empty_cache()
+    record["lm_width_kernels"] = lm_rows = lm_width_kernels(code, dev)
+    for row in kernels:
+        if row["name"] in lm_rows:
+            row["lm_d"] = lm_rows[row["name"]]
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     record["kernel_audit"] = audit_kernels()
     record["kernel_audit_s"] = time.perf_counter() - t0
@@ -5328,6 +5698,7 @@ def main(argv=None) -> int:
     record["legs_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     record["chunk"] = chunk_summary(legs)
+    record["lm_code_twins"] = lm_code_twins(legs)
     ds = load_dataset(registry.CNN_FULL["dataset"])
     record["twins"] = twin_checks(legs, dev, ds)
     record["tree_vs_flat"] = tree_vs_flat(dev, ds)

@@ -51,8 +51,15 @@ second decode): ``simulate_watch_bf16`` (the flagship with the bf16
 shadow), ``approx_watch_int8_sr`` (preset approx-resnet18 with the int8
 shadow, stochastically rounded), ``majvote_shadow_int8`` (preset
 rep-resnet18 with the int8 shadow) and ``lm_shared_flash_watch`` (the LM's
-``shared`` leg with the bf16 shadow). Every coded leg runs the ingest check
-(``nonfinite_rows``) and packs its forensics masks.
+``shared`` leg with the bf16 shadow). Four run the LM's approx code,
+narrow wire and stragglers (``LM_CODE_TWINS`` names each one's yardstick):
+``lm_approx_flash`` (preset approx-resnet18's code on the LM: r=1.5
+pairwise, two workers dropped a step), ``lm_approx_int8_sr_flash`` (its
+int8 wire rounded stochastically), ``lm_shared_int8_flash``
+(``lm_shared_flash`` on the int8 wire) and ``lm_shared_flash_drop2``
+(``lm_shared_flash`` with no adversary and two erasures a step). Every
+coded leg runs the ingest check (``nonfinite_rows``) and packs its
+forensics masks.
 
 The resilience legs (``GUARD_PROGRAMS``, ``chip_smoke.py``'s guard phase,
 each beside the leg it guards, ``GUARD_TWINS``) run the step guard and a
@@ -212,21 +219,21 @@ class Program:
 
 def uploads(cfg) -> dict:
     """The host-to-device copies of one step of ``cfg``, name -> bytes: the
-    batch at the dataset's shape and its labels, the masks and the step
-    number, which every draw of the step reads on the device
-    (augmentation, dropout, the vote's salts, the random attack, stochastic
-    rounding, the LM's device tokens)."""
+    batch at the dataset's shape and its labels (the LM's tokens, unless
+    the device makes them), the masks and the step number, which every
+    draw of the step reads on the device (augmentation, dropout, the
+    vote's salts, the random attack, stochastic rounding, the LM's device
+    tokens), and the approx code's host solve."""
     from draco_tpu_torch.models import input_shape
 
     n, b = cfg.num_workers, cfg.batch_size
-    if cfg.network == "TransformerLM":
-        out = {"adv_mask": n, "step (int32)": 4}
-        if cfg.token_gen != "device":
-            out["tokens (int32)"] = n * b * cfg.seq_len * 4
-        return out
-    h, w, c = input_shape(cfg.dataset)
-    out = {"batch (f32 NHWC)": n * b * h * w * c * 4,
-           "labels (int32)": n * b * 4}
+    out = {}
+    if cfg.network != "TransformerLM":
+        h, w, c = input_shape(cfg.dataset)
+        out = {"batch (f32 NHWC)": n * b * h * w * c * 4,
+               "labels (int32)": n * b * 4}
+    elif cfg.token_gen != "device":
+        out["tokens (int32)"] = n * b * cfg.seq_len * 4
     if cfg.approach != "approx":
         out["adv_mask"] = n
     out["step (int32)"] = 4  # the device draws' step
@@ -504,6 +511,19 @@ PROGRAMS = (
                 ci=MAJVOTE_CI),
     LintProgram("lm_shared_flash_watch", "lm",
                 dict(_CYCLIC_SHARED, **WATCH, shadow_wire="bf16"), 24.0),
+    # the LM's approx code, narrow wire and stragglers: preset
+    # approx-resnet18's code (f32, and int8 rounded stochastically), the
+    # cyclic int8 wire, and two erasures a step at the 2s budget (step
+    # peaks 7.78, 11.51, 14.09 and 13.14 GiB measured, PERF.md §6)
+    LintProgram("lm_approx_flash", "lm", APPROX, 9.0),
+    LintProgram("lm_approx_int8_sr_flash", "lm",
+                dict(APPROX, wire_dtype="int8", shadow_round="stochastic"),
+                13.0),
+    LintProgram("lm_shared_int8_flash", "lm",
+                dict(_CYCLIC_SHARED, wire_dtype="int8"), 15.5),
+    LintProgram("lm_shared_flash_drop2", "lm",
+                dict(_CYCLIC_SHARED, adversary_count=0, straggle_mode="drop",
+                     straggle_count=2), 14.5),
 )
 
 # each segmented leg's S = 1, global-granularity twin
@@ -513,6 +533,11 @@ TWINS = {"shared_layer": "shared", "shared_int8_seg4": "shared_int8",
 # each stochastically rounded leg's nearest-rounding twin: the same
 # detection columns every step
 SR_TWINS = {"shared_int8_sr": "shared_int8"}
+# each LM code leg's yardstick in the same call (its chunk's ms/step)
+LM_CODE_TWINS = {"lm_approx_flash": "lm_shared_flash_devgen",
+                 "lm_approx_int8_sr_flash": "lm_approx_flash",
+                 "lm_shared_int8_flash": "lm_shared_flash",
+                 "lm_shared_flash_drop2": "lm_shared_flash"}
 # each watch leg's leg without the observatory: the same update bit for bit
 WATCH_TWINS = {"simulate_watch_bf16": "simulate",
                "approx_watch_int8_sr": "approx",
@@ -522,16 +547,18 @@ WATCH_TWINS = {"simulate_watch_bf16": "simulate",
 
 # the flagship's coded leg, the host-bound LM leg (PERF.md §5), the vote
 # (its salts staged with the draws), the LM with device tokens (a
-# chunk's staging: K step numbers and the masks) and the LM with the
+# chunk's staging: K step numbers and the masks), the LM with the
 # observatory (36 + 5 more columns a row, the heartbeat's fold at the
-# flush)
+# flush) and the LM's approx code (K host solves at assembly, v/n and the
+# presence staged)
 CHUNKS = (ChunkProgram("chunk_simulate", "simulate"),
           ChunkProgram("chunk_lm_shared_flash", "lm_shared_flash"),
           ChunkProgram("chunk_majvote", "majvote"),
           ChunkProgram("chunk_lm_shared_flash_devgen",
                        "lm_shared_flash_devgen"),
           ChunkProgram("chunk_lm_shared_flash_watch",
-                       "lm_shared_flash_watch"))
+                       "lm_shared_flash_watch"),
+          ChunkProgram("chunk_lm_approx_flash", "lm_approx_flash"))
 
 
 # the resilience legs: the step guard and a seeded fault plan, each beside

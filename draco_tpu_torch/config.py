@@ -429,15 +429,10 @@ class TrainConfig:
                 "under approach=approx (the family injects no "
                 "adversaries); use straggle/nan_grad/host kinds, or "
                 "cyclic/maj_vote for Byzantine-budget faults")
-        if self.network == LM_NETWORK and plan.of_kind("straggle"):
-            raise ValueError(
-                f"fault kind straggle is not ported yet for {LM_NETWORK} "
-                f"(the port's LM runs every row present)")
 
     def _validate_autopilot(self) -> None:
         """The reference's autopilot checks, in its order and with its
-        messages (draco_tpu/config.py), then the port's refusal of the
-        LM."""
+        messages (draco_tpu/config.py)."""
         if self.autopilot not in ("off", "on"):
             raise ValueError(
                 f"autopilot must be off|on, got {self.autopilot!r}")
@@ -464,16 +459,6 @@ class TrainConfig:
                     "autopilot='on' supports the algebraic code families "
                     f"(cyclic|approx), got approach={self.approach!r} — "
                     "the redundancy dial swaps between exactly those two")
-            if self.network == LM_NETWORK:
-                # quarantine writes the presence schedule and dial_down
-                # swaps to the approx code: the port's LM has neither yet
-                raise ValueError(
-                    f"autopilot='on' is not ported yet for {LM_NETWORK}: "
-                    "the port's LM runs every row present and no approx "
-                    "code, so quarantine has no presence schedule to write "
-                    "and dial_down no family to swap to (it follows the "
-                    "LM's approx code, stragglers and narrow wire, ROADMAP "
-                    "Queue A item 9.1)")
         if self.autopilot_policy:
             from draco_tpu_torch.control.autopilot import parse_policy
 
@@ -691,10 +676,6 @@ class TrainConfig:
                 "replicated CNN lanes (use baseline or cyclic; "
                 "draco_tpu/parallel/sp_step.py)")
         not_ported = {
-            "approach": self.approach == "approx",
-            "wire_dtype": self.wire_dtype != "f32",
-            "straggle_count": (self.straggle_mode == "drop"
-                               and self.straggle_count > 0),
             "seq_shards": self.seq_shards != 1,
             "tensor_shards": self.tensor_shards != 1,
             "pipeline_shards": self.pipeline_shards != 1,
@@ -707,5 +688,4 @@ class TrainConfig:
                 raise ValueError(
                     f"{field}={getattr(self, field)!r} is not ported yet for "
                     f"{LM_NETWORK} (the port runs the single-shard, unrolled "
-                    f"LM with host or device tokens, the cyclic or baseline "
-                    f"code, every row present and the f32 wire)")
+                    f"LM without experts, with host or device tokens)")

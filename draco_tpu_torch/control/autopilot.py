@@ -1,5 +1,6 @@
 """The adaptive coding autopilot (draco_tpu/control/autopilot.py): runtime
-control of a chunked CNN run from its incident stream.
+control of a chunked run — the CNN Trainer's or the LM token loop's —
+from its incident stream.
 
 At every flush of the chunked loop (``control/engine.py``), after the
 heartbeat's beat, :meth:`Autopilot.act` reads the incident engine
@@ -31,7 +32,8 @@ ways) and ``max_swaps`` caps the swaps of a run.
 
 A regime change is a warm swap between captured CUDA graphs: each regime's
 setup is built once (``client.build_setup``) around the live model and
-``TrainState`` (``training/step.build_train_setup(live=)``), so every
+``TrainState`` (``training/step.build_train_setup(live=)``, the LM's
+``parallel/sp_step.build_sp_train_setup(live=)``), so every
 regime's graph reads and updates the same parameter, momentum, statistics
 and count tensors, and a swap copies no weights. The first chunk in a new
 regime captures its graph (``"executable": "compiled"`` in the
@@ -486,8 +488,8 @@ class Autopilot:
 
     def reapply_quarantines(self, schedule) -> None:
         """Stamp every active quarantine onto a regenerated presence
-        schedule (``Trainer._ensure_schedules``): a new table must not
-        readmit a worker the policy still holds out."""
+        schedule (``training/run_state.LoopRunState.straggle_table``): a
+        new table must not readmit a worker the policy still holds out."""
         for w in self.quarantined:
             schedule[:, w] = True
 

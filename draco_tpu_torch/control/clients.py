@@ -10,16 +10,20 @@ setup's chunk runner (``train_many`` or ``train_token_many``). At an
 the checkpoint, ``training/run_state.py``), and a stop snaps its loop's
 checkpoint (``snap_stop``).
 
-The CNN client is also the autopilot's actuation surface
+Both clients are also the autopilot's actuation surface
 (``control/autopilot.py``): ``build_setup`` builds a regime's setup
-around the Trainer's live model and state (``build_train_setup(live=)``),
-``switch_regime`` points the client at it (its runner, columns and record
-order), ``quarantine`` / ``readmit`` write the Trainer's presence
-schedule, and ``remake`` rebuilds the chunk the engine assembled before
-a swap with the new setup, from the host pieces it was assembled from:
-no second prefetch, and the schedule as it was read then, so a quarantine
-decided at the same boundary reaches the wire one assembled chunk later,
-as the reference's ``wire_lag`` says.
+around the loop's live model and state (``build_train_setup(live=)``,
+``build_sp_train_setup(live=)``), ``switch_regime`` points the client at
+it (its runner, columns and record order), ``quarantine`` / ``readmit``
+write the loop's presence schedule, and ``remake`` rebuilds the chunk the
+engine assembled before a swap with the new setup, from the host pieces
+it was assembled from: no second prefetch, and the schedule as it was
+read then, so a quarantine decided at the same boundary reaches the wire
+one assembled chunk later, as the reference's ``wire_lag`` says. A
+chunk's records carry its host columns (``extras``): the approx decode's
+bound and recovered fraction, and with a presence table each step's
+arrived rows (``present``; the LM's written record keeps only its
+schema's columns, as the reference's).
 """
 
 from __future__ import annotations
@@ -28,12 +32,16 @@ from draco_tpu_torch.data.batching import chunk_ranges
 
 
 class _Client:
-    """What both clients share: the ranges, the runner and the prefetcher."""
+    """What both clients share: the ranges, the runner, the prefetcher,
+    the records' host columns and the autopilot's actuation; a client
+    names its loop ``loop`` and its running setup ``setup``."""
 
-    def __init__(self, loop, prefetch, many, first: int, last: int):
+    def __init__(self, loop, prefetch, first: int, last: int):
         cfg = loop.cfg
-        self.prefetch, self.many = prefetch, many
+        self.loop, self.setup, self.label = loop, loop.setup, self.BASE_LABEL
+        self.prefetch, self.many = prefetch, self._runner(loop.setup)
         self.first, self.last = first, last
+        self._pre_quarantine = {}  # worker -> its schedule column before
         self.ranges = chunk_ranges(first, last, cfg.steps_per_call,
                                    cfg.eval_freq)
         self.wire_segments = int(cfg.wire_segments)
@@ -55,9 +63,6 @@ class _Client:
             out.update(stats())
         return out
 
-    def dispatch(self, state, chunk):
-        return self.many(state, chunk)
-
     def boundary(self, end, state):
         self.loop.boundary(end)
 
@@ -68,6 +73,60 @@ class _Client:
         if self.prefetch is not None:
             self.prefetch.close()
 
+    # ---- the autopilot's actuation (control/autopilot.py): the loop's
+    # ``straggle_schedule`` is the presence table the autopilot writes ----
+    def dispatch(self, state, chunk):
+        """The chunk through the current regime's runner; a failure (a new
+        regime's capture among them) names the regime's label."""
+        try:
+            return self.many(state, chunk)
+        except RuntimeError as e:
+            raise RuntimeError(f"{self.label}: {e}") from e
+
+    def switch_regime(self, setup, label):
+        """Dispatch ``setup``'s chunks from now on: its runner, its columns
+        and its record order."""
+        self.setup, self.label = setup, label
+        self.many = self._runner(setup)
+        self._columns(setup)
+
+    def remake(self, chunk):
+        """``chunk`` made anew by the current setup from the host pieces it
+        was assembled from."""
+        return self.setup.make_chunk(*chunk.pieces)
+
+    def quarantine(self, worker, from_step):
+        """The worker's rows stop arriving from ``from_step`` on: erasures
+        at a known position, decoded around as a scheduled straggler's."""
+        sched = self.loop.straggle_schedule
+        self._pre_quarantine[worker] = sched[:, worker].copy()
+        sched[from_step:, worker] = True
+
+    def readmit(self, worker, from_step):
+        """The worker's schedule column before its quarantine, from
+        ``from_step`` on (the drops it would have had stay)."""
+        saved = self._pre_quarantine.pop(worker, None)
+        sched = self.loop.straggle_schedule
+        if saved is None:
+            sched[from_step:, worker] = False
+        else:
+            sched[from_step:, worker] = saved[from_step:len(sched)]
+
+    def presents(self, start, k):
+        """The chunk's presence rows as the schedule reads now (None when
+        every row arrives)."""
+        sched = self.loop.straggle_schedule
+        return None if sched is None else ~sched[start:start + k]
+
+    def extras(self, chunk):
+        """The chunk's host columns (the approx decode's bound and
+        recovered fraction) and, with a presence table, each step's
+        arrived rows."""
+        out = dict(chunk.host)
+        if self.loop.straggle_schedule is not None:
+            out["present"] = chunk.tensors["present"].sum(1).tolist()
+        return out
+
 
 class TrainerChunkClient(_Client):
     """The CNN Trainer (training/trainer.py): a chunk is the stacked
@@ -77,11 +136,12 @@ class TrainerChunkClient(_Client):
     BASE_LABEL = "train_many"
 
     def __init__(self, tr, prefetch, first: int, last: int):
-        super().__init__(tr, prefetch, tr.setup.train_many, first, last)
-        self.tr = self.loop = tr
-        self.setup = tr.setup
-        self.label = self.BASE_LABEL
-        self._pre_quarantine = {}  # worker -> its schedule column before
+        super().__init__(tr, prefetch, first, last)
+        self.tr = tr
+
+    @staticmethod
+    def _runner(setup):
+        return setup.train_many
 
     def assemble(self, i, ranges):
         start, k = ranges[i]
@@ -89,25 +149,9 @@ class TrainerChunkClient(_Client):
         with tr.tracer.span("gather", chunk_start=start, k=k):
             xs, ys = self.prefetch.get(
                 ranges[i], ranges[i + 1] if i + 1 < len(ranges) else None)
-            presents = (None if tr.straggle_schedule is None
-                        else ~tr.straggle_schedule[start:start + k])
             return self.setup.make_chunk(start, xs, ys,
                                          tr.adv_schedule[start:start + k],
-                                         presents)
-
-    def dispatch(self, state, chunk):
-        """The chunk through the current regime's runner; a failure (a new
-        regime's capture among them) names the regime's label."""
-        try:
-            return self.many(state, chunk)
-        except RuntimeError as e:
-            raise RuntimeError(f"{self.label}: {e}") from e
-
-    def extras(self, chunk):
-        out = dict(chunk.host)
-        if self.tr.straggle_schedule is not None:
-            out["present"] = chunk.tensors["present"].sum(1).tolist()
-        return out
+                                         self.presents(start, k))
 
     def should_log(self, step):
         return step % self.tr.cfg.log_every == 0 or step == 1
@@ -121,47 +165,26 @@ class TrainerChunkClient(_Client):
         return build_train_setup(cfg, tr.setup.device,
                                  dataset_name=tr.ds.name, live=tr.setup)
 
-    def switch_regime(self, setup, label):
-        """Dispatch ``setup``'s chunks from now on: its runner, its columns
-        and its record order."""
-        self.setup, self.label, self.many = setup, label, setup.train_many
-        self._columns(setup)
-
-    def remake(self, chunk):
-        """``chunk`` made anew by the current setup from the host pieces it
-        was assembled from."""
-        return self.setup.make_chunk(*chunk.pieces)
-
-    def quarantine(self, worker, from_step):
-        """The worker's rows stop arriving from ``from_step`` on: erasures
-        at a known position, decoded around as a scheduled straggler's."""
-        sched = self.tr.straggle_schedule
-        self._pre_quarantine[worker] = sched[:, worker].copy()
-        sched[from_step:, worker] = True
-
-    def readmit(self, worker, from_step):
-        """The worker's schedule column before its quarantine, from
-        ``from_step`` on (the drops it would have had stay)."""
-        saved = self._pre_quarantine.pop(worker, None)
-        sched = self.tr.straggle_schedule
-        if saved is None:
-            sched[from_step:, worker] = False
-        else:
-            sched[from_step:, worker] = saved[from_step:len(sched)]
-
 
 class TokenChunkClient(_Client):
     """The LM token loop (parallel/token_loop.py): a chunk is the stacked
     tokens (none when the device makes them, ``token_gen="device"``: then
-    no prefetcher either), the adversary masks and the step numbers of k
-    steps; an ``eval_freq`` boundary runs the held-out loss, then the
+    no prefetcher either), the adversary and presence masks and the step
+    numbers of k steps (and on the approx code the host solve's weights);
+    an ``eval_freq`` boundary runs the held-out loss, then the
     checkpoint."""
 
-    def __init__(self, loop, prefetch, first: int, last: int):
-        super().__init__(loop, prefetch, loop.setup.train_token_many, first,
-                         last)
-        self.loop, self.setup = loop, loop.setup
-        self.keep = ("step",) + loop.setup.metric_names + ("step_ms",)
+    BASE_LABEL = "train_token_many"
+
+    @staticmethod
+    def _runner(setup):
+        return setup.train_token_many
+
+    def _columns(self, setup) -> None:
+        super()._columns(setup)
+        # a written record keeps the LM schema's columns, as the eager
+        # loop writes them
+        self.keep = ("step",) + setup.metric_names + ("step_ms",)
 
     def assemble(self, i, ranges):
         start, k = ranges[i]
@@ -169,11 +192,17 @@ class TokenChunkClient(_Client):
             toks = None if self.prefetch is None else self.prefetch.get(
                 ranges[i], ranges[i + 1] if i + 1 < len(ranges) else None)
             return self.setup.make_chunk(
-                start, toks, self.loop.adv_schedule[start:start + k])
-
-    def extras(self, chunk):
-        return {}
+                start, toks, self.loop.adv_schedule[start:start + k],
+                self.presents(start, k))
 
     def should_log(self, step):
         return (step % self.loop.cfg.log_every == 0
                 or step in (self.first, self.last))
+
+    # ---- the autopilot's actuation (control/autopilot.py) ---------------
+    def build_setup(self, cfg):
+        """A regime's setup on the loop's live model and state."""
+        from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
+
+        setup = self.loop.setup
+        return build_sp_train_setup(cfg, setup.device, live=setup)

@@ -8,9 +8,8 @@ the tree topology (``topology="tree"``, ``coding/topology.py``: shared
 redundancy, global granularity), the f32 or the narrow bf16/int8 wire,
 whole or in segments (``wire_segments``), stragglers as a presence mask,
 and the baseline's seven robust rules (``aggregation.py``). The LM route
-runs the cyclic code (flat or tree) and the baseline codes with every row
-present on the f32 wire (``config.validate``); the repetition code is the
-CNN step's (``training/step.py``). Both steps run the seeded fault plan's
+(``aggregate_flat_grads``) runs all of these but the repetition code,
+which is the CNN step's alone (``training/step.py``). Both steps run the seeded fault plan's
 in-step events on the per-worker gradients (``resilience/faults.py``)
 before anything reads them, and end in the step guard
 (``resilience/guards.py``): the update gated by the step's verdict.
@@ -229,24 +228,34 @@ def approx_aggregate(code, grads: torch.Tensor, vn_pres: torch.Tensor,
 def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
                          code, rand_factor, noise=None, step=None,
                          present: Optional[torch.Tensor] = None,
-                         leaf_offsets=None, plan=None):
-    """Per-worker flat gradients -> ``(aggregated (d,), health)``.
+                         leaf_offsets=None, plan=None,
+                         vn_pres: Optional[torch.Tensor] = None):
+    """Per-worker flat gradients -> ``(aggregated (d,), health)``, the LM
+    route's tail (the reference's ``aggregate_flat_grads``).
 
     cyclic: ``grads`` (n, hat_s, d) are the true redundant lanes
     (``simulate``: each worker encodes its own rows), (n, d) one copy per
     batch (``shared``: rows formed algebraically); the adversary injects on
-    the encoded rows and the decode recovers the exact mean — globally, or
-    over the cuts of :func:`decode_bounds` (``leaf_offsets``: the leaf
-    boundaries, which layer granularity needs). ``health``: ``residual``,
-    ``flagged``, ``loud`` and ``honest``, folded across segments.
-    Otherwise the adversary injects on the raw rows and the configured
-    robust rule aggregates them over the ``present`` rows; ``health`` is
-    None. ``noise``: the ``random`` attack's explicit draws, else they are
-    drawn on the device from ``step`` (the step's int32 tensor;
-    attacks.py). ``plan``: the fault plan's in-step events on the device
-    (``resilience/faults.plan_tensors``), applied to ``grads`` first; None
-    adds nothing."""
+    the encoded rows, the absent rows (``present`` False) are zero-filled,
+    erasures at known positions, the pair crosses the wire
+    (``cfg.wire_dtype``: f32, or the narrow bf16 / int8 buffers with their
+    flag threshold and locator λ) and the decode recovers the exact mean —
+    globally, or over the cuts of :func:`decode_bounds` (``leaf_offsets``:
+    the leaf boundaries, which layer granularity needs). ``health``:
+    ``residual``, ``flagged``, ``loud`` and ``honest``, folded across
+    segments. approx: :func:`approx_aggregate` with the host solve's
+    ``vn_pres`` (2, n) on the device; ``health``: ``residual`` and
+    ``bad_rows``. Otherwise the adversary injects on the raw rows and the
+    configured robust rule aggregates them over the ``present`` rows;
+    ``health`` is None. ``noise``: the ``random`` attack's explicit draws,
+    else they are drawn on the device from ``step`` (the step's int32
+    tensor; attacks.py). ``plan``: the fault plan's in-step events on the
+    device (``resilience/faults.plan_tensors``), applied to ``grads``
+    first; None adds nothing."""
     grads = faults.corrupt_grads(grads, plan, step)
+    if cfg.approach == "approx":
+        return approx_aggregate(code, grads, vn_pres, present is not None,
+                                cfg, step, present, adv_mask)
     if cfg.approach == "cyclic":
         # the ingest check before the encode, which smears a NaN over
         # every codeword: row k is still worker k here
@@ -259,12 +268,19 @@ def aggregate_flat_grads(grads: torch.Tensor, adv_mask: torch.Tensor, cfg,
             enc_re, enc_im = attacks.inject_cyclic(
                 enc_re, enc_im, adv_mask, cfg.err_mode, cfg.adversarial,
                 noise, step, cfg.seed, cfg.num_adversaries)
+            if present is not None:
+                pw = present[:, None].to(enc_re.dtype)
+                enc_re, enc_im = enc_re * pw, enc_im * pw
+            enc_re, enc_im, wire = numerics.narrow_wire_pair(cfg, enc_re,
+                                                             enc_im, step)
         bounds = decode_bounds(cfg, enc_re.shape[1], leaf_offsets)
         rel_tol, lam = cyclic_wire_params(cfg, code)
         with phase("draco_decode"):
             agg, honest, health = cyclic_decode(cfg, code, enc_re, enc_im,
                                                 rand_factor, bounds,
-                                                rel_tol=rel_tol, lam=lam)
+                                                present=present,
+                                                rel_tol=rel_tol, lam=lam,
+                                                wire=wire)
         health["honest"] = honest
         health["bad_rows"] = bad_rows
         if numerics.watch_enabled(cfg):

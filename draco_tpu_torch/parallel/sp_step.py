@@ -6,9 +6,13 @@ lane of ``torch.func.vmap(grad_and_value(...))`` on one device: n lanes
 (the baseline and ``shared``) or n·(2s+1) lanes (``simulate``: worker i
 computes its 2s+1 batch rows ``tokens[batch_ids[i]]``). The flat gradients
 (``params.flatten``, the reference's leaf order and layout) go through the
-shared tail of ``parallel/common.py``: inject, encode and decode, or
-aggregate, then the configuration's optimizer
-(``optim.build_optimizer_from_cfg``).
+shared tail of ``parallel/common.py``: inject, encode, zero-fill the
+absent rows, cross the wire (f32, or the narrow bf16 / int8 buffers) and
+decode — the cyclic code, the approx code (its weights solved on the host
+for the step's arrival set), each flat or as a tree — or aggregate by a
+robust rule over the present rows, then the configuration's optimizer
+(``optim.build_optimizer_from_cfg``). The loss is the mean over the
+present workers: a straggler's loss was never observed.
 
 The loss: position t predicts token t+1; the last position has no target
 and is masked, and the sum is divided by B·(T−1). (The reference's shard
@@ -25,11 +29,15 @@ leaf), and the decode's random projection its in-graph vector
 (``rng.projection_factors``), drawn once at setup on the device.
 
 As in ``training/step.py``, ``step_body`` runs the step on its host inputs
-(tokens, the adversary mask and the int32 step number) once they are on
-the device: the eager ``train_step`` uploads them, ``train_token_many``
-(the counterpart of the reference's ``train_token_many`` at sp=1) runs a
-chunk of k ≤ K steps from the chunk's staging buffers
-(``training/chunk_graph.py``). The fault plan's in-step events
+(the tokens and ``training/step.coded_inputs``: the adversary mask — none
+on the approx code — the presence mask when a row is absent, the int32
+step number, and on the approx code the host solve's v/n and presence and,
+under the step guard, its bound) once they are on the device; the approx
+decode's ``decode_residual_bound`` and ``recovered_fraction`` are host
+columns (a chunk's ``Chunk.host``). The eager ``train_step`` uploads the
+inputs, ``train_token_many`` (the counterpart of the reference's
+``train_token_many`` at sp=1) runs a chunk of k ≤ K steps from the
+chunk's staging buffers (``training/chunk_graph.py``). The fault plan's in-step events
 (``resilience/faults.py``) corrupt the lanes' gradients on the device from
 the staged step, and the step guard gates the update
 (``parallel/common.finish_flat_step``). With ``cfg.token_gen="device"`` the host
@@ -70,8 +78,13 @@ from draco_tpu_torch.obs.tracer import phase
 from draco_tpu_torch.ops import draws
 from draco_tpu_torch.resilience import faults
 from draco_tpu_torch.runtime import resolve_device, upload
-from draco_tpu_torch.training.chunk_graph import Chunk
-from draco_tpu_torch.training.step import TrainState, chunk_runner
+from draco_tpu_torch.training.step import (
+    APPROX_HOST_NAMES,
+    TrainState,
+    chunk_runner,
+    coded_inputs,
+    stack_chunk,
+)
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -80,10 +93,11 @@ class SPTrainSetup(NamedTuple):
     model: TransformerLM
     state: TrainState
     # (state, tokens (n, B, T) or None (token_gen="device"), adv_mask (n,),
-    #  noise=None) -> (state, metrics dict of 0-d tensors)
+    #  present=None, noise=None) -> (state, metrics dict of 0-d tensors)
     train_step: Any
     eval_step: Any  # (params, tokens (n, B, T)) -> mean loss (0-d tensor)
-    code: Any  # CyclicCode | TreeCode (topology="tree") | None
+    # CyclicCode | ApproxCode | TreeCode (topology="tree") | None
+    code: Any
     layout: params_mod.Layout
     dim: int
     metric_names: tuple
@@ -92,10 +106,11 @@ class SPTrainSetup(NamedTuple):
     # (state, inputs on the device, noise=None) -> the
     # metrics of block_names (0-d device tensors)
     step_body: Any
-    # metric_names, and honest_located on the cyclic code
+    # metric_names but the approx code's host columns, and honest_located
+    # on the cyclic code
     block_names: tuple
     # (start, tokens (k, n, B, T) or None (token_gen="device"), masks
-    #  (k, n)) -> Chunk
+    #  (k, n), presents (k, n) or None) -> Chunk
     make_chunk: Any
     # (state, chunk) -> (state, (k, len(block_names)) metrics on the device)
     train_token_many: Any
@@ -134,12 +149,21 @@ def token_fn_from_cfg(cfg: TrainConfig):
 
 
 def build_sp_train_setup(cfg: TrainConfig, device=None,
-                         init: Optional[dict] = None) -> SPTrainSetup:
+                         init: Optional[dict] = None,
+                         live: Optional[SPTrainSetup] = None
+                         ) -> SPTrainSetup:
     """Model, state and the step for ``cfg`` on ``device`` (default cuda).
 
     ``init``: optional parameters keyed by torch name (``params.from_jax``
     of the reference's); otherwise the reference's ``model.init`` at
-    ``cfg.seed``, drawn on the device."""
+    ``cfg.seed``, drawn on the device.
+
+    ``live``: a running setup whose model and ``TrainState`` this one takes
+    as they are (an autopilot regime, ``control/autopilot.py``, as
+    ``training/step.build_train_setup(live=)``): its step and its chunk's
+    graph read and update the same parameter, optimizer and count tensors,
+    so switching between the two copies no weights. ``cfg`` must keep the
+    live setup's model and worker count."""
     cfg.validate()
     if cfg.network != LM_NETWORK:
         raise ValueError(f"the LM step runs network={LM_NETWORK}, got "
@@ -147,22 +171,31 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     dev = resolve_device(device)
     n, T = cfg.num_workers, cfg.seq_len
 
-    model = TransformerLM(vocab=cfg.vocab, dim=cfg.model_dim,
-                          heads=cfg.model_heads, layers=cfg.model_layers,
-                          attn_fn=attn_impl_fn(cfg),
-                          dtype=COMPUTE_DTYPES[cfg.compute_dtype]).to(dev)
-    with torch.no_grad():
-        if init is None:
-            init_params(model, cfg.seed)
-        else:
-            for name, p in model.named_parameters():
-                p.copy_(init[name])
-    params = {k: p.detach() for k, p in model.named_parameters()}
-    layout = params_mod.layout(model)
+    if live is not None:
+        if init is not None:
+            raise ValueError("build_sp_train_setup: init and live exclude "
+                             "each other (a live setup's state is the state)")
+        if live.device != dev:
+            raise ValueError(f"build_sp_train_setup: the live setup runs on "
+                             f"{live.device}, not {dev}")
+        model, state, layout = live.model, live.state, live.layout
+    else:
+        model = TransformerLM(vocab=cfg.vocab, dim=cfg.model_dim,
+                              heads=cfg.model_heads, layers=cfg.model_layers,
+                              attn_fn=attn_impl_fn(cfg),
+                              dtype=COMPUTE_DTYPES[cfg.compute_dtype]).to(dev)
+        with torch.no_grad():
+            if init is None:
+                init_params(model, cfg.seed)
+            else:
+                for name, p in model.named_parameters():
+                    p.copy_(init[name])
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        layout = params_mod.layout(model)
+        state = TrainState(params=params, stats={},
+                           opt=optim.build_optimizer_from_cfg(cfg))
+        state.opt.init(params)
     dim = layout.dim
-    state = TrainState(params=params, stats={},
-                       opt=optim.build_optimizer_from_cfg(cfg))
-    state.opt.init(params)
 
     # position t predicts t+1; the last position has no target
     pos_valid = (torch.arange(T, device=dev) < T - 1).to(torch.float32)
@@ -186,13 +219,15 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
 
     code = build_code_from_cfg(cfg)
     decode_impl = resolve_decode_impl(cfg.decode_impl, dev)
-    simulate = cfg.approach == "cyclic" and cfg.redundancy == "simulate"
+    cyclic = cfg.approach == "cyclic"
+    approx = cfg.approach == "approx"
+    simulate = cyclic and cfg.redundancy == "simulate"
     batch_ids = (torch.as_tensor(code.batch_ids, device=dev).long()
                  if simulate else None)
     # the reference's projection, the same vector every step: drawn once,
-    # on the device
+    # on the device (the approx decode is projection-free)
     projection = None
-    if code is not None:
+    if cyclic:
         projection = rng_mod.projection_factors(cfg.seed, dim, dev)
         # the segmented decode's plan goes to the card here, before any
         # capture
@@ -202,31 +237,40 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     # the fault plan's in-step events, on the card from setup (None: none)
     plan = faults.plan_tensors(faults.plan_from_cfg(cfg), dev)
     names = token_metric_names(cfg)
+    # the approx decode's bound and recovered fraction come from the host
+    # solve: they go into the records beside the block, not through it
+    host_names = APPROX_HOST_NAMES if approx else ()
     # not a column of the reference's LM schema: for callers that check the
     # honest set (n − 2s rows on every clean decode)
-    block_names = names + (("honest_located",) if code is not None else ())
+    honest = ("honest_located",) if cyclic else ()
+    block_names = tuple(k for k in names if k not in host_names) + honest
+    # the guard's approx certificate reads the host solve's bound, staged
+    # beside v/n (coded_inputs)
+    stage_bound = approx and cfg.step_guard == "on"
 
     token_fn = token_fn_from_cfg(cfg)
 
-    def step_inputs(step, tokens, masks):
-        """A step's (or a chunk's, with leading k axes) host inputs: the
-        tokens unless the device makes them, the masks, the step."""
-        out = {"adv": torch.as_tensor(masks),
-               "step": torch.as_tensor(step, dtype=torch.int32)}
-        if token_fn is None:
-            out["tokens"] = torch.as_tensor(tokens)
-        return out
+    def host_tokens(tokens) -> dict:
+        """The tokens among the host inputs, unless the device makes
+        them."""
+        return {} if token_fn is not None else {
+            "tokens": torch.as_tensor(tokens)}
 
-    def make_chunk(start, tokens, masks):
-        k = len(masks)
-        return Chunk(start, k, step_inputs(np.arange(start, start + k),
-                                           tokens, masks))
+    def make_chunk(start, tokens, masks, presents=None):
+        per = [coded_inputs(cfg, code, start + i, masks[i],
+                            None if presents is None else presents[i])
+               for i in range(len(masks))]
+        return stack_chunk(start, per, host_tokens(tokens),
+                           (start, tokens, masks, presents))
 
     def step_body(state, inputs, noise=None):
         step = inputs["step"]
         toks = (inputs["tokens"] if token_fn is None
                 else token_fn(step)).long()
-        mask = inputs["adv"]
+        pres = inputs.get("present")
+        # no adversary on the approx code: the schedule's row is all False
+        mask = (inputs["adv"] if not approx
+                else torch.zeros((n,), dtype=torch.bool, device=dev))
         if simulate:
             hat_s = code.hat_s
             grads, losses = lane_grads(state.params,
@@ -236,25 +280,38 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
         else:
             grads, losses = lane_grads(state.params, toks)
         agg, health = aggregate_flat_grads(grads, mask, cfg, code, projection,
-                                           noise, step,
+                                           noise, step, present=pres,
                                            leaf_offsets=layout.offsets,
-                                           plan=plan)
+                                           plan=plan,
+                                           vn_pres=inputs.get("vn_pres"))
         del grads
-        guard_cols = finish_flat_step(cfg, state, agg, health, layout)
-        metrics = {"loss": present_mean(losses)}
-        metrics.update(decode_health_metrics(health, mask))
+        # the approx certificate: the residual within the host solve's bound
+        guard_health = ({"residual": health["residual"],
+                         "bound": inputs["bound"]} if stage_bound
+                        else health)
+        guard_cols = finish_flat_step(cfg, state, agg, guard_health, layout,
+                                      pres)
+        # a straggler's loss was never observed
+        metrics = {"loss": present_mean(losses, pres)}
+        metrics.update(decode_health_metrics(health, mask, pres))
         metrics.update(guard_cols)
-        if health is not None:
+        if cyclic:
             metrics["honest_located"] = health["honest"].sum()
         return metrics
 
-    def train_step(state, tokens, adv_mask, noise=None):
+    def train_step(state, tokens, adv_mask, present=None, noise=None):
+        """One step; ``present``: the host's (n,) bool presence mask
+        (False = the worker's rows never arrive), None when all arrive."""
+        inputs, host = coded_inputs(cfg, code, state.step, adv_mask,
+                                    present)
+        inputs.update(host_tokens(tokens))
         # host inputs by pinned asynchronous copies: no synchronising call
-        inputs = step_inputs(state.step, tokens, adv_mask)
         metrics = step_body(state, {k: upload(v, dev)
                                     for k, v in inputs.items()}, noise)
         state.step += 1
-        return state, metrics
+        metrics.update(host)
+        # the host columns take their places in the schema's order
+        return state, {k: metrics[k] for k in names + honest}
 
     @torch.no_grad()
     def eval_step(p, tokens):
@@ -267,8 +324,8 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     return SPTrainSetup(model=model, state=state, train_step=train_step,
                         eval_step=eval_step, code=code, layout=layout,
                         dim=dim, metric_names=names, device=dev,
-                        decode_impl=decode_impl, step_body=step_body, block_names=block_names,
-                        make_chunk=make_chunk,
+                        decode_impl=decode_impl, step_body=step_body,
+                        block_names=block_names, make_chunk=make_chunk,
                         train_token_many=train_token_many)
 
 

@@ -2,7 +2,10 @@
 call, or K-step chunks at ``steps_per_call`` K > 1.
 
 Step t (1-based) trains on ``synthetic_text(seed, t, ...)`` with row t of
-the seeded adversary schedule. The first, the last and every
+the seeded adversary schedule and, under ``straggle_mode="drop"`` (or the
+fault plan's ``straggle`` events), the negation of row t of the straggler
+schedule as its presence mask (``LoopRunState.straggle_table``, the
+Trainer's table). The first, the last and every
 ``log_every``-th record go to ``<train_dir>/metrics.jsonl`` under the
 reference's column names, and every ``eval_freq``-th step adds the
 held-out loss on ``synthetic_text(seed + 1, 0, ...)`` as ``{"step",
@@ -16,8 +19,8 @@ stops at the next step or chunk end with a checkpoint
 (``training/run_state.py``).
 
 The eager loop (K = 1) synchronises each step's metrics to the host. The
-chunked loop (K > 1, ``_run_chunked``, the reference's
-``_run_chunked`` at sp=1) runs chunks of up to K steps
+chunked loop (K > 1, or any K under the autopilot; ``_run_chunked``, the
+reference's ``_run_chunked`` at sp=1) runs chunks of up to K steps
 (``batching.chunk_ranges``, snapped so every ``eval_freq`` multiple ends
 a chunk) through ``setup.train_token_many`` — on the card one captured
 CUDA graph replayed — driven by ``control.engine.ChunkedEngine``: the next
@@ -44,10 +47,20 @@ to the host as their exact integer words (``obs/forensics.record_value``).
 With ``incident_watch="on"`` the heartbeat feeds the incident engine
 (``obs/incidents.make_engine``: ``incidents.jsonl``, the status.json
 incidents block). The seeded fault plan (``resilience/faults.py``): its
-over_budget and adversary events overlay the adversary schedule (each
-time it is made, past ``max_steps`` on a resume too), its host events
-wrap the host token function (retried by the supervised prefetcher, or
-the eager loop's supervised direct source) and come with the stop polls.
+over_budget and adversary events overlay the adversary schedule and its
+straggle events the straggler schedule (each time they are made, past
+``max_steps`` on a resume too), its host events wrap the host token
+function (retried by the supervised prefetcher, or the eager loop's
+supervised direct source) and come with the stop polls.
+
+With ``cfg.autopilot="on"`` (``control/autopilot.py``, through
+``control/clients.TokenChunkClient``) the loop runs chunked, at K = 1 in
+chunks of one step (the reference runs its chunked driver there with
+device tokens, which ``config.validate`` then admits), and its straggler
+table exists from the start, all present when the configuration drops
+none: the autopilot quarantines by writing it. The autopilot is built
+once (``_make_autopilot``) and kept across ``run()`` calls; a longer
+table gets its active quarantines stamped on again.
 """
 
 from __future__ import annotations
@@ -90,13 +103,15 @@ class TokenLoop(LoopRunState):
             self.restore(cfg.checkpoint_step)
 
     def _ensure_schedule(self, n_steps: int) -> None:
-        """The adversary table through step ``n_steps`` (a resumed run goes
-        past ``max_steps``; the rows already used stay as they were)."""
+        """The adversary and straggler tables through step ``n_steps`` (a
+        resumed run goes past ``max_steps``; the rows already used stay as
+        they were)."""
         if n_steps > self._sched_steps:
             cfg = self.cfg
             self.adv_schedule = self.overlay_adversaries(
                 drng.adversary_schedule(cfg.seed, n_steps, cfg.num_workers,
                                         cfg.num_adversaries))
+            self.straggle_schedule = self.straggle_table(n_steps)
             self._sched_steps = n_steps
 
     def train_tokens(self, step: int):
@@ -108,11 +123,14 @@ class TokenLoop(LoopRunState):
         return self.cfg.token_gen == "device"
 
     def inputs(self, step: int) -> tuple:
-        """The host inputs of 1-based ``step``: ``(tokens, adv_mask)`` as
-        ``setup.train_step`` takes them; no tokens (None) when the device
-        makes them."""
+        """The host inputs of 1-based ``step``: ``(tokens, adv_mask,
+        present)`` as ``setup.train_step`` takes them; no tokens (None)
+        when the device makes them, no presence mask (None) when every row
+        arrives."""
         toks = None if self.device_tokens else self._eager_tokens(step)
-        return toks, self.adv_schedule[step]
+        present = (None if self.straggle_schedule is None
+                   else ~self.straggle_schedule[step])
+        return toks, self.adv_schedule[step], present
 
     def step(self) -> dict:
         """Run the next step eagerly; returns its metrics as floats, with
@@ -124,14 +142,17 @@ class TokenLoop(LoopRunState):
                              f"{self._sched_steps} steps (max_steps)")
         tracer = self.tracer
         with tracer.span("gather"):
-            toks, adv_mask = self.inputs(step)
+            toks, adv_mask, present = self.inputs(step)
         t0 = time.perf_counter()
         with tracer.span("dispatch"), tracer.activate():
             self.state, metrics = self.setup.train_step(self.state, toks,
-                                                        adv_mask)
+                                                        adv_mask, present)
         # .item() waits for the device: the step's work is all on one stream
         with tracer.span("sync"):
             out = {k: record_value(k, v) for k, v in metrics.items()}
+        if present is not None:
+            # the arrived rows (not a column of the LM's written record)
+            out["present"] = float(present.sum())
         out["step_ms"] = (time.perf_counter() - t0) * 1e3
         return {"step": step, **out}
 
@@ -167,7 +188,8 @@ class TokenLoop(LoopRunState):
         engine = ChunkedEngine(client, eval_freq=self.cfg.eval_freq,
                                tracer=self.tracer, writer=self.writer,
                                stop=self._stop, heartbeat=self.heartbeat,
-                               total_end=last_step, injector=self.injector)
+                               total_end=last_step, injector=self.injector,
+                               autopilot=self._make_autopilot())
         self.state, last = engine.run(self.state, client.ranges)
         return last
 
@@ -201,8 +223,12 @@ class TokenLoop(LoopRunState):
         last_step = cfg.max_steps if max_steps is None else max_steps
         self._ensure_schedule(last_step)
 
+        # under the autopilot at K=1 too (device tokens, which validate()
+        # admits there): a chunk boundary is its only actuation point
+        chunked = cfg.steps_per_call > 1 or cfg.autopilot == "on"
+
         def body():
-            last = (self._run_chunked(last_step) if cfg.steps_per_call > 1
+            last = (self._run_chunked(last_step) if chunked
                     else self._run_eager(last_step))
             if not cfg.eval_freq and self.stopped_step is None:
                 # no boundary saved anything: save the last state

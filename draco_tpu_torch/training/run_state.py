@@ -26,9 +26,14 @@ stop.
 ``init_resilience()`` sets up what both loops share of the fault plan
 (``resilience/faults.py``): the parsed plan, its host injector (whose
 ``sigterm`` events the stop polls deliver) and the overlays of the
-adversary schedule; ``eager_source(fn)`` the eager loop's data function
-wrapped by the injector and supervised (a ``prefetch_crash`` is retried),
-``fn`` itself without host events.
+adversary schedule; ``straggle_table(n_steps)`` the straggler schedule
+with the plan's straggle events on it (``faults.apply_straggle``) — under
+``autopilot="on"`` an all-present one when the configuration drops
+none, with the autopilot's active quarantines stamped on again;
+``_make_autopilot()`` the run's autopilot (``control/autopilot.py``), built
+once and kept across ``run()`` calls; ``eager_source(fn)`` the eager
+loop's data function wrapped by the injector and supervised (a
+``prefetch_crash`` is retried), ``fn`` itself without host events.
 
 The loop provides ``cfg``, ``setup`` (its ``layout``), ``state``,
 ``tracer``, ``writer``, ``heartbeat`` (``obs/heartbeat.RunHeartbeat``)
@@ -41,6 +46,9 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
+
+from draco_tpu_torch import rng as drng
 from draco_tpu_torch.resilience import faults
 from draco_tpu_torch.resilience.supervisor import (
     DirectSource,
@@ -58,6 +66,7 @@ class LoopRunState:
     stopped_step: Optional[int] = None
     fault_plan: Optional[faults.FaultPlan] = None
     injector = faults.NULL_INJECTOR
+    _autopilot = None  # control/autopilot.Autopilot, when on
 
     def init_resilience(self) -> None:
         """The fault plan of ``cfg.fault_spec`` (None without one) and its
@@ -72,6 +81,39 @@ class LoopRunState:
             faults.apply_over_budget(adv, self.fault_plan,
                                      self.cfg.worker_fail),
             self.fault_plan)
+
+    def straggle_table(self, n_steps: int) -> Optional[np.ndarray]:
+        """The (n_steps + 1, n) straggler table (True = absent), or None
+        when every row arrives. Each row takes a fixed draw, so a longer
+        table keeps the rows already used. Under ``autopilot="on"`` the
+        table exists from the start, all present when the configuration
+        drops none: the autopilot quarantines a worker by writing it, and
+        a graph captured without a ``present`` staging buffer could never
+        gain one."""
+        cfg = self.cfg
+        table = faults.apply_straggle(
+            drng.straggler_schedule(cfg.seed, n_steps, cfg.num_workers,
+                                    cfg.straggle_count)
+            if cfg.straggle_mode == "drop" and cfg.straggle_count > 0
+            else None, self.fault_plan, cfg.num_workers, n_steps)
+        if cfg.autopilot == "on":
+            if table is None:
+                table = np.zeros((n_steps + 1, cfg.num_workers), dtype=bool)
+            if self._autopilot is not None:
+                # a new table must not readmit a worker still held out
+                self._autopilot.reapply_quarantines(table)
+        return table
+
+    def _make_autopilot(self):
+        """The run's autopilot (None unless ``cfg.autopilot="on"``), built
+        once: its regime, its cached regime setups and its quarantines
+        outlive a ``run()``."""
+        if self._autopilot is None and self.cfg.autopilot == "on":
+            from draco_tpu_torch.control.autopilot import make_autopilot
+
+            self._autopilot = make_autopilot(self.cfg, self.heartbeat,
+                                             dim=self.setup.dim)
+        return self._autopilot
 
     def eager_source(self, fn: Callable):
         """``step -> data`` for the eager loop: ``fn`` wrapped by the

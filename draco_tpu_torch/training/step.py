@@ -270,6 +270,43 @@ def vote_lanes(device: torch.device):
             else contextlib.nullcontext())
 
 
+def coded_inputs(cfg: TrainConfig, code, step: int, adv_mask,
+                 present=None) -> tuple:
+    """One step's host inputs other than its batch, and its host columns,
+    for the CNN step and the LM's alike: the step number (every device
+    draw reads it), the adversary mask (none on the approx code, which
+    injects none: stragglers are its whole fault model, config.validate),
+    the presence mask when a row is absent; on the approx code the host
+    solve's [v/n, presence] and, under the step guard, its bound (the
+    certificate reads it), with ``decode_residual_bound`` and
+    ``recovered_fraction`` as host columns."""
+    out, host = {"step": torch.tensor(step, dtype=torch.int32)}, {}
+    if cfg.approach == "approx":
+        _, out["vn_pres"], solved = host_solve(code, present)
+        host = {"decode_residual_bound": solved["bound"],
+                "recovered_fraction": solved["recovered_fraction"]}
+        if cfg.step_guard == "on":
+            out["bound"] = solved["bound"].to(torch.float32).reshape(())
+    else:
+        out["adv"] = torch.as_tensor(adv_mask)
+    if present is not None:
+        out["present"] = torch.as_tensor(present).cpu().bool()
+    return out, host
+
+
+def stack_chunk(start: int, per: list, whole: dict, pieces: tuple) -> Chunk:
+    """A ``Chunk`` of ``len(per)`` steps from each step's ``coded_inputs``
+    ``per`` (stacked) and the inputs already stacked over the chunk
+    (``whole``: the batch, the tokens); the host columns read off their
+    host tensors without an op (no would-be sync in the lint)."""
+    return Chunk(start, len(per),
+                 {**whole, **{name: torch.stack([p[0][name] for p in per])
+                              for name in per[0][0]}},
+                 {name: [float(p[1][name].tolist()) for p in per]
+                  for name in per[0][1]},
+                 pieces)
+
+
 def metrics_row(metrics: dict, names: tuple) -> torch.Tensor:
     """A step's metrics as one float32 row in ``names`` order."""
     return torch.stack([metrics[k].to(torch.float32) for k in names])
@@ -391,44 +428,17 @@ def build_train_setup(cfg: TrainConfig, device=None,
     # batch row
     key_div = cfg.group_size if vote else 1
 
-    def step_inputs(step, adv_mask, present):
-        """The host inputs of one step other than its batch, and its host
-        columns. The step number is staged beside the masks: the device
-        draws (augmentation, dropout, the vote's salts, the random attack,
-        stochastic rounding) read it there."""
-        out, host = {"step": torch.tensor(step, dtype=torch.int32)}, {}
-        if cfg.approach == "approx":
-            # no adversary injects: stragglers are this code's whole fault
-            # model (config.validate)
-            _, out["vn_pres"], solved = host_solve(code, present)
-            host = {"decode_residual_bound": solved["bound"],
-                    "recovered_fraction": solved["recovered_fraction"]}
-            if stage_bound:
-                out["bound"] = solved["bound"].to(torch.float32).reshape(())
-        else:
-            out["adv"] = torch.as_tensor(adv_mask)
-        if present is not None:
-            out["present"] = torch.as_tensor(present).cpu().bool()
-        return out, host
-
     def host_inputs(step, x, y, adv_mask, present=None):
-        out, host = step_inputs(step, adv_mask, present)
+        out, host = coded_inputs(cfg, code, step, adv_mask, present)
         return {"x": torch.as_tensor(x), "y": torch.as_tensor(y), **out}, host
 
     def make_chunk(start, xs, ys, masks, presents=None):
-        k = len(xs)
-        per = [step_inputs(start + i, masks[i],
-                           None if presents is None else presents[i])
-               for i in range(k)]
-        return Chunk(start, k,
-                     {"x": torch.as_tensor(xs), "y": torch.as_tensor(ys),
-                      **{name: torch.stack([p[0][name] for p in per])
-                         for name in per[0][0]}},
-                     # the host columns read off their host tensors
-                     # without an op (no would-be sync in the lint)
-                     {name: [float(p[1][name].tolist()) for p in per]
-                      for name in host_names},
-                     (start, xs, ys, masks, presents))
+        per = [coded_inputs(cfg, code, start + i, masks[i],
+                            None if presents is None else presents[i])
+               for i in range(len(xs))]
+        return stack_chunk(start, per, {"x": torch.as_tensor(xs),
+                                        "y": torch.as_tensor(ys)},
+                           (start, xs, ys, masks, presents))
 
     def batch(inputs):
         """The step's (n, B, ...) images, augmented, int64 labels and

@@ -72,8 +72,6 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-import numpy as np
-
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching
@@ -82,7 +80,6 @@ from draco_tpu_torch.obs import incidents, numerics
 from draco_tpu_torch.obs.forensics import record_value
 from draco_tpu_torch.obs.heartbeat import RunHeartbeat
 from draco_tpu_torch.obs.tracer import make_tracer
-from draco_tpu_torch.resilience import faults
 from draco_tpu_torch.resilience.supervisor import shielded
 from draco_tpu_torch.runtime import resolve_device
 from draco_tpu_torch.training.evaluator import masked_full_split_eval
@@ -112,7 +109,6 @@ class Trainer(LoopRunState):
         self._eager_batch = self.eager_source(self.batch)
         self.group_seeds = drng.group_seeds(cfg.seed, max(cfg.num_groups, 1))
         self._sched_steps = -1
-        self._autopilot = None  # control/autopilot.Autopilot, when on
         self._ensure_schedules(cfg.max_steps)
         self._prefetch = None  # the running chunk client's prefetcher
         if cfg.checkpoint_step:
@@ -127,19 +123,7 @@ class Trainer(LoopRunState):
         cfg = self.cfg
         self.adv_schedule = self.overlay_adversaries(drng.adversary_schedule(
             cfg.seed, n_steps, cfg.num_workers, cfg.num_adversaries))
-        self.straggle_schedule = faults.apply_straggle(
-            drng.straggler_schedule(cfg.seed, n_steps, cfg.num_workers,
-                                    cfg.straggle_count)
-            if cfg.straggle_mode == "drop" and cfg.straggle_count > 0
-            else None, self.fault_plan, cfg.num_workers, n_steps)
-        if cfg.autopilot == "on":
-            if self.straggle_schedule is None:
-                # the autopilot's quarantine writes this table
-                self.straggle_schedule = np.zeros(
-                    (n_steps + 1, cfg.num_workers), dtype=bool)
-            if self._autopilot is not None:
-                # a new table must not readmit a worker still held out
-                self._autopilot.reapply_quarantines(self.straggle_schedule)
+        self.straggle_schedule = self.straggle_table(n_steps)
         self._sched_steps = n_steps
 
     def batch(self, step: int):
@@ -246,16 +230,6 @@ class Trainer(LoopRunState):
                                autopilot=self._make_autopilot())
         self.state, last = engine.run(self.state, client.ranges)
         return last
-
-    def _make_autopilot(self):
-        """The run's autopilot (None unless ``cfg.autopilot="on"``), built
-        once: its regime and quarantines outlive a ``run()``."""
-        if self._autopilot is None and self.cfg.autopilot == "on":
-            from draco_tpu_torch.control.autopilot import make_autopilot
-
-            self._autopilot = make_autopilot(self.cfg, self.heartbeat,
-                                             dim=self.setup.dim)
-        return self._autopilot
 
     def _run_eager(self, last_step: int) -> dict:
         cfg, last = self.cfg, {}

@@ -164,17 +164,22 @@ LM = dict(network="TransformerLM", dataset="synthetic-text",
 
 # the vote's narrow wire and stochastic rounding run now: those two cases
 # (PORTED) validate and put a wire through the stochastic rounding; the
-# approx tree (TREE_PORTED) validates and builds its groups; the others are
-# still refused
+# approx tree (TREE_PORTED) validates and builds its groups; the LM's wire,
+# stragglers, approx code and robust rules over the present rows
+# (LM_PORTED) validate and run a step of the LM's loop at a small size;
+# the others are still refused
 PORTED = ("maj_vote", "stochastic_round")
 TREE_PORTED = ("approx_tree",)
+LM_PORTED = ("baseline_stragglers", "lm_wire", "lm_stragglers", "lm_approx")
+LM_SMALL = dict(batch_size=2, seq_len=16, vocab=32, model_dim=32,
+                model_heads=2, model_layers=1, max_steps=2)
 
 
 @pytest.mark.parametrize("base,override", [
     (dict(CYCLIC, num_workers=9), {"approach": "maj_vote",
                                    "wire_dtype": "bf16"}),
     (CYCLIC, {"shadow_round": "stochastic", "wire_dtype": "int8"}),
-    # the CNN baseline takes stragglers now; the LM's does not yet
+    # the CNN baseline takes stragglers, and the LM's
     (dict(LM, approach="baseline", mode="krum"),
      {"straggle_mode": "drop", "straggle_count": 1}),
     (LM, {"wire_dtype": "bf16"}),
@@ -189,6 +194,17 @@ TREE_PORTED = ("approx_tree",)
         "lm_stragglers", "lm_approx", "wire_segments", "approx_tree"])
 def test_still_not_ported(request, base, override):
     TrainConfig(**base).validate()
+    if request.node.callspec.id in LM_PORTED:
+        from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
+        from draco_tpu_torch.parallel.token_loop import TokenLoop
+
+        cfg = TrainConfig(**{**base, **override, **LM_SMALL}).validate()
+        loop = TokenLoop(build_sp_train_setup(cfg, "cpu"), cfg, quiet=True)
+        rec = loop.step()
+        assert np.isfinite(rec["loss"])
+        absent = cfg.straggle_count if cfg.straggle_mode == "drop" else 0
+        assert rec.get("present", cfg.num_workers) == cfg.num_workers - absent
+        return
     if request.node.callspec.id in TREE_PORTED:
         from draco_tpu_torch.parallel.common import build_code_from_cfg
 

@@ -51,7 +51,9 @@ LEGS = ("simulate", "geomedian", "shared", "approx", "approx_int8",
         "shared_tree_g8", "shared_int8_tree_g8", "approx_tree_g3",
         "lm_shared_flash_tree_g4", "simulate_watch_bf16",
         "approx_watch_int8_sr", "majvote_shadow_int8",
-        "lm_shared_flash_watch")
+        "lm_shared_flash_watch", "lm_approx_flash",
+        "lm_approx_int8_sr_flash", "lm_shared_int8_flash",
+        "lm_shared_flash_drop2")
 # the legs' workers at full width: presets rep-resnet18 and cyclic-vgg11
 # (n=9), single-lenet (n=1), the ResNet tree legs (n=16), the approx tree
 # (n=9), the others n=8

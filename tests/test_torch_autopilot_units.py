@@ -135,13 +135,21 @@ def test_validate_refuses_as_the_reference(i):
 
 
 def test_validate_refuses_the_lm_naming_item_9_1():
+    """The LM's autopilot (Queue A item 9.1's LM half, once refused here)
+    validates as the reference's does, at K=4 and at K=1 with device
+    tokens, and both refuse it at K=1 with host tokens, with the same
+    message."""
     fields = dict(network="TransformerLM", dataset="synthetic-text",
                   approach="cyclic", worker_fail=1, num_workers=8,
                   redundancy="shared", autopilot="on", incident_watch="on",
                   steps_per_call=4, train_dir="/tmp/x")
-    JaxConfig(**fields).validate()  # the reference runs it
-    with pytest.raises(ValueError, match="9.1"):
-        TrainConfig(**fields).validate()
+    for extra in ({}, {"steps_per_call": 1, "token_gen": "device"}):
+        JaxConfig(**{**fields, **extra}).validate()  # the reference runs it
+        TrainConfig(**{**fields, **extra}).validate()
+    k1 = dict(fields, steps_per_call=1)
+    mine, ref = error(TrainConfig(**k1).validate), error(
+        JaxConfig(**k1).validate)
+    assert mine[0] == ref[0] == "raises" and mine[1] == ref[1]
 
 
 # ---- the wire-dial stub scenario (the reference's tests/test_wire.py) ----

@@ -396,13 +396,14 @@ def test_validate_rejects_with_its_reason(route, fields, reason):
 def test_the_registry_lists_the_chunked_programs():
     assert [c.name for c in registry.collect_chunks()] == [
         "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote",
-        "chunk_lm_shared_flash_devgen", "chunk_lm_shared_flash_watch"]
+        "chunk_lm_shared_flash_devgen", "chunk_lm_shared_flash_watch",
+        "chunk_lm_approx_flash"]
     # the resilience legs' and the autopilot's chunks are selected beside
     # them
     assert {c.name for c in program_lint.select("chunk_")} == {
         "chunk_simulate", "chunk_lm_shared_flash", "chunk_majvote",
         "chunk_lm_shared_flash_devgen", "chunk_lm_shared_flash_watch",
-        "chunk_simulate_guard_nan", "chunk_approx_guard_watch",
+        "chunk_lm_approx_flash", "chunk_simulate_guard_nan", "chunk_approx_guard_watch",
         "chunk_shared_autopilot"}
     for c in registry.collect_chunks():
         cfg = c.config(full=True)
@@ -416,7 +417,8 @@ def test_the_registry_lists_the_chunked_programs():
 @pytest.mark.parametrize("name", ["chunk_simulate", "chunk_lm_shared_flash",
                                   "chunk_majvote",
                                   "chunk_lm_shared_flash_devgen",
-                                  "chunk_lm_shared_flash_watch"])
+                                  "chunk_lm_shared_flash_watch",
+                                  "chunk_lm_approx_flash"])
 def test_chunked_programs_green_on_the_cpu_rules(name):
     """One inspected chunk after a first chunk and its flush, on the CPU
     loop: no would-be sync in the chunk, one fetch in the flush, the state

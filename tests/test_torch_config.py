@@ -206,8 +206,8 @@ def test_resilience_checks_match_the_reference(fields, raises):
 
 def test_resilience_fields_and_flags():
     """The five fields with the reference's defaults and flags; a straggle
-    event on the LM, which the port runs with every row present, is
-    refused as not ported."""
+    event on the LM validates and takes its worker's row out of that step
+    of the LM's loop."""
     port, ref = TrainConfig(), JaxConfig()
     for f in RESILIENCE_FIELDS:
         assert getattr(port, f) == getattr(ref, f), f
@@ -224,5 +224,15 @@ def test_resilience_fields_and_flags():
         assert getattr(cfg, f) == getattr(theirs, f), f
     lm = dict(network="TransformerLM", dataset="synthetic-text", **_CODED)
     TrainConfig(fault_spec="inf_grad@2:w5,over_budget@3", **lm).validate()
-    with pytest.raises(ValueError, match="straggle is not ported"):
-        TrainConfig(fault_spec="straggle@2:w1", **lm).validate()
+    cfg = TrainConfig(fault_spec="straggle@2:w1", batch_size=2, seq_len=16,
+                      vocab=32, model_dim=32, model_heads=2, model_layers=1,
+                      max_steps=2, train_dir="", **lm).validate()
+    from draco_tpu_torch.obs.forensics import record_masks
+    from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
+    from draco_tpu_torch.parallel.token_loop import TokenLoop
+
+    loop = TokenLoop(build_sp_train_setup(cfg, "cpu"), cfg, quiet=True)
+    present = [record_masks(loop.step(), cfg.num_workers)["present"]
+               for _ in range(2)]
+    assert present[0] == (True,) * cfg.num_workers
+    assert present[1] == tuple(w != 1 for w in range(cfg.num_workers))

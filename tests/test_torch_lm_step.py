@@ -170,7 +170,15 @@ PORTED = ("token_gen=device", "steps_per_call=4")
     {"attn_impl": "ring"},
     {"model_heads": 5}, {"model_dim": 24, "model_heads": 8},
     {"dataset": "synthetic-cifar10"}, {"compute_dtype": "float16"},
-    {"approach": "maj_vote"}],
+    {"approach": "maj_vote"},
+    # the approx code, the narrow wire and stragglers run on the LM now,
+    # within the reference's own checks: a live adversary under approx,
+    # an adversary beside a straggler at s=1, a wire with no threshold,
+    # and a sharded route beside the new options
+    {"approach": "approx", "redundancy": "shared", "worker_fail": 1},
+    {"straggle_mode": "drop", "straggle_count": 1},
+    {"wire_dtype": "fp8"},
+    {"seq_shards": 2, "wire_dtype": "int8"}],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_lm_config_rejects_what_is_not_ported(request, override):
     base = dict(LM, approach="cyclic")
