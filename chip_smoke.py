@@ -26,10 +26,12 @@ prints no result line):
               rows, one of them NaN) at n=8, d=11,173,962 and at a small
               ragged d; the flash forward, dq and dk/dv at G=8·2·12 heads,
               T=512, Dh=64 and at a ragged T=520, and at G=8, T=520 at
-              every head width the kernels take; the three flash kernels
-              bit for bit across launches and places in G, and their TF32
-              tensor-core instructions (cuobjdump -sass); the projection
-              bit for bit across two launches; the vote's row
+              every head width the kernels take; at lm_big's G=256, T=2048
+              (causal) and the four-shard ring's first hop (G=576, T=128,
+              non-causal, with dlse), each timed beside SDPA; the three
+              flash kernels bit for bit across launches and places in G,
+              and their TF32 tensor-core instructions (cuobjdump -sass);
+              the projection bit for bit across two launches; the vote's row
               fingerprints bit for bit (both uint32 hashes) at n=9, f32
               and bf16, d=11,173,962 and 5003, aligned and offset
               buffers, public and drawn salts, two launches each, and
@@ -166,7 +168,14 @@ prints no result line):
               ``cyclic_narrow_recombine``) and ``lm_shared_flash_drop2``
               (no adversary, two erasures a step, the locator given the
               presence row); a chunk's host assembly timed (on the approx
-              code K host solves).
+              code K host solves). Five run the LM's layer stack and
+              sequence shards (``registry.STACK_TWINS``):
+              ``lm_shared_flash_remat``, ``lm_shared_flash_scan``,
+              ``lm_big_shared_flash`` (the reference's lm_big shape, d =
+              159,470,592, T=2048, with remat and the stacked layers),
+              ``lm_sp4_ring_flash`` and ``lm_sp4_a2a_flash`` (four
+              sequence shards: the flash kernels at every ring hop, or on
+              the a2a's permuted heads).
               Each leg runs through the entry points a user calls (Trainer /
               build_sp_train_setup + TokenLoop) with the launch counts
               zeroed just before it and read just after; every coded step
@@ -175,7 +184,22 @@ prints no result line):
               located_errors = det_tp = det_adv = the leg's adversary
               count), every approx step hold its certificate (residual ≤
               bound + the wire's slack)
-  4. check    each segmented leg against its twin: the detection columns
+  4. check    the layer-stack legs against ``lm_shared_flash``
+              (``stack_twin_checks``): remat for 3 eager steps from the
+              same draw, the scanned stack from the twin's initial
+              parameters restacked, each with the same discrete columns,
+              the loss to 1e-6 relative and the update to 1e-5 relative
+              L2 (bit for bit or not, printed); the four-shard a2a leg
+              the same way, and the ring with the same columns, the loss
+              to 1e-4 and the update to 3e-2, its timed legs' eager and
+              chunked steps with the twin's columns and losses within the
+              same bounds, and the ring without its last hop outside the
+              update bound (a negative control); each one's chunk
+              ms/step beside the twin's; what remat saves
+              (``remat_memory``): the gradient phase's peak lower with it
+              at LM_FULL and at lm_big, and lm_big's step without remat
+              once (its step peak, or the out-of-memory message);
+              each segmented leg against its twin: the detection columns
               equal on every eager and chunked step, and the first step's
               decoded aggregate (fresh setups, deterministic cuDNN) within
               rtol 2e-4, atol 1e-6 of the twin's;
@@ -220,7 +244,10 @@ prints no result line):
               budget, a segmented leg's host-to-device bytes its twin's
               (the segment plan lives on the card from setup), the device
               tokens' chunk's host-to-device bytes exactly its manifest's:
-              K int32 step numbers and K masks; then the lint's
+              K int32 step numbers and K masks, each layer-stack and
+              sequence-shard leg's syncs and bytes its twin's, and
+              lm_big's step peak below the same step's without remat;
+              then the lint's
               seeded-defect controls, each tripping exactly its rule
 
   6. chunk    each leg also as the K-fused chunk (``steps_per_call`` K=4,
@@ -409,6 +436,7 @@ from draco_tpu_torch.ops import numerics as ops_numerics
 from draco_tpu_torch.parallel import common as common_mod
 from draco_tpu_torch.parallel.common import decode_bounds
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
+from draco_tpu_torch.parallel.sp_step import synthetic_text as sp_text
 from draco_tpu_torch.parallel.token_loop import TokenLoop
 from draco_tpu_torch.runtime import cudnn_deterministic, resolve_device
 from draco_tpu_torch.training import step as step_mod
@@ -448,6 +476,11 @@ WIRE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
 # TransformerLM) live in draco_tpu_torch/analysis/registry.py, which the
 # program lint holds to their manifests
 LM_D = 62_958_336  # the LM's flat gradient
+# the reference's lm_big shape: 12 blocks of 12,590,080, embed 8,388,608
+# and final_ln 1,024
+LM_BIG_D = 12 * 12_590_080 + 8_388_608 + 1_024
+assert LM_BIG_D == 159_470_592
+LEG_D = {"lm_big_shared_flash": LM_BIG_D}
 G_LM = N * 2 * 12  # flash heads per call on the shared leg: lanes·B·H
 # the segmented decode's kernels (the layer decode, wire_segments > 1), and
 # the whole-d kernels they take the place of on a segmented leg
@@ -508,7 +541,13 @@ EXPECT = {"simulate": CODED[1:] + AUG, "geomedian": AUG,
           "lm_approx_int8_sr_flash": ("approx_decode", "round_draw")
           + FLASH,
           "lm_shared_int8_flash": NARROW + FLASH,
-          "lm_shared_flash_drop2": CODED + FLASH}
+          "lm_shared_flash_drop2": CODED + FLASH,
+          # the LM's layer stack and sequence shards
+          "lm_shared_flash_remat": CODED + FLASH,
+          "lm_shared_flash_scan": CODED + FLASH,
+          "lm_big_shared_flash": CODED + FLASH,
+          "lm_sp4_ring_flash": CODED + FLASH,
+          "lm_sp4_a2a_flash": CODED + FLASH}
 # the draw kernels a leg launches only where it draws: no other leg
 # launches them
 DRAWS = ("random_inject", "round_draw", "synthetic_text", "augment_draws",
@@ -2836,6 +2875,92 @@ def flash_kernels(dev) -> list:
     return out
 
 
+# the flash kernels at this slice's shapes: lm_big's (G = lanes·B·H =
+# 8·2·16, T=2048, causal, no lse cotangent on its path) and the four-shard
+# ring's first hop (q's shards [1, 4) against k/v's [0, 3), non-causal: G =
+# 3·8·2·12 at T = 512 / 4, with the merge's lse cotangent)
+FLASH_SHAPES = (("lm_big G=256 T=2048 causal", 256, 2048, True, False),
+                ("ring hop G=576 T=128 non-causal with dlse", 576, 128,
+                 False, True))
+
+
+def flash_shape_kernels(dev) -> dict:
+    """The three flash kernels at FLASH_SHAPES against their plain
+    versions (forward, and the backward with and without dlse, 1e-5 of
+    each output's largest entry as in ``flash_kernels``), each timed beside
+    its plain version, its split-TF32 bound and SDPA at the same shape:
+    kernel name -> shape label -> row."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    dh = 64
+    out = {name: {} for name in FLASH}
+    for label, G, t, causal, with_dlse in FLASH_SHAPES:
+        q, k, v, do = (torch.randn((G, t, dh), generator=g, device=dev)
+                       for _ in range(4))
+        dl = torch.randn((G, t), generator=g, device=dev)
+        errs = {}
+        for name, a, b in _flash_pairs(q, k, v, do, dl, causal):
+            err = (a - b).abs().max().item()
+            tol = 1e-5 * b.abs().max().item()
+            require(err <= tol, f"{name} {label}: max_abs_err {err} > {tol}")
+            e = errs.setdefault(name, [0.0, 0.0])
+            e[0], e[1] = max(e[0], err), max(e[1], tol)
+        torch.cuda.empty_cache()
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        dcap = (do * o).sum(-1)
+        args = (q, k, v, do, lse, dcap, dl if with_dlse else None, causal)
+        q4, k4, v4 = (x[None] for x in (q, k, v))
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal), 10)
+        ql, kl, vl = (x.clone().requires_grad_() for x in (q4, k4, v4))
+        o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            o_lib, (ql, kl, vl), do[None], retain_graph=True), 10)
+        del ql, kl, vl, o_lib
+        times = {
+            "flash_fwd": (time_ms(lambda: fa.flash_fwd(q, k, v, causal), 10),
+                          time_ms(lambda: fa.flash_fwd_plain(q, k, v,
+                                                             causal), 3),
+                          lib_fwd),
+            "flash_dq": (time_ms(lambda: fa.flash_dq(*args), 10),
+                         time_ms(lambda: fa.flash_dq_plain(*args), 3),
+                         lib_bwd),
+            "flash_dkv": (time_ms(lambda: fa.flash_dkv(*args), 10),
+                          time_ms(lambda: fa.flash_dkv_plain(*args), 3),
+                          lib_bwd),
+        }
+        # as in flash_kernels: the (q, k) pairs the mask keeps, 2, 3 and
+        # 4 products of Dh-long rows a pair; each input read once, each
+        # output written once (dlse one more (G, T) read)
+        pairs = G * t * (t + 1) / 2 if causal else G * t * t
+        mat, stat = 4 * G * t * dh, 4 * G * t
+        dls = stat if with_dlse else 0
+        work = {"flash_fwd": (3 * mat + mat + stat, 2 * 2 * dh * pairs),
+                "flash_dq": (4 * mat + 2 * stat + dls + mat,
+                             3 * 2 * dh * pairs),
+                "flash_dkv": (4 * mat + 2 * stat + dls + 2 * mat,
+                              4 * 2 * dh * pairs)}
+        for name in FLASH:
+            ms, plain_ms, lib_ms = times[name]
+            b_ms, b_by = bound(*work[name], rate=TF32X3_FLOPS)
+            out[name][label] = {
+                "G": G, "T": t, "Dh": dh, "causal": causal,
+                "dlse": with_dlse, "max_abs_err": errs[name][0],
+                "tol": errs[name][1], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "library_call": ("scaled_dot_product_attention"
+                                 if name == "flash_fwd" else
+                                 "its autograd backward (dq, dk, dv "
+                                 "together)")}
+            print(f"kernel {name} {label}: ms={ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms="
+                  f"{b_ms:.4f} ({b_by} at split TF32); err "
+                  f"{errs[name][0]:.3e} (tol {errs[name][1]:.3e})",
+                  flush=True)
+        del q, k, v, do, dl, o, lse, dcap, args, q4, k4, v4
+        torch.cuda.empty_cache()
+    return out
+
+
 def control_kernels(dev) -> list:
     """The controls of csrc/controls.cu that launch, against their plain
     versions. The mis-tiled copy (the counterpart of the TPU lowering
@@ -2968,8 +3093,8 @@ def run_leg(lp, steps: int, dev, profile: bool = False) -> dict:
                        max_steps=steps + 1 + LOOP_CHUNKS * CHUNK_K,
                        steps_per_call=CHUNK_K)
     if lp.route == "lm":
-        dim = program.runner.setup.dim
-        require(dim == LM_D, f"{lp.name}: d={dim}, expected {LM_D}")
+        dim, want = program.runner.setup.dim, LEG_D.get(lp.name, LM_D)
+        require(dim == want, f"{lp.name}: d={dim}, expected {want}")
     out = drive(lp.name, program, steps, EXPECT[lp.name], dev)
     out["chunk"] = chunk_leg(lp, program, dev, profile)
     if profile:
@@ -3322,8 +3447,18 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
+# a final state copied for the chunk phase's comparisons stays on the card
+# up to this size, on the host past it (lm_big's 1.28 GB state, copied
+# five times a leg, would fragment the card's memory before its capture)
+STATE_ON_CARD = 1 << 30
+
+
 def _state_copy(state) -> dict:
-    return {k: v.detach().clone() for k, v in state.tensors().items()}
+    tensors = state.tensors()
+    on_card = sum(v.numel() * v.element_size()
+                  for v in tensors.values()) <= STATE_ON_CARD
+    return {k: v.detach().clone() if on_card else v.detach().cpu()
+            for k, v in tensors.items()}
 
 
 def _update_err(before: dict, a: dict, b: dict) -> float:
@@ -3331,6 +3466,7 @@ def _update_err(before: dict, a: dict, b: dict) -> float:
     num = den = 0.0
     for k, v in before.items():
         if k.startswith("params/"):
+            v = v.to(a[k].device)
             da, db = a[k].double() - v.double(), b[k].double() - v.double()
             num += float(((da - db) ** 2).sum())
             den += float((db ** 2).sum())
@@ -3696,6 +3832,278 @@ def lm_code_twins(legs) -> dict:
               f"{a['pool_bytes'] / 2**30:.2f} / {b['pool_bytes'] / 2**30:.2f}"
               f" GiB; chunk made on the host in {a['make_chunk_ms']:.3f} / "
               f"{b['make_chunk_ms']:.3f} ms", flush=True)
+    return out
+
+
+# the layer stack's twins run the same function: remat recomputes the
+# block, the scanned stack runs the same body on the same slices
+STACK_STEPS = 3
+STACK_LOSS_RTOL = 1e-6
+STACK_UPDATE_RTOL = 1e-5
+# four sequence shards, (loss rtol, update rel L2 tol) against the twin:
+# a2a runs the same flash launches on a permuted head axis (bit for bit
+# on an H100); the ring sums each query's hops in float32 in another
+# order, and the bf16 projections round the difference up. On an H100
+# 80GB HBM3 at LM_FULL over 3 steps the ring read loss rel ≤ 1.84e-5 and
+# update rel L2 ≤ 7.06e-3, the ring without its last hop update rel L2
+# ≥ 0.147: the bounds sit ~4-5x from each
+SP_RING_LOSS_RTOL = 1e-4
+SP_RING_UPDATE_RTOL = 3e-2
+SP_TOL = {"lm_sp4_ring_flash": (SP_RING_LOSS_RTOL, SP_RING_UPDATE_RTOL),
+          "lm_sp4_a2a_flash": (STACK_LOSS_RTOL, STACK_UPDATE_RTOL)}
+
+
+def _lm_steps(cfg, dev, steps: int, init=None) -> tuple:
+    """``steps`` eager LM steps through build_sp_train_setup and the token
+    loop from ``init`` (default: the seed's draw): (their records, each
+    step's parameter update as one flat host vector in the unrolled
+    layout's order, the initial parameters on the card)."""
+    setup = build_sp_train_setup(cfg, dev, init=init)
+    loop = TokenLoop(setup, cfg, quiet=True)
+    first = {k: v.clone() for k, v in setup.state.params.items()}
+    with torch.device("meta"):
+        unrolled = params_mod.layout(TransformerLM(
+            cfg.vocab, cfg.model_dim, cfg.model_heads, cfg.model_layers))
+
+    def flat():
+        p = setup.state.params
+        if cfg.scan_layers:
+            p = unstack(p, cfg.model_layers)
+        return params_mod.flatten(p, unrolled).cpu()
+
+    prev = flat()
+    recs, deltas = [], []
+    for _ in range(steps):
+        recs.append(loop.step())
+        cur = flat()
+        deltas.append(cur - prev)
+        prev = cur
+    return recs, deltas, first
+
+
+def restack(params: dict, layers: int) -> dict:
+    """An unrolled LM's parameters as the scanned tree's: each
+    ``block{i}.<leaf>`` stacked on a leading layer axis as
+    ``blocks.<leaf>`` (the reference's tests/test_transformer_scan.py)."""
+    out = {k: v for k, v in params.items() if not k.startswith("block")}
+    leaves = {k.split(".", 1)[1] for k in params if k.startswith("block")}
+    for leaf in leaves:
+        out["blocks." + leaf] = torch.stack(
+            [params[f"block{i}.{leaf}"] for i in range(layers)])
+    return out
+
+
+def unstack(params: dict, layers: int) -> dict:
+    """The scanned tree's parameters as the unrolled tree's (the inverse
+    of :func:`restack`)."""
+    out = {k: v for k, v in params.items() if not k.startswith("blocks.")}
+    for k, v in params.items():
+        if k.startswith("blocks."):
+            for i in range(layers):
+                out[f"block{i}." + k[len("blocks."):]] = v[i]
+    return out
+
+
+def _held_steps(label, a, b, loss_rtol, update_rtol) -> list:
+    """Step by step: the discrete columns equal, the loss within
+    ``loss_rtol`` relative, the update within ``update_rtol`` in relative
+    L2 norm (and whether it is bit for bit)."""
+    (ra, da, _), (rb, db, _) = a, b
+    out = []
+    for x, y, u, w in zip(ra, rb, da, db):
+        cols = {c: (x[c], y[c]) for c in DISCRETE if c in y}
+        require(all(p == q for p, q in cols.values()),
+                f"{label} step {x['step']}: columns differ: {cols}")
+        loss_rel = abs(x["loss"] - y["loss"]) / abs(y["loss"])
+        upd = ((u - w).norm() / w.norm()).item()
+        out.append({"step": x["step"], "loss": x["loss"],
+                    "twin_loss": y["loss"], "loss_rel_err": loss_rel,
+                    "update_rel_l2_err": upd,
+                    "update_bitwise": torch.equal(u, w)})
+        require(loss_rel <= loss_rtol and upd <= update_rtol,
+                f"{label} step {x['step']}: loss rel {loss_rel:.3e} (tol "
+                f"{loss_rtol:g}), update rel L2 {upd:.3e} (tol "
+                f"{update_rtol:g})")
+    print(f"stack twin {label}: columns equal on {len(out)} steps; loss rel "
+          f"{['%.2e' % r['loss_rel_err'] for r in out]} (tol {loss_rtol:g});"
+          f" update rel L2 {['%.2e' % r['update_rel_l2_err'] for r in out]} "
+          f"(tol {update_rtol:g}); bit for bit "
+          f"{[r['update_bitwise'] for r in out]}", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def ring_without_last_hop():
+    """A negative control for the sp bounds: the ring skips its last hop
+    (the last shard's queries lose the first shard's keys)."""
+    from draco_tpu_torch.parallel import ring_attention
+
+    hops = ring_attention._hops
+    ring_attention._hops = lambda *a: list(hops(*a))[:-1]
+    try:
+        yield
+    finally:
+        ring_attention._hops = hops
+
+
+def stack_twin_checks(legs, dev) -> dict:
+    """The layer-stack and sequence-shard legs beside ``lm_shared_flash``
+    (``registry.STACK_TWINS``). remat: STACK_STEPS eager steps from the
+    same draw, the same columns, the loss to float32 rounding and the
+    update within STACK_UPDATE_RTOL. The scanned stack: the same steps from
+    the twin's initial parameters restacked, the same bounds. The four
+    sequence shards (ring, a2a): STACK_STEPS eager steps from the same
+    draw held as above within their SP_TOL, and the same columns on every
+    eager and chunked step of the timed legs with their losses within it.
+    And every leg's eager, chunk and loop ms/step beside the twin's."""
+    by = {lg["leg"]: lg for lg in legs}
+    twin = "lm_shared_flash"
+    out = {}
+
+    def cfg_of(name):
+        return registry.get(name).config(True, max_steps=STACK_STEPS)
+
+    base = _lm_steps(cfg_of(twin), dev, STACK_STEPS)
+    remat = _lm_steps(cfg_of("lm_shared_flash_remat"), dev, STACK_STEPS)
+    out["lm_shared_flash_remat"] = {"steps": _held_steps(
+        "lm_shared_flash_remat / lm_shared_flash", remat, base,
+        STACK_LOSS_RTOL, STACK_UPDATE_RTOL)}
+    del remat
+    gc.collect()
+    torch.cuda.empty_cache()
+    scfg = cfg_of("lm_shared_flash_scan")
+    scan = _lm_steps(scfg, dev, STACK_STEPS,
+                     init=restack(base[2], scfg.model_layers))
+    out["lm_shared_flash_scan"] = {"steps": _held_steps(
+        "lm_shared_flash_scan (restacked) / lm_shared_flash", scan, base,
+        STACK_LOSS_RTOL, STACK_UPDATE_RTOL)}
+    base = base[:2] + (None,)
+    del scan
+    gc.collect()
+    torch.cuda.empty_cache()
+    for leg, (loss_rtol, update_rtol) in SP_TOL.items():
+        sp = _lm_steps(cfg_of(leg), dev, STACK_STEPS)
+        out[leg] = {"steps": _held_steps(f"{leg} / {twin}", sp, base,
+                                         loss_rtol, update_rtol)}
+        del sp
+        gc.collect()
+        torch.cuda.empty_cache()
+        a, b = by[leg], by[twin]
+        worst = 0.0
+        for what, ra, rb in (("eager", a["records"], b["records"]),
+                             ("chunk", a["chunk"]["records"],
+                              b["chunk"]["records"])):
+            require(len(ra) == len(rb) > 0, f"{leg}: {what} records")
+            for x, y in zip(ra, rb):
+                cols = {c: (x[c], y[c]) for c in DISCRETE if c in y}
+                require(all(p == q for p, q in cols.values()),
+                        f"{leg} / {twin}, {what} step: columns differ: "
+                        f"{cols}")
+                worst = max(worst, abs(x["loss"] - y["loss"])
+                            / abs(y["loss"]))
+        require(worst <= loss_rtol, f"{leg} / {twin}: loss rel err "
+                f"{worst:.3e} (tol {loss_rtol:g})")
+        out[leg].update({"columns_equal": True, "worst_loss_rel_err": worst,
+                         "loss_rtol": loss_rtol,
+                         "update_rtol": update_rtol})
+        print(f"stack twin {leg} / {twin}: columns equal on every eager and "
+              f"chunked step of the timed legs, worst loss rel {worst:.3e} "
+              f"(tol {loss_rtol:g})", flush=True)
+    ring = "lm_sp4_ring_flash"
+    with ring_without_last_hop():
+        _, bad, _ = _lm_steps(cfg_of(ring), dev, STACK_STEPS)
+    worst = max(((u - w).norm() / w.norm()).item()
+                for u, w in zip(bad, base[1]))
+    require(worst > SP_TOL[ring][1], f"{ring} without its last hop: update "
+            f"rel L2 {worst:.3e}, inside the bound {SP_TOL[ring][1]:g}")
+    out["ring_last_hop_dropped"] = {"worst_update_rel_l2_err": worst}
+    print(f"control: {ring} without its last hop, worst update rel L2 "
+          f"{worst:.3e} (outside {SP_TOL[ring][1]:g})", flush=True)
+    del base, bad
+    cols = ("eager_ms_per_step", "chunk_ms_per_step", "loop_ms_per_step")
+    for leg in tuple(registry.STACK_TWINS) + ("lm_big_shared_flash", twin):
+        row = {c: by[leg]["chunk"][c] for c in cols}
+        row["eager_peak_mem_gb"] = by[leg]["peak_mem_gb"]
+        row["pool_bytes"] = by[leg]["chunk"]["pool_bytes"]
+        out.setdefault(leg, {})["timing"] = row
+        print(f"stack leg {leg}: eager {row['eager_ms_per_step']:.2f}, chunk "
+              f"{row['chunk_ms_per_step']:.2f}, loop "
+              f"{row['loop_ms_per_step']:.2f} ms/step; eager peak "
+              f"{row['eager_peak_mem_gb']:.2f} GB, graph pool "
+              f"{row['pool_bytes'] / 2**30:.2f} GiB", flush=True)
+    return out
+
+
+def grad_phase_peak(cfg, dev) -> int:
+    """The gradient phase's peak bytes (``setup.lane_grads``: the lanes'
+    forward and backward under vmap(grad_and_value), up to the flat
+    gradients) above the memory live before it: a warm-up call, then one
+    from the peak's reset, on step 1's tokens."""
+    setup = build_sp_train_setup(cfg, dev)
+    toks = torch.as_tensor(sp_text(cfg.seed, 1, cfg.num_workers,
+                                   cfg.batch_size, cfg.seq_len, cfg.vocab),
+                           device=dev).long()
+    setup.lane_grads(setup.state.params, toks)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = setup.lane_grads(setup.state.params, toks)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - start
+    del out, setup, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def remat_memory(dev) -> dict:
+    """What remat saves: the gradient phase's peak of ``lm_shared_flash``
+    and ``lm_shared_flash_remat``, and of ``lm_big_shared_flash`` with and
+    without remat (each lower with it); and lm_big's whole step without
+    remat once (one warm-up step, then one from the peak's reset, as the
+    lint measures a step), or the out-of-memory message. At LM_FULL the
+    coded tail sets the step's peak (13.14 GiB, remat or not: PERF.md §6),
+    at lm_big without remat the gradient phase does."""
+    big = registry.get("lm_big_shared_flash").config(True, max_steps=2)
+    cfgs = {"lm_shared_flash": registry.get("lm_shared_flash").config(True),
+            "lm_shared_flash_remat":
+                registry.get("lm_shared_flash_remat").config(True),
+            "lm_big_shared_flash": big,
+            "lm_big_shared_flash without remat":
+                dataclasses.replace(big, remat=False)}
+    out = {"grad_phase_peak_bytes": {k: grad_phase_peak(c, dev)
+                                     for k, c in cfgs.items()}}
+    peaks = out["grad_phase_peak_bytes"]
+    print("remat: the gradient phase's peak " + ", ".join(
+        f"{k} {v / 2**30:.2f} GiB" for k, v in peaks.items()), flush=True)
+    require(peaks["lm_shared_flash_remat"] < peaks["lm_shared_flash"]
+            and peaks["lm_big_shared_flash"]
+            < peaks["lm_big_shared_flash without remat"],
+            f"remat does not lower the gradient phase's peak: {peaks}")
+    cfg = cfgs["lm_big_shared_flash without remat"]
+    loop = None
+    try:
+        loop = TokenLoop(build_sp_train_setup(cfg, dev), cfg, quiet=True)
+        loop.step()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = loop.step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        nr = {"fits": True, "step_peak_bytes": peak - start,
+              "peak_bytes": peak, "loss": rec["loss"]}
+        print(f"lm_big_shared_flash without remat: step peak "
+              f"{(peak - start) / 2**30:.2f} GiB (absolute "
+              f"{peak / 2**30:.2f} GiB)", flush=True)
+    except torch.cuda.OutOfMemoryError as e:
+        nr = {"fits": False, "oom": str(e).splitlines()[0]}
+        print(f"lm_big_shared_flash without remat: out of memory: "
+              f"{nr['oom']}", flush=True)
+    out["lm_big_without_remat"] = nr
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4108,6 +4516,23 @@ def lint_legs(dev) -> list:
     print(f"audit lint {leg}: syncs, fetches and {h2d[leg]} H2D bytes as "
           f"{twin}'s ({h2d[twin]} + {extra}: v/n and the presence)",
           flush=True)
+    # the layer stack and the sequence shards: lm_shared_flash's syncs,
+    # fetches and bytes (the ring's hops and the head scatter are static
+    # slices and permutes of tensors on the card); remat's step peak below
+    # its twin's
+    peak = {r["leg"]: r["rules"]["memory_budget"]["step_peak_bytes"]
+            for r in rows}
+    for leg, twin in registry.STACK_TWINS.items():
+        bad = rules.twin_failures(by[leg], by[twin])
+        syncs = [by[x]["rules"]["host_traffic"]["syncs"] for x in (leg, twin)]
+        require(not bad and syncs[0] == syncs[1],
+                f"audit lint {leg} against {twin}: {bad}, syncs {syncs}")
+        print(f"audit lint {leg}: {syncs[0]} syncs and {h2d[leg]} H2D bytes "
+              f"as its twin {twin}'s; step peak "
+              f"{peak[leg] / 2**30:.2f} GiB, the twin's "
+              f"{peak[twin] / 2**30:.2f}", flush=True)
+    print(f"audit lint lm_big_shared_flash: step peak "
+          f"{peak['lm_big_shared_flash'] / 2**30:.2f} GiB", flush=True)
     # the autopilot's chunk: chunk_simulate's syncs and fetches (the
     # autopilot decides inside the flush's one fetch), its bytes plus the
     # all-present schedule's K·n
@@ -5671,6 +6096,10 @@ def main(argv=None) -> int:
                + narrow_kernels(code, dev) + segment_kernels(code, dev, cuts)
                + flash_kernels(dev) + vote_kernels(dev) + draw_rows
                + numerics_rows + control_kernels(dev))
+    shapes = flash_shape_kernels(dev)
+    for row in kernels:
+        if row["name"] in FLASH:
+            row["shapes"] = shapes[row["name"]]
     record["nan_chain"] = nan_chain_kernels(code, dev)
     torch.cuda.empty_cache()
     record["lm_width_kernels"] = lm_rows = lm_width_kernels(code, dev)
@@ -5699,6 +6128,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["chunk"] = chunk_summary(legs)
     record["lm_code_twins"] = lm_code_twins(legs)
+    record["stack_twins"] = stack_twin_checks(legs, dev)
+    record["remat_memory"] = remat_memory(dev)
     ds = load_dataset(registry.CNN_FULL["dataset"])
     record["twins"] = twin_checks(legs, dev, ds)
     record["tree_vs_flat"] = tree_vs_flat(dev, ds)
@@ -5725,6 +6156,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["lint"] = lint_legs(dev)
     record["lint_legs_s"] = time.perf_counter() - t0
+    # remat lowers lm_big's step peak: below the same step's without it
+    big_peak = next(r for r in record["lint"] if r["leg"]
+                    == "lm_big_shared_flash")["rules"]["memory_budget"][
+                        "step_peak_bytes"]
+    nr = record["remat_memory"]["lm_big_without_remat"]
+    require(not nr["fits"] or big_peak < nr["step_peak_bytes"],
+            f"lm_big_shared_flash: step peak {big_peak} with remat, "
+            f"{nr['step_peak_bytes']} without")
     t0 = time.perf_counter()
     record["lint_controls"] = lint_controls_card(dev)
     record["lint_controls_s"] = time.perf_counter() - t0

@@ -61,6 +61,16 @@ int8 wire rounded stochastically), ``lm_shared_int8_flash``
 coded leg runs the ingest check (``nonfinite_rows``) and packs its
 forensics masks.
 
+Five run the LM's layer stack and sequence shards, each held to
+``lm_shared_flash`` (``STACK_TWINS``): ``lm_shared_flash_remat`` (each
+block recomputed in the backward), ``lm_shared_flash_scan`` (the stacked
+layers), ``lm_big_shared_flash`` (the reference's ``lm_big`` shape, d =
+159,470,592: T=2048, dim 1024, 16 heads, 12 layers, with remat and the
+stacked layers, tools/tpu_lm_lowering_check.py), and
+``lm_sp4_ring_flash`` and ``lm_sp4_a2a_flash`` (four sequence shards, the
+ring with the flash kernels at every hop and the a2a head scatter around
+them).
+
 The resilience legs (``GUARD_PROGRAMS``, ``chip_smoke.py``'s guard phase,
 each beside the leg it guards, ``GUARD_TWINS``) run the step guard and a
 seeded fault plan: ``simulate_guard_nan`` (the flagship, a NaN gradient
@@ -110,6 +120,11 @@ LM_FULL = dict(network="TransformerLM", dataset="synthetic-text",
                train_dir="", seed=SEED)
 LM_CI = dict(seq_len=32, vocab=64, model_dim=64, model_heads=4,
              model_layers=2)
+# the reference's lm_big shape (tools/tpu_lm_lowering_check.py,
+# tools/tpu_lm_perf.py): d = 159,470,592, with remat and the scanned
+# layer stack, as the reference runs it on its chip
+LM_BIG = dict(seq_len=2048, model_dim=1024, model_heads=16, model_layers=12,
+              remat=True, scan_layers=True)
 # preset rep-resnet18 (n=9, groups of r=3, batch 32) with one rev_grad
 # adversary a step for the vote to outvote; one group at CI size
 MAJVOTE = dict(approach="maj_vote", num_workers=9, group_size=3)
@@ -524,6 +539,20 @@ PROGRAMS = (
     LintProgram("lm_shared_flash_drop2", "lm",
                 dict(_CYCLIC_SHARED, adversary_count=0, straggle_mode="drop",
                      straggle_count=2), 14.5),
+    # the LM's layer stack and sequence shards: remat, the stacked layers,
+    # the lm_big shape with both, and four sequence shards on the flash
+    # ring and the a2a head scatter (step peaks 13.14 GiB each at LM_FULL,
+    # the coded tail's; 33.27 GiB at lm_big, PERF.md §6)
+    LintProgram("lm_shared_flash_remat", "lm",
+                dict(_CYCLIC_SHARED, remat=True), 14.5),
+    LintProgram("lm_shared_flash_scan", "lm",
+                dict(_CYCLIC_SHARED, scan_layers=True), 14.5),
+    LintProgram("lm_big_shared_flash", "lm", dict(_CYCLIC_SHARED, **LM_BIG),
+                36.0),
+    LintProgram("lm_sp4_ring_flash", "lm",
+                dict(_CYCLIC_SHARED, seq_shards=4), 14.5),
+    LintProgram("lm_sp4_a2a_flash", "lm",
+                dict(_CYCLIC_SHARED, seq_shards=4, sp_attn="a2a"), 14.5),
 )
 
 # each segmented leg's S = 1, global-granularity twin
@@ -538,6 +567,12 @@ LM_CODE_TWINS = {"lm_approx_flash": "lm_shared_flash_devgen",
                  "lm_approx_int8_sr_flash": "lm_approx_flash",
                  "lm_shared_int8_flash": "lm_shared_flash",
                  "lm_shared_flash_drop2": "lm_shared_flash"}
+# each layer-stack and sequence-shard leg's twin: the same decode columns
+# every step (chip_smoke.py's stack_twin_checks)
+STACK_TWINS = {"lm_shared_flash_remat": "lm_shared_flash",
+               "lm_shared_flash_scan": "lm_shared_flash",
+               "lm_sp4_ring_flash": "lm_shared_flash",
+               "lm_sp4_a2a_flash": "lm_shared_flash"}
 # each watch leg's leg without the observatory: the same update bit for bit
 WATCH_TWINS = {"simulate_watch_bf16": "simulate",
                "approx_watch_int8_sr": "approx",

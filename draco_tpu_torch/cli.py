@@ -69,8 +69,9 @@ overrides its policy) remediates from the incident stream at every flush
 block.
 Runs on the card unless ``--device cpu`` is given. With ``--preset``, the
 flags given on the command line override the preset's fields.
-``network=TransformerLM`` runs the single-shard LM step and its token loop
-(``parallel/sp_step.py``), every other network the CNN trainer.
+``network=TransformerLM`` runs the LM step and its token loop
+(``parallel/sp_step.py``; ``--seq-shards`` sequence shards, ``--sp-attn
+ring|a2a``, ``--remat``), every other network the CNN trainer.
 """
 
 from __future__ import annotations
@@ -132,6 +133,9 @@ FLAGS = {
     "--model-heads": (int, "model_heads"),
     "--model-layers": (int, "model_layers"),
     "--attn-impl": (str, "attn_impl"),
+    "--seq-shards": (int, "seq_shards"),
+    "--sp-attn": (str, "sp_attn"),
+    "--remat": (bool, "remat"),  # a switch
     "--compute-dtype": (str, "compute_dtype"),
     "--eval-freq": (int, "eval_freq"),
     "--trace-dir": (str, "trace_dir"),

@@ -3,10 +3,10 @@ the port runs.
 
 Field names and defaults are the reference's. ``validate()`` keeps the
 reference's checks on these fields and rejects, with a clear error, every
-value the port does not implement yet. Five reference fields have no port
-field yet: ``sp_attn``, ``pp_microbatches`` and ``expert_shards`` (the
-LM's sharded routes) and ``compile_guard`` and ``compile_warmup`` (the
-reference's compile ledger).
+value the port does not implement yet. Four reference fields have no port
+field yet: ``pp_microbatches`` and ``expert_shards`` (the LM's sharded
+routes) and ``compile_guard`` and ``compile_warmup`` (the reference's
+compile ledger).
 
 The repetition code (``approach="maj_vote"``) votes on the bits of its
 group members' gradient rows: the lanes of a group must compute bit for
@@ -143,13 +143,23 @@ class TrainConfig:
     # total tree levels including the leaf level; 0 = auto
     # (1 + ceil(log_g(n/g)), coding/topology.auto_levels)
     tree_levels: int = 0
-    # --- options of the reference the port rejects for now ---
+    # --- the LM's sequence parallelism and layer stack ---
+    # sequence shards (the reference's sp mesh axis; on one card a tensor
+    # axis of the attention, parallel/ring_attention.py)
     seq_shards: int = 1
+    # the sp attention: "ring" (K/V blocks folded shard by shard) or "a2a"
+    # (Ulysses head scatter; needs model_heads % seq_shards == 0)
+    sp_attn: str = "ring"
+    # recompute each block in the backward from its input
+    # (models/transformer.py)
+    remat: bool = False
+    # the blocks' parameters stacked on a leading layer axis, one block
+    # body run L times (the reference's nn.scan; a different tree)
+    scan_layers: bool = False
+    # --- options of the reference the port rejects for now ---
     tensor_shards: int = 1
     pipeline_shards: int = 1
     moe_experts: int = 0
-    remat: bool = False
-    scan_layers: bool = False
     # the LM's tokens: "host" (synthetic_text, uploaded) or "device" (made
     # on the card from the staged step, the reference's in-graph stream)
     token_gen: str = "host"
@@ -325,6 +335,8 @@ class TrainConfig:
         self._validate_wire()
         if self.network == LM_NETWORK:
             self._validate_lm()
+        elif self.seq_shards > 1:
+            raise ValueError("seq_shards > 1 requires network=TransformerLM")
         return self
 
     def _validate_optimizer(self) -> None:
@@ -675,17 +687,33 @@ class TrainConfig:
                 "vote's bitwise-equality contract is specified over "
                 "replicated CNN lanes (use baseline or cyclic; "
                 "draco_tpu/parallel/sp_step.py)")
+        if self.seq_shards < 1:
+            raise ValueError(f"seq_shards must be >= 1, got "
+                             f"{self.seq_shards}")
+        if self.seq_len % self.seq_shards != 0:
+            raise ValueError(f"seq_len {self.seq_len} not divisible by "
+                             f"seq_shards {self.seq_shards}")
+        if self.sp_attn not in ("ring", "a2a"):
+            raise ValueError(f"sp_attn must be ring|a2a, got {self.sp_attn}")
+        if self.moe_experts > 0 and self.seq_shards > 1:
+            raise ValueError(
+                "moe_experts > 0 with seq_shards > 1 is not implemented: "
+                "per-shard MoE routing/capacity would break sp "
+                "layout-invariance")
+        if (self.sp_attn == "a2a" and self.seq_shards > 1
+                and self.model_heads % self.seq_shards != 0):
+            raise ValueError(
+                f"sp_attn=a2a needs model_heads % seq_shards == 0 "
+                f"({self.model_heads} % {self.seq_shards})")
         not_ported = {
-            "seq_shards": self.seq_shards != 1,
             "tensor_shards": self.tensor_shards != 1,
             "pipeline_shards": self.pipeline_shards != 1,
             "moe_experts": self.moe_experts != 0,
-            "remat": self.remat,
-            "scan_layers": self.scan_layers,
         }
         for field, bad in not_ported.items():
             if bad:
                 raise ValueError(
                     f"{field}={getattr(self, field)!r} is not ported yet for "
-                    f"{LM_NETWORK} (the port runs the single-shard, unrolled "
-                    f"LM without experts, with host or device tokens)")
+                    f"{LM_NETWORK} (the port runs the LM without experts, "
+                    f"on one shard or seq_shards sequence shards, unrolled "
+                    f"or scanned, with or without remat)")

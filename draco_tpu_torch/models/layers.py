@@ -154,10 +154,15 @@ def init_params(model: nn.Module, seed: int) -> None:
     fan_in read in the JAX layout), each ``Embed`` table its normal of
     variance 1/dim, each drawn from its module's key (``rng.param_key`` of
     the module path, which is the Flax path) in the JAX layout and carried
-    to the port's; zero biases, unit norm scales."""
+    to the port's; zero biases, unit norm scales. A module of a scanned
+    stack (a child of a module with ``scanned`` set, the LM's ``blocks``)
+    holds a leading layer axis: each layer's slice is drawn from its own
+    key (``rng.scan_param_key``), as Flax's ``nn.scan`` draws it."""
     from draco_tpu_torch import params as params_mod
     from draco_tpu_torch import rng
 
+    stacks = {p: m.layers for p, m in model.named_modules()
+              if getattr(m, "scanned", False)}
     for path, mod in model.named_modules():
         weight = getattr(mod, "weight", None)
         if isinstance(weight, torch.Tensor):
@@ -167,12 +172,24 @@ def init_params(model: nn.Module, seed: int) -> None:
                 _, kind = params_mod.leaf_role(mod, "weight")
                 jshape = params_mod.to_jax_layout(
                     torch.empty(weight.shape, device="meta"), kind).shape
+                layers = stacks.get(path.rpartition(".")[0])
+                if layers is not None:
+                    jshape = jshape[1:]
                 embed = isinstance(mod, nn.Embedding)
                 fan_in = jshape[-1] if embed else int(
                     np.prod(jshape[:-1], dtype=np.int64))
-                leaf = rng.init_leaf(seed, path.split("."), jshape,
-                                     "embed" if embed else "lecun", fan_in,
-                                     weight.device)
+                kind_init = "embed" if embed else "lecun"
+                names = path.split(".")
+                if layers is None:
+                    leaf = rng.init_leaf(seed, names, jshape, kind_init,
+                                         fan_in, weight.device)
+                else:
+                    count = len(list(mod.parameters(recurse=False))) + 1
+                    leaf = torch.stack([rng.init_leaf(
+                        seed, names, jshape, kind_init, fan_in,
+                        weight.device,
+                        k=rng.scan_param_key(seed, layers, i, names, count))
+                        for i in range(layers)])
                 weight.copy_(params_mod.from_jax_layout(leaf, kind))
             else:
                 weight.fill_(1.0)  # a norm's scale

@@ -1,4 +1,4 @@
-"""Decoder-only Transformer LM (draco_tpu/models/transformer.py), unrolled.
+"""Decoder-only Transformer LM (draco_tpu/models/transformer.py).
 
 Pre-LN blocks, rotary embeddings, GELU MLP, weight-tied logits; the
 attention function is injected (dense streaming attention by default, the
@@ -18,6 +18,32 @@ Flax names (``block0``, ``LayerNorm_0``, ``qkv``, ``proj``, ``mlp_in``,
 
 Dense kernels are ``nn.Linear`` weights (out, in); ``params.py`` lays them
 out as Flax's (in, out).
+
+Two options of the reference change how the block stack runs, not what it
+computes:
+
+  * ``remat`` recomputes each block in the backward from its saved input
+    (the reference's ``nn.remat``): :class:`_Remat`, a
+    ``torch.autograd.Function`` whose backward runs ``torch.func.vjp`` of
+    the block. ``torch.utils.checkpoint`` does not run under the step's
+    ``torch.func.vmap(grad_and_value(...))``: with ``use_reentrant=False``
+    functorch refuses its saved-tensor hooks, with ``use_reentrant=True``
+    its Function has no ``setup_context``. The blocks draw nothing (no
+    dropout), so the recompute is the forward again: the same kernels on
+    the same shapes. It gives the non-remat gradients bit for bit, on the
+    CPU and on the card (``chip_smoke.py``'s ``stack_twin_checks``: the
+    remat leg's updates equal its twin's). The recompute runs outside
+    functorch's record of the backward, so only one block's activations
+    live at a time.
+  * ``scan_layers`` keeps the blocks' parameters as one ``blocks``
+    submodule whose leaves carry a leading layer axis (the reference's
+    ``nn.scan`` over ``BlockScan``: ``blocks.qkv.kernel`` (L, dim, 3·dim)
+    in Flax's layout), and runs the one block body L times over the
+    layers' slices. The slices are taken with one ``torch.unbind`` a
+    leaf, whose backward is one ``stack`` of the L slices' gradients
+    (``p[i]`` would make autograd write a zero-filled (L, ...) gradient
+    a layer and a lane). A scanned and an unrolled parameter tree are not
+    interchangeable; their initial draws differ too (``init_params``).
 """
 
 from __future__ import annotations
@@ -127,26 +153,119 @@ class Block(nn.Module):
         return x + self.mlp_out(h)
 
 
+class _Remat(torch.autograd.Function):
+    """``fn(x, positions, *params)`` whose backward recomputes ``fn`` from
+    the saved inputs with ``torch.func.vjp``: only the inputs are saved
+    (the parameters are the model's own tensors, ``x`` the block's input).
+    ``setup_context`` and the generated vmap rule let it run under
+    ``torch.func.vmap(grad_and_value(...))``; ``fn`` closes over no
+    tensor (functorch's levels refuse one), so the positions come in as
+    an input."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, x, positions, *params):
+        return fn(x, positions, *params)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, *saved = inputs
+        ctx.fn = fn
+        ctx.save_for_backward(*saved)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, positions, *params = ctx.saved_tensors
+        # torch.func's grad records the backward (create_graph=True): the
+        # recompute under no_grad keeps it out of that record, so each
+        # block's activations live only while its own vjp runs (vjp, a
+        # transform, still differentiates under an outer no_grad)
+        with torch.no_grad():
+            _, vjp_fn = torch.func.vjp(
+                lambda x, *ps: ctx.fn(x, positions, *ps), x, *params)
+            gx, *gps = vjp_fn(gy)
+        return (None, gx, None, *gps)
+
+
+def _run_block(body: nn.Module, weights: dict, x, positions, pos_offset,
+               remat: bool):
+    """``body`` with ``weights`` (torch names relative to the block) on
+    ``x``, recomputed in the backward under ``remat``."""
+    names = tuple(weights)
+
+    def fn(x, positions, *ws):
+        return torch.func.functional_call(body, dict(zip(names, ws)),
+                                          (x, positions, pos_offset))
+    if remat:
+        return _Remat.apply(fn, x, positions, *weights.values())
+    return fn(x, positions, *weights.values())
+
+
+class BlockStack(nn.Module):
+    """The reference's ``blocks`` (``nn.scan`` of ``BlockScan`` over
+    ``layers``): a Block's submodules with every parameter stacked on a
+    leading layer axis, the one body run over the layers' slices."""
+
+    scanned = True  # init_params draws each layer's slice from its own key
+
+    def __init__(self, layers: int, dim: int, heads: int,
+                 attn_fn: Optional[AttnFn] = None,
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__()
+        self.layers, self.remat = layers, remat
+        like = Block(dim, heads, attn_fn=attn_fn, dtype=dtype)
+        for name, mod in like.named_children():
+            for pname, p in list(mod.named_parameters(recurse=False)):
+                setattr(mod, pname, nn.Parameter(
+                    p.detach()[None].repeat(layers, *([1] * p.dim()))))
+            self.add_module(name, mod)
+        # the body the slices run through: its own parameters are never
+        # read (functional_call replaces every one), so they live on meta
+        with torch.device("meta"):
+            self.__dict__["body"] = Block(dim, heads, attn_fn=attn_fn,
+                                          dtype=dtype)
+
+    def forward(self, x, positions, pos_offset: int = 0):
+        names = [n for n, _ in self.named_parameters()]
+        per_layer = zip(*(p.unbind(0) for _, p in self.named_parameters()))
+        for ws in per_layer:
+            x = _run_block(self.body, dict(zip(names, ws)), x, positions,
+                           pos_offset, self.remat)
+        return x
+
+
 class TransformerLM(nn.Module):
     """tokens (B, T) int -> next-token logits (B, T, vocab) float32."""
 
     def __init__(self, vocab: int = 256, dim: int = 128, heads: int = 4,
                  layers: int = 2, attn_fn: Optional[AttnFn] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 scan_layers: bool = False):
         super().__init__()
         self.layers, self.dtype = layers, dtype
+        self.remat, self.scan_layers = remat, scan_layers
         self.embed = nn.Embedding(vocab, dim)
-        for i in range(layers):
-            setattr(self, f"block{i}", Block(dim, heads, attn_fn=attn_fn,
-                                             dtype=dtype))
+        if scan_layers:
+            self.blocks = BlockStack(layers, dim, heads, attn_fn=attn_fn,
+                                     dtype=dtype, remat=remat)
+        else:
+            for i in range(layers):
+                setattr(self, f"block{i}", Block(dim, heads, attn_fn=attn_fn,
+                                                 dtype=dtype))
         self.final_ln = LayerNorm(dim)
 
     def forward(self, tokens, pos_offset: int = 0):
         x = self.embed(tokens).to(self.dtype)
         positions = pos_offset + torch.arange(tokens.shape[1],
                                               device=tokens.device)
-        for i in range(self.layers):
-            x = getattr(self, f"block{i}")(x, positions, pos_offset)
+        if self.scan_layers:
+            x = self.blocks(x, positions, pos_offset)
+        else:
+            for i in range(self.layers):
+                blk = getattr(self, f"block{i}")
+                x = _run_block(blk, dict(blk.named_parameters()), x,
+                               positions, pos_offset, self.remat)
         x = self.final_ln(x)
         # weight-tied logits in float32
         return x.to(torch.float32) @ self.embed.weight.t()

@@ -1,5 +1,4 @@
-"""The coded TransformerLM training step at one sequence shard
-(draco_tpu/parallel/sp_step.py at sp=1).
+"""The coded TransformerLM training step (draco_tpu/parallel/sp_step.py).
 
 Each logical worker's gradient of the masked next-token cross-entropy is a
 lane of ``torch.func.vmap(grad_and_value(...))`` on one device: n lanes
@@ -16,8 +15,23 @@ present workers: a straggler's loss was never observed.
 
 The loss: position t predicts token t+1; the last position has no target
 and is masked, and the sum is divided by B·(T−1). (The reference's shard
-also predicts its successor shard's first token through one ppermute hop;
-at sp=1 that hop brings back the shard's own first token, masked.)
+also predicts its successor shard's first token through one ppermute hop,
+the global last position masked, and its per-shard sums add up over sp to
+this loss; at sp=1 that hop brings back the shard's own first token,
+masked.)
+
+Sequence parallelism (``seq_shards`` = sp > 1) on one card: the shard
+axis is a tensor axis of the attention, so the model runs on the full (B,
+T) with global positions, the objective is the single-shard one, and the
+reference's psum over sp of the shards' gradients is what autograd
+computes over the whole sequence. Only the attention changes
+(:func:`attn_fn_from_cfg`, as the reference picks it): the ring
+(``parallel/ring_attention.py``), dense or with the flash kernels at every
+hop, or the a2a head scatter (``parallel/a2a_attention.py``) around dense
+attention or the flash kernels. ``remat`` and ``scan_layers`` build the
+model with the recompute and the stacked layers
+(``models/transformer.py``); the initial parameters are the reference's
+``model.init`` of that tree, which differs between the two layouts.
 
 The decode runs globally or, at ``decode_granularity="layer"`` and on the
 segmented wire (``wire_segments > 1``), over the leaf boundaries and the
@@ -50,6 +64,7 @@ staged step.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -65,6 +80,7 @@ from draco_tpu_torch.models.transformer import TransformerLM
 from draco_tpu_torch.ops.coded import segment_plan
 from draco_tpu_torch.ops.decode_kernels import resolve_decode_impl
 from draco_tpu_torch.ops.flash_attention import attn_impl_fn
+from draco_tpu_torch.parallel.a2a_attention import a2a_attention
 from draco_tpu_torch.parallel.common import (
     aggregate_flat_grads,
     build_code_from_cfg,
@@ -74,6 +90,8 @@ from draco_tpu_torch.parallel.common import (
     present_mean,
     token_metric_names,
 )
+from draco_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                     ring_flash_attention)
 from draco_tpu_torch.obs.tracer import phase
 from draco_tpu_torch.ops import draws
 from draco_tpu_torch.resilience import faults
@@ -114,6 +132,9 @@ class SPTrainSetup(NamedTuple):
     make_chunk: Any
     # (state, chunk) -> (state, (k, len(block_names)) metrics on the device)
     train_token_many: Any
+    # (params, tokens (lanes, B, T) on the device) -> flat gradients
+    # (lanes, d), losses (lanes,): the step's gradient phase alone
+    lane_grads: Any = None
 
 
 def synthetic_text(seed: int, step: int, n: int, batch: int,
@@ -148,6 +169,32 @@ def token_fn_from_cfg(cfg: TrainConfig):
         cfg.vocab)
 
 
+def attn_fn_from_cfg(cfg: TrainConfig):
+    """The LM's attention as the reference picks it
+    (``build_sp_train_setup``): at one shard the flash kernels or (None)
+    the Block's dense default; at sp > 1 the ring with the flash kernels
+    at every hop, the a2a head scatter around them, or the dense ring or
+    a2a."""
+    flash = attn_impl_fn(cfg)
+    sp = cfg.seq_shards
+    if sp == 1:
+        return flash
+    if flash is not None and cfg.sp_attn == "ring":
+        return functools.partial(ring_flash_attention, shards=sp)
+    if flash is not None:
+        return functools.partial(a2a_attention, shards=sp, inner=flash)
+    route = ring_attention if cfg.sp_attn == "ring" else a2a_attention
+    return functools.partial(route, shards=sp)
+
+
+def model_key(cfg: TrainConfig) -> tuple:
+    """What the built model depends on: a setup that shares a live
+    setup's model (``live=``) must agree on it."""
+    return (cfg.vocab, cfg.model_dim, cfg.model_heads, cfg.model_layers,
+            cfg.compute_dtype, cfg.attn_impl, cfg.seq_shards, cfg.sp_attn,
+            cfg.remat, cfg.scan_layers)
+
+
 def build_sp_train_setup(cfg: TrainConfig, device=None,
                          init: Optional[dict] = None,
                          live: Optional[SPTrainSetup] = None
@@ -163,7 +210,7 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     ``training/step.build_train_setup(live=)``): its step and its chunk's
     graph read and update the same parameter, optimizer and count tensors,
     so switching between the two copies no weights. ``cfg`` must keep the
-    live setup's model and worker count."""
+    live setup's model (``model_key``) and worker count."""
     cfg.validate()
     if cfg.network != LM_NETWORK:
         raise ValueError(f"the LM step runs network={LM_NETWORK}, got "
@@ -178,12 +225,18 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
         if live.device != dev:
             raise ValueError(f"build_sp_train_setup: the live setup runs on "
                              f"{live.device}, not {dev}")
+        if live.model.key != model_key(cfg):
+            raise ValueError(f"build_sp_train_setup: the live setup's model "
+                             f"is {live.model.key}, cfg's {model_key(cfg)}")
         model, state, layout = live.model, live.state, live.layout
     else:
         model = TransformerLM(vocab=cfg.vocab, dim=cfg.model_dim,
                               heads=cfg.model_heads, layers=cfg.model_layers,
-                              attn_fn=attn_impl_fn(cfg),
-                              dtype=COMPUTE_DTYPES[cfg.compute_dtype]).to(dev)
+                              attn_fn=attn_fn_from_cfg(cfg),
+                              dtype=COMPUTE_DTYPES[cfg.compute_dtype],
+                              remat=cfg.remat,
+                              scan_layers=cfg.scan_layers).to(dev)
+        model.key = model_key(cfg)
         with torch.no_grad():
             if init is None:
                 init_params(model, cfg.seed)
@@ -326,7 +379,8 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
                         dim=dim, metric_names=names, device=dev,
                         decode_impl=decode_impl, step_body=step_body,
                         block_names=block_names, make_chunk=make_chunk,
-                        train_token_many=train_token_many)
+                        train_token_many=train_token_many,
+                        lane_grads=lane_grads)
 
 
 def train_sp(cfg: TrainConfig, device=None, steps: Optional[int] = None,

@@ -309,15 +309,30 @@ def param_key(seed: int, path) -> tuple:
     return fold_in_static(key(seed), *path, 1)
 
 
+def scan_param_key(seed: int, layers: int, layer: int, path,
+                   count: int) -> tuple:
+    """The key of layer ``layer``'s first parameter of the module at
+    ``path`` inside an ``nn.scan`` over ``layers`` with
+    ``split_rngs={"params": True}`` (the scanned LM's ``blocks``). Flax's
+    lifted scan splits the raw root key (not its path-folded form) into
+    ``layers`` keys, keeps the scope's path suffix and folds it on each
+    layer's key; and its ``init`` traces the scan body twice on one rng
+    counter, so the parameters come from the second trace: ``count`` is
+    the module's parameter count plus one."""
+    k = split(key(seed), layers)[layer]
+    return fold_in_static((int(k[0]), int(k[1])), *path, count)
+
+
 def init_leaf(seed: int, path, shape, kind: str, fan_in: int,
-              device=None) -> torch.Tensor:
+              device=None, k=None) -> torch.Tensor:
     """One initial parameter of the reference's ``model.init`` in its JAX
     layout ``shape``, float32: ``kind`` "lecun" is Flax's default kernel
     initialiser (variance_scaling(1, "fan_in", "truncated_normal"): the
     truncated normal times √(1/fan_in) / TN_STD), "embed" the ``Embed``
-    default (an untruncated normal of variance 1/fan_in)."""
+    default (an untruncated normal of variance 1/fan_in). ``k``: the draw's
+    key where it is not ``param_key(seed, path)``."""
     numel = int(np.prod(shape, dtype=np.int64))
-    k = param_key(seed, path)
+    k = param_key(seed, path) if k is None else k
     sd = np.sqrt(np.float32(1.0 / fan_in))
     if kind == "lecun":
         z = draw_flat(truncated_normal_from_bits, k, numel, device)

@@ -144,6 +144,18 @@ class LoopRunState:
         try:
             arrays, loaded, _ = restore_with_walkback(
                 self.cfg.train_dir, step, self.state.specs(lay))
+        except ckpt.LeafCountError as e:
+            # the LM's two layer layouts hold different trees
+            # (models/transformer.py): refused, never restacked
+            scan = getattr(self.setup.model, "scan_layers", None)
+            if scan is None or e.count != self._other_layout_leaves(scan):
+                raise
+            held = ("stacked (scan_layers=True)" if scan
+                    else "unrolled (scan_layers=False)")
+            raise ValueError(
+                f"{e}: this run's LM keeps its blocks {held}; the "
+                f"checkpoint's count is the other layer layout's, which is "
+                f"not interchangeable with it and is not restacked") from e
         except FileNotFoundError:
             if step != -1:
                 raise
@@ -154,6 +166,25 @@ class LoopRunState:
             return None
         self.state.load(arrays, lay)
         return loaded
+
+    def _other_layout_leaves(self, scan: bool) -> int:
+        """The leaf count of this LM's state in the other layer layout
+        (built on meta, nothing allocated)."""
+        import torch
+
+        from draco_tpu_torch import optim, params as params_mod
+        from draco_tpu_torch.models.transformer import TransformerLM
+        from draco_tpu_torch.training.step import TrainState
+
+        cfg = self.cfg
+        with torch.device("meta"):
+            model = TransformerLM(cfg.vocab, cfg.model_dim, cfg.model_heads,
+                                  cfg.model_layers, scan_layers=not scan)
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        state = TrainState(params=params, stats={},
+                           opt=optim.build_optimizer_from_cfg(cfg))
+        state.opt.init(params)
+        return len(state.specs(params_mod.layout(model)))
 
     def boundary(self, step: int) -> None:
         """The ``eval_freq`` boundary: evaluate, then checkpoint."""

@@ -74,6 +74,16 @@ class CheckpointCorruptError(ValueError):
         self.actual = actual
 
 
+class LeafCountError(ValueError):
+    """A checkpoint that holds ``count`` arrays for a state of
+    ``expected`` leaves (a structural mismatch, never retried past)."""
+
+    def __init__(self, count: int, expected: int):
+        super().__init__(f"checkpoint holds {count} arrays, the state has "
+                         f"{expected}")
+        self.count, self.expected = count, expected
+
+
 def _path(train_dir: str, step: int) -> str:
     return os.path.abspath(os.path.join(train_dir, f"model_step_{step}"))
 
@@ -209,8 +219,7 @@ def _load_dcg(path: str, specs: Sequence) -> list:
                                              "bad magic (torn header)")
             (count,) = struct.unpack("<I", head[4:])
             if count != len(specs):
-                raise ValueError(f"checkpoint holds {count} arrays, the "
-                                 f"state has {len(specs)}")
+                raise LeafCountError(count, len(specs))
             out = []
             for spec in specs:
                 (blen,) = struct.unpack("<Q", take(8, "blob length"))

@@ -53,7 +53,9 @@ LEGS = ("simulate", "geomedian", "shared", "approx", "approx_int8",
         "approx_watch_int8_sr", "majvote_shadow_int8",
         "lm_shared_flash_watch", "lm_approx_flash",
         "lm_approx_int8_sr_flash", "lm_shared_int8_flash",
-        "lm_shared_flash_drop2")
+        "lm_shared_flash_drop2", "lm_shared_flash_remat",
+        "lm_shared_flash_scan", "lm_big_shared_flash", "lm_sp4_ring_flash",
+        "lm_sp4_a2a_flash")
 # the legs' workers at full width: presets rep-resnet18 and cyclic-vgg11
 # (n=9), single-lenet (n=1), the ResNet tree legs (n=16), the approx tree
 # (n=9), the others n=8

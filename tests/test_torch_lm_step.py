@@ -156,9 +156,11 @@ def test_eval_step(leg):
 
 
 # the device tokens and the random attack under K > 1 run now (their
-# draws read the staged step): those cases (PORTED) validate and run a
-# step; the others are still refused
-PORTED = ("token_gen=device", "steps_per_call=4")
+# draws read the staged step), and sequence shards, remat and the scanned
+# layer stack: those cases (PORTED) validate and run a step; the others
+# are still refused
+PORTED = ("token_gen=device", "steps_per_call=4", "seq_shards=2",
+          "remat=True", "scan_layers=True", "seq_shards=2-wire_dtype=int8")
 
 
 @pytest.mark.parametrize("override", [
