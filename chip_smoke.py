@@ -175,9 +175,17 @@ prints no result line):
               159,470,592, T=2048, with remat and the stacked layers),
               ``lm_sp4_ring_flash`` and ``lm_sp4_a2a_flash`` (four
               sequence shards: the flash kernels at every ring hop, or on
-              the a2a's permuted heads).
+              the a2a's permuted heads). Five run the LM's model-parallel
+              routes, each shard axis a tensor axis
+              (``registry.MP_TWINS``): ``lm_shared_dense`` (the plain
+              streaming attention), ``lm_shared_dense_tp2`` (two tensor
+              shards), ``lm_shared_flash_pp2`` (the GPipe pipeline, two
+              stages and two microbatches), ``lm_shared_dense_moe4``
+              (four Switch experts a block, d = 176,321,280) and
+              ``lm_shared_dense_moe4_ep2`` (the ep route at two expert
+              shards: the MoE as it is, ``parallel/ep_step.py``).
               Each leg runs through the entry points a user calls (Trainer /
-              build_sp_train_setup + TokenLoop) with the launch counts
+              the route's builder + TokenLoop) with the launch counts
               zeroed just before it and read just after; every coded step
               must locate its adversaries (honest_located = n − 2s, on a
               segmented leg ≤ n − 2s: the rows honest in every segment;
@@ -198,7 +206,19 @@ prints no result line):
               ms/step beside the twin's; what remat saves
               (``remat_memory``): the gradient phase's peak lower with it
               at LM_FULL and at lm_big, and lm_big's step without remat
-              once (its step peak, or the out-of-memory message);
+              once (its step peak, or the out-of-memory message); the
+              model-parallel legs against their twins (``mp_twin_checks``):
+              tp2 beside lm_shared_dense and ep2 beside
+              lm_shared_dense_moe4 from the same draw, pp2 beside
+              lm_shared_flash_scan from the pipeline's parameters renamed
+              blocks.loop.b.* -> blocks.*, 3 eager steps each with the
+              twin's decode columns; tp2 and pp2 with the loss to 1e-3
+              relative and the update inside a bound that a control falls
+              outside (tp2 with one shard's row-parallel partial dropped,
+              pp2 with its last microbatch dropped from the schedule), ep2
+              bit for bit, its routing, losses and updates; the MoE leg's
+              dropped tokens a step; each one's chunk ms/step beside its
+              twin's;
               each segmented leg against its twin: the detection columns
               equal on every eager and chunked step, and the first step's
               decoded aggregate (fresh setups, deterministic cuDNN) within
@@ -433,6 +453,7 @@ from draco_tpu_torch.obs.tracer import PHASES
 from draco_tpu_torch.ops import coded, controls, decode_kernels, draws, vote
 from draco_tpu_torch.ops import flash_attention as fa
 from draco_tpu_torch.ops import numerics as ops_numerics
+from draco_tpu_torch.parallel import build_route_setup
 from draco_tpu_torch.parallel import common as common_mod
 from draco_tpu_torch.parallel.common import decode_bounds
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
@@ -480,7 +501,13 @@ LM_D = 62_958_336  # the LM's flat gradient
 # and final_ln 1,024
 LM_BIG_D = 12 * 12_590_080 + 8_388_608 + 1_024
 assert LM_BIG_D == 159_470_592
-LEG_D = {"lm_big_shared_flash": LM_BIG_D}
+# the LM with four Switch experts a block: 8 blocks of 21,253,632 (qkv
+# 1,769,472, proj 589,824, router 3,072, w1 and w2 9,437,184 each, b1
+# 12,288, b2 3,072, two scales 1,536), embed 6,291,456 and final_ln 768
+MOE_D = 8 * 21_253_632 + 6_291_456 + 768
+assert MOE_D == 176_321_280
+LEG_D = {"lm_big_shared_flash": LM_BIG_D, "lm_shared_dense_moe4": MOE_D,
+         "lm_shared_dense_moe4_ep2": MOE_D}
 G_LM = N * 2 * 12  # flash heads per call on the shared leg: lanes·B·H
 # the segmented decode's kernels (the layer decode, wire_segments > 1), and
 # the whole-d kernels they take the place of on a segmented leg
@@ -547,7 +574,12 @@ EXPECT = {"simulate": CODED[1:] + AUG, "geomedian": AUG,
           "lm_shared_flash_scan": CODED + FLASH,
           "lm_big_shared_flash": CODED + FLASH,
           "lm_sp4_ring_flash": CODED + FLASH,
-          "lm_sp4_a2a_flash": CODED + FLASH}
+          "lm_sp4_a2a_flash": CODED + FLASH,
+          # the LM's model-parallel routes: no flash kernel on the dense
+          # attention (``drive`` holds them at 0 there)
+          "lm_shared_dense": CODED, "lm_shared_dense_tp2": CODED,
+          "lm_shared_flash_pp2": CODED + FLASH,
+          "lm_shared_dense_moe4": CODED, "lm_shared_dense_moe4_ep2": CODED}
 # the draw kernels a leg launches only where it draws: no other leg
 # launches them
 DRAWS = ("random_inject", "round_draw", "synthetic_text", "augment_draws",
@@ -845,7 +877,7 @@ def locator_pair(code, dev) -> tuple:
     return plain, kernel
 
 
-def locator_cases(code, dev, g, cases, old_lib=None) -> float:
+def locator_cases(code, dev, g, cases, old_lib=None, width=64) -> float:
     """Each case (label, L, attacked, absent, λ, NaN) through the kernel
     and its plain version: the discrete outputs (honest, flagged, loud)
     equal; v within 1e-4 of max|v| and the residual within 1e-5 (f32 solves
@@ -869,7 +901,8 @@ def locator_cases(code, dev, g, cases, old_lib=None) -> float:
     worst = 0.0
     for label, L, attacked, absent, lam, nan in cases:
         label = f"n={code.n}, s={code.s}, {label}"
-        e_re, e_im, pres = locator_columns(code, L, attacked, absent, dev, g)
+        e_re, e_im, pres = locator_columns(code, L, attacked, absent, dev, g,
+                                           width)
         if nan is not None:
             cols = slice(None) if nan[0] is None else nan[0]
             e_re[cols, nan[1]] = float("nan")
@@ -2218,6 +2251,43 @@ def lm_width_kernels(code, dev) -> dict:
     return out
 
 
+def moe_width_kernels(code, dev) -> dict:
+    """Rows 1–4 at the MoE legs' d = 176,321,280, n=8 (their first run at
+    that d): the three coded products on random inputs (``product_rows``:
+    each against its plain version, twice bit for bit, timed beside its
+    plain version, torch.matmul and its bound), and the locator on the
+    projected column of a real encode at that d with row 3 reversed, its
+    discrete outputs equal the plain version's and the adversary located,
+    timed on one column (the work does not grow with d) from a graph
+    beside its plain version. name -> row."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    out = {}
+    for name, m in product_rows(code, dev, MOE_D, g, reps=5).items():
+        b_ms, b_by = bound(m["nbytes"], m["flops"])
+        require(m["err"] <= m["tol"], f"{name} at the MoE's d: max_abs_err "
+                f"{m['err']} > tol {m['tol']}")
+        out[name] = {"d": MOE_D, "max_abs_err": m["err"], "tol": m["tol"],
+                     "ms": m["ms"], "plain_ms": m["plain_ms"],
+                     "library_ms": m["library_ms"], "bound_ms": b_ms,
+                     "bound_by": b_by, "bitwise_repeat": True}
+    torch.cuda.empty_cache()
+    worst = locator_cases(code, dev, g, [
+        ("L=1 at the MoE's d, attacked row 3", 1, (3,), (), 0.0, None)],
+        width=MOE_D)
+    torch.cuda.empty_cache()
+    # the global decode's one column: the same work at any d
+    t8 = locator_timing(code, dev, g)
+    out["cyclic_locator"] = {
+        "d": MOE_D, "max_abs_err": worst, "tol": "discrete equal; v 1e-4 rel",
+        "library_ms": None, **{k: t8[k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")}}
+    for name, r in out.items():
+        print(f"kernel {name} at the MoE's d={MOE_D}: "
+              + ", ".join(f"{k}={v:.4g}" if isinstance(v, float)
+                          else f"{k}={v}" for k, v in r.items()), flush=True)
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 2b: the segment kernels (the segmented wire, the layer decode)
 # --------------------------------------------------------------------------
@@ -3083,6 +3153,22 @@ def lint_controls_card(dev) -> list:
 # phase 3: the training legs
 # --------------------------------------------------------------------------
 
+# each CNN dataset loaded once a run and shared by the legs and the lint
+# (a synthetic set takes seconds to make)
+DATASETS = {}
+
+
+def dataset_of(lp):
+    """The full-width dataset a leg of the registry trains on (None for
+    the LM, which makes its tokens), loaded on first use."""
+    if lp.route != "cnn":
+        return None
+    name = lp.config(True).dataset
+    if name not in DATASETS:
+        DATASETS[name] = load_dataset(name)
+    return DATASETS[name]
+
+
 def run_leg(lp, steps: int, dev, profile: bool = False) -> dict:
     """One leg of the registry (analysis/registry.py) at full width, built
     through the entry points a user calls: a ResNet-18 leg through the CNN
@@ -3091,15 +3177,15 @@ def run_leg(lp, steps: int, dev, profile: bool = False) -> dict:
     chunk (phase 6), then under ``profile`` one profiled step."""
     program = lp.build(dev, full=True,
                        max_steps=steps + 1 + LOOP_CHUNKS * CHUNK_K,
-                       steps_per_call=CHUNK_K)
-    if lp.route == "lm":
+                       steps_per_call=CHUNK_K, dataset=dataset_of(lp))
+    if lp.route != "cnn":
         dim, want = program.runner.setup.dim, LEG_D.get(lp.name, LM_D)
         require(dim == want, f"{lp.name}: d={dim}, expected {want}")
     out = drive(lp.name, program, steps, EXPECT[lp.name], dev)
     out["chunk"] = chunk_leg(lp, program, dev, profile)
     if profile:
         profile_leg(out, program.runner)
-    if lp.route == "lm":
+    if lp.route != "cnn":
         out["dim"] = program.runner.setup.dim
     return out
 
@@ -3198,6 +3284,9 @@ def drive(name, program, steps, expect, dev) -> dict:
     off = WHOLE if name in registry.TWINS else SEGMENTED
     # a leg draws on the device only for the options that draw
     off += tuple(k for k in DRAWS if k not in expect)
+    # the plain streaming attention launches no flash kernel
+    if cfg.network == "TransformerLM" and cfg.attn_impl == "dense":
+        off += FLASH
     require(all(counts[k] == 0 for k in off),
             f"{name}: launched {[k for k in off if counts[k]]} ({counts})")
     if name in FALLING:
@@ -3660,7 +3749,7 @@ def chunk_leg(lp, program, dev, profile: bool) -> dict:
     tolerance (loss 1e-4 relative, update 5e-2 relative L2,
     cross_device_check). The state is left as the snapshot had it."""
     name, cfg = lp.name, program.cfg
-    K, lm = cfg.steps_per_call, lp.route == "lm"
+    K, lm = cfg.steps_per_call, lp.route != "cnn"
     runs = _ChunkRuns(program)
     recs_e, eager_ms, fin_e = runs.eager()
     recs_b, _, fin_b = runs.eager() if lm else (None, None, None)
@@ -3853,32 +3942,47 @@ SP_TOL = {"lm_sp4_ring_flash": (SP_RING_LOSS_RTOL, SP_RING_UPDATE_RTOL),
           "lm_sp4_a2a_flash": (STACK_LOSS_RTOL, STACK_UPDATE_RTOL)}
 
 
-def _lm_steps(cfg, dev, steps: int, init=None) -> tuple:
-    """``steps`` eager LM steps through build_sp_train_setup and the token
+def _lm_steps(cfg, dev, steps: int, init=None, probe=None) -> tuple:
+    """``steps`` eager LM steps through the route's builder and the token
     loop from ``init`` (default: the seed's draw): (their records, each
     step's parameter update as one flat host vector in the unrolled
-    layout's order, the initial parameters on the card)."""
-    setup = build_sp_train_setup(cfg, dev, init=init)
+    layout's order, the initial parameters on the card). ``probe(setup,
+    step)`` runs before each step."""
+    setup = build_route_setup(cfg, dev, init=init)
     loop = TokenLoop(setup, cfg, quiet=True)
     first = {k: v.clone() for k, v in setup.state.params.items()}
     with torch.device("meta"):
         unrolled = params_mod.layout(TransformerLM(
-            cfg.vocab, cfg.model_dim, cfg.model_heads, cfg.model_layers))
+            cfg.vocab, cfg.model_dim, cfg.model_heads, cfg.model_layers,
+            experts=cfg.moe_experts))
 
     def flat():
-        p = setup.state.params
-        if cfg.scan_layers:
+        p = unpipe(setup.state.params)
+        if cfg.scan_layers or cfg.pipeline_active:
             p = unstack(p, cfg.model_layers)
         return params_mod.flatten(p, unrolled).cpu()
 
     prev = flat()
     recs, deltas = [], []
     for _ in range(steps):
+        if probe is not None:
+            probe(setup, loop.state.step)
         recs.append(loop.step())
         cur = flat()
         deltas.append(cur - prev)
         prev = cur
     return recs, deltas, first
+
+
+def unpipe(params: dict) -> dict:
+    """The pipeline's parameters under the scanned LM's names:
+    ``blocks.loop.b.<leaf>`` -> ``blocks.<leaf>`` (the same stacked
+    shapes)."""
+    return {("blocks." + k[len(PP_BLOCKS):] if k.startswith(PP_BLOCKS)
+             else k): v for k, v in params.items()}
+
+
+PP_BLOCKS = "blocks.loop.b."
 
 
 def restack(params: dict, layers: int) -> dict:
@@ -4031,6 +4135,202 @@ def stack_twin_checks(legs, dev) -> dict:
               f"{row['loop_ms_per_step']:.2f} ms/step; eager peak "
               f"{row['eager_peak_mem_gb']:.2f} GB, graph pool "
               f"{row['pool_bytes'] / 2**30:.2f} GiB", flush=True)
+    return out
+
+
+# the model-parallel legs against their twins (registry.MP_TWINS), over
+# STACK_STEPS eager steps: the twin's decode columns, the loss within
+# MP_LOSS_RTOL relative and the update within the leg's bound in relative
+# L2, a control outside it. Set before the first run on the card: tp2's
+# bf16 row-parallel partials round to bf16 before their sum, and pp2's
+# microbatches change the matmuls' shapes, so each takes the ring's 3e-2
+# (bf16 chaos over three steps, PERF.md §6). ep2 runs its twin's MoE as
+# it is (parallel/ep_step.py: with top-1 routing a per-group combine adds
+# exact zeros), so it is held bit for bit: losses, updates and routing
+MP_LOSS_RTOL = 1e-3
+MP_UPDATE_RTOL = {"lm_shared_dense_tp2": 3e-2, "lm_shared_flash_pp2": 3e-2}
+
+
+@contextlib.contextmanager
+def row_partial_dropped():
+    """tp2's negative control: a row-parallel layer leaves its last
+    shard's partial out of the sum."""
+    from draco_tpu_torch.models import transformer as tmod
+
+    fwd = tmod.Dense.forward
+
+    def dropped(self, x):
+        if self.parallel != "row" or self.shards == 1:
+            return fwd(self, x)
+        dt = self.dtype
+        parts = list(zip(x.to(dt).chunk(self.shards, -1),
+                         self.weight.to(dt).chunk(self.shards, 1)))[:-1]
+        out = sum(F.linear(xi, wi) for xi, wi in parts)
+        return out if self.bias is None else out + self.bias.to(dt)
+
+    tmod.Dense.forward = dropped
+    try:
+        yield
+    finally:
+        tmod.Dense.forward = fwd
+
+
+@contextlib.contextmanager
+def last_microbatch_dropped():
+    """pp2's negative control: the schedule's last microbatch never
+    reaches the head (its output zeros)."""
+    from draco_tpu_torch.parallel.pp_step import PipelineLM
+
+    sched = PipelineLM.schedule
+
+    def dropped(self, x_mb, positions):
+        outs = sched(self, x_mb, positions)
+        return torch.cat([outs[:-1], torch.zeros_like(outs[-1:])])
+
+    PipelineLM.schedule = dropped
+    try:
+        yield
+    finally:
+        PipelineLM.schedule = sched
+
+
+def moe_probe(sink: list, cfg):
+    """A probe for ``_lm_steps`` of ``cfg``: each MoE block's routing of
+    every lane at the step's tokens and parameters (one forward a lane,
+    outside the step), as (expert index (n, blocks, B·T) int, dropped
+    tokens a lane and block (n, blocks))."""
+    from draco_tpu_torch.models.moe import MoeMlp
+
+    def probe(setup, step):
+        model = setup.model
+        toks = torch.as_tensor(sp_text(cfg.seed, step, cfg.num_workers,
+                                       cfg.batch_size, cfg.seq_len,
+                                       cfg.vocab), device=setup.device).long()
+        seen = []
+
+        def hook(mod, inp, _):
+            h = inp[0]
+            dispatch, _, eidx = mod.route(h.reshape(-1, h.shape[-1]))
+            seen.append((eidx, eidx.numel() - dispatch.sum()))
+
+        hooks = [m.register_forward_hook(hook) for m in model.modules()
+                 if isinstance(m, MoeMlp)]
+        try:
+            with torch.no_grad():
+                for lane in toks:
+                    model(lane)
+        finally:
+            for h in hooks:
+                h.remove()
+        blocks = len(hooks)
+        eidx = torch.stack([e for e, _ in seen]).view(
+            toks.shape[0], blocks, -1).cpu()
+        drops = torch.stack([d for _, d in seen]).view(
+            toks.shape[0], blocks).cpu()
+        sink.append((eidx, drops))
+    return probe
+
+
+def _control_outside(label, bad, base, bound_rtol) -> float:
+    worst = max(((u - w).norm() / w.norm()).item()
+                for u, w in zip(bad, base))
+    require(worst > bound_rtol, f"control {label}: update rel L2 "
+            f"{worst:.3e}, inside the bound {bound_rtol:g}")
+    print(f"control: {label}, worst update rel L2 {worst:.3e} (outside "
+          f"{bound_rtol:g})", flush=True)
+    return worst
+
+
+def mp_twin_checks(legs, dev) -> dict:
+    """The model-parallel legs beside their twins (``registry.MP_TWINS``,
+    module docstring, phase 4): tp2 and ep2 from their twins' draw, pp2's
+    twin from the pipeline's parameters renamed; tp2 and pp2 each with its
+    control, ep2 bit for bit; the MoE leg's routing and dropped tokens;
+    every leg's eager, chunk and loop ms/step and step peak beside its
+    twin's."""
+    by = {lg["leg"]: lg for lg in legs}
+    out = {}
+
+    def cfg_of(name):
+        return registry.get(name).config(True, max_steps=STACK_STEPS)
+
+    def settle():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    tp, twin = "lm_shared_dense_tp2", "lm_shared_dense"
+    base = _lm_steps(cfg_of(twin), dev, STACK_STEPS)
+    leg = _lm_steps(cfg_of(tp), dev, STACK_STEPS)
+    out[tp] = {"steps": _held_steps(f"{tp} / {twin}", leg, base,
+                                    MP_LOSS_RTOL, MP_UPDATE_RTOL[tp])}
+    del leg
+    settle()
+    with row_partial_dropped():
+        _, bad, _ = _lm_steps(cfg_of(tp), dev, STACK_STEPS)
+    out[tp]["control_row_partial_dropped"] = _control_outside(
+        f"{tp} with one shard's row-parallel partial dropped", bad, base[1],
+        MP_UPDATE_RTOL[tp])
+    del base, bad
+    settle()
+
+    pp, twin = "lm_shared_flash_pp2", "lm_shared_flash_scan"
+    leg = _lm_steps(cfg_of(pp), dev, STACK_STEPS)
+    base = _lm_steps(cfg_of(twin), dev, STACK_STEPS, init=unpipe(leg[2]))
+    out[pp] = {"steps": _held_steps(f"{pp} / {twin} (renamed)", leg, base,
+                                    MP_LOSS_RTOL, MP_UPDATE_RTOL[pp])}
+    del leg
+    settle()
+    with last_microbatch_dropped():
+        _, bad, _ = _lm_steps(cfg_of(pp), dev, STACK_STEPS)
+    out[pp]["control_last_microbatch_dropped"] = _control_outside(
+        f"{pp} with its last microbatch dropped", bad, base[1],
+        MP_UPDATE_RTOL[pp])
+    del base, bad
+    settle()
+
+    ep, twin = "lm_shared_dense_moe4_ep2", "lm_shared_dense_moe4"
+    routes_twin, routes_ep = [], []
+    base = _lm_steps(cfg_of(twin), dev, STACK_STEPS,
+                     probe=moe_probe(routes_twin, cfg_of(twin)))
+    leg = _lm_steps(cfg_of(ep), dev, STACK_STEPS,
+                    probe=moe_probe(routes_ep, cfg_of(ep)))
+    for i, ((ea, da), (eb, db)) in enumerate(zip(routes_ep, routes_twin)):
+        require(torch.equal(ea, eb) and torch.equal(da, db),
+                f"{ep} step {i + 1}: routing differs from {twin}'s on "
+                f"{int((ea != eb).sum())} tokens")
+    steps = _held_steps(f"{ep} / {twin}", leg, base, 0.0, 0.0)
+    require(all(r["update_bitwise"] for r in steps),
+            f"{ep} / {twin}: the updates differ")
+    out[ep] = {"steps": steps, "routing_equal_steps": len(routes_ep)}
+    del leg, base
+    settle()
+    cfg = cfg_of(twin)
+    n_tok = cfg.batch_size * cfg.seq_len
+    drops = [d.sum(dim=1).tolist() for _, d in routes_twin]
+    out[twin] = {"dropped_tokens_per_lane": drops,
+                 "tokens_per_lane": n_tok * cfg.model_layers,
+                 "capacity": max(int(1.25 * n_tok / cfg.moe_experts), 1)}
+    print(f"moe {twin}: dropped tokens a step, per lane over its "
+          f"{cfg.model_layers} blocks of {n_tok} tokens (capacity "
+          f"{out[twin]['capacity']} an expert): {drops}", flush=True)
+
+    cols = ("eager_ms_per_step", "chunk_ms_per_step", "loop_ms_per_step")
+    for leg_name, twin_name in registry.MP_TWINS.items():
+        for name in (leg_name, twin_name):
+            row = {c: by[name]["chunk"][c] for c in cols}
+            row["eager_peak_mem_gb"] = by[name]["peak_mem_gb"]
+            row["pool_bytes"] = by[name]["chunk"]["pool_bytes"]
+            out.setdefault(name, {})["timing"] = row
+        a, b = out[leg_name]["timing"], out[twin_name]["timing"]
+        print(f"mp leg {leg_name} beside {twin_name}: eager "
+              f"{a['eager_ms_per_step']:.2f} / {b['eager_ms_per_step']:.2f}, "
+              f"chunk {a['chunk_ms_per_step']:.2f} / "
+              f"{b['chunk_ms_per_step']:.2f}, loop "
+              f"{a['loop_ms_per_step']:.2f} / {b['loop_ms_per_step']:.2f} "
+              f"ms/step; eager peak {a['eager_peak_mem_gb']:.2f} / "
+              f"{b['eager_peak_mem_gb']:.2f} GB; pool "
+              f"{a['pool_bytes'] / 2**30:.2f} / {b['pool_bytes'] / 2**30:.2f}"
+              f" GiB", flush=True)
     return out
 
 
@@ -4468,13 +4768,25 @@ def lint_legs(dev) -> list:
     rows = []
     for lp in (registry.collect() + registry.collect_chunks()
                + registry.collect_guard() + registry.collect_autopilot()):
-        program = lp.build(dev, full=True)
-        rows.append({"leg": lp.name, "manifest_h2d_bytes":
-                     program.manifest.h2d_bytes,
-                     **lint_leg(lp.name, program)})
-        del program
-        gc.collect()
-        torch.cuda.empty_cache()
+        # the memory live around each leg's lint (a step peak above its
+        # budget late in a whole run shows here whether an earlier phase
+        # left memory live)
+        live_before = torch.cuda.memory_allocated(dev)
+        program = lp.build(dev, full=True, dataset=dataset_of(
+            registry.get(getattr(lp, "leg", lp.name))))
+        row = {"leg": lp.name, "manifest_h2d_bytes":
+               program.manifest.h2d_bytes, "live_before_bytes": live_before}
+        try:
+            row.update(lint_leg(lp.name, program))
+        finally:
+            del program
+            gc.collect()
+            torch.cuda.empty_cache()
+            row["live_after_bytes"] = torch.cuda.memory_allocated(dev)
+            print(f"audit lint memory {lp.name}: live "
+                  f"{live_before / 2**30:.3f} GiB before its build, "
+                  f"{row['live_after_bytes'] / 2**30:.3f} after", flush=True)
+        rows.append(row)
     # the device tokens' chunk stages K step numbers and the masks, nothing
     # else: its measured bytes are its manifest's
     devgen = next(r for r in rows if r["leg"] == "chunk_lm_shared_flash_devgen")
@@ -6107,6 +6419,11 @@ def main(argv=None) -> int:
         if row["name"] in lm_rows:
             row["lm_d"] = lm_rows[row["name"]]
     torch.cuda.empty_cache()
+    moe_rows = moe_width_kernels(code, dev)
+    for row in kernels:
+        if row["name"] in moe_rows:
+            row["moe_d"] = moe_rows[row["name"]]
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     record["kernel_audit"] = audit_kernels()
     record["kernel_audit_s"] = time.perf_counter() - t0
@@ -6118,7 +6435,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     legs = []
     for lp in registry.collect():
-        steps = LEG_STEPS.get(lp.name, args.lm_steps if lp.route == "lm"
+        steps = LEG_STEPS.get(lp.name, args.lm_steps if lp.route != "cnn"
                               else args.steps)
         legs.append(run_leg(lp, steps, dev, args.profile))
         gc.collect()  # the leg's setups and their graphs' pools
@@ -6129,8 +6446,9 @@ def main(argv=None) -> int:
     record["chunk"] = chunk_summary(legs)
     record["lm_code_twins"] = lm_code_twins(legs)
     record["stack_twins"] = stack_twin_checks(legs, dev)
+    record["mp_twins"] = mp_twin_checks(legs, dev)
     record["remat_memory"] = remat_memory(dev)
-    ds = load_dataset(registry.CNN_FULL["dataset"])
+    ds = dataset_of(registry.get("simulate"))
     record["twins"] = twin_checks(legs, dev, ds)
     record["tree_vs_flat"] = tree_vs_flat(dev, ds)
     gc.collect()

@@ -3,7 +3,7 @@
 
 Every leg ``chip_smoke.py`` drives registers here as a :class:`LintProgram`:
 the configuration fields that make the leg, built through the entry points
-a user calls (``Trainer`` for ResNet-18, ``build_sp_train_setup`` and
+a user calls (``Trainer`` for ResNet-18, the route's builder and
 ``TokenLoop`` for the TransformerLM) at a CI size on the CPU
 (``full=False``) or at the width the leg runs on the card (``full=True``).
 Its :class:`Manifest` is the reviewable statement of what one step does
@@ -70,6 +70,16 @@ stacked layers, tools/tpu_lm_lowering_check.py), and
 ``lm_sp4_ring_flash`` and ``lm_sp4_a2a_flash`` (four sequence shards, the
 ring with the flash kernels at every hop and the a2a head scatter around
 them).
+
+Five run the LM's model-parallel routes at LM_FULL's width, the shard
+axis a tensor axis (``MP_TWINS``): ``lm_shared_dense`` (dense attention,
+the twin of ``lm_shared_dense_tp2``, two tensor shards),
+``lm_shared_flash_pp2`` (the GPipe pipeline, two stages and two
+microbatches, beside ``lm_shared_flash_scan``), ``lm_shared_dense_moe4``
+(four Switch experts a block, d = 176,321,280) and
+``lm_shared_dense_moe4_ep2`` (the same MoE on the ep route at two expert
+shards, bit for bit its twin: ``parallel/ep_step.py``). Each is built
+through its route's builder (``parallel.build_route_setup``).
 
 The resilience legs (``GUARD_PROGRAMS``, ``chip_smoke.py``'s guard phase,
 each beside the leg it guards, ``GUARD_TWINS``) run the step guard and a
@@ -271,7 +281,10 @@ class LintProgram:
     overrides of the route's CI size."""
 
     name: str
-    route: str  # "cnn" | "lm"
+    # "cnn" (the Trainer) | "lm" (the LM's default route, sp_step) | "tp"
+    # | "pp" | "ep" (the LM's model-parallel routes, each built through
+    # its own builder)
+    route: str
     overrides: dict
     peak_gb: float
     ci: dict = dataclasses.field(default_factory=dict)
@@ -314,10 +327,12 @@ class LintProgram:
                            load_dataset(cfg.dataset, synthetic_train=256,
                                         synthetic_test=16))
             return Trainer(cfg, device=dev, dataset=dataset, quiet=True)
-        from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
+        from draco_tpu_torch.parallel import build_route_setup
         from draco_tpu_torch.parallel.token_loop import TokenLoop
 
-        return TokenLoop(build_sp_train_setup(cfg, dev), cfg, quiet=True)
+        route = "sp" if self.route == "lm" else self.route
+        return TokenLoop(build_route_setup(cfg, dev, route=route), cfg,
+                         quiet=True, tag=route)
 
     def build(self, device=None, full: bool = False, max_steps: int = 3,
               dataset=None, **fields) -> Program:
@@ -437,6 +452,8 @@ class ChunkProgram:
 
 _CYCLIC_SHARED = dict(approach="cyclic", redundancy="shared")
 _BASELINE_GM = dict(approach="baseline", mode="geometric_median")
+DENSE = dict(_CYCLIC_SHARED, attn_impl="dense")
+MOE4 = dict(DENSE, moe_experts=4)
 
 # peak_gb: what one full-width step allocates on the card above its
 # starting memory, with headroom (measured by chip_smoke.py's audit phase,
@@ -553,6 +570,24 @@ PROGRAMS = (
                 dict(_CYCLIC_SHARED, seq_shards=4), 14.5),
     LintProgram("lm_sp4_a2a_flash", "lm",
                 dict(_CYCLIC_SHARED, seq_shards=4, sp_attn="a2a"), 14.5),
+    # the LM's model-parallel routes, each shard axis a tensor axis
+    # (MP_TWINS): the plain streaming attention (the reference refuses
+    # flash on tp, MoE and ep), tensor parallelism over 2 shards, the GPipe
+    # pipeline of 2 stages and 2 microbatches on the flash kernels, 4
+    # Switch experts a block on the default route (d = 176,321,280) and
+    # the same MoE on the ep route at 2 expert shards (step peaks 14.44,
+    # 14.44, 13.14, 36.78 and 36.78 GiB measured, PERF.md §6; the
+    # pipeline's lint once read 21.69 GiB late in a whole chip_smoke.py
+    # run, an open fault, ROADMAP Queue C)
+    LintProgram("lm_shared_dense", "lm", DENSE, 16.0),
+    LintProgram("lm_shared_dense_tp2", "tp", dict(DENSE, tensor_shards=2),
+                16.0),
+    LintProgram("lm_shared_flash_pp2", "pp",
+                dict(_CYCLIC_SHARED, pipeline_shards=2, pp_microbatches=2),
+                14.5),
+    LintProgram("lm_shared_dense_moe4", "lm", MOE4, 40.5),
+    LintProgram("lm_shared_dense_moe4_ep2", "ep", dict(MOE4, expert_shards=2),
+                40.5),
 )
 
 # each segmented leg's S = 1, global-granularity twin
@@ -573,6 +608,16 @@ STACK_TWINS = {"lm_shared_flash_remat": "lm_shared_flash",
                "lm_shared_flash_scan": "lm_shared_flash",
                "lm_sp4_ring_flash": "lm_shared_flash",
                "lm_sp4_a2a_flash": "lm_shared_flash"}
+# each model-parallel leg's twin (chip_smoke.py's mp_twin_checks): tp2 and
+# ep2 from the twin's draw, pp2 from the pipeline's parameters renamed
+# blocks.loop.b.* -> blocks.* (the reference's own oracle is the
+# sequential stack), each giving its twin's decode columns with its update
+# inside a bound that a control falls outside; the MoE leg beside the
+# dense one for its time only (another model)
+MP_TWINS = {"lm_shared_dense_tp2": "lm_shared_dense",
+            "lm_shared_flash_pp2": "lm_shared_flash_scan",
+            "lm_shared_dense_moe4": "lm_shared_dense",
+            "lm_shared_dense_moe4_ep2": "lm_shared_dense_moe4"}
 # each watch leg's leg without the observatory: the same update bit for bit
 WATCH_TWINS = {"simulate_watch_bf16": "simulate",
                "approx_watch_int8_sr": "approx",

@@ -69,9 +69,14 @@ overrides its policy) remediates from the incident stream at every flush
 block.
 Runs on the card unless ``--device cpu`` is given. With ``--preset``, the
 flags given on the command line override the preset's fields.
-``network=TransformerLM`` runs the LM step and its token loop
-(``parallel/sp_step.py``; ``--seq-shards`` sequence shards, ``--sp-attn
-ring|a2a``, ``--remat``), every other network the CNN trainer.
+``network=TransformerLM`` runs the LM step and its token loop on the
+reference's route: ``--tensor-shards`` > 1 tensor parallelism
+(``parallel/tp_step.py``), else ``--expert-shards`` > 1 expert
+parallelism over ``--moe-experts`` Switch experts (``ep_step.py``), else
+``--pipeline-shards`` > 1 or ``--pp-microbatches`` > 0 the GPipe pipeline
+(``pp_step.py``), else the default route (``sp_step.py``; ``--seq-shards``
+sequence shards, ``--sp-attn ring|a2a``, ``--remat``, ``--moe-experts``);
+every other network the CNN trainer.
 """
 
 from __future__ import annotations
@@ -136,6 +141,11 @@ FLAGS = {
     "--seq-shards": (int, "seq_shards"),
     "--sp-attn": (str, "sp_attn"),
     "--remat": (bool, "remat"),  # a switch
+    "--tensor-shards": (int, "tensor_shards"),
+    "--moe-experts": (int, "moe_experts"),
+    "--expert-shards": (int, "expert_shards"),
+    "--pipeline-shards": (int, "pipeline_shards"),
+    "--pp-microbatches": (int, "pp_microbatches"),
     "--compute-dtype": (str, "compute_dtype"),
     "--eval-freq": (int, "eval_freq"),
     "--trace-dir": (str, "trace_dir"),
@@ -189,9 +199,10 @@ def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     cfg = config_from_args(args)
     if cfg.network == LM_NETWORK:
-        from draco_tpu_torch.parallel.sp_step import train_sp
+        # tp, then ep, then pp, else sp, as the reference's CLI dispatches
+        from draco_tpu_torch.parallel import train_route
 
-        return train_sp(cfg, device=args.device)[1]
+        return train_route(cfg, device=args.device)[1]
     from draco_tpu_torch.training.trainer import Trainer
 
     return Trainer(cfg, device=args.device).run()

@@ -156,10 +156,23 @@ class TrainConfig:
     # the blocks' parameters stacked on a leading layer axis, one block
     # body run L times (the reference's nn.scan; a different tree)
     scan_layers: bool = False
-    # --- options of the reference the port rejects for now ---
+    # --- the LM's model-parallel routes, each shard axis a tensor axis on
+    # one card (parallel/tp_step.py, pp_step.py, ep_step.py); at most one
+    # is active ---
+    # Megatron tensor shards: column-parallel qkv/mlp_in, row-parallel
+    # proj/mlp_out as per-shard partial sums
     tensor_shards: int = 1
-    pipeline_shards: int = 1
+    # Switch mixture-of-experts experts per block (0 = the dense MLP;
+    # models/moe.py)
     moe_experts: int = 0
+    # the reference's expert shards (needs moe_experts > 0): selects the
+    # ep route, whose one-card step is the MoE's as it is (ep_step.py)
+    expert_shards: int = 1
+    # GPipe stages the block stack splits into
+    pipeline_shards: int = 1
+    # microbatches per pipeline step (0 = pipeline_shards); > 0 alone
+    # selects the pipeline route
+    pp_microbatches: int = 0
     # the LM's tokens: "host" (synthetic_text, uploaded) or "device" (made
     # on the card from the staged step, the reference's in-graph stream)
     token_gen: str = "host"
@@ -337,6 +350,14 @@ class TrainConfig:
             self._validate_lm()
         elif self.seq_shards > 1:
             raise ValueError("seq_shards > 1 requires network=TransformerLM")
+        elif self.tensor_shards > 1:
+            raise ValueError("tensor_shards > 1 requires network=TransformerLM")
+        elif self.expert_shards > 1 or self.moe_experts > 0:
+            raise ValueError(
+                "moe_experts / expert_shards require network=TransformerLM")
+        elif self.pipeline_shards > 1:
+            raise ValueError(
+                "pipeline_shards > 1 requires network=TransformerLM")
         return self
 
     def _validate_optimizer(self) -> None:
@@ -655,8 +676,7 @@ class TrainConfig:
                 f"(cyclic|maj_vote|approx), got {self.approach!r}")
 
     def _validate_lm(self) -> None:
-        """The reference's TransformerLM checks (draco_tpu/config.py), and
-        every option of its other LM routes rejected as not ported yet."""
+        """The reference's TransformerLM checks (draco_tpu/config.py)."""
         if self.dataset != LM_DATASET:
             raise ValueError(f"network={LM_NETWORK} trains on the "
                              f"{LM_DATASET!r} token stream, got dataset="
@@ -695,25 +715,80 @@ class TrainConfig:
                              f"seq_shards {self.seq_shards}")
         if self.sp_attn not in ("ring", "a2a"):
             raise ValueError(f"sp_attn must be ring|a2a, got {self.sp_attn}")
+        self._validate_model_parallel()
+
+    def _validate_model_parallel(self) -> None:
+        """The reference's checks of the LM's model-parallel axes
+        (draco_tpu/config.py), in its order and with its messages."""
+        if self.attn_impl == "flash" and (
+                self.tensor_shards > 1 or self.expert_shards > 1
+                or self.moe_experts > 0):
+            raise ValueError(
+                "attn_impl=flash runs on the shard_map paths (sp/pp): "
+                "the GSPMD paths (tensor_shards/expert_shards/moe) "
+                "cannot partition an opaque Pallas call over the mesh")
+        # pp_microbatches alone selects the pipeline route (cli.py), so it
+        # counts as the pp axis in use
+        pp_active = self.pipeline_active
+        if (sum(int(x > 1) for x in (self.tensor_shards, self.seq_shards,
+                                     self.expert_shards))
+                + int(pp_active) > 1):
+            raise ValueError(
+                "tensor_shards / seq_shards / expert_shards / "
+                "pipeline_shards are separate paths (tp_step / sp_step / "
+                "ep_step / pp_step); combining model-parallel axes is "
+                "not implemented")
+        if self.expert_shards > 1:
+            if self.moe_experts <= 0:
+                raise ValueError("expert_shards > 1 needs moe_experts > 0")
+            if self.moe_experts % self.expert_shards:
+                raise ValueError(
+                    f"expert_shards={self.expert_shards} must divide "
+                    f"moe_experts {self.moe_experts}")
+        if self.moe_experts < 0:
+            raise ValueError("moe_experts must be >= 0")
         if self.moe_experts > 0 and self.seq_shards > 1:
             raise ValueError(
                 "moe_experts > 0 with seq_shards > 1 is not implemented: "
                 "per-shard MoE routing/capacity would break sp "
                 "layout-invariance")
+        if self.tensor_shards > 1:
+            if self.moe_experts > 0:
+                raise ValueError(
+                    "tensor_shards with moe_experts is not implemented "
+                    "(the tp partition rules cover the dense MLP only)")
+            if (self.model_dim % self.tensor_shards
+                    or self.model_heads % self.tensor_shards):
+                raise ValueError(
+                    f"tensor_shards={self.tensor_shards} must divide "
+                    f"model_dim {self.model_dim} and model_heads "
+                    f"{self.model_heads}")
         if (self.sp_attn == "a2a" and self.seq_shards > 1
                 and self.model_heads % self.seq_shards != 0):
             raise ValueError(
                 f"sp_attn=a2a needs model_heads % seq_shards == 0 "
                 f"({self.model_heads} % {self.seq_shards})")
-        not_ported = {
-            "tensor_shards": self.tensor_shards != 1,
-            "pipeline_shards": self.pipeline_shards != 1,
-            "moe_experts": self.moe_experts != 0,
-        }
-        for field, bad in not_ported.items():
-            if bad:
+        if self.pp_microbatches < 0 or self.pipeline_shards < 1:
+            raise ValueError(
+                "pipeline_shards must be >= 1 and pp_microbatches >= 0")
+        if pp_active:
+            if self.moe_experts > 0:
                 raise ValueError(
-                    f"{field}={getattr(self, field)!r} is not ported yet for "
-                    f"{LM_NETWORK} (the port runs the LM without experts, "
-                    f"on one shard or seq_shards sequence shards, unrolled "
-                    f"or scanned, with or without remat)")
+                    "the pipeline path with moe_experts is not implemented "
+                    "(pp_step's scanned block stack covers the dense "
+                    "MLP only)")
+            if self.model_layers % max(self.pipeline_shards, 1):
+                raise ValueError(
+                    f"pipeline_shards={self.pipeline_shards} must divide "
+                    f"model_layers {self.model_layers}")
+            mb = self.pp_microbatches or self.pipeline_shards
+            if self.batch_size % mb:
+                raise ValueError(
+                    f"pipeline microbatch count {mb} must divide "
+                    f"batch_size {self.batch_size}")
+
+    @property
+    def pipeline_active(self) -> bool:
+        """The pipeline route is selected: ``pipeline_shards > 1`` or
+        ``pp_microbatches > 0`` (the reference's cli.py)."""
+        return self.pipeline_shards > 1 or self.pp_microbatches > 0

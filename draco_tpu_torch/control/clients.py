@@ -12,8 +12,9 @@ checkpoint (``snap_stop``).
 
 Both clients are also the autopilot's actuation surface
 (``control/autopilot.py``): ``build_setup`` builds a regime's setup
-around the loop's live model and state (``build_train_setup(live=)``,
-``build_sp_train_setup(live=)``), ``switch_regime`` points the client at
+around the loop's live model and state (``build_train_setup(live=)``;
+the token setup's ``rebuild``, ``build_sp_train_setup(live=)`` on the
+sp route and none on tp, pp and ep), ``switch_regime`` points the client at
 it (its runner, columns and record order), ``quarantine`` / ``readmit``
 write the loop's presence schedule, and ``remake`` rebuilds the chunk the
 engine assembled before a swap with the new setup, from the host pieces
@@ -200,9 +201,17 @@ class TokenChunkClient(_Client):
                 or step in (self.first, self.last))
 
     # ---- the autopilot's actuation (control/autopilot.py) ---------------
-    def build_setup(self, cfg):
-        """A regime's setup on the loop's live model and state."""
-        from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
+    @property
+    def can_swap(self) -> bool:
+        return self.loop.setup.rebuild is not None
 
-        setup = self.loop.setup
-        return build_sp_train_setup(cfg, setup.device, live=setup)
+    def build_setup(self, cfg):
+        """A regime's setup on the loop's live model and state (the setup's
+        ``rebuild``: the sp route's; tp, pp and ep have none, as in the
+        reference)."""
+        rebuild = self.loop.setup.rebuild
+        if rebuild is None:
+            raise RuntimeError(
+                "token route launched without a setup rebuild hook — "
+                "autopilot family swaps unavailable on this route")
+        return rebuild(cfg)

@@ -147,23 +147,67 @@ def init_stats(model: nn.Module) -> dict:
 
 
 @torch.no_grad()
-def init_params(model: nn.Module, seed: int) -> None:
+def init_params(model: nn.Module, seed: int, roots: dict = None) -> None:
     """The reference's ``model.init`` with ``{"params": key(seed)}``, leaf
     for leaf, on the parameters' device: each kernel (a convolution's or a
     Dense layer's) Flax's LeCun normal (truncated at ±2, variance 1/fan_in,
     fan_in read in the JAX layout), each ``Embed`` table its normal of
     variance 1/dim, each drawn from its module's key (``rng.param_key`` of
     the module path, which is the Flax path) in the JAX layout and carried
-    to the port's; zero biases, unit norm scales. A module of a scanned
-    stack (a child of a module with ``scanned`` set, the LM's ``blocks``)
-    holds a leading layer axis: each layer's slice is drawn from its own
-    key (``rng.scan_param_key``), as Flax's ``nn.scan`` draws it."""
+    to the port's; a Switch MoE's expert stacks (``PARAM_DRAWS``) LeCun
+    normals over the whole (E, in, out) stack at their own rng counts, its
+    biases zeros; zero biases, unit norm scales. A module of a scanned
+    stack (inside a module with ``scanned`` set: the LM's ``blocks``, the
+    pipeline's ``b``) holds a leading layer axis: each layer's slice is
+    drawn from its own key (``rng.scan_param_key``), as Flax's ``nn.scan``
+    draws it.
+
+    ``roots``: top-level child name -> the key that part of the tree is
+    initialised from on its own (``part.init(root)``, so the part's own
+    name leaves its path): the pipeline's ``embed``, ``blocks`` and
+    ``final_ln`` from ``split(key(seed), 3)``."""
     from draco_tpu_torch import params as params_mod
     from draco_tpu_torch import rng
 
     stacks = {p: m.layers for p, m in model.named_modules()
               if getattr(m, "scanned", False)}
+
+    def scan_layers(path):
+        """The layer count of the scanned stack ``path`` lies in, or
+        None."""
+        return next((n for p, n in stacks.items()
+                     if path == p or path.startswith(p + ".")), None)
+
+    def draw(path, shape, kind, fan_in, count, scope_params, device):
+        """The leaf ``count`` of the module at ``path`` (its JAX-layout
+        ``shape`` per layer), stacked over the layers of its scan."""
+        names = path.split(".") if path else []
+        root = rng.key(seed)
+        if roots is not None and names and names[0] in roots:
+            root, names = roots[names[0]], names[1:]
+        layers = scan_layers(path)
+        if layers is None:
+            return rng.init_leaf(seed, names, shape, kind, fan_in, device,
+                                 k=rng.param_key(root, names, count))
+        return torch.stack([rng.init_leaf(
+            seed, names, shape, kind, fan_in, device,
+            k=rng.scan_param_key(root, layers, i, names,
+                                 scope_params + count))
+            for i in range(layers)])
+
     for path, mod in model.named_modules():
+        own = len(list(mod.parameters(recurse=False)))
+        experts = getattr(mod, "PARAM_DRAWS", None)
+        if experts is not None:
+            for pname, (count, lecun) in experts.items():
+                p = getattr(mod, pname)
+                if not lecun:
+                    p.zero_()
+                    continue
+                shape = p.shape[1:] if scan_layers(path) else p.shape
+                p.copy_(draw(path, shape, "lecun", shape[-2], count, own,
+                             p.device))
+            continue
         weight = getattr(mod, "weight", None)
         if isinstance(weight, torch.Tensor):
             if isinstance(mod, (nn.Conv2d, nn.Linear, nn.Embedding)):
@@ -172,24 +216,13 @@ def init_params(model: nn.Module, seed: int) -> None:
                 _, kind = params_mod.leaf_role(mod, "weight")
                 jshape = params_mod.to_jax_layout(
                     torch.empty(weight.shape, device="meta"), kind).shape
-                layers = stacks.get(path.rpartition(".")[0])
-                if layers is not None:
+                if scan_layers(path):
                     jshape = jshape[1:]
                 embed = isinstance(mod, nn.Embedding)
                 fan_in = jshape[-1] if embed else int(
                     np.prod(jshape[:-1], dtype=np.int64))
-                kind_init = "embed" if embed else "lecun"
-                names = path.split(".")
-                if layers is None:
-                    leaf = rng.init_leaf(seed, names, jshape, kind_init,
-                                         fan_in, weight.device)
-                else:
-                    count = len(list(mod.parameters(recurse=False))) + 1
-                    leaf = torch.stack([rng.init_leaf(
-                        seed, names, jshape, kind_init, fan_in,
-                        weight.device,
-                        k=rng.scan_param_key(seed, layers, i, names, count))
-                        for i in range(layers)])
+                leaf = draw(path, jshape, "embed" if embed else "lecun",
+                            fan_in, 1, own, weight.device)
                 weight.copy_(params_mod.from_jax_layout(leaf, kind))
             else:
                 weight.fill_(1.0)  # a norm's scale

@@ -19,6 +19,12 @@ Flax names (``block0``, ``LayerNorm_0``, ``qkv``, ``proj``, ``mlp_in``,
 Dense kernels are ``nn.Linear`` weights (out, in); ``params.py`` lays them
 out as Flax's (in, out).
 
+``experts`` > 0 puts a Switch mixture of experts (``models/moe.py``,
+the reference's ``moe`` submodule) in place of each block's
+``mlp_in``/``mlp_out``. ``tensor_shards`` > 1 gives each Dense its
+Megatron tensor-parallel form (:class:`Dense`, :data:`TP_FORMS`), the
+shard axis a tensor axis (``parallel/tp_step.py``).
+
 Two options of the reference change how the block stack runs, not what it
 computes:
 
@@ -104,30 +110,76 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Linear):
-    """Flax ``nn.Dense`` computing in ``dtype`` on float32 parameters."""
+    """Flax ``nn.Dense`` computing in ``dtype`` on float32 parameters.
 
-    def __init__(self, cin: int, cout: int, bias: bool, dtype: torch.dtype):
+    ``shards`` > 1 with ``parallel`` "column" or "row": the layer's
+    Megatron tensor-parallel form, the shard axis a tensor axis (the
+    reference's GSPMD partition, ``parallel/tp_step.py``). Column-parallel:
+    one product a contiguous block of the output columns (and of the
+    bias), concatenated; the input's gradient is then the sum of the
+    blocks' partials, as the reference's all-reduce gives it. Row-parallel:
+    one product a contiguous block of the contraction, each in the compute
+    dtype, summed over the shards in ascending order, and the replicated
+    bias added once after the sum."""
+
+    def __init__(self, cin: int, cout: int, bias: bool, dtype: torch.dtype,
+                 shards: int = 1, parallel: Optional[str] = None):
         super().__init__(cin, cout, bias=bias)
-        self.dtype = dtype
+        self.dtype, self.shards, self.parallel = dtype, shards, parallel
 
     def forward(self, x):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        x, w = x.to(dt), self.weight.to(dt)
+        if self.shards == 1 or self.parallel is None:
+            return F.linear(x, w, b)
+        if self.parallel == "column":
+            bs = [None] * self.shards if b is None else b.chunk(self.shards)
+            return torch.cat([F.linear(x, wi, bi) for wi, bi in
+                              zip(w.chunk(self.shards, 0), bs)], dim=-1)
+        parts = zip(x.chunk(self.shards, -1), w.chunk(self.shards, 1))
+        out = None
+        for xi, wi in parts:
+            y = F.linear(xi, wi)
+            out = y if out is None else out + y
+        return out if b is None else out + b
+
+
+# Megatron's tensor-parallel form of each Dense of a Block: the one place
+# the choice is made (tp_step.param_partition_spec derives the
+# reference's partition from it)
+TP_FORMS = {"qkv": "column", "proj": "row", "mlp_in": "column",
+            "mlp_out": "row"}
 
 
 class Block(nn.Module):
+    """``experts`` > 0: a Switch MoE (``moe``, models/moe.py) in place of
+    ``mlp_in``/``mlp_out``. ``tensor_shards``: each Dense in its
+    :data:`TP_FORMS` form."""
+
     def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
                  attn_fn: Optional[AttnFn] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, experts: int = 0,
+                 tensor_shards: int = 1):
         super().__init__()
         self.dim, self.heads, self.attn_fn = dim, heads, attn_fn
+
+        def dense(name, cin, cout, bias):
+            return Dense(cin, cout, bias, dtype, tensor_shards,
+                         TP_FORMS[name])
+
         self.LayerNorm_0 = LayerNorm(dim, dtype)
-        self.qkv = Dense(dim, 3 * dim, False, dtype)
-        self.proj = Dense(dim, dim, False, dtype)
+        self.qkv = dense("qkv", dim, 3 * dim, False)
+        self.proj = dense("proj", dim, dim, False)
         self.LayerNorm_1 = LayerNorm(dim, dtype)
-        self.mlp_in = Dense(dim, mlp_ratio * dim, True, dtype)
-        self.mlp_out = Dense(mlp_ratio * dim, dim, True, dtype)
+        self.experts = experts
+        if experts > 0:
+            from draco_tpu_torch.models.moe import MoeMlp
+
+            self.moe = MoeMlp(dim, experts, mlp_ratio, dtype=dtype)
+        else:
+            self.mlp_in = dense("mlp_in", dim, mlp_ratio * dim, True)
+            self.mlp_out = dense("mlp_out", mlp_ratio * dim, dim, True)
 
     def forward(self, x, positions, pos_offset: int = 0):
         """x (B, T, dim); positions (T,) = pos_offset + arange(T)."""
@@ -149,6 +201,8 @@ class Block(nn.Module):
         o = attn(q, k, v).reshape(b, t, self.dim)
         x = x + self.proj(o)
         h = self.LayerNorm_1(x)
+        if self.experts > 0:
+            return x + self.moe(h)
         h = F.gelu(self.mlp_in(h), approximate="tanh")
         return x + self.mlp_out(h)
 
@@ -211,24 +265,29 @@ class BlockStack(nn.Module):
 
     def __init__(self, layers: int, dim: int, heads: int,
                  attn_fn: Optional[AttnFn] = None,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 **block):
         super().__init__()
         self.layers, self.remat = layers, remat
-        like = Block(dim, heads, attn_fn=attn_fn, dtype=dtype)
-        for name, mod in like.named_children():
+        like = Block(dim, heads, attn_fn=attn_fn, dtype=dtype, **block)
+        for mod in like.modules():
             for pname, p in list(mod.named_parameters(recurse=False)):
                 setattr(mod, pname, nn.Parameter(
                     p.detach()[None].repeat(layers, *([1] * p.dim()))))
+        for name, mod in like.named_children():
             self.add_module(name, mod)
         # the body the slices run through: its own parameters are never
         # read (functional_call replaces every one), so they live on meta
         with torch.device("meta"):
             self.__dict__["body"] = Block(dim, heads, attn_fn=attn_fn,
-                                          dtype=dtype)
+                                          dtype=dtype, **block)
 
-    def forward(self, x, positions, pos_offset: int = 0):
-        names = [n for n, _ in self.named_parameters()]
-        per_layer = zip(*(p.unbind(0) for _, p in self.named_parameters()))
+    def forward(self, x, positions, pos_offset: int = 0, params=None):
+        """``params``: the stack's parameters by name (default its own),
+        each with the leading layer axis (a pipeline stage's slice)."""
+        params = dict(self.named_parameters()) if params is None else params
+        names = list(params)
+        per_layer = zip(*(p.unbind(0) for p in params.values()))
         for ws in per_layer:
             x = _run_block(self.body, dict(zip(names, ws)), x, positions,
                            pos_offset, self.remat)
@@ -241,18 +300,20 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab: int = 256, dim: int = 128, heads: int = 4,
                  layers: int = 2, attn_fn: Optional[AttnFn] = None,
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 scan_layers: bool = False):
+                 scan_layers: bool = False, experts: int = 0,
+                 tensor_shards: int = 1):
         super().__init__()
         self.layers, self.dtype = layers, dtype
         self.remat, self.scan_layers = remat, scan_layers
         self.embed = nn.Embedding(vocab, dim)
+        block = dict(attn_fn=attn_fn, dtype=dtype, experts=experts,
+                     tensor_shards=tensor_shards)
         if scan_layers:
-            self.blocks = BlockStack(layers, dim, heads, attn_fn=attn_fn,
-                                     dtype=dtype, remat=remat)
+            self.blocks = BlockStack(layers, dim, heads, remat=remat,
+                                     **block)
         else:
             for i in range(layers):
-                setattr(self, f"block{i}", Block(dim, heads, attn_fn=attn_fn,
-                                                 dtype=dtype))
+                setattr(self, f"block{i}", Block(dim, heads, **block))
         self.final_ln = LayerNorm(dim)
 
     def forward(self, tokens, pos_offset: int = 0):

@@ -8,8 +8,8 @@ processes: an A/B of a change against its parent on one card.
 Each round runs one process per tree, the order alternating (A B, then
 B A, ...) so that slow drift of the host falls on both alike. A process
 imports ``draco_tpu_torch`` from its own tree, builds each leg at full
-width through the entry points a user calls (``Trainer``, or
-``build_sp_train_setup`` and ``TokenLoop``) with the configurations of
+width through the entry points a user calls (``Trainer``, or the LM
+route's builder and ``TokenLoop``) with the configurations of
 ``analysis/registry.py``, takes two warm-up steps and times ``--steps``
 calls of ``step()`` on the host clock (each ends in the metric reads,
 which wait for the card). With ``--chunk K`` it runs the chunked loop
@@ -136,10 +136,10 @@ def child(tree: str, legs: list, steps: int, device: str,
                              synthetic_test=16))
             runner = Trainer(cfg, device=dev, dataset=dataset, quiet=True)
         else:
-            from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
+            from draco_tpu_torch.parallel import build_route_setup
             from draco_tpu_torch.parallel.token_loop import TokenLoop
 
-            runner = TokenLoop(build_sp_train_setup(cfg, dev), cfg,
+            runner = TokenLoop(build_route_setup(cfg, dev), cfg,
                                quiet=True)
         if chunk:
             out["legs"][name] = _chunk_ms(runner, steps)

@@ -33,6 +33,14 @@ model with the recompute and the stacked layers
 (``models/transformer.py``); the initial parameters are the reference's
 ``model.init`` of that tree, which differs between the two layouts.
 
+:func:`build_lm_setup` is what every LM route shares: the state, the
+lanes, the coded tail, the eager step, the chunk and the eval. The
+default route gives it the TransformerLM (with ``moe_experts`` Switch
+experts a block, ``models/moe.py``) and this objective; the tp and ep
+routes (``tp_step.py``, ``ep_step.py``) the same objective on the model
+in its tensor- or expert-parallel form, the pipeline (``pp_step.py``) its
+own model and loss.
+
 The decode runs globally or, at ``decode_granularity="layer"`` and on the
 segmented wire (``wire_segments > 1``), over the leaf boundaries and the
 segment cuts (``parallel/common.decode_bounds``).
@@ -135,6 +143,13 @@ class SPTrainSetup(NamedTuple):
     # (params, tokens (lanes, B, T) on the device) -> flat gradients
     # (lanes, d), losses (lanes,): the step's gradient phase alone
     lane_grads: Any = None
+    # (params, tokens (lanes, B, T) on the device) -> losses (lanes,), no
+    # gradient (the eval's)
+    lane_losses: Any = None
+    # cfg -> a regime's setup around this one's live model and state (the
+    # autopilot's swaps); None on the routes the reference swaps on none
+    # of (tp, pp, ep)
+    rebuild: Any = None
 
 
 def synthetic_text(seed: int, step: int, n: int, batch: int,
@@ -191,15 +206,63 @@ def model_key(cfg: TrainConfig) -> tuple:
     """What the built model depends on: a setup that shares a live
     setup's model (``live=``) must agree on it."""
     return (cfg.vocab, cfg.model_dim, cfg.model_heads, cfg.model_layers,
-            cfg.compute_dtype, cfg.attn_impl, cfg.seq_shards, cfg.sp_attn,
-            cfg.remat, cfg.scan_layers)
+            cfg.compute_dtype, cfg.attn_impl, cfg.tensor_shards,
+            cfg.moe_experts, cfg.expert_shards, cfg.pipeline_shards,
+            cfg.pp_microbatches, cfg.seq_shards, cfg.sp_attn, cfg.remat,
+            cfg.scan_layers)
+
+
+def lm_model(cfg: TrainConfig, tensor_shards: int = 1) -> TransformerLM:
+    """The TransformerLM of ``cfg`` (its experts, remat and layer stack,
+    the attention :func:`attn_fn_from_cfg` picks), in the tensor-parallel
+    form of ``tensor_shards``."""
+    return TransformerLM(vocab=cfg.vocab, dim=cfg.model_dim,
+                         heads=cfg.model_heads, layers=cfg.model_layers,
+                         attn_fn=attn_fn_from_cfg(cfg),
+                         dtype=COMPUTE_DTYPES[cfg.compute_dtype],
+                         remat=cfg.remat, scan_layers=cfg.scan_layers,
+                         experts=cfg.moe_experts,
+                         tensor_shards=tensor_shards)
+
+
+def next_token_objective(model, cfg: TrainConfig, dev):
+    """``(params, toks (B, T)) -> `` the masked mean next-token
+    cross-entropy of ``model`` (module docstring)."""
+    T = cfg.seq_len
+    # position t predicts t+1; the last position has no target
+    pos_valid = (torch.arange(T, device=dev) < T - 1).to(torch.float32)
+    denom = cfg.batch_size * (T - 1)
+
+    def objective(p, toks):
+        logits = functional_call(model, (p,), (toks,))
+        targets = torch.cat([toks[:, 1:], toks[:, :1]], dim=1)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        return (nll * pos_valid).sum() / denom
+    return objective
+
+
+def check_lm(cfg: TrainConfig, route: str = "sp") -> None:
+    """The checks every LM route's builder makes of ``cfg``: validated,
+    the LM's network, and on the model-parallel routes (tp, pp, ep) only
+    ``baseline|cyclic|approx``, as the reference's builders take."""
+    cfg.validate()
+    if cfg.network != LM_NETWORK:
+        raise ValueError(f"the LM step runs network={LM_NETWORK}, got "
+                         f"{cfg.network!r}")
+    if route != "sp" and cfg.approach not in ("baseline", "cyclic",
+                                              "approx"):
+        raise ValueError(f"{'PP' if route == 'pp' else 'MP'} path supports "
+                         f"baseline|cyclic|approx, got {cfg.approach}")
 
 
 def build_sp_train_setup(cfg: TrainConfig, device=None,
                          init: Optional[dict] = None,
                          live: Optional[SPTrainSetup] = None
                          ) -> SPTrainSetup:
-    """Model, state and the step for ``cfg`` on ``device`` (default cuda).
+    """Model, state and the step for ``cfg`` on ``device`` (default cuda):
+    the LM (with ``cfg.moe_experts`` Switch experts a block) on the
+    sequence-parallel route, one shard or ``seq_shards``.
 
     ``init``: optional parameters keyed by torch name (``params.from_jax``
     of the reference's); otherwise the reference's ``model.init`` at
@@ -211,13 +274,28 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     graph read and update the same parameter, optimizer and count tensors,
     so switching between the two copies no weights. ``cfg`` must keep the
     live setup's model (``model_key``) and worker count."""
-    cfg.validate()
-    if cfg.network != LM_NETWORK:
-        raise ValueError(f"the LM step runs network={LM_NETWORK}, got "
-                         f"{cfg.network!r}")
+    check_lm(cfg)
     dev = resolve_device(device)
-    n, T = cfg.num_workers, cfg.seq_len
+    setup = build_lm_setup(cfg, dev, lambda: lm_model(cfg),
+                           next_token_objective, init=init, live=live)
+    return setup._replace(rebuild=lambda c: build_sp_train_setup(
+        c, dev, live=setup))
 
+
+def build_lm_setup(cfg: TrainConfig, dev, make_model, make_objective,
+                   init: Optional[dict] = None,
+                   live: Optional[SPTrainSetup] = None,
+                   roots: Optional[dict] = None,
+                   simulate: bool = True) -> SPTrainSetup:
+    """What every LM route shares, around the route's model and objective:
+    ``make_model()`` the route's module (made on ``dev``),
+    ``make_objective(model, cfg, dev)`` its ``(params, toks (B, T)) ->``
+    loss of one lane. The state is ``live``'s, or the model's with
+    ``init`` or the reference's draw (``init_params``, ``roots`` as it
+    takes them); the lanes are ``vmap(grad_and_value(objective))``, n or
+    (``simulate`` and the cyclic code's ``redundancy="simulate"``)
+    n·(2s+1) of them, and the tail the shared one (module docstring)."""
+    n = cfg.num_workers
     if live is not None:
         if init is not None:
             raise ValueError("build_sp_train_setup: init and live exclude "
@@ -230,16 +308,13 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
                              f"is {live.model.key}, cfg's {model_key(cfg)}")
         model, state, layout = live.model, live.state, live.layout
     else:
-        model = TransformerLM(vocab=cfg.vocab, dim=cfg.model_dim,
-                              heads=cfg.model_heads, layers=cfg.model_layers,
-                              attn_fn=attn_fn_from_cfg(cfg),
-                              dtype=COMPUTE_DTYPES[cfg.compute_dtype],
-                              remat=cfg.remat,
-                              scan_layers=cfg.scan_layers).to(dev)
+        # made on the device: its initial values are all drawn again below
+        with torch.device(dev):
+            model = make_model()
         model.key = model_key(cfg)
         with torch.no_grad():
             if init is None:
-                init_params(model, cfg.seed)
+                init_params(model, cfg.seed, roots=roots)
             else:
                 for name, p in model.named_parameters():
                     p.copy_(init[name])
@@ -249,19 +324,7 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
                            opt=optim.build_optimizer_from_cfg(cfg))
         state.opt.init(params)
     dim = layout.dim
-
-    # position t predicts t+1; the last position has no target
-    pos_valid = (torch.arange(T, device=dev) < T - 1).to(torch.float32)
-    denom = cfg.batch_size * (T - 1)
-
-    def objective(p, toks):
-        """toks (B, T) -> the masked mean next-token cross-entropy."""
-        logits = functional_call(model, (p,), (toks,))
-        targets = torch.cat([toks[:, 1:], toks[:, :1]], dim=1)
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        nll = -logp.gather(-1, targets[..., None])[..., 0]
-        return (nll * pos_valid).sum() / denom
-
+    objective = make_objective(model, cfg, dev)
     lanes_fn = vmap(grad_and_value(objective), in_dims=(None, 0))
 
     def lane_grads(p, toks):
@@ -274,7 +337,7 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
     decode_impl = resolve_decode_impl(cfg.decode_impl, dev)
     cyclic = cfg.approach == "cyclic"
     approx = cfg.approach == "approx"
-    simulate = cyclic and cfg.redundancy == "simulate"
+    simulate = simulate and cyclic and cfg.redundancy == "simulate"
     batch_ids = (torch.as_tensor(code.batch_ids, device=dev).long()
                  if simulate else None)
     # the reference's projection, the same vector every step: drawn once,
@@ -366,10 +429,11 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
         # the host columns take their places in the schema's order
         return state, {k: metrics[k] for k in names + honest}
 
-    @torch.no_grad()
+    lane_losses = torch.no_grad()(vmap(objective, in_dims=(None, 0)))
+
     def eval_step(p, tokens):
-        toks = upload(torch.as_tensor(tokens), dev).long()
-        return vmap(objective, in_dims=(None, 0))(p, toks).mean()
+        return lane_losses(p, upload(torch.as_tensor(tokens), dev).long()
+                           ).mean()
 
     train_token_many = chunk_runner(
         f"train_token_many[{cfg.approach}/{cfg.redundancy}]", cfg, dev,
@@ -380,14 +444,15 @@ def build_sp_train_setup(cfg: TrainConfig, device=None,
                         decode_impl=decode_impl, step_body=step_body,
                         block_names=block_names, make_chunk=make_chunk,
                         train_token_many=train_token_many,
-                        lane_grads=lane_grads)
+                        lane_grads=lane_grads, lane_losses=lane_losses)
 
 
 def train_sp(cfg: TrainConfig, device=None, steps: Optional[int] = None,
              quiet: bool = False):
     """The LM training loop on the synthetic token stream; returns the
-    final state and the last step's record."""
+    final state and the last step's record. The autopilot's regime swaps
+    rebuild the step around the live model and state."""
     from draco_tpu_torch.parallel.token_loop import run_token_loop
 
     return run_token_loop(build_sp_train_setup(cfg, device), cfg, steps,
-                          quiet)
+                          quiet, tag="sp")

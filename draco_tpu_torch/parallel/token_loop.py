@@ -80,10 +80,16 @@ from draco_tpu_torch.utils.metrics import MetricWriter
 
 
 class TokenLoop(LoopRunState):
-    def __init__(self, setup, cfg: TrainConfig, quiet: bool = False):
+    """``tag`` names the route in error messages. The autopilot's swaps
+    build a regime's setup with the setup's ``rebuild`` (the sp route's;
+    None on tp, pp and ep, which refuse a swap)."""
+
+    def __init__(self, setup, cfg: TrainConfig, quiet: bool = False,
+                 tag: str = "mp"):
         from draco_tpu_torch.parallel.sp_step import synthetic_text
 
         self.setup, self.cfg, self.quiet = setup, cfg, quiet
+        self.tag = tag
         self.state = setup.state
         self.text = lambda seed, step: synthetic_text(
             seed, step, cfg.num_workers, cfg.batch_size, cfg.seq_len,
@@ -138,8 +144,9 @@ class TokenLoop(LoopRunState):
         ``step_ms``."""
         step = self.state.step
         if step > self._sched_steps:
-            raise ValueError(f"step {step} is past the schedule's "
-                             f"{self._sched_steps} steps (max_steps)")
+            raise ValueError(f"{self.tag} route: step {step} is past the "
+                             f"schedule's {self._sched_steps} steps "
+                             f"(max_steps)")
         tracer = self.tracer
         with tracer.span("gather"):
             toks, adv_mask, present = self.inputs(step)
@@ -239,10 +246,10 @@ class TokenLoop(LoopRunState):
 
 
 def run_token_loop(setup, cfg: TrainConfig, steps: Optional[int] = None,
-                   quiet: bool = False):
+                   quiet: bool = False, tag: str = "mp"):
     """Train ``steps or cfg.max_steps`` steps from the state's next step
     (after ``cfg.checkpoint_step``'s resume); returns (state, the last
-    step's record)."""
-    loop = TokenLoop(setup, cfg, quiet)
+    step's record). ``tag`` as :class:`TokenLoop` takes it."""
+    loop = TokenLoop(setup, cfg, quiet, tag=tag)
     last = loop.run(loop.state.step - 1 + (steps or cfg.max_steps))
     return loop.state, last

@@ -19,7 +19,11 @@ written back into it in place (``TrainState.leaves``,
 ``training/step.py``).
 
 ResNet-18 has 62 leaves and d = 11,173,962; the TransformerLM of the LM
-benchmark (dim 768, 8 layers, vocab 8192) 66 leaves and d = 62,958,336.
+benchmark (dim 768, 8 layers, vocab 8192) 66 leaves and d = 62,958,336,
+with four Switch experts a block 74 leaves and d = 176,321,280 (the
+expert stacks ``moe.w1``/``b1``/``w2``/``b2`` keep their layout in both
+packages; ``moe.router`` is a Dense); its pipeline tree
+(``blocks.loop.b.*``, ``embed``, ``final_ln``) 10 leaves and the same d.
 """
 
 from __future__ import annotations

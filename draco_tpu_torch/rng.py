@@ -302,24 +302,30 @@ def static_hash(*data) -> int:
     return int.from_bytes(m.digest()[:4], byteorder="big")
 
 
-def param_key(seed: int, path) -> tuple:
-    """The key Flax's ``model.init({"params": key(seed)})`` draws the first
-    parameter of the module at ``path`` (its kernel or embedding table)
-    with: the module's scope folds its path and the rng counter, 1."""
-    return fold_in_static(key(seed), *path, 1)
+def param_key(root: tuple, path, count: int = 1) -> tuple:
+    """The key Flax's ``init({"params": root})`` draws a parameter of the
+    module at ``path`` with: the module's scope folds its path and its rng
+    counter, which every ``self.param`` of the scope advances, a zero
+    initialiser's too (``count`` 1 for the first, the kernel or embedding
+    table of a Dense or Embed; 3 for a Switch MoE's ``w2``, after ``w1``
+    and ``b1``). ``root`` is ``key(seed)`` for ``model.init``, or the key a
+    tree's part is initialised from (the pipeline's
+    ``split(key(seed), 3)``)."""
+    return fold_in_static(root, *path, count)
 
 
-def scan_param_key(seed: int, layers: int, layer: int, path,
+def scan_param_key(root: tuple, layers: int, layer: int, path,
                    count: int) -> tuple:
-    """The key of layer ``layer``'s first parameter of the module at
+    """The key of layer ``layer``'s parameter ``count`` of the module at
     ``path`` inside an ``nn.scan`` over ``layers`` with
-    ``split_rngs={"params": True}`` (the scanned LM's ``blocks``). Flax's
-    lifted scan splits the raw root key (not its path-folded form) into
-    ``layers`` keys, keeps the scope's path suffix and folds it on each
-    layer's key; and its ``init`` traces the scan body twice on one rng
-    counter, so the parameters come from the second trace: ``count`` is
-    the module's parameter count plus one."""
-    k = split(key(seed), layers)[layer]
+    ``split_rngs={"params": True}`` (the scanned LM's ``blocks``, the
+    pipeline's ``loop``). Flax's lifted scan splits the raw ``root`` key
+    (not its path-folded form) into ``layers`` keys, keeps the scope's path
+    suffix and folds it on each layer's key; and its ``init`` traces the
+    scan body twice on one rng counter, so the parameters come from the
+    second trace: ``count`` is the module's parameter count plus the
+    parameter's own 1-based place."""
+    k = split(root, layers)[layer]
     return fold_in_static((int(k[0]), int(k[1])), *path, count)
 
 
@@ -330,9 +336,9 @@ def init_leaf(seed: int, path, shape, kind: str, fan_in: int,
     initialiser (variance_scaling(1, "fan_in", "truncated_normal"): the
     truncated normal times √(1/fan_in) / TN_STD), "embed" the ``Embed``
     default (an untruncated normal of variance 1/fan_in). ``k``: the draw's
-    key where it is not ``param_key(seed, path)``."""
+    key where it is not ``param_key(key(seed), path)``."""
     numel = int(np.prod(shape, dtype=np.int64))
-    k = param_key(seed, path) if k is None else k
+    k = param_key(key(seed), path) if k is None else k
     sd = np.sqrt(np.float32(1.0 / fan_in))
     if kind == "lecun":
         z = draw_flat(truncated_normal_from_bits, k, numel, device)

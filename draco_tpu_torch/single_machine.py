@@ -30,7 +30,8 @@ def run(cfg: TrainConfig, device=None) -> dict:
     cfg = dataclasses.replace(cfg, **ONE_WORKER)
     if cfg.network == LM_NETWORK:
         if (cfg.seq_shards > 1 or cfg.tensor_shards > 1
-                or cfg.pipeline_shards > 1):
+                or cfg.expert_shards > 1 or cfg.pipeline_shards > 1
+                or cfg.pp_microbatches > 0):
             raise SystemExit(
                 "single_machine is the one-device path; use "
                 "python -m draco_tpu.cli for seq/tensor/expert/pipeline "

@@ -135,15 +135,22 @@ class LoopRunState:
             return ckpt.save(cfg.train_dir, step,
                              self.state.arrays(self.setup.layout),
                              compress=cfg.compress_ckpt,
-                             keep=cfg.keep_checkpoints)
+                             keep=cfg.keep_checkpoints,
+                             tree=self._tree_names())
 
     def restore(self, step: int) -> Optional[int]:
         """Resume from ``step`` (−1: the newest loadable checkpoint); the
         step loaded, or None on a fresh start."""
         lay = self.setup.layout
+
+        def load(train_dir, s, specs):
+            # a tree of other names is refused before its leaves are read
+            ckpt.check_tree(train_dir, s, self._tree_names())
+            return ckpt.load(train_dir, s, specs)
+
         try:
             arrays, loaded, _ = restore_with_walkback(
-                self.cfg.train_dir, step, self.state.specs(lay))
+                self.cfg.train_dir, step, self.state.specs(lay), load)
         except ckpt.LeafCountError as e:
             # the LM's two layer layouts hold different trees
             # (models/transformer.py): refused, never restacked
@@ -167,6 +174,15 @@ class LoopRunState:
         self.state.load(arrays, lay)
         return loaded
 
+    def _tree_names(self) -> tuple:
+        """The names a checkpoint of this run carries beside it: the LM's
+        parameters (its trees differ by route and layer layout with the
+        same leaves), none for a CNN."""
+        from draco_tpu_torch.config import LM_NETWORK
+
+        return (self.setup.layout.names if self.cfg.network == LM_NETWORK
+                else ())
+
     def _other_layout_leaves(self, scan: bool) -> int:
         """The leaf count of this LM's state in the other layer layout
         (built on meta, nothing allocated)."""
@@ -179,7 +195,8 @@ class LoopRunState:
         cfg = self.cfg
         with torch.device("meta"):
             model = TransformerLM(cfg.vocab, cfg.model_dim, cfg.model_heads,
-                                  cfg.model_layers, scan_layers=not scan)
+                                  cfg.model_layers, scan_layers=not scan,
+                                  experts=cfg.moe_experts)
         params = {k: p.detach() for k, p in model.named_parameters()}
         state = TrainState(params=params, stats={},
                            opt=optim.build_optimizer_from_cfg(cfg))

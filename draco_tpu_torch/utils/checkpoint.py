@@ -30,6 +30,15 @@ Resilience (the reference's):
   ``ValueError``, since an older checkpoint would not fix it;
 * ``save(..., keep=N)`` keeps the newest N checkpoints, never deleting the
   newest one.
+
+The port also writes the state's parameter names beside a checkpoint
+(``model_step_k.dcg.tree``, one name a line; the reference reads no such
+file, and neither package's ``model_step_(\\d+)(\\.dcg)?`` poll matches
+it). Trees that hold the same leaves under other names (the pipeline's
+``blocks.loop.b.*`` and the scanned LM's ``blocks.*``) are not
+interchangeable: :func:`check_tree` refuses a resume across them. A
+checkpoint the reference wrote carries no names, and is held to its leaf
+count, shapes and dtypes only.
 """
 
 from __future__ import annotations
@@ -92,11 +101,16 @@ def _sidecar(dcg_path: str) -> str:
     return dcg_path + ".sha256"
 
 
+def _tree_file(dcg_path: str) -> str:
+    return dcg_path + ".tree"
+
+
 def save(train_dir: str, step: int, leaves: Sequence[np.ndarray],
-         compress: bool = False, keep: int = 0) -> str:
-    """Write step ``step``'s checkpoint of ``leaves``; ``keep > 0`` then
-    keeps only the newest ``keep`` checkpoints. Returns the ``.dcg``
-    path."""
+         compress: bool = False, keep: int = 0,
+         tree: Sequence[str] = ()) -> str:
+    """Write step ``step``'s checkpoint of ``leaves`` (and ``tree``, the
+    parameters' names, beside it); ``keep > 0`` then keeps only the newest
+    ``keep`` checkpoints. Returns the ``.dcg`` path."""
     os.makedirs(train_dir, exist_ok=True)
     dcg = _path(train_dir, step) + ".dcg"
     level = 1 if compress else 0
@@ -117,6 +131,10 @@ def save(train_dir: str, step: int, leaves: Sequence[np.ndarray],
         os.remove(sidecar)
     except FileNotFoundError:
         pass
+    if tree:
+        with open(_tree_file(dcg) + ".tmp", "w") as f:
+            f.write("\n".join(tree) + "\n")
+        os.replace(_tree_file(dcg) + ".tmp", _tree_file(dcg))
     os.replace(tmp, dcg)
     with open(sidecar + ".tmp", "w") as f:
         f.write(digest.hexdigest() + "\n")
@@ -135,7 +153,8 @@ def gc_checkpoints(train_dir: str, keep: int) -> list:
         path = _path(train_dir, step)
         if os.path.isdir(path):
             shutil.rmtree(path, ignore_errors=True)
-        for f in (path + ".dcg", _sidecar(path + ".dcg")):
+        for f in (path + ".dcg", _sidecar(path + ".dcg"),
+                  _tree_file(path + ".dcg")):
             if os.path.isfile(f):
                 os.remove(f)
     return doomed
@@ -257,6 +276,33 @@ def load(train_dir: str, step: int, specs: Sequence) -> list:
             f"without compress_ckpt); the port reads .dcg checkpoints only "
             f"— re-save it with the reference's compress_ckpt=True")
     raise FileNotFoundError(f"no checkpoint {path}.dcg")
+
+
+def _tree_kind(names: Sequence[str]) -> str:
+    if any(n.startswith("blocks.loop.b.") for n in names):
+        return "pipeline (pp, blocks.loop.b.*)"
+    if any(n.startswith("blocks.") for n in names):
+        return "stacked LM (scan_layers, blocks.*)"
+    if any(n.startswith("block0.") for n in names):
+        return "unrolled LM (block{i}.*)"
+    return "model"
+
+
+def check_tree(train_dir: str, step: int, names: Sequence[str]) -> None:
+    """Refuse (``ValueError``) a checkpoint whose names (written beside it
+    by the port) are not ``names``, this run's tree; one without names
+    passes (the reference's)."""
+    path = _tree_file(_path(train_dir, step) + ".dcg")
+    if not names or not os.path.isfile(path):
+        return
+    with open(path) as f:
+        held = tuple(f.read().split())
+    if held != tuple(names):
+        raise ValueError(
+            f"checkpoint step {step} in {train_dir!r} holds a "
+            f"{_tree_kind(held)} tree of {len(held)} parameters; this run's "
+            f"is a {_tree_kind(names)} tree of {len(names)}: the two are "
+            f"not interchangeable, and the resume is refused")
 
 
 def exists(train_dir: str, step: int) -> bool:

@@ -12,8 +12,10 @@
   segments, the approx decode's offset entry on views off a strip).
 * The program lint at CI size: every registered leg green on the CPU
   rules, every CPU control tripping exactly its rule, the honest miniature
-  green; the registry covers the twenty-five legs ``chip_smoke.py`` drives,
-  each segmented leg beside its S = 1 twin.
+  green (the legs from ``lenet_single`` on in ``test_torch_audit_legs.py``,
+  the observatory's in ``test_torch_audit_watch.py``); the registry covers
+  the legs ``chip_smoke.py`` drives, each segmented leg beside its S = 1
+  twin, each model-parallel leg on its own route.
 """
 
 import json
@@ -55,7 +57,9 @@ LEGS = ("simulate", "geomedian", "shared", "approx", "approx_int8",
         "lm_approx_int8_sr_flash", "lm_shared_int8_flash",
         "lm_shared_flash_drop2", "lm_shared_flash_remat",
         "lm_shared_flash_scan", "lm_big_shared_flash", "lm_sp4_ring_flash",
-        "lm_sp4_a2a_flash")
+        "lm_sp4_a2a_flash", "lm_shared_dense", "lm_shared_dense_tp2",
+        "lm_shared_flash_pp2", "lm_shared_dense_moe4",
+        "lm_shared_dense_moe4_ep2")
 # the legs' workers at full width: presets rep-resnet18 and cyclic-vgg11
 # (n=9), single-lenet (n=1), the ResNet tree legs (n=16), the approx tree
 # (n=9), the others n=8
@@ -379,6 +383,13 @@ def test_the_registry_covers_the_ten_legs():
         assert m.host_syncs == 0 and m.in_place and m.collectives == {}
         assert m.h2d_bytes == sum(registry.uploads(full).values()) > 0
         assert m.max_peak_bytes > 0
+    from draco_tpu_torch.parallel import route_of
+
+    for leg, twin in registry.MP_TWINS.items():
+        lp = registry.get(leg)
+        route = route_of(lp.config(True))
+        assert lp.route == ("lm" if route == "sp" else route)
+        assert registry.get(twin).route == "lm"
 
 
 # the observatory's legs, linted in test_torch_audit_watch.py (their CPU
@@ -393,9 +404,20 @@ def lint_rows_of(legs) -> dict:
             for name in legs}
 
 
+# the legs linted here; the later ones (from LATER on, the watch legs
+# but) in test_torch_audit_legs.py, a file of their own beside this one:
+# the CPU lint of every leg takes minutes on one core, and xdist loadfile
+# keeps a file on one worker
+LATER = "lenet_single"
+HERE = tuple(leg for leg in LEGS[:LEGS.index(LATER)]
+             if leg not in WATCH_LEGS)
+ELSEWHERE = tuple(leg for leg in LEGS[LEGS.index(LATER):]
+                  if leg not in WATCH_LEGS)
+
+
 @pytest.fixture(scope="module")
 def lint_rows():
-    return lint_rows_of([leg for leg in LEGS if leg not in WATCH_LEGS])
+    return lint_rows_of(HERE)
 
 
 def assert_green(row, leg) -> None:
@@ -409,8 +431,7 @@ def assert_green(row, leg) -> None:
         assert "int8" in r["dtype"]["dtypes"]
 
 
-@pytest.mark.parametrize("leg", [leg for leg in LEGS
-                                 if leg not in WATCH_LEGS])
+@pytest.mark.parametrize("leg", HERE)
 def test_every_leg_green_on_the_cpu_rules(lint_rows, leg):
     assert_green(lint_rows[leg], leg)
 

@@ -59,6 +59,7 @@ def test_every_reference_network_is_built():
             build_model(name, ds, dtype="bfloat16")
 
 
+LM_FIELDS = dict(network="TransformerLM", dataset="synthetic-text")
 # (fields, the reference's validate() raises)
 CASES = [
     (dict(lr_schedule="linear"), True),
@@ -82,6 +83,19 @@ CASES = [
     (dict(prefetch_restarts=-1), True),
     (dict(prefetch_timeout_s=-0.5), True),
     (dict(prefetch_timeout_s=0.0, prefetch_restarts=0), False),
+    # the LM's expert and pipeline fields (the reference's defaults, its
+    # checks and messages)
+    (dict(expert_shards=2), True),
+    (dict(pp_microbatches=2), False),
+    (dict(pp_microbatches=-1), False),
+    (dict(LM_FIELDS, moe_experts=4, expert_shards=2), False),
+    (dict(LM_FIELDS, expert_shards=2), True),
+    (dict(LM_FIELDS, moe_experts=4, expert_shards=3), True),
+    (dict(LM_FIELDS, pp_microbatches=2), False),
+    (dict(LM_FIELDS, pp_microbatches=-1), True),
+    (dict(LM_FIELDS, pp_microbatches=5), True),
+    (dict(LM_FIELDS, pp_microbatches=2, expert_shards=2, moe_experts=2),
+     True),
 ]
 
 

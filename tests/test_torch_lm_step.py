@@ -35,6 +35,7 @@ from draco_tpu.parallel.sp_step import synthetic_text as j_text
 from draco_tpu_torch import params as params_mod
 from draco_tpu_torch import rng
 from draco_tpu_torch.config import TrainConfig
+from draco_tpu_torch.parallel import build_route_setup
 from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.sp_step import synthetic_text
 
@@ -157,10 +158,12 @@ def test_eval_step(leg):
 
 # the device tokens and the random attack under K > 1 run now (their
 # draws read the staged step), and sequence shards, remat and the scanned
-# layer stack: those cases (PORTED) validate and run a step; the others
-# are still refused
+# layer stack, and tensor parallelism, the pipeline and the Switch experts
+# (each on its route, parallel.build_route_setup): those cases (PORTED)
+# validate and run a step; the others are still refused
 PORTED = ("token_gen=device", "steps_per_call=4", "seq_shards=2",
-          "remat=True", "scan_layers=True", "seq_shards=2-wire_dtype=int8")
+          "remat=True", "scan_layers=True", "seq_shards=2-wire_dtype=int8",
+          "tensor_shards=2", "pipeline_shards=2", "moe_experts=4")
 
 
 @pytest.mark.parametrize("override", [
@@ -190,7 +193,7 @@ def test_lm_config_rejects_what_is_not_ported(request, override):
             TrainConfig(**dict(base, **override)).validate()
         return
     cfg = TrainConfig(**dict(base, **override)).validate()
-    setup = build_sp_train_setup(cfg, device="cpu")
+    setup = build_route_setup(cfg, device="cpu")
     toks = (None if cfg.token_gen == "device"
             else synthetic_text(SEED, 1, 8, 2, 32, 64))
     _, m = setup.train_step(setup.state, toks,
