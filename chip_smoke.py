@@ -402,6 +402,46 @@ prints no result line):
               reference's LM dial (``straggle@3-10:w5``, 24 steps) at K=1
               with device tokens, in chunks of one step: dial_down
               (compiled) and dial_up (reused), one capture a regime
+  10. observe the profiler window and the build/capture sentinel
+              (``observe_phase``, after phase 7, the profiler's last
+              user), each run under ``compile_guard="raise"`` with a
+              trace and a train dir, the launch counts zeroed just
+              before it and read just after: the chunked flagship
+              (``simulate``, K=4, 16 steps, deterministic cuDNN)
+              profiled over chunks 2-3 (replays only), beside an
+              unprofiled twin (every loss and the final state bit for
+              bit) and an eager run profiled over the same eight steps
+              (the replay's phase fractions within 0.05 of its own where
+              the replay map held); each capture's anchor, status.json's
+              ``device`` block, the fold's rows summing to the capture's
+              device events, the device busy no longer than the window's
+              wall, the port kernels' names among the device events, no
+              steady recompile and a compile lane row a ledger row; the
+              window's kernel time against 8 × the chunk's ms/step
+              (phase 6's, else the twin's: at least half), the chunk
+              ms/step inside and after the window against the twin's;
+              the negative control (the flagship's graph dropped, one
+              more chunk of train_many[4] through ``Trainer.run`` must
+              raise RetraceError after writing its steady row). The
+              CLI a user runs (``python -m draco_tpu_torch.cli --preset
+              cyclic-resnet18 --num-workers 8 --redundancy shared
+              --steps-per-call 4 --max-steps 8 --profile-dir --trace-dir
+              --train-dir --compile-guard raise``) in a process of its
+              own: each kernel library loaded once, one capture inside
+              the window, mapped from the capture's own warm-up range,
+              all four coded kernels among its device events. The LM
+              through ``train_route``: ``lm_shared_flash`` at its width
+              and OBS_LM_LAYERS of its 8 layers, eagerly (attributed
+              share ≥ 0.95) and in chunks of K=4
+
+Phase 6 holds Krum's default-cuDNN chunk by a discrete rule
+(``krum_pick_rule``): its scores recorded on the card at every step
+(``KrumScores``, graph-safe); where the chunk picks the eager run's rows,
+its update keeps the 5e-2 bound; where a pick differs, the two rows'
+scores must tie within the scores' run-to-run spread at that step (two
+eager runs and two chunks from one snapshot), and the loss is held up to
+that step. Its losses keep the leg's 1e-4 relative bound; their own
+run-to-run spread in the same runs is printed beside it.
 
 ``--profile`` adds one torch.profiler step per leg (device time by kernel
 and by the step's phases draco_comp / draco_encode / draco_decode /
@@ -447,7 +487,7 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data.datasets import load_dataset
 from draco_tpu_torch.models import build_model
 from draco_tpu_torch.models.transformer import TransformerLM
-from draco_tpu_torch.obs import heartbeat, locator_ab, numerics
+from draco_tpu_torch.obs import device_attr, heartbeat, locator_ab, numerics
 from draco_tpu_torch.obs.trace_report import fold_device_phases
 from draco_tpu_torch.obs.tracer import PHASES
 from draco_tpu_torch.ops import coded, controls, decode_kernels, draws, vote
@@ -3358,6 +3398,74 @@ def krum_watch():
         aggregation.krum = krum
 
 
+class KrumScores:
+    """Inside (a context manager): each call of aggregation's Krum scores
+    writes its (n,) scores into row ``count % slots`` of a device buffer
+    and counts on the device, so a captured chunk's replays record their
+    steps' scores as eager steps do. ``take(k)``: the last k calls'
+    scores, (k, n) float64 on the host; the count restarts."""
+
+    def __init__(self, n: int, dev, slots: int = 16):
+        self.buf = torch.zeros((slots, n), dtype=torch.float32, device=dev)
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.slots = slots
+
+    def __enter__(self):
+        from draco_tpu_torch import aggregation
+
+        self._mod, self._orig = aggregation, aggregation._krum_scores
+        orig, buf, count = self._orig, self.buf, self.count
+
+        def watched(grads, s, present=None):
+            scores = orig(grads, s, present)
+            idx = torch.remainder(count, buf.shape[0]).view(1)
+            buf.index_copy_(0, idx, scores.to(buf.dtype)[None])
+            count.add_(1)
+            return scores
+
+        aggregation._krum_scores = watched
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._krum_scores = self._orig
+        return False
+
+    def take(self, k: int) -> np.ndarray:
+        c = int(self.count)
+        require(c >= k, f"krum scores: {c} calls recorded, {k} wanted")
+        rows = [(c - k + i) % self.slots for i in range(k)]
+        out = self.buf[rows].double().cpu().numpy()
+        self.count.zero_()
+        return out
+
+
+def krum_pick_rule(eager, chunk, runs) -> dict:
+    """Krum's picks in an eager run and a chunk from one snapshot, from
+    their (K, n) scores (the row picked: the argmin, the first on a tie).
+    Where every step's pick agrees: ``agree``. Else, at the first step t
+    whose picks differ (rows a, eager's, and b, the chunk's), the gap
+    between a's and b's eager scores against the scores' run-to-run
+    spread at t: the most any other row's score moves between two of
+    ``runs`` (every run's (K, n) scores from that snapshot). The two rows
+    ``tie`` when the gap is at most the spread; a gap past it is a
+    disagreement the noise cannot explain."""
+    eager = np.asarray(eager, dtype=np.float64)
+    chunk = np.asarray(chunk, dtype=np.float64)
+    pe, pc = eager.argmin(1), chunk.argmin(1)
+    out = {"picks_eager": pe.tolist(), "picks_chunk": pc.tolist()}
+    diff = np.nonzero(pe != pc)[0]
+    if not diff.size:
+        return {**out, "agree": True}
+    t, a, b = int(diff[0]), int(pe[diff[0]]), int(pc[diff[0]])
+    others = [i for i in range(eager.shape[1]) if i not in (a, b)]
+    at_t = np.stack([np.asarray(r, dtype=np.float64)[t] for r in runs])
+    spread = float((at_t[:, others].max(0) - at_t[:, others].min(0)).max())
+    gap = float(abs(eager[t, a] - eager[t, b]))
+    return {**out, "agree": False, "step": t, "rows": [a, b],
+            "scores": [float(eager[t, a]), float(eager[t, b])],
+            "gap": gap, "spread": spread, "tie": gap <= spread}
+
+
 @contextlib.contextmanager
 def decode_watch(opt):
     """Inside: each step's relative L2 gap (a 0-d device tensor) between
@@ -3736,6 +3844,36 @@ def hold_bitwise(name, cfg, eager_a, eager_b, runs) -> dict:
             "state_tensors": len(fin_a), "held": held}
 
 
+def loss_spread(*pairs) -> float:
+    """The most a step's loss moves, relative, between the two runs of
+    each pair (records of K steps from one snapshot)."""
+    return max(abs(b["loss"] - a["loss"]) / abs(a["loss"])
+               for x, y in pairs for a, b in zip(x, y))
+
+
+def krum_held(name, tag, rule) -> dict:
+    """``krum_pick_rule``'s case for one default-setting chunk: picks that
+    agree leave the update to its bound; picks that differ must tie within
+    the scores' run-to-run spread, and the case is printed."""
+    if rule["agree"]:
+        print(f"chunk {name} {tag}: Krum picked rows {rule['picks_chunk']},"
+              f" the eager run's", flush=True)
+        return rule
+    require(rule["tie"], f"chunk {name} {tag}: Krum picked row "
+            f"{rule['rows'][1]} at step {rule['step'] + 1}, the eager run "
+            f"row {rule['rows'][0]}, their scores {rule['scores']} apart by "
+            f"{rule['gap']:.6g}, more than the scores' run-to-run spread "
+            f"{rule['spread']:.6g}")
+    print(f"chunk {name} {tag}: Krum picked row {rule['rows'][1]} at step "
+          f"{rule['step'] + 1} where the eager run picked row "
+          f"{rule['rows'][0]}: scores {rule['scores'][0]:.9g} and "
+          f"{rule['scores'][1]:.9g}, a gap of {rule['gap']:.6g} within the "
+          f"run-to-run spread {rule['spread']:.6g}: a tie, so the update"
+          f" bound is not held past it (picks {rule['picks_eager']} eager, "
+          f"{rule['picks_chunk']} chunk)", flush=True)
+    return rule
+
+
 def chunk_leg(lp, program, dev, profile: bool) -> dict:
     """Phase 6 for one leg (module docstring). Timing on the leg's own
     setup: K eager steps, the chunk (capture, then replays only) and the
@@ -3747,33 +3885,66 @@ def chunk_leg(lp, program, dev, profile: bool) -> dict:
     not fit the card on ``lm_simulate_flash``. The default-setting chunk
     of a ResNet leg is held to its eager run within the leg's card-vs-CPU
     tolerance (loss 1e-4 relative, update 5e-2 relative L2,
-    cross_device_check). The state is left as the snapshot had it."""
+    cross_device_check); Krum's update only where its picks agree
+    (``krum_held``). The state is left as the snapshot had it."""
     name, cfg = lp.name, program.cfg
     K, lm = cfg.steps_per_call, lp.route != "cnn"
     runs = _ChunkRuns(program)
-    recs_e, eager_ms, fin_e = runs.eager()
-    recs_b, _, fin_b = runs.eager() if lm else (None, None, None)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    recs_c, first_ms, fin_c = runs.chunk_run()  # warm-up, capture, replays
-    first_wall_s = time.perf_counter() - t0
-    captured = ops.launch_counts()
-    recs_c2, chunk_ms, fin_c2 = runs.chunk_run()
+    # Krum's scores at every step of the default-setting runs, the chunk's
+    # replays included (``krum_held``)
+    krum = (KrumScores(cfg.num_workers, program.device)
+            if cfg.approach == "baseline" and cfg.mode == "krum" else None)
+    scores = {}
+    with krum if krum is not None else contextlib.nullcontext():
+        recs_e, eager_ms, fin_e = runs.eager()
+        if krum is not None:
+            scores["eager"] = krum.take(K)
+            # a second eager run: the scores' and the losses' spread
+            recs_e2 = runs.eager()[0]
+            scores["eager again"] = krum.take(K)
+        recs_b, _, fin_b = runs.eager() if lm else (None, None, None)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        recs_c, first_ms, fin_c = runs.chunk_run()  # warm-up, capture,
+        first_wall_s = time.perf_counter() - t0     # replays
+        captured = ops.launch_counts()
+        if krum is not None:
+            scores["chunk"] = krum.take(K)
+        recs_c2, chunk_ms, fin_c2 = runs.chunk_run()
+        if krum is not None:
+            scores["chunk again"] = krum.take(K)
     last, loop_wall_ms, _ = runs.loop(LOOP_CHUNKS)
     loop_ms = last["step_ms"]
     for k in EXPECT[name]:
         require(captured[k] > 0, f"chunk {name}: kernel {k} is not in the "
                 f"captured step ({captured})")
     loss_tol, upd_tol = (1e-5, 1e-3) if lm else (1e-4, 5e-2)
-    default_err = []
-    for recs, fin in ((recs_c, fin_c), (recs_c2, fin_c2)):
+    default_err, krum_rules = [], []
+    if krum is not None:
+        # Krum's update is one worker's gradient, its noise not averaged
+        # over the rows: the losses' own run-to-run spread (two eager runs,
+        # two chunks) beside the leg's bound
+        spread = loss_spread([recs_e, recs_e2], [recs_c, recs_c2])
+        print(f"chunk {name}: the losses' run-to-run spread {spread:.3e} "
+              f"relative (two eager runs, two chunks): loss tol "
+              f"{loss_tol:.3e}", flush=True)
+    for tag, recs, fin in (("chunk", recs_c, fin_c),
+                           ("chunk again", recs_c2, fin_c2)):
         _check_records(name, cfg, recs_e, recs)
+        rule = (krum_pick_rule(scores["eager"], scores[tag],
+                               list(scores.values()))
+                if krum is not None else {"agree": True})
+        # past a Krum pick that differs, the runs part ways
+        held = K if rule["agree"] else rule["step"] + 1
         default_err.append({
             "loss_rel_err": max(abs(c["loss"] - a["loss"]) / abs(a["loss"])
-                                for a, c in zip(recs_e, recs)),
+                                for a, c in list(zip(recs_e, recs))[:held]),
             "update_rel_l2_err": _update_err(runs.snap.saved, fin, fin_e)})
+        if krum is not None:
+            krum_rules.append(krum_held(name, tag, rule))
         require(default_err[-1]["loss_rel_err"] <= loss_tol
-                and default_err[-1]["update_rel_l2_err"] <= upd_tol,
+                and (default_err[-1]["update_rel_l2_err"] <= upd_tol
+                     or not rule["agree"]),
                 f"chunk {name}: {default_err[-1]} against the eager run "
                 f"(tol loss {loss_tol}, update {upd_tol})")
     graph = runs.client.many.graph()
@@ -3816,6 +3987,7 @@ def chunk_leg(lp, program, dev, profile: bool) -> dict:
            "first_chunk_ms_per_step": first_ms,
            "first_chunk_wall_s": first_wall_s,
            "default_settings_err": default_err, "agreement": agreement,
+           "krum_picks": krum_rules,
            "captured_launches": captured,
            "pool_bytes": graph.pool_bytes, "slot_waits": graph.slot_waits,
            "records": recs_c}
@@ -4758,6 +4930,10 @@ def graph_replay_kernels(code, dev, cuts) -> list:
     return checked
 
 
+def _gib(nbytes) -> str:
+    return "n/a" if nbytes is None else f"{nbytes / 2**30:.3f} GiB"
+
+
 def lint_legs(dev) -> list:
     """The program lint (analysis/rules.py) of every leg at the width it
     ran, each built anew through the registry: one warm-up step, then the
@@ -4874,7 +5050,9 @@ def lint_leg(name, program) -> dict:
           f"{r['constant_bloat']['dispatcher']['bytes']}; budget "
           f"{r['constant_bloat']['budget']}), step peak "
           f"{r['memory_budget']['step_peak_bytes'] / 2**30:.3f} GiB (budget "
-          f"{r['memory_budget']['budget'] / 2**30:.2f}), absolute peak "
+          f"{r['memory_budget']['budget'] / 2**30:.2f}; requested "
+          f"{_gib(r['memory_budget']['step_requested_peak_bytes'])}), "
+          f"absolute peak "
           f"{r['memory_budget']['peak_bytes'] / 2**30:.3f} GiB, "
           f"{r['in_place']['state_tensors']} state tensors in place, "
           f"{row['ops']} ops"
@@ -6314,6 +6492,446 @@ def lm_lifecycle(dev, root, legs) -> dict:
     return out
 
 
+# ---- phase 10: the profiler window and the build/capture sentinel ----------
+OBS_STEPS = 16  # the chunked flagship's run: chunks 1-4 of K=4
+OBS_WINDOW = (5, 12)  # snapped to chunks 2-3: replays only
+OBS_EAGER_WINDOW = (5, 13)  # the same eight steps, eagerly
+OBS_LM_STEPS = 12
+# the LM's depth in phase 10 (its widths are lm_shared_flash's): two of
+# its eight layers keep the phase inside its share of the script's time
+OBS_LM_LAYERS = 2
+OBS_PROFILED = 8  # steps in each window of the flagship and the LM
+# each port kernel's device kernels, by the names nvcc gives them
+DEVICE_KERNELS = {"complex_matmul": ("complex_matmul",),
+                  "complex_project": ("project_partial", "project_final"),
+                  "complex_recombine": ("complex_recombine",),
+                  "cyclic_locator": ("cyclic_locator",),
+                  "flash_fwd": ("flash_fwd",), "flash_dq": ("flash_dq",),
+                  "flash_dkv": ("flash_dkv",)}
+FRAC_TOL = 0.05  # a replay's phase fraction against the eager window's
+LM_ATTRIBUTED = 0.95  # the eager LM window's least attributed share
+# the fold's rows against the capture's device events: the same numbers
+# summed in another order
+SUM_RTOL = 1e-9
+
+
+@contextlib.contextmanager
+def chunk_clock(client_cls):
+    """Inside: each dispatch of a ``client_cls`` chunk timed by CUDA events
+    around it (the chunk phase's measure); yields [(start, k, events)]."""
+    own = client_cls.__dict__.get("dispatch")
+    orig, log = client_cls.dispatch, []
+
+    def dispatch(self, state, chunk):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(self, state, chunk)
+        b.record()
+        log.append((chunk.start, chunk.k, (a, b)))
+        return out
+
+    client_cls.dispatch = dispatch
+    try:
+        yield log
+    finally:
+        if own is None:
+            del client_cls.dispatch
+        else:
+            client_cls.dispatch = own
+
+
+def chunk_ms(log) -> list:
+    """[(start, k, ms)] of a ``chunk_clock`` log."""
+    torch.cuda.synchronize()
+    return [(s, k, a.elapsed_time(b)) for s, k, (a, b) in log]
+
+
+def observed(label, run, d, client_cls=None) -> dict:
+    """``run()`` (a loop a user runs, writing into ``d``) with the launch
+    counts zeroed just before it and read just after, each chunk clocked;
+    then what it wrote: its records, status.json (the schema check), the
+    compile ledger and the trace's compile lane."""
+    clock = (chunk_clock(client_cls) if client_cls is not None
+             else contextlib.nullcontext([]))
+    torch.cuda.synchronize()
+    with clock as log:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    with open(os.path.join(d, "status.json")) as f:
+        status = heartbeat.check_status_schema(json.load(f),
+                                               tool="chip_smoke")
+    ledger = []
+    if os.path.exists(os.path.join(d, "compiles.jsonl")):
+        with open(os.path.join(d, "compiles.jsonl")) as f:
+            ledger = [json.loads(x) for x in f]
+    lane = []
+    if os.path.exists(os.path.join(d, "trace.json")):
+        with open(os.path.join(d, "trace.json")) as f:
+            lane = [e for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "compile"]
+    return {"label": label, "wall_s": wall, "counts": counts,
+            "records": [r for r in _records(d) if "loss" in r
+                        and "prec1_test" not in r],
+            "status": status, "ledger": ledger, "lane": lane,
+            "chunks": chunk_ms(log)}
+
+
+def capture_held(label, r, prof, steps, kernels, counts_of=None) -> dict:
+    """A profiled run's capture (module docstring, phase 10): the capture
+    and its anchor, the ``device`` block of ``steps`` steps, the fold's
+    rows against the capture's device time, ``kernels`` launched in the
+    run (``counts_of``'s names, the wrapper calls) and named among the
+    capture's device events, the window's device time inside its wall, no
+    steady recompile, a compile lane row for each ledger row."""
+    path = device_attr.find_capture(prof)
+    anchor = device_attr.load_anchor(prof) or {}
+    require(path is not None and anchor.get("steps_profiled") == steps
+            and anchor.get("tracer_ts_us") is not None,
+            f"observe {label}: capture {path}, anchor {anchor}")
+    dev_block = r["status"].get("device") or {}
+    require(dev_block.get("profiled_steps") == steps
+            and dev_block.get("total_device_us", 0) > 0
+            and dev_block.get("mode") == "device"
+            and {"phase_fracs", "decode_share", "attributed_frac"}
+            <= set(dev_block), f"observe {label}: device block {dev_block}")
+    t0 = time.perf_counter()
+    events, _ = device_attr.load_trace(path)
+    led = device_attr.fold_events(events, device_attr.load_graph_maps(prof))
+    fold_s = time.perf_counter() - t0
+    devs = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    summed = math.fsum(float(e.get("dur", 0.0)) for e in devs)
+    rows = math.fsum(v["time_us"] for v in led["phases"].values())
+    require(led["mode"] == "device" and summed > 0
+            and abs(rows - summed) <= SUM_RTOL * summed
+            and abs(led["total_device_us"] - summed) <= SUM_RTOL * summed
+            and abs(dev_block["total_device_us"] - summed) <= 0.1,
+            f"observe {label}: the fold's rows sum to {rows} µs, the "
+            f"capture's device events to {summed} µs, the device block "
+            f"reads {dev_block['total_device_us']} ({led['mode']})")
+    busy = led["busy_us"]
+    names = {e.get("name", "") for e in devs if e.get("cat") == "kernel"}
+    seen = {k: any(s in n for n in names for s in DEVICE_KERNELS[k])
+            for k in kernels}
+    require(all(seen.values()), f"observe {label}: kernels missing from "
+            f"the capture's device events: {seen}")
+    launched = {k: r["counts"][k]
+                for k in (kernels if counts_of is None else counts_of)}
+    require(all(v > 0 for v in launched.values()),
+            f"observe {label}: a kernel of the path was not launched: "
+            f"{launched}")
+    # the lanes' streams overlap: the device is busy for less than the
+    # kernels' summed time, and never for longer than the window
+    window_us = (anchor["drained_perf"] - anchor["started_perf"]) * 1e6
+    require(busy <= window_us, f"observe {label}: the device busy for "
+            f"{busy} µs in a window of {window_us} µs wall")
+    snap = {k: r["status"].get(k) for k in ("compiles", "compile_s",
+                                             "steady_recompiles")}
+    require(snap["steady_recompiles"] == 0
+            and not any(x["steady_recompile"] for x in r["ledger"])
+            and len(r["lane"]) == len(r["ledger"]) == snap["compiles"],
+            f"observe {label}: compiles {snap}, ledger {r['ledger']}, "
+            f"{len(r['lane'])} compile lane events")
+    return {"steps_profiled": steps, "device": dev_block,
+            "device_us": summed, "busy_us": busy,
+            "window_wall_us": window_us, "export_s": anchor.get("export_s"),
+            "kernel_events": len(devs), "trace_events": len(events),
+            "fold_s": fold_s, "replays": led["replays"],
+            "replays_mapped": led["replays_mapped"],
+            "replays_short": led["replays_short"], "launches": launched,
+            "compiles": snap, "ledger": r["ledger"], "wall_s": r["wall_s"]}
+
+
+def captures_held(label, ledger, want: list) -> None:
+    """The ledger's graph captures: one for each (program, graph) in
+    ``want``, none in steady state."""
+    got = [(x["program"], x["name"]) for x in ledger
+           if x["kind"] == "graph_capture"]
+    require(got == want, f"observe {label}: graph captures {got}, "
+            f"expected {want}")
+
+
+def _phase_line(label, held) -> None:
+    dev = held["device"]
+    fr = ", ".join(f"{k} {v:.3f}" for k, v in dev["phase_fracs"].items())
+    print(f"observe {label}: {held['steps_profiled']} steps profiled, "
+          f"{held['device_us'] / 1e3:.2f} ms of kernel time, busy "
+          f"{held['busy_us'] / 1e3:.2f} ms, in a "
+          f"{held['window_wall_us'] / 1e3:.2f} ms window (written in "
+          f"{held['export_s']:.2f} s; {fr}; attributed "
+          f"{dev['attributed_frac']}, decode share {dev['decode_share']}; "
+          f"{held['kernel_events']} device events of {held['trace_events']},"
+          f" {held['replays_mapped']} of {held['replays']} graph replays "
+          f"mapped, {held['replays_short']} of them with records lost; "
+          f"folded in {held['fold_s']:.2f} s); compiles "
+          f"{held['compiles']}; run wall {held['wall_s']:.2f} s",
+          flush=True)
+
+
+def _outside_ms(chunks, window) -> float:
+    """Mean chunk ms/step of the replay chunks outside the window (the
+    first chunk, which captures, aside)."""
+    out = [ms / k for s, k, ms in chunks[1:]
+           if s + k - 1 < window[0] or s >= window[1]]
+    return sum(out) / len(out) if out else float("nan")
+
+
+def observe_flagship(dev, ds, root, twin_ms) -> dict:
+    """The chunked flagship (``simulate``, K=4, 16 steps) profiled over the
+    replay-only chunks 2-3, beside an unprofiled twin and an eager run
+    profiled over the same eight steps, all under deterministic cuDNN, and
+    the negative control on the profiled Trainer."""
+    from draco_tpu_torch.control.clients import TrainerChunkClient
+    from draco_tpu_torch.obs.compile_watch import RetraceError
+
+    lp = registry.get("simulate")
+    base = dict(max_steps=OBS_STEPS, steps_per_call=CHUNK_K, log_every=1,
+                compile_guard="raise")
+    out = {}
+    runs = {}
+    with cudnn_deterministic():
+        for tag, k, window, steps in (
+                ("chunk", CHUNK_K, OBS_WINDOW, OBS_STEPS),
+                ("twin", CHUNK_K, None, OBS_STEPS),
+                ("eager", 1, OBS_EAGER_WINDOW, OBS_EAGER_WINDOW[1] - 1)):
+            d = os.path.join(root, f"simulate_{tag}")
+            prof = os.path.join(root, f"simulate_{tag}_prof")
+            cfg = lp.config(True, **{**base, "max_steps": steps,
+                                     "steps_per_call": k, "train_dir": d,
+                                     "trace_dir": d if window else ""})
+            tr = Trainer(cfg, device=dev, dataset=ds, quiet=True)
+            kw = ({"profile_dir": prof, "profile_steps": window}
+                  if window else {})
+            r = observed(f"simulate {tag}", lambda: tr.run(**kw), d,
+                         TrainerChunkClient if k > 1 else None)
+            r["final"] = _state_copy(tr.state)
+            if window:
+                r["held"] = capture_held(f"simulate {tag}", r, prof,
+                                         OBS_PROFILED, CODED[1:])
+                _phase_line(f"simulate {tag}", r["held"])
+            runs[tag] = r
+            if tag == "chunk":
+                captures_held("simulate chunk", r["ledger"],
+                              [("train_many[4]",
+                                "train_many[cyclic/simulate]")])
+                out["control"] = negative_control(tr, RetraceError, d)
+            tr.close()
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+    chunk, twin, eager = runs["chunk"], runs["twin"], runs["eager"]
+    # the observation perturbs nothing: every loss and the final state
+    losses = [x["loss"] for x in chunk["records"]]
+    require(losses == [x["loss"] for x in twin["records"]]
+            and len(losses) == OBS_STEPS,
+            f"observe simulate: the profiled run's losses {losses} are not "
+            f"the twin's {[x['loss'] for x in twin['records']]}")
+    _held("observe simulate (profiled vs twin)", chunk["final"],
+          twin["final"])
+    # the replay's attribution against the eager window's
+    fc = chunk["held"]["device"]["phase_fracs"]
+    fe = eager["held"]["device"]["phase_fracs"]
+    gaps = {k: abs(fc[k] - fe[k]) for k in fc}
+    mapped = chunk["held"]["replays_mapped"] == chunk["held"]["replays"] > 0
+    if mapped:
+        require(max(gaps.values()) <= FRAC_TOL, f"observe simulate: the "
+                f"replay's phase fractions {fc} against the eager "
+                f"window's {fe} (tol {FRAC_TOL})")
+    # the device time beside the unprofiled chunks' (CUDA events)
+    dev_ms = chunk["held"]["device_us"] / 1e3
+    busy_ms = chunk["held"]["busy_us"] / 1e3
+    twin_chunks = [ms / k for _, k, ms in twin["chunks"][1:]]
+    twin_step = sum(twin_chunks) / len(twin_chunks)
+    ref_ms = twin_ms if twin_ms else twin_step
+    require(dev_ms >= 0.5 * ref_ms * OBS_PROFILED,
+            f"observe simulate: {dev_ms:.2f} ms of device time in the "
+            f"window, under half of {OBS_PROFILED} chunk steps at "
+            f"{ref_ms:.3f} ms")
+    outside = _outside_ms(chunk["chunks"], OBS_WINDOW)
+    inside = [ms / k for s, k, ms in chunk["chunks"]
+              if s >= OBS_WINDOW[0] and s + k - 1 <= OBS_WINDOW[1]]
+    out.update(
+        runs={t: {k: v for k, v in r.items()
+                  if k not in ("final", "records", "ledger", "lane")}
+              for t, r in runs.items()},
+        frac_gaps=gaps, replay_map_held=mapped,
+        window_device_ms=dev_ms, window_busy_ms=busy_ms,
+        twin_chunk_ms_per_step=twin_step, phase6_chunk_ms_per_step=twin_ms,
+        ratio=dev_ms / (ref_ms * OBS_PROFILED),
+        busy_ratio=busy_ms / (ref_ms * OBS_PROFILED),
+        outside_ms_per_step=outside,
+        inside_ms_per_step=sum(inside) / len(inside),
+        window_wall_ms=chunk["held"]["window_wall_us"] / 1e3)
+    print(f"observe simulate: the replay-only window's device time "
+          f"(total_device_us) {dev_ms:.2f} ms, busy {busy_ms:.2f} ms, "
+          f"against {OBS_PROFILED} × the chunk's {ref_ms:.3f} ms/step "
+          f"({'phase 6' if twin_ms else 'the twin'}) = "
+          f"{ref_ms * OBS_PROFILED:.2f} ms: ratios {out['ratio']:.3f} and "
+          f"{out['busy_ratio']:.3f}; "
+          f"the window's wall {out['window_wall_ms']:.2f} ms; chunk "
+          f"ms/step inside the window {out['inside_ms_per_step']:.3f}, "
+          f"outside it {outside:.3f}, the unprofiled twin's "
+          f"{twin_step:.3f} (deterministic cuDNN, CUDA events); replay "
+          f"map {'held' if mapped else 'NOT found'}: phase fractions "
+          f"within {max(gaps.values()):.4f} of the eager window's; "
+          f"profiled and twin bit for bit ({len(losses)} losses and the "
+          f"final state)", flush=True)
+    return out
+
+
+def negative_control(tr, error, d) -> dict:
+    """The flagship's graph dropped after its run, then one more chunk of
+    the same label and k through ``tr.run``: its re-capture after the
+    warmup must raise ``error`` (RetraceError) under guard="raise", with
+    its ledger row written first."""
+    graph = tr.setup.train_many.graph()
+    graph.graph = None
+    t0 = time.perf_counter()
+    try:
+        tr.run(OBS_STEPS + CHUNK_K)
+    except error as e:
+        msg = str(e)
+    else:
+        raise SmokeFailure("observe control: the re-capture of train_many[4]"
+                           " ran under guard=raise")
+    with open(os.path.join(d, "compiles.jsonl")) as f:
+        last = json.loads(f.readlines()[-1])
+    require(last["steady_recompile"] and last["program"] == "train_many[4]"
+            and last["kind"] == "graph_capture",
+            f"observe control: the ledger's last row {last}")
+    print(f"observe control: the re-captured train_many[4] raised "
+          f"RetraceError in {time.perf_counter() - t0:.2f} s, its steady "
+          f"row written first ({msg[:100]}...)", flush=True)
+    return {"raised": True, "row": last}
+
+
+def observe_cli(root) -> dict:
+    """The CLI a user runs, in a process of its own: preset cyclic-resnet18
+    at n=8 with ``shared`` redundancy (the encode's ``complex_matmul`` on a
+    profiled path), K=4, 8 steps, with ``--profile-dir --trace-dir
+    --train-dir --compile-guard raise``: the window [3, 8) snaps to chunks
+    1-2, chunk 1 holding the warm-up and the capture inside the running
+    capture. Its ledger: each kernel library the process loads once, one
+    capture."""
+    prof, d = os.path.join(root, "cli_prof"), os.path.join(root, "cli_run")
+    argv = [sys.executable, "-m", "draco_tpu_torch.cli", "--preset",
+            "cyclic-resnet18", "--num-workers", str(N), "--redundancy",
+            "shared", "--steps-per-call",
+            str(CHUNK_K), "--max-steps", "8", "--profile-dir", prof,
+            "--trace-dir", d, "--train-dir", d, "--compile-guard", "raise"]
+    t0 = time.perf_counter()
+    done = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    require(done.returncode == 0, f"observe cli: {' '.join(argv[1:])} "
+            f"exited {done.returncode}: {done.stderr[-2000:]}")
+    with open(os.path.join(d, "status.json")) as f:
+        status = heartbeat.check_status_schema(json.load(f),
+                                               tool="chip_smoke")
+    with open(os.path.join(d, "compiles.jsonl")) as f:
+        ledger = [json.loads(x) for x in f]
+    with open(os.path.join(d, "trace.json")) as f:
+        lane = [e for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "compile"]
+    builds = [x["name"] for x in ledger if x["kind"] == "kernel_build"]
+    require(builds and len(builds) == len(set(builds))
+            and {"coded", "cyclic_locator"} <= set(builds),
+            f"observe cli: kernel builds {builds}")
+    captures_held("cli", ledger,
+                  [("train_many[4]", "train_many[cyclic/shared]")])
+    r = {"status": status, "ledger": ledger, "lane": lane, "wall_s": wall}
+    held = capture_held("cli", r, prof, 8, CODED, counts_of=())
+    _phase_line("cli", held)
+    fold = device_attr.fold_capture(prof)
+    print(f"observe cli: {len(builds)} kernel libraries loaded once each "
+          f"({', '.join(builds)}; nvcc "
+          f"{sum(x.get('nvcc_s', 0) for x in ledger):.1f} s), one capture "
+          f"({[x['seconds'] for x in ledger if x['kind'] == 'graph_capture']}"
+          f" s) inside the window, the warm-up's map from the capture "
+          f"itself: {fold['programs'][0]['replays_mapped']} of "
+          f"{fold['programs'][0]['replays']} replays mapped; {wall:.1f} s "
+          f"wall", flush=True)
+    return {**held, "builds": builds}
+
+
+def observe_lm(dev, root) -> dict:
+    """``lm_shared_flash`` at LM_FULL's widths and OBS_LM_LAYERS layers
+    through ``train_route`` a user runs: the eager token loop (K=1, the
+    flash kernels folded by their ranges) and the chunked one (K=4, its
+    label's one capture), each profiled over eight steps."""
+    from draco_tpu_torch.control.clients import TokenChunkClient
+    from draco_tpu_torch.parallel import train_route
+
+    out = {}
+    for tag, lp_name, k, window, steps, kernels in (
+            ("eager", "lm_shared_flash", 1, OBS_EAGER_WINDOW,
+             OBS_EAGER_WINDOW[1] - 1, CODED + FLASH),
+            ("chunk", "lm_shared_flash", CHUNK_K, OBS_WINDOW, OBS_LM_STEPS,
+             CODED + FLASH)):
+        d = os.path.join(root, f"lm_{tag}")
+        prof = os.path.join(root, f"lm_{tag}_prof")
+        cfg = registry.get(lp_name).config(
+            True, max_steps=steps, steps_per_call=k, log_every=1,
+            compile_guard="raise", train_dir=d, trace_dir=d,
+            model_layers=OBS_LM_LAYERS)
+        r = observed(f"lm {tag}", lambda: train_route(
+            cfg, dev, quiet=True, profile_dir=prof, profile_steps=window),
+            d, TokenChunkClient if k > 1 else None)
+        want = window[1] - window[0] if k == 1 else OBS_PROFILED
+        held = capture_held(f"lm {tag}", r, prof, want, kernels)
+        if k > 1:
+            captures_held(f"lm {tag}", r["ledger"],
+                          [("train_token_many[4]",
+                            "train_token_many[cyclic/shared]")])
+        if tag == "eager":
+            require(held["device"]["attributed_frac"] >= LM_ATTRIBUTED,
+                    f"observe lm eager: attributed "
+                    f"{held['device']['attributed_frac']} < {LM_ATTRIBUTED}")
+        _phase_line(f"lm {tag}", held)
+        out[tag] = held
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def observe_phase(dev, ds, legs) -> dict:
+    """Phase 10 (module docstring): the flagship, the CLI a user runs in a
+    process of its own, and the LM."""
+    from draco_tpu_torch.obs import compile_watch
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    twin = {lg["leg"]: lg["chunk"]["chunk_ms_per_step"] for lg in legs}
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["flagship"] = observe_flagship(dev, ds, root,
+                                           twin.get("simulate"))
+        out["flagship_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["cli"] = observe_cli(root)
+        out["cli_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["lm"] = observe_lm(dev, root)
+        out["lm_s"] = time.perf_counter() - t0
+        out["process_compiles"] = compile_watch.global_stats()
+        print(f"observe phase: flagship {out['flagship_s']:.1f} s, the CLI "
+              f"{out['cli_s']:.1f} s, the LM {out['lm_s']:.1f} s; this "
+              f"process's compile events {out['process_compiles']}",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_step(tr) -> dict:
     """One more step under torch.profiler: device time by kernel name (the
     top 15), by the step's phases (the device work launched inside each
@@ -6488,6 +7106,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["state"] = state_phase(dev, ds)
     record["state_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["observe"] = observe_phase(dev, ds, legs)
+    record["observe_s"] = time.perf_counter() - t0
     # the kernels the flash rows' yardsticks ran, named by the profiler
     sdpa = sdpa_kernels_child()
     for row in kernels:
@@ -6549,7 +7170,8 @@ def main(argv=None) -> int:
           f"{record['autopilot_s']:.1f} s, the legs' lint "
           f"{record['lint_legs_s']:.1f} s, the lint's controls "
           f"{record['lint_controls_s']:.1f} s, state "
-          f"{record['state_s']:.1f} s)", flush=True)
+          f"{record['state_s']:.1f} s, observe {record['observe_s']:.1f} "
+          f"s)", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)

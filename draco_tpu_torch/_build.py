@@ -24,7 +24,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from draco_tpu_torch.obs import compile_watch
 
 PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -161,12 +164,17 @@ def build_all() -> list:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed. Its
+    first load in the process is reported to the compile sentinel
+    (``obs/compile_watch.report``, a ``kernel_build`` with the seconds of
+    the load and of nvcc, 0 when the library was built already)."""
     lib = _LOADED.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         job = _start(name)
         if job:
             _finish(job)
+        nvcc_s = time.perf_counter() - t0 if job else 0.0
         lib = ctypes.CDLL(str(lib_path(name)))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
@@ -175,6 +183,8 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         _LOADED[name] = lib
+        compile_watch.report("kernel_build", name, time.perf_counter() - t0,
+                             nvcc_s=round(nvcc_s, 6), cached=job is None)
     return lib
 
 

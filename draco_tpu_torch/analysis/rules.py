@@ -32,7 +32,8 @@ rules read that record against the program's manifest:
                   less ``memory_allocated`` at the start), with a chunked
                   program's graph pool, at most the manifest's; the row
                   also carries the absolute peak (the per-leg memory
-                  ledger)
+                  ledger) and the peak in the sizes the step requested,
+                  before the allocator rounds them to its blocks
 
 The sharding rules of the reference (sharding_contract, collective_axes,
 replication_leaks) wait for the port's sequence and tensor parallel routes.
@@ -156,6 +157,7 @@ def inspect_step(program) -> dict:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
+        asked = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with warnings.catch_warnings(record=True) as caught:
@@ -172,6 +174,10 @@ def inspect_step(program) -> dict:
         # the absolute peak
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         out["step_peak_bytes"] = out["peak_bytes"] - base
+        # the same peak in the sizes the step asked for, before the
+        # allocator rounds them to its blocks
+        out["step_requested_peak_bytes"] = torch.cuda.memory_stats(dev)[
+            "requested_bytes.all.peak"] - asked
         # torch's sync-debug warning; its one-time notice that the mode is
         # a prototype is not a sync
         sync_msgs = [str(w.message) for w in caught
@@ -198,6 +204,7 @@ def inspect_step(program) -> dict:
     if program.pool_bytes is not None and dev.type == "cuda":
         out["pool_bytes"] = program.pool_bytes()
         out["step_peak_bytes"] += out["pool_bytes"]
+        out["step_requested_peak_bytes"] += out["pool_bytes"]
     if program.flush is not None:
         out["flush"] = inspect_flush(program)
     out["ops"] = rec.ops
@@ -342,6 +349,7 @@ def rule_memory_budget(rec, m) -> dict:
     if skip:
         return skip
     res = {"step_peak_bytes": rec["step_peak_bytes"],
+           "step_requested_peak_bytes": rec.get("step_requested_peak_bytes"),
            "peak_bytes": rec["peak_bytes"], "budget": m.max_peak_bytes}
     if m.max_peak_bytes is None:
         return {"ok": True, "skipped": True,

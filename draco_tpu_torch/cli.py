@@ -67,6 +67,15 @@ overrides its policy) remediates from the incident stream at every flush
 (``control/autopilot.py``): quarantine, readmit and regime swaps, each a
 ``remediation`` line in ``incidents.jsonl`` and the status.json control
 block.
+``--profile-dir P`` captures a ``torch.profiler`` window of steps [3, 8)
+(snapped outward to whole chunks) under ``P`` with its wall-clock anchor
+(``obs/profiling.py``) and folds it into status.json's ``device`` block
+(``python -m draco_tpu_torch.obs.trace_report DIR --profile-dir P`` prints
+its device table); ``--compile-guard off|warn|raise`` and
+``--compile-warmup N`` set the build and capture sentinel
+(``obs/compile_watch.py``): every kernel library load and CUDA graph
+capture is a row of ``compiles.jsonl``, and one after a program's N
+compiling windows warns or raises.
 Runs on the card unless ``--device cpu`` is given. With ``--preset``, the
 flags given on the command line override the preset's fields.
 ``network=TransformerLM`` runs the LM step and its token loop on the
@@ -163,6 +172,8 @@ FLAGS = {
     "--incident-thresholds": (str, "incident_thresholds"),
     "--autopilot": (str, "autopilot"),
     "--autopilot-policy": (str, "autopilot_policy"),
+    "--compile-guard": (str, "compile_guard"),
+    "--compile-warmup": (int, "compile_warmup"),
 }
 
 
@@ -178,6 +189,9 @@ def parser() -> argparse.ArgumentParser:
                    help="named configuration (draco_tpu_torch.presets)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--profile-dir", type=str, default="",
+                   help="capture a torch.profiler window of steps [3, 8) "
+                        "here (obs/profiling.py)")
     return p
 
 
@@ -202,10 +216,15 @@ def main(argv=None) -> dict:
         # tp, then ep, then pp, else sp, as the reference's CLI dispatches
         from draco_tpu_torch.parallel import train_route
 
-        return train_route(cfg, device=args.device)[1]
+        return train_route(cfg, device=args.device,
+                           profile_dir=args.profile_dir or None)[1]
     from draco_tpu_torch.training.trainer import Trainer
 
-    return Trainer(cfg, device=args.device).run()
+    trainer = Trainer(cfg, device=args.device)
+    try:
+        return trainer.run(profile_dir=args.profile_dir or None)
+    finally:
+        trainer.close()
 
 
 if __name__ == "__main__":

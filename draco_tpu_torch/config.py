@@ -3,10 +3,7 @@ the port runs.
 
 Field names and defaults are the reference's. ``validate()`` keeps the
 reference's checks on these fields and rejects, with a clear error, every
-value the port does not implement yet. Four reference fields have no port
-field yet: ``pp_microbatches`` and ``expert_shards`` (the LM's sharded
-routes) and ``compile_guard`` and ``compile_warmup`` (the reference's
-compile ledger).
+value the port does not implement yet.
 
 The repetition code (``approach="maj_vote"``) votes on the bits of its
 group members' gradient rows: the lanes of a group must compute bit for
@@ -203,6 +200,14 @@ class TrainConfig:
     # host span trace of the loops' phases (obs/tracer.py) at
     # trace_dir/trace.json; "" = off
     trace_dir: str = ""
+    # the build and capture sentinel (obs/compile_watch.py): every kernel
+    # library load and CUDA graph capture is a row of compiles.jsonl (beside
+    # trace.json, else beside metrics.jsonl) and a status.json counter;
+    # after compile_warmup compiling dispatch windows of a program (a chunk
+    # shape), another is a steady recompile: "warn" warns, "raise" fails
+    # the dispatch, "off" records only
+    compile_guard: str = "warn"
+    compile_warmup: int = 1
     # --- resilience (resilience/faults.py, resilience/guards.py) ---
     # "on": the step guard skips an untrusted step's update by a select
     # (a non-finite aggregate, a loud decode residual, located rows past
@@ -413,8 +418,8 @@ class TrainConfig:
                     f"load)")
 
     def _validate_run_state(self) -> None:
-        """The reference's checks of the prefetch, checkpoint and resume
-        fields (draco_tpu/config.py)."""
+        """The reference's checks of the prefetch, checkpoint, resume and
+        compile sentinel fields (draco_tpu/config.py)."""
         if self.prefetch_timeout_s < 0:
             raise ValueError(
                 f"prefetch_timeout_s must be >= 0, got "
@@ -430,6 +435,15 @@ class TrainConfig:
             raise ValueError(
                 "checkpoint_step must be >= -1 (-1 resumes from the newest "
                 f"loadable checkpoint), got {self.checkpoint_step}")
+        from draco_tpu_torch.obs.compile_watch import GUARD_MODES
+
+        if self.compile_guard not in GUARD_MODES:
+            raise ValueError(
+                f"compile_guard must be one of {'|'.join(GUARD_MODES)}, "
+                f"got {self.compile_guard!r}")
+        if self.compile_warmup < 0:
+            raise ValueError(
+                f"compile_warmup must be >= 0, got {self.compile_warmup}")
 
     def _validate_resilience(self) -> None:
         """The reference's checks of the guard, the fault plan and the

@@ -30,6 +30,7 @@ schema's columns, as the reference's).
 from __future__ import annotations
 
 from draco_tpu_torch.data.batching import chunk_ranges
+from draco_tpu_torch.obs.compile_watch import RetraceError
 
 
 class _Client:
@@ -81,6 +82,8 @@ class _Client:
         regime's capture among them) names the regime's label."""
         try:
             return self.many(state, chunk)
+        except RetraceError:
+            raise  # the sentinel's own error, which names the label
         except RuntimeError as e:
             raise RuntimeError(f"{self.label}: {e}") from e
 

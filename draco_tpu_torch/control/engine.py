@@ -69,13 +69,21 @@ segmented wire: a measurement harness of the host-to-device seam a
 segment crosses, not a part of the training step, which decodes its
 segments inside the step.
 
-Not ported: the reference engine's compile watch and profiler window.
+The loop's compile sentinel (``compile_watch``, ``obs/compile_watch.py``)
+labels each dispatch with the client's ``label`` (the regime's under the
+autopilot) and the chunk's k, and its ``snapshot()`` rides every beat. The
+loop's profiler window (``window``, ``obs/profiling.py``) starts before
+the first chunk that reaches its first step, with that chunk's start as
+its first step, and stops at the flush of the chunk that reaches its last:
+whole chunks, drained before the stop.
 """
 
 from __future__ import annotations
 
 import time
 
+from draco_tpu_torch.obs.compile_watch import CompileWatch
+from draco_tpu_torch.obs.profiling import NULL_PROFILER_WINDOW
 from draco_tpu_torch.resilience.supervisor import shielded, stop_requested
 from draco_tpu_torch.utils.metrics import DeferredMetricWriter
 
@@ -85,8 +93,14 @@ MAX_PENDING = 4  # blocks deferred before a flush is forced
 class ChunkedEngine:
     def __init__(self, client, *, eval_freq: int, tracer, writer,
                  heartbeat, total_end: int, stop=None, injector=None,
-                 autopilot=None):
+                 autopilot=None, compile_watch=None,
+                 window=NULL_PROFILER_WINDOW):
         self.client = client
+        # the loop's compile sentinel (an inert one without) and profiler
+        # window (the no-op one without a profile dir)
+        self.compile_watch = (compile_watch if compile_watch is not None
+                              else CompileWatch(guard="off"))
+        self.window = window
         self.eval_freq = eval_freq
         self.tracer = tracer
         self.heartbeat = heartbeat  # the loop's RunHeartbeat
@@ -104,6 +118,7 @@ class ChunkedEngine:
     def run(self, state, ranges):
         """Drive chunks over ``ranges``; returns (state, last record)."""
         client, deferred, tracer = self.client, self.deferred, self.tracer
+        watch, window = self.compile_watch, self.window
         if not ranges:
             return state, {}
         window_t0, window_steps = time.perf_counter(), 0
@@ -118,7 +133,8 @@ class ChunkedEngine:
                 deferred.flush(client.should_log, {"step_ms": step_ms},
                                client.keep, client.order)
                 self.heartbeat.beat(end, self.total_end,
-                                    extra=client.beat_extras())
+                                    extra={**client.beat_extras(),
+                                           **watch.snapshot()})
                 tracer.flush()
 
         try:
@@ -126,13 +142,16 @@ class ChunkedEngine:
             window_t0 = time.perf_counter()
             for i, (start, k) in enumerate(ranges):
                 end = start + k - 1
+                # the capture snaps to whole chunks
+                window.maybe_start(end, first_step=start)
                 # tagged with the segment count only when the wire is cut:
                 # an S = 1 trace stays as it was
                 span_kw = {"chunk_start": start, "k": k}
                 if client.wire_segments > 1:
                     span_kw["segments"] = client.wire_segments
                 with tracer.span("dispatch", **span_kw), \
-                        tracer.activate(), shielded(self.stop):
+                        tracer.activate(), shielded(self.stop), \
+                        watch.expect(client.label, key=k):
                     state, block = client.dispatch(state, chunk)
                 self.state, self.last_end = state, end
                 deferred.defer(range(start, end + 1), client.block_names,
@@ -142,14 +161,18 @@ class ChunkedEngine:
                 if pending:  # overlap: assemble i+1 during i
                     chunk = client.assemble(i + 1, ranges)
                 boundary = bool(self.eval_freq) and end % self.eval_freq == 0
-                if boundary or i + 1 == len(ranges) \
-                        or deferred.depth >= MAX_PENDING:
+                flush = (boundary or i + 1 == len(ranges)
+                         or deferred.depth >= MAX_PENDING)
+                if flush:
                     drain(end)
                     if self.autopilot is not None:
                         setup = client.setup
                         self.autopilot.act(end, self)
                         if pending and client.setup is not setup:
                             chunk = client.remake(chunk)
+                # before the boundary: the eval is not profiled
+                window.maybe_stop(end)
+                if flush:
                     if boundary:
                         client.boundary(end, state)
                     window_t0, window_steps = time.perf_counter(), 0

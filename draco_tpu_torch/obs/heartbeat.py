@@ -35,9 +35,17 @@ With the autopilot on (``control/autopilot.py``), :meth:`set_control`
 stamps its ``control`` block (the regime, the swaps, the quarantined
 workers, the last remediation) at every decision pass; the block rides
 every later beat and the terminal write, so the run's last word names the
-regime it ended in. The reference's ``device`` block (the profiler
-window) is not ported: the port never writes it, which the schema allows
-(:func:`check_status_schema`).
+regime it ended in. :meth:`observe_device` folds the capture a profiler
+window just stopped (``obs/profiling.py``, its ``on_stop``) into the
+``device`` block (``obs/device_attr.device_status_block``: the profiled
+steps, the device time, the phase fractions, the decode share, the
+attributed share, beside the fold's ``mode`` and the ``profile_dir``):
+best-effort, a torn capture folds nothing, nor does a cuda run's capture
+that lost its kernel events, and the fold never takes the run down; the
+block rides every later beat and the terminal write. The loops merge
+their compile watch's ``snapshot()`` (``obs/compile_watch.py``:
+``compiles``, ``compile_s``, ``steady_recompiles``) into every beat's
+extras.
 """
 
 from __future__ import annotations
@@ -135,6 +143,7 @@ class RunHeartbeat:
         self._nx: dict = {}
         self._wire: Optional[dict] = None
         self._control: Optional[dict] = None  # the autopilot's block
+        self._device: Optional[dict] = None  # the profiled window's block
         # the newest record that carried health columns
         self._last_health_rec: dict = {}
         self._last_payload: dict = {}
@@ -228,6 +237,25 @@ class RunHeartbeat:
             return
         self._control = dict(block)
 
+    def observe_device(self, profile_dir: str) -> None:
+        """Fold the capture just stopped under ``profile_dir`` into the
+        ``device`` block (the profiler window's ``on_stop``)."""
+        if self.path is None:
+            return
+        try:
+            from draco_tpu_torch.obs import device_attr
+
+            fold = device_attr.fold_capture(profile_dir)
+            block = device_attr.device_status_block(fold) if fold else None
+        except Exception:
+            return
+        if block is not None:
+            # the fold's mode: "device" (kernel events) or "cpu" (a CPU
+            # run's op self-times)
+            block["mode"] = fold["programs"][0]["mode"]
+            block["profile_dir"] = profile_dir
+            self._device = block
+
     def decode_health(self) -> Optional[dict]:
         """Detection precision / recall over the records (1.0 on an empty
         denominator) and the newest health values."""
@@ -281,6 +309,8 @@ class RunHeartbeat:
             payload["wire"] = self._wire
         if self._nx:
             payload["numerics"] = dict(self._nx)
+        if self._device is not None:
+            payload["device"] = self._device
         if self._control is not None:
             payload["control"] = self._control
         if self.incidents is not None:
@@ -307,6 +337,9 @@ class RunHeartbeat:
         if self.job_name:
             payload["job_name"] = self.job_name
         payload["updated_at"] = time.time()
+        if self._device is not None:
+            # a window that stops on the run's last unit has no later beat
+            payload["device"] = self._device
         if self._control is not None:
             # the regime the run ended in, a remediation after the last
             # beat included

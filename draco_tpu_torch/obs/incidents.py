@@ -33,14 +33,15 @@ line an onset or offset, a torn tail tolerated by every reader) and fold
 into status.json's ``incidents`` block (status schema 4), which the
 terminal ``crashed`` / ``preempted`` write carries too.
 
-The compile-storm detector reads a ``steady_recompiles`` beat extra, which
-the port's loops do not emit yet (the reference's compile ledger is not
-ported): it stays silent, as every detector does for a column family its
-route does not emit. ``quarantined`` and :meth:`IncidentEngine.remediation`
-are the autopilot's (``control/autopilot.py``): it adds the workers it
-quarantines to ``quarantined``, whose absence the straggle detector then
-reads as policy, and writes each decision to the stream as a
-``remediation`` line.
+The compile-storm detector reads the ``steady_recompiles`` beat extra that
+the loops merge from their compile sentinel (``obs/compile_watch.py``):
+a steady-state kernel library load or CUDA graph capture between two beats
+opens a ``compile_storm`` episode on the next beat. ``quarantined`` and
+:meth:`IncidentEngine.remediation` are the autopilot's
+(``control/autopilot.py``): it adds the workers it quarantines to
+``quarantined``, whose absence the straggle detector then reads as
+policy, and writes each decision to the stream as a ``remediation``
+line.
 
 Host only: the standard library and the port's forensics.
 """

@@ -2,6 +2,7 @@
 (tools/trace_report.py).
 
     python -m draco_tpu_torch.obs.trace_report DIR [--json FILE]
+        [--profile-dir P] [--merged FILE]
 
 ``DIR`` holds ``trace.json`` (written by ``obs/tracer.py`` under
 ``--trace-dir``) or is the file itself; ``metrics.jsonl`` beside it adds the
@@ -13,8 +14,17 @@ calls, total, mean and max milliseconds, and the share of the traced wall
 
 It tolerates what a killed run leaves: a ``trace.json`` cut short (the
 complete events before the cut are read and the header says so), a missing
-or empty ``metrics.jsonl`` and a torn last line of it. It imports neither
-torch nor the rest of the package.
+or empty ``metrics.jsonl`` and a torn last line of it. With a profiler
+capture (``--profile-dir P``, else the trace's own directory is probed) the
+report grows the device table of ``obs/device_attr.fold_capture``: the
+window's device time by phase, with ``other`` and ``unattributed``.
+``--merged FILE`` writes the host spans and the capture's events as one
+Perfetto-loadable timeline on the tracer's clock
+(``obs/device_attr.merge_timeline``, anchored by the capture's
+``host_anchor.json``), keeping the longest ``MERGED_DEVICE_EVENTS``
+device events (a viewer loads no more) and naming the count it dropped.
+It imports neither torch nor the package's modules beyond
+``obs/device_attr.py``.
 """
 
 from __future__ import annotations
@@ -24,6 +34,17 @@ import collections
 import json
 import os
 import sys
+from typing import Optional
+
+from draco_tpu_torch.obs import device_attr
+from draco_tpu_torch.obs.device_attr import fold_capture, fold_device_phases
+
+# the merged timeline's longest device events kept
+MERGED_DEVICE_EVENTS = 100_000
+
+__all__ = ["fold_device", "fold_device_phases", "fold_metrics", "fold_spans",
+           "load_trace", "main", "make_report", "merged_timeline",
+           "print_table"]
 
 
 def _salvage(text: str) -> list:
@@ -113,50 +134,35 @@ def fold_metrics(path: str) -> dict:
     return out
 
 
-# the step's phases (obs/tracer.PHASES), as profiler ranges
-DEVICE_PHASES = ("draco_comp", "draco_encode", "draco_decode",
-                 "draco_update")
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+def fold_device(profile_dir: str) -> Optional[dict]:
+    """The device half: a profiler capture under ``profile_dir``
+    (``obs/profiling.py``) folded by ``obs/device_attr.fold_capture`` into
+    the per-phase device table; None when there is none, or it is torn."""
+    fold = fold_capture(profile_dir)
+    if not fold:
+        return None
+    out = {"trace": fold["trace"], "programs": []}
+    steps = (fold.get("anchor") or {}).get("steps_profiled")
+    if steps is not None:
+        out["steps_profiled"] = steps
+    for prog in fold["programs"]:
+        out["programs"].append({
+            "module": prog["module"], "mode": prog["mode"],
+            "total_device_us": round(prog["total_device_us"], 1),
+            "busy_us": round(prog["busy_us"], 1),
+            "wall_us": round(prog["wall_us"], 1),
+            "replays": prog["replays"],
+            "replays_mapped": prog["replays_mapped"],
+            "phases": {k: {"time_us": round(v["time_us"], 1),
+                           "frac": round(v["frac"], 4),
+                           "events": v["events"]}
+                       for k, v in prog["phases"].items()},
+            "collectives": prog["collectives"]})
+    return out
 
 
-def fold_device_phases(events: list) -> dict:
-    """Device time of a torch.profiler trace (Chrome format) by the step's
-    phase: each kernel, copy or set is charged to the innermost draco_*
-    range (``cat`` user_annotation) open when the runtime call that queued
-    it was made (matched by ``correlation``), on any thread: the backward's
-    kernels are launched by autograd's device thread while the step's
-    thread waits inside draco_comp. Returns ``{"phases_ms": {phase: ms,
-    "other": ms, "unattributed": ms}, "busy_ms": total}``: "other" is
-    device work queued outside every phase, "unattributed" work whose
-    runtime call the trace lacks."""
-    ranges, launches = [], {}
-    for ev in events:
-        cat, args = ev.get("cat"), ev.get("args") or {}
-        if cat == "user_annotation" and ev.get("name") in DEVICE_PHASES:
-            ranges.append((float(ev["ts"]),
-                           float(ev["ts"]) + float(ev.get("dur", 0)),
-                           ev["name"]))
-        elif cat in ("cuda_runtime", "cuda_driver") \
-                and "correlation" in args:
-            launches[args["correlation"]] = float(ev["ts"])
-    out = {k: 0.0 for k in DEVICE_PHASES + ("other", "unattributed")}
-    busy = 0.0
-    for ev in events:
-        if ev.get("cat") not in _DEVICE_CATS:
-            continue
-        dur = float(ev.get("dur", 0.0)) / 1e3
-        busy += dur
-        ts = launches.get((ev.get("args") or {}).get("correlation"))
-        if ts is None:
-            out["unattributed"] += dur
-            continue
-        held = [r for r in ranges if r[0] <= ts <= r[1]]
-        # the innermost range: the latest to open
-        out[max(held)[2] if held else "other"] += dur
-    return {"phases_ms": out, "busy_ms": busy}
-
-
-def make_report(trace_path: str, metrics_path=None) -> dict:
+def make_report(trace_path: str, metrics_path=None,
+                profile_dir=None) -> dict:
     events, dropped, torn = load_trace(trace_path)
     phases, wall_ms = fold_spans(events)
     report = {"trace": trace_path, "traced_wall_ms": wall_ms,
@@ -166,7 +172,25 @@ def make_report(trace_path: str, metrics_path=None) -> dict:
         metrics = fold_metrics(metrics_path)
         if metrics:
             report["metrics"] = {**metrics, "path": metrics_path}
+    # the device half: by default the trace's own directory is probed
+    device = fold_device(profile_dir or os.path.dirname(trace_path) or ".")
+    if device:
+        report["device"] = device
     return report
+
+
+def merged_timeline(trace_path: str, profile_dir: str) -> Optional[dict]:
+    """The host spans of ``trace_path`` and the capture under
+    ``profile_dir`` on one clock (``device_attr.merge_timeline``); None
+    when there is no capture."""
+    path = device_attr.find_capture(profile_dir)
+    if path is None:
+        return None
+    host, _, _ = load_trace(trace_path)
+    events, _ = device_attr.load_trace(path)
+    return device_attr.merge_timeline(
+        host, events, device_attr.load_anchor(profile_dir),
+        max_device_events=MERGED_DEVICE_EVENTS)
 
 
 def print_table(report: dict, out=None) -> None:
@@ -196,6 +220,23 @@ def print_table(report: dict, out=None) -> None:
         if "last_loss" in m:
             bits.append(f"loss {m['first_loss']:.4f} -> {m['last_loss']:.4f}")
         print("metrics: " + "  ".join(bits), file=out)
+    dev = report.get("device")
+    for prog in (dev or {}).get("programs", []):
+        steps = dev.get("steps_profiled")
+        print(f"device program {prog['module']} ({prog['mode']}): "
+              f"{prog['total_device_us'] / 1e3:.1f} ms device time "
+              f"({prog['busy_us'] / 1e3:.1f} ms busy)"
+              + (f" over {steps} profiled steps" if steps else "")
+              + (f", {prog['replays_mapped']} of {prog['replays']} graph "
+                 f"replays mapped" if prog["replays"] else ""), file=out)
+        hdr = (f"  {'device phase':<20}{'events':>8}{'total ms':>12}"
+               f"{'share':>8}")
+        print(hdr, file=out)
+        print("  " + "-" * (len(hdr) - 2), file=out)
+        for name, r in sorted(prog["phases"].items(),
+                              key=lambda kv: -kv[1]["time_us"]):
+            print(f"  {name:<20}{r['events']:>8}{r['time_us'] / 1e3:>12.2f}"
+                  f"{r['frac']:>8.1%}", file=out)
 
 
 def main(argv=None) -> int:
@@ -206,17 +247,37 @@ def main(argv=None) -> int:
                     help="metrics.jsonl (default: beside the trace)")
     ap.add_argument("--json", default="",
                     help="also write the folded report as JSON here")
+    ap.add_argument("--profile-dir", default="",
+                    help="a --profile-dir capture for the device table "
+                         "(default: the trace's own directory)")
+    ap.add_argument("--merged", default="",
+                    help="also write the host and device timeline, merged "
+                         "on the tracer's clock, here")
     args = ap.parse_args(argv)
     trace_path = args.path
     if os.path.isdir(trace_path):
         trace_path = os.path.join(trace_path, "trace.json")
     metrics_path = args.metrics or os.path.join(
         os.path.dirname(trace_path), "metrics.jsonl")
-    report = make_report(trace_path, metrics_path)
+    report = make_report(trace_path, metrics_path,
+                         profile_dir=args.profile_dir or None)
     print_table(report)
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(report, fh, indent=1)
+    if args.merged:
+        prof = args.profile_dir or os.path.dirname(trace_path) or "."
+        merged = merged_timeline(trace_path, prof)
+        if merged is None:
+            print(f"merged: no capture to merge under {prof}",
+                  file=sys.stderr)
+            return 1
+        with open(args.merged, "w") as fh:
+            json.dump(merged, fh)
+        mt = merged["mergedTimeline"]
+        print(f"merged timeline: {args.merged} (anchor "
+              f"{mt['anchor_kind']}, device offset {mt['device_offset_us']}"
+              f" us, {mt['droppedDeviceEvents']} device events dropped)")
     return 0
 
 

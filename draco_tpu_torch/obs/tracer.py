@@ -23,8 +23,9 @@ profiler, :func:`phase` returns one shared no-op context manager.
 * **Thread-safe.** Events append under a lock with the emitting thread's
   id, one lane per thread.
 
-Event kinds: ph="X" complete event (``ts``/``dur`` in microseconds), ph="M"
-metadata (process/thread names).
+Event kinds: ph="X" complete event (``ts``/``dur`` in microseconds; ``cat``
+"host" for a span, "compile" for a compile event), ph="M" metadata
+(process/thread names).
 """
 
 from __future__ import annotations
@@ -73,6 +74,14 @@ class NullTracer:
 
     def activate(self) -> _NullSpan:
         return _NULL_SPAN
+
+    def complete(self, name: str, dur_s: float, cat: str = "host", /,
+                 **args) -> None:
+        pass
+
+    def now_us(self):
+        """No tracer clock: an anchor then has no shared timebase."""
+        return None
 
     def flush(self) -> None:
         pass
@@ -173,6 +182,25 @@ class SpanTracer:
         """Context manager under which :func:`phase` reports to this
         tracer (a loop wraps each step's dispatch in it)."""
         return _Activation(self)
+
+    def complete(self, name: str, dur_s: float, cat: str = "host", /,
+                 **args) -> None:
+        """Append a span of ``dur_s`` seconds that ends now, on the calling
+        thread's lane: how a phase timed elsewhere lands in the trace (the
+        compile events of ``obs/compile_watch.py``)."""
+        t1 = time.perf_counter()
+        ev = {"name": name, "ph": "X",
+              "ts": round((t1 - self._t0 - dur_s) * 1e6, 3),
+              "dur": round(dur_s * 1e6, 3),
+              "pid": self._pid, "tid": threading.get_ident(), "cat": cat}
+        if args:
+            ev["args"] = args
+        self._append(ev)
+
+    def now_us(self) -> float:
+        """The tracer's clock now (µs from its start): what the profiler
+        window's anchor stamps (``obs/profiling.py``)."""
+        return round((time.perf_counter() - self._t0) * 1e6, 3)
 
     def name_thread(self, label: str) -> None:
         """Label the calling thread's lane."""

@@ -38,9 +38,12 @@ def build_route_setup(cfg, device=None, route=None, **kw):
         cfg, device, **kw)
 
 
-def train_route(cfg, device=None, steps=None, quiet: bool = False):
+def train_route(cfg, device=None, steps=None, quiet: bool = False,
+                profile_dir=None, profile_steps: tuple = (3, 8)):
     """``cfg``'s route's training loop; returns (state, the last step's
-    record)."""
+    record). ``profile_dir`` captures a profiler window over
+    ``profile_steps`` on every route (``obs/profiling.py``)."""
     route = route_of(cfg)
-    return getattr(_module(route), f"train_{route}")(cfg, device, steps,
-                                                    quiet)
+    return getattr(_module(route), f"train_{route}")(
+        cfg, device, steps, quiet, profile_dir=profile_dir,
+        profile_steps=profile_steps)

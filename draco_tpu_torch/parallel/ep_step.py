@@ -58,9 +58,11 @@ def build_ep_train_setup(cfg: TrainConfig, device=None,
 
 
 def train_ep(cfg: TrainConfig, device=None, steps: Optional[int] = None,
-             quiet: bool = False):
+             quiet: bool = False, profile_dir: Optional[str] = None,
+             profile_steps: tuple = (3, 8)):
     """The ep training loop; returns (state, the last step's record)."""
     from draco_tpu_torch.parallel.token_loop import run_token_loop
 
     return run_token_loop(build_ep_train_setup(cfg, device), cfg, steps,
-                          quiet, tag="ep")
+                          quiet, tag="ep", profile_dir=profile_dir,
+                          profile_steps=profile_steps)

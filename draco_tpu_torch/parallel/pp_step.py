@@ -205,10 +205,12 @@ def build_pp_train_setup(cfg: TrainConfig, device=None,
 
 
 def train_pp(cfg: TrainConfig, device=None, steps: Optional[int] = None,
-             quiet: bool = False):
+             quiet: bool = False, profile_dir: Optional[str] = None,
+             profile_steps: tuple = (3, 8)):
     """The pipeline training loop; returns (state, the last step's
     record)."""
     from draco_tpu_torch.parallel.token_loop import run_token_loop
 
     return run_token_loop(build_pp_train_setup(cfg, device), cfg, steps,
-                          quiet, tag="pp")
+                          quiet, tag="pp", profile_dir=profile_dir,
+                          profile_steps=profile_steps)

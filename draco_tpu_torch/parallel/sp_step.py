@@ -448,11 +448,13 @@ def build_lm_setup(cfg: TrainConfig, dev, make_model, make_objective,
 
 
 def train_sp(cfg: TrainConfig, device=None, steps: Optional[int] = None,
-             quiet: bool = False):
+             quiet: bool = False, profile_dir: Optional[str] = None,
+             profile_steps: tuple = (3, 8)):
     """The LM training loop on the synthetic token stream; returns the
     final state and the last step's record. The autopilot's regime swaps
     rebuild the step around the live model and state."""
     from draco_tpu_torch.parallel.token_loop import run_token_loop
 
     return run_token_loop(build_sp_train_setup(cfg, device), cfg, steps,
-                          quiet, tag="sp")
+                          quiet, tag="sp", profile_dir=profile_dir,
+                          profile_steps=profile_steps)

@@ -61,6 +61,15 @@ table exists from the start, all present when the configuration drops
 none: the autopilot quarantines by writing it. The autopilot is built
 once (``_make_autopilot``) and kept across ``run()`` calls; a longer
 table gets its active quarantines stamped on again.
+
+``profile_dir`` (the constructor's and ``run_token_loop``'s, as the
+reference's) captures a ``torch.profiler`` window over ``profile_steps``
+(default [3, 8)), snapped outward to whole chunks (``obs/profiling.py``),
+folded into status.json's ``device`` block when it stops. The build and
+capture sentinel (``obs/compile_watch.py``) labels each eager step
+``train_step`` and each chunk with the client's label and k
+(``train_token_many[k]``), ledgers every kernel library load and graph
+capture in ``compiles.jsonl``, and its counters ride every beat.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ from typing import Optional
 from draco_tpu_torch import rng as drng
 from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.obs import incidents, numerics
+from draco_tpu_torch.obs.compile_watch import make_compile_watch
 from draco_tpu_torch.obs.forensics import record_value
 from draco_tpu_torch.obs.heartbeat import RunHeartbeat
 from draco_tpu_torch.obs.tracer import make_tracer
@@ -85,11 +95,13 @@ class TokenLoop(LoopRunState):
     None on tp, pp and ep, which refuse a swap)."""
 
     def __init__(self, setup, cfg: TrainConfig, quiet: bool = False,
-                 tag: str = "mp"):
+                 tag: str = "mp", profile_dir: Optional[str] = None,
+                 profile_steps: tuple = (3, 8)):
         from draco_tpu_torch.parallel.sp_step import synthetic_text
 
         self.setup, self.cfg, self.quiet = setup, cfg, quiet
         self.tag = tag
+        self.profile_dir, self.profile_steps = profile_dir, profile_steps
         self.state = setup.state
         self.text = lambda seed, step: synthetic_text(
             seed, step, cfg.num_workers, cfg.batch_size, cfg.seq_len,
@@ -99,6 +111,7 @@ class TokenLoop(LoopRunState):
         self._ensure_schedule(cfg.max_steps)
         self.writer = MetricWriter(cfg.train_dir, quiet)
         self.tracer = make_tracer(cfg.trace_dir)
+        self.compile_watch = make_compile_watch(cfg, self.tracer)
         self.heartbeat = RunHeartbeat(cfg.train_dir or None,
                                       num_workers=cfg.num_workers,
                                       job_name=cfg.job_name or None,
@@ -151,7 +164,8 @@ class TokenLoop(LoopRunState):
         with tracer.span("gather"):
             toks, adv_mask, present = self.inputs(step)
         t0 = time.perf_counter()
-        with tracer.span("dispatch"), tracer.activate():
+        with tracer.span("dispatch"), tracer.activate(), \
+                self.compile_watch.expect("train_step"):
             self.state, metrics = self.setup.train_step(self.state, toks,
                                                         adv_mask, present)
         # .item() waits for the device: the step's work is all on one stream
@@ -188,7 +202,7 @@ class TokenLoop(LoopRunState):
                 timeout_s=self.cfg.prefetch_timeout_s, tracer=self.tracer))
         return TokenChunkClient(self, prefetch, first, last)
 
-    def _run_chunked(self, last_step: int) -> dict:
+    def _run_chunked(self, last_step: int, window) -> dict:
         from draco_tpu_torch.control.engine import ChunkedEngine
 
         client = self.chunk_client(self.state.step, last_step)
@@ -196,18 +210,22 @@ class TokenLoop(LoopRunState):
                                tracer=self.tracer, writer=self.writer,
                                stop=self._stop, heartbeat=self.heartbeat,
                                total_end=last_step, injector=self.injector,
-                               autopilot=self._make_autopilot())
+                               autopilot=self._make_autopilot(),
+                               compile_watch=self.compile_watch,
+                               window=window)
         self.state, last = engine.run(self.state, client.ranges)
         return last
 
-    def _run_eager(self, last_step: int) -> dict:
+    def _run_eager(self, last_step: int, window) -> dict:
         cfg = self.cfg
         first, last = self.state.step, {}
         names = ("step",) + self.setup.metric_names + ("step_ms",)
         while self.state.step <= last_step:
+            window.maybe_start(self.state.step)
             with shielded(self._stop):
                 last = self.step()
             step = last["step"]
+            window.maybe_stop(step)
             if step % cfg.log_every == 0 or step in (first, last_step):
                 rec = {k: last[k] for k in names}
                 self.heartbeat.observe(rec)
@@ -215,7 +233,8 @@ class TokenLoop(LoopRunState):
                     self.writer.write(rec)
             boundary = bool(cfg.eval_freq) and step % cfg.eval_freq == 0
             if boundary or step == last_step:
-                self.heartbeat.beat(step, last_step)
+                self.heartbeat.beat(step, last_step,
+                                    extra=self.compile_watch.snapshot())
             if boundary:
                 self.boundary(step)
             if self.stop_after(step, already_saved=boundary):
@@ -234,22 +253,26 @@ class TokenLoop(LoopRunState):
         # admits there): a chunk boundary is its only actuation point
         chunked = cfg.steps_per_call > 1 or cfg.autopilot == "on"
 
-        def body():
-            last = (self._run_chunked(last_step) if chunked
-                    else self._run_eager(last_step))
+        def body(window):
+            last = (self._run_chunked(last_step, window) if chunked
+                    else self._run_eager(last_step, window))
             if not cfg.eval_freq and self.stopped_step is None:
                 # no boundary saved anything: save the last state
                 self.checkpoint(last_step)
             return last
 
-        return self.guarded(body)
+        return self.guarded(body, self.profile_dir, self.profile_steps)
 
 
 def run_token_loop(setup, cfg: TrainConfig, steps: Optional[int] = None,
-                   quiet: bool = False, tag: str = "mp"):
+                   quiet: bool = False, tag: str = "mp",
+                   profile_dir: Optional[str] = None,
+                   profile_steps: tuple = (3, 8)):
     """Train ``steps or cfg.max_steps`` steps from the state's next step
     (after ``cfg.checkpoint_step``'s resume); returns (state, the last
-    step's record). ``tag`` as :class:`TokenLoop` takes it."""
-    loop = TokenLoop(setup, cfg, quiet, tag=tag)
+    step's record). ``tag``, ``profile_dir`` and ``profile_steps`` as
+    :class:`TokenLoop` takes them."""
+    loop = TokenLoop(setup, cfg, quiet, tag=tag, profile_dir=profile_dir,
+                     profile_steps=profile_steps)
     last = loop.run(loop.state.step - 1 + (steps or cfg.max_steps))
     return loop.state, last

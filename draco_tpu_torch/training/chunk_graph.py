@@ -51,6 +51,15 @@ main thread, at dispatch (``_load``), before the capture begins. Python's
 garbage collection, which could free another graph's CUDA objects from
 any thread, is off for the whole process during the capture.
 
+The capture is a compile event (``obs/compile_watch.report``: a
+``graph_capture`` of the graph's name with the warm-up's and the capture's
+wall seconds), which the loops' compile sentinel labels and guards. While a
+profiler window is open (``obs/profiling.py``), the warm-up step maps the
+graph's kernels to the step's phases (``_warm_up``) and each replay runs in
+a ``draco_graph_replay::<name>`` range, so the device fold can attribute a
+replay's kernels, which carry no ranges of their own
+(``obs/device_attr.py``).
+
 On the CPU the same cursor-indexed step runs k times from a Python loop:
 no graph, the chunk's plain version, which the CPU tests hold bit for bit
 to k eager steps.
@@ -60,10 +69,14 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import time
 from typing import Callable, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from draco_tpu_torch.obs import compile_watch, device_attr, profiling
+from draco_tpu_torch.obs.device_attr import REPLAY_RANGE, WARMUP_RANGE
 
 
 @dataclasses.dataclass
@@ -184,7 +197,13 @@ class StepGraph:
             self.cursor.fill_(0)  # the warm-up step advanced it
         for i in range(k):
             try:
-                self.graph.replay()
+                if torch.autograd._profiler_enabled():
+                    # names the replay's program for the device fold
+                    with torch.profiler.record_function(
+                            REPLAY_RANGE + self.name):
+                        self.graph.replay()
+                else:
+                    self.graph.replay()
             except RuntimeError as e:
                 raise RuntimeError(f"{self.name}: replay {i + 1} of {k} of "
                                    f"the captured step failed: {e}") from e
@@ -236,14 +255,51 @@ class StepGraph:
         event.record()
 
     # ---- capture ---------------------------------------------------------
+    def _warm_up(self) -> None:
+        """The warm-up step. While a profiler window is open
+        (``obs/profiling.open_window``) its kernels are mapped to the
+        step's phases for the device fold (``obs/device_attr.py``) by a
+        ``draco_graph_warmup::<name>`` range around the step (not the
+        state's snapshot and restore): inside a running window the fold
+        reads the map from the window's own capture; otherwise the step
+        runs under a profiler of its own and its map is written to the
+        window's ``device_graph_map.json``."""
+        window = profiling.open_window()
+        if window is None:
+            warm_up(self.step, self._state_tensors())
+            return
+
+        def step():
+            with torch.profiler.record_function(WARMUP_RANGE + self.name):
+                self.step()
+
+        if torch.autograd._profiler_enabled():
+            warm_up(step, self._state_tensors())
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        from draco_tpu_torch.analysis.rules import export_trace
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            warm_up(step, self._state_tensors())
+            torch.cuda.synchronize(self.device)
+        events = export_trace(prof)["traceEvents"]
+        device_attr.save_graph_map(
+            window.dir, self.name,
+            device_attr.warmup_maps(events).get(self.name, []))
+
     def _capture(self) -> None:
         """Warm-up step on a side stream with the state restored in place
-        after it, then the capture of one step."""
+        after it, then the capture of one step; the two are reported to the
+        compile sentinel as one ``graph_capture`` with their wall seconds
+        (``obs/compile_watch.py``)."""
+        t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            warm_up(self.step, self._state_tensors())
+            self._warm_up()
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         watch = _LastOp()
@@ -270,3 +326,6 @@ class StepGraph:
         self.pool_bytes = torch.cuda.max_memory_allocated(self.device) - base
         self.graph = graph
         self.captures += 1
+        compile_watch.report("graph_capture", self.name,
+                             time.perf_counter() - t0, k=self.K,
+                             pool_bytes=self.pool_bytes)

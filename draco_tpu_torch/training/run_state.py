@@ -11,7 +11,11 @@ stop.
                      through the walk-back, written into the live state in
                      place (``TrainState.load``); −1 on a train_dir with
                      no checkpoint starts fresh
-  guarded(body)      runs ``body`` inside ``GracefulStop``: a first
+  guarded(body, profile_dir, profile_steps)
+                     runs ``body(window)`` inside ``GracefulStop``, with
+                     the run's profiler window (``obs/profiling.py``),
+                     stopped before the terminal status write, and the
+                     loop's ``compile_watch`` started; a first
                      SIGTERM / SIGINT stops the loop at its next step or
                      chunk end (``stop_after``), with a checkpoint there
                      unless the boundary just saved one; a second one
@@ -35,11 +39,12 @@ once and kept across ``run()`` calls; ``eager_source(fn)`` the eager
 loop's data function wrapped by the injector and supervised (a
 ``prefetch_crash`` is retried), ``fn`` itself without host events.
 
-The loop provides ``cfg``, ``setup`` (its ``layout``), ``state``,
-``tracer``, ``writer``, ``heartbeat`` (``obs/heartbeat.RunHeartbeat``)
-and ``evaluate(step)``, and dispatches its steps
-and chunks inside ``supervisor.shielded(self._stop)``: a second signal's
-escalation waits until the state is a whole step's.
+The loop provides ``cfg``, ``setup`` (its ``layout`` and ``device``),
+``state``, ``tracer``, ``writer``, ``heartbeat``
+(``obs/heartbeat.RunHeartbeat``), ``compile_watch``
+(``obs/compile_watch.CompileWatch``) and ``evaluate(step)``, and
+dispatches its steps and chunks inside ``supervisor.shielded(self._stop)``:
+a second signal's escalation waits until the state is a whole step's.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from draco_tpu_torch import rng as drng
+from draco_tpu_torch.obs.profiling import profiler_window
 from draco_tpu_torch.resilience import faults
 from draco_tpu_torch.resilience.supervisor import (
     DirectSource,
@@ -228,16 +234,28 @@ class LoopRunState:
         self._stop.stopped_step = step
         return True
 
-    def guarded(self, body: Callable[[], dict]) -> dict:
-        """``body()`` (the loop's steps) inside ``GracefulStop``; returns
-        its last record, or {} after an escalated stop."""
+    def guarded(self, body: Callable, profile_dir: Optional[str] = None,
+                profile_steps: tuple = (3, 8)) -> dict:
+        """``body(window)`` (the loop's steps) inside ``GracefulStop``, with
+        the run's profiler window (``obs/profiling.py``; the no-op window
+        without ``profile_dir``), stopped before the terminal status write
+        so the ``device`` block rides it, and the compile watch started;
+        returns its last record, or {} after an escalated stop."""
         self.stopped_step = None
         first = self.state.step
         hb = self.heartbeat
+        self.compile_watch.start()
+        window = profiler_window(profile_dir, profile_steps,
+                                 tracer=self.tracer,
+                                 on_stop=hb.observe_device,
+                                 device=self.setup.device)
         try:
             with GracefulStop() as stop:
                 self._stop = stop
-                last = body()
+                try:
+                    last = body(window)
+                finally:
+                    window.stop()  # a run that ended inside the window
         except ImmediateStopError as e:
             # the newest dispatched state is whole (dispatches are
             # shielded); reading it waits for its queued work
@@ -255,6 +273,7 @@ class LoopRunState:
             raise
         finally:
             self._stop = None
+            self.compile_watch.stop()
             self.tracer.close()
         if self.stopped_step is not None:
             hb.terminal("preempted", cause=f"graceful stop on {stop.signame}",

@@ -37,6 +37,17 @@ one, and the metrics reach the host once a flush; a chunked record's
 eval, ckpt) and the step's draco_* phases go to ``trace_dir/trace.json``
 (``obs/tracer.py``).
 
+``run(profile_dir=)`` captures a ``torch.profiler`` window over steps
+``profile_steps`` (default [3, 8)), snapped outward to whole chunks, with
+its wall-clock anchor (``obs/profiling.py``); when it stops, the heartbeat
+folds it into status.json's ``device`` block. The build and capture
+sentinel (``obs/compile_watch.py``, ``cfg.compile_guard`` and
+``cfg.compile_warmup``), started before the setup is built, ledgers every
+kernel library load and CUDA graph capture in ``compiles.jsonl``; each
+eager step runs in its ``train_step`` window, each chunk in the chunk
+client's label and k, and its counters ride every beat. Neither changes a
+record or the state.
+
 With a ``train_dir`` the run heartbeat (``obs/heartbeat.py``) keeps
 ``train_dir/status.json``: it observes every record the loop
 materialises (each eager step's; each record of a chunked flush), beats
@@ -77,6 +88,7 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.data import batching
 from draco_tpu_torch.data.datasets import Dataset, load_dataset
 from draco_tpu_torch.obs import incidents, numerics
+from draco_tpu_torch.obs.compile_watch import make_compile_watch
 from draco_tpu_torch.obs.forensics import record_value
 from draco_tpu_torch.obs.heartbeat import RunHeartbeat
 from draco_tpu_torch.obs.tracer import make_tracer
@@ -95,11 +107,13 @@ class Trainer(LoopRunState):
         resolve_device(device)  # raise before loading data when cuda is absent
         self.ds = dataset if dataset is not None else load_dataset(
             cfg.dataset, cfg.data_dir)
+        self.tracer = make_tracer(cfg.trace_dir)
+        # started before the setup: its kernel library loads are ledgered
+        self.compile_watch = make_compile_watch(cfg, self.tracer)
         self.setup = build_train_setup(cfg, device, dataset_name=self.ds.name)
         self.state = self.setup.state
         self.quiet = quiet
         self.writer = MetricWriter(cfg.train_dir, quiet)
-        self.tracer = make_tracer(cfg.trace_dir)
         self.heartbeat = RunHeartbeat(cfg.train_dir or None,
                                       num_workers=cfg.num_workers,
                                       job_name=cfg.job_name or None,
@@ -162,7 +176,8 @@ class Trainer(LoopRunState):
         with tracer.span("gather"):
             x, y, adv_mask, present = self.inputs(step)
         t0 = time.perf_counter()
-        with tracer.span("dispatch"), tracer.activate():
+        with tracer.span("dispatch"), tracer.activate(), \
+                self.compile_watch.expect("train_step"):
             self.state, metrics = self.setup.train_step(
                 self.state, x, y, adv_mask, present=present)
         # .item() waits for the device: the step's work is all on one stream
@@ -219,7 +234,7 @@ class Trainer(LoopRunState):
             timeout_s=cfg.prefetch_timeout_s, tracer=self.tracer))
         return TrainerChunkClient(self, self._prefetch, first, last)
 
-    def _run_chunked(self, last_step: int) -> dict:
+    def _run_chunked(self, last_step: int, window) -> dict:
         from draco_tpu_torch.control.engine import ChunkedEngine
 
         client = self.chunk_client(self.state.step, last_step)
@@ -227,42 +242,55 @@ class Trainer(LoopRunState):
                                tracer=self.tracer, writer=self.writer,
                                stop=self._stop, heartbeat=self.heartbeat,
                                total_end=last_step, injector=self.injector,
-                               autopilot=self._make_autopilot())
+                               autopilot=self._make_autopilot(),
+                               compile_watch=self.compile_watch,
+                               window=window)
         self.state, last = engine.run(self.state, client.ranges)
         return last
 
-    def _run_eager(self, last_step: int) -> dict:
+    def _run_eager(self, last_step: int, window) -> dict:
         cfg, last = self.cfg, {}
+        watch = self.compile_watch
         while self.state.step <= last_step:
+            window.maybe_start(self.state.step)
             with shielded(self._stop):
                 last = self.step()
             step = last["step"]
+            window.maybe_stop(step)
             self.heartbeat.observe(last)
             if step % cfg.log_every == 0 or step == 1:
                 with self.tracer.span("flush"):
                     self.writer.write(last)
             boundary = bool(cfg.eval_freq) and step % cfg.eval_freq == 0
             if boundary or step == last_step:
-                self.heartbeat.beat(step, last_step)
+                self.heartbeat.beat(step, last_step, extra=watch.snapshot())
             if boundary:
                 self.boundary(step)
             if self.stop_after(step, already_saved=boundary):
                 break
         return last
 
-    def run(self, max_steps: Optional[int] = None) -> dict:
+    def run(self, max_steps: Optional[int] = None,
+            profile_dir: Optional[str] = None,
+            profile_steps: tuple = (3, 8)) -> dict:
         """Steps up to ``max_steps`` (default cfg.max_steps), eagerly or in
         chunks by ``cfg.steps_per_call``, from the state's next step;
-        returns the last step's record ({} after an escalated stop)."""
+        returns the last step's record ({} after an escalated stop).
+        ``profile_dir`` captures a profile of steps [profile_steps), snapped
+        outward to whole chunks (``obs/profiling.py``), folded into
+        status.json's ``device`` block when it stops."""
         last_step = self.cfg.max_steps if max_steps is None else max_steps
         self._ensure_schedules(last_step)
-        if self.cfg.steps_per_call > 1:
-            return self.guarded(lambda: self._run_chunked(last_step))
-        return self.guarded(lambda: self._run_eager(last_step))
+        body = (self._run_chunked if self.cfg.steps_per_call > 1
+                else self._run_eager)
+        return self.guarded(lambda window: body(last_step, window),
+                            profile_dir, profile_steps)
 
     def close(self) -> None:
-        """Close a prefetcher a run left open, and the tracer."""
+        """Close a prefetcher a run left open, the compile watch and the
+        tracer."""
         if self._prefetch is not None:
             self._prefetch.close()
             self._prefetch = None
+        self.compile_watch.stop()
         self.tracer.close()

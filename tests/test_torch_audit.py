@@ -12,8 +12,11 @@
   segments, the approx decode's offset entry on views off a strip).
 * The program lint at CI size: every registered leg green on the CPU
   rules, every CPU control tripping exactly its rule, the honest miniature
-  green (the legs from ``lenet_single`` on in ``test_torch_audit_legs.py``,
-  the observatory's in ``test_torch_audit_watch.py``); the registry covers
+  green (the other legs in ``test_torch_audit_legs.py`` and, with the
+  tests of their own parts, ``test_torch_numerics_watch.py``,
+  ``test_torch_narrow_plan.py``, ``test_torch_models_cnn.py``,
+  ``test_torch_draws.py`` and ``test_torch_tree.py``; every leg in one
+  file); the registry covers
   the legs ``chip_smoke.py`` drives, each segmented leg beside its S = 1
   twin, each model-parallel leg on its own route.
 """
@@ -392,8 +395,7 @@ def test_the_registry_covers_the_ten_legs():
         assert registry.get(twin).route == "lm"
 
 
-# the observatory's legs, linted in test_torch_audit_watch.py (their CPU
-# steps are the slowest: a file of their own runs beside this one)
+# the observatory's legs, linted in test_torch_numerics_watch.py
 WATCH_LEGS = ("simulate_watch_bf16", "approx_watch_int8_sr",
               "majvote_shadow_int8", "lm_shared_flash_watch")
 
@@ -404,15 +406,27 @@ def lint_rows_of(legs) -> dict:
             for name in legs}
 
 
-# the legs linted here; the later ones (from LATER on, the watch legs
-# but) in test_torch_audit_legs.py, a file of their own beside this one:
-# the CPU lint of every leg takes minutes on one core, and xdist loadfile
-# keeps a file on one worker
+# the CPU lint of every leg takes minutes on one core (a ResNet leg 7-44 s,
+# an LM leg under one) and xdist's loadfile keeps a file on one worker and
+# starts the files in order of their count of tests, most first: a heavy
+# file of few tests runs last and holds the whole run up. So the legs are
+# linted in files of many tests: here the first legs, the later ones in
+# test_torch_audit_legs.py, and the narrow and segmented wires', VGG's,
+# the heaviest draws', the int8 tree's and the observatory's beside the
+# tests of their parts (test_torch_narrow_plan.py, _models_cnn.py,
+# _draws.py, _tree.py, _numerics_watch.py)
+NARROW_LEGS = ("shared_bf16", "shared_int8", "majvote", "shared_int8_seg4",
+               "approx_int8_seg4")
+VGG_LEGS = ("vgg11_simulate", "vgg11_shared")
+DRAW_LEGS = ("vgg11_random", "shared_int8_sr")
+TREE_LEGS = ("majvote_bf16_sr", "shared_int8_tree_g8")
 LATER = "lenet_single"
-HERE = tuple(leg for leg in LEGS[:LEGS.index(LATER)]
-             if leg not in WATCH_LEGS)
+_OWN = WATCH_LEGS + NARROW_LEGS + VGG_LEGS + DRAW_LEGS + TREE_LEGS
+HERE = tuple(leg for leg in LEGS[:LEGS.index(LATER)] if leg not in _OWN)
 ELSEWHERE = tuple(leg for leg in LEGS[LEGS.index(LATER):]
-                  if leg not in WATCH_LEGS)
+                  if leg not in _OWN)
+LINT_GROUPS = (HERE, ELSEWHERE, NARROW_LEGS, VGG_LEGS, DRAW_LEGS, TREE_LEGS,
+               WATCH_LEGS)
 
 
 @pytest.fixture(scope="module")
@@ -434,6 +448,11 @@ def assert_green(row, leg) -> None:
 @pytest.mark.parametrize("leg", HERE)
 def test_every_leg_green_on_the_cpu_rules(lint_rows, leg):
     assert_green(lint_rows[leg], leg)
+
+
+def test_every_leg_is_linted_in_one_file():
+    linted = [leg for group in LINT_GROUPS for leg in group]
+    assert sorted(linted) == sorted(LEGS)
 
 
 CPU_CONTROLS = [c for c in lint_controls.CONTROLS if not c.card_only]

@@ -1,6 +1,7 @@
 """The CPU program lint (``analysis/rules.py``) of the registry's later
-legs (from ``lenet_single`` on, the observatory's but: the LM's, the
-device draws', the tree topology's and the model-parallel routes'), held
+legs (from ``lenet_single`` on, those of the files of their own but: the
+LM's, the device draws', the tree topology's and the model-parallel
+routes'), held
 as ``test_torch_audit.py`` holds the earlier ones, in a file of their own
 so that xdist's loadfile runs the two halves side by side: no would-be
 synchronisation in a step, the state in place, no float64, the int8

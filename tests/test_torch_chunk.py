@@ -9,12 +9,20 @@ same inputs on one device, so everything is exact: parameters, momentum
 buffers, BN statistics and every metric row equal (``torch.equal``, which
 holds +0 and −0 equal: the chunk makes its momentum buffers as zeros
 before its first step, μ·0 + g, where the eager first step clones g); the
-metrics.jsonl rows equal apart from ``step_ms``. The ResNet-18 legs'
-counterparts are in ``test_torch_chunk_{simulate,int8,cnn}.py``, one
-file a leg or two, each under about 90 s on one core.
+metrics.jsonl rows equal apart from ``step_ms``. The ResNet-18 legs at
+the registry's CI size (``registry.CNN_CI``: n=5, batch 1, 4 Weiszfeld
+passes): ``train_many`` over the chunks (1, 3) and (4, 1) against four
+eager steps for the baseline geometric median, the approx code with 2
+stragglers a step (its host columns and presence count included) and the
+flagship's cyclic ``simulate`` (15 lanes, a rev_grad adversary every
+step), and the Trainer's chunked metrics.jsonl against its eager one (the
+int8 wire's chunk is in ``test_torch_wire.py``). They run in this file of
+many tests, which xdist's loadfile schedules early: it orders files by
+their count of tests, so a heavy file of few tests would run last.
 """
 
 import json
+import os
 import threading
 
 import numpy as np
@@ -34,6 +42,7 @@ from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.sp_step import synthetic_text
 from draco_tpu_torch.parallel.token_loop import TokenLoop
 from draco_tpu_torch.training.chunk_graph import Chunk, StepGraph, warm_up
+from draco_tpu_torch.training.trainer import Trainer
 from draco_tpu_torch.utils.metrics import host_rows
 
 torch.set_num_threads(1)
@@ -105,6 +114,68 @@ def assert_chunk_equals_eager(build, chunk_of, ranges=RANGES) -> None:
     assert len(chunk_rows) == steps
     for e, c in zip(eager_rows, chunk_rows):
         assert c == {k: e[k] for k in c}, (e, c)
+
+
+# --------------------------------------------------------------------------
+# the ResNet-18 chunk
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ds():
+    return datasets.load_dataset("synthetic-cifar10", synthetic_train=256,
+                                 synthetic_test=16)
+
+
+def cnn_build(leg, ds, **fields):
+    def build():
+        cfg = registry.get(leg).config(False, max_steps=7, steps_per_call=3,
+                                       **fields)
+        tr = Trainer(cfg, device="cpu", dataset=ds, quiet=True)
+        return tr.setup, tr
+    return build
+
+
+def cnn_chunk(tr, rng_):
+    """The chunk the Trainer's engine client assembles for ``rng_``."""
+    client = tr.chunk_client(rng_[0], rng_[0] + rng_[1] - 1)
+    try:
+        return client.assemble(0, [rng_])
+    finally:
+        client.cleanup()
+
+
+@pytest.mark.parametrize("leg", ["geomedian", "approx", "simulate"])
+def test_train_many_equals_eager_steps(ds, leg):
+    assert_chunk_equals_eager(cnn_build(leg, ds), cnn_chunk)
+
+
+def test_trainer_chunked_writes_the_eager_rows(ds, tmp_path):
+    """The approx leg at K=3, eval_freq=4, max_steps=7 (chunks (1,3) (4,1)
+    (5,3)): the same metrics.jsonl rows, key order included (the host
+    columns and the presence count among them), as K=1, apart from
+    step_ms; the test-set eval record follows step 4 in both, and both
+    checkpoint step 4."""
+    rows = {}
+    for K in (1, 3):
+        d = tmp_path / f"k{K}"
+        cfg = registry.get("approx").config(
+            False, max_steps=7, steps_per_call=K, eval_freq=4, log_every=2,
+            train_dir=str(d))
+        last = Trainer(cfg, device="cpu", dataset=ds, quiet=True).run()
+        lines = [json.loads(x)
+                 for x in (d / "metrics.jsonl").read_text().splitlines()]
+        rows[K] = [{k: v for k, v in r.items() if k != "step_ms"}
+                   for r in lines + [last]]
+        assert all(("step_ms" in r) != ("prec1_test" in r) for r in lines)
+        # and the run's status.json (obs/heartbeat.py)
+        assert sorted(os.listdir(d)) == ["metrics.jsonl", "model_step_4.dcg",
+                                         "model_step_4.dcg.sha256",
+                                         "status.json"]
+    assert [list(r) for r in rows[3]] == [list(r) for r in rows[1]]
+    assert rows[3] == rows[1]
+    assert [r["step"] for r in rows[1]] == [1, 2, 4, 4, 6, 7]
+    assert list(rows[1][3]) == ["step", "prec1_test", "prec5_test"]
+    assert rows[1][0]["present"] == 3.0
 
 
 # --------------------------------------------------------------------------
@@ -325,8 +396,6 @@ def test_the_chunked_loops_bound_their_prefetch_wait(route):
     """Each loop's prefetcher waits cfg.prefetch_timeout_s at most: a hung
     source stops the run with PrefetchStallError, not a hang, once the
     supervisor's restarts (cfg.prefetch_restarts) are spent."""
-    from draco_tpu_torch.training.trainer import Trainer
-
     release = threading.Event()
     lp = registry.get("shared" if route == "cnn" else "lm_shared_flash")
     cfg = lp.config(False, max_steps=4, steps_per_call=2,

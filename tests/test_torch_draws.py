@@ -11,6 +11,11 @@ torch's in the port and XLA's in the reference: within 3e-5·max(1, |z|)
 (measured 2.4e-7 over 100,000 draws at each seed). The 64-bit counter's
 high word, which no shape here reaches, is checked against an
 independent numpy model of threefry2x32 at counters past 2**32.
+
+The CPU program lint (``analysis/rules.py``) of the heaviest of the device
+draws' legs (``vgg11_random``, ``shared_int8_sr``) is held here as
+``test_torch_audit.py`` holds the other legs: in a file of many tests, which
+xdist's loadfile schedules early (it orders files by their count of tests).
 """
 
 import dataclasses
@@ -30,6 +35,7 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.obs import numerics as tnx
 from draco_tpu_torch.ops import draws
 from draco_tpu_torch.parallel.sp_step import synthetic_text_in_graph
+from test_torch_audit import DRAW_LEGS, assert_green, lint_rows_of
 
 torch.set_num_threads(1)
 
@@ -325,3 +331,17 @@ def test_device_tokens_bit_for_bit(args):
     np.testing.assert_array_equal(out.numpy(), ref)
     np.testing.assert_array_equal(
         draws.synthetic_text(i32(step), seed, n, b, t, vocab).numpy(), ref)
+
+
+# --------------------------------------------------------------------------
+# the CPU program lint of these legs (test_torch_audit.py's rule)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lint_rows():
+    return lint_rows_of(DRAW_LEGS)
+
+
+@pytest.mark.parametrize("leg", DRAW_LEGS)
+def test_every_leg_green_on_the_cpu_rules(lint_rows, leg):
+    assert_green(lint_rows[leg], leg)

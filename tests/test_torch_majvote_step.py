@@ -44,7 +44,7 @@ from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.sp_step import synthetic_text
 from draco_tpu_torch.training.step import build_train_setup
 from test_torch_chunk import assert_chunk_equals_eager
-from test_torch_chunk_cnn import cnn_build, cnn_chunk
+from test_torch_chunk import cnn_build, cnn_chunk
 from test_torch_lm_step import LM
 from test_torch_step import COMMON, SEED, _flat_params, _resync
 

@@ -30,6 +30,11 @@ Tolerances, and why:
     reference's float32 gradient (measured: 0.03×, 0.00×, 0.54× and 0.70×
     of it on LeNet, FC, VGG11, VGG11_bn); the gradient is float32 on both
     sides.
+
+The CPU program lint (``analysis/rules.py``) of the VGG-11 legs
+(``vgg11_simulate``, ``vgg11_shared``) is held here as
+``test_torch_audit.py`` holds the other legs: in a file of many tests, which
+xdist's loadfile schedules early (it orders files by their count of tests).
 """
 
 import jax
@@ -43,6 +48,7 @@ from torch.func import functional_call, grad_and_value
 from draco_tpu.models import build_model as jax_build_model
 from draco_tpu_torch import params as params_mod
 from draco_tpu_torch.models import build_model, input_shape
+from test_torch_audit import VGG_LEGS, assert_green, lint_rows_of
 
 torch.set_num_threads(1)
 
@@ -240,3 +246,17 @@ def test_bf16_compute(pair):
         assert prt["new_stats"][path].dtype == np.float32
         np.testing.assert_allclose(prt["new_stats"][path], v, rtol=3e-2,
                                    atol=3e-2 * max(np.abs(v).max(), 1.0))
+
+
+# --------------------------------------------------------------------------
+# the CPU program lint of these legs (test_torch_audit.py's rule)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lint_rows():
+    return lint_rows_of(VGG_LEGS)
+
+
+@pytest.mark.parametrize("leg", VGG_LEGS)
+def test_every_leg_green_on_the_cpu_rules(lint_rows, leg):
+    assert_green(lint_rows[leg], leg)

@@ -37,11 +37,19 @@ several cuts in one strip, plans that start and end inside the buffer), to
 every column of the plan summed exactly once with the v of its own
 segment, every load inside the allocation and every scale index
 ``j // block``. No GPU and no JAX; seconds.
+
+The CPU program lint (``analysis/rules.py``) of the narrow and segmented
+wires' legs (``shared_bf16``, ``shared_int8``, ``majvote``,
+``shared_int8_seg4``, ``approx_int8_seg4``) is held here as
+``test_torch_audit.py`` holds the other legs: in a file of many tests, which
+xdist's loadfile schedules early (it orders files by their count of tests).
 """
 
 import numpy as np
 import pytest
 import torch
+
+from test_torch_audit import NARROW_LEGS, assert_green, lint_rows_of
 
 STRIPS = 31  # kStrips: strips a warp computes a window
 BASE = 1 << 16  # a 4 KB-aligned address; the buffer starts BASE + offset
@@ -449,3 +457,17 @@ def test_segments_plan_tiny_and_outside_the_span():
         for offset in (0, 3, 13):
             done = segments_plan(offset, d, 1, bounds)
             assert sorted(done) == list(range(bounds[0], bounds[-1]))
+
+
+# --------------------------------------------------------------------------
+# the CPU program lint of these legs (test_torch_audit.py's rule)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lint_rows():
+    return lint_rows_of(NARROW_LEGS)
+
+
+@pytest.mark.parametrize("leg", NARROW_LEGS)
+def test_every_leg_green_on_the_cpu_rules(lint_rows, leg):
+    assert_green(lint_rows[leg], leg)

@@ -24,6 +24,11 @@ numerics.py``), inputs from numpy seeds:
   * the metric schema (``metric_family_names``, the LM's
     ``token_metric_names``) the reference's, and the config rules of
     ``numerics_watch`` / ``shadow_wire`` refusing what it refuses.
+
+The CPU program lint (``analysis/rules.py``) of the observatory's legs
+(``numerics_watch=on`` with a shadow decode) is held here as
+``test_torch_audit.py`` holds the other legs: in a file of many tests, which
+xdist's loadfile schedules early (it orders files by their count of tests).
 """
 
 import dataclasses
@@ -41,6 +46,7 @@ from draco_tpu_torch.config import TrainConfig
 from draco_tpu_torch.obs import numerics as port
 from draco_tpu_torch.ops import draws
 from draco_tpu_torch.parallel import common as port_common
+from test_torch_audit import WATCH_LEGS, assert_green, lint_rows_of
 
 SEED = 428
 EDGES = (-32, -16, -8, 0, 8)
@@ -349,3 +355,17 @@ def test_the_shadow_draws_are_the_shadows_stream():
                                                   "bf16"))
     assert port.shadow_draws(dataclasses.replace(
         cfg, shadow_round="nearest"), step, 64, 1) is None
+
+
+# --------------------------------------------------------------------------
+# the CPU program lint of these legs (test_torch_audit.py's rule)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lint_rows():
+    return lint_rows_of(WATCH_LEGS)
+
+
+@pytest.mark.parametrize("leg", WATCH_LEGS)
+def test_every_leg_green_on_the_cpu_rules(lint_rows, leg):
+    assert_green(lint_rows[leg], leg)

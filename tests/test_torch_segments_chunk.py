@@ -33,7 +33,7 @@ from draco_tpu_torch.parallel.sp_step import build_sp_train_setup
 from draco_tpu_torch.parallel.sp_step import synthetic_text
 from draco_tpu_torch.training.trainer import Trainer
 from test_torch_chunk import assert_chunk_equals_eager, lm_build, lm_chunk
-from test_torch_chunk_cnn import cnn_chunk
+from test_torch_chunk import cnn_chunk
 
 torch.set_num_threads(1)
 

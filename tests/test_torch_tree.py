@@ -27,6 +27,12 @@ the JAX package's (``draco_tpu/coding/topology.py``).
   * the CNN and LM tree steps against the reference's:
     ``test_torch_tree_step.py``;
   * the tree's K=3 and K=1 chunks bit for bit its eager steps (LeNet).
+
+The CPU program lint (``analysis/rules.py``) of the int8 tree and the vote
+on the stochastic bf16 wire (``shared_int8_tree_g8``, ``majvote_bf16_sr``)
+is held here as ``test_torch_audit.py`` holds the other legs: in a file of
+many tests, which xdist's loadfile schedules early (it orders files by their
+count of tests).
 """
 
 import jax
@@ -47,6 +53,7 @@ from draco_tpu_torch.data import datasets
 from draco_tpu_torch.obs import numerics
 from draco_tpu_torch.parallel import common
 from draco_tpu_torch.training.trainer import Trainer
+from test_torch_audit import TREE_LEGS, assert_green, lint_rows_of
 
 torch.set_num_threads(1)
 
@@ -268,3 +275,17 @@ def test_tree_chunks_are_the_eager_steps(mnist, kw):
             client.cleanup()
 
     assert_chunk_equals_eager(build, chunk_of)
+
+
+# --------------------------------------------------------------------------
+# the CPU program lint of these legs (test_torch_audit.py's rule)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lint_rows():
+    return lint_rows_of(TREE_LEGS)
+
+
+@pytest.mark.parametrize("leg", TREE_LEGS)
+def test_every_leg_green_on_the_cpu_rules(lint_rows, leg):
+    assert_green(lint_rows[leg], leg)

@@ -8,6 +8,13 @@ block. Tolerance: none. The narrow buffers (bf16 ``q``; int8 ``q`` and
 both sides round to nearest even and divide by the same f32 scale, so any
 difference is a fault. The thresholds and λs are the reference's
 constants and must be equal.
+
+The narrow wire as a chunk on the CPU: cyclic ``shared`` ResNet-18 on the
+int8 wire (block 256; n=5, s=1, a rev_grad adversary every step, batch 1,
+``registry.CNN_CI``), ``train_many`` over the chunks (1, 3) and (4, 1)
+against four eager steps, bit for bit (``test_torch_chunk.py``'s
+harness), here in a file of many tests, which xdist's loadfile schedules
+early.
 """
 
 import dataclasses
@@ -114,3 +121,13 @@ def test_thresholds_equal(n, s):
     assert tnx.DEFAULT_BLOCK == jnx.DEFAULT_BLOCK
     assert tnx.WIRE_REL_TOL_TABLE == jnx.WIRE_REL_TOL_TABLE
     assert tnx.SHADOW_REL_TOL == jnx.SHADOW_REL_TOL
+
+
+def test_train_many_equals_eager_steps():
+    from draco_tpu_torch.data import datasets
+    from test_torch_chunk import assert_chunk_equals_eager, cnn_build
+    from test_torch_chunk import cnn_chunk
+
+    ds = datasets.load_dataset("synthetic-cifar10", synthetic_train=256,
+                               synthetic_test=16)
+    assert_chunk_equals_eager(cnn_build("shared_int8", ds), cnn_chunk)
